@@ -1,0 +1,132 @@
+// T=1 GQA flash decode over the stacked contiguous bf16 KV cache, Hopper.
+//
+// Replaces two kernels of qwen_inference_engine_tpu/ops/decode_attention.py:
+//   * decode_attention_contiguous (_decode_attention, body _decode_kernel):
+//     per-row lengths, the ragged batch;
+//   * decode_attention_appending (_decode_attention_append, body
+//     _decode_append_kernel): one shared position for every row; the fresh
+//     K/V row is written into the cache in place and attended in the same
+//     kernel.
+// One source, selected by whether k_new / v_new are given.
+//
+// q [B, 1, Hq, D] bf16; cache k / v [L, Bc, Hk, S, D] bf16 (head-major);
+// lengths [B] int32 (contiguous variant) or position [1] int32 (appending
+// variant, length = position + 1; read on the device, so the host never
+// waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq, D].
+//
+// What bounds it on the H100: each row reads 2 * len * Hk * D * 2 bytes of
+// cache for 4 * len * Hq * D flops: G = 7 operations per byte for
+// Qwen2.5-7B, far below the bf16 ridge (~295), so bytes bound it.
+//
+// Design: simple and right first.  A block of D threads takes one (row, KV
+// head) pair (grid: Hk x B) and all G query heads of the group as the rows
+// of attention_common.cuh, so each K/V byte is read from device memory once
+// per step; G = 7 needs no padding (rows are masked in the kernel).  Keys
+// past a row's length are never read.  In the appending variant the block
+// of (b, hk) is the only reader and writer of that cache row, so it writes
+// the fresh K/V row to the cache and stages the same row into its tile from
+// k_new / v_new: the fresh token enters the softmax from the inputs, never
+// from a cache read.  Only Hk * B blocks run (16 at B = 4 for Qwen2.5-7B), a
+// small share of the 132 SMs: splitting S across blocks with a second
+// reduction pass (flash-decoding) is the next step for speed.
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kRows = 8;    // query heads per KV head (G <= 8)
+constexpr int kKeys = 64;   // keys per tile
+
+template <int D>
+__global__ void __launch_bounds__(D)
+decode_kernel(const __nv_bfloat16* __restrict__ q,
+              __nv_bfloat16* __restrict__ k_cache,
+              __nv_bfloat16* __restrict__ v_cache,
+              const int* __restrict__ lengths,
+              const __nv_bfloat16* __restrict__ k_new,
+              const __nv_bfloat16* __restrict__ v_new,
+              const int* __restrict__ position_ptr,
+              __nv_bfloat16* __restrict__ out, int Bc, int Hq, int Hk, int S,
+              int layer, float scale) {
+  __shared__ qie::AttnSmem<D, kRows, kKeys> sm;
+  const int tid = threadIdx.x;
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = Hq / Hk;
+  const bool appending = k_new != nullptr;
+  const int position = appending ? *position_ptr : -1;
+  // a position outside the cache attends nothing and writes nothing
+  int len = appending ? (position < S ? position + 1 : 0) : lengths[b];
+  len = max(0, min(len, S));
+
+  for (int c = tid; c < kRows * D; c += D) {
+    const int i = c / D, d = c % D;
+    float val = 0.f;
+    if (i < G) {
+      val = __bfloat162float(
+          q[(static_cast<long long>(b) * Hq + hk * G + i) * D + d]) * scale;
+    }
+    sm.q[i][d] = val;
+  }
+  const long long base =
+      ((static_cast<long long>(layer) * Bc + b) * Hk + hk) * S * D;
+  const __nv_bfloat16* kf = nullptr;
+  const __nv_bfloat16* vf = nullptr;
+  int fresh = -1;
+  if (appending && len > 0) {
+    kf = k_new + (static_cast<long long>(b) * Hk + hk) * D;
+    vf = v_new + (static_cast<long long>(b) * Hk + hk) * D;
+    fresh = position;
+    k_cache[base + static_cast<long long>(position) * D + tid] = kf[tid];
+    v_cache[base + static_cast<long long>(position) * D + tid] = vf[tid];
+  }
+  float acc[kRows];
+  qie::attend<D, kRows, kKeys>(sm, acc, G, k_cache + base, v_cache + base, D,
+                               len, len - 1, 0, kf, vf, fresh);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (i < G) {
+      const float denom = fmaxf(sm.l[i], 1e-30f);
+      out[(static_cast<long long>(b) * Hq + hk * G + i) * D + tid] =
+          __float2bfloat16(acc[i] / denom);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int qie_decode_attention(const void* q, void* k_cache,
+                                    void* v_cache, const void* lengths,
+                                    const void* k_new, const void* v_new,
+                                    const void* position, void* out, int L,
+                                    int Bc, int B, int Hq, int Hk, int S,
+                                    int D, int layer, float scale,
+                                    void* stream) {
+  const bool appending = k_new != nullptr;
+  if (B <= 0 || B > Bc || Hk <= 0 || Hq % Hk || Hq / Hk > kRows ||
+      layer < 0 || layer >= L ||
+      (appending && (v_new == nullptr || position == nullptr)) ||
+      (!appending && lengths == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid(Hk, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  auto* kc = static_cast<__nv_bfloat16*>(k_cache);
+  auto* vc = static_cast<__nv_bfloat16*>(v_cache);
+  const auto* lp = static_cast<const int*>(lengths);
+  const auto* kn = static_cast<const __nv_bfloat16*>(k_new);
+  const auto* vn = static_cast<const __nv_bfloat16*>(v_new);
+  const auto* pp = static_cast<const int*>(position);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (D == 128) {
+    decode_kernel<128><<<grid, 128, 0, st>>>(qp, kc, vc, lp, kn, vn, pp, op,
+                                             Bc, Hq, Hk, S, layer, scale);
+  } else if (D == 64) {
+    decode_kernel<64><<<grid, 64, 0, st>>>(qp, kc, vc, lp, kn, vn, pp, op,
+                                           Bc, Hq, Hk, S, layer, scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,41 @@
+"""Carry a parameter tree of the JAX package over to the port.
+
+``params_from_numpy`` takes the JAX package's parameter pytree after each
+leaf was converted with ``np.asarray`` (the caller does the conversion, so
+this module imports no JAX) and returns the port's params: the same dict
+layout, with the port's ``Linear`` / ``QuantLinear`` holding torch tensors.
+The packed INT4 bytes and scales are carried as they are, so both packages
+compute the same function.  Linears are recognised by their fields
+(``w``/``b`` or ``q``/``scales``/``bits``/``group_size``), not their class.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qwen_inference_engine_tpu_torch.ops.linear import Linear, QuantLinear
+
+
+def _tensor(a, device):
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _leaf(v, device):
+    if hasattr(v, "q") and hasattr(v, "scales"):
+        return QuantLinear(q=_tensor(v.q, device),
+                           scales=_tensor(v.scales, device),
+                           b=_tensor(v.b, device), bits=int(v.bits),
+                           group_size=int(v.group_size))
+    if hasattr(v, "w"):
+        return Linear(w=_tensor(v.w, device), b=_tensor(v.b, device))
+    if isinstance(v, dict):
+        return {k: _leaf(x, device) for k, x in v.items()}
+    return _tensor(v, device)
+
+
+def params_from_numpy(tree: dict, device="cpu") -> dict:
+    """The port's params from a numpy-leaved JAX parameter tree."""
+    return {k: _leaf(v, device) for k, v in tree.items()}

@@ -1,0 +1,115 @@
+"""CLI of the port: ``generate`` with random weights from a preset.
+
+    python -m qwen_inference_engine_tpu_torch.server.cli generate \\
+        --model qwen2.5-7b --bits 4 --group-size 256 --act-bits 8 \\
+        --prompt "Hello" --max-new-tokens 32 --greedy
+
+Runs on the card (``--device cuda``, the default) unless ``--device cpu``
+is given.  Checkpoint loading (``--ckpt``) comes with the loaders in a
+later slice, so the weights are random, drawn from a seeded generator.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def build_model(args):
+    """(cfg, params, tokenizer, device) for the generate command."""
+    import torch
+
+    from qwen_inference_engine_tpu_torch.config import ModelConfig, tiny_config
+    from qwen_inference_engine_tpu_torch.engine.engine import resolve_device
+    from qwen_inference_engine_tpu_torch.models.qwen import init_params
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        QuantConfig,
+        quantize_params,
+    )
+    from qwen_inference_engine_tpu_torch.tokenizer import ByteTokenizer
+
+    device = resolve_device(args.device)
+    if args.model == "tiny":
+        # byte-vocab smoke model (matches the ByteTokenizer)
+        cfg = tiny_config(vocab_size=512)
+    else:
+        cfg = ModelConfig.from_pretrained(args.model)
+        print("note: no checkpoint loader yet; using RANDOM weights",
+              file=sys.stderr)
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, dtype=dtype, device=device)
+    if args.bits < 16:
+        params = quantize_params(
+            params, QuantConfig(bits=args.bits, group_size=args.group_size))
+    if args.act_bits:
+        if args.bits >= 16:
+            print("error: --act-bits requires --bits 4 or 8", file=sys.stderr)
+            raise SystemExit(2)
+        cfg = cfg.replace(act_bits=args.act_bits)
+    return cfg, params, ByteTokenizer(), device
+
+
+def cmd_generate(args) -> int:
+    import torch
+
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    cfg, params, tok, device = build_model(args)
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p, greedy=args.greedy)
+    prompt_ids = [tok.encode(t) for t in (args.prompt or ["Hello"])]
+    kv_dtype = {8: torch.int8, 32: torch.float32}.get(args.kv_bits,
+                                                      torch.bfloat16)
+    eng = Engine(cfg, params, max_batch=len(prompt_ids), max_seq=args.max_seq,
+                 kv_dtype=kv_dtype, sampling=sp, seed=args.seed, device=device)
+    t0 = time.perf_counter()
+    res = eng.generate(prompt_ids, max_new_tokens=args.max_new_tokens)
+    dt = time.perf_counter() - t0
+    for i, ids in enumerate(res.token_ids):
+        print(f"--- sequence {i} ({len(ids)} tokens) ---")
+        print(ids)
+        print(tok.decode(ids))
+    print(f"[device {device} | ttft {res.ttft_s * 1e3:.1f} ms | "
+          f"{res.decode_tokens_per_s:.1f} tok/s | total {dt:.2f}s]",
+          file=sys.stderr)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="qie-torch", description="Qwen inference engine, PyTorch/CUDA port")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    g = sub.add_parser("generate", help="batch text generation")
+    g.add_argument("--model", default="qwen2.5-7b",
+                   help="preset name (random weights) or 'tiny'")
+    g.add_argument("--bits", type=int, default=16, choices=(4, 8, 16),
+                   help="weight quantization (CUDA: 4 with --act-bits 8, or 16)")
+    g.add_argument("--group-size", type=int, default=128)
+    g.add_argument("--act-bits", type=int, default=0, choices=(0, 8),
+                   help="8 = W4A8: per-token int8 activations in the block "
+                        "projections")
+    g.add_argument("--kv-bits", type=int, default=16, choices=(8, 16, 32),
+                   help="16 = bf16 KV (the kernels' type), 32 = f32 (CPU); "
+                        "8 = INT8 KV, not ported yet")
+    g.add_argument("--max-seq", type=int, default=2048)
+    g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--prompt", action="append", default=None,
+                   help="prompt text (repeatable for a batch)")
+    g.add_argument("--max-new-tokens", type=int, default=128)
+    g.add_argument("--greedy", action="store_true")
+    g.add_argument("--temperature", type=float, default=0.7)
+    g.add_argument("--top-k", type=int, default=50)
+    g.add_argument("--top-p", type=float, default=1.0)
+    g.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    g.set_defaults(fn=cmd_generate)
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,53 @@
+"""Serving metrics: TTFT percentiles, decode throughput, token counters."""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List
+
+
+class Metrics:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._ttfts: List[float] = []
+        self._decode_tokens = 0
+        self._decode_time = 0.0
+        self._prefill_tokens = 0
+        self._requests = 0
+
+    def observe_ttft(self, seconds: float) -> None:
+        with self._lock:
+            self._ttfts.append(seconds)
+            self._requests += 1
+
+    def observe_decode(self, tokens: int, seconds: float) -> None:
+        with self._lock:
+            self._decode_tokens += tokens
+            self._decode_time += seconds
+
+    def observe_prefill(self, tokens: int) -> None:
+        with self._lock:
+            self._prefill_tokens += tokens
+
+    @staticmethod
+    def _pct(sorted_vals: List[float], q: float) -> float:
+        if not sorted_vals:
+            return 0.0
+        idx = min(int(q * (len(sorted_vals) - 1) + 0.5), len(sorted_vals) - 1)
+        return sorted_vals[idx]
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            ttfts = sorted(self._ttfts)
+            return {
+                "requests": self._requests,
+                "ttft_p50_s": self._pct(ttfts, 0.50),
+                "ttft_p90_s": self._pct(ttfts, 0.90),
+                "ttft_p99_s": self._pct(ttfts, 0.99),
+                "decode_tokens": self._decode_tokens,
+                "decode_tokens_per_s": (
+                    self._decode_tokens / self._decode_time
+                    if self._decode_time > 0 else 0.0
+                ),
+                "prefill_tokens": self._prefill_tokens,
+            }

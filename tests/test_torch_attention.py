@@ -1,0 +1,108 @@
+"""Port of the attention kernels (2, 3, 4) vs the JAX package.
+
+The JAX Pallas kernels run in interpreter mode on the CPU, as in
+tests/test_attention_kernels.py; the port's wrappers run their plain
+versions for CPU tensors (the CUDA kernels are held against the same plain
+versions by chip_smoke.py).  Tolerance 2e-3, as the JAX kernel tests use.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import qwen_inference_engine_tpu.ops.decode_attention as jda
+import qwen_inference_engine_tpu.ops.flash_attention as jfa
+from qwen_inference_engine_tpu.ops.attention import gqa_attention_kmajor as j_kmajor
+from qwen_inference_engine_tpu_torch.ops import decode_attention as tda
+from qwen_inference_engine_tpu_torch.ops import flash_attention as tfa
+from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
+from tests.helpers import interpret_pallas
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("T,Hq,Hk,D", [(32, 4, 2, 128), (64, 14, 2, 128),
+                                       (48, 8, 8, 64)])
+def test_flash_attention_plain_matches_pallas_interpret(T, Hq, Hk, D):
+    """Includes G=7, D=128 (the Qwen2.5-7B group) and a ragged T=48 edge."""
+    B = 2
+    rng = np.random.default_rng(T + Hq)
+    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, T, Hk, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, Hk, D)).astype(np.float32)
+    bq = 16 if T % 32 else 32
+    with interpret_pallas(jfa):
+        ref = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), block_q=bq,
+                                             block_k=bq))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(_t(q), _t(k), _t(v))
+    assert tfa.flash_attention.launches == before
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B,G", [(3, 7), (4, 4)])
+def test_decode_attention_contiguous_plain_matches_pallas_interpret(B, G):
+    """Ragged per-row lengths over the stacked [L, B, Hk, S, D] cache."""
+    L, Hk, D, S = 3, 2, 128, 256
+    Hq = G * Hk
+    rng = np.random.default_rng(7 + B)
+    kc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+    vc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+    lens = np.asarray([1, 100, 256, 37][:B], np.int32)
+    q = rng.normal(size=(B, 1, Hq, D)).astype(np.float32)
+    layer = 1
+    with interpret_pallas(jda):
+        ref = np.asarray(jda.decode_attention_contiguous(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), layer,
+            jnp.asarray(lens)))
+    before = tda.decode_attention_contiguous.launches
+    got = tda.decode_attention_contiguous(_t(q), _t(kc), _t(vc), layer,
+                                          _t(lens))
+    assert tda.decode_attention_contiguous.launches == before
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("pos", [0, 37, 128, 255])
+def test_decode_attention_appending_plain_matches_pallas_interpret(pos):
+    """Edge (0, 255) and mid-block (37, 128) positions: the output and the
+    cache rows written in place must match the JAX kernel's."""
+    L, B, Hk, G, D, S = 3, 4, 2, 7, 128, 256
+    Hq = G * Hk
+    rng = np.random.default_rng(11 + pos)
+    kc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+    vc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+    q = rng.normal(size=(B, 1, Hq, D)).astype(np.float32)
+    kn = rng.normal(size=(B, 1, Hk, D)).astype(np.float32)
+    vn = rng.normal(size=(B, 1, Hk, D)).astype(np.float32)
+    layer = 2
+    with interpret_pallas(jda):
+        ref, rk, rv = jda.decode_attention_appending(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kn),
+            jnp.asarray(vn), layer, pos)
+    tk, tv = _t(kc), _t(vc)
+    before = tda.decode_attention_appending.launches
+    got, gk, gv = tda.decode_attention_appending(_t(q), tk, tv, _t(kn),
+                                                 _t(vn), layer, pos)
+    assert tda.decode_attention_appending.launches == before
+    assert gk is tk and gv is tv  # written in place, same tensors back
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(gk.numpy(), np.asarray(rk), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(rv), rtol=1e-6, atol=1e-6)
+
+
+def test_gqa_oracle_matches_jax_oracle():
+    B, T, Hq, Hk, S, D = 2, 3, 6, 2, 40, 32
+    rng = np.random.default_rng(2)
+    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Hk, S, D)).astype(np.float32)
+    v = rng.normal(size=(B, Hk, S, D)).astype(np.float32)
+    pos = np.asarray([[10, 11, 12], [30, 31, 32]], np.int32)
+    ref = np.asarray(j_kmajor(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(pos)))
+    got = gqa_attention_kmajor(_t(q), _t(k), _t(v), _t(pos).long())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)

@@ -1,0 +1,129 @@
+"""The slice as a whole: W4A8 tiny Qwen2 / Qwen3 in both packages.
+
+Params are built in JAX (init_params, random biases and norm weights, INT4
+gs 64, act_bits 8, f32 on the CPU), carried over with params_from_numpy,
+and run through both packages: prefill / decode logits against the JAX
+forward with attn_impl="xla" (atol 1e-3, f32), and greedy Engine.generate
+token-identical to the JAX Engine on aligned and ragged batches.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen_inference_engine_tpu.config import tiny_config as j_tiny_config
+from qwen_inference_engine_tpu.engine.engine import Engine as JEngine
+from qwen_inference_engine_tpu.kvcache.cache import KVCache as JKVCache
+from qwen_inference_engine_tpu.models import qwen as jqwen
+from qwen_inference_engine_tpu.ops.linear import Linear as JLinear
+from qwen_inference_engine_tpu.ops.sampling import SamplingParams as JSampling
+from qwen_inference_engine_tpu.quant.quantize import QuantConfig as JQuantConfig
+from qwen_inference_engine_tpu.quant.quantize import (
+    quantize_params as j_quantize_params,
+)
+from qwen_inference_engine_tpu_torch.config import tiny_config
+from qwen_inference_engine_tpu_torch.engine.engine import Engine
+from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+from qwen_inference_engine_tpu_torch.loader.from_jax import params_from_numpy
+from qwen_inference_engine_tpu_torch.models import qwen as tqwen
+from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear
+from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+
+def _build(qk_norm: bool):
+    """(jax cfg, jax params, port cfg, port params)."""
+    jcfg = j_tiny_config(qk_norm=qk_norm)
+    params = jqwen.init_params(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32)
+    rng = np.random.default_rng(17 + qk_norm)
+    layers = dict(params["layers"])
+    for name, leaf in layers.items():
+        if isinstance(leaf, JLinear) and leaf.b is not None:
+            b = rng.normal(size=leaf.b.shape).astype(np.float32) * 0.5
+            layers[name] = dataclasses.replace(leaf, b=jnp.asarray(b))
+        elif not isinstance(leaf, JLinear):  # norm weights
+            layers[name] = jnp.asarray(
+                rng.uniform(0.5, 1.5, size=leaf.shape).astype(np.float32))
+    params = dict(params, layers=layers, final_norm=jnp.asarray(
+        rng.uniform(0.5, 1.5, size=params["final_norm"].shape
+                    ).astype(np.float32)))
+    params = j_quantize_params(params, JQuantConfig(bits=4, group_size=64))
+    jcfg = jcfg.replace(act_bits=8)
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
+    tcfg = tiny_config(qk_norm=qk_norm).replace(act_bits=8)
+    return jcfg, params, tcfg, tparams
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["qwen2", "qwen3"])
+def models(request):
+    return _build(request.param)
+
+
+def test_params_carried_over(models):
+    _, jparams, tcfg, tparams = models
+    q = tparams["layers"]["q"]
+    assert isinstance(q, QuantLinear) and q.bits == 4
+    assert q.q.dtype == torch.int8
+    np.testing.assert_array_equal(q.q.numpy(), np.asarray(jparams["layers"]["q"].q))
+    assert (q.b is not None) == tcfg.attention_bias
+    if tcfg.attention_bias:
+        assert float(q.b.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_prefill_and_decode_logits_match_jax(models, ragged):
+    jcfg, jparams, tcfg, tparams = models
+    B, T, S = 2, 16, 64
+    lens = np.asarray([9, 16] if ragged else [16, 16], np.int32)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(2, jcfg.vocab_size, size=(B, T)).astype(np.int32)
+    jcache = JKVCache.create(jcfg.num_layers, B, S, jcfg.num_kv_heads,
+                             jcfg.head_dim, dtype=jnp.float32)
+    tcache = KVCache.create(tcfg.num_layers, B, S, tcfg.num_kv_heads,
+                            tcfg.head_dim, dtype=torch.float32)
+    jl, jcache = jqwen.prefill(jparams, jcfg, jnp.asarray(toks),
+                               jnp.asarray(lens), jcache, attn_impl="xla")
+    tl, tcache = tqwen.prefill(tparams, tcfg, torch.from_numpy(toks).long(),
+                               torch.from_numpy(lens).long(), tcache)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-3, rtol=0)
+    for step in range(3):
+        nxt = rng.integers(2, jcfg.vocab_size, size=(B,)).astype(np.int32)
+        pos = lens + step
+        jl, jcache = jqwen.decode_step(jparams, jcfg, jnp.asarray(nxt),
+                                       jnp.asarray(pos), jcache,
+                                       attn_impl="xla",
+                                       uniform_decode=not ragged)
+        tl, tcache = tqwen.decode_step(tparams, tcfg,
+                                       torch.from_numpy(nxt).long(),
+                                       torch.from_numpy(pos).long(), tcache,
+                                       uniform_decode=not ragged)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-3,
+                                   rtol=0)
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k),
+                               atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("prompts,penalty", [
+    ([[5, 9, 17, 3, 44, 61, 7], [100, 200, 300, 400, 500, 42, 11]], 1.0),
+    ([[5, 9, 17, 3], [100, 200, 300, 400, 500, 42, 11, 12, 13, 14, 15, 16,
+                      17, 18, 19, 20, 21], [7]], 1.0),
+    ([[5, 9, 17, 3], [100, 200, 300, 400, 500, 42]], 1.5),
+], ids=["aligned", "ragged", "ragged-penalty"])
+def test_engine_greedy_token_identical_to_jax(models, prompts, penalty):
+    """The penalty case runs the seen mask (prompt tokens and each sampled
+    token) through both engines."""
+    jcfg, jparams, tcfg, tparams = models
+    jeng = JEngine(jcfg, jparams, max_batch=len(prompts), max_seq=128,
+                   sampling=JSampling(greedy=True, repetition_penalty=penalty),
+                   kv_dtype=jnp.float32)
+    teng = Engine(tcfg, tparams, max_batch=len(prompts), max_seq=128,
+                  sampling=SamplingParams(greedy=True,
+                                          repetition_penalty=penalty),
+                  kv_dtype=torch.float32, device="cpu")
+    want = jeng.generate(prompts, max_new_tokens=12).token_ids
+    got = teng.generate(prompts, max_new_tokens=12)
+    assert got.token_ids == want
+    assert got.steps >= 1 and got.ttft_s > 0

@@ -1,0 +1,178 @@
+"""Rules of the port: no JAX in it, the card by default, no hidden fallback."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from qwen_inference_engine_tpu_torch.config import tiny_config
+from qwen_inference_engine_tpu_torch.engine.engine import Engine
+from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+from qwen_inference_engine_tpu_torch.models.qwen import init_params
+from qwen_inference_engine_tpu_torch.ops import decode_attention as tda
+from qwen_inference_engine_tpu_torch.ops import flash_attention as tfa
+from qwen_inference_engine_tpu_torch.ops import quant_matmul as tqmm
+from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import qwen_inference_engine_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+       or m == "qwen_inference_engine_tpu"
+       or m.startswith("qwen_inference_engine_tpu.")]
+print(len(names), bad)
+assert not bad, bad
+assert len(names) >= 15, names
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_jax_import_in_port_sources():
+    pkg = os.path.join(ROOT, "qwen_inference_engine_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, dirs, fs in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x != "_build"]  # build outputs only
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        for bad in ("import jax", "from jax", "import qwen_inference_engine_tpu\n",
+                    "from qwen_inference_engine_tpu."):
+            assert bad not in src, (path, bad)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_engine_defaults_to_the_card(device):
+    cfg = tiny_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         dtype=torch.float32)
+    if torch.cuda.is_available():
+        eng = Engine(cfg, params, max_batch=1, max_seq=64, device=device)
+        assert eng.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Engine(cfg, params, max_batch=1, max_seq=64, device=device)
+
+
+def test_cli_defaults_to_the_card():
+    from qwen_inference_engine_tpu_torch.server import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default would run on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["generate", "--model", "tiny", "--max-new-tokens", "2"])
+
+
+def test_cli_runs_on_cpu_when_asked(capsys):
+    from qwen_inference_engine_tpu_torch.server import cli
+
+    rc = cli.main(["generate", "--model", "tiny", "--bits", "4",
+                   "--group-size", "64", "--act-bits", "8", "--kv-bits", "32",
+                   "--device", "cpu", "--prompt", "hi", "--prompt", "there",
+                   "--max-new-tokens", "4", "--greedy"])
+    assert rc == 0
+    out = capsys.readouterr()
+    assert "sequence 1" in out.out and "device cpu" in out.err
+
+
+def test_wrappers_run_plain_on_cpu_and_count_no_launch():
+    rng = np.random.default_rng(0)
+    counters = [tqmm.quant_matmul4_a8, tfa.flash_attention,
+                tda.decode_attention_contiguous, tda.decode_attention_appending]
+    before = [f.launches for f in counters]
+
+    xq = torch.from_numpy(rng.integers(-127, 128, size=(3, 256)).astype(np.int8))
+    sx = torch.rand(3)
+    q = torch.from_numpy(rng.integers(-128, 128, size=(2, 128, 128)).astype(np.int8))
+    s = torch.rand(2, 4, 128)
+    y = tqmm.quant_matmul4_a8(xq, sx, q, s, 1, 64)
+    np.testing.assert_array_equal(
+        y.float().numpy(),
+        tqmm.quant_matmul4_a8_plain(xq, sx, q, s, 1, 64).float().numpy())
+
+    qq = torch.randn(2, 16, 4, 32)
+    kk, vv = torch.randn(2, 16, 2, 32), torch.randn(2, 16, 2, 32)
+    np.testing.assert_array_equal(
+        tfa.flash_attention(qq, kk, vv).numpy(),
+        tfa.flash_attention_plain(qq, kk, vv).numpy())
+
+    kc, vc = torch.randn(2, 2, 2, 256, 32), torch.randn(2, 2, 2, 256, 32)
+    qd = torch.randn(2, 1, 4, 32)
+    lens = torch.tensor([3, 200])
+    np.testing.assert_array_equal(
+        tda.decode_attention_contiguous(qd, kc, vc, 1, lens).numpy(),
+        tda.decode_attention_contiguous_plain(qd, kc, vc, 1, lens).numpy())
+    kn, vn = torch.randn(2, 1, 2, 32), torch.randn(2, 1, 2, 32)
+    a, _, _ = tda.decode_attention_appending(qd, kc.clone(), vc.clone(), kn,
+                                             vn, 0, 9)
+    b, _, _ = tda.decode_attention_appending_plain(qd, kc.clone(), vc.clone(),
+                                                   kn, vn, 0, 9)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert [f.launches for f in counters] == before
+
+
+def test_unported_variants_raise_on_cuda_before_any_plain_path():
+    """The dispatch decisions that do not need a card to be made."""
+    with pytest.raises(NotImplementedError, match="q8"):
+        KVCache.create(1, 1, 16, 1, 32, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="row0"):
+        tda.decode_attention_contiguous(torch.zeros(1, 1, 2, 32),
+                                        torch.zeros(1, 1, 1, 256, 32),
+                                        torch.zeros(1, 1, 1, 256, 32), 0,
+                                        torch.ones(1), row0=2)
+    from qwen_inference_engine_tpu_torch.models.qwen import prefill_chunked
+
+    with pytest.raises(NotImplementedError, match="chunk_attention"):
+        prefill_chunked({}, tiny_config(), torch.zeros(1, 1024, dtype=torch.long),
+                        torch.ones(1), None, chunk=512)
+
+
+def test_cuda_dispatcher_names_the_missing_kernel():
+    """On a CUDA tensor the dispatcher raises for INT8 weights and for bf16
+    activations; a meta tensor stands in for the card here."""
+    x = torch.empty(2, 128, device="meta")
+    lin4 = QuantLinear(q=torch.empty(1, 64, 128, dtype=torch.int8),
+                       scales=torch.empty(1, 1, 128), b=None, bits=4,
+                       group_size=64)
+    lin8 = QuantLinear(q=torch.empty(1, 128, 128, dtype=torch.int8),
+                       scales=torch.empty(1, 1, 128), b=None, bits=8,
+                       group_size=128)
+    with pytest.raises(NotImplementedError, match="_quant_matmul4 "):
+        tqmm.quant_matmul_stacked(x, lin4, 0, act_bits=0)
+    with pytest.raises(NotImplementedError, match="_quant_matmul8"):
+        tqmm.quant_matmul_stacked(x, lin8, 0, act_bits=8)
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every C function the wrappers call exists in csrc/ with as many
+    parameters as its ctypes argtypes (a mismatch would pass garbage)."""
+    import re
+
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+
+    cu, hdr = cuda_lib._sources()
+    assert {os.path.basename(p) for p in cu} == {
+        "quant_matmul.cu", "flash_attention.cu", "decode_attention.cu"}
+    assert [os.path.basename(p) for p in hdr] == ["attention_common.cuh"]
+    src = "".join(open(p).read() for p in cu)
+    found = {m.group(1): m.group(2) for m in re.finditer(
+        r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert set(found) == set(cuda_lib.SIGNATURES)
+    for name, params in found.items():
+        assert len(params.split(",")) == len(cuda_lib.SIGNATURES[name]), name
+    assert len(cuda_lib.build_key()) == 16
