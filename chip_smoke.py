@@ -13,15 +13,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    bound (the larger of bytes at 3.35 TB/s and operations at the peak rate
    of their type: 989 TFLOP/s bf16, 1979 TOP/s int8);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
-   weights from a seeded generator, W4A8 gs 256, bf16 KV, through
-   ``Engine.generate``: a ragged batch (prompts of 37, 120, 300 and 500
-   tokens) and an aligned batch (4 x 256), 32 tokens each; every launch
-   count is set to 0 just before and read just after;
+   weights from a seeded generator, W4A8 gs 256, through
+   ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
+   (prompts of 37, 120, 300 and 500 tokens) and an aligned batch (4 x 256)
+   at max_seq 1024; then prompts longer than one 512-token chunk (bucket
+   2048, three continuation chunks) at max_seq 2304: bf16 KV aligned
+   (4 x 1408) and ragged (700, 1100, 1408, 1900), INT8 KV aligned
+   (4 x 1408) and ragged (37, 600, 1408, 1900).  Every launch count is set
+   to 0 just before each run and read just after, and each run must have
+   launched the kernels of its path and none of the others';
 5. the kernel path against the plain path on the card, the same weights at
-   a depth of 4 layers: prefill logits and 8 greedy tokens; both are held
-   against an fp32 run of the plain path, and the kernel path may be at
-   most 1.5x as far from it as the plain bf16 path is (with random weights,
-   bf16 rounding alone moves the logits by a few tenths).
+   a depth of 4 layers: in bf16 KV, prefill logits (one chunk) and 8 greedy
+   tokens; in INT8 KV, the logits of a chunked prefill of prompts of 600 to
+   1000 tokens (a fresh chunk and a continuation).  Both paths are held
+   against an fp32 run of the plain path (over an int8 cache in the INT8
+   case), and the kernel path may be at most 1.5x as far from it as the
+   plain bf16 path is (with random weights, bf16 rounding alone moves the
+   logits by a few tenths).
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Every number is measured in this run.
@@ -235,9 +243,182 @@ def check_decode(torch, cfg):
     return records
 
 
+def _int8(torch, g, shape):
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
+
+    return quantize_kv(torch.randn(shape, generator=g, device="cuda"))
+
+
+def check_chunk(torch, cfg):
+    """Kernels 5 and 6: the continuation chunk at B=4, T=512 over a cache
+    of S=2304, starts 512 and 1536 (chunks 1 and 3 of a 2048 bucket)."""
+    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
+
+    L, B, T, S = 2, 4, 512, 2304
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((B, T, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((L, B, Hk, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((L, B, Hk, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    k8, ks = _int8(torch, g, (L, B, Hk, S, D))
+    v8, vs = _int8(torch, g, (L, B, Hk, S, D))
+    layer = 1
+    records = {}
+    for quant in (False, True):
+        name = "chunk_attention_contiguous" + ("_q8" if quant else "")
+        tol = 2e-2
+        for start in (512, 1536):
+            end = start + T
+            if quant:
+                args = (q, k8, v8, ks, vs, layer, start)
+                kern, plain = ca.chunk_attention_contiguous_q8, \
+                    ca.chunk_attention_contiguous_q8_plain
+                # the library's input: a bf16 copy dequantized beforehand
+                kl = dequantize_kv(k8[layer, :, :, :end], ks[layer, :, :, :end])
+                vl = dequantize_kv(v8[layer, :, :, :end], vs[layer, :, :, :end])
+            else:
+                args = (q, kc, vc, layer, start)
+                kern, plain = ca.chunk_attention_contiguous, \
+                    ca.chunk_attention_contiguous_plain
+                kl, vl = kc[layer, :, :, :end], vc[layer, :, :, :end]
+            got = kern(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            ms = time_ms(torch, lambda: kern(*args))
+            plain_ms = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
+            qpos = start + torch.arange(T, device="cuda")
+            mask = torch.arange(end, device="cuda")[None, :] <= qpos[:, None]
+            lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl,
+                                          mask=mask))
+            itemsize = 1 if quant else 2
+            n_bytes = 2 * B * Hk * end * D * itemsize + 2 * 2 * B * T * Hq * D
+            if quant:
+                n_bytes += 2 * 4 * B * Hk * end
+            n_ops = 4 * B * Hq * D * (T * start + T * (T + 1) // 2)
+            b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+            rec = dict(shape=f"B={B} T={T} start={start} S={S} Hq={Hq} "
+                             f"Hk={Hk} D={D}", max_abs_err=err, tol=tol, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+            print(f"  {name} start {start}: err {err:.3g} (tol {tol}) | "
+                  f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa "
+                  f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
+            if not err <= tol:
+                fail(f"{name} start {start} err {err} > {tol}")
+            # the JSON line keeps the last chunk of the 2048 bucket
+            records[name] = rec
+            del got, ref, kl, vl
+    return records
+
+
+def check_kv_append(torch, cfg):
+    """Kernel 7 at B=4, position 1999 of S=2304: bit-exact."""
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
+
+    L, B, S, pos, layer = 2, 4, 2304, 1999, 1
+    Hk, D = cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k8, ks = _int8(torch, g, (L, B, Hk, S, D))
+    v8, vs = _int8(torch, g, (L, B, Hk, S, D))
+    kn, ksn = quantize_kv(torch.randn((B, 1, Hk, D), generator=g, device="cuda"))
+    vn, vsn = quantize_kv(torch.randn((B, 1, Hk, D), generator=g, device="cuda"))
+    new = (kn, vn, ksn, vsn)
+    mine = [t.clone() for t in (k8, v8, ks, vs)]
+    theirs = [t.clone() for t in (k8, v8, ks, vs)]
+    got = ka.kv_append_uniform_q8(*mine, *new, pos, layer)
+    ref = ka.kv_append_uniform_q8_plain(*theirs, *new, pos, layer)
+    torch.cuda.synchronize()
+    if any(a is not b for a, b in zip(got, mine)):
+        fail("kv_append_uniform_q8 did not return the tensors it wrote")
+    diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    written = int((mine[0] != k8).sum())
+    pos_t = torch.tensor([pos], device="cuda")
+    ms = time_ms(torch, lambda: ka.kv_append_uniform_q8(*mine, *new, pos_t, layer))
+    plain_ms = time_ms(torch, lambda: ka.kv_append_uniform_q8_plain(
+        *theirs, *new, pos, layer))
+
+    def library():
+        for cache, x in zip(theirs, new):
+            cache[layer, :, :, pos] = x[:, 0]
+
+    lib_ms = time_ms(torch, library)
+    n_bytes = 2 * (2 * B * Hk * D + 2 * 4 * B * Hk)
+    b_ms, b_by = bound(n_bytes, 0, "int8")
+    print(f"  kv_append_uniform_q8 position {pos}: {diff} elements differ "
+          f"(must be 0; {written} K bytes written) | kernel {ms:.4f} ms | "
+          f"plain {plain_ms:.4f} | slice assignment {lib_ms:.4f} | bound "
+          f"{b_ms:.6f} ({b_by})", flush=True)
+    if diff != 0 or written == 0:
+        fail(f"kv_append_uniform_q8 not bit-exact: {diff} elements differ")
+    return {"kv_append_uniform_q8": dict(
+        shape=f"B={B} position={pos} S={S} Hk={Hk} D={D}", max_abs_err=0.0,
+        tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by)}
+
+
+def check_decode_q8(torch, cfg):
+    """Kernel 8 at B=4, lengths 69 / 700 / 1408 / 2000 of S=2304."""
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
+
+    L, B, S, layer = 2, 4, 2304, 1
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(6)
+    k8, ks = _int8(torch, g, (L, B, Hk, S, D))
+    v8, vs = _int8(torch, g, (L, B, Hk, S, D))
+    q = torch.randn((B, 1, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    lens_list = [69, 700, 1408, 2000]
+    lens = torch.tensor(lens_list, device="cuda")
+    args = (q, k8, v8, ks, vs, layer, lens)
+    tol = 2e-2
+    got = da.decode_attention_contiguous_q8(*args)
+    ref = da.decode_attention_contiguous_q8_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    ms = time_ms(torch, lambda: da.decode_attention_contiguous_q8(*args))
+    plain_ms = time_ms(torch, lambda: da.decode_attention_contiguous_q8_plain(*args))
+    kl = dequantize_kv(k8[layer], ks[layer])
+    vl = dequantize_kv(v8[layer], vs[layer])
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl, mask=mask))
+    n_keys = sum(lens_list)
+    n_bytes = 2 * n_keys * Hk * (D + 4) + 2 * (2 * B * Hq * D) + 4 * B
+    b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D, "bf16")
+    print(f"  decode_attention_contiguous_q8 lens {lens_list}: err {err:.3g} "
+          f"(tol {tol}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa "
+          f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
+    if not err <= tol:
+        fail(f"decode_attention_contiguous_q8 err {err} > {tol}")
+    return {"decode_attention_contiguous_q8": dict(
+        shape=f"B={B} lens={lens_list} S={S} Hq={Hq} Hk={Hk}",
+        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by)}
+
+
 # ----------------------------------------------------------------------
 # phases 4 and 5
 # ----------------------------------------------------------------------
+
+def model_check(label, lk, lp, lr, extra=""):
+    """The kernel path's logits ``lk`` may be at most 1.5x as far from the
+    fp32 plain run ``lr`` as the plain bf16 path's ``lp`` are."""
+    if not bool(lk.isfinite().all()):
+        fail(f"{label}: non-finite logits on the kernel path")
+    dlogit = (lk - lp).abs().max().item()
+    err_k = (lk - lr).abs().max().item()
+    err_p = (lp - lr).abs().max().item()
+    tol = 1.5 * err_p
+    print(f"[model] 4 layers, {label}, prefill logits on the card: kernels vs "
+          f"plain versions max |dlogit| {dlogit:.4g} (max|logit| "
+          f"{lr.abs().max().item():.4g}) | vs the fp32 plain path: kernels "
+          f"{err_k:.4g}, plain bf16 {err_p:.4g} (tol: kernels <= 1.5 x plain "
+          f"= {tol:.4g}){extra}", flush=True)
+    if not err_k <= tol:
+        fail(f"{label}: kernel path is {err_k} from the fp32 path, > {tol}")
+
 
 class Swapped:
     """Swap module attributes for the length of a ``with`` block: the smoke
@@ -256,36 +437,49 @@ class Swapped:
             setattr(m, n, f)
 
 
-def plain_swaps():
-    """The four kernels replaced by their plain versions (bf16, as the
-    kernels compute)."""
+def attention_swaps():
+    """The attention and append kernels of the model replaced by their
+    plain versions."""
     from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
     from qwen_inference_engine_tpu_torch.ops import decode_attention as da
     from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
-    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
 
-    return [(qm, "quant_matmul4_a8", qm.quant_matmul4_a8_plain),
-            (qwen, "flash_attention", fa.flash_attention_plain),
+    return [(qwen, "flash_attention", fa.flash_attention_plain),
+            (qwen, "chunk_attention_contiguous",
+             ca.chunk_attention_contiguous_plain),
+            (qwen, "chunk_attention_contiguous_q8",
+             ca.chunk_attention_contiguous_q8_plain),
             (qwen, "decode_attention_contiguous",
              da.decode_attention_contiguous_plain),
             (qwen, "decode_attention_appending",
-             da.decode_attention_appending_plain)]
+             da.decode_attention_appending_plain),
+            (qwen, "decode_attention_contiguous_q8",
+             da.decode_attention_contiguous_q8_plain),
+            (qwen, "kv_append_uniform_q8", ka.kv_append_uniform_q8_plain)]
+
+
+def plain_swaps():
+    """The eight kernels replaced by their plain versions (bf16, as the
+    kernels compute)."""
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+
+    return [(qm, "quant_matmul4_a8", qm.quant_matmul4_a8_plain),
+            *attention_swaps()]
 
 
 def f32_swaps():
     """An fp32 reference path: the plain dequant matmul of ops/linear.py
     (the code the CPU tests hold against the JAX package) in place of the
     bf16 W4A8 dispatcher, and the plain attention."""
-    from qwen_inference_engine_tpu_torch.models import qwen
-    from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
     from qwen_inference_engine_tpu_torch.ops.linear import quant_matmul
 
     def stacked(x, lin, layer, act_bits=0):
         return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits)
 
-    return [(qm, "quant_matmul_stacked", stacked),
-            (qwen, "flash_attention", fa.flash_attention_plain)]
+    return [(qm, "quant_matmul_stacked", stacked), *attention_swaps()]
 
 
 def main() -> int:
@@ -298,11 +492,14 @@ def main() -> int:
     import numpy as np
 
     from qwen_inference_engine_tpu_torch.config import PRESETS
-    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine, _bucket
     from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
     from qwen_inference_engine_tpu_torch.ops import decode_attention as da
     from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
     from qwen_inference_engine_tpu_torch.quant.quantize import (
@@ -343,6 +540,9 @@ def main() -> int:
     qmm_14b = check_quant_matmul(torch, PRESETS["qwen2.5-14b"], gs, ms_list=(4,))
     flash_recs = check_flash(torch, cfg)
     dec_recs = check_decode(torch, cfg)
+    chunk_recs = check_chunk(torch, cfg)
+    append_recs = check_kv_append(torch, cfg)
+    dec8_recs = check_decode_q8(torch, cfg)
     torch.cuda.empty_cache()
 
     # ---- 4. end to end: Qwen2.5-7B, full depth, W4A8 gs 256, bf16 KV
@@ -369,34 +569,88 @@ def main() -> int:
     wrappers = {"quant_matmul4_a8": qm.quant_matmul4_a8,
                 "flash_attention": fa.flash_attention,
                 "decode_attention_contiguous": da.decode_attention_contiguous,
-                "decode_attention_appending": da.decode_attention_appending}
-    for w in wrappers.values():
-        w.launches = 0
+                "decode_attention_appending": da.decode_attention_appending,
+                "chunk_attention_contiguous": ca.chunk_attention_contiguous,
+                "chunk_attention_contiguous_q8":
+                    ca.chunk_attention_contiguous_q8,
+                "kv_append_uniform_q8": ka.kv_append_uniform_q8,
+                "decode_attention_contiguous_q8":
+                    da.decode_attention_contiguous_q8}
+    engines = {
+        "bf16": eng,
+        "bf16 long": Engine(cfg8, params, max_batch=4, max_seq=2304,
+                            kv_dtype=torch.bfloat16,
+                            sampling=SamplingParams(greedy=True),
+                            device="cuda"),
+        "int8 long": Engine(cfg8, params, max_batch=4, max_seq=2304,
+                            kv_dtype=torch.int8,
+                            sampling=SamplingParams(greedy=True),
+                            device="cuda"),
+    }
+    # run, engine, prompt lengths, kernels that must run, kernels that must not
+    bf16_dec = {"decode_attention_contiguous", "decode_attention_appending"}
+    q8 = {"chunk_attention_contiguous_q8", "kv_append_uniform_q8",
+          "decode_attention_contiguous_q8"}
+    plan = [
+        ("ragged", "bf16", [37, 120, 300, 500],
+         {"flash_attention", "decode_attention_contiguous"},
+         {"decode_attention_appending", "chunk_attention_contiguous"} | q8),
+        ("aligned", "bf16", [256] * 4,
+         {"flash_attention", "decode_attention_appending"},
+         {"decode_attention_contiguous", "chunk_attention_contiguous"} | q8),
+        ("bf16 aligned long", "bf16 long", [1408] * 4,
+         {"flash_attention", "chunk_attention_contiguous",
+          "decode_attention_appending"},
+         {"decode_attention_contiguous"} | q8),
+        ("bf16 ragged long", "bf16 long", [700, 1100, 1408, 1900],
+         {"flash_attention", "chunk_attention_contiguous",
+          "decode_attention_contiguous"},
+         {"decode_attention_appending"} | q8),
+        ("int8 aligned long", "int8 long", [1408] * 4,
+         {"flash_attention"} | q8,
+         {"chunk_attention_contiguous"} | bf16_dec),
+        ("int8 ragged long", "int8 long", [37, 600, 1408, 1900],
+         {"flash_attention", "chunk_attention_contiguous_q8",
+          "decode_attention_contiguous_q8"},
+         {"chunk_attention_contiguous", "kv_append_uniform_q8"} | bf16_dec),
+    ]
+    launches = {n: 0 for n in wrappers}
     runs = {}
-    for label, lengths in (("ragged", [37, 120, 300, 500]),
-                           ("aligned", [256, 256, 256, 256])):
-        before = {n: w.launches for n, w in wrappers.items()}
-        res = eng.generate(prompts(lengths), max_new_tokens=32)
-        delta = {n: w.launches - before[n] for n, w in wrappers.items()}
+    for label, which, lengths, must, must_not in plan:
+        for w in wrappers.values():
+            w.launches = 0
+        res = engines[which].generate(prompts(lengths), max_new_tokens=32)
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n, c in counts.items():
+            launches[n] += c
         ids = [t for row in res.token_ids for t in row]
         print(f"[e2e] {label} {lengths}: ttft {res.ttft_s * 1e3:.1f} ms | "
               f"decode {res.decode_tokens_per_s:.1f} tok/s | steps "
-              f"{res.steps} | launches {delta}", flush=True)
+              f"{res.steps} | launches {counts}", flush=True)
         print(f"      first ids {[row[:8] for row in res.token_ids]}")
         if not all(0 <= t < cfg.vocab_size for t in ids) or len(set(ids)) < 2:
             fail(f"{label}: ids out of range or all identical")
+        missing = sorted(n for n in must | {"quant_matmul4_a8"}
+                         if counts[n] <= 0)
+        stray = sorted(n for n in must_not if counts[n] != 0)
+        if missing or stray:
+            fail(f"{label}: kernels of its path not launched {missing}, "
+                 f"kernels of other paths launched {stray}")
+        # one continuation per layer for each 512-token chunk after the
+        # first of the prompt bucket
+        want_chunks = cfg.num_layers * max(_bucket(max(lengths)) // 512 - 1, 0)
+        got_chunks = counts["chunk_attention_contiguous"] + \
+            counts["chunk_attention_contiguous_q8"]
+        if got_chunks != want_chunks:
+            fail(f"{label}: {got_chunks} continuation-chunk launches, "
+                 f"expected {want_chunks}")
         runs[label] = dict(lengths=lengths, ttft_ms=res.ttft_s * 1e3,
                            decode_tok_s=res.decode_tokens_per_s,
-                           steps=res.steps, launches=delta)
-    launches = {n: w.launches for n, w in wrappers.items()}
+                           steps=res.steps, launches=counts)
+    del engines
+    torch.cuda.empty_cache()
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was never launched: {launches}")
-    if runs["aligned"]["launches"]["decode_attention_appending"] <= 0 or \
-            runs["aligned"]["launches"]["decode_attention_contiguous"] != 0:
-        fail("the aligned batch did not take decode_attention_appending")
-    if runs["ragged"]["launches"]["decode_attention_contiguous"] <= 0 or \
-            runs["ragged"]["launches"]["decode_attention_appending"] != 0:
-        fail("the ragged batch did not take decode_attention_contiguous")
 
     # ---- 5. kernel path vs plain path, whole model at depth 4
     L4 = 4
@@ -411,13 +665,12 @@ def main() -> int:
         toks[i, :len(p)] = torch.tensor(p, device="cuda")
     lens_t = torch.tensor(p_lens, device="cuda")
 
-    def run_prefill(p, dtype):
-        from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
-
+    def run_prefill(p, dtype, toks=toks, lens_t=lens_t):
         cache = KVCache.create(L4, 4, 1024, cfg.num_kv_heads, cfg.head_dim,
                                dtype=dtype, device="cuda")
         with torch.inference_mode():
-            return qwen.prefill(p, cfg4, toks, lens_t, cache)[0]
+            return qwen.prefill_chunked(p, cfg4, toks, lens_t, cache,
+                                        chunk=512)[0]
 
     e4 = Engine(cfg4, params4, max_batch=4, max_seq=1024,
                 sampling=SamplingParams(greedy=True), device="cuda")
@@ -426,25 +679,31 @@ def main() -> int:
     with Swapped(plain_swaps()):
         lp = run_prefill(params4, torch.bfloat16)
         tp = e4.generate(p_ids, max_new_tokens=8).token_ids
+    params4_f32 = qwen.map_params(
+        params4, lambda t: t.float() if t.is_floating_point() else t)
     with Swapped(f32_swaps()):
-        lr = run_prefill(qwen.map_params(
-            params4, lambda t: t.float() if t.is_floating_point() else t),
-            torch.float32)
-    if not torch.isfinite(lk).all():
-        fail("non-finite logits on the kernel path")
-    dlogit = (lk - lp).abs().max().item()
-    err_k = (lk - lr).abs().max().item()
-    err_p = (lp - lr).abs().max().item()
-    tol4 = 1.5 * err_p
+        lr = run_prefill(params4_f32, torch.float32)
     agree = sum(a == b for x, y in zip(tk, tp) for a, b in zip(x, y))
     total = sum(len(y) for y in tp)
-    print(f"[model] {L4} layers, prefill logits on the card: kernels vs plain "
-          f"versions max |dlogit| {dlogit:.4g} (max|logit| "
-          f"{lr.abs().max().item():.4g}) | vs the fp32 plain path: kernels "
-          f"{err_k:.4g}, plain bf16 {err_p:.4g} (tol: kernels <= 1.5 x plain "
-          f"= {tol4:.4g}) | greedy tokens agree {agree}/{total}", flush=True)
-    if not err_k <= tol4:
-        fail(f"kernel path is {err_k} from the fp32 path, > {tol4}")
+    model_check("bf16 KV, one chunk", lk, lp, lr,
+                f" | greedy tokens agree {agree}/{total}")
+
+    # INT8 KV over two chunks: a fresh prefill, then a continuation
+    q_lens = [600, 700, 900, 1000]
+    toks8 = torch.zeros((4, 1024), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts(q_lens)):
+        toks8[i, :len(p)] = torch.tensor(p, device="cuda")
+    lens8 = torch.tensor(q_lens, device="cuda")
+    before = ca.chunk_attention_contiguous_q8.launches
+    lk8 = run_prefill(params4, torch.int8, toks8, lens8)
+    if ca.chunk_attention_contiguous_q8.launches - before != L4:
+        fail("the INT8-KV model check did not run its continuation chunk "
+             "through chunk_attention_contiguous_q8")
+    with Swapped(plain_swaps()):
+        lp8 = run_prefill(params4, torch.int8, toks8, lens8)
+    with Swapped(f32_swaps()):
+        lr8 = run_prefill(params4_f32, torch.int8, toks8, lens8)
+    model_check(f"INT8 KV, prompts {q_lens}, two chunks", lk8, lp8, lr8)
 
     # ---- 6. results
     sources = {
@@ -458,6 +717,18 @@ def main() -> int:
         "decode_attention_appending": (
             "csrc/decode_attention.cu",
             "qwen_inference_engine_tpu/ops/decode_attention.py:692"),
+        "chunk_attention_contiguous": (
+            "csrc/chunk_attention.cu",
+            "qwen_inference_engine_tpu/ops/chunk_attention.py:116"),
+        "chunk_attention_contiguous_q8": (
+            "csrc/chunk_attention.cu",
+            "qwen_inference_engine_tpu/ops/chunk_attention.py:225"),
+        "kv_append_uniform_q8": (
+            "csrc/kv_append.cu",
+            "qwen_inference_engine_tpu/ops/kv_append.py:198"),
+        "decode_attention_contiguous_q8": (
+            "csrc/decode_attention.cu",
+            "qwen_inference_engine_tpu/ops/decode_attention.py:319"),
     }
     # kernel 1 is reported per decode layer: its seven projections at M=4
     dec = [r for r in qmm_recs if r["M"] == 4]  # 7B only
@@ -471,7 +742,8 @@ def main() -> int:
         else "operations",
         unit="the 7 projections of one layer at M=4")
     recs = {"quant_matmul4_a8": layer_rec,
-            "flash_attention": flash_recs[0], **dec_recs}
+            "flash_attention": flash_recs[0], **dec_recs, **chunk_recs,
+            **append_recs, **dec8_recs}
     kernels = []
     for name, rec in recs.items():
         src, replaces = sources[name]

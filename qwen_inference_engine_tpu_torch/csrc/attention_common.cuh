@@ -1,17 +1,19 @@
-// Shared core of the port's attention kernels (flash prefill and decode).
+// Shared core of the port's attention kernels (flash prefill, prefill
+// continuation chunks and decode), for a bf16 or an int8 KV cache.
 //
 // One block of D threads (one per output dimension) runs the online
 // softmax of up to BR query rows over keys [0, n_keys) in tiles of BK keys:
-//   1. the K/V tile is staged in shared memory as bf16 (16-byte loads; the K
-//      rows padded by one bf16 pair so the per-key dot products below do
-//      not conflict on banks);
+//   1. the K/V tile is staged in shared memory in its stored type (16-byte
+//      loads; the K rows padded by 4 bytes so the per-key dot products below
+//      do not conflict on banks), with the tile's per-key scales for int8;
 //   2. each thread scores one key against BR / (D / BK) rows, fp32 dot
-//      products over D, and masks keys past each row's causal limit
-//      (key j is visible to row i iff j <= lim0 + i * lim_step);
+//      products over D (int8 keys dequantized in registers: the dot of the
+//      raw bytes times the key's scale), and masks keys past each row's
+//      causal limit (key j is visible to row i iff j <= lim0 + i * lim_step);
 //   3. one warp per row updates the running max / sum and turns scores
 //      into probabilities;
 //   4. each thread rescales its BR accumulators and adds P @ V for its
-//      dimension.
+//      dimension (an int8 value times its key's V scale).
 // A key position `fresh_pos` (>= 0) is read from `k_fresh` / `v_fresh`
 // instead of the cache: the appending decode uses it so the token being
 // written enters the softmax from its inputs, never from a cache read.
@@ -26,15 +28,24 @@ namespace qie {
 
 constexpr float kNegInf = -1e30f;
 
-template <int D, int BR, int BK>
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <int D, int BR, int BK, typename KV>
 struct AttnSmem {
-  float q[BR][D];                  // pre-scaled queries
-  __nv_bfloat16 k[BK][D + 2];      // padded: conflict-free per-key reads
-  __align__(16) __nv_bfloat16 v[BK][D];
-  float s[BR][BK];                 // scores, then probabilities
-  float m[BR];                     // running max
-  float l[BR];                     // running sum
-  float alpha[BR];                 // this tile's rescale factor
+  float q[BR][D];                           // pre-scaled queries
+  KV k[BK][D + 4 / sizeof(KV)];             // padded: conflict-free key reads
+  __align__(16) KV v[BK][D];
+  float s[BR][BK];                          // scores, then probabilities
+  float m[BR];                              // running max
+  float l[BR];                              // running sum
+  float alpha[BR];                          // this tile's rescale factor
+  float ks[BK];                             // int8 KV: the tile's key scales
+  float vs[BK];                             //          and value scales
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -49,21 +60,56 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// dot of a pre-scaled f32 query row with one staged key row
+template <int D>
+__device__ __forceinline__ float key_dot(const float* q,
+                                         const __nv_bfloat16* k) {
+  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(k);
+  float s = 0.f;
+#pragma unroll 16
+  for (int d2 = 0; d2 < D / 2; ++d2) {
+    const float2 kf = __bfloat1622float2(k2[d2]);
+    s = fmaf(q[2 * d2], kf.x, s);
+    s = fmaf(q[2 * d2 + 1], kf.y, s);
+  }
+  return s;
+}
+
+template <int D>
+__device__ __forceinline__ float key_dot(const float* q, const int8_t* k) {
+  const char4* k4 = reinterpret_cast<const char4*>(k);
+  float s = 0.f;
+#pragma unroll 8
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const char4 c = k4[d4];
+    s = fmaf(q[4 * d4], static_cast<float>(c.x), s);
+    s = fmaf(q[4 * d4 + 1], static_cast<float>(c.y), s);
+    s = fmaf(q[4 * d4 + 2], static_cast<float>(c.z), s);
+    s = fmaf(q[4 * d4 + 3], static_cast<float>(c.w), s);
+  }
+  return s;
+}
+
 // Online-softmax attention; the caller has filled sm.q (rows >= n_rows may
 // hold anything) and reads acc / sm.l afterwards.  kbase / vbase point at
-// key 0, consecutive keys are kv_stride elements apart.
-template <int D, int BR, int BK>
-__device__ void attend(AttnSmem<D, BR, BK>& sm, float (&acc)[BR], int n_rows,
-                       const __nv_bfloat16* __restrict__ kbase,
-                       const __nv_bfloat16* __restrict__ vbase,
-                       long long kv_stride, int n_keys, int lim0, int lim_step,
-                       const __nv_bfloat16* k_fresh,
-                       const __nv_bfloat16* v_fresh, int fresh_pos) {
+// key 0, consecutive keys are kv_stride elements apart.  For an int8 cache
+// ks_base / vs_base point at key 0's scales (consecutive keys adjacent);
+// for bf16 they are null.
+template <int D, int BR, int BK, typename KV>
+__device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
+                       int n_rows, const KV* __restrict__ kbase,
+                       const KV* __restrict__ vbase, long long kv_stride,
+                       const float* __restrict__ ks_base,
+                       const float* __restrict__ vs_base, int n_keys,
+                       int lim0, int lim_step, const KV* k_fresh,
+                       const KV* v_fresh, int fresh_pos) {
   static_assert(D % 32 == 0 && BK == 64 && D % BK == 0, "attention tiling");
+  constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int NT = D;            // threads
   constexpr int NW = NT / 32;      // warps
   constexpr int ROW_STEP = NT / BK;
-  constexpr int CHUNKS = D / 8;    // 16-byte chunks per K/V row
+  constexpr int PER_CHUNK = 16 / sizeof(KV);   // elements per 16-byte load
+  constexpr int CHUNKS = D / PER_CHUNK;        // 16-byte chunks per row
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
 
@@ -76,16 +122,14 @@ __device__ void attend(AttnSmem<D, BR, BK>& sm, float (&acc)[BR], int n_rows,
   __syncthreads();
 
   for (int j0 = 0; j0 < n_keys; j0 += BK) {
-    // 1. stage the K/V tile
+    // 1. stage the K/V tile (and its scales)
     for (int c = tid; c < BK * CHUNKS; c += NT) {
-      const int r = c / CHUNKS, col = (c % CHUNKS) * 8;
+      const int r = c / CHUNKS, col = (c % CHUNKS) * PER_CHUNK;
       const int j = j0 + r;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (j < n_keys) {
-        const __nv_bfloat16* ks = j == fresh_pos ? k_fresh + col
-                                                 : kbase + j * kv_stride + col;
-        const __nv_bfloat16* vs = j == fresh_pos ? v_fresh + col
-                                                 : vbase + j * kv_stride + col;
+        const KV* ks = j == fresh_pos ? k_fresh + col : kbase + j * kv_stride + col;
+        const KV* vs = j == fresh_pos ? v_fresh + col : vbase + j * kv_stride + col;
         kv = *reinterpret_cast<const uint4*>(ks);
         vv = *reinterpret_cast<const uint4*>(vs);
       }
@@ -96,21 +140,23 @@ __device__ void attend(AttnSmem<D, BR, BK>& sm, float (&acc)[BR], int n_rows,
       kd[3] = kv.w;
       *reinterpret_cast<uint4*>(&sm.v[r][col]) = vv;
     }
+    if constexpr (kQuant) {
+      if (tid < BK) {
+        const int j = j0 + tid;
+        sm.ks[tid] = j < n_keys ? ks_base[j] : 0.f;
+        sm.vs[tid] = j < n_keys ? vs_base[j] : 0.f;
+      }
+    }
     __syncthreads();
 
     // 2. scores of key jj against rows i = tid / BK, + ROW_STEP, ...
     {
       const int jj = tid % BK;
       const int j = j0 + jj;
-      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(&sm.k[jj][0]);
+      float kscale = 1.f;
+      if constexpr (kQuant) kscale = sm.ks[jj];
       for (int i = tid / BK; i < BR; i += ROW_STEP) {
-        float s = 0.f;
-#pragma unroll 16
-        for (int d2 = 0; d2 < D / 2; ++d2) {
-          const float2 kf = __bfloat1622float2(kr[d2]);
-          s = fmaf(sm.q[i][2 * d2], kf.x, s);
-          s = fmaf(sm.q[i][2 * d2 + 1], kf.y, s);
-        }
+        const float s = key_dot<D>(&sm.q[i][0], &sm.k[jj][0]) * kscale;
         const bool ok = i < n_rows && j < n_keys && j <= lim0 + i * lim_step;
         sm.s[i][jj] = ok ? s : kNegInf;
       }
@@ -139,7 +185,8 @@ __device__ void attend(AttnSmem<D, BR, BK>& sm, float (&acc)[BR], int n_rows,
 #pragma unroll
     for (int i = 0; i < BR; ++i) acc[i] *= sm.alpha[i];
     for (int jj = 0; jj < BK; ++jj) {
-      const float vf = __bfloat162float(sm.v[jj][tid]);
+      float vf = to_float(sm.v[jj][tid]);
+      if constexpr (kQuant) vf *= sm.vs[jj];
 #pragma unroll
       for (int i = 0; i < BR; ++i) acc[i] = fmaf(sm.s[i][jj], vf, acc[i]);
     }

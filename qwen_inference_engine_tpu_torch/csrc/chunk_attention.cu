@@ -1,0 +1,140 @@
+// Prefill continuation-chunk flash attention over the stacked contiguous
+// KV cache, bf16 or int8, Hopper.
+//
+// Replaces two kernels of qwen_inference_engine_tpu/ops/chunk_attention.py:
+//   * chunk_attention_contiguous (_chunk_attention, body _chunk_kernel):
+//     bf16 cache;
+//   * chunk_attention_contiguous_q8 (_chunk_attention_q8, body
+//     _chunk_kernel_q8): int8 cache with per-token-per-head f32 scales.
+// One kernel templated on the cache's element type.
+//
+// q [B, T, Hq, D] bf16: the chunk's queries at absolute positions
+// [start, start + T); cache k / v [L, Bc, Hk, S, D] (head-major) with the
+// chunk's own keys already written; scales [L, Bc, Hk, S] f32 (int8 only);
+// out [B, T, Hq, D] bf16.  Query t attends keys [0, start + t], f32 online
+// softmax; scores never leave shared memory.  int8 scores are
+// (q . k_i8) * k_scale * D^-1/2 and each value is scaled by its V scale
+// before the P @ V sum, as the TPU kernel folds the V scale into the
+// probabilities.
+//
+// What bounds it on the H100: at B=4, T=512, start=1536 for Qwen2.5-7B a
+// layer reads 2 * B * Hk * (start + T) * D elements of cache (16.8 MB bf16,
+// 8.4 MB int8) for 4 * B * Hq * D * (T * start + T * (T + 1) / 2) = 52.6
+// GFLOP: ~3,100 (bf16) or ~6,200 (int8) operations per byte, far above the
+// ridge (~295), so operations bound it (53 us on the bf16 tensor cores); on
+// the CUDA cores used here they bound it the more.
+//
+// Design: simple and right first, the flash prefill kernel's layout
+// (attention_common.cuh) with the cache in place of fresh K/V.  A block of
+// D threads takes 16 query rows of one head (grid: T/16 x Hq x B; blocks
+// share nothing) and walks the key tiles of 64 of its (layer, row, KV head)
+// slab straight from the stacked cache, no slab copy, up to its last row's
+// position, so no tile above the causal diagonal is read.  Tiles wholly
+// below `start` pass every key; only the tiles that overlap the chunk take
+// the triangle.  G = 7 is not padded: each query head is its own block.
+// Any T >= 1 is taken (the ragged edge is masked in the kernel); the
+// wrapper limits T to the engine's chunk of 512.  int8 K/V are staged as
+// raw bytes, so a tile costs half the shared-memory traffic of bf16, and
+// dequantized in registers.  The products run as fp32 FMAs on the CUDA
+// cores; the tensor cores (mma / wgmma) are later work.
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kRows = 16;   // query rows per block
+constexpr int kKeys = 64;   // keys per tile
+
+template <int D, typename KV>
+__global__ void __launch_bounds__(D)
+chunk_kernel(const __nv_bfloat16* __restrict__ q,
+             const KV* __restrict__ k_cache, const KV* __restrict__ v_cache,
+             const float* __restrict__ k_scale,
+             const float* __restrict__ v_scale,
+             __nv_bfloat16* __restrict__ out, int Bc, int T, int Hq, int Hk,
+             int S, int layer, int start, float scale) {
+  __shared__ qie::AttnSmem<D, kRows, kKeys, KV> sm;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hk);
+  const int n_rows = min(kRows, T - q0);
+
+  for (int c = tid; c < kRows * D; c += D) {
+    const int i = c / D, d = c % D;
+    float val = 0.f;
+    if (i < n_rows) {
+      val = __bfloat162float(
+          q[((static_cast<long long>(b) * T + q0 + i) * Hq + h) * D + d]) * scale;
+    }
+    sm.q[i][d] = val;
+  }
+  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
+  const long long base = row * S * D;
+  const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
+  const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
+  // row i sits at position start + q0 + i and sees keys [0, that position]
+  float acc[kRows];
+  qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_cache + base,
+                                   v_cache + base, D, ks, vs,
+                                   start + q0 + n_rows, start + q0, 1,
+                                   nullptr, nullptr, -1);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (i < n_rows) {
+      const float denom = fmaxf(sm.l[i], 1e-30f);
+      out[((static_cast<long long>(b) * T + q0 + i) * Hq + h) * D + tid] =
+          __float2bfloat16(acc[i] / denom);
+    }
+  }
+}
+
+template <typename KV>
+int launch(const void* q, const void* k_cache, const void* v_cache,
+           const void* k_scale, const void* v_scale, void* out, int Bc, int B,
+           int T, int Hq, int Hk, int S, int D, int layer, int start,
+           float scale, void* stream) {
+  dim3 grid((T + kRows - 1) / kRows, Hq, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kc = static_cast<const KV*>(k_cache);
+  const auto* vc = static_cast<const KV*>(v_cache);
+  const auto* ksp = static_cast<const float*>(k_scale);
+  const auto* vsp = static_cast<const float*>(v_scale);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (D == 128) {
+    chunk_kernel<128, KV><<<grid, 128, 0, st>>>(
+        qp, kc, vc, ksp, vsp, op, Bc, T, Hq, Hk, S, layer, start, scale);
+  } else if (D == 64) {
+    chunk_kernel<64, KV><<<grid, 64, 0, st>>>(
+        qp, kc, vc, ksp, vsp, op, Bc, T, Hq, Hk, S, layer, start, scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// k_scale / v_scale null: a bf16 cache; both given: an int8 cache.
+extern "C" int qie_chunk_attention(const void* q, const void* k_cache,
+                                   const void* v_cache, const void* k_scale,
+                                   const void* v_scale, void* out, int L,
+                                   int Bc, int B, int T, int Hq, int Hk,
+                                   int S, int D, int layer, int start,
+                                   float scale, void* stream) {
+  const bool quant = k_scale != nullptr;
+  if (B <= 0 || B > Bc || T <= 0 || Hk <= 0 || Hq % Hk || layer < 0 ||
+      layer >= L || start < 0 || start + T > S ||
+      quant != (v_scale != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (quant) {
+    return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, out, Bc, B,
+                          T, Hq, Hk, S, D, layer, start, scale, stream);
+  }
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, out, Bc,
+                               B, T, Hq, Hk, S, D, layer, start, scale,
+                               stream);
+}

@@ -1,34 +1,45 @@
-// T=1 GQA flash decode over the stacked contiguous bf16 KV cache, Hopper.
+// T=1 GQA flash decode over the stacked contiguous KV cache, Hopper.
 //
-// Replaces two kernels of qwen_inference_engine_tpu/ops/decode_attention.py:
+// Replaces three kernels of qwen_inference_engine_tpu/ops/decode_attention.py:
 //   * decode_attention_contiguous (_decode_attention, body _decode_kernel):
-//     per-row lengths, the ragged batch;
+//     bf16 cache, per-row lengths, the ragged batch;
 //   * decode_attention_appending (_decode_attention_append, body
-//     _decode_append_kernel): one shared position for every row; the fresh
-//     K/V row is written into the cache in place and attended in the same
-//     kernel.
-// One source, selected by whether k_new / v_new are given.
+//     _decode_append_kernel): bf16 cache, one shared position for every row;
+//     the fresh K/V row is written into the cache in place and attended in
+//     the same kernel;
+//   * decode_attention_contiguous_q8 (_decode_attention_q8, body
+//     _decode_kernel_q8): int8 cache with per-token-per-head f32 scales,
+//     per-row lengths (INT8 KV, aligned and ragged batches alike).
+// One kernel templated on the cache's element type; the bf16 entry point
+// selects the appending variant by whether k_new / v_new are given.
 //
-// q [B, 1, Hq, D] bf16; cache k / v [L, Bc, Hk, S, D] bf16 (head-major);
-// lengths [B] int32 (contiguous variant) or position [1] int32 (appending
+// q [B, 1, Hq, D] bf16; cache k / v [L, Bc, Hk, S, D] bf16 or int8
+// (head-major), scales k_scale / v_scale [L, Bc, Hk, S] f32 (int8 only);
+// lengths [B] int32 (contiguous variants) or position [1] int32 (appending
 // variant, length = position + 1; read on the device, so the host never
-// waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq, D].
+// waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq, D] bf16.
 //
-// What bounds it on the H100: each row reads 2 * len * Hk * D * 2 bytes of
-// cache for 4 * len * Hq * D flops: G = 7 operations per byte for
-// Qwen2.5-7B, far below the bf16 ridge (~295), so bytes bound it.
+// What bounds it on the H100: each row reads 2 * len * Hk * D cache
+// elements (2 bytes each in bf16; 1 in int8, plus 8 bytes of scales per key
+// and head) for 4 * len * Hq * D flops: G = 7 operations per byte for
+// Qwen2.5-7B in bf16, ~14 in int8, far below the ridge (~295), so bytes
+// bound it; INT8 KV halves them.
 //
 // Design: simple and right first.  A block of D threads takes one (row, KV
 // head) pair (grid: Hk x B) and all G query heads of the group as the rows
 // of attention_common.cuh, so each K/V byte is read from device memory once
 // per step; G = 7 needs no padding (rows are masked in the kernel).  Keys
-// past a row's length are never read.  In the appending variant the block
-// of (b, hk) is the only reader and writer of that cache row, so it writes
-// the fresh K/V row to the cache and stages the same row into its tile from
-// k_new / v_new: the fresh token enters the softmax from the inputs, never
-// from a cache read.  Only Hk * B blocks run (16 at B = 4 for Qwen2.5-7B), a
-// small share of the 132 SMs: splitting S across blocks with a second
-// reduction pass (flash-decoding) is the next step for speed.
+// past a row's length are never read.  The int8 variant stages the raw
+// bytes and the tile's scales in shared memory and dequantizes in
+// registers: the score is (q . k_i8) * k_scale, and the V scale multiplies
+// each value before the P @ V sum (the TPU kernel folds it into the
+// probabilities; the product is the same).  In the appending variant the
+// block of (b, hk) is the only reader and writer of that cache row, so it
+// writes the fresh K/V row to the cache and stages the same row into its
+// tile from k_new / v_new: the fresh token enters the softmax from the
+// inputs, never from a cache read.  Only Hk * B blocks run (16 at B = 4 for
+// Qwen2.5-7B), a small share of the 132 SMs: splitting S across blocks with
+// a second reduction pass (flash-decoding) is the next step for speed.
 
 #include "attention_common.cuh"
 
@@ -37,18 +48,17 @@ namespace {
 constexpr int kRows = 8;    // query heads per KV head (G <= 8)
 constexpr int kKeys = 64;   // keys per tile
 
-template <int D>
+template <int D, typename KV>
 __global__ void __launch_bounds__(D)
-decode_kernel(const __nv_bfloat16* __restrict__ q,
-              __nv_bfloat16* __restrict__ k_cache,
-              __nv_bfloat16* __restrict__ v_cache,
-              const int* __restrict__ lengths,
-              const __nv_bfloat16* __restrict__ k_new,
-              const __nv_bfloat16* __restrict__ v_new,
+decode_kernel(const __nv_bfloat16* __restrict__ q, KV* __restrict__ k_cache,
+              KV* __restrict__ v_cache, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ lengths, const KV* __restrict__ k_new,
+              const KV* __restrict__ v_new,
               const int* __restrict__ position_ptr,
               __nv_bfloat16* __restrict__ out, int Bc, int Hq, int Hk, int S,
               int layer, float scale) {
-  __shared__ qie::AttnSmem<D, kRows, kKeys> sm;
+  __shared__ qie::AttnSmem<D, kRows, kKeys, KV> sm;
   const int tid = threadIdx.x;
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -68,10 +78,10 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     sm.q[i][d] = val;
   }
-  const long long base =
-      ((static_cast<long long>(layer) * Bc + b) * Hk + hk) * S * D;
-  const __nv_bfloat16* kf = nullptr;
-  const __nv_bfloat16* vf = nullptr;
+  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
+  const long long base = row * S * D;
+  const KV* kf = nullptr;
+  const KV* vf = nullptr;
   int fresh = -1;
   if (appending && len > 0) {
     kf = k_new + (static_cast<long long>(b) * Hk + hk) * D;
@@ -80,9 +90,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     k_cache[base + static_cast<long long>(position) * D + tid] = kf[tid];
     v_cache[base + static_cast<long long>(position) * D + tid] = vf[tid];
   }
+  const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
+  const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
   float acc[kRows];
-  qie::attend<D, kRows, kKeys>(sm, acc, G, k_cache + base, v_cache + base, D,
-                               len, len - 1, 0, kf, vf, fresh);
+  qie::attend<D, kRows, kKeys, KV>(sm, acc, G, k_cache + base, v_cache + base,
+                                   D, ks, vs, len, len - 1, 0, kf, vf, fresh);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < G) {
@@ -91,6 +103,41 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
           __float2bfloat16(acc[i] / denom);
     }
   }
+}
+
+template <typename KV>
+int launch(const void* q, void* k_cache, void* v_cache, const void* k_scale,
+           const void* v_scale, const void* lengths, const void* k_new,
+           const void* v_new, const void* position, void* out, int Bc, int B,
+           int Hq, int Hk, int S, int D, int layer, float scale,
+           void* stream) {
+  dim3 grid(Hk, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  auto* kc = static_cast<KV*>(k_cache);
+  auto* vc = static_cast<KV*>(v_cache);
+  const auto* ksp = static_cast<const float*>(k_scale);
+  const auto* vsp = static_cast<const float*>(v_scale);
+  const auto* lp = static_cast<const int*>(lengths);
+  const auto* kn = static_cast<const KV*>(k_new);
+  const auto* vn = static_cast<const KV*>(v_new);
+  const auto* pp = static_cast<const int*>(position);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  if (D == 128) {
+    decode_kernel<128, KV><<<grid, 128, 0, st>>>(
+        qp, kc, vc, ksp, vsp, lp, kn, vn, pp, op, Bc, Hq, Hk, S, layer, scale);
+  } else if (D == 64) {
+    decode_kernel<64, KV><<<grid, 64, 0, st>>>(
+        qp, kc, vc, ksp, vsp, lp, kn, vn, pp, op, Bc, Hq, Hk, S, layer, scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int L, int Bc, int B, int Hq, int Hk, int layer) {
+  return B <= 0 || B > Bc || Hk <= 0 || Hq % Hk || Hq / Hk > kRows ||
+         layer < 0 || layer >= L;
 }
 
 }  // namespace
@@ -103,30 +150,30 @@ extern "C" int qie_decode_attention(const void* q, void* k_cache,
                                     int D, int layer, float scale,
                                     void* stream) {
   const bool appending = k_new != nullptr;
-  if (B <= 0 || B > Bc || Hk <= 0 || Hq % Hk || Hq / Hk > kRows ||
-      layer < 0 || layer >= L ||
+  if (bad_shape(L, Bc, B, Hq, Hk, layer) ||
       (appending && (v_new == nullptr || position == nullptr)) ||
       (!appending && lengths == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid(Hk, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  auto* kc = static_cast<__nv_bfloat16*>(k_cache);
-  auto* vc = static_cast<__nv_bfloat16*>(v_cache);
-  const auto* lp = static_cast<const int*>(lengths);
-  const auto* kn = static_cast<const __nv_bfloat16*>(k_new);
-  const auto* vn = static_cast<const __nv_bfloat16*>(v_new);
-  const auto* pp = static_cast<const int*>(position);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (D == 128) {
-    decode_kernel<128><<<grid, 128, 0, st>>>(qp, kc, vc, lp, kn, vn, pp, op,
-                                             Bc, Hq, Hk, S, layer, scale);
-  } else if (D == 64) {
-    decode_kernel<64><<<grid, 64, 0, st>>>(qp, kc, vc, lp, kn, vn, pp, op,
-                                           Bc, Hq, Hk, S, layer, scale);
-  } else {
+  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, lengths,
+                               k_new, v_new, position, out, Bc, B, Hq, Hk, S,
+                               D, layer, scale, stream);
+}
+
+extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
+                                       const void* v_cache,
+                                       const void* k_scale,
+                                       const void* v_scale,
+                                       const void* lengths, void* out, int L,
+                                       int Bc, int B, int Hq, int Hk, int S,
+                                       int D, int layer, float scale,
+                                       void* stream) {
+  if (bad_shape(L, Bc, B, Hq, Hk, layer) || k_scale == nullptr ||
+      v_scale == nullptr || lengths == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<int8_t>(q, const_cast<void*>(k_cache),
+                        const_cast<void*>(v_cache), k_scale, v_scale, lengths,
+                        nullptr, nullptr, nullptr, out, Bc, B, Hq, Hk, S, D,
+                        layer, scale, stream);
 }

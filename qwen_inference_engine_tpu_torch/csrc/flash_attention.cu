@@ -37,7 +37,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ v,
              __nv_bfloat16* __restrict__ out, int T, int Hq, int Hk,
              float scale) {
-  __shared__ qie::AttnSmem<D, kRows, kKeys> sm;
+  __shared__ qie::AttnSmem<D, kRows, kKeys, __nv_bfloat16> sm;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kRows;
   const int h = blockIdx.y;
@@ -57,10 +57,9 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   const long long kv0 = static_cast<long long>(b) * T * Hk * D +
                         static_cast<long long>(hk) * D;
   float acc[kRows];
-  qie::attend<D, kRows, kKeys>(sm, acc, n_rows, k + kv0, v + kv0,
-                               static_cast<long long>(Hk) * D,
-                               min(T, q0 + kRows), q0, 1, nullptr, nullptr,
-                               -1);
+  qie::attend<D, kRows, kKeys, __nv_bfloat16>(
+      sm, acc, n_rows, k + kv0, v + kv0, static_cast<long long>(Hk) * D,
+      nullptr, nullptr, min(T, q0 + kRows), q0, 1, nullptr, nullptr, -1);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < n_rows) {

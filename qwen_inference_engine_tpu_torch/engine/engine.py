@@ -119,7 +119,7 @@ class Engine:
         gen.manual_seed(self.seed if seed is None else seed)
         cache = self.new_cache()
         # aligned batch (all rows the same length) -> uniform decode: the
-        # append-fused attention kernel writes the fresh KV rows
+        # fresh KV rows go through the append kernels
         uniform = bool(np.all(lens == lens[0]))
         eos = torch.tensor(list(self.cfg.eos_token_ids), device=dev)
 

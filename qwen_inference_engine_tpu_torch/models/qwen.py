@@ -9,23 +9,27 @@ Per-layer schedule: rmsnorm -> q/k/v proj -> qk-norm (Qwen3) -> RoPE ->
 KV write + attention -> o proj -> residual -> rmsnorm -> gate/up proj ->
 SiLU * up -> down proj -> residual; then final norm -> lm_head.
 
-Attention branches (the kernels of this slice):
+Attention branches (each a kernel of the port):
 
-* fresh prefill (positions 0..T-1): ``flash_attention`` on the fresh K/V,
-  which are also written to the cache;
-* uniform decode (all rows at one position): ``decode_attention_appending``,
-  which writes the fresh row and attends in one kernel;
-* ragged decode: the plain stacked scatter, then
-  ``decode_attention_contiguous`` with per-row lengths.
-
-A prefill continuation (T > 1 over a cache that already holds tokens) needs
-the port of ``chunk_attention_contiguous`` and raises.
+* fresh prefill (positions 0..T-1): the fresh K/V are written to the cache
+  (quantized for an int8 cache) and ``flash_attention`` attends over the
+  unquantized fresh K/V;
+* prefill continuation (T > 1 at positions ``start..start+T-1`` over a
+  cache that holds the earlier chunks): a uniform window write, then
+  ``chunk_attention_contiguous`` (bf16 KV) or ``_q8`` (INT8 KV);
+* uniform decode (all rows at one position): ``decode_attention_appending``
+  writes the fresh row and attends in one kernel (bf16 KV); INT8 KV runs
+  ``quantize_kv``, ``kv_append_uniform_q8``, then
+  ``decode_attention_contiguous_q8``;
+* ragged decode: the plain stacked scatter (quantizing for INT8 KV), then
+  ``decode_attention_contiguous[_q8]`` with per-row lengths.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +39,19 @@ from qwen_inference_engine_tpu_torch.kvcache.cache import (
     KVCache,
     write_prefill_stacked,
     write_stacked,
+    write_window_stacked,
+)
+from qwen_inference_engine_tpu_torch.ops.chunk_attention import (
+    chunk_attention_contiguous,
+    chunk_attention_contiguous_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_appending,
     decode_attention_contiguous,
+    decode_attention_contiguous_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.flash_attention import flash_attention
+from qwen_inference_engine_tpu_torch.ops.kv_append import kv_append_uniform_q8
 from qwen_inference_engine_tpu_torch.ops.linear import (
     Linear,
     QuantLinear,
@@ -48,6 +59,7 @@ from qwen_inference_engine_tpu_torch.ops.linear import (
 )
 from qwen_inference_engine_tpu_torch.ops.norms import qk_norm, rms_norm
 from qwen_inference_engine_tpu_torch.ops.rope import apply_rope, precompute_rope
+from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 
 
 # ----------------------------------------------------------------------
@@ -136,27 +148,31 @@ def params_to(params: dict, device) -> dict:
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, cache: KVCache, *,
                    fresh_prefill: bool = False,
-                   uniform_decode: bool = False) -> Tuple[torch.Tensor, KVCache]:
+                   uniform_decode: bool = False,
+                   start: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
     """Run the transformer stack; returns (hidden [B, T, D], cache).
 
     tokens / positions: [B, T].  The cache is updated in place.
     uniform_decode: the caller promises every row decodes at the same
-    position (an aligned batch); it selects the append-fused kernel.
+    position (an aligned batch); it selects the append kernels.
+    start: a prefill continuation chunk (T > 1, not fresh) gives its first
+    position as a host int; every row's positions are ``start..start+T-1``.
     """
     B, T = tokens.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     act = cfg.act_bits
-    if not fresh_prefill and T != 1:
-        raise NotImplementedError(
-            "a prefill continuation (T > 1 over a filled cache) needs the "
-            "port of chunk_attention_contiguous")
+    continuation = not fresh_prefill and T > 1
+    if continuation and start is None:
+        raise ValueError("a prefill continuation chunk (T > 1 over a filled "
+                         "cache) needs its first position `start`")
     x = params["embed"][tokens]
     cos, sin = params["rope_cos"], params["rope_sin"]
     lyr = params["layers"]
     if not fresh_prefill:
-        position = positions[:1, 0]           # uniform decode: read on device
-        lengths = positions[:, 0] + 1          # ragged decode
+        # int32 once per step, as the kernels read them (on the device)
+        position = positions[:1, 0].int()     # uniform decode
+        lengths = (positions[:, 0] + 1).int()  # ragged decode
     for l in range(cfg.num_layers):
         h = rms_norm(x, lyr["input_norm"][l], eps)
         q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
@@ -169,15 +185,36 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         k = apply_rope(k, positions, cos, sin)
 
         if fresh_prefill:
-            write_prefill_stacked(cache.k, l, k)
-            write_prefill_stacked(cache.v, l, v)
+            cache.write(l, k, v, write_prefill_stacked)
             attn = flash_attention(q, k, v)
+        elif continuation:
+            cache.write(l, k, v, functools.partial(write_window_stacked,
+                                                   start=start))
+            if cache.quantized:
+                attn = chunk_attention_contiguous_q8(
+                    q, cache.k, cache.v, cache.k_scale, cache.v_scale, l,
+                    start)
+            else:
+                attn = chunk_attention_contiguous(q, cache.k, cache.v, l,
+                                                  start)
+        elif cache.quantized:
+            if uniform_decode:
+                qk, sk = quantize_kv(k)
+                qv, sv = quantize_kv(v)
+                kv_append_uniform_q8(cache.k, cache.v, cache.k_scale,
+                                     cache.v_scale, qk, qv, sk, sv, position,
+                                     l)
+            else:
+                cache.write(l, k, v, functools.partial(
+                    write_stacked, positions=positions))
+            attn = decode_attention_contiguous_q8(
+                q, cache.k, cache.v, cache.k_scale, cache.v_scale, l, lengths)
         elif uniform_decode:
             attn, _, _ = decode_attention_appending(q, cache.k, cache.v, k, v,
                                                     l, position)
         else:
-            write_stacked(cache.k, l, k, positions)
-            write_stacked(cache.v, l, v, positions)
+            cache.write(l, k, v, functools.partial(
+                write_stacked, positions=positions))
             attn = decode_attention_contiguous(q, cache.k, cache.v, l, lengths)
 
         o = apply_linear(attn.reshape(B, T, Hq * Dh), lyr["o"], l, act)
@@ -214,13 +251,43 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     lengths: torch.Tensor, cache: KVCache, *,
                     chunk: int = 512) -> Tuple[torch.Tensor, KVCache]:
-    """Prefill in ``chunk``-token pieces.  Only one piece is ported: longer
-    prompts need the port of chunk_attention_contiguous and raise."""
-    if tokens.shape[1] > chunk:
-        raise NotImplementedError(
-            f"prompts longer than one {chunk}-token chunk need the port of "
-            "chunk_attention_contiguous")
-    return prefill(params, cfg, tokens, lengths, cache)
+    """Prefill right-padded prompts ``[B, T]`` in ``chunk``-token pieces to
+    bound activation memory.  Returns (last-valid-token logits [B, V], cache).
+
+    Chunk 0 is a fresh prefill; chunks 1.. are continuations at positions
+    ``i * chunk ..``, causal by absolute position over the cache so far (the
+    JAX package's ``lax.scan`` over chunks becomes a Python loop).  The
+    prompt is padded to whole chunks, and the padded tail is written to the
+    cache like any token, so the padded length must fit in the cache.
+    """
+    B, T = tokens.shape
+    if T <= chunk:
+        return prefill(params, cfg, tokens, lengths, cache)
+    n_chunks = -(-T // chunk)
+    capacity = cache.k.shape[3]
+    if n_chunks * chunk > capacity:
+        raise ValueError(
+            f"chunked prefill would write {n_chunks * chunk} positions "
+            f"(T={T} padded to a multiple of chunk={chunk}) but the cache "
+            f"holds only {capacity}; grow the cache/block tables or lower "
+            f"the chunk size")
+    tokens = F.pad(tokens, (0, n_chunks * chunk - T))
+    last = lengths.long() - 1
+    rows = torch.arange(B, device=tokens.device)
+    arange_c = torch.arange(chunk, device=tokens.device)
+    for i in range(n_chunks):
+        lo = i * chunk
+        positions = (lo + arange_c)[None, :].expand(B, chunk)
+        hidden, cache = forward_hidden(
+            params, cfg, tokens[:, lo:lo + chunk], positions, cache,
+            fresh_prefill=i == 0, start=None if i == 0 else lo)
+        # each row keeps the hidden state of the chunk that holds its last
+        # valid token
+        sel = hidden[rows, (last - lo).clamp(0, chunk - 1)]
+        in_chunk = (last >= lo) & (last < lo + chunk)
+        hidden_last = sel if i == 0 else torch.where(in_chunk[:, None], sel,
+                                                     hidden_last)
+    return compute_logits(params, hidden_last, cfg.act_bits_lm_head), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

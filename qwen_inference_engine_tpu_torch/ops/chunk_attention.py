@@ -1,0 +1,138 @@
+"""Flash attention for prefill continuation chunks over the stacked cache.
+
+Chunk i >= 1 of a chunked prefill attends its T queries (absolute
+positions ``[start, start + T)``) over ``cache[layer, b, :, 0:start + T]``;
+the chunk's own keys are already written.  Causal by absolute position.
+
+Both wrappers launch the CUDA kernel ``csrc/chunk_attention.cu``:
+
+* ``chunk_attention_contiguous`` (the port of the JAX package's
+  ``chunk_attention_contiguous`` / ``_chunk_kernel``): bf16 cache;
+* ``chunk_attention_contiguous_q8`` (the port of
+  ``chunk_attention_contiguous_q8`` / ``_chunk_kernel_q8``): int8 cache with
+  per-token-per-head f32 scales ``[L, Bc, Hk, S]``.
+
+``*_plain`` beside each computes the same function with the plain oracle
+(the q8 one over the dequantized prefix, in q's dtype), as the JAX
+package's XLA path does.  Unlike the JAX package, which declines chunks
+above a TPU VMEM ceiling and falls back to XLA, the kernel takes every
+chunk the engine gives it: T in 1..512, any start, G <= 8, D in {64, 128};
+anything else raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from qwen_inference_engine_tpu_torch.ops import cuda_lib
+from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
+from qwen_inference_engine_tpu_torch.ops.decode_attention import (
+    check_cache,
+    check_scales,
+)
+from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
+
+MAX_CHUNK = 512
+
+
+def _positions(q: torch.Tensor, start: int) -> torch.Tensor:
+    B, T = q.shape[:2]
+    return (start + torch.arange(T, device=q.device))[None, :].expand(B, T)
+
+
+def chunk_attention_contiguous_plain(q, k_cache, v_cache, layer: int,
+                                     start: int) -> torch.Tensor:
+    """q [B, T, Hq, D] at positions ``start..start+T-1`` over
+    ``cache[layer, :B, :, :start + T]``."""
+    B, T = q.shape[:2]
+    end = start + T
+    return gqa_attention_kmajor(q, k_cache[layer, :B, :, :end],
+                                v_cache[layer, :B, :, :end],
+                                _positions(q, start))
+
+
+def chunk_attention_contiguous_q8_plain(q, k_cache, v_cache, k_scale, v_scale,
+                                        layer: int, start: int) -> torch.Tensor:
+    """The same over the int8 cache, dequantized to q's dtype first."""
+    B, T = q.shape[:2]
+    end = start + T
+    k = dequantize_kv(k_cache[layer, :B, :, :end],
+                      k_scale[layer, :B, :, :end], q.dtype)
+    v = dequantize_kv(v_cache[layer, :B, :, :end],
+                      v_scale[layer, :B, :, :end], q.dtype)
+    return gqa_attention_kmajor(q, k, v, _positions(q, start))
+
+
+def _launch(name: str, q, k_cache, v_cache, k_scale: Optional[torch.Tensor],
+            v_scale: Optional[torch.Tensor], layer: int, start: int):
+    B, T, Hq, D = q.shape
+    L, Bc, Hk, S, Dc = k_cache.shape
+    if Dc != D or v_cache.shape != k_cache.shape or B > Bc or Hq % Hk \
+            or Hq // Hk > 8:
+        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)} (G <= 8)")
+    if not 1 <= T <= MAX_CHUNK:
+        raise ValueError(f"{name} takes chunks of 1..{MAX_CHUNK} tokens, "
+                         f"not {T}")
+    if D not in (64, 128):
+        raise ValueError(f"{name} kernel takes D in (64, 128), not {D}")
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} out of range for {L} layers")
+    start = int(start)
+    if not 0 <= start <= S - T:
+        raise IndexError(f"chunk [{start}, {start + T}) outside the cache "
+                         f"({S})")
+    check_cache(name, q, k_cache, v_cache,
+                torch.bfloat16 if k_scale is None else torch.int8)
+    if k_scale is not None:
+        check_scales(name, k_cache, k_scale, v_scale)
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    rc = cuda_lib.library().qie_chunk_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(), out.data_ptr(),
+        L, Bc, B, T, Hq, Hk, S, D, int(layer), start, D ** -0.5,
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, name)
+    return out
+
+
+def chunk_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, layer: int,
+                               start: int) -> torch.Tensor:
+    """Attention of the chunk ``q [B, T, Hq, D]`` (positions
+    ``start..start+T-1``, ``start`` a host int) over the bf16
+    ``cache[layer, b, :, :start + T]``; returns [B, T, Hq, D].  A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return chunk_attention_contiguous_plain(q, k_cache, v_cache, layer,
+                                                start)
+    out = _launch("chunk_attention_contiguous", q, k_cache, v_cache, None,
+                  None, layer, start)
+    chunk_attention_contiguous.launches += 1
+    return out
+
+
+chunk_attention_contiguous.launches = 0
+
+
+def chunk_attention_contiguous_q8(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor,
+                                  k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor, layer: int,
+                                  start: int) -> torch.Tensor:
+    """The same over an int8 cache with f32 scales ``[L, Bc, Hk, S]``."""
+    if q.device.type == "cpu":
+        return chunk_attention_contiguous_q8_plain(q, k_cache, v_cache,
+                                                   k_scale, v_scale, layer,
+                                                   start)
+    out = _launch("chunk_attention_contiguous_q8", q, k_cache, v_cache,
+                  k_scale, v_scale, layer, start)
+    chunk_attention_contiguous_q8.launches += 1
+    return out
+
+
+chunk_attention_contiguous_q8.launches = 0

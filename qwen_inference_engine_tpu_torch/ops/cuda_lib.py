@@ -38,6 +38,18 @@ SIGNATURES = {
     # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
     "qie_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, lengths, out,
+    # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
+    "qie_decode_attention_q8": [_P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, out,
+    # L, Bc, B, T, Hq, Hk, S, D, layer, start, scale, stream
+    "qie_chunk_attention": [_P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+    # position, L, Bc, B, Hk, S, D, layer, stream
+    "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,13 +1,16 @@
 """T=1 GQA flash decode over the stacked contiguous KV cache.
 
-Both wrappers launch the CUDA kernel ``csrc/decode_attention.cu``:
+The three wrappers launch the CUDA kernel ``csrc/decode_attention.cu``:
 
 * ``decode_attention_contiguous`` (the port of the JAX package's
   ``decode_attention_contiguous`` / ``_decode_kernel``): per-row lengths,
   used by the ragged batch after the plain stacked KV write;
 * ``decode_attention_appending`` (the port of ``decode_attention_appending``
   / ``_decode_append_kernel``): every row at one position; the kernel
-  writes the fresh K/V row into the cache in place and attends over it.
+  writes the fresh K/V row into the cache in place and attends over it;
+* ``decode_attention_contiguous_q8`` (the port of
+  ``decode_attention_contiguous_q8`` / ``_decode_kernel_q8``): per-row
+  lengths over an int8 cache with f32 scales (INT8 KV, every decode step).
 
 ``*_plain`` beside each computes the same function with the plain oracle.
 The cache is ``[L, Bc, Hk, S, D]``; ``row0`` (the pipeline-parallel batch
@@ -22,9 +25,10 @@ import torch
 
 from qwen_inference_engine_tpu_torch.ops import cuda_lib
 from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
+from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
 
 
-def _check_row0(row0) -> None:
+def check_row0(row0) -> None:
     if row0 != 0:
         raise NotImplementedError("row0 != 0 (pipeline-parallel decode) is "
                                   "not ported")
@@ -39,7 +43,8 @@ def decode_attention_contiguous_plain(q, k_cache, v_cache, layer: int,
                                 (lengths - 1)[:, None], kv_valid_len=lengths)
 
 
-def _check_decode_args(name, q, k_cache, v_cache, layer):
+def _check_decode_args(name, q, k_cache, v_cache, layer,
+                       kv_dtype=torch.bfloat16):
     B, T, Hq, D = q.shape
     L, Bc, Hk, S, Dc = k_cache.shape
     if T != 1 or Dc != D or v_cache.shape != k_cache.shape or B > Bc \
@@ -50,12 +55,41 @@ def _check_decode_args(name, q, k_cache, v_cache, layer):
         raise ValueError(f"{name} kernel takes D in (64, 128), not {D}")
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} out of range for {L} layers")
-    for t in (q, k_cache, v_cache):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise TypeError(f"{name} takes bf16 tensors on one device "
-                            "(INT8 KV needs the port of the _q8 kernels)")
+    check_cache(name, q, k_cache, v_cache, kv_dtype)
+
+
+def check_cache(name, q, k_cache, v_cache, kv_dtype) -> None:
+    """bf16 queries and contiguous caches of ``kv_dtype`` on q's device."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes bf16 queries, not {q.dtype}")
+    kind = "bf16" if kv_dtype == torch.bfloat16 else "int8"
+    for t in (k_cache, v_cache):
+        if t.dtype != kv_dtype or t.device != q.device:
+            raise TypeError(f"{name} takes {kind} caches on the device of q, "
+                            f"not {t.dtype} on {t.device}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError(f"{name} needs contiguous caches")
+
+
+def device_position(position: Union[int, torch.Tensor], S: int,
+                    device) -> torch.Tensor:
+    """A shared decode position as a 1-element int32 tensor on ``device``
+    (a tensor stays on the device: the kernel reads it, the host never
+    waits for it)."""
+    if isinstance(position, torch.Tensor):
+        if position.numel() != 1 or position.device != device:
+            raise ValueError("position must be one element on the device of "
+                             "the cache")
+        return position.reshape(1).to(torch.int32)
+    if not 0 <= int(position) < S:
+        raise IndexError(f"position {position} outside the cache ({S})")
+    return torch.full((1,), int(position), dtype=torch.int32, device=device)
+
+
+def _check_lengths(lengths, q):
+    if lengths.shape != (q.shape[0],) or lengths.device != q.device:
+        raise ValueError("lengths must be [B] on the device of q")
+    return lengths.to(torch.int32).contiguous()
 
 
 def decode_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
@@ -65,7 +99,7 @@ def decode_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
     """Attention of ``q [B, 1, Hq, D]`` over the first ``lengths[b]`` keys of
     ``cache[layer, b]``; returns [B, 1, Hq, D].  A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel or raises."""
-    _check_row0(row0)
+    check_row0(row0)
     if q.device.type == "cpu":
         return decode_attention_contiguous_plain(q, k_cache, v_cache, layer,
                                                  lengths)
@@ -73,9 +107,7 @@ def decode_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
                        layer)
     B, _, Hq, D = q.shape
     L, Bc, Hk, S, _ = k_cache.shape
-    if lengths.shape != (B,) or lengths.device != q.device:
-        raise ValueError("lengths must be [B] on the device of q")
-    lens = lengths.to(torch.int32).contiguous()
+    lens = _check_lengths(lengths, q)
     q = q.contiguous()
     out = torch.empty_like(q)
     rc = cuda_lib.library().qie_decode_attention(
@@ -113,7 +145,7 @@ def decode_attention_appending(q: torch.Tensor, k_cache: torch.Tensor,
     ``(attn [B, 1, Hq, D], k_cache, v_cache)``; the caches are the same
     tensors, written in place.  A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel or raises."""
-    _check_row0(row0)
+    check_row0(row0)
     if q.device.type == "cpu":
         return decode_attention_appending_plain(q, k_cache, v_cache, k_new,
                                                 v_new, layer, position)
@@ -123,15 +155,7 @@ def decode_attention_appending(q: torch.Tensor, k_cache: torch.Tensor,
     L, Bc, Hk, S, _ = k_cache.shape
     if k_new.shape != (B, 1, Hk, D) or v_new.shape != k_new.shape:
         raise ValueError(f"k_new/v_new must be {(B, 1, Hk, D)}")
-    if isinstance(position, torch.Tensor):
-        if position.numel() != 1 or position.device != q.device:
-            raise ValueError("position must be one element on q's device")
-        pos = position.reshape(1).to(torch.int32)
-    else:
-        if not 0 <= int(position) < S:
-            raise IndexError(f"position {position} outside the cache ({S})")
-        pos = torch.full((1,), int(position), dtype=torch.int32,
-                         device=q.device)
+    pos = device_position(position, S, q.device)
     kn = k_new.to(torch.bfloat16).contiguous()
     vn = v_new.to(torch.bfloat16).contiguous()
     q = q.contiguous()
@@ -147,3 +171,61 @@ def decode_attention_appending(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention_appending.launches = 0
+
+
+def decode_attention_contiguous_q8_plain(q, k_cache, v_cache, k_scale,
+                                         v_scale, layer: int,
+                                         lengths) -> torch.Tensor:
+    """q [B, 1, Hq, D] over the dequantized ``cache[layer, :B]`` (in q's
+    dtype) with ``lengths [B]``."""
+    B = q.shape[0]
+    k = dequantize_kv(k_cache[layer, :B], k_scale[layer, :B], q.dtype)
+    v = dequantize_kv(v_cache[layer, :B], v_scale[layer, :B], q.dtype)
+    return decode_attention_contiguous_plain(q, k[None], v[None], 0, lengths)
+
+
+def decode_attention_contiguous_q8(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor,
+                                   k_scale: torch.Tensor,
+                                   v_scale: torch.Tensor, layer: int,
+                                   lengths: torch.Tensor,
+                                   row0=0) -> torch.Tensor:
+    """Attention of ``q [B, 1, Hq, D]`` over the first ``lengths[b]`` keys of
+    the int8 ``cache[layer, b]`` with its f32 scales ``[L, Bc, Hk, S]``;
+    returns [B, 1, Hq, D].  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    check_row0(row0)
+    if q.device.type == "cpu":
+        return decode_attention_contiguous_q8_plain(q, k_cache, v_cache,
+                                                    k_scale, v_scale, layer,
+                                                    lengths)
+    _check_decode_args("decode_attention_contiguous_q8", q, k_cache, v_cache,
+                       layer, kv_dtype=torch.int8)
+    B, _, Hq, D = q.shape
+    L, Bc, Hk, S, _ = k_cache.shape
+    check_scales("decode_attention_contiguous_q8", k_cache, k_scale, v_scale)
+    lens = _check_lengths(lengths, q)
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    rc = cuda_lib.library().qie_decode_attention_q8(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer), D ** -0.5,
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, "decode_attention_contiguous_q8")
+    decode_attention_contiguous_q8.launches += 1
+    return out
+
+
+decode_attention_contiguous_q8.launches = 0
+
+
+def check_scales(name, k_cache, k_scale, v_scale) -> None:
+    """The f32 scales ``[L, Bc, Hk, S]`` of an int8 cache, contiguous and on
+    its device."""
+    for t in (k_scale, v_scale):
+        if t.shape != k_cache.shape[:-1] or t.dtype != torch.float32 \
+                or t.device != k_cache.device or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous f32 scales "
+                             f"{tuple(k_cache.shape[:-1])} on the cache's "
+                             f"device, not {t.dtype} {tuple(t.shape)}")

@@ -2,7 +2,7 @@
 
     python -m qwen_inference_engine_tpu_torch.server.cli generate \\
         --model qwen2.5-7b --bits 4 --group-size 256 --act-bits 8 \\
-        --prompt "Hello" --max-new-tokens 32 --greedy
+        --kv-bits 8 --prompt "Hello" --max-new-tokens 32 --greedy
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given.  Checkpoint loading (``--ckpt``) comes with the loaders in a
@@ -53,19 +53,17 @@ def build_model(args):
 
 
 def cmd_generate(args) -> int:
-    import torch
-
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.kvcache.cache import kv_dtype_from_bits
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
 
     cfg, params, tok, device = build_model(args)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, greedy=args.greedy)
     prompt_ids = [tok.encode(t) for t in (args.prompt or ["Hello"])]
-    kv_dtype = {8: torch.int8, 32: torch.float32}.get(args.kv_bits,
-                                                      torch.bfloat16)
     eng = Engine(cfg, params, max_batch=len(prompt_ids), max_seq=args.max_seq,
-                 kv_dtype=kv_dtype, sampling=sp, seed=args.seed, device=device)
+                 kv_dtype=kv_dtype_from_bits(args.kv_bits), sampling=sp,
+                 seed=args.seed, device=device)
     t0 = time.perf_counter()
     res = eng.generate(prompt_ids, max_new_tokens=args.max_new_tokens)
     dt = time.perf_counter() - t0
@@ -93,8 +91,8 @@ def main(argv=None) -> int:
                    help="8 = W4A8: per-token int8 activations in the block "
                         "projections")
     g.add_argument("--kv-bits", type=int, default=16, choices=(8, 16, 32),
-                   help="16 = bf16 KV (the kernels' type), 32 = f32 (CPU); "
-                        "8 = INT8 KV, not ported yet")
+                   help="16 = bf16 KV, 8 = INT8 KV (per-token-per-head "
+                        "scales); both run on CUDA; 32 = f32 (CPU only)")
     g.add_argument("--max-seq", type=int, default=2048)
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--prompt", action="append", default=None,

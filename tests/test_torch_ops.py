@@ -1,5 +1,6 @@
 """Plain modules of the port vs the JAX package: norms, RoPE, sampling,
-stacked KV writes.  Same numpy inputs to both; f32 on the CPU."""
+stacked KV writes, INT8 KV quantization.  Same numpy inputs to both; f32 on
+the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -13,11 +14,15 @@ from qwen_inference_engine_tpu.kvcache.cache import (
 from qwen_inference_engine_tpu.ops import norms as jnorms
 from qwen_inference_engine_tpu.ops import rope as jrope
 from qwen_inference_engine_tpu.ops import sampling as jsamp
+from qwen_inference_engine_tpu.quant import kv_quant as jkvq
 from qwen_inference_engine_tpu_torch.kvcache.cache import (
+    KVCache,
     write_prefill_stacked,
     write_stacked,
+    write_window_stacked,
 )
 from qwen_inference_engine_tpu_torch.ops import norms, rope, sampling
+from qwen_inference_engine_tpu_torch.quant import kv_quant
 
 
 def _t(a):
@@ -117,3 +122,60 @@ def test_stacked_cache_writes_match(fresh):
     else:
         write_stacked(got, 1, _t(new), _t(pos).long())
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_quantize_kv_bit_identical_to_jax():
+    """All-zero rows (scale 0 -> divisor 1), rows whose values land on .5
+    after the division (round half to even), and random rows."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(3, 5, 4, 64)).astype(np.float32) * 3
+    x[0, 0, 0] = 0.0
+    x[1, 2] = 0.0
+    # absmax 127 -> scale exactly 1: every x.5 is a rounding tie
+    ties = (rng.integers(-126, 126, size=64) + 0.5).astype(np.float32)
+    ties[0] = 127.0
+    x[2, 1, 3] = ties
+    x[2, 4, 0] = -ties
+    jq, js = jkvq.quantize_kv(jnp.asarray(x))
+    tq, ts = kv_quant.quantize_kv(_t(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        kv_quant.dequantize_kv(tq, ts, torch.float32).numpy(),
+        np.asarray(jkvq.dequantize_kv(jq, js, jnp.float32)))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8])
+def test_window_cache_write_matches_jax(kv_dtype):
+    """The continuation chunk's uniform window write (JAX:
+    dynamic_update_slice at (layer, 0, 0, start)); an int8 cache stores
+    quantize_kv's bytes and scales."""
+    rng = np.random.default_rng(6)
+    L, B, Hk, S, D, T, start = 2, 3, 2, 256, 8, 16, 40
+    k = rng.normal(size=(B, T, Hk, D)).astype(np.float32)
+    v = rng.normal(size=(B, T, Hk, D)).astype(np.float32)
+    cache = KVCache.create(L, B, S, Hk, D, dtype=kv_dtype)
+    assert cache.quantized == (kv_dtype == torch.int8)
+    cache.write(1, _t(k), _t(v), lambda arr, layer, new:
+                write_window_stacked(arr, layer, new, start))
+
+    def want(arr, new):
+        return jax.lax.dynamic_update_slice(
+            arr, jnp.asarray(new).swapaxes(1, 2)[None].astype(arr.dtype),
+            (1, 0, 0, start) + (0,) * (arr.ndim - 4))
+
+    for got, got_s, new in ((cache.k, cache.k_scale, k),
+                            (cache.v, cache.v_scale, v)):
+        if kv_dtype == torch.int8:
+            q, s = jkvq.quantize_kv(jnp.asarray(new))
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(want(jnp.zeros(got.shape, jnp.int8), q)))
+            np.testing.assert_array_equal(
+                got_s.numpy(), np.asarray(want(jnp.zeros(got_s.shape), s)))
+        else:
+            assert got_s is None
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(want(jnp.zeros(got.shape), new)))
+    with pytest.raises(IndexError, match="outside the cache"):
+        write_window_stacked(cache.k, 0, _t(k), S - T + 1)

@@ -12,8 +12,10 @@ from qwen_inference_engine_tpu_torch.config import tiny_config
 from qwen_inference_engine_tpu_torch.engine.engine import Engine
 from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
 from qwen_inference_engine_tpu_torch.models.qwen import init_params
+from qwen_inference_engine_tpu_torch.ops import chunk_attention as tca
 from qwen_inference_engine_tpu_torch.ops import decode_attention as tda
 from qwen_inference_engine_tpu_torch.ops import flash_attention as tfa
+from qwen_inference_engine_tpu_torch.ops import kv_append as tka
 from qwen_inference_engine_tpu_torch.ops import quant_matmul as tqmm
 from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear
 
@@ -93,7 +95,10 @@ def test_cli_runs_on_cpu_when_asked(capsys):
 def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     rng = np.random.default_rng(0)
     counters = [tqmm.quant_matmul4_a8, tfa.flash_attention,
-                tda.decode_attention_contiguous, tda.decode_attention_appending]
+                tda.decode_attention_contiguous, tda.decode_attention_appending,
+                tca.chunk_attention_contiguous,
+                tca.chunk_attention_contiguous_q8,
+                tka.kv_append_uniform_q8, tda.decode_attention_contiguous_q8]
     before = [f.launches for f in counters]
 
     xq = torch.from_numpy(rng.integers(-127, 128, size=(3, 256)).astype(np.int8))
@@ -123,23 +128,96 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     b, _, _ = tda.decode_attention_appending_plain(qd, kc.clone(), vc.clone(),
                                                    kn, vn, 0, 9)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    qc = torch.randn(2, 5, 4, 32)
+    np.testing.assert_array_equal(
+        tca.chunk_attention_contiguous(qc, kc, vc, 1, 40).numpy(),
+        tca.chunk_attention_contiguous_plain(qc, kc, vc, 1, 40).numpy())
+    k8 = torch.randint(-127, 128, (2, 2, 2, 256, 32), dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (2, 2, 2, 256, 32), dtype=torch.int8)
+    ks, vs = torch.rand(2, 2, 2, 256), torch.rand(2, 2, 2, 256)
+    np.testing.assert_array_equal(
+        tca.chunk_attention_contiguous_q8(qc, k8, v8, ks, vs, 0, 7).numpy(),
+        tca.chunk_attention_contiguous_q8_plain(qc, k8, v8, ks, vs, 0,
+                                                7).numpy())
+    np.testing.assert_array_equal(
+        tda.decode_attention_contiguous_q8(qd, k8, v8, ks, vs, 1, lens).numpy(),
+        tda.decode_attention_contiguous_q8_plain(qd, k8, v8, ks, vs, 1,
+                                                 lens).numpy())
+    new = (torch.randint(-127, 128, (2, 1, 2, 32), dtype=torch.int8),
+           torch.randint(-127, 128, (2, 1, 2, 32), dtype=torch.int8),
+           torch.rand(2, 1, 2), torch.rand(2, 1, 2))
+    got = tka.kv_append_uniform_q8(k8.clone(), v8.clone(), ks.clone(),
+                                   vs.clone(), *new, 9, 1)
+    want = tka.kv_append_uniform_q8_plain(k8.clone(), v8.clone(), ks.clone(),
+                                          vs.clone(), *new, 9, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     assert [f.launches for f in counters] == before
 
 
 def test_unported_variants_raise_on_cuda_before_any_plain_path():
-    """The dispatch decisions that do not need a card to be made."""
-    with pytest.raises(NotImplementedError, match="q8"):
-        KVCache.create(1, 1, 16, 1, 32, dtype=torch.int8)
+    """The dispatch decisions that do not need a card to be made: row0 != 0
+    (pipeline-parallel decode) in every decode-side wrapper, and INT8
+    weights with bf16 activations (a meta tensor stands in for the card;
+    test_cuda_dispatcher_names_the_missing_kernel has the other two
+    matmuls)."""
     with pytest.raises(NotImplementedError, match="row0"):
         tda.decode_attention_contiguous(torch.zeros(1, 1, 2, 32),
                                         torch.zeros(1, 1, 1, 256, 32),
                                         torch.zeros(1, 1, 1, 256, 32), 0,
                                         torch.ones(1), row0=2)
-    from qwen_inference_engine_tpu_torch.models.qwen import prefill_chunked
+    k8 = torch.zeros(1, 1, 1, 256, 32, dtype=torch.int8)
+    s8 = torch.zeros(1, 1, 1, 256)
+    with pytest.raises(NotImplementedError, match="row0"):
+        tda.decode_attention_contiguous_q8(torch.zeros(1, 1, 2, 32), k8, k8,
+                                           s8, s8, 0, torch.ones(1), row0=2)
+    with pytest.raises(NotImplementedError, match="row0"):
+        tka.kv_append_uniform_q8(k8, k8, s8, s8, k8[0, :, :, :1], k8[0, :, :, :1],
+                                 s8[0, :, :, :1], s8[0, :, :, :1], 0, 0, row0=2)
+    x = torch.empty(2, 128, device="meta")
+    lin8 = QuantLinear(q=torch.empty(1, 128, 128, dtype=torch.int8),
+                       scales=torch.empty(1, 1, 128), b=None, bits=8,
+                       group_size=128)
+    with pytest.raises(NotImplementedError, match="_quant_matmul8 "):
+        tqmm.quant_matmul_stacked(x, lin8, 0, act_bits=0)
 
-    with pytest.raises(NotImplementedError, match="chunk_attention"):
-        prefill_chunked({}, tiny_config(), torch.zeros(1, 1024, dtype=torch.long),
-                        torch.ones(1), None, chunk=512)
+
+def test_new_kernel_wrappers_refuse_before_any_launch():
+    """On a non-CPU tensor the wrappers of this slice check shapes and types
+    before they build or launch anything (a meta tensor stands in for the
+    card): chunks of 1..512 tokens, G <= 8, D in {64, 128}, a chunk inside
+    the cache, an int8 cache with f32 scales for the q8 variants."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    kc = meta(2, 2, 2, 1024, 128)
+    with pytest.raises(ValueError, match="1..512"):
+        tca.chunk_attention_contiguous(meta(2, 513, 4, 128), kc, kc, 0, 0)
+    with pytest.raises(ValueError, match="G <= 8"):
+        tca.chunk_attention_contiguous(meta(2, 8, 18, 128), kc, kc, 0, 0)
+    with pytest.raises(ValueError, match="D in"):
+        tca.chunk_attention_contiguous(meta(2, 8, 4, 32),
+                                       meta(2, 2, 2, 1024, 32),
+                                       meta(2, 2, 2, 1024, 32), 0, 0)
+    with pytest.raises(IndexError, match="outside the cache"):
+        tca.chunk_attention_contiguous(meta(2, 512, 4, 128), kc, kc, 0, 513)
+    with pytest.raises(TypeError, match="int8 cache"):
+        tca.chunk_attention_contiguous_q8(meta(2, 8, 4, 128), kc, kc,
+                                          meta(2, 2, 2, 1024, dtype=torch.float32),
+                                          meta(2, 2, 2, 1024, dtype=torch.float32),
+                                          0, 0)
+    k8 = meta(2, 2, 2, 1024, 128, dtype=torch.int8)
+    with pytest.raises(ValueError, match="f32 scales"):
+        tda.decode_attention_contiguous_q8(meta(2, 1, 4, 128), k8, k8,
+                                           meta(2, 2, 2, 1024), meta(2, 2, 2, 1024),
+                                           0, meta(2, dtype=torch.int32))
+    with pytest.raises(TypeError, match="int8 K/V"):
+        tka.kv_append_uniform_q8(k8, k8, meta(2, 2, 2, 1024, dtype=torch.float32),
+                                 meta(2, 2, 2, 1024, dtype=torch.float32),
+                                 meta(2, 1, 2, 128), meta(2, 1, 2, 128),
+                                 meta(2, 1, 2, dtype=torch.float32),
+                                 meta(2, 1, 2, dtype=torch.float32), 3, 0)
 
 
 def test_cuda_dispatcher_names_the_missing_kernel():
@@ -167,7 +245,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
 
     cu, hdr = cuda_lib._sources()
     assert {os.path.basename(p) for p in cu} == {
-        "quant_matmul.cu", "flash_attention.cu", "decode_attention.cu"}
+        "quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
+        "chunk_attention.cu", "kv_append.cu"}
     assert [os.path.basename(p) for p in hdr] == ["attention_common.cuh"]
     src = "".join(open(p).read() for p in cu)
     found = {m.group(1): m.group(2) for m in re.finditer(
