@@ -17,6 +17,14 @@
 // A key position `fresh_pos` (>= 0) is read from `k_fresh` / `v_fresh`
 // instead of the cache: the appending decode uses it so the token being
 // written enters the softmax from its inputs, never from a cache read.
+//
+// Where key j lives is a policy (`Keys`): `ContiguousKeys` puts it at
+// j * stride elements from key 0 (a contiguous cache slab, fresh K/V);
+// `PagedKeys` follows a block table, page tables[j / page], row j % page,
+// resolved for every key in the staging loop, so a 64-key tile may span
+// any number of pages (a page only has to be a multiple of 8 tokens).
+// Keys at or past n_keys are never loaded: their tile rows are zeros and
+// their scores -inf, so stale pages (even NaN) cannot leak in.
 
 #pragma once
 
@@ -46,6 +54,30 @@ struct AttnSmem {
   float alpha[BR];                          // this tile's rescale factor
   float ks[BK];                             // int8 KV: the tile's key scales
   float vs[BK];                             //          and value scales
+};
+
+// Key j at j * stride elements from key 0; its scale at j.
+struct ContiguousKeys {
+  long long stride;
+  __device__ __forceinline__ long long offset(int j) const {
+    return j * stride;
+  }
+  __device__ __forceinline__ long long scale(int j) const { return j; }
+};
+
+// Key j of one (layer, KV head) in the stacked bf16 page pool
+// [L, P, Hk, page, D]: the base pointers point at page 0 of that layer and
+// head, so key j is at tables[j / page] * page_stride + (j % page) * D
+// elements.  (No scale addressing: the INT8 pool is not ported yet.)
+struct PagedKeys {
+  const int* table;       // this row's block table
+  int page;               // tokens per page
+  int D;
+  long long page_stride;  // elements from one page to the next: Hk*page*D
+  __device__ __forceinline__ long long offset(int j) const {
+    return static_cast<long long>(table[j / page]) * page_stride +
+           static_cast<long long>(j % page) * D;
+  }
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -92,13 +124,13 @@ __device__ __forceinline__ float key_dot(const float* q, const int8_t* k) {
 
 // Online-softmax attention; the caller has filled sm.q (rows >= n_rows may
 // hold anything) and reads acc / sm.l afterwards.  kbase / vbase point at
-// key 0, consecutive keys are kv_stride elements apart.  For an int8 cache
-// ks_base / vs_base point at key 0's scales (consecutive keys adjacent);
-// for bf16 they are null.
-template <int D, int BR, int BK, typename KV>
+// the K/V base that `keys` addresses from.  For an int8 cache ks_base /
+// vs_base are the scale bases `keys.scale` addresses from; for bf16 they
+// are null.
+template <int D, int BR, int BK, typename KV, typename Keys>
 __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
                        int n_rows, const KV* __restrict__ kbase,
-                       const KV* __restrict__ vbase, long long kv_stride,
+                       const KV* __restrict__ vbase, const Keys& keys,
                        const float* __restrict__ ks_base,
                        const float* __restrict__ vs_base, int n_keys,
                        int lim0, int lim_step, const KV* k_fresh,
@@ -128,8 +160,9 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
       const int j = j0 + r;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (j < n_keys) {
-        const KV* ks = j == fresh_pos ? k_fresh + col : kbase + j * kv_stride + col;
-        const KV* vs = j == fresh_pos ? v_fresh + col : vbase + j * kv_stride + col;
+        const long long off = keys.offset(j) + col;
+        const KV* ks = j == fresh_pos ? k_fresh + col : kbase + off;
+        const KV* vs = j == fresh_pos ? v_fresh + col : vbase + off;
         kv = *reinterpret_cast<const uint4*>(ks);
         vv = *reinterpret_cast<const uint4*>(vs);
       }
@@ -143,8 +176,8 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
     if constexpr (kQuant) {
       if (tid < BK) {
         const int j = j0 + tid;
-        sm.ks[tid] = j < n_keys ? ks_base[j] : 0.f;
-        sm.vs[tid] = j < n_keys ? vs_base[j] : 0.f;
+        sm.ks[tid] = j < n_keys ? ks_base[keys.scale(j)] : 0.f;
+        sm.vs[tid] = j < n_keys ? vs_base[keys.scale(j)] : 0.f;
       }
     }
     __syncthreads();

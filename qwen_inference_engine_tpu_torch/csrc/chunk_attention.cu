@@ -1,42 +1,53 @@
 // Prefill continuation-chunk flash attention over the stacked contiguous
-// KV cache, bf16 or int8, Hopper.
+// KV cache (bf16 or int8) or over the stacked page pool (bf16), Hopper.
 //
-// Replaces two kernels of qwen_inference_engine_tpu/ops/chunk_attention.py:
+// Replaces three kernels of qwen_inference_engine_tpu/ops/chunk_attention.py:
 //   * chunk_attention_contiguous (_chunk_attention, body _chunk_kernel):
 //     bf16 cache;
 //   * chunk_attention_contiguous_q8 (_chunk_attention_q8, body
-//     _chunk_kernel_q8): int8 cache with per-token-per-head f32 scales.
-// One kernel templated on the cache's element type.
+//     _chunk_kernel_q8): int8 cache with per-token-per-head f32 scales;
+//   * paged_chunk_attention (_paged_chunk, body _paged_chunk_kernel): bf16
+//     page pool [L, P, Hk, page, D] addressed through a block table
+//     [B, max_pages] (the serving scheduler's continuation pieces).
+// One kernel templated on the cache's element type and on the key
+// addressing (attention_common.cuh: qie::ContiguousKeys / qie::PagedKeys).
 //
 // q [B, T, Hq, D] bf16: the chunk's queries at absolute positions
-// [start, start + T); cache k / v [L, Bc, Hk, S, D] (head-major) with the
-// chunk's own keys already written; scales [L, Bc, Hk, S] f32 (int8 only);
-// out [B, T, Hq, D] bf16.  Query t attends keys [0, start + t], f32 online
-// softmax; scores never leave shared memory.  int8 scores are
-// (q . k_i8) * k_scale * D^-1/2 and each value is scaled by its V scale
-// before the P @ V sum, as the TPU kernel folds the V scale into the
-// probabilities.
+// [start, start + T); the cache holds the chunk's own keys already
+// written; scales [L, Bc, Hk, S] f32 (int8 only); out [B, T, Hq, D] bf16.
+// Query t attends keys [0, start + t], f32 online softmax; scores never
+// leave shared memory.  int8 scores are (q . k_i8) * k_scale * D^-1/2 and
+// each value is scaled by its V scale before the P @ V sum, as the TPU
+// kernel folds the V scale into the probabilities.
 //
 // What bounds it on the H100: at B=4, T=512, start=1536 for Qwen2.5-7B a
 // layer reads 2 * B * Hk * (start + T) * D elements of cache (16.8 MB bf16,
 // 8.4 MB int8) for 4 * B * Hq * D * (T * start + T * (T + 1) / 2) = 52.6
 // GFLOP: ~3,100 (bf16) or ~6,200 (int8) operations per byte, far above the
 // ridge (~295), so operations bound it (53 us on the bf16 tensor cores); on
-// the CUDA cores used here they bound it the more.
+// the CUDA cores used here they bound it the more.  The serving piece (B=1,
+// T=256) is bound the same way.
 //
 // Design: simple and right first, the flash prefill kernel's layout
 // (attention_common.cuh) with the cache in place of fresh K/V.  A block of
 // D threads takes 16 query rows of one head (grid: T/16 x Hq x B; blocks
 // share nothing) and walks the key tiles of 64 of its (layer, row, KV head)
-// slab straight from the stacked cache, no slab copy, up to its last row's
-// position, so no tile above the causal diagonal is read.  Tiles wholly
-// below `start` pass every key; only the tiles that overlap the chunk take
-// the triangle.  G = 7 is not padded: each query head is its own block.
-// Any T >= 1 is taken (the ragged edge is masked in the kernel); the
-// wrapper limits T to the engine's chunk of 512.  int8 K/V are staged as
-// raw bytes, so a tile costs half the shared-memory traffic of bf16, and
-// dequantized in registers.  The products run as fp32 FMAs on the CUDA
-// cores; the tensor cores (mma / wgmma) are later work.
+// keys straight from the stacked cache or pool, no slab copy and no
+// gathered copy of the pages, up to its last row's position, so no tile
+// above the causal diagonal is read.  Tiles wholly below `start` pass
+// every key; only the tiles that overlap the chunk take the triangle.  In
+// the page pool each key's page is looked up in the row's block table as
+// the tile is staged, so a tile may span pages and `start` need not be
+// page-aligned (a prefix-cache hit with a partial-page copy starts its
+// first piece mid-page); keys past the chunk's end are never loaded, nor
+// keys past the table's end (a bucket-padded last piece may reach there).
+// G = 7 is not padded: each query head is its own block.  Any T >= 1 is
+// taken (the ragged edge is masked in the kernel); the wrappers limit T to
+// the engine's chunk of 512, with no T % 8 or VMEM condition (the TPU
+// kernel's).  int8 K/V are staged as raw bytes, so a tile costs half the
+// shared-memory traffic of bf16, and dequantized in registers.  The
+// products run as fp32 FMAs on the CUDA cores; the tensor cores (mma /
+// wgmma) are later work.
 
 #include "attention_common.cuh"
 
@@ -45,14 +56,17 @@ namespace {
 constexpr int kRows = 16;   // query rows per block
 constexpr int kKeys = 64;   // keys per tile
 
-template <int D, typename KV>
+// kPaged: k_cache / v_cache are the page pool [L, P, Hk, page, D] and
+// (Bc, S) stand for (P, page); tables is [B, max_pages].
+template <int D, typename KV, bool kPaged>
 __global__ void __launch_bounds__(D)
 chunk_kernel(const __nv_bfloat16* __restrict__ q,
              const KV* __restrict__ k_cache, const KV* __restrict__ v_cache,
              const float* __restrict__ k_scale,
              const float* __restrict__ v_scale,
+             const int* __restrict__ tables,
              __nv_bfloat16* __restrict__ out, int Bc, int T, int Hq, int Hk,
-             int S, int layer, int start, float scale) {
+             int S, int max_pages, int layer, int start, float scale) {
   __shared__ qie::AttnSmem<D, kRows, kKeys, KV> sm;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kRows;
@@ -70,16 +84,32 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
     }
     sm.q[i][d] = val;
   }
-  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
-  const long long base = row * S * D;
-  const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
-  const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
   // row i sits at position start + q0 + i and sees keys [0, that position]
+  int n_keys = start + q0 + n_rows;
   float acc[kRows];
-  qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_cache + base,
-                                   v_cache + base, D, ks, vs,
-                                   start + q0 + n_rows, start + q0, 1,
-                                   nullptr, nullptr, -1);
+  if constexpr (kPaged) {
+    // bucket padding may run past the table's last page: those rows see
+    // the whole table (as the TPU kernel's grid walks only the table)
+    n_keys = min(n_keys, max_pages * S);
+    // page 0 of (layer, hk); the row's table picks each key's page
+    const long long base = (static_cast<long long>(layer) * Bc * Hk + hk) *
+                           static_cast<long long>(S) * D;
+    const qie::PagedKeys keys{tables + static_cast<long long>(b) * max_pages,
+                              S, D, static_cast<long long>(Hk) * S * D};
+    qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_cache + base,
+                                     v_cache + base, keys, nullptr, nullptr,
+                                     n_keys, start + q0, 1, nullptr, nullptr,
+                                     -1);
+  } else {
+    const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
+    const long long base = row * S * D;
+    const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
+    const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
+    qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_cache + base,
+                                     v_cache + base, qie::ContiguousKeys{D},
+                                     ks, vs, n_keys, start + q0, 1, nullptr,
+                                     nullptr, -1);
+  }
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < n_rows) {
@@ -90,11 +120,12 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename KV>
+template <typename KV, bool kPaged>
 int launch(const void* q, const void* k_cache, const void* v_cache,
-           const void* k_scale, const void* v_scale, void* out, int Bc, int B,
-           int T, int Hq, int Hk, int S, int D, int layer, int start,
-           float scale, void* stream) {
+           const void* k_scale, const void* v_scale, const void* tables,
+           void* out, int Bc, int B, int T, int Hq, int Hk, int S,
+           int max_pages, int D, int layer, int start, float scale,
+           void* stream) {
   dim3 grid((T + kRows - 1) / kRows, Hq, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -102,13 +133,16 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   const auto* vc = static_cast<const KV*>(v_cache);
   const auto* ksp = static_cast<const float*>(k_scale);
   const auto* vsp = static_cast<const float*>(v_scale);
+  const auto* tp = static_cast<const int*>(tables);
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (D == 128) {
-    chunk_kernel<128, KV><<<grid, 128, 0, st>>>(
-        qp, kc, vc, ksp, vsp, op, Bc, T, Hq, Hk, S, layer, start, scale);
+    chunk_kernel<128, KV, kPaged><<<grid, 128, 0, st>>>(
+        qp, kc, vc, ksp, vsp, tp, op, Bc, T, Hq, Hk, S, max_pages, layer,
+        start, scale);
   } else if (D == 64) {
-    chunk_kernel<64, KV><<<grid, 64, 0, st>>>(
-        qp, kc, vc, ksp, vsp, op, Bc, T, Hq, Hk, S, layer, start, scale);
+    chunk_kernel<64, KV, kPaged><<<grid, 64, 0, st>>>(
+        qp, kc, vc, ksp, vsp, tp, op, Bc, T, Hq, Hk, S, max_pages, layer,
+        start, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -131,10 +165,33 @@ extern "C" int qie_chunk_attention(const void* q, const void* k_cache,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (quant) {
-    return launch<int8_t>(q, k_cache, v_cache, k_scale, v_scale, out, Bc, B,
-                          T, Hq, Hk, S, D, layer, start, scale, stream);
+    return launch<int8_t, false>(q, k_cache, v_cache, k_scale, v_scale,
+                                 nullptr, out, Bc, B, T, Hq, Hk, S, 0, D,
+                                 layer, start, scale, stream);
   }
-  return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, out, Bc,
-                               B, T, Hq, Hk, S, D, layer, start, scale,
-                               stream);
+  return launch<__nv_bfloat16, false>(q, k_cache, v_cache, nullptr, nullptr,
+                                      nullptr, out, Bc, B, T, Hq, Hk, S, 0, D,
+                                      layer, start, scale, stream);
+}
+
+// bf16 page pool [L, P, Hk, page, D]; every row's piece starts at `start`
+// (a host int) and follows its own row of tables [B, max_pages].  The piece
+// may end past the table (the scheduler pads its last piece to a bucket);
+// it must start inside it.
+extern "C" int qie_paged_chunk_attention(const void* q, const void* k_pages,
+                                         const void* v_pages,
+                                         const void* tables, void* out, int L,
+                                         int P, int B, int T, int Hq, int Hk,
+                                         int page, int max_pages, int D,
+                                         int layer, int start, float scale,
+                                         void* stream) {
+  if (B <= 0 || T <= 0 || Hk <= 0 || Hq % Hk || layer < 0 || layer >= L ||
+      P <= 0 || page <= 0 || page % 8 || max_pages <= 0 || start < 0 ||
+      start >= max_pages * page) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<__nv_bfloat16, true>(q, k_pages, v_pages, nullptr, nullptr,
+                                     tables, out, P, B, T, Hq, Hk, page,
+                                     max_pages, D, layer, start, scale,
+                                     stream);
 }

@@ -94,7 +94,8 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, KV* __restrict__ k_cache,
   const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
   float acc[kRows];
   qie::attend<D, kRows, kKeys, KV>(sm, acc, G, k_cache + base, v_cache + base,
-                                   D, ks, vs, len, len - 1, 0, kf, vf, fresh);
+                                   qie::ContiguousKeys{D}, ks, vs, len,
+                                   len - 1, 0, kf, vf, fresh);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < G) {

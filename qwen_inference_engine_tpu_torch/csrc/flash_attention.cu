@@ -58,7 +58,8 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
                         static_cast<long long>(hk) * D;
   float acc[kRows];
   qie::attend<D, kRows, kKeys, __nv_bfloat16>(
-      sm, acc, n_rows, k + kv0, v + kv0, static_cast<long long>(Hk) * D,
+      sm, acc, n_rows, k + kv0, v + kv0,
+      qie::ContiguousKeys{static_cast<long long>(Hk) * D},
       nullptr, nullptr, min(T, q0 + kRows), q0, 1, nullptr, nullptr, -1);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {

@@ -1,25 +1,51 @@
-// INT8-KV decode append into the stacked contiguous cache, Hopper.
+// KV appends into the stacked caches, Hopper.
 //
-// Replaces: qwen_inference_engine_tpu/ops/kv_append.py::kv_append_uniform_q8
-// (body _uniform_append_q8_kernel).
+// Replaces three kernels of qwen_inference_engine_tpu/ops/kv_append.py:
+//   * kv_append_uniform_q8 (body _uniform_append_q8_kernel): INT8-KV decode
+//     append into the contiguous cache;
+//   * paged_append_ragged (body _paged_ragged_kernel): one bf16 K/V row per
+//     batch row into the page pool, each at its own position;
+//   * paged_append_prefill (body _paged_prefill_kernel): a prefill piece's
+//     T bf16 K/V rows of one sequence into the page pool.
 //
-// In place: int8 k_new / v_new [B, Hk, D] and f32 ks_new / vs_new [B, Hk]
-// into cache[layer, b, hk, position] of the int8 caches [L, Bc, Hk, S, D]
-// and the scales [L, Bc, Hk, S], for rows b < B.  Every row shares the one
-// position, a 1-element int32 tensor read on the device, so the host never
-// waits for it; a position outside [0, S) writes nothing.
+// kv_append_q8: in place, int8 k_new / v_new [B, Hk, D] and f32 ks_new /
+// vs_new [B, Hk] into cache[layer, b, hk, position] of the int8 caches
+// [L, Bc, Hk, S, D] and the scales [L, Bc, Hk, S], for rows b < B.  Every
+// row shares the one position, a 1-element int32 tensor read on the device,
+// so the host never waits for it; a position outside [0, S) writes nothing.
 //
-// What bounds it on the H100: it moves 2 * B * Hk * (D + 4) bytes in and as
-// many out (4.2 KB at B=4 for Qwen2.5-7B): a few nanoseconds at 3.35 TB/s,
-// so the launch itself (a few microseconds) bounds it in practice.
+// paged_append_ragged: in place, k_new / v_new [B, Hk, D] into the pools
+// [L, P, Hk, page, D] at row positions[b] % page of page
+// tables[b, positions[b] / page]; positions and tables are read on the
+// device (no host sync inside a decode tick); positions[b] < 0 skips row b.
 //
-// Design: one block per (KV head, row), one thread per byte of the head
-// vector; thread 0 also writes the two scales.  The TPU kernel read and
-// wrote back a 32-row band and a 128-lane scale tile because its memory
-// moves in (32, 128) tiles; that is tiling, not semantics: here only the
-// one row and its two scales are written, bit for bit, and nothing else of
-// the cache is touched.
+// paged_append_prefill: in place, k_new / v_new [T, Hk, D] at positions
+// start .. start + T - 1 through tables [max_pages] (one sequence).  The
+// window may cross pages; bucket padding past the allocated pages follows
+// the table's zero entries onto scratch page 0, as in the JAX package.
+//
+// Both paged appends follow the table as it is: a position whose logical
+// page is past the table's width writes nothing (the JAX scatter drops
+// it), and so does a page id outside [0, P).  Several rows may write the
+// same scratch row in one launch (idle slots at position 0 of page 0): a
+// benign race, never read back.
+//
+// What bounds them on the H100: kv_append_q8 moves 2 * B * Hk * (D + 4)
+// bytes in and as many out (4.2 KB at B=4 for Qwen2.5-7B); the ragged
+// paged append 2 * 2 * B * Hk * D bytes each way (16 KB at 8 slots); the
+// prefill append 2 * 2 * T * Hk * D bytes each way (512 KB at T=256): a
+// few nanoseconds to ~0.3 us at 3.35 TB/s, so the launch itself (a few
+// microseconds) bounds them in practice.
+//
+// Design: one block per (KV head, row or token), one thread per element of
+// the head vector; kv_append_q8's thread 0 also writes the two scales.
+// The TPU kernels read and wrote back whole bands, tiles or pages (a
+// 32-row int8 band, a 128-lane scale tile, a [Hk, page, D] page block for
+// the prefill append) because their memory moves in (8/32, 128) tiles;
+// that is tiling, not semantics: here only the rows being appended are
+// written, bit for bit, and nothing else of the cache is touched.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,6 +74,51 @@ __global__ void kv_append_q8_kernel(
   }
 }
 
+// one (KV head, row) per block: the row's token goes to its own position
+__global__ void paged_append_ragged_kernel(
+    __nv_bfloat16* __restrict__ k_pages, __nv_bfloat16* __restrict__ v_pages,
+    const __nv_bfloat16* __restrict__ k_new,
+    const __nv_bfloat16* __restrict__ v_new,
+    const int* __restrict__ positions, const int* __restrict__ tables, int P,
+    int Hk, int page, int D, int max_pages, int layer) {
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int p = positions[b];
+  if (p < 0 || p / page >= max_pages) return;
+  const int pg = tables[static_cast<long long>(b) * max_pages + p / page];
+  if (pg < 0 || pg >= P) return;
+  const long long dst =
+      (((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page) *
+      D;
+  const long long src = (static_cast<long long>(b) * Hk + hk) * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    k_pages[dst + d] = k_new[src + d];
+    v_pages[dst + d] = v_new[src + d];
+  }
+}
+
+// one (KV head, token) per block: token t goes to position start + t
+__global__ void paged_append_prefill_kernel(
+    __nv_bfloat16* __restrict__ k_pages, __nv_bfloat16* __restrict__ v_pages,
+    const __nv_bfloat16* __restrict__ k_new,
+    const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ table,
+    int P, int Hk, int page, int D, int max_pages, int layer, int start) {
+  const int hk = blockIdx.x;
+  const int t = blockIdx.y;
+  const int p = start + t;
+  if (p / page >= max_pages) return;
+  const int pg = table[p / page];
+  if (pg < 0 || pg >= P) return;
+  const long long dst =
+      (((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page) *
+      D;
+  const long long src = (static_cast<long long>(t) * Hk + hk) * D;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    k_pages[dst + d] = k_new[src + d];
+    v_pages[dst + d] = v_new[src + d];
+  }
+}
+
 }  // namespace
 
 extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
@@ -67,5 +138,49 @@ extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
       static_cast<const int8_t*>(k_new), static_cast<const int8_t*>(v_new),
       static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
       static_cast<const int*>(position), Bc, Hk, S, D, layer);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qie_paged_append_ragged(void* k_pages, void* v_pages,
+                                       const void* k_new, const void* v_new,
+                                       const void* positions,
+                                       const void* tables, int L, int P,
+                                       int B, int Hk, int page, int D,
+                                       int max_pages, int layer,
+                                       void* stream) {
+  if (B <= 0 || Hk <= 0 || D <= 0 || D > 1024 || P <= 0 || page <= 0 ||
+      max_pages <= 0 || layer < 0 || layer >= L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid(Hk, B);
+  paged_append_ragged_kernel<<<grid, D, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<__nv_bfloat16*>(k_pages),
+      static_cast<__nv_bfloat16*>(v_pages),
+      static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new),
+      static_cast<const int*>(positions), static_cast<const int*>(tables), P,
+      Hk, page, D, max_pages, layer);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qie_paged_append_prefill(void* k_pages, void* v_pages,
+                                        const void* k_new, const void* v_new,
+                                        const void* table, int L, int P,
+                                        int T, int Hk, int page, int D,
+                                        int max_pages, int layer, int start,
+                                        void* stream) {
+  if (T <= 0 || T > 65535 || Hk <= 0 || D <= 0 || D > 1024 || P <= 0 ||
+      page <= 0 || max_pages <= 0 || layer < 0 || layer >= L || start < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid(Hk, T);
+  paged_append_prefill_kernel<<<grid, D, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<__nv_bfloat16*>(k_pages),
+      static_cast<__nv_bfloat16*>(v_pages),
+      static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new),
+      static_cast<const int*>(table), P, Hk, page, D, max_pages, layer,
+      start);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,561 @@
+"""Continuous batching over the paged KV cache.
+
+The port of the JAX package's ``engine/scheduler.py``
+(``ContinuousBatchingEngine``), single card, bf16 KV:
+
+* a fixed ``max_slots`` decode batch; idle slots decode at position 0
+  through a zeroed block-table row, so they only touch scratch page 0;
+* a host-side page allocator over the device page pool with admission
+  control by KV-page budget: a request is admitted only if its worst-case
+  pages (prompt + max_new) are free (``engine/prefix_cache.py``);
+* per-request chunked prefill, at most one ``prefill_chunk``-token piece
+  per tick while other slots decode, then one decode step across all
+  decoding slots;
+* completion (EOS, a stop id, max tokens, cancel, timeout) frees the slot
+  and pages at once;
+* automatic prefix caching (page-granular, hash-chained, refcounted, LRU
+  parked, sub-page tails through a partial-page copy);
+* ``step_batch``: decode ticks chained on the device (each tick's sampled
+  tokens feed the next, positions ``pos0 + i`` on the device) with one host
+  sync per window; ``_mixed_chain_batch`` interleaves a prefilling slot's
+  interior pieces with those ticks under the same sync.
+
+Each step runs eagerly (no CUDA graph yet).  Sampling draws from a
+``torch.Generator`` seeded per (seed, request id) for a prefill piece and
+per (seed, step count) for a decode tick, so a chained window samples
+exactly as the same ticks run one by one; the streams are not the JAX
+package's ``fold_in`` streams, so only greedy rows match it token for
+token.
+
+Not ported yet, each raising ``NotImplementedError``: speculative decoding
+and draft models (slice 4), a device mesh (TP / EP / PP, slice 6), and the
+INT8 page pool (``_paged_bhgd_q8`` and ``paged_chunk_attention_q8``, the
+INT8 paged slice).
+
+The engine runs on the card unless the caller passes ``device="cpu"`` (the
+tests do): it never drops to the CPU by itself.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict, deque
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from qwen_inference_engine_tpu_torch.config import ModelConfig
+from qwen_inference_engine_tpu_torch.engine.engine import resolve_device
+from qwen_inference_engine_tpu_torch.engine.prefix_cache import PagePoolMixin
+from qwen_inference_engine_tpu_torch.engine.types import (  # noqa: F401
+    FinishedRequest,
+    Request,
+    _Running,
+    _bucket,
+    _is_stop,
+)
+from qwen_inference_engine_tpu_torch.kvcache.cache import (
+    PagedKVCache,
+    pages_required,
+)
+from qwen_inference_engine_tpu_torch.models.qwen import (
+    compute_logits,
+    decode_step,
+    forward_hidden,
+    params_to,
+)
+from qwen_inference_engine_tpu_torch.ops.sampling import (
+    SamplingParams,
+    sample_rows,
+)
+from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
+
+_DECODE_STREAM = 100_000   # decode ticks draw from seed streams past this
+
+
+class ContinuousBatchingEngine(PagePoolMixin):
+    def __init__(self, cfg: ModelConfig, params: dict, *, mesh=None,
+                 max_slots: int = 8, page_size: int = 512,
+                 num_pages: int = 512, max_pages_per_seq: int = 64,
+                 kv_dtype=torch.bfloat16,
+                 sampling: Optional[SamplingParams] = None, seed: int = 1234,
+                 prefill_chunk: int = 256, on_token=None,
+                 prefix_cache: bool = True, speculative: bool = False,
+                 draft_params: Optional[dict] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 top_k_cap: Optional[int] = None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving on a device mesh (the TP / EP / PP steps) is not "
+                "ported yet: it comes with the multi-GPU slice (6)")
+        if speculative or draft_params is not None or draft_cfg is not None:
+            raise NotImplementedError(
+                "speculative decoding in the scheduler (prompt lookup and "
+                "draft models, engine/spec_engine.py) is not ported yet: it "
+                "comes with the speculation slice (4)")
+        if kv_dtype == torch.int8:
+            raise NotImplementedError(
+                "the INT8 page pool is not ported yet: it needs "
+                "_paged_bhgd_q8 (paged_decode_attention_stacked_q8) and "
+                "paged_chunk_attention_q8 (_paged_chunk_q8), the INT8 paged "
+                "slice")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params_to(params, self.device)
+        self.max_slots = max_slots
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.max_pages_per_seq = max_pages_per_seq
+        self.sampling = sampling or SamplingParams()
+        self.seed = seed
+        self.prefill_chunk = prefill_chunk
+        # on_token(request_id, token_id) fires as tokens are produced: the
+        # hook the HTTP server's streaming rides on
+        self.on_token = on_token
+        self.metrics = Metrics()
+        self.cache = PagedKVCache.create(
+            cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+            cfg.head_dim, dtype=kv_dtype, device=self.device)
+        # per-slot sampling-param rows change only when the slot table does
+        self._sp_rows_cache = None
+        # page 0 is the scratch page for idle slots / unallocated entries
+        self._free_pages: List[int] = list(range(num_pages - 1, 0, -1))
+        self.prefix_cache = prefix_cache
+        self._page_refs: Dict[int, int] = {}
+        self._prefix_index: Dict[int, tuple] = {}   # hash -> (page, parent, blk)
+        self._page_hash: Dict[int, int] = {}        # registered page -> hash
+        # parent hash -> {page: blk}: the registered continuations of a
+        # prefix, searched for partial tail-page reuse
+        self._prefix_children: Dict[Optional[int], Dict[int, tuple]] = {}
+        self._cached_free: "OrderedDict[int, int]" = OrderedDict()  # page->hash
+        self._block_tables = np.zeros((max_slots, max_pages_per_seq), np.int32)
+        self._seq_lens = np.zeros((max_slots,), np.int32)
+        self._slots: List[Optional[_Running]] = [None] * max_slots
+        self._pending: Deque[Request] = deque()
+        self._finished: List[FinishedRequest] = []
+        self._step_count = 0
+        self._admit_count = 0
+        self._eos = set(cfg.eos_token_ids)
+        # top-k selection width of the decode step; per-row top_k masks
+        # within it, so a request may use any top_k in [0, k_cap]
+        if top_k_cap is not None:
+            assert top_k_cap >= max(1, self.sampling.top_k), \
+                "top_k_cap below the default top_k would reject defaults"
+            self.k_cap = min(top_k_cap, cfg.vocab_size)
+        else:
+            self.k_cap = (cfg.vocab_size if self.sampling.top_k == 0
+                          else max(64, self.sampling.top_k))
+        # per-slot presence mask of tokens seen (prompt + generated), on
+        # the device: the repetition penalty's input in serving
+        self._seen = torch.zeros((max_slots, cfg.vocab_size), dtype=torch.bool,
+                                 device=self.device)
+
+    # ------------------------------------------------------------------
+    @property
+    def num_active(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    @property
+    def num_pending(self) -> int:
+        return len(self._pending)
+
+    def has_work(self) -> bool:
+        return self.num_active > 0 or self.num_pending > 0
+
+    def submit(self, request: Request) -> None:
+        request._t_submit = time.perf_counter()
+        self._pending.append(request)
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a pending or running request: its slot and pages are freed
+        at once.  Returns True if it was found."""
+        for i, r in enumerate(self._pending):
+            if r.request_id == request_id:
+                del self._pending[i]
+                self._finished.append(
+                    FinishedRequest(request_id, [], "cancelled"))
+                return True
+        for run in self._slots:
+            if run is not None and run.request.request_id == request_id:
+                self._finish(run, "cancelled")
+                return True
+        return False
+
+    def _expire_deadlines(self) -> None:
+        now = time.perf_counter()
+
+        def expired(req: Request) -> bool:
+            return (req.timeout_s is not None and
+                    now - getattr(req, "_t_submit", now) > req.timeout_s)
+
+        for r in [r for r in self._pending if expired(r)]:
+            self._pending.remove(r)
+            self._finished.append(FinishedRequest(r.request_id, [], "timeout"))
+        for run in list(self._slots):
+            if run is not None and expired(run.request):
+                self._finish(run, "timeout")
+
+    # ------------------------------------------------------------------
+    def _generator(self, stream: int) -> torch.Generator:
+        """A generator for one sampling call, seeded by (seed, stream)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.seed * 1_000_003 + stream) % (2 ** 63))
+        return gen
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _sp_tensors(self, rows: List[SamplingParams]) -> dict:
+        """Per-row sampling parameters as [len(rows)] device tensors."""
+        def col(field, dtype):
+            return self._tensor(np.asarray([getattr(sp, field) for sp in rows],
+                                           dtype))
+
+        return {"temperature": col("temperature", np.float32),
+                "top_p": col("top_p", np.float32),
+                "repetition_penalty": col("repetition_penalty", np.float32),
+                "presence_penalty": col("presence_penalty", np.float32),
+                "top_k": col("top_k", np.int64),
+                "greedy": col("greedy", bool)}
+
+    def _sp_rows(self) -> dict:
+        """Each slot decodes with its own request's parameters; idle slots
+        take the engine defaults.  Cached until the slot table changes."""
+        if self._sp_rows_cache is None:
+            rows = [self.sampling] * self.max_slots
+            for s in self._slots:
+                if s is not None and s.request.sampling is not None:
+                    rows[s.slot] = s.request.sampling
+            self._sp_rows_cache = self._sp_tensors(rows)
+        return self._sp_rows_cache
+
+    def _active_mask(self, decoding) -> torch.Tensor:
+        """[max_slots] bool: slots decoding this tick (seen-mask updates are
+        gated on it, so mid-prefill and idle slots stay clean)."""
+        m = np.zeros((self.max_slots,), bool)
+        for s in decoding:
+            m[s.slot] = True
+        return self._tensor(m)
+
+    # ------------------------------------------------------------------
+    _ADMIT_WINDOW = 8
+
+    def _try_admit(self) -> bool:
+        """Admit one pending request if a slot and its worst-case pages are
+        free.  Among the first _ADMIT_WINDOW pending requests, the one with
+        the most cached prefix pages goes first (a bounded window with an
+        arrival-order tie-break, so cold requests do not starve)."""
+        if not self._pending:
+            return False
+        free_slot = next((i for i, s in enumerate(self._slots) if s is None),
+                         None)
+        if free_slot is None:
+            return False
+        if self.prefix_cache and len(self._pending) > 1:
+            window = min(len(self._pending), self._ADMIT_WINDOW)
+            best_i, best_h = 0, len(self._prefix_lookup(
+                self._pending[0].prompt)[0])
+            for i in range(1, window):
+                nh = len(self._prefix_lookup(self._pending[i].prompt)[0])
+                if nh > best_h:
+                    best_i, best_h = i, nh
+            if best_i:
+                hot = self._pending[best_i]
+                del self._pending[best_i]
+                self._pending.appendleft(hot)
+        req = self._pending[0]
+        # bucket padding past the prompt lands on the scratch page (zeroed
+        # table entries) or on masked future positions, so admission only
+        # budgets real tokens
+        need = pages_required(len(req.prompt) + req.max_new_tokens,
+                              self.page_size)
+        if need > self.max_pages_per_seq:
+            self._pending.popleft()
+            self._finished.append(FinishedRequest(req.request_id, [],
+                                                  "rejected"))
+            return True
+        hits, parent = (self._prefix_lookup(req.prompt) if self.prefix_cache
+                        else ([], None))
+        if need - len(hits) > self._page_budget():
+            return False  # admission control: not enough KV budget yet
+        part_src, part_t = (self._partial_lookup(req.prompt, len(hits), parent)
+                            if self.prefix_cache else (None, 0))
+        self._pending.popleft()
+        # pin the hits (and the partial source) first: a revived page must
+        # not be evicted for this same request's fresh allocations
+        for p in hits:
+            self._cached_free.pop(p, None)
+            self._page_refs[p] = self._page_refs.get(p, 0) + 1
+        if part_src is not None:
+            self._cached_free.pop(part_src, None)
+            self._page_refs[part_src] = self._page_refs.get(part_src, 0) + 1
+        fresh = [self._alloc_page() for _ in range(need - len(hits))]
+        for p in fresh:
+            self._page_refs[p] = 1
+        pages = hits + fresh
+        cached_len = len(hits) * self.page_size
+        if part_src is not None:
+            # the partially matching page is copied into this run's first
+            # fresh page; its matched rows are then served from cache and
+            # only the remainder prefills
+            self._copy_page(part_src, fresh[0])
+            cached_len += part_t
+            self._release_page(part_src)  # drop the temporary pin
+        if cached_len:
+            self.metrics.observe_prefix_hit(cached_len)
+        run = _Running(request=req, slot=free_slot, pages=pages,
+                       seq_len=len(req.prompt), t_submit=time.perf_counter(),
+                       prefilled=cached_len, admit_seq=self._admit_count)
+        self._admit_count += 1
+        self._slots[free_slot] = run
+        self._sp_rows_cache = None
+        # prompt-token presence row for the repetition penalty
+        self._seen[free_slot] = False
+        self._seen[free_slot, self._tensor(np.asarray(req.prompt, np.int64))] \
+            = True
+        row = np.zeros((self.max_pages_per_seq,), np.int32)
+        row[: len(pages)] = pages
+        self._block_tables[free_slot] = row
+        self._seq_lens[free_slot] = len(req.prompt)
+        return True
+
+    # ------------------------------------------------------------------
+    def _run_piece(self, run: _Running, tokens: torch.Tensor, start: int,
+                   nvalid: int, table: torch.Tensor, last: bool):
+        """One prefill piece ``tokens [1, T]`` of ``run`` at ``start`` (the
+        fresh-prefill branch when it is 0).  The last piece samples the
+        request's first token with its own parameters and marks it seen;
+        returns it as a device tensor [1] (None for an interior piece)."""
+        T = tokens.shape[1]
+        positions = start + torch.arange(T, device=self.device)[None, :]
+        hidden, self.cache = forward_hidden(
+            self.params, self.cfg, tokens, positions, self.cache,
+            block_tables=table, fresh_prefill=start == 0,
+            start=None if start == 0 else start)
+        if not last:
+            return None
+        h = hidden[:, min(max(nvalid - 1, 0), T - 1)]
+        logits = compute_logits(self.params, h, self.cfg.act_bits_lm_head)
+        sp = run.request.sampling or self.sampling
+        seen = self._seen[run.slot:run.slot + 1]
+        tok = sample_rows(logits, self._generator(run.request.request_id),
+                          k_cap=self.k_cap, seen_mask=seen,
+                          **self._sp_tensors([sp]))
+        self._seen[run.slot, tok] = True
+        return tok
+
+    def _prefill_tick(self, run: _Running) -> None:
+        """Advance ``run``'s prefill by one piece (bounded work per tick: a
+        long prompt cannot stall active decodes for more than one piece's
+        forward)."""
+        prompt = run.request.prompt
+        start = run.prefilled
+        remaining = len(prompt) - start
+        # single-piece prompts use a power-of-two bucket; pieces of longer
+        # prompts are exactly prefill_chunk wide
+        T = (min(_bucket(remaining), self.prefill_chunk)
+             if remaining <= self.prefill_chunk else self.prefill_chunk)
+        piece = prompt[start:start + T]
+        last = start + T >= len(prompt)
+        tokens = np.zeros((1, T), np.int64)
+        tokens[0, : len(piece)] = piece
+        tok = self._run_piece(run, self._tensor(tokens), start, len(piece),
+                              self._tensor(self._block_tables[run.slot:
+                                                              run.slot + 1]),
+                              last)
+        run.prefilled = start + len(piece)
+        self.metrics.observe_prefill(len(piece))
+        self._step_count += 1
+        if not last:
+            return
+        first = int(tok[0])   # value fetch = device sync
+        # TTFT counts from submit (queue time included), not admission
+        t0 = getattr(run.request, "_t_submit", run.t_submit)
+        self.metrics.observe_ttft(time.perf_counter() - t0)
+        run.generated.append(first)
+        run.last_token = first
+        if self.on_token is not None:
+            self.on_token(run.request.request_id, first)
+        if (_is_stop(first, self._eos, run)
+                or len(run.generated) >= run.request.max_new_tokens):
+            self._finish(run, "eos" if _is_stop(first, self._eos, run)
+                         else "length")
+
+    def _finish(self, run: _Running, reason: str) -> None:
+        self._finished.append(
+            FinishedRequest(run.request.request_id, run.generated, reason))
+        if self.prefix_cache:
+            self._register_pages(run)
+            for p in run.pages:
+                self._release_page(p)
+        else:
+            self._free_pages.extend(run.pages)
+        self._block_tables[run.slot] = 0
+        self._seq_lens[run.slot] = 0
+        self._slots[run.slot] = None
+        self._sp_rows_cache = None
+
+    # ------------------------------------------------------------------
+    def _drain_finished(self) -> List[FinishedRequest]:
+        """Hand off (and clear) everything finished but not yet collected,
+        so each completion is delivered exactly once however the caller
+        mixes step / step_batch / run_to_completion."""
+        out, self._finished = self._finished, []
+        return out
+
+    def _decode_inputs(self, decoding):
+        """Device tensors of one decode window: last tokens and next write
+        positions [max_slots], block tables with the rows of slots that are
+        not decoding zeroed (so they only touch the scratch page), the
+        active mask and the sampling rows."""
+        toks = np.zeros((self.max_slots,), np.int64)
+        pos = np.zeros((self.max_slots,), np.int64)
+        tables = np.zeros_like(self._block_tables)
+        for s in decoding:
+            toks[s.slot] = s.last_token
+            pos[s.slot] = s.seq_len   # next write position
+            tables[s.slot] = self._block_tables[s.slot]
+        return (self._tensor(toks), self._tensor(pos), self._tensor(tables),
+                self._active_mask(decoding), self._sp_rows())
+
+    def _decode_tick(self, tok, pos, tables, active, sp_rows):
+        """One decode step of every slot, on the device: returns the sampled
+        tokens [max_slots]; only active slots mark them seen."""
+        logits, self.cache = decode_step(self.params, self.cfg, tok, pos,
+                                         self.cache, tables)
+        nxt = sample_rows(logits,
+                          self._generator(_DECODE_STREAM + self._step_count),
+                          k_cap=self.k_cap, seen_mask=self._seen, **sp_rows)
+        rows = torch.arange(self.max_slots, device=self.device)
+        self._seen[rows, nxt] = self._seen[rows, nxt] | active
+        self._step_count += 1
+        return nxt
+
+    def _deliver(self, decoding, mat: np.ndarray, t0: float) -> None:
+        """Hand out a window's tokens ``mat [n, max_slots]`` row by row; a
+        row stops at its stop token or budget (tokens it produced after
+        that are dropped; their KV lands on pages freed with the request)."""
+        kept = 0   # only delivered tokens count toward /stats throughput
+        for s in decoding:
+            for i in range(mat.shape[0]):
+                tok = int(mat[i, s.slot])
+                s.seq_len += 1
+                self._seq_lens[s.slot] = s.seq_len
+                s.generated.append(tok)
+                s.last_token = tok
+                kept += 1
+                if self.on_token is not None:
+                    self.on_token(s.request.request_id, tok)
+                if _is_stop(tok, self._eos, s):
+                    self._finish(s, "eos")
+                    break
+                if len(s.generated) >= s.request.max_new_tokens:
+                    self._finish(s, "length")
+                    break
+        self.metrics.observe_decode(kept, time.perf_counter() - t0)
+
+    def step(self) -> List[FinishedRequest]:
+        """One scheduler tick: admit what fits, advance at most one prefill
+        piece (all pieces if nothing is decoding), then one decode step for
+        all decoding slots.  Returns every completion not yet collected."""
+        self._expire_deadlines()
+        while self._try_admit():
+            pass
+        prefilling = [s for s in self._slots
+                      if s is not None and not s.prefill_done]
+        decoding = [s for s in self._slots if s is not None and s.prefill_done]
+        if prefilling:
+            # oldest admitted first (slot index is reuse order, not age)
+            target = min(prefilling, key=lambda s: s.admit_seq)
+            if decoding:
+                self._prefill_tick(target)          # one piece only
+            else:
+                while not target.prefill_done:      # nothing to starve
+                    self._prefill_tick(target)
+                    if self._slots[target.slot] is not target:
+                        break                       # finished at first token
+        decoding = [s for s in self._slots if s is not None and s.prefill_done]
+        if decoding:
+            t0 = time.perf_counter()
+            nxt = self._decode_tick(*self._decode_inputs(decoding))
+            self._deliver(decoding, nxt.cpu().numpy()[None], t0)
+        return self._drain_finished()
+
+    def step_batch(self, n: int = 8) -> List[FinishedRequest]:
+        """Up to ``n`` decode ticks with one host sync.  Admissions run at
+        the window start (host-only accounting); a prefilling slot's
+        interior pieces interleave into the window; ticks that need a host
+        decision (a last prefill piece, prefill-only states) take a single
+        ``step()``."""
+        if n <= 1:
+            return self.step()
+        self._expire_deadlines()
+        while self._try_admit():
+            pass
+        prefilling = [s for s in self._slots
+                      if s is not None and not s.prefill_done]
+        decoding = [s for s in self._slots if s is not None and s.prefill_done]
+        if not decoding:
+            return self.step()   # prefill-only / idle: host-paced path
+        if prefilling:
+            # interior pieces need no host decision (their sizes are fixed,
+            # they sample nothing): they chain with the decode ticks; the
+            # last piece (it samples) stays on step()
+            target = min(prefilling, key=lambda s: s.admit_seq)
+            interior = (len(target.request.prompt) - target.prefilled
+                        - 1) // self.prefill_chunk
+            if interior >= 1:
+                return self._mixed_chain_batch(min(n, interior), decoding,
+                                               target)
+            return self.step()
+        # cap by the tightest remaining token budget so no row overshoots
+        n = max(1, min([n] + [s.request.max_new_tokens - len(s.generated)
+                              for s in decoding]))
+        t0 = time.perf_counter()
+        tok, pos0, tables, active, sp_rows = self._decode_inputs(decoding)
+        cols = []
+        for i in range(n):
+            tok = self._decode_tick(tok, pos0 + i, tables, active, sp_rows)
+            cols.append(tok)
+        self._deliver(decoding, torch.stack(cols, 0).cpu().numpy(), t0)
+        return self._drain_finished()
+
+    def _mixed_chain_batch(self, n: int, decoding: List[_Running],
+                           target: _Running) -> List[FinishedRequest]:
+        """``n`` [interior prefill piece + decode tick] pairs chained on the
+        device with one host sync.  The step count and generator seeds run
+        as in ``n`` consecutive ``step()`` calls (piece, then decode), so
+        the outputs are token-identical to per-tick serving, stochastic
+        rows included."""
+        chunk = self.prefill_chunk
+        n = max(1, min([n] + [s.request.max_new_tokens - len(s.generated)
+                              for s in decoding]))
+        t0 = time.perf_counter()
+        tok, pos0, tables, active, sp_rows = self._decode_inputs(decoding)
+        start0 = target.prefilled
+        # the window's prompt tokens and the target's table, uploaded once
+        prompt = self._tensor(np.asarray(
+            target.request.prompt[start0:start0 + n * chunk], np.int64))[None]
+        tgt_table = self._tensor(self._block_tables[target.slot:
+                                                    target.slot + 1])
+        cols = []
+        for i in range(n):
+            self._run_piece(target, prompt[:, i * chunk:(i + 1) * chunk],
+                            start0 + i * chunk, chunk, tgt_table, last=False)
+            target.prefilled = start0 + (i + 1) * chunk
+            self.metrics.observe_prefill(chunk)
+            self._step_count += 1
+            tok = self._decode_tick(tok, pos0 + i, tables, active, sp_rows)
+            cols.append(tok)
+        self._deliver(decoding, torch.stack(cols, 0).cpu().numpy(), t0)
+        return self._drain_finished()
+
+    def run_to_completion(self, sync_every: int = 8) -> List[FinishedRequest]:
+        """Drain all pending and active requests.  Returns only completions
+        not already handed out by earlier step() / step_batch() calls."""
+        out: List[FinishedRequest] = []
+        while self.has_work():
+            out.extend(self.step_batch(sync_every))
+        out.extend(self._drain_finished())
+        return out

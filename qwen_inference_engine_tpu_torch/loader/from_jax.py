@@ -7,6 +7,11 @@ layout, with the port's ``Linear`` / ``QuantLinear`` holding torch tensors.
 The packed INT4 bytes and scales are carried as they are, so both packages
 compute the same function.  Linears are recognised by their fields
 (``w``/``b`` or ``q``/``scales``/``bits``/``group_size``), not their class.
+
+``paged_cache_from_numpy`` does the same for the JAX package's
+``PagedKVCache`` (its array fields as numpy): the port's ``PagedKVCache``
+with the same pool ``[L, P, Hk, page, D]``, scales and page size, so both
+packages can start from one pool.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qwen_inference_engine_tpu_torch.kvcache.cache import PagedKVCache
 from qwen_inference_engine_tpu_torch.ops.linear import Linear, QuantLinear
 
 
@@ -39,3 +45,14 @@ def _leaf(v, device):
 def params_from_numpy(tree: dict, device="cpu") -> dict:
     """The port's params from a numpy-leaved JAX parameter tree."""
     return {k: _leaf(v, device) for k, v in tree.items()}
+
+
+def paged_cache_from_numpy(cache, device="cpu") -> PagedKVCache:
+    """The port's paged cache from a JAX ``PagedKVCache`` whose arrays were
+    converted with ``np.asarray`` (fields ``k_pages``, ``v_pages``,
+    ``k_scale``, ``v_scale``, ``page_size``; matched by name)."""
+    return PagedKVCache(k_pages=_tensor(cache.k_pages, device),
+                        v_pages=_tensor(cache.v_pages, device),
+                        k_scale=_tensor(cache.k_scale, device),
+                        v_scale=_tensor(cache.v_scale, device),
+                        page_size=int(cache.page_size))

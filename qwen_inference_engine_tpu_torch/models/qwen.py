@@ -1,4 +1,4 @@
-"""Qwen2 / Qwen2.5 / Qwen3 dense transformer forward over the contiguous cache.
+"""Qwen2 / Qwen2.5 / Qwen3 dense transformer forward over the KV cache.
 
 The port of the JAX package's ``models/qwen.py`` for the main path: the
 layer ``lax.scan`` becomes a Python loop over layers that updates the
@@ -23,6 +23,23 @@ Attention branches (each a kernel of the port):
   ``decode_attention_contiguous_q8``;
 * ragged decode: the plain stacked scatter (quantizing for INT8 KV), then
   ``decode_attention_contiguous[_q8]`` with per-row lengths.
+
+Over the paged cache (``PagedKVCache`` with ``block_tables [B, max_pages]``,
+the serving scheduler's path; bf16 or f32 pages):
+
+* a fresh piece (positions ``0..T-1``): ``paged_append_prefill`` writes
+  the piece through its table, ``flash_attention`` attends over the fresh
+  K/V;
+* a continuation piece (``start..start+T-1``, ``start`` a host int):
+  ``paged_append_prefill``, then ``paged_chunk_attention`` over the paged
+  prefix;
+* decode (T == 1, per-row positions on the device): ``paged_append_ragged``
+  then ``paged_decode_attention_stacked`` with lengths ``position + 1``.
+
+A prefill piece is one sequence (the scheduler's pieces are; the JAX
+package's batched piece goes through XLA and no caller of the port needs
+it).  The INT8 page pool raises ``NotImplementedError`` (in the paged
+wrappers) until its kernels are ported.
 """
 
 from __future__ import annotations
@@ -37,6 +54,7 @@ import torch.nn.functional as F
 from qwen_inference_engine_tpu_torch.config import ModelConfig
 from qwen_inference_engine_tpu_torch.kvcache.cache import (
     KVCache,
+    PagedKVCache,
     write_prefill_stacked,
     write_stacked,
     write_window_stacked,
@@ -44,6 +62,7 @@ from qwen_inference_engine_tpu_torch.kvcache.cache import (
 from qwen_inference_engine_tpu_torch.ops.chunk_attention import (
     chunk_attention_contiguous,
     chunk_attention_contiguous_q8,
+    paged_chunk_attention,
 )
 from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_appending,
@@ -51,13 +70,20 @@ from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_contiguous_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.flash_attention import flash_attention
-from qwen_inference_engine_tpu_torch.ops.kv_append import kv_append_uniform_q8
+from qwen_inference_engine_tpu_torch.ops.kv_append import (
+    kv_append_uniform_q8,
+    paged_append_prefill,
+    paged_append_ragged,
+)
 from qwen_inference_engine_tpu_torch.ops.linear import (
     Linear,
     QuantLinear,
     apply_linear,
 )
 from qwen_inference_engine_tpu_torch.ops.norms import qk_norm, rms_norm
+from qwen_inference_engine_tpu_torch.ops.paged_attention import (
+    paged_decode_attention_stacked,
+)
 from qwen_inference_engine_tpu_torch.ops.rope import apply_rope, precompute_rope
 from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 
@@ -145,18 +171,41 @@ def params_to(params: dict, device) -> dict:
 # Forward
 # ----------------------------------------------------------------------
 
+def _paged_attention(cache: PagedKVCache, layer: int, q, k, v,
+                     block_tables, *, fresh_prefill: bool, start: int,
+                     decode_pos, lengths):
+    """Write this layer's fresh K/V into the page pool and attend (the three
+    paged branches of the module docstring)."""
+    T = q.shape[1]
+    if T == 1 and not fresh_prefill:
+        paged_append_ragged(cache.k_pages, cache.v_pages, k, v, decode_pos,
+                            block_tables, layer, page_size=cache.page_size)
+        return paged_decode_attention_stacked(
+            q, cache.k_pages, cache.v_pages, block_tables, lengths,
+            cache.page_size, layer)
+    paged_append_prefill(cache.k_pages, cache.v_pages, k, v, start,
+                         block_tables, layer, page_size=cache.page_size)
+    if fresh_prefill:
+        return flash_attention(q, k, v)
+    return paged_chunk_attention(q, cache.k_pages, cache.v_pages,
+                                 block_tables, layer, start, cache.page_size)
+
+
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   positions: torch.Tensor, cache: KVCache, *,
+                   positions: torch.Tensor, cache, *,
+                   block_tables: Optional[torch.Tensor] = None,
                    fresh_prefill: bool = False,
                    uniform_decode: bool = False,
-                   start: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+                   start: Optional[int] = None):
     """Run the transformer stack; returns (hidden [B, T, D], cache).
 
-    tokens / positions: [B, T].  The cache is updated in place.
-    uniform_decode: the caller promises every row decodes at the same
-    position (an aligned batch); it selects the append kernels.
-    start: a prefill continuation chunk (T > 1, not fresh) gives its first
-    position as a host int; every row's positions are ``start..start+T-1``.
+    tokens / positions: [B, T].  The cache (a ``KVCache``, or a
+    ``PagedKVCache`` with ``block_tables [B, max_pages]``) is updated in
+    place.  uniform_decode: the caller promises every row decodes at the
+    same position (an aligned batch); it selects the contiguous append
+    kernels.  start: a prefill continuation chunk (T > 1, not fresh) gives
+    its first position as a host int; every row's positions are
+    ``start..start+T-1``.
     """
     B, T = tokens.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -166,13 +215,26 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if continuation and start is None:
         raise ValueError("a prefill continuation chunk (T > 1 over a filled "
                          "cache) needs its first position `start`")
+    paged = isinstance(cache, PagedKVCache)
+    if paged:
+        if block_tables is None:
+            raise ValueError("a paged cache needs block_tables")
+        if B != 1 and (T > 1 or fresh_prefill):
+            raise ValueError(f"a paged prefill piece takes one sequence, "
+                             f"not {B}")
+        block_tables = block_tables.to(torch.int32).contiguous()
+        if fresh_prefill:
+            start = 0
     x = params["embed"][tokens]
     cos, sin = params["rope_cos"], params["rope_sin"]
     lyr = params["layers"]
     if not fresh_prefill:
         # int32 once per step, as the kernels read them (on the device)
         position = positions[:1, 0].int()     # uniform decode
+        decode_pos = positions[:, 0].int()    # paged decode
         lengths = (positions[:, 0] + 1).int()  # ragged decode
+    else:
+        decode_pos = lengths = None
     for l in range(cfg.num_layers):
         h = rms_norm(x, lyr["input_norm"][l], eps)
         q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
@@ -184,7 +246,12 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         q = apply_rope(q, positions, cos, sin)
         k = apply_rope(k, positions, cos, sin)
 
-        if fresh_prefill:
+        if paged:
+            attn = _paged_attention(cache, l, q, k, v,
+                                    block_tables, fresh_prefill=fresh_prefill,
+                                    start=start, decode_pos=decode_pos,
+                                    lengths=lengths)
+        elif fresh_prefill:
             cache.write(l, k, v, write_prefill_stacked)
             attn = flash_attention(q, k, v)
         elif continuation:
@@ -291,11 +358,13 @@ def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                positions: torch.Tensor, cache: KVCache, *,
-                uniform_decode: bool = False) -> Tuple[torch.Tensor, KVCache]:
-    """One decode step for every sequence: tokens [B] at positions [B].
-    Returns (logits [B, V], cache)."""
+                positions: torch.Tensor, cache, block_tables=None, *,
+                uniform_decode: bool = False):
+    """One decode step for every sequence: tokens [B] at positions [B]
+    (a paged cache takes ``block_tables [B, max_pages]``).  Returns
+    (logits [B, V], cache)."""
     hidden, cache = forward_hidden(params, cfg, tokens[:, None],
                                    positions[:, None], cache,
+                                   block_tables=block_tables,
                                    uniform_decode=uniform_decode)
     return compute_logits(params, hidden[:, 0], cfg.act_bits_lm_head), cache

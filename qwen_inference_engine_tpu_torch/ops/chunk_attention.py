@@ -4,20 +4,28 @@ Chunk i >= 1 of a chunked prefill attends its T queries (absolute
 positions ``[start, start + T)``) over ``cache[layer, b, :, 0:start + T]``;
 the chunk's own keys are already written.  Causal by absolute position.
 
-Both wrappers launch the CUDA kernel ``csrc/chunk_attention.cu``:
+The wrappers launch the CUDA kernel ``csrc/chunk_attention.cu``:
 
 * ``chunk_attention_contiguous`` (the port of the JAX package's
   ``chunk_attention_contiguous`` / ``_chunk_kernel``): bf16 cache;
 * ``chunk_attention_contiguous_q8`` (the port of
   ``chunk_attention_contiguous_q8`` / ``_chunk_kernel_q8``): int8 cache with
-  per-token-per-head f32 scales ``[L, Bc, Hk, S]``.
+  per-token-per-head f32 scales ``[L, Bc, Hk, S]``;
+* ``paged_chunk_attention`` (the port of ``paged_chunk_attention`` /
+  ``_paged_chunk`` / ``_paged_chunk_kernel``): the serving scheduler's
+  continuation piece over the bf16 page pool ``[L, P, Hk, page, D]``
+  through its block table, ``start`` a host int (need not be
+  page-aligned).  Its INT8 pool variant (``paged_chunk_attention_q8``)
+  raises ``NotImplementedError`` until the INT8 paged slice.
 
 ``*_plain`` beside each computes the same function with the plain oracle
 (the q8 one over the dequantized prefix, in q's dtype), as the JAX
 package's XLA path does.  Unlike the JAX package, which declines chunks
 above a TPU VMEM ceiling and falls back to XLA, the kernel takes every
 chunk the engine gives it: T in 1..512, any start, G <= 8, D in {64, 128};
-anything else raises.
+anything else raises.  The paged kernel likewise takes any T in 1..512
+(the JAX kernel wants ``T % 8 == 0`` and a VMEM ceiling) and any page size
+that is a multiple of 8.
 """
 
 from __future__ import annotations
@@ -31,6 +39,11 @@ from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
 from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     check_cache,
     check_scales,
+)
+from qwen_inference_engine_tpu_torch.ops.paged_attention import (
+    check_paged,
+    masked_pages,
+    refuse_int8_pool,
 )
 from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
 
@@ -136,3 +149,58 @@ def chunk_attention_contiguous_q8(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 chunk_attention_contiguous_q8.launches = 0
+
+
+def paged_chunk_attention_plain(q, k_pages, v_pages, block_tables,
+                                layer: int, start: int,
+                                page_size: int) -> torch.Tensor:
+    """q [B, T, Hq, D] at positions ``start..start+T-1`` over each row's
+    pages of ``pages[layer]`` (keys past ``start + T`` zeroed)."""
+    B, T = q.shape[:2]
+    end = torch.full((B,), int(start) + T, device=q.device)
+    k = masked_pages(k_pages[layer], block_tables, end)
+    v = masked_pages(v_pages[layer], block_tables, end)
+    return gqa_attention_kmajor(q, k, v, _positions(q, int(start)))
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_tables: torch.Tensor,
+                          layer: int, start: int,
+                          page_size: int) -> torch.Tensor:
+    """Attention of the piece ``q [B, T, Hq, D]`` (positions
+    ``start..start+T-1``, ``start`` a host int) over the paged prefix
+    ``[0, start + T)`` of each row of ``block_tables [B, max_pages]`` in the
+    stacked pool ``[L, P, Hk, page, D]``; the piece's own K/V are already
+    appended.  The piece must start inside the table and may end past it
+    (a bucket-padded last piece): its rows there attend the whole table.
+    Returns [B, T, Hq, D].  A CPU tensor runs the plain version;
+    a CUDA tensor launches the kernel or raises."""
+    refuse_int8_pool(k_pages, "paged_chunk_attention_q8 (_paged_chunk_q8)")
+    if q.device.type == "cpu":
+        return paged_chunk_attention_plain(q, k_pages, v_pages, block_tables,
+                                           layer, start, page_size)
+    name = "paged_chunk_attention"
+    B, T, Hq, D = q.shape
+    L, P, Hk, PS, _ = k_pages.shape
+    tables = check_paged(name, (q,), (k_pages, v_pages), block_tables,
+                         page_size, layer)
+    if not 1 <= T <= MAX_CHUNK:
+        raise ValueError(f"{name} takes pieces of 1..{MAX_CHUNK} tokens, "
+                         f"not {T}")
+    start = int(start)
+    if not 0 <= start < tables.shape[1] * PS:
+        raise IndexError(f"piece start {start} outside the "
+                         f"{tables.shape[1]} pages of the table")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    rc = cuda_lib.library().qie_paged_chunk_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables.data_ptr(), out.data_ptr(), L, P, B, T, Hq, Hk, PS,
+        tables.shape[1], D, int(layer), start, D ** -0.5,
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, name)
+    paged_chunk_attention.launches += 1
+    return out
+
+
+paged_chunk_attention.launches = 0

@@ -6,6 +6,10 @@ draw from an explicit ``torch.Generator``, so the same seed gives the same
 tokens on one device (not the JAX package's tokens: the generators differ).
 Top-k is exact (``torch.topk``); the JAX package's ``approx_max_k`` option
 has no counterpart.
+
+``sample_rows`` is the serving form: every parameter is a ``[B]`` tensor,
+so one decode step serves requests with different temperature / top-p /
+top-k / greedy / penalties; ``k_cap`` is the top-k selection width.
 """
 
 from __future__ import annotations
@@ -42,9 +46,12 @@ def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor,
     return torch.where(seen_mask, penalized, logits)
 
 
-def _mask_top_p(sorted_logits: torch.Tensor, top_p: float) -> torch.Tensor:
+def _mask_top_p(sorted_logits: torch.Tensor, top_p) -> torch.Tensor:
     """Mask (to -inf) the tail of descending-sorted logits beyond cumulative
-    probability ``top_p``; the top-1 is always kept."""
+    probability ``top_p`` (a float or per-row ``[B]``); the top-1 is always
+    kept."""
+    if isinstance(top_p, torch.Tensor):
+        top_p = top_p.to(sorted_logits.dtype)[:, None]
     probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = (cum - probs) < top_p
@@ -85,6 +92,40 @@ def sample(logits: torch.Tensor, params: SamplingParams,
         choice = _categorical(top_vals, generator)
         return torch.gather(top_idx, 1, choice[:, None])[:, 0]
     return _categorical(logits, generator)
+
+
+def sample_rows(logits: torch.Tensor, generator: Optional[torch.Generator],
+                *, k_cap: int, temperature: torch.Tensor,
+                top_p: torch.Tensor, top_k: torch.Tensor,
+                greedy: torch.Tensor, repetition_penalty: torch.Tensor,
+                presence_penalty: Optional[torch.Tensor] = None,
+                seen_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row sampling, every parameter a ``[B]`` tensor on the logits'
+    device: greedy rows take the exact argmax of the penalized logits; the
+    others draw from their own top-k (``top_k`` 0 or above ``k_cap`` means
+    ``k_cap``) and top-p after their temperature.  logits [B, V] -> [B]
+    int64."""
+    logits = logits.float()
+    if seen_mask is not None:
+        logits = apply_repetition_penalty(logits, seen_mask,
+                                          repetition_penalty)
+        if presence_penalty is not None:
+            logits = logits - torch.where(seen_mask,
+                                          presence_penalty[:, None].float(),
+                                          0.0)
+    arg = torch.argmax(logits, dim=-1)
+    scaled = logits / temperature.float().clamp(min=1e-6)[:, None]
+    k_cap = min(k_cap, logits.shape[-1])
+    top_vals, top_idx = torch.topk(scaled, k_cap, dim=-1)
+    k_row = torch.where((top_k <= 0) | (top_k > k_cap),
+                        torch.full_like(top_k, k_cap), top_k)
+    lane = torch.arange(k_cap, device=logits.device)[None, :]
+    top_vals = torch.where(lane < k_row[:, None], top_vals,
+                           torch.full_like(top_vals, float("-inf")))
+    top_vals = _mask_top_p(top_vals, top_p)
+    choice = _categorical(top_vals, generator)
+    drawn = torch.gather(top_idx, 1, choice[:, None])[:, 0]
+    return torch.where(greedy, arg, drawn)
 
 
 def update_seen_mask(seen_mask: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,18 @@
-"""CLI of the port: ``generate`` with random weights from a preset.
+"""CLI of the port: ``generate`` and ``serve`` with random weights from a
+preset.
 
     python -m qwen_inference_engine_tpu_torch.server.cli generate \\
         --model qwen2.5-7b --bits 4 --group-size 256 --act-bits 8 \\
         --kv-bits 8 --prompt "Hello" --max-new-tokens 32 --greedy
+    python -m qwen_inference_engine_tpu_torch.server.cli serve \\
+        --model qwen2.5-7b --bits 4 --group-size 256 --act-bits 8 \\
+        --port 8000
 
-Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given.  Checkpoint loading (``--ckpt``) comes with the loaders in a
-later slice, so the weights are random, drawn from a seeded generator.
+``serve`` is continuous batching over the paged bf16 KV cache behind HTTP
+(``server/http.py``).  Both run on the card (``--device cuda``, the
+default) unless ``--device cpu`` is given.  Checkpoint loading
+(``--ckpt``) comes with the loaders in a later slice, so the weights are
+random, drawn from a seeded generator.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ import time
 
 
 def build_model(args):
-    """(cfg, params, tokenizer, device) for the generate command."""
+    """(cfg, params, tokenizer, device) for the generate and serve
+    commands."""
     import torch
 
     from qwen_inference_engine_tpu_torch.config import ModelConfig, tiny_config
@@ -27,7 +34,7 @@ def build_model(args):
         QuantConfig,
         quantize_params,
     )
-    from qwen_inference_engine_tpu_torch.tokenizer import ByteTokenizer
+    from qwen_inference_engine_tpu_torch.tokenizer import load_tokenizer
 
     device = resolve_device(args.device)
     if args.model == "tiny":
@@ -49,7 +56,7 @@ def build_model(args):
             print("error: --act-bits requires --bits 4 or 8", file=sys.stderr)
             raise SystemExit(2)
         cfg = cfg.replace(act_bits=args.act_bits)
-    return cfg, params, ByteTokenizer(), device
+    return cfg, params, load_tokenizer(), device
 
 
 def cmd_generate(args) -> int:
@@ -59,7 +66,9 @@ def cmd_generate(args) -> int:
 
     cfg, params, tok, device = build_model(args)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                        top_p=args.top_p, greedy=args.greedy)
+                        top_p=args.top_p,
+                        repetition_penalty=args.repetition_penalty,
+                        greedy=args.greedy)
     prompt_ids = [tok.encode(t) for t in (args.prompt or ["Hello"])]
     eng = Engine(cfg, params, max_batch=len(prompt_ids), max_seq=args.max_seq,
                  kv_dtype=kv_dtype_from_bits(args.kv_bits), sampling=sp,
@@ -77,11 +86,13 @@ def cmd_generate(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
-        prog="qie-torch", description="Qwen inference engine, PyTorch/CUDA port")
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    g = sub.add_parser("generate", help="batch text generation")
+def cmd_serve(args) -> int:
+    from qwen_inference_engine_tpu_torch.server.http import serve
+
+    return serve(args)
+
+
+def _add_model_args(g) -> None:
     g.add_argument("--model", default="qwen2.5-7b",
                    help="preset name (random weights) or 'tiny'")
     g.add_argument("--bits", type=int, default=16, choices=(4, 8, 16),
@@ -92,19 +103,56 @@ def main(argv=None) -> int:
                         "projections")
     g.add_argument("--kv-bits", type=int, default=16, choices=(8, 16, 32),
                    help="16 = bf16 KV, 8 = INT8 KV (per-token-per-head "
-                        "scales); both run on CUDA; 32 = f32 (CPU only)")
+                        "scales; generate only until the INT8 paged "
+                        "kernels are ported); 32 = f32 (CPU only)")
     g.add_argument("--max-seq", type=int, default=2048)
     g.add_argument("--seed", type=int, default=1234)
-    g.add_argument("--prompt", action="append", default=None,
-                   help="prompt text (repeatable for a batch)")
-    g.add_argument("--max-new-tokens", type=int, default=128)
+    g.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+
+
+def _add_sampling_args(g) -> None:
     g.add_argument("--greedy", action="store_true")
     g.add_argument("--temperature", type=float, default=0.7)
     g.add_argument("--top-k", type=int, default=50)
     g.add_argument("--top-p", type=float, default=1.0)
-    g.add_argument("--device", default="cuda",
-                   help="cuda (default; raises without a card) or cpu")
+    g.add_argument("--repetition-penalty", type=float, default=1.0)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="qie-torch", description="Qwen inference engine, PyTorch/CUDA port")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    g = sub.add_parser("generate", help="batch text generation")
+    _add_model_args(g)
+    _add_sampling_args(g)
+    g.add_argument("--prompt", action="append", default=None,
+                   help="prompt text (repeatable for a batch)")
+    g.add_argument("--max-new-tokens", type=int, default=128)
     g.set_defaults(fn=cmd_generate)
+
+    s = sub.add_parser("serve", help="HTTP server with continuous batching")
+    _add_model_args(s)
+    _add_sampling_args(s)
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--max-slots", type=int, default=8)
+    s.add_argument("--page-size", type=int, default=512,
+                   help="KV page size in tokens (a multiple of 8)")
+    s.add_argument("--num-pages", type=int, default=0,
+                   help="KV page pool size (0 = sized from --max-slots x "
+                        "--max-seq plus prefix-cache slack)")
+    s.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable automatic prefix caching (page reuse "
+                        "across requests sharing a prompt prefix)")
+    s.add_argument("--step-ticks", type=int, default=8,
+                   help="decode ticks chained on the device per host sync "
+                        "in the serving loop (1 = sync every token)")
+    s.add_argument("--top-k-cap", type=int, default=None,
+                   help="top-k selection width; per-request top_k above it "
+                        "returns 400 (default: max(64, --top-k), or the "
+                        "vocab when --top-k 0)")
+    s.set_defaults(fn=cmd_serve)
     args = parser.parse_args(argv)
     return args.fn(args)
 

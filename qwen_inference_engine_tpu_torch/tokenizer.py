@@ -2,7 +2,9 @@
 
 One token per UTF-8 byte, offset by the number of special tokens, so any
 text round-trips without tokenizer files.  Checkpoint tokenizers arrive
-with the checkpoint loaders, in a later slice.
+with the checkpoint loaders, in a later slice; until then
+``load_tokenizer`` always gives the byte tokenizer.  ``StreamDecoder``
+turns a token stream into text deltas for the HTTP server's streaming.
 """
 
 from __future__ import annotations
@@ -28,3 +30,58 @@ class ByteTokenizer:
         off = len(self.SPECIALS)
         data = bytes(i - off for i in ids if off <= i < off + 256)
         return data.decode("utf-8", errors="replace")
+
+    def apply_chat_template(self, messages, add_generation_prompt=True,
+                            **kw) -> str:
+        out = [f"<|im_start|>{m['role']}\n{m['content']}<|im_end|>\n"
+               for m in messages]
+        if add_generation_prompt:
+            out.append("<|im_start|>assistant\n")
+        return "".join(out)
+
+
+def load_tokenizer() -> ByteTokenizer:
+    """The byte tokenizer (checkpoint tokenizers come with the loaders)."""
+    return ByteTokenizer()
+
+
+class StreamDecoder:
+    """Incremental detokenizer for streaming responses.
+
+    ``decode([tok])`` per token is wrong for byte-level tokens: a multi-byte
+    UTF-8 character spans tokens, so per-token decodes emit U+FFFD mid
+    stream.  This decodes the id window each push and emits only the stable
+    suffix delta, holding back text that still ends in a replacement
+    character (a partial code point the next token may complete).
+    """
+
+    _WINDOW = 256  # ids re-decoded per push (bounds the cost of long streams)
+
+    def __init__(self, tok):
+        self._tok = tok
+        self._ids: List[int] = []
+        self._start = 0      # window start (advanced at clean boundaries)
+        self._emitted = 0    # chars of decode(ids[start:]) already emitted
+
+    def push(self, token_id: int) -> str:
+        self._ids.append(token_id)
+        text = self._tok.decode(self._ids[self._start:])
+        end = len(text)
+        while end > self._emitted and text[end - 1] == "\ufffd":
+            end -= 1
+        delta = text[self._emitted:end]
+        self._emitted = end
+        # once everything is emitted the boundary is clean and the window
+        # restarts, keeping a few ids of overlap so the next token still
+        # decodes with context
+        if (len(self._ids) - self._start > self._WINDOW
+                and self._emitted == len(text)):
+            self._start = max(0, len(self._ids) - 8)
+            self._emitted = len(self._tok.decode(self._ids[self._start:]))
+        return delta
+
+    def flush(self) -> str:
+        text = self._tok.decode(self._ids[self._start:])
+        delta = text[self._emitted:]
+        self._emitted = len(text)
+        return delta

@@ -1,4 +1,9 @@
-"""Serving metrics: TTFT percentiles, decode throughput, token counters."""
+"""Serving metrics: TTFT percentiles, decode throughput, token counters.
+
+The snapshot is what the HTTP server's ``/stats`` returns, with the JAX
+package's keys; the speculation keys read 0 until speculative decoding is
+ported (nothing observes them yet).
+"""
 
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ class Metrics:
         self._decode_tokens = 0
         self._decode_time = 0.0
         self._prefill_tokens = 0
+        self._prefix_hit_tokens = 0
         self._requests = 0
 
     def observe_ttft(self, seconds: float) -> None:
@@ -28,6 +34,11 @@ class Metrics:
     def observe_prefill(self, tokens: int) -> None:
         with self._lock:
             self._prefill_tokens += tokens
+
+    def observe_prefix_hit(self, tokens: int) -> None:
+        """Prompt tokens served from the prefix cache (no forward run)."""
+        with self._lock:
+            self._prefix_hit_tokens += tokens
 
     @staticmethod
     def _pct(sorted_vals: List[float], q: float) -> float:
@@ -50,4 +61,7 @@ class Metrics:
                     if self._decode_time > 0 else 0.0
                 ),
                 "prefill_tokens": self._prefill_tokens,
+                "prefix_hit_tokens": self._prefix_hit_tokens,
+                "spec_rounds": 0,
+                "spec_tokens_per_forward": 0.0,
             }

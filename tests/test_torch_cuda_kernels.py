@@ -5,8 +5,12 @@ card they skip (the decision is made in a fixture, never at import).  They
 cover the edges the smoke run's Qwen2.5-7B shapes do not: ragged M, any T,
 G in 1..8, D=64, B smaller than the cache batch, continuation chunks from
 1 to 512 tokens at the first, a mid-tile and the last start, the INT8 KV
-append at the first and last position, and the wrappers' refusals.  On a GPU machine, from the repo root (this file imports no JAX,
-so the JAX-pinning conftest can be skipped):
+append at the first and last position, the paged kernels over pages of 8,
+16, 48 and 512 tokens (tiles that cross pages, mid-page starts, pieces of
+1, 7, 256 and 512 tokens, lengths of 1 and whole pages, idle rows and
+scratch-page writes), the serving engine, and the wrappers' refusals.  On
+a GPU machine, from the repo root (this file imports no JAX, so the
+JAX-pinning conftest can be skipped):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
@@ -21,6 +25,7 @@ from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
 from qwen_inference_engine_tpu_torch.ops import decode_attention as da
 from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
 from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
 from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
@@ -267,3 +272,249 @@ def test_engine_runs_long_prompts_on_the_card(gen, kv_dtype):
     assert all(w.launches > b for w, b in zip(wrappers, before))
     for res in (ragged, aligned):
         assert all(0 <= t < cfg.vocab_size for row in res.token_ids for t in row)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernels (continuous-batching serving)
+# ---------------------------------------------------------------------------
+
+def _paged_pool(gen, L, P, Hk, page, D, tables, valid):
+    """bf16 pools with NaN in every page no table row holds and in every
+    row at or past ``valid[b]`` of row b's pages (stale pages and rows)."""
+    k, v = _bf16(gen, L, P, Hk, page, D), _bf16(gen, L, P, Hk, page, D)
+    unused = torch.ones(P, dtype=torch.bool, device="cuda")
+    unused[tables.reshape(-1).long()] = False
+    k[:, unused] = float("nan")
+    v[:, unused] = float("nan")
+    j = torch.arange(tables.shape[1] * page, device="cuda")
+    for b, n in enumerate(valid):
+        jj = j[n:]
+        pg = tables[b].long()[jj // page]
+        k[:, pg, :, jj % page] = float("nan")
+        v[:, pg, :, jj % page] = float("nan")
+    return k, v
+
+
+def _tables(gen, B, max_pages, P):
+    perm = torch.randperm(P - 1, generator=gen, device="cuda")[:B * max_pages]
+    return (perm + 1).reshape(B, max_pages).to(torch.int32)
+
+
+@pytest.mark.parametrize("page", [8, 16, 48, 512])
+@pytest.mark.parametrize("G,D", [(7, 128), (8, 64), (1, 128)])
+def test_paged_decode_attention_matches_plain(gen, page, G, D):
+    """Lengths 1, one page, a page and one, three pages, and an idle row
+    (length 0, zeroed table row, as the scheduler's idle slots); 64-key
+    tiles cross pages of 8, 16 and 48; NaN past each row's length."""
+    L, Hk, max_pages = 2, 2, 4
+    lens_list = [1, page, page + 1, 3 * page, 0]
+    B = len(lens_list)
+    P = B * max_pages + 3
+    tables = _tables(gen, B, max_pages, P)
+    tables[-1] = 0
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, lens_list)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    before = pa.paged_decode_attention_stacked.launches
+    got = pa.paged_decode_attention_stacked(q, k, v, tables, lens, page, 1)
+    ref = pa.paged_decode_attention_plain(q, k, v, tables, lens, page, 1)
+    assert pa.paged_decode_attention_stacked.launches == before + 1
+    assert bool(got.isfinite().all())
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("page", [8, 16, 48, 512])
+@pytest.mark.parametrize("T,start", [(1, 0), (1, 37), (7, 13), (256, 0),
+                                     (256, 700), (512, 512), (512, 300)])
+def test_paged_chunk_attention_matches_plain(gen, page, T, start):
+    """Pieces of 1..512 tokens at page-aligned and mid-page starts, two rows
+    with their own tables, G = 7; NaN in the pages no table holds and past
+    the piece's end."""
+    L, B, Hk, G, D = 2, 2, 2, 7, 128
+    max_pages = -(-(start + T) // page) + 1
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, [start + T] * B)
+    q = _bf16(gen, B, T, G * Hk, D)
+    before = ca.paged_chunk_attention.launches
+    got = ca.paged_chunk_attention(q, k, v, tables, 1, start, page)
+    ref = ca.paged_chunk_attention_plain(q, k, v, tables, 1, start, page)
+    assert ca.paged_chunk_attention.launches == before + 1
+    assert bool(got.isfinite().all())
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("page,start,T", [(8, 27, 16), (16, 60, 7),
+                                          (48, 150, 256), (512, 2039, 16)])
+def test_paged_chunk_attention_past_the_table_end(gen, page, start, T):
+    """A bucket-padded last piece that starts inside the table's last page
+    and ends past it (the scheduler's piece after a near-full prefix hit):
+    the rows past the table attend the whole table, as in the plain
+    version and the TPU kernel."""
+    L, B, Hk, G, D = 2, 2, 2, 7, 128
+    max_pages = -(-(start + 1) // page)
+    assert start + T > max_pages * page
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, [start + T] * B)
+    q = _bf16(gen, B, T, G * Hk, D)
+    got = ca.paged_chunk_attention(q, k, v, tables, 1, start, page)
+    ref = ca.paged_chunk_attention_plain(q, k, v, tables, 1, start, page)
+    assert bool(got.isfinite().all())
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("page", [8, 16, 48, 512])
+def test_paged_append_ragged_bit_exact(gen, page):
+    """Rows at the first row of a page, the last row of a page, the next
+    page, a skipped row (-1) and two idle rows whose zeroed tables lead to
+    scratch page 0; everything but the scratch row is bit-exact, and the
+    scratch row holds the idle rows' value."""
+    L, Hk, D, max_pages = 2, 2, 128, 4
+    pos_list = [0, page - 1, page, 3 * page + 5, -1, 0, 0]
+    B = len(pos_list)
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    tables[-2:] = 0
+    k, v = _bf16(gen, L, P, Hk, page, D), _bf16(gen, L, P, Hk, page, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    # the idle rows race on the scratch row: give them one value
+    kn[-1], vn[-1] = kn[-2], vn[-2]
+    pos = torch.tensor(pos_list, device="cuda", dtype=torch.int32)
+    mine, theirs = (k.clone(), v.clone()), (k.clone(), v.clone())
+    before = ka.paged_append_ragged.launches
+    got = ka.paged_append_ragged(*mine, kn, vn, pos, tables, 1, page_size=page)
+    ka.paged_append_ragged_plain(*theirs, kn, vn, pos, tables, 1, page)
+    assert ka.paged_append_ragged.launches == before + 1
+    assert got[0] is mine[0] and got[1] is mine[1]
+    for g, r in zip(mine, theirs):
+        assert torch.equal(g[:, 1:], r[:, 1:])
+        assert torch.equal(g[0], r[0])           # other layers untouched
+    changed = (mine[0] != k).any(dim=-1)
+    assert int(changed[:, 1:].sum()) == 4 * Hk  # the four real rows
+    assert torch.equal(mine[0][1, 0, :, 0], kn[-1, 0])
+
+
+@pytest.mark.parametrize("page", [8, 16, 48, 512])
+@pytest.mark.parametrize("T,start", [(1, 0), (7, 13), (256, 384), (512, 0),
+                                     (512, 250)])
+def test_paged_append_prefill_bit_exact(gen, page, T, start):
+    """A piece of T rows at ``start`` through one table row, crossing pages;
+    the table's last entry is 0, so bucket padding past the allocated pages
+    lands on scratch page 0 (compared too: each scratch row is written
+    once)."""
+    L, Hk, D = 2, 2, 128
+    max_pages = -(-(start + T) // page)
+    P = max_pages + 4
+    tables = _tables(gen, 1, max_pages, P)
+    if max_pages > 1:
+        tables[0, -1] = 0
+    k, v = _bf16(gen, L, P, Hk, page, D), _bf16(gen, L, P, Hk, page, D)
+    kn, vn = _bf16(gen, 1, T, Hk, D), _bf16(gen, 1, T, Hk, D)
+    mine, theirs = (k.clone(), v.clone()), (k.clone(), v.clone())
+    before = ka.paged_append_prefill.launches
+    got = ka.paged_append_prefill(*mine, kn, vn, start, tables, 1,
+                                  page_size=page)
+    ka.paged_append_prefill_plain(*theirs, kn, vn, start, tables, 1, page)
+    assert ka.paged_append_prefill.launches == before + 1
+    assert got[0] is mine[0] and got[1] is mine[1]
+    for g, r in zip(mine, theirs):
+        assert torch.equal(g, r)
+    assert int((mine[0] != k).any(dim=-1).sum()) == T * Hk
+
+
+def test_paged_wrappers_refuse_on_the_card(gen):
+    pool = _bf16(gen, 1, 4, 2, 16, 128)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        pa.paged_decode_attention_stacked(
+            _bf16(gen, 1, 1, 4, 128).float(), pool, pool, tables,
+            torch.ones(1, device="cuda"), 16, 0)
+    with pytest.raises(IndexError, match="outside the"):
+        ca.paged_chunk_attention(_bf16(gen, 1, 8, 4, 128), pool, pool, tables,
+                                 0, 32, 16)
+    with pytest.raises(TypeError, match="bf16"):
+        ka.paged_append_prefill(pool.float(), pool.float(),
+                                _bf16(gen, 1, 8, 2, 128),
+                                _bf16(gen, 1, 8, 2, 128), 0, tables, 0,
+                                page_size=16)
+
+
+def test_serving_engine_runs_on_the_card_through_the_paged_kernels(gen):
+    """ContinuousBatchingEngine on a tiny W4A8 model on the card: more
+    requests than slots, prompts of several pieces and pages, a prefix hit
+    with a partial page; the four paged kernels, flash and the matmul
+    launch, and no contiguous-cache kernel does."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+
+    cfg = tiny_config(hidden_size=256, intermediate_size=512, num_heads=4,
+                      num_kv_heads=2, head_dim=64)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    params = quantize_params(params, QuantConfig(bits=4, group_size=64))
+    cfg = cfg.replace(act_bits=8)
+    cb = ContinuousBatchingEngine(cfg, params, max_slots=2, page_size=16,
+                                  num_pages=48, max_pages_per_seq=8,
+                                  prefill_chunk=32,
+                                  sampling=SamplingParams(greedy=True))
+    cb._eos = set()
+    used = [qm.quant_matmul4_a8, fa.flash_attention,
+            pa.paged_decode_attention_stacked, ca.paged_chunk_attention,
+            ka.paged_append_ragged, ka.paged_append_prefill]
+    unused = [da.decode_attention_contiguous, da.decode_attention_appending,
+              ca.chunk_attention_contiguous, ca.chunk_attention_contiguous_q8,
+              ka.kv_append_uniform_q8, da.decode_attention_contiguous_q8]
+    before = [w.launches for w in used + unused]
+    first = [[(7 * i + j) % 500 + 2 for j in range(n)]
+             for i, n in enumerate((5, 40, 77, 100))]
+    # the second wave shares 4 pages and 6 rows of a fifth with prompt 3
+    second = [first[3][:70] + [3, 4, 5]]
+    done = []
+    for rid0, wave in ((0, first), (len(first), second)):
+        for i, p in enumerate(wave):
+            cb.submit(Request(request_id=rid0 + i, prompt=p, max_new_tokens=6))
+        done += cb.run_to_completion()
+    cb.check_page_invariants()
+    assert sorted(f.request_id for f in done) == list(range(5))
+    assert all(f.finish_reason == "length" and len(f.token_ids) == 6
+               for f in done)
+    assert cb.metrics.snapshot()["prefix_hit_tokens"] > 0
+    after = [w.launches for w in used + unused]
+    n = len(used)
+    assert all(a > b for a, b in zip(after[:n], before[:n]))
+    assert after[n:] == before[n:]
+
+
+def test_serving_engine_on_the_card_resends_a_near_max_seq_prompt(gen):
+    """A 60-token prompt on a 4-page table of 16 (64 tokens), sent twice
+    with the prefix cache on: the second request's last piece starts at 59
+    and, padded to 16 tokens, runs past the table.  Both finish with their
+    tokens, and the engine serves on."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+
+    cfg = tiny_config(hidden_size=256, intermediate_size=512, num_heads=4,
+                      num_kv_heads=2, head_dim=64)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    params = quantize_params(params, QuantConfig(bits=4, group_size=64))
+    cfg = cfg.replace(act_bits=8)
+    cb = ContinuousBatchingEngine(cfg, params, max_slots=1, page_size=16,
+                                  num_pages=12, max_pages_per_seq=4,
+                                  prefill_chunk=32,
+                                  sampling=SamplingParams(greedy=True))
+    cb._eos = set()
+    prompt = [(11 * j) % 500 + 2 for j in range(60)]
+    done = []
+    for rid in range(3):
+        cb.submit(Request(request_id=rid, prompt=prompt, max_new_tokens=4))
+        done += cb.run_to_completion()
+        cb.check_page_invariants()
+    assert [f.request_id for f in done] == [0, 1, 2]
+    assert all(f.finish_reason == "length" and len(f.token_ids) == 4
+               for f in done)
+    assert cb.metrics.snapshot()["prefix_hit_tokens"] == 2 * 59

@@ -36,9 +36,10 @@ from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear
 from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
 
 
-def _build(qk_norm: bool):
-    """(jax cfg, jax params, port cfg, port params)."""
-    jcfg = j_tiny_config(qk_norm=qk_norm)
+def _build(qk_norm: bool, **cfg_kw):
+    """(jax cfg, jax params, port cfg, port params); ``cfg_kw`` goes to
+    both packages' ``tiny_config``."""
+    jcfg = j_tiny_config(qk_norm=qk_norm, **cfg_kw)
     params = jqwen.init_params(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32)
     rng = np.random.default_rng(17 + qk_norm)
     layers = dict(params["layers"])
@@ -55,7 +56,7 @@ def _build(qk_norm: bool):
     params = j_quantize_params(params, JQuantConfig(bits=4, group_size=64))
     jcfg = jcfg.replace(act_bits=8)
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
-    tcfg = tiny_config(qk_norm=qk_norm).replace(act_bits=8)
+    tcfg = tiny_config(qk_norm=qk_norm, **cfg_kw).replace(act_bits=8)
     return jcfg, params, tcfg, tparams
 
 

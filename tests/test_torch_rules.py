@@ -16,6 +16,7 @@ from qwen_inference_engine_tpu_torch.ops import chunk_attention as tca
 from qwen_inference_engine_tpu_torch.ops import decode_attention as tda
 from qwen_inference_engine_tpu_torch.ops import flash_attention as tfa
 from qwen_inference_engine_tpu_torch.ops import kv_append as tka
+from qwen_inference_engine_tpu_torch.ops import paged_attention as tpa
 from qwen_inference_engine_tpu_torch.ops import quant_matmul as tqmm
 from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear
 
@@ -246,7 +247,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
     cu, hdr = cuda_lib._sources()
     assert {os.path.basename(p) for p in cu} == {
         "quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
-        "chunk_attention.cu", "kv_append.cu"}
+        "chunk_attention.cu", "kv_append.cu", "paged_attention.cu"}
     assert [os.path.basename(p) for p in hdr] == ["attention_common.cuh"]
     src = "".join(open(p).read() for p in cu)
     found = {m.group(1): m.group(2) for m in re.finditer(
@@ -255,3 +256,146 @@ def test_ctypes_signatures_match_the_c_entry_points():
     for name, params in found.items():
         assert len(params.split(",")) == len(cuda_lib.SIGNATURES[name]), name
     assert len(cuda_lib.build_key()) == 16
+
+
+def test_paged_wrappers_refuse_before_any_launch():
+    """On a non-CPU tensor the paged wrappers check shapes and types before
+    they build or launch anything (a meta tensor stands in for the card):
+    G <= 8, D in {64, 128}, pages of a multiple of 8 tokens, tables of one
+    row per batch row, pieces of 1..512 tokens that start inside the table,
+    bf16 pools and rows."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    pool = meta(2, 6, 2, 16, 128)
+    tables = meta(2, 3, dtype=torch.int32)
+    lens = meta(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="G <= 8"):
+        tpa.paged_decode_attention_stacked(meta(2, 1, 18, 128), pool, pool,
+                                           tables, lens, 16, 0)
+    with pytest.raises(ValueError, match="D in"):
+        tpa.paged_decode_attention_stacked(
+            meta(2, 1, 4, 32), meta(2, 6, 2, 16, 32), meta(2, 6, 2, 16, 32),
+            tables, lens, 16, 0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tpa.paged_decode_attention_stacked(
+            meta(2, 1, 4, 128), meta(2, 6, 2, 12, 128),
+            meta(2, 6, 2, 12, 128), tables, lens, 12, 0)
+    with pytest.raises(ValueError, match="block tables"):
+        tpa.paged_decode_attention_stacked(meta(2, 1, 4, 128), pool, pool,
+                                           tables[:1], lens, 16, 0)
+    with pytest.raises(IndexError, match="layer"):
+        tpa.paged_decode_attention_stacked(meta(2, 1, 4, 128), pool, pool,
+                                           tables, lens, 16, 2)
+    with pytest.raises(ValueError, match="1..512"):
+        tca.paged_chunk_attention(meta(2, 513, 4, 128), pool, pool, tables,
+                                  0, 0, 16)
+    with pytest.raises(IndexError, match="outside the"):
+        tca.paged_chunk_attention(meta(2, 8, 4, 128), pool, pool, tables, 0,
+                                  48, 16)
+    with pytest.raises(TypeError, match="bf16"):
+        tka.paged_append_ragged(pool, pool, meta(2, 1, 2, 128).float(),
+                                meta(2, 1, 2, 128), lens, tables, 0,
+                                page_size=16)
+    with pytest.raises(ValueError, match="new rows"):
+        tka.paged_append_ragged(pool, pool, meta(2, 2, 2, 128),
+                                meta(2, 2, 2, 128), lens, tables, 0,
+                                page_size=16)
+    with pytest.raises(ValueError, match="block tables"):
+        tka.paged_append_prefill(pool, pool, meta(1, 8, 2, 128),
+                                 meta(1, 8, 2, 128), 0, tables, 0,
+                                 page_size=16)
+    with pytest.raises(IndexError, match="start"):
+        tka.paged_append_prefill(pool, pool, meta(1, 8, 2, 128),
+                                 meta(1, 8, 2, 128), -1, tables[:1], 0,
+                                 page_size=16)
+
+
+def test_unported_paged_and_serving_variants_name_what_is_missing():
+    """The INT8 page pool, the multi-query verify shape, speculation and a
+    device mesh raise NotImplementedError naming the kernel or slice still
+    to port, on the CPU as on the card."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+    )
+    from qwen_inference_engine_tpu_torch.kvcache.cache import PagedKVCache
+    from qwen_inference_engine_tpu_torch.models.qwen import forward_hidden
+
+    p8 = torch.zeros(1, 4, 1, 8, 32, dtype=torch.int8)
+    pool = torch.zeros(1, 4, 1, 8, 32)
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="_paged_bhgd_q8"):
+        tpa.paged_decode_attention_stacked(torch.zeros(1, 1, 2, 32), p8, p8,
+                                           tables, torch.ones(1), 8, 0)
+    with pytest.raises(NotImplementedError, match="paged_verify_attention"):
+        tpa.paged_decode_attention_stacked(torch.zeros(1, 3, 2, 32), pool,
+                                           pool, tables, torch.ones(1), 8, 0)
+    with pytest.raises(NotImplementedError, match="_paged_chunk_q8"):
+        tca.paged_chunk_attention(torch.zeros(1, 4, 2, 32), p8, p8, tables,
+                                  0, 4, 8)
+    cfg = tiny_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         dtype=torch.float32)
+    cache = PagedKVCache.create(cfg.num_layers, 4, 8, cfg.num_kv_heads,
+                                cfg.head_dim, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="_paged_bhgd_q8"):
+        forward_hidden(params, cfg, torch.zeros(1, 4, dtype=torch.long),
+                       torch.arange(4)[None], cache, block_tables=tables,
+                       fresh_prefill=True)
+    kw = dict(max_slots=1, page_size=8, num_pages=8, max_pages_per_seq=4,
+              device="cpu")
+    for extra, match in ((dict(kv_dtype=torch.int8), "paged_chunk_attention_q8"),
+                         (dict(speculative=True), "speculation slice"),
+                         (dict(draft_params={}), "speculation slice"),
+                         (dict(mesh=object()), "multi-GPU slice")):
+        with pytest.raises(NotImplementedError, match=match):
+            ContinuousBatchingEngine(cfg, params, **kw, **extra)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_serving_engine_defaults_to_the_card(device):
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+    )
+
+    cfg = tiny_config()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         dtype=torch.float32)
+    kw = dict(max_slots=1, page_size=8, num_pages=8, max_pages_per_seq=4)
+    if torch.cuda.is_available():
+        cb = ContinuousBatchingEngine(cfg, params, device=device, **kw)
+        assert cb.device.type == "cuda" and cb.cache.k_pages.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ContinuousBatchingEngine(cfg, params, device=device, **kw)
+    cb = ContinuousBatchingEngine(cfg, params, device="cpu", **kw)
+    assert cb.cache.k_pages.device.type == "cpu"
+
+
+def test_cli_serve_defaults_to_the_card_and_runs_on_cpu_when_asked(
+        monkeypatch, capsys):
+    """``serve`` raises without a card unless ``--device cpu``; with it, the
+    server is built on the CPU, binds, and shuts down cleanly (the serving
+    loop is stopped at once here)."""
+    from qwen_inference_engine_tpu_torch.server import cli
+    from qwen_inference_engine_tpu_torch.server import http as thttp
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["serve", "--model", "tiny", "--port", "0"])
+    built = []
+
+    class Interrupted(thttp.ThreadingHTTPServer):
+        def serve_forever(self, poll_interval=0.5):
+            built.append(self.server_address)
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(thttp, "ThreadingHTTPServer", Interrupted)
+    rc = cli.main(["serve", "--model", "tiny", "--bits", "4", "--group-size",
+                   "64", "--act-bits", "8", "--kv-bits", "32", "--device",
+                   "cpu", "--host", "127.0.0.1", "--port", "0",
+                   "--max-slots", "2", "--page-size", "16", "--max-seq", "128",
+                   "--step-ticks", "4", "--no-prefix-cache"])
+    assert rc == 0 and built and built[0][0] == "127.0.0.1"
+    out = capsys.readouterr().out
+    assert "device cpu" in out and "slots=2" in out and "x16" in out
