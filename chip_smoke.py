@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [records.json]
 
-Phases, in order; any failure exits non-zero and prints no result:
+With a path, the numbers of every kernel shape and run are also written
+there as JSON.  Phases, in order; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit, TF32 off for the plain versions;
 2. build: the CUDA kernels of ``qwen_inference_engine_tpu_torch/csrc`` with
@@ -11,11 +12,14 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. each kernel against its plain PyTorch version on the card at the shapes
    Qwen2.5-7B gives it, with error, kernel / plain / library time and the
    bound (the larger of bytes at 3.35 TB/s and operations at the peak rate
-   of their type: 989 TFLOP/s bf16, 1979 TOP/s int8); the paged kernels
-   over a 40-page pool of 512-token pages with shuffled tables and NaN in
-   every page no table holds (the paged attentions' library yardstick is
-   SDPA over a gathered copy, the gather timed beside it; the appends' an
-   ``index_put_`` scatter);
+   of their type: 989 TFLOP/s bf16, 1979 TOP/s int8): the four quantized
+   matmuls at the seven projections (M = 4, 256, 2048; W4A16 and W8A16 also
+   the lm_head at M = 4; INT8 per group of 128 rows and per column) and the
+   14B projections at M = 4; the paged kernels over a 40-page pool of
+   512-token pages with shuffled tables and NaN in every page no table
+   holds (the paged attentions' library yardstick is SDPA over a gathered
+   copy, the gather timed beside it; the appends' an ``index_put_``
+   scatter);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -23,9 +27,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    at max_seq 1024; then prompts longer than one 512-token chunk (bucket
    2048, three continuation chunks) at max_seq 2304: bf16 KV aligned
    (4 x 1408) and ragged (700, 1100, 1408, 1900), INT8 KV aligned
-   (4 x 1408) and ragged (37, 600, 1408, 1900).  Every launch count is set
-   to 0 just before each run and read just after, and each run must have
-   launched the kernels of its path and none of the others';
+   (4 x 1408) and ragged (37, 600, 1408, 1900).  Then the other weight
+   formats, quantized from the same bf16 params: (a) W4A16 gs 128 with an
+   INT4 lm_head, ragged; (b) W8A16 gs 128, aligned 4 x 256; (c) W8A8 one
+   scale per column, INT8 KV, ragged; (d) the JAX bench's headline weights
+   (W4A8 gs 256 and an INT4 lm_head at act_bits_lm_head=0), ragged; each
+   must launch only its own matmul kernels, 7 per layer per forward (+1
+   for a quantized lm_head).  Every launch count is set to 0 just before
+   each run and read just after, and each run must have launched the
+   kernels of its path and none of the others';
 4b. serving: ``ContinuousBatchingEngine`` on the same full-depth model at
    the JAX defaults (8 slots, pages of 512, pieces of 256, prefix cache on,
    8 decode ticks per sync), EOS off: 12 greedy requests (prompts of 37 to
@@ -37,18 +47,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    hit and a mixed prefill + decode window must run; after the counts are
    read, a 2040-token prompt is sent twice (the second's last piece runs
    past its 4-page table) and both must finish, then 8 more requests fill
-   the slots and one window of 8 decode ticks is timed, and the next one profiled (device busy time, kernels by
-   device time); then the HTTP ``Server`` on 127.0.0.1 answers /generate,
-   a streamed /v1/completions, /v1/chat/completions and /stats;
+   the slots and one window of 8 decode ticks is timed, and the next one
+   profiled (device busy time, kernels by device time); then the HTTP
+   ``Server`` on 127.0.0.1 answers /generate, a streamed /v1/completions,
+   /v1/chat/completions and /stats; then 8 requests (37 to 1100 tokens, 16
+   new each) on the W4A16 params, which must launch the INT4 x bf16 matmul
+   and the paged kernels and never the W4A8 one;
+loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
+   biases, an untied lm_head) at the Qwen2.5-7B widths and 2 layers, taken
+   from the seeded params and written into a temporary directory (deleted
+   afterwards) without the safetensors package; ``load_checkpoint`` on the
+   card must give every tensor bit for bit; ``quantize --bits 4`` then
+   ``load_quantized`` must give ``quantize_params`` of the loaded params bit
+   for bit; ``generate --qckpt`` and ``generate --ckpt --bits 4`` must give
+   the same greedy ids, and ``generate --ckpt`` runs at every weight format;
 5. the kernel path against the plain path on the card, the same weights at
    a depth of 4 layers: in bf16 KV, prefill logits (one chunk) and 8 greedy
-   tokens; in INT8 KV, the logits of a chunked prefill of prompts of 600 to
-   1000 tokens (a fresh chunk and a continuation).  Both paths are held
-   against an fp32 run of the plain path (over an int8 cache in the INT8
-   case), and the kernel path may be at most 1.5x as far from it as the
-   plain bf16 path is (with random weights, bf16 rounding alone moves the
-   logits by a few tenths); the same over the page pool: a paged prefill
-   of three pieces across two pages, then 4 paged decode steps.
+   tokens, for W4A8, W4A16 (INT4 lm_head) and W8A8; in INT8 KV, the logits
+   of a chunked prefill of prompts of 600 to 1000 tokens (a fresh chunk and
+   a continuation).  Each path is held against an fp32 run of the plain
+   path (over an int8 cache in the INT8 case), and the kernel path may be
+   at most 1.5x as far from it as the plain bf16 path is (with random
+   weights, bf16 rounding alone moves the logits by a few tenths); the same
+   over the page pool: a paged prefill of three pieces across two pages,
+   then 4 paged decode steps.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Every number is measured in this run.
@@ -76,6 +98,60 @@ def bound(n_bytes: float, n_ops: float, kind: str):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_ST_DTYPES = {"bfloat16": "BF16", "float32": "F32", "float16": "F16",
+              "int8": "I8", "int32": "I32", "int64": "I64"}
+
+
+def write_hf_checkpoint(path: str, config: dict, tensors: dict,
+                        shards: int = 2) -> None:
+    """An HF checkpoint directory without the safetensors package:
+    ``config.json``, ``model.safetensors.index.json`` and ``shards``
+    safetensors files (8-byte little-endian header length, a JSON header
+    padded to 8 bytes, then the raw bytes).  ``tensors`` maps HF names to
+    torch tensors (any device)."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    names = list(tensors)
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    weight_map, runs, acc = {}, {}, 0
+    for name in names:  # `shards` runs of about equal bytes, by midpoint
+        n = tensors[name].numel() * tensors[name].element_size()
+        runs.setdefault(min(shards - 1, int((acc + n / 2) * shards / total)),
+                        []).append(name)
+        acc += n
+    groups = [runs[k] for k in sorted(runs)]
+    for i, group in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, off = {}, 0
+        for name in group:
+            t = tensors[name]
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": _ST_DTYPES[str(t.dtype).split(".")[-1]],
+                            "shape": list(t.shape),
+                            "data_offsets": [off, off + n]}
+            off += n
+            weight_map[name] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for name in group:
+                t = tensors[name].detach().contiguous().cpu()
+                if t.dtype == torch.bfloat16:
+                    t = t.view(torch.int16)
+                np.ascontiguousarray(t.numpy()).tofile(f)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
 
 
 def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -146,6 +222,102 @@ def check_quant_matmul(torch, cfg, gs, ms_list=(4, 2048)):
             records.append(rec)
             del q, s, x, xp, xq, w, got, ref
     return records
+
+
+# the three kernels of the weight formats W4A16, W8A16 and W8A8: weight
+# bits, activation bits, tolerance (of the largest |output|), peak type
+NEW_MATMULS = {"quant_matmul4": (4, 0, 2 ** -6, "bf16"),
+               "quant_matmul8": (8, 0, 2 ** -6, "bf16"),
+               "quant_matmul8_a8": (8, 8, 2 ** -7, "int8")}
+
+
+def check_new_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
+                     lm_head=False):
+    """One of NEW_MATMULS against its plain version at the projections of
+    ``cfg`` (and its lm_head at M=4); ``gs=None`` is one INT8 scale per
+    column.  The bf16 tolerance (2^-6 of the largest output, the rule of
+    check_quant_matmul) covers the tensor-core path's bf16 rounding of
+    q * scale.  The a8 kernel's integer sums are exact, but the plain
+    version's f32 sums are not, and both round to bf16: one bf16 ulp of the
+    largest output (2^-7 of it) is the tolerance.  The library
+    yardstick is torch.matmul in bf16 over the dequantized weight, and
+    torch._int_mm for W8A8 where it takes the shape."""
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+    from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
+    from qwen_inference_engine_tpu_torch.quant.quantize import _padded_k
+
+    bits, act_bits, rel, peak = NEW_MATMULS[name]
+    kern = getattr(qm, name)
+    plain = getattr(qm, name + "_plain")
+    D, F, Qd, Kd = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim, cfg.kv_dim
+    shapes = [("q", D, Qd), ("k", D, Kd), ("v", D, Kd), ("o", Qd, D),
+              ("gate", D, F), ("up", D, F), ("down", F, D)]
+    cases = [(M, n, K, N) for M in ms_list for n, K, N in shapes
+             if not (M > 4 and n in ("v", "up"))]  # same shapes as k / gate
+    if lm_head:
+        cases.append((4, "lm_head", D, cfg.vocab_size))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    qmax = 7 if bits == 4 else 127
+    label = f"{name} {'per column' if gs is None else f'gs {gs}'}"
+    records = []
+    for M, pname, K, N in cases:
+        kp = _padded_k(K, bits, gs)
+        g_rows = kp if gs is None else gs
+        rows = kp // 2 if bits == 4 else kp
+        lo, hi = (-128, 128) if bits == 4 else (-127, 128)
+        q = torch.randint(lo, hi, (1, rows, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        s = torch.full((1, kp // g_rows, N), K ** -0.5 / qmax, device="cuda")
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        xp = torch.nn.functional.pad(x, (0, kp - K))
+        if act_bits:
+            xq, sx = qm.quantize_activations(xp)
+            args = (xq, sx.reshape(-1).contiguous(), q, s, 0)
+        else:
+            args = (xp, q, s, 0) + ((g_rows,) if bits == 4 else ())
+        got = kern(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = rel * ref.float().abs().max().item()
+        w = dequantize(QuantLinear(q=q[0], scales=s[0], b=None, bits=bits,
+                                   group_size=g_rows))[:K]
+        ms = time_ms(torch, lambda: kern(*args))
+        plain_ms = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
+        lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
+        int_mm_ms = None
+        if act_bits and M > 16:
+            int_mm_ms = time_ms(torch, lambda: torch._int_mm(xq, q[0]))
+        n_bytes = (M * kp * (1 if act_bits else 2) + 4 * M * (act_bits > 0)
+                   + rows * N + 4 * (kp // g_rows) * N + 2 * M * N)
+        b_ms, b_by = bound(n_bytes, 2 * M * kp * N, peak)
+        rec = dict(shape=f"{cfg.name} {pname} M={M} K={kp} N={N}", M=M,
+                   proj=pname, max_abs_err=err, tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, int_mm_ms=int_mm_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        extra = "" if int_mm_ms is None else f" | _int_mm {int_mm_ms:.4f}"
+        print(f"  {label} {rec['shape']}: err {err:.3g} (tol {tol:.3g}) | "
+              f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | torch.matmul bf16 "
+              f"{lib_ms:.4f}{extra} | bound {b_ms:.4f} ({b_by})", flush=True)
+        if not err <= tol:
+            fail(f"{label} {rec['shape']} err {err} > {tol}")
+        records.append(rec)
+        del q, s, x, xp, w, got, ref, args
+    return records
+
+
+def layer_record(recs, extra_err=()):
+    """A matmul kernel's JSON entry: the seven projections of one 7B layer
+    at M=4 (the decode step), summed."""
+    dec = [r for r in recs if r["M"] == 4 and r.get("proj") != "lm_head"]
+    b_bytes = sum(r["bound_ms"] for r in dec if r["bound_by"] == "bytes")
+    total_bound = sum(r["bound_ms"] for r in dec)
+    return dict(
+        max_abs_err=max(r["max_abs_err"] for r in list(recs) + list(extra_err)),
+        ms=sum(r["ms"] for r in dec), plain_ms=sum(r["plain_ms"] for r in dec),
+        library_ms=sum(r["library_ms"] for r in dec), bound_ms=total_bound,
+        bound_by="bytes" if b_bytes * 2 >= total_bound else "operations",
+        unit="the 7 projections of one layer at M=4")
 
 
 def _sdpa(torch, q, k, v, mask=None, causal=False):
@@ -713,12 +885,12 @@ def attention_swaps():
 
 
 def plain_swaps():
-    """The twelve kernels replaced by their plain versions (bf16, as the
+    """The fifteen kernels replaced by their plain versions (bf16, as the
     kernels compute)."""
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
 
-    return [(qm, "quant_matmul4_a8", qm.quant_matmul4_a8_plain),
-            *attention_swaps()]
+    return [(qm, n, getattr(qm, n + "_plain"))
+            for n in ("quant_matmul4_a8", *NEW_MATMULS)] + attention_swaps()
 
 
 def f32_swaps():
@@ -1051,6 +1223,234 @@ def paged_model_check(torch, cfg4, params4, params4_f32, prompts, swaps_plain,
                 f"across two pages, then 4 decode steps", lk, lp, lr)
 
 
+MATMULS = ("quant_matmul4_a8", "quant_matmul4", "quant_matmul8",
+           "quant_matmul8_a8")
+
+
+def run_formats(torch, cfg, variants, wrappers, prompts):
+    """Phase 4 (a)-(d): one Engine.generate run per weight format, 32 new
+    tokens.  Each run must launch only its own matmul kernels, as many per
+    forward (prefill or decode step) as ``want`` says, and the attention
+    kernels of its KV type.  Returns the runs' numbers."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    runs = {}
+    for label, (vcfg, params, kv, lengths, want, must) in variants.items():
+        eng = Engine(vcfg, params, max_batch=4, max_seq=1024, kv_dtype=kv,
+                     sampling=SamplingParams(greedy=True), device="cuda")
+        eng.generate(prompts([16] * 4), max_new_tokens=2)  # warm-up
+        for w in wrappers.values():
+            w.launches = 0
+        res = eng.generate(prompts(lengths), max_new_tokens=32)
+        counts = {n: w.launches for n, w in wrappers.items()}
+        ids = [t for row in res.token_ids for t in row]
+        print(f"[e2e] {label} {lengths}: ttft {res.ttft_s * 1e3:.1f} ms | "
+              f"decode {res.decode_tokens_per_s:.1f} tok/s | steps "
+              f"{res.steps} | launches {counts}", flush=True)
+        print(f"      first ids {[row[:8] for row in res.token_ids]}")
+        if not all(0 <= t < vcfg.vocab_size for t in ids) or len(set(ids)) < 2:
+            fail(f"{label}: ids out of range or all identical")
+        mm = {n: counts[n] for n in MATMULS}
+        expect = {n: res.steps * want.get(n, 0) for n in MATMULS}
+        missing = sorted(n for n in must if counts[n] <= 0)
+        if mm != expect or missing:
+            fail(f"{label}: matmul launches {mm}, expected {expect} "
+                 f"({res.steps} forwards); not launched {missing}")
+        runs[label] = dict(lengths=lengths, ttft_ms=res.ttft_s * 1e3,
+                           decode_tok_s=res.decode_tokens_per_s,
+                           steps=res.steps, launches=counts)
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
+
+def run_serving_w4a16(torch, cfg, params, wrappers, rng):
+    """Phase 4b on the W4A16 params: 8 requests (prompts of 37 to 1100
+    tokens, 16 new tokens each) through ContinuousBatchingEngine; the
+    INT4 x bf16 kernel and the four paged kernels must launch, the W4A8
+    kernel must not."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    cb = ContinuousBatchingEngine(
+        cfg, params, max_slots=8, page_size=PAGE, num_pages=40,
+        max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
+        sampling=SamplingParams(greedy=True), device="cuda")
+    cb._eos = set()
+    lens = [37, 120, 300, 511, 600, 800, 1000, 1100]
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, n in enumerate(lens):
+        cb.submit(Request(request_id=i, max_new_tokens=16,
+                          prompt=rng.integers(0, cfg.vocab_size,
+                                              size=n).tolist()))
+    done = cb.run_to_completion(sync_every=8)
+    cb.check_page_invariants()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    snap = cb.metrics.snapshot()
+    print(f"[serve w4a16] {len(done)} requests (prompts {lens}, 16 new "
+          f"tokens) in {wall:.2f} s | TTFT p50 {snap['ttft_p50_s'] * 1e3:.1f}"
+          f" ms, p99 {snap['ttft_p99_s'] * 1e3:.1f} ms | decode "
+          f"{snap['decode_tokens_per_s']:.1f} tok/s | launches {counts}",
+          flush=True)
+    if len(done) != 8 or any(f.finish_reason != "length"
+                             or len(f.token_ids) != 16 for f in done):
+        fail("serving w4a16: a request did not finish by length")
+    must = {"quant_matmul4", "flash_attention", "paged_append_prefill",
+            "paged_chunk_attention", "paged_append_ragged",
+            "paged_decode_attention_stacked"}
+    missing = sorted(n for n in must if counts[n] <= 0)
+    stray = sorted(n for n in counts if n not in must and counts[n] != 0)
+    if missing or stray:
+        fail(f"serving w4a16: not launched {missing}, stray {stray}")
+    del cb
+    torch.cuda.empty_cache()
+    return counts, dict(wall_s=wall, **snap)
+
+
+def hf_state_dict(cfg, params) -> dict:
+    """The HF names of the port's params (projections back to [out, in])."""
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_norm"]}
+    lyr = params["layers"]
+    proj = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+            "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+            "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+            "down": "mlp.down_proj"}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = lyr["input_norm"][i]
+        sd[p + "post_attention_layernorm.weight"] = lyr["post_norm"][i]
+        for key, hf in proj.items():
+            sd[p + hf + ".weight"] = lyr[key].w[i].t()
+            if lyr[key].b is not None:
+                sd[p + hf + ".bias"] = lyr[key].b[i]
+        if cfg.qk_norm:
+            sd[p + "self_attn.q_norm.weight"] = lyr["q_norm"][i]
+            sd[p + "self_attn.k_norm.weight"] = lyr["k_norm"][i]
+    if "lm_head" in params:
+        sd["lm_head.weight"] = params["lm_head"].w.t()
+    return sd
+
+
+def _cli_ids(torch, argv):
+    """Run the port's CLI; return its generated ids and stdout."""
+    import contextlib
+    import io
+
+    from qwen_inference_engine_tpu_torch.server import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    if rc != 0:
+        fail(f"cli {argv[:3]} returned {rc}")
+    return [json.loads(lines[i + 1]) for i, line in enumerate(lines)
+            if line.startswith("--- sequence")]
+
+
+def run_loader_phase(torch, cfg, bf16_params):
+    """A 2-layer checkpoint at the Qwen2.5-7B widths in HF layout (two BF16
+    shards, an index, q/k/v biases, an untied lm_head), taken from the
+    seeded params and written into a temporary directory that is deleted
+    afterwards; then load_checkpoint, the ``quantize`` command,
+    load_quantized and ``generate`` from both checkpoints, each weight
+    format, all on the card."""
+    import tempfile
+
+    from qwen_inference_engine_tpu_torch.loader.qcheckpoint import (
+        load_quantized,
+    )
+    from qwen_inference_engine_tpu_torch.loader.safetensors_loader import (
+        load_checkpoint,
+    )
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        QuantConfig,
+        quantize_params,
+    )
+
+    cfg2 = cfg.replace(num_layers=2)
+    src = dict(bf16_params, layers=qwen.map_params(bf16_params["layers"],
+                                                   lambda t: t[:2]))
+    sd = hf_state_dict(cfg2, src)
+    n_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="qie_smoke_") as tmp:
+        d, q = os.path.join(tmp, "hf"), os.path.join(tmp, "q")
+        t0 = time.perf_counter()
+        write_hf_checkpoint(d, cfg2.to_hf_config(), sd, shards=2)
+        out["write_s"] = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(d) if f.endswith(".safetensors"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcfg, loaded = load_checkpoint(d)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        got = hf_state_dict(lcfg, loaded)
+        bad = sorted(n for n, t in sd.items()
+                     if not (got[n].is_cuda and torch.equal(got[n], t)))
+        print(f"[loader] {cfg2.name} widths, 2 layers: {len(sd)} tensors, "
+              f"{n_bytes / 1e9:.3f} GB in {len(shards)} BF16 shards, written "
+              f"in {out['write_s']:.2f} s; load_checkpoint on the card "
+              f"{out['load_s']:.2f} s ({n_bytes / out['load_s'] / 1e9:.2f} "
+              f"GB/s), {len(bad)} tensors differ", flush=True)
+        if len(shards) < 2 or bad or set(got) != set(sd):
+            fail(f"loader: {len(shards)} shards, tensors differ {bad[:4]}")
+        t0 = time.perf_counter()
+        _cli_ids(torch, ["quantize", "--ckpt", d, "--bits", "4",
+                         "--group-size", "128", "--out", q])
+        out["quantize_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qcfg, qp = load_quantized(q)
+        torch.cuda.synchronize()
+        out["load_quantized_s"] = time.perf_counter() - t0
+        q_bytes = sum(os.path.getsize(os.path.join(q, f)) for f in os.listdir(q))
+        want = quantize_params(loaded, QuantConfig(bits=4, group_size=128))
+        diff = sorted(n for n in ("q", "k", "v", "o", "gate", "up", "down")
+                      if not (torch.equal(qp["layers"][n].q, want["layers"][n].q)
+                              and torch.equal(qp["layers"][n].scales,
+                                              want["layers"][n].scales)))
+        print(f"[loader] quantize --bits 4 --group-size 128: {out['quantize_s']:.2f}"
+              f" s (load, quantize, write {q_bytes / 1e9:.3f} GB); "
+              f"load_quantized {out['load_quantized_s']:.2f} s "
+              f"({q_bytes / out['load_quantized_s'] / 1e9:.2f} GB/s); q and "
+              f"scales differ from quantize_params of the loaded params in "
+              f"{diff}", flush=True)
+        if diff or qcfg.num_layers != 2:
+            fail(f"loader: quantized checkpoint differs in {diff}")
+        del loaded, got, want, qp
+        torch.cuda.empty_cache()
+        gen = ["--prompt", "Hello, H100.", "--prompt", "The weights are",
+               "--max-new-tokens", "8", "--greedy", "--max-seq", "256"]
+        ids = {"--qckpt": _cli_ids(torch, ["generate", "--qckpt", q, *gen]),
+               "--ckpt --bits 4": _cli_ids(torch, ["generate", "--ckpt", d,
+                                                   "--bits", "4", *gen])}
+        for fmt in (["--bits", "8"], ["--bits", "8", "--act-bits", "8"],
+                    ["--bits", "4", "--act-bits", "8"], ["--bits", "16"]):
+            ids["--ckpt " + " ".join(fmt)] = _cli_ids(
+                torch, ["generate", "--ckpt", d, *fmt, *gen])
+        print(f"[loader] generate: {ids}", flush=True)
+        if ids["--qckpt"] != ids["--ckpt --bits 4"] or any(
+                len(v) != 2 or not all(len(r) >= 1 for r in v)
+                for v in ids.values()):
+            fail("loader: generate --qckpt and --ckpt --bits 4 differ, or a "
+                 "format generated nothing")
+    out["bytes"] = n_bytes
+    out["load_gb_s"] = n_bytes / out["load_s"] / 1e9
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1074,6 +1474,7 @@ def main() -> int:
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
     from qwen_inference_engine_tpu_torch.quant.quantize import (
         QuantConfig,
+        quantize_linear,
         quantize_params,
     )
 
@@ -1108,6 +1509,27 @@ def main() -> int:
     qmm_recs = check_quant_matmul(torch, cfg, gs)
     # the kernel must also take every projection of the 14B preset
     qmm_14b = check_quant_matmul(torch, PRESETS["qwen2.5-14b"], gs, ms_list=(4,))
+    cfg14 = PRESETS["qwen2.5-14b"]
+    new_recs = {
+        "quant_matmul4": check_new_matmul(torch, cfg, "quant_matmul4", 128,
+                                          lm_head=True),
+        "quant_matmul8": check_new_matmul(torch, cfg, "quant_matmul8", 128,
+                                          lm_head=True),
+        "quant_matmul8 per column": check_new_matmul(
+            torch, cfg, "quant_matmul8", None),
+        "quant_matmul8_a8": check_new_matmul(torch, cfg, "quant_matmul8_a8",
+                                             None),
+        "quant_matmul8_a8 gs 128": check_new_matmul(
+            torch, cfg, "quant_matmul8_a8", 128),
+    }
+    new_14b = {
+        "quant_matmul4": check_new_matmul(torch, cfg14, "quant_matmul4", 128,
+                                          ms_list=(4,)),
+        "quant_matmul8": check_new_matmul(torch, cfg14, "quant_matmul8", 128,
+                                          ms_list=(4,)),
+        "quant_matmul8_a8": check_new_matmul(torch, cfg14, "quant_matmul8_a8",
+                                             None, ms_list=(4,)),
+    }
     flash_recs = check_flash(torch, cfg)
     dec_recs = check_decode(torch, cfg)
     chunk_recs = check_chunk(torch, cfg)
@@ -1121,8 +1543,17 @@ def main() -> int:
     # ---- 4. end to end: Qwen2.5-7B, full depth, W4A8 gs 256, bf16 KV
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
-    params = quantize_params(params, QuantConfig(bits=4, group_size=gs))
+    bf16 = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    params = quantize_params(bf16, QuantConfig(bits=4, group_size=gs))
+    # the weight formats of runs (a)-(d), quantized from the same bf16
+    # params: W4A16 gs 128 (the CLI default) with an INT4 lm_head; W8A16 gs
+    # 128; W8A8 one scale per column; the JAX bench's headline weights
+    # (W4A8 gs 256 blocks, INT4 lm_head at act_bits_lm_head=0)
+    p_w4a16 = quantize_params(bf16, QuantConfig(bits=4, group_size=128,
+                                                quantize_lm_head=True))
+    p_w8a16 = quantize_params(bf16, QuantConfig(bits=8, group_size=128))
+    p_w8a8 = quantize_params(bf16, QuantConfig(bits=8, group_size=None))
+    p_bench = dict(params, lm_head=quantize_linear(bf16["lm_head"], 4, gs))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     cfg8 = cfg.replace(act_bits=8)
@@ -1140,6 +1571,9 @@ def main() -> int:
 
     eng.generate(prompts([16, 16, 16, 16]), max_new_tokens=2)  # warm-up
     wrappers = {"quant_matmul4_a8": qm.quant_matmul4_a8,
+                "quant_matmul4": qm.quant_matmul4,
+                "quant_matmul8": qm.quant_matmul8,
+                "quant_matmul8_a8": qm.quant_matmul8_a8,
                 "flash_attention": fa.flash_attention,
                 "decode_attention_contiguous": da.decode_attention_contiguous,
                 "decode_attention_appending": da.decode_attention_appending,
@@ -1212,7 +1646,8 @@ def main() -> int:
             fail(f"{label}: ids out of range or all identical")
         missing = sorted(n for n in must | {"quant_matmul4_a8"}
                          if counts[n] <= 0)
-        stray = sorted(n for n in must_not | paged if counts[n] != 0)
+        stray = sorted(n for n in must_not | paged | set(NEW_MATMULS)
+                       if counts[n] != 0)
         if missing or stray:
             fail(f"{label}: kernels of its path not launched {missing}, "
                  f"kernels of other paths launched {stray}")
@@ -1230,12 +1665,49 @@ def main() -> int:
     del engines, eng
     torch.cuda.empty_cache()
 
+    # ---- 4 (a)-(d): the other weight formats through Engine.generate
+    L = cfg.num_layers
+    q8 = torch.int8
+    variants = {
+        "(a) w4a16 gs 128, int4 lm_head, bf16 KV": (
+            cfg, p_w4a16, torch.bfloat16, [37, 120, 300, 500],
+            {"quant_matmul4": 7 * L + 1},
+            {"flash_attention", "decode_attention_contiguous"}),
+        "(b) w8a16 gs 128, bf16 lm_head, bf16 KV": (
+            cfg, p_w8a16, torch.bfloat16, [256] * 4,
+            {"quant_matmul8": 7 * L},
+            {"flash_attention", "decode_attention_appending"}),
+        "(c) w8a8 per column, int8 KV": (
+            cfg8, p_w8a8, q8, [37, 120, 300, 500],
+            {"quant_matmul8_a8": 7 * L},
+            {"flash_attention", "decode_attention_contiguous_q8"}),
+        "(d) w4a8 gs 256 + int4 lm_head (bench headline), bf16 KV": (
+            cfg8, p_bench, torch.bfloat16, [37, 120, 300, 500],
+            {"quant_matmul4_a8": 7 * L, "quant_matmul4": 1},
+            {"flash_attention", "decode_attention_contiguous"}),
+    }
+    format_runs = run_formats(torch, cfg, variants, wrappers, prompts)
+    for r in format_runs.values():
+        for n, c in r["launches"].items():
+            launches[n] += c
+    runs.update(format_runs)
+    del p_w8a16
+    torch.cuda.empty_cache()
+
     # ---- 4b. serving: ContinuousBatchingEngine at full depth, then HTTP
     serve_counts, serve_stats = run_serving(torch, np, cfg8, params, wrappers,
                                             rng)
     for n, c in serve_counts.items():
         launches[n] += c
     run_http(torch, cfg8, params)
+    torch.cuda.empty_cache()
+    w4_counts, w4_serve = run_serving_w4a16(torch, cfg, p_w4a16, wrappers, rng)
+    for n, c in w4_counts.items():
+        launches[n] += c
+
+    # ---- the loader phase: HF checkpoint -> quantize -> generate
+    loader = run_loader_phase(torch, cfg, bf16)
+    del bf16, p_bench
     torch.cuda.empty_cache()
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was never launched: {launches}")
@@ -1253,11 +1725,11 @@ def main() -> int:
         toks[i, :len(p)] = torch.tensor(p, device="cuda")
     lens_t = torch.tensor(p_lens, device="cuda")
 
-    def run_prefill(p, dtype, toks=toks, lens_t=lens_t):
+    def run_prefill(p, dtype, toks=toks, lens_t=lens_t, c4=cfg4):
         cache = KVCache.create(L4, 4, 1024, cfg.num_kv_heads, cfg.head_dim,
                                dtype=dtype, device="cuda")
         with torch.inference_mode():
-            return qwen.prefill_chunked(p, cfg4, toks, lens_t, cache,
+            return qwen.prefill_chunked(p, c4, toks, lens_t, cache,
                                         chunk=512)[0]
 
     e4 = Engine(cfg4, params4, max_batch=4, max_seq=1024,
@@ -1275,6 +1747,27 @@ def main() -> int:
     total = sum(len(y) for y in tp)
     model_check("bf16 KV, one chunk", lk, lp, lr,
                 f" | greedy tokens agree {agree}/{total}")
+
+    # the new weight formats, bf16 KV, one chunk
+    for label, pq, pcfg, kern in (
+            ("W4A16 gs 128 + int4 lm_head", p_w4a16, cfg, qm.quant_matmul4),
+            ("W8A8 per column", p_w8a8, cfg8, qm.quant_matmul8_a8)):
+        c4 = pcfg.replace(num_layers=L4)
+        pq4 = dict(pq, layers=qwen.map_params(pq["layers"], lambda t: t[:L4]))
+        before = kern.launches
+        lkf = run_prefill(pq4, torch.bfloat16, c4=c4)
+        head = int(hasattr(pq4.get("lm_head"), "q"))  # a quantized lm_head
+        if kern.launches - before != 7 * L4 + head:
+            fail(f"{label}: the model check did not run its kernel")
+        with Swapped(plain_swaps()):
+            lpf = run_prefill(pq4, torch.bfloat16, c4=c4)
+        with Swapped(f32_swaps()):
+            lrf = run_prefill(qwen.map_params(
+                pq4, lambda t: t.float() if t.is_floating_point() else t),
+                torch.float32, c4=c4)
+        model_check(f"{label}, bf16 KV, one chunk", lkf, lpf, lrf)
+    del p_w4a16, p_w8a8
+    torch.cuda.empty_cache()
 
     # INT8 KV over two chunks: a fresh prefill, then a continuation
     q_lens = [600, 700, 900, 1000]
@@ -1299,6 +1792,12 @@ def main() -> int:
     sources = {
         "quant_matmul4_a8": ("csrc/quant_matmul.cu",
                              "qwen_inference_engine_tpu/ops/quant_matmul.py:219"),
+        "quant_matmul4": ("csrc/quant_matmul.cu",
+                          "qwen_inference_engine_tpu/ops/quant_matmul.py:88"),
+        "quant_matmul8": ("csrc/quant_matmul.cu",
+                          "qwen_inference_engine_tpu/ops/quant_matmul.py:383"),
+        "quant_matmul8_a8": ("csrc/quant_matmul.cu",
+                             "qwen_inference_engine_tpu/ops/quant_matmul.py:297"),
         "flash_attention": ("csrc/flash_attention.cu",
                             "qwen_inference_engine_tpu/ops/flash_attention.py:125"),
         "decode_attention_contiguous": (
@@ -1330,18 +1829,18 @@ def main() -> int:
         "paged_append_prefill": (
             "csrc/kv_append.cu", "qwen_inference_engine_tpu/ops/kv_append.py:718"),
     }
-    # kernel 1 is reported per decode layer: its seven projections at M=4
-    dec = [r for r in qmm_recs if r["M"] == 4]  # 7B only
-    b_bytes = sum(r["bound_ms"] for r in dec if r["bound_by"] == "bytes")
-    layer_rec = dict(
-        max_abs_err=max(r["max_abs_err"] for r in qmm_recs + qmm_14b),
-        ms=sum(r["ms"] for r in dec), plain_ms=sum(r["plain_ms"] for r in dec),
-        library_ms=sum(r["library_ms"] for r in dec),
-        bound_ms=sum(r["bound_ms"] for r in dec),
-        bound_by="bytes" if b_bytes * 2 >= sum(r["bound_ms"] for r in dec)
-        else "operations",
-        unit="the 7 projections of one layer at M=4")
-    recs = {"quant_matmul4_a8": layer_rec,
+    # each matmul is reported per decode layer: its seven projections at M=4
+    recs = {"quant_matmul4_a8": layer_record(qmm_recs, qmm_14b),
+            "quant_matmul4": layer_record(new_recs["quant_matmul4"],
+                                          new_14b["quant_matmul4"]),
+            "quant_matmul8": layer_record(
+                new_recs["quant_matmul8"],
+                new_recs["quant_matmul8 per column"]
+                + new_14b["quant_matmul8"]),
+            "quant_matmul8_a8": layer_record(
+                new_recs["quant_matmul8_a8"],
+                new_recs["quant_matmul8_a8 gs 128"]
+                + new_14b["quant_matmul8_a8"]),
             "flash_attention": flash_recs[0], **dec_recs, **chunk_recs,
             **append_recs, **dec8_recs, **paged_recs}
     kernels = []
@@ -1357,7 +1856,16 @@ def main() -> int:
             "shape": rec.get("shape", rec.get("unit")),
             **({"gather_ms": rec["gather_ms"]} if "gather_ms" in rec else {})})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
-          f"{json.dumps(serve_stats)}")
+          f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
+          f" | loader {json.dumps(loader)}")
+    if len(sys.argv) > 1:  # every kernel shape's and run's numbers
+        os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])),
+                    exist_ok=True)
+        with open(sys.argv[1], "w") as f:
+            json.dump({"runs": runs, "new_matmuls": new_recs, "new_14b": new_14b,
+                       "w4a8": qmm_recs, "serving": serve_stats,
+                       "serving_w4a16": w4_serve, "loader": loader}, f,
+                      indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

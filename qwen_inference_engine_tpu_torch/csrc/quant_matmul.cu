@@ -1,52 +1,97 @@
-// W4A8 quantized matmul for Hopper (sm_90a): y[M,N] = (x_q @ W4[layer]) * sx.
+// Quantized matmuls for Hopper (sm_90a): y[M,N] = x @ Wq[layer], bf16 out.
 //
-// Replaces: qwen_inference_engine_tpu/ops/quant_matmul.py::_quant_matmul4_a8
-// (kernel body _qmm4_a8_kernel), the projection kernel of every W4A8
-// transformer block.
+// Four kernels, each the port of one Pallas kernel of
+// qwen_inference_engine_tpu/ops/quant_matmul.py:
 //
-// Inputs: per-token int8 activations x [M, Kp] with f32 row scales sx [M]
-// (quantized outside the kernel, as in the JAX package); the layer-stacked
-// INT4 plane-pair weights q [L, Kp/2, N] int8 (byte = 16*hi + (lo+8); packed
-// rows p*gs..(p+1)*gs hold group 2p in the low nibble, group 2p+1 in the
-// high nibble) and group scales [L, Kp/gs, N] f32.  The host offsets q and
-// scales to the layer's slab, so the stacked weights are never copied.
+//   qmm4_a8_kernel   <- _quant_matmul4_a8 (_qmm4_a8_kernel): W4A8
+//   qmm_w16_small / qmm_w16_wmma <INT4>  <- _quant_matmul4 (_qmm4_kernel): W4A16
+//   qmm_w16_small / qmm_w16_wmma <INT8>  <- _quant_matmul8 (_qmm8_kernel): W8A16
+//   qmm8_a8_kernel   <- _quant_matmul8_a8 (_qmm8_a8_kernel): W8A8
 //
-// What bounds it on the H100: at decode (M = batch, a few rows) it reads
-// every weight byte once for 2*M operations per byte, far below the ~590
-// int8 operations per byte where the tensor cores would take over: it is
-// bound by bytes (Kp*N/2 weight bytes at 3.35 TB/s).  At prefill
-// (M = 512 * batch) it is bound by operations.
+// Weights are layer-stacked; the host offsets q and scales to the layer's
+// slab (in size_t: a 28-layer INT8 stack is 6.5 GB), so the stacked
+// weights are never copied.  INT4 is the plane-pair layout q [L, Kp/2, N]
+// int8 (byte = 16*hi + (lo+8); packed rows p*gs..(p+1)*gs hold group 2p in
+// the low nibble, group 2p+1 in the high nibble) with scales
+// [L, Kp/gs, N] f32.  INT8 is q [L, K, N] with scales [L, G, N]: a scale
+// per group of gs = K/G rows, or one per column (G = 1).  The a8 variants
+// take per-token int8 activations with f32 row scales sx [M], quantized
+// outside the kernel as in the JAX package.  Every kernel computes what the
+// TPU kernel does: the sum over groups of (x . q) x scale in f32 (x sx),
+// then rounded to bf16.
 //
-// Design: the simple and right version first.  A block computes a BM x 128
-// output tile with 256 threads; each thread owns TM rows x 4 adjacent
-// columns.  Per k-step the block stages 32 packed weight rows (4 KB,
-// 16-byte coalesced loads) and the matching 32 even-plane and 32 odd-plane
-// activation columns in shared memory.  A thread reads 4 packed rows of
-// its 4 columns as four 32-bit words and transposes them with __byte_perm,
-// so each word holds 4 consecutive k of one column; the nibbles are
-// unpacked four at a time (lo+8 = w & 0x0F0F0F0F, hi by a per-byte signed
-// shift with __vsub4) and fed to __dp4a, s8 x s8 -> s32.  Each plane-pair
-// accumulates its two products in int32; the lo plane's excess-8 is
-// corrected by 8 * rowsum(x_even) in int32, then the two group scales
-// multiply the int32 partials into an f32 accumulator, and the row scale
-// is applied in the epilogue.  The tensor cores (mma.sync / wgmma on s8)
-// and a pipelined weight stream for decode are left to later work.
+// What bounds them on the H100: at decode (M = batch, a few rows) each
+// weight byte is read once for 2*M operations: bound by bytes (the weight
+// bytes at 3.35 TB/s).  At prefill (M = 512 * batch) they are bound by
+// operations (989 TFLOP/s bf16, 1979 TOP/s int8 on the tensor cores).
+//
+// Designs, the simple and right versions first:
+//
+// * W4A8 and W8A8 (__dp4a, s8 x s8 -> s32): a block computes a BM x 128
+//   output tile with 256 threads; each thread owns TM rows x 4 adjacent
+//   columns.  Per k-step the block stages 32 weight rows (4 KB, 16-byte
+//   coalesced loads) and the matching activation columns in shared memory.
+//   A thread reads 4 rows of its 4 columns as four 32-bit words and
+//   transposes them with __byte_perm, so each word holds 4 consecutive k
+//   of one column.  W4A8 unpacks the nibbles four at a time (lo+8 = w &
+//   0x0F0F0F0F, hi by a per-byte signed shift with __vsub4), accumulates
+//   each plane-pair's two products in int32, corrects the lo plane's
+//   excess-8 by 8 * rowsum(x_even), and scales the int32 partials into f32.
+//   W8A8 accumulates each group exactly in int32 and scales it into f32 at
+//   the group's end (G = 1: in the epilogue).  The row scale is applied in
+//   the epilogue.
+// * W4A16 and W8A16 at M <= 16 (qmm_w16_small): bound by bytes, so the
+//   weights are streamed once with f32 FMAs on the CUDA cores.  A block
+//   owns 64 columns (16 threads x 4) and splits K over 16 thread groups in
+//   chunks of 32 weight rows (one scale group each); a thread issues its
+//   chunk's 32 weight loads before it computes, to keep bytes in flight.
+//   Each chunk's sums are scaled into f32 (G = 1: in the epilogue); the 16
+//   partial sums of a column are added in a fixed order through shared
+//   memory, so the result does not depend on scheduling.
+// * W4A16 and W8A16 at M > 16 (qmm_w16_wmma): bound by operations, so the
+//   bf16 tensor cores through nvcuda::wmma 16x16x16 fragments with an f32
+//   accumulator (4 warps, a 64 x 64 tile, 2 x 2 fragments a warp).  Per
+//   k-step the block dequantizes 32 weight rows (64 logical rows for INT4:
+//   both planes of a plane-pair) into bf16 in shared memory, q * scale
+//   (G = 1: q alone, exact in bf16, the column scale in the epilogue).
+// Tensor-core a8 kernels (mma.sync / wgmma on s8), a pipelined (TMA)
+// weight stream and split-K for decode are left to later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBN = 128;   // output columns per block: 32 threads x 4
-constexpr int kBKP = 32;   // packed weight rows per k-step
+constexpr int kBN = 128;   // a8 kernels: output columns per block (32 x 4)
+constexpr int kBKP = 32;   // a8 kernels: weight rows per k-step
 
 // Signed high nibble of each byte of w, as four int8 lanes.
 __device__ __forceinline__ int high_nibbles(unsigned w) {
   const unsigned u = (w >> 4) & 0x0F0F0F0Fu;          // 0..15 per byte
   return static_cast<int>(__vsub4(u ^ 0x08080808u, 0x08080808u));
 }
+
+// 4x4 byte transpose of four weight rows (r0..r3, 4 columns each):
+// colw[j] = the 4 rows of column j, in k order.
+__device__ __forceinline__ void transpose4x4(unsigned r0, unsigned r1,
+                                             unsigned r2, unsigned r3,
+                                             unsigned colw[4]) {
+  const unsigned t01a = __byte_perm(r0, r1, 0x5140);
+  const unsigned t23a = __byte_perm(r2, r3, 0x5140);
+  const unsigned t01b = __byte_perm(r0, r1, 0x7362);
+  const unsigned t23b = __byte_perm(r2, r3, 0x7362);
+  colw[0] = __byte_perm(t01a, t23a, 0x5410);
+  colw[1] = __byte_perm(t01a, t23a, 0x7632);
+  colw[2] = __byte_perm(t01b, t23b, 0x5410);
+  colw[3] = __byte_perm(t01b, t23b, 0x7632);
+}
+
+// ---------------------------------------------------------------------
+// W4A8
+// ---------------------------------------------------------------------
 
 template <int TM>
 __global__ void __launch_bounds__(kThreads)
@@ -103,20 +148,12 @@ qmm4_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < kBKP; kk += 4) {
-        const unsigned r0 = *reinterpret_cast<const unsigned*>(&ws[kk + 0][4 * tx]);
-        const unsigned r1 = *reinterpret_cast<const unsigned*>(&ws[kk + 1][4 * tx]);
-        const unsigned r2 = *reinterpret_cast<const unsigned*>(&ws[kk + 2][4 * tx]);
-        const unsigned r3 = *reinterpret_cast<const unsigned*>(&ws[kk + 3][4 * tx]);
-        // 4x4 byte transpose: colw[j] = rows kk..kk+3 of column 4*tx + j
-        const unsigned t01a = __byte_perm(r0, r1, 0x5140);
-        const unsigned t23a = __byte_perm(r2, r3, 0x5140);
-        const unsigned t01b = __byte_perm(r0, r1, 0x7362);
-        const unsigned t23b = __byte_perm(r2, r3, 0x7362);
         unsigned colw[4];
-        colw[0] = __byte_perm(t01a, t23a, 0x5410);
-        colw[1] = __byte_perm(t01a, t23a, 0x7632);
-        colw[2] = __byte_perm(t01b, t23b, 0x5410);
-        colw[3] = __byte_perm(t01b, t23b, 0x7632);
+        transpose4x4(*reinterpret_cast<const unsigned*>(&ws[kk + 0][4 * tx]),
+                     *reinterpret_cast<const unsigned*>(&ws[kk + 1][4 * tx]),
+                     *reinterpret_cast<const unsigned*>(&ws[kk + 2][4 * tx]),
+                     *reinterpret_cast<const unsigned*>(&ws[kk + 3][4 * tx]),
+                     colw);
         int lo8[4], hi[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -164,14 +201,416 @@ qmm4_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
   }
 }
 
+// ---------------------------------------------------------------------
+// W8A8
+// ---------------------------------------------------------------------
+
+template <int TM>
+__global__ void __launch_bounds__(kThreads)
+qmm8_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
+               const int8_t* __restrict__ q, const float* __restrict__ scales,
+               __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs,
+               bool per_col) {
+  constexpr int BM = 8 * TM;
+  __shared__ __align__(16) int8_t xs[BM][kBKP];
+  __shared__ __align__(16) int8_t ws[kBKP][kBN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 32;
+  const int ty = tid / 32;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM;
+
+  float accf[TM][4];
+  int acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      accf[i][j] = 0.f;
+      acc[i][j] = 0;
+    }
+
+  for (int k0 = 0; k0 < K; k0 += kBKP) {
+    {  // 32 rows x 128 columns = 256 threads x 16 bytes
+      const int r = tid / 8, col = (tid % 8) * 16;
+      *reinterpret_cast<int4*>(&ws[r][col]) = __ldg(reinterpret_cast<const int4*>(
+          q + static_cast<size_t>(k0 + r) * N + n0 + col));
+    }
+    for (int i = tid; i < 2 * BM; i += kThreads) {
+      const int r = i / 2, col = (i % 2) * 16;
+      const int m = m0 + r;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (m < M) {
+        v = __ldg(reinterpret_cast<const int4*>(
+            x + static_cast<size_t>(m) * K + k0 + col));
+      }
+      *reinterpret_cast<int4*>(&xs[r][col]) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBKP; kk += 4) {
+      unsigned colw[4];
+      transpose4x4(*reinterpret_cast<const unsigned*>(&ws[kk + 0][4 * tx]),
+                   *reinterpret_cast<const unsigned*>(&ws[kk + 1][4 * tx]),
+                   *reinterpret_cast<const unsigned*>(&ws[kk + 2][4 * tx]),
+                   *reinterpret_cast<const unsigned*>(&ws[kk + 3][4 * tx]),
+                   colw);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int xv = *reinterpret_cast<const int*>(&xs[ty * TM + i][kk]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = __dp4a(xv, static_cast<int>(colw[j]), acc[i][j]);
+      }
+    }
+    __syncthreads();
+    if (!per_col && (k0 + kBKP) % gs == 0) {  // a group's exact sum is done
+      const float4 s4 = __ldg(reinterpret_cast<const float4*>(
+          scales + static_cast<size_t>(k0 / gs) * N + n0 + 4 * tx));
+      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          accf[i][j] += static_cast<float>(acc[i][j]) * s[j];
+          acc[i][j] = 0;
+        }
+    }
+  }
+  if (per_col) {  // one exact int32 sum over K (|sum| <= 127^2 K < 2^31)
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(scales + n0 + 4 * tx));
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) accf[i][j] = static_cast<float>(acc[i][j]) * s[j];
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m < M) {
+      const float s = sx[m];
+      __nv_bfloat16* o = out + static_cast<size_t>(m) * N + n0 + 4 * tx;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] = __float2bfloat16(accf[i][j] * s);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// W4A16 / W8A16, M <= 16: CUDA cores, weights streamed once
+// ---------------------------------------------------------------------
+
+constexpr int kSmallCols = 64;     // columns per block: 16 threads x 4
+constexpr int kSmallGroups = 16;   // thread groups splitting K
+constexpr int kChunk = 32;         // weight rows per chunk
+
+// The 4 bf16 at p (8-byte aligned) as floats.
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float f[4]) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+// kInt4: K is the logical (padded) K, the weight has K/2 packed rows and
+// gs is the INT4 group size; else K rows and gs = K / G.
+template <bool kInt4, int MT>
+__global__ void __launch_bounds__(kThreads)
+qmm_w16_small_kernel(const __nv_bfloat16* __restrict__ x,
+                     const int8_t* __restrict__ q,
+                     const float* __restrict__ scales,
+                     __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                     int gs, bool per_col) {
+  __shared__ float red[kSmallGroups][MT][kSmallCols];
+  const int tid = threadIdx.x;
+  const int cx = tid % 16;           // columns n0 + 4*cx .. +3
+  const int kg = tid / 16;           // chunks kg, kg + 16, ...
+  const int n0 = blockIdx.x * kSmallCols;
+  const int n = n0 + 4 * cx;
+  const int m0 = blockIdx.y * MT;
+  const int chunks = (kInt4 ? K / 2 : K) / kChunk;
+
+  // rows past M read row M-1 (in bounds) and are never written
+  const __nv_bfloat16* xrow[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    xrow[m] = x + static_cast<size_t>(min(m0 + m, M - 1)) * K;
+
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+  for (int c = kg; c < chunks; c += kSmallGroups) {
+    const int r0 = c * kChunk;
+    int klo, g_lo;
+    if (kInt4) {  // packed row r0 = pair p, row r: k = 2p*gs + r and + gs
+      const int p = r0 / gs;
+      klo = 2 * p * gs + (r0 - p * gs);
+      g_lo = 2 * p;
+    } else {
+      klo = r0;
+      g_lo = r0 / gs;
+    }
+    unsigned w[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i)
+      w[i] = __ldg(reinterpret_cast<const unsigned*>(
+          q + static_cast<size_t>(r0 + i) * N + n));
+    float a_lo[MT][4], a_hi[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a_lo[m][j] = a_hi[m][j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kChunk; i += 4) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float xl[4], xh[4];
+        load4(xrow[m] + klo + i, xl);
+        if (kInt4) load4(xrow[m] + klo + gs + i, xh);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int b = static_cast<int8_t>((w[i + t] >> (8 * j)) & 0xFF);
+            if (kInt4) {
+              a_lo[m][j] = fmaf(xl[t], static_cast<float>((b & 0xF) - 8), a_lo[m][j]);
+              a_hi[m][j] = fmaf(xh[t], static_cast<float>(b >> 4), a_hi[m][j]);
+            } else {
+              a_lo[m][j] = fmaf(xl[t], static_cast<float>(b), a_lo[m][j]);
+            }
+          }
+        }
+      }
+    }
+    if (kInt4) {
+      const float4 s0 = __ldg(reinterpret_cast<const float4*>(
+          scales + static_cast<size_t>(g_lo) * N + n));
+      const float4 s1 = __ldg(reinterpret_cast<const float4*>(
+          scales + static_cast<size_t>(g_lo + 1) * N + n));
+      const float sl[4] = {s0.x, s0.y, s0.z, s0.w};
+      const float sh[4] = {s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[m][j] += a_lo[m][j] * sl[j] + a_hi[m][j] * sh[j];
+    } else if (per_col) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][j] += a_lo[m][j];
+    } else {
+      const float4 s0 = __ldg(reinterpret_cast<const float4*>(
+          scales + static_cast<size_t>(g_lo) * N + n));
+      const float s[4] = {s0.x, s0.y, s0.z, s0.w};
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][j] += a_lo[m][j] * s[j];
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[kg][m][4 * cx + j] = acc[m][j];
+  __syncthreads();
+  for (int o = tid; o < MT * kSmallCols; o += kThreads) {
+    const int m = o / kSmallCols, col = o % kSmallCols;
+    float s = 0.f;
+#pragma unroll
+    for (int g = 0; g < kSmallGroups; ++g) s += red[g][m][col];
+    if (per_col) s *= scales[n0 + col];
+    if (m0 + m < M)
+      out[static_cast<size_t>(m0 + m) * N + n0 + col] = __float2bfloat16(s);
+  }
+}
+
+// ---------------------------------------------------------------------
+// W4A16 / W8A16, M > 16: bf16 tensor cores (wmma), dequantized tiles
+// ---------------------------------------------------------------------
+
+constexpr int kWBM = 64, kWBN = 64;  // output tile
+constexpr int kWKS = 32;             // weight rows per k-step
+constexpr int kWThreads = 128;       // 4 warps, 2 x 2, 32 x 32 each
+
+template <bool kInt4>
+__global__ void __launch_bounds__(kWThreads)
+qmm_w16_wmma_kernel(const __nv_bfloat16* __restrict__ x,
+                    const int8_t* __restrict__ q,
+                    const float* __restrict__ scales,
+                    __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                    int gs, bool per_col) {
+  using namespace nvcuda;
+  constexpr int BK = kInt4 ? 2 * kWKS : kWKS;  // logical rows per k-step
+  constexpr int LDA = BK + 8, LDB = kWBN + 8, LDC = kWBN + 4;
+  __shared__ __align__(32) __nv_bfloat16 As[kWBM][LDA];
+  __shared__ __align__(32) __nv_bfloat16 Bs[BK][LDB];
+  __shared__ __align__(32) float Cs[kWBM][LDC];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int n0 = blockIdx.x * kWBN;
+  const int m0 = blockIdx.y * kWBM;
+  const int steps = (kInt4 ? K / 2 : K) / kWKS;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int s = 0; s < steps; ++s) {
+    const int r0 = s * kWKS;
+    int klo, g_lo;
+    if (kInt4) {
+      const int p = r0 / gs;
+      klo = 2 * p * gs + (r0 - p * gs);
+      g_lo = 2 * p;
+    } else {
+      klo = r0;
+      g_lo = r0 / gs;
+    }
+    // A: x columns klo..klo+31 (INT4: and klo+gs..+31) of rows m0..m0+63
+    for (int idx = tid; idx < kWBM * 4 * (kInt4 ? 2 : 1); idx += kWThreads) {
+      const int seg = idx / (kWBM * 4);
+      const int j = idx % (kWBM * 4);
+      const int i = j / 4, c = (j % 4) * 8;
+      const int m = m0 + i;
+      int4 v = make_int4(0, 0, 0, 0);
+      if (m < M) {
+        v = __ldg(reinterpret_cast<const int4*>(
+            x + static_cast<size_t>(m) * K + klo + seg * gs + c));
+      }
+      *reinterpret_cast<int4*>(&As[i][seg * kWKS + c]) = v;
+    }
+    {  // B: 32 weight rows x 64 columns, one 16-byte load a thread
+      const int rr = tid / 4, cc = (tid % 4) * 16;
+      const int4 raw = __ldg(reinterpret_cast<const int4*>(
+          q + static_cast<size_t>(r0 + rr) * N + n0 + cc));
+      const unsigned words[4] = {static_cast<unsigned>(raw.x),
+                                 static_cast<unsigned>(raw.y),
+                                 static_cast<unsigned>(raw.z),
+                                 static_cast<unsigned>(raw.w)};
+      float s_lo[16], s_hi[16];
+#pragma unroll
+      for (int j = 0; j < 16; j += 4) {
+        if (kInt4 || !per_col) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(
+              scales + static_cast<size_t>(g_lo) * N + n0 + cc + j));
+          s_lo[j] = a.x; s_lo[j + 1] = a.y; s_lo[j + 2] = a.z; s_lo[j + 3] = a.w;
+        } else {
+          s_lo[j] = s_lo[j + 1] = s_lo[j + 2] = s_lo[j + 3] = 1.f;
+        }
+        if (kInt4) {
+          const float4 h = __ldg(reinterpret_cast<const float4*>(
+              scales + static_cast<size_t>(g_lo + 1) * N + n0 + cc + j));
+          s_hi[j] = h.x; s_hi[j + 1] = h.y; s_hi[j + 2] = h.z; s_hi[j + 3] = h.w;
+        }
+      }
+      // two bf16 a 32-bit word, the lower column in the low half
+      unsigned lo[8], hi[8];
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        const int v0 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4))) & 0xFF);
+        const int v1 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4) + 8)) & 0xFF);
+        __nv_bfloat162 l, h;
+        if (kInt4) {
+          l = __floats2bfloat162_rn(static_cast<float>((v0 & 0xF) - 8) * s_lo[j],
+                                    static_cast<float>((v1 & 0xF) - 8) * s_lo[j + 1]);
+          h = __floats2bfloat162_rn(static_cast<float>(v0 >> 4) * s_hi[j],
+                                    static_cast<float>(v1 >> 4) * s_hi[j + 1]);
+        } else {
+          l = __floats2bfloat162_rn(static_cast<float>(v0) * s_lo[j],
+                                    static_cast<float>(v1) * s_lo[j + 1]);
+          h = l;
+        }
+        lo[j / 2] = *reinterpret_cast<const unsigned*>(&l);
+        hi[j / 2] = *reinterpret_cast<const unsigned*>(&h);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(&Bs[rr][cc]);
+      dst[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      dst[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+      if (kInt4) {
+        uint4* dh = reinterpret_cast<uint4*>(&Bs[kWKS + rr][cc]);
+        dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], &As[wm + 16 * i][kk], LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], &Bs[kk][wn + 16 * j], LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = tid; idx < kWBM * kWBN; idx += kWThreads) {
+    const int i = idx / kWBN, c = idx % kWBN;
+    const int m = m0 + i;
+    if (m < M) {
+      float v = Cs[i][c];
+      if (!kInt4 && per_col) v *= scales[n0 + c];
+      out[static_cast<size_t>(m) * N + n0 + c] = __float2bfloat16(v);
+    }
+  }
+}
+
+// The bf16-activation kernels for both weight types: CUDA cores at
+// M <= 16, tensor cores above.
+template <bool kInt4>
+cudaError_t launch_w16(const void* x, const int8_t* q, const float* s,
+                       void* out, int M, int K, int N, int gs, bool per_col,
+                       cudaStream_t st) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (M <= 4) {
+    qmm_w16_small_kernel<kInt4, 4><<<dim3(N / kSmallCols, 1), kThreads, 0, st>>>(
+        xb, q, s, o, M, K, N, gs, per_col);
+  } else if (M <= 16) {
+    qmm_w16_small_kernel<kInt4, 8><<<dim3(N / kSmallCols, (M + 7) / 8), kThreads,
+                                     0, st>>>(xb, q, s, o, M, K, N, gs, per_col);
+  } else {
+    qmm_w16_wmma_kernel<kInt4><<<dim3(N / kWBN, (M + kWBM - 1) / kWBM),
+                                 kWThreads, 0, st>>>(xb, q, s, o, M, K, N, gs,
+                                                     per_col);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int qie_quant_matmul4_a8(const void* x, const void* sx,
                                     const void* q, const void* scales,
                                     void* out, int M, int Kp, int N, int gs,
                                     int layer, int L, void* stream) {
-  if (M <= 0 || N % kBN || gs % kBKP || Kp % (2 * gs) || layer < 0 ||
-      layer >= L) {
+  if (M <= 0 || N % kBN || gs <= 0 || gs % kBKP || Kp % (2 * gs) ||
+      layer < 0 || layer >= L) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* ql = static_cast<const int8_t*>(q) +
@@ -189,6 +628,66 @@ extern "C" int qie_quant_matmul4_a8(const void* x, const void* sx,
     qmm4_a8_kernel<8><<<grid, kThreads, 0, st>>>(
         static_cast<const int8_t*>(x), static_cast<const float*>(sx), ql, sl,
         static_cast<__nv_bfloat16*>(out), M, Kp, N, gs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qie_quant_matmul4(const void* x, const void* q,
+                                 const void* scales, void* out, int M, int Kp,
+                                 int N, int gs, int layer, int L,
+                                 void* stream) {
+  if (M <= 0 || N % kSmallCols || gs <= 0 || gs % kChunk || Kp % (2 * gs) ||
+      layer < 0 || layer >= L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int8_t* ql = static_cast<const int8_t*>(q) +
+                     static_cast<size_t>(layer) * (Kp / 2) * N;
+  const float* sl = static_cast<const float*>(scales) +
+                    static_cast<size_t>(layer) * (Kp / gs) * N;
+  return static_cast<int>(launch_w16<true>(x, ql, sl, out, M, Kp, N, gs,
+                                           false,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int qie_quant_matmul8(const void* x, const void* q,
+                                 const void* scales, void* out, int M, int K,
+                                 int N, int G, int layer, int L,
+                                 void* stream) {
+  if (M <= 0 || N % kSmallCols || K % kChunk || G <= 0 || K % G ||
+      (G > 1 && (K / G) % kChunk) || layer < 0 || layer >= L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int8_t* ql = static_cast<const int8_t*>(q) +
+                     static_cast<size_t>(layer) * K * N;
+  const float* sl = static_cast<const float*>(scales) +
+                    static_cast<size_t>(layer) * G * N;
+  return static_cast<int>(launch_w16<false>(x, ql, sl, out, M, K, N, K / G,
+                                            G == 1,
+                                            static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int qie_quant_matmul8_a8(const void* x, const void* sx,
+                                    const void* q, const void* scales,
+                                    void* out, int M, int K, int N, int G,
+                                    int layer, int L, void* stream) {
+  if (M <= 0 || N % kBN || K % kBKP || G <= 0 || K % G ||
+      (G > 1 && (K / G) % kBKP) || layer < 0 || layer >= L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int8_t* ql = static_cast<const int8_t*>(q) +
+                     static_cast<size_t>(layer) * K * N;
+  const float* sl = static_cast<const float*>(scales) +
+                    static_cast<size_t>(layer) * G * N;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* xq = static_cast<const int8_t*>(x);
+  const float* sxf = static_cast<const float*>(sx);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (M <= 16) {
+    qmm8_a8_kernel<2><<<dim3(N / kBN, (M + 15) / 16), kThreads, 0, st>>>(
+        xq, sxf, ql, sl, o, M, K, N, K / G, G == 1);
+  } else {
+    qmm8_a8_kernel<8><<<dim3(N / kBN, (M + 63) / 64), kThreads, 0, st>>>(
+        xq, sxf, ql, sl, o, M, K, N, K / G, G == 1);
   }
   return static_cast<int>(cudaGetLastError());
 }

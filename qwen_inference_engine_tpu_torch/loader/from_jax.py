@@ -17,16 +17,19 @@ packages can start from one pool.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from qwen_inference_engine_tpu_torch.kvcache.cache import PagedKVCache
+from qwen_inference_engine_tpu_torch.loader.convert import as_tensor
 from qwen_inference_engine_tpu_torch.ops.linear import Linear, QuantLinear
 
 
 def _tensor(a, device):
+    """A torch copy of a numpy leaf; bf16 (``ml_dtypes.bfloat16``, the JAX
+    package's default dtype, which ``torch.from_numpy`` rejects) is carried
+    bit for bit through a ``uint16`` view (``loader/convert.as_tensor``)."""
     if a is None:
         return None
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return as_tensor(np.array(a, copy=True)).to(device)
 
 
 def _leaf(v, device):

@@ -148,6 +148,101 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def init_quantized_params(cfg: ModelConfig, generator: torch.Generator,
+                          bits: int = 4, group_size: int = 128,
+                          dtype=torch.bfloat16, quantize_lm_head: bool = False,
+                          pad_free: bool = False, device=None) -> dict:
+    """Random params with the projections drawn directly in packed INT4 /
+    INT8 form, so a 7B model never exists in bf16 (what the JAX bench
+    runs).  Shapes, group sizes and K padding are the JAX function's;
+    the values come from ``generator`` (on ``device``), not ``jax.random``.
+
+    pad_free: shrink INT4 group sizes instead of padding reduction axes."""
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        pad_free_group_size,
+    )
+
+    if cfg.is_moe:
+        raise NotImplementedError("Qwen3-MoE expert stacks are not ported "
+                                  "yet: they come with the MoE slice (5)")
+    L, D, Fi, V = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    Qd, Kd = cfg.q_dim, cfg.kv_dim
+    qmax = 7 if bits == 4 else 127
+    pack = 2 if bits == 4 else 1
+    # INT4: random packed bytes (the full int8 range decodes to the full
+    # nibble range); INT8: values in [-127, 127]
+    lohi = (-128, 128) if bits == 4 else (-qmax, qmax + 1)
+
+    def randint(shape):
+        return torch.randint(*lohi, shape, generator=generator, device=device,
+                             dtype=torch.int8)
+
+    def qlin(kin: int, out: int, bias: bool) -> QuantLinear:
+        gs = group_size
+        if bits == 4 and pad_free:
+            gs = pad_free_group_size(kin, gs)
+        if bits == 4:
+            # mirror quantize_linear: shrink gs for tiny dims, pad huge ones
+            while gs > 2 and (kin % gs or (kin // gs) % 2):
+                gs //= 2
+            kt = -(-kin // (2 * gs))
+            if kt > 20 and kt % 2 == 1:
+                kt += 1
+            kin = kt * 2 * gs
+        else:
+            while gs > 2 and kin % gs:
+                gs //= 2
+        scales = torch.full((L, kin // gs, out), (kin ** -0.5) / qmax,
+                            dtype=torch.float32, device=device)
+        b = torch.zeros((L, out), dtype=dtype, device=device) if bias else None
+        return QuantLinear(q=randint((L, kin // pack, out)), scales=scales,
+                           b=b, bits=bits, group_size=gs)
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    bias = cfg.attention_bias
+    layers = {
+        "input_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "q": qlin(D, Qd, bias),
+        "k": qlin(D, Kd, bias),
+        "v": qlin(D, Kd, bias),
+        "o": qlin(Qd, D, False),
+        "post_norm": torch.ones((L, D), dtype=dtype, device=device),
+        "gate": qlin(D, Fi, False),
+        "up": qlin(D, Fi, False),
+        "down": qlin(Fi, D, False),
+    }
+    if cfg.qk_norm:
+        layers["q_norm"] = torch.ones((L, cfg.head_dim), dtype=dtype,
+                                      device=device)
+        layers["k_norm"] = torch.ones((L, cfg.head_dim), dtype=dtype,
+                                      device=device)
+    cos, sin = precompute_rope(cfg.max_position_embeddings, cfg.head_dim,
+                               cfg.rope_theta, device=device)
+    params = {
+        "embed": normal((V, D), 0.02),
+        "layers": layers,
+        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "rope_cos": cos,
+        "rope_sin": sin,
+    }
+    if not cfg.tie_word_embeddings:
+        if quantize_lm_head:
+            gs = group_size
+            while gs > 2 and (D % gs or (D // gs) % 2):
+                gs //= 2
+            params["lm_head"] = QuantLinear(
+                q=randint((D // pack, V)),
+                scales=torch.full((D // gs, V), (D ** -0.5) / qmax,
+                                  dtype=torch.float32, device=device),
+                b=None, bits=bits, group_size=gs)
+        else:
+            params["lm_head"] = Linear(normal((D, V), D ** -0.5))
+    return params
+
+
 def map_params(params, fn):
     """The same params with ``fn`` applied to every tensor (dicts and the
     tensor fields of Linear / QuantLinear are walked)."""

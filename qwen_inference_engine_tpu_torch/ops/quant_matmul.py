@@ -1,12 +1,25 @@
-"""W4A8 quantized matmul: per-token int8 activations x INT4 plane-pair weights.
+"""Quantized matmuls: INT4 / INT8 weights with bf16 or per-token int8
+activations.
 
-``quant_matmul4_a8`` is the wrapper of the CUDA kernel
-``csrc/quant_matmul.cu`` (the port of the JAX package's
-``_quant_matmul4_a8``); ``quant_matmul4_a8_plain`` beside it computes the
-same function in plain PyTorch.  ``quant_matmul_stacked`` is the dispatcher
-the model calls: it quantizes the activations per token outside the kernel
-(as the JAX package does), pads the reduction axis, and raises on CUDA for
-every variant whose kernel is not ported yet.
+Four CUDA kernels of ``csrc/quant_matmul.cu``, each the port of one Pallas
+kernel of the JAX package's ``ops/quant_matmul.py``, and each with a plain
+PyTorch version beside it:
+
+* ``quant_matmul4_a8``: int8 activations x INT4 plane-pair weights (W4A8,
+  ``_quant_matmul4_a8``);
+* ``quant_matmul4``: bf16 activations x INT4 plane-pair weights (W4A16,
+  ``_quant_matmul4``);
+* ``quant_matmul8``: bf16 activations x INT8 weights, a scale per group of
+  rows or one per column (W8A16, ``_quant_matmul8``);
+* ``quant_matmul8_a8``: int8 activations x INT8 weights (W8A8,
+  ``_quant_matmul8_a8``).
+
+``quant_matmul_stacked`` is the dispatcher the model calls: it pads the
+reduction axis, quantizes the activations per token outside the kernel for
+the a8 variants (as the JAX package does), and routes each ``(bits,
+act_bits)`` pair to its kernel.  A wrapper runs its plain version only for
+a CPU tensor; for any other it checks types and shapes, then launches its
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -29,16 +42,78 @@ def quantize_activations(x: torch.Tensor):
     return q, sx
 
 
+def _plain(x, q, scales, layer: int, bits: int, group_size: int,
+           sx=None) -> torch.Tensor:
+    """``bf16(sum_g (x_g @ q_g[layer]) * s_g [* sx])`` in f32 (int products
+    of the a8 variants are exact in f32 while |sum| < 2^24)."""
+    one = QuantLinear(q=q[layer], scales=scales[layer], b=None, bits=bits,
+                      group_size=group_size)
+    y = quant_matmul(x.float(), one)
+    if sx is not None:
+        y = y * sx.reshape(-1, 1).float()
+    return y.to(torch.bfloat16)
+
+
+def _group_size8(q, scales) -> int:
+    """The INT8 group size from the scales: K / G (G = 1: one per column)."""
+    return q.shape[1] // scales.shape[1]
+
+
 def quant_matmul4_a8_plain(xq, sx, q, scales, layer: int,
                            group_size: int) -> torch.Tensor:
-    """Plain version of the kernel: ``bf16((xq @ dequant(q[layer])) * sx)``.
+    """Plain version of the W4A8 kernel: ``bf16((xq @ W4[layer]) * sx)``.
 
     xq int8 [M, Kp]; sx f32 [M]; q int8 [L, Kp/2, N]; scales f32
-    [L, Kp/gs, N].  The int products are exact in f32 (|sum| < 2^24)."""
-    one = QuantLinear(q=q[layer], scales=scales[layer], b=None, bits=4,
-                      group_size=group_size)
-    y = quant_matmul(xq.float(), one) * sx.reshape(-1, 1).float()
-    return y.to(torch.bfloat16)
+    [L, Kp/gs, N]."""
+    return _plain(xq, q, scales, layer, 4, group_size, sx)
+
+
+def quant_matmul4_plain(x, q, scales, layer: int,
+                        group_size: int) -> torch.Tensor:
+    """Plain version of the W4A16 kernel: ``bf16(x @ W4[layer])``.
+
+    x bf16 [M, Kp]; q int8 [L, Kp/2, N]; scales f32 [L, Kp/gs, N]."""
+    return _plain(x, q, scales, layer, 4, group_size)
+
+
+def quant_matmul8_plain(x, q, scales, layer: int) -> torch.Tensor:
+    """Plain version of the W8A16 kernel: ``bf16(x @ W8[layer])``.
+
+    x bf16 [M, K]; q int8 [L, K, N]; scales f32 [L, G, N] (G = K / gs, or
+    1 for one scale per column)."""
+    return _plain(x, q, scales, layer, 8, _group_size8(q, scales))
+
+
+def quant_matmul8_a8_plain(xq, sx, q, scales, layer: int) -> torch.Tensor:
+    """Plain version of the W8A8 kernel: ``bf16((xq @ W8[layer]) * sx)``."""
+    return _plain(xq, q, scales, layer, 8, _group_size8(q, scales), sx)
+
+
+def _check(name: str, x, sx, q, scales, layer: int, *, x_dtype, k_per_row,
+           gs: int, gs_rule: str, gs_ok: bool, n_mult: int) -> None:
+    """The checks every wrapper makes on a non-CPU tensor before it builds
+    or launches anything."""
+    M, K = x.shape
+    L, Kq, N = q.shape
+    if x.dtype != x_dtype or q.dtype != torch.int8:
+        raise TypeError(f"{name} takes {x_dtype} activations and int8 weights")
+    if scales.dtype != torch.float32 or (
+            sx is not None and sx.dtype != torch.float32):
+        raise TypeError(f"{name} takes f32 scales")
+    G = scales.shape[1] if scales.dim() == 3 else -1
+    if (Kq * k_per_row != K or scales.shape != (L, G, N) or G <= 0
+            or (sx is not None and sx.numel() != M)):
+        raise ValueError(f"{name} shapes: x {tuple(x.shape)}, q "
+                         f"{tuple(q.shape)}, scales {tuple(scales.shape)}"
+                         + (f", sx {tuple(sx.shape)}" if sx is not None else ""))
+    if not gs_ok or K % 32 or N % n_mult:
+        raise ValueError(f"{name} kernel needs {gs_rule}, K % 32 == 0 and "
+                         f"N % {n_mult} == 0 (gs={gs}, K={K}, N={N})")
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} out of range for {L} layers")
+    for t in (x, q, scales) + ((sx,) if sx is not None else ()):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors on one device")
 
 
 def quant_matmul4_a8(xq, sx, q, scales, layer: int,
@@ -47,64 +122,123 @@ def quant_matmul4_a8(xq, sx, q, scales, layer: int,
 
     W4 is the stacked plane-pair INT4 weight ``q [L, Kp/2, N]`` with group
     scales ``[L, Kp/gs, N]``; ``layer`` selects the slab without a copy.
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.
     """
     if xq.device.type == "cpu":
         return quant_matmul4_a8_plain(xq, sx, q, scales, layer, group_size)
-    M, Kp = xq.shape
-    L, Kh, N = q.shape
     gs = group_size
-    if xq.dtype != torch.int8 or q.dtype != torch.int8:
-        raise TypeError("quant_matmul4_a8 takes int8 activations and weights")
-    if sx.dtype != torch.float32 or scales.dtype != torch.float32:
-        raise TypeError("quant_matmul4_a8 takes f32 row and group scales")
-    if Kh * 2 != Kp or sx.numel() != M or scales.shape != (L, Kp // gs, N):
-        raise ValueError(f"quant_matmul4_a8 shapes: x {tuple(xq.shape)}, "
-                         f"sx {tuple(sx.shape)}, q {tuple(q.shape)}, "
-                         f"scales {tuple(scales.shape)}, gs {gs}")
-    if gs % 32 or Kp % (2 * gs) or N % 128:
-        raise ValueError(f"quant_matmul4_a8 kernel needs gs % 32 == 0, "
-                         f"K % (2*gs) == 0 and N % 128 == 0 "
-                         f"(gs={gs}, K={Kp}, N={N})")
-    if not 0 <= layer < L:
-        raise IndexError(f"layer {layer} out of range for {L} layers")
-    for t in (xq, sx, q, scales):
-        if t.device != xq.device or not t.is_contiguous():
-            raise ValueError("quant_matmul4_a8 needs contiguous tensors on "
-                             "one device")
+    Kp = xq.shape[1]
+    _check("quant_matmul4_a8", xq, sx, q, scales, layer, x_dtype=torch.int8,
+           k_per_row=2, gs=gs, gs_rule="gs % 32 == 0, K % (2*gs) == 0",
+           gs_ok=gs > 0 and gs % 32 == 0 and Kp % (2 * gs) == 0
+           and scales.shape[1] == Kp // gs, n_mult=128)
+    M, N = xq.shape[0], q.shape[2]
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
     if M == 0:
         return out
     rc = cuda_lib.library().qie_quant_matmul4_a8(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), M, Kp, N, gs, int(layer), L,
+        out.data_ptr(), M, Kp, N, gs, int(layer), q.shape[0],
         cuda_lib.stream_handle(xq.device))
     cuda_lib.check(rc, "quant_matmul4_a8")
     quant_matmul4_a8.launches += 1
     return out
 
 
-quant_matmul4_a8.launches = 0
+def quant_matmul4(x, q, scales, layer: int, group_size: int) -> torch.Tensor:
+    """``bf16 [M, N] = x [M,Kp] bf16 @ W4[layer]`` on the card (W4A16).
+
+    The same stacked plane-pair INT4 layout as ``quant_matmul4_a8``."""
+    if x.device.type == "cpu":
+        return quant_matmul4_plain(x, q, scales, layer, group_size)
+    gs = group_size
+    Kp = x.shape[1]
+    _check("quant_matmul4", x, None, q, scales, layer, x_dtype=torch.bfloat16,
+           k_per_row=2, gs=gs, gs_rule="gs % 32 == 0, K % (2*gs) == 0",
+           gs_ok=gs > 0 and gs % 32 == 0 and Kp % (2 * gs) == 0
+           and scales.shape[1] == Kp // gs, n_mult=64)
+    M, N = x.shape[0], q.shape[2]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    rc = cuda_lib.library().qie_quant_matmul4(
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, Kp,
+        N, gs, int(layer), q.shape[0], cuda_lib.stream_handle(x.device))
+    cuda_lib.check(rc, "quant_matmul4")
+    quant_matmul4.launches += 1
+    return out
+
+
+def _gs8_ok(K: int, G: int) -> bool:
+    """INT8 scale layouts the kernels take: one per column, or groups of a
+    multiple of 32 rows."""
+    return G == 1 or (G > 0 and K % G == 0 and (K // G) % 32 == 0)
+
+
+def quant_matmul8(x, q, scales, layer: int) -> torch.Tensor:
+    """``bf16 [M, N] = x [M,K] bf16 @ W8[layer]`` on the card (W8A16).
+
+    ``q [L, K, N]`` int8, ``scales [L, G, N]``: a scale per group of K/G
+    rows, or one per column (G = 1, applied in the epilogue)."""
+    if x.device.type == "cpu":
+        return quant_matmul8_plain(x, q, scales, layer)
+    K = x.shape[1]
+    G = scales.shape[1] if scales.dim() == 3 else 0
+    _check("quant_matmul8", x, None, q, scales, layer, x_dtype=torch.bfloat16,
+           k_per_row=1, gs=K // max(G, 1),
+           gs_rule="G == 1 or K/G % 32 == 0", gs_ok=_gs8_ok(K, G), n_mult=64)
+    M, N = x.shape[0], q.shape[2]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    rc = cuda_lib.library().qie_quant_matmul8(
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, K,
+        N, G, int(layer), q.shape[0], cuda_lib.stream_handle(x.device))
+    cuda_lib.check(rc, "quant_matmul8")
+    quant_matmul8.launches += 1
+    return out
+
+
+def quant_matmul8_a8(xq, sx, q, scales, layer: int) -> torch.Tensor:
+    """``bf16 [M, N] = (xq [M,K] int8 @ W8[layer]) * sx[M]`` on the card
+    (W8A8), with the scale layouts of ``quant_matmul8``."""
+    if xq.device.type == "cpu":
+        return quant_matmul8_a8_plain(xq, sx, q, scales, layer)
+    K = xq.shape[1]
+    G = scales.shape[1] if scales.dim() == 3 else 0
+    _check("quant_matmul8_a8", xq, sx, q, scales, layer, x_dtype=torch.int8,
+           k_per_row=1, gs=K // max(G, 1),
+           gs_rule="G == 1 or K/G % 32 == 0", gs_ok=_gs8_ok(K, G), n_mult=128)
+    M, N = xq.shape[0], q.shape[2]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
+    if M == 0:
+        return out
+    rc = cuda_lib.library().qie_quant_matmul8_a8(
+        xq.data_ptr(), sx.data_ptr(), q.data_ptr(), scales.data_ptr(),
+        out.data_ptr(), M, K, N, G, int(layer), q.shape[0],
+        cuda_lib.stream_handle(xq.device))
+    cuda_lib.check(rc, "quant_matmul8_a8")
+    quant_matmul8_a8.launches += 1
+    return out
+
+
+for _w in (quant_matmul4_a8, quant_matmul4, quant_matmul8, quant_matmul8_a8):
+    _w.launches = 0
+del _w
 
 
 def quant_matmul_stacked(x: torch.Tensor, lin: QuantLinear, layer: int,
                          act_bits: int = 0) -> torch.Tensor:
     """``x [..., K] @ lin[layer] -> [..., N]`` for a layer-stacked QuantLinear.
 
-    CPU: the plain dequant matmul (``ops/linear.quant_matmul``).  CUDA: the
-    W4A8 kernel; the variants whose kernels are still to port raise."""
+    CPU: the plain dequant matmul (``ops/linear.quant_matmul``).  Otherwise
+    each ``(bits, act_bits)`` pair goes to its kernel: (4, 8) W4A8, (4, 0)
+    W4A16, (8, 0) W8A16, (8, 8) W8A8; activations in bf16, quantized per
+    token for the a8 kernels."""
     if x.device.type == "cpu":
         return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits)
-    if lin.bits != 4:
-        raise NotImplementedError(
-            "INT8 weights on CUDA need the ports of _quant_matmul8 and "
-            "_quant_matmul8_a8 (ops/quant_matmul.py of the JAX package)")
-    if act_bits != 8:
-        raise NotImplementedError(
-            "INT4 weights with bf16 activations on CUDA need the port of "
-            "_quant_matmul4 (ops/quant_matmul.py of the JAX package); "
-            "use act_bits=8")
+    if lin.bits not in (4, 8) or act_bits not in (0, 8):
+        raise ValueError(f"no kernel for bits={lin.bits}, "
+                         f"act_bits={act_bits}")
     k_x = x.shape[-1]
     kp = lin.in_features
     if k_x > kp:
@@ -113,7 +247,17 @@ def quant_matmul_stacked(x: torch.Tensor, lin: QuantLinear, layer: int,
     x2 = x.reshape(-1, k_x).to(torch.bfloat16)
     if kp != k_x:  # quantizer-padded reduction axis
         x2 = torch.nn.functional.pad(x2, (0, kp - k_x))
-    xq, sx = quantize_activations(x2)
-    y = quant_matmul4_a8(xq, sx.reshape(-1).contiguous(), lin.q, lin.scales,
-                         layer, lin.group_size)
+    x2 = x2.contiguous()
+    if act_bits == 8:
+        xq, sx = quantize_activations(x2)
+        sx = sx.reshape(-1).contiguous()
+        if lin.bits == 4:
+            y = quant_matmul4_a8(xq, sx, lin.q, lin.scales, layer,
+                                 lin.group_size)
+        else:
+            y = quant_matmul8_a8(xq, sx, lin.q, lin.scales, layer)
+    elif lin.bits == 4:
+        y = quant_matmul4(x2, lin.q, lin.scales, layer, lin.group_size)
+    else:
+        y = quant_matmul8(x2, lin.q, lin.scales, layer)
     return y.reshape(*lead, lin.out_features).to(x.dtype)

@@ -1,18 +1,20 @@
-"""CLI of the port: ``generate`` and ``serve`` with random weights from a
-preset.
+"""CLI of the port: ``generate``, ``serve`` and ``quantize``.
 
     python -m qwen_inference_engine_tpu_torch.server.cli generate \\
-        --model qwen2.5-7b --bits 4 --group-size 256 --act-bits 8 \\
-        --kv-bits 8 --prompt "Hello" --max-new-tokens 32 --greedy
+        --ckpt /path/to/Qwen2.5-7B --bits 4 --prompt "Hello" --greedy
+    python -m qwen_inference_engine_tpu_torch.server.cli quantize \\
+        --ckpt /path/to/Qwen2.5-7B --bits 4 --group-size 128 --out q7b
     python -m qwen_inference_engine_tpu_torch.server.cli serve \\
-        --model qwen2.5-7b --bits 4 --group-size 256 --act-bits 8 \\
-        --port 8000
+        --qckpt q7b --port 8000
 
-``serve`` is continuous batching over the paged bf16 KV cache behind HTTP
-(``server/http.py``).  Both run on the card (``--device cuda``, the
-default) unless ``--device cpu`` is given.  Checkpoint loading
-(``--ckpt``) comes with the loaders in a later slice, so the weights are
-random, drawn from a seeded generator.
+Weights come from a sharded HF safetensors checkpoint (``--ckpt``,
+quantized at load to ``--bits``), from a quantized checkpoint written by
+``quantize`` in either package (``--qckpt``), or, with neither, from a
+preset with random weights drawn from a seeded generator.  Weight formats:
+bf16 (``--bits 16``), W4A16 and W8A16 (``--bits 4|8``), W4A8 and W8A8
+(``--act-bits 8``).  ``serve`` is continuous batching over the paged bf16
+KV cache behind HTTP (``server/http.py``).  Everything runs on the card
+(``--device cuda``, the default) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -23,12 +25,15 @@ import time
 
 
 def build_model(args):
-    """(cfg, params, tokenizer, device) for the generate and serve
+    """(cfg, params, tokenizer, device) for the generate, serve and quantize
     commands."""
     import torch
 
     from qwen_inference_engine_tpu_torch.config import ModelConfig, tiny_config
     from qwen_inference_engine_tpu_torch.engine.engine import resolve_device
+    from qwen_inference_engine_tpu_torch.loader.safetensors_loader import (
+        load_checkpoint,
+    )
     from qwen_inference_engine_tpu_torch.models.qwen import init_params
     from qwen_inference_engine_tpu_torch.quant.quantize import (
         QuantConfig,
@@ -37,18 +42,31 @@ def build_model(args):
     from qwen_inference_engine_tpu_torch.tokenizer import load_tokenizer
 
     device = resolve_device(args.device)
-    if args.model == "tiny":
-        # byte-vocab smoke model (matches the ByteTokenizer)
-        cfg = tiny_config(vocab_size=512)
-    else:
-        cfg = ModelConfig.from_pretrained(args.model)
-        print("note: no checkpoint loader yet; using RANDOM weights",
-              file=sys.stderr)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = init_params(cfg, gen, dtype=dtype, device=device)
-    if args.bits < 16:
+    if args.qckpt:
+        from qwen_inference_engine_tpu_torch.loader.qcheckpoint import (
+            load_quantized,
+        )
+
+        cfg, params = load_quantized(args.qckpt, device=device)
+        tok = load_tokenizer(args.ckpt or args.qckpt)
+    elif args.ckpt:
+        cfg, params = load_checkpoint(args.ckpt, dtype=dtype, device=device)
+        tok = load_tokenizer(args.ckpt)
+    else:
+        if args.model == "tiny":
+            # byte-vocab smoke model (matches the ByteTokenizer)
+            cfg = tiny_config(vocab_size=512)
+        else:
+            cfg = ModelConfig.from_pretrained(args.model)
+            print("note: no --ckpt given; using RANDOM weights",
+                  file=sys.stderr)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, dtype=dtype, device=device)
+        tok = load_tokenizer(None)
+    print(f"tokenizer: {type(tok).__name__}", file=sys.stderr)
+    if args.bits < 16 and not args.qckpt:
         params = quantize_params(
             params, QuantConfig(bits=args.bits, group_size=args.group_size))
     if args.act_bits:
@@ -56,7 +74,7 @@ def build_model(args):
             print("error: --act-bits requires --bits 4 or 8", file=sys.stderr)
             raise SystemExit(2)
         cfg = cfg.replace(act_bits=args.act_bits)
-    return cfg, params, load_tokenizer(), device
+    return cfg, params, tok, device
 
 
 def cmd_generate(args) -> int:
@@ -92,15 +110,33 @@ def cmd_serve(args) -> int:
     return serve(args)
 
 
+def cmd_quantize(args) -> int:
+    """HF safetensors (or a preset) -> a quantized checkpoint directory."""
+    from qwen_inference_engine_tpu_torch.loader.qcheckpoint import (
+        save_quantized,
+    )
+
+    cfg, params, _, _ = build_model(args)
+    save_quantized(args.out, cfg, params)
+    print(f"wrote quantized checkpoint (INT{args.bits}, g={args.group_size}) "
+          f"to {args.out}", file=sys.stderr)
+    return 0
+
+
 def _add_model_args(g) -> None:
     g.add_argument("--model", default="qwen2.5-7b",
                    help="preset name (random weights) or 'tiny'")
+    g.add_argument("--ckpt", default=None,
+                   help="HF checkpoint dir with safetensors shards")
+    g.add_argument("--qckpt", default=None,
+                   help="quantized checkpoint dir (from `quantize`)")
     g.add_argument("--bits", type=int, default=16, choices=(4, 8, 16),
-                   help="weight quantization (CUDA: 4 with --act-bits 8, or 16)")
+                   help="weight bits: 4 or 8 quantize at load (not with "
+                        "--qckpt); 16 = bf16")
     g.add_argument("--group-size", type=int, default=128)
     g.add_argument("--act-bits", type=int, default=0, choices=(0, 8),
-                   help="8 = W4A8: per-token int8 activations in the block "
-                        "projections")
+                   help="8 = W4A8 / W8A8: per-token int8 activations in the "
+                        "block projections (requires --bits 4 or 8)")
     g.add_argument("--kv-bits", type=int, default=16, choices=(8, 16, 32),
                    help="16 = bf16 KV, 8 = INT8 KV (per-token-per-head "
                         "scales; generate only until the INT8 paged "
@@ -153,6 +189,12 @@ def main(argv=None) -> int:
                         "returns 400 (default: max(64, --top-k), or the "
                         "vocab when --top-k 0)")
     s.set_defaults(fn=cmd_serve)
+
+    qz = sub.add_parser("quantize",
+                        help="pack an HF checkpoint into a quantized checkpoint")
+    _add_model_args(qz)
+    qz.add_argument("--out", required=True, help="output checkpoint dir")
+    qz.set_defaults(fn=cmd_quantize)
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -1,15 +1,18 @@
-"""Byte-level tokenizer: the fallback the preset path of the CLI uses.
+"""Tokenizers: a checkpoint's HF tokenizer, and the byte-level fallback.
 
-One token per UTF-8 byte, offset by the number of special tokens, so any
-text round-trips without tokenizer files.  Checkpoint tokenizers arrive
-with the checkpoint loaders, in a later slice; until then
-``load_tokenizer`` always gives the byte tokenizer.  ``StreamDecoder``
-turns a token stream into text deltas for the HTTP server's streaming.
+``load_tokenizer(path)`` gives ``HFTokenizer`` when ``path`` is a
+directory with tokenizer files that ``transformers`` can load (local files
+only), else ``ByteTokenizer``: one token per UTF-8 byte, offset by the
+number of special tokens, so any text round-trips without tokenizer files
+(and on a machine without ``transformers``, which is imported only inside
+``HFTokenizer``).  ``StreamDecoder`` turns a token stream into text deltas
+for the HTTP server's streaming.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import os
+from typing import List, Optional, Sequence
 
 
 class ByteTokenizer:
@@ -40,8 +43,41 @@ class ByteTokenizer:
         return "".join(out)
 
 
-def load_tokenizer() -> ByteTokenizer:
-    """The byte tokenizer (checkpoint tokenizers come with the loaders)."""
+class HFTokenizer:
+    """Thin wrapper over a local HuggingFace tokenizer (no network)."""
+
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+
+        self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.vocab_size = len(self._tok)
+        self.eos_token_id = self._tok.eos_token_id
+        self.pad_token_id = self._tok.pad_token_id or self._tok.eos_token_id
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(ids, skip_special_tokens=True)
+
+    def apply_chat_template(self, messages, add_generation_prompt=True,
+                            **kw) -> str:
+        return self._tok.apply_chat_template(
+            messages, tokenize=False,
+            add_generation_prompt=add_generation_prompt, **kw)
+
+
+def load_tokenizer(path: Optional[str] = None):
+    """The HF tokenizer of ``path`` if it has tokenizer files that load,
+    else the byte fallback."""
+    if path and os.path.isdir(path):
+        for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json"):
+            if os.path.exists(os.path.join(path, f)):
+                try:
+                    return HFTokenizer(path)
+                except (ImportError, OSError, ValueError):
+                    # no transformers, or files it cannot load
+                    break
     return ByteTokenizer()
 
 

@@ -15,6 +15,8 @@ JAX-pinning conftest can be skipped):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -78,6 +80,158 @@ def test_quant_matmul4_a8_refuses_what_it_cannot_take(gen):
     s = torch.zeros((1, 4, 256), device="cuda")
     with pytest.raises(IndexError):
         qm.quant_matmul4_a8(xq, sx, q, s, 1, 128)
+
+
+# M: decode rows (CUDA-core kernel at M <= 16) and prefill rows (tensor
+# cores above), ragged against the 8 / 64-row tiles; N = 152064 is the
+# Qwen2.5-7B lm_head
+W16_SHAPES = [(1, 512, 128, 32), (5, 1024, 256, 64), (17, 768, 192, 128),
+              (300, 2048, 128, 256), (4, 256, 152064, 128), (64, 512, 64, 64)]
+
+
+def _check_matmul(got, ref, rel):
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    tol = rel * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("M,K,N,gs", W16_SHAPES)
+def test_quant_matmul4_matches_plain(gen, M, K, N, gs):
+    """bf16 activations: the tensor-core path rounds q * scale to bf16, so
+    2^-6 of the largest output, the rule of the W4A8 kernel's test."""
+    L = 2
+    q = torch.randint(-128, 128, (L, K // 2, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((L, K // gs, N), generator=gen, device="cuda") * 0.01
+    x = _bf16(gen, M, K)
+    before = qm.quant_matmul4.launches
+    got = qm.quant_matmul4(x, q, s, 1, gs)
+    ref = qm.quant_matmul4_plain(x, q, s, 1, gs)
+    assert qm.quant_matmul4.launches == before + 1
+    _check_matmul(got, ref, 2 ** -6)
+
+
+@pytest.mark.parametrize("per_column", [False, True], ids=["group", "column"])
+@pytest.mark.parametrize("M,K,N,gs", W16_SHAPES)
+def test_quant_matmul8_matches_plain(gen, M, K, N, gs, per_column):
+    L = 2
+    G = 1 if per_column else K // gs
+    q = torch.randint(-127, 128, (L, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((L, G, N), generator=gen, device="cuda") * 0.01
+    x = _bf16(gen, M, K)
+    before = qm.quant_matmul8.launches
+    got = qm.quant_matmul8(x, q, s, 1)
+    ref = qm.quant_matmul8_plain(x, q, s, 1)
+    assert qm.quant_matmul8.launches == before + 1
+    _check_matmul(got, ref, 2 ** -6)
+
+
+@pytest.mark.parametrize("per_column", [False, True], ids=["group", "column"])
+@pytest.mark.parametrize("M,K,N,gs", [(1, 512, 128, 32), (5, 1024, 256, 64),
+                                      (17, 768, 384, 128), (300, 2048, 128, 256),
+                                      (4, 256, 152064, 128)])
+def test_quant_matmul8_a8_matches_plain(gen, M, K, N, gs, per_column):
+    """Integer sums are exact in the kernel, the plain version's f32 sums
+    are not, and both round to bf16: one bf16 ulp of the largest output
+    (2^-7 of it)."""
+    L = 2
+    G = 1 if per_column else K // gs
+    q = torch.randint(-127, 128, (L, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((L, G, N), generator=gen, device="cuda") * 0.01
+    xq, sx = qm.quantize_activations(_bf16(gen, M, K))
+    sx = sx.reshape(-1).contiguous()
+    before = qm.quant_matmul8_a8.launches
+    got = qm.quant_matmul8_a8(xq, sx, q, s, 0)
+    ref = qm.quant_matmul8_a8_plain(xq, sx, q, s, 0)
+    assert qm.quant_matmul8_a8.launches == before + 1
+    _check_matmul(got, ref, 2 ** -7)
+
+
+@pytest.mark.parametrize("bits,act_bits,gs", [(4, 0, 128), (8, 0, 128),
+                                              (8, 0, None), (8, 8, None),
+                                              (8, 8, 64), (4, 8, 128)])
+def test_dispatcher_on_padded_k_matches_plain(gen, bits, act_bits, gs):
+    """K = 448 pads to 512 for INT4 (the dispatcher zero-pads x); every
+    (bits, act_bits) pair launches its own kernel and agrees with the plain
+    dequant matmul of ops/linear.py."""
+    from qwen_inference_engine_tpu_torch.ops.linear import Linear
+    from qwen_inference_engine_tpu_torch.quant.quantize import quantize_linear
+
+    K = 448 if bits == 4 else 512
+    w = torch.randn((2, K, 256), generator=gen, device="cuda") * 0.05
+    lin = quantize_linear(Linear(w), bits, gs)
+    x = _bf16(gen, 3, 37, K)
+    kern = {(4, 0): qm.quant_matmul4, (8, 0): qm.quant_matmul8,
+            (8, 8): qm.quant_matmul8_a8, (4, 8): qm.quant_matmul4_a8}
+    counts = {k: f.launches for k, f in kern.items()}
+    got = qm.quant_matmul_stacked(x, lin, 1, act_bits=act_bits)
+    ref = qm.quant_matmul_stacked(x.cpu().float(), dataclasses.replace(
+        lin, q=lin.q.cpu(), scales=lin.scales.cpu()), 1, act_bits=act_bits)
+    assert {k: f.launches - counts[k] for k, f in kern.items()} == {
+        k: int(k == (bits, act_bits)) for k in kern}
+    assert got.shape == (3, 37, 256) and got.dtype == torch.bfloat16
+    rel = 2 ** -7 if act_bits else 2 ** -6
+    tol = rel * ref.abs().max().item() + 2 ** -8 * ref.abs().max().item()
+    assert (got.float().cpu() - ref).abs().max().item() <= tol
+
+
+def test_new_quant_matmuls_refuse_what_they_cannot_take(gen):
+    x = _bf16(gen, 2, 512)
+    q4 = torch.zeros((1, 256, 256), dtype=torch.int8, device="cuda")
+    s4 = torch.zeros((1, 4, 256), device="cuda")
+    with pytest.raises(TypeError, match="bfloat16 activations"):
+        qm.quant_matmul4(x.float(), q4, s4, 0, 128)
+    with pytest.raises(ValueError, match="gs % 32"):
+        qm.quant_matmul4(x, q4, torch.zeros((1, 32, 256), device="cuda"), 0, 16)
+    with pytest.raises(ValueError, match="N % 64"):
+        qm.quant_matmul4(x, q4[..., :96].contiguous(), s4[..., :96].contiguous(),
+                         0, 128)
+    q8 = torch.zeros((1, 512, 256), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="shapes"):
+        qm.quant_matmul8(x, q8, torch.zeros((1, 4, 128), device="cuda"), 0)
+    with pytest.raises(ValueError, match="K/G % 32"):
+        qm.quant_matmul8(x, q8, torch.zeros((1, 32, 256), device="cuda"), 0)
+    with pytest.raises(IndexError):
+        qm.quant_matmul8(x, q8, torch.zeros((1, 1, 256), device="cuda"), 1)
+    xq = torch.zeros((2, 512), dtype=torch.int8, device="cuda")
+    with pytest.raises(TypeError, match="f32 scales"):
+        qm.quant_matmul8_a8(xq, torch.ones(2, device="cuda").half(), q8,
+                            torch.zeros((1, 1, 256), device="cuda"), 0)
+    with pytest.raises(ValueError, match="N % 128"):
+        qm.quant_matmul8_a8(xq, torch.ones(2, device="cuda"),
+                            q8[..., :192].contiguous(),
+                            torch.zeros((1, 1, 192), device="cuda"), 0)
+
+
+@pytest.mark.parametrize("bits,act_bits,gs,lm_head", [
+    (4, 0, 128, True), (8, 0, 128, True), (8, 8, None, False)],
+    ids=["w4a16", "w8a16", "w8a8"])
+def test_engine_runs_each_weight_format_on_the_card(gen, bits, act_bits, gs,
+                                                    lm_head):
+    """Engine.generate at W4A16 and W8A16 (quantized lm_heads) and W8A8 (one
+    scale per column): only the format's own matmul kernel launches, 7 per
+    layer per forward (+1 for a quantized lm_head)."""
+    cfg = tiny_config(hidden_size=256, intermediate_size=512, num_heads=4,
+                      num_kv_heads=2, head_dim=64)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    params = quantize_params(params, QuantConfig(bits=bits, group_size=gs,
+                                                 quantize_lm_head=lm_head))
+    cfg = cfg.replace(act_bits=act_bits)
+    eng = Engine(cfg, params, max_batch=2, max_seq=128,
+                 sampling=SamplingParams(greedy=True))
+    kern = {(4, 0): qm.quant_matmul4, (8, 0): qm.quant_matmul8,
+            (8, 8): qm.quant_matmul8_a8, (4, 8): qm.quant_matmul4_a8}
+    for k in kern.values():
+        k.launches = 0
+    res = eng.generate([[5, 9, 17], [100, 200, 300, 400, 500]],
+                       max_new_tokens=6)
+    forwards = res.steps  # one prefill + one decode step per further token
+    want = forwards * (7 * cfg.num_layers + int(lm_head))
+    assert {k: f.launches for k, f in kern.items()} == {
+        k: want if k == (bits, act_bits) else 0 for k in kern}
+    assert all(0 <= t < cfg.vocab_size for row in res.token_ids for t in row)
 
 
 @pytest.mark.parametrize("B,T,Hq,Hk,D", [(1, 1, 2, 1, 128), (2, 17, 4, 2, 64),
@@ -518,3 +672,48 @@ def test_serving_engine_on_the_card_resends_a_near_max_seq_prompt(gen):
     assert all(f.finish_reason == "length" and len(f.token_ids) == 4
                for f in done)
     assert cb.metrics.snapshot()["prefix_hit_tokens"] == 2 * 59
+
+
+def test_checkpoints_load_on_the_card(gen, tmp_path):
+    """load_checkpoint and load_quantized put every tensor on the card by
+    default, bit for bit; the checkpoint is written by chip_smoke.py's
+    writer (this machine may have no safetensors or transformers)."""
+    import os
+    import sys
+
+    from qwen_inference_engine_tpu_torch.loader.qcheckpoint import (
+        load_quantized,
+        save_quantized,
+    )
+    from qwen_inference_engine_tpu_torch.loader.safetensors_loader import (
+        load_checkpoint,
+    )
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    from chip_smoke import hf_state_dict, write_hf_checkpoint
+
+    cfg = tiny_config(hidden_size=256, intermediate_size=512, num_heads=4,
+                      num_kv_heads=2, head_dim=64)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    sd = hf_state_dict(cfg, params)
+    write_hf_checkpoint(str(tmp_path / "hf"), cfg.to_hf_config(), sd, shards=3)
+    lcfg, loaded = load_checkpoint(str(tmp_path / "hf"))
+    got = hf_state_dict(lcfg, loaded)
+    assert set(got) == set(sd)
+    assert all(got[n].is_cuda and torch.equal(got[n], t) for n, t in sd.items())
+    qp = quantize_params(loaded, QuantConfig(bits=8, group_size=128,
+                                             quantize_lm_head=True))
+    save_quantized(str(tmp_path / "q"), lcfg, qp)
+    qcfg, back = load_quantized(str(tmp_path / "q"))
+    for name in ("q", "down"):
+        assert back["layers"][name].q.is_cuda
+        assert torch.equal(back["layers"][name].q, qp["layers"][name].q)
+        assert torch.equal(back["layers"][name].scales,
+                           qp["layers"][name].scales)
+    assert torch.equal(back["lm_head"].q, qp["lm_head"].q)
+    eng = Engine(qcfg, back, max_batch=2, max_seq=128,
+                 sampling=SamplingParams(greedy=True))
+    before = qm.quant_matmul8.launches
+    res = eng.generate([[5, 9, 17], [7]], max_new_tokens=4)
+    assert qm.quant_matmul8.launches - before == res.steps * (7 * 2 + 1)

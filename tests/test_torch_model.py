@@ -36,7 +36,8 @@ from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear
 from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
 
 
-def _build(qk_norm: bool, **cfg_kw):
+def _build(qk_norm: bool, bits: int = 4, group_size=64, act_bits: int = 8,
+           quantize_lm_head: bool = False, **cfg_kw):
     """(jax cfg, jax params, port cfg, port params); ``cfg_kw`` goes to
     both packages' ``tiny_config``."""
     jcfg = j_tiny_config(qk_norm=qk_norm, **cfg_kw)
@@ -53,10 +54,11 @@ def _build(qk_norm: bool, **cfg_kw):
     params = dict(params, layers=layers, final_norm=jnp.asarray(
         rng.uniform(0.5, 1.5, size=params["final_norm"].shape
                     ).astype(np.float32)))
-    params = j_quantize_params(params, JQuantConfig(bits=4, group_size=64))
-    jcfg = jcfg.replace(act_bits=8)
+    params = j_quantize_params(params, JQuantConfig(
+        bits=bits, group_size=group_size, quantize_lm_head=quantize_lm_head))
+    jcfg = jcfg.replace(act_bits=act_bits)
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
-    tcfg = tiny_config(qk_norm=qk_norm, **cfg_kw).replace(act_bits=8)
+    tcfg = tiny_config(qk_norm=qk_norm, **cfg_kw).replace(act_bits=act_bits)
     return jcfg, params, tcfg, tparams
 
 
@@ -219,3 +221,28 @@ def test_prefill_chunked_capacity_error_matches_jax(models):
                               chunk=128)
     assert str(terr.value) == str(jerr.value)
     assert "holds only 256" in str(terr.value)
+
+
+# the weight formats of the CLI's defaults (act_bits 0) and W8A8, each with
+# its lm_head quantized too: (bits, group_size, act_bits); group_size None
+# is one INT8 scale per column
+FORMATS = {"w4a16": (4, 64, 0), "w8a16": (8, 64, 0), "w8a8": (8, None, 8)}
+
+
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+@pytest.mark.parametrize("qk_norm", [False, True], ids=["qwen2", "qwen3"])
+def test_engine_greedy_token_identical_to_jax_in_each_format(qk_norm, fmt):
+    bits, gs, act_bits = FORMATS[fmt]
+    jcfg, jparams, tcfg, tparams = _build(qk_norm, bits=bits, group_size=gs,
+                                          act_bits=act_bits,
+                                          quantize_lm_head=True)
+    head = tparams["lm_head"]
+    assert isinstance(head, QuantLinear) and head.bits == bits
+    prompts = [[5, 9, 17, 3], [100, 200, 300, 400, 500, 42, 11, 12, 13], [7]]
+    jeng = JEngine(jcfg, jparams, max_batch=3, max_seq=128,
+                   sampling=JSampling(greedy=True), kv_dtype=jnp.float32)
+    teng = Engine(tcfg, tparams, max_batch=3, max_seq=128,
+                  sampling=SamplingParams(greedy=True),
+                  kv_dtype=torch.float32, device="cpu")
+    want = jeng.generate(prompts, max_new_tokens=10).token_ids
+    assert teng.generate(prompts, max_new_tokens=10).token_ids == want

@@ -6,6 +6,7 @@ kernel itself is held against the same plain version by chip_smoke.py.
 """
 
 import dataclasses
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -122,3 +123,172 @@ def test_quantize_linear_identical_on_padded_k(K, gs):
 def test_padding_rule_for_qwen25_7b_down_proj():
     assert _padded_k(18944, 4, 256) == 19456
     assert _padded_k(3584, 4, 256) == 3584
+
+
+def _pallas_only(jq, x, act_bits):
+    """quant_matmul_pallas with its Pallas kernel in interpret mode, and the
+    XLA fallback made to raise, so the kernel itself is what ran."""
+    def no_fallback(*a, **k):
+        raise AssertionError("quant_matmul_pallas fell back to XLA")
+
+    with interpret_pallas(jqmm), \
+            mock.patch.object(jqmm._linear, "_quant_matmul_xla", no_fallback):
+        return np.asarray(jqmm.quant_matmul_pallas(
+            jnp.asarray(x).astype(jnp.bfloat16), jq, act_bits=act_bits),
+            np.float32)
+
+
+def _port_args(jq, x):
+    """The port's kernel inputs: x zero-padded to the weight's K (as the
+    dispatcher pads it), the weight stacked as one layer."""
+    kp = jq.in_features
+    x_pad = torch.nn.functional.pad(torch.from_numpy(x), (0, kp - x.shape[1]))
+    q = torch.from_numpy(np.array(jq.q))[None]
+    s = torch.from_numpy(np.array(jq.scales))[None]
+    return x_pad, q, s
+
+
+def _close_to_bf16(got, ref):
+    """Both sides round one f32 sum to bf16 and differ in the order of the
+    f32 sums: within 2^-7 of the largest output (one bf16 ulp there)."""
+    assert got.dtype == torch.bfloat16
+    tol = 2 ** -7 * np.abs(ref).max()
+    assert np.abs(got.float().numpy() - ref).max() <= tol
+
+
+@pytest.mark.parametrize("K,gs", [(512, 128), (448, 128), (1024, 256)])
+def test_w4a16_plain_matches_pallas_interpret(K, gs):
+    """_quant_matmul4; K=448 is padded to 512 by the quantizer."""
+    rng = np.random.default_rng(K + gs)
+    M, N = 8, 256
+    x = _bf16_values(rng.normal(size=(M, K)).astype(np.float32))
+    w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
+    jq = j_quantize_linear(JLinear(jnp.asarray(w)), 4, gs)
+    ref = _pallas_only(jq, x, 0)
+    x_pad, q, s = _port_args(jq, x)
+    before = tqmm.quant_matmul4.launches
+    got = tqmm.quant_matmul4(x_pad.to(torch.bfloat16), q, s, 0, jq.group_size)
+    assert tqmm.quant_matmul4.launches == before  # CPU: plain version
+    _close_to_bf16(got, ref)
+
+
+@pytest.mark.parametrize("act_bits", [0, 8], ids=["w8a16", "w8a8"])
+@pytest.mark.parametrize("gs", [128, None], ids=["group", "column"])
+def test_int8_plain_matches_pallas_interpret(gs, act_bits):
+    """_quant_matmul8 and _quant_matmul8_a8, a scale per group of 128 rows
+    (one k-tile each) or one per column (applied in the epilogue)."""
+    rng = np.random.default_rng(3 + act_bits)
+    M, K, N = 8, 512, 256
+    x = _bf16_values(rng.normal(size=(M, K)).astype(np.float32))
+    w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
+    jq = j_quantize_linear(JLinear(jnp.asarray(w)), 8, gs)
+    assert jq.scales.shape[0] == (1 if gs is None else K // gs)
+    ref = _pallas_only(jq, x, act_bits)
+    x_pad, q, s = _port_args(jq, x)
+    if act_bits:
+        xq, sx = tqmm.quantize_activations(x_pad.to(torch.bfloat16))
+        got = tqmm.quant_matmul8_a8(xq, sx.reshape(-1), q, s, 0)
+    else:
+        got = tqmm.quant_matmul8(x_pad.to(torch.bfloat16), q, s, 0)
+    _close_to_bf16(got, ref)
+
+
+@pytest.mark.parametrize("bits,act_bits,gs", [(4, 8, 128), (4, 0, 128),
+                                              (8, 0, 128), (8, 8, None)],
+                         ids=["w4a8", "w4a16", "w8a16", "w8a8"])
+def test_dispatcher_matches_quant_matmul_pallas_for_every_pair(bits, act_bits,
+                                                               gs):
+    """quant_matmul_stacked (the port's CPU dispatcher) against the JAX
+    package's quant_matmul_pallas on a 2-layer stack, layer 1, padded K for
+    INT4; the Pallas side rounds its output to bf16: 2^-8 of the largest."""
+    rng = np.random.default_rng(bits * 10 + act_bits)
+    M, K, N = 6, 448 if bits == 4 else 512, 256
+    x = _bf16_values(rng.normal(size=(M, K)).astype(np.float32))
+    w = (rng.normal(size=(2, K, N)) * 0.05).astype(np.float32)
+    jq = j_quantize_linear(JLinear(jnp.asarray(w)), bits, gs)
+    with interpret_pallas(jqmm):
+        ref = np.asarray(jqmm.quant_matmul_pallas(
+            jnp.asarray(x).astype(jnp.bfloat16), jq, layer=1,
+            act_bits=act_bits), np.float32)
+    tq = QuantLinear(q=torch.from_numpy(np.array(jq.q)),
+                     scales=torch.from_numpy(np.array(jq.scales)), b=None,
+                     bits=bits, group_size=jq.group_size)
+    got = tqmm.quant_matmul_stacked(torch.from_numpy(x), tq, 1,
+                                    act_bits=act_bits)
+    assert got.shape == (M, N)
+    tol = 2 ** -8 * np.abs(ref).max()
+    assert np.abs(got.numpy() - ref).max() <= tol
+
+
+@pytest.mark.parametrize("K,gs", [(512, None), (512, 128), (384, 32),
+                                  (96, None)])
+def test_quantize_linear_int8_identical(K, gs):
+    """INT8 per column (group_size None: one group over K) and per group:
+    the same bytes and scales as the JAX quantize_linear."""
+    rng = np.random.default_rng(K)
+    w = (rng.normal(size=(3, K, 64)) * 0.1).astype(np.float32)
+    w[0, :, 5] = 0.0  # an all-zero column: scale 0, q 0
+    jq = j_quantize_linear(JLinear(jnp.asarray(w)), 8, gs)
+    tq = quantize_linear(Linear(torch.from_numpy(w)), 8, gs)
+    assert tq.group_size == jq.group_size == (gs or K)
+    np.testing.assert_array_equal(tq.q.numpy(), np.asarray(jq.q))
+    np.testing.assert_array_equal(tq.scales.numpy(), np.asarray(jq.scales))
+
+
+@pytest.mark.parametrize("bits,gs,pad_free,lm_head", [
+    (4, 128, False, True), (4, 256, False, True), (4, 128, True, False),
+    (8, 128, False, True), (8, 256, False, False)])
+@pytest.mark.parametrize("preset", ["qwen2.5-7b", "qwen3-14b", "qwen2.5-0.5b"])
+def test_init_quantized_params_shapes_match_jax(preset, bits, gs, pad_free,
+                                                lm_head):
+    """The port's pre-quantized random params have the JAX
+    function's shapes, dtypes, group sizes and K padding, traced without
+    allocating the 7B-class arrays (jax.eval_shape; meta tensors)."""
+    import jax
+
+    from qwen_inference_engine_tpu.config import PRESETS as J_PRESETS
+    from qwen_inference_engine_tpu.models.qwen import (
+        init_quantized_params as j_init,
+    )
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.models.qwen import (
+        init_quantized_params,
+    )
+
+    want = jax.eval_shape(lambda k: j_init(
+        J_PRESETS[preset], k, bits=bits, group_size=gs,
+        quantize_lm_head=lm_head, pad_free=pad_free), jax.random.PRNGKey(0))
+    got = init_quantized_params(PRESETS[preset], None, bits=bits,
+                                group_size=gs, quantize_lm_head=lm_head,
+                                pad_free=pad_free, device="meta")
+
+    def leaves(tree):
+        out = {}
+        for name, v in tree["layers"].items():
+            for f in ("q", "scales", "b", "w"):
+                t = getattr(v, f, None)
+                if t is not None:
+                    out[f"layers.{name}.{f}"] = t
+            if not hasattr(v, "q") and not hasattr(v, "w"):
+                out[f"layers.{name}"] = v
+            if hasattr(v, "group_size"):
+                out[f"layers.{name}.gs"] = v.group_size
+        for name in ("embed", "final_norm", "rope_cos", "rope_sin"):
+            out[name] = tree[name]
+        head = tree.get("lm_head")
+        if head is not None:
+            for f in ("q", "scales", "w"):
+                if getattr(head, f, None) is not None:
+                    out[f"lm_head.{f}"] = getattr(head, f)
+            if hasattr(head, "group_size"):
+                out["lm_head.gs"] = head.group_size
+        return out
+
+    a, b = leaves(got), leaves(want)
+    assert sorted(a) == sorted(b)
+    for name in a:
+        if name.endswith(".gs"):
+            assert a[name] == b[name], name
+        else:
+            assert tuple(a[name].shape) == tuple(b[name].shape), name
+            assert str(a[name].dtype).split(".")[-1] == str(b[name].dtype), name

@@ -31,7 +31,8 @@ for n in names:
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib"
        or m == "qwen_inference_engine_tpu"
-       or m.startswith("qwen_inference_engine_tpu.")]
+       or m.startswith("qwen_inference_engine_tpu.")
+       or m.split(".")[0] in ("ml_dtypes", "safetensors", "transformers")]
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 15, names
@@ -55,8 +56,15 @@ def test_no_jax_import_in_port_sources():
         with open(path) as f:
             src = f.read()
         for bad in ("import jax", "from jax", "import qwen_inference_engine_tpu\n",
-                    "from qwen_inference_engine_tpu."):
+                    "from qwen_inference_engine_tpu.", "import ml_dtypes",
+                    "from ml_dtypes", "import safetensors", "from safetensors"):
             assert bad not in src, (path, bad)
+        # transformers only inside HFTokenizer (tokenizer.py), never at
+        # module level
+        for line in src.splitlines():
+            if "import transformers" in line or "from transformers" in line:
+                assert path.endswith("tokenizer.py") and line.startswith(" "), \
+                    (path, line)
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
@@ -95,7 +103,8 @@ def test_cli_runs_on_cpu_when_asked(capsys):
 
 def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     rng = np.random.default_rng(0)
-    counters = [tqmm.quant_matmul4_a8, tfa.flash_attention,
+    counters = [tqmm.quant_matmul4_a8, tqmm.quant_matmul4, tqmm.quant_matmul8,
+                tqmm.quant_matmul8_a8, tfa.flash_attention,
                 tda.decode_attention_contiguous, tda.decode_attention_appending,
                 tca.chunk_attention_contiguous,
                 tca.chunk_attention_contiguous_q8,
@@ -110,6 +119,18 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     np.testing.assert_array_equal(
         y.float().numpy(),
         tqmm.quant_matmul4_a8_plain(xq, sx, q, s, 1, 64).float().numpy())
+    xb = torch.randn(3, 256).to(torch.bfloat16)
+    np.testing.assert_array_equal(
+        tqmm.quant_matmul4(xb, q, s, 0, 64).float().numpy(),
+        tqmm.quant_matmul4_plain(xb, q, s, 0, 64).float().numpy())
+    q8 = torch.from_numpy(rng.integers(-127, 128, size=(2, 256, 128)).astype(np.int8))
+    for s8 in (torch.rand(2, 4, 128), torch.rand(2, 1, 128)):
+        np.testing.assert_array_equal(
+            tqmm.quant_matmul8(xb, q8, s8, 1).float().numpy(),
+            tqmm.quant_matmul8_plain(xb, q8, s8, 1).float().numpy())
+        np.testing.assert_array_equal(
+            tqmm.quant_matmul8_a8(xq, sx, q8, s8, 1).float().numpy(),
+            tqmm.quant_matmul8_a8_plain(xq, sx, q8, s8, 1).float().numpy())
 
     qq = torch.randn(2, 16, 4, 32)
     kk, vv = torch.randn(2, 16, 2, 32), torch.randn(2, 16, 2, 32)
@@ -157,12 +178,13 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     assert [f.launches for f in counters] == before
 
 
-def test_unported_variants_raise_on_cuda_before_any_plain_path():
+def test_unported_variants_raise_on_cuda_before_any_plain_path(monkeypatch):
     """The dispatch decisions that do not need a card to be made: row0 != 0
-    (pipeline-parallel decode) in every decode-side wrapper, and INT8
-    weights with bf16 activations (a meta tensor stands in for the card;
-    test_cuda_dispatcher_names_the_missing_kernel has the other two
-    matmuls)."""
+    (pipeline-parallel decode) raises in every decode-side wrapper; INT8
+    weights with bf16 activations, unported until this slice, now reach
+    their kernel's wrapper and never the plain path (a meta tensor stands in
+    for the card; test_cuda_dispatcher_names_the_missing_kernel has every
+    (bits, act_bits) pair)."""
     with pytest.raises(NotImplementedError, match="row0"):
         tda.decode_attention_contiguous(torch.zeros(1, 1, 2, 32),
                                         torch.zeros(1, 1, 1, 256, 32),
@@ -180,8 +202,10 @@ def test_unported_variants_raise_on_cuda_before_any_plain_path():
     lin8 = QuantLinear(q=torch.empty(1, 128, 128, dtype=torch.int8),
                        scales=torch.empty(1, 1, 128), b=None, bits=8,
                        group_size=128)
-    with pytest.raises(NotImplementedError, match="_quant_matmul8 "):
-        tqmm.quant_matmul_stacked(x, lin8, 0, act_bits=0)
+    called = _record_wrappers(monkeypatch)
+    monkeypatch.setattr(tqmm, "quant_matmul", None)  # no plain path
+    y = tqmm.quant_matmul_stacked(x, lin8, 0, act_bits=0)
+    assert called == ["quant_matmul8"] and y.shape == (2, 128)
 
 
 def test_new_kernel_wrappers_refuse_before_any_launch():
@@ -221,20 +245,104 @@ def test_new_kernel_wrappers_refuse_before_any_launch():
                                  meta(2, 1, 2, dtype=torch.float32), 3, 0)
 
 
-def test_cuda_dispatcher_names_the_missing_kernel():
-    """On a CUDA tensor the dispatcher raises for INT8 weights and for bf16
-    activations; a meta tensor stands in for the card here."""
-    x = torch.empty(2, 128, device="meta")
-    lin4 = QuantLinear(q=torch.empty(1, 64, 128, dtype=torch.int8),
-                       scales=torch.empty(1, 1, 128), b=None, bits=4,
-                       group_size=64)
-    lin8 = QuantLinear(q=torch.empty(1, 128, 128, dtype=torch.int8),
-                       scales=torch.empty(1, 1, 128), b=None, bits=8,
-                       group_size=128)
-    with pytest.raises(NotImplementedError, match="_quant_matmul4 "):
-        tqmm.quant_matmul_stacked(x, lin4, 0, act_bits=0)
-    with pytest.raises(NotImplementedError, match="_quant_matmul8"):
-        tqmm.quant_matmul_stacked(x, lin8, 0, act_bits=8)
+def _record_wrappers(monkeypatch):
+    """Replace the four matmul wrappers by recorders that return an empty
+    bf16 output (nothing is built or launched)."""
+    called = []
+
+    def recorder(name):
+        def fn(x, *args):
+            called.append(name)
+            q = args[1] if name.endswith("a8") else args[0]
+            return torch.empty((x.shape[0], q.shape[-1]),
+                               dtype=torch.bfloat16, device=x.device)
+        return fn
+
+    for name in ("quant_matmul4_a8", "quant_matmul4", "quant_matmul8",
+                 "quant_matmul8_a8"):
+        monkeypatch.setattr(tqmm, name, recorder(name))
+    return called
+
+
+@pytest.mark.parametrize("bits,act_bits,kernel", [
+    (4, 8, "quant_matmul4_a8"), (4, 0, "quant_matmul4"),
+    (8, 0, "quant_matmul8"), (8, 8, "quant_matmul8_a8")])
+def test_cuda_dispatcher_names_the_missing_kernel(monkeypatch, bits,
+                                                  act_bits, kernel):
+    """On a non-CPU tensor the dispatcher routes each (bits, act_bits) pair
+    to its kernel's wrapper, never to the plain path; a meta tensor stands
+    in for the card.  x [3, 5, 96] is zero-padded to the weight's K=128."""
+    x = torch.empty(3, 5, 96, device="meta")
+    rows = 64 if bits == 4 else 128
+    lin = QuantLinear(q=torch.empty(2, rows, 256, dtype=torch.int8,
+                                    device="meta"),
+                      scales=torch.empty(2, 2, 256, device="meta"), b=None,
+                      bits=bits, group_size=64)
+    called = _record_wrappers(monkeypatch)
+    monkeypatch.setattr(tqmm, "quant_matmul", None)  # no plain path
+    y = tqmm.quant_matmul_stacked(x, lin, 1, act_bits=act_bits)
+    assert called == [kernel]
+    assert y.shape == (3, 5, 256) and y.dtype == x.dtype
+    with pytest.raises(ValueError, match="no kernel"):
+        tqmm.quant_matmul_stacked(x, lin, 1, act_bits=4)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_BF, _I8 = torch.bfloat16, torch.int8
+REFUSALS = {
+    "w4a16 f32 x": (lambda: tqmm.quant_matmul4(
+        _meta(2, 512), _meta(1, 256, 256, dtype=_I8), _meta(1, 4, 256), 0, 128),
+        TypeError, "bfloat16 activations"),
+    "w4a16 gs 16": (lambda: tqmm.quant_matmul4(
+        _meta(2, 512, dtype=_BF), _meta(1, 256, 256, dtype=_I8),
+        _meta(1, 32, 256), 0, 16), ValueError, "gs % 32"),
+    "w4a16 scales": (lambda: tqmm.quant_matmul4(
+        _meta(2, 512, dtype=_BF), _meta(1, 256, 256, dtype=_I8),
+        _meta(1, 4, 128), 0, 128), ValueError, "shapes"),
+    "w4a16 N 96": (lambda: tqmm.quant_matmul4(
+        _meta(2, 512, dtype=_BF), _meta(1, 256, 96, dtype=_I8),
+        _meta(1, 4, 96), 0, 128), ValueError, "N % 64"),
+    "w8a16 f16 scales": (lambda: tqmm.quant_matmul8(
+        _meta(2, 512, dtype=_BF), _meta(1, 512, 256, dtype=_I8),
+        _meta(1, 1, 256, dtype=torch.float16), 0), TypeError, "f32 scales"),
+    "w8a16 gs 16": (lambda: tqmm.quant_matmul8(
+        _meta(2, 512, dtype=_BF), _meta(1, 512, 256, dtype=_I8),
+        _meta(1, 32, 256), 0), ValueError, "K/G % 32"),
+    "w8a16 K": (lambda: tqmm.quant_matmul8(
+        _meta(2, 384, dtype=_BF), _meta(1, 512, 256, dtype=_I8),
+        _meta(1, 1, 256), 0), ValueError, "shapes"),
+    "w8a16 layer": (lambda: tqmm.quant_matmul8(
+        _meta(2, 512, dtype=_BF), _meta(1, 512, 256, dtype=_I8),
+        _meta(1, 1, 256), 1), IndexError, "layer 1"),
+    "w8a8 bf16 x": (lambda: tqmm.quant_matmul8_a8(
+        _meta(2, 512, dtype=_BF), _meta(2), _meta(1, 512, 256, dtype=_I8),
+        _meta(1, 1, 256), 0), TypeError, "int8 activations"),
+    "w8a8 sx": (lambda: tqmm.quant_matmul8_a8(
+        _meta(2, 512, dtype=_I8), _meta(3), _meta(1, 512, 256, dtype=_I8),
+        _meta(1, 1, 256), 0), ValueError, "shapes"),
+    "w8a8 N 192": (lambda: tqmm.quant_matmul8_a8(
+        _meta(2, 512, dtype=_I8), _meta(2), _meta(1, 512, 192, dtype=_I8),
+        _meta(1, 1, 192), 0), ValueError, "N % 128"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_new_matmul_wrappers_refuse_before_any_build(monkeypatch, case):
+    """A wrong dtype, shape, group size or layer is refused before the
+    library is built or a kernel launched (meta tensors stand in for the
+    card; building would fail here, with no nvcc)."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_lib, "library", no_build)
+    fn, exc, match = REFUSALS[case]
+    with pytest.raises(exc, match=match):
+        fn()
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

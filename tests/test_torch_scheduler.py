@@ -69,6 +69,33 @@ def _waves(page: int):
     return first, second
 
 
+def test_serving_w4a16_greedy_token_identical_to_jax():
+    """INT4 weights with bf16 activations (the CLI's default act_bits 0) and
+    an INT4 lm_head, pages of 16, the prefix cache on."""
+    jcfg, jparams, tcfg, tparams = _build(False, bits=4, group_size=64,
+                                          act_bits=0, quantize_lm_head=True)
+    kw = dict(max_slots=2, page_size=16, num_pages=40, max_pages_per_seq=8,
+              prefill_chunk=16, prefix_cache=True)
+    jeng = JCB(jcfg, jparams, sampling=JSampling(greedy=True),
+               kv_dtype=jnp.float32, **kw)
+    teng = ContinuousBatchingEngine(tcfg, tparams, sampling=GREEDY,
+                                    kv_dtype=torch.float32, device="cpu", **kw)
+    got, want = {}, {}
+    rid = 0
+    for wave in _waves(16):
+        for p in wave:
+            jeng.submit(JRequest(request_id=rid, prompt=p, max_new_tokens=4))
+            teng.submit(Request(request_id=rid, prompt=p, max_new_tokens=4))
+            rid += 1
+        for f in jeng.run_to_completion():
+            want[f.request_id] = (f.token_ids, f.finish_reason)
+        for f in teng.run_to_completion():
+            got[f.request_id] = (f.token_ids, f.finish_reason)
+    assert got == want and len(got) == 8
+    assert teng.metrics.snapshot()["prefix_hit_tokens"] == \
+        jeng.metrics.snapshot()["prefix_hit_tokens"] > 0
+
+
 @pytest.mark.parametrize("prefix_cache", [True, False], ids=["prefix", "plain"])
 @pytest.mark.parametrize("page", [8, 16])
 def test_serving_greedy_token_identical_to_jax(models, page, prefix_cache):
