@@ -19,7 +19,8 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    512-token pages with shuffled tables and NaN in every page no table
    holds (the paged attentions' library yardstick is SDPA over a gathered
    copy, the gather timed beside it; the appends' an ``index_put_``
-   scatter);
+   scatter); the contiguous chunk kernels also with per-row starts on the
+   device (T = 5 and 16, NaN past each row's window);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -53,6 +54,20 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    /v1/chat/completions and /stats; then 8 requests (37 to 1100 tokens, 16
    new each) on the W4A16 params, which must launch the INT4 x bf16 matmul
    and the paged kernels and never the W4A8 one;
+4c. the INT8 page pool and speculation, on the same W4A8 model: the
+   serving run of 4b over an INT8 pool (only the q8 paged attentions may
+   launch); prompt-lookup speculation (spec_k 4, ngram 3) on 8 echo
+   prompts (a passage and its first half again, 150..1350 tokens) through
+   ``step`` and ``step_batch`` over a bf16 and an INT8 pool, and a drafter
+   equal to the target (more than 4 tokens per forward required), after
+   the same traffic by plain chained decode (the yardstick); each
+   speculative run must launch the verify kernel and the windowed append;
+   then
+   ``Engine.generate_speculative`` against ``Engine.generate`` at batch 4
+   (the verify's logits within 1.5x the measured distance of ``generate``
+   from ``generate`` with the plain attention versions, tokens equal up to
+   the first near-tie), and one ``qie serve --speculative --kv-bits 8``
+   request over HTTP with /stats;
 loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    biases, an untied lm_head) at the Qwen2.5-7B widths and 2 layers, taken
    from the seeded params and written into a temporary directory (deleted
@@ -60,7 +75,9 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    card must give every tensor bit for bit; ``quantize --bits 4`` then
    ``load_quantized`` must give ``quantize_params`` of the loaded params bit
    for bit; ``generate --qckpt`` and ``generate --ckpt --bits 4`` must give
-   the same greedy ids, and ``generate --ckpt`` runs at every weight format;
+   the same greedy ids, and ``generate --ckpt`` runs at every weight format
+   and with ``--speculative``; ``serve --ckpt --bits 4 --kv-bits 8
+   --speculative`` answers a request through HTTP and stops;
 5. the kernel path against the plain path on the card, the same weights at
    a depth of 4 layers: in bf16 KV, prefill logits (one chunk) and 8 greedy
    tokens, for W4A8, W4A16 (INT4 lm_head) and W8A8; in INT8 KV, the logits
@@ -69,8 +86,8 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    path (over an int8 cache in the INT8 case), and the kernel path may be
    at most 1.5x as far from it as the plain bf16 path is (with random
    weights, bf16 rounding alone moves the logits by a few tenths); the same
-   over the page pool: a paged prefill of three pieces across two pages,
-   then 4 paged decode steps.
+   over the page pool, bf16 and INT8: a paged prefill of three pieces
+   across two pages, 4 paged decode steps, then a verify of 5 tokens.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Every number is measured in this run.
@@ -504,6 +521,86 @@ def check_chunk(torch, cfg):
     return records
 
 
+def check_chunk_rows(torch, cfg):
+    """Kernels 5 and 6 with per-row starts read on the device, as the
+    fixed-batch speculative verify (``[generate spec]``) calls them: B=4,
+    T = 5 and 16 over S=2048, rows at 0, mid-tile, mid-cache and S - T (a
+    window that ends at the cache's end).  The kernel reads a cache with
+    NaN past each row's window (NaN scales for int8); the plain version
+    reads the same cache without them (it masks those keys).  Returns
+    {name: {"rows_T5": record, "rows_T16": record}}."""
+    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
+
+    L, B, S, layer = 2, 4, 2048, 1
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(9)
+    kc = torch.randn((L, B, Hk, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((L, B, Hk, S, D), generator=g, device="cuda").to(torch.bfloat16)
+    k8, ks = _int8(torch, g, (L, B, Hk, S, D))
+    v8, vs = _int8(torch, g, (L, B, Hk, S, D))
+    nan = float("nan")
+    tol = 2e-2
+    records = {}
+    for T in (SPEC_T, 16):
+        starts_list = [0, 100, 1290, S - T]
+        starts = torch.tensor(starts_list, dtype=torch.int32, device="cuda")
+        q = torch.randn((B, T, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+        past = torch.arange(S, device="cuda")[None, :] >= (starts.long() + T)[:, None]
+        end = max(starts_list) + T
+        qpos = starts.long()[:, None] + torch.arange(T, device="cuda")[None, :]
+        mask = (torch.arange(end, device="cuda")[None, None, :]
+                <= qpos[:, :, None])[:, None]          # [B, 1, T, end]
+        n_keys = sum(s + T for s in starts_list)
+        n_ops = 4 * Hq * D * sum(T * s + T * (T + 1) // 2 for s in starts_list)
+        for quant in (False, True):
+            name = "chunk_attention_contiguous" + ("_q8" if quant else "")
+            if quant:
+                ksn, vsn = ks.clone(), vs.clone()
+                for t in (ksn, vsn):
+                    t[layer].masked_fill_(past[:, None, :], nan)
+                kern, plain = ca.chunk_attention_contiguous_q8, \
+                    ca.chunk_attention_contiguous_q8_plain
+                args = (q, k8, v8, ksn, vsn, layer, starts)
+                args_plain = (q, k8, v8, ks, vs, layer, starts)
+                kl = dequantize_kv(k8[layer, :, :, :end], ks[layer, :, :, :end])
+                vl = dequantize_kv(v8[layer, :, :, :end], vs[layer, :, :, :end])
+            else:
+                kn, vn = kc.clone(), vc.clone()
+                for t in (kn, vn):
+                    t[layer].masked_fill_(past[:, None, :, None], nan)
+                kern, plain = ca.chunk_attention_contiguous, \
+                    ca.chunk_attention_contiguous_plain
+                args = (q, kn, vn, layer, starts)
+                args_plain = (q, kc, vc, layer, starts)
+                kl, vl = kc[layer, :, :, :end], vc[layer, :, :, :end]
+            got = kern(*args)
+            ref = plain(*args_plain)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            ms = time_ms(torch, lambda: kern(*args))
+            plain_ms = time_ms(torch, lambda: plain(*args_plain))
+            lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl,
+                                          mask=mask))
+            itemsize = 1 if quant else 2
+            n_bytes = (2 * n_keys * Hk * D * itemsize + 2 * 2 * B * T * Hq * D
+                       + 4 * B + (2 * 4 * n_keys * Hk if quant else 0))
+            b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+            rec = dict(shape=f"B={B} T={T} per-row starts {starts_list} S={S} "
+                             f"Hq={Hq} Hk={Hk} D={D}", max_abs_err=err,
+                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+            print(f"  {name} per-row starts {starts_list} T={T} (NaN past each"
+                  f" window): err {err:.3g} (tol {tol}) | kernel {ms:.4f} ms |"
+                  f" plain {plain_ms:.4f} | sdpa {lib_ms:.4f} | bound "
+                  f"{b_ms:.5f} ({b_by})", flush=True)
+            if not err <= tol:
+                fail(f"{name} per-row starts T={T} err {err} > {tol}")
+            records.setdefault(name, {})[f"rows_T{T}"] = rec
+            del got, ref, args, kl, vl
+    return records
+
+
 def check_kv_append(torch, cfg):
     """Kernel 7 at B=4, position 1999 of S=2304: bit-exact."""
     from qwen_inference_engine_tpu_torch.ops import kv_append as ka
@@ -679,140 +776,316 @@ def check_paged_decode(torch, cfg):
         bound_by=b_by)}
 
 
-def check_paged_chunk(torch, cfg):
+def _q8_pool(torch, k, v):
+    """The int8 pool of a bf16 pool (``quantize_kv`` per token and head):
+    (k8, v8, k_scale, v_scale); rows that hold NaN get NaN scales, so a
+    kernel that loaded a stale row's scale would show it."""
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
+
+    out = []
+    for x in (k, v):
+        q, sc = quantize_kv(x.nan_to_num())
+        sc[x.isnan().any(-1)] = float("nan")
+        out.append((q, sc))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def _pool_bytes(pools, scales, n_keys, Hk, D) -> int:
+    """Bytes of n_keys keys' K and V (and their scales for int8)."""
+    n = 2 * n_keys * Hk * D * pools[0].element_size()
+    return n + (2 * n_keys * Hk * 4 if scales else 0)
+
+
+def paged_attention_case(torch, name, kern, plain, q, pools, scales, tables,
+                         lens_list, layer=1):
+    """One paged decode / verify kernel against its plain version: q [B, T,
+    Hq, D], token t of row b at lens[b] - T + t.  The library yardstick is
+    SDPA over a gathered (and, for int8, dequantized) copy, the gather
+    beside it.  Returns the JSON record."""
+    from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
+
+    B, T, Hq, D = q.shape
+    Hk = pools[0].shape[2]
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    args = (q, *pools, *scales, tables, lens, PAGE, layer)
+    got = kern(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = rel_err(got, ref)
+    finite = bool(got.isfinite().all())
+    ms = time_ms(torch, lambda: kern(*args))
+    plain_ms = time_ms(torch, lambda: plain(*args))
+    sc = scales if scales else (None, None)
+
+    def gather():
+        return pa.paged_kv_plain(*pools, *sc, tables, lens, layer, q.dtype)
+
+    gather_ms = time_ms(torch, gather)
+    kl, vl = gather()
+    pos = (lens.long() - T)[:, None] + torch.arange(T, device="cuda")
+    key = torch.arange(kl.shape[2], device="cuda")
+    mask = ((key[None, None, :] <= pos[:, :, None])
+            & (key[None, None, :] < lens.long()[:, None, None]))[:, None]
+    sdpa_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl,
+                                   mask=mask))
+    n_bytes = _pool_bytes(pools, scales, sum(lens_list), Hk, D) \
+        + 2 * (2 * B * T * Hq * D) + 4 * B + 4 * tables.numel()
+    n_ops = 4 * Hq * D * sum(n - T + t + 1 for n in lens_list
+                             for t in range(T))
+    b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+    tol = PAGED_TOL
+    print(f"  {name} T={T} lens {lens_list} page {PAGE}: err {err:.3g}, "
+          f"relative {rel:.3g} (tol {tol:.3g} of each vector's max) | kernel "
+          f"{ms:.4f} ms | plain {plain_ms:.4f} | sdpa {sdpa_ms:.4f} + gather "
+          f"{gather_ms:.4f} | bound {b_ms:.5f} ({b_by})", flush=True)
+    if not rel <= tol or not finite:
+        fail(f"{name} T={T} relative err {rel} > {tol} or non-finite "
+             f"({finite})")
+    return dict(shape=f"B={B} T={T} lens={lens_list} page={PAGE} Hq={Hq} "
+                      f"Hk={Hk}", max_abs_err=err, rel_err=rel, tol=tol,
+                ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                gather_ms=gather_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def verify_lens(T):
+    """8 slots' lengths for a verify of T tokens: a window at the start of
+    a sequence, rows inside one page, a window straddling pages 0 and 1
+    (515), one starting at row 0 of page 1 (512 + T), long rows."""
+    return [T, 37, 300, 515, 512 + T, 1100, 1027, 1440]
+
+
+def check_paged_q8_and_verify(torch, cfg):
+    """_paged_bhgd_q8 (decode at PAGED_LENS; verify at T = 5 and 16) and the
+    bf16 verify shape of _paged_bhgd (T = 5 and 16), 8 slots, pages of 512,
+    NaN in the pages no table holds and past each row's length (NaN scales
+    for int8).  The JSON line keeps T = 5, the serving verify's shape."""
+    from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
+
+    Hq, D = cfg.num_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(10)
+    k0, v0, tables = _paged_pool(torch, cfg, g)
+    B = len(PAGED_LENS)
+    recs = {}
+    k, v = k0.clone(), v0.clone()
+    _stale(torch, k, v, tables, PAGED_LENS)
+    k8, v8, ks, vs = _q8_pool(torch, k, v)
+    q = torch.randn((B, 1, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    recs["paged_decode_attention_stacked_q8"] = paged_attention_case(
+        torch, "paged_decode_attention_stacked_q8",
+        pa.paged_decode_attention_stacked_q8,
+        pa.paged_decode_attention_q8_plain, q, (k8, v8), (ks, vs), tables,
+        PAGED_LENS)
+    for T in (16, 5):
+        lens = verify_lens(T)
+        k, v = k0.clone(), v0.clone()
+        _stale(torch, k, v, tables, lens)
+        k8, v8, ks, vs = _q8_pool(torch, k, v)
+        q = torch.randn((B, T, Hq, D), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        recs["paged_verify_attention_stacked"] = paged_attention_case(
+            torch, "paged_verify_attention_stacked",
+            pa.paged_verify_attention_stacked, pa.paged_decode_attention_plain,
+            q, (k, v), (), tables, lens)
+        recs["paged_verify_attention_stacked_q8"] = paged_attention_case(
+            torch, "paged_verify_attention_stacked_q8",
+            pa.paged_verify_attention_stacked_q8,
+            pa.paged_decode_attention_q8_plain, q, (k8, v8), (ks, vs), tables,
+            lens)
+    return recs
+
+
+def check_paged_chunk(torch, cfg, quant=False):
     """The serving continuation piece: B=1, T=256 at starts 256, 1280, the
-    mid-page 700, and 2040, whose bucket-padded piece runs past the 4-page
-    table (its rows there attend the whole table), over pages of 512; NaN
-    past each piece's end in its pages."""
-    from qwen_inference_engine_tpu_torch.kvcache.cache import paged_read
+    mid-page 700, and (bf16) 2040, whose bucket-padded piece runs past the
+    4-page table (its rows there attend the whole table), over pages of
+    512; NaN past each piece's end in its pages (NaN scales for int8)."""
     from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 
     Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = torch.Generator(device="cuda").manual_seed(8)
+    g = torch.Generator(device="cuda").manual_seed(8 + quant)
     k0, v0, tables = _paged_pool(torch, cfg, g, rows=1)
     width = tables.shape[1] * PAGE
     T, layer, tol = 256, 1, PAGED_TOL
+    name = "paged_chunk_attention_q8" if quant else "paged_chunk_attention"
+    kern = getattr(ca, name)
+    plain = getattr(ca, name + "_plain")
     q = torch.randn((1, T, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
     rec = None
-    for start in (256, 700, 2040, 1280):
+    for start in (256, 700, 1280) if quant else (256, 700, 2040, 1280):
         end = min(start + T, width)
         k, v = k0.clone(), v0.clone()
         _stale(torch, k, v, tables, [end])
-        args = (q, k, v, tables, layer, start, PAGE)
-        got = ca.paged_chunk_attention(*args)
-        ref = ca.paged_chunk_attention_plain(*args)
+        pools, scales = (k, v), ()
+        if quant:
+            k8, v8, ks, vs = _q8_pool(torch, k, v)
+            pools, scales = (k8, v8), (ks, vs)
+        args = (q, *pools, *scales, tables, layer, start, PAGE)
+        got = kern(*args)
+        ref = plain(*args)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         rel = rel_err(got, ref)
         finite = bool(got.isfinite().all())
-        ms = time_ms(torch, lambda: ca.paged_chunk_attention(*args))
-        plain_ms = time_ms(torch, lambda: ca.paged_chunk_attention_plain(*args),
-                           iters=3, warmup=1)
-        gather_ms = time_ms(torch, lambda: (paged_read(k[layer], tables),
-                                            paged_read(v[layer], tables)))
+        ms = time_ms(torch, lambda: kern(*args))
+        plain_ms = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
         n = torch.tensor([end], device="cuda")
-        kl = pa.masked_pages(k[layer], tables, n)[:, :, :end]
-        vl = pa.masked_pages(v[layer], tables, n)[:, :, :end]
+        sc = scales if quant else (None, None)
+
+        def gather():
+            return pa.paged_kv_plain(*pools, *sc, tables, n, layer, q.dtype)
+
+        gather_ms = time_ms(torch, gather)
+        kl, vl = gather()
+        kl, vl = kl[:, :, :end], vl[:, :, :end]
         qpos = start + torch.arange(T, device="cuda")
         mask = torch.arange(end, device="cuda")[None, :] <= qpos[:, None]
         sdpa_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl,
                                        mask=mask))
-        n_bytes = 2 * 2 * Hk * end * D + 2 * 2 * T * Hq * D + 4 * tables.numel()
+        n_bytes = _pool_bytes(pools, scales, end, Hk, D) \
+            + 2 * 2 * T * Hq * D + 4 * tables.numel()
         n_ops = 4 * Hq * D * sum(min(start + t + 1, width) for t in range(T))
         b_ms, b_by = bound(n_bytes, n_ops, "bf16")
-        print(f"  paged_chunk_attention T={T} start {start} page {PAGE}: err "
+        print(f"  {name} T={T} start {start} page {PAGE}: err "
               f"{err:.3g}, relative {rel:.3g} (tol {tol:.3g} of each vector's "
               f"max) | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa "
               f"{sdpa_ms:.4f} + gather {gather_ms:.4f} | bound {b_ms:.5f} "
               f"({b_by})", flush=True)
         if not rel <= tol or not finite:
-            fail(f"paged_chunk_attention start {start} relative err {rel} > "
-                 f"{tol} or non-finite ({finite})")
+            fail(f"{name} start {start} relative err {rel} > {tol} or "
+                 f"non-finite ({finite})")
         if start == 1280:   # the JSON line keeps the longest in-table piece
             rec = dict(shape=f"B=1 T={T} start={start} page={PAGE} Hq={Hq} "
                              f"Hk={Hk} D={D}", max_abs_err=err, rel_err=rel,
                        tol=tol, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
                        gather_ms=gather_ms, bound_ms=b_ms, bound_by=b_by)
-    return {"paged_chunk_attention": rec}
+    return {name: rec}
+
+
+SPEC_T = 5           # the serving verify window: spec_k = 4 drafts + 1
+VERIFY_STARTS = [0, 36, 299, 508, 512, -1, 1099, 1435]
 
 
 def check_paged_appends(torch, cfg):
-    """Both paged appends, bit-exact: the decode step's 8 rows at the
-    positions before PAGED_LENS, and a 256-token piece at start 384 (it
-    crosses from page 0 to page 1 of its table)."""
+    """The three paged appends, bit-exact, into a bf16 and an int8 pool
+    (bytes and scales): the decode step's 8 rows at the positions before
+    PAGED_LENS; a 256-token piece at start 384 (it crosses from page 0 to
+    page 1 of its table); the verify window of SPEC_T tokens at
+    VERIFY_STARTS (508 straddles pages 0 and 1, 512 starts page 1, -1 is
+    skipped).  The JSON line keeps the bf16 times, the int8 ones beside."""
     from qwen_inference_engine_tpu_torch.ops import kv_append as ka
 
     Hk, D = cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(9)
     k, v, tables = _paged_pool(torch, cfg, g)
     k, v = k.nan_to_num(), v.nan_to_num()
+    k8, v8, ks, vs = _q8_pool(torch, k, v)
     layer = 1
     B = len(PAGED_LENS)
     pos = torch.tensor(PAGED_LENS, device="cuda", dtype=torch.int32) - 1
-    kn = torch.randn((B, 1, Hk, D), generator=g, device="cuda").to(torch.bfloat16)
-    vn = torch.randn((B, 1, Hk, D), generator=g, device="cuda").to(torch.bfloat16)
+    starts = torch.tensor(VERIFY_STARTS, device="cuda", dtype=torch.int32)
     T, start = 256, 384
-    kp = torch.randn((1, T, Hk, D), generator=g, device="cuda").to(torch.bfloat16)
-    vp = torch.randn((1, T, Hk, D), generator=g, device="cuda").to(torch.bfloat16)
-    cases = {
-        "paged_append_ragged": (
-            lambda kc, vc: ka.paged_append_ragged(kc, vc, kn, vn, pos, tables,
-                                                  layer, page_size=PAGE),
-            lambda kc, vc: ka.paged_append_ragged_plain(
-                kc, vc, kn, vn, pos, tables, layer, PAGE),
-            B, f"B={B} positions={[n - 1 for n in PAGED_LENS]}"),
-        "paged_append_prefill": (
-            lambda kc, vc: ka.paged_append_prefill(kc, vc, kp, vp, start,
-                                                   tables[:1], layer,
-                                                   page_size=PAGE),
-            lambda kc, vc: ka.paged_append_prefill_plain(
-                kc, vc, kp, vp, start, tables[:1], layer, PAGE),
-            T, f"T={T} start={start}"),
-    }
+
+    def rows(shape):
+        """bf16 rows and their int8 quantization (bytes, scales)."""
+        from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
+
+        x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        return (x, *quantize_kv(x))
+
+    new = {"paged_append_ragged": (rows((B, 1, Hk, D)), rows((B, 1, Hk, D))),
+           "paged_append_prefill": (rows((1, T, Hk, D)), rows((1, T, Hk, D))),
+           "paged_append_ragged_t": (rows((B, SPEC_T, Hk, D)),
+                                     rows((B, SPEC_T, Hk, D)))}
+    where = {"paged_append_ragged": (pos, tables),
+             "paged_append_prefill": (start, tables[:1]),
+             "paged_append_ragged_t": (starts, tables)}
+    # (page id, row in page) of every token each case writes
+    tok_pos = {"paged_append_ragged": (torch.arange(B, device="cuda"),
+                                       pos.long()),
+               "paged_append_prefill": (torch.zeros(T, dtype=torch.long,
+                                                    device="cuda"),
+                                        start + torch.arange(T, device="cuda"))}
+    keep = torch.nonzero(starts >= 0)[:, 0]
+    tok_pos["paged_append_ragged_t"] = (
+        keep.repeat_interleave(SPEC_T),
+        (starts.long()[keep][:, None]
+         + torch.arange(SPEC_T, device="cuda")).reshape(-1))
+    shapes = {"paged_append_ragged": f"B={B} positions="
+                                     f"{[n - 1 for n in PAGED_LENS]}",
+              "paged_append_prefill": f"T={T} start={start}",
+              "paged_append_ragged_t": f"B={B} T={SPEC_T} starts="
+                                       f"{VERIFY_STARTS}"}
     heads = torch.arange(Hk, device="cuda")[None, :]
-    ids = tables.long().gather(1, (pos.long() // PAGE)[:, None])
-    rows_ragged = (ids, heads, (pos.long() % PAGE)[:, None])
-    ppos = start + torch.arange(T, device="cuda")
-    rows_prefill = (tables[0].long()[ppos // PAGE][:, None], heads,
-                    (ppos % PAGE)[:, None])
-
-    def scatter(kc, vc, rows, new_k, new_v):
-        """The library yardstick: an index_put_ scatter of the same rows
-        (indices [n, Hk] over the page, head and row axes)."""
-        kc[layer].index_put_(rows, new_k.reshape(-1, Hk, D))
-        vc[layer].index_put_(rows, new_v.reshape(-1, Hk, D))
-
     out = {}
-    for name, (kern, plain, n, shape) in cases.items():
-        mine = (k.clone(), v.clone())
-        theirs = (k.clone(), v.clone())
-        got = kern(*mine)
-        ref = plain(*theirs)
-        torch.cuda.synchronize()
-        if got[0] is not mine[0] or got[1] is not mine[1]:
-            fail(f"{name} did not return the pools it wrote")
-        diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
-        written = int((mine[0] != k).any(dim=-1).sum())
-        ms = time_ms(torch, lambda: kern(*mine))
-        plain_ms = time_ms(torch, lambda: plain(*theirs))
-        if name == "paged_append_ragged":
-            lib = lambda: scatter(theirs[0], theirs[1], rows_ragged, kn, vn)
-        else:
-            lib = lambda: scatter(theirs[0], theirs[1], rows_prefill, kp, vp)
-        lib_ms = time_ms(torch, lib)
-        n_bytes = 2 * 2 * (2 * n * Hk * D)
-        b_ms, b_by = bound(n_bytes, 0, "bf16")
-        print(f"  {name} {shape}: {diff} elements differ (must be 0; {written} "
-              f"K rows written) | kernel {ms:.4f} ms | plain {plain_ms:.4f} | "
-              f"index_put_ {lib_ms:.4f} | bound {b_ms:.6f} ({b_by})",
-              flush=True)
-        if diff != 0 or written != n * Hk:
-            fail(f"{name} not bit-exact: {diff} elements differ, {written} "
-                 f"rows written")
-        out[name] = dict(shape=shape, max_abs_err=0.0, tol=0.0, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by)
+    for name in ("paged_append_ragged", "paged_append_prefill",
+                 "paged_append_ragged_t"):
+        kern, plain = getattr(ka, name), getattr(ka, name + "_plain")
+        (kb, kq, ksn), (vb, vq, vsn) = new[name]
+        at, tab = where[name]
+        b_idx, p_idx = tok_pos[name]
+        ids = tab.long()[b_idx, p_idx // PAGE][:, None]
+        lib_rows = (ids, heads, (p_idx % PAGE)[:, None])
+        # the rows that are written (a skipped row's are not)
+        sel = keep if name == "paged_append_ragged_t" else slice(None)
+        rec = None
+        for quant in (False, True):
+            base = (k8, v8, ks, vs) if quant else (k, v)
+            nk, nv = (kq, vq) if quant else (kb, vb)
+            extra = dict(ks_new=ksn, vs_new=vsn) if quant else {}
+
+            def call(fn, st):
+                kw = dict(extra, k_scale=st[2], v_scale=st[3]) if quant else {}
+                return fn(st[0], st[1], nk, nv, at, tab, layer,
+                          page_size=PAGE, **kw)
+
+            mine = [t.clone() for t in base]
+            theirs = [t.clone() for t in base]
+            got = call(kern, mine)
+            call(plain, theirs)
+            torch.cuda.synchronize()
+            if got[0] is not mine[0] or got[1] is not mine[1]:
+                fail(f"{name} did not return the pools it wrote")
+            diff = sum(int((a != b).sum()) for a, b in zip(mine, theirs))
+            written = int((mine[0] != base[0]).any(dim=-1).sum())
+            n_tok = int(b_idx.numel())
+            ms = time_ms(torch, lambda: call(kern, mine))
+            plain_ms = time_ms(torch, lambda: call(plain, theirs))
+
+            def lib():
+                """The library yardstick: an index_put_ scatter of the same
+                rows (indices [n, Hk] over the page, head and row axes)."""
+                theirs[0][layer].index_put_(lib_rows,
+                                            nk[sel].reshape(-1, Hk, D))
+                theirs[1][layer].index_put_(lib_rows,
+                                            nv[sel].reshape(-1, Hk, D))
+                if quant:
+                    theirs[2][layer].index_put_(lib_rows,
+                                                ksn[sel].reshape(-1, Hk))
+                    theirs[3][layer].index_put_(lib_rows,
+                                                vsn[sel].reshape(-1, Hk))
+
+            lib_ms = time_ms(torch, lib)
+            elem = 1 if quant else 2
+            n_bytes = 2 * 2 * n_tok * Hk * (D * elem + (4 if quant else 0))
+            b_ms, b_by = bound(n_bytes, 0, "bf16")
+            kind = "int8" if quant else "bf16"
+            print(f"  {name} {kind} {shapes[name]}: {diff} elements differ "
+                  f"(must be 0, scales included; {written} K rows written) "
+                  f"| kernel {ms:.4f} ms | plain {plain_ms:.4f} | index_put_ "
+                  f"{lib_ms:.4f} | bound {b_ms:.6f} ({b_by})", flush=True)
+            if diff != 0 or written != n_tok * Hk:
+                fail(f"{name} {kind} not bit-exact: {diff} elements differ, "
+                     f"{written} rows written (want {n_tok * Hk})")
+            if not quant:
+                rec = dict(shape=shapes[name], max_abs_err=0.0, tol=0.0,
+                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+            else:
+                rec.update(int8_ms=ms, int8_plain_ms=plain_ms,
+                           int8_library_ms=lib_ms, int8_bound_ms=b_ms)
+        out[name] = rec
     return out
 
 
@@ -868,8 +1141,17 @@ def attention_swaps():
     return [(qwen, "flash_attention", fa.flash_attention_plain),
             (qwen, "paged_decode_attention_stacked",
              pa.paged_decode_attention_plain),
+            (qwen, "paged_decode_attention_stacked_q8",
+             pa.paged_decode_attention_q8_plain),
+            (qwen, "paged_verify_attention_stacked",
+             pa.paged_decode_attention_plain),
+            (qwen, "paged_verify_attention_stacked_q8",
+             pa.paged_decode_attention_q8_plain),
             (qwen, "paged_chunk_attention", ca.paged_chunk_attention_plain),
+            (qwen, "paged_chunk_attention_q8",
+             ca.paged_chunk_attention_q8_plain),
             (qwen, "paged_append_ragged", ka.paged_append_ragged_plain),
+            (qwen, "paged_append_ragged_t", ka.paged_append_ragged_t_plain),
             (qwen, "paged_append_prefill", ka.paged_append_prefill_plain),
             (qwen, "chunk_attention_contiguous",
              ca.chunk_attention_contiguous_plain),
@@ -885,8 +1167,8 @@ def attention_swaps():
 
 
 def plain_swaps():
-    """The fifteen kernels replaced by their plain versions (bf16, as the
-    kernels compute)."""
+    """Every kernel replaced by its plain version (bf16, as the kernels
+    compute)."""
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
 
     return [(qm, n, getattr(qm, n + "_plain"))
@@ -922,23 +1204,29 @@ def count_calls(obj, name, counter):
     setattr(obj, name, wrapped)
 
 
-def run_serving(torch, np, cfg, params, wrappers, rng):
+def run_serving(torch, np, cfg, params, wrappers, rng,
+                kv_dtype=None):
     """The serving path at the JAX defaults (8 slots, pages of 512, pieces
-    of 256, prefix cache on, 8 ticks per sync): 12 greedy requests onto 8
-    slots, then 4 that share an 1100-token prefix with a finished one.
-    Returns the launch counts of the run and its numbers."""
+    of 256, prefix cache on, 8 ticks per sync) over a bf16 or an INT8 page
+    pool: 12 greedy requests onto 8 slots, then 4 that share an 1100-token
+    prefix with a finished one.  Returns the launch counts of the run and
+    its numbers."""
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
         Request,
     )
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
 
+    q8 = kv_dtype == torch.int8
+    label = "[serve int8]" if q8 else "[serve]"
+    sfx = "_q8" if q8 else ""
     # sized as `qie serve` sizes it at --max-seq 2048: 4 pages per sequence
     # and 8 x 4 + 8 pages in the pool
     cb = ContinuousBatchingEngine(
         cfg, params, max_slots=8, page_size=PAGE, num_pages=40,
         max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
-        sampling=SamplingParams(greedy=True), device="cuda")
+        sampling=SamplingParams(greedy=True),
+        kv_dtype=kv_dtype or torch.bfloat16, device="cuda")
     # random weights can argmax onto EOS and end a request early
     cb._eos = set()
     calls = {}
@@ -964,7 +1252,7 @@ def run_serving(torch, np, cfg, params, wrappers, rng):
     wall = time.perf_counter() - t0
     counts = {n: w.launches for n, w in wrappers.items()}
     snap = cb.metrics.snapshot()
-    print(f"[serve] {cfg.name} {cfg.num_layers} layers, 8 slots, page {PAGE}, "
+    print(f"{label} {cfg.name} {cfg.num_layers} layers, 8 slots, page {PAGE}, "
           f"pieces of 256, prefix cache on: {len(done)} requests (prompts "
           f"{SERVE_LENS} then 4 x {SHARED} shared + 40-200) in {wall:.2f} s | "
           f"TTFT p50 {snap['ttft_p50_s'] * 1e3:.1f} ms, p99 "
@@ -983,19 +1271,19 @@ def run_serving(torch, np, cfg, params, wrappers, rng):
     if not all(0 <= t < cfg.vocab_size for t in ids) or len(set(ids)) < 2:
         fail("serving: ids out of range or all identical")
     must = {"quant_matmul4_a8", "flash_attention", "paged_append_prefill",
-            "paged_chunk_attention", "paged_append_ragged",
-            "paged_decode_attention_stacked"}
+            "paged_chunk_attention" + sfx, "paged_append_ragged",
+            "paged_decode_attention_stacked" + sfx}
     missing = sorted(n for n in must if counts[n] <= 0)
     stray = sorted(n for n in counts if n not in must and counts[n] != 0)
     if missing or stray:
-        fail(f"serving: kernels of its path not launched {missing}, "
-             f"contiguous-cache kernels launched {stray}")
+        fail(f"{label}: kernels of its path not launched {missing}, "
+             f"kernels of other paths launched {stray}")
     L = cfg.num_layers
     ticks = calls.get("_decode_tick", 0)
-    if counts["paged_decode_attention_stacked"] != L * ticks or \
+    if counts["paged_decode_attention_stacked" + sfx] != L * ticks or \
             counts["paged_append_ragged"] != L * ticks:
-        fail(f"serving: {ticks} decode ticks but paged decode / append "
-             f"launches {counts['paged_decode_attention_stacked']} / "
+        fail(f"{label}: {ticks} decode ticks but paged decode / append "
+             f"launches {counts['paged_decode_attention_stacked' + sfx]} / "
              f"{counts['paged_append_ragged']} (want {L} per tick)")
     if counts["paged_append_prefill"] != L * calls.get("_run_piece", 0):
         fail("serving: one paged_append_prefill per layer per piece expected")
@@ -1004,8 +1292,8 @@ def run_serving(torch, np, cfg, params, wrappers, rng):
         fail(f"serving: prefix hits {snap['prefix_hit_tokens']} (want >= "
              f"{4 * 2 * PAGE}), mixed windows {calls.get('_mixed_chain_batch')}")
     resend = resend_near_max_seq(torch, cb, cfg, rng,
-                                 wrappers["paged_chunk_attention"])
-    window = profile_decode_window(torch, cb, cfg, rng)
+                                 wrappers["paged_chunk_attention" + sfx])
+    window = profile_decode_window(torch, cb, cfg, rng, label=label)
     del cb
     torch.cuda.empty_cache()
     return counts, dict(wall_s=wall, ticks=ticks, **snap, **resend, **window)
@@ -1044,7 +1332,7 @@ def resend_near_max_seq(torch, cb, cfg, rng, chunk):
     return {"resend_tokens_equal": done[0].token_ids == done[1].token_ids}
 
 
-def profile_decode_window(torch, cb, cfg, rng, ticks=8):
+def profile_decode_window(torch, cb, cfg, rng, ticks=8, label="[serve]"):
     """Where a serving decode window's time goes: 8 requests fill the 8
     slots (300-token prompts), then one chained window of ``ticks`` decode
     ticks is timed by the host clock, and the next one again under
@@ -1081,7 +1369,7 @@ def profile_decode_window(torch, cb, cfg, rng, ticks=8):
     # the two windows is the same, so busy / the unprofiled window is the
     # busy share without the profiler
     idle = 1 - busy_ms / prof_wall_ms
-    print(f"[serve profile] a window of {ticks} decode ticks at "
+    print(f"{label[:-1]} profile] a window of {ticks} decode ticks at "
           f"{cb.max_slots} busy slots: {wall_ms:.2f} ms ({wall_ms / ticks:.2f} "
           f"ms per tick); under the profiler {prof_wall_ms:.2f} ms, device "
           f"busy {busy_ms:.2f} ms (idle share {idle:.3f} under the profiler; "
@@ -1095,6 +1383,66 @@ def profile_decode_window(torch, cb, cfg, rng, ticks=8):
                 profiled_window_ms=prof_wall_ms, device_busy_ms=busy_ms,
                 idle_share_profiled=idle,
                 busy_share_unprofiled=busy_ms / wall_ms)
+
+
+def run_http_spec_int8(torch, cfg, params):
+    """``qie serve --speculative --kv-bits 8``: the ``Server`` over an INT8
+    pool with prompt-lookup speculation on 127.0.0.1 answers one /generate
+    of an echo prompt, and /stats reports its speculation rounds."""
+    import http.client
+    import threading
+    import types
+    from http.server import ThreadingHTTPServer
+
+    from qwen_inference_engine_tpu_torch.server.http import (
+        Server,
+        _make_handler,
+    )
+    from qwen_inference_engine_tpu_torch.tokenizer import ByteTokenizer
+
+    args = types.SimpleNamespace(
+        temperature=0.7, top_k=50, top_p=1.0, repetition_penalty=1.0,
+        greedy=True, max_slots=8, page_size=PAGE, num_pages=0, max_seq=2048,
+        kv_bits=8, seed=0, step_ticks=8, device="cuda", speculative=True,
+        spec_k=SPEC_K, spec_ngram=3)
+    server = Server(cfg, params, ByteTokenizer(), None, args)
+    server.engine._eos = set()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(server))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    text = "The port reads the pages once. " * 6
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+
+    try:
+        t0 = time.perf_counter()
+        st, gen = call("POST", "/generate", {"prompt": text,
+                                             "max_new_tokens": 16})
+        st2, stats = call("GET", "/stats")
+        dt = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        thread.join(timeout=30)
+    print(f"[http spec int8] 127.0.0.1:{port} (int8 pool "
+          f"{server.engine.cache.quantized}): /generate {st} "
+          f"{len(gen.get('token_ids', []))} tokens ({gen.get('finish_reason')})"
+          f" | /stats {st2}: spec rounds {stats.get('spec_rounds')}, tokens "
+          f"per forward {stats.get('spec_tokens_per_forward')} | {dt:.2f} s",
+          flush=True)
+    if (st, st2) != (200, 200) or len(gen.get("token_ids", [])) != 16 \
+            or not stats.get("spec_rounds", 0) > 0 \
+            or not server.engine.cache.quantized:
+        fail("http spec int8: a request failed or no speculation ran")
+    if thread.is_alive() or server._thread.is_alive():
+        fail("http spec int8: a server thread is still running")
 
 
 def run_http(torch, cfg, params):
@@ -1172,18 +1520,22 @@ def run_http(torch, cfg, params):
 
 
 def paged_model_check(torch, cfg4, params4, params4_f32, prompts, swaps_plain,
-                      swaps_f32):
-    """The 4-layer model over the page pool (pages of 512, table [3, 1]): a
-    prefill in pieces of 256 (a fresh piece, then continuations at 256 and
-    at 512, the second on the table's second page) of a 700-token prompt,
-    then 4 decode steps there; the logits of all five, kernel path vs plain
-    bf16 path vs fp32 plain path."""
+                      swaps_f32, kv_dtype):
+    """The 4-layer model over the page pool (pages of 512, table [3, 1]),
+    bf16 or INT8: a prefill in pieces of 256 (a fresh piece, then
+    continuations at 256 and at 512, the second on the table's second
+    page) of a 700-token prompt, 4 decode steps there, then one verify
+    forward of SPEC_T tokens; the logits of all six, kernel path vs plain
+    bf16 path vs fp32 plain path (over the same int8 pool type for INT8)."""
     from qwen_inference_engine_tpu_torch.kvcache.cache import PagedKVCache
     from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
+    from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 
+    q8 = kv_dtype == torch.int8
     n, pieces = 700, (0, 256, 512)
     prompt = prompts([n])[0]
-    feed = prompts([4])[0]
+    feed = prompts([4 + SPEC_T])[0]
     tables = torch.tensor([[3, 1, 0, 0]], dtype=torch.int32, device="cuda")
 
     def run(p, dtype):
@@ -1201,26 +1553,36 @@ def paged_model_check(torch, cfg4, params4, params4_f32, prompts, swaps_plain,
                     fresh_prefill=start == 0, start=start or None)
             out.append(qwen.compute_logits(p, hidden[:, n - pieces[-1] - 1],
                                            cfg4.act_bits_lm_head))
-            for i, t in enumerate(feed):
+            for i, t in enumerate(feed[:4]):
                 logits, cache = qwen.decode_step(
                     p, cfg4, torch.tensor([t], device="cuda"),
                     torch.tensor([n + i], device="cuda"), cache, tables)
                 out.append(logits)
+            pos = n + 4 + torch.arange(SPEC_T, device="cuda")[None]
+            hidden, cache = qwen.forward_hidden(
+                p, cfg4, torch.tensor([feed[4:]], device="cuda"), pos, cache,
+                block_tables=tables, ragged_multi=True)
+            out.append(qwen.compute_logits(p, hidden[0],
+                                           cfg4.act_bits_lm_head))
         return torch.cat(out, 0)
 
-    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
-
-    before = ca.paged_chunk_attention.launches
-    lk = run(params4, torch.bfloat16)
-    if ca.paged_chunk_attention.launches - before != 2 * cfg4.num_layers:
-        fail("the paged model check did not run its continuation piece "
-             "through paged_chunk_attention")
+    chunk = ca.paged_chunk_attention_q8 if q8 else ca.paged_chunk_attention
+    verify = (pa.paged_verify_attention_stacked_q8 if q8
+              else pa.paged_verify_attention_stacked)
+    before = (chunk.launches, verify.launches)
+    pool = torch.int8 if q8 else torch.bfloat16
+    lk = run(params4, pool)
+    if (chunk.launches - before[0], verify.launches - before[1]) != \
+            (2 * cfg4.num_layers, cfg4.num_layers):
+        fail("the paged model check did not run its continuation pieces "
+             "and its verify through their kernels")
     with Swapped(swaps_plain):
-        lp = run(params4, torch.bfloat16)
+        lp = run(params4, pool)
     with Swapped(swaps_f32):
-        lr = run(params4_f32, torch.float32)
-    model_check(f"paged bf16 KV, pieces at {pieces} of a {n}-token prompt "
-                f"across two pages, then 4 decode steps", lk, lp, lr)
+        lr = run(params4_f32, torch.int8 if q8 else torch.float32)
+    model_check(f"paged {'INT8' if q8 else 'bf16'} KV, pieces at {pieces} of "
+                f"a {n}-token prompt across two pages, 4 decode steps, a "
+                f"verify of {SPEC_T}", lk, lp, lr)
 
 
 MATMULS = ("quant_matmul4_a8", "quant_matmul4", "quant_matmul8",
@@ -1316,6 +1678,224 @@ def run_serving_w4a16(torch, cfg, params, wrappers, rng):
     return counts, dict(wall_s=wall, **snap)
 
 
+SPEC_K = SPEC_T - 1
+
+
+def echo_prompts(rng, vocab, lengths):
+    """Extraction traffic, what prompt lookup is for: a passage of n
+    tokens followed by its first half again."""
+    out = []
+    for n in lengths:
+        passage = rng.integers(0, vocab, size=n).tolist()
+        out.append(passage + passage[:n // 2])
+    return out
+
+
+def run_serving_spec(torch, cfg, params, wrappers, rng, kv_dtype, mode,
+                     draft=False, speculative=True):
+    """Speculative serving at the serving defaults (8 slots, pages of 512,
+    pieces of 256, prefix cache on), spec_k 4, greedy, EOS off: 8 echo
+    prompts (150..1350 tokens, 32 new tokens each) by prompt lookup (spec
+    ngram 3) through ``step`` (host drafts) or ``step_batch`` (chained
+    rounds, 8 per sync), or with a drafter equal to the target; with
+    ``speculative=False`` the same traffic by plain decode ticks (the
+    yardstick).  The launch counts are set to 0 before the run and read
+    after it.  Returns (counts, numbers)."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    q8 = kv_dtype == torch.int8
+    sfx = "_q8" if q8 else ""
+    label = (f"[serve {'spec ' if speculative else 'echo '}"
+             f"{'draft' if draft else 'pld' if speculative else 'plain'}"
+             f"{' int8' if q8 else ''} {mode}]")
+    extra = dict(draft_params=params, draft_cfg=cfg) if draft else {}
+    cb = ContinuousBatchingEngine(
+        cfg, params, max_slots=8, page_size=PAGE, num_pages=48,
+        max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
+        sampling=SamplingParams(greedy=True), kv_dtype=kv_dtype,
+        speculative=speculative, spec_k=SPEC_K, spec_ngram=3, device="cuda",
+        **extra)
+    cb._eos = set()
+    prompts = echo_prompts(rng, cfg.vocab_size,
+                           [100, 200, 300, 400, 500, 600, 700, 900])
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        cb.submit(Request(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    if mode == "step":
+        done = []
+        while cb.has_work():
+            done += cb.step()
+    else:
+        done = cb.run_to_completion(sync_every=8)
+    cb.check_page_invariants()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    snap = cb.metrics.snapshot()
+    print(f"{label} {len(done)} requests (echo prompts "
+          f"{[len(p) for p in prompts]}, {NEW_TOKENS} new) in {wall:.2f} s | "
+          f"spec rounds {snap['spec_rounds']}, tokens per forward "
+          f"{snap['spec_tokens_per_forward']:.3f} | TTFT p50 "
+          f"{snap['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{snap['ttft_p99_s'] * 1e3:.1f} ms | decode "
+          f"{snap['decode_tokens_per_s']:.1f} tok/s | launches "
+          f"{ {n: c for n, c in counts.items() if c} }", flush=True)
+    if len(done) != 8 or any(f.finish_reason != "length"
+                             or len(f.token_ids) != NEW_TOKENS for f in done):
+        fail(f"{label}: a request did not finish by length")
+    ids = [t for f in done for t in f.token_ids]
+    if not all(0 <= t < cfg.vocab_size for t in ids):
+        fail(f"{label}: ids out of range")
+    must = {"paged_verify_attention_stacked" + sfx, "paged_append_ragged_t",
+            "paged_append_prefill", "flash_attention", "quant_matmul4_a8"}
+    if draft or not speculative:   # the drafter's or the plain decode
+        must |= {"paged_decode_attention_stacked" + sfx,
+                 "paged_append_ragged"}
+    other = "" if q8 else "_q8"
+    never = {"paged_verify_attention_stacked" + other,
+             "paged_decode_attention_stacked" + other,
+             "paged_chunk_attention" + other}
+    if not speculative:
+        moved = {"paged_verify_attention_stacked" + sfx,
+                 "paged_append_ragged_t"}
+        must -= moved
+        never |= moved
+    missing = sorted(n for n in must if counts[n] <= 0)
+    stray = sorted(n for n in never if counts[n] != 0)
+    if missing or stray or (snap["spec_rounds"] > 0) != speculative:
+        fail(f"{label}: not launched {missing}, launched {stray}, spec "
+             f"rounds {snap['spec_rounds']}")
+    if draft and not snap["spec_tokens_per_forward"] > SPEC_K:
+        fail(f"{label}: a drafter equal to the target gave "
+             f"{snap['spec_tokens_per_forward']} tokens per forward, not "
+             f"more than {SPEC_K}")
+    del cb
+    torch.cuda.empty_cache()
+    return counts, dict(wall_s=wall, **snap)
+
+
+def _first_part(x, y) -> int:
+    """The index where two token lists first differ (their common length
+    if they never do)."""
+    return next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                min(len(x), len(y)))
+
+
+def run_generate_spec(torch, cfg, params, wrappers, rng):
+    """``Engine.generate_speculative`` (k 4, ngram 3) at batch 4 on echo
+    prompts against ``Engine.generate`` greedy on the same prompts, 32 new
+    tokens, at full depth.
+
+    The verify's logits are held against the plain run's directly: every
+    verify column whose inputs (the history and the drafts before it) equal
+    the plain run's tokens predicts a token the plain run also predicted,
+    over the same history, and the largest |dlogit| between the two must be
+    at most ``tol`` = 1.5 x ``d_ref``.  ``d_ref`` is measured here: the
+    largest |dlogit| between the plain run and the same run with the plain
+    attention versions (two bf16 computations of the same logits at this
+    depth, up to where their tokens part).  Where a row's tokens part, the
+    plain run's top-two gap there must be below ``2 x tol`` (a near-tie:
+    two logit vectors ``tol`` apart can pick different tokens only then)."""
+    from qwen_inference_engine_tpu_torch.engine import speculative as spec_mod
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    eng = Engine(cfg, params, max_batch=4, max_seq=2048,
+                 sampling=SamplingParams(greedy=True), device="cuda")
+    eng.cfg = cfg.replace(eos_token_ids=())   # random weights: EOS off
+    prompts = echo_prompts(rng, cfg.vocab_size, [120, 200, 300, 400])
+    B = len(prompts)
+
+    def recorder(module, out_list):
+        compute = module.compute_logits
+
+        def record(*a, **k):
+            out = compute(*a, **k)
+            out_list.append(out.detach().clone())
+            return out
+        return record
+
+    steps, steps_ref, rounds = [], [], []
+    with Swapped([(qwen, "compute_logits", recorder(qwen, steps))]):
+        plain = eng.generate(prompts, max_new_tokens=NEW_TOKENS).token_ids
+    with Swapped([(qwen, "compute_logits", recorder(qwen, steps_ref)),
+                  *attention_swaps()]):
+        ref = eng.generate(prompts, max_new_tokens=NEW_TOKENS).token_ids
+    d_ref = max(float((steps[i][b] - steps_ref[i][b]).abs().max())
+                for b in range(B)
+                for i in range(min(_first_part(plain[b], ref[b]) + 1,
+                                   NEW_TOKENS)))
+    del steps_ref
+    forward = spec_mod.forward_hidden
+    inputs = []
+
+    def record_inputs(params_, cfg_, tokens, positions, *a, **k):
+        inputs.append((tokens.clone(), positions.clone()))
+        return forward(params_, cfg_, tokens, positions, *a, **k)
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Swapped([(spec_mod, "forward_hidden", record_inputs),
+                  (spec_mod, "compute_logits",
+                   recorder(spec_mod, rounds))]):
+        spec = eng.generate_speculative(prompts, max_new_tokens=NEW_TOKENS,
+                                        k=SPEC_K, ngram=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    part = [_first_part(p, s_) for p, s_ in zip(plain, spec)]
+    d_spec, n_cmp = 0.0, 0
+    for (tokens, positions), logits in zip(inputs, rounds):
+        tokens, positions = tokens.tolist(), positions.tolist()
+        for b in range(B):
+            for j in range(SPEC_K + 1):
+                i = positions[b][j] + 1 - len(prompts[b])  # token it predicts
+                if not i < NEW_TOKENS or i - j > part[b] \
+                        or tokens[b][1:j + 1] != plain[b][i - j:i]:
+                    continue
+                d_spec = max(d_spec, float(
+                    (logits[b, j] - steps[i][b]).abs().max()))
+                n_cmp += 1
+    tol = 1.5 * d_ref
+    rows = []
+    for b, (p, s_) in enumerate(zip(plain, spec)):
+        if part[b] >= min(len(p), len(s_)):
+            rows.append((len(s_), None))
+            continue
+        top = steps[part[b]][b].topk(2).values
+        rows.append((part[b], float(top[0] - top[1])))
+    print(f"[generate spec] batch {B}, echo prompts {[len(p) for p in prompts]}"
+          f", {NEW_TOKENS} new, k {SPEC_K}: {wall:.2f} s | verify logits vs "
+          f"generate's over the same inputs: max |dlogit| {d_spec:.4g} over "
+          f"{n_cmp} positions (tol 1.5 x d_ref = {tol:.4g}; d_ref {d_ref:.4g}"
+          f" = generate vs generate with plain attention) | rows (tokens "
+          f"equal, plain top-2 gap where they part; near-tie < 2 x tol) "
+          f"{rows} | continuation chunks "
+          f"{counts['chunk_attention_contiguous']}", flush=True)
+    bad = [r for r in rows if r[1] is not None and not r[1] < 2 * tol]
+    covered = sum(min(n, NEW_TOKENS - 1) for n in part)
+    if bad or not d_spec <= tol or n_cmp < covered or \
+            counts["chunk_attention_contiguous"] <= 0 or \
+            any(len(x) != NEW_TOKENS for x in spec):
+        fail(f"[generate spec] verify logits {d_spec} from generate's (tol "
+             f"{tol}) over {n_cmp} positions (at least {covered}), parts away"
+             f" from a near-tie {bad}, or the verify never ran")
+    del eng, steps, rounds
+    torch.cuda.empty_cache()
+    return counts, dict(wall_s=wall, rows=rows, max_abs_dlogit=d_spec,
+                        d_ref=d_ref, tol=tol, positions_compared=n_cmp)
+
+
 def hf_state_dict(cfg, params) -> dict:
     """The HF names of the port's params (projections back to [out, in])."""
     sd = {"model.embed_tokens.weight": params["embed"],
@@ -1357,6 +1937,70 @@ def _cli_ids(torch, argv):
         fail(f"cli {argv[:3]} returned {rc}")
     return [json.loads(lines[i + 1]) for i, line in enumerate(lines)
             if line.startswith("--- sequence")]
+
+
+def cli_serve_spec_int8(torch, ckpt):
+    """``qie serve --ckpt CKPT --bits 4 --kv-bits 8 --speculative`` through
+    the CLI on 127.0.0.1 (an ephemeral port): one /generate and /stats,
+    then the server is shut down as a KeyboardInterrupt would."""
+    import http.client
+    import threading
+
+    from qwen_inference_engine_tpu_torch.server import cli
+    from qwen_inference_engine_tpu_torch.server import http as thttp
+
+    held = {}
+    base = thttp.ThreadingHTTPServer
+
+    class Held(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            held["httpd"] = self
+
+    argv = ["serve", "--ckpt", ckpt, "--bits", "4", "--kv-bits", "8",
+            "--speculative", "--spec-k", "4", "--spec-ngram", "3",
+            "--max-seq", "512", "--max-slots", "2", "--greedy",
+            "--host", "127.0.0.1", "--port", "0"]
+    thttp.ThreadingHTTPServer = Held
+    try:
+        thread = threading.Thread(
+            target=lambda: held.__setitem__("rc", cli.main(argv)), daemon=True)
+        thread.start()
+        t0 = time.perf_counter()
+        while "httpd" not in held and thread.is_alive() and \
+                time.perf_counter() - t0 < 300:
+            time.sleep(0.1)
+    finally:
+        thttp.ThreadingHTTPServer = base
+    if "httpd" not in held:
+        fail("cli serve: the server never bound")
+    port = held["httpd"].server_address[1]
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+
+    try:
+        st, gen = call("POST", "/generate",
+                       {"prompt": "the pages, the pages, the pages, the",
+                        "max_new_tokens": 12})
+        st2, stats = call("GET", "/stats")
+    finally:
+        held["httpd"].shutdown()
+        thread.join(timeout=60)
+    print(f"[cli serve] serve --ckpt (2 layers) --bits 4 --kv-bits 8 "
+          f"--speculative on 127.0.0.1:{port}: /generate {st} "
+          f"{len(gen.get('token_ids', []))} tokens ({gen.get('finish_reason')})"
+          f" | /stats {st2}: spec rounds {stats.get('spec_rounds')} | exit "
+          f"{held.get('rc')}", flush=True)
+    if (st, st2) != (200, 200) or not gen.get("token_ids") \
+            or thread.is_alive() or held.get("rc") != 0:
+        fail("cli serve --speculative --kv-bits 8: a request failed or the "
+             "server did not stop")
+    return {"cli_serve_spec_rounds": stats.get("spec_rounds")}
 
 
 def run_loader_phase(torch, cfg, bf16_params):
@@ -1440,12 +2084,17 @@ def run_loader_phase(torch, cfg, bf16_params):
                     ["--bits", "4", "--act-bits", "8"], ["--bits", "16"]):
             ids["--ckpt " + " ".join(fmt)] = _cli_ids(
                 torch, ["generate", "--ckpt", d, *fmt, *gen])
-        print(f"[loader] generate: {ids}", flush=True)
+        spec = _cli_ids(torch, ["generate", "--ckpt", d, "--bits", "4", *gen,
+                                "--speculative", "--spec-k", "4"])
+        print(f"[loader] generate: {ids} | --ckpt --bits 4 --speculative "
+              f"{spec} (equal to --ckpt --bits 4: "
+              f"{spec == ids['--ckpt --bits 4']})", flush=True)
         if ids["--qckpt"] != ids["--ckpt --bits 4"] or any(
                 len(v) != 2 or not all(len(r) >= 1 for r in v)
-                for v in ids.values()):
+                for v in list(ids.values()) + [spec]):
             fail("loader: generate --qckpt and --ckpt --bits 4 differ, or a "
                  "format generated nothing")
+        out.update(cli_serve_spec_int8(torch, d))
     out["bytes"] = n_bytes
     out["load_gb_s"] = n_bytes / out["load_s"] / 1e9
     return out
@@ -1533,10 +2182,14 @@ def main() -> int:
     flash_recs = check_flash(torch, cfg)
     dec_recs = check_decode(torch, cfg)
     chunk_recs = check_chunk(torch, cfg)
+    for name, by_t in check_chunk_rows(torch, cfg).items():
+        chunk_recs[name].update(by_t)
     append_recs = check_kv_append(torch, cfg)
     dec8_recs = check_decode_q8(torch, cfg)
     paged_recs = {**check_paged_decode(torch, cfg),
+                  **check_paged_q8_and_verify(torch, cfg),
                   **check_paged_chunk(torch, cfg),
+                  **check_paged_chunk(torch, cfg, quant=True),
                   **check_paged_appends(torch, cfg)}
     torch.cuda.empty_cache()
 
@@ -1587,9 +2240,16 @@ def main() -> int:
                     pa.paged_decode_attention_stacked,
                 "paged_chunk_attention": ca.paged_chunk_attention,
                 "paged_append_ragged": ka.paged_append_ragged,
-                "paged_append_prefill": ka.paged_append_prefill}
-    paged = {"paged_decode_attention_stacked", "paged_chunk_attention",
-             "paged_append_ragged", "paged_append_prefill"}
+                "paged_append_prefill": ka.paged_append_prefill,
+                "paged_decode_attention_stacked_q8":
+                    pa.paged_decode_attention_stacked_q8,
+                "paged_verify_attention_stacked":
+                    pa.paged_verify_attention_stacked,
+                "paged_verify_attention_stacked_q8":
+                    pa.paged_verify_attention_stacked_q8,
+                "paged_chunk_attention_q8": ca.paged_chunk_attention_q8,
+                "paged_append_ragged_t": ka.paged_append_ragged_t}
+    paged = {n for n in wrappers if n.startswith("paged_")}
     engines = {
         "bf16": eng,
         "bf16 long": Engine(cfg8, params, max_batch=4, max_seq=2304,
@@ -1701,6 +2361,33 @@ def main() -> int:
         launches[n] += c
     run_http(torch, cfg8, params)
     torch.cuda.empty_cache()
+    # ---- 4c. the INT8 page pool and speculative decoding
+    q8_counts, q8_serve = run_serving(torch, np, cfg8, params, wrappers, rng,
+                                      kv_dtype=torch.int8)
+    spec_runs = {"int8 pool": q8_serve}
+    for n, c in q8_counts.items():
+        launches[n] += c
+    # the same echo traffic by plain chained decode first: the yardstick
+    for kv, mode, draft, spec in (
+            (torch.bfloat16, "step_batch", False, False),
+            (torch.bfloat16, "step", False, True),
+            (torch.bfloat16, "step_batch", False, True),
+            (torch.int8, "step", False, True),
+            (torch.int8, "step_batch", False, True),
+            (torch.bfloat16, "step_batch", True, True)):
+        counts, numbers = run_serving_spec(torch, cfg8, params, wrappers, rng,
+                                           kv, mode, draft=draft,
+                                           speculative=spec)
+        kind = "draft" if draft else "pld" if spec else "plain"
+        spec_runs[f"{kind} {kv} {mode}"] = numbers
+        for n, c in counts.items():
+            launches[n] += c
+    counts, spec_runs["generate spec"] = run_generate_spec(
+        torch, cfg8, params, wrappers, rng)
+    for n, c in counts.items():
+        launches[n] += c
+    run_http_spec_int8(torch, cfg8, params)
+    torch.cuda.empty_cache()
     w4_counts, w4_serve = run_serving_w4a16(torch, cfg, p_w4a16, wrappers, rng)
     for n, c in w4_counts.items():
         launches[n] += c
@@ -1785,8 +2472,9 @@ def main() -> int:
     with Swapped(f32_swaps()):
         lr8 = run_prefill(params4_f32, torch.int8, toks8, lens8)
     model_check(f"INT8 KV, prompts {q_lens}, two chunks", lk8, lp8, lr8)
-    paged_model_check(torch, cfg4, params4, params4_f32, prompts,
-                      plain_swaps(), f32_swaps())
+    for kv in (torch.bfloat16, torch.int8):
+        paged_model_check(torch, cfg4, params4, params4_f32, prompts,
+                          plain_swaps(), f32_swaps(), kv)
 
     # ---- 6. results
     sources = {
@@ -1828,6 +2516,20 @@ def main() -> int:
             "csrc/kv_append.cu", "qwen_inference_engine_tpu/ops/kv_append.py:488"),
         "paged_append_prefill": (
             "csrc/kv_append.cu", "qwen_inference_engine_tpu/ops/kv_append.py:718"),
+        "paged_decode_attention_stacked_q8": (
+            "csrc/paged_attention.cu",
+            "qwen_inference_engine_tpu/ops/paged_attention.py:358"),
+        "paged_verify_attention_stacked": (
+            "csrc/paged_attention.cu",
+            "qwen_inference_engine_tpu/ops/paged_attention.py:167"),
+        "paged_verify_attention_stacked_q8": (
+            "csrc/paged_attention.cu",
+            "qwen_inference_engine_tpu/ops/paged_attention.py:358"),
+        "paged_chunk_attention_q8": (
+            "csrc/chunk_attention.cu",
+            "qwen_inference_engine_tpu/ops/chunk_attention.py:526"),
+        "paged_append_ragged_t": (
+            "csrc/kv_append.cu", "qwen_inference_engine_tpu/ops/kv_append.py:607"),
     }
     # each matmul is reported per decode layer: its seven projections at M=4
     recs = {"quant_matmul4_a8": layer_record(qmm_recs, qmm_14b),
@@ -1854,18 +2556,22 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec.get("shape", rec.get("unit")),
-            **({"gather_ms": rec["gather_ms"]} if "gather_ms" in rec else {})})
+            **{k: v for k, v in rec.items() if k == "gather_ms"
+               or k.startswith(("int8_", "rows_"))}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
-          f" | loader {json.dumps(loader)}")
+          f" | loader {json.dumps(loader)} | int8 pool and speculation "
+          f"{json.dumps(spec_runs)}")
     if len(sys.argv) > 1:  # every kernel shape's and run's numbers
         os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])),
                     exist_ok=True)
         with open(sys.argv[1], "w") as f:
             json.dump({"runs": runs, "new_matmuls": new_recs, "new_14b": new_14b,
                        "w4a8": qmm_recs, "serving": serve_stats,
-                       "serving_w4a16": w4_serve, "loader": loader}, f,
-                      indent=1)
+                       "serving_w4a16": w4_serve, "loader": loader,
+                       "int8_pool_and_speculation": spec_runs,
+                       "paged_kernels": paged_recs,
+                       "chunk_kernels": chunk_recs}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@
 //   2. each thread scores one key against BR / (D / BK) rows, fp32 dot
 //      products over D (int8 keys dequantized in registers: the dot of the
 //      raw bytes times the key's scale), and masks keys past each row's
-//      causal limit (key j is visible to row i iff j <= lim0 + i * lim_step);
+//      causal limit (key j is visible to row i iff
+//      j <= lim0 + ((lim_row0 + i) / lim_group) * lim_step: lim_group rows
+//      share a limit, as the G query heads of one token do in the paged
+//      verify, whose block starts at flattened row lim_row0);
 //   3. one warp per row updates the running max / sum and turns scores
 //      into probabilities;
 //   4. each thread rescales its BR accumulators and adds P @ V for its
@@ -22,7 +25,8 @@
 // j * stride elements from key 0 (a contiguous cache slab, fresh K/V);
 // `PagedKeys` follows a block table, page tables[j / page], row j % page,
 // resolved for every key in the staging loop, so a 64-key tile may span
-// any number of pages (a page only has to be a multiple of 8 tokens).
+// any number of pages (a page only has to be a multiple of 8 tokens); an
+// int8 pool's scales [L, P, Hk, page] follow the same table.
 // Keys at or past n_keys are never loaded: their tile rows are zeros and
 // their scores -inf, so stale pages (even NaN) cannot leak in.
 
@@ -52,6 +56,7 @@ struct AttnSmem {
   float m[BR];                              // running max
   float l[BR];                              // running sum
   float alpha[BR];                          // this tile's rescale factor
+  int lim[BR];                              // each row's last visible key
   float ks[BK];                             // int8 KV: the tile's key scales
   float vs[BK];                             //          and value scales
 };
@@ -65,18 +70,23 @@ struct ContiguousKeys {
   __device__ __forceinline__ long long scale(int j) const { return j; }
 };
 
-// Key j of one (layer, KV head) in the stacked bf16 page pool
-// [L, P, Hk, page, D]: the base pointers point at page 0 of that layer and
-// head, so key j is at tables[j / page] * page_stride + (j % page) * D
-// elements.  (No scale addressing: the INT8 pool is not ported yet.)
+// Key j of one (layer, KV head) in the stacked page pool [L, P, Hk, page,
+// D]: the base pointers point at page 0 of that layer and head, so key j
+// is at tables[j / page] * page_stride + (j % page) * D elements, and its
+// scale (an int8 pool's [L, P, Hk, page]) at tables[j / page] *
+// scale_stride + j % page.
 struct PagedKeys {
-  const int* table;       // this row's block table
-  int page;               // tokens per page
+  const int* table;        // this row's block table
+  int page;                // tokens per page
   int D;
-  long long page_stride;  // elements from one page to the next: Hk*page*D
+  long long page_stride;   // elements from one page to the next: Hk*page*D
+  long long scale_stride;  // scales from one page to the next: Hk*page
   __device__ __forceinline__ long long offset(int j) const {
     return static_cast<long long>(table[j / page]) * page_stride +
            static_cast<long long>(j % page) * D;
+  }
+  __device__ __forceinline__ long long scale(int j) const {
+    return static_cast<long long>(table[j / page]) * scale_stride + j % page;
   }
 };
 
@@ -134,7 +144,8 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
                        const float* __restrict__ ks_base,
                        const float* __restrict__ vs_base, int n_keys,
                        int lim0, int lim_step, const KV* k_fresh,
-                       const KV* v_fresh, int fresh_pos) {
+                       const KV* v_fresh, int fresh_pos, int lim_row0 = 0,
+                       int lim_group = 1) {
   static_assert(D % 32 == 0 && BK == 64 && D % BK == 0, "attention tiling");
   constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int NT = D;            // threads
@@ -148,6 +159,7 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
   for (int i = tid; i < BR; i += NT) {
     sm.m[i] = kNegInf;
     sm.l[i] = 0.f;
+    sm.lim[i] = lim0 + ((lim_row0 + i) / lim_group) * lim_step;
   }
 #pragma unroll
   for (int i = 0; i < BR; ++i) acc[i] = 0.f;
@@ -190,7 +202,7 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
       if constexpr (kQuant) kscale = sm.ks[jj];
       for (int i = tid / BK; i < BR; i += ROW_STEP) {
         const float s = key_dot<D>(&sm.q[i][0], &sm.k[jj][0]) * kscale;
-        const bool ok = i < n_rows && j < n_keys && j <= lim0 + i * lim_step;
+        const bool ok = i < n_rows && j < n_keys && j <= sm.lim[i];
         sm.s[i][jj] = ok ? s : kNegInf;
       }
     }

@@ -1,12 +1,18 @@
 // KV appends into the stacked caches, Hopper.
 //
-// Replaces three kernels of qwen_inference_engine_tpu/ops/kv_append.py:
+// Replaces four kernels of qwen_inference_engine_tpu/ops/kv_append.py:
 //   * kv_append_uniform_q8 (body _uniform_append_q8_kernel): INT8-KV decode
 //     append into the contiguous cache;
-//   * paged_append_ragged (body _paged_ragged_kernel): one bf16 K/V row per
+//   * paged_append_ragged (body _paged_ragged_kernel): one K/V row per
 //     batch row into the page pool, each at its own position;
+//   * paged_append_ragged_t (body _paged_ragged_t_kernel): T consecutive
+//     K/V rows per batch row at a per-row start (the speculative verify's
+//     window; it may straddle two pages);
 //   * paged_append_prefill (body _paged_prefill_kernel): a prefill piece's
-//     T bf16 K/V rows of one sequence into the page pool.
+//     T K/V rows of one sequence into the page pool.
+// The paged appends take a bf16 pool, or an int8 pool whose per-token f32
+// scales [L, P, Hk, page] they write in the same launch (the JAX package
+// runs its kernels on the int8 bytes and scatters the scales with XLA).
 //
 // kv_append_q8: in place, int8 k_new / v_new [B, Hk, D] and f32 ks_new /
 // vs_new [B, Hk] into cache[layer, b, hk, position] of the int8 caches
@@ -14,17 +20,18 @@
 // row shares the one position, a 1-element int32 tensor read on the device,
 // so the host never waits for it; a position outside [0, S) writes nothing.
 //
-// paged_append_ragged: in place, k_new / v_new [B, Hk, D] into the pools
-// [L, P, Hk, page, D] at row positions[b] % page of page
-// tables[b, positions[b] / page]; positions and tables are read on the
-// device (no host sync inside a decode tick); positions[b] < 0 skips row b.
+// paged_append_ragged / _ragged_t: in place, k_new / v_new [B, T, Hk, D]
+// (T = 1 for the ragged decode append) into the pools [L, P, Hk, page, D]
+// at positions starts[b] + t, row p % page of page tables[b, p / page];
+// starts and tables are read on the device (no host sync inside a decode
+// tick or a speculation round); starts[b] < 0 skips row b.
 //
 // paged_append_prefill: in place, k_new / v_new [T, Hk, D] at positions
 // start .. start + T - 1 through tables [max_pages] (one sequence).  The
 // window may cross pages; bucket padding past the allocated pages follows
 // the table's zero entries onto scratch page 0, as in the JAX package.
 //
-// Both paged appends follow the table as it is: a position whose logical
+// The paged appends follow the table as it is: a position whose logical
 // page is past the table's width writes nothing (the JAX scatter drops
 // it), and so does a page id outside [0, P).  Several rows may write the
 // same scratch row in one launch (idle slots at position 0 of page 0): a
@@ -32,18 +39,22 @@
 //
 // What bounds them on the H100: kv_append_q8 moves 2 * B * Hk * (D + 4)
 // bytes in and as many out (4.2 KB at B=4 for Qwen2.5-7B); the ragged
-// paged append 2 * 2 * B * Hk * D bytes each way (16 KB at 8 slots); the
-// prefill append 2 * 2 * T * Hk * D bytes each way (512 KB at T=256): a
-// few nanoseconds to ~0.3 us at 3.35 TB/s, so the launch itself (a few
+// paged append 2 * 2 * B * Hk * D bytes each way (16 KB at 8 slots, 8 KB +
+// 256 B of scales int8); the verify window T times that (80 KB at T = 5);
+// the prefill append 2 * 2 * T * Hk * D bytes each way (512 KB at T=256):
+// a few nanoseconds to ~0.3 us at 3.35 TB/s, so the launch itself (a few
 // microseconds) bounds them in practice.
 //
 // Design: one block per (KV head, row or token), one thread per element of
-// the head vector; kv_append_q8's thread 0 also writes the two scales.
-// The TPU kernels read and wrote back whole bands, tiles or pages (a
-// 32-row int8 band, a 128-lane scale tile, a [Hk, page, D] page block for
-// the prefill append) because their memory moves in (8/32, 128) tiles;
-// that is tiling, not semantics: here only the rows being appended are
-// written, bit for bit, and nothing else of the cache is touched.
+// the head vector; thread 0 also writes the row's two scales (int8).  The
+// ragged append and the verify window share one kernel, a loop over the
+// row's T tokens that resolves each token's page on its own, so a window
+// that straddles two pages needs nothing special.  The TPU kernels read
+// and wrote back whole bands, tiles or pages (a 32-row int8 band, a
+// 128-lane scale tile, a [Hk, page, D] page block for the prefill append)
+// because their memory moves in (8/32, 128) tiles; that is tiling, not
+// semantics: here only the rows being appended are written, bit for bit,
+// and nothing else of the cache is touched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,49 +85,94 @@ __global__ void kv_append_q8_kernel(
   }
 }
 
-// one (KV head, row) per block: the row's token goes to its own position
-__global__ void paged_append_ragged_kernel(
-    __nv_bfloat16* __restrict__ k_pages, __nv_bfloat16* __restrict__ v_pages,
-    const __nv_bfloat16* __restrict__ k_new,
-    const __nv_bfloat16* __restrict__ v_new,
-    const int* __restrict__ positions, const int* __restrict__ tables, int P,
-    int Hk, int page, int D, int max_pages, int layer) {
+// one (KV head, row) per block: the row's T tokens go to starts[b] + t
+template <typename E>
+__global__ void paged_append_rows_kernel(
+    E* __restrict__ k_pages, E* __restrict__ v_pages,
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const E* __restrict__ k_new, const E* __restrict__ v_new,
+    const float* __restrict__ ks_new, const float* __restrict__ vs_new,
+    const int* __restrict__ starts, const int* __restrict__ tables, int P,
+    int Hk, int page, int D, int max_pages, int layer, int T) {
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
-  const int p = positions[b];
-  if (p < 0 || p / page >= max_pages) return;
-  const int pg = tables[static_cast<long long>(b) * max_pages + p / page];
-  if (pg < 0 || pg >= P) return;
-  const long long dst =
-      (((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page) *
-      D;
-  const long long src = (static_cast<long long>(b) * Hk + hk) * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    k_pages[dst + d] = k_new[src + d];
-    v_pages[dst + d] = v_new[src + d];
+  const int p0 = starts[b];
+  if (p0 < 0) return;
+  for (int t = 0; t < T; ++t) {
+    const int p = p0 + t;
+    if (p / page >= max_pages) return;
+    const int pg = tables[static_cast<long long>(b) * max_pages + p / page];
+    if (pg < 0 || pg >= P) continue;
+    const long long row =
+        ((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page;
+    const long long src = (static_cast<long long>(b) * T + t) * Hk + hk;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      k_pages[row * D + d] = k_new[src * D + d];
+      v_pages[row * D + d] = v_new[src * D + d];
+    }
+    if (k_scale != nullptr && threadIdx.x == 0) {
+      k_scale[row] = ks_new[src];
+      v_scale[row] = vs_new[src];
+    }
   }
 }
 
 // one (KV head, token) per block: token t goes to position start + t
+template <typename E>
 __global__ void paged_append_prefill_kernel(
-    __nv_bfloat16* __restrict__ k_pages, __nv_bfloat16* __restrict__ v_pages,
-    const __nv_bfloat16* __restrict__ k_new,
-    const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ table,
-    int P, int Hk, int page, int D, int max_pages, int layer, int start) {
+    E* __restrict__ k_pages, E* __restrict__ v_pages,
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const E* __restrict__ k_new, const E* __restrict__ v_new,
+    const float* __restrict__ ks_new, const float* __restrict__ vs_new,
+    const int* __restrict__ table, int P, int Hk, int page, int D,
+    int max_pages, int layer, int start) {
   const int hk = blockIdx.x;
   const int t = blockIdx.y;
   const int p = start + t;
   if (p / page >= max_pages) return;
   const int pg = table[p / page];
   if (pg < 0 || pg >= P) return;
-  const long long dst =
-      (((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page) *
-      D;
-  const long long src = (static_cast<long long>(t) * Hk + hk) * D;
+  const long long row =
+      ((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page;
+  const long long src = static_cast<long long>(t) * Hk + hk;
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    k_pages[dst + d] = k_new[src + d];
-    v_pages[dst + d] = v_new[src + d];
+    k_pages[row * D + d] = k_new[src * D + d];
+    v_pages[row * D + d] = v_new[src * D + d];
   }
+  if (k_scale != nullptr && threadIdx.x == 0) {
+    k_scale[row] = ks_new[src];
+    v_scale[row] = vs_new[src];
+  }
+}
+
+template <typename E>
+void launch_rows(dim3 grid, int D, cudaStream_t st, void* k_pages,
+                 void* v_pages, void* k_scale, void* v_scale,
+                 const void* k_new, const void* v_new, const void* ks_new,
+                 const void* vs_new, const void* starts, const void* tables,
+                 int P, int Hk, int page, int max_pages, int layer, int T) {
+  paged_append_rows_kernel<E><<<grid, D, 0, st>>>(
+      static_cast<E*>(k_pages), static_cast<E*>(v_pages),
+      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
+      static_cast<const E*>(k_new), static_cast<const E*>(v_new),
+      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
+      static_cast<const int*>(starts), static_cast<const int*>(tables), P, Hk,
+      page, D, max_pages, layer, T);
+}
+
+template <typename E>
+void launch_prefill(dim3 grid, int D, cudaStream_t st, void* k_pages,
+                    void* v_pages, void* k_scale, void* v_scale,
+                    const void* k_new, const void* v_new, const void* ks_new,
+                    const void* vs_new, const void* table, int P, int Hk,
+                    int page, int max_pages, int layer, int start) {
+  paged_append_prefill_kernel<E><<<grid, D, 0, st>>>(
+      static_cast<E*>(k_pages), static_cast<E*>(v_pages),
+      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
+      static_cast<const E*>(k_new), static_cast<const E*>(v_new),
+      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
+      static_cast<const int*>(table), P, Hk, page, D, max_pages, layer,
+      start);
 }
 
 }  // namespace
@@ -141,46 +197,66 @@ extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int qie_paged_append_ragged(void* k_pages, void* v_pages,
-                                       const void* k_new, const void* v_new,
-                                       const void* positions,
-                                       const void* tables, int L, int P,
-                                       int B, int Hk, int page, int D,
-                                       int max_pages, int layer,
-                                       void* stream) {
-  if (B <= 0 || Hk <= 0 || D <= 0 || D > 1024 || P <= 0 || page <= 0 ||
-      max_pages <= 0 || layer < 0 || layer >= L) {
+// The paged appends: k_scale / v_scale / ks_new / vs_new all null
+// for a bf16 pool, all given for an int8 pool.  `ragged_t` writes a window
+// of T <= page rows per sequence: T = 1 is the decode append
+// (paged_append_ragged), T = k + 1 the verify window.
+static bool quant_args(const void* a, const void* b, const void* c,
+                       const void* d, bool* quant) {
+  *quant = a != nullptr;
+  return (b != nullptr) == *quant && (c != nullptr) == *quant &&
+         (d != nullptr) == *quant;
+}
+
+extern "C" int qie_paged_append_ragged_t(
+    void* k_pages, void* v_pages, void* k_scale, void* v_scale,
+    const void* k_new, const void* v_new, const void* ks_new,
+    const void* vs_new, const void* starts, const void* tables, int L, int P,
+    int B, int T, int Hk, int page, int D, int max_pages, int layer,
+    void* stream) {
+  bool quant;
+  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || B <= 0 ||
+      B > 65535 || T <= 0 || T > page || Hk <= 0 || D <= 0 || D > 1024 ||
+      P <= 0 || page <= 0 || max_pages <= 0 || layer < 0 || layer >= L) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(Hk, B);
-  paged_append_ragged_kernel<<<grid, D, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(k_pages),
-      static_cast<__nv_bfloat16*>(v_pages),
-      static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new),
-      static_cast<const int*>(positions), static_cast<const int*>(tables), P,
-      Hk, page, D, max_pages, layer);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (quant) {
+    launch_rows<int8_t>(grid, D, st, k_pages, v_pages, k_scale, v_scale,
+                        k_new, v_new, ks_new, vs_new, starts, tables, P, Hk,
+                        page, max_pages, layer, T);
+  } else {
+    launch_rows<__nv_bfloat16>(grid, D, st, k_pages, v_pages, nullptr,
+                               nullptr, k_new, v_new, nullptr, nullptr,
+                               starts, tables, P, Hk, page, max_pages, layer,
+                               T);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int qie_paged_append_prefill(void* k_pages, void* v_pages,
-                                        const void* k_new, const void* v_new,
-                                        const void* table, int L, int P,
-                                        int T, int Hk, int page, int D,
-                                        int max_pages, int layer, int start,
-                                        void* stream) {
-  if (T <= 0 || T > 65535 || Hk <= 0 || D <= 0 || D > 1024 || P <= 0 ||
-      page <= 0 || max_pages <= 0 || layer < 0 || layer >= L || start < 0) {
+extern "C" int qie_paged_append_prefill(
+    void* k_pages, void* v_pages, void* k_scale, void* v_scale,
+    const void* k_new, const void* v_new, const void* ks_new,
+    const void* vs_new, const void* table, int L, int P, int T, int Hk,
+    int page, int D, int max_pages, int layer, int start, void* stream) {
+  bool quant;
+  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || T <= 0 ||
+      T > 65535 || Hk <= 0 || D <= 0 || D > 1024 || P <= 0 || page <= 0 ||
+      max_pages <= 0 || layer < 0 || layer >= L || start < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid(Hk, T);
-  paged_append_prefill_kernel<<<grid, D, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(k_pages),
-      static_cast<__nv_bfloat16*>(v_pages),
-      static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new),
-      static_cast<const int*>(table), P, Hk, page, D, max_pages, layer,
-      start);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (quant) {
+    launch_prefill<int8_t>(grid, D, st, k_pages, v_pages, k_scale, v_scale,
+                           k_new, v_new, ks_new, vs_new, table, P, Hk, page,
+                           max_pages, layer, start);
+  } else {
+    launch_prefill<__nv_bfloat16>(grid, D, st, k_pages, v_pages, nullptr,
+                                  nullptr, k_new, v_new, nullptr, nullptr,
+                                  table, P, Hk, page, max_pages, layer,
+                                  start);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,10 @@ device with the host polling on a growing cadence, the seen mask for the
 penalties, and TTFT / decode tok/s measured around work that ends in a
 device sync.  Each step runs eagerly; no CUDA graph yet.
 
+``Engine.generate_speculative`` is greedy generation with prompt-lookup
+speculation (``engine/speculative.py``): token-identical to ``generate``
+with greedy sampling, 1..k+1 tokens per forward.
+
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests do): it never drops to the CPU by itself.
 """
@@ -86,6 +90,25 @@ class Engine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate_speculative(self, prompts: Sequence[Sequence[int]],
+                             max_new_tokens: int = 128, *, k: int = 8,
+                             ngram: int = 3) -> List[List[int]]:
+        """Greedy generation with prompt-lookup speculation (token-exact
+        against ``generate`` with greedy sampling; 1..k+1 tokens per
+        forward).  Returns the generated ids of each prompt."""
+        from qwen_inference_engine_tpu_torch.engine.speculative import (
+            generate_speculative,
+        )
+
+        if not 0 < len(prompts) <= self.max_batch:
+            raise ValueError(f"{len(prompts)} prompts for max_batch "
+                             f"{self.max_batch}")
+        return generate_speculative(self.params, self.cfg, list(prompts),
+                                    self.new_cache(),
+                                    max_new_tokens=max_new_tokens, k=k,
+                                    ngram=ngram)
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],

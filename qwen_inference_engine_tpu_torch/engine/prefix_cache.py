@@ -94,8 +94,11 @@ class PagePoolMixin:
         """One whole-page KV copy (src page -> dst page, all layers).  Rows
         past the partial match are stale, but prefill overwrites any row
         before attention can read it (positions >= prefilled are never
-        attended until written)."""
+        attended until written).  A drafter's pool mirrors the target's
+        page ids, so it copies the same page."""
         self.cache.copy_page(src, dst)
+        if self.draft_cache is not None:
+            self.draft_cache.copy_page(src, dst)
 
     def _register_pages(self, run: _Running) -> None:
         """On completion, register this run's full-content pages so future

@@ -1,7 +1,9 @@
 """Continuous batching over the paged KV cache.
 
 The port of the JAX package's ``engine/scheduler.py``
-(``ContinuousBatchingEngine``), single card, bf16 KV:
+(``ContinuousBatchingEngine``), single card, over a bf16 or an INT8 page
+pool (``kv_dtype=torch.int8``: int8 pages with per-token f32 scales, twice
+the requests at equal memory):
 
 * a fixed ``max_slots`` decode batch; idle slots decode at position 0
   through a zeroed block-table row, so they only touch scratch page 0;
@@ -18,19 +20,26 @@ The port of the JAX package's ``engine/scheduler.py``
 * ``step_batch``: decode ticks chained on the device (each tick's sampled
   tokens feed the next, positions ``pos0 + i`` on the device) with one host
   sync per window; ``_mixed_chain_batch`` interleaves a prefilling slot's
-  interior pieces with those ticks under the same sync.
+  interior pieces with those ticks under the same sync;
+* speculative decoding (``speculative=True``, ``engine/spec_engine.py``):
+  prompt lookup drafted on the host in ``step`` and on the device in
+  ``step_batch``, or a draft model (``draft_params`` / ``draft_cfg``, its
+  own page pool on the target's page ids, prefilled in lockstep); each
+  round verifies ``spec_k`` drafts per slot in one forward and emits 1..
+  spec_k+1 tokens per slot.  Admission budgets ``spec_k`` tokens more per
+  request, so a verify's rejected-draft writes stay on the request's own
+  pages.
 
-Each step runs eagerly (no CUDA graph yet).  Sampling draws from a
-``torch.Generator`` seeded per (seed, request id) for a prefill piece and
-per (seed, step count) for a decode tick, so a chained window samples
-exactly as the same ticks run one by one; the streams are not the JAX
-package's ``fold_in`` streams, so only greedy rows match it token for
-token.
+Each step runs eagerly (no CUDA graph yet).  Sampling draws from
+``stream_generator`` (``ops/sampling.py``): seeded per (seed, request id)
+for a prefill piece, per (seed, step count) for a decode tick or a
+speculation round, and per chain position j within a round; so a chained
+window samples exactly as the same ticks run one by one.  The streams are
+not the JAX package's ``fold_in`` streams, so only greedy rows match it
+token for token.
 
-Not ported yet, each raising ``NotImplementedError``: speculative decoding
-and draft models (slice 4), a device mesh (TP / EP / PP, slice 6), and the
-INT8 page pool (``_paged_bhgd_q8`` and ``paged_chunk_attention_q8``, the
-INT8 paged slice).
+Not ported yet: a device mesh (TP / EP / PP, slice 6) and Qwen3-MoE
+(slice 5), each raising ``NotImplementedError``.
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do): it never drops to the CPU by itself.
@@ -48,7 +57,11 @@ import torch
 from qwen_inference_engine_tpu_torch.config import ModelConfig
 from qwen_inference_engine_tpu_torch.engine.engine import resolve_device
 from qwen_inference_engine_tpu_torch.engine.prefix_cache import PagePoolMixin
+from qwen_inference_engine_tpu_torch.engine.spec_engine import (
+    SpeculationMixin,
+)
 from qwen_inference_engine_tpu_torch.engine.types import (  # noqa: F401
+    DECODE_STREAM,
     FinishedRequest,
     Request,
     _Running,
@@ -68,13 +81,11 @@ from qwen_inference_engine_tpu_torch.models.qwen import (
 from qwen_inference_engine_tpu_torch.ops.sampling import (
     SamplingParams,
     sample_rows,
+    stream_generator,
 )
 from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
 
-_DECODE_STREAM = 100_000   # decode ticks draw from seed streams past this
-
-
-class ContinuousBatchingEngine(PagePoolMixin):
+class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
     def __init__(self, cfg: ModelConfig, params: dict, *, mesh=None,
                  max_slots: int = 8, page_size: int = 512,
                  num_pages: int = 512, max_pages_per_seq: int = 64,
@@ -82,6 +93,7 @@ class ContinuousBatchingEngine(PagePoolMixin):
                  sampling: Optional[SamplingParams] = None, seed: int = 1234,
                  prefill_chunk: int = 256, on_token=None,
                  prefix_cache: bool = True, speculative: bool = False,
+                 spec_k: int = 4, spec_ngram: int = 3,
                  draft_params: Optional[dict] = None,
                  draft_cfg: Optional[ModelConfig] = None,
                  top_k_cap: Optional[int] = None, device=None):
@@ -89,17 +101,16 @@ class ContinuousBatchingEngine(PagePoolMixin):
             raise NotImplementedError(
                 "serving on a device mesh (the TP / EP / PP steps) is not "
                 "ported yet: it comes with the multi-GPU slice (6)")
-        if speculative or draft_params is not None or draft_cfg is not None:
+        if cfg.is_moe or (draft_cfg is not None and draft_cfg.is_moe):
             raise NotImplementedError(
-                "speculative decoding in the scheduler (prompt lookup and "
-                "draft models, engine/spec_engine.py) is not ported yet: it "
-                "comes with the speculation slice (4)")
-        if kv_dtype == torch.int8:
-            raise NotImplementedError(
-                "the INT8 page pool is not ported yet: it needs "
-                "_paged_bhgd_q8 (paged_decode_attention_stacked_q8) and "
-                "paged_chunk_attention_q8 (_paged_chunk_q8), the INT8 paged "
-                "slice")
+                "Qwen3-MoE (moe_mlp and the grouped matmuls) is not ported "
+                "yet: it comes with the MoE slice (5)")
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params requires draft_cfg (the drafter's "
+                             "ModelConfig): pass both or neither")
+        if draft_cfg is not None and draft_cfg.vocab_size > cfg.vocab_size:
+            raise ValueError("the draft vocabulary must not exceed the "
+                             "target's")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -117,6 +128,29 @@ class ContinuousBatchingEngine(PagePoolMixin):
         self.cache = PagedKVCache.create(
             cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
             cfg.head_dim, dtype=kv_dtype, device=self.device)
+        # speculation: spec_k drafts per round from prompt lookup
+        # (spec_ngram-token suffixes) or from a draft model whose page
+        # pool mirrors the target's page ids (written in lockstep, so the
+        # allocator, tables, admission and prefix cache are shared)
+        self.speculative = speculative
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self._model_draft = speculative and draft_params is not None
+        self.draft_cfg = draft_cfg
+        self.draft_params = (params_to(draft_params, self.device)
+                             if self._model_draft else None)
+        self.draft_cache = (PagedKVCache.create(
+            draft_cfg.num_layers, num_pages, page_size,
+            draft_cfg.num_kv_heads, draft_cfg.head_dim, dtype=kv_dtype,
+            device=self.device) if self._model_draft else None)
+        # chained prompt lookup: the device history buffer [slots, cap]
+        # (allocated at first use), its per-slot watermarks, and the
+        # acceptance EMA that chooses between chained rounds and plain
+        # chained ticks
+        self._hist_buf: Optional[torch.Tensor] = None
+        self._hist_synced: Dict[int, int] = {}
+        self._spec_tpf_ema: Optional[float] = None
+        self._spec_probe_countdown = 0
         # per-slot sampling-param rows change only when the slot table does
         self._sp_rows_cache = None
         # page 0 is the scratch page for idle slots / unallocated entries
@@ -199,9 +233,7 @@ class ContinuousBatchingEngine(PagePoolMixin):
     # ------------------------------------------------------------------
     def _generator(self, stream: int) -> torch.Generator:
         """A generator for one sampling call, seeded by (seed, stream)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed((self.seed * 1_000_003 + stream) % (2 ** 63))
-        return gen
+        return stream_generator(self.device, self.seed, stream)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -267,9 +299,13 @@ class ContinuousBatchingEngine(PagePoolMixin):
         req = self._pending[0]
         # bucket padding past the prompt lands on the scratch page (zeroed
         # table entries) or on masked future positions, so admission only
-        # budgets real tokens
-        need = pages_required(len(req.prompt) + req.max_new_tokens,
-                              self.page_size)
+        # budgets real tokens; speculation writes up to spec_k rejected
+        # drafts past the last token (overwritten before they are read):
+        # they are budgeted so those writes stay on the request's pages
+        total = len(req.prompt) + req.max_new_tokens
+        if self.speculative:
+            total += self.spec_k
+        need = pages_required(total, self.page_size)
         if need > self.max_pages_per_seq:
             self._pending.popleft()
             self._finished.append(FinishedRequest(req.request_id, [],
@@ -333,6 +369,8 @@ class ContinuousBatchingEngine(PagePoolMixin):
             self.params, self.cfg, tokens, positions, self.cache,
             block_tables=table, fresh_prefill=start == 0,
             start=None if start == 0 else start)
+        if self._model_draft:
+            self._drafter_piece(tokens, start, table)
         if not last:
             return None
         h = hidden[:, min(max(nvalid - 1, 0), T - 1)]
@@ -394,6 +432,7 @@ class ContinuousBatchingEngine(PagePoolMixin):
         self._block_tables[run.slot] = 0
         self._seq_lens[run.slot] = 0
         self._slots[run.slot] = None
+        self._hist_synced.pop(run.slot, None)   # the next tenant rewrites
         self._sp_rows_cache = None
 
     # ------------------------------------------------------------------
@@ -425,7 +464,7 @@ class ContinuousBatchingEngine(PagePoolMixin):
         logits, self.cache = decode_step(self.params, self.cfg, tok, pos,
                                          self.cache, tables)
         nxt = sample_rows(logits,
-                          self._generator(_DECODE_STREAM + self._step_count),
+                          self._generator(DECODE_STREAM + self._step_count),
                           k_cap=self.k_cap, seen_mask=self._seen, **sp_rows)
         rows = torch.arange(self.max_slots, device=self.device)
         self._seen[rows, nxt] = self._seen[rows, nxt] | active
@@ -476,6 +515,16 @@ class ContinuousBatchingEngine(PagePoolMixin):
                     if self._slots[target.slot] is not target:
                         break                       # finished at first token
         decoding = [s for s in self._slots if s is not None and s.prefill_done]
+        if decoding and self._model_draft:
+            self._step_speculative_model(decoding)
+            return self._drain_finished()
+        if decoding and self.speculative:
+            host_drafts = {s.slot: self._pld_draft_host(s) for s in decoding}
+            if any(d is not None for d in host_drafts.values()):
+                self._step_speculative(decoding, host_drafts)
+                return self._drain_finished()
+            # no slot drafted anything: a verify would cost a (k+1)-token
+            # forward for one token per row; take the plain tick
         if decoding:
             t0 = time.perf_counter()
             nxt = self._decode_tick(*self._decode_inputs(decoding))
@@ -498,6 +547,8 @@ class ContinuousBatchingEngine(PagePoolMixin):
         decoding = [s for s in self._slots if s is not None and s.prefill_done]
         if not decoding:
             return self.step()   # prefill-only / idle: host-paced path
+        if prefilling and self.speculative:
+            return self.step()   # speculative mixed ticks stay host-paced
         if prefilling:
             # interior pieces need no host decision (their sizes are fixed,
             # they sample nothing): they chain with the decode ticks; the
@@ -509,6 +560,18 @@ class ContinuousBatchingEngine(PagePoolMixin):
                 return self._mixed_chain_batch(min(n, interior), decoding,
                                                target)
             return self.step()
+        if self._model_draft:
+            # model drafts need no host input: rounds chain on the device
+            return self._spec_model_batch(n, decoding)
+        if self.speculative:
+            # prompt-lookup drafts chain too, from the device history
+            # buffer; the acceptance EMA backs off to plain chained ticks
+            # on traffic that drafts nothing
+            mode = self._pld_batch_policy()
+            if mode == "spec":
+                return self._spec_pld_batch(n, decoding)
+            if mode == "probe":
+                return self._spec_pld_batch(min(n, 2), decoding)
         # cap by the tightest remaining token budget so no row overshoots
         n = max(1, min([n] + [s.request.max_new_tokens - len(s.generated)
                               for s in decoding]))

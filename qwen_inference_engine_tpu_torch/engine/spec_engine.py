@@ -1,0 +1,372 @@
+"""Speculative decoding in the serving scheduler (a mixin of
+``ContinuousBatchingEngine``).
+
+The port of the JAX package's ``engine/spec_engine.py`` without its
+device-mesh branches (slice 6).  Three modes over the paged pool (bf16 or
+INT8), each scoring the row's last token and k drafts in one T = k+1
+verify forward (``forward_hidden(..., ragged_multi=True)``:
+``paged_append_ragged_t`` and ``paged_verify_attention_stacked[_q8]``)
+and emitting 1..k+1 tokens per row:
+
+* host-draft prompt lookup (``_step_speculative``, from ``step``): the
+  host drafts from each slot's history (``_pld_draft_host``), one round
+  per host sync;
+* device-chained prompt lookup (``_spec_pld_batch``, from ``step_batch``):
+  drafts come from a history buffer on the device (``pld_draft``), and the
+  emitted tokens are appended there on the device, so rounds chain with
+  one host sync per window; an acceptance EMA (``_pld_batch_policy``)
+  falls back to plain chained decode on traffic that drafts nothing;
+* draft-model speculation (``_step_speculative_model`` /
+  ``_spec_model_batch``): k+1 greedy decode steps of a small same-vocab
+  model over its own page pool (the target's page ids, written in
+  lockstep), then the target's verify; each round's next inputs are
+  computed on the device, so rounds chain too.
+
+Every chain position is drawn through ``sample_rows`` with its own
+generator: round r of the engine (its step count) and position j draw
+from ``stream_generator(seed, 100_000 + r, j)``.  Greedy rows are
+token-identical to plain decode; stochastic rows are exact per emitted
+token (each is drawn from the model's distribution at its position, with
+the sequential decode's penalty context), on streams that are not the JAX
+package's.
+
+State lives on the engine (``_hist_buf``, ``_spec_tpf_ema``, ...); this
+class only groups the speculation logic.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from qwen_inference_engine_tpu_torch.engine.speculative import pld_draft
+from qwen_inference_engine_tpu_torch.engine.types import (
+    DECODE_STREAM,
+    FinishedRequest,
+    _Running,
+    _accept_chain,
+    _is_stop,
+)
+from qwen_inference_engine_tpu_torch.models.qwen import (
+    compute_logits,
+    decode_step,
+    forward_hidden,
+)
+from qwen_inference_engine_tpu_torch.ops.sampling import stream_generator
+
+class SpeculationMixin:
+    def _drafter_piece(self, tokens: torch.Tensor, start: int,
+                       table: torch.Tensor) -> None:
+        """The drafter's prefill piece in lockstep with the target's (no
+        sampling: the drafter only needs its pages filled)."""
+        T = tokens.shape[1]
+        positions = start + torch.arange(T, device=self.device)[None, :]
+        _, self.draft_cache = forward_hidden(
+            self.draft_params, self.draft_cfg, tokens, positions,
+            self.draft_cache, block_tables=table, fresh_prefill=start == 0,
+            start=None if start == 0 else start)
+
+    def _verify(self, tokens, pos0, tables, drafts, active, sp_rows):
+        """The T = k+1 verify forward of every slot and the acceptance:
+        returns (chain [S, k+1], n_new [S]); the seen mask takes the
+        emitted tokens of active rows."""
+        k = self.spec_k
+        positions = pos0[:, None] + torch.arange(k + 1, device=self.device)
+        hidden, self.cache = forward_hidden(
+            self.params, self.cfg, tokens, positions, self.cache,
+            block_tables=tables, ragged_multi=True)
+        logits = compute_logits(self.params, hidden, self.cfg.act_bits_lm_head)
+        stream = DECODE_STREAM + self._step_count
+        chain, n_new = _accept_chain(
+            logits, drafts,
+            lambda j: stream_generator(self.device, self.seed, stream, j),
+            sp_rows, self._seen, active, k=k, k_cap=self.k_cap)
+        self._step_count += 1
+        return chain, n_new
+
+    def _model_round(self, tok_prev, tok_last, pos0, tables, active,
+                     sp_rows):
+        """One draft-model round: k+1 greedy drafter decode steps, then the
+        target's verify.  Drafter protocol (its cache stays one token
+        behind the target's with no bookkeeping): step 0 re-feeds
+        h[seq_len-1] (the one accepted token the drafter never ingested;
+        its KV write is fresh or idempotent), step 1 feeds the last token
+        -> draft 1, steps 2..k feed draft i-1 -> draft i.  Returns (chain,
+        n_new) and the next round's (tok_prev, tok_last, pos0), computed on
+        the device so rounds chain."""
+        k = self.spec_k
+        cur, ys = tok_last, []
+        for i in range(k + 1):
+            tok_in = tok_prev if i == 0 else (tok_last if i == 1 else cur)
+            logits, self.draft_cache = decode_step(
+                self.draft_params, self.draft_cfg, tok_in, pos0 - 1 + i,
+                self.draft_cache, tables)
+            cur = torch.argmax(logits, dim=-1)
+            ys.append(cur)
+        drafts = torch.stack(ys[1:], dim=1)                  # [S, k]
+        tokens = torch.cat([tok_last[:, None], drafts], dim=1)
+        chain, n_new = self._verify(tokens, pos0, tables, drafts, active,
+                                    sp_rows)
+        rows = torch.arange(chain.shape[0], device=self.device)
+        tok_last_n = chain[rows, n_new - 1]
+        tok_prev_n = torch.where(n_new >= 2,
+                                 chain[rows, (n_new - 2).clamp(min=0)],
+                                 tok_last)
+        return chain, n_new, tok_prev_n, tok_last_n, pos0 + n_new
+
+    def _model_inputs(self, decoding):
+        """(tok_prev, tok_last, pos0, tables) of a draft-model round."""
+        tok_prev = np.zeros((self.max_slots,), np.int64)
+        tok_last = np.zeros((self.max_slots,), np.int64)
+        pos0 = np.zeros((self.max_slots,), np.int64)
+        tables = np.zeros_like(self._block_tables)
+        for s in decoding:
+            h = s.request.prompt + s.generated   # h[s.seq_len] == last_token
+            tok_prev[s.slot] = h[s.seq_len - 1]
+            tok_last[s.slot] = s.last_token
+            pos0[s.slot] = s.seq_len
+            tables[s.slot] = self._block_tables[s.slot]
+        return (self._tensor(tok_prev), self._tensor(tok_last),
+                self._tensor(pos0), self._tensor(tables))
+
+    def _step_speculative_model(self, decoding: List[_Running]) -> None:
+        """One draft-model speculation round across all decoding slots."""
+        t0 = time.perf_counter()
+        tp, tl, p0, tables = self._model_inputs(decoding)
+        chain, n_new, _, _, _ = self._model_round(
+            tp, tl, p0, tables, self._active_mask(decoding), self._sp_rows())
+        self._emit_spec_round(decoding, chain[None].cpu().numpy(),
+                              n_new[None].cpu().numpy(), 1,
+                              time.perf_counter() - t0)
+
+    def _spec_model_batch(self, n: int,
+                          decoding: List[_Running]) -> List[FinishedRequest]:
+        """Up to ``n`` draft-model rounds chained on the device with one
+        host sync (each round's next inputs come out of the round itself).
+        Tokens a row produced after its stop are dropped on the host; their
+        KV lands on pages freed with the request."""
+        rounds = self._spec_rounds_cap(n, decoding)
+        t0 = time.perf_counter()
+        tp, tl, p0, tables = self._model_inputs(decoding)
+        active, sp_rows = self._active_mask(decoding), self._sp_rows()
+        chains, n_news = [], []
+        for _ in range(rounds):
+            chain, n_new, tp, tl, p0 = self._model_round(tp, tl, p0, tables,
+                                                         active, sp_rows)
+            chains.append(chain)
+            n_news.append(n_new)
+        self._emit_spec_batch(decoding, torch.stack(chains).cpu().numpy(),
+                              torch.stack(n_news).cpu().numpy(), rounds,
+                              time.perf_counter() - t0)
+        return self._drain_finished()
+
+    def _spec_rounds_cap(self, n: int, decoding) -> int:
+        """How many rounds one chained batch may run: sized by the expected
+        acceptance (the EMA the policy tracks), not the worst case, so rows
+        near their budgets do not starve the batch (their overshoot is
+        dropped, as the plain chained path's post-stop ticks are); and no
+        row's verify may write at or past the end of its block-table row
+        (admission's +spec_k slack guarantees that one round fits)."""
+        k = self.spec_k
+        rem = min(s.request.max_new_tokens - len(s.generated)
+                  for s in decoding)
+        est = int(max(1.0, min(self._spec_tpf_ema or (k + 1), k + 1)))
+        rounds = max(1, min(n, -(-rem // est)))
+        limit = self.max_pages_per_seq * self.page_size
+        max_pos = max(s.seq_len for s in decoding)
+        return max(1, min(rounds, (limit - max_pos - 1) // (k + 1)))
+
+    def _emit_spec_round(self, decoding, chain_np, n_new_np, rounds,
+                         elapsed) -> int:
+        """Hand out ``rounds`` rounds of chains (``chain_np [rounds, slots,
+        k+1]``, ``n_new_np [rounds, slots]``); a row stops at its stop token
+        or budget and drops what it produced after.  Returns the tokens
+        handed out."""
+        kept = 0
+        for s in decoding:
+            done = False
+            for r in range(rounds):
+                if done:
+                    break
+                for j in range(int(n_new_np[r, s.slot])):
+                    tok = int(chain_np[r, s.slot, j])
+                    s.seq_len += 1
+                    self._seq_lens[s.slot] = s.seq_len
+                    s.generated.append(tok)
+                    s.last_token = tok
+                    kept += 1
+                    if self.on_token is not None:
+                        self.on_token(s.request.request_id, tok)
+                    if _is_stop(tok, self._eos, s):
+                        self._finish(s, "eos")
+                        done = True
+                        break
+                    if len(s.generated) >= s.request.max_new_tokens:
+                        self._finish(s, "length")
+                        done = True
+                        break
+        self.metrics.observe_decode(kept, elapsed)
+        # per-row normalization: tokens per forward reads as the mean
+        # tokens a row emitted per verify forward (1..k+1)
+        self.metrics.observe_spec(rounds * len(decoding), kept)
+        return kept
+
+    def _emit_spec_batch(self, decoding, chain_np, n_new_np, rounds,
+                         elapsed) -> None:
+        """``_emit_spec_round`` of a chained batch, which also feeds the
+        acceptance EMA of the chained prompt-lookup policy."""
+        kept = self._emit_spec_round(decoding, chain_np, n_new_np, rounds,
+                                     elapsed)
+        tpf = kept / max(1, rounds * len(decoding))
+        self._spec_tpf_ema = (tpf if self._spec_tpf_ema is None
+                              else 0.6 * self._spec_tpf_ema + 0.4 * tpf)
+
+    # ---------------- device-chained prompt lookup --------------------
+    def _hist_cap(self) -> int:
+        # every budgeted token, the not-yet-ingested last token and one
+        # round's overshoot past a stop
+        return (self.max_pages_per_seq * self.page_size
+                + 2 * (self.spec_k + 1))
+
+    def _sync_hist(self, decoding) -> torch.Tensor:
+        """Push each decoding slot's prompt + generated tokens the device
+        history buffer has not seen yet (watermarked: slots that advanced
+        only through chained rounds need no push, the on-device append
+        already wrote exactly the tokens the host kept).  Returns the
+        history lengths [slots] (seq_len + 1: the last token, whose KV the
+        verify writes, included)."""
+        if self._hist_buf is None:
+            self._hist_buf = torch.zeros((self.max_slots, self._hist_cap()),
+                                         dtype=torch.long, device=self.device)
+        lens = np.zeros((self.max_slots,), np.int64)
+        for s in decoding:
+            h = s.request.prompt + s.generated
+            lens[s.slot] = len(h)
+            start = self._hist_synced.get(s.slot, 0)
+            if start < len(h):
+                self._hist_buf[s.slot, start:len(h)] = self._tensor(
+                    np.asarray(h[start:], np.int64))
+                self._hist_synced[s.slot] = len(h)
+        return self._tensor(lens)
+
+    def _pld_round(self, lens, tables, active, sp_rows):
+        """One prompt-lookup round on the device: draft from the history
+        buffer, verify, append the emitted tokens to the buffer.  Returns
+        (chain, n_new, lens')."""
+        k, hist = self.spec_k, self._hist_buf
+        cap = hist.shape[1]
+        rows = torch.arange(hist.shape[0], device=self.device)
+        drafts, _ = pld_draft(hist, lens, ngram=self.spec_ngram, k=k)
+        pos0 = (lens - 1).clamp(min=0)
+        tokens = torch.cat([hist[rows, pos0][:, None], drafts], dim=1)
+        chain, n_new = self._verify(tokens, pos0, tables, drafts, active,
+                                    sp_rows)
+        n_new = torch.where(active, n_new, torch.zeros_like(n_new))
+        ar = torch.arange(k + 1, device=self.device)
+        idx = (lens[:, None] + ar[None, :]).clamp(max=cap - 1)
+        emit = ar[None, :] < n_new[:, None]
+        hist[rows[:, None].expand_as(idx)[emit], idx[emit]] = chain[emit]
+        return chain, n_new, lens + n_new
+
+    def _spec_pld_batch(self, n: int,
+                        decoding: List[_Running]) -> List[FinishedRequest]:
+        """Up to ``n`` prompt-lookup rounds chained on the device with one
+        host sync: drafts come from the device history buffer, so nothing
+        between rounds touches the host."""
+        rounds = self._spec_rounds_cap(n, decoding)
+        t0 = time.perf_counter()
+        lens = self._sync_hist(decoding)
+        tables = np.zeros_like(self._block_tables)
+        for s in decoding:
+            tables[s.slot] = self._block_tables[s.slot]
+        tables = self._tensor(tables)
+        active, sp_rows = self._active_mask(decoding), self._sp_rows()
+        chains, n_news = [], []
+        for _ in range(rounds):
+            chain, n_new, lens = self._pld_round(lens, tables, active,
+                                                 sp_rows)
+            chains.append(chain)
+            n_news.append(n_new)
+        self._emit_spec_batch(decoding, torch.stack(chains).cpu().numpy(),
+                              torch.stack(n_news).cpu().numpy(), rounds,
+                              time.perf_counter() - t0)
+        # live slots consumed every emitted token, so the device rows equal
+        # the host history: advance the watermark (slots that stopped were
+        # cleared by _finish for their next tenant)
+        for s in decoding:
+            if self._slots[s.slot] is s:
+                self._hist_synced[s.slot] = s.seq_len + 1
+        return self._drain_finished()
+
+    def _pld_batch_policy(self) -> str:
+        """Chained prompt lookup pays a (k+1)-token verify per round even
+        when no draft hits: speculate ("spec") while the acceptance EMA
+        clears 1.3 tokens per forward; else run plain chained ticks
+        ("plain") with a short "probe" batch every 16 batches so a shift in
+        the traffic re-enables speculation."""
+        if self._spec_tpf_ema is None or self._spec_tpf_ema >= 1.3:
+            return "spec"
+        self._spec_probe_countdown -= 1
+        if self._spec_probe_countdown <= 0:
+            self._spec_probe_countdown = 16
+            return "probe"
+        return "plain"
+
+    def _pld_draft_host(self, run: _Running) -> Optional[List[int]]:
+        """Prompt-lookup draft on the host: the spec_k tokens that followed
+        the most recent earlier occurrence of the history's final
+        spec_ngram-token suffix, or None when there is none (the slot then
+        verifies only its mandatory first position)."""
+        n, k = self.spec_ngram, self.spec_k
+        if run.pld_hist is None:
+            run.pld_hist = list(run.request.prompt)
+        hist = run.pld_hist
+        base = len(run.request.prompt)
+        if len(hist) - base < len(run.generated):
+            hist.extend(run.generated[len(hist) - base:])
+        if len(hist) < n + 1:
+            return None
+        # register every ngram that already has a continuation (ending at
+        # most at len-2); later registrations overwrite earlier ones, so a
+        # hit is the most recent earlier occurrence
+        for e in range(max(run.pld_done, n - 1), len(hist) - 1):
+            run.pld_index[tuple(hist[e - n + 1:e + 1])] = e - n + 1
+        run.pld_done = max(run.pld_done, len(hist) - 1)
+        j = run.pld_index.get(tuple(hist[-n:]))
+        if j is not None:
+            cont = hist[j + n:j + n + k]
+            if cont:
+                return cont + [0] * (k - len(cont))
+        return None
+
+    def _step_speculative(self, decoding: List[_Running],
+                          host_drafts: Dict[int, Optional[List[int]]]
+                          ) -> None:
+        """One round across all decoding slots with host drafts (a slot
+        without one verifies drafts of -1, which no sampled token equals)."""
+        k = self.spec_k
+        t0 = time.perf_counter()
+        toks = np.zeros((self.max_slots, k + 1), np.int64)
+        drafts = np.zeros((self.max_slots, k), np.int64)
+        pos0 = np.zeros((self.max_slots,), np.int64)
+        tables = np.zeros_like(self._block_tables)
+        for s in decoding:
+            toks[s.slot, 0] = s.last_token
+            d = host_drafts.get(s.slot)
+            if d is not None:
+                toks[s.slot, 1:] = d
+                drafts[s.slot] = d
+            else:
+                drafts[s.slot] = -1
+            pos0[s.slot] = s.seq_len
+            tables[s.slot] = self._block_tables[s.slot]
+        chain, n_new = self._verify(
+            self._tensor(toks), self._tensor(pos0), self._tensor(tables),
+            self._tensor(drafts), self._active_mask(decoding),
+            self._sp_rows())
+        self._emit_spec_round(decoding, chain[None].cpu().numpy(),
+                              n_new[None].cpu().numpy(), 1,
+                              time.perf_counter() - t0)

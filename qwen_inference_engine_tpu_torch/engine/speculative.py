@@ -1,0 +1,167 @@
+"""Prompt-lookup speculative decoding (no draft model).
+
+The port of the JAX package's ``engine/speculative.py``.  Each round
+drafts ``k`` tokens per row by copying what followed the most recent
+earlier occurrence of the row's final ``ngram``-token suffix in its own
+history (prompt + generated: the "prompt lookup" draft, strong where
+output echoes input), then verifies all drafts in ONE forward of T = k+1
+tokens (``forward_hidden(..., ragged_multi=True)``: a per-row window write
+and the contiguous chunk kernel with per-row starts).  The longest prefix
+of drafts equal to the model's own token chain is kept (argmax for greedy,
+a categorical draw per position otherwise), so greedy output is
+token-identical to token-by-token decoding and every round emits 1..k+1
+tokens.  KV written for rejected drafts is overwritten by the next round
+before it can be attended (writes precede reads at every position).
+
+The rounds run eagerly; the host looks at the rows' state every 4 rounds,
+as the JAX loop does.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from qwen_inference_engine_tpu_torch.config import ModelConfig
+from qwen_inference_engine_tpu_torch.models.qwen import (
+    compute_logits,
+    forward_hidden,
+    prefill,
+)
+
+
+def pld_draft(history: torch.Tensor, lens: torch.Tensor, *, ngram: int,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draft ``k`` tokens per row from the row's own history.
+
+    history [B, S] (positions >= lens are don't-care); lens [B] = number of
+    valid tokens.  Returns (drafts [B, k], found [B] bool).  A row with no
+    earlier ngram match gets found=False and the tokens at the start of its
+    history (the caller still verifies: the first verified token is always
+    accepted, so correctness holds)."""
+    B, S = history.shape
+    dev = history.device
+    lens = lens.long()
+    pos = torch.arange(S, device=dev)[None, :]
+    # suffix = the last `ngram` valid tokens of each row
+    suf_idx = lens[:, None] - ngram + torch.arange(ngram, device=dev)[None, :]
+    suffix = torch.gather(history, 1, suf_idx.clamp(min=0))
+    # a window starting at j matches iff history[j:j+n] == suffix and the
+    # window (plus k continuation tokens) lies strictly before the suffix
+    eq = torch.ones((B, S), dtype=torch.bool, device=dev)
+    for t in range(ngram):
+        shifted = torch.roll(history, -t, dims=1)
+        eq = eq & (shifted == suffix[:, t:t + 1])
+    ok = eq & (pos + ngram <= lens[:, None] - ngram) & (pos + ngram + k <= S)
+    # the LAST such window (argmax returns the first maximal index)
+    j = torch.argmax(torch.where(ok, pos, torch.full_like(pos, -1)), dim=1)
+    found = ok.any(dim=1)
+    gather = j[:, None] + ngram + torch.arange(k, device=dev)[None, :]
+    drafts = torch.gather(history, 1, gather.clamp(max=S - 1))
+    return drafts, found
+
+
+def speculative_step(params: dict, cfg: ModelConfig, history: torch.Tensor,
+                     lens: torch.Tensor, cache, done: torch.Tensor,
+                     generator: Optional[torch.Generator] = None, *, k: int,
+                     ngram: int, greedy: bool = True,
+                     temperature: float = 0.7):
+    """One speculation round over the contiguous cache.  history [B, S]
+    holds prompt + generated so far (updated in place), lens [B] the
+    valid length (= next position + 1: the last token is not yet in the
+    cache).  Returns (history, lens', cache, done', n_new [B]): n_new tokens
+    were appended to each row (0 once it is done).  A stochastic round
+    draws position j of every row as the j-th draw of ``generator``."""
+    B, S = history.shape
+    dev = history.device
+    eos = torch.tensor(list(cfg.eos_token_ids), device=dev)
+    lens = lens.long()
+    drafts, _ = pld_draft(history, lens, ngram=ngram, k=k)
+    last = torch.gather(history, 1, lens[:, None] - 1)          # [B, 1]
+    tokens = torch.cat([last, drafts], dim=1)                   # [B, k+1]
+    ar = torch.arange(k + 1, device=dev)
+    positions = lens[:, None] - 1 + ar[None, :]
+    hidden, cache = forward_hidden(params, cfg, tokens, positions, cache,
+                                   ragged_multi=True)
+    logits = compute_logits(params, hidden, cfg.act_bits_lm_head)
+    if greedy:
+        chain = torch.argmax(logits, dim=-1)
+    else:
+        t = max(float(temperature), 1e-6)
+        chain = torch.stack(
+            [torch.multinomial(torch.softmax(logits[:, j] / t, dim=-1), 1,
+                               generator=generator)[:, 0]
+             for j in range(k + 1)], dim=1)
+    # accept drafts while draft[i] == chain[i-1]; then append chain[a]
+    acc = torch.cumprod((drafts == chain[:, :-1]).long(), dim=1)
+    a = acc.sum(dim=1)                                          # accepted
+    within = ar[None, :] <= a[:, None]
+    emit = torch.where(within, chain, torch.zeros_like(chain))
+    # stop at the first EOS inside the emitted run
+    is_eos = (emit[:, :, None] == eos[None, None, :]).any(dim=-1) & within
+    any_eos = is_eos.any(dim=1)
+    first_eos = torch.where(any_eos, torch.argmax(is_eos.long(), dim=1),
+                            torch.full_like(a, k + 1))
+    n_new = torch.where(done, torch.zeros_like(a),
+                        torch.minimum(a + 1, first_eos + 1))
+    # the emitted tokens go into the history at [lens, lens + n_new)
+    keep = ar[None, :] < n_new[:, None]
+    rows = torch.arange(B, device=dev)[:, None].expand(B, k + 1)
+    tgt = lens[:, None] + ar[None, :]
+    history[rows[keep], tgt[keep]] = emit[keep]
+    return history, lens + n_new, cache, done | any_eos, n_new
+
+
+def generate_speculative(params: dict, cfg: ModelConfig,
+                         prompts: Sequence[Sequence[int]], cache,
+                         max_new_tokens: int = 128, *, k: int = 8,
+                         ngram: int = 3) -> List[List[int]]:
+    """Greedy generation with prompt-lookup speculation over the
+    contiguous cache (``cache`` holds at least ``len(prompts)`` rows).
+    Token-identical to plain greedy decoding; 1..k+1 tokens per forward.
+    Returns the generated ids of each prompt (cut after an EOS)."""
+    B = len(prompts)
+    dev = cache.k.device
+    max_len = max(len(p) for p in prompts)
+    S = cache.k.shape[3]
+    if max_len + max_new_tokens + k + 1 > S:
+        raise ValueError(f"cache of {S} positions too small for prompts of "
+                         f"{max_len} + {max_new_tokens} new + {k + 1}")
+    hist = np.zeros((B, S), np.int64)
+    lens0 = np.zeros((B,), np.int64)
+    for i, p in enumerate(prompts):
+        hist[i, :len(p)] = p
+        lens0[i] = len(p)
+    history = torch.from_numpy(hist).to(dev)
+    lens = torch.from_numpy(lens0).to(dev)
+    logits, cache = prefill(params, cfg, history[:, :max_len], lens, cache)
+    first = torch.argmax(logits, dim=-1)
+    rows = torch.arange(B, device=dev)
+    history[rows, lens] = first
+    prompt_lens = lens0
+    lens = lens + 1
+    eos = torch.tensor(list(cfg.eos_token_ids), device=dev)
+    done = (first[:, None] == eos[None, :]).any(dim=-1)
+    budget = lens + (max_new_tokens - 1)
+    it = 0
+    while True:
+        history, lens, cache, done, _ = speculative_step(
+            params, cfg, history, lens, cache, done, k=k, ngram=ngram)
+        lens = torch.minimum(lens, budget)
+        it += 1
+        if it % 4 == 0 or it >= max_new_tokens:
+            if bool((done | (lens >= budget)).all()) or it >= max_new_tokens:
+                break
+    hist_np = history.cpu().numpy()
+    lens_np = lens.cpu().numpy()
+    outs = []
+    for i in range(B):
+        clipped = []
+        for t in hist_np[i, int(prompt_lens[i]):int(lens_np[i])].tolist():
+            clipped.append(int(t))
+            if t in cfg.eos_token_ids:
+                break
+        outs.append(clipped)
+    return outs

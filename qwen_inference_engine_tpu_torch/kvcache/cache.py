@@ -15,9 +15,10 @@ An int8 cache (INT8 KV) also holds per-token-per-head f32 scales
 ``[L, B, Hk, S]``; ``KVCache.write`` quantizes the fresh rows with
 ``quantize_kv`` and stores the bytes and the scales through the same plain
 write, as the JAX package's ``_write_cache_stacked`` does.  The paged
-cache of this port holds bf16 or f32 pages; its INT8 pool (scales
-``[L, P, Hk, page]``) is created, but the model raises on it until the INT8
-paged kernels are ported.
+cache holds bf16, f32 or int8 pages; an int8 pool carries its scales
+``[L, P, Hk, page]`` through every paged append (written in the same
+launch), ``copy_page`` and the plain writes (``paged_write_stacked`` on a
+trailing unit axis).
 """
 
 from __future__ import annotations

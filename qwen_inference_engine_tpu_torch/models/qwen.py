@@ -22,24 +22,32 @@ Attention branches (each a kernel of the port):
   ``quantize_kv``, ``kv_append_uniform_q8``, then
   ``decode_attention_contiguous_q8``;
 * ragged decode: the plain stacked scatter (quantizing for INT8 KV), then
-  ``decode_attention_contiguous[_q8]`` with per-row lengths.
+  ``decode_attention_contiguous[_q8]`` with per-row lengths;
+* the speculative verify (``ragged_multi``: T > 1 consecutive positions
+  from a per-row start): the plain per-row window write (quantizing for
+  INT8 KV), then ``chunk_attention_contiguous[_q8]`` with the per-row
+  starts on the device.
 
 Over the paged cache (``PagedKVCache`` with ``block_tables [B, max_pages]``,
-the serving scheduler's path; bf16 or f32 pages):
+the serving scheduler's path; bf16, int8 or f32 pages; an int8 pool's
+appends take ``quantize_kv``'s bytes and scales):
 
 * a fresh piece (positions ``0..T-1``): ``paged_append_prefill`` writes
   the piece through its table, ``flash_attention`` attends over the fresh
-  K/V;
+  (unquantized) K/V;
 * a continuation piece (``start..start+T-1``, ``start`` a host int):
-  ``paged_append_prefill``, then ``paged_chunk_attention`` over the paged
-  prefix;
+  ``paged_append_prefill``, then ``paged_chunk_attention[_q8]`` over the
+  paged prefix;
 * decode (T == 1, per-row positions on the device): ``paged_append_ragged``
-  then ``paged_decode_attention_stacked`` with lengths ``position + 1``.
+  then ``paged_decode_attention_stacked[_q8]`` with lengths
+  ``position + 1``;
+* the speculative verify (``ragged_multi``, 2 <= T <= 16 tokens per row at
+  per-row starts on the device): ``paged_append_ragged_t``, then
+  ``paged_verify_attention_stacked[_q8]`` with lengths ``start + T``.
 
 A prefill piece is one sequence (the scheduler's pieces are; the JAX
 package's batched piece goes through XLA and no caller of the port needs
-it).  The INT8 page pool raises ``NotImplementedError`` (in the paged
-wrappers) until its kernels are ported.
+it).
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from qwen_inference_engine_tpu_torch.ops.chunk_attention import (
     chunk_attention_contiguous,
     chunk_attention_contiguous_q8,
     paged_chunk_attention,
+    paged_chunk_attention_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_appending,
@@ -74,6 +83,7 @@ from qwen_inference_engine_tpu_torch.ops.kv_append import (
     kv_append_uniform_q8,
     paged_append_prefill,
     paged_append_ragged,
+    paged_append_ragged_t,
 )
 from qwen_inference_engine_tpu_torch.ops.linear import (
     Linear,
@@ -83,6 +93,9 @@ from qwen_inference_engine_tpu_torch.ops.linear import (
 from qwen_inference_engine_tpu_torch.ops.norms import qk_norm, rms_norm
 from qwen_inference_engine_tpu_torch.ops.paged_attention import (
     paged_decode_attention_stacked,
+    paged_decode_attention_stacked_q8,
+    paged_verify_attention_stacked,
+    paged_verify_attention_stacked_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.rope import apply_rope, precompute_rope
 from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
@@ -98,7 +111,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` one layer slab at a time so no f32 copy of a whole stacked
     tensor is ever live.  The generator must live on ``device``."""
     if cfg.is_moe:
-        raise NotImplementedError("Qwen3-MoE is not ported yet")
+        raise NotImplementedError("Qwen3-MoE is not ported yet: it comes "
+                                  "with the MoE slice (5)")
     L, D, Fi, V = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     Qd, Kd = cfg.q_dim, cfg.kv_dim
 
@@ -267,23 +281,41 @@ def params_to(params: dict, device) -> dict:
 # ----------------------------------------------------------------------
 
 def _paged_attention(cache: PagedKVCache, layer: int, q, k, v,
-                     block_tables, *, fresh_prefill: bool, start: int,
-                     decode_pos, lengths):
-    """Write this layer's fresh K/V into the page pool and attend (the three
-    paged branches of the module docstring)."""
+                     block_tables, *, fresh_prefill: bool, ragged_multi: bool,
+                     start: int, row_pos, lengths):
+    """Write this layer's fresh K/V into the page pool (an int8 pool takes
+    ``quantize_kv``'s bytes and scales) and attend (the paged branches of
+    the module docstring)."""
     T = q.shape[1]
+    ps = cache.page_size
+    pools = (cache.k_pages, cache.v_pages)
+    kw, scales = {}, ()
+    kn, vn = k, v
+    if cache.quantized:
+        kn, ks = quantize_kv(k)
+        vn, vs = quantize_kv(v)
+        scales = (cache.k_scale, cache.v_scale)
+        kw = dict(k_scale=cache.k_scale, v_scale=cache.v_scale, ks_new=ks,
+                  vs_new=vs)
     if T == 1 and not fresh_prefill:
-        paged_append_ragged(cache.k_pages, cache.v_pages, k, v, decode_pos,
-                            block_tables, layer, page_size=cache.page_size)
-        return paged_decode_attention_stacked(
-            q, cache.k_pages, cache.v_pages, block_tables, lengths,
-            cache.page_size, layer)
-    paged_append_prefill(cache.k_pages, cache.v_pages, k, v, start,
-                         block_tables, layer, page_size=cache.page_size)
+        paged_append_ragged(*pools, kn, vn, row_pos, block_tables, layer,
+                            page_size=ps, **kw)
+        attend = (paged_decode_attention_stacked_q8 if cache.quantized
+                  else paged_decode_attention_stacked)
+        return attend(q, *pools, *scales, block_tables, lengths, ps, layer)
+    if ragged_multi:
+        paged_append_ragged_t(*pools, kn, vn, row_pos, block_tables, layer,
+                              page_size=ps, **kw)
+        attend = (paged_verify_attention_stacked_q8 if cache.quantized
+                  else paged_verify_attention_stacked)
+        return attend(q, *pools, *scales, block_tables, lengths, ps, layer)
+    paged_append_prefill(*pools, kn, vn, start, block_tables, layer,
+                         page_size=ps, **kw)
     if fresh_prefill:
         return flash_attention(q, k, v)
-    return paged_chunk_attention(q, cache.k_pages, cache.v_pages,
-                                 block_tables, layer, start, cache.page_size)
+    attend = (paged_chunk_attention_q8 if cache.quantized
+              else paged_chunk_attention)
+    return attend(q, *pools, *scales, block_tables, layer, start, ps)
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -291,6 +323,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    block_tables: Optional[torch.Tensor] = None,
                    fresh_prefill: bool = False,
                    uniform_decode: bool = False,
+                   ragged_multi: bool = False,
                    start: Optional[int] = None):
     """Run the transformer stack; returns (hidden [B, T, D], cache).
 
@@ -298,7 +331,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``PagedKVCache`` with ``block_tables [B, max_pages]``) is updated in
     place.  uniform_decode: the caller promises every row decodes at the
     same position (an aligned batch); it selects the contiguous append
-    kernels.  start: a prefill continuation chunk (T > 1, not fresh) gives
+    kernels.  ragged_multi: the caller promises each row's T > 1 positions
+    are consecutive from a per-row start (``positions[:, j] ==
+    positions[:, 0] + j``): the speculative verify forward.  start: a
+    prefill continuation chunk (T > 1, not fresh, not ragged_multi) gives
     its first position as a host int; every row's positions are
     ``start..start+T-1``.
     """
@@ -306,7 +342,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     act = cfg.act_bits
-    continuation = not fresh_prefill and T > 1
+    if ragged_multi and (fresh_prefill or T < 2):
+        raise ValueError("ragged_multi is the verify of T > 1 tokens over a "
+                         "filled cache")
+    continuation = not fresh_prefill and T > 1 and not ragged_multi
     if continuation and start is None:
         raise ValueError("a prefill continuation chunk (T > 1 over a filled "
                          "cache) needs its first position `start`")
@@ -314,7 +353,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if paged:
         if block_tables is None:
             raise ValueError("a paged cache needs block_tables")
-        if B != 1 and (T > 1 or fresh_prefill):
+        if B != 1 and (fresh_prefill or continuation):
             raise ValueError(f"a paged prefill piece takes one sequence, "
                              f"not {B}")
         block_tables = block_tables.to(torch.int32).contiguous()
@@ -326,10 +365,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if not fresh_prefill:
         # int32 once per step, as the kernels read them (on the device)
         position = positions[:1, 0].int()     # uniform decode
-        decode_pos = positions[:, 0].int()    # paged decode
-        lengths = (positions[:, 0] + 1).int()  # ragged decode
+        row_pos = positions[:, 0].int()       # paged decode / verify starts
+        lengths = (positions[:, 0] + T).int()  # ragged decode / verify
     else:
-        decode_pos = lengths = None
+        row_pos = lengths = None
     for l in range(cfg.num_layers):
         h = rms_norm(x, lyr["input_norm"][l], eps)
         q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
@@ -342,23 +381,29 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         k = apply_rope(k, positions, cos, sin)
 
         if paged:
-            attn = _paged_attention(cache, l, q, k, v,
-                                    block_tables, fresh_prefill=fresh_prefill,
-                                    start=start, decode_pos=decode_pos,
-                                    lengths=lengths)
+            attn = _paged_attention(cache, l, q, k, v, block_tables,
+                                    fresh_prefill=fresh_prefill,
+                                    ragged_multi=ragged_multi, start=start,
+                                    row_pos=row_pos, lengths=lengths)
         elif fresh_prefill:
             cache.write(l, k, v, write_prefill_stacked)
             attn = flash_attention(q, k, v)
-        elif continuation:
-            cache.write(l, k, v, functools.partial(write_window_stacked,
-                                                   start=start))
+        elif continuation or ragged_multi:
+            if ragged_multi:
+                # per-row windows: the rows' starts stay on the device
+                cache.write(l, k, v, functools.partial(
+                    write_stacked, positions=positions))
+            else:
+                cache.write(l, k, v, functools.partial(write_window_stacked,
+                                                       start=start))
+            first = row_pos if ragged_multi else start
             if cache.quantized:
                 attn = chunk_attention_contiguous_q8(
                     q, cache.k, cache.v, cache.k_scale, cache.v_scale, l,
-                    start)
+                    first)
             else:
                 attn = chunk_attention_contiguous(q, cache.k, cache.v, l,
-                                                  start)
+                                                  first)
         elif cache.quantized:
             if uniform_decode:
                 qk, sk = quantize_kv(k)

@@ -49,31 +49,30 @@ SIGNATURES = {
     # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
     "qie_decode_attention_q8": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, out,
+    # q, k_cache, v_cache, k_scale, v_scale, starts, out,
     # L, Bc, B, T, Hq, Hk, S, D, layer, start, scale, stream
-    "qie_chunk_attention": [_P, _P, _P, _P, _P, _P,
+    "qie_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
     # position, L, Bc, B, Hk, S, D, layer, stream
     "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k_pages, v_pages, tables, lens, out,
-    # L, P, B, Hq, Hk, page, max_pages, D, layer, scale, stream
-    "qie_paged_decode_attention": [_P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                   _P],
-    # q, k_pages, v_pages, tables, out,
+    # q, k_pages, v_pages, k_scale, v_scale, tables, lens, out,
+    # L, P, B, T, Hq, Hk, page, max_pages, D, layer, scale, stream
+    "qie_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, k_scale, v_scale, tables, out,
     # L, P, B, T, Hq, Hk, page, max_pages, D, layer, start, scale, stream
-    "qie_paged_chunk_attention": [_P, _P, _P, _P, _P,
+    "qie_paged_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _P],
-    # k_pages, v_pages, k_new, v_new, positions, tables,
-    # L, P, B, Hk, page, D, max_pages, layer, stream
-    "qie_paged_append_ragged": [_P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # k_pages, v_pages, k_new, v_new, table,
-    # L, P, T, Hk, page, D, max_pages, layer, start, stream
-    "qie_paged_append_prefill": [_P, _P, _P, _P, _P,
+    # k_pages, v_pages, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+    # starts, tables, L, P, B, T, Hk, page, D, max_pages, layer, stream
+    "qie_paged_append_ragged_t": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # k_pages, v_pages, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+    # table, L, P, T, Hk, page, D, max_pages, layer, start, stream
+    "qie_paged_append_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -1,5 +1,5 @@
-"""In-place KV appends: INT8 decode into the contiguous cache, bf16 into
-the page pool.
+"""In-place KV appends: INT8 decode into the contiguous cache, bf16 or int8
+rows into the page pool.
 
 Each wrapper launches a kernel of ``csrc/kv_append.cu``:
 
@@ -12,14 +12,22 @@ Each wrapper launches a kernel of ``csrc/kv_append.cu``:
   ``_paged_ragged_kernel``): the decode step's one K/V row per batch row,
   each at its own position, through its block table; a negative position
   skips the row;
+* ``paged_append_ragged_t`` (the port of ``paged_append_ragged_t`` /
+  ``_paged_ragged_t_kernel``): the speculative verify's T consecutive K/V
+  rows per batch row at a per-row start (T <= page: the window may
+  straddle two pages); a negative start skips the row;
 * ``paged_append_prefill`` (the port of ``paged_append_prefill`` /
   ``_paged_prefill_kernel``): a prefill piece's T K/V rows of one sequence
   at ``start .. start+T-1`` through ``tables[0]``.
 
-``*_plain`` beside each is the plain indexed write.  Both paged appends
-follow the table as it is (zero entries lead to scratch page 0, as bucket
-padding does in the JAX package); a position past the table's width writes
-nothing, as the JAX scatter drops it.
+The paged appends take a bf16 pool with bf16 rows, or an int8 pool with
+the quantized rows and their f32 scales (``quantize_kv``): the kernel
+writes the bytes and the scales ``[L, P, Hk, page]`` in one launch, where
+the JAX package runs its kernels on the bytes and scatters the scales with
+XLA.  ``*_plain`` beside each is the plain indexed write.  The paged
+appends follow the table as it is (zero entries lead to scratch page 0, as
+bucket padding does in the JAX package); a position past the table's width
+writes nothing, as the JAX scatter drops it.
 """
 
 from __future__ import annotations
@@ -35,10 +43,7 @@ from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     check_scales,
     device_position,
 )
-from qwen_inference_engine_tpu_torch.ops.paged_attention import (
-    check_paged,
-    refuse_int8_pool,
-)
+from qwen_inference_engine_tpu_torch.ops.paged_attention import check_paged
 
 
 def kv_append_uniform_q8_plain(k_cache, v_cache, k_scale, v_scale, k_new,
@@ -109,51 +114,122 @@ def kv_append_uniform_q8(k_cache: torch.Tensor, v_cache: torch.Tensor,
 kv_append_uniform_q8.launches = 0
 
 
-def paged_append_ragged_plain(k_pages, v_pages, k_new, v_new, positions,
-                              block_tables, layer: int, page_size: int):
-    """Write ``k/v_new [B, 1, Hk, D]`` at ``positions [B]`` (negative: skip
-    the row) through ``block_tables [B, max_pages]`` into
-    ``pages[layer]`` (in place); returns the pools."""
-    keep = positions >= 0
-    pos = positions.long().clamp(min=0)[keep][:, None]
-    tables = block_tables[keep]
-    paged_write_stacked(k_pages, layer, k_new[keep], pos, tables, page_size)
-    paged_write_stacked(v_pages, layer, v_new[keep], pos, tables, page_size)
+def _paged_rows_plain(k_pages, v_pages, k_new, v_new, positions,
+                      block_tables, layer: int, page_size: int, k_scale,
+                      v_scale, ks_new, vs_new):
+    """Write ``k/v_new [B, T, Hk, D]`` (and ``ks/vs_new [B, T, Hk]`` into
+    the scales of an int8 pool) at ``positions [B, T]`` through
+    ``block_tables`` into ``pages[layer]``, in place."""
+    paged_write_stacked(k_pages, layer, k_new, positions, block_tables,
+                        page_size)
+    paged_write_stacked(v_pages, layer, v_new, positions, block_tables,
+                        page_size)
+    if k_scale is not None:
+        paged_write_stacked(k_scale[..., None], layer, ks_new[..., None],
+                            positions, block_tables, page_size)
+        paged_write_stacked(v_scale[..., None], layer, vs_new[..., None],
+                            positions, block_tables, page_size)
     return k_pages, v_pages
 
 
-def paged_append_ragged(k_pages: torch.Tensor, v_pages: torch.Tensor,
-                        k_new: torch.Tensor, v_new: torch.Tensor,
-                        positions: torch.Tensor, block_tables: torch.Tensor,
-                        layer: int, *, page_size: int):
-    """Decode append into the stacked pools ``[L, P, Hk, page, D]``, in
-    place: row b's ``k/v_new [B, 1, Hk, D]`` at ``positions[b]`` through
-    ``block_tables[b]``; ``positions [B]`` and the tables stay on the
-    device (read by the kernel).  Returns the two pools.  A CPU tensor runs
-    the plain version; a CUDA tensor launches the kernel or raises."""
-    refuse_int8_pool(k_pages, "paged_append_ragged")
-    if k_pages.device.type == "cpu":
-        return paged_append_ragged_plain(k_pages, v_pages, k_new, v_new,
-                                         positions, block_tables, layer,
-                                         page_size)
-    name = "paged_append_ragged"
+def paged_append_ragged_t_plain(k_pages, v_pages, k_new, v_new, positions,
+                                block_tables, layer: int, page_size: int,
+                                k_scale=None, v_scale=None, ks_new=None,
+                                vs_new=None):
+    """Write row b's ``k/v_new [B, T, Hk, D]`` at ``positions[b] ..
+    positions[b] + T - 1`` (a negative start skips the row) through
+    ``block_tables [B, max_pages]`` into ``pages[layer]`` (in place);
+    returns the pools."""
+    keep = positions >= 0
+    T = k_new.shape[1]
+    pos = positions.long()[keep][:, None] + torch.arange(
+        T, device=positions.device)
+    scales = ((ks_new[keep], vs_new[keep]) if k_scale is not None
+              else (None, None))
+    return _paged_rows_plain(k_pages, v_pages, k_new[keep], v_new[keep], pos,
+                             block_tables[keep], layer, page_size, k_scale,
+                             v_scale, *scales)
+
+
+def paged_append_ragged_plain(k_pages, v_pages, k_new, v_new, positions,
+                              block_tables, layer: int, page_size: int,
+                              k_scale=None, v_scale=None, ks_new=None,
+                              vs_new=None):
+    """Write ``k/v_new [B, 1, Hk, D]`` at ``positions [B]`` (negative: skip
+    the row) through ``block_tables [B, max_pages]`` into ``pages[layer]``
+    (in place); returns the pools."""
+    return paged_append_ragged_t_plain(k_pages, v_pages, k_new, v_new,
+                                       positions, block_tables, layer,
+                                       page_size, k_scale, v_scale, ks_new,
+                                       vs_new)
+
+
+def _check_new_scales(name, k_new, scales, ks_new, vs_new):
+    """An int8 pool's new rows come with f32 scales ``[B, T, Hk]``."""
+    if scales is None:
+        return None, None
+    for t in (ks_new, vs_new):
+        if t is None or t.shape != k_new.shape[:-1] \
+                or t.dtype != torch.float32 or t.device != k_new.device:
+            raise ValueError(f"{name}: int8 rows come with f32 scales "
+                             f"{tuple(k_new.shape[:-1])} on their device")
+    return ks_new.contiguous(), vs_new.contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_rows(name, k_pages, v_pages, k_new, v_new, positions,
+                 block_tables, layer, page_size, k_scale, v_scale, ks_new,
+                 vs_new):
+    """The ragged (T = 1) and windowed appends: one entry point for both."""
     L, P, Hk, PS, D = k_pages.shape
-    B = k_new.shape[0]
-    if k_new.shape != (B, 1, Hk, D):
-        raise ValueError(f"{name}: new rows must be {(B, 1, Hk, D)}, not "
-                         f"{tuple(k_new.shape)}")
+    B, T = k_new.shape[:2]
+    if k_new.shape != (B, T, Hk, D) or not 1 <= T <= PS:
+        raise ValueError(f"{name}: new rows must be [B, T <= page ({PS}), "
+                         f"{Hk}, {D}], not {tuple(k_new.shape)}")
+    scales = None if k_scale is None else (k_scale, v_scale)
     tables = check_paged(name, (k_new, v_new), (k_pages, v_pages),
-                         block_tables, page_size, layer)
+                         block_tables, page_size, layer, scales=scales)
+    ksn, vsn = _check_new_scales(name, k_new, scales, ks_new, vs_new)
     if positions.shape != (B,) or positions.device != k_pages.device:
         raise ValueError(f"{name}: positions must be [{B}] on the pools' "
                          f"device")
     pos = positions.to(torch.int32).contiguous()
     kn, vn = k_new.contiguous(), v_new.contiguous()
-    rc = cuda_lib.library().qie_paged_append_ragged(
-        k_pages.data_ptr(), v_pages.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-        pos.data_ptr(), tables.data_ptr(), L, P, B, Hk, PS, D,
-        tables.shape[1], int(layer), cuda_lib.stream_handle(k_pages.device))
+    lib = cuda_lib.library()
+    rc = lib.qie_paged_append_ragged_t(
+        k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        kn.data_ptr(), vn.data_ptr(), _ptr(ksn), _ptr(vsn), pos.data_ptr(),
+        tables.data_ptr(), L, P, B, T, Hk, PS, D, tables.shape[1], int(layer),
+        cuda_lib.stream_handle(k_pages.device))
     cuda_lib.check(rc, name)
+
+
+def paged_append_ragged(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        positions: torch.Tensor, block_tables: torch.Tensor,
+                        layer: int, *, page_size: int, k_scale=None,
+                        v_scale=None, ks_new=None, vs_new=None):
+    """Decode append into the stacked pools ``[L, P, Hk, page, D]``, in
+    place: row b's ``k/v_new [B, 1, Hk, D]`` at ``positions[b]`` through
+    ``block_tables[b]``; ``positions [B]`` and the tables stay on the
+    device (read by the kernel).  An int8 pool takes int8 rows, their
+    scales ``ks/vs_new [B, 1, Hk]`` and its own ``k/v_scale``.  Returns the
+    two pools.  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises."""
+    if k_pages.device.type == "cpu":
+        return paged_append_ragged_plain(k_pages, v_pages, k_new, v_new,
+                                         positions, block_tables, layer,
+                                         page_size, k_scale, v_scale, ks_new,
+                                         vs_new)
+    if k_new.shape[1] != 1:
+        raise ValueError(f"paged_append_ragged: new rows must be [B, 1, Hk, "
+                         f"D], not {tuple(k_new.shape)}")
+    _launch_rows("paged_append_ragged", k_pages, v_pages, k_new, v_new,
+                 positions, block_tables, layer, page_size, k_scale, v_scale,
+                 ks_new, vs_new)
     paged_append_ragged.launches += 1
     return k_pages, v_pages
 
@@ -161,48 +237,86 @@ def paged_append_ragged(k_pages: torch.Tensor, v_pages: torch.Tensor,
 paged_append_ragged.launches = 0
 
 
+def paged_append_ragged_t(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor,
+                          positions: torch.Tensor, block_tables: torch.Tensor,
+                          layer: int, *, page_size: int, k_scale=None,
+                          v_scale=None, ks_new=None, vs_new=None):
+    """Verify-window append into the stacked pools, in place: row b's ``k/
+    v_new [B, T, Hk, D]`` at ``positions[b] .. positions[b] + T - 1``
+    through ``block_tables[b]`` (T <= page, so a window straddles at most
+    two pages; the caller allocates both); a negative start skips the row.
+    An int8 pool takes int8 rows with their scales ``[B, T, Hk]``.
+    Returns the two pools.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    if k_new.shape[1] > k_pages.shape[3]:
+        raise ValueError(f"paged_append_ragged_t: a window of T = "
+                         f"{k_new.shape[1]} exceeds the page "
+                         f"({k_pages.shape[3]})")
+    if k_pages.device.type == "cpu":
+        return paged_append_ragged_t_plain(k_pages, v_pages, k_new, v_new,
+                                           positions, block_tables, layer,
+                                           page_size, k_scale, v_scale,
+                                           ks_new, vs_new)
+    _launch_rows("paged_append_ragged_t", k_pages, v_pages, k_new, v_new,
+                 positions, block_tables, layer, page_size, k_scale, v_scale,
+                 ks_new, vs_new)
+    paged_append_ragged_t.launches += 1
+    return k_pages, v_pages
+
+
+paged_append_ragged_t.launches = 0
+
+
 def paged_append_prefill_plain(k_pages, v_pages, k_new, v_new, start: int,
-                               block_tables, layer: int, page_size: int):
+                               block_tables, layer: int, page_size: int,
+                               k_scale=None, v_scale=None, ks_new=None,
+                               vs_new=None):
     """Write ``k/v_new [1, T, Hk, D]`` at ``start .. start+T-1`` through
     ``block_tables [1, max_pages]`` into ``pages[layer]`` (in place);
     returns the pools."""
     T = k_new.shape[1]
     pos = (int(start) + torch.arange(T, device=k_new.device))[None, :]
-    paged_write_stacked(k_pages, layer, k_new, pos, block_tables, page_size)
-    paged_write_stacked(v_pages, layer, v_new, pos, block_tables, page_size)
-    return k_pages, v_pages
+    return _paged_rows_plain(k_pages, v_pages, k_new, v_new, pos,
+                             block_tables, layer, page_size, k_scale,
+                             v_scale, ks_new, vs_new)
 
 
 def paged_append_prefill(k_pages: torch.Tensor, v_pages: torch.Tensor,
                          k_new: torch.Tensor, v_new: torch.Tensor,
                          start: int, block_tables: torch.Tensor, layer: int,
-                         *, page_size: int):
+                         *, page_size: int, k_scale=None, v_scale=None,
+                         ks_new=None, vs_new=None):
     """Prefill-piece append of one sequence into the stacked pools, in
     place: ``k/v_new [1, T, Hk, D]`` at ``start .. start+T-1`` (``start`` a
     host int) through ``block_tables [1, max_pages]``, across page
-    boundaries.  Returns the two pools.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises."""
-    refuse_int8_pool(k_pages, "paged_append_prefill")
+    boundaries; an int8 pool takes int8 rows with their scales ``[1, T,
+    Hk]``.  Returns the two pools.  A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel or raises."""
     if k_pages.device.type == "cpu":
         return paged_append_prefill_plain(k_pages, v_pages, k_new, v_new,
                                           start, block_tables, layer,
-                                          page_size)
+                                          page_size, k_scale, v_scale,
+                                          ks_new, vs_new)
     name = "paged_append_prefill"
     L, P, Hk, PS, D = k_pages.shape
     T = k_new.shape[1]
     if k_new.shape != (1, T, Hk, D) or not 1 <= T <= 65535:
         raise ValueError(f"{name}: new rows must be [1, T, {Hk}, {D}], not "
                          f"{tuple(k_new.shape)}")
+    scales = None if k_scale is None else (k_scale, v_scale)
     tables = check_paged(name, (k_new, v_new), (k_pages, v_pages),
-                         block_tables, page_size, layer)
+                         block_tables, page_size, layer, scales=scales)
+    ksn, vsn = _check_new_scales(name, k_new, scales, ks_new, vs_new)
     start = int(start)
     if start < 0:
         raise IndexError(f"{name}: start {start} < 0")
     kn, vn = k_new.contiguous(), v_new.contiguous()
     rc = cuda_lib.library().qie_paged_append_prefill(
-        k_pages.data_ptr(), v_pages.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-        tables.data_ptr(), L, P, T, Hk, PS, D, tables.shape[1], int(layer),
-        start, cuda_lib.stream_handle(k_pages.device))
+        k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        kn.data_ptr(), vn.data_ptr(), _ptr(ksn), _ptr(vsn), tables.data_ptr(),
+        L, P, T, Hk, PS, D, tables.shape[1], int(layer), start,
+        cuda_lib.stream_handle(k_pages.device))
     cuda_lib.check(rc, name)
     paged_append_prefill.launches += 1
     return k_pages, v_pages

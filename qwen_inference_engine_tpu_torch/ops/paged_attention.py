@@ -1,52 +1,57 @@
-"""T=1 GQA decode attention over the stacked page pool.
+"""GQA attention of T fresh query tokens per row over the stacked page pool.
 
-``paged_decode_attention_stacked`` launches the CUDA kernel
-``csrc/paged_attention.cu`` (the port of the JAX package's
-``paged_decode_attention_stacked`` / ``_paged_bhgd`` / ``_paged_kernel``
-for plain decode, ``n_t == 1``): row b's query attends the first
-``seq_lens[b]`` keys of its sequence, key j at row ``j % page`` of page
-``block_tables[b, j // page]`` of the pool ``[L, P, Hk, page, D]`` at the
-layer index.  ``paged_decode_attention`` is the single-layer form.  The
-lengths and tables stay on the device: the kernel reads them, the host
-never waits for them.
+The wrappers launch the CUDA kernel ``csrc/paged_attention.cu``, the port
+of the JAX package's ``_paged_bhgd`` / ``_paged_kernel`` (bf16 pool) and
+``_paged_bhgd_q8`` / ``_paged_kernel_q8`` (int8 pool with per-token f32
+scales ``[L, P, Hk, page]``):
 
-``paged_decode_attention_plain`` gathers the pages (``paged_read``), puts
-zeros where keys lie at or past a row's length (stale pages may hold
-anything, NaN included), and runs the plain oracle.
+* ``paged_decode_attention_stacked`` / ``_q8``: plain decode, ``q [B, 1,
+  Hq, D]``; row b's query attends the first ``seq_lens[b]`` keys of its
+  sequence, key j at row ``j % page`` of page ``block_tables[b, j //
+  page]`` of the pool ``[L, P, Hk, page, D]`` at the layer index;
+* ``paged_verify_attention_stacked`` / ``_q8``: the speculative verify,
+  ``q [B, T, Hq, D]`` with 2 <= T <= 16: row b's token t sits at
+  ``seq_lens[b] - T + t`` (the lengths count the T fresh tokens, already
+  appended) and attends keys ``[0, that]``.
 
-Not ported yet, and raising ``NotImplementedError``: the multi-query
-verify shape (``paged_verify_attention_stacked``, slice 4, speculation)
-and the INT8 pool (``_paged_bhgd_q8``, the INT8 paged slice).
+``paged_decode_attention`` is the single-layer form.  The lengths and
+tables stay on the device: the kernel reads them, the host never waits for
+them.  The kernel takes G = Hq / Hk <= 8 and T <= 16, as the JAX package's
+``paged_verify_attention_supported`` does; anything else raises on the
+card (the JAX package would take XLA there).
+
+``paged_attention_plain`` gathers the pages (``paged_read``; an int8 pool
+is dequantized to q's dtype), puts zeros where keys lie at or past a row's
+length (stale pages may hold anything, NaN included), and runs the plain
+oracle.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from qwen_inference_engine_tpu_torch.kvcache.cache import paged_read
 from qwen_inference_engine_tpu_torch.ops import cuda_lib
 from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
+from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
 
-
-def refuse_int8_pool(pool: torch.Tensor, kernel: str) -> None:
-    """The INT8 page pool's kernels are not ported: raise naming ``kernel``,
-    on the CPU as on the card."""
-    if pool.dtype == torch.int8:
-        raise NotImplementedError(
-            f"{kernel} over the INT8 page pool is not ported yet: it comes "
-            f"with the INT8 paged slice (_paged_bhgd_q8, _paged_chunk_q8 and "
-            f"the scale scatters)")
+MAX_VERIFY = 16   # verify tokens per row the kernel takes
 
 
 def check_paged(name: str, inputs, pools, block_tables: torch.Tensor,
-                page_size: int, layer: int) -> torch.Tensor:
+                page_size: int, layer: int, scales=None,
+                input_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The checks every paged kernel needs before it launches: ``inputs``
     (the queries ``(q [B, T, Hq, D],)`` with G = Hq / Hk <= 8, or the new
     rows ``(k_new, v_new)``, each ``[B, T, Hk, D]``) and the contiguous
-    pools ``[L, P, Hk, page, D]`` bf16 on one device, D in {64, 128}, pages
-    of a multiple of 8 tokens, a layer in range, ``block_tables
-    [B, max_pages]`` on that device.  Returns the tables as contiguous
-    int32, as the kernels read them."""
+    pools ``[L, P, Hk, page, D]``, bf16 or int8 with ``scales`` (their
+    ``(k_scale, v_scale)``, f32 ``[L, P, Hk, page]``), on one device, D in
+    {64, 128}, pages of a multiple of 8 tokens, a layer in range,
+    ``block_tables [B, max_pages]`` on that device.  The inputs are of
+    ``input_dtype`` (default: the pools').  Returns the tables as
+    contiguous int32, as the kernels read them."""
     k_pages, v_pages = pools
     x = inputs[0]
     L, P, Hk, PS, D = k_pages.shape
@@ -63,12 +68,27 @@ def check_paged(name: str, inputs, pools, block_tables: torch.Tensor,
                          f"not {page_size}")
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} out of range for {L} layers")
-    for t in (*inputs, k_pages, v_pages):
-        if t.dtype != torch.bfloat16 or t.device != k_pages.device:
-            raise TypeError(f"{name} takes bf16 pools and inputs on one "
-                            f"device, not {t.dtype} on {t.device}")
+    kv = k_pages.dtype
+    kind = {torch.bfloat16: "bf16", torch.int8: "int8"}.get(kv)
+    if kind is None:
+        raise TypeError(f"{name} takes bf16 or int8 pools, not {kv}")
+    want_in = kv if input_dtype is None else input_dtype
+    for t, want in [(t, want_in) for t in inputs] + [(k_pages, kv),
+                                                     (v_pages, kv)]:
+        if t.dtype != want or t.device != k_pages.device:
+            raise TypeError(f"{name} takes {kind} pools and {want} inputs on "
+                            f"one device, not {t.dtype} on {t.device}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError(f"{name} needs contiguous pools")
+    if (kv == torch.int8) != (scales is not None):
+        raise TypeError(f"{name}: an int8 pool comes with its f32 scales, a "
+                        f"bf16 pool without")
+    for s in scales or ():
+        if s.shape != k_pages.shape[:-1] or s.dtype != torch.float32 \
+                or s.device != k_pages.device or not s.is_contiguous():
+            raise ValueError(f"{name} takes contiguous f32 scales "
+                             f"{tuple(k_pages.shape[:-1])} on the pools' "
+                             f"device, not {s.dtype} {tuple(s.shape)}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or block_tables.device != k_pages.device:
         raise ValueError(f"{name}: block tables must be [{B}, max_pages] on "
@@ -78,23 +98,92 @@ def check_paged(name: str, inputs, pools, block_tables: torch.Tensor,
 
 def masked_pages(pages_l: torch.Tensor, block_tables: torch.Tensor,
                  n_valid: torch.Tensor) -> torch.Tensor:
-    """``paged_read`` of one layer with every key at or past ``n_valid[b]``
-    replaced by zeros: ``[B, Hk, max_pages * page, D]``."""
+    """``paged_read`` of one layer (pages ``[P, Hk, page, ...]``) with every
+    key at or past ``n_valid[b]`` replaced by zeros: ``[B, Hk, max_pages *
+    page, ...]``."""
     view = paged_read(pages_l, block_tables)
     keep = torch.arange(view.shape[2], device=view.device)[None, :] \
         < n_valid.to(view.device).long()[:, None]
-    return torch.where(keep[:, None, :, None], view, torch.zeros_like(view))
+    keep = keep.reshape(*keep.shape[:1], 1, keep.shape[1],
+                        *([1] * (view.dim() - 3)))
+    return torch.where(keep, view, torch.zeros_like(view))
+
+
+def paged_kv_plain(k_pages, v_pages, k_scale, v_scale, block_tables,
+                   n_valid, layer: int, dtype):
+    """One layer's K and V of each row ``[B, Hk, max_pages * page, D]``,
+    zeros at or past ``n_valid``, an int8 pool dequantized to ``dtype``."""
+    k = masked_pages(k_pages[layer], block_tables, n_valid)
+    v = masked_pages(v_pages[layer], block_tables, n_valid)
+    if k_scale is None:
+        return k, v
+    ks = masked_pages(k_scale[layer], block_tables, n_valid)
+    vs = masked_pages(v_scale[layer], block_tables, n_valid)
+    return dequantize_kv(k, ks, dtype), dequantize_kv(v, vs, dtype)
+
+
+def paged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
+                          page_size: int, layer: int, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
+    """q [B, T, Hq, D]: token t of row b at ``seq_lens[b] - T + t`` over the
+    first ``seq_lens[b]`` keys of row b's pages of ``pages[layer]``."""
+    T = q.shape[1]
+    lens = seq_lens.to(q.device).long()
+    k, v = paged_kv_plain(k_pages, v_pages, k_scale, v_scale, block_tables,
+                          lens, layer, q.dtype)
+    positions = (lens - T)[:, None] + torch.arange(T, device=q.device)
+    return gqa_attention_kmajor(q, k, v, positions, kv_valid_len=lens)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
                                  page_size: int, layer: int) -> torch.Tensor:
-    """q [B, 1, Hq, D] over the first ``seq_lens[b]`` keys of row b's pages
-    of ``pages[layer]``."""
-    lens = seq_lens.to(q.device).long()
-    k = masked_pages(k_pages[layer], block_tables, lens)
-    v = masked_pages(v_pages[layer], block_tables, lens)
-    return gqa_attention_kmajor(q, k, v, (lens - 1)[:, None],
-                                kv_valid_len=lens)
+    """``paged_attention_plain`` over a bf16 or f32 pool: the plain version
+    of the decode (q [B, 1, Hq, D]) and of the verify (q [B, T, Hq, D])."""
+    return paged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
+                                 page_size, layer)
+
+
+def paged_decode_attention_q8_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                    block_tables, seq_lens, page_size: int,
+                                    layer: int) -> torch.Tensor:
+    """The same over the int8 pool, dequantized to q's dtype (the decode's
+    and the verify's plain version)."""
+    return paged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens,
+                                 page_size, layer, k_scale, v_scale)
+
+
+def _launch(name, q, k_pages, v_pages, scales, block_tables, seq_lens,
+            page_size: int, layer: int) -> torch.Tensor:
+    B, T, Hq, D = q.shape
+    L, P, Hk, PS, _ = k_pages.shape
+    tables = check_paged(name, (q,), (k_pages, v_pages), block_tables,
+                         page_size, layer, scales=scales,
+                         input_dtype=torch.bfloat16)
+    if seq_lens.shape != (B,) or seq_lens.device != q.device:
+        raise ValueError(f"{name}: seq_lens must be [{B}] on the device of q")
+    lens = seq_lens.to(torch.int32).contiguous()
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    ks, vs = scales if scales is not None else (None, None)
+    rc = cuda_lib.library().qie_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), tables.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), L, P, B, T, Hq, Hk, PS,
+        tables.shape[1], D, int(layer), D ** -0.5,
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, name)
+    return out
+
+
+def _check_tokens(name: str, q: torch.Tensor, verify: bool) -> None:
+    T = q.shape[1]
+    if verify and not 2 <= T <= MAX_VERIFY:
+        raise ValueError(f"{name} takes 2..{MAX_VERIFY} tokens per row, "
+                         f"not {T}")
+    if not verify and T != 1:
+        raise ValueError(f"{name} is the T == 1 decode, not T = {T}: the "
+                         f"multi-query shape is paged_verify_attention_stacked")
 
 
 def paged_decode_attention_stacked(q: torch.Tensor, k_pages: torch.Tensor,
@@ -102,42 +191,94 @@ def paged_decode_attention_stacked(q: torch.Tensor, k_pages: torch.Tensor,
                                    block_tables: torch.Tensor,
                                    seq_lens: torch.Tensor, page_size: int,
                                    layer: int) -> torch.Tensor:
-    """Decode attention of ``q [B, 1, Hq, D]`` straight off the stacked pool
-    ``[L, P, Hk, page, D]`` through ``block_tables [B, max_pages]`` with
-    ``seq_lens [B]`` valid keys per row; returns [B, 1, Hq, D].  A CPU
+    """Decode attention of ``q [B, 1, Hq, D]`` straight off the stacked bf16
+    pool ``[L, P, Hk, page, D]`` through ``block_tables [B, max_pages]``
+    with ``seq_lens [B]`` valid keys per row; returns [B, 1, Hq, D].  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel or
     raises."""
-    if q.shape[1] != 1:
-        raise NotImplementedError(
-            "paged_verify_attention_stacked (the multi-query verify shape "
-            "of _paged_bhgd, n_t > 1) is not ported yet: it comes with the "
-            "speculation slice (4)")
-    refuse_int8_pool(k_pages,
-                     "paged_decode_attention_stacked_q8 (_paged_bhgd_q8)")
+    name = "paged_decode_attention_stacked"
+    _check_tokens(name, q, False)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
                                             seq_lens, page_size, layer)
-    name = "paged_decode_attention_stacked"
-    B, _, Hq, D = q.shape
-    L, P, Hk, PS, _ = k_pages.shape
-    tables = check_paged(name, (q,), (k_pages, v_pages), block_tables,
-                         page_size, layer)
-    if seq_lens.shape != (B,) or seq_lens.device != q.device:
-        raise ValueError(f"{name}: seq_lens must be [{B}] on the device of q")
-    lens = seq_lens.to(torch.int32).contiguous()
-    q = q.contiguous()
-    out = torch.empty_like(q)
-    rc = cuda_lib.library().qie_paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), out.data_ptr(), L, P, B, Hq, Hk,
-        PS, tables.shape[1], D, int(layer), D ** -0.5,
-        cuda_lib.stream_handle(q.device))
-    cuda_lib.check(rc, name)
+    out = _launch(name, q, k_pages, v_pages, None, block_tables, seq_lens,
+                  page_size, layer)
     paged_decode_attention_stacked.launches += 1
     return out
 
 
 paged_decode_attention_stacked.launches = 0
+
+
+def paged_decode_attention_stacked_q8(q: torch.Tensor, k_pages: torch.Tensor,
+                                      v_pages: torch.Tensor,
+                                      k_scale: torch.Tensor,
+                                      v_scale: torch.Tensor,
+                                      block_tables: torch.Tensor,
+                                      seq_lens: torch.Tensor, page_size: int,
+                                      layer: int) -> torch.Tensor:
+    """The same over the int8 pool with its f32 scales ``[L, P, Hk,
+    page]``."""
+    name = "paged_decode_attention_stacked_q8"
+    _check_tokens(name, q, False)
+    if q.device.type == "cpu":
+        return paged_decode_attention_q8_plain(q, k_pages, v_pages, k_scale,
+                                               v_scale, block_tables,
+                                               seq_lens, page_size, layer)
+    out = _launch(name, q, k_pages, v_pages, (k_scale, v_scale), block_tables,
+                  seq_lens, page_size, layer)
+    paged_decode_attention_stacked_q8.launches += 1
+    return out
+
+
+paged_decode_attention_stacked_q8.launches = 0
+
+
+def paged_verify_attention_stacked(q: torch.Tensor, k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   seq_lens: torch.Tensor, page_size: int,
+                                   layer: int) -> torch.Tensor:
+    """Causal attention of ``q [B, T, Hq, D]`` (2 <= T <= 16 consecutive
+    fresh tokens per row, already appended) over the stacked bf16 pool:
+    row b's token t sits at ``seq_lens[b] - T + t`` and attends keys
+    ``[0, that]``.  Returns [B, T, Hq, D].  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    name = "paged_verify_attention_stacked"
+    _check_tokens(name, q, True)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
+                                            seq_lens, page_size, layer)
+    out = _launch(name, q, k_pages, v_pages, None, block_tables, seq_lens,
+                  page_size, layer)
+    paged_verify_attention_stacked.launches += 1
+    return out
+
+
+paged_verify_attention_stacked.launches = 0
+
+
+def paged_verify_attention_stacked_q8(q: torch.Tensor, k_pages: torch.Tensor,
+                                      v_pages: torch.Tensor,
+                                      k_scale: torch.Tensor,
+                                      v_scale: torch.Tensor,
+                                      block_tables: torch.Tensor,
+                                      seq_lens: torch.Tensor, page_size: int,
+                                      layer: int) -> torch.Tensor:
+    """The verify over the int8 pool with its f32 scales."""
+    name = "paged_verify_attention_stacked_q8"
+    _check_tokens(name, q, True)
+    if q.device.type == "cpu":
+        return paged_decode_attention_q8_plain(q, k_pages, v_pages, k_scale,
+                                               v_scale, block_tables,
+                                               seq_lens, page_size, layer)
+    out = _launch(name, q, k_pages, v_pages, (k_scale, v_scale), block_tables,
+                  seq_lens, page_size, layer)
+    paged_verify_attention_stacked_q8.launches += 1
+    return out
+
+
+paged_verify_attention_stacked_q8.launches = 0
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,

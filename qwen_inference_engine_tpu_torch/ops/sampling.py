@@ -10,6 +10,12 @@ has no counterpart.
 ``sample_rows`` is the serving form: every parameter is a ``[B]`` tensor,
 so one decode step serves requests with different temperature / top-p /
 top-k / greedy / penalties; ``k_cap`` is the top-k selection width.
+
+``stream_generator`` is the serving engines' stream rule: one sampling
+call draws from a generator seeded by (seed, stream) and, for position
+j >= 1 of a speculation chain, j; a speculation round's positions are
+thus independent streams, and a chained window draws exactly as the same
+rounds run one by one.
 """
 
 from __future__ import annotations
@@ -31,6 +37,17 @@ class SamplingParams:
     presence_penalty: float = 0.0
     top_k: int = 50
     greedy: bool = False
+
+
+def stream_generator(device, seed: int, stream: int,
+                     position: int = 0) -> torch.Generator:
+    """The generator of one sampling call: seeded by ``(seed, stream)`` and
+    the chain ``position`` (0 for a plain decode tick or a prefill piece;
+    position j of a speculation round's chain is stream j of that round)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 1_000_003 + stream + position * 2 ** 40)
+                    % (2 ** 63))
+    return gen
 
 
 def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor,

@@ -12,9 +12,15 @@ quantized at load to ``--bits``), from a quantized checkpoint written by
 ``quantize`` in either package (``--qckpt``), or, with neither, from a
 preset with random weights drawn from a seeded generator.  Weight formats:
 bf16 (``--bits 16``), W4A16 and W8A16 (``--bits 4|8``), W4A8 and W8A8
-(``--act-bits 8``).  ``serve`` is continuous batching over the paged bf16
-KV cache behind HTTP (``server/http.py``).  Everything runs on the card
-(``--device cuda``, the default) unless ``--device cpu`` is given.
+(``--act-bits 8``).  ``serve`` is continuous batching over the paged KV
+cache (bf16, or INT8 with ``--kv-bits 8``) behind HTTP
+(``server/http.py``).  Speculative decoding: ``generate --speculative``
+(greedy prompt lookup, ``--spec-k`` drafts a round, token-identical to
+``--greedy``) and ``serve --speculative`` (prompt lookup with
+``--spec-ngram``-token suffixes, or a draft model from ``--draft-model``
+(a preset, random weights) or ``--draft-ckpt`` (HF safetensors), quantized
+like the target).  Everything runs on the card (``--device cuda``, the
+default) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -77,6 +83,42 @@ def build_model(args):
     return cfg, params, tok, device
 
 
+def build_draft_model(args, device):
+    """The drafter of ``serve --speculative``: a same-vocab model from
+    ``--draft-ckpt`` (a checkpoint) or ``--draft-model`` (a preset with
+    random weights), quantized at the target's ``--bits``.  Returns
+    (draft_cfg, draft_params), or (None, None) without either flag."""
+    import torch
+
+    from qwen_inference_engine_tpu_torch.config import ModelConfig
+    from qwen_inference_engine_tpu_torch.loader.safetensors_loader import (
+        load_checkpoint,
+    )
+    from qwen_inference_engine_tpu_torch.models.qwen import init_params
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        QuantConfig,
+        quantize_params,
+    )
+
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    if getattr(args, "draft_ckpt", None):
+        dcfg, dparams = load_checkpoint(args.draft_ckpt, dtype=dtype,
+                                        device=device)
+    elif getattr(args, "draft_model", None):
+        dcfg = ModelConfig.from_pretrained(args.draft_model)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        dparams = init_params(dcfg, gen, dtype=dtype, device=device)
+        print("note: no --draft-ckpt given; the drafter uses RANDOM weights",
+              file=sys.stderr)
+    else:
+        return None, None
+    if args.bits < 16:
+        dparams = quantize_params(
+            dparams, QuantConfig(bits=args.bits, group_size=args.group_size))
+    return dcfg, dparams
+
+
 def cmd_generate(args) -> int:
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.kvcache.cache import kv_dtype_from_bits
@@ -92,15 +134,21 @@ def cmd_generate(args) -> int:
                  kv_dtype=kv_dtype_from_bits(args.kv_bits), sampling=sp,
                  seed=args.seed, device=device)
     t0 = time.perf_counter()
-    res = eng.generate(prompt_ids, max_new_tokens=args.max_new_tokens)
+    if args.speculative:
+        ids_out = eng.generate_speculative(
+            prompt_ids, max_new_tokens=args.max_new_tokens, k=args.spec_k)
+        note = f"speculative k={args.spec_k}"
+    else:
+        res = eng.generate(prompt_ids, max_new_tokens=args.max_new_tokens)
+        ids_out = res.token_ids
+        note = (f"ttft {res.ttft_s * 1e3:.1f} ms | "
+                f"{res.decode_tokens_per_s:.1f} tok/s")
     dt = time.perf_counter() - t0
-    for i, ids in enumerate(res.token_ids):
+    for i, ids in enumerate(ids_out):
         print(f"--- sequence {i} ({len(ids)} tokens) ---")
         print(ids)
         print(tok.decode(ids))
-    print(f"[device {device} | ttft {res.ttft_s * 1e3:.1f} ms | "
-          f"{res.decode_tokens_per_s:.1f} tok/s | total {dt:.2f}s]",
-          file=sys.stderr)
+    print(f"[device {device} | {note} | total {dt:.2f}s]", file=sys.stderr)
     return 0
 
 
@@ -139,8 +187,8 @@ def _add_model_args(g) -> None:
                         "block projections (requires --bits 4 or 8)")
     g.add_argument("--kv-bits", type=int, default=16, choices=(8, 16, 32),
                    help="16 = bf16 KV, 8 = INT8 KV (per-token-per-head "
-                        "scales; generate only until the INT8 paged "
-                        "kernels are ported); 32 = f32 (CPU only)")
+                        "scales; the contiguous cache and the page pool); "
+                        "32 = f32 (CPU only)")
     g.add_argument("--max-seq", type=int, default=2048)
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--device", default="cuda",
@@ -165,6 +213,11 @@ def main(argv=None) -> int:
     g.add_argument("--prompt", action="append", default=None,
                    help="prompt text (repeatable for a batch)")
     g.add_argument("--max-new-tokens", type=int, default=128)
+    g.add_argument("--speculative", action="store_true",
+                   help="greedy prompt-lookup speculative decoding "
+                        "(token-identical to --greedy, fewer forwards)")
+    g.add_argument("--spec-k", type=int, default=8,
+                   help="drafted tokens per speculation round")
     g.set_defaults(fn=cmd_generate)
 
     s = sub.add_parser("serve", help="HTTP server with continuous batching")
@@ -184,6 +237,19 @@ def main(argv=None) -> int:
     s.add_argument("--step-ticks", type=int, default=8,
                    help="decode ticks chained on the device per host sync "
                         "in the serving loop (1 = sync every token)")
+    s.add_argument("--speculative", action="store_true",
+                   help="speculative decoding in the scheduler (1..k+1 "
+                        "tokens per forward; greedy requests stay "
+                        "token-identical): prompt lookup, or a draft model")
+    s.add_argument("--spec-k", type=int, default=4,
+                   help="drafted tokens per speculation round (1..15)")
+    s.add_argument("--spec-ngram", type=int, default=3,
+                   help="suffix length for prompt-lookup draft matching")
+    s.add_argument("--draft-model", default=None,
+                   help="small same-vocab preset (random weights) for "
+                        "draft-model speculation")
+    s.add_argument("--draft-ckpt", default=None,
+                   help="HF checkpoint dir of the draft model")
     s.add_argument("--top-k-cap", type=int, default=None,
                    help="top-k selection width; per-request top_k above it "
                         "returns 400 (default: max(64, --top-k), or the "

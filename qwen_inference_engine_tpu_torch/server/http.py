@@ -21,8 +21,11 @@ Endpoints:
   GET  /stats      metrics snapshot (tok/s, TTFT percentiles, prefix hits)
   GET  /health     {"status": "ok"}
 
-The engine runs on the card unless ``--device cpu`` is given.  A
-pipeline-parallel mesh (the JAX package's FIFO wave scheduler) is not
+``--speculative`` serves with speculative decoding (prompt lookup, or a
+draft model from ``--draft-model`` / ``--draft-ckpt``; ``/stats`` reports
+``spec_rounds`` and ``spec_tokens_per_forward``), ``--kv-bits 8`` over an
+INT8 page pool.  The engine runs on the card unless ``--device cpu`` is
+given.  A pipeline-parallel mesh (the JAX package's FIFO wave scheduler) is not
 ported: it raises ``NotImplementedError``.
 """
 
@@ -94,6 +97,11 @@ class Server:
             kv_dtype=kv_dtype_from_bits(args.kv_bits),
             sampling=self.default_sp, seed=args.seed,
             prefix_cache=not getattr(args, "no_prefix_cache", False),
+            speculative=getattr(args, "speculative", False),
+            spec_k=getattr(args, "spec_k", 4),
+            spec_ngram=getattr(args, "spec_ngram", 3),
+            draft_params=getattr(args, "_draft_params", None),
+            draft_cfg=getattr(args, "_draft_cfg", None),
             top_k_cap=getattr(args, "top_k_cap", None),
             device=getattr(args, "device", None))
         self._step_ticks = max(1, getattr(args, "step_ticks", 8))
@@ -516,15 +524,25 @@ def _make_handler(server: Server):
 
 
 def serve(args) -> int:
-    from qwen_inference_engine_tpu_torch.server.cli import build_model
+    from qwen_inference_engine_tpu_torch.server.cli import (
+        build_draft_model,
+        build_model,
+    )
 
     cfg, params, tok, device = build_model(args)
     args.device = device
+    args._draft_cfg, args._draft_params = build_draft_model(args, device)
     server = Server(cfg, params, tok, None, args)
     httpd = ThreadingHTTPServer((args.host, args.port), _make_handler(server))
+    eng = server.engine
+    spec = (f", speculative k={eng.spec_k} "
+            + (f"draft {args._draft_cfg.name}" if eng._model_draft
+               else f"prompt lookup ngram={eng.spec_ngram}")
+            if eng.speculative else "")
     print(f"qie serving {cfg.name} on http://{args.host}:{args.port} "
           f"(device {device}, slots={args.max_slots}, "
-          f"pages={server.engine.num_pages}x{args.page_size})", flush=True)
+          f"pages={eng.num_pages}x{args.page_size} "
+          f"{str(eng.cache.k_pages.dtype).split('.')[-1]}{spec})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -1,8 +1,9 @@
 """Serving metrics: TTFT percentiles, decode throughput, token counters.
 
 The snapshot is what the HTTP server's ``/stats`` returns, with the JAX
-package's keys; the speculation keys read 0 until speculative decoding is
-ported (nothing observes them yet).
+package's keys.  ``spec_rounds`` counts row-rounds of speculation (a round
+over B decoding rows counts B) and ``spec_tokens_per_forward`` is the mean
+tokens a row emitted per verify forward (1..k+1).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ class Metrics:
         self._prefill_tokens = 0
         self._prefix_hit_tokens = 0
         self._requests = 0
+        self._spec_rounds = 0
+        self._spec_tokens = 0
 
     def observe_ttft(self, seconds: float) -> None:
         with self._lock:
@@ -39,6 +42,12 @@ class Metrics:
         """Prompt tokens served from the prefix cache (no forward run)."""
         with self._lock:
             self._prefix_hit_tokens += tokens
+
+    def observe_spec(self, rounds: int, tokens: int) -> None:
+        """``rounds`` row-rounds of speculation emitted ``tokens`` tokens."""
+        with self._lock:
+            self._spec_rounds += rounds
+            self._spec_tokens += tokens
 
     @staticmethod
     def _pct(sorted_vals: List[float], q: float) -> float:
@@ -62,6 +71,9 @@ class Metrics:
                 ),
                 "prefill_tokens": self._prefill_tokens,
                 "prefix_hit_tokens": self._prefix_hit_tokens,
-                "spec_rounds": 0,
-                "spec_tokens_per_forward": 0.0,
+                "spec_rounds": self._spec_rounds,
+                "spec_tokens_per_forward": (
+                    self._spec_tokens / self._spec_rounds
+                    if self._spec_rounds else 0.0
+                ),
             }

@@ -4,11 +4,15 @@ These tests need a GPU and the CUDA toolkit (marker ``cuda``); without a
 card they skip (the decision is made in a fixture, never at import).  They
 cover the edges the smoke run's Qwen2.5-7B shapes do not: ragged M, any T,
 G in 1..8, D=64, B smaller than the cache batch, continuation chunks from
-1 to 512 tokens at the first, a mid-tile and the last start, the INT8 KV
+1 to 512 tokens at the first, a mid-tile and the last start (and per-row
+starts on the device, with NaN past each row's window), the INT8 KV
 append at the first and last position, the paged kernels over pages of 8,
 16, 48 and 512 tokens (tiles that cross pages, mid-page starts, pieces of
 1, 7, 256 and 512 tokens, lengths of 1 and whole pages, idle rows and
-scratch-page writes), the serving engine, and the wrappers' refusals.  On
+scratch-page writes), the INT8 pool's kernels and the speculative verify
+(T = 2 and 16, windows straddling pages, the int8 scale writes), the
+serving engine (INT8 pools and speculation too), and the wrappers'
+refusals.  On
 a GPU machine, from the repo root (this file imports no JAX, so the
 JAX-pinning conftest can be skipped):
 
@@ -339,6 +343,42 @@ def test_chunk_attention_matches_plain(gen, T, where, G, quant):
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("T", [2, 5, 16])
+def test_chunk_attention_per_row_starts_match_plain(gen, T, quant):
+    """Per-row starts read on the device (the fixed-batch speculative
+    verify): rows at 0, mid-tile, mid-cache and S - T.  The kernel reads a
+    cache with NaN past each row's window (NaN scales for int8); the plain
+    version reads the same cache without them."""
+    L, B, Bc, Hk, G, D, S = 2, 4, 5, 2, 7, 128, 512
+    starts = torch.tensor([0, 100, 259, S - T], dtype=torch.int32,
+                          device="cuda")
+    q = _bf16(gen, B, T, G * Hk, D)
+    past = torch.arange(S, device="cuda")[None, :] >= (starts.long() + T)[:, None]
+    if quant:
+        kc, ks = _int8_cache(gen, L, Bc, Hk, S, D)
+        vc, vs = _int8_cache(gen, L, Bc, Hk, S, D)
+        ksn, vsn = ks.clone(), vs.clone()
+        for t in (ksn, vsn):
+            t[1, :B].masked_fill_(past[:, None, :], float("nan"))
+        fn = ca.chunk_attention_contiguous_q8
+        before = fn.launches
+        got = fn(q, kc, vc, ksn, vsn, 1, starts)
+        ref = ca.chunk_attention_contiguous_q8_plain(q, kc, vc, ks, vs, 1,
+                                                     starts)
+    else:
+        kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+        kn, vn = kc.clone(), vc.clone()
+        for t in (kn, vn):
+            t[1, :B].masked_fill_(past[:, None, :, None], float("nan"))
+        fn = ca.chunk_attention_contiguous
+        before = fn.launches
+        got = fn(q, kn, vn, 1, starts)
+        ref = ca.chunk_attention_contiguous_plain(q, kc, vc, 1, starts)
+    assert fn.launches == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
 @pytest.mark.parametrize("pos", [0, 255])
 def test_kv_append_uniform_q8_bit_exact(gen, pos):
     L, B, Bc, Hk, D, S = 2, 2, 3, 4, 128, 256
@@ -578,6 +618,174 @@ def test_paged_append_prefill_bit_exact(gen, page, T, start):
     assert int((mine[0] != k).any(dim=-1).sum()) == T * Hk
 
 
+def _q8_pool(k, v):
+    """The int8 pool of a bf16 pool: NaN rows get NaN scales."""
+    out = []
+    for x in (k, v):
+        q, sc = quantize_kv(x.nan_to_num())
+        sc[x.isnan().any(-1)] = float("nan")
+        out += [q, sc]
+    return out[0], out[2], out[1], out[3]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("page", [8, 512])
+@pytest.mark.parametrize("T", [1, 2, 16])
+def test_paged_q8_and_verify_attention_match_plain(gen, T, page, quant):
+    """_paged_bhgd_q8 (decode and verify) and the verify shape of
+    _paged_bhgd: a window at the sequence start, one straddling pages 0 and
+    1, one starting page 2, long rows, and for the decode an idle row
+    (length 0, zeroed table: zeros out); G = 7; NaN (NaN scales) in the
+    pages no table holds and past each row's length."""
+    L, Hk, G, D, max_pages = 2, 2, 7, 128, 4
+    lens_list = [T, page + T // 2 + 1, 2 * page + T, 3 * page, 4 * page]
+    if T == 1:
+        lens_list.append(0)
+    B = len(lens_list)
+    P = B * max_pages + 3
+    tables = _tables(gen, B, max_pages, P)
+    if T == 1:
+        tables[-1] = 0
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, lens_list)
+    pools, scales = (k, v), ()
+    if quant:
+        k8, v8, ks, vs = _q8_pool(k, v)
+        pools, scales = (k8, v8), (ks, vs)
+    q = _bf16(gen, B, T, G * Hk, D)
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    name = ("paged_decode_attention_stacked" if T == 1
+            else "paged_verify_attention_stacked") + ("_q8" if quant else "")
+    fn = getattr(pa, name)
+    plain = (pa.paged_decode_attention_q8_plain if quant
+             else pa.paged_decode_attention_plain)
+    args = (q, *pools, *scales, tables, lens, page, 1)
+    before = fn.launches
+    got = fn(*args)
+    ref = plain(*args)
+    assert fn.launches == before + 1
+    assert bool(got.isfinite().all())
+    if T == 1:
+        assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("page", [8, 512])
+@pytest.mark.parametrize("T,start", [(1, 0), (7, 13), (256, 700), (512, 300)])
+def test_paged_chunk_attention_q8_matches_plain(gen, page, T, start):
+    """Pieces over the int8 pool at page-aligned and mid-page starts, two
+    rows with their own tables, G = 7; NaN scales past the piece's end."""
+    L, B, Hk, G, D = 2, 2, 2, 7, 128
+    max_pages = -(-(start + T) // page) + 1
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, [start + T] * B)
+    k8, v8, ks, vs = _q8_pool(k, v)
+    q = _bf16(gen, B, T, G * Hk, D)
+    args = (q, k8, v8, ks, vs, tables, 1, start, page)
+    before = ca.paged_chunk_attention_q8.launches
+    got = ca.paged_chunk_attention_q8(*args)
+    ref = ca.paged_chunk_attention_q8_plain(*args)
+    assert ca.paged_chunk_attention_q8.launches == before + 1
+    assert bool(got.isfinite().all())
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def _append_state(gen, L, P, Hk, page, D, quant):
+    k, v = _bf16(gen, L, P, Hk, page, D), _bf16(gen, L, P, Hk, page, D)
+    return list(_q8_pool(k, v)) if quant else [k, v]
+
+
+def _new_rows(gen, shape, quant):
+    """(k, v) rows, and for int8 their scales as keywords."""
+    kn, vn = _bf16(gen, *shape), _bf16(gen, *shape)
+    if not quant:
+        return kn, vn, {}
+    (kq, ks), (vq, vs) = quantize_kv(kn), quantize_kv(vn)
+    return kq, vq, dict(ks_new=ks, vs_new=vs)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("page,T", [(8, 2), (8, 8), (512, 2), (512, 16)])
+def test_paged_append_ragged_t_bit_exact(gen, page, T, quant):
+    """T rows per batch row from a per-row start: at position 0, straddling
+    pages 0 and 1 (page - 1), at row 0 of page 1, deep in page 3, and a
+    skipped row (-1); bytes and scales bit-exact, nothing else written."""
+    L, Hk, D, max_pages = 2, 2, 128, 4
+    starts_list = [0, page - 1, page, 3 * page, -1]
+    B = len(starts_list)
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    base = _append_state(gen, L, P, Hk, page, D, quant)
+    kn, vn, extra = _new_rows(gen, (B, T, Hk, D), quant)
+    starts = torch.tensor(starts_list, device="cuda", dtype=torch.int32)
+    mine, theirs = [t.clone() for t in base], [t.clone() for t in base]
+
+    def kw(st):
+        return dict(extra, k_scale=st[2], v_scale=st[3]) if quant else {}
+
+    before = ka.paged_append_ragged_t.launches
+    got = ka.paged_append_ragged_t(mine[0], mine[1], kn, vn, starts, tables,
+                                   1, page_size=page, **kw(mine))
+    ka.paged_append_ragged_t_plain(theirs[0], theirs[1], kn, vn, starts,
+                                   tables, 1, page, **kw(theirs))
+    assert ka.paged_append_ragged_t.launches == before + 1
+    assert got[0] is mine[0] and got[1] is mine[1]
+    for g, r in zip(mine, theirs):
+        assert torch.equal(g.nan_to_num(), r.nan_to_num())
+    assert int((mine[0] != base[0]).any(dim=-1).sum()) == (B - 1) * T * Hk
+
+
+@pytest.mark.parametrize("page", [8, 512])
+def test_int8_paged_appends_write_their_scales(gen, page):
+    """The int8 instantiations of the ragged decode append and the prefill
+    append: bytes and scales bit-exact against the plain writes."""
+    L, Hk, D, max_pages = 2, 2, 128, 4
+    pos = torch.tensor([0, page - 1, page, 3 * page + 2], device="cuda",
+                       dtype=torch.int32)
+    B = pos.numel()
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    for name, n in (("paged_append_ragged", 1),
+                    ("paged_append_prefill", min(3 * page, 300))):
+        base = _append_state(gen, L, P, Hk, page, D, True)
+        rows = (B, 1) if n == 1 else (1, n)
+        kn, vn, extra = _new_rows(gen, (*rows, Hk, D), True)
+        at, tab = (pos, tables) if n == 1 else (page // 2, tables[:1])
+        mine, theirs = [t.clone() for t in base], [t.clone() for t in base]
+        getattr(ka, name)(mine[0], mine[1], kn, vn, at, tab, 1,
+                          page_size=page, k_scale=mine[2], v_scale=mine[3],
+                          **extra)
+        getattr(ka, name + "_plain")(theirs[0], theirs[1], kn, vn, at, tab,
+                                     1, page, k_scale=theirs[2],
+                                     v_scale=theirs[3], **extra)
+        for g, r in zip(mine, theirs):
+            assert torch.equal(g.nan_to_num(), r.nan_to_num())
+        assert int((mine[2] != base[2]).sum()) > 0
+
+
+def test_new_paged_wrappers_refuse_on_the_card(gen):
+    """T > 16 for the verify, G > 8, a window past the page, a bf16 pool
+    given to a q8 wrapper."""
+    pool = _bf16(gen, 1, 4, 2, 16, 128)
+    p8 = torch.zeros((1, 4, 2, 16, 128), dtype=torch.int8, device="cuda")
+    sc = torch.ones((1, 4, 2, 16), device="cuda")
+    tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    lens = torch.full((1,), 20, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="2..16"):
+        pa.paged_verify_attention_stacked(_bf16(gen, 1, 17, 4, 128), pool,
+                                          pool, tables, lens, 16, 0)
+    with pytest.raises(ValueError, match="G <= 8"):
+        pa.paged_verify_attention_stacked_q8(_bf16(gen, 1, 5, 18, 128), p8,
+                                             p8, sc, sc, tables, lens, 16, 0)
+    with pytest.raises(TypeError, match="f32 scales"):
+        pa.paged_decode_attention_stacked_q8(_bf16(gen, 1, 1, 4, 128), pool,
+                                             pool, sc, sc, tables, lens, 16, 0)
+    with pytest.raises(ValueError, match="exceeds the page"):
+        ka.paged_append_ragged_t(pool, pool, _bf16(gen, 1, 17, 2, 128),
+                                 _bf16(gen, 1, 17, 2, 128), lens, tables, 0,
+                                 page_size=16)
+
+
 def test_paged_wrappers_refuse_on_the_card(gen):
     pool = _bf16(gen, 1, 4, 2, 16, 128)
     tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
@@ -640,6 +848,48 @@ def test_serving_engine_runs_on_the_card_through_the_paged_kernels(gen):
     n = len(used)
     assert all(a > b for a, b in zip(after[:n], before[:n]))
     assert after[n:] == before[n:]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+def test_speculative_serving_on_the_card(gen, kv_dtype):
+    """Prompt lookup (echo prompts, through step_batch) and a draft model
+    equal to the target over a bf16 and an INT8 pool on a tiny W4A8 model:
+    every request finishes by length, the verify kernel of the pool's type
+    and the windowed append launch, and the drafter nearly always agrees."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+
+    cfg = tiny_config(hidden_size=256, intermediate_size=512, num_heads=4,
+                      num_kv_heads=2, head_dim=64)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    params = quantize_params(params, QuantConfig(bits=4, group_size=64))
+    cfg = cfg.replace(act_bits=8)
+    verify = (pa.paged_verify_attention_stacked_q8 if kv_dtype == torch.int8
+              else pa.paged_verify_attention_stacked)
+    for draft in (False, True):
+        extra = dict(draft_params=params, draft_cfg=cfg) if draft else {}
+        cb = ContinuousBatchingEngine(
+            cfg, params, max_slots=2, page_size=16, num_pages=64,
+            max_pages_per_seq=8, prefill_chunk=32, kv_dtype=kv_dtype,
+            sampling=SamplingParams(greedy=True), speculative=True,
+            spec_k=4, **extra)
+        cb._eos = set()
+        before = (verify.launches, ka.paged_append_ragged_t.launches)
+        passage = [(11 * j) % 300 + 5 for j in range(30)]
+        for i in range(3):
+            cb.submit(Request(request_id=i, prompt=passage[i:] + passage[:15],
+                              max_new_tokens=12))
+        done = cb.run_to_completion()
+        cb.check_page_invariants()
+        assert sorted(f.request_id for f in done) == [0, 1, 2]
+        assert all(f.finish_reason == "length" and len(f.token_ids) == 12
+                   for f in done)
+        assert verify.launches > before[0]
+        assert ka.paged_append_ragged_t.launches > before[1]
+        if draft:
+            assert cb.metrics.snapshot()["spec_tokens_per_forward"] > 3.0
 
 
 def test_serving_engine_on_the_card_resends_a_near_max_seq_prompt(gen):

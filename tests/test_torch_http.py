@@ -307,3 +307,28 @@ def test_server_refuses_a_mesh_and_defaults_to_the_card(models):
         pytest.skip("a card is present: the default would run on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Server(tcfg, tparams, ByteTokenizer(), None, _args())
+
+
+def test_speculative_int8_server_reports_spec_stats(models):
+    """``serve --speculative --kv-bits 8``: prompt lookup over an INT8 pool
+    answers a request, and /stats reports its speculation rounds (one row
+    per verify forward) and tokens per forward."""
+    _, _, tcfg, tparams = models
+    server = Server(tcfg, tparams, ByteTokenizer(), None,
+                    _args(device="cpu", kv_bits=8, speculative=True,
+                          spec_k=3, spec_ngram=2))
+    assert server.engine.cache.quantized and server.engine.speculative
+    httpd, t = _start(server, _make_handler)
+    try:
+        r = _post(httpd.server_address[1], {"prompt": "abcabcabcabcabc",
+                                            "max_new_tokens": 8})
+        out = json.loads(r.read())
+        status, snap = _get(httpd.server_address[1], "/stats")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        t.join(timeout=10)
+    assert r.status == 200 and status == 200
+    assert out["finish_reason"] in ("eos", "length") and out["token_ids"]
+    assert snap["spec_rounds"] > 0 and snap["spec_tokens_per_forward"] >= 1

@@ -420,44 +420,121 @@ def test_paged_wrappers_refuse_before_any_launch():
 
 
 def test_unported_paged_and_serving_variants_name_what_is_missing():
-    """The INT8 page pool, the multi-query verify shape, speculation and a
-    device mesh raise NotImplementedError naming the kernel or slice still
-    to port, on the CPU as on the card."""
+    """What stays unported raises NotImplementedError naming its slice, on
+    the CPU as on the card: a device mesh (slice 6) and Qwen3-MoE (slice
+    5), in the serving engine (target or drafter) and in the params."""
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
     )
-    from qwen_inference_engine_tpu_torch.kvcache.cache import PagedKVCache
-    from qwen_inference_engine_tpu_torch.models.qwen import forward_hidden
 
-    p8 = torch.zeros(1, 4, 1, 8, 32, dtype=torch.int8)
-    pool = torch.zeros(1, 4, 1, 8, 32)
-    tables = torch.zeros(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="_paged_bhgd_q8"):
-        tpa.paged_decode_attention_stacked(torch.zeros(1, 1, 2, 32), p8, p8,
-                                           tables, torch.ones(1), 8, 0)
-    with pytest.raises(NotImplementedError, match="paged_verify_attention"):
-        tpa.paged_decode_attention_stacked(torch.zeros(1, 3, 2, 32), pool,
-                                           pool, tables, torch.ones(1), 8, 0)
-    with pytest.raises(NotImplementedError, match="_paged_chunk_q8"):
-        tca.paged_chunk_attention(torch.zeros(1, 4, 2, 32), p8, p8, tables,
-                                  0, 4, 8)
     cfg = tiny_config()
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          dtype=torch.float32)
-    cache = PagedKVCache.create(cfg.num_layers, 4, 8, cfg.num_kv_heads,
-                                cfg.head_dim, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="_paged_bhgd_q8"):
-        forward_hidden(params, cfg, torch.zeros(1, 4, dtype=torch.long),
-                       torch.arange(4)[None], cache, block_tables=tables,
-                       fresh_prefill=True)
+    moe = cfg.replace(num_experts=4, num_experts_per_tok=2,
+                      moe_intermediate_size=64)
     kw = dict(max_slots=1, page_size=8, num_pages=8, max_pages_per_seq=4,
               device="cpu")
-    for extra, match in ((dict(kv_dtype=torch.int8), "paged_chunk_attention_q8"),
-                         (dict(speculative=True), "speculation slice"),
-                         (dict(draft_params={}), "speculation slice"),
-                         (dict(mesh=object()), "multi-GPU slice")):
+    for args, extra, match in (
+            ((cfg, params), dict(mesh=object()), "multi-GPU slice"),
+            ((moe, params), {}, "MoE slice"),
+            ((cfg, params), dict(speculative=True, draft_params=params,
+                                 draft_cfg=moe), "MoE slice")):
         with pytest.raises(NotImplementedError, match=match):
-            ContinuousBatchingEngine(cfg, params, **kw, **extra)
+            ContinuousBatchingEngine(*args, **kw, **extra)
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        init_params(moe, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="draft_cfg"):
+        ContinuousBatchingEngine(cfg, params, **kw, speculative=True,
+                                 draft_params=params)
+
+
+PAGED_REFUSALS = {
+    "verify T 17": (lambda: tpa.paged_verify_attention_stacked(
+        _meta(2, 17, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_BF),
+        _meta(2, 6, 2, 16, 128, dtype=_BF), _meta(2, 3, dtype=torch.int32),
+        _meta(2, dtype=torch.int32), 16, 0), ValueError, "2..16"),
+    "verify T 1": (lambda: tpa.paged_verify_attention_stacked(
+        _meta(2, 1, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_BF),
+        _meta(2, 6, 2, 16, 128, dtype=_BF), _meta(2, 3, dtype=torch.int32),
+        _meta(2, dtype=torch.int32), 16, 0), ValueError, "2..16"),
+    "decode T 5": (lambda: tpa.paged_decode_attention_stacked_q8(
+        _meta(2, 5, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16),
+        _meta(2, 6, 2, 16), _meta(2, 3, dtype=torch.int32),
+        _meta(2, dtype=torch.int32), 16, 0), ValueError,
+        "paged_verify_attention_stacked"),
+    "verify G 9": (lambda: tpa.paged_verify_attention_stacked_q8(
+        _meta(2, 5, 18, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16),
+        _meta(2, 6, 2, 16), _meta(2, 3, dtype=torch.int32),
+        _meta(2, dtype=torch.int32), 16, 0), ValueError, "G <= 8"),
+    "q8 verify bf16 pool": (lambda: tpa.paged_verify_attention_stacked_q8(
+        _meta(2, 5, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_BF),
+        _meta(2, 6, 2, 16, 128, dtype=_BF), _meta(2, 6, 2, 16),
+        _meta(2, 6, 2, 16), _meta(2, 3, dtype=torch.int32),
+        _meta(2, dtype=torch.int32), 16, 0), TypeError, "f32 scales"),
+    "q8 decode f16 scales": (lambda: tpa.paged_decode_attention_stacked_q8(
+        _meta(2, 1, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 6, 2, 16, dtype=torch.float16),
+        _meta(2, 6, 2, 16, dtype=torch.float16),
+        _meta(2, 3, dtype=torch.int32), _meta(2, dtype=torch.int32), 16, 0),
+        ValueError, "f32 scales"),
+    "q8 chunk T 513": (lambda: tca.paged_chunk_attention_q8(
+        _meta(1, 513, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16),
+        _meta(2, 6, 2, 16), _meta(1, 3, dtype=torch.int32), 0, 0, 16),
+        ValueError, "1..512"),
+    "q8 chunk f32 queries": (lambda: tca.paged_chunk_attention_q8(
+        _meta(1, 16, 4, 128), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16),
+        _meta(2, 6, 2, 16), _meta(1, 3, dtype=torch.int32), 0, 0, 16),
+        TypeError, "int8 pools"),
+    "ragged_t T > page": (lambda: tka.paged_append_ragged_t(
+        _meta(2, 6, 2, 16, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_BF),
+        _meta(2, 17, 2, 128, dtype=_BF), _meta(2, 17, 2, 128, dtype=_BF),
+        _meta(2, dtype=torch.int32), _meta(2, 3, dtype=torch.int32), 0,
+        page_size=16), ValueError, "exceeds the page"),
+    "ragged_t int8 without scales": (lambda: tka.paged_append_ragged_t(
+        _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 5, 2, 128, dtype=_I8), _meta(2, 5, 2, 128, dtype=_I8),
+        _meta(2, dtype=torch.int32), _meta(2, 3, dtype=torch.int32), 0,
+        page_size=16), TypeError, "f32 scales"),
+    "ragged_t bf16 rows into int8": (lambda: tka.paged_append_ragged_t(
+        _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 5, 2, 128, dtype=_BF), _meta(2, 5, 2, 128, dtype=_BF),
+        _meta(2, dtype=torch.int32), _meta(2, 3, dtype=torch.int32), 0,
+        page_size=16, k_scale=_meta(2, 6, 2, 16), v_scale=_meta(2, 6, 2, 16),
+        ks_new=_meta(2, 5, 2), vs_new=_meta(2, 5, 2)), TypeError, "int8"),
+    "ragged int8 row scales": (lambda: tka.paged_append_ragged(
+        _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16, 128, dtype=_I8),
+        _meta(2, 1, 2, 128, dtype=_I8), _meta(2, 1, 2, 128, dtype=_I8),
+        _meta(2, dtype=torch.int32), _meta(2, 3, dtype=torch.int32), 0,
+        page_size=16, k_scale=_meta(2, 6, 2, 16), v_scale=_meta(2, 6, 2, 16),
+        ks_new=_meta(2, 1, 3), vs_new=_meta(2, 1, 3)), ValueError,
+        "f32 scales"),
+    "chunk starts shape": (lambda: tca.chunk_attention_contiguous(
+        _meta(2, 5, 4, 128, dtype=_BF), _meta(2, 2, 2, 256, 128, dtype=_BF),
+        _meta(2, 2, 2, 256, 128, dtype=_BF), 0,
+        _meta(3, dtype=torch.int32)), ValueError, "per-row starts"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_REFUSALS))
+def test_new_paged_wrappers_refuse_before_any_build(monkeypatch, case):
+    """The INT8-pool and verify wrappers refuse a wrong dtype, T > 16, G >
+    8, a window past the page or scales of the wrong shape before the
+    library is built or a kernel launched (meta tensors stand in for the
+    card)."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_lib, "library", no_build)
+    fn, exc, match = PAGED_REFUSALS[case]
+    with pytest.raises(exc, match=match):
+        fn()
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
