@@ -20,7 +20,17 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    holds (the paged attentions' library yardstick is SDPA over a gathered
    copy, the gather timed beside it; the appends' an ``index_put_``
    scatter); the contiguous chunk kernels also with per-row starts on the
-   device (T = 5 and 16, NaN past each row's window);
+   device (T = 5 and 16, NaN past each row's window); the verify at T = 17
+   and the window append at T = 9 over pages of 8 (windows wider than 16
+   rows and than a page); the three grouped MoE matmuls at the
+   Qwen3-30B-A3B expert shapes (gate/up K 2048 N 768, down K 768 N 2048;
+   INT4 gs 256 / 128, INT8 per group of 128 and per column), layer 1 of a
+   stacked [2, 128, ...] tensor, M = 256 (decode, batch 32 x top-8) and
+   4096 (a 512-token piece) by random top-8 routing, and the edge sizes
+   (empty experts, one expert taking every row, every tile straddling);
+   their library yardstick is bf16 ``torch._grouped_mm`` over the
+   dequantized slab where this torch has it (else a per-expert matmul
+   loop, so labelled);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -89,12 +99,27 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    over the page pool, bf16 and INT8: a paged prefill of three pieces
    across two pages, 4 paged decode steps, then a verify of 5 tokens.
 
+6. Qwen3-MoE: ``qwen3-30b-a3b`` at full width (128 experts, top-8, Fm
+   768), random packed weights drawn on the card: W4A8 gs 256 at the full
+   48 layers through ``Engine.generate`` (batch 32 x 512-token prompts, 32
+   new tokens, INT8 KV: the JAX bench's MoE row), which must launch the
+   W4A8 grouped kernel 3 x 48 times a forward; ``ContinuousBatchingEngine``
+   on it over a bf16 and an INT8 pool (8 requests on 8 slots, 4 sharing a
+   600-token prefix with a finished one) and with prompt lookup on echo
+   traffic; phase 5's logits rule at 4 layers; then W4A16 gs 128 (24
+   layers) and W8A16 gs 128 (12 layers), each launching its own grouped
+   kernel; a 2-layer checkpoint of the preset's widths in HF layout
+   through ``load_checkpoint``, ``quantize``, ``load_quantized`` and
+   ``generate --ckpt`` / ``--qckpt``.  The dense runs above must launch no
+   grouped kernel.
+
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Every number is measured in this run.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -856,8 +881,9 @@ def verify_lens(T):
 
 
 def check_paged_q8_and_verify(torch, cfg):
-    """_paged_bhgd_q8 (decode at PAGED_LENS; verify at T = 5 and 16) and the
-    bf16 verify shape of _paged_bhgd (T = 5 and 16), 8 slots, pages of 512,
+    """_paged_bhgd_q8 (decode at PAGED_LENS; verify at T = 5, 16 and 17, a
+    window wider than 16 rows) and the bf16 verify shape of _paged_bhgd (T
+    = 5, 16 and 17), 8 slots, pages of 512,
     NaN in the pages no table holds and past each row's length (NaN scales
     for int8).  The JSON line keeps T = 5, the serving verify's shape."""
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
@@ -876,7 +902,7 @@ def check_paged_q8_and_verify(torch, cfg):
         pa.paged_decode_attention_stacked_q8,
         pa.paged_decode_attention_q8_plain, q, (k8, v8), (ks, vs), tables,
         PAGED_LENS)
-    for T in (16, 5):
+    for T in (17, 16, 5):
         lens = verify_lens(T)
         k, v = k0.clone(), v0.clone()
         _stale(torch, k, v, tables, lens)
@@ -1169,23 +1195,31 @@ def attention_swaps():
 def plain_swaps():
     """Every kernel replaced by its plain version (bf16, as the kernels
     compute)."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
 
-    return [(qm, n, getattr(qm, n + "_plain"))
-            for n in ("quant_matmul4_a8", *NEW_MATMULS)] + attention_swaps()
+    return ([(qm, n, getattr(qm, n + "_plain"))
+             for n in ("quant_matmul4_a8", *NEW_MATMULS)]
+            + [(gm, n, getattr(gm, n + "_plain")) for n in GROUPED]
+            + attention_swaps())
 
 
 def f32_swaps():
     """An fp32 reference path: the plain dequant matmul of ops/linear.py
     (the code the CPU tests hold against the JAX package) in place of the
-    bf16 W4A8 dispatcher, and the plain attention."""
+    bf16 dispatchers (dense and grouped), and the plain attention."""
+    import torch
+
+    from qwen_inference_engine_tpu_torch.models import qwen
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
     from qwen_inference_engine_tpu_torch.ops.linear import quant_matmul
 
     def stacked(x, lin, layer, act_bits=0):
         return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits)
 
-    return [(qm, "quant_matmul_stacked", stacked), *attention_swaps()]
+    return [(qm, "quant_matmul_stacked", stacked),
+            (qwen, "grouped_quant_matmul", grouped_f32(torch)),
+            *attention_swaps()]
 
 
 SERVE_LENS = [37, 120, 256, 300, 511, 512, 513, 700, 900, 1100, 1300, 1408]
@@ -1897,7 +1931,8 @@ def run_generate_spec(torch, cfg, params, wrappers, rng):
 
 
 def hf_state_dict(cfg, params) -> dict:
-    """The HF names of the port's params (projections back to [out, in])."""
+    """The HF names of the port's params (projections back to [out, in]; a
+    Qwen3-MoE model's router ``mlp.gate`` and ``mlp.experts.{e}.*``)."""
     sd = {"model.embed_tokens.weight": params["embed"],
           "model.norm.weight": params["final_norm"]}
     lyr = params["layers"]
@@ -1905,6 +1940,10 @@ def hf_state_dict(cfg, params) -> dict:
             "v": "self_attn.v_proj", "o": "self_attn.o_proj",
             "gate": "mlp.gate_proj", "up": "mlp.up_proj",
             "down": "mlp.down_proj"}
+    if cfg.is_moe:
+        proj = {key: hf for key, hf in proj.items()
+                if key not in ("gate", "up", "down")}
+        proj["router"] = "mlp.gate"
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
         sd[p + "input_layernorm.weight"] = lyr["input_norm"][i]
@@ -1913,6 +1952,10 @@ def hf_state_dict(cfg, params) -> dict:
             sd[p + hf + ".weight"] = lyr[key].w[i].t()
             if lyr[key].b is not None:
                 sd[p + hf + ".bias"] = lyr[key].b[i]
+        for e in range(cfg.num_experts):
+            for key, hf in (("moe_gate", "gate_proj"), ("moe_up", "up_proj"),
+                            ("moe_down", "down_proj")):
+                sd[p + f"mlp.experts.{e}.{hf}.weight"] = lyr[key][i, e].t()
         if cfg.qk_norm:
             sd[p + "self_attn.q_norm.weight"] = lyr["q_norm"][i]
             sd[p + "self_attn.k_norm.weight"] = lyr["k_norm"][i]
@@ -2100,6 +2143,643 @@ def run_loader_phase(torch, cfg, bf16_params):
     return out
 
 
+# ----------------------------------------------------------------------
+# Qwen3-MoE: the grouped kernels (phase 3) and the MoE model (phase 6)
+# ----------------------------------------------------------------------
+
+# the three grouped kernels: (weight bits, activation bits, peak type)
+GROUPED = {"grouped_matmul4_a8": (4, 8, "int8"),
+           "grouped_matmul4": (4, 0, "bf16"),
+           "grouped_matmul8": (8, 0, "bf16")}
+# of the largest output: the plain versions dequantize to bf16 weights (a
+# relative 2^-9 each) where the kernels scale in f32 (the dense rule)
+GROUPED_TOL = 2 ** -6
+MOE_DECODE_TOKENS = 32     # batch 32 x top-8 = 256 rows
+MOE_PIECE_TOKENS = 512     # a 512-token prefill piece: 4096 rows
+
+
+def _routing(torch, g, n_tokens, E, k):
+    """Expert sizes of ``n_tokens`` tokens' top-k of random logits."""
+    ids = torch.rand((n_tokens, E), generator=g, device="cuda").topk(
+        k, dim=-1).indices
+    return torch.bincount(ids.reshape(-1), minlength=E).to(torch.int32)
+
+
+def _grouped_library(torch, x, w, gsz):
+    """The yardstick: bf16 ``torch._grouped_mm`` over the dequantized layer
+    slab ``w [E, K, N]``, where this torch has it and takes the shapes;
+    else one ``torch.matmul`` per expert (the sizes read on the host).
+    Returns (fn, label)."""
+    offs = torch.cumsum(gsz, 0).to(torch.int32)
+    wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(x, wt, offs=offs)
+            return (lambda: torch._grouped_mm(x, wt, offs=offs),
+                    "torch._grouped_mm bf16")
+        except (RuntimeError, TypeError) as exc:  # yardstick only
+            print(f"  (torch._grouped_mm refused: {str(exc)[:120]})")
+    sizes = gsz.tolist()
+
+    def loop():
+        start = 0
+        for e, n in enumerate(sizes):
+            if n:
+                torch.matmul(x[start:start + n], w[e])
+            start += n
+
+    return loop, "per-expert torch.matmul bf16"
+
+
+def check_grouped_matmul(torch, cfg):
+    """The three grouped kernels against their plain versions at the
+    Qwen3-30B-A3B expert shapes (gate/up K = 2048, N = 768, INT4 gs 256;
+    down K = 768, N = 2048, INT4 gs 128; INT8 per group of 128 rows and per
+    column), layer 1 of a stacked [2, 128, ...] tensor with random scales:
+    M = 256 (decode, batch 32 x top-8) and M = 4096 (a 512-token piece)
+    routed by random top-8, and the edge sizes of the JAX package's tests
+    at M = 300 (empty experts, one expert taking every row, every tile
+    straddling).  Returns {kernel: [records]}."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
+    from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
+        quantize_activations,
+    )
+
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    D, Fm = cfg.hidden_size, cfg.moe_intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(12)
+    L, layer = 2, 1
+
+    def pad(sizes):
+        return torch.tensor(sizes + [0] * (E - len(sizes)), dtype=torch.int32,
+                            device="cuda")
+
+    cases = [(f"M={MOE_DECODE_TOKENS * k} decode",
+              _routing(torch, g, MOE_DECODE_TOKENS, E, k), True),
+             (f"M={MOE_PIECE_TOKENS * k} prefill piece",
+              _routing(torch, g, MOE_PIECE_TOKENS, E, k), True),
+             ("M=300 empties", pad([0, 200, 7, 0, 93]), False),
+             ("M=300 one expert", pad([300]), False),
+             ("M=300 every tile straddling", pad([37, 61, 64, 70, 68]), False)]
+    records = {n: [] for n in GROUPED}
+    for proj, K, N, gs4 in (("gate", D, Fm, 256), ("down", Fm, D, 128)):
+        weights = {
+            4: (torch.randint(-128, 128, (L, E, K // 2, N), generator=g,
+                              device="cuda", dtype=torch.int8),
+                torch.rand((L, E, K // gs4, N), generator=g, device="cuda")
+                * (2 * K ** -0.5 / 7), gs4),
+            8: (torch.randint(-127, 128, (L, E, K, N), generator=g,
+                              device="cuda", dtype=torch.int8),
+                torch.rand((L, E, K // 128, N), generator=g, device="cuda")
+                * (2 * K ** -0.5 / 127), 128)}
+        s8_col = torch.rand((L, E, 1, N), generator=g, device="cuda") \
+            * (2 * K ** -0.5 / 127)
+        for label, gsz, timed in cases:
+            M = int(gsz.sum())
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            xq, sx = quantize_activations(x)
+            sx = sx.reshape(-1).contiguous()
+            touched = int((gsz > 0).sum())
+            for name, (bits, act_bits, peak) in GROUPED.items():
+                q, s, gs = weights[bits]
+                for scales, tag in ((s, f"gs {gs}"), (s8_col, "per column")):
+                    if tag == "per column" and bits == 4:
+                        continue
+                    fn, plain = getattr(gm, name), getattr(gm, name + "_plain")
+                    if act_bits:
+                        args = (xq, sx, q, scales, gsz, layer, gs)
+                    elif bits == 4:
+                        args = (x, q, scales, gsz, layer, gs)
+                    else:
+                        args = (x, q, scales, gsz, layer)
+                    got = fn(*args)
+                    ref = plain(*args)
+                    torch.cuda.synchronize()
+                    err = (got.float() - ref.float()).abs().max().item()
+                    tol = GROUPED_TOL * ref.float().abs().max().item()
+                    shape = (f"{cfg.name} {proj} {label} K={K} N={N} {tag} "
+                             f"experts touched {touched}")
+                    if not (err <= tol and bool(got.isfinite().all())):
+                        fail(f"{name} {shape}: err {err} > {tol} or non-finite")
+                    if not timed:
+                        print(f"  {name} {shape}: err {err:.3g} (tol "
+                              f"{tol:.3g})", flush=True)
+                        continue
+                    ms = time_ms(torch, lambda: fn(*args))
+                    plain_ms = time_ms(torch, lambda: plain(*args), iters=3,
+                                       warmup=1)
+                    w = dequantize(QuantLinear(q=q[layer], scales=scales[layer],
+                                               b=None, bits=bits,
+                                               group_size=gs))
+                    lib, lib_label = _grouped_library(torch, x, w, gsz)
+                    lib_ms = time_ms(torch, lib)
+                    del w
+                    rows = K // 2 if bits == 4 else K
+                    n_bytes = (touched * (rows * N + 4 * scales.shape[2] * N)
+                               + M * K * (1 if act_bits else 2)
+                               + 4 * M * (act_bits > 0) + 2 * M * N + 4 * E)
+                    b_ms, b_by = bound(n_bytes, 2 * M * K * N, peak)
+                    print(f"  {name} {shape}: err {err:.3g} (tol {tol:.3g}) | "
+                          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | "
+                          f"{lib_label} {lib_ms:.4f} | bound {b_ms:.4f} "
+                          f"({b_by})", flush=True)
+                    records[name].append(dict(
+                        shape=shape, proj=proj, M=M, tag=tag, max_abs_err=err,
+                        tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        library=lib_label, bound_ms=b_ms, bound_by=b_by))
+        del weights, s8_col
+        torch.cuda.empty_cache()
+    return records
+
+
+def moe_layer_record(recs):
+    """A grouped kernel's JSON entry: one 30B-A3B layer's three expert
+    matmuls (gate and up of one shape, down) at the decode shape, summed
+    (INT8: the per-group scales; the per-column ones are in the records)."""
+    dec = {r["proj"]: r for r in recs if r["M"] == MOE_DECODE_TOKENS * 8
+           and r["tag"] != "per column"}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    out = {key: 2 * dec["gate"][key] + dec["down"][key] for key in keys}
+    out.update(max_abs_err=max(r["max_abs_err"] for r in recs),
+               bound_by=dec["down"]["bound_by"],
+               shape=(f"qwen3-30b-a3b decode M=256, a layer's gate + up + "
+                      f"down (library: {dec['down']['library']})"))
+    return out
+
+
+def check_wide_window_append(torch, cfg):
+    """The verify window wider than its page: T = 9 over pages of 8
+    (windows spanning two and three pages, a skipped row), bf16 and int8,
+    bit-exact against the plain write."""
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
+
+    Hk, D, page, T, max_pages = cfg.num_kv_heads, cfg.head_dim, 8, 9, 8
+    g = torch.Generator(device="cuda").manual_seed(14)
+    starts_list = [0, 3, 7, 8, 15, -1, 20, 30]
+    B = len(starts_list)
+    P = B * max_pages + 2
+    tables = (torch.randperm(P - 1, generator=g, device="cuda")[:B * max_pages]
+              + 1).reshape(B, max_pages).to(torch.int32)
+    starts = torch.tensor(starts_list, device="cuda", dtype=torch.int32)
+    k = torch.randn((2, P, Hk, page, D), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((2, P, Hk, page, D), generator=g, device="cuda").to(torch.bfloat16)
+    kn = torch.randn((B, T, Hk, D), generator=g, device="cuda").to(torch.bfloat16)
+    vn = torch.randn((B, T, Hk, D), generator=g, device="cuda").to(torch.bfloat16)
+    for quant in (False, True):
+        if quant:
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            (kq, ksn), (vq, vsn) = quantize_kv(kn), quantize_kv(vn)
+            base, new = [k8, v8, ks, vs], (kq, vq)
+            extra = dict(ks_new=ksn, vs_new=vsn)
+        else:
+            base, new, extra = [k, v], (kn, vn), {}
+        mine = [t.clone() for t in base]
+        theirs = [t.clone() for t in base]
+
+        def kw(st):
+            return dict(extra, k_scale=st[2], v_scale=st[3]) if quant else {}
+
+        ka.paged_append_ragged_t(mine[0], mine[1], *new, starts, tables, 1,
+                                 page_size=page, **kw(mine))
+        ka.paged_append_ragged_t_plain(theirs[0], theirs[1], *new, starts,
+                                       tables, 1, page, **kw(theirs))
+        torch.cuda.synchronize()
+        diff = sum(int((a != b).sum()) for a, b in zip(mine, theirs))
+        written = int((mine[0] != base[0]).any(dim=-1).sum())
+        print(f"  paged_append_ragged_t {'int8' if quant else 'bf16'} T={T} > "
+              f"page {page}, starts {starts_list}: {diff} elements differ "
+              f"(must be 0; {written} K rows written, want "
+              f"{(B - 1) * T * Hk})", flush=True)
+        if diff or written != (B - 1) * T * Hk:
+            fail(f"paged_append_ragged_t T={T} > page {page}: {diff} differ, "
+                 f"{written} rows written")
+
+
+def grouped_f32(torch):
+    """An fp32 reference for the expert matmuls: per expert the exact
+    dequant matmul of ops/linear.py (int8 activations where the model asks
+    for them), in place of ``grouped_quant_matmul``."""
+    from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, quant_matmul
+
+    def grouped(xs, qe, group_sizes, layer=None, act_bits=0):
+        out = torch.zeros((xs.shape[0], qe.out_features), device=xs.device)
+        start = 0
+        for e, n in enumerate(group_sizes.tolist()):
+            if n:
+                one = QuantLinear(q=qe.q[layer, e], scales=qe.scales[layer, e],
+                                  b=None, bits=qe.bits,
+                                  group_size=qe.group_size)
+                out[start:start + n] = quant_matmul(
+                    xs[start:start + n].float(), one, act_bits=act_bits)
+            start += n
+        return out.to(xs.dtype)
+
+    return grouped
+
+
+def moe_params(torch, cfg, bits, gs, layers):
+    """Random packed Qwen3-MoE params at full width and ``layers`` depth,
+    drawn on the card one expert slab at a time."""
+    from qwen_inference_engine_tpu_torch.models import qwen
+
+    gen = torch.Generator(device="cuda").manual_seed(21 + bits + layers)
+    return qwen.init_quantized_params(cfg.replace(num_layers=layers), gen,
+                                      bits=bits, group_size=gs, device="cuda")
+
+
+def run_moe_generate(torch, cfg, params, wrappers, prompts, kv_dtype, kern,
+                     new_tokens, label, profile=False):
+    """``Engine.generate`` of a batch of 32 512-token prompts; the run must
+    launch ``kern`` 3 times a layer a forward and no other grouped kernel,
+    and its dense projections' kernel 4 times (q, k, v, o).  ``profile``:
+    then 4 decode steps under ``torch.profiler``."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    L = cfg.num_layers
+    eng = Engine(cfg, params, max_batch=32, max_seq=512 + 64,
+                 kv_dtype=kv_dtype, sampling=SamplingParams(greedy=True),
+                 device="cuda")
+    eng.generate(prompts(32, 16), max_new_tokens=2)   # warm-up
+    batch = prompts(32, 512)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    res = eng.generate(batch, max_new_tokens=new_tokens)
+    counts = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dense = "quant_matmul4_a8" if cfg.act_bits else (
+        "quant_matmul4" if kern == "grouped_matmul4" else "quant_matmul8")
+    print(f"[moe generate] {label}: {cfg.name} {L} layers, batch 32 x 512 "
+          f"tokens, {new_tokens} new | ttft {res.ttft_s * 1e3:.1f} ms | decode "
+          f"{res.decode_tokens_per_s:.1f} tok/s | forwards {res.steps} | peak "
+          f"device memory {peak:.2f} GiB | {kern} launches {counts[kern]} "
+          f"({counts[kern] / res.steps:.0f} per forward, want {3 * L}) | "
+          f"launches { {n: c for n, c in counts.items() if c} }", flush=True)
+    ids = [t for row in res.token_ids for t in row]
+    if not all(0 <= t < cfg.vocab_size for t in ids) or len(set(ids)) < 2:
+        fail(f"[moe generate] {label}: ids out of range or all identical")
+    numbers = profile_moe_decode(torch, eng, batch, label) if profile else {}
+    stray = sorted(n for n in GROUPED if n != kern and counts[n])
+    if counts[kern] != 3 * L * res.steps or stray \
+            or counts[dense] != 4 * L * res.steps:
+        fail(f"[moe generate] {label}: {counts[kern]} {kern} launches, want "
+             f"{3 * L * res.steps}; {counts[dense]} {dense}, want "
+             f"{4 * L * res.steps}; other grouped kernels launched {stray}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts, dict(layers=L, ttft_ms=res.ttft_s * 1e3,
+                        decode_tok_s=res.decode_tokens_per_s,
+                        forwards=res.steps, peak_gib=peak,
+                        per_forward=counts[kern] / res.steps, **numbers)
+
+
+def profile_moe_decode(torch, eng, batch, label, steps=4):
+    """Where an MoE decode step's time goes: the batch's prefill, then
+    ``steps`` uniform decode steps timed by the host clock and under
+    ``torch.profiler`` (device busy time, kernel launches, kernels by
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen_inference_engine_tpu_torch.models import qwen
+
+    cfg, dev = eng.cfg, eng.device
+    toks = torch.tensor(batch, device=dev)
+    lens = torch.full((len(batch),), toks.shape[1], device=dev)
+    with torch.inference_mode():
+        logits, cache = qwen.prefill_chunked(eng.params, cfg, toks, lens,
+                                             eng.new_cache(), chunk=512)
+        tok = logits.argmax(-1)
+
+        def decode(first):
+            nonlocal tok, cache
+            for s in range(steps):
+                logits, cache = qwen.decode_step(eng.params, cfg, tok,
+                                                 lens + first + s, cache,
+                                                 uniform_decode=True)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+
+        decode(0)
+        t0 = time.perf_counter()
+        decode(steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            decode(2 * steps)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in rows) / steps
+    n_kernels = sum(n for _, _, n in rows) / steps
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    print(f"[moe generate profile] {label}: a decode step at batch "
+          f"{len(batch)}: {wall_ms:.2f} ms on the host clock, device busy "
+          f"{busy_ms:.2f} ms (busy share {busy_ms / wall_ms:.3f}), "
+          f"{n_kernels:.0f} device kernels | by device time over {steps} "
+          f"steps: " + "; ".join(f"{k[:50]} {ms:.2f} ms x{n}"
+                                 for k, ms, n in top), flush=True)
+    if busy_ms <= 0:
+        fail("moe decode profile: the profiler saw no device time")
+    return dict(step_ms=wall_ms, step_device_busy_ms=busy_ms,
+                step_kernels=n_kernels)
+
+
+def run_moe_serving(torch, cfg, params, wrappers, rng, kv_dtype, spec):
+    """``ContinuousBatchingEngine`` with the MoE model (8 slots, pages of
+    512, pieces of 256, prefix cache on, EOS off, 32 new tokens): 4
+    prompts, then 4 that share a 600-token prefix with a finished one; or,
+    with ``spec``, 8 echo prompts by prompt lookup (spec_k 4, ngram 3)."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    q8 = kv_dtype == torch.int8
+    sfx = "_q8" if q8 else ""
+    label = f"[moe serve{' int8' if q8 else ''}{' pld' if spec else ''}]"
+    cb = ContinuousBatchingEngine(
+        cfg, params, max_slots=8, page_size=PAGE, num_pages=40,
+        max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
+        sampling=SamplingParams(greedy=True), kv_dtype=kv_dtype,
+        speculative=spec, spec_k=SPEC_K, spec_ngram=3, device="cuda")
+    cb._eos = set()
+    if spec:
+        waves = [echo_prompts(rng, cfg.vocab_size,
+                              [100, 200, 300, 400, 500, 600, 700, 900])]
+    else:
+        first = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+                 for n in (300, 700, 1100, 900)]
+        waves = [first, [first[2][:600] + rng.integers(
+            0, cfg.vocab_size, size=n).tolist() for n in (50, 200, 400, 100)]]
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = []
+    for wave, prompts in enumerate(waves):
+        for i, p in enumerate(prompts):
+            cb.submit(Request(request_id=100 * wave + i, prompt=p,
+                              max_new_tokens=NEW_TOKENS))
+        done += cb.run_to_completion(sync_every=8)
+        cb.check_page_invariants()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    snap = cb.metrics.snapshot()
+    print(f"{label} {cfg.name} {cfg.num_layers} layers, 8 slots: {len(done)} "
+          f"requests ({[len(p) for w in waves for p in w]} tokens) in "
+          f"{wall:.2f} s | TTFT p50 {snap['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{snap['ttft_p99_s'] * 1e3:.1f} ms | decode "
+          f"{snap['decode_tokens_per_s']:.1f} tok/s | prefix hits "
+          f"{snap['prefix_hit_tokens']} tokens | tokens per forward "
+          f"{snap['spec_tokens_per_forward']:.3f} | launches "
+          f"{ {n: c for n, c in counts.items() if c} }", flush=True)
+    if len(done) != 8 or any(f.finish_reason != "length"
+                             or len(f.token_ids) != NEW_TOKENS for f in done):
+        fail(f"{label}: a request did not finish by length")
+    must = {"grouped_matmul4_a8", "quant_matmul4_a8", "flash_attention",
+            "paged_append_prefill"}
+    must |= ({"paged_verify_attention_stacked" + sfx, "paged_append_ragged_t"}
+             if spec else {"paged_decode_attention_stacked" + sfx,
+                           "paged_append_ragged", "paged_chunk_attention" + sfx})
+    missing = sorted(n for n in must if counts[n] <= 0)
+    stray = sorted(n for n in GROUPED if n not in must and counts[n])
+    if missing or stray or (snap["spec_rounds"] > 0) != spec or (
+            not spec and snap["prefix_hit_tokens"] < 4 * PAGE):
+        fail(f"{label}: not launched {missing}, stray {stray}, spec rounds "
+             f"{snap['spec_rounds']}, prefix hits {snap['prefix_hit_tokens']}")
+    window = ({} if spec or q8 else
+              profile_decode_window(torch, cb, cfg, rng, label=label))
+    del cb
+    torch.cuda.empty_cache()
+    return counts, dict(wall_s=wall, **snap, **window)
+
+
+class PinnedRouting:
+    """``torch.topk`` (called only by ``moe_mlp`` in a prefill) recorded in
+    one run and replayed, call by call, in the next: each later run routes
+    every token to the recorded experts, with its own router weights for
+    them, and counts the top-k choices its own logits would have changed.
+    A near-tie between two experts then flips no choice, so the logits
+    rule measures arithmetic, not which side of a tie a rounding fell."""
+
+    def __init__(self, torch):
+        self.torch, self.topk, self.routes = torch, torch.topk, []
+        self.flips = 0
+
+    def record(self, x, k, dim=-1, **kw):
+        out = self.topk(x, k, dim=dim, **kw)
+        self.routes.append(out[1])
+        return out
+
+    def replay(self, x, k, dim=-1, **kw):
+        idx = self.routes[self.calls]
+        self.calls += 1
+        own = self.topk(x, k, dim=dim, **kw)[1]
+        self.flips += int((own.sort(dim).values != idx.sort(dim).values)
+                          .any(dim).sum())
+        return x.gather(dim, idx), idx
+
+    def swaps(self, replay: bool):
+        self.calls, self.flips = 0, 0
+        return [(self.torch, "topk", self.replay if replay else self.record)]
+
+
+def moe_model_check(torch, cfg, params, prompts, label):
+    """Phase 5 for the MoE model at 4 layers: prefill logits (one chunk,
+    bf16 KV) on the kernel path no further from an fp32 run of the plain
+    path than 1.5x the plain bf16 path's distance, both bf16 runs routed
+    as the fp32 run routes (``PinnedRouting``)."""
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.models import qwen
+
+    L4 = 4
+    c4 = cfg.replace(num_layers=L4)
+    p4 = dict(params, layers=qwen.map_params(params["layers"],
+                                             lambda t: t[:L4]))
+    p_lens = [37, 120, 300, 500]
+    toks = torch.zeros((4, 512), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts(4, p_lens)):
+        toks[i, :len(p)] = torch.tensor(p, device="cuda")
+    lens = torch.tensor(p_lens, device="cuda")
+
+    def run(p, dtype):
+        cache = KVCache.create(L4, 4, 1024, cfg.num_kv_heads, cfg.head_dim,
+                               dtype=dtype, device="cuda")
+        with torch.inference_mode():
+            return qwen.prefill_chunked(p, c4, toks, lens, cache, chunk=512)[0]
+
+    pin = PinnedRouting(torch)
+    with Swapped(f32_swaps() + pin.swaps(replay=False)):
+        lr = run(qwen.map_params(p4, lambda t: t.float()
+                                 if t.is_floating_point() else t),
+                 torch.float32)
+    with Swapped(pin.swaps(replay=True)):
+        lk = run(p4, torch.bfloat16)
+    flips_k = pin.flips
+    with Swapped(plain_swaps() + pin.swaps(replay=True)):
+        lp = run(p4, torch.bfloat16)
+    model_check(f"qwen3-30b-a3b width, {label}, bf16 KV, one chunk", lk, lp,
+                lr, extra=(f" | routing pinned to the fp32 run's: unpinned, "
+                           f"{flips_k} (kernels) and {pin.flips} (plain) of "
+                           f"{4 * 512 * L4} token-layer top-"
+                           f"{cfg.num_experts_per_tok} choices would differ"))
+
+
+def run_moe_phases(torch, np, rng, wrappers):
+    """Phase 6: Qwen3-30B-A3B at full width through every entry point.
+    Returns (launch counts summed over the runs, numbers)."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+
+    cfg = PRESETS["qwen3-30b-a3b"]
+    launches = {n: 0 for n in wrappers}
+    out = {}
+
+    def add(counts):
+        for n, c in counts.items():
+            launches[n] += c
+
+    def prompts(n, length):
+        lengths = length if isinstance(length, list) else [length] * n
+        return [rng.integers(0, cfg.vocab_size, size=m).tolist()
+                for m in lengths]
+
+    # the JAX bench's MoE row: W4A8 gs 256, INT8 KV, batch 32 x 512, at the
+    # preset's full depth of 48 layers, drawn once the dense phases' garbage
+    # is collected (its peak memory is then the MoE runs')
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    params = moe_params(torch, cfg, 4, 256, cfg.num_layers)
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.name}: {cfg.num_layers} layers, {cfg.num_experts} "
+          f"experts, top-{cfg.num_experts_per_tok}, W4A8 gs 256 drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated "
+          f"({before:.2f} GiB before the draw)", flush=True)
+    cfg8 = cfg.replace(act_bits=8)
+    counts, out["w4a8 int8 kv"] = run_moe_generate(
+        torch, cfg8, params, wrappers, prompts, torch.int8,
+        "grouped_matmul4_a8", 32, "W4A8 gs 256, INT8 KV (the bench's MoE row)",
+        profile=True)
+    add(counts)
+    for kv, spec in ((torch.bfloat16, False), (torch.int8, False),
+                     (torch.bfloat16, True)):
+        counts, out[f"serve {kv} spec={spec}"] = run_moe_serving(
+            torch, cfg8, params, wrappers, rng, kv, spec)
+        add(counts)
+    moe_model_check(torch, cfg8, params, prompts, "W4A8 gs 256")
+    del params
+    torch.cuda.empty_cache()
+    # the weight-only expert formats, depth cut for time
+    for bits, gs, L, kern in ((4, 128, 24, "grouped_matmul4"),
+                              (8, 128, 12, "grouped_matmul8")):
+        params = moe_params(torch, cfg, bits, gs, L)
+        counts, out[f"w{bits}a16"] = run_moe_generate(
+            torch, cfg.replace(num_layers=L), params, wrappers, prompts,
+            torch.bfloat16, kern, 16,
+            f"W{bits}A16 gs {gs}, bf16 KV, depth cut to {L} of 48 layers for "
+            f"time")
+        add(counts)
+        if bits == 4:
+            moe_model_check(torch, cfg, params, prompts, "W4A16 gs 128")
+        del params
+        torch.cuda.empty_cache()
+    out["loader"] = run_moe_loader_phase(torch, cfg)
+    return launches, out
+
+
+def run_moe_loader_phase(torch, cfg):
+    """A 2-layer Qwen3-30B-A3B-width checkpoint in HF layout (router plus
+    128 x 3 expert tensors a layer, two BF16 shards) from seeded bf16
+    params, written into a temporary directory deleted afterwards:
+    ``load_checkpoint`` bit for bit, ``quantize --bits 4`` then
+    ``load_quantized`` equal to ``quantize_params`` of the loaded params,
+    ``generate --qckpt`` equal to ``generate --ckpt --bits 4``."""
+    import tempfile
+
+    from qwen_inference_engine_tpu_torch.loader.qcheckpoint import (
+        load_quantized,
+    )
+    from qwen_inference_engine_tpu_torch.loader.safetensors_loader import (
+        load_checkpoint,
+    )
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        QuantConfig,
+        quantize_params,
+    )
+
+    cfg2 = cfg.replace(num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    src = qwen.init_params(cfg2, gen, dtype=torch.bfloat16, device="cuda")
+    sd = hf_state_dict(cfg2, src)
+    n_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="qie_smoke_moe_") as tmp:
+        d, q = os.path.join(tmp, "hf"), os.path.join(tmp, "q")
+        t0 = time.perf_counter()
+        write_hf_checkpoint(d, cfg2.to_hf_config(), sd, shards=2)
+        out["write_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcfg, loaded = load_checkpoint(d)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        got = hf_state_dict(lcfg, loaded)
+        bad = sorted(n for n, t in sd.items()
+                     if not (got[n].is_cuda and torch.equal(got[n], t)))
+        print(f"[moe loader] {cfg2.name} widths, 2 layers: {len(sd)} tensors, "
+              f"{n_bytes / 1e9:.3f} GB, written in {out['write_s']:.2f} s; "
+              f"load_checkpoint on the card {out['load_s']:.2f} s "
+              f"({n_bytes / out['load_s'] / 1e9:.2f} GB/s), {len(bad)} "
+              f"tensors differ", flush=True)
+        if bad or set(got) != set(sd) or not lcfg.is_moe:
+            fail(f"moe loader: tensors differ {bad[:4]}")
+        del src, got
+        t0 = time.perf_counter()
+        _cli_ids(torch, ["quantize", "--ckpt", d, "--bits", "4",
+                         "--group-size", "128", "--out", q])
+        out["quantize_s"] = time.perf_counter() - t0
+        qcfg, qp = load_quantized(q)
+        want = quantize_params(loaded, QuantConfig(bits=4, group_size=128))
+        names = ("q", "k", "v", "o", "moe_gate", "moe_up", "moe_down")
+        diff = sorted(n for n in names
+                      if not (torch.equal(qp["layers"][n].q, want["layers"][n].q)
+                              and torch.equal(qp["layers"][n].scales,
+                                              want["layers"][n].scales)))
+        if not torch.equal(qp["layers"]["router"].w,
+                           loaded["layers"]["router"].w):
+            diff.append("router")
+        print(f"[moe loader] quantize --bits 4 in {out['quantize_s']:.2f} s; "
+              f"load_quantized differs from quantize_params of the loaded "
+              f"params in {diff}", flush=True)
+        if diff or not qcfg.is_moe:
+            fail(f"moe loader: quantized checkpoint differs in {diff}")
+        del loaded, want, qp
+        torch.cuda.empty_cache()
+        gen_args = ["--prompt", "Hello, H100.", "--prompt", "Experts",
+                    "--max-new-tokens", "8", "--greedy", "--max-seq", "256"]
+        ids = {"--qckpt": _cli_ids(torch, ["generate", "--qckpt", q,
+                                           *gen_args]),
+               "--ckpt --bits 4": _cli_ids(torch, ["generate", "--ckpt", d,
+                                                   "--bits", "4",
+                                                   *gen_args])}
+        print(f"[moe loader] generate: {ids}", flush=True)
+        if ids["--qckpt"] != ids["--ckpt --bits 4"] or any(
+                len(v) != 2 or not all(len(r) >= 1 for r in v)
+                for v in ids.values()):
+            fail("moe loader: generate --qckpt and --ckpt --bits 4 differ")
+    out["bytes"] = n_bytes
+    out["load_gb_s"] = n_bytes / out["load_s"] / 1e9
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2115,10 +2795,6 @@ def main() -> int:
     from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
     from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
-    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
-    from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
-    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
-    from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
     from qwen_inference_engine_tpu_torch.quant.quantize import (
@@ -2126,6 +2802,7 @@ def main() -> int:
         quantize_linear,
         quantize_params,
     )
+    from qwen_inference_engine_tpu_torch.utils.metrics import kernel_wrappers
 
     t_start = time.perf_counter()
     # ---- 1. device
@@ -2191,6 +2868,8 @@ def main() -> int:
                   **check_paged_chunk(torch, cfg),
                   **check_paged_chunk(torch, cfg, quant=True),
                   **check_paged_appends(torch, cfg)}
+    check_wide_window_append(torch, cfg)
+    grouped_recs = check_grouped_matmul(torch, PRESETS["qwen3-30b-a3b"])
     torch.cuda.empty_cache()
 
     # ---- 4. end to end: Qwen2.5-7B, full depth, W4A8 gs 256, bf16 KV
@@ -2223,32 +2902,7 @@ def main() -> int:
         return [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lengths]
 
     eng.generate(prompts([16, 16, 16, 16]), max_new_tokens=2)  # warm-up
-    wrappers = {"quant_matmul4_a8": qm.quant_matmul4_a8,
-                "quant_matmul4": qm.quant_matmul4,
-                "quant_matmul8": qm.quant_matmul8,
-                "quant_matmul8_a8": qm.quant_matmul8_a8,
-                "flash_attention": fa.flash_attention,
-                "decode_attention_contiguous": da.decode_attention_contiguous,
-                "decode_attention_appending": da.decode_attention_appending,
-                "chunk_attention_contiguous": ca.chunk_attention_contiguous,
-                "chunk_attention_contiguous_q8":
-                    ca.chunk_attention_contiguous_q8,
-                "kv_append_uniform_q8": ka.kv_append_uniform_q8,
-                "decode_attention_contiguous_q8":
-                    da.decode_attention_contiguous_q8,
-                "paged_decode_attention_stacked":
-                    pa.paged_decode_attention_stacked,
-                "paged_chunk_attention": ca.paged_chunk_attention,
-                "paged_append_ragged": ka.paged_append_ragged,
-                "paged_append_prefill": ka.paged_append_prefill,
-                "paged_decode_attention_stacked_q8":
-                    pa.paged_decode_attention_stacked_q8,
-                "paged_verify_attention_stacked":
-                    pa.paged_verify_attention_stacked,
-                "paged_verify_attention_stacked_q8":
-                    pa.paged_verify_attention_stacked_q8,
-                "paged_chunk_attention_q8": ca.paged_chunk_attention_q8,
-                "paged_append_ragged_t": ka.paged_append_ragged_t}
+    wrappers = kernel_wrappers()
     paged = {n for n in wrappers if n.startswith("paged_")}
     engines = {
         "bf16": eng,
@@ -2351,7 +3005,7 @@ def main() -> int:
         for n, c in r["launches"].items():
             launches[n] += c
     runs.update(format_runs)
-    del p_w8a16
+    del p_w8a16, variants
     torch.cuda.empty_cache()
 
     # ---- 4b. serving: ContinuousBatchingEngine at full depth, then HTTP
@@ -2396,8 +3050,9 @@ def main() -> int:
     loader = run_loader_phase(torch, cfg, bf16)
     del bf16, p_bench
     torch.cuda.empty_cache()
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
+    dense_grouped = {n: launches[n] for n in GROUPED if launches[n]}
+    if dense_grouped:
+        fail(f"the dense runs launched grouped kernels: {dense_grouped}")
 
     # ---- 5. kernel path vs plain path, whole model at depth 4
     L4 = 4
@@ -2453,7 +3108,8 @@ def main() -> int:
                 pq4, lambda t: t.float() if t.is_floating_point() else t),
                 torch.float32, c4=c4)
         model_check(f"{label}, bf16 KV, one chunk", lkf, lpf, lrf)
-    del p_w4a16, p_w8a8
+    # the loop's names still hold the last format's 28-layer stacks
+    del p_w4a16, p_w8a8, pq, pq4
     torch.cuda.empty_cache()
 
     # INT8 KV over two chunks: a fresh prefill, then a continuation
@@ -2476,7 +3132,17 @@ def main() -> int:
         paged_model_check(torch, cfg4, params4, params4_f32, prompts,
                           plain_swaps(), f32_swaps(), kv)
 
-    # ---- 6. results
+    del params, params4, params4_f32, e4
+    torch.cuda.empty_cache()
+
+    # ---- 6. Qwen3-30B-A3B at full width: generate, serve, logits, loader
+    moe_counts, moe_runs = run_moe_phases(torch, np, rng, wrappers)
+    for n, c in moe_counts.items():
+        launches[n] += c
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path was never launched: {launches}")
+
+    # ---- 7. results
     sources = {
         "quant_matmul4_a8": ("csrc/quant_matmul.cu",
                              "qwen_inference_engine_tpu/ops/quant_matmul.py:219"),
@@ -2530,6 +3196,15 @@ def main() -> int:
             "qwen_inference_engine_tpu/ops/chunk_attention.py:526"),
         "paged_append_ragged_t": (
             "csrc/kv_append.cu", "qwen_inference_engine_tpu/ops/kv_append.py:607"),
+        "grouped_matmul4_a8": (
+            "csrc/grouped_matmul.cu",
+            "qwen_inference_engine_tpu/ops/grouped_matmul.py:323"),
+        "grouped_matmul4": (
+            "csrc/grouped_matmul.cu",
+            "qwen_inference_engine_tpu/ops/grouped_matmul.py:193"),
+        "grouped_matmul8": (
+            "csrc/grouped_matmul.cu",
+            "qwen_inference_engine_tpu/ops/grouped_matmul.py:426"),
     }
     # each matmul is reported per decode layer: its seven projections at M=4
     recs = {"quant_matmul4_a8": layer_record(qmm_recs, qmm_14b),
@@ -2544,7 +3219,8 @@ def main() -> int:
                 new_recs["quant_matmul8_a8 gs 128"]
                 + new_14b["quant_matmul8_a8"]),
             "flash_attention": flash_recs[0], **dec_recs, **chunk_recs,
-            **append_recs, **dec8_recs, **paged_recs}
+            **append_recs, **dec8_recs, **paged_recs,
+            **{n: moe_layer_record(r) for n, r in grouped_recs.items()}}
     kernels = []
     for name, rec in recs.items():
         src, replaces = sources[name]
@@ -2561,7 +3237,7 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
           f" | loader {json.dumps(loader)} | int8 pool and speculation "
-          f"{json.dumps(spec_runs)}")
+          f"{json.dumps(spec_runs)} | moe {json.dumps(moe_runs)}")
     if len(sys.argv) > 1:  # every kernel shape's and run's numbers
         os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])),
                     exist_ok=True)
@@ -2571,7 +3247,9 @@ def main() -> int:
                        "serving_w4a16": w4_serve, "loader": loader,
                        "int8_pool_and_speculation": spec_runs,
                        "paged_kernels": paged_recs,
-                       "chunk_kernels": chunk_recs}, f, indent=1)
+                       "chunk_kernels": chunk_recs,
+                       "grouped_kernels": grouped_recs, "moe": moe_runs},
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

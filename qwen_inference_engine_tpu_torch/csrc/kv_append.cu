@@ -199,7 +199,8 @@ extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
 
 // The paged appends: k_scale / v_scale / ks_new / vs_new all null
 // for a bf16 pool, all given for an int8 pool.  `ragged_t` writes a window
-// of T <= page rows per sequence: T = 1 is the decode append
+// of T rows per sequence, each token through its own page (any T: a window
+// may span several pages): T = 1 is the decode append
 // (paged_append_ragged), T = k + 1 the verify window.
 static bool quant_args(const void* a, const void* b, const void* c,
                        const void* d, bool* quant) {
@@ -216,7 +217,7 @@ extern "C" int qie_paged_append_ragged_t(
     void* stream) {
   bool quant;
   if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || B <= 0 ||
-      B > 65535 || T <= 0 || T > page || Hk <= 0 || D <= 0 || D > 1024 ||
+      B > 65535 || T <= 0 || Hk <= 0 || D <= 0 || D > 1024 ||
       P <= 0 || page <= 0 || max_pages <= 0 || layer < 0 || layer >= L) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

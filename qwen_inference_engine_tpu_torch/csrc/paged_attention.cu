@@ -1,6 +1,6 @@
 // GQA attention of T fresh query tokens per row over the stacked page pool
 // (bf16 or int8), Hopper: plain decode (T = 1) and the speculative verify
-// (2 <= T <= 16).
+// (any T >= 2).
 //
 // Replaces two kernels of qwen_inference_engine_tpu/ops/paged_attention.py:
 //   * _paged_bhgd (body _paged_kernel), bf16 pool: decode (n_t == 1) behind
@@ -138,7 +138,8 @@ void launch(int BR, dim3 grid, cudaStream_t st, const void* q,
 }  // namespace
 
 // k_scale / v_scale null: a bf16 pool; both given: an int8 pool.  T = 1 is
-// the decode, 2 <= T <= 16 the verify.
+// the decode, T >= 2 the verify (any window: its T * G query rows go to
+// ceil(T * G / 16) blocks).
 extern "C" int qie_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const void* k_scale,
                                    const void* v_scale, const void* tables,
@@ -147,13 +148,16 @@ extern "C" int qie_paged_attention(const void* q, const void* k_pages,
                                    int max_pages, int D, int layer,
                                    float scale, void* stream) {
   const bool quant = k_scale != nullptr;
-  if (B <= 0 || T < 1 || T > 16 || Hk <= 0 || Hq % Hk || Hq / Hk > 8 ||
+  if (B <= 0 || T < 1 || Hk <= 0 || Hq % Hk || Hq / Hk > 8 ||
       page <= 0 || page % 8 || max_pages <= 0 || P <= 0 || layer < 0 ||
       layer >= L || quant != (v_scale != nullptr) || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int BR = T == 1 ? 8 : 16;
-  dim3 grid(Hk, B, (T * (Hq / Hk) + BR - 1) / BR);
+  const long long blocks_z =
+      (static_cast<long long>(T) * (Hq / Hk) + BR - 1) / BR;
+  if (blocks_z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(Hk, B, static_cast<unsigned>(blocks_z));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) {
     if (quant) {

@@ -56,154 +56,31 @@
 //   (G = 1: q alone, exact in bf16, the column scale in the epilogue).
 // Tensor-core a8 kernels (mma.sync / wgmma on s8), a pipelined (TMA)
 // weight stream and split-K for decode are left to later work.
+//
+// The tile bodies live in quant_matmul_core.cuh, shared with the grouped
+// MoE kernels (grouped_matmul.cu); each kernel here is one tile per block.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "quant_matmul_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 128;   // a8 kernels: output columns per block (32 x 4)
-constexpr int kBKP = 32;   // a8 kernels: weight rows per k-step
-
-// Signed high nibble of each byte of w, as four int8 lanes.
-__device__ __forceinline__ int high_nibbles(unsigned w) {
-  const unsigned u = (w >> 4) & 0x0F0F0F0Fu;          // 0..15 per byte
-  return static_cast<int>(__vsub4(u ^ 0x08080808u, 0x08080808u));
-}
-
-// 4x4 byte transpose of four weight rows (r0..r3, 4 columns each):
-// colw[j] = the 4 rows of column j, in k order.
-__device__ __forceinline__ void transpose4x4(unsigned r0, unsigned r1,
-                                             unsigned r2, unsigned r3,
-                                             unsigned colw[4]) {
-  const unsigned t01a = __byte_perm(r0, r1, 0x5140);
-  const unsigned t23a = __byte_perm(r2, r3, 0x5140);
-  const unsigned t01b = __byte_perm(r0, r1, 0x7362);
-  const unsigned t23b = __byte_perm(r2, r3, 0x7362);
-  colw[0] = __byte_perm(t01a, t23a, 0x5410);
-  colw[1] = __byte_perm(t01a, t23a, 0x7632);
-  colw[2] = __byte_perm(t01b, t23b, 0x5410);
-  colw[3] = __byte_perm(t01b, t23b, 0x7632);
-}
-
-// ---------------------------------------------------------------------
-// W4A8
-// ---------------------------------------------------------------------
+using qie::kBN;
+using qie::kBKP;
+using qie::kChunk;
+using qie::kSmallCols;
+using qie::kThreads;
+using qie::kWBM;
+using qie::kWBN;
+using qie::kWThreads;
 
 template <int TM>
 __global__ void __launch_bounds__(kThreads)
 qmm4_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
                const int8_t* __restrict__ q, const float* __restrict__ scales,
                __nv_bfloat16* __restrict__ out, int M, int Kp, int N, int gs) {
-  constexpr int BM = 8 * TM;  // 8 warps along M
-  __shared__ __align__(16) int8_t xs_e[BM][kBKP];
-  __shared__ __align__(16) int8_t xs_o[BM][kBKP];
-  __shared__ __align__(16) int8_t ws[kBKP][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 32;   // columns n0 + 4*tx .. +3
-  const int ty = tid / 32;   // rows m0 + ty*TM .. +TM-1
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
-  const int pairs = Kp / (2 * gs);
-
-  float accf[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) accf[i][j] = 0.f;
-
-  for (int p = 0; p < pairs; ++p) {
-    int acc_lo[TM][4], acc_hi[TM][4], rsum[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      rsum[i] = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc_lo[i][j] = acc_hi[i][j] = 0;
-    }
-    for (int c = 0; c < gs; c += kBKP) {
-      {  // 32 packed rows x 128 columns = 256 threads x 16 bytes
-        const int r = tid / 8, col = (tid % 8) * 16;
-        const int4* src = reinterpret_cast<const int4*>(
-            q + static_cast<size_t>(p * gs + c + r) * N + n0 + col);
-        *reinterpret_cast<int4*>(&ws[r][col]) = __ldg(src);
-      }
-      // even plane: logical k = p*2gs + c + [0,32); odd plane: + gs
-      for (int i = tid; i < 4 * BM; i += kThreads) {
-        const int plane = i / (2 * BM);
-        const int j = i % (2 * BM);
-        const int r = j / 2, col = (j % 2) * 16;
-        const int m = m0 + r;
-        int4 v = make_int4(0, 0, 0, 0);
-        if (m < M) {
-          v = __ldg(reinterpret_cast<const int4*>(
-              x + static_cast<size_t>(m) * Kp + p * 2 * gs + plane * gs + c +
-              col));
-        }
-        *reinterpret_cast<int4*>(plane ? &xs_o[r][col] : &xs_e[r][col]) = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBKP; kk += 4) {
-        unsigned colw[4];
-        transpose4x4(*reinterpret_cast<const unsigned*>(&ws[kk + 0][4 * tx]),
-                     *reinterpret_cast<const unsigned*>(&ws[kk + 1][4 * tx]),
-                     *reinterpret_cast<const unsigned*>(&ws[kk + 2][4 * tx]),
-                     *reinterpret_cast<const unsigned*>(&ws[kk + 3][4 * tx]),
-                     colw);
-        int lo8[4], hi[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lo8[j] = static_cast<int>(colw[j] & 0x0F0F0F0Fu);  // lo + 8
-          hi[j] = high_nibbles(colw[j]);
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int xe = *reinterpret_cast<const int*>(&xs_e[ty * TM + i][kk]);
-          const int xo = *reinterpret_cast<const int*>(&xs_o[ty * TM + i][kk]);
-          rsum[i] = __dp4a(xe, 0x01010101, rsum[i]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc_lo[i][j] = __dp4a(xe, lo8[j], acc_lo[i][j]);
-            acc_hi[i][j] = __dp4a(xo, hi[j], acc_hi[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    // group scales of this plane-pair: lo plane = group 2p, hi = group 2p+1
-    const float4 slo = __ldg(reinterpret_cast<const float4*>(
-        scales + static_cast<size_t>(2 * p) * N + n0 + 4 * tx));
-    const float4 shi = __ldg(reinterpret_cast<const float4*>(
-        scales + static_cast<size_t>(2 * p + 1) * N + n0 + 4 * tx));
-    const float sl[4] = {slo.x, slo.y, slo.z, slo.w};
-    const float sh[4] = {shi.x, shi.y, shi.z, shi.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        accf[i][j] += static_cast<float>(acc_lo[i][j] - 8 * rsum[i]) * sl[j] +
-                      static_cast<float>(acc_hi[i][j]) * sh[j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m < M) {
-      const float s = sx[m];
-      __nv_bfloat16* o = out + static_cast<size_t>(m) * N + n0 + 4 * tx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = __float2bfloat16(accf[i][j] * s);
-    }
-  }
+  qie::tile_4a8<TM>(x, sx, q, scales, out, M, Kp, N, gs, blockIdx.y * 8 * TM,
+                    blockIdx.x * kBN);
 }
-
-// ---------------------------------------------------------------------
-// W8A8
-// ---------------------------------------------------------------------
 
 template <int TM>
 __global__ void __launch_bounds__(kThreads)
@@ -211,112 +88,10 @@ qmm8_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
                const int8_t* __restrict__ q, const float* __restrict__ scales,
                __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs,
                bool per_col) {
-  constexpr int BM = 8 * TM;
-  __shared__ __align__(16) int8_t xs[BM][kBKP];
-  __shared__ __align__(16) int8_t ws[kBKP][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 32;
-  const int ty = tid / 32;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
-
-  float accf[TM][4];
-  int acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      accf[i][j] = 0.f;
-      acc[i][j] = 0;
-    }
-
-  for (int k0 = 0; k0 < K; k0 += kBKP) {
-    {  // 32 rows x 128 columns = 256 threads x 16 bytes
-      const int r = tid / 8, col = (tid % 8) * 16;
-      *reinterpret_cast<int4*>(&ws[r][col]) = __ldg(reinterpret_cast<const int4*>(
-          q + static_cast<size_t>(k0 + r) * N + n0 + col));
-    }
-    for (int i = tid; i < 2 * BM; i += kThreads) {
-      const int r = i / 2, col = (i % 2) * 16;
-      const int m = m0 + r;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < M) {
-        v = __ldg(reinterpret_cast<const int4*>(
-            x + static_cast<size_t>(m) * K + k0 + col));
-      }
-      *reinterpret_cast<int4*>(&xs[r][col]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBKP; kk += 4) {
-      unsigned colw[4];
-      transpose4x4(*reinterpret_cast<const unsigned*>(&ws[kk + 0][4 * tx]),
-                   *reinterpret_cast<const unsigned*>(&ws[kk + 1][4 * tx]),
-                   *reinterpret_cast<const unsigned*>(&ws[kk + 2][4 * tx]),
-                   *reinterpret_cast<const unsigned*>(&ws[kk + 3][4 * tx]),
-                   colw);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int xv = *reinterpret_cast<const int*>(&xs[ty * TM + i][kk]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __dp4a(xv, static_cast<int>(colw[j]), acc[i][j]);
-      }
-    }
-    __syncthreads();
-    if (!per_col && (k0 + kBKP) % gs == 0) {  // a group's exact sum is done
-      const float4 s4 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(k0 / gs) * N + n0 + 4 * tx));
-      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          accf[i][j] += static_cast<float>(acc[i][j]) * s[j];
-          acc[i][j] = 0;
-        }
-    }
-  }
-  if (per_col) {  // one exact int32 sum over K (|sum| <= 127^2 K < 2^31)
-    const float4 s4 = __ldg(reinterpret_cast<const float4*>(scales + n0 + 4 * tx));
-    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) accf[i][j] = static_cast<float>(acc[i][j]) * s[j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m < M) {
-      const float s = sx[m];
-      __nv_bfloat16* o = out + static_cast<size_t>(m) * N + n0 + 4 * tx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = __float2bfloat16(accf[i][j] * s);
-    }
-  }
+  qie::tile_8a8<TM>(x, sx, q, scales, out, M, K, N, gs, per_col,
+                    blockIdx.y * 8 * TM, blockIdx.x * kBN);
 }
 
-// ---------------------------------------------------------------------
-// W4A16 / W8A16, M <= 16: CUDA cores, weights streamed once
-// ---------------------------------------------------------------------
-
-constexpr int kSmallCols = 64;     // columns per block: 16 threads x 4
-constexpr int kSmallGroups = 16;   // thread groups splitting K
-constexpr int kChunk = 32;         // weight rows per chunk
-
-// The 4 bf16 at p (8-byte aligned) as floats.
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float f[4]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-// kInt4: K is the logical (padded) K, the weight has K/2 packed rows and
-// gs is the INT4 group size; else K rows and gs = K / G.
 template <bool kInt4, int MT>
 __global__ void __launch_bounds__(kThreads)
 qmm_w16_small_kernel(const __nv_bfloat16* __restrict__ x,
@@ -324,121 +99,9 @@ qmm_w16_small_kernel(const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ scales,
                      __nv_bfloat16* __restrict__ out, int M, int K, int N,
                      int gs, bool per_col) {
-  __shared__ float red[kSmallGroups][MT][kSmallCols];
-  const int tid = threadIdx.x;
-  const int cx = tid % 16;           // columns n0 + 4*cx .. +3
-  const int kg = tid / 16;           // chunks kg, kg + 16, ...
-  const int n0 = blockIdx.x * kSmallCols;
-  const int n = n0 + 4 * cx;
-  const int m0 = blockIdx.y * MT;
-  const int chunks = (kInt4 ? K / 2 : K) / kChunk;
-
-  // rows past M read row M-1 (in bounds) and are never written
-  const __nv_bfloat16* xrow[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-    xrow[m] = x + static_cast<size_t>(min(m0 + m, M - 1)) * K;
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int c = kg; c < chunks; c += kSmallGroups) {
-    const int r0 = c * kChunk;
-    int klo, g_lo;
-    if (kInt4) {  // packed row r0 = pair p, row r: k = 2p*gs + r and + gs
-      const int p = r0 / gs;
-      klo = 2 * p * gs + (r0 - p * gs);
-      g_lo = 2 * p;
-    } else {
-      klo = r0;
-      g_lo = r0 / gs;
-    }
-    unsigned w[kChunk];
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i)
-      w[i] = __ldg(reinterpret_cast<const unsigned*>(
-          q + static_cast<size_t>(r0 + i) * N + n));
-    float a_lo[MT][4], a_hi[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a_lo[m][j] = a_hi[m][j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kChunk; i += 4) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float xl[4], xh[4];
-        load4(xrow[m] + klo + i, xl);
-        if (kInt4) load4(xrow[m] + klo + gs + i, xh);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int b = static_cast<int8_t>((w[i + t] >> (8 * j)) & 0xFF);
-            if (kInt4) {
-              a_lo[m][j] = fmaf(xl[t], static_cast<float>((b & 0xF) - 8), a_lo[m][j]);
-              a_hi[m][j] = fmaf(xh[t], static_cast<float>(b >> 4), a_hi[m][j]);
-            } else {
-              a_lo[m][j] = fmaf(xl[t], static_cast<float>(b), a_lo[m][j]);
-            }
-          }
-        }
-      }
-    }
-    if (kInt4) {
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(g_lo) * N + n));
-      const float4 s1 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(g_lo + 1) * N + n));
-      const float sl[4] = {s0.x, s0.y, s0.z, s0.w};
-      const float sh[4] = {s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[m][j] += a_lo[m][j] * sl[j] + a_hi[m][j] * sh[j];
-    } else if (per_col) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] += a_lo[m][j];
-    } else {
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(g_lo) * N + n));
-      const float s[4] = {s0.x, s0.y, s0.z, s0.w};
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] += a_lo[m][j] * s[j];
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[kg][m][4 * cx + j] = acc[m][j];
-  __syncthreads();
-  for (int o = tid; o < MT * kSmallCols; o += kThreads) {
-    const int m = o / kSmallCols, col = o % kSmallCols;
-    float s = 0.f;
-#pragma unroll
-    for (int g = 0; g < kSmallGroups; ++g) s += red[g][m][col];
-    if (per_col) s *= scales[n0 + col];
-    if (m0 + m < M)
-      out[static_cast<size_t>(m0 + m) * N + n0 + col] = __float2bfloat16(s);
-  }
+  qie::tile_w16_small<kInt4, MT>(x, q, scales, out, M, K, N, gs, per_col,
+                                 blockIdx.y * MT, blockIdx.x * kSmallCols);
 }
-
-// ---------------------------------------------------------------------
-// W4A16 / W8A16, M > 16: bf16 tensor cores (wmma), dequantized tiles
-// ---------------------------------------------------------------------
-
-constexpr int kWBM = 64, kWBN = 64;  // output tile
-constexpr int kWKS = 32;             // weight rows per k-step
-constexpr int kWThreads = 128;       // 4 warps, 2 x 2, 32 x 32 each
 
 template <bool kInt4>
 __global__ void __launch_bounds__(kWThreads)
@@ -447,138 +110,8 @@ qmm_w16_wmma_kernel(const __nv_bfloat16* __restrict__ x,
                     const float* __restrict__ scales,
                     __nv_bfloat16* __restrict__ out, int M, int K, int N,
                     int gs, bool per_col) {
-  using namespace nvcuda;
-  constexpr int BK = kInt4 ? 2 * kWKS : kWKS;  // logical rows per k-step
-  constexpr int LDA = BK + 8, LDB = kWBN + 8, LDC = kWBN + 4;
-  __shared__ __align__(32) __nv_bfloat16 As[kWBM][LDA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK][LDB];
-  __shared__ __align__(32) float Cs[kWBM][LDC];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int n0 = blockIdx.x * kWBN;
-  const int m0 = blockIdx.y * kWBM;
-  const int steps = (kInt4 ? K / 2 : K) / kWKS;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int s = 0; s < steps; ++s) {
-    const int r0 = s * kWKS;
-    int klo, g_lo;
-    if (kInt4) {
-      const int p = r0 / gs;
-      klo = 2 * p * gs + (r0 - p * gs);
-      g_lo = 2 * p;
-    } else {
-      klo = r0;
-      g_lo = r0 / gs;
-    }
-    // A: x columns klo..klo+31 (INT4: and klo+gs..+31) of rows m0..m0+63
-    for (int idx = tid; idx < kWBM * 4 * (kInt4 ? 2 : 1); idx += kWThreads) {
-      const int seg = idx / (kWBM * 4);
-      const int j = idx % (kWBM * 4);
-      const int i = j / 4, c = (j % 4) * 8;
-      const int m = m0 + i;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < M) {
-        v = __ldg(reinterpret_cast<const int4*>(
-            x + static_cast<size_t>(m) * K + klo + seg * gs + c));
-      }
-      *reinterpret_cast<int4*>(&As[i][seg * kWKS + c]) = v;
-    }
-    {  // B: 32 weight rows x 64 columns, one 16-byte load a thread
-      const int rr = tid / 4, cc = (tid % 4) * 16;
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(
-          q + static_cast<size_t>(r0 + rr) * N + n0 + cc));
-      const unsigned words[4] = {static_cast<unsigned>(raw.x),
-                                 static_cast<unsigned>(raw.y),
-                                 static_cast<unsigned>(raw.z),
-                                 static_cast<unsigned>(raw.w)};
-      float s_lo[16], s_hi[16];
-#pragma unroll
-      for (int j = 0; j < 16; j += 4) {
-        if (kInt4 || !per_col) {
-          const float4 a = __ldg(reinterpret_cast<const float4*>(
-              scales + static_cast<size_t>(g_lo) * N + n0 + cc + j));
-          s_lo[j] = a.x; s_lo[j + 1] = a.y; s_lo[j + 2] = a.z; s_lo[j + 3] = a.w;
-        } else {
-          s_lo[j] = s_lo[j + 1] = s_lo[j + 2] = s_lo[j + 3] = 1.f;
-        }
-        if (kInt4) {
-          const float4 h = __ldg(reinterpret_cast<const float4*>(
-              scales + static_cast<size_t>(g_lo + 1) * N + n0 + cc + j));
-          s_hi[j] = h.x; s_hi[j + 1] = h.y; s_hi[j + 2] = h.z; s_hi[j + 3] = h.w;
-        }
-      }
-      // two bf16 a 32-bit word, the lower column in the low half
-      unsigned lo[8], hi[8];
-#pragma unroll
-      for (int j = 0; j < 16; j += 2) {
-        const int v0 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4))) & 0xFF);
-        const int v1 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4) + 8)) & 0xFF);
-        __nv_bfloat162 l, h;
-        if (kInt4) {
-          l = __floats2bfloat162_rn(static_cast<float>((v0 & 0xF) - 8) * s_lo[j],
-                                    static_cast<float>((v1 & 0xF) - 8) * s_lo[j + 1]);
-          h = __floats2bfloat162_rn(static_cast<float>(v0 >> 4) * s_hi[j],
-                                    static_cast<float>(v1 >> 4) * s_hi[j + 1]);
-        } else {
-          l = __floats2bfloat162_rn(static_cast<float>(v0) * s_lo[j],
-                                    static_cast<float>(v1) * s_lo[j + 1]);
-          h = l;
-        }
-        lo[j / 2] = *reinterpret_cast<const unsigned*>(&l);
-        hi[j / 2] = *reinterpret_cast<const unsigned*>(&h);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&Bs[rr][cc]);
-      dst[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      dst[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      if (kInt4) {
-        uint4* dh = reinterpret_cast<uint4*>(&Bs[kWKS + rr][cc]);
-        dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[wm + 16 * i][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk][wn + 16 * j], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < kWBM * kWBN; idx += kWThreads) {
-    const int i = idx / kWBN, c = idx % kWBN;
-    const int m = m0 + i;
-    if (m < M) {
-      float v = Cs[i][c];
-      if (!kInt4 && per_col) v *= scales[n0 + c];
-      out[static_cast<size_t>(m) * N + n0 + c] = __float2bfloat16(v);
-    }
-  }
+  qie::tile_w16_wmma<kInt4>(x, q, scales, out, M, K, N, gs, per_col,
+                            blockIdx.y * kWBM, blockIdx.x * kWBN);
 }
 
 // The bf16-activation kernels for both weight types: CUDA cores at

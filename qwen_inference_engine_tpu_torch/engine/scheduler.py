@@ -38,8 +38,10 @@ window samples exactly as the same ticks run one by one.  The streams are
 not the JAX package's ``fold_in`` streams, so only greedy rows match it
 token for token.
 
-Not ported yet: a device mesh (TP / EP / PP, slice 6) and Qwen3-MoE
-(slice 5), each raising ``NotImplementedError``.
+Dense and Qwen3-MoE models serve alike, as target or drafter (an MoE
+layer routes every row of a step, a verify's B x (k+1) rows included, as
+one batch).  Not ported yet: a device mesh (TP / EP / PP, slice 6),
+raising ``NotImplementedError``.
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do): it never drops to the CPU by itself.
@@ -101,10 +103,6 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             raise NotImplementedError(
                 "serving on a device mesh (the TP / EP / PP steps) is not "
                 "ported yet: it comes with the multi-GPU slice (6)")
-        if cfg.is_moe or (draft_cfg is not None and draft_cfg.is_moe):
-            raise NotImplementedError(
-                "Qwen3-MoE (moe_mlp and the grouped matmuls) is not ported "
-                "yet: it comes with the MoE slice (5)")
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("draft_params requires draft_cfg (the drafter's "
                              "ModelConfig): pass both or neither")

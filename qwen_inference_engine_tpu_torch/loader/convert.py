@@ -6,7 +6,10 @@ row-major ``[out, in]`` to matmul-ready ``[in, out]``.  Each tensor goes to
 the target device on its own, is transposed and cast there, and is copied
 into its preallocated stacked slab, so the host never holds more than the
 one tensor being read (the JAX package's threaded host transposes of
-``loader/native.py`` have no counterpart: the card does them).
+``loader/native.py`` have no counterpart: the card does them).  A
+Qwen3-MoE checkpoint's ``mlp.gate`` becomes the ``router`` Linear
+``[L, D, E]`` and its ``mlp.experts.{e}.{gate,up,down}_proj`` the expert
+stacks ``[L, E, in, out]``, filled one expert tensor at a time.
 """
 
 from __future__ import annotations
@@ -45,10 +48,6 @@ def params_from_state_dict(
     land on ``device``: the card unless ``device="cpu"``."""
     from qwen_inference_engine_tpu_torch.engine.engine import resolve_device
 
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "Qwen3-MoE checkpoints (mlp.gate router, mlp.experts.*) are not "
-            "ported yet: they come with the MoE slice (5)")
     if not callable(get):
         mapping = get
         get = lambda name: mapping[name]  # noqa: E731
@@ -87,10 +86,31 @@ def params_from_state_dict(
         "v": stack_linear(L + "self_attn.v_proj", bias),
         "o": stack_linear(L + "self_attn.o_proj", False),
         "post_norm": stack(L + "post_attention_layernorm.weight"),
-        "gate": stack_linear(L + "mlp.gate_proj", False),
-        "up": stack_linear(L + "mlp.up_proj", False),
-        "down": stack_linear(L + "mlp.down_proj", False),
     }
+    if cfg.is_moe:
+        # Qwen3-MoE: mlp.gate [E, D] is the router; mlp.experts.{e}.*_proj
+        # [out, in] go to [L, E, in, out] stacks, one expert at a time
+        def stack_experts(proj: str) -> torch.Tensor:
+            fmt = "model.layers.{i}.mlp.experts.{e}." + proj + ".weight"
+            first = put(fmt.format(i=0, e=0), transpose=True)
+            out = torch.empty((cfg.num_layers, cfg.num_experts, *first.shape),
+                              dtype=dtype, device=device)
+            out[0, 0] = first
+            del first
+            for i in range(cfg.num_layers):
+                for e in range(cfg.num_experts):
+                    if i or e:
+                        put(fmt.format(i=i, e=e), out[i, e], True)
+            return out
+
+        layers["router"] = stack_linear(L + "mlp.gate", False)
+        layers["moe_gate"] = stack_experts("gate_proj")
+        layers["moe_up"] = stack_experts("up_proj")
+        layers["moe_down"] = stack_experts("down_proj")
+    else:
+        layers["gate"] = stack_linear(L + "mlp.gate_proj", False)
+        layers["up"] = stack_linear(L + "mlp.up_proj", False)
+        layers["down"] = stack_linear(L + "mlp.down_proj", False)
     if cfg.qk_norm:
         layers["q_norm"] = stack(L + "self_attn.q_norm.weight")
         layers["k_norm"] = stack(L + "self_attn.k_norm.weight")

@@ -9,7 +9,11 @@ on-disk format, so each package loads the other's output::
                         # "dtype": "bfloat16" in the manifest
 
 Leaf paths are the JAX package's pytree paths (``layers.q.q``,
-``layers.q.scales``, ``layers.q.b``, ``lm_head.w``, ``embed``, ...).
+``layers.q.scales``, ``layers.q.b``, ``lm_head.w``, ``embed``, ...); a
+Qwen3-MoE model adds ``layers.router.w`` and the expert stacks
+``layers.moe_gate`` (bf16) or ``layers.moe_gate.q`` / ``.scales``
+(``[L, E, K/pack, N]`` and ``[L, E, K/gs, N]``), as the JAX package writes
+them.
 """
 
 from __future__ import annotations
@@ -26,7 +30,10 @@ from qwen_inference_engine_tpu_torch.config import ModelConfig
 from qwen_inference_engine_tpu_torch.ops.linear import Linear, QuantLinear
 
 _FORMAT_VERSION = 1
-_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
+_LINEARS = ("q", "k", "v", "o", "gate", "up", "down", "router")
+# Qwen3-MoE expert stacks: a bf16 tensor leaf [L, E, K, N] or a quantized
+# one ([L, E, K/pack, N] bytes, [L, E, K/gs, N] scales)
+_EXPERTS = ("moe_gate", "moe_up", "moe_down")
 _NORMS = ("input_norm", "post_norm", "q_norm", "k_norm")
 
 
@@ -126,10 +133,12 @@ def load_quantized(ckpt_dir: str, device=None) -> Tuple[ModelConfig, dict]:
         return Linear(w=arr(f"{prefix}.w"), b=b)
 
     layers = {}
-    for nm in _LINEARS:
+    for nm in _LINEARS + _EXPERTS:
         prefix = f"layers.{nm}"
         if f"{prefix}.q" in leaves or f"{prefix}.w" in leaves:
             layers[nm] = lin(prefix)
+        elif prefix in leaves:   # a bf16 expert stack
+            layers[nm] = arr(prefix)
     for nm in _NORMS:
         if f"layers.{nm}" in leaves:
             layers[nm] = arr(f"layers.{nm}")

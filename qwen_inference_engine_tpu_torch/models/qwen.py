@@ -1,13 +1,17 @@
-"""Qwen2 / Qwen2.5 / Qwen3 dense transformer forward over the KV cache.
+"""Qwen2 / Qwen2.5 / Qwen3 and Qwen3-MoE transformer forward over the KV
+cache.
 
 The port of the JAX package's ``models/qwen.py`` for the main path: the
 layer ``lax.scan`` becomes a Python loop over layers that updates the
 stacked ``[L, ...]`` cache in place, and the weights stay stacked
-``[L, ...]`` (the quantized matmul takes the layer index, no slab copy).
+``[L, ...]`` (the quantized matmuls take the layer index, no slab copy).
 
 Per-layer schedule: rmsnorm -> q/k/v proj -> qk-norm (Qwen3) -> RoPE ->
 KV write + attention -> o proj -> residual -> rmsnorm -> gate/up proj ->
-SiLU * up -> down proj -> residual; then final norm -> lm_head.
+SiLU * up -> down proj -> residual; then final norm -> lm_head.  A
+Qwen3-MoE layer replaces gate/up/down by ``moe_mlp``: top-k routing over
+the layer's experts and three grouped matmuls (``ops/grouped_matmul.py``)
+over the (token, expert) pairs sorted by expert.
 
 Attention branches (each a kernel of the port):
 
@@ -41,7 +45,7 @@ appends take ``quantize_kv``'s bytes and scales):
 * decode (T == 1, per-row positions on the device): ``paged_append_ragged``
   then ``paged_decode_attention_stacked[_q8]`` with lengths
   ``position + 1``;
-* the speculative verify (``ragged_multi``, 2 <= T <= 16 tokens per row at
+* the speculative verify (``ragged_multi``, T >= 2 tokens per row at
   per-row starts on the device): ``paged_append_ragged_t``, then
   ``paged_verify_attention_stacked[_q8]`` with lengths ``start + T``.
 
@@ -79,6 +83,11 @@ from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_contiguous_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.flash_attention import flash_attention
+from qwen_inference_engine_tpu_torch.ops.grouped_matmul import (
+    grouped_matmul_dense,
+    grouped_quant_matmul,
+    grouped_quant_matmul_supported,
+)
 from qwen_inference_engine_tpu_torch.ops.kv_append import (
     kv_append_uniform_q8,
     paged_append_prefill,
@@ -108,17 +117,15 @@ from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Random layer-stacked params (tests and smoke runs), drawn from
-    ``generator`` one layer slab at a time so no f32 copy of a whole stacked
-    tensor is ever live.  The generator must live on ``device``."""
-    if cfg.is_moe:
-        raise NotImplementedError("Qwen3-MoE is not ported yet: it comes "
-                                  "with the MoE slice (5)")
+    ``generator`` one ``[K, N]`` slab (a layer's, or a layer's expert's) at
+    a time so no f32 copy of a whole stacked tensor is ever live.  The
+    generator must live on ``device``."""
     L, D, Fi, V = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     Qd, Kd = cfg.q_dim, cfg.kv_dim
 
     def normal(shape, scale):
         out = torch.empty(shape, dtype=dtype, device=device)
-        slabs = out if len(shape) == 3 else out[None]
+        slabs = out.view(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
         for s in slabs:
             s.copy_(torch.randn(s.shape, generator=generator, device=device,
                                 dtype=torch.float32) * scale)
@@ -141,10 +148,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "v": Linear(dense((L, D, Kd)), zeros((L, Kd)) if bias else None),
         "o": Linear(dense((L, Qd, D))),
         "post_norm": ones((L, D)),
-        "gate": Linear(dense((L, D, Fi))),
-        "up": Linear(dense((L, D, Fi))),
-        "down": Linear(dense((L, Fi, D))),
     }
+    if cfg.is_moe:
+        E, Fm = cfg.num_experts, cfg.moe_intermediate_size
+        layers["router"] = Linear(dense((L, D, E)))
+        layers["moe_gate"] = normal((L, E, D, Fm), D ** -0.5)
+        layers["moe_up"] = normal((L, E, D, Fm), D ** -0.5)
+        layers["moe_down"] = normal((L, E, Fm, D), Fm ** -0.5)
+    else:
+        layers["gate"] = Linear(dense((L, D, Fi)))
+        layers["up"] = Linear(dense((L, D, Fi)))
+        layers["down"] = Linear(dense((L, Fi, D)))
     if cfg.qk_norm:
         layers["q_norm"] = ones((L, cfg.head_dim))
         layers["k_norm"] = ones((L, cfg.head_dim))
@@ -171,14 +185,15 @@ def init_quantized_params(cfg: ModelConfig, generator: torch.Generator,
     runs).  Shapes, group sizes and K padding are the JAX function's;
     the values come from ``generator`` (on ``device``), not ``jax.random``.
 
-    pad_free: shrink INT4 group sizes instead of padding reduction axes."""
+    pad_free: shrink INT4 group sizes instead of padding reduction axes.
+    A Qwen3-MoE model's expert stacks ``[L, E, K/pack, N]`` are drawn one
+    layer's ``[E, K/pack, N]`` slab at a time on ``device`` (the INT4
+    stacks of Qwen3-30B-A3B are 14.5 GB; they never pass through the host
+    or bf16), its router stays a bf16 ``Linear``."""
     from qwen_inference_engine_tpu_torch.quant.quantize import (
         pad_free_group_size,
     )
 
-    if cfg.is_moe:
-        raise NotImplementedError("Qwen3-MoE expert stacks are not ported "
-                                  "yet: they come with the MoE slice (5)")
     L, D, Fi, V = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     Qd, Kd = cfg.q_dim, cfg.kv_dim
     qmax = 7 if bits == 4 else 127
@@ -212,6 +227,21 @@ def init_quantized_params(cfg: ModelConfig, generator: torch.Generator,
         return QuantLinear(q=randint((L, kin // pack, out)), scales=scales,
                            b=b, bits=bits, group_size=gs)
 
+    def qexperts(kin: int, out: int) -> QuantLinear:
+        """A random packed expert stack [L, E, kin/pack, out] (cf. qlin)."""
+        E = cfg.num_experts
+        gs = group_size
+        while gs > 2 and (kin % gs or (bits == 4 and (kin // gs) % 2)):
+            gs //= 2
+        q = torch.empty((L, E, kin // pack, out), dtype=torch.int8,
+                        device=device)
+        for slab in q:
+            slab.copy_(randint(slab.shape))
+        scales = torch.full((L, E, kin // gs, out), (kin ** -0.5) / qmax,
+                            dtype=torch.float32, device=device)
+        return QuantLinear(q=q, scales=scales, b=None, bits=bits,
+                           group_size=gs)
+
     def normal(shape, scale):
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * scale).to(dtype)
@@ -224,10 +254,17 @@ def init_quantized_params(cfg: ModelConfig, generator: torch.Generator,
         "v": qlin(D, Kd, bias),
         "o": qlin(Qd, D, False),
         "post_norm": torch.ones((L, D), dtype=dtype, device=device),
-        "gate": qlin(D, Fi, False),
-        "up": qlin(D, Fi, False),
-        "down": qlin(Fi, D, False),
     }
+    if cfg.is_moe:
+        E, Fm = cfg.num_experts, cfg.moe_intermediate_size
+        layers["router"] = Linear(normal((L, D, E), D ** -0.5))
+        layers["moe_gate"] = qexperts(D, Fm)
+        layers["moe_up"] = qexperts(D, Fm)
+        layers["moe_down"] = qexperts(Fm, D)
+    else:
+        layers["gate"] = qlin(D, Fi, False)
+        layers["up"] = qlin(D, Fi, False)
+        layers["down"] = qlin(Fi, D, False)
     if cfg.qk_norm:
         layers["q_norm"] = torch.ones((L, cfg.head_dim), dtype=dtype,
                                       device=device)
@@ -279,6 +316,60 @@ def params_to(params: dict, device) -> dict:
 # ----------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------
+
+def _expert_matmul(xs: torch.Tensor, w, group_sizes: torch.Tensor,
+                   layer: int, act_bits: int = 0) -> torch.Tensor:
+    """Grouped matmul over expert-sorted rows.  A quantized stack goes to
+    ``grouped_quant_matmul``, with int8 activations (W4A8) only where the
+    JAX package's shape gate holds, as there; a bf16 stack ``[L, E, K, N]``
+    runs one torch matmul per expert (the JAX package's ``ragged_dot``)."""
+    if isinstance(w, QuantLinear):
+        a8 = (act_bits == 8 and w.bits == 4
+              and grouped_quant_matmul_supported(w, xs.shape[0]))
+        return grouped_quant_matmul(xs, w, group_sizes, layer,
+                                    act_bits=8 if a8 else 0)
+    return grouped_matmul_dense(xs, w[layer], group_sizes)
+
+
+def moe_mlp(h: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
+            top_k: int, norm_topk: bool, layer: int = 0,
+            act_bits: int = 0) -> torch.Tensor:
+    """Qwen3-MoE sparse MLP of one layer: h [N, D] -> [N, D].
+
+    router [D, E]; w_gate / w_up ``[L, E, D, Fm]`` and w_down
+    ``[L, E, Fm, D]`` (bf16 stacks or quantized, see ``_expert_matmul``).
+    Top-k of the softmax of the f32 router logits (renormalized when
+    ``norm_topk``); the N * k (token, expert) pairs are stably sorted by
+    expert so each expert's rows are contiguous, the three grouped matmuls
+    run over them, and each token sums its k weighted rows.  Exact routing,
+    no capacity limit, as the JAX function.  Nothing here waits for the
+    device: the expert sizes are counted with ``scatter_add_`` (CUDA's
+    ``bincount`` reads its input's max on the host) and stay on the device,
+    where the kernels read them; the combine un-sorts the rows with
+    ``index_copy_`` and sums each token's k rows in f32 (no atomics).
+    """
+    N, D = h.shape
+    E = router.shape[-1]
+    logits = h.float() @ router.to(h.dtype).float()
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, top_k, dim=-1)        # [N, k]
+    if norm_topk:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    flat_e = topi.reshape(-1)                            # [N*k]
+    order = torch.argsort(flat_e, stable=True)
+    group_sizes = torch.zeros(E, dtype=torch.int32, device=h.device)
+    group_sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e,
+                                                         dtype=torch.int32))
+    xs = h.index_select(0, order // top_k)               # [N*k, D]
+    g = _expert_matmul(xs, w_gate, group_sizes, layer, act_bits)
+    u = _expert_matmul(xs, w_up, group_sizes, layer, act_bits)
+    mid = F.silu(g.float()) * u.float()
+    y = _expert_matmul(mid.to(xs.dtype), w_down, group_sizes, layer,
+                       act_bits)                         # [N*k, D]
+    contrib = y * topw.reshape(-1)[order].to(y.dtype)[:, None]
+    rows = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    return rows.view(N, top_k, -1).float().sum(dim=1).to(y.dtype)
+
 
 def _paged_attention(cache: PagedKVCache, layer: int, q, k, v,
                      block_tables, *, fresh_prefill: bool, ragged_multi: bool,
@@ -427,9 +518,17 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         o = apply_linear(attn.reshape(B, T, Hq * Dh), lyr["o"], l, act)
         x = x + o
         h = rms_norm(x, lyr["post_norm"][l], eps)
-        gate = apply_linear(h, lyr["gate"], l, act)
-        up = apply_linear(h, lyr["up"], l, act)
-        x = x + apply_linear(F.silu(gate) * up, lyr["down"], l, act)
+        if cfg.is_moe:
+            # the batch flattened: a verify of B x (k+1) rows routes as one
+            d = moe_mlp(h.reshape(B * T, -1), lyr["router"].w[l],
+                        lyr["moe_gate"], lyr["moe_up"], lyr["moe_down"],
+                        cfg.num_experts_per_tok, cfg.norm_topk_prob, layer=l,
+                        act_bits=act).reshape(B, T, -1).to(x.dtype)
+        else:
+            gate = apply_linear(h, lyr["gate"], l, act)
+            up = apply_linear(h, lyr["up"], l, act)
+            d = apply_linear(F.silu(gate) * up, lyr["down"], l, act)
+        x = x + d
     return rms_norm(x, params["final_norm"], eps), cache
 
 

@@ -39,6 +39,18 @@ SIGNATURES = {
     "qie_quant_matmul8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # xq, sx, q, scales, out, M, K, N, G, layer, L, stream
     "qie_quant_matmul8_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, sx, q, scales, group_sizes, out, M, Kp, N, group_size, E, layer,
+    # L, stream
+    "qie_grouped_matmul4_a8": [_P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scales, group_sizes, out, M, Kp, N, group_size, E, layer, L,
+    # stream
+    "qie_grouped_matmul4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    # x, q, scales, group_sizes, out, M, K, N, G (scale groups; 1 = per
+    # column), E, layer, L, stream
+    "qie_grouped_matmul8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
     # q, k, v, out, B, T, Hq, Hk, D, scale, stream
     "qie_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k_cache, v_cache, lengths, k_new, v_new, position, out,

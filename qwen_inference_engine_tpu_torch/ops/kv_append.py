@@ -14,8 +14,8 @@ Each wrapper launches a kernel of ``csrc/kv_append.cu``:
   skips the row;
 * ``paged_append_ragged_t`` (the port of ``paged_append_ragged_t`` /
   ``_paged_ragged_t_kernel``): the speculative verify's T consecutive K/V
-  rows per batch row at a per-row start (T <= page: the window may
-  straddle two pages); a negative start skips the row;
+  rows per batch row at a per-row start (any T: each token finds its own
+  page, so a window may span several); a negative start skips the row;
 * ``paged_append_prefill`` (the port of ``paged_append_prefill`` /
   ``_paged_prefill_kernel``): a prefill piece's T K/V rows of one sequence
   at ``start .. start+T-1`` through ``tables[0]``.
@@ -186,9 +186,9 @@ def _launch_rows(name, k_pages, v_pages, k_new, v_new, positions,
     """The ragged (T = 1) and windowed appends: one entry point for both."""
     L, P, Hk, PS, D = k_pages.shape
     B, T = k_new.shape[:2]
-    if k_new.shape != (B, T, Hk, D) or not 1 <= T <= PS:
-        raise ValueError(f"{name}: new rows must be [B, T <= page ({PS}), "
-                         f"{Hk}, {D}], not {tuple(k_new.shape)}")
+    if k_new.shape != (B, T, Hk, D) or T < 1:
+        raise ValueError(f"{name}: new rows must be [B, T, {Hk}, {D}], not "
+                         f"{tuple(k_new.shape)}")
     scales = None if k_scale is None else (k_scale, v_scale)
     tables = check_paged(name, (k_new, v_new), (k_pages, v_pages),
                          block_tables, page_size, layer, scales=scales)
@@ -244,15 +244,11 @@ def paged_append_ragged_t(k_pages: torch.Tensor, v_pages: torch.Tensor,
                           v_scale=None, ks_new=None, vs_new=None):
     """Verify-window append into the stacked pools, in place: row b's ``k/
     v_new [B, T, Hk, D]`` at ``positions[b] .. positions[b] + T - 1``
-    through ``block_tables[b]`` (T <= page, so a window straddles at most
-    two pages; the caller allocates both); a negative start skips the row.
+    through ``block_tables[b]`` (any T: each token finds its own page, the
+    caller allocates them); a negative start skips the row.
     An int8 pool takes int8 rows with their scales ``[B, T, Hk]``.
     Returns the two pools.  A CPU tensor runs the plain version; a CUDA
     tensor launches the kernel or raises."""
-    if k_new.shape[1] > k_pages.shape[3]:
-        raise ValueError(f"paged_append_ragged_t: a window of T = "
-                         f"{k_new.shape[1]} exceeds the page "
-                         f"({k_pages.shape[3]})")
     if k_pages.device.type == "cpu":
         return paged_append_ragged_t_plain(k_pages, v_pages, k_new, v_new,
                                            positions, block_tables, layer,

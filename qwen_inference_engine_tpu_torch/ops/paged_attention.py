@@ -10,15 +10,17 @@ scales ``[L, P, Hk, page]``):
   sequence, key j at row ``j % page`` of page ``block_tables[b, j //
   page]`` of the pool ``[L, P, Hk, page, D]`` at the layer index;
 * ``paged_verify_attention_stacked`` / ``_q8``: the speculative verify,
-  ``q [B, T, Hq, D]`` with 2 <= T <= 16: row b's token t sits at
+  ``q [B, T, Hq, D]`` with T >= 2 (any window the scheduler sends,
+  ``spec_k + 1``): row b's token t sits at
   ``seq_lens[b] - T + t`` (the lengths count the T fresh tokens, already
   appended) and attends keys ``[0, that]``.
 
 ``paged_decode_attention`` is the single-layer form.  The lengths and
 tables stay on the device: the kernel reads them, the host never waits for
-them.  The kernel takes G = Hq / Hk <= 8 and T <= 16, as the JAX package's
-``paged_verify_attention_supported`` does; anything else raises on the
-card (the JAX package would take XLA there).
+them.  The kernel takes G = Hq / Hk <= 8 (the JAX package's
+``paged_verify_attention_supported``; anything else raises on the card)
+and any T: its blocks take the T * G query rows 16 at a time, where the
+JAX package sends T > 16 or T > page to XLA.
 
 ``paged_attention_plain`` gathers the pages (``paged_read``; an int8 pool
 is dequantized to q's dtype), puts zeros where keys lie at or past a row's
@@ -36,9 +38,6 @@ from qwen_inference_engine_tpu_torch.kvcache.cache import paged_read
 from qwen_inference_engine_tpu_torch.ops import cuda_lib
 from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
 from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
-
-MAX_VERIFY = 16   # verify tokens per row the kernel takes
-
 
 def check_paged(name: str, inputs, pools, block_tables: torch.Tensor,
                 page_size: int, layer: int, scales=None,
@@ -178,9 +177,8 @@ def _launch(name, q, k_pages, v_pages, scales, block_tables, seq_lens,
 
 def _check_tokens(name: str, q: torch.Tensor, verify: bool) -> None:
     T = q.shape[1]
-    if verify and not 2 <= T <= MAX_VERIFY:
-        raise ValueError(f"{name} takes 2..{MAX_VERIFY} tokens per row, "
-                         f"not {T}")
+    if verify and T < 2:
+        raise ValueError(f"{name} takes T >= 2 tokens per row, not {T}")
     if not verify and T != 1:
         raise ValueError(f"{name} is the T == 1 decode, not T = {T}: the "
                          f"multi-query shape is paged_verify_attention_stacked")
@@ -239,8 +237,8 @@ def paged_verify_attention_stacked(q: torch.Tensor, k_pages: torch.Tensor,
                                    block_tables: torch.Tensor,
                                    seq_lens: torch.Tensor, page_size: int,
                                    layer: int) -> torch.Tensor:
-    """Causal attention of ``q [B, T, Hq, D]`` (2 <= T <= 16 consecutive
-    fresh tokens per row, already appended) over the stacked bf16 pool:
+    """Causal attention of ``q [B, T, Hq, D]`` (T >= 2 consecutive fresh
+    tokens per row, already appended) over the stacked bf16 pool:
     row b's token t sits at ``seq_lens[b] - T + t`` and attends keys
     ``[0, that]``.  Returns [B, T, Hq, D].  A CPU tensor runs the plain
     version; a CUDA tensor launches the kernel or raises."""

@@ -9,8 +9,9 @@ either package gives bit-identical ``q`` and ``scales``.
 * INT4: symmetric absmax per ``group_size`` slice of the reduction axis,
   values in [-7, 7], packed two logical rows per byte (ops/linear.py).
 
-Layer-stacked weights are quantized one layer at a time, so the f32
-temporaries of a whole stacked tensor are never live at once.
+Layer-stacked weights (and expert stacks) are quantized one ``[K, N]``
+slab at a time, so the f32 temporaries of a whole stack are never live at
+once.
 """
 
 from __future__ import annotations
@@ -103,7 +104,9 @@ def _quantize_2d(w: torch.Tensor, bits: int, gs: int):
 
 def quantize_linear(lin: Linear, bits: int, group_size: Optional[int] = None,
                     pad_free: bool = False) -> QuantLinear:
-    """Quantize a Linear (weights ``[in, out]`` or stacked ``[L, in, out]``)."""
+    """Quantize a Linear: weights ``[in, out]`` or stacked with any lead
+    dimensions (``[L, in, out]``, an expert stack ``[L, E, in, out]``), one
+    ``[in, out]`` slab at a time."""
     w = lin.w
     k = w.shape[-2]
     if bits == 4 and pad_free:
@@ -112,33 +115,38 @@ def quantize_linear(lin: Linear, bits: int, group_size: Optional[int] = None,
     gs = _final_group_size(k_pad, bits, group_size)
     if k_pad % gs:
         raise ValueError(f"K={k_pad} is not a multiple of group size {gs}")
-    stacked = w.dim() == 3
-    ws = w if stacked else w[None]
-    L, _, n = ws.shape
+    lead, n = tuple(w.shape[:-2]), w.shape[-1]
     pack = 2 if bits == 4 else 1
-    q = torch.empty((L, k_pad // pack, n), dtype=torch.int8, device=w.device)
-    scales = torch.empty((L, k_pad // gs, n), dtype=torch.float32,
+    q = torch.empty(lead + (k_pad // pack, n), dtype=torch.int8,
+                    device=w.device)
+    scales = torch.empty(lead + (k_pad // gs, n), dtype=torch.float32,
                          device=w.device)
-    for layer in range(L):
-        wl = ws[layer].float()
+    ws, qs, ss = (t.reshape(-1, *t.shape[-2:]) for t in (w, q, scales))
+    for i in range(ws.shape[0]):
+        wl = ws[i].float()
         if k_pad != k:
             wl = torch.nn.functional.pad(wl, (0, 0, 0, k_pad - k))
-        q[layer], scales[layer] = _quantize_2d(wl, bits, gs)
+        qs[i], ss[i] = _quantize_2d(wl, bits, gs)
         del wl
-    if not stacked:
-        q, scales = q[0], scales[0]
     return QuantLinear(q=q, scales=scales, b=lin.b, bits=bits, group_size=gs)
 
 
 def quantize_params(params: dict, qcfg: QuantConfig) -> dict:
-    """Quantize every projection Linear of a dense model's params.
+    """Quantize every projection Linear of a model's params, and a
+    Qwen3-MoE model's expert stacks ``moe_gate`` / ``moe_up`` /
+    ``moe_down`` ``[L, E, K, N]`` group-wise like a dense projection.
 
-    Norm weights, embeddings and rope tables stay as they are; lm_head is
-    quantized only if ``qcfg.quantize_lm_head``."""
+    The MoE ``router`` stays a bf16 Linear (small, and top-k selection is
+    sensitive to it), as do norm weights, embeddings and rope tables;
+    lm_head is quantized only if ``qcfg.quantize_lm_head``."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in list(layers):
-        if isinstance(layers[name], Linear):
+        if name in ("moe_gate", "moe_up", "moe_down"):
+            layers[name] = quantize_linear(Linear(w=layers[name]), qcfg.bits,
+                                           qcfg.group_size,
+                                           pad_free=qcfg.pad_free)
+        elif name != "router" and isinstance(layers[name], Linear):
             layers[name] = quantize_linear(layers[name], qcfg.bits,
                                            qcfg.group_size,
                                            pad_free=qcfg.pad_free)

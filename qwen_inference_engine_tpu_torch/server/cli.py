@@ -10,7 +10,10 @@
 Weights come from a sharded HF safetensors checkpoint (``--ckpt``,
 quantized at load to ``--bits``), from a quantized checkpoint written by
 ``quantize`` in either package (``--qckpt``), or, with neither, from a
-preset with random weights drawn from a seeded generator.  Weight formats:
+preset with random weights drawn from a seeded generator (in packed form
+for ``--bits 4|8``; ``--model tiny-moe`` is a byte-vocab Qwen3-MoE of 8
+experts).  Qwen3-MoE models (``--model qwen3-30b-a3b``, or such a
+checkpoint) run like dense ones.  Weight formats:
 bf16 (``--bits 16``), W4A16 and W8A16 (``--bits 4|8``), W4A8 and W8A8
 (``--act-bits 8``).  ``serve`` is continuous batching over the paged KV
 cache (bf16, or INT8 with ``--kv-bits 8``) behind HTTP
@@ -30,6 +33,13 @@ import sys
 import time
 
 
+# the byte-vocab smoke models: a dense Qwen2, and a Qwen3-MoE of 8 experts
+# (top-2) of width 64
+TINY = {"tiny": {},
+        "tiny-moe": dict(qk_norm=True, num_experts=8, num_experts_per_tok=2,
+                         moe_intermediate_size=64)}
+
+
 def build_model(args):
     """(cfg, params, tokenizer, device) for the generate, serve and quantize
     commands."""
@@ -40,7 +50,10 @@ def build_model(args):
     from qwen_inference_engine_tpu_torch.loader.safetensors_loader import (
         load_checkpoint,
     )
-    from qwen_inference_engine_tpu_torch.models.qwen import init_params
+    from qwen_inference_engine_tpu_torch.models.qwen import (
+        init_params,
+        init_quantized_params,
+    )
     from qwen_inference_engine_tpu_torch.quant.quantize import (
         QuantConfig,
         quantize_params,
@@ -49,6 +62,7 @@ def build_model(args):
 
     device = resolve_device(args.device)
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    quantized = bool(args.qckpt)
     if args.qckpt:
         from qwen_inference_engine_tpu_torch.loader.qcheckpoint import (
             load_quantized,
@@ -60,19 +74,26 @@ def build_model(args):
         cfg, params = load_checkpoint(args.ckpt, dtype=dtype, device=device)
         tok = load_tokenizer(args.ckpt)
     else:
-        if args.model == "tiny":
-            # byte-vocab smoke model (matches the ByteTokenizer)
-            cfg = tiny_config(vocab_size=512)
+        if args.model in TINY:
+            # byte-vocab smoke models (they match the ByteTokenizer)
+            cfg = tiny_config(vocab_size=512, **TINY[args.model])
         else:
             cfg = ModelConfig.from_pretrained(args.model)
             print("note: no --ckpt given; using RANDOM weights",
                   file=sys.stderr)
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
-        params = init_params(cfg, gen, dtype=dtype, device=device)
+        if args.bits < 16:
+            # drawn packed: a Qwen3-30B-A3B never exists in bf16
+            params = init_quantized_params(cfg, gen, bits=args.bits,
+                                           group_size=args.group_size,
+                                           dtype=dtype, device=device)
+            quantized = True
+        else:
+            params = init_params(cfg, gen, dtype=dtype, device=device)
         tok = load_tokenizer(None)
     print(f"tokenizer: {type(tok).__name__}", file=sys.stderr)
-    if args.bits < 16 and not args.qckpt:
+    if args.bits < 16 and not quantized:
         params = quantize_params(
             params, QuantConfig(bits=args.bits, group_size=args.group_size))
     if args.act_bits:
@@ -173,7 +194,8 @@ def cmd_quantize(args) -> int:
 
 def _add_model_args(g) -> None:
     g.add_argument("--model", default="qwen2.5-7b",
-                   help="preset name (random weights) or 'tiny'")
+                   help="preset name (random weights: drawn packed for "
+                        "--bits 4|8) or 'tiny' / 'tiny-moe'")
     g.add_argument("--ckpt", default=None,
                    help="HF checkpoint dir with safetensors shards")
     g.add_argument("--qckpt", default=None,

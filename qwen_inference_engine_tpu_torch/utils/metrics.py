@@ -1,15 +1,47 @@
-"""Serving metrics: TTFT percentiles, decode throughput, token counters.
+"""Serving metrics: TTFT percentiles, decode throughput, token counters;
+and the launch counts of the port's kernels.
 
 The snapshot is what the HTTP server's ``/stats`` returns, with the JAX
 package's keys.  ``spec_rounds`` counts row-rounds of speculation (a round
 over B decoding rows counts B) and ``spec_tokens_per_forward`` is the mean
 tokens a row emitted per verify forward (1..k+1).
+
+``kernel_wrappers()`` names every kernel wrapper of the port; each counts
+the launches of its kernel in its ``launches`` attribute (a CPU tensor's
+plain version counts none), so a run that sets them to 0 before and reads
+them after shows which kernels its path went through.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+from typing import Callable, Dict, List
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """Every kernel wrapper of the port, by name."""
+    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
+    from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+    from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+
+    wrappers = [
+        qm.quant_matmul4_a8, qm.quant_matmul4, qm.quant_matmul8,
+        qm.quant_matmul8_a8, fa.flash_attention,
+        da.decode_attention_contiguous, da.decode_attention_appending,
+        ca.chunk_attention_contiguous, ca.chunk_attention_contiguous_q8,
+        ka.kv_append_uniform_q8, da.decode_attention_contiguous_q8,
+        pa.paged_decode_attention_stacked, ca.paged_chunk_attention,
+        ka.paged_append_ragged, ka.paged_append_prefill,
+        pa.paged_decode_attention_stacked_q8,
+        pa.paged_verify_attention_stacked,
+        pa.paged_verify_attention_stacked_q8, ca.paged_chunk_attention_q8,
+        ka.paged_append_ragged_t, gm.grouped_matmul4_a8, gm.grouped_matmul4,
+        gm.grouped_matmul8]
+    return {w.__name__: w for w in wrappers}
 
 
 class Metrics:

@@ -10,9 +10,11 @@ append at the first and last position, the paged kernels over pages of 8,
 16, 48 and 512 tokens (tiles that cross pages, mid-page starts, pieces of
 1, 7, 256 and 512 tokens, lengths of 1 and whole pages, idle rows and
 scratch-page writes), the INT8 pool's kernels and the speculative verify
-(T = 2 and 16, windows straddling pages, the int8 scale writes), the
-serving engine (INT8 pools and speculation too), and the wrappers'
-refusals.  On
+(T = 2, 16 and 17, windows straddling pages and windows wider than their
+page, the int8 scale writes), the grouped MoE matmuls (one row, one
+expert taking every row, 127 empty experts of 128, decode- and
+prefill-like expert sizes, odd column tiles, a padded K), the serving
+engine (INT8 pools and speculation too), and the wrappers' refusals.  On
 a GPU machine, from the repo root (this file imports no JAX, so the
 JAX-pinning conftest can be skipped):
 
@@ -179,6 +181,148 @@ def test_dispatcher_on_padded_k_matches_plain(gen, bits, act_bits, gs):
     rel = 2 ** -7 if act_bits else 2 ** -6
     tol = rel * ref.abs().max().item() + 2 ** -8 * ref.abs().max().item()
     assert (got.float().cpu() - ref).abs().max().item() <= tol
+
+
+# (E, group sizes, N): one row to one expert; one expert taking every row;
+# E = 128 with 127 empty; decode (256 rows over 128 experts, ~2 each: the
+# CUDA-core tiles); prefill-like experts of 7..200 rows (the 64-row tiles)
+# with every tile straddling; N of an odd number of column tiles
+GROUPED_SIZES = {
+    "M=1": (4, [0, 0, 1, 0], 256),
+    "one expert": (5, [300, 0, 0, 0, 0], 256),
+    "127 empty": (128, [0] * 90 + [37] + [0] * 37, 256),
+    "decode": (128, None, 384),
+    "prefill": (5, [0, 200, 7, 0, 93], 384),
+    "straddling": (5, [37, 61, 64, 70, 68], 256),
+}
+
+
+def _group_sizes(gen, E, sizes):
+    if sizes is not None:
+        return torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    ids = torch.randint(0, E, (256,), generator=gen, device="cuda")
+    return torch.bincount(ids, minlength=E).to(torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["w4a8", "w4", "w8 group", "w8 column"])
+@pytest.mark.parametrize("case", sorted(GROUPED_SIZES))
+def test_grouped_matmuls_match_plain(gen, case, kind):
+    """The three grouped kernels at layer 1 of a stacked [2, E, ...] tensor
+    against their plain versions (bf16-dequantized weights: 2^-6 of the
+    largest output, the dense kernels' rule)."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    E, sizes, N = GROUPED_SIZES[case]
+    gsz = _group_sizes(gen, E, sizes)
+    M, K, gs = int(gsz.sum()), 512, 128
+    bits = 8 if kind.startswith("w8") else 4
+    rows = K // 2 if bits == 4 else K
+    G = 1 if kind == "w8 column" else K // gs
+    q = torch.randint(-128 if bits == 4 else -127, 128, (2, E, rows, N),
+                      generator=gen, device="cuda", dtype=torch.int8)
+    s = torch.rand((2, E, G, N), generator=gen, device="cuda") * 0.01
+    x = _bf16(gen, M, K)
+    if kind == "w4a8":
+        xq, sx = qm.quantize_activations(x)
+        args = (xq, sx.reshape(-1).contiguous(), q, s, gsz, 1, gs)
+        fn, plain = gm.grouped_matmul4_a8, gm.grouped_matmul4_a8_plain
+    elif kind == "w4":
+        args = (x, q, s, gsz, 1, gs)
+        fn, plain = gm.grouped_matmul4, gm.grouped_matmul4_plain
+    else:
+        args = (x, q, s, gsz, 1)
+        fn, plain = gm.grouped_matmul8, gm.grouped_matmul8_plain
+    before = fn.launches
+    got = fn(*args)
+    ref = plain(*args)
+    assert fn.launches == before + 1
+    assert bool(got.isfinite().all())
+    _check_matmul(got, ref, 2 ** -6)
+
+
+@pytest.mark.parametrize("bits,act_bits", [(4, 0), (4, 8), (8, 0)])
+def test_grouped_dispatcher_pads_k_and_picks_its_kernel(gen, bits, act_bits):
+    """K = 448 pads to 512 for INT4 (the dispatcher zero-pads x); each
+    (bits, act_bits) pair launches its kernel (INT8 experts ignore
+    act_bits) and agrees with the CPU path."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.ops.linear import Linear
+    from qwen_inference_engine_tpu_torch.quant.quantize import quantize_linear
+
+    K = 448 if bits == 4 else 512
+    w = torch.randn((2, 6, K, 256), generator=gen, device="cuda") * 0.05
+    qe = quantize_linear(Linear(w), bits, 128)
+    gsz = torch.tensor([5, 0, 0, 30, 1, 9], dtype=torch.int32, device="cuda")
+    x = _bf16(gen, 45, K)
+    kern = {(4, 0): gm.grouped_matmul4, (4, 8): gm.grouped_matmul4_a8,
+            (8, 0): gm.grouped_matmul8}
+    counts = {k: f.launches for k, f in kern.items()}
+    got = gm.grouped_quant_matmul(x, qe, gsz, 1, act_bits=act_bits)
+    cpu = dataclasses.replace(qe, q=qe.q.cpu(), scales=qe.scales.cpu())
+    ref = gm.grouped_quant_matmul(x.cpu().float(), cpu, gsz.cpu(), 1,
+                                  act_bits=act_bits)
+    assert {k: f.launches - counts[k] for k, f in kern.items()} == {
+        k: int(k == (bits, act_bits if bits == 4 else 0)) for k in kern}
+    assert got.shape == (45, 256) and got.dtype == torch.bfloat16
+    tol = 2 ** -6 * ref.abs().max().item()
+    assert (got.float().cpu() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("bits,act_bits", [(4, 8), (4, 0), (8, 0)])
+def test_moe_model_runs_through_the_grouped_kernels(gen, bits, act_bits):
+    """A tiny Qwen3-MoE (hidden 256, 8 experts of 256, top-2) on the card:
+    Engine.generate launches its format's grouped kernel 3 times a layer a
+    forward; the serving engine with prompt lookup runs through it too."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    cfg = tiny_config(qk_norm=True, hidden_size=256, num_heads=4,
+                      num_kv_heads=2, head_dim=64, num_experts=8,
+                      num_experts_per_tok=2, moe_intermediate_size=256)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    params = quantize_params(params, QuantConfig(bits=bits, group_size=128))
+    cfg = cfg.replace(act_bits=act_bits)
+    kern = {(4, 8): gm.grouped_matmul4_a8, (4, 0): gm.grouped_matmul4,
+            (8, 0): gm.grouped_matmul8}[(bits, act_bits)]
+    prompts = [[5, 9, 17, 3, 5, 9, 17, 3], [40, 41, 42]]
+    eng = Engine(cfg, params, max_batch=2, max_seq=64,
+                 sampling=SamplingParams(greedy=True), device="cuda")
+    before = kern.launches
+    res = eng.generate(prompts, max_new_tokens=6)
+    # res.steps counts the prefill and each decode step
+    assert kern.launches - before == 3 * cfg.num_layers * res.steps
+    cb = ContinuousBatchingEngine(cfg, params, max_slots=2, page_size=16,
+                                  num_pages=16, max_pages_per_seq=4,
+                                  sampling=SamplingParams(greedy=True),
+                                  speculative=True, spec_k=3, spec_ngram=2,
+                                  device="cuda")
+    for i, p in enumerate(prompts):
+        cb.submit(Request(request_id=i, prompt=p, max_new_tokens=6))
+    before = kern.launches
+    out = {f.request_id: f.token_ids for f in cb.run_to_completion()}
+    assert sorted(out) == [0, 1] and kern.launches > before
+    assert all(0 < len(v) <= 6 and all(0 <= t < cfg.vocab_size for t in v)
+               for v in out.values())
+
+
+def test_grouped_matmuls_refuse_what_they_cannot_take(gen):
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    gsz = torch.tensor([1, 1], dtype=torch.int32, device="cuda")
+    q = torch.zeros((1, 2, 128, 192), dtype=torch.int8, device="cuda")
+    s = torch.zeros((1, 2, 2, 192), device="cuda")
+    xq = torch.zeros((2, 256), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="N % 128"):
+        gm.grouped_matmul4_a8(xq, torch.ones(2, device="cuda"), q, s, gsz, 0,
+                              128)
+    with pytest.raises(IndexError):
+        gm.grouped_matmul4(_bf16(gen, 2, 256), q, s, gsz, 1, 128)
+    with pytest.raises(ValueError, match="shapes"):
+        gm.grouped_matmul4(_bf16(gen, 2, 256), q, s, gsz[:1].contiguous(), 0,
+                           128)
 
 
 def test_new_quant_matmuls_refuse_what_they_cannot_take(gen):
@@ -630,15 +774,17 @@ def _q8_pool(k, v):
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
 @pytest.mark.parametrize("page", [8, 512])
-@pytest.mark.parametrize("T", [1, 2, 16])
+@pytest.mark.parametrize("T", [1, 2, 16, 17])
 def test_paged_q8_and_verify_attention_match_plain(gen, T, page, quant):
     """_paged_bhgd_q8 (decode and verify) and the verify shape of
     _paged_bhgd: a window at the sequence start, one straddling pages 0 and
     1, one starting page 2, long rows, and for the decode an idle row
     (length 0, zeroed table: zeros out); G = 7; NaN (NaN scales) in the
-    pages no table holds and past each row's length."""
-    L, Hk, G, D, max_pages = 2, 2, 7, 128, 4
+    pages no table holds and past each row's length.  T = 17 is a window
+    wider than 16 rows (and than a page of 8)."""
+    L, Hk, G, D = 2, 2, 7, 128
     lens_list = [T, page + T // 2 + 1, 2 * page + T, 3 * page, 4 * page]
+    max_pages = max(4, -(-max(lens_list) // page))
     if T == 1:
         lens_list.append(0)
     B = len(lens_list)
@@ -705,12 +851,16 @@ def _new_rows(gen, shape, quant):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("page,T", [(8, 2), (8, 8), (512, 2), (512, 16)])
+@pytest.mark.parametrize("page,T", [(8, 2), (8, 8), (8, 9), (8, 17),
+                                    (512, 2), (512, 16)])
 def test_paged_append_ragged_t_bit_exact(gen, page, T, quant):
     """T rows per batch row from a per-row start: at position 0, straddling
     pages 0 and 1 (page - 1), at row 0 of page 1, deep in page 3, and a
-    skipped row (-1); bytes and scales bit-exact, nothing else written."""
-    L, Hk, D, max_pages = 2, 2, 128, 4
+    skipped row (-1); bytes and scales bit-exact, nothing else written.
+    T = 9 and 17 are windows wider than their page of 8 (two and three
+    pages)."""
+    L, Hk, D = 2, 2, 128
+    max_pages = max(4, -(-(3 * page + T) // page))
     starts_list = [0, page - 1, page, 3 * page, -1]
     B = len(starts_list)
     P = B * max_pages + 2
@@ -764,15 +914,15 @@ def test_int8_paged_appends_write_their_scales(gen, page):
 
 
 def test_new_paged_wrappers_refuse_on_the_card(gen):
-    """T > 16 for the verify, G > 8, a window past the page, a bf16 pool
-    given to a q8 wrapper."""
+    """T < 2 for the verify, G > 8, a bf16 pool given to a q8 wrapper, new
+    rows of the wrong head count."""
     pool = _bf16(gen, 1, 4, 2, 16, 128)
     p8 = torch.zeros((1, 4, 2, 16, 128), dtype=torch.int8, device="cuda")
     sc = torch.ones((1, 4, 2, 16), device="cuda")
     tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
     lens = torch.full((1,), 20, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="2..16"):
-        pa.paged_verify_attention_stacked(_bf16(gen, 1, 17, 4, 128), pool,
+    with pytest.raises(ValueError, match="T >= 2"):
+        pa.paged_verify_attention_stacked(_bf16(gen, 1, 1, 4, 128), pool,
                                           pool, tables, lens, 16, 0)
     with pytest.raises(ValueError, match="G <= 8"):
         pa.paged_verify_attention_stacked_q8(_bf16(gen, 1, 5, 18, 128), p8,
@@ -780,9 +930,9 @@ def test_new_paged_wrappers_refuse_on_the_card(gen):
     with pytest.raises(TypeError, match="f32 scales"):
         pa.paged_decode_attention_stacked_q8(_bf16(gen, 1, 1, 4, 128), pool,
                                              pool, sc, sc, tables, lens, 16, 0)
-    with pytest.raises(ValueError, match="exceeds the page"):
-        ka.paged_append_ragged_t(pool, pool, _bf16(gen, 1, 17, 2, 128),
-                                 _bf16(gen, 1, 17, 2, 128), lens, tables, 0,
+    with pytest.raises(ValueError, match="new rows"):
+        ka.paged_append_ragged_t(pool, pool, _bf16(gen, 1, 17, 3, 128),
+                                 _bf16(gen, 1, 17, 3, 128), lens, tables, 0,
                                  page_size=16)
 
 

@@ -231,16 +231,34 @@ def test_load_checkpoint_reads_a_directory_without_an_index(tmp_path):
         model.model.layers[1].mlp.down_proj.weight.detach().numpy().T)
 
 
-def test_moe_checkpoints_name_their_slice():
+def test_moe_checkpoints_load():
+    """A Qwen3-MoE state dict (router ``mlp.gate``, ``mlp.experts.{e}.*``)
+    converts: the router a Linear [L, D, E], each expert stack [L, E, in,
+    out] holding the transposed HF tensors."""
+    import transformers
+
     from qwen_inference_engine_tpu_torch.loader.convert import (
         params_from_state_dict,
     )
+    from qwen_inference_engine_tpu_torch.ops.linear import Linear
 
     cfg = tiny_config(qk_norm=True).replace(num_experts=4,
                                             num_experts_per_tok=2,
                                             moe_intermediate_size=64)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        params_from_state_dict(cfg, {}, device="cpu")
+    torch.manual_seed(0)
+    model = transformers.Qwen3MoeForCausalLM(transformers.Qwen3MoeConfig(
+        **cfg.to_hf_config(), attention_bias=False))
+    sd = model.state_dict()
+    params = params_from_state_dict(cfg, sd, dtype=torch.float32,
+                                    device="cpu")
+    lyr = params["layers"]
+    assert isinstance(lyr["router"], Linear)
+    np.testing.assert_array_equal(lyr["router"].w[1].numpy(),
+                                  sd["model.layers.1.mlp.gate.weight"].numpy().T)
+    assert lyr["moe_up"].shape == (2, 4, 128, 64)
+    np.testing.assert_array_equal(
+        lyr["moe_down"][1, 3].numpy(),
+        sd["model.layers.1.mlp.experts.3.down_proj.weight"].numpy().T)
 
 
 # ------------------------------------------------ quantized checkpoints

@@ -355,8 +355,10 @@ def test_ctypes_signatures_match_the_c_entry_points():
     cu, hdr = cuda_lib._sources()
     assert {os.path.basename(p) for p in cu} == {
         "quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
-        "chunk_attention.cu", "kv_append.cu", "paged_attention.cu"}
-    assert [os.path.basename(p) for p in hdr] == ["attention_common.cuh"]
+        "chunk_attention.cu", "kv_append.cu", "paged_attention.cu",
+        "grouped_matmul.cu"}
+    assert [os.path.basename(p) for p in hdr] == ["attention_common.cuh",
+                                                  "quant_matmul_core.cuh"]
     src = "".join(open(p).read() for p in cu)
     found = {m.group(1): m.group(2) for m in re.finditer(
         r'extern "C" int (\w+)\(([^)]*)\)', src)}
@@ -421,8 +423,8 @@ def test_paged_wrappers_refuse_before_any_launch():
 
 def test_unported_paged_and_serving_variants_name_what_is_missing():
     """What stays unported raises NotImplementedError naming its slice, on
-    the CPU as on the card: a device mesh (slice 6) and Qwen3-MoE (slice
-    5), in the serving engine (target or drafter) and in the params."""
+    the CPU as on the card: a device mesh (slice 6) in the serving
+    engine."""
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
     )
@@ -430,33 +432,156 @@ def test_unported_paged_and_serving_variants_name_what_is_missing():
     cfg = tiny_config()
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          dtype=torch.float32)
-    moe = cfg.replace(num_experts=4, num_experts_per_tok=2,
-                      moe_intermediate_size=64)
     kw = dict(max_slots=1, page_size=8, num_pages=8, max_pages_per_seq=4,
               device="cpu")
-    for args, extra, match in (
-            ((cfg, params), dict(mesh=object()), "multi-GPU slice"),
-            ((moe, params), {}, "MoE slice"),
-            ((cfg, params), dict(speculative=True, draft_params=params,
-                                 draft_cfg=moe), "MoE slice")):
-        with pytest.raises(NotImplementedError, match=match):
-            ContinuousBatchingEngine(*args, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        init_params(moe, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        ContinuousBatchingEngine(cfg, params, **kw, mesh=object())
     with pytest.raises(ValueError, match="draft_cfg"):
         ContinuousBatchingEngine(cfg, params, **kw, speculative=True,
                                  draft_params=params)
+
+
+@pytest.mark.parametrize("case", ["moe target", "moe drafter", "moe params"])
+def test_moe_serving_and_params_run_on_cpu(case):
+    """The calls that raised before Qwen3-MoE was ported now run: an MoE
+    target, an MoE drafter of a dense target (no mesh) and the MoE
+    params."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+
+    cfg = tiny_config()
+    moe = cfg.replace(num_experts=4, num_experts_per_tok=2,
+                      moe_intermediate_size=64)
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.float32)
+    moe_params = init_params(moe, gen, dtype=torch.float32)
+    if case == "moe params":
+        assert moe_params["layers"]["moe_down"].shape == (2, 4, 64, 128)
+        assert "gate" not in moe_params["layers"]
+        return
+    kw = dict(max_slots=1, page_size=8, num_pages=8, max_pages_per_seq=4,
+              device="cpu", sampling=None)
+    if case == "moe target":
+        cb = ContinuousBatchingEngine(moe, moe_params, **kw)
+    else:
+        cb = ContinuousBatchingEngine(cfg, params, **kw, speculative=True,
+                                      spec_k=2, draft_params=moe_params,
+                                      draft_cfg=moe)
+    cb.submit(Request(request_id=0, prompt=[3, 4, 5], max_new_tokens=4))
+    out = cb.run_to_completion()
+    assert len(out) == 1 and len(out[0].token_ids) == 4
+
+
+def test_grouped_wrappers_run_plain_on_cpu_and_count_no_launch():
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as tgm
+
+    rng = np.random.default_rng(1)
+    counters = [tgm.grouped_matmul4_a8, tgm.grouped_matmul4,
+                tgm.grouped_matmul8]
+    before = [f.launches for f in counters]
+    gsz = torch.tensor([2, 0, 3], dtype=torch.int32)
+    xq = torch.from_numpy(rng.integers(-127, 128, size=(5, 256)).astype(np.int8))
+    sx = torch.rand(5)
+    xb = torch.randn(5, 256).to(torch.bfloat16)
+    q4 = torch.from_numpy(rng.integers(-128, 128, size=(2, 3, 128, 128)).astype(np.int8))
+    s4 = torch.rand(2, 3, 2, 128)
+    q8 = torch.from_numpy(rng.integers(-127, 128, size=(2, 3, 256, 128)).astype(np.int8))
+    for got, want in (
+            (tgm.grouped_matmul4_a8(xq, sx, q4, s4, gsz, 1, 128),
+             tgm.grouped_matmul4_a8_plain(xq, sx, q4, s4, gsz, 1, 128)),
+            (tgm.grouped_matmul4(xb, q4, s4, gsz, 0, 128),
+             tgm.grouped_matmul4_plain(xb, q4, s4, gsz, 0, 128)),
+            (tgm.grouped_matmul8(xb, q8, torch.rand(2, 3, 1, 128), gsz, 1),
+             None)):
+        assert got.dtype == torch.bfloat16 and got.shape == (5, 128)
+        if want is not None:
+            assert torch.equal(got, want)
+    assert [f.launches for f in counters] == before
+
+
+def test_kernel_registry_names_every_wrapper():
+    """``utils/metrics.kernel_wrappers`` lists each kernel wrapper once, by
+    its name, each with its launch count: the 20 dense ones and the three
+    grouped MoE matmuls."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as tgm
+    from qwen_inference_engine_tpu_torch.utils.metrics import kernel_wrappers
+
+    wrappers = kernel_wrappers()
+    assert len(wrappers) == 23
+    assert all(isinstance(w.launches, int) and w.__name__ == n
+               for n, w in wrappers.items())
+    for w in (tgm.grouped_matmul4_a8, tgm.grouped_matmul4,
+              tgm.grouped_matmul8, tqmm.quant_matmul4_a8,
+              tpa.paged_verify_attention_stacked):
+        assert wrappers[w.__name__] is w
+
+
+def _gmm_meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_I8M = torch.int8
+GROUPED_REFUSALS = {
+    "a8 bf16 activations": (lambda t: t.grouped_matmul4_a8(
+        _gmm_meta(5, 256, dtype=torch.bfloat16), _gmm_meta(5),
+        _gmm_meta(2, 3, 128, 128, dtype=_I8M), _gmm_meta(2, 3, 2, 128),
+        _gmm_meta(3, dtype=torch.int32), 0, 128), TypeError, "int8"),
+    "a8 N % 128": (lambda t: t.grouped_matmul4_a8(
+        _gmm_meta(5, 256, dtype=_I8M), _gmm_meta(5),
+        _gmm_meta(2, 3, 128, 64, dtype=_I8M), _gmm_meta(2, 3, 2, 64),
+        _gmm_meta(3, dtype=torch.int32), 0, 128), ValueError, "N % 128"),
+    "w4 group sizes of another E": (lambda t: t.grouped_matmul4(
+        _gmm_meta(5, 256, dtype=torch.bfloat16),
+        _gmm_meta(2, 3, 128, 128, dtype=_I8M), _gmm_meta(2, 3, 2, 128),
+        _gmm_meta(4, dtype=torch.int32), 0, 128), ValueError, "shapes"),
+    "w4 int64 group sizes": (lambda t: t.grouped_matmul4(
+        _gmm_meta(5, 256, dtype=torch.bfloat16),
+        _gmm_meta(2, 3, 128, 128, dtype=_I8M), _gmm_meta(2, 3, 2, 128),
+        _gmm_meta(3, dtype=torch.int64), 0, 128), TypeError, "int32"),
+    "w4 gs 16": (lambda t: t.grouped_matmul4(
+        _gmm_meta(5, 256, dtype=torch.bfloat16),
+        _gmm_meta(2, 3, 128, 128, dtype=_I8M), _gmm_meta(2, 3, 16, 128),
+        _gmm_meta(3, dtype=torch.int32), 0, 16), ValueError, "gs % 32"),
+    "w8 layer out of range": (lambda t: t.grouped_matmul8(
+        _gmm_meta(5, 256, dtype=torch.bfloat16),
+        _gmm_meta(2, 3, 256, 128, dtype=_I8M), _gmm_meta(2, 3, 1, 128),
+        _gmm_meta(3, dtype=torch.int32), 2), IndexError, "out of range"),
+    "w8 groups of 48 rows": (lambda t: t.grouped_matmul8(
+        _gmm_meta(5, 192, dtype=torch.bfloat16),
+        _gmm_meta(2, 3, 192, 128, dtype=_I8M), _gmm_meta(2, 3, 4, 128),
+        _gmm_meta(3, dtype=torch.int32), 0), ValueError, "K/G % 32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED_REFUSALS))
+def test_grouped_wrappers_refuse_before_any_build(monkeypatch, case):
+    """On a non-CPU tensor the grouped wrappers check types, shapes and the
+    layer before the library is built (meta tensors stand in for the
+    card)."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as tgm
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_lib, "library", no_build)
+    fn, exc, match = GROUPED_REFUSALS[case]
+    with pytest.raises(exc, match=match):
+        fn(tgm)
 
 
 PAGED_REFUSALS = {
     "verify T 17": (lambda: tpa.paged_verify_attention_stacked(
         _meta(2, 17, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_BF),
         _meta(2, 6, 2, 16, 128, dtype=_BF), _meta(2, 3, dtype=torch.int32),
-        _meta(2, dtype=torch.int32), 16, 0), ValueError, "2..16"),
+        _meta(2, dtype=torch.int32), 16, 0), AssertionError,
+        "library was asked for"),
     "verify T 1": (lambda: tpa.paged_verify_attention_stacked(
         _meta(2, 1, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_BF),
         _meta(2, 6, 2, 16, 128, dtype=_BF), _meta(2, 3, dtype=torch.int32),
-        _meta(2, dtype=torch.int32), 16, 0), ValueError, "2..16"),
+        _meta(2, dtype=torch.int32), 16, 0), ValueError, "T >= 2"),
     "decode T 5": (lambda: tpa.paged_decode_attention_stacked_q8(
         _meta(2, 5, 4, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_I8),
         _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16),
@@ -494,7 +619,7 @@ PAGED_REFUSALS = {
         _meta(2, 6, 2, 16, 128, dtype=_BF), _meta(2, 6, 2, 16, 128, dtype=_BF),
         _meta(2, 17, 2, 128, dtype=_BF), _meta(2, 17, 2, 128, dtype=_BF),
         _meta(2, dtype=torch.int32), _meta(2, 3, dtype=torch.int32), 0,
-        page_size=16), ValueError, "exceeds the page"),
+        page_size=16), AssertionError, "library was asked for"),
     "ragged_t int8 without scales": (lambda: tka.paged_append_ragged_t(
         _meta(2, 6, 2, 16, 128, dtype=_I8), _meta(2, 6, 2, 16, 128, dtype=_I8),
         _meta(2, 5, 2, 128, dtype=_I8), _meta(2, 5, 2, 128, dtype=_I8),
@@ -522,10 +647,11 @@ PAGED_REFUSALS = {
 
 @pytest.mark.parametrize("case", sorted(PAGED_REFUSALS))
 def test_new_paged_wrappers_refuse_before_any_build(monkeypatch, case):
-    """The INT8-pool and verify wrappers refuse a wrong dtype, T > 16, G >
-    8, a window past the page or scales of the wrong shape before the
-    library is built or a kernel launched (meta tensors stand in for the
-    card)."""
+    """The INT8-pool and verify wrappers refuse a wrong dtype, a verify of
+    T < 2, G > 8 or scales of the wrong shape before the library is built
+    or a kernel launched (meta tensors stand in for the card); a verify of
+    T = 17 and a window wider than its page pass every check and ask for
+    the library."""
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
 
     def no_build():

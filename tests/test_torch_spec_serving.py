@@ -191,3 +191,28 @@ def test_stochastic_speculative_serving_repeatable_and_valid(models, spec):
             assert eng.metrics.snapshot()["spec_rounds"] > 0
         runs.append(out)
     assert runs[1] == runs[2]
+
+
+@pytest.fixture(scope="module")
+def qwen2_models():
+    return _build(False)
+
+
+@pytest.mark.parametrize("page_size,spec_k", [(8, 8), (32, 16)],
+                         ids=["window-past-page", "verify-past-16"])
+def test_wide_verify_windows_token_identical_to_jax(qwen2_models, page_size,
+                                                    spec_k):
+    """Prompt lookup with a verify window of spec_k + 1 tokens wider than a
+    page (9 > 8) or than 16 rows (17): the windowed append and the verify
+    attention take any T, and the tokens equal the JAX engine's."""
+    jcfg, jparams, tcfg, tparams = qwen2_models
+    kw = dict(KW, page_size=page_size, speculative=True, spec_k=spec_k,
+              spec_ngram=2)
+    jeng = JCB(jcfg, jparams, sampling=JSampling(greedy=True),
+               kv_dtype=jnp.float32, **kw)
+    teng = ContinuousBatchingEngine(tcfg, tparams, sampling=GREEDY,
+                                    kv_dtype=torch.float32, device="cpu", **kw)
+    want = _serve(jeng, _prompts(1), "step_batch", JRequest)
+    got = _serve(teng, _prompts(1), "step_batch", Request)
+    assert got == want and len(got) == 3
+    teng.check_page_invariants()
