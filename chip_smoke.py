@@ -30,7 +30,14 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    (empty experts, one expert taking every row, every tile straddling);
    their library yardstick is bf16 ``torch._grouped_mm`` over the
    dequantized slab where this torch has it (else a per-expert matmul
-   loop, so labelled);
+   loop, so labelled); the double-pumped decode's kernels: ``fused_mlp``
+   at the 7B MLP (K 3584, F 18944; gs 256 / 128 at M = 4, 8, 40, 192 and
+   256, gs 128 / 128 at M = 4; yardstick bf16 ``torch.matmul`` x 3 +
+   SiLU over the dequantized weights), ``fused_attn_mlp`` at a half batch
+   of 96 rows (row0 0 and 96 of 192, lengths 257, S 512; yardstick SDPA
+   over the half's rows + the bf16 MLP) and ``kv_append_uniform`` (96 rows
+   from row 96, bit-exact; yardstick a slice assignment), each also called
+   twice for bit-identical results;
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -44,7 +51,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    scale per column, INT8 KV, ragged; (d) the JAX bench's headline weights
    (W4A8 gs 256 and an INT4 lm_head at act_bits_lm_head=0), ragged; each
    must launch only its own matmul kernels, 7 per layer per forward (+1
-   for a quantized lm_head).  Every launch count is set to 0 just before
+   for a quantized lm_head), but (a) runs its decode steps' MLP (M = 4,
+   pad-free at gs 128) as ``fused_mlp``: 4 matmuls and one fused MLP a
+   layer.  Every launch count is set to 0 just before
    each run and read just after, and each run must have launched the
    kernels of its path and none of the others';
 4b. serving: ``ContinuousBatchingEngine`` on the same full-depth model at
@@ -62,8 +71,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    profiled (device busy time, kernels by device time); then the HTTP
    ``Server`` on 127.0.0.1 answers /generate, a streamed /v1/completions,
    /v1/chat/completions and /stats; then 8 requests (37 to 1100 tokens, 16
-   new each) on the W4A16 params, which must launch the INT4 x bf16 matmul
-   and the paged kernels and never the W4A8 one;
+   new each) on the W4A16 params, which must launch the INT4 x bf16 matmul,
+   ``fused_mlp`` (every forward has M <= 256) and the paged kernels and
+   never the W4A8 one;
 4c. the INT8 page pool and speculation, on the same W4A8 model: the
    serving run of 4b over an INT8 pool (only the q8 paged attentions may
    launch); prompt-lookup speculation (spec_k 4, ngram 3) on 8 echo
@@ -78,6 +88,16 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    from ``generate`` with the plain attention versions, tokens equal up to
    the first near-tie), and one ``qie serve --speculative --kv-bits 8``
    request over HTTP with /stats;
+4d. the double-pumped decode ([pumped generate]): the JAX bench's pumped
+   weights (W4A16 gs 256 pad-free, so down gs 128, and an INT4 lm_head)
+   through ``Engine.generate`` on an aligned batch of 192 x 256-token
+   prompts (max_seq 512, bf16 KV, 32 new tokens): each decode step must
+   launch ``fused_attn_mlp`` and ``kv_append_uniform`` 2 x 28 times and
+   the W4A16 matmul 8 x 28 + 3 + 1 times, and no decode attention or
+   ``fused_mlp``; then from one prefill of the batch, 8 pumped steps and 8
+   plain ``decode_step(uniform_decode=True)`` steps (the yardstick;
+   ``fused_mlp`` 28 times a step at M = 192) by the host clock, each with 4
+   more under the profiler (device busy share, kernels by device time);
 loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    biases, an untied lm_head) at the Qwen2.5-7B widths and 2 layers, taken
    from the seeded params and written into a temporary directory (deleted
@@ -97,7 +117,11 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    at most 1.5x as far from it as the plain bf16 path is (with random
    weights, bf16 rounding alone moves the logits by a few tenths); the same
    over the page pool, bf16 and INT8: a paged prefill of three pieces
-   across two pages, 4 paged decode steps, then a verify of 5 tokens.
+   across two pages, 4 paged decode steps, then a verify of 5 tokens; and
+   the pumped weights at 4 layers, batch 192 x 64: 2 steps of
+   ``decode_step_pumped`` and 2 of ``decode_step`` (``fused_mlp`` at
+   M = 192), each held to 1.5x its plain bf16 path's distance from an
+   fp32 run of the plain ``decode_step``.
 
 6. Qwen3-MoE: ``qwen3-30b-a3b`` at full width (128 experts, top-8, Fm
    768), random packed weights drawn on the card: W4A8 gs 256 at the full
@@ -1116,10 +1140,412 @@ def check_paged_appends(torch, cfg):
 
 
 # ----------------------------------------------------------------------
+# the double-pumped decode: its kernels (phase 3), [pumped generate]
+# (phase 4) and its logits rule (phase 5)
+# ----------------------------------------------------------------------
+
+PUMP_BATCH, PUMP_PROMPT, PUMP_SEQ = 192, 256, 512
+PUMP_YARDSTICK_STEPS = 8
+
+
+def _mlp_stack(torch, g, K, F, gs_gate, gs_down, L=2):
+    """Random stacked pad-free INT4 gate / up / down weights and scales
+    (layer 1 is used) and their bf16 dequantized layer-1 slabs."""
+    from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
+
+    def q(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    w = (q(L, K // 2, F), torch.full((L, K // gs_gate, F), K ** -0.5 / 7,
+                                     device="cuda"),
+         q(L, K // 2, F), torch.full((L, K // gs_gate, F), K ** -0.5 / 7,
+                                     device="cuda"),
+         q(L, F // 2, K), torch.full((L, F // gs_down, K), F ** -0.5 / 7,
+                                     device="cuda"))
+    deq = [dequantize(QuantLinear(q=w[i][1], scales=w[i + 1][1], b=None,
+                                  bits=4, group_size=gs))
+           for i, gs in ((0, gs_gate), (2, gs_gate), (4, gs_down))]
+    return w, deq
+
+
+def _mlp_library(torch, x, deq):
+    """The yardstick: bf16 ``torch.matmul`` x 3 + SiLU over the dequantized
+    weights."""
+    F_ = torch.nn.functional
+    wg, wu, wd = deq
+    return lambda: torch.matmul(F_.silu(torch.matmul(x, wg))
+                                * torch.matmul(x, wu), wd)
+
+
+def _mlp_bytes_ops(M, K, F, gs_gate, gs_down):
+    """What one fused MLP must move and compute: x and y once, the three
+    INT4 weights and their f32 scales once; 6 M K F operations."""
+    n_bytes = (2 * M * K * 2 + 3 * (K // 2) * F
+               + 4 * (2 * (K // gs_gate) * F + (F // gs_down) * K))
+    return n_bytes, 6 * M * K * F
+
+
+def check_fused_mlp(torch, cfg):
+    """fused_mlp against its plain version at the Qwen2.5-7B MLP (K 3584,
+    F 18944): the pumped weights' group sizes (gate / up 256, down 128:
+    pad-free gs 256) at M = 4, 8, 40, 192 and 256, and run (a)'s gs 128 /
+    128 at M = 4.  Tolerance 2^-6 of the largest output (the matmuls'
+    rule: both round h and y to bf16, the wmma tile at M > 16 rounds
+    q * scale to bf16)."""
+    from qwen_inference_engine_tpu_torch.ops import fused_step as fs
+
+    K, F = cfg.hidden_size, cfg.intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(21)
+    records = []
+    for gs_gate, gs_down, ms_list in ((256, 128, (4, 8, 40, 192, 256)),
+                                      (128, 128, (4,))):
+        w, deq = _mlp_stack(torch, g, K, F, gs_gate, gs_down)
+        kw = dict(gs_gate=gs_gate, gs_down=gs_down)
+        for M in ms_list:
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            got = fs.fused_mlp(x, *w, 1, **kw)
+            again = fs.fused_mlp(x, *w, 1, **kw)
+            ref = fs.fused_mlp_plain(x, *w, 1, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2 ** -6 * ref.float().abs().max().item()
+            same = bool(torch.equal(got, again))
+            ms = time_ms(torch, lambda: fs.fused_mlp(x, *w, 1, **kw))
+            plain_ms = time_ms(torch, lambda: fs.fused_mlp_plain(x, *w, 1, **kw),
+                               iters=3, warmup=1)
+            lib_ms = time_ms(torch, _mlp_library(torch, x, deq))
+            b_ms, b_by = bound(*_mlp_bytes_ops(M, K, F, gs_gate, gs_down),
+                               "bf16")
+            rec = dict(shape=f"{cfg.name} MLP M={M} K={K} F={F} gs "
+                             f"{gs_gate}/{gs_down}", M=M, gs=(gs_gate, gs_down),
+                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"  fused_mlp {rec['shape']}: err {err:.3g} (tol {tol:.3g}),"
+                  f" two calls bit-identical {same} | kernel {ms:.4f} ms | "
+                  f"plain {plain_ms:.4f} | torch.matmul bf16 x3 + silu "
+                  f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
+            if not err <= tol or not same:
+                fail(f"fused_mlp {rec['shape']} err {err} > {tol} or two "
+                     f"calls differ")
+            records.append(rec)
+        del w, deq
+    return records
+
+
+def check_fused_attn_mlp(torch, cfg):
+    """fused_attn_mlp at the pumped decode's shapes: a half batch of 96
+    rows of a 192-row cache (S 512, every row at length 257), Hk 4, G 7,
+    D 128, row0 0 and 96, beside the pumped weights' MLP on 96 rows.  The
+    attention within 2e-2 (the decode kernels' rule), the MLP within
+    fused_mlp's; two calls bit-identical.  The yardstick is SDPA over the
+    half's rows plus the bf16 MLP of _mlp_library."""
+    from qwen_inference_engine_tpu_torch.ops import fused_step as fs
+
+    Ba, Bc, S, n = PUMP_BATCH // 2, PUMP_BATCH, PUMP_SEQ, PUMP_PROMPT + 1
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    K, F = cfg.hidden_size, cfg.intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    kc, vc = rnd(2, Bc, Hk, S, D), rnd(2, Bc, Hk, S, D)
+    w, deq = _mlp_stack(torch, g, K, F, 256, 128)
+    lens = torch.full((Ba,), n, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
+    records = {}
+    for row0 in (0, Ba):
+        q, x = rnd(Ba, 1, Hq, D), rnd(Ba, K)
+        kw = dict(gs_gate=256, gs_down=128, row0=row0)
+        attn, y = fs.fused_attn_mlp(lens, 1, 1, q, kc, vc, x, *w, **kw)
+        attn2, y2 = fs.fused_attn_mlp(lens, 1, 1, q, kc, vc, x, *w, **kw)
+        ra, ry = fs.fused_attn_mlp_plain(lens, 1, 1, q, kc, vc, x, *w, **kw)
+        torch.cuda.synchronize()
+        a_err = (attn.float() - ra.float()).abs().max().item()
+        y_err = (y.float() - ry.float()).abs().max().item()
+        y_tol = 2 ** -6 * ry.float().abs().max().item()
+        same = bool(torch.equal(attn, attn2) and torch.equal(y, y2))
+        ms = time_ms(torch, lambda: fs.fused_attn_mlp(lens, 1, 1, q, kc, vc,
+                                                      x, *w, **kw))
+        plain_ms = time_ms(torch, lambda: fs.fused_attn_mlp_plain(
+            lens, 1, 1, q, kc, vc, x, *w, **kw), iters=3, warmup=1)
+        sdpa = _sdpa(torch, q.transpose(1, 2), kc[1, row0:row0 + Ba],
+                     vc[1, row0:row0 + Ba], mask=mask)
+        mlp = _mlp_library(torch, x, deq)
+        lib_ms = time_ms(torch, lambda: (sdpa(), mlp()))
+        mb, mo = _mlp_bytes_ops(Ba, K, F, 256, 128)
+        n_bytes = mb + 2 * (2 * Ba * Hk * n * D) + 2 * (2 * Ba * Hq * D) + 4 * Ba
+        b_ms, b_by = bound(n_bytes, mo + 4 * Ba * Hq * n * D, "bf16")
+        rec = dict(shape=f"Ba=Mb={Ba} rows from {row0} of {Bc}, lens {n} S={S}"
+                         f" Hq={Hq} Hk={Hk}, MLP K={K} F={F} gs 256/128",
+                   max_abs_err=max(a_err, y_err), attn_err=a_err, mlp_err=y_err,
+                   tol=y_tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        print(f"  fused_attn_mlp row0 {row0}: attention err {a_err:.3g} (tol "
+              f"0.02), MLP err {y_err:.3g} (tol {y_tol:.3g}), two calls "
+              f"bit-identical {same} | kernel {ms:.4f} ms | plain "
+              f"{plain_ms:.4f} | sdpa + torch.matmul bf16 x3 + silu "
+              f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
+        if not (a_err <= 2e-2 and y_err <= y_tol and same):
+            fail(f"fused_attn_mlp row0 {row0}: attention err {a_err}, MLP "
+                 f"err {y_err} (tol {y_tol}), bit-identical {same}")
+        records[row0] = rec
+    return records
+
+
+def check_kv_append_uniform(torch, cfg):
+    """kv_append_uniform at the pumped decode's second half: 96 rows from
+    row 96 of a 192-row bf16 cache, position 257 of 512: bit-exact, and
+    nothing else of the cache touched."""
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+
+    L, Bc, S, pos, layer = 2, PUMP_BATCH, PUMP_SEQ, PUMP_PROMPT + 1, 1
+    Bn = row0 = PUMP_BATCH // 2
+    Hk, D = cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    kc, vc = rnd(L, Bc, Hk, S, D), rnd(L, Bc, Hk, S, D)
+    kn, vn = rnd(Bn, 1, Hk, D), rnd(Bn, 1, Hk, D)
+    mine = [kc.clone(), vc.clone()]
+    theirs = [kc.clone(), vc.clone()]
+    got = ka.kv_append_uniform(*mine, kn, vn, pos, layer, row0=row0)
+    ref = ka.kv_append_uniform_plain(*theirs, kn, vn, pos, layer, row0)
+    torch.cuda.synchronize()
+    if any(a is not b for a, b in zip(got, mine)):
+        fail("kv_append_uniform did not return the tensors it wrote")
+    diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    touched = int(((mine[0] != kc).any(-1) | (mine[1] != vc).any(-1)).sum())
+    pos_t = torch.tensor([pos], device="cuda")
+    ms = time_ms(torch, lambda: ka.kv_append_uniform(*mine, kn, vn, pos_t,
+                                                     layer, row0=row0))
+    plain_ms = time_ms(torch, lambda: ka.kv_append_uniform_plain(
+        *theirs, kn, vn, pos, layer, row0))
+
+    def library():
+        theirs[0][layer, row0:row0 + Bn, :, pos] = kn[:, 0]
+        theirs[1][layer, row0:row0 + Bn, :, pos] = vn[:, 0]
+
+    lib_ms = time_ms(torch, library)
+    b_ms, b_by = bound(2 * (2 * 2 * Bn * Hk * D), 0, "bf16")
+    print(f"  kv_append_uniform rows {row0}..{row0 + Bn - 1} position {pos}: "
+          f"{diff} elements differ (must be 0), {touched} (row, head) vectors "
+          f"changed (at most {Bn * Hk}) | kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} | slice assignment {lib_ms:.4f} | bound "
+          f"{b_ms:.6f} ({b_by})", flush=True)
+    if diff != 0 or not 0 < touched <= Bn * Hk:
+        fail(f"kv_append_uniform not bit-exact: {diff} elements differ, "
+             f"{touched} vectors changed")
+    return dict(shape=f"Bn={Bn} rows from {row0} of {Bc}, position {pos} "
+                      f"S={S} Hk={Hk} D={D}", max_abs_err=0.0, tol=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def _step_chain(torch, step, steps, first, tok, lens, cache):
+    """``steps`` greedy decode steps from position ``lens + first``;
+    returns (tok, cache) after a device sync."""
+    for s in range(steps):
+        logits, cache = step(tok, lens + first + s, cache)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return tok, cache
+
+
+def _profile_steps(torch, fn, steps):
+    """Device busy ms, kernel count and the top kernels of ``steps`` decode
+    steps under torch.profiler, per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows) / steps
+    n_kernels = sum(n for _, _, n in rows) / steps
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    if busy <= 0:
+        fail("pumped profile: the profiler saw no device time")
+    return busy, n_kernels, top
+
+
+def run_pumped_generate(torch, cfg, params, wrappers, prompts):
+    """[pumped generate]: Qwen2.5-7B at full width and depth with the JAX
+    bench's pumped weights (W4A16 gs 256 pad-free, INT4 lm_head) through
+    ``Engine.generate`` on an aligned batch of 192 x 256-token prompts
+    (max_seq 512, bf16 KV, 32 new tokens).  Each decode step must launch
+    fused_attn_mlp and kv_append_uniform 2 x 28 times and quant_matmul4
+    8 x 28 + 3 + 1 times, and no decode attention or fused_mlp.  Then, from
+    one prefill of the same batch, 8 pumped steps and 8 plain
+    ``decode_step(uniform_decode=True)`` steps (the yardstick: fused_mlp
+    28 times a step at M = 192) by the host clock, each followed by 4 more
+    under the profiler."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    B, L = PUMP_BATCH, cfg.num_layers
+    eng = Engine(cfg, params, max_batch=B, max_seq=PUMP_SEQ,
+                 kv_dtype=torch.bfloat16, sampling=SamplingParams(greedy=True),
+                 device="cuda")
+    if not qwen.pumped_supported(cfg, params, eng.new_cache(), B):
+        fail("[pumped generate]: pumped_supported refuses the pumped weights")
+    torch.cuda.empty_cache()
+    eng.generate(prompts([16] * B), max_new_tokens=2)  # warm-up
+    batch = prompts([PUMP_PROMPT] * B)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = eng.generate(batch, max_new_tokens=NEW_TOKENS)
+    counts = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = res.steps - 1
+    ids = [t for row in res.token_ids for t in row]
+    want = {"fused_attn_mlp": 2 * L * steps,
+            "kv_append_uniform": 2 * L * steps,
+            "quant_matmul4": (7 * L + 1) + steps * (8 * L + 3 + 1),
+            "flash_attention": L, "fused_mlp": 0,
+            "decode_attention_appending": 0}
+    got = {n: counts[n] for n in want}
+    stray = sorted(n for n in counts if n not in want and counts[n])
+    print(f"[pumped generate] {cfg.name} W4A16 gs 256 pad-free + int4 "
+          f"lm_head, batch {B} x {PUMP_PROMPT}, bf16 KV: ttft "
+          f"{res.ttft_s * 1e3:.1f} ms | decode {res.decode_tokens_per_s:.1f} "
+          f"tok/s | steps {res.steps} | peak {peak:.2f} GiB | launches "
+          f"{ {n: c for n, c in counts.items() if c} }", flush=True)
+    print(f"      first ids {[row[:8] for row in res.token_ids[:4]]}")
+    if not all(0 <= t < cfg.vocab_size for t in ids) or len(set(ids)) < 2:
+        fail("[pumped generate]: ids out of range or all identical")
+    if got != want or stray:
+        fail(f"[pumped generate]: launches {got}, expected {want} "
+             f"({steps} decode steps); stray {stray}")
+
+    dev = eng.device
+    toks = torch.tensor(batch, device=dev)
+    lens = torch.full((B,), PUMP_PROMPT, device=dev)
+    n = PUMP_YARDSTICK_STEPS
+
+    def measure(step, cache, tok):
+        """One warm-up step, n steps by the host clock (with launch counts
+        a step), then 4 more under the profiler."""
+        tok, _ = _step_chain(torch, step, 1, 0, tok, lens, cache)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        tok, _ = _step_chain(torch, step, n, 1, tok, lens, cache)
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        launches = {k: w.launches / n for k, w in wrappers.items()
+                    if w.launches}
+        busy, n_k, top = _profile_steps(
+            torch, lambda: _step_chain(torch, step, 4, 1 + n, tok, lens,
+                                       cache), 4)
+        return dict(step_ms=wall, launches_per_step=launches,
+                    device_busy_ms=busy, kernels=n_k, busy_share=busy / wall,
+                    top=[(k[:50], ms, cnt) for k, ms, cnt in top])
+
+    with torch.inference_mode():
+        logits, cache = qwen.prefill_chunked(params, cfg, toks, lens,
+                                             eng.new_cache(), chunk=512)
+        other = KVCache(k=cache.k.clone(), v=cache.v.clone())
+        tok0 = logits.argmax(-1)
+        out = {"pumped": measure(
+                   lambda t, p, c: qwen.decode_step_pumped(params, cfg, t, p,
+                                                           c), cache, tok0),
+               "plain": measure(
+                   lambda t, p, c: qwen.decode_step(params, cfg, t, p, c,
+                                                    uniform_decode=True),
+                   other, tok0)}
+    for name in ("pumped", "plain"):
+        r = out[name]
+        print(f"[pumped generate profile] {name} decode step at batch {B}: "
+              f"{r['step_ms']:.2f} ms on the host clock ({n} steps), device "
+              f"busy {r['device_busy_ms']:.2f} ms (busy share "
+              f"{r['busy_share']:.3f}), {r['kernels']:.0f} device kernels | "
+              f"launches a step {r['launches_per_step']} | by device time "
+              f"over 4 steps: " + "; ".join(f"{k} {ms:.2f} ms x{cnt}"
+                                            for k, ms, cnt in r["top"]),
+              flush=True)
+    per = out["plain"]["launches_per_step"]
+    if per.get("fused_mlp") != L or per.get("decode_attention_appending") != L:
+        fail(f"the plain yardstick step launched {per}: expected fused_mlp "
+             f"and decode_attention_appending {L} times")
+    per = out["pumped"]["launches_per_step"]
+    if per.get("fused_attn_mlp") != 2 * L or "fused_mlp" in per:
+        fail(f"the pumped step launched {per}")
+    del eng, cache, other
+    torch.cuda.empty_cache()
+    return counts, dict(ttft_ms=res.ttft_s * 1e3,
+                        decode_tok_s=res.decode_tokens_per_s, steps=res.steps,
+                        peak_gib=peak, pumped=out["pumped"],
+                        plain=out["plain"])
+
+
+def pumped_model_check(torch, cfg4, params4, prompts):
+    """Phase 5's pumped rule: the 4-layer pumped model (W4A16 gs 256
+    pad-free, INT4 lm_head) prefills 192 aligned 64-token prompts, then
+    takes 2 decode steps fed the same tokens: by ``decode_step_pumped``
+    with the kernels and with every plain version (bf16), and by
+    ``decode_step`` with the kernels (fused_mlp at M = 192) and the plain
+    versions; each kernel path at most 1.5x as far from an fp32 run of the
+    plain ``decode_step`` (f32 params and cache, the plain f32 matmuls and
+    attention) as its plain bf16 path is."""
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops import fused_step as fs
+
+    B, T, n_steps = PUMP_BATCH, 64, 2
+    toks = torch.tensor(prompts([T] * B), device="cuda")
+    feed = torch.tensor(prompts([n_steps] * B), device="cuda")
+    lens = torch.full((B,), T, device="cuda")
+    params4_f32 = qwen.map_params(
+        params4, lambda t: t.float() if t.is_floating_point() else t)
+
+    def run(p, dtype, pumped):
+        cache = KVCache.create(cfg4.num_layers, B, 256, cfg4.num_kv_heads,
+                               cfg4.head_dim, dtype=dtype, device="cuda")
+        out = []
+        with torch.inference_mode():
+            _, cache = qwen.prefill_chunked(p, cfg4, toks, lens, cache)
+            for s in range(n_steps):
+                if pumped:
+                    logits, cache = qwen.decode_step_pumped(
+                        p, cfg4, feed[:, s], lens + s, cache)
+                else:
+                    logits, cache = qwen.decode_step(
+                        p, cfg4, feed[:, s], lens + s, cache,
+                        uniform_decode=True)
+                out.append(logits)
+        return torch.cat(out, 0)
+
+    with Swapped(f32_swaps()):
+        lr = run(params4_f32, torch.float32, False)
+    del params4_f32
+    for label, pumped, kern in (("pumped decode", True, fs.fused_attn_mlp),
+                                ("plain decode (fused_mlp)", False,
+                                 fs.fused_mlp)):
+        before = kern.launches
+        lk = run(params4, torch.bfloat16, pumped)
+        want = n_steps * cfg4.num_layers * (2 if pumped else 1)
+        if kern.launches - before != want:
+            fail(f"{label}: the model check launched {kern.__name__} "
+                 f"{kern.launches - before} times, not {want}")
+        with Swapped(plain_swaps()):
+            lp = run(params4, torch.bfloat16, pumped)
+        model_check(f"W4A16 gs 256 pad-free + int4 lm_head, batch {B} x {T}, "
+                    f"{label}", lk, lp, lr,
+                    what=f"the logits of {n_steps} decode steps")
+
+
+# ----------------------------------------------------------------------
 # phases 4 and 5
 # ----------------------------------------------------------------------
 
-def model_check(label, lk, lp, lr, extra=""):
+def model_check(label, lk, lp, lr, extra="", what="prefill logits"):
     """The kernel path's logits ``lk`` may be at most 1.5x as far from the
     fp32 plain run ``lr`` as the plain bf16 path's ``lp`` are."""
     if not bool(lk.isfinite().all()):
@@ -1128,7 +1554,7 @@ def model_check(label, lk, lp, lr, extra=""):
     err_k = (lk - lr).abs().max().item()
     err_p = (lp - lr).abs().max().item()
     tol = 1.5 * err_p
-    print(f"[model] 4 layers, {label}, prefill logits on the card: kernels vs "
+    print(f"[model] 4 layers, {label}, {what} on the card: kernels vs "
           f"plain versions max |dlogit| {dlogit:.4g} (max|logit| "
           f"{lr.abs().max().item():.4g}) | vs the fp32 plain path: kernels "
           f"{err_k:.4g}, plain bf16 {err_p:.4g} (tol: kernels <= 1.5 x plain "
@@ -1189,37 +1615,55 @@ def attention_swaps():
              da.decode_attention_appending_plain),
             (qwen, "decode_attention_contiguous_q8",
              da.decode_attention_contiguous_q8_plain),
-            (qwen, "kv_append_uniform_q8", ka.kv_append_uniform_q8_plain)]
+            (qwen, "kv_append_uniform_q8", ka.kv_append_uniform_q8_plain),
+            (qwen, "kv_append_uniform", ka.kv_append_uniform_plain)]
 
 
 def plain_swaps():
     """Every kernel replaced by its plain version (bf16, as the kernels
     compute)."""
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops import fused_step as fs
     from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
 
     return ([(qm, n, getattr(qm, n + "_plain"))
              for n in ("quant_matmul4_a8", *NEW_MATMULS)]
             + [(gm, n, getattr(gm, n + "_plain")) for n in GROUPED]
+            + [(qwen, n, getattr(fs, n + "_plain"))
+               for n in ("fused_mlp", "fused_attn_mlp")]
             + attention_swaps())
 
 
 def f32_swaps():
     """An fp32 reference path: the plain dequant matmul of ops/linear.py
     (the code the CPU tests hold against the JAX package) in place of the
-    bf16 dispatchers (dense and grouped), and the plain attention."""
+    bf16 dispatchers (dense and grouped) and of the fused MLP (three f32
+    matmuls, no bf16 rounding of x or h), and the plain attention."""
     import torch
 
     from qwen_inference_engine_tpu_torch.models import qwen
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
-    from qwen_inference_engine_tpu_torch.ops.linear import quant_matmul
+    from qwen_inference_engine_tpu_torch.ops.linear import (
+        QuantLinear,
+        quant_matmul,
+    )
 
     def stacked(x, lin, layer, act_bits=0):
         return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits)
 
+    def mlp(x, wg, sg, wu, su, wd, sd, layer, *, gs_gate, gs_down):
+        def mm(a, q, sc, gs):
+            return quant_matmul(a.float(), QuantLinear(
+                q=q[layer], scales=sc[layer], b=None, bits=4, group_size=gs))
+
+        h = torch.nn.functional.silu(mm(x, wg, sg, gs_gate)) * mm(x, wu, su,
+                                                                  gs_gate)
+        return mm(h, wd, sd, gs_down).to(x.dtype)
+
     return [(qm, "quant_matmul_stacked", stacked),
             (qwen, "grouped_quant_matmul", grouped_f32(torch)),
-            *attention_swaps()]
+            (qwen, "fused_mlp", mlp), *attention_swaps()]
 
 
 SERVE_LENS = [37, 120, 256, 300, 511, 512, 513, 700, 900, 1100, 1300, 1408]
@@ -1625,9 +2069,10 @@ MATMULS = ("quant_matmul4_a8", "quant_matmul4", "quant_matmul8",
 
 def run_formats(torch, cfg, variants, wrappers, prompts):
     """Phase 4 (a)-(d): one Engine.generate run per weight format, 32 new
-    tokens.  Each run must launch only its own matmul kernels, as many per
-    forward (prefill or decode step) as ``want`` says, and the attention
-    kernels of its KV type.  Returns the runs' numbers."""
+    tokens.  Each run must launch only its own matmul kernels (and
+    fused_mlp), as many per forward as ``want`` says (a count, or a
+    (prefill, decode step) pair), and the attention kernels of its KV
+    type.  Returns the runs' numbers."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
 
@@ -1647,8 +2092,11 @@ def run_formats(torch, cfg, variants, wrappers, prompts):
         print(f"      first ids {[row[:8] for row in res.token_ids]}")
         if not all(0 <= t < vcfg.vocab_size for t in ids) or len(set(ids)) < 2:
             fail(f"{label}: ids out of range or all identical")
-        mm = {n: counts[n] for n in MATMULS}
-        expect = {n: res.steps * want.get(n, 0) for n in MATMULS}
+        mm = {n: counts[n] for n in MATMULS + ("fused_mlp",)}
+        per = {n: want.get(n, 0) for n in mm}
+        per = {n: v if isinstance(v, tuple) else (v, v)
+               for n, v in per.items()}
+        expect = {n: p + (res.steps - 1) * d for n, (p, d) in per.items()}
         missing = sorted(n for n in must if counts[n] <= 0)
         if mm != expect or missing:
             fail(f"{label}: matmul launches {mm}, expected {expect} "
@@ -1700,13 +2148,22 @@ def run_serving_w4a16(torch, cfg, params, wrappers, rng):
     if len(done) != 8 or any(f.finish_reason != "length"
                              or len(f.token_ids) != 16 for f in done):
         fail("serving w4a16: a request did not finish by length")
+    # every forward has M <= 256 (pieces of 256, 8 decode slots): the MLP
+    # is fused_mlp, 4 matmuls a layer
     must = {"quant_matmul4", "flash_attention", "paged_append_prefill",
             "paged_chunk_attention", "paged_append_ragged",
-            "paged_decode_attention_stacked"}
+            "paged_decode_attention_stacked", "fused_mlp"}
     missing = sorted(n for n in must if counts[n] <= 0)
     stray = sorted(n for n in counts if n not in must and counts[n] != 0)
     if missing or stray:
         fail(f"serving w4a16: not launched {missing}, stray {stray}")
+    # 4 matmuls a layer beside each fused MLP, and at most one INT4 lm_head
+    # a forward (a forward is num_layers fused MLPs)
+    heads = counts["quant_matmul4"] - 4 * counts["fused_mlp"]
+    if not 0 <= heads <= counts["fused_mlp"] // cfg.num_layers:
+        fail(f"serving w4a16: {counts['quant_matmul4']} W4A16 matmuls for "
+             f"{counts['fused_mlp']} fused MLPs (4 a layer + the lm_heads "
+             f"expected)")
     del cb
     torch.cuda.empty_cache()
     return counts, dict(wall_s=wall, **snap)
@@ -2869,6 +3326,9 @@ def main() -> int:
                   **check_paged_chunk(torch, cfg, quant=True),
                   **check_paged_appends(torch, cfg)}
     check_wide_window_append(torch, cfg)
+    fused_mlp_recs = check_fused_mlp(torch, cfg)
+    attn_mlp_recs = check_fused_attn_mlp(torch, cfg)
+    append_recs["kv_append_uniform"] = check_kv_append_uniform(torch, cfg)
     grouped_recs = check_grouped_matmul(torch, PRESETS["qwen3-30b-a3b"])
     torch.cuda.empty_cache()
 
@@ -2983,10 +3443,12 @@ def main() -> int:
     L = cfg.num_layers
     q8 = torch.int8
     variants = {
+        # the prefill (M = 4 x 512) runs the three MLP matmuls, each decode
+        # step (M = 4) fused_mlp: gs 128 leaves the down projection unpadded
         "(a) w4a16 gs 128, int4 lm_head, bf16 KV": (
             cfg, p_w4a16, torch.bfloat16, [37, 120, 300, 500],
-            {"quant_matmul4": 7 * L + 1},
-            {"flash_attention", "decode_attention_contiguous"}),
+            {"quant_matmul4": (7 * L + 1, 4 * L + 1), "fused_mlp": (0, L)},
+            {"flash_attention", "decode_attention_contiguous", "fused_mlp"}),
         "(b) w8a16 gs 128, bf16 lm_head, bf16 KV": (
             cfg, p_w8a16, torch.bfloat16, [256] * 4,
             {"quant_matmul8": 7 * L},
@@ -3044,6 +3506,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     w4_counts, w4_serve = run_serving_w4a16(torch, cfg, p_w4a16, wrappers, rng)
     for n, c in w4_counts.items():
+        launches[n] += c
+
+    # ---- 4d. the double-pumped decode: the JAX bench's pumped weights
+    # (W4A16 gs 256 pad-free: down gs 128; INT4 lm_head), batch 192
+    p_pump = quantize_params(bf16, QuantConfig(bits=4, group_size=256,
+                                               pad_free=True,
+                                               quantize_lm_head=True))
+    pump_counts, pump_run = run_pumped_generate(torch, cfg, p_pump, wrappers,
+                                                prompts)
+    for n, c in pump_counts.items():
         launches[n] += c
 
     # ---- the loader phase: HF checkpoint -> quantize -> generate
@@ -3131,8 +3603,14 @@ def main() -> int:
     for kv in (torch.bfloat16, torch.int8):
         paged_model_check(torch, cfg4, params4, params4_f32, prompts,
                           plain_swaps(), f32_swaps(), kv)
+    del params4_f32
+    torch.cuda.empty_cache()
+    pumped_model_check(torch, cfg.replace(num_layers=L4), dict(
+        p_pump, layers=qwen.map_params(p_pump["layers"], lambda t: t[:L4])),
+        prompts)
+    del p_pump
 
-    del params, params4, params4_f32, e4
+    del params, params4, e4
     torch.cuda.empty_cache()
 
     # ---- 6. Qwen3-30B-A3B at full width: generate, serve, logits, loader
@@ -3205,6 +3683,12 @@ def main() -> int:
         "grouped_matmul8": (
             "csrc/grouped_matmul.cu",
             "qwen_inference_engine_tpu/ops/grouped_matmul.py:426"),
+        "fused_mlp": ("csrc/fused_step.cu",
+                      "qwen_inference_engine_tpu/ops/fused_step.py:646"),
+        "fused_attn_mlp": ("csrc/fused_step.cu",
+                           "qwen_inference_engine_tpu/ops/fused_step.py:415"),
+        "kv_append_uniform": ("csrc/kv_append.cu",
+                              "qwen_inference_engine_tpu/ops/kv_append.py:95"),
     }
     # each matmul is reported per decode layer: its seven projections at M=4
     recs = {"quant_matmul4_a8": layer_record(qmm_recs, qmm_14b),
@@ -3220,7 +3704,12 @@ def main() -> int:
                 + new_14b["quant_matmul8_a8"]),
             "flash_attention": flash_recs[0], **dec_recs, **chunk_recs,
             **append_recs, **dec8_recs, **paged_recs,
-            **{n: moe_layer_record(r) for n, r in grouped_recs.items()}}
+            **{n: moe_layer_record(r) for n, r in grouped_recs.items()},
+            # the fused MLP at decode (M = 4) with the pumped weights; the
+            # fused attention + MLP at the pumped step's second half
+            "fused_mlp": next(r for r in fused_mlp_recs
+                              if r["M"] == 4 and r["gs"] == (256, 128)),
+            "fused_attn_mlp": attn_mlp_recs[PUMP_BATCH // 2]}
     kernels = []
     for name, rec in recs.items():
         src, replaces = sources[name]
@@ -3237,7 +3726,8 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
           f" | loader {json.dumps(loader)} | int8 pool and speculation "
-          f"{json.dumps(spec_runs)} | moe {json.dumps(moe_runs)}")
+          f"{json.dumps(spec_runs)} | moe {json.dumps(moe_runs)} | pumped "
+          f"{json.dumps(pump_run)}")
     if len(sys.argv) > 1:  # every kernel shape's and run's numbers
         os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])),
                     exist_ok=True)
@@ -3248,7 +3738,10 @@ def main() -> int:
                        "int8_pool_and_speculation": spec_runs,
                        "paged_kernels": paged_recs,
                        "chunk_kernels": chunk_recs,
-                       "grouped_kernels": grouped_recs, "moe": moe_runs},
+                       "grouped_kernels": grouped_recs, "moe": moe_runs,
+                       "fused_mlp": fused_mlp_recs,
+                       "fused_attn_mlp": attn_mlp_recs,
+                       "pumped_generate": pump_run},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 // KV appends into the stacked caches, Hopper.
 //
-// Replaces four kernels of qwen_inference_engine_tpu/ops/kv_append.py:
+// Replaces five kernels of qwen_inference_engine_tpu/ops/kv_append.py:
+//   * kv_append_uniform (body _uniform_append_kernel): a bf16 (or f32)
+//     decode append into the contiguous cache, rows [row0, row0 + Bn) at
+//     one shared position (the double-pumped decode's per-half append);
 //   * kv_append_uniform_q8 (body _uniform_append_q8_kernel): INT8-KV decode
 //     append into the contiguous cache;
 //   * paged_append_ragged (body _paged_ragged_kernel): one K/V row per
@@ -13,6 +16,12 @@
 // The paged appends take a bf16 pool, or an int8 pool whose per-token f32
 // scales [L, P, Hk, page] they write in the same launch (the JAX package
 // runs its kernels on the int8 bytes and scatters the scales with XLA).
+//
+// kv_append_uniform: in place, k_new / v_new [Bn, Hk, D] into
+// cache[layer, row0 + b, hk, position] of the caches [L, Bc, Hk, S, D],
+// copied as 32-bit words (the row's D * elem_bytes bytes; bf16 or f32), at
+// the one position read on the device; a position outside [0, S) writes
+// nothing.
 //
 // kv_append_q8: in place, int8 k_new / v_new [B, Hk, D] and f32 ks_new /
 // vs_new [B, Hk] into cache[layer, b, hk, position] of the int8 caches
@@ -37,7 +46,9 @@
 // same scratch row in one launch (idle slots at position 0 of page 0): a
 // benign race, never read back.
 //
-// What bounds them on the H100: kv_append_q8 moves 2 * B * Hk * (D + 4)
+// What bounds them on the H100: kv_append_uniform moves 2 * Bn * Hk * D
+// elements in and as many out (196 KB each way for a Qwen2.5-7B half batch
+// of 96 rows in bf16); kv_append_q8 moves 2 * B * Hk * (D + 4)
 // bytes in and as many out (4.2 KB at B=4 for Qwen2.5-7B); the ragged
 // paged append 2 * 2 * B * Hk * D bytes each way (16 KB at 8 slots, 8 KB +
 // 256 B of scales int8); the verify window T times that (80 KB at T = 5);
@@ -46,11 +57,12 @@
 // microseconds) bounds them in practice.
 //
 // Design: one block per (KV head, row or token), one thread per element of
-// the head vector; thread 0 also writes the row's two scales (int8).  The
-// ragged append and the verify window share one kernel, a loop over the
-// row's T tokens that resolves each token's page on its own, so a window
-// that straddles two pages needs nothing special.  The TPU kernels read
-// and wrote back whole bands, tiles or pages (a 32-row int8 band, a
+// the head vector (kv_append_uniform: one thread per 32-bit word of it);
+// thread 0 also writes the row's two scales (int8).  The ragged append and
+// the verify window share one kernel, a loop over the row's T tokens that
+// resolves each token's page on its own, so a window that straddles two
+// pages needs nothing special.  The TPU kernels read and wrote back whole
+// bands, tiles or pages (an 8-row bf16 band, a 32-row int8 band, a
 // 128-lane scale tile, a [Hk, page, D] page block for the prefill append)
 // because their memory moves in (8/32, 128) tiles; that is tiling, not
 // semantics: here only the rows being appended are written, bit for bit,
@@ -61,6 +73,25 @@
 #include <stdint.h>
 
 namespace {
+
+__global__ void kv_append_uniform_kernel(
+    unsigned* __restrict__ k_cache, unsigned* __restrict__ v_cache,
+    const unsigned* __restrict__ k_new, const unsigned* __restrict__ v_new,
+    const int* __restrict__ position_ptr, int Bc, int Hk, int S, int W,
+    int layer, int row0) {
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int position = *position_ptr;
+  if (position < 0 || position >= S) return;
+  const long long row =
+      (static_cast<long long>(layer) * Bc + row0 + b) * Hk + hk;
+  const long long dst = (row * S + position) * W;
+  const long long src = (static_cast<long long>(b) * Hk + hk) * W;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    k_cache[dst + w] = k_new[src + w];
+    v_cache[dst + w] = v_new[src + w];
+  }
+}
 
 __global__ void kv_append_q8_kernel(
     int8_t* __restrict__ k_cache, int8_t* __restrict__ v_cache,
@@ -176,6 +207,28 @@ void launch_prefill(dim3 grid, int D, cudaStream_t st, void* k_pages,
 }
 
 }  // namespace
+
+extern "C" int qie_kv_append_uniform(void* k_cache, void* v_cache,
+                                     const void* k_new, const void* v_new,
+                                     const void* position, int L, int Bc,
+                                     int Bn, int Hk, int S, int D,
+                                     int elem_bytes, int layer, int row0,
+                                     void* stream) {
+  const int row_bytes = D * elem_bytes;
+  if (Bn <= 0 || Bn > 65535 || row0 < 0 || row0 + Bn > Bc || Hk <= 0 ||
+      D <= 0 || elem_bytes <= 0 || row_bytes % 4 || S <= 0 || layer < 0 ||
+      layer >= L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int W = row_bytes / 4;
+  dim3 grid(Hk, Bn);
+  kv_append_uniform_kernel<<<grid, W < 256 ? W : 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(k_cache), static_cast<unsigned*>(v_cache),
+      static_cast<const unsigned*>(k_new), static_cast<const unsigned*>(v_new),
+      static_cast<const int*>(position), Bc, Hk, S, W, layer, row0);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
                                 void* v_scale, const void* k_new,

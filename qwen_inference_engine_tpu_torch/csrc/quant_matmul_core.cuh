@@ -23,6 +23,13 @@
 // A tile's shared memory is static and reused by the next call of the same
 // block: a caller that loops over tiles puts a __syncthreads() between
 // calls.
+//
+// The two bf16-activation tiles also come as *_ep versions that hand each
+// finished f32 output y[m, n] to an epilogue functor instead of rounding
+// it to bf16 (StoreBf16 is the rounding one): the fused MLP
+// (fused_step.cu) keeps gate and up in f32 and combines them there.  The
+// wmma tile's *_ep version takes its shared memory (WmmaSmem) from the
+// caller, so a kernel can overlay it with another block kind's.
 
 #pragma once
 
@@ -36,6 +43,15 @@ namespace qie {
 constexpr int kThreads = 256;
 constexpr int kBN = 128;   // a8 tiles: output columns (32 threads x 4)
 constexpr int kBKP = 32;   // a8 tiles: weight rows per k-step
+
+// The rounding epilogue: y[m, n] -> bf16 out[m * N + n].
+struct StoreBf16 {
+  __nv_bfloat16* out;
+  int N;
+  __device__ __forceinline__ void operator()(int m, int n, float v) const {
+    out[static_cast<size_t>(m) * N + n] = __float2bfloat16(v);
+  }
+};
 
 // Signed high nibble of each byte of w, as four int8 lanes.
 __device__ __forceinline__ int high_nibbles(unsigned w) {
@@ -283,11 +299,11 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float f[4]) {
 
 // kInt4: K is the logical (padded) K, the weight has K/2 packed rows and
 // gs is the INT4 group size; else K rows and gs = K / G.
-template <bool kInt4, int MT>
-__device__ __forceinline__ void tile_w16_small(
+template <bool kInt4, int MT, typename Ep>
+__device__ __forceinline__ void tile_w16_small_ep(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
-    int K, int N, int gs, bool per_col, int m0, int n0) {
+    const float* __restrict__ scales, const Ep& ep, int M, int K, int N,
+    int gs, bool per_col, int m0, int n0) {
   __shared__ float red[kSmallGroups][MT][kSmallCols];
   const int tid = threadIdx.x;
   const int cx = tid % 16;           // columns n0 + 4*cx .. +3
@@ -389,9 +405,17 @@ __device__ __forceinline__ void tile_w16_small(
 #pragma unroll
     for (int g = 0; g < kSmallGroups; ++g) s += red[g][m][col];
     if (per_col) s *= scales[n0 + col];
-    if (m0 + m < M)
-      out[static_cast<size_t>(m0 + m) * N + n0 + col] = __float2bfloat16(s);
+    if (m0 + m < M) ep(m0 + m, n0 + col, s);
   }
+}
+
+template <bool kInt4, int MT>
+__device__ __forceinline__ void tile_w16_small(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
+    int K, int N, int gs, bool per_col, int m0, int n0) {
+  tile_w16_small_ep<kInt4, MT>(x, q, scales, StoreBf16{out, N}, M, K, N, gs,
+                               per_col, m0, n0);
 }
 
 // ---------------------------------------------------------------------
@@ -403,16 +427,26 @@ constexpr int kWKS = 32;             // weight rows per k-step
 constexpr int kWThreads = 128;       // 4 warps, 2 x 2, 32 x 32 each
 
 template <bool kInt4>
-__device__ __forceinline__ void tile_w16_wmma(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
-    int K, int N, int gs, bool per_col, int m0, int n0) {
+struct WmmaSmem {
+  static constexpr int BK = kInt4 ? 2 * kWKS : kWKS;  // logical rows a k-step
+  static constexpr int LDA = BK + 8, LDB = kWBN + 8, LDC = kWBN + 4;
+  __align__(32) __nv_bfloat16 As[kWBM][LDA];
+  __align__(32) __nv_bfloat16 Bs[BK][LDB];
+  __align__(32) float Cs[kWBM][LDC];
+};
+
+template <bool kInt4, typename Ep>
+__device__ __forceinline__ void tile_w16_wmma_ep(
+    WmmaSmem<kInt4>& sm, const __nv_bfloat16* __restrict__ x,
+    const int8_t* __restrict__ q, const float* __restrict__ scales,
+    const Ep& ep, int M, int K, int N, int gs, bool per_col, int m0, int n0) {
   using namespace nvcuda;
-  constexpr int BK = kInt4 ? 2 * kWKS : kWKS;  // logical rows per k-step
-  constexpr int LDA = BK + 8, LDB = kWBN + 8, LDC = kWBN + 4;
-  __shared__ __align__(32) __nv_bfloat16 As[kWBM][LDA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK][LDB];
-  __shared__ __align__(32) float Cs[kWBM][LDC];
+  using Smem = WmmaSmem<kInt4>;
+  constexpr int BK = Smem::BK;
+  constexpr int LDA = Smem::LDA, LDB = Smem::LDB, LDC = Smem::LDC;
+  auto& As = sm.As;
+  auto& Bs = sm.Bs;
+  auto& Cs = sm.Cs;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -534,9 +568,19 @@ __device__ __forceinline__ void tile_w16_wmma(
     if (m < M) {
       float v = Cs[i][c];
       if (!kInt4 && per_col) v *= scales[n0 + c];
-      out[static_cast<size_t>(m) * N + n0 + c] = __float2bfloat16(v);
+      ep(m, n0 + c, v);
     }
   }
+}
+
+template <bool kInt4>
+__device__ __forceinline__ void tile_w16_wmma(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
+    int K, int N, int gs, bool per_col, int m0, int n0) {
+  __shared__ WmmaSmem<kInt4> sm;
+  tile_w16_wmma_ep<kInt4>(sm, x, q, scales, StoreBf16{out, N}, M, K, N, gs,
+                          per_col, m0, n0);
 }
 
 }  // namespace qie

@@ -5,7 +5,12 @@ power-of-two buckets (at least 16), padded batch rows given length 1, the
 uniform (aligned batch) or ragged decode chosen per call, EOS masked on the
 device with the host polling on a growing cadence, the seen mask for the
 penalties, and TTFT / decode tok/s measured around work that ends in a
-device sync.  Each step runs eagerly; no CUDA graph yet.
+device sync.  Each step runs eagerly; no CUDA graph yet.  An aligned batch
+decodes through ``decode_step_pumped`` (the batch as two halves, attention
+beside the MLP in one launch) wherever ``pumped_supported`` holds for the
+engine's batch, as the JAX engine does on a TPU; the JAX gate's device
+check is not copied, so the CPU takes the same branch with the plain
+versions.
 
 ``Engine.generate_speculative`` is greedy generation with prompt-lookup
 speculation (``engine/speculative.py``): token-identical to ``generate``
@@ -28,8 +33,10 @@ from qwen_inference_engine_tpu_torch.config import ModelConfig
 from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
 from qwen_inference_engine_tpu_torch.models.qwen import (
     decode_step,
+    decode_step_pumped,
     params_to,
     prefill_chunked,
+    pumped_supported,
 )
 from qwen_inference_engine_tpu_torch.ops.sampling import (
     SamplingParams,
@@ -144,6 +151,7 @@ class Engine:
         # aligned batch (all rows the same length) -> uniform decode: the
         # fresh KV rows go through the append kernels
         uniform = bool(np.all(lens == lens[0]))
+        pumped = uniform and pumped_supported(self.cfg, self.params, cache, B)
         eos = torch.tensor(list(self.cfg.eos_token_ids), device=dev)
 
         self._sync()
@@ -169,8 +177,12 @@ class Engine:
         next_poll = eos_every
         for step in range(1, max_new_tokens):
             pos = lens_d + (step - 1)
-            logits, cache = decode_step(self.params, self.cfg, tok, pos,
-                                        cache, uniform_decode=uniform)
+            if pumped:
+                logits, cache = decode_step_pumped(self.params, self.cfg, tok,
+                                                   pos, cache)
+            else:
+                logits, cache = decode_step(self.params, self.cfg, tok, pos,
+                                            cache, uniform_decode=uniform)
             nxt = sample(logits, sp, seen, gen)
             if seen is not None:
                 update_seen_mask(seen, nxt)

@@ -52,6 +52,17 @@ appends take ``quantize_kv``'s bytes and scales):
 A prefill piece is one sequence (the scheduler's pieces are; the JAX
 package's batched piece goes through XLA and no caller of the port needs
 it).
+
+The MLP of a dense layer is ``fused_mlp`` (one kernel: gate, up, SiLU and
+down, the [M, F] intermediates kept in f32 / bf16 workspaces) wherever the
+JAX package's TPU dispatch takes it: pad-free INT4 weights, no int8
+activations, M = B * T <= 256 (``fused_mlp_supported``); else the three
+matmuls.  ``decode_step_pumped`` is the JAX package's double-pumped decode
+for aligned batches of more than 128 rows (``pumped_supported``): the
+batch runs as two halves staggered by half a layer, each layer's
+attention of one half in the same launch as the other half's MLP
+(``fused_attn_mlp``), the halves' fresh K/V written by
+``kv_append_uniform``.
 """
 
 from __future__ import annotations
@@ -83,12 +94,18 @@ from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_contiguous_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.flash_attention import flash_attention
+from qwen_inference_engine_tpu_torch.ops.fused_step import (
+    fused_attn_mlp,
+    fused_mlp,
+    fused_mlp_supported,
+)
 from qwen_inference_engine_tpu_torch.ops.grouped_matmul import (
     grouped_matmul_dense,
     grouped_quant_matmul,
     grouped_quant_matmul_supported,
 )
 from qwen_inference_engine_tpu_torch.ops.kv_append import (
+    kv_append_uniform,
     kv_append_uniform_q8,
     paged_append_prefill,
     paged_append_ragged,
@@ -460,6 +477,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         lengths = (positions[:, 0] + T).int()  # ragged decode / verify
     else:
         row_pos = lengths = None
+    # the single-pass SwiGLU kernel (fused_mlp has no int8-activation path)
+    use_mlp_kernel = (not cfg.is_moe and "gate" in lyr and act != 8
+                      and fused_mlp_supported(lyr["gate"], lyr["up"],
+                                              lyr["down"], B * T))
     for l in range(cfg.num_layers):
         h = rms_norm(x, lyr["input_norm"][l], eps)
         q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
@@ -524,6 +545,12 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                         lyr["moe_gate"], lyr["moe_up"], lyr["moe_down"],
                         cfg.num_experts_per_tok, cfg.norm_topk_prob, layer=l,
                         act_bits=act).reshape(B, T, -1).to(x.dtype)
+        elif use_mlp_kernel:
+            ga, ua, da_ = lyr["gate"], lyr["up"], lyr["down"]
+            d = fused_mlp(h.reshape(B * T, -1), ga.q, ga.scales, ua.q,
+                          ua.scales, da_.q, da_.scales, l,
+                          gs_gate=ga.group_size,
+                          gs_down=da_.group_size).reshape(B, T, -1)
         else:
             gate = apply_linear(h, lyr["gate"], l, act)
             up = apply_linear(h, lyr["up"], l, act)
@@ -607,3 +634,119 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                    block_tables=block_tables,
                                    uniform_decode=uniform_decode)
     return compute_logits(params, hidden[:, 0], cfg.act_bits_lm_head), cache
+
+
+def pumped_supported(cfg: ModelConfig, params: dict, cache,
+                     batch: int) -> bool:
+    """Whether ``decode_step_pumped`` covers this model and cache (the JAX
+    package's gate, copied): a contiguous unquantized cache with S % 256,
+    an even batch of more than 128 rows, G <= 8, head_dim and hidden size
+    multiples of 128, and pad-free stacked INT4 gate / up / down without
+    bias (gate / up out == down in), F % 512, equal gate and up group
+    sizes, 512 % (2 * gs_down)."""
+    if isinstance(cache, PagedKVCache) or getattr(cache, "quantized", False):
+        return False
+    if batch % 2 or batch <= 128 or cfg.num_heads // cfg.num_kv_heads > 8:
+        return False
+    if cfg.head_dim % 128 or cache.k.shape[3] % 256:
+        return False
+    layers = params["layers"]
+    if "gate" not in layers or "up" not in layers:
+        return False
+    gate, up, down = layers["gate"], layers["up"], layers["down"]
+    for lin in (gate, up, down):
+        if not isinstance(lin, QuantLinear) or lin.bits != 4 \
+                or lin.b is not None:
+            return False
+    F_ = gate.out_features
+    if up.out_features != F_ or down.in_features != F_:
+        return False
+    if F_ % 512 or gate.group_size != up.group_size:
+        return False
+    if 512 % (2 * down.group_size) or cfg.hidden_size % 128:
+        return False
+    return True
+
+
+def decode_step_pumped(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                       positions: torch.Tensor, cache: KVCache):
+    """Double-pumped decode of an aligned batch: tokens [B] (B even) all at
+    the one position ``positions[0]``.  Returns (logits [B, V], cache).
+
+    The batch is split in halves A and B staggered by half a layer; per
+    layer l (the JAX package's ``decode_step_pumped``):
+
+      q/k/v_A(l) -> rope -> kv_append_uniform(rows of A)
+      fused_attn_mlp:  attn_A(l)  and  mlp_B(l-1)
+      o_A(l) (+ residual)
+      q/k/v_B(l) -> rope -> kv_append_uniform(rows of B)
+      fused_attn_mlp:  attn_B(l)  and  mlp_A(l)
+      o_B(l) (+ residual)
+
+    At l = 0 half B's MLP input is zeros (its output is exactly 0; the
+    launch still runs, 2 * L fused launches a step); half B's last MLP
+    drains through the three matmuls.  As in the JAX package the
+    projections and the logits take no int8 activations (``cfg.act_bits``
+    and ``act_bits_lm_head`` are not read), and the queries and the MLP
+    inputs are rounded to bf16 for the fused kernel.
+    """
+    B = tokens.shape[0]
+    Mb = B // 2
+    Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    lyr = params["layers"]
+    gate, up, down = lyr["gate"], lyr["up"], lyr["down"]
+    gs_gate, gs_down = gate.group_size, down.group_size
+    cos, sin = params["rope_cos"], params["rope_sin"]
+
+    x = params["embed"][tokens]                       # [B, D]
+    pos = positions[:1].int()                         # uniform, on the device
+    pos_half = positions[:1, None].expand(Mb, 1)      # [Mb, 1] for RoPE
+    lens = (positions[:Mb] + 1).int()
+
+    def qkv_rope(h, l):
+        hn = rms_norm(h, lyr["input_norm"][l], eps)
+        q = apply_linear(hn, lyr["q"], l).reshape(Mb, 1, Hq, Dh)
+        k = apply_linear(hn, lyr["k"], l).reshape(Mb, 1, Hk, Dh)
+        v = apply_linear(hn, lyr["v"], l).reshape(Mb, 1, Hk, Dh)
+        if cfg.qk_norm:
+            q = qk_norm(q, lyr["q_norm"][l], eps)
+            k = qk_norm(k, lyr["k_norm"][l], eps)
+        return (apply_rope(q, pos_half, cos, sin),
+                apply_rope(k, pos_half, cos, sin), v)
+
+    def fused(l_attn, l_mlp, q, xm, row0):
+        attn, mlp = fused_attn_mlp(
+            lens, l_attn, l_mlp, q.to(torch.bfloat16), cache.k, cache.v,
+            xm.to(torch.bfloat16), gate.q, gate.scales, up.q, up.scales,
+            down.q, down.scales, gs_gate=gs_gate, gs_down=gs_down, row0=row0)
+        return attn.reshape(Mb, Hq * Dh).to(x.dtype), mlp.to(x.dtype)
+
+    xa, xb_mid = x[:Mb], x[Mb:]
+    for l in range(cfg.num_layers):
+        # ---- A: q/k/v, append, then attn_A(l) beside mlp_B(l-1)
+        qa, ka, va = qkv_rope(xa, l)
+        kv_append_uniform(cache.k, cache.v, ka, va, pos, l, row0=0)
+        lm = max(l - 1, 0)
+        mlp_in_b = rms_norm(xb_mid, lyr["post_norm"][lm], eps)
+        if l == 0:
+            mlp_in_b = torch.zeros_like(mlp_in_b)
+        attn_a, mlp_b = fused(l, lm, qa, mlp_in_b, 0)
+        xb = xb_mid + mlp_b
+        xa = xa + apply_linear(attn_a, lyr["o"], l)
+        # ---- B: q/k/v, append, then attn_B(l) beside mlp_A(l)
+        qb, kb, vb = qkv_rope(xb, l)
+        kv_append_uniform(cache.k, cache.v, kb, vb, pos, l, row0=Mb)
+        mlp_in_a = rms_norm(xa, lyr["post_norm"][l], eps)
+        attn_b, mlp_a = fused(l, l, qb, mlp_in_a, Mb)
+        xb_mid = xb + apply_linear(attn_b, lyr["o"], l)
+        xa = xa + mlp_a
+
+    # drain: half B's last MLP (layer L-1) through the three matmuls
+    last = cfg.num_layers - 1
+    hb = rms_norm(xb_mid, lyr["post_norm"][last], eps)
+    g = apply_linear(hb, gate, last)
+    u = apply_linear(hb, up, last)
+    xb = xb_mid + apply_linear(F.silu(g) * u, down, last)
+    hidden = rms_norm(torch.cat([xa, xb], dim=0), params["final_norm"], eps)
+    return compute_logits(params, hidden), cache

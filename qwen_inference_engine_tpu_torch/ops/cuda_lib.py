@@ -65,6 +65,20 @@ SIGNATURES = {
     # L, Bc, B, T, Hq, Hk, S, D, layer, start, scale, stream
     "qie_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # k_cache, v_cache, k_new, v_new, position, L, Bc, Bn, Hk, S, D,
+    # elem_bytes, layer, row0, stream
+    "qie_kv_append_uniform": [_P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, wg, sg, wu, su, wd, sd, g_ws, h_ws, y, M, K, F, gs_gate, gs_down,
+    # layer, L, stream
+    "qie_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k_cache, v_cache, lens, attn, x, wg, sg, wu, su, wd, sd, g_ws, h_ws,
+    # y, Lc, Bc, Ba, Hq, Hk, S, layer_a, row0, M, K, F, gs_gate, gs_down,
+    # layer_m, L, scale, stream
+    "qie_fused_attn_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _F, _P],
     # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
     # position, L, Bc, B, Hk, S, D, layer, stream
     "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,0 +1,232 @@
+"""Fused decode kernels: the single-pass INT4 SwiGLU MLP, and one batch
+half's decode attention beside the other half's MLP in one launch.
+
+Two CUDA kernels of ``csrc/fused_step.cu``, each the port of one Pallas
+kernel of the JAX package's ``ops/fused_step.py``, each with a plain
+PyTorch version beside it:
+
+* ``fused_mlp`` (``fused_mlp`` / ``_fused_mlp_kernel``): a layer's whole
+  SwiGLU ``down(silu(x Wg) * (x Wu))`` over pad-free INT4 weights.  x is
+  rounded to bf16; g and u stay in f32; h = silu(g) * u is rounded to bf16
+  once, as the TPU kernel does; the output is in x's dtype.  The main
+  forward takes it for W4A16 weights at M = B * T <= 256
+  (``fused_mlp_supported``, the JAX package's gate, copied);
+* ``fused_attn_mlp`` (``fused_attn_mlp`` / ``_fused_attn_mlp_kernel``):
+  decode attention of the cache rows ``[row0, row0 + Ba)`` at layer
+  ``layer_a`` (the port's decode attention numerics: f32 online softmax
+  over the first ``lens[b]`` keys), and ``fused_mlp`` of layer ``layer_m``
+  on an independent x; ``decode_step_pumped`` runs it twice a layer.
+
+The TPU kernels carry the down projection's sum from one grid step to the
+next; on the card blocks run in no order, so both kernels run in two
+passes: gate / up / h into a workspace, then the down projection (the
+second launch).  The query heads are the G real ones: the JAX package
+pads them to G8 = 8 for the TPU's layout.  A wrapper runs its plain
+version only for a CPU tensor; for any other it checks types, shapes and
+the device, then launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from qwen_inference_engine_tpu_torch.ops import cuda_lib
+from qwen_inference_engine_tpu_torch.ops.decode_attention import (
+    decode_attention_contiguous_plain,
+)
+from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, quant_matmul
+
+
+def fused_mlp_supported(gate, up, down, m: int) -> bool:
+    """Pad-free INT4 triple with matching shapes (the JAX package's gate):
+    stacked INT4 gate / up / down without bias, gate / up out == down in
+    (no K padding), F % 512, 512 % (2 * gs_down), equal gate and up group
+    sizes, K % (2 * gs_gate), and m <= 256 rows."""
+    for lin in (gate, up, down):
+        if not isinstance(lin, QuantLinear) or lin.bits != 4 \
+                or lin.b is not None or lin.q.dim() != 3:
+            return False
+    F_ = gate.out_features
+    if up.out_features != F_ or down.in_features != F_:
+        return False
+    if F_ % 512 or 512 % (2 * down.group_size):
+        return False
+    if gate.group_size != up.group_size:
+        return False
+    if down.out_features % (2 * gate.group_size):
+        return False
+    return m <= 256
+
+
+def _int4_matmul(x, q, scales, gs: int) -> torch.Tensor:
+    """f32 ``x @ W4`` of one layer's slab ``q [K/2, N]``, ``scales [K/gs, N]``."""
+    return quant_matmul(x.float(), QuantLinear(q=q, scales=scales, b=None,
+                                               bits=4, group_size=gs))
+
+
+def fused_mlp_plain(x, wg, sg, wu, su, wd, sd, layer: int, *, gs_gate: int,
+                    gs_down: int) -> torch.Tensor:
+    """Plain version of ``fused_mlp``, with the kernel's rounding: x to
+    bf16, g and u in f32, h = bf16(silu(g) * u), the down sum in f32, the
+    output in x's dtype."""
+    xb = x.to(torch.bfloat16)
+    g = _int4_matmul(xb, wg[layer], sg[layer], gs_gate)
+    u = _int4_matmul(xb, wu[layer], su[layer], gs_gate)
+    h = (F.silu(g) * u).to(torch.bfloat16)
+    return _int4_matmul(h, wd[layer], sd[layer], gs_down).to(x.dtype)
+
+
+def fused_attn_mlp_plain(lens, layer_a: int, layer_m: int, q, k_cache,
+                         v_cache, x, wg, sg, wu, su, wd, sd, *, gs_gate: int,
+                         gs_down: int, row0: int = 0):
+    """Plain version of ``fused_attn_mlp``: ``decode_attention_contiguous``
+    of ``q [Ba, 1, Hq, D]`` (rounded to bf16) over the cache rows
+    ``[row0, row0 + Ba)`` of layer ``layer_a``, and ``fused_mlp`` of layer
+    ``layer_m`` on ``x``.  Returns ``(attn [Ba, 1, Hq, D] bf16, y)``."""
+    Ba = q.shape[0]
+    rows = slice(row0, row0 + Ba)
+    attn = decode_attention_contiguous_plain(
+        q.to(torch.bfloat16), k_cache[layer_a:layer_a + 1, rows],
+        v_cache[layer_a:layer_a + 1, rows], 0, lens)
+    y = fused_mlp_plain(x, wg, sg, wu, su, wd, sd, layer_m, gs_gate=gs_gate,
+                        gs_down=gs_down)
+    return attn, y
+
+
+def _check_mlp(name, x, wg, sg, wu, su, wd, sd, layer, gs_gate, gs_down):
+    """The checks of the MLP operands on a non-CPU tensor, before anything
+    is built or launched; returns (M, K, F, L)."""
+    if x.dim() != 2:
+        raise ValueError(f"{name} takes x [M, K], not {tuple(x.shape)}")
+    M, K = x.shape
+    L, Kh, F_ = wg.shape
+    shapes_ok = (
+        Kh * 2 == K and wu.shape == wg.shape and wd.shape == (L, F_ // 2, K)
+        and sg.shape == (L, K // max(gs_gate, 1), F_) and su.shape == sg.shape
+        and sd.shape == (L, F_ // max(gs_down, 1), K))
+    if not shapes_ok:
+        raise ValueError(
+            f"{name} shapes: x {tuple(x.shape)}, wg {tuple(wg.shape)}, wu "
+            f"{tuple(wu.shape)}, wd {tuple(wd.shape)}, sg {tuple(sg.shape)}, "
+            f"su {tuple(su.shape)}, sd {tuple(sd.shape)}")
+    for w in (wg, wu, wd):
+        if w.dtype != torch.int8:
+            raise TypeError(f"{name} takes int8 plane-pair weights, not "
+                            f"{w.dtype}")
+    for s in (sg, su, sd):
+        if s.dtype != torch.float32:
+            raise TypeError(f"{name} takes f32 scales, not {s.dtype}")
+    if not x.is_floating_point():
+        raise TypeError(f"{name} takes floating-point x, not {x.dtype}")
+    if (gs_gate <= 0 or gs_gate % 32 or K % (2 * gs_gate) or gs_down <= 0
+            or gs_down % 32 or F_ % (2 * gs_down) or K % 64 or F_ % 64):
+        raise ValueError(f"{name} kernel needs gs % 32 == 0 for gate/up and "
+                         f"down, K % (2*gs_gate) == 0, F % (2*gs_down) == 0 "
+                         f"and K, F multiples of 64 (K={K}, F={F_}, "
+                         f"gs_gate={gs_gate}, gs_down={gs_down})")
+    if M > 256:
+        raise ValueError(f"{name} takes M <= 256 rows, not {M}")
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} out of range for {L} layers")
+    for t in (wg, sg, wu, su, wd, sd):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors on one device")
+    return M, K, F_, L
+
+
+def fused_mlp(x: torch.Tensor, wg: torch.Tensor, sg: torch.Tensor,
+              wu: torch.Tensor, su: torch.Tensor, wd: torch.Tensor,
+              sd: torch.Tensor, layer: int, *, gs_gate: int,
+              gs_down: int) -> torch.Tensor:
+    """``x [M, K] -> [M, K]``: the SwiGLU MLP of layer ``layer`` over the
+    stacked pad-free INT4 weights (gate / up ``[L, K/2, F]`` with scales
+    ``[L, K/gs_gate, F]``, down ``[L, F/2, K]`` with ``[L, F/gs_down, K]``).
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, wg, sg, wu, su, wd, sd, layer,
+                               gs_gate=gs_gate, gs_down=gs_down)
+    M, K, F_, L = _check_mlp("fused_mlp", x, wg, sg, wu, su, wd, sd, layer,
+                             gs_gate, gs_down)
+    dev = x.device
+    xb = x.to(torch.bfloat16).contiguous()
+    g_ws = torch.empty((M, F_), dtype=torch.float32, device=dev)
+    h_ws = torch.empty((M, F_), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+    rc = cuda_lib.library().qie_fused_mlp(
+        xb.data_ptr(), wg.data_ptr(), sg.data_ptr(), wu.data_ptr(),
+        su.data_ptr(), wd.data_ptr(), sd.data_ptr(), g_ws.data_ptr(),
+        h_ws.data_ptr(), y.data_ptr(), M, K, F_, gs_gate, gs_down, int(layer),
+        L, cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, "fused_mlp")
+    fused_mlp.launches += 1
+    return y.to(x.dtype)
+
+
+fused_mlp.launches = 0
+
+
+def fused_attn_mlp(lens: torch.Tensor, layer_a: int, layer_m: int,
+                   q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, x: torch.Tensor, wg, sg, wu, su,
+                   wd, sd, *, gs_gate: int, gs_down: int, row0: int = 0):
+    """Decode attention of ``q [Ba, 1, Hq, D]`` over the first ``lens[b]``
+    keys of the cache rows ``row0 + b`` of layer ``layer_a`` (caches
+    ``[L, Bc, Hk, S, D]``), and ``fused_mlp`` of layer ``layer_m`` on
+    ``x [Mb, K]``, in one launch (and the MLP's down pass).  Returns
+    ``(attn [Ba, 1, Hq, D] bf16, y [Mb, K] in x's dtype)``.  A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return fused_attn_mlp_plain(lens, layer_a, layer_m, q, k_cache,
+                                    v_cache, x, wg, sg, wu, su, wd, sd,
+                                    gs_gate=gs_gate, gs_down=gs_down,
+                                    row0=row0)
+    name = "fused_attn_mlp"
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"{name} takes q [Ba, 1, Hq, D], not "
+                         f"{tuple(q.shape)}")
+    Ba, _, Hq, D = q.shape
+    Lc, Bc, Hk, S, Dc = k_cache.shape
+    if (Dc != D or v_cache.shape != k_cache.shape or Hq % Hk
+            or Hq // Hk > 8 or not 0 <= row0 or row0 + Ba > Bc):
+        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}, row0 {row0} (G <= 8, rows "
+                         f"inside the cache)")
+    if D != 128:
+        raise ValueError(f"{name} kernel takes D == 128, not {D}")
+    if not 0 <= layer_a < Lc:
+        raise IndexError(f"layer {layer_a} out of range for {Lc} layers")
+    for t in (k_cache, v_cache):
+        if t.dtype != torch.bfloat16 or t.device != q.device:
+            raise TypeError(f"{name} takes bf16 caches on the device of q, "
+                            f"not {t.dtype} on {t.device}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous caches")
+    if lens.shape != (Ba,) or lens.device != q.device:
+        raise ValueError("lens must be [Ba] on the device of q")
+    if x.device != q.device:
+        raise ValueError(f"{name} needs x on the device of q")
+    M, K, F_, L = _check_mlp(name, x, wg, sg, wu, su, wd, sd, layer_m,
+                             gs_gate, gs_down)
+    dev = q.device
+    qb = q.to(torch.bfloat16).contiguous()
+    lens32 = lens.to(torch.int32).contiguous()
+    xb = x.to(torch.bfloat16).contiguous()
+    attn = torch.empty_like(qb)
+    g_ws = torch.empty((M, F_), dtype=torch.float32, device=dev)
+    h_ws = torch.empty((M, F_), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+    rc = cuda_lib.library().qie_fused_attn_mlp(
+        qb.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lens32.data_ptr(), attn.data_ptr(), xb.data_ptr(), wg.data_ptr(),
+        sg.data_ptr(), wu.data_ptr(), su.data_ptr(), wd.data_ptr(),
+        sd.data_ptr(), g_ws.data_ptr(), h_ws.data_ptr(), y.data_ptr(),
+        Lc, Bc, Ba, Hq, Hk, S, int(layer_a), int(row0), M, K, F_, gs_gate,
+        gs_down, int(layer_m), L, D ** -0.5, cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, name)
+    fused_attn_mlp.launches += 1
+    return attn, y.to(x.dtype)
+
+
+fused_attn_mlp.launches = 0

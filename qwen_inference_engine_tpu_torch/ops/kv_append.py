@@ -1,8 +1,14 @@
-"""In-place KV appends: INT8 decode into the contiguous cache, bf16 or int8
-rows into the page pool.
+"""In-place KV appends: bf16 and INT8 decode into the contiguous cache,
+bf16 or int8 rows into the page pool.
 
 Each wrapper launches a kernel of ``csrc/kv_append.cu``:
 
+* ``kv_append_uniform`` (the port of the JAX package's ``kv_append_uniform``
+  / ``_uniform_append_kernel``): the K/V rows of an aligned batch's rows
+  ``[row0, row0 + Bn)`` at one shared position read on the device (the
+  double-pumped decode appends each half this way); the rows are copied
+  bit for bit and nothing else of the cache is touched (the TPU kernel
+  rewrites the 8-row band around the position, for its tiling);
 * ``kv_append_uniform_q8`` (the port of the JAX package's
   ``kv_append_uniform_q8`` / ``_uniform_append_q8_kernel``): every row of
   an aligned batch writes its quantized K/V row and the two scales at one
@@ -44,6 +50,69 @@ from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     device_position,
 )
 from qwen_inference_engine_tpu_torch.ops.paged_attention import check_paged
+
+
+def kv_append_uniform_plain(k_cache, v_cache, k_new, v_new, position,
+                            layer: int, row0: int = 0):
+    """Write ``k/v_new [Bn, 1, Hk, D]`` at ``position`` of
+    ``cache[layer, row0:row0 + Bn]`` (in place); returns the caches."""
+    Bn = k_new.shape[0]
+    p = int(position)
+    k_cache[layer, row0:row0 + Bn, :, p] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[layer, row0:row0 + Bn, :, p] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def kv_append_uniform(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      k_new: torch.Tensor, v_new: torch.Tensor,
+                      position: Union[int, torch.Tensor], layer: int,
+                      row0: int = 0):
+    """Uniform decode append: ``k/v_new [Bn, 1, Hk, D]`` (cast to the
+    cache's type) at the one ``position`` (an int, or a 1-element tensor
+    read on the device) of the rows ``[row0, row0 + Bn)`` of the bf16 or
+    f32 caches ``[L, Bc, Hk, S, D]``, in place.  Returns the same two
+    tensors.  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises."""
+    if k_cache.device.type == "cpu":
+        return kv_append_uniform_plain(k_cache, v_cache, k_new, v_new,
+                                       position, layer, row0)
+    name = "kv_append_uniform"
+    L, Bc, Hk, S, D = k_cache.shape
+    Bn = k_new.shape[0]
+    dev = k_cache.device
+    if k_new.shape != (Bn, 1, Hk, D) or v_new.shape != k_new.shape \
+            or v_cache.shape != k_cache.shape or not 0 <= row0 \
+            or row0 + Bn > Bc:
+        raise ValueError(f"{name} shapes: cache {tuple(k_cache.shape)}, new "
+                         f"{tuple(k_new.shape)}, rows from {row0}")
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} out of range for {L} layers")
+    if k_cache.dtype not in (torch.bfloat16, torch.float32) \
+            or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{name} takes bf16 or f32 caches, not "
+                        f"{k_cache.dtype} (int8: kv_append_uniform_q8)")
+    for t in (k_cache, v_cache, k_new, v_new):
+        if t.device != dev:
+            raise TypeError(f"{name} takes K/V on the cache's device, not "
+                            f"{t.device}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous caches")
+    if (D * k_cache.element_size()) % 4:
+        raise ValueError(f"{name} copies 32-bit words: D * element size "
+                         f"must be a multiple of 4")
+    pos = device_position(position, S, dev)
+    kn = k_new.to(k_cache.dtype).contiguous()
+    vn = v_new.to(v_cache.dtype).contiguous()
+    rc = cuda_lib.library().qie_kv_append_uniform(
+        k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        pos.data_ptr(), L, Bc, Bn, Hk, S, D, k_cache.element_size(),
+        int(layer), int(row0), cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, name)
+    kv_append_uniform.launches += 1
+    return k_cache, v_cache
+
+
+kv_append_uniform.launches = 0
 
 
 def kv_append_uniform_q8_plain(k_cache, v_cache, k_scale, v_scale, k_new,

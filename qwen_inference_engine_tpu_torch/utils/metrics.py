@@ -23,6 +23,7 @@ def kernel_wrappers() -> Dict[str, Callable]:
     from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
     from qwen_inference_engine_tpu_torch.ops import decode_attention as da
     from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
+    from qwen_inference_engine_tpu_torch.ops import fused_step as fs
     from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
     from qwen_inference_engine_tpu_torch.ops import kv_append as ka
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
@@ -40,7 +41,8 @@ def kernel_wrappers() -> Dict[str, Callable]:
         pa.paged_verify_attention_stacked,
         pa.paged_verify_attention_stacked_q8, ca.paged_chunk_attention_q8,
         ka.paged_append_ragged_t, gm.grouped_matmul4_a8, gm.grouped_matmul4,
-        gm.grouped_matmul8]
+        gm.grouped_matmul8, fs.fused_mlp, fs.fused_attn_mlp,
+        ka.kv_append_uniform]
     return {w.__name__: w for w in wrappers}
 
 

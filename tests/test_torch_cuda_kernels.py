@@ -13,8 +13,12 @@ scratch-page writes), the INT8 pool's kernels and the speculative verify
 (T = 2, 16 and 17, windows straddling pages and windows wider than their
 page, the int8 scale writes), the grouped MoE matmuls (one row, one
 expert taking every row, 127 empty experts of 128, decode- and
-prefill-like expert sizes, odd column tiles, a padded K), the serving
-engine (INT8 pools and speculation too), and the wrappers' refusals.  On
+prefill-like expert sizes, odd column tiles, a padded K), the fused
+single-pass MLP, the fused attention + MLP and the uniform bf16 append of
+the double-pumped decode (tiny and Qwen2.5-7B shapes, NaN past each row's
+length, two calls bit for bit), ``decode_step_pumped`` against
+``decode_step``, the serving engine (INT8 pools and speculation too), and
+the wrappers' refusals.  On
 a GPU machine, from the repo root (this file imports no JAX, so the
 JAX-pinning conftest can be skipped):
 
@@ -28,10 +32,12 @@ import torch
 
 from qwen_inference_engine_tpu_torch.config import tiny_config
 from qwen_inference_engine_tpu_torch.engine.engine import Engine
+from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
 from qwen_inference_engine_tpu_torch.models import qwen
 from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
 from qwen_inference_engine_tpu_torch.ops import decode_attention as da
 from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
+from qwen_inference_engine_tpu_torch.ops import fused_step as fs
 from qwen_inference_engine_tpu_torch.ops import kv_append as ka
 from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
@@ -360,7 +366,9 @@ def test_engine_runs_each_weight_format_on_the_card(gen, bits, act_bits, gs,
                                                     lm_head):
     """Engine.generate at W4A16 and W8A16 (quantized lm_heads) and W8A8 (one
     scale per column): only the format's own matmul kernel launches, 7 per
-    layer per forward (+1 for a quantized lm_head)."""
+    layer per forward (+1 for a quantized lm_head); W4A16 (pad-free at gs
+    128, F = 512, M <= 256) runs its MLP as fused_mlp, once a layer, and
+    4 matmuls a layer."""
     cfg = tiny_config(hidden_size=256, intermediate_size=512, num_heads=4,
                       num_kv_heads=2, head_dim=64)
     params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
@@ -371,14 +379,19 @@ def test_engine_runs_each_weight_format_on_the_card(gen, bits, act_bits, gs,
                  sampling=SamplingParams(greedy=True))
     kern = {(4, 0): qm.quant_matmul4, (8, 0): qm.quant_matmul8,
             (8, 8): qm.quant_matmul8_a8, (4, 8): qm.quant_matmul4_a8}
+    kern["fused_mlp"] = fs.fused_mlp
     for k in kern.values():
         k.launches = 0
     res = eng.generate([[5, 9, 17], [100, 200, 300, 400, 500]],
                        max_new_tokens=6)
     forwards = res.steps  # one prefill + one decode step per further token
-    want = forwards * (7 * cfg.num_layers + int(lm_head))
+    fused = (bits, act_bits) == (4, 0)
+    per_layer = 4 if fused else 7
+    want = forwards * (per_layer * cfg.num_layers + int(lm_head))
     assert {k: f.launches for k, f in kern.items()} == {
-        k: want if k == (bits, act_bits) else 0 for k in kern}
+        k: want if k == (bits, act_bits)
+        else forwards * cfg.num_layers if k == "fused_mlp" and fused
+        else 0 for k in kern}
     assert all(0 <= t < cfg.vocab_size for row in res.token_ids for t in row)
 
 
@@ -1117,3 +1130,210 @@ def test_checkpoints_load_on_the_card(gen, tmp_path):
     before = qm.quant_matmul8.launches
     res = eng.generate([[5, 9, 17], [7]], max_new_tokens=4)
     assert qm.quant_matmul8.launches - before == res.steps * (7 * 2 + 1)
+
+
+# ---------------------------------------------------------------------------
+# the double-pumped decode's kernels
+# ---------------------------------------------------------------------------
+
+# K, F of a tiny model and of Qwen2.5-7B
+MLP_SHAPES = {"tiny": (512, 512), "7b": (3584, 18944)}
+
+
+def _mlp_weights(gen, L, K, F, gs_gate, gs_down):
+    def q(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def s(*shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 0.01 + 0.005
+
+    return (q(L, K // 2, F), s(L, K // gs_gate, F), q(L, K // 2, F),
+            s(L, K // gs_gate, F), q(L, F // 2, K), s(L, F // gs_down, K))
+
+
+@pytest.mark.parametrize("gs_gate,gs_down", [(128, 128), (256, 128)])
+@pytest.mark.parametrize("M", [1, 4, 8, 40, 192, 256])
+@pytest.mark.parametrize("shape", sorted(MLP_SHAPES))
+def test_fused_mlp_matches_plain(gen, shape, M, gs_gate, gs_down):
+    K, F = MLP_SHAPES[shape]
+    w = _mlp_weights(gen, 2, K, F, gs_gate, gs_down)
+    x = _bf16(gen, M, K)
+    kw = dict(gs_gate=gs_gate, gs_down=gs_down)
+    before = fs.fused_mlp.launches
+    got = fs.fused_mlp(x, *w, 1, **kw)
+    again = fs.fused_mlp(x, *w, 1, **kw)
+    ref = fs.fused_mlp_plain(x, *w, 1, **kw)
+    assert fs.fused_mlp.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (M, K)
+    # no atomics: two calls are bit-identical
+    assert torch.equal(got, again)
+    # both round h to bf16 and the output; the wmma tile (M > 16) rounds
+    # q * scale to bf16 (a relative 2^-9 a weight), which can move an h
+    # across a bf16 boundary: 2^-6 of the largest output, the matmuls' rule
+    tol = 2 ** -6 * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def _nan_past(cache, rows, lens):
+    """A copy of ``cache`` with NaN at every key position at or past
+    ``lens[b]`` of row ``rows[b]`` (every layer) and in every row outside
+    ``rows``."""
+    bad = cache.clone()
+    keep = torch.zeros(bad.shape[1], dtype=torch.bool, device="cuda")
+    keep[rows] = True
+    bad[:, ~keep] = float("nan")
+    for r, n in zip(rows, lens):
+        bad[:, r, :, n:] = float("nan")
+    return bad
+
+
+# Ba (= Mb), Hk, G, S, cache rows
+ATTN_MLP_SHAPES = {"tiny": (4, 2, 8, 256, 8), "7b": (96, 4, 7, 512, 192)}
+
+
+@pytest.mark.parametrize("second_half", [False, True], ids=["row0 0",
+                                                             "row0 Ba"])
+@pytest.mark.parametrize("shape", sorted(ATTN_MLP_SHAPES))
+def test_fused_attn_mlp_matches_plain(gen, shape, second_half):
+    Ba, Hk, G, S, Bc = ATTN_MLP_SHAPES[shape]
+    K, F = MLP_SHAPES[shape]
+    D, L, layer_a, layer_m = 128, 2, 1, 0
+    row0 = Ba if second_half else 0
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    lens_list = torch.randint(1, S + 1, (Ba,), generator=gen,
+                              device="cuda").tolist()
+    lens_list[0], lens_list[-1] = 1, S
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    rows = list(range(row0, row0 + Ba))
+    kbad, vbad = _nan_past(kc, rows, lens_list), _nan_past(vc, rows,
+                                                           lens_list)
+    q = _bf16(gen, Ba, 1, Hk * G, D)
+    x = _bf16(gen, Ba, K)
+    w = _mlp_weights(gen, L, K, F, 128, 128)
+    kw = dict(gs_gate=128, gs_down=128, row0=row0)
+    before = fs.fused_attn_mlp.launches
+    attn, y = fs.fused_attn_mlp(lens, layer_a, layer_m, q, kbad, vbad, x,
+                                *w, **kw)
+    attn2, y2 = fs.fused_attn_mlp(lens, layer_a, layer_m, q, kbad, vbad, x,
+                                  *w, **kw)
+    ref_attn, ref_y = fs.fused_attn_mlp_plain(lens, layer_a, layer_m, q, kc,
+                                              vc, x, *w, **kw)
+    assert fs.fused_attn_mlp.launches == before + 2
+    assert torch.equal(attn, attn2) and torch.equal(y, y2)
+    assert attn.shape == (Ba, 1, Hk * G, D) and bool(attn.isfinite().all())
+    # the decode kernels' rule: bf16 output, the plain version rounds the
+    # probabilities to bf16
+    assert (attn.float() - ref_attn.float()).abs().max().item() <= 2e-2
+    tol = 2 ** -6 * ref_y.float().abs().max().item()
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol
+
+
+# Bn, Hk, cache rows
+APPEND_SHAPES = {"tiny": (3, 2, 6), "7b": (96, 4, 192)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("pos", [0, 255])
+@pytest.mark.parametrize("second_half", [False, True], ids=["row0 0",
+                                                             "row0 Bn"])
+@pytest.mark.parametrize("shape", sorted(APPEND_SHAPES))
+def test_kv_append_uniform_bit_exact(gen, shape, second_half, pos, dtype):
+    Bn, Hk, Bc = APPEND_SHAPES[shape]
+    L, S, D, layer = 2, 256, 128, 1
+    row0 = Bn if second_half else 0
+    kc = torch.randn((L, Bc, Hk, S, D), generator=gen, device="cuda").to(dtype)
+    vc = torch.randn((L, Bc, Hk, S, D), generator=gen, device="cuda").to(dtype)
+    kn, vn = _bf16(gen, Bn, 1, Hk, D), _bf16(gen, Bn, 1, Hk, D)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = ka.kv_append_uniform.launches
+    gk, gv = ka.kv_append_uniform(k1, v1, kn, vn, pos, layer, row0=row0)
+    rk, rv = ka.kv_append_uniform_plain(k2, v2, kn, vn, pos, layer, row0)
+    assert ka.kv_append_uniform.launches == before + 1
+    assert gk is k1 and gv is v1
+    assert torch.equal(gk, rk) and torch.equal(gv, rv)
+    changed = ((gk != kc).any(-1) | (gv != vc).any(-1)).nonzero().tolist()
+    assert all(l == layer and row0 <= b < row0 + Bn and p == pos
+               for l, b, _, p in changed)
+    # the position as a tensor on the card (read on the device)
+    k3, v3 = kc.clone(), vc.clone()
+    ka.kv_append_uniform(k3, v3, kn, vn,
+                         torch.tensor([pos], device="cuda"), layer, row0=row0)
+    assert torch.equal(k3, rk) and torch.equal(v3, rv)
+
+
+PUMP = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+            num_layers=3, num_heads=2, num_kv_heads=1, head_dim=128)
+
+
+def test_decode_step_pumped_matches_decode_step_on_the_card(gen):
+    """Three pumped decode steps of a tiny pad-free INT4 model (bf16) beside
+    three decode_step(uniform_decode=True) steps from the same cache: each
+    pumped step launches fused_attn_mlp and kv_append_uniform twice a
+    layer and quant_matmul4 8 times a layer + 3 (the drain), and no
+    decode attention or fused_mlp; the logits agree to bf16 noise."""
+    cfg = tiny_config(**PUMP)
+    params = qwen.init_quantized_params(cfg, gen, bits=4, group_size=64,
+                                        pad_free=True, device="cuda")
+    B, T, L = 4, 8, cfg.num_layers
+    cache = KVCache.create(L, B, 256, 1, 128, device="cuda")
+    prompts = torch.randint(2, 512, (B, T), generator=gen, device="cuda")
+    lens = torch.full((B,), T, device="cuda")
+    logits, cache = qwen.prefill(params, cfg, prompts, lens, cache)
+    other = KVCache(k=cache.k.clone(), v=cache.v.clone())
+    assert qwen.pumped_supported(cfg, params, cache, 192)
+    tok = logits.argmax(-1)
+    wrappers = {"fused_attn_mlp": fs.fused_attn_mlp,
+                "kv_append_uniform": ka.kv_append_uniform,
+                "quant_matmul4": qm.quant_matmul4, "fused_mlp": fs.fused_mlp,
+                "decode_attention_appending": da.decode_attention_appending}
+    for s in range(3):
+        pos = lens + s
+        for w in wrappers.values():
+            w.launches = 0
+        got, cache = qwen.decode_step_pumped(params, cfg, tok, pos, cache)
+        assert {n: w.launches for n, w in wrappers.items()} == {
+            "fused_attn_mlp": 2 * L, "kv_append_uniform": 2 * L,
+            "quant_matmul4": 8 * L + 3, "fused_mlp": 0,
+            "decode_attention_appending": 0}
+        ref, other = qwen.decode_step(params, cfg, tok, pos, other,
+                                      uniform_decode=True)
+        assert bool(got.isfinite().all())
+        # bf16 paths that round at different places (the drain's three
+        # matmuls, the wmma tile's bf16 weights at the halves' MLP):
+        # within 2^-4 of the largest logit
+        tol = 2 ** -4 * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= tol
+        tok = ref.argmax(-1)
+    # layer 0's fresh rows depend on the embeddings only
+    written = slice(T, T + 3)
+    assert torch.equal(cache.k[0, :, :, written], other.k[0, :, :, written])
+    assert torch.equal(cache.v[0, :, :, written], other.v[0, :, :, written])
+
+
+def test_fused_wrappers_refuse_on_the_card(gen):
+    w = _mlp_weights(gen, 2, 512, 512, 128, 128)
+    x = _bf16(gen, 4, 512)
+    with pytest.raises(ValueError, match="M <= 256"):
+        fs.fused_mlp(_bf16(gen, 257, 512), *w, 0, gs_gate=128, gs_down=128)
+    with pytest.raises(ValueError, match="gs % 32"):
+        fs.fused_mlp(x, *_mlp_weights(gen, 2, 512, 512, 16, 128), 0,
+                     gs_gate=16, gs_down=128)
+    with pytest.raises(ValueError, match="one device"):
+        fs.fused_mlp(x, w[0].cpu(), *w[1:], 0, gs_gate=128, gs_down=128)
+    kc = torch.zeros((2, 8, 2, 256, 128), device="cuda")
+    q = _bf16(gen, 4, 1, 8, 128)
+    lens = torch.ones(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="bf16 caches"):
+        fs.fused_attn_mlp(lens, 0, 0, q, kc, kc, x, *w, gs_gate=128,
+                          gs_down=128)
+    with pytest.raises(ValueError, match="rows inside"):
+        fs.fused_attn_mlp(lens, 0, 0, q, kc.bfloat16(), kc.bfloat16(), x, *w,
+                          gs_gate=128, gs_down=128, row0=5)
+    k8 = torch.zeros((2, 8, 2, 256, 128), dtype=torch.int8, device="cuda")
+    new = _bf16(gen, 4, 1, 2, 128)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        ka.kv_append_uniform(k8, k8, new, new, 3, 0)
+    with pytest.raises(IndexError, match="outside the cache"):
+        ka.kv_append_uniform(kc, kc, new, new, 256, 0)

@@ -356,7 +356,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert {os.path.basename(p) for p in cu} == {
         "quant_matmul.cu", "flash_attention.cu", "decode_attention.cu",
         "chunk_attention.cu", "kv_append.cu", "paged_attention.cu",
-        "grouped_matmul.cu"}
+        "grouped_matmul.cu", "fused_step.cu"}
     assert [os.path.basename(p) for p in hdr] == ["attention_common.cuh",
                                                   "quant_matmul_core.cuh"]
     src = "".join(open(p).read() for p in cu)
@@ -503,18 +503,21 @@ def test_grouped_wrappers_run_plain_on_cpu_and_count_no_launch():
 
 def test_kernel_registry_names_every_wrapper():
     """``utils/metrics.kernel_wrappers`` lists each kernel wrapper once, by
-    its name, each with its launch count: the 20 dense ones and the three
-    grouped MoE matmuls."""
+    its name, each with its launch count: the 20 dense ones, the three
+    grouped MoE matmuls, and the fused MLP, the fused attention + MLP and
+    the uniform bf16 append of the double-pumped decode."""
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
     from qwen_inference_engine_tpu_torch.ops import grouped_matmul as tgm
     from qwen_inference_engine_tpu_torch.utils.metrics import kernel_wrappers
 
     wrappers = kernel_wrappers()
-    assert len(wrappers) == 23
+    assert len(wrappers) == 26
     assert all(isinstance(w.launches, int) and w.__name__ == n
                for n, w in wrappers.items())
     for w in (tgm.grouped_matmul4_a8, tgm.grouped_matmul4,
               tgm.grouped_matmul8, tqmm.quant_matmul4_a8,
-              tpa.paged_verify_attention_stacked):
+              tpa.paged_verify_attention_stacked, tfs.fused_mlp,
+              tfs.fused_attn_mlp, tka.kv_append_uniform):
         assert wrappers[w.__name__] is w
 
 
@@ -710,3 +713,126 @@ def test_cli_serve_defaults_to_the_card_and_runs_on_cpu_when_asked(
     assert rc == 0 and built and built[0][0] == "127.0.0.1"
     out = capsys.readouterr().out
     assert "device cpu" in out and "slots=2" in out and "x16" in out
+
+
+def test_fused_wrappers_run_plain_on_cpu_and_count_no_launch():
+    """fused_mlp, fused_attn_mlp and kv_append_uniform run their plain
+    versions for CPU tensors (the same results) and count no launch."""
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    rng = np.random.default_rng(3)
+    counters = [tfs.fused_mlp, tfs.fused_attn_mlp, tka.kv_append_uniform]
+    before = [f.launches for f in counters]
+    L, K, F = 2, 128, 512
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-128, 128, size=shape).astype(np.int8))
+
+    w = (i8(L, K // 2, F), torch.rand(L, K // 64, F), i8(L, K // 2, F),
+         torch.rand(L, K // 64, F), i8(L, F // 2, K), torch.rand(L, F // 128, K))
+    x = torch.randn(5, K)
+    kw = dict(gs_gate=64, gs_down=128)
+    assert torch.equal(tfs.fused_mlp(x, *w, 1, **kw),
+                       tfs.fused_mlp_plain(x, *w, 1, **kw))
+    kc, vc = torch.randn(2, 6, 2, 256, 128), torch.randn(2, 6, 2, 256, 128)
+    q = torch.randn(3, 1, 8, 128)
+    lens = torch.tensor([4, 100, 256])
+    got = tfs.fused_attn_mlp(lens, 1, 0, q, kc, vc, x, *w, row0=3, **kw)
+    want = tfs.fused_attn_mlp_plain(lens, 1, 0, q, kc, vc, x, *w, row0=3,
+                                    **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    kn, vn = torch.randn(3, 1, 2, 128), torch.randn(3, 1, 2, 128)
+    a = tka.kv_append_uniform(kc.clone(), vc.clone(), kn, vn, 7, 1, row0=3)
+    b = tka.kv_append_uniform_plain(kc.clone(), vc.clone(), kn, vn, 7, 1, 3)
+    assert all(torch.equal(g, h) for g, h in zip(a, b))
+    assert [f.launches for f in counters] == before
+
+
+def _fused_mlp_args(M=8, K=256, F=512, gs_gate=64, gs_down=128, L=2,
+                    sg_dtype=torch.float32, w_dtype=_I8, dev="meta"):
+    return ((_meta(M, K, dtype=_BF),
+             torch.empty(L, K // 2, F, dtype=w_dtype, device=dev),
+             _meta(L, K // gs_gate, F, dtype=sg_dtype),
+             _meta(L, K // 2, F, dtype=_I8), _meta(L, K // gs_gate, F),
+             _meta(L, F // 2, K, dtype=_I8), _meta(L, F // gs_down, K)),
+            dict(gs_gate=gs_gate, gs_down=gs_down))
+
+
+def _fused_mlp_call(layer=1, **kw):
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    args, gs = _fused_mlp_args(**kw)
+    return tfs.fused_mlp(*args, layer, **gs)
+
+
+def _fused_attn_call(Ba=4, Hq=8, Hk=2, D=128, Bc=8, row0=4, kv=_BF,
+                     lens_n=None, layer_a=1):
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    args, gs = _fused_mlp_args()
+    cache = _meta(2, Bc, Hk, 256, D, dtype=kv)
+    return tfs.fused_attn_mlp(
+        _meta(lens_n or Ba, dtype=torch.int32), layer_a, 0,
+        _meta(Ba, 1, Hq, D, dtype=_BF), cache, cache, *args, row0=row0, **gs)
+
+
+def _append_call(kv=_BF, Bn=4, row0=4, layer=1, position=9, new_dev="meta"):
+    cache = _meta(2, 8, 2, 256, 128, dtype=kv)
+    new = torch.empty(Bn, 1, 2, 128, dtype=_BF, device=new_dev)
+    return tka.kv_append_uniform(cache, cache, new, new, position, layer,
+                                 row0=row0)
+
+
+FUSED_REFUSALS = {
+    "mlp f16 scales": (lambda: _fused_mlp_call(sg_dtype=torch.float16),
+                       TypeError, "f32 scales"),
+    "mlp int32 weights": (lambda: _fused_mlp_call(w_dtype=torch.int32),
+                          TypeError, "int8"),
+    "mlp M 257": (lambda: _fused_mlp_call(M=257), ValueError, "M <= 256"),
+    "mlp gs 16": (lambda: _fused_mlp_call(gs_gate=16), ValueError,
+                  "gs % 32"),
+    "mlp layer 2": (lambda: _fused_mlp_call(layer=2), IndexError, "layer 2"),
+    "mlp weights on the cpu": (lambda: _fused_mlp_call(dev="cpu"),
+                               ValueError, "one device"),
+    "mlp passes its checks": (lambda: _fused_mlp_call(), AssertionError,
+                              "library was asked for"),
+    "attn f32 cache": (lambda: _fused_attn_call(kv=torch.float32), TypeError,
+                       "bf16 caches"),
+    "attn D 64": (lambda: _fused_attn_call(D=64), ValueError, "D == 128"),
+    "attn G 9": (lambda: _fused_attn_call(Hq=18), ValueError, "G <= 8"),
+    "attn rows past the cache": (lambda: _fused_attn_call(row0=5), ValueError,
+                                 "rows inside"),
+    "attn lens": (lambda: _fused_attn_call(lens_n=3), ValueError, "lens"),
+    "attn layer 2": (lambda: _fused_attn_call(layer_a=2), IndexError,
+                     "layer 2"),
+    "attn passes its checks": (lambda: _fused_attn_call(), AssertionError,
+                               "library was asked for"),
+    "append int8 cache": (lambda: _append_call(kv=_I8), TypeError,
+                          "bf16 or f32"),
+    "append rows past the cache": (lambda: _append_call(row0=5), ValueError,
+                                   "shapes"),
+    "append layer 2": (lambda: _append_call(layer=2), IndexError, "layer 2"),
+    "append position 256": (lambda: _append_call(position=256), IndexError,
+                            "outside the cache"),
+    "append rows on the cpu": (lambda: _append_call(new_dev="cpu"), TypeError,
+                               "device"),
+    "append passes its checks": (lambda: _append_call(), AssertionError,
+                                 "library was asked for"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_REFUSALS))
+def test_fused_wrappers_refuse_before_any_build(monkeypatch, case):
+    """fused_mlp, fused_attn_mlp and kv_append_uniform refuse a wrong dtype,
+    shape, group size, layer, row window or device before the library is
+    built or a kernel launched (meta tensors stand in for the card); a
+    call that passes every check asks for the library."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_lib, "library", no_build)
+    fn, exc, match = FUSED_REFUSALS[case]
+    with pytest.raises(exc, match=match):
+        fn()
