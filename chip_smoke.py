@@ -37,7 +37,17 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    of 96 rows (row0 0 and 96 of 192, lengths 257, S 512; yardstick SDPA
    over the half's rows + the bf16 MLP) and ``kv_append_uniform`` (96 rows
    from row 96, bit-exact; yardstick a slice assignment), each also called
-   twice for bit-identical results;
+   twice for bit-identical results; the last four sites' kernels:
+   ``kv_append_ragged_t`` (Hk 4, D 128, 4 rows of S 1024, T = 1 and 5,
+   bf16 and int8 with its scales, starts -1, 7, 8, 31, 32, S - T, 0 and a
+   window crossing S; bit-exact, yardstick an ``index_put_`` scatter),
+   ``decode_attention_contiguous_fresh`` (B = 4 at S 1024, B = 192 at S
+   512, old lengths 0 .. S - 1, 1e4 at and past each; yardstick SDPA over
+   the cache with the fresh row written first), ``kv_append_all_uniform``
+   (28 layers, B = 4 and 192; bit-exact) and ``fused_attn_matmul`` at
+   ``scripts/probe_fused.py``'s shapes (56 rows of a 112-row cache, S
+   1024, lens S - 7, the 7B gate projection K 3584 N 18944 INT4 gs 256,
+   row0 0 and 56; yardstick SDPA + bf16 ``torch.matmul``);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -53,7 +63,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    must launch only its own matmul kernels, 7 per layer per forward (+1
    for a quantized lm_head), but (a) runs its decode steps' MLP (M = 4,
    pad-free at gs 128) as ``fused_mlp``: 4 matmuls and one fused MLP a
-   layer.  Every launch count is set to 0 just before
+   layer.  Every ragged run writes each decode step's K/V with
+   ``kv_append_ragged_t`` (once a layer a step), every aligned one never.
+   Every launch count is set to 0 just before
    each run and read just after, and each run must have launched the
    kernels of its path and none of the others';
 4b. serving: ``ContinuousBatchingEngine`` on the same full-depth model at
@@ -86,7 +98,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    ``Engine.generate_speculative`` against ``Engine.generate`` at batch 4
    (the verify's logits within 1.5x the measured distance of ``generate``
    from ``generate`` with the plain attention versions, tokens equal up to
-   the first near-tie), and one ``qie serve --speculative --kv-bits 8``
+   the first near-tie; each verify forward writes its windows with
+   ``kv_append_ragged_t`` once a layer), and one ``qie serve --speculative
+   --kv-bits 8``
    request over HTTP with /stats;
 4d. the double-pumped decode ([pumped generate]): the JAX bench's pumped
    weights (W4A16 gs 256 pad-free, so down gs 128, and an INT4 lm_head)
@@ -97,7 +111,15 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    ``fused_mlp``; then from one prefill of the batch, 8 pumped steps and 8
    plain ``decode_step(uniform_decode=True)`` steps (the yardstick;
    ``fused_mlp`` 28 times a step at M = 192) by the host clock, each with 4
-   more under the profiler (device busy share, kernels by device time);
+   more under the profiler (device busy share, kernels by device time),
+   and [deferred decode]: 8 (+4) deferred-append steps
+   (``decode_step(..., deferred_append=True)``: 28 fresh-merge attentions
+   and one all-layer append a step, no appending attention; an ablation
+   no entry point dispatches);
+4e. [probe fused], the port of ``scripts/probe_fused.py``: at its shapes,
+   the decode attention alone on a 56-row cache (t_attn), the W4A16 gate
+   projection alone (t_mm) and one ``fused_attn_matmul`` doing both
+   (t_fused), between full overlap (the max) and none (the sum);
 loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    biases, an untied lm_head) at the Qwen2.5-7B widths and 2 layers, taken
    from the seeded params and written into a temporary directory (deleted
@@ -119,9 +141,11 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    over the page pool, bf16 and INT8: a paged prefill of three pieces
    across two pages, 4 paged decode steps, then a verify of 5 tokens; and
    the pumped weights at 4 layers, batch 192 x 64: 2 steps of
-   ``decode_step_pumped`` and 2 of ``decode_step`` (``fused_mlp`` at
-   M = 192), each held to 1.5x its plain bf16 path's distance from an
-   fp32 run of the plain ``decode_step``.
+   ``decode_step_pumped``, 2 of ``decode_step`` (``fused_mlp`` at
+   M = 192) and 2 deferred-append steps, each held to 1.5x its plain bf16
+   path's distance from an fp32 run of the plain ``decode_step``; the
+   deferred step's cache after one step equals ``decode_step``'s bit for
+   bit.
 
 6. Qwen3-MoE: ``qwen3-30b-a3b`` at full width (128 experts, top-8, Fm
    768), random packed weights drawn on the card: W4A8 gs 256 at the full
@@ -137,7 +161,8 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    ``generate --ckpt`` / ``--qckpt``.  The dense runs above must launch no
    grouped kernel.
 
-Then one JSON line of per-kernel numbers, and as the last line
+Then one JSON line of per-kernel numbers (30 wrappers over the JAX
+package's 28 ``pallas_call`` sites, each launched), and as the last line
 ``{"ok": true, "device": {...}}``.  Every number is measured in this run.
 """
 
@@ -1345,6 +1370,376 @@ def check_kv_append_uniform(torch, cfg):
                 bound_by=b_by)
 
 
+# ----------------------------------------------------------------------
+# the last four Pallas sites: the ragged window append (phase 3; the
+# ragged and verify runs), the deferred-append decode's two kernels (phase
+# 3; [deferred decode]; its phase-5 rule) and the fused attention + matmul
+# (phase 3; [probe fused])
+# ----------------------------------------------------------------------
+
+RAGGED_S = 1024     # the ragged runs' cache (max_seq 1024)
+
+
+def check_kv_append_ragged_t(torch, cfg):
+    """kv_append_ragged_t at the ragged decode's (T = 1) and the verify's
+    (T = 5) shapes: Qwen2.5-7B's Hk 4, D 128, 4 rows of a cache of S =
+    1024, bf16 and int8 with its scales, layer 1 of 2.  Two sets of starts
+    a shape: -1 (skipped) and the TPU kernel's band edges 7, 8 and 31; then
+    32, S - T, 0 and, at T = 5, S - 2 (a window that crosses S: its last
+    three tokens are dropped; 500 at T = 1).  Bit-exact against the plain
+    version, nothing outside the windows touched.  The yardstick is one
+    ``index_put_`` scatter of the same rows a tensor (the port's former
+    write); the bound counts the tokens written."""
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
+
+    L, B, S, layer = 2, 4, RAGGED_S, 1
+    Hk, D = cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rec = None
+    for T in (1, 5):
+        for quant in (False, True):
+            for starts_l in ([-1, 7, 8, 31],
+                             [32, S - T, S - 2 if T > 1 else 500, 0]):
+                if quant:
+                    (kc, ks), (vc, vs) = (_int8(torch, g, (L, B, Hk, S, D))
+                                          for _ in range(2))
+                    (kn, ksn), (vn, vsn) = (quantize_kv(torch.randn(
+                        (B, T, Hk, D), generator=g, device="cuda"))
+                        for _ in range(2))
+                    caches, news = (kc, vc, ks, vs), (kn, vn, ksn, vsn)
+                else:
+                    caches = tuple(torch.randn((L, B, Hk, S, D), generator=g,
+                                               device="cuda").to(torch.bfloat16)
+                                   for _ in range(2))
+                    news = tuple(torch.randn((B, T, Hk, D), generator=g,
+                                             device="cuda").to(torch.bfloat16)
+                                 for _ in range(2))
+                starts = torch.tensor(starts_l, device="cuda",
+                                      dtype=torch.int32)
+
+                def call(fn, cs, starts=starts, news=news):
+                    kw = {} if len(cs) == 2 else dict(
+                        k_scale=cs[2], v_scale=cs[3], ks_new=news[2],
+                        vs_new=news[3])
+                    return fn(cs[0], cs[1], news[0], news[1], starts, layer,
+                              **kw)
+
+                mine = [c.clone() for c in caches]
+                theirs = [c.clone() for c in caches]
+                call(ka.kv_append_ragged_t, mine)
+                call(ka.kv_append_ragged_t_plain, theirs)
+                torch.cuda.synchronize()
+                diff = sum(int((a != b).sum()) for a, b in zip(mine, theirs))
+                written = torch.zeros((L, B, Hk, S), dtype=torch.bool,
+                                      device="cuda")
+                rows, pos = [], []
+                for b, p in enumerate(starts_l):
+                    if p >= 0:
+                        written[layer, b, :, p:min(p + T, S)] = True
+                        n = min(T, S - p)
+                        rows += [b] * n
+                        pos += list(range(p, p + n))
+                stray = int(((mine[0] != caches[0]).any(-1)
+                             & ~written).sum())
+                n_tok = len(pos)
+                label = (f"kv_append_ragged_t T={T} "
+                         f"{'int8' if quant else 'bf16'} starts {starts_l}")
+                if diff != 0 or stray != 0:
+                    fail(f"{label}: {diff} elements differ from the plain "
+                         f"version, {stray} vectors outside the windows "
+                         f"changed")
+            # timed at the second set of starts
+            ms = time_ms(torch, lambda: call(ka.kv_append_ragged_t, mine))
+            plain_ms = time_ms(torch, lambda: call(ka.kv_append_ragged_t_plain,
+                                                   theirs))
+            ri = torch.tensor(rows, device="cuda")
+            pi = torch.tensor(pos, device="cuda")
+            src = [(b, t) for b, p in enumerate(starts_l) if p >= 0
+                   for t in range(min(T, S - p))]
+            bi = torch.tensor([b for b, _ in src], device="cuda")
+            ti = torch.tensor([t for _, t in src], device="cuda")
+
+            def library():
+                for c, n in zip(theirs, news):
+                    c[layer, ri, :, pi] = n[bi, ti]
+
+            lib_ms = time_ms(torch, library)
+            elem = 1 if quant else 2
+            n_bytes = 2 * 2 * n_tok * Hk * D * elem + \
+                (2 * 2 * n_tok * Hk * 4 if quant else 0) + 4 * B
+            b_ms, b_by = bound(n_bytes, 0, "bf16")
+            print(f"  {label}: bit-exact, nothing else touched | kernel "
+                  f"{ms:.4f} ms | plain {plain_ms:.4f} | index_put_ "
+                  f"{lib_ms:.4f} | bound {b_ms:.6f} ({b_by})", flush=True)
+            if T == 1 and not quant:
+                rec = dict(shape=f"B={B} T=1 S={S} Hk={Hk} D={D} bf16 (the "
+                                 f"ragged decode's write)", max_abs_err=0.0,
+                           tol=0.0, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            else:
+                key = f"rows_t{T}" + ("_int8" if quant else "")
+                rec.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                            f"{key}_library_ms": lib_ms,
+                            f"{key}_bound_ms": b_ms})
+    return rec
+
+
+DEFERRED_SHAPES = ((4, RAGGED_S), (PUMP_BATCH, PUMP_SEQ))
+
+
+def check_deferred_kernels(torch, cfg):
+    """The deferred-append decode's kernels at Qwen2.5-7B's shapes (Hq 28,
+    Hk 4, D 128): ``decode_attention_contiguous_fresh`` at B = 4 (S 1024)
+    and B = 192 (S 512, the [deferred decode] batch), layer 1 of 2, old
+    lengths random with rows at 0 and S - 1, and 1e4 in every cache
+    position at or past a row's old length (a read of one would show):
+    within 2e-2 of the plain version (the decode kernels' rule); yardstick
+    SDPA over the cache with the fresh row written first.
+    ``kv_append_all_uniform`` at 28 layers: B = 4 at position S - 1 of
+    1024, B = 192 at position 257 of 512 (the [deferred decode] step's):
+    bit-exact, only the rows at the position touched; yardstick a slice
+    assignment."""
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(32)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    fresh, append = None, None
+    for B, S in DEFERRED_SHAPES:
+        L, layer = 2, 1
+        kc, vc = rnd(L, B, Hk, S, D), rnd(L, B, Hk, S, D)
+        old = torch.randint(1, S - 1, (B,), generator=g, device="cuda")
+        old[0], old[-1] = 0, S - 1
+        far = torch.arange(S, device="cuda")[None, :] >= old[:, None]
+        for c in (kc, vc):
+            c.masked_fill_(far[None, :, None, :, None], 1e4)
+        q, kn, vn = rnd(B, 1, Hq, D), rnd(B, 1, Hk, D), rnd(B, 1, Hk, D)
+        old32 = old.to(torch.int32)
+        got = da.decode_attention_contiguous_fresh(q, kc, vc, kn, vn, layer,
+                                                   old32)
+        ref = da.decode_attention_contiguous_fresh_plain(q, kc, vc, kn, vn,
+                                                         layer, old32)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        ms = time_ms(torch, lambda: da.decode_attention_contiguous_fresh(
+            q, kc, vc, kn, vn, layer, old32))
+        plain_ms = time_ms(torch, lambda: da.decode_attention_contiguous_fresh_plain(
+            q, kc, vc, kn, vn, layer, old32), iters=3, warmup=1)
+        rows = torch.arange(B, device="cuda")
+        kw, vw = kc[layer].clone(), vc[layer].clone()
+        kw[rows, :, old] = kn[:, 0]
+        vw[rows, :, old] = vn[:, 0]
+        mask = (torch.arange(S, device="cuda")[None, :] <= old[:, None])
+        lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kw, vw,
+                                      mask=mask[:, None, None, :]))
+        del kw, vw
+        n_keys = int(old.sum())
+        n_bytes = (2 * (2 * n_keys * Hk * D) + 2 * (2 * B * Hq * D)
+                   + 2 * (2 * B * Hk * D) + 4 * B)
+        b_ms, b_by = bound(n_bytes, 4 * (n_keys + B) * Hq * D, "bf16")
+        tol = 2e-2
+        print(f"  decode_attention_contiguous_fresh B={B} S={S} old lengths "
+              f"0..{S - 1} (1e4 at and past each): err {err:.3g} (tol {tol})"
+              f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa (row "
+              f"written first) {lib_ms:.4f} | bound {b_ms:.5f} ({b_by})",
+              flush=True)
+        if not err <= tol or not bool(got.isfinite().all()):
+            fail(f"decode_attention_contiguous_fresh B={B}: err {err} > {tol}")
+        r = dict(tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=b_ms, bound_by=b_by)
+        if fresh is None:
+            fresh = {f"rows_b{B}_{k}": v for k, v in r.items()
+                     if k.endswith("ms")}
+            fresh["max_abs_err"] = err
+        else:
+            fresh.update(shape=f"B={B} S={S} Hq={Hq} Hk={Hk} (the [deferred "
+                               f"decode] batch), old lengths 0..{S - 1}",
+                         max_abs_err=max(err, fresh["max_abs_err"]), **r)
+        del kc, vc
+
+        L = cfg.num_layers
+        pos = S - 1 if B == 4 else PUMP_PROMPT + 1
+        kc, vc = rnd(L, B, Hk, S, D), rnd(L, B, Hk, S, D)
+        kn, vn = rnd(L, B, 1, Hk, D), rnd(L, B, 1, Hk, D)
+        mine, theirs = [kc.clone(), vc.clone()], [kc.clone(), vc.clone()]
+        pos_t = torch.tensor([pos], device="cuda", dtype=torch.int32)
+        ka.kv_append_all_uniform(*mine, kn, vn, pos_t)
+        ka.kv_append_all_uniform_plain(*theirs, kn, vn, pos)
+        torch.cuda.synchronize()
+        diff = sum(int((a != b).sum()) for a, b in zip(mine, theirs))
+        changed = ((mine[0] != kc).any(-1) | (mine[1] != vc).any(-1))
+        stray = int(changed.sum() - changed[:, :, :, pos].sum())
+        del kc, vc
+        ms = time_ms(torch, lambda: ka.kv_append_all_uniform(*mine, kn, vn,
+                                                             pos_t))
+        plain_ms = time_ms(torch, lambda: ka.kv_append_all_uniform_plain(
+            *theirs, kn, vn, pos))
+
+        def library():
+            theirs[0][:, :, :, pos] = kn[:, :, 0]
+            theirs[1][:, :, :, pos] = vn[:, :, 0]
+
+        lib_ms = time_ms(torch, library)
+        b_ms, b_by = bound(2 * 2 * (2 * L * B * Hk * D) + 4, 0, "bf16")
+        print(f"  kv_append_all_uniform L={L} B={B} position {pos} of {S}: "
+              f"{diff} elements differ (must be 0), {stray} vectors changed "
+              f"off the position | kernel {ms:.4f} ms | plain "
+              f"{plain_ms:.4f} | slice assignment {lib_ms:.4f} | bound "
+              f"{b_ms:.6f} ({b_by})", flush=True)
+        if diff != 0 or stray != 0:
+            fail(f"kv_append_all_uniform B={B}: {diff} elements differ, "
+                 f"{stray} vectors changed off the position")
+        r = dict(max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if append is None:
+            append = {f"rows_b{B}_{k}": v for k, v in r.items()
+                      if k.endswith("ms")}
+        else:
+            append.update(shape=f"L={L} B={B} position {pos} S={S} Hk={Hk} "
+                                f"D={D} (the [deferred decode] step's)", **r)
+        del mine, theirs
+        torch.cuda.empty_cache()
+    return {"decode_attention_contiguous_fresh": fresh,
+            "kv_append_all_uniform": append}
+
+
+PROBE = dict(L=2, B=112, S=1024, Ba=56, Mb=56, gs=256)
+
+
+def _probe_operands(torch, cfg):
+    """scripts/probe_fused.py's operands: a bf16 cache of 112 rows (Hk 4,
+    S 1024, D 128) at 2 layers, lens S - 7 for Ba = 56 rows, q for them,
+    x [56, 3584] and the 7B gate projection's INT4 stack (K 3584, N 18944,
+    gs 256) with scales, drawn from a seeded generator."""
+    p = PROBE
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    K, N = cfg.hidden_size, cfg.intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(33)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    kc, vc = rnd(p["L"], p["B"], Hk, p["S"], D), rnd(p["L"], p["B"], Hk,
+                                                    p["S"], D)
+    wq = torch.randint(-128, 128, (p["L"], K // 2, N), generator=g,
+                       device="cuda", dtype=torch.int8)
+    ws = torch.rand((p["L"], K // p["gs"], N), generator=g,
+                    device="cuda") * 0.001 + 0.001
+    lens = torch.full((p["Ba"],), p["S"] - 7, device="cuda", dtype=torch.int32)
+    return dict(kc=kc, vc=vc, wq=wq, ws=ws, lens=lens,
+                q=rnd(p["Ba"], 1, Hq, D), x=rnd(p["Mb"], K))
+
+
+def check_fused_attn_matmul(torch, cfg):
+    """fused_attn_matmul at scripts/probe_fused.py's shapes (``PROBE``) at
+    layer 1, row0 0 and 56: the attention within 2e-2 of the plain version
+    (the decode kernels' rule), y within 2^-6 of its largest value (the
+    W4A16 rule); two calls bit-identical.  Yardstick: SDPA over the rows
+    plus bf16 ``torch.matmul`` over the dequantized weight slab."""
+    from qwen_inference_engine_tpu_torch.ops import fused_step as fs
+    from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
+
+    p = PROBE
+    o = _probe_operands(torch, cfg)
+    Ba, S, gs = p["Ba"], p["S"], p["gs"]
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    K, N = cfg.hidden_size, cfg.intermediate_size
+    n = S - 7
+    deq = dequantize(QuantLinear(q=o["wq"][1], scales=o["ws"][1], b=None,
+                                 bits=4, group_size=gs))
+    mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
+    args = (o["lens"], 1, o["q"], o["kc"], o["vc"], o["x"], o["wq"], o["ws"])
+    records = {}
+    for row0 in (0, Ba):
+        attn, y = fs.fused_attn_matmul(*args, group_size=gs, row0=row0)
+        attn2, y2 = fs.fused_attn_matmul(*args, group_size=gs, row0=row0)
+        ra, ry = fs.fused_attn_matmul_plain(*args, group_size=gs, row0=row0)
+        torch.cuda.synchronize()
+        a_err = (attn.float() - ra.float()).abs().max().item()
+        y_err = (y.float() - ry.float()).abs().max().item()
+        y_tol = 2 ** -6 * ry.float().abs().max().item()
+        same = bool(torch.equal(attn, attn2) and torch.equal(y, y2))
+        ms = time_ms(torch, lambda: fs.fused_attn_matmul(
+            *args, group_size=gs, row0=row0))
+        plain_ms = time_ms(torch, lambda: fs.fused_attn_matmul_plain(
+            *args, group_size=gs, row0=row0), iters=3, warmup=1)
+        sdpa = _sdpa(torch, o["q"].transpose(1, 2),
+                     o["kc"][1, row0:row0 + Ba], o["vc"][1, row0:row0 + Ba],
+                     mask=mask)
+        lib_ms = time_ms(torch, lambda: (sdpa(), torch.matmul(o["x"], deq)))
+        n_bytes = (2 * (2 * Ba * Hk * n * D) + 2 * (2 * Ba * Hq * D) + 4 * Ba
+                   + (K // 2) * N + 4 * (K // gs) * N + 2 * p["Mb"] * (K + N))
+        b_ms, b_by = bound(n_bytes, 4 * Ba * Hq * n * D + 2 * p["Mb"] * K * N,
+                           "bf16")
+        rec = dict(shape=f"Ba=Mb={Ba} rows from {row0} of {p['B']}, lens {n} "
+                         f"S={S} Hq={Hq} Hk={Hk}, INT4 K={K} N={N} gs {gs}",
+                   max_abs_err=max(a_err, y_err), attn_err=a_err,
+                   mm_err=y_err, tol=y_tol, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  fused_attn_matmul row0 {row0}: attention err {a_err:.3g} "
+              f"(tol 0.02), matmul err {y_err:.3g} (tol {y_tol:.3g}), two "
+              f"calls bit-identical {same} | kernel {ms:.4f} ms | plain "
+              f"{plain_ms:.4f} | sdpa + torch.matmul bf16 {lib_ms:.4f} | "
+              f"bound {b_ms:.4f} ({b_by})", flush=True)
+        if not (a_err <= 2e-2 and y_err <= y_tol and same):
+            fail(f"fused_attn_matmul row0 {row0}: attention err {a_err}, "
+                 f"matmul err {y_err} (tol {y_tol}), bit-identical {same}")
+        records[row0] = rec
+    return records
+
+
+def run_probe_fused(torch, cfg, wrappers):
+    """[probe fused], the port of scripts/probe_fused.py at its shapes
+    (``PROBE``): t_attn, the decode attention alone on a Ba-row cache;
+    t_mm, the W4A16 matmul alone (``quant_matmul4``, the gate projection);
+    t_fused, one ``fused_attn_matmul`` doing both (row0 0).  Full overlap
+    would give t_fused = max(t_attn, t_mm), none their sum.  Returns the
+    run's launch counts and numbers."""
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
+    from qwen_inference_engine_tpu_torch.ops import fused_step as fs
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+
+    p = PROBE
+    o = _probe_operands(torch, cfg)
+    Ba, gs = p["Ba"], p["gs"]
+    kc_a = o["kc"][:, :Ba].contiguous()
+    vc_a = o["vc"][:, :Ba].contiguous()
+    for w in wrappers.values():
+        w.launches = 0
+    t_attn = time_ms(torch, lambda: da.decode_attention_contiguous(
+        o["q"], kc_a, vc_a, 1, o["lens"]))
+    t_mm = time_ms(torch, lambda: qm.quant_matmul4(o["x"], o["wq"], o["ws"],
+                                                   1, gs))
+    t_fused = time_ms(torch, lambda: fs.fused_attn_matmul(
+        o["lens"], 1, o["q"], o["kc"], o["vc"], o["x"], o["wq"], o["ws"],
+        group_size=gs, row0=0))
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    lo, hi = max(t_attn, t_mm), t_attn + t_mm
+    hidden = (hi - t_fused) / min(t_attn, t_mm)
+    print(f"[probe fused] Ba={Ba} rows of {p['B']}, S={p['S']}, lens "
+          f"{p['S'] - 7}; INT4 {cfg.hidden_size}x{cfg.intermediate_size} gs "
+          f"{gs} at Mb={p['Mb']}: t_attn {t_attn:.4f} ms | t_mm {t_mm:.4f} "
+          f"ms | t_fused {t_fused:.4f} ms | full overlap (max) {lo:.4f}, "
+          f"none (sum) {hi:.4f}: {100 * hidden:.0f}% of the smaller op "
+          f"hidden | launches { {n: c for n, c in counts.items() if c} }",
+          flush=True)
+    want = ("fused_attn_matmul", "decode_attention_contiguous",
+            "quant_matmul4")
+    stray = sorted(n for n in counts if n not in want and counts[n])
+    if any(counts[n] <= 0 for n in want) or stray:
+        fail(f"[probe fused] launches {counts}")
+    del o, kc_a, vc_a
+    torch.cuda.empty_cache()
+    return counts, dict(t_attn_ms=t_attn, t_mm_ms=t_mm, t_fused_ms=t_fused,
+                        max_ms=lo, sum_ms=hi, hidden_share=hidden)
+
+
 def _step_chain(torch, step, steps, first, tok, lens, cache):
     """``steps`` greedy decode steps from position ``lens + first``;
     returns (tok, cache) after a device sync."""
@@ -1383,7 +1778,11 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     one prefill of the same batch, 8 pumped steps and 8 plain
     ``decode_step(uniform_decode=True)`` steps (the yardstick: fused_mlp
     28 times a step at M = 192) by the host clock, each followed by 4 more
-    under the profiler."""
+    under the profiler; and [deferred decode]: 8 more of
+    ``decode_step(uniform_decode=True, deferred_append=True)`` from the same
+    prefill, each launching the fresh-merge attention 28 times, the
+    all-layer append once and the appending attention never.  The timed
+    deferred steps' launches join the run's counts."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
     from qwen_inference_engine_tpu_torch.models import qwen
@@ -1441,17 +1840,20 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
         wall = (time.perf_counter() - t0) * 1e3 / n
         launches = {k: w.launches / n for k, w in wrappers.items()
                     if w.launches}
+        total = {k: w.launches for k, w in wrappers.items()}
         busy, n_k, top = _profile_steps(
             torch, lambda: _step_chain(torch, step, 4, 1 + n, tok, lens,
                                        cache), 4)
         return dict(step_ms=wall, launches_per_step=launches,
                     device_busy_ms=busy, kernels=n_k, busy_share=busy / wall,
-                    top=[(k[:50], ms, cnt) for k, ms, cnt in top])
+                    top=[(k[:50], ms, cnt) for k, ms, cnt in top],
+                    launches_total=total)
 
     with torch.inference_mode():
         logits, cache = qwen.prefill_chunked(params, cfg, toks, lens,
                                              eng.new_cache(), chunk=512)
         other = KVCache(k=cache.k.clone(), v=cache.v.clone())
+        deferred = KVCache(k=cache.k.clone(), v=cache.v.clone())
         tok0 = logits.argmax(-1)
         out = {"pumped": measure(
                    lambda t, p, c: qwen.decode_step_pumped(params, cfg, t, p,
@@ -1459,8 +1861,13 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
                "plain": measure(
                    lambda t, p, c: qwen.decode_step(params, cfg, t, p, c,
                                                     uniform_decode=True),
-                   other, tok0)}
-    for name in ("pumped", "plain"):
+                   other, tok0),
+               "deferred": measure(
+                   lambda t, p, c: qwen.decode_step(params, cfg, t, p, c,
+                                                    uniform_decode=True,
+                                                    deferred_append=True),
+                   deferred, tok0)}
+    for name in ("pumped", "plain", "deferred"):
         r = out[name]
         print(f"[pumped generate profile] {name} decode step at batch {B}: "
               f"{r['step_ms']:.2f} ms on the host clock ({n} steps), device "
@@ -1477,7 +1884,26 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     per = out["pumped"]["launches_per_step"]
     if per.get("fused_attn_mlp") != 2 * L or "fused_mlp" in per:
         fail(f"the pumped step launched {per}")
-    del eng, cache, other
+    per = out["deferred"]["launches_per_step"]
+    print(f"[deferred decode] batch {B}: a step {out['deferred']['step_ms']:.2f}"
+          f" ms on the host clock (plain decode_step "
+          f"{out['plain']['step_ms']:.2f}), device busy "
+          f"{out['deferred']['device_busy_ms']:.2f} ms (plain "
+          f"{out['plain']['device_busy_ms']:.2f}), busy share "
+          f"{out['deferred']['busy_share']:.3f} (plain "
+          f"{out['plain']['busy_share']:.3f}) | launches a step {per}",
+          flush=True)
+    if per.get("decode_attention_contiguous_fresh") != L \
+            or per.get("kv_append_all_uniform") != 1 \
+            or "decode_attention_appending" in per:
+        fail(f"[deferred decode]: a step launched {per}; want the fresh "
+             f"attention {L} times, the all-layer append once and no "
+             f"appending attention")
+    for n in ("decode_attention_contiguous_fresh", "kv_append_all_uniform"):
+        counts[n] += out["deferred"]["launches_total"][n]
+    for r in out.values():
+        del r["launches_total"]
+    del eng, cache, other, deferred
     torch.cuda.empty_cache()
     return counts, dict(ttft_ms=res.ttft_s * 1e3,
                         decode_tok_s=res.decode_tokens_per_s, steps=res.steps,
@@ -1489,13 +1915,17 @@ def pumped_model_check(torch, cfg4, params4, prompts):
     """Phase 5's pumped rule: the 4-layer pumped model (W4A16 gs 256
     pad-free, INT4 lm_head) prefills 192 aligned 64-token prompts, then
     takes 2 decode steps fed the same tokens: by ``decode_step_pumped``
-    with the kernels and with every plain version (bf16), and by
+    with the kernels and with every plain version (bf16), by
     ``decode_step`` with the kernels (fused_mlp at M = 192) and the plain
-    versions; each kernel path at most 1.5x as far from an fp32 run of the
-    plain ``decode_step`` (f32 params and cache, the plain f32 matmuls and
-    attention) as its plain bf16 path is."""
+    versions, and by the deferred-append ``decode_step`` likewise; each
+    kernel path at most 1.5x as far from an fp32 run of the plain
+    ``decode_step`` (f32 params and cache, the plain f32 matmuls and
+    attention) as its plain bf16 path is.  The deferred rule: after its
+    first step, the cache the deferred step wrote equals the one
+    ``decode_step(uniform_decode=True)`` wrote, bit for bit."""
     from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
     from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
     from qwen_inference_engine_tpu_torch.ops import fused_step as fs
 
     B, T, n_steps = PUMP_BATCH, 64, 2
@@ -1505,40 +1935,57 @@ def pumped_model_check(torch, cfg4, params4, prompts):
     params4_f32 = qwen.map_params(
         params4, lambda t: t.float() if t.is_floating_point() else t)
 
-    def run(p, dtype, pumped):
+    def run(p, dtype, mode, first=None):
+        """The logits of n_steps steps; ``first`` (a list) takes a copy of
+        the cache after the first step."""
         cache = KVCache.create(cfg4.num_layers, B, 256, cfg4.num_kv_heads,
                                cfg4.head_dim, dtype=dtype, device="cuda")
         out = []
         with torch.inference_mode():
             _, cache = qwen.prefill_chunked(p, cfg4, toks, lens, cache)
             for s in range(n_steps):
-                if pumped:
+                if mode == "pumped":
                     logits, cache = qwen.decode_step_pumped(
                         p, cfg4, feed[:, s], lens + s, cache)
                 else:
                     logits, cache = qwen.decode_step(
                         p, cfg4, feed[:, s], lens + s, cache,
-                        uniform_decode=True)
+                        uniform_decode=True,
+                        deferred_append=mode == "deferred")
                 out.append(logits)
+                if s == 0 and first is not None:
+                    first.append((cache.k.clone(), cache.v.clone()))
         return torch.cat(out, 0)
 
     with Swapped(f32_swaps()):
-        lr = run(params4_f32, torch.float32, False)
+        lr = run(params4_f32, torch.float32, "plain")
     del params4_f32
-    for label, pumped, kern in (("pumped decode", True, fs.fused_attn_mlp),
-                                ("plain decode (fused_mlp)", False,
-                                 fs.fused_mlp)):
+    caches = []
+    for label, mode, kern, per_layer in (
+            ("pumped decode", "pumped", fs.fused_attn_mlp, 2),
+            ("plain decode (fused_mlp)", "plain", fs.fused_mlp, 1),
+            ("deferred-append decode", "deferred",
+             da.decode_attention_contiguous_fresh, 1)):
         before = kern.launches
-        lk = run(params4, torch.bfloat16, pumped)
-        want = n_steps * cfg4.num_layers * (2 if pumped else 1)
+        lk = run(params4, torch.bfloat16, mode,
+                 caches if mode != "pumped" else None)
+        want = n_steps * cfg4.num_layers * per_layer
         if kern.launches - before != want:
             fail(f"{label}: the model check launched {kern.__name__} "
                  f"{kern.launches - before} times, not {want}")
         with Swapped(plain_swaps()):
-            lp = run(params4, torch.bfloat16, pumped)
+            lp = run(params4, torch.bfloat16, mode)
         model_check(f"W4A16 gs 256 pad-free + int4 lm_head, batch {B} x {T}, "
                     f"{label}", lk, lp, lr,
                     what=f"the logits of {n_steps} decode steps")
+    (k_plain, v_plain), (k_def, v_def) = caches
+    same = bool(torch.equal(k_plain, k_def) and torch.equal(v_plain, v_def))
+    print(f"[model] 4 layers, deferred-append decode: the cache after one "
+          f"step equals decode_step(uniform_decode=True)'s bit for bit: "
+          f"{same}", flush=True)
+    if not same:
+        fail("deferred-append decode: its cache after one step differs from "
+             "decode_step(uniform_decode=True)'s")
 
 
 # ----------------------------------------------------------------------
@@ -1616,7 +2063,11 @@ def attention_swaps():
             (qwen, "decode_attention_contiguous_q8",
              da.decode_attention_contiguous_q8_plain),
             (qwen, "kv_append_uniform_q8", ka.kv_append_uniform_q8_plain),
-            (qwen, "kv_append_uniform", ka.kv_append_uniform_plain)]
+            (qwen, "kv_append_uniform", ka.kv_append_uniform_plain),
+            (qwen, "kv_append_ragged_t", ka.kv_append_ragged_t_plain),
+            (qwen, "decode_attention_contiguous_fresh",
+             da.decode_attention_contiguous_fresh_plain),
+            (qwen, "kv_append_all_uniform", ka.kv_append_all_uniform_plain)]
 
 
 def plain_swaps():
@@ -2070,9 +2521,9 @@ MATMULS = ("quant_matmul4_a8", "quant_matmul4", "quant_matmul8",
 def run_formats(torch, cfg, variants, wrappers, prompts):
     """Phase 4 (a)-(d): one Engine.generate run per weight format, 32 new
     tokens.  Each run must launch only its own matmul kernels (and
-    fused_mlp), as many per forward as ``want`` says (a count, or a
-    (prefill, decode step) pair), and the attention kernels of its KV
-    type.  Returns the runs' numbers."""
+    fused_mlp), and the ragged ones kv_append_ragged_t, as many per forward
+    as ``want`` says (a count, or a (prefill, decode step) pair), and the
+    attention kernels of its KV type.  Returns the runs' numbers."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
 
@@ -2092,7 +2543,8 @@ def run_formats(torch, cfg, variants, wrappers, prompts):
         print(f"      first ids {[row[:8] for row in res.token_ids]}")
         if not all(0 <= t < vcfg.vocab_size for t in ids) or len(set(ids)) < 2:
             fail(f"{label}: ids out of range or all identical")
-        mm = {n: counts[n] for n in MATMULS + ("fused_mlp",)}
+        mm = {n: counts[n] for n in MATMULS + ("fused_mlp",
+                                                "kv_append_ragged_t")}
         per = {n: want.get(n, 0) for n in mm}
         per = {n: v if isinstance(v, tuple) else (v, v)
                for n, v in per.items()}
@@ -2375,6 +2827,15 @@ def run_generate_spec(torch, cfg, params, wrappers, rng):
           f"{counts['chunk_attention_contiguous']}", flush=True)
     bad = [r for r in rows if r[1] is not None and not r[1] < 2 * tol]
     covered = sum(min(n, NEW_TOKENS - 1) for n in part)
+    # each verify forward writes its windows with one kv_append_ragged_t a
+    # layer
+    want_rag = cfg.num_layers * len(inputs)
+    print(f"      kv_append_ragged_t launches {counts['kv_append_ragged_t']} "
+          f"over {len(inputs)} verify forwards (want {want_rag})", flush=True)
+    if counts["kv_append_ragged_t"] != want_rag or not inputs:
+        fail(f"[generate spec] {counts['kv_append_ragged_t']} "
+             f"kv_append_ragged_t launches over {len(inputs)} verify "
+             f"forwards, want {want_rag}")
     if bad or not d_spec <= tol or n_cmp < covered or \
             counts["chunk_attention_contiguous"] <= 0 or \
             any(len(x) != NEW_TOKENS for x in spec):
@@ -3329,6 +3790,9 @@ def main() -> int:
     fused_mlp_recs = check_fused_mlp(torch, cfg)
     attn_mlp_recs = check_fused_attn_mlp(torch, cfg)
     append_recs["kv_append_uniform"] = check_kv_append_uniform(torch, cfg)
+    append_recs["kv_append_ragged_t"] = check_kv_append_ragged_t(torch, cfg)
+    deferred_recs = check_deferred_kernels(torch, cfg)
+    attn_mm_recs = check_fused_attn_matmul(torch, cfg)
     grouped_recs = check_grouped_matmul(torch, PRESETS["qwen3-30b-a3b"])
     torch.cuda.empty_cache()
 
@@ -3379,27 +3843,32 @@ def main() -> int:
     bf16_dec = {"decode_attention_contiguous", "decode_attention_appending"}
     q8 = {"chunk_attention_contiguous_q8", "kv_append_uniform_q8",
           "decode_attention_contiguous_q8"}
+    # the ragged runs write every decode step's K/V with kv_append_ragged_t
+    # (once a layer a step); the aligned runs never
+    rag = {"kv_append_ragged_t"}
+    deferred = {"decode_attention_contiguous_fresh", "kv_append_all_uniform"}
     plan = [
         ("ragged", "bf16", [37, 120, 300, 500],
-         {"flash_attention", "decode_attention_contiguous"},
+         {"flash_attention", "decode_attention_contiguous"} | rag,
          {"decode_attention_appending", "chunk_attention_contiguous"} | q8),
         ("aligned", "bf16", [256] * 4,
          {"flash_attention", "decode_attention_appending"},
-         {"decode_attention_contiguous", "chunk_attention_contiguous"} | q8),
+         {"decode_attention_contiguous", "chunk_attention_contiguous"} | q8
+         | rag),
         ("bf16 aligned long", "bf16 long", [1408] * 4,
          {"flash_attention", "chunk_attention_contiguous",
           "decode_attention_appending"},
-         {"decode_attention_contiguous"} | q8),
+         {"decode_attention_contiguous"} | q8 | rag),
         ("bf16 ragged long", "bf16 long", [700, 1100, 1408, 1900],
          {"flash_attention", "chunk_attention_contiguous",
-          "decode_attention_contiguous"},
+          "decode_attention_contiguous"} | rag,
          {"decode_attention_appending"} | q8),
         ("int8 aligned long", "int8 long", [1408] * 4,
          {"flash_attention"} | q8,
-         {"chunk_attention_contiguous"} | bf16_dec),
+         {"chunk_attention_contiguous"} | bf16_dec | rag),
         ("int8 ragged long", "int8 long", [37, 600, 1408, 1900],
          {"flash_attention", "chunk_attention_contiguous_q8",
-          "decode_attention_contiguous_q8"},
+          "decode_attention_contiguous_q8"} | rag,
          {"chunk_attention_contiguous", "kv_append_uniform_q8"} | bf16_dec),
     ]
     launches = {n: 0 for n in wrappers}
@@ -3421,10 +3890,14 @@ def main() -> int:
         missing = sorted(n for n in must | {"quant_matmul4_a8"}
                          if counts[n] <= 0)
         stray = sorted(n for n in must_not | paged | set(NEW_MATMULS)
-                       if counts[n] != 0)
+                       | deferred if counts[n] != 0)
         if missing or stray:
             fail(f"{label}: kernels of its path not launched {missing}, "
                  f"kernels of other paths launched {stray}")
+        want_rag = cfg.num_layers * (res.steps - 1) if rag <= must else 0
+        if counts["kv_append_ragged_t"] != want_rag:
+            fail(f"{label}: {counts['kv_append_ragged_t']} kv_append_ragged_t "
+                 f"launches, expected {want_rag} (one a layer a decode step)")
         # one continuation per layer for each 512-token chunk after the
         # first of the prompt bucket
         want_chunks = cfg.num_layers * max(_bucket(max(lengths)) // 512 - 1, 0)
@@ -3447,7 +3920,8 @@ def main() -> int:
         # step (M = 4) fused_mlp: gs 128 leaves the down projection unpadded
         "(a) w4a16 gs 128, int4 lm_head, bf16 KV": (
             cfg, p_w4a16, torch.bfloat16, [37, 120, 300, 500],
-            {"quant_matmul4": (7 * L + 1, 4 * L + 1), "fused_mlp": (0, L)},
+            {"quant_matmul4": (7 * L + 1, 4 * L + 1), "fused_mlp": (0, L),
+             "kv_append_ragged_t": (0, L)},
             {"flash_attention", "decode_attention_contiguous", "fused_mlp"}),
         "(b) w8a16 gs 128, bf16 lm_head, bf16 KV": (
             cfg, p_w8a16, torch.bfloat16, [256] * 4,
@@ -3455,11 +3929,12 @@ def main() -> int:
             {"flash_attention", "decode_attention_appending"}),
         "(c) w8a8 per column, int8 KV": (
             cfg8, p_w8a8, q8, [37, 120, 300, 500],
-            {"quant_matmul8_a8": 7 * L},
+            {"quant_matmul8_a8": 7 * L, "kv_append_ragged_t": (0, L)},
             {"flash_attention", "decode_attention_contiguous_q8"}),
         "(d) w4a8 gs 256 + int4 lm_head (bench headline), bf16 KV": (
             cfg8, p_bench, torch.bfloat16, [37, 120, 300, 500],
-            {"quant_matmul4_a8": 7 * L, "quant_matmul4": 1},
+            {"quant_matmul4_a8": 7 * L, "quant_matmul4": 1,
+             "kv_append_ragged_t": (0, L)},
             {"flash_attention", "decode_attention_contiguous"}),
     }
     format_runs = run_formats(torch, cfg, variants, wrappers, prompts)
@@ -3516,6 +3991,10 @@ def main() -> int:
     pump_counts, pump_run = run_pumped_generate(torch, cfg, p_pump, wrappers,
                                                 prompts)
     for n, c in pump_counts.items():
+        launches[n] += c
+    # [probe fused]: the overlap probe's fused attention + matmul
+    probe_counts, probe_run = run_probe_fused(torch, cfg, wrappers)
+    for n, c in probe_counts.items():
         launches[n] += c
 
     # ---- the loader phase: HF checkpoint -> quantize -> generate
@@ -3689,6 +4168,15 @@ def main() -> int:
                            "qwen_inference_engine_tpu/ops/fused_step.py:415"),
         "kv_append_uniform": ("csrc/kv_append.cu",
                               "qwen_inference_engine_tpu/ops/kv_append.py:95"),
+        "kv_append_ragged_t": ("csrc/kv_append.cu",
+                               "qwen_inference_engine_tpu/ops/kv_append.py:390"),
+        "decode_attention_contiguous_fresh": (
+            "csrc/decode_attention.cu",
+            "qwen_inference_engine_tpu/ops/decode_attention.py:479"),
+        "kv_append_all_uniform": ("csrc/kv_append.cu",
+                                  "qwen_inference_engine_tpu/ops/kv_append.py:299"),
+        "fused_attn_matmul": ("csrc/fused_step.cu",
+                              "qwen_inference_engine_tpu/ops/fused_step.py:520"),
     }
     # each matmul is reported per decode layer: its seven projections at M=4
     recs = {"quant_matmul4_a8": layer_record(qmm_recs, qmm_14b),
@@ -3709,7 +4197,16 @@ def main() -> int:
             # fused attention + MLP at the pumped step's second half
             "fused_mlp": next(r for r in fused_mlp_recs
                               if r["M"] == 4 and r["gs"] == (256, 128)),
-            "fused_attn_mlp": attn_mlp_recs[PUMP_BATCH // 2]}
+            "fused_attn_mlp": attn_mlp_recs[PUMP_BATCH // 2],
+            # the deferred decode's kernels at its batch of 192; the fused
+            # attention + matmul at the probe's row0 0
+            **deferred_recs, "fused_attn_matmul": attn_mm_recs[0]}
+    sites = {replaces for _, replaces in sources.values()}
+    if set(recs) != set(wrappers) or set(sources) != set(wrappers) \
+            or len(sites) != 28:
+        fail(f"the kernels line must list every wrapper ({len(wrappers)}) "
+             f"over the JAX package's 28 pallas_call sites: {len(recs)} "
+             f"records, {len(sites)} sites")
     kernels = []
     for name, rec in recs.items():
         src, replaces = sources[name]
@@ -3727,7 +4224,7 @@ def main() -> int:
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
           f" | loader {json.dumps(loader)} | int8 pool and speculation "
           f"{json.dumps(spec_runs)} | moe {json.dumps(moe_runs)} | pumped "
-          f"{json.dumps(pump_run)}")
+          f"{json.dumps(pump_run)} | probe fused {json.dumps(probe_run)}")
     if len(sys.argv) > 1:  # every kernel shape's and run's numbers
         os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])),
                     exist_ok=True)
@@ -3741,7 +4238,10 @@ def main() -> int:
                        "grouped_kernels": grouped_recs, "moe": moe_runs,
                        "fused_mlp": fused_mlp_recs,
                        "fused_attn_mlp": attn_mlp_recs,
-                       "pumped_generate": pump_run},
+                       "pumped_generate": pump_run,
+                       "deferred_kernels": deferred_recs,
+                       "fused_attn_matmul": attn_mm_recs,
+                       "probe_fused": probe_run},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // T=1 GQA flash decode over the stacked contiguous KV cache, Hopper.
 //
-// Replaces three kernels of qwen_inference_engine_tpu/ops/decode_attention.py:
+// Replaces four kernels of qwen_inference_engine_tpu/ops/decode_attention.py:
 //   * decode_attention_contiguous (_decode_attention, body _decode_kernel):
 //     bf16 cache, per-row lengths, the ragged batch;
 //   * decode_attention_appending (_decode_attention_append, body
@@ -9,13 +9,19 @@
 //     the same kernel;
 //   * decode_attention_contiguous_q8 (_decode_attention_q8, body
 //     _decode_kernel_q8): int8 cache with per-token-per-head f32 scales,
-//     per-row lengths (INT8 KV, aligned and ragged batches alike).
-// One kernel templated on the cache's element type; the bf16 entry point
-// selects the appending variant by whether k_new / v_new are given.
+//     per-row lengths (INT8 KV, aligned and ragged batches alike);
+//   * decode_attention_contiguous_fresh (_decode_attention_fresh, body
+//     _decode_kernel_fresh, merge _merge_fresh): bf16 cache, per-row old
+//     lengths; the current token's K/V, which the deferred-append decode
+//     has not written yet, joins the softmax from the inputs.
+// One kernel templated on the cache's element type; the bf16 entry points
+// select the variant: a position with k_new / v_new appends, lengths with
+// k_new / v_new merge the fresh token, lengths alone attend the cache.
 //
 // q [B, 1, Hq, D] bf16; cache k / v [L, Bc, Hk, S, D] bf16 or int8
 // (head-major), scales k_scale / v_scale [L, Bc, Hk, S] f32 (int8 only);
-// lengths [B] int32 (contiguous variants) or position [1] int32 (appending
+// lengths [B] int32 (contiguous variants; the fresh variant's old lengths,
+// which exclude the current token) or position [1] int32 (appending
 // variant, length = position + 1; read on the device, so the host never
 // waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq, D] bf16.
 //
@@ -23,7 +29,8 @@
 // elements (2 bytes each in bf16; 1 in int8, plus 8 bytes of scales per key
 // and head) for 4 * len * Hq * D flops: G = 7 operations per byte for
 // Qwen2.5-7B in bf16, ~14 in int8, far below the ridge (~295), so bytes
-// bound it; INT8 KV halves them.
+// bound it; INT8 KV halves them.  The fresh variant reads the cache bytes
+// the appending one reads and writes none.
 //
 // Design: simple and right first.  A block of D threads takes one (row, KV
 // head) pair (grid: Hk x B) and all G query heads of the group as the rows
@@ -37,7 +44,13 @@
 // block of (b, hk) is the only reader and writer of that cache row, so it
 // writes the fresh K/V row to the cache and stages the same row into its
 // tile from k_new / v_new: the fresh token enters the softmax from the
-// inputs, never from a cache read.  Only Hk * B blocks run (16 at B = 4 for
+// inputs, never from a cache read.  The fresh variant is the same call of
+// the core with the cache left alone: keys [0, old_len) from the cache and
+// key old_len from k_new / v_new, so it never reads cache position
+// old_len, and a row with old_len = 0 attends its fresh token alone (the
+// core's running max starts at a finite -1e30, so no exp(-inf + inf) NaN
+// can arise; the TPU kernel merges the fresh token after its S-block loop,
+// the same sum in another order).  Only Hk * B blocks run (16 at B = 4 for
 // Qwen2.5-7B), a small share of the 132 SMs: splitting S across blocks with
 // a second reduction pass (flash-decoding) is the next step for speed.
 
@@ -63,7 +76,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, KV* __restrict__ k_cache,
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Hq / Hk;
-  const bool appending = k_new != nullptr;
+  const bool appending = position_ptr != nullptr;  // else lengths are given
   const int position = appending ? *position_ptr : -1;
   // a position outside the cache attends nothing and writes nothing
   int len = appending ? (position < S ? position + 1 : 0) : lengths[b];
@@ -83,19 +96,25 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, KV* __restrict__ k_cache,
   const KV* kf = nullptr;
   const KV* vf = nullptr;
   int fresh = -1;
-  if (appending && len > 0) {
+  int n_keys = len;
+  if (k_new != nullptr && (!appending || len > 0)) {
     kf = k_new + (static_cast<long long>(b) * Hk + hk) * D;
     vf = v_new + (static_cast<long long>(b) * Hk + hk) * D;
-    fresh = position;
-    k_cache[base + static_cast<long long>(position) * D + tid] = kf[tid];
-    v_cache[base + static_cast<long long>(position) * D + tid] = vf[tid];
+    if (appending) {
+      fresh = position;
+      k_cache[base + static_cast<long long>(position) * D + tid] = kf[tid];
+      v_cache[base + static_cast<long long>(position) * D + tid] = vf[tid];
+    } else {  // the fresh merge: the old keys, then the current one
+      fresh = len;
+      n_keys = len + 1;
+    }
   }
   const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
   const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
   float acc[kRows];
   qie::attend<D, kRows, kKeys, KV>(sm, acc, G, k_cache + base, v_cache + base,
-                                   qie::ContiguousKeys{D}, ks, vs, len,
-                                   len - 1, 0, kf, vf, fresh);
+                                   qie::ContiguousKeys{D}, ks, vs, n_keys,
+                                   n_keys - 1, 0, kf, vf, fresh);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < G) {
@@ -153,12 +172,27 @@ extern "C" int qie_decode_attention(const void* q, void* k_cache,
   const bool appending = k_new != nullptr;
   if (bad_shape(L, Bc, B, Hq, Hk, layer) ||
       (appending && (v_new == nullptr || position == nullptr)) ||
-      (!appending && lengths == nullptr)) {
+      (!appending && (lengths == nullptr || position != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, lengths,
                                k_new, v_new, position, out, Bc, B, Hq, Hk, S,
                                D, layer, scale, stream);
+}
+
+extern "C" int qie_decode_attention_fresh(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* old_lengths, const void* k_new, const void* v_new, void* out,
+    int L, int Bc, int B, int Hq, int Hk, int S, int D, int layer,
+    float scale, void* stream) {
+  if (bad_shape(L, Bc, B, Hq, Hk, layer) || old_lengths == nullptr ||
+      k_new == nullptr || v_new == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<__nv_bfloat16>(q, const_cast<void*>(k_cache),
+                               const_cast<void*>(v_cache), nullptr, nullptr,
+                               old_lengths, k_new, v_new, nullptr, out, Bc, B,
+                               Hq, Hk, S, D, layer, scale, stream);
 }
 
 extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,

@@ -1,12 +1,17 @@
-// Fused decode kernels for Hopper (sm_90a): the single-pass INT4 SwiGLU MLP
-// and one batch half's decode attention beside the other half's MLP.
+// Fused decode kernels for Hopper (sm_90a): the single-pass INT4 SwiGLU MLP,
+// one batch half's decode attention beside the other half's MLP, and the
+// first prototype: decode attention beside one INT4 matmul.
 //
-// Replaces two kernels of qwen_inference_engine_tpu/ops/fused_step.py:
+// Replaces three kernels of qwen_inference_engine_tpu/ops/fused_step.py:
 //   * fused_mlp (body _fused_mlp_kernel): y = down(silu(x Wg) * (x Wu)) of
 //     one layer, pad-free INT4 weights, x [M <= 256, K] bf16;
 //   * fused_attn_mlp (body _fused_attn_mlp_kernel): decode attention of the
 //     cache rows [row0, row0 + Ba) at layer layer_a, and fused_mlp of layer
-//     layer_m on an independent x (the double-pumped decode's two halves).
+//     layer_m on an independent x (the double-pumped decode's two halves);
+//   * fused_attn_matmul (body _fused_attn_matmul_kernel): decode attention
+//     of the cache rows [row0, row0 + Ba) beside y = x @ W4[layer] for an
+//     independent x [Mb, K], at the same layer (the overlap probe's
+//     kernel; no entry point dispatches it).
 //
 // Weights (the stacked plane-pair INT4 layout of quant_matmul.cu): gate /
 // up q [L, K/2, F] int8 with scales [L, K/gs_gate, F] f32, down q
@@ -21,7 +26,10 @@
 // / 2 bytes = 102 MB plus 4 MB of scales, 0.032 ms at 3.35 TB/s.  At
 // M = 256 the 6 * M * K * F = 104 GFLOP take 0.105 ms at 989 TFLOP/s bf16.
 // The attention half reads 2 * len * Hk * D bf16 values a row, 7 operations
-// a byte at G = 7: bytes again.
+// a byte at G = 7: bytes again.  fused_attn_matmul at the probe's shapes
+// (56 rows of 1017 keys; the 7B gate projection, K 3584, N 18944, INT4):
+// 117 MB of KV and 34 MB of weights and scales, 0.045 ms at 3.35 TB/s,
+// against 7.6 GFLOP of matmul (0.008 ms at 989 TFLOP/s): bytes.
 //
 // Design (simple and right first).  The TPU kernel walks the F tiles in
 // order and carries the down projection's sum in scratch from one grid
@@ -46,8 +54,12 @@
 // threads, the attention block's size; a half batch is > 64 rows).  The
 // two kinds share the static shared memory through a union.  The
 // hardware runs them side by side on the 132 SMs: that is the overlap the
-// TPU kernel builds by hand with its ring of KV copies.  wgmma / TMA
-// tiles, and splitting the down pass's K loop, are left to later work.
+// TPU kernel builds by hand with its ring of KV copies.
+// fused_attn_matmul is that first launch with one matmul tile (the W4A16
+// wmma tile with the rounding StoreBf16 epilogue) in place of gate / up: a
+// single matmul carries no sum across blocks (each block walks its own K
+// loop), so it is one launch with no second pass and no atomics.  wgmma /
+// TMA tiles, and splitting the down pass's K loop, are left to later work.
 
 #include "attention_common.cuh"
 #include "quant_matmul_core.cuh"
@@ -166,6 +178,50 @@ cudaError_t launch_down(const __nv_bfloat16* h, const int8_t* wd,
   return cudaGetLastError();
 }
 
+// One attention block of the fused launches: query heads of KV head hk of
+// row b over the first lens[b] keys of cache row row0 + b at `layer`.
+__device__ __forceinline__ void attn_block(
+    qie::AttnSmem<kD, kRows, kKeys, __nv_bfloat16>& sm,
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_cache,
+    const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ lens,
+    __nv_bfloat16* __restrict__ attn, int Bc, int Hq, int Hk, int S,
+    int layer, int row0, float scale, int b, int hk) {
+  const int tid = threadIdx.x;
+  const int G = Hq / Hk;
+  const int len = max(0, min(lens[b], S));
+  for (int c = tid; c < kRows * kD; c += kD) {
+    const int i = c / kD, d = c % kD;
+    float val = 0.f;
+    if (i < G) {
+      val = __bfloat162float(
+          q[(static_cast<long long>(b) * Hq + hk * G + i) * kD + d]) * scale;
+    }
+    sm.q[i][d] = val;
+  }
+  const long long row =
+      (static_cast<long long>(layer) * Bc + row0 + b) * Hk + hk;
+  const long long base = row * S * kD;
+  float acc[kRows];
+  qie::attend<kD, kRows, kKeys, __nv_bfloat16>(
+      sm, acc, G, k_cache + base, v_cache + base, qie::ContiguousKeys{kD},
+      nullptr, nullptr, len, len - 1, 0, nullptr, nullptr, -1);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (i < G) {
+      const float denom = fmaxf(sm.l[i], 1e-30f);
+      attn[(static_cast<long long>(b) * Hq + hk * G + i) * kD + tid] =
+          __float2bfloat16(acc[i] / denom);
+    }
+  }
+}
+
+// The two block kinds share the static shared memory (40 and 36 KB).
+union AttnMmSmem {
+  qie::AttnSmem<kD, kRows, kKeys, __nv_bfloat16> attn;
+  qie::WmmaSmem<true> mm;
+};
+
 // fused_attn_mlp's first launch: attention blocks, then MLP pass-1 blocks.
 __global__ void __launch_bounds__(kWThreads)
 attn_gate_up_kernel(const __nv_bfloat16* __restrict__ q,
@@ -182,10 +238,7 @@ attn_gate_up_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ h_ws, int M, int K, int F,
                     int gs) {
   static_assert(kWThreads == kD, "one thread per head dimension");
-  __shared__ union Smem {
-    qie::AttnSmem<kD, kRows, kKeys, __nv_bfloat16> attn;
-    qie::WmmaSmem<true> mm;
-  } sm;
+  __shared__ AttnMmSmem sm;
   const int n_attn = Ba * Hk;
   const int blk = blockIdx.x;
   if (blk >= n_attn) {
@@ -195,36 +248,36 @@ attn_gate_up_kernel(const __nv_bfloat16* __restrict__ q,
                  (t / n_tiles) * kWBM, (t % n_tiles) * kWBN);
     return;
   }
-  const int tid = threadIdx.x;
-  const int hk = blk % Hk;
-  const int b = blk / Hk;
-  const int G = Hq / Hk;
-  const int len = max(0, min(lens[b], S));
-  for (int c = tid; c < kRows * kD; c += kD) {
-    const int i = c / kD, d = c % kD;
-    float val = 0.f;
-    if (i < G) {
-      val = __bfloat162float(
-          q[(static_cast<long long>(b) * Hq + hk * G + i) * kD + d]) * scale;
-    }
-    sm.attn.q[i][d] = val;
+  attn_block(sm.attn, q, k_cache, v_cache, lens, attn, Bc, Hq, Hk, S, layer_a,
+             row0, scale, blk / Hk, blk % Hk);
+}
+
+// fused_attn_matmul: attention blocks, then the matmul's output tiles.
+__global__ void __launch_bounds__(kWThreads)
+attn_matmul_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k_cache,
+                   const __nv_bfloat16* __restrict__ v_cache,
+                   const int* __restrict__ lens,
+                   __nv_bfloat16* __restrict__ attn, int Bc, int Ba, int Hq,
+                   int Hk, int S, int layer, int row0, float scale,
+                   const __nv_bfloat16* __restrict__ x,
+                   const int8_t* __restrict__ w, const float* __restrict__ ws,
+                   __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                   int gs) {
+  static_assert(kWThreads == kD, "one thread per head dimension");
+  __shared__ AttnMmSmem sm;
+  const int n_attn = Ba * Hk;
+  const int blk = blockIdx.x;
+  if (blk >= n_attn) {
+    const int t = blk - n_attn;
+    const int n_tiles = N / kWBN;
+    qie::tile_w16_wmma_ep<true>(sm.mm, x, w, ws, qie::StoreBf16{y, N}, M, K,
+                                N, gs, false, (t / n_tiles) * kWBM,
+                                (t % n_tiles) * kWBN);
+    return;
   }
-  const long long row =
-      (static_cast<long long>(layer_a) * Bc + row0 + b) * Hk + hk;
-  const long long base = row * S * kD;
-  float acc[kRows];
-  qie::attend<kD, kRows, kKeys, __nv_bfloat16>(
-      sm.attn, acc, G, k_cache + base, v_cache + base,
-      qie::ContiguousKeys{kD}, nullptr, nullptr, len, len - 1, 0, nullptr,
-      nullptr, -1);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    if (i < G) {
-      const float denom = fmaxf(sm.attn.l[i], 1e-30f);
-      attn[(static_cast<long long>(b) * Hq + hk * G + i) * kD + tid] =
-          __float2bfloat16(acc[i] / denom);
-    }
-  }
+  attn_block(sm.attn, q, k_cache, v_cache, lens, attn, Bc, Hq, Hk, S, layer,
+             row0, scale, blk / Hk, blk % Hk);
 }
 
 // The MLP operands' common checks (the wrappers check first; these keep a
@@ -321,4 +374,34 @@ extern "C" int qie_fused_attn_mlp(
   return static_cast<int>(launch_down(h, wdl, sdl,
                                       static_cast<__nv_bfloat16*>(y), M, F, K,
                                       gs_down, st));
+}
+
+extern "C" int qie_fused_attn_matmul(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* lens, void* attn, const void* x, const void* w,
+    const void* ws, void* y, int Lc, int Bc, int Ba, int Hq, int Hk, int S,
+    int row0, int M, int K, int N, int gs, int layer, int L, float scale,
+    void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || N % kWBN || gs <= 0 || gs % kChunk ||
+      K % (2 * gs) || layer < 0 || layer >= L || layer >= Lc || Ba <= 0 ||
+      Hk <= 0 || Hq % Hk || Hq / Hk > kRows || S <= 0 || row0 < 0 ||
+      row0 + Ba > Bc) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int8_t* wl = static_cast<const int8_t*>(w) +
+                     static_cast<size_t>(layer) * (K / 2) * N;
+  const float* sl = static_cast<const float*>(ws) +
+                    static_cast<size_t>(layer) * (K / gs) * N;
+  const int n_attn = Ba * Hk;
+  const int n_mm = (N / kWBN) * ((M + kWBM - 1) / kWBM);
+  attn_matmul_kernel<<<n_attn + n_mm, kWThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_cache),
+      static_cast<const __nv_bfloat16*>(v_cache),
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(attn), Bc,
+      Ba, Hq, Hk, S, layer, row0, scale,
+      static_cast<const __nv_bfloat16*>(x), wl, sl,
+      static_cast<__nv_bfloat16*>(y), M, K, N, gs);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,18 @@
 // KV appends into the stacked caches, Hopper.
 //
-// Replaces five kernels of qwen_inference_engine_tpu/ops/kv_append.py:
+// Replaces seven kernels of qwen_inference_engine_tpu/ops/kv_append.py:
 //   * kv_append_uniform (body _uniform_append_kernel): a bf16 (or f32)
 //     decode append into the contiguous cache, rows [row0, row0 + Bn) at
 //     one shared position (the double-pumped decode's per-half append);
+//   * kv_append_all_uniform (body _append_all_kernel): every layer's fresh
+//     K/V row at one shared position in one launch (the deferred-append
+//     decode step writes its L layers' rows after the layer loop);
 //   * kv_append_uniform_q8 (body _uniform_append_q8_kernel): INT8-KV decode
 //     append into the contiguous cache;
+//   * kv_append_ragged_t (body _ragged_t_kernel): T consecutive K/V rows
+//     per batch row at a per-row start into the contiguous cache (the
+//     ragged decode's write at T = 1, the contiguous verify's window at
+//     T = k + 1), bf16, f32 or int8 with its scales;
 //   * paged_append_ragged (body _paged_ragged_kernel): one K/V row per
 //     batch row into the page pool, each at its own position;
 //   * paged_append_ragged_t (body _paged_ragged_t_kernel): T consecutive
@@ -21,13 +28,23 @@
 // cache[layer, row0 + b, hk, position] of the caches [L, Bc, Hk, S, D],
 // copied as 32-bit words (the row's D * elem_bytes bytes; bf16 or f32), at
 // the one position read on the device; a position outside [0, S) writes
-// nothing.
+// nothing.  kv_append_all_uniform is the same kernel over a grid of L
+// layers: k_new / v_new [L, B, Hk, D] into cache[l, b, hk, position] for
+// every layer l and rows b < B.
 //
 // kv_append_q8: in place, int8 k_new / v_new [B, Hk, D] and f32 ks_new /
 // vs_new [B, Hk] into cache[layer, b, hk, position] of the int8 caches
 // [L, Bc, Hk, S, D] and the scales [L, Bc, Hk, S], for rows b < B.  Every
 // row shares the one position, a 1-element int32 tensor read on the device,
 // so the host never waits for it; a position outside [0, S) writes nothing.
+//
+// kv_append_ragged_t: in place, k_new / v_new [B, T, Hk, D] (bf16, f32 or
+// int8, copied as 32-bit words) into cache[layer, b, hk, starts[b] + t] of
+// the caches [L, Bc, Hk, S, D] for rows b < B, and for an int8 cache ks_new
+// / vs_new [B, T, Hk] into the scales [L, Bc, Hk, S].  starts [B] int32 is
+// read on the device; starts[b] < 0 skips row b, and a token at or past S
+// is dropped (the JAX kernel never selects it: its band is clamped to the
+// cache's end).
 //
 // paged_append_ragged / _ragged_t: in place, k_new / v_new [B, T, Hk, D]
 // (T = 1 for the ragged decode append) into the pools [L, P, Hk, page, D]
@@ -48,25 +65,32 @@
 //
 // What bounds them on the H100: kv_append_uniform moves 2 * Bn * Hk * D
 // elements in and as many out (196 KB each way for a Qwen2.5-7B half batch
-// of 96 rows in bf16); kv_append_q8 moves 2 * B * Hk * (D + 4)
-// bytes in and as many out (4.2 KB at B=4 for Qwen2.5-7B); the ragged
+// of 96 rows in bf16); kv_append_all_uniform L times that for a whole batch
+// (28 layers x 192 rows: 11 MB each way, 3.3 us at 3.35 TB/s: the one
+// append that bytes, not the launch, could bound); kv_append_q8 moves
+// 2 * B * Hk * (D + 4) bytes in and as many out (4.2 KB at B=4 for
+// Qwen2.5-7B); kv_append_ragged_t 2 * B * T * Hk * D elements each way (8 KB
+// at B = 4, T = 1 in bf16; 40 KB for a verify window of 5); the ragged
 // paged append 2 * 2 * B * Hk * D bytes each way (16 KB at 8 slots, 8 KB +
 // 256 B of scales int8); the verify window T times that (80 KB at T = 5);
 // the prefill append 2 * 2 * T * Hk * D bytes each way (512 KB at T=256):
-// a few nanoseconds to ~0.3 us at 3.35 TB/s, so the launch itself (a few
-// microseconds) bounds them in practice.
+// a few nanoseconds to a few microseconds at 3.35 TB/s, so the launch
+// itself (a few microseconds) bounds them in practice.
 //
 // Design: one block per (KV head, row or token), one thread per element of
-// the head vector (kv_append_uniform: one thread per 32-bit word of it);
-// thread 0 also writes the row's two scales (int8).  The ragged append and
-// the verify window share one kernel, a loop over the row's T tokens that
-// resolves each token's page on its own, so a window that straddles two
-// pages needs nothing special.  The TPU kernels read and wrote back whole
-// bands, tiles or pages (an 8-row bf16 band, a 32-row int8 band, a
-// 128-lane scale tile, a [Hk, page, D] page block for the prefill append)
-// because their memory moves in (8/32, 128) tiles; that is tiling, not
-// semantics: here only the rows being appended are written, bit for bit,
-// and nothing else of the cache is touched.
+// the head vector (the contiguous appends: one thread per 32-bit word of
+// it; kv_append_all_uniform adds the layer as the grid's third axis, so
+// one launch covers every layer, and kv_append_ragged_t the token);
+// thread 0 also writes the row's two scales (int8).  The ragged paged
+// append and the verify window share one kernel, a loop over the row's T
+// tokens that resolves each token's page on its own, so a window that
+// straddles two pages needs nothing special.  The TPU kernels read and
+// wrote back whole bands, tiles or pages (an 8-row bf16 band, a 32-row
+// int8 band, a 128-lane scale tile, a [Hk, page, D] page block for the
+// prefill append) because their memory moves in (8/32, 128) tiles, and
+// the all-layer append double-buffers those bands across layers; that is
+// tiling, not semantics: here only the rows being appended are written,
+// bit for bit, and nothing else of the cache is touched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,22 +98,52 @@
 
 namespace {
 
+// one (KV head, row, layer) per block: blockIdx.z counts layers from layer0
 __global__ void kv_append_uniform_kernel(
     unsigned* __restrict__ k_cache, unsigned* __restrict__ v_cache,
     const unsigned* __restrict__ k_new, const unsigned* __restrict__ v_new,
-    const int* __restrict__ position_ptr, int Bc, int Hk, int S, int W,
-    int layer, int row0) {
+    const int* __restrict__ position_ptr, int Bc, int Bn, int Hk, int S,
+    int W, int layer0, int row0) {
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int position = *position_ptr;
   if (position < 0 || position >= S) return;
   const long long row =
-      (static_cast<long long>(layer) * Bc + row0 + b) * Hk + hk;
+      (static_cast<long long>(layer0 + blockIdx.z) * Bc + row0 + b) * Hk + hk;
   const long long dst = (row * S + position) * W;
-  const long long src = (static_cast<long long>(b) * Hk + hk) * W;
+  const long long src =
+      ((static_cast<long long>(blockIdx.z) * Bn + b) * Hk + hk) * W;
   for (int w = threadIdx.x; w < W; w += blockDim.x) {
     k_cache[dst + w] = k_new[src + w];
     v_cache[dst + w] = v_new[src + w];
+  }
+}
+
+// one (KV head, row, token) per block: token t goes to starts[b] + t
+__global__ void kv_append_ragged_t_kernel(
+    unsigned* __restrict__ k_cache, unsigned* __restrict__ v_cache,
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const unsigned* __restrict__ k_new, const unsigned* __restrict__ v_new,
+    const float* __restrict__ ks_new, const float* __restrict__ vs_new,
+    const int* __restrict__ starts, int Bc, int Hk, int S, int W, int T,
+    int layer) {
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t = blockIdx.z;
+  const int p0 = starts[b];
+  // a skipped row, or a token at or past the cache's end
+  if (p0 < 0 || p0 >= S || t >= S - p0) return;
+  const int p = p0 + t;
+  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
+  const long long src = (static_cast<long long>(b) * T + t) * Hk + hk;
+  const long long dst = (row * S + p) * W;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    k_cache[dst + w] = k_new[src * W + w];
+    v_cache[dst + w] = v_new[src * W + w];
+  }
+  if (k_scale != nullptr && threadIdx.x == 0) {
+    k_scale[row * S + p] = ks_new[src];
+    v_scale[row * S + p] = vs_new[src];
   }
 }
 
@@ -208,26 +262,46 @@ void launch_prefill(dim3 grid, int D, cudaStream_t st, void* k_pages,
 
 }  // namespace
 
+// kv_append_uniform (n_layers = 1 from `layer`) and kv_append_all_uniform
+// (n_layers = L from layer 0, row0 = 0) share the kernel.
+static int launch_uniform(void* k_cache, void* v_cache, const void* k_new,
+                          const void* v_new, const void* position, int L,
+                          int Bc, int Bn, int Hk, int S, int D,
+                          int elem_bytes, int layer0, int n_layers, int row0,
+                          void* stream) {
+  const int row_bytes = D * elem_bytes;
+  if (Bn <= 0 || Bn > 65535 || row0 < 0 || row0 + Bn > Bc || Hk <= 0 ||
+      D <= 0 || elem_bytes <= 0 || row_bytes % 4 || S <= 0 || layer0 < 0 ||
+      n_layers <= 0 || n_layers > 65535 || layer0 + n_layers > L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int W = row_bytes / 4;
+  dim3 grid(Hk, Bn, n_layers);
+  kv_append_uniform_kernel<<<grid, W < 256 ? W : 256, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(k_cache), static_cast<unsigned*>(v_cache),
+      static_cast<const unsigned*>(k_new), static_cast<const unsigned*>(v_new),
+      static_cast<const int*>(position), Bc, Bn, Hk, S, W, layer0, row0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int qie_kv_append_uniform(void* k_cache, void* v_cache,
                                      const void* k_new, const void* v_new,
                                      const void* position, int L, int Bc,
                                      int Bn, int Hk, int S, int D,
                                      int elem_bytes, int layer, int row0,
                                      void* stream) {
-  const int row_bytes = D * elem_bytes;
-  if (Bn <= 0 || Bn > 65535 || row0 < 0 || row0 + Bn > Bc || Hk <= 0 ||
-      D <= 0 || elem_bytes <= 0 || row_bytes % 4 || S <= 0 || layer < 0 ||
-      layer >= L) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int W = row_bytes / 4;
-  dim3 grid(Hk, Bn);
-  kv_append_uniform_kernel<<<grid, W < 256 ? W : 256, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(k_cache), static_cast<unsigned*>(v_cache),
-      static_cast<const unsigned*>(k_new), static_cast<const unsigned*>(v_new),
-      static_cast<const int*>(position), Bc, Hk, S, W, layer, row0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_uniform(k_cache, v_cache, k_new, v_new, position, L, Bc, Bn,
+                        Hk, S, D, elem_bytes, layer, 1, row0, stream);
+}
+
+extern "C" int qie_kv_append_all_uniform(void* k_cache, void* v_cache,
+                                         const void* k_new, const void* v_new,
+                                         const void* position, int L, int Bc,
+                                         int B, int Hk, int S, int D,
+                                         int elem_bytes, void* stream) {
+  return launch_uniform(k_cache, v_cache, k_new, v_new, position, L, Bc, B,
+                        Hk, S, D, elem_bytes, 0, L, 0, stream);
 }
 
 extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
@@ -260,6 +334,33 @@ static bool quant_args(const void* a, const void* b, const void* c,
   *quant = a != nullptr;
   return (b != nullptr) == *quant && (c != nullptr) == *quant &&
          (d != nullptr) == *quant;
+}
+
+// kv_append_ragged_t: the scale pointers all null for a bf16 or f32
+// cache, all given for an int8 one (elem_bytes 1).
+extern "C" int qie_kv_append_ragged_t(
+    void* k_cache, void* v_cache, void* k_scale, void* v_scale,
+    const void* k_new, const void* v_new, const void* ks_new,
+    const void* vs_new, const void* starts, int L, int Bc, int B, int T,
+    int Hk, int S, int D, int elem_bytes, int layer, void* stream) {
+  bool quant;
+  const int row_bytes = D * elem_bytes;
+  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) ||
+      (quant && elem_bytes != 1) || B <= 0 || B > 65535 || B > Bc ||
+      T <= 0 || T > 65535 || Hk <= 0 || D <= 0 || elem_bytes <= 0 ||
+      row_bytes % 4 || S <= 0 || layer < 0 || layer >= L) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int W = row_bytes / 4;
+  dim3 grid(Hk, B, T);
+  kv_append_ragged_t_kernel<<<grid, W < 256 ? W : 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(k_cache), static_cast<unsigned*>(v_cache),
+      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
+      static_cast<const unsigned*>(k_new), static_cast<const unsigned*>(v_new),
+      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
+      static_cast<const int*>(starts), Bc, Hk, S, W, T, layer);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int qie_paged_append_ragged_t(

@@ -177,7 +177,9 @@ def kv_dtype_from_bits(bits: int) -> torch.dtype:
 def write_stacked(cache: torch.Tensor, layer: int, new: torch.Tensor,
                   positions: torch.Tensor) -> None:
     """Scatter ``new [B, T, Hk, ...]`` at ``positions [B, T]`` into
-    ``cache[layer]`` (in place): the ragged decode's KV write."""
+    ``cache[layer]`` (in place): the JAX package's
+    ``contiguous_write_stacked`` (the forward's per-row writes go through
+    ``ops/kv_append.kv_append_ragged_t``)."""
     B, T = positions.shape
     rows = torch.arange(B, device=cache.device)[:, None].expand(B, T)
     # advanced indices (rows, positions) around the head slice broadcast to

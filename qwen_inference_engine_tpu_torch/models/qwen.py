@@ -25,12 +25,20 @@ Attention branches (each a kernel of the port):
   writes the fresh row and attends in one kernel (bf16 KV); INT8 KV runs
   ``quantize_kv``, ``kv_append_uniform_q8``, then
   ``decode_attention_contiguous_q8``;
-* ragged decode: the plain stacked scatter (quantizing for INT8 KV), then
-  ``decode_attention_contiguous[_q8]`` with per-row lengths;
+* ragged decode: ``kv_append_ragged_t`` writes each row's K/V at its own
+  position (``quantize_kv``'s bytes and scales for INT8 KV, in the same
+  launch), then ``decode_attention_contiguous[_q8]`` with per-row lengths;
 * the speculative verify (``ragged_multi``: T > 1 consecutive positions
-  from a per-row start): the plain per-row window write (quantizing for
-  INT8 KV), then ``chunk_attention_contiguous[_q8]`` with the per-row
-  starts on the device.
+  from a per-row start): ``kv_append_ragged_t`` writes each row's window,
+  then ``chunk_attention_contiguous[_q8]``, both with the per-row starts
+  on the device;
+* the deferred-append decode (``deferred_append``, an ablation no entry
+  point dispatches: the branch the JAX forward dropped after measuring it
+  slower on its chip): an aligned batch over a bf16 cache attends with
+  ``decode_attention_contiguous_fresh`` (the cache's old tokens, and the
+  current token from the layer's own K/V), keeps every layer's fresh K/V,
+  and writes all of them after the layer loop with one
+  ``kv_append_all_uniform`` launch.
 
 Over the paged cache (``PagedKVCache`` with ``block_tables [B, max_pages]``,
 the serving scheduler's path; bf16, int8 or f32 pages; an int8 pool's
@@ -79,7 +87,6 @@ from qwen_inference_engine_tpu_torch.kvcache.cache import (
     KVCache,
     PagedKVCache,
     write_prefill_stacked,
-    write_stacked,
     write_window_stacked,
 )
 from qwen_inference_engine_tpu_torch.ops.chunk_attention import (
@@ -91,6 +98,7 @@ from qwen_inference_engine_tpu_torch.ops.chunk_attention import (
 from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_appending,
     decode_attention_contiguous,
+    decode_attention_contiguous_fresh,
     decode_attention_contiguous_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.flash_attention import flash_attention
@@ -105,6 +113,8 @@ from qwen_inference_engine_tpu_torch.ops.grouped_matmul import (
     grouped_quant_matmul_supported,
 )
 from qwen_inference_engine_tpu_torch.ops.kv_append import (
+    kv_append_all_uniform,
+    kv_append_ragged_t,
     kv_append_uniform,
     kv_append_uniform_q8,
     paged_append_prefill,
@@ -426,13 +436,49 @@ def _paged_attention(cache: PagedKVCache, layer: int, q, k, v,
     return attend(q, *pools, *scales, block_tables, layer, start, ps)
 
 
+def _append_rows(cache: KVCache, layer: int, k, v, starts) -> None:
+    """``kv_append_ragged_t`` of this layer's ``k / v [B, T, Hk, D]`` at the
+    per-row starts on the device; an int8 cache takes ``quantize_kv``'s
+    bytes and scales in the same launch."""
+    if not cache.quantized:
+        kv_append_ragged_t(cache.k, cache.v, k, v, starts, layer)
+        return
+    qk, sk = quantize_kv(k)
+    qv, sv = quantize_kv(v)
+    kv_append_ragged_t(cache.k, cache.v, qk, qv, starts, layer,
+                       k_scale=cache.k_scale, v_scale=cache.v_scale,
+                       ks_new=sk, vs_new=sv)
+
+
+def _check_deferred(cache, T: int, fresh_prefill: bool,
+                    uniform_decode: bool) -> None:
+    """The deferred-append decode's requirements, each named when it is
+    not met."""
+    if isinstance(cache, PagedKVCache) or cache.quantized:
+        raise ValueError("deferred_append needs a contiguous unquantized "
+                         "cache (the fresh-merge kernel has no int8 or paged "
+                         "form)")
+    cpu = cache.k.device.type == "cpu"
+    if not (cache.k.dtype == torch.bfloat16
+            or (cpu and cache.k.dtype == torch.float32)):
+        raise ValueError(f"deferred_append needs a bf16 cache (f32 on the "
+                         f"CPU), not {cache.k.dtype} on {cache.k.device}")
+    if fresh_prefill or T != 1:
+        raise ValueError(f"deferred_append is a decode step: T == 1, not "
+                         f"{T}{' (a fresh prefill)' if fresh_prefill else ''}")
+    if not uniform_decode:
+        raise ValueError("deferred_append needs an aligned batch "
+                         "(uniform_decode=True): every row at one position")
+
+
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, cache, *,
                    block_tables: Optional[torch.Tensor] = None,
                    fresh_prefill: bool = False,
                    uniform_decode: bool = False,
                    ragged_multi: bool = False,
-                   start: Optional[int] = None):
+                   start: Optional[int] = None,
+                   deferred_append: bool = False):
     """Run the transformer stack; returns (hidden [B, T, D], cache).
 
     tokens / positions: [B, T].  The cache (a ``KVCache``, or a
@@ -444,12 +490,18 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions[:, 0] + j``): the speculative verify forward.  start: a
     prefill continuation chunk (T > 1, not fresh, not ragged_multi) gives
     its first position as a host int; every row's positions are
-    ``start..start+T-1``.
+    ``start..start+T-1``.  deferred_append: the deferred-append decode (a
+    uniform decode step, T = 1, over a contiguous bf16 cache, or f32 on the
+    CPU): each layer attends with the current token merged from its own
+    K/V, and one launch writes every layer's K/V after the loop.
     """
     B, T = tokens.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     act = cfg.act_bits
+    if deferred_append:
+        _check_deferred(cache, T, fresh_prefill, uniform_decode)
+        fresh_k, fresh_v = [], []
     if ragged_multi and (fresh_prefill or T < 2):
         raise ValueError("ragged_multi is the verify of T > 1 tokens over a "
                          "filled cache")
@@ -503,8 +555,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         elif continuation or ragged_multi:
             if ragged_multi:
                 # per-row windows: the rows' starts stay on the device
-                cache.write(l, k, v, functools.partial(
-                    write_stacked, positions=positions))
+                _append_rows(cache, l, k, v, row_pos)
             else:
                 cache.write(l, k, v, functools.partial(write_window_stacked,
                                                        start=start))
@@ -524,16 +575,19 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                      cache.v_scale, qk, qv, sk, sv, position,
                                      l)
             else:
-                cache.write(l, k, v, functools.partial(
-                    write_stacked, positions=positions))
+                _append_rows(cache, l, k, v, row_pos)
             attn = decode_attention_contiguous_q8(
                 q, cache.k, cache.v, cache.k_scale, cache.v_scale, l, lengths)
+        elif deferred_append:
+            attn = decode_attention_contiguous_fresh(q, cache.k, cache.v, k, v,
+                                                     l, row_pos)
+            fresh_k.append(k)
+            fresh_v.append(v)
         elif uniform_decode:
             attn, _, _ = decode_attention_appending(q, cache.k, cache.v, k, v,
                                                     l, position)
         else:
-            cache.write(l, k, v, functools.partial(
-                write_stacked, positions=positions))
+            _append_rows(cache, l, k, v, row_pos)
             attn = decode_attention_contiguous(q, cache.k, cache.v, l, lengths)
 
         o = apply_linear(attn.reshape(B, T, Hq * Dh), lyr["o"], l, act)
@@ -556,6 +610,9 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             up = apply_linear(h, lyr["up"], l, act)
             d = apply_linear(F.silu(gate) * up, lyr["down"], l, act)
         x = x + d
+    if deferred_append:
+        kv_append_all_uniform(cache.k, cache.v, torch.stack(fresh_k),
+                              torch.stack(fresh_v), position)
     return rms_norm(x, params["final_norm"], eps), cache
 
 
@@ -625,14 +682,16 @@ def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, cache, block_tables=None, *,
-                uniform_decode: bool = False):
+                uniform_decode: bool = False, deferred_append: bool = False):
     """One decode step for every sequence: tokens [B] at positions [B]
     (a paged cache takes ``block_tables [B, max_pages]``).  Returns
-    (logits [B, V], cache)."""
+    (logits [B, V], cache).  deferred_append: ``forward_hidden``'s
+    deferred-append decode (with ``uniform_decode``)."""
     hidden, cache = forward_hidden(params, cfg, tokens[:, None],
                                    positions[:, None], cache,
                                    block_tables=block_tables,
-                                   uniform_decode=uniform_decode)
+                                   uniform_decode=uniform_decode,
+                                   deferred_append=deferred_append)
     return compute_logits(params, hidden[:, 0], cfg.act_bits_lm_head), cache
 
 

@@ -61,6 +61,10 @@ SIGNATURES = {
     # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
     "qie_decode_attention_q8": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, old_lengths, k_new, v_new, out,
+    # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
+    "qie_decode_attention_fresh": [_P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_cache, v_cache, k_scale, v_scale, starts, out,
     # L, Bc, B, T, Hq, Hk, S, D, layer, start, scale, stream
     "qie_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,
@@ -69,6 +73,14 @@ SIGNATURES = {
     # elem_bytes, layer, row0, stream
     "qie_kv_append_uniform": [_P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # k_cache, v_cache, k_new, v_new, position, L, Bc, B, Hk, S, D,
+    # elem_bytes, stream
+    "qie_kv_append_all_uniform": [_P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
+    # starts, L, Bc, B, T, Hk, S, D, elem_bytes, layer, stream
+    "qie_kv_append_ragged_t": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, wg, sg, wu, su, wd, sd, g_ws, h_ws, y, M, K, F, gs_gate, gs_down,
     # layer, L, stream
     "qie_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -79,6 +91,11 @@ SIGNATURES = {
     "qie_fused_attn_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, lens, attn, x, w, scales, y, Lc, Bc, Ba, Hq, Hk,
+    # S, row0, M, K, N, gs, layer, L, scale, stream
+    "qie_fused_attn_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _P],
     # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
     # position, L, Bc, B, Hk, S, D, layer, stream
     "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

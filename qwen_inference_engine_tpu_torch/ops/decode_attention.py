@@ -1,6 +1,6 @@
 """T=1 GQA flash decode over the stacked contiguous KV cache.
 
-The three wrappers launch the CUDA kernel ``csrc/decode_attention.cu``:
+The four wrappers launch the CUDA kernel ``csrc/decode_attention.cu``:
 
 * ``decode_attention_contiguous`` (the port of the JAX package's
   ``decode_attention_contiguous`` / ``_decode_kernel``): per-row lengths,
@@ -10,7 +10,13 @@ The three wrappers launch the CUDA kernel ``csrc/decode_attention.cu``:
   writes the fresh K/V row into the cache in place and attends over it;
 * ``decode_attention_contiguous_q8`` (the port of
   ``decode_attention_contiguous_q8`` / ``_decode_kernel_q8``): per-row
-  lengths over an int8 cache with f32 scales (INT8 KV, every decode step).
+  lengths over an int8 cache with f32 scales (INT8 KV, every decode step);
+* ``decode_attention_contiguous_fresh`` (the port of
+  ``decode_attention_contiguous_fresh`` / ``_decode_kernel_fresh``): per-row
+  old lengths (the current token excluded) over a bf16 cache, with the
+  current token's K/V merged into the softmax from the inputs, never read
+  from the cache: the deferred-append decode step's attention.  There is no
+  int8 form (the JAX kernel has none).
 
 ``*_plain`` beside each computes the same function with the plain oracle.
 The cache is ``[L, Bc, Hk, S, D]``; ``row0`` (the pipeline-parallel batch
@@ -171,6 +177,72 @@ def decode_attention_appending(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention_appending.launches = 0
+
+
+def decode_attention_contiguous_fresh_plain(q, k_cache, v_cache, k_new,
+                                            v_new, layer: int, old_lengths):
+    """q [B, 1, Hq, D] (rounded to the cache's type, as ``k/v_new [B, 1, Hk,
+    D]``) over the first ``old_lengths[b]`` keys of ``cache[layer, b]`` and
+    the fresh key and value: a copy of the layer's rows with the fresh row
+    written at ``old_lengths[b]`` (one slot longer where a row's old tokens
+    fill the cache), attended as ``decode_attention_appending_plain`` does.
+    The cache is not written.  Returns [B, 1, Hq, D] in q's dtype."""
+    B = q.shape[0]
+    S = k_cache.shape[3]
+    dt = k_cache.dtype
+    lens = old_lengths.to(q.device).long()
+    rows = torch.arange(B, device=q.device)
+    pad = int(bool((lens >= S).any()))
+    layers = []
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        part = torch.nn.functional.pad(cache[layer:layer + 1, :B],
+                                       (0, 0, 0, pad))
+        part[0, rows, :, lens] = new[:, 0].to(dt)
+        layers.append(part)
+    return decode_attention_contiguous_plain(q.to(dt), *layers, 0,
+                                             lens + 1).to(q.dtype)
+
+
+def decode_attention_contiguous_fresh(q: torch.Tensor, k_cache: torch.Tensor,
+                                      v_cache: torch.Tensor,
+                                      k_new: torch.Tensor,
+                                      v_new: torch.Tensor, layer: int,
+                                      old_lengths: torch.Tensor
+                                      ) -> torch.Tensor:
+    """Attention of ``q [B, 1, Hq, D]`` over the first ``old_lengths[b]``
+    keys of the bf16 ``cache[layer, b]`` (the current token not yet
+    written) and the current token's ``k/v_new [B, 1, Hk, D]``; the cache
+    is only read.  Returns [B, 1, Hq, D].  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return decode_attention_contiguous_fresh_plain(
+            q, k_cache, v_cache, k_new, v_new, layer, old_lengths)
+    name = "decode_attention_contiguous_fresh"
+    if k_cache.dtype == torch.int8:
+        raise TypeError(f"{name} has no int8 form (the JAX kernel has none): "
+                        f"bf16 caches only")
+    _check_decode_args(name, q, k_cache, v_cache, layer)
+    B, _, Hq, D = q.shape
+    L, Bc, Hk, S, _ = k_cache.shape
+    for t in (k_new, v_new):
+        if t.shape != (B, 1, Hk, D) or t.device != q.device:
+            raise ValueError(f"{name}: k_new/v_new must be {(B, 1, Hk, D)} "
+                             f"on the device of q")
+    lens = _check_lengths(old_lengths, q)
+    kn = k_new.to(torch.bfloat16).contiguous()
+    vn = v_new.to(torch.bfloat16).contiguous()
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    rc = cuda_lib.library().qie_decode_attention_fresh(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        kn.data_ptr(), vn.data_ptr(), out.data_ptr(), L, Bc, B, Hq, Hk, S, D,
+        int(layer), D ** -0.5, cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, name)
+    decode_attention_contiguous_fresh.launches += 1
+    return out
+
+
+decode_attention_contiguous_fresh.launches = 0
 
 
 def decode_attention_contiguous_q8_plain(q, k_cache, v_cache, k_scale,

@@ -1,7 +1,8 @@
-"""Fused decode kernels: the single-pass INT4 SwiGLU MLP, and one batch
-half's decode attention beside the other half's MLP in one launch.
+"""Fused decode kernels: the single-pass INT4 SwiGLU MLP, one batch half's
+decode attention beside the other half's MLP in one launch, and decode
+attention beside one INT4 matmul.
 
-Two CUDA kernels of ``csrc/fused_step.cu``, each the port of one Pallas
+Three CUDA kernels of ``csrc/fused_step.cu``, each the port of one Pallas
 kernel of the JAX package's ``ops/fused_step.py``, each with a plain
 PyTorch version beside it:
 
@@ -15,12 +16,19 @@ PyTorch version beside it:
   decode attention of the cache rows ``[row0, row0 + Ba)`` at layer
   ``layer_a`` (the port's decode attention numerics: f32 online softmax
   over the first ``lens[b]`` keys), and ``fused_mlp`` of layer ``layer_m``
-  on an independent x; ``decode_step_pumped`` runs it twice a layer.
+  on an independent x; ``decode_step_pumped`` runs it twice a layer;
+* ``fused_attn_matmul`` (``fused_attn_matmul`` /
+  ``_fused_attn_matmul_kernel``, the JAX package's first fused prototype):
+  the same decode attention beside ``y = x @ W4[layer]`` (W4A16, the
+  output rounded to bf16) at the same layer, in one launch.  No entry
+  point dispatches it: ``chip_smoke.py``'s ``[probe fused]``, the port of
+  ``scripts/probe_fused.py``, measures how much of the two it overlaps.
 
 The TPU kernels carry the down projection's sum from one grid step to the
-next; on the card blocks run in no order, so both kernels run in two
+next; on the card blocks run in no order, so both MLP kernels run in two
 passes: gate / up / h into a workspace, then the down projection (the
-second launch).  The query heads are the G real ones: the JAX package
+second launch); ``fused_attn_matmul`` carries no sum across blocks and is
+one launch.  The query heads are the G real ones: the JAX package
 pads them to G8 = 8 for the TPU's layout.  A wrapper runs its plain
 version only for a CPU tensor; for any other it checks types, shapes and
 the device, then launches its kernel or raises.
@@ -36,6 +44,10 @@ from qwen_inference_engine_tpu_torch.ops.decode_attention import (
     decode_attention_contiguous_plain,
 )
 from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, quant_matmul
+from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
+    _check as check_matmul,
+    quant_matmul4_plain,
+)
 
 
 def fused_mlp_supported(gate, up, down, m: int) -> bool:
@@ -135,6 +147,37 @@ def _check_mlp(name, x, wg, sg, wu, su, wd, sd, layer, gs_gate, gs_down):
     return M, K, F_, L
 
 
+def _check_attn(name, lens, layer, q, k_cache, v_cache, x, row0):
+    """The checks of the attention operands of the fused launches on a
+    non-CPU tensor; returns (q in bf16, lens in int32), contiguous."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"{name} takes q [Ba, 1, Hq, D], not "
+                         f"{tuple(q.shape)}")
+    Ba, _, Hq, D = q.shape
+    Lc, Bc, Hk, S, Dc = k_cache.shape
+    if (Dc != D or v_cache.shape != k_cache.shape or Hq % Hk
+            or Hq // Hk > 8 or not 0 <= row0 or row0 + Ba > Bc):
+        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}, row0 {row0} (G <= 8, rows "
+                         f"inside the cache)")
+    if D != 128:
+        raise ValueError(f"{name} kernel takes D == 128, not {D}")
+    if not 0 <= layer < Lc:
+        raise IndexError(f"layer {layer} out of range for {Lc} layers")
+    for t in (k_cache, v_cache):
+        if t.dtype != torch.bfloat16 or t.device != q.device:
+            raise TypeError(f"{name} takes bf16 caches on the device of q, "
+                            f"not {t.dtype} on {t.device}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous caches")
+    if lens.shape != (Ba,) or lens.device != q.device:
+        raise ValueError("lens must be [Ba] on the device of q")
+    if x.device != q.device:
+        raise ValueError(f"{name} needs x on the device of q")
+    return (q.to(torch.bfloat16).contiguous(),
+            lens.to(torch.int32).contiguous())
+
+
 def fused_mlp(x: torch.Tensor, wg: torch.Tensor, sg: torch.Tensor,
               wu: torch.Tensor, su: torch.Tensor, wd: torch.Tensor,
               sd: torch.Tensor, layer: int, *, gs_gate: int,
@@ -183,35 +226,13 @@ def fused_attn_mlp(lens: torch.Tensor, layer_a: int, layer_m: int,
                                     gs_gate=gs_gate, gs_down=gs_down,
                                     row0=row0)
     name = "fused_attn_mlp"
-    if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"{name} takes q [Ba, 1, Hq, D], not "
-                         f"{tuple(q.shape)}")
-    Ba, _, Hq, D = q.shape
-    Lc, Bc, Hk, S, Dc = k_cache.shape
-    if (Dc != D or v_cache.shape != k_cache.shape or Hq % Hk
-            or Hq // Hk > 8 or not 0 <= row0 or row0 + Ba > Bc):
-        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, cache "
-                         f"{tuple(k_cache.shape)}, row0 {row0} (G <= 8, rows "
-                         f"inside the cache)")
-    if D != 128:
-        raise ValueError(f"{name} kernel takes D == 128, not {D}")
-    if not 0 <= layer_a < Lc:
-        raise IndexError(f"layer {layer_a} out of range for {Lc} layers")
-    for t in (k_cache, v_cache):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise TypeError(f"{name} takes bf16 caches on the device of q, "
-                            f"not {t.dtype} on {t.device}")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError(f"{name} needs contiguous caches")
-    if lens.shape != (Ba,) or lens.device != q.device:
-        raise ValueError("lens must be [Ba] on the device of q")
-    if x.device != q.device:
-        raise ValueError(f"{name} needs x on the device of q")
+    qb, lens32 = _check_attn(name, lens, layer_a, q, k_cache, v_cache, x,
+                             row0)
     M, K, F_, L = _check_mlp(name, x, wg, sg, wu, su, wd, sd, layer_m,
                              gs_gate, gs_down)
+    Ba, _, Hq, D = q.shape
+    Lc, Bc, Hk, S, _ = k_cache.shape
     dev = q.device
-    qb = q.to(torch.bfloat16).contiguous()
-    lens32 = lens.to(torch.int32).contiguous()
     xb = x.to(torch.bfloat16).contiguous()
     attn = torch.empty_like(qb)
     g_ws = torch.empty((M, F_), dtype=torch.float32, device=dev)
@@ -230,3 +251,67 @@ def fused_attn_mlp(lens: torch.Tensor, layer_a: int, layer_m: int,
 
 
 fused_attn_mlp.launches = 0
+
+
+def fused_attn_matmul_plain(lens, layer: int, q, k_cache, v_cache, x, wq,
+                            wscales, *, group_size: int, row0: int = 0):
+    """Plain version of ``fused_attn_matmul``: ``decode_attention_contiguous``
+    of ``q [Ba, 1, Hq, D]`` (rounded to bf16) over the cache rows
+    ``[row0, row0 + Ba)`` of ``layer``, and ``bf16(x @ W4[layer])`` (x
+    rounded to bf16; the W4A16 matmul's plain version) in x's dtype.
+    Returns ``(attn [Ba, 1, Hq, D] bf16, y [Mb, N])``."""
+    Ba = q.shape[0]
+    rows = slice(row0, row0 + Ba)
+    attn = decode_attention_contiguous_plain(
+        q.to(torch.bfloat16), k_cache[layer:layer + 1, rows],
+        v_cache[layer:layer + 1, rows], 0, lens)
+    y = quant_matmul4_plain(x.to(torch.bfloat16), wq, wscales, layer,
+                            group_size)
+    return attn, y.to(x.dtype)
+
+
+def fused_attn_matmul(lens: torch.Tensor, layer: int, q: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      x: torch.Tensor, wq: torch.Tensor,
+                      wscales: torch.Tensor, *, group_size: int,
+                      row0: int = 0):
+    """Decode attention of ``q [Ba, 1, Hq, D]`` over the first ``lens[b]``
+    keys of the cache rows ``row0 + b`` of ``layer`` (caches ``[L, Bc, Hk,
+    S, D]``), and ``y = x [Mb, K] @ W4[layer]`` over the stacked INT4
+    plane-pair weight ``wq [L, K/2, N]`` with scales ``wscales [L, K/gs,
+    N]``, in one launch.  Returns ``(attn [Ba, 1, Hq, D] bf16, y [Mb, N] in
+    x's dtype)``.  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return fused_attn_matmul_plain(lens, layer, q, k_cache, v_cache, x,
+                                       wq, wscales, group_size=group_size,
+                                       row0=row0)
+    name = "fused_attn_matmul"
+    qb, lens32 = _check_attn(name, lens, layer, q, k_cache, v_cache, x, row0)
+    if x.dim() != 2 or not x.is_floating_point():
+        raise ValueError(f"{name} takes floating-point x [Mb, K], not "
+                         f"{x.dtype} {tuple(x.shape)}")
+    xb = x.to(torch.bfloat16).contiguous()
+    gs = group_size
+    K = xb.shape[1]
+    check_matmul(name, xb, None, wq, wscales, layer, x_dtype=torch.bfloat16,
+                 k_per_row=2, gs=gs, gs_rule="gs % 32 == 0, K % (2*gs) == 0",
+                 gs_ok=gs > 0 and gs % 32 == 0 and K % (2 * gs) == 0
+                 and wscales.shape[1] == K // gs, n_mult=64)
+    Ba, _, Hq, D = q.shape
+    Lc, Bc, Hk, S, _ = k_cache.shape
+    M, N = xb.shape[0], wq.shape[2]
+    attn = torch.empty_like(qb)
+    y = torch.empty((M, N), dtype=torch.bfloat16, device=q.device)
+    rc = cuda_lib.library().qie_fused_attn_matmul(
+        qb.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lens32.data_ptr(), attn.data_ptr(), xb.data_ptr(), wq.data_ptr(),
+        wscales.data_ptr(), y.data_ptr(), Lc, Bc, Ba, Hq, Hk, S, int(row0), M,
+        K, N, gs, int(layer), wq.shape[0], D ** -0.5,
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, name)
+    fused_attn_matmul.launches += 1
+    return attn, y.to(x.dtype)
+
+
+fused_attn_matmul.launches = 0

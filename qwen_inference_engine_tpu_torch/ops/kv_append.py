@@ -1,4 +1,4 @@
-"""In-place KV appends: bf16 and INT8 decode into the contiguous cache,
+"""In-place KV appends: bf16 and INT8 rows into the contiguous cache,
 bf16 or int8 rows into the page pool.
 
 Each wrapper launches a kernel of ``csrc/kv_append.cu``:
@@ -9,6 +9,18 @@ Each wrapper launches a kernel of ``csrc/kv_append.cu``:
   double-pumped decode appends each half this way); the rows are copied
   bit for bit and nothing else of the cache is touched (the TPU kernel
   rewrites the 8-row band around the position, for its tiling);
+* ``kv_append_all_uniform`` (the port of ``kv_append_all_uniform`` /
+  ``_append_all_kernel``): every layer's fresh K/V row ``[L, B, Hk, D]``
+  at one shared position in one launch, the deferred-append decode step's
+  write after its layer loop (``models/qwen.forward_hidden(...,
+  deferred_append=True)``, an ablation no entry point dispatches);
+* ``kv_append_ragged_t`` (the port of ``kv_append_ragged_t`` /
+  ``_ragged_t_kernel``): T consecutive K/V rows per batch row at a per-row
+  start on the device into one layer of the contiguous cache, bf16 (f32)
+  or int8 with the scales in the same launch: the ragged decode's write
+  (T = 1) and the contiguous verify's window (T = k + 1).  A negative
+  start skips the row; a token at or past S is dropped, as the JAX
+  kernel (its band clamped to the cache's end) never selects it;
 * ``kv_append_uniform_q8`` (the port of the JAX package's
   ``kv_append_uniform_q8`` / ``_uniform_append_q8_kernel``): every row of
   an aligned batch writes its quantized K/V row and the two scales at one
@@ -30,7 +42,8 @@ The paged appends take a bf16 pool with bf16 rows, or an int8 pool with
 the quantized rows and their f32 scales (``quantize_kv``): the kernel
 writes the bytes and the scales ``[L, P, Hk, page]`` in one launch, where
 the JAX package runs its kernels on the bytes and scatters the scales with
-XLA.  ``*_plain`` beside each is the plain indexed write.  The paged
+XLA; ``kv_append_ragged_t`` does the same for the contiguous int8 cache.
+``*_plain`` beside each is the plain indexed write.  The paged
 appends follow the table as it is (zero entries lead to scratch page 0, as
 bucket padding does in the JAX package); a position past the table's width
 writes nothing, as the JAX scatter drops it.
@@ -87,19 +100,8 @@ def kv_append_uniform(k_cache: torch.Tensor, v_cache: torch.Tensor,
                          f"{tuple(k_new.shape)}, rows from {row0}")
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} out of range for {L} layers")
-    if k_cache.dtype not in (torch.bfloat16, torch.float32) \
-            or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"{name} takes bf16 or f32 caches, not "
-                        f"{k_cache.dtype} (int8: kv_append_uniform_q8)")
-    for t in (k_cache, v_cache, k_new, v_new):
-        if t.device != dev:
-            raise TypeError(f"{name} takes K/V on the cache's device, not "
-                            f"{t.device}")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError(f"{name} needs contiguous caches")
-    if (D * k_cache.element_size()) % 4:
-        raise ValueError(f"{name} copies 32-bit words: D * element size "
-                         f"must be a multiple of 4")
+    _check_float_cache(name, k_cache, v_cache, (k_new, v_new),
+                       "int8: kv_append_uniform_q8")
     pos = device_position(position, S, dev)
     kn = k_new.to(k_cache.dtype).contiguous()
     vn = v_new.to(v_cache.dtype).contiguous()
@@ -113,6 +115,163 @@ def kv_append_uniform(k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 kv_append_uniform.launches = 0
+
+
+def kv_append_all_uniform_plain(k_cache, v_cache, k_new, v_new, position):
+    """Write every layer's ``k/v_new [L, B, (1,) Hk, D]`` at ``position`` of
+    ``cache[:, :B]`` (in place); returns the caches."""
+    L, _, Hk, _, D = k_cache.shape
+    p = int(position)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        new = new.reshape(L, -1, Hk, D)
+        cache[:, :new.shape[1], :, p] = new.to(cache.dtype)
+    return k_cache, v_cache
+
+
+def kv_append_all_uniform(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          k_new: torch.Tensor, v_new: torch.Tensor,
+                          position: Union[int, torch.Tensor]):
+    """Deferred all-layer append: every layer's fresh ``k/v_new [L, B, Hk,
+    D]`` (or ``[L, B, 1, Hk, D]``; cast to the cache's type) at the one
+    ``position`` (an int, or a 1-element tensor read on the device) of the
+    rows ``[0, B)`` of the bf16 or f32 caches ``[L, Bc, Hk, S, D]``, in
+    place, in one launch.  An int8 cache is refused: the JAX kernel writes
+    no scales.  Returns the same two tensors.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if k_cache.device.type == "cpu":
+        return kv_append_all_uniform_plain(k_cache, v_cache, k_new, v_new,
+                                           position)
+    name = "kv_append_all_uniform"
+    L, Bc, Hk, S, D = k_cache.shape
+    B = k_new.shape[1] if k_new.dim() >= 2 else 0
+    if k_new.shape not in ((L, B, Hk, D), (L, B, 1, Hk, D)) \
+            or v_new.shape != k_new.shape or v_cache.shape != k_cache.shape \
+            or not 1 <= B <= min(Bc, 65535) or L > 65535:
+        raise ValueError(f"{name} shapes: cache {tuple(k_cache.shape)}, new "
+                         f"{tuple(k_new.shape)} (want [L, B <= Bc, (1,) Hk, "
+                         f"D])")
+    _check_float_cache(name, k_cache, v_cache, (k_new, v_new),
+                       "int8 caches: the kernel writes no scales")
+    pos = device_position(position, S, k_cache.device)
+    kn = k_new.reshape(L, B, Hk, D).to(k_cache.dtype).contiguous()
+    vn = v_new.reshape(L, B, Hk, D).to(v_cache.dtype).contiguous()
+    rc = cuda_lib.library().qie_kv_append_all_uniform(
+        k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+        pos.data_ptr(), L, Bc, B, Hk, S, D, k_cache.element_size(),
+        cuda_lib.stream_handle(k_cache.device))
+    cuda_lib.check(rc, name)
+    kv_append_all_uniform.launches += 1
+    return k_cache, v_cache
+
+
+kv_append_all_uniform.launches = 0
+
+
+def _check_float_cache(name, k_cache, v_cache, news, int8_note) -> None:
+    """bf16 or f32 contiguous caches, rows of 32-bit words, and the new
+    rows on the caches' device."""
+    if k_cache.dtype not in (torch.bfloat16, torch.float32) \
+            or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{name} takes bf16 or f32 caches, not "
+                        f"{k_cache.dtype} ({int8_note})")
+    for t in (v_cache, *news):
+        if t.device != k_cache.device:
+            raise TypeError(f"{name} takes K/V on the cache's device, not "
+                            f"{t.device}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous caches")
+    if (k_cache.shape[-1] * k_cache.element_size()) % 4:
+        raise ValueError(f"{name} copies 32-bit words: D * element size "
+                         f"must be a multiple of 4")
+
+
+def kv_append_ragged_t_plain(k_cache, v_cache, k_new, v_new, starts,
+                             layer: int, k_scale=None, v_scale=None,
+                             ks_new=None, vs_new=None):
+    """Write row b's ``k/v_new [B, T, Hk, D]`` (and for an int8 cache the
+    scales ``ks/vs_new [B, T, Hk]``) at ``starts[b] .. starts[b] + T - 1``
+    of ``cache[layer, b]`` (in place): a negative start skips the row, a
+    token at or past S is dropped.  Returns the caches."""
+    S = k_cache.shape[3]
+    pairs = [(k_cache, k_new), (v_cache, v_new)]
+    if k_scale is not None:
+        pairs += [(k_scale[..., None], ks_new[..., None]),
+                  (v_scale[..., None], vs_new[..., None])]
+    for b, p in enumerate(starts.tolist()):
+        if not 0 <= p < S:
+            continue
+        n = min(k_new.shape[1], S - p)
+        for cache, new in pairs:
+            cache[layer, b, :, p:p + n] = new[b, :n].transpose(0, 1).to(
+                cache.dtype)
+    return k_cache, v_cache
+
+
+def kv_append_ragged_t(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       starts: torch.Tensor, layer: int, k_scale=None,
+                       v_scale=None, ks_new=None, vs_new=None):
+    """Ragged window append into the stacked contiguous caches ``[L, Bc, Hk,
+    S, D]``, in place: row b's ``k/v_new [B, T, Hk, D]`` at ``starts[b] ..
+    starts[b] + T - 1`` of ``cache[layer, b]`` for rows ``b < B``;
+    ``starts [B]`` stays on the device (read by the kernel).  A negative
+    start skips the row; tokens at or past S are dropped.  A bf16 or f32
+    cache takes rows cast to its type; an int8 cache takes int8 rows with
+    their f32 scales ``ks/vs_new [B, T, Hk]`` and its own ``k/v_scale
+    [L, Bc, Hk, S]``.  Returns the two caches.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if k_cache.device.type == "cpu":
+        return kv_append_ragged_t_plain(k_cache, v_cache, k_new, v_new,
+                                        starts, layer, k_scale, v_scale,
+                                        ks_new, vs_new)
+    name = "kv_append_ragged_t"
+    L, Bc, Hk, S, D = k_cache.shape
+    B, T = k_new.shape[:2] if k_new.dim() == 4 else (0, 0)
+    if k_new.shape != (B, T, Hk, D) or v_new.shape != k_new.shape \
+            or v_cache.shape != k_cache.shape or not 1 <= B <= min(Bc, 65535) \
+            or not 1 <= T <= 65535:
+        raise ValueError(f"{name} shapes: cache {tuple(k_cache.shape)}, new "
+                         f"{tuple(k_new.shape)} (want [B <= Bc, T, Hk, D])")
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} out of range for {L} layers")
+    dev = k_cache.device
+    if k_cache.dtype == torch.int8:
+        for t in (v_cache, k_new, v_new):
+            if t.dtype != torch.int8 or t.device != dev:
+                raise TypeError(f"{name} into an int8 cache takes int8 K/V "
+                                f"rows (quantize_kv) on its device, not "
+                                f"{t.dtype} on {t.device}")
+        if k_scale is None or v_scale is None:
+            raise ValueError(f"{name}: an int8 cache needs its f32 scales")
+        check_scales(name, k_cache, k_scale, v_scale)
+        ksn, vsn = _check_new_scales(name, k_new, (k_scale, v_scale), ks_new,
+                                     vs_new)
+        kn, vn = k_new.contiguous(), v_new.contiguous()
+        if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+            raise ValueError(f"{name} needs contiguous caches")
+    else:
+        if any(t is not None for t in (k_scale, v_scale, ks_new, vs_new)):
+            raise ValueError(f"{name}: scales go with an int8 cache only")
+        _check_float_cache(name, k_cache, v_cache, (k_new, v_new),
+                           "or int8 with its scales")
+        kn = k_new.to(k_cache.dtype).contiguous()
+        vn = v_new.to(v_cache.dtype).contiguous()
+        ksn = vsn = None
+    if starts.shape != (B,) or starts.device != dev:
+        raise ValueError(f"{name}: starts must be [{B}] on the cache's "
+                         f"device")
+    st = starts.to(torch.int32).contiguous()
+    rc = cuda_lib.library().qie_kv_append_ragged_t(
+        k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+        kn.data_ptr(), vn.data_ptr(), _ptr(ksn), _ptr(vsn), st.data_ptr(), L,
+        Bc, B, T, Hk, S, D, k_cache.element_size(), int(layer),
+        cuda_lib.stream_handle(dev))
+    cuda_lib.check(rc, name)
+    kv_append_ragged_t.launches += 1
+    return k_cache, v_cache
+
+
+kv_append_ragged_t.launches = 0
 
 
 def kv_append_uniform_q8_plain(k_cache, v_cache, k_scale, v_scale, k_new,

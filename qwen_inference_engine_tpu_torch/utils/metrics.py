@@ -42,7 +42,9 @@ def kernel_wrappers() -> Dict[str, Callable]:
         pa.paged_verify_attention_stacked_q8, ca.paged_chunk_attention_q8,
         ka.paged_append_ragged_t, gm.grouped_matmul4_a8, gm.grouped_matmul4,
         gm.grouped_matmul8, fs.fused_mlp, fs.fused_attn_mlp,
-        ka.kv_append_uniform]
+        ka.kv_append_uniform, ka.kv_append_ragged_t,
+        da.decode_attention_contiguous_fresh, ka.kv_append_all_uniform,
+        fs.fused_attn_matmul]
     return {w.__name__: w for w in wrappers}
 
 

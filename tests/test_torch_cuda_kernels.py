@@ -17,8 +17,15 @@ prefill-like expert sizes, odd column tiles, a padded K), the fused
 single-pass MLP, the fused attention + MLP and the uniform bf16 append of
 the double-pumped decode (tiny and Qwen2.5-7B shapes, NaN past each row's
 length, two calls bit for bit), ``decode_step_pumped`` against
-``decode_step``, the serving engine (INT8 pools and speculation too), and
-the wrappers' refusals.  On
+``decode_step``, the last four sites' kernels (the ragged window append at
+starts -1, band edges and past the cache's end in bf16, f32 and int8; the
+fresh-merge decode attention with NaN at and past each old length and
+bit-identical to the appending kernel; the all-layer append at 28 layers;
+the fused attention + matmul at the probe's shapes), the deferred-append
+decode step against ``decode_step`` bit for bit, the ragged
+``Engine.generate`` and ``generate_speculative`` through
+``kv_append_ragged_t``, the serving engine (INT8 pools and speculation
+too), and the wrappers' refusals.  On
 a GPU machine, from the repo root (this file imports no JAX, so the
 JAX-pinning conftest can be skipped):
 
@@ -1337,3 +1344,278 @@ def test_fused_wrappers_refuse_on_the_card(gen):
         ka.kv_append_uniform(k8, k8, new, new, 3, 0)
     with pytest.raises(IndexError, match="outside the cache"):
         ka.kv_append_uniform(kc, kc, new, new, 256, 0)
+
+
+# ---------------------------------------------------------------------------
+# the last four sites: the ragged window append, the fresh-merge decode
+# attention, the all-layer append, the fused attention + matmul
+# ---------------------------------------------------------------------------
+
+def _kv_cache(gen, shape, dtype):
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("T", [1, 5, 17])
+@pytest.mark.parametrize("D", [64, 128])
+def test_kv_append_ragged_t_bit_exact(gen, dtype, T, D):
+    """Rows 0..7 of a 9-row cache at starts -1 (skipped), 0, the band edges
+    7, 8, 31 and 32, S - T and S - 2 (a window past the cache's end: the
+    tokens at S and beyond are dropped); the starts on the card."""
+    L, Bc, Hk, S, layer = 2, 9, 2, 256, 1
+    starts_l = [-1, 0, 7, 8, 31, 32, S - T, S - 2]
+    B = len(starts_l)
+    kc, vc = _kv_cache(gen, (L, Bc, Hk, S, D), dtype), _kv_cache(
+        gen, (L, Bc, Hk, S, D), dtype)
+    kw = kw2 = {}
+    if dtype == torch.int8:
+        (kn, ksn), (vn, vsn) = (quantize_kv(torch.randn(
+            (B, T, Hk, D), generator=gen, device="cuda")) for _ in range(2))
+        ks = torch.rand((L, Bc, Hk, S), generator=gen, device="cuda")
+        vs = torch.rand((L, Bc, Hk, S), generator=gen, device="cuda")
+        kw = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                  vs_new=vsn)
+        kw2 = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                   vs_new=vsn)
+    else:
+        kn, vn = _bf16(gen, B, T, Hk, D), _bf16(gen, B, T, Hk, D)
+    starts = torch.tensor(starts_l, device="cuda", dtype=torch.int32)
+    mine = [kc.clone(), vc.clone()]
+    theirs = [kc.clone(), vc.clone()]
+    before = ka.kv_append_ragged_t.launches
+    got = ka.kv_append_ragged_t(*mine, kn, vn, starts, layer, **kw)
+    ref = ka.kv_append_ragged_t_plain(*theirs, kn, vn, starts, layer, **kw2)
+    assert ka.kv_append_ragged_t.launches == before + 1
+    assert got[0] is mine[0] and got[1] is mine[1]
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    if dtype == torch.int8:
+        assert torch.equal(kw["k_scale"], kw2["k_scale"])
+        assert torch.equal(kw["v_scale"], kw2["v_scale"])
+    # nothing outside the windows (and nothing of row 8) changed
+    written = torch.zeros((L, Bc, Hk, S), dtype=torch.bool, device="cuda")
+    for b, p in enumerate(starts_l):
+        if p >= 0:
+            written[layer, b, :, p:min(p + T, S)] = True
+    assert not bool(((mine[0] != kc).any(-1) & ~written).any())
+
+
+def _nan_from(cache, lens):
+    """A copy with NaN at every key position at or past lens[b] of row b
+    (every layer)."""
+    bad = cache.clone()
+    for b, n in enumerate(lens):
+        bad[:, b, :, n:] = float("nan")
+    return bad
+
+
+@pytest.mark.parametrize("B,Bc,Hk,G,D,S,lens", [
+    (3, 3, 2, 7, 128, 256, [0, 100, 255]),
+    (2, 4, 1, 5, 64, 512, [511, 7]),
+    (4, 4, 4, 8, 128, 256, [256, 64, 63, 1]),
+    (4, 4, 4, 7, 128, 1024, [0, 1023, 300, 999]),
+])
+def test_fresh_decode_attention_matches_plain(gen, B, Bc, Hk, G, D, S, lens):
+    """Per-row old lengths (0, S - 1 and S among them) with NaN at and past
+    each one in the kernel's cache: the kernel never reads the position
+    the deferred append has not written.  Within 2e-2 of the plain version
+    (bf16 output; the plain version rounds the probabilities to bf16)."""
+    L, layer = 2, 1
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    old = torch.tensor(lens, device="cuda", dtype=torch.int32)
+    kbad, vbad = _nan_from(kc, lens), _nan_from(vc, lens)
+    before = da.decode_attention_contiguous_fresh.launches
+    got = da.decode_attention_contiguous_fresh(q, kbad, vbad, kn, vn, layer,
+                                               old)
+    ref = da.decode_attention_contiguous_fresh_plain(q, kc, vc, kn, vn, layer,
+                                                     old)
+    assert da.decode_attention_contiguous_fresh.launches == before + 1
+    assert got.shape == (B, 1, G * Hk, D) and bool(got.isfinite().all())
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    # the caches are only read
+    assert torch.equal(kbad.isnan(), _nan_from(kc, lens).isnan())
+
+
+@pytest.mark.parametrize("pos", [0, 100, 255])
+def test_fresh_decode_attention_equals_the_appending_kernel(gen, pos):
+    """At one shared position the fresh merge is the appending kernel's
+    call of the same core, less the cache write: bit-identical outputs."""
+    L, B, Hk, G, D, S = 2, 3, 2, 7, 128, 256
+    kc, vc = _bf16(gen, L, B, Hk, S, D), _bf16(gen, L, B, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    fresh = da.decode_attention_contiguous_fresh(
+        q, kc, vc, kn, vn, 1, torch.full((B,), pos, device="cuda"))
+    appended, _, _ = da.decode_attention_appending(q, kc.clone(), vc.clone(),
+                                                   kn, vn, 1, pos)
+    assert torch.equal(fresh, appended)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("pos", [0, 37, 255])
+@pytest.mark.parametrize("L,B,Bc", [(3, 2, 2), (28, 5, 8)])
+def test_kv_append_all_uniform_bit_exact(gen, L, B, Bc, pos, dtype):
+    Hk, S, D = 4, 256, 128
+    kc, vc = _kv_cache(gen, (L, Bc, Hk, S, D), dtype), _kv_cache(
+        gen, (L, Bc, Hk, S, D), dtype)
+    kn, vn = _bf16(gen, L, B, 1, Hk, D), _bf16(gen, L, B, 1, Hk, D)
+    mine, theirs = [kc.clone(), vc.clone()], [kc.clone(), vc.clone()]
+    before = ka.kv_append_all_uniform.launches
+    got = ka.kv_append_all_uniform(*mine, kn, vn,
+                                   torch.tensor([pos], device="cuda"))
+    ref = ka.kv_append_all_uniform_plain(*theirs, kn, vn, pos)
+    assert ka.kv_append_all_uniform.launches == before + 1
+    assert got[0] is mine[0] and all(torch.equal(a, b)
+                                     for a, b in zip(got, ref))
+    changed = ((mine[0] != kc).any(-1) | (mine[1] != vc).any(-1)).nonzero()
+    assert bool((changed[:, 3] == pos).all()) and bool((changed[:, 1] < B).all())
+    # [L, B, Hk, D] rows and a host int position write the same
+    again = [kc.clone(), vc.clone()]
+    ka.kv_append_all_uniform(*again, kn[:, :, 0], vn[:, :, 0], pos)
+    assert torch.equal(again[0], mine[0]) and torch.equal(again[1], mine[1])
+
+
+# Ba, Bc, Hk, G, S, Mb, K, N, gs
+ATTN_MM_SHAPES = {"tiny": (4, 8, 2, 8, 256, 8, 256, 512, 64),
+                  "odd": (3, 5, 1, 5, 512, 70, 512, 192, 128),
+                  "probe": (56, 112, 4, 7, 1024, 56, 3584, 18944, 256)}
+
+
+@pytest.mark.parametrize("second", [False, True], ids=["row0 0", "row0 Ba"])
+@pytest.mark.parametrize("shape", sorted(ATTN_MM_SHAPES))
+def test_fused_attn_matmul_matches_plain(gen, shape, second):
+    Ba, Bc, Hk, G, S, Mb, K, N, gs = ATTN_MM_SHAPES[shape]
+    L, D, layer = 2, 128, 1
+    row0 = Bc - Ba if second else 0
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    lens_l = torch.randint(1, S + 1, (Ba,), generator=gen,
+                           device="cuda").tolist()
+    lens_l[0], lens_l[-1] = 1, S
+    lens = torch.tensor(lens_l, device="cuda", dtype=torch.int32)
+    rows = list(range(row0, row0 + Ba))
+    kbad, vbad = _nan_past(kc, rows, lens_l), _nan_past(vc, rows, lens_l)
+    q, x = _bf16(gen, Ba, 1, Hk * G, D), _bf16(gen, Mb, K)
+    wq = torch.randint(-128, 128, (L, K // 2, N), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ws = torch.rand((L, K // gs, N), generator=gen, device="cuda") * 0.01
+    before = fs.fused_attn_matmul.launches
+    attn, y = fs.fused_attn_matmul(lens, layer, q, kbad, vbad, x, wq, ws,
+                                   group_size=gs, row0=row0)
+    attn2, y2 = fs.fused_attn_matmul(lens, layer, q, kbad, vbad, x, wq, ws,
+                                     group_size=gs, row0=row0)
+    ref_a, ref_y = fs.fused_attn_matmul_plain(lens, layer, q, kc, vc, x, wq,
+                                              ws, group_size=gs, row0=row0)
+    assert fs.fused_attn_matmul.launches == before + 2
+    assert torch.equal(attn, attn2) and torch.equal(y, y2)
+    assert attn.shape == (Ba, 1, Hk * G, D) and y.shape == (Mb, N)
+    assert bool(attn.isfinite().all())
+    assert (attn.float() - ref_a.float()).abs().max().item() <= 2e-2
+    # the W4A16 matmul's rule: 2^-6 of the largest output
+    tol = 2 ** -6 * ref_y.float().abs().max().item()
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol
+    # above 16 rows the dense W4A16 kernel runs the same wmma tile: the
+    # same bits (at 16 rows or fewer it takes its CUDA-core tile)
+    if Mb > 16:
+        assert torch.equal(y, qm.quant_matmul4(x, wq, ws, layer, gs))
+
+
+def test_deferred_decode_step_matches_the_appending_step_on_the_card(gen):
+    """Three deferred-append decode steps of a tiny bf16 model beside three
+    decode_step(uniform_decode=True) steps from the same cache: each
+    launches the fresh attention once a layer, the all-layer append once,
+    and no appending attention; logits and caches are bit-identical (the
+    same core call, the same rows written)."""
+    cfg = tiny_config(head_dim=128)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    B, T, L = 4, 8, cfg.num_layers
+    cache = KVCache.create(L, B, 256, cfg.num_kv_heads, 128, device="cuda")
+    prompts = torch.randint(2, 512, (B, T), generator=gen, device="cuda")
+    lens = torch.full((B,), T, device="cuda")
+    logits, cache = qwen.prefill(params, cfg, prompts, lens, cache)
+    other = KVCache(k=cache.k.clone(), v=cache.v.clone())
+    tok = logits.argmax(-1)
+    wrappers = {"decode_attention_contiguous_fresh":
+                da.decode_attention_contiguous_fresh,
+                "kv_append_all_uniform": ka.kv_append_all_uniform,
+                "decode_attention_appending": da.decode_attention_appending}
+    for s in range(3):
+        for w in wrappers.values():
+            w.launches = 0
+        got, cache = qwen.decode_step(params, cfg, tok, lens + s, cache,
+                                      uniform_decode=True,
+                                      deferred_append=True)
+        assert {n: w.launches for n, w in wrappers.items()} == {
+            "decode_attention_contiguous_fresh": L,
+            "kv_append_all_uniform": 1, "decode_attention_appending": 0}
+        ref, other = qwen.decode_step(params, cfg, tok, lens + s, other,
+                                      uniform_decode=True)
+        assert torch.equal(got, ref)
+        assert torch.equal(cache.k, other.k) and torch.equal(cache.v, other.v)
+        tok = ref.argmax(-1)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+def test_ragged_generate_writes_through_kv_append_ragged_t(gen, monkeypatch,
+                                                           kv_dtype):
+    """A ragged Engine.generate batch launches kv_append_ragged_t once a
+    layer a decode step, and generate_speculative once a layer a verify
+    forward; an aligned batch never."""
+    from qwen_inference_engine_tpu_torch.engine import speculative as spec
+
+    cfg = tiny_config(head_dim=128)
+    params = qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    eng = Engine(cfg, params, max_batch=3, max_seq=256, kv_dtype=kv_dtype,
+                 sampling=SamplingParams(greedy=True), device="cuda")
+    eng.cfg = cfg.replace(eos_token_ids=())
+    w = ka.kv_append_ragged_t
+    w.launches = 0
+    res = eng.generate([[5, 9, 17], [100, 200, 300, 400, 7], [3] * 11],
+                       max_new_tokens=6)
+    assert w.launches == cfg.num_layers * (res.steps - 1) > 0
+    w.launches = 0
+    eng.generate([[5, 9, 17], [1, 2, 3], [7, 8, 9]], max_new_tokens=4)
+    assert w.launches == 0
+    forwards = []
+    orig = spec.forward_hidden
+
+    def count(*a, **k):
+        forwards.append(a[2].shape)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(spec, "forward_hidden", count)
+    out = eng.generate_speculative([[5, 9, 17, 5, 9, 17, 5, 9], [4] * 9,
+                                    [1, 2, 3, 4, 1, 2, 3, 4]],
+                                   max_new_tokens=8, k=4)
+    assert len(out) == 3 and forwards
+    assert w.launches == cfg.num_layers * len(forwards)
+
+
+def test_last_kernels_refuse_on_the_card(gen):
+    k8 = torch.zeros((2, 4, 2, 256, 128), dtype=torch.int8, device="cuda")
+    kb = torch.zeros((2, 4, 2, 256, 128), dtype=torch.bfloat16, device="cuda")
+    q = _bf16(gen, 4, 1, 8, 128)
+    new = _bf16(gen, 4, 1, 2, 128)
+    lens = torch.ones(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="no int8 form"):
+        da.decode_attention_contiguous_fresh(q, k8, k8, new, new, 0, lens)
+    with pytest.raises(TypeError, match="writes no scales"):
+        ka.kv_append_all_uniform(k8, k8, _bf16(gen, 2, 4, 2, 128),
+                                 _bf16(gen, 2, 4, 2, 128), 3)
+    with pytest.raises(TypeError, match="int8 K/V"):
+        s = torch.zeros((2, 4, 2, 256), device="cuda")
+        ka.kv_append_ragged_t(k8, k8, new, new, lens, 0, k_scale=s,
+                              v_scale=s, ks_new=lens[:, None, None].float(),
+                              vs_new=lens[:, None, None].float())
+    with pytest.raises(ValueError, match="starts"):
+        ka.kv_append_ragged_t(kb, kb, new, new, lens.cpu(), 0)
+    wq = torch.zeros((2, 128, 96), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="N % 64"):
+        fs.fused_attn_matmul(lens, 0, q, kb, kb, _bf16(gen, 4, 256), wq,
+                             torch.zeros((2, 4, 96), device="cuda"),
+                             group_size=64)

@@ -504,20 +504,25 @@ def test_grouped_wrappers_run_plain_on_cpu_and_count_no_launch():
 def test_kernel_registry_names_every_wrapper():
     """``utils/metrics.kernel_wrappers`` lists each kernel wrapper once, by
     its name, each with its launch count: the 20 dense ones, the three
-    grouped MoE matmuls, and the fused MLP, the fused attention + MLP and
-    the uniform bf16 append of the double-pumped decode."""
+    grouped MoE matmuls, the fused MLP, the fused attention + MLP and the
+    uniform bf16 append of the double-pumped decode, and the last four
+    Pallas sites' kernels (the ragged window append, the fresh-merge decode
+    attention, the all-layer append, the fused attention + matmul): 30
+    wrappers over the JAX package's 28 sites."""
     from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
     from qwen_inference_engine_tpu_torch.ops import grouped_matmul as tgm
     from qwen_inference_engine_tpu_torch.utils.metrics import kernel_wrappers
 
     wrappers = kernel_wrappers()
-    assert len(wrappers) == 26
+    assert len(wrappers) == 30
     assert all(isinstance(w.launches, int) and w.__name__ == n
                for n, w in wrappers.items())
     for w in (tgm.grouped_matmul4_a8, tgm.grouped_matmul4,
               tgm.grouped_matmul8, tqmm.quant_matmul4_a8,
               tpa.paged_verify_attention_stacked, tfs.fused_mlp,
-              tfs.fused_attn_mlp, tka.kv_append_uniform):
+              tfs.fused_attn_mlp, tka.kv_append_uniform,
+              tka.kv_append_ragged_t, tda.decode_attention_contiguous_fresh,
+              tka.kv_append_all_uniform, tfs.fused_attn_matmul):
         assert wrappers[w.__name__] is w
 
 
@@ -716,12 +721,16 @@ def test_cli_serve_defaults_to_the_card_and_runs_on_cpu_when_asked(
 
 
 def test_fused_wrappers_run_plain_on_cpu_and_count_no_launch():
-    """fused_mlp, fused_attn_mlp and kv_append_uniform run their plain
-    versions for CPU tensors (the same results) and count no launch."""
+    """fused_mlp, fused_attn_mlp, fused_attn_matmul, kv_append_uniform,
+    kv_append_all_uniform, kv_append_ragged_t and
+    decode_attention_contiguous_fresh run their plain versions for CPU
+    tensors (the same results) and count no launch."""
     from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
 
     rng = np.random.default_rng(3)
-    counters = [tfs.fused_mlp, tfs.fused_attn_mlp, tka.kv_append_uniform]
+    counters = [tfs.fused_mlp, tfs.fused_attn_mlp, tka.kv_append_uniform,
+                tfs.fused_attn_matmul, tka.kv_append_all_uniform,
+                tka.kv_append_ragged_t, tda.decode_attention_contiguous_fresh]
     before = [f.launches for f in counters]
     L, K, F = 2, 128, 512
 
@@ -745,6 +754,27 @@ def test_fused_wrappers_run_plain_on_cpu_and_count_no_launch():
     a = tka.kv_append_uniform(kc.clone(), vc.clone(), kn, vn, 7, 1, row0=3)
     b = tka.kv_append_uniform_plain(kc.clone(), vc.clone(), kn, vn, 7, 1, 3)
     assert all(torch.equal(g, h) for g, h in zip(a, b))
+    got = tfs.fused_attn_matmul(lens, 1, q, kc, vc, x, w[0], w[1],
+                                group_size=64, row0=3)
+    want = tfs.fused_attn_matmul_plain(lens, 1, q, kc, vc, x, w[0], w[1],
+                                       group_size=64, row0=3)
+    assert all(torch.equal(g, h) for g, h in zip(got, want))
+    new = torch.randn(2, 6, 2, 128)
+    a = tka.kv_append_all_uniform(kc.clone(), vc.clone(), new, new, 9)
+    b = tka.kv_append_all_uniform_plain(kc.clone(), vc.clone(), new, new, 9)
+    assert all(torch.equal(g, h) for g, h in zip(a, b))
+    starts = torch.tensor([-1, 0, 250, 30, 7, 100])
+    new = torch.randn(6, 5, 2, 128)
+    a = tka.kv_append_ragged_t(kc.clone(), vc.clone(), new, new, starts, 1)
+    b = tka.kv_append_ragged_t_plain(kc.clone(), vc.clone(), new, new,
+                                     starts, 1)
+    assert all(torch.equal(g, h) for g, h in zip(a, b))
+    qf, kn6 = torch.randn(6, 1, 8, 128), torch.randn(6, 1, 2, 128)
+    old = torch.tensor([0, 3, 255, 256, 17, 100])
+    assert torch.equal(
+        tda.decode_attention_contiguous_fresh(qf, kc, vc, kn6, kn6, 0, old),
+        tda.decode_attention_contiguous_fresh_plain(qf, kc, vc, kn6, kn6, 0,
+                                                    old))
     assert [f.launches for f in counters] == before
 
 
@@ -783,6 +813,44 @@ def _append_call(kv=_BF, Bn=4, row0=4, layer=1, position=9, new_dev="meta"):
                                  row0=row0)
 
 
+def _attn_matmul_call(kv=_BF, gs=64, N=512, s_dtype=torch.float32, layer=1,
+                      row0=4):
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    cache = _meta(2, 8, 2, 256, 128, dtype=kv)
+    return tfs.fused_attn_matmul(
+        _meta(4, dtype=torch.int32), layer, _meta(4, 1, 8, 128, dtype=_BF),
+        cache, cache, _meta(8, 256, dtype=_BF),
+        _meta(2, 128, N, dtype=_I8), _meta(2, 256 // gs, N, dtype=s_dtype),
+        group_size=gs, row0=row0)
+
+
+def _all_append_call(kv=_BF, B=8, position=9):
+    cache = _meta(2, 8, 2, 256, 128, dtype=kv)
+    new = _meta(2, B, 1, 2, 128, dtype=_BF)
+    return tka.kv_append_all_uniform(cache, cache, new, new, position)
+
+
+def _ragged_t_call(kv=_BF, new=_BF, scales=False, n_starts=4, layer=1):
+    cache = _meta(2, 8, 2, 256, 128, dtype=kv)
+    rows = _meta(4, 5, 2, 128, dtype=new)
+    kw = {}
+    if scales:
+        kw = dict(k_scale=_meta(2, 8, 2, 256), v_scale=_meta(2, 8, 2, 256),
+                  ks_new=_meta(4, 5, 2), vs_new=_meta(4, 5, 2))
+    return tka.kv_append_ragged_t(cache, cache, rows, rows,
+                                  _meta(n_starts, dtype=torch.int32), layer,
+                                  **kw)
+
+
+def _fresh_call(kv=_BF, Hq=8, new_T=1, n_lens=4):
+    cache = _meta(2, 8, 2, 256, 128, dtype=kv)
+    new = _meta(4, new_T, 2, 128, dtype=_BF)
+    return tda.decode_attention_contiguous_fresh(
+        _meta(4, 1, Hq, 128, dtype=_BF), cache, cache, new, new, 1,
+        _meta(n_lens, dtype=torch.int32))
+
+
 FUSED_REFUSALS = {
     "mlp f16 scales": (lambda: _fused_mlp_call(sg_dtype=torch.float16),
                        TypeError, "f32 scales"),
@@ -818,15 +886,62 @@ FUSED_REFUSALS = {
                                "device"),
     "append passes its checks": (lambda: _append_call(), AssertionError,
                                  "library was asked for"),
+    "attn matmul f32 cache": (lambda: _attn_matmul_call(kv=torch.float32),
+                              TypeError, "bf16 caches"),
+    "attn matmul gs 16": (lambda: _attn_matmul_call(gs=16), ValueError,
+                          "gs % 32"),
+    "attn matmul N 96": (lambda: _attn_matmul_call(N=96), ValueError,
+                         "N % 64"),
+    "attn matmul f16 scales": (lambda: _attn_matmul_call(
+        s_dtype=torch.float16), TypeError, "f32 scales"),
+    "attn matmul layer 2": (lambda: _attn_matmul_call(layer=2), IndexError,
+                            "layer 2"),
+    "attn matmul rows past the cache": (lambda: _attn_matmul_call(row0=5),
+                                        ValueError, "rows inside"),
+    "attn matmul passes its checks": (lambda: _attn_matmul_call(),
+                                      AssertionError,
+                                      "library was asked for"),
+    "all append int8 cache": (lambda: _all_append_call(kv=_I8), TypeError,
+                              "writes no scales"),
+    "all append more rows than the cache": (
+        lambda: _all_append_call(B=9), ValueError, "shapes"),
+    "all append position 256": (lambda: _all_append_call(position=256),
+                                IndexError, "outside the cache"),
+    "all append passes its checks": (lambda: _all_append_call(),
+                                     AssertionError, "library was asked for"),
+    "ragged_t bf16 rows into int8": (lambda: _ragged_t_call(kv=_I8, scales=True),
+                                     TypeError, "int8 K/V"),
+    "ragged_t int8 without scales": (
+        lambda: _ragged_t_call(kv=_I8, new=_I8), ValueError, "f32 scales"),
+    "ragged_t scales into bf16": (lambda: _ragged_t_call(scales=True),
+                                  ValueError, "int8 cache only"),
+    "ragged_t starts shape": (lambda: _ragged_t_call(n_starts=3), ValueError,
+                              "starts"),
+    "ragged_t layer 2": (lambda: _ragged_t_call(layer=2), IndexError,
+                         "layer 2"),
+    "ragged_t passes its checks": (lambda: _ragged_t_call(), AssertionError,
+                                   "library was asked for"),
+    "ragged_t int8 passes its checks": (
+        lambda: _ragged_t_call(kv=_I8, new=_I8, scales=True), AssertionError,
+        "library was asked for"),
+    "fresh int8 cache": (lambda: _fresh_call(kv=_I8), TypeError,
+                         "no int8 form"),
+    "fresh G 9": (lambda: _fresh_call(Hq=18), ValueError, "G <= 8"),
+    "fresh new rows": (lambda: _fresh_call(new_T=2), ValueError, "k_new"),
+    "fresh lengths": (lambda: _fresh_call(n_lens=3), ValueError, "lengths"),
+    "fresh passes its checks": (lambda: _fresh_call(), AssertionError,
+                                "library was asked for"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FUSED_REFUSALS))
 def test_fused_wrappers_refuse_before_any_build(monkeypatch, case):
-    """fused_mlp, fused_attn_mlp and kv_append_uniform refuse a wrong dtype,
-    shape, group size, layer, row window or device before the library is
-    built or a kernel launched (meta tensors stand in for the card); a
-    call that passes every check asks for the library."""
+    """fused_mlp, fused_attn_mlp, kv_append_uniform and the last four
+    sites' wrappers (fused_attn_matmul, kv_append_all_uniform,
+    kv_append_ragged_t, decode_attention_contiguous_fresh) refuse a wrong
+    dtype, shape, group size, layer, row window or device before the
+    library is built or a kernel launched (meta tensors stand in for the
+    card); a call that passes every check asks for the library."""
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
 
     def no_build():
