@@ -19,8 +19,11 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    512-token pages with shuffled tables and NaN in every page no table
    holds (the paged attentions' library yardstick is SDPA over a gathered
    copy, the gather timed beside it; the appends' an ``index_put_``
-   scatter); the contiguous chunk kernels also with per-row starts on the
-   device (T = 5 and 16, NaN past each row's window); the verify at T = 17
+   scatter); the contiguous chunk kernels (tensor cores, GQA-packed rows)
+   at starts 512, 1024 and 1536, each kept in the kernels line as
+   ``start_<start>``, and with per-row starts on the device (T = 5 and 16,
+   NaN past each row's window, ``rows_T5`` / ``rows_T16``), each with its
+   SDPA time and bound; the verify at T = 17
    and the window append at T = 9 over pages of 8 (windows wider than 16
    rows and than a page); the three grouped MoE matmuls at the
    Qwen3-30B-A3B expert shapes (gate/up K 2048 N 768, down K 768 N 2048;
@@ -533,7 +536,9 @@ def _int8(torch, g, shape):
 
 def check_chunk(torch, cfg):
     """Kernels 5 and 6: the continuation chunk at B=4, T=512 over a cache
-    of S=2304, starts 512, 1024 and 1536 (chunks 1-3 of a 2048 bucket)."""
+    of S=2304, starts 512, 1024 and 1536 (chunks 1-3 of a 2048 bucket).
+    Returns {name: the start-1536 record, with every start's record under
+    "start_<start>"}."""
     from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
     from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
 
@@ -589,9 +594,10 @@ def check_chunk(torch, cfg):
                   f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
             if not err <= tol:
                 fail(f"{name} start {start} err {err} > {tol}")
-            # the JSON line keeps the last chunk of the 2048 bucket
-            records[name] = rec
+            records.setdefault(name, {})[f"start_{start}"] = rec
             del got, ref, kl, vl
+        # the JSON line's main numbers: the last chunk of the 2048 bucket
+        records[name].update(records[name]["start_1536"])
     return records
 
 
@@ -4219,7 +4225,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec.get("shape", rec.get("unit")),
             **{k: v for k, v in rec.items() if k == "gather_ms"
-               or k.startswith(("int8_", "rows_"))}})
+               or k.startswith(("int8_", "rows_", "start_"))}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
           f" | loader {json.dumps(loader)} | int8 pool and speculation "

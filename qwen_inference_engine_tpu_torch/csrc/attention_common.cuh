@@ -1,5 +1,7 @@
-// Shared core of the port's attention kernels (flash prefill, prefill
-// continuation chunks and decode), for a bf16 or an int8 KV cache.
+// CUDA-core core of the port's attention kernels (flash prefill, the paged
+// continuation chunks and decode), for a bf16 or an int8 KV cache; the
+// contiguous continuation chunks run on the tensor-core core of
+// attention_mma.cuh.
 //
 // One block of D threads (one per output dimension) runs the online
 // softmax of up to BR query rows over keys [0, n_keys) in tiles of BK keys:

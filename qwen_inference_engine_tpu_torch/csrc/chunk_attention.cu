@@ -12,8 +12,6 @@
 //   * paged_chunk_attention_q8 (_paged_chunk_q8, body
 //     _paged_chunk_kernel_q8): the same over the int8 page pool with its
 //     scales [L, P, Hk, page].
-// One kernel templated on the cache's element type and on the key
-// addressing (attention_common.cuh: qie::ContiguousKeys / qie::PagedKeys).
 //
 // q [B, T, Hq, D] bf16: the chunk's queries at absolute positions
 // [start, start + T); the cache holds the chunk's own keys already
@@ -23,59 +21,68 @@
 // fixed-batch speculative verify: each row at its own length), read by the
 // kernel so the host never waits for it; a row's keys are clamped to the
 // cache.  Query t attends keys [0, start + t], f32 online softmax; scores
-// never leave shared memory.  int8 scores are (q . k_i8) * k_scale *
-// D^-1/2 and each value is scaled by its V scale before the P @ V sum, as
-// the TPU kernel folds the V scale into the probabilities.
+// never leave registers or shared memory.  int8 scores are
+// (q . k_i8) * k_scale * D^-1/2, and the values are the int8 ones times
+// their V scales (the TPU kernel folds the V scale into the probabilities;
+// attention_mma.cuh says why the contiguous kernels do not).
 //
 // What bounds it on the H100: at B=4, T=512, start=1536 for Qwen2.5-7B a
 // layer reads 2 * B * Hk * (start + T) * D elements of cache (16.8 MB bf16,
 // 8.4 MB int8) for 4 * B * Hq * D * (T * start + T * (T + 1) / 2) = 52.6
 // GFLOP: ~3,100 (bf16) or ~6,200 (int8) operations per byte, far above the
-// ridge (~295), so operations bound it (53 us on the bf16 tensor cores); on
-// the CUDA cores used here they bound it the more.  The serving piece (B=1,
-// T=256) is bound the same way; the speculative verify (T = k + 1 <= 16)
-// is bound by bytes, as decode is.
+// ridge (~295), so the tensor cores bound it (53 us at 989 TFLOP/s).  The
+// serving piece (B=1, T=256) is bound the same way; the speculative verify
+// (T = k + 1 <= 17) is bound by bytes, as decode is.
 //
-// Design: simple and right first, the flash prefill kernel's layout
-// (attention_common.cuh) with the cache in place of fresh K/V.  A block of
-// D threads takes 16 query rows of one head (grid: T/16 x Hq x B; blocks
-// share nothing) and walks the key tiles of 64 of its (layer, row, KV head)
-// keys straight from the stacked cache or pool, no slab copy and no
-// gathered copy of the pages, up to its last row's position, so no tile
-// above the causal diagonal is read.  Tiles wholly below `start` pass
-// every key; only the tiles that overlap the chunk take the triangle.  In
-// the page pool each key's page (and an int8 key's scale) is looked up in
-// the row's block table as the tile is staged, so a tile may span pages
-// and `start` need not be page-aligned (a prefix-cache hit with a
-// partial-page copy starts its first piece mid-page); keys past the
-// chunk's end are never loaded, nor keys past the table's end (a
-// bucket-padded last piece may reach there).  G = 7 is not padded: each
-// query head is its own block.  Any T >= 1 is taken (the ragged edge is
-// masked in the kernel); the wrappers limit T to the engine's chunk of
-// 512, with no T % 8 or VMEM condition (the TPU kernel's).  int8 K/V are
-// staged as raw bytes, so a tile costs half the shared-memory traffic of
-// bf16, and dequantized in registers.  The products run as fp32 FMAs on
-// the CUDA cores; the tensor cores (mma / wgmma) are later work.
+// The contiguous kernels (chunk_mma_kernel) run on the tensor-core core
+// of attention_mma.cuh:
+//   * GQA-packed rows: a block takes 64 flattened query rows r = t * G + g
+//     of ONE KV head (query head hk * G + g, token t), so each K/V tile is
+//     staged once for all G heads of its group (the TPU kernel's T * G8
+//     rows per dot, without padding G to 8); row r sees keys up to
+//     start + r / G.  Grid: KV heads x batch rows x ceil(T * G / 64) row
+//     tiles, the tiles with later tokens (more keys) launched first.
+//   * Both products on mma.sync.m16n8k16 (bf16 -> f32), fragments by
+//     ldmatrix / ldmatrix.trans from padded shared rows; the softmax in
+//     registers; P cast to bf16 in registers as the A operand of P V.
+//   * K/V tiles of 64 keys staged by cp.async in a ring of two stages; an
+//     int8 tile raw (half the bytes), widened to bf16 in shared memory.
+//   * Only tiles that cross a warp's first row's limit take the element
+//     mask; none past the block's last row's limit is loaded.
+//   * The verify (T <= 17) runs B * Hk * ceil(T * G / 64) blocks (16 at
+//     B = 4, T = 5 for the 7B; 32 at T = 16), each streaming its row's
+//     keys; no key split.
+//
+// The paged kernels (paged_chunk_kernel) still run on the CUDA-core core
+// of attention_common.cuh (qie::attend: one block of D threads per 16
+// rows of one query head, fp32 FMAs, synchronous tiles).  They lose least
+// of the attention kernels against a library call (SDPA over a gathered
+// copy of the pages), so they move onto attention_mma.cuh (with its
+// PagedKeys policy) as a change of their own, measured on their own.
+// Any T >= 1 is taken (the ragged edge is masked in the kernels); the
+// wrappers limit T to the engine's chunk of 512.
 
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 16;   // query rows per block
-constexpr int kKeys = 64;   // keys per tile
+constexpr int kRows = 16;   // paged: query rows per block
+constexpr int kKeys = 64;   // paged: keys per tile
 
-// kPaged: k_cache / v_cache are the page pool [L, P, Hk, page, D] and
-// (Bc, S) stand for (P, page); tables is [B, max_pages].  starts: per-row
-// starts on the device (contiguous only), or null for the host `start`.
-template <int D, typename KV, bool kPaged>
+// k_pages / v_pages: the page pool [L, P, Hk, page, D]; tables [B,
+// max_pages]; every row's piece starts at `start`.
+template <int D, typename KV>
 __global__ void __launch_bounds__(D)
-chunk_kernel(const __nv_bfloat16* __restrict__ q,
-             const KV* __restrict__ k_cache, const KV* __restrict__ v_cache,
-             const float* __restrict__ k_scale,
-             const float* __restrict__ v_scale,
-             const int* __restrict__ tables, const int* __restrict__ starts,
-             __nv_bfloat16* __restrict__ out, int Bc, int T, int Hq, int Hk,
-             int S, int max_pages, int layer, int start_arg, float scale) {
+paged_chunk_kernel(const __nv_bfloat16* __restrict__ q,
+                   const KV* __restrict__ k_pages,
+                   const KV* __restrict__ v_pages,
+                   const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ tables,
+                   __nv_bfloat16* __restrict__ out, int P, int T, int Hq,
+                   int Hk, int page, int max_pages, int layer, int start,
+                   float scale) {
   __shared__ qie::AttnSmem<D, kRows, kKeys, KV> sm;
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kRows;
@@ -83,7 +90,6 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hk);
   const int n_rows = min(kRows, T - q0);
-  const int start = starts == nullptr ? start_arg : starts[b];
 
   for (int c = tid; c < kRows * D; c += D) {
     const int i = c / D, d = c % D;
@@ -94,36 +100,23 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
     }
     sm.q[i][d] = val;
   }
-  // row i sits at position start + q0 + i and sees keys [0, that position]
-  int n_keys = max(0, start + q0 + n_rows);
+  // row i sits at position start + q0 + i and sees keys [0, that position];
+  // bucket padding may run past the table's last page: those rows see the
+  // whole table (as the TPU kernel's grid walks only the table)
+  const int n_keys = min(max(0, start + q0 + n_rows), max_pages * page);
   float acc[kRows];
-  if constexpr (kPaged) {
-    // bucket padding may run past the table's last page: those rows see
-    // the whole table (as the TPU kernel's grid walks only the table)
-    n_keys = min(n_keys, max_pages * S);
-    // page 0 of (layer, hk); the row's table picks each key's page
-    const long long sbase =
-        (static_cast<long long>(layer) * Bc * Hk + hk) * static_cast<long long>(S);
-    const long long base = sbase * D;
-    const qie::PagedKeys keys{tables + static_cast<long long>(b) * max_pages,
-                              S, D, static_cast<long long>(Hk) * S * D,
-                              static_cast<long long>(Hk) * S};
-    const float* ks = k_scale == nullptr ? nullptr : k_scale + sbase;
-    const float* vs = v_scale == nullptr ? nullptr : v_scale + sbase;
-    qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_cache + base,
-                                     v_cache + base, keys, ks, vs, n_keys,
-                                     start + q0, 1, nullptr, nullptr, -1);
-  } else {
-    n_keys = min(n_keys, S);
-    const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
-    const long long base = row * S * D;
-    const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
-    const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
-    qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_cache + base,
-                                     v_cache + base, qie::ContiguousKeys{D},
-                                     ks, vs, n_keys, start + q0, 1, nullptr,
-                                     nullptr, -1);
-  }
+  // page 0 of (layer, hk); the row's table picks each key's page
+  const long long sbase =
+      (static_cast<long long>(layer) * P * Hk + hk) * static_cast<long long>(page);
+  const long long base = sbase * D;
+  const qie::PagedKeys keys{tables + static_cast<long long>(b) * max_pages,
+                            page, D, static_cast<long long>(Hk) * page * D,
+                            static_cast<long long>(Hk) * page};
+  const float* ks = k_scale == nullptr ? nullptr : k_scale + sbase;
+  const float* vs = v_scale == nullptr ? nullptr : v_scale + sbase;
+  qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_pages + base,
+                                   v_pages + base, keys, ks, vs, n_keys,
+                                   start + q0, 1, nullptr, nullptr, -1);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < n_rows) {
@@ -134,29 +127,86 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename KV, bool kPaged>
-int launch(const void* q, const void* k_cache, const void* v_cache,
-           const void* k_scale, const void* v_scale, const void* tables,
-           const void* starts, void* out, int Bc, int B, int T, int Hq,
-           int Hk, int S, int max_pages, int D, int layer, int start,
-           float scale, void* stream) {
+constexpr int kWarps = 4;                 // contiguous: warps per block
+constexpr int kBlockRows = 16 * kWarps;   // contiguous: packed rows a block
+
+// One block: kBlockRows packed rows r = t * G + g of KV head blockIdx.x,
+// batch row blockIdx.y; starts: per-row starts on the device, or null for
+// the host `start`.
+template <int D, typename KV>
+__global__ void __launch_bounds__(32 * kWarps, 2)
+chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const KV* __restrict__ k_cache,
+                 const KV* __restrict__ v_cache,
+                 const float* __restrict__ k_scale,
+                 const float* __restrict__ v_scale,
+                 const int* __restrict__ starts,
+                 __nv_bfloat16* __restrict__ out, int Bc, int T, int Hq,
+                 int Hk, int S, int layer, int start_arg, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<qie::MmaSmem<D, kWarps, KV>*>(smem_raw);
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;  // later tokens first
+  const int G = Hq / Hk;
+  const int r0 = tile * kBlockRows;
+  const int n_rows = min(kBlockRows, T * G - r0);
+  const int start = starts == nullptr ? start_arg : starts[b];
+  // the block's last row sits at token (r0 + n_rows - 1) / G
+  const int n_keys = min(S, max(0, start + (r0 + n_rows - 1) / G + 1));
+  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
+  const long long qbase =
+      (static_cast<long long>(b) * T * Hq + static_cast<long long>(hk) * G) * D;
+  const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
+  const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
+  qie::attend_mma<D, kWarps, KV>(
+      sm, qie::GqaRows{r0, G, Hq, D}, n_rows, q + qbase, out + qbase,
+      k_cache + row * S * D, v_cache + row * S * D, qie::ContiguousKeys{D},
+      ks, vs, n_keys, start, r0, G, scale);
+}
+
+template <int D, typename KV>
+int launch_contiguous(const void* q, const void* k_cache, const void* v_cache,
+                      const void* k_scale, const void* v_scale,
+                      const void* starts, void* out, int Bc, int B, int T,
+                      int Hq, int Hk, int S, int layer, int start,
+                      float scale, cudaStream_t st) {
+  const auto kern = chunk_mma_kernel<D, KV>;
+  constexpr int smem = sizeof(qie::MmaSmem<D, kWarps, KV>);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int tiles = (T * (Hq / Hk) + kBlockRows - 1) / kBlockRows;
+  kern<<<dim3(Hk, B, tiles), 32 * kWarps, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k_cache),
+      static_cast<const KV*>(v_cache), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(starts),
+      static_cast<__nv_bfloat16*>(out), Bc, T, Hq, Hk, S, layer, start,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KV>
+int launch_paged(const void* q, const void* k_pages, const void* v_pages,
+                 const void* k_scale, const void* v_scale, const void* tables,
+                 void* out, int P, int B, int T, int Hq, int Hk, int page,
+                 int max_pages, int D, int layer, int start, float scale,
+                 cudaStream_t st) {
   dim3 grid((T + kRows - 1) / kRows, Hq, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kc = static_cast<const KV*>(k_cache);
-  const auto* vc = static_cast<const KV*>(v_cache);
+  const auto* kp = static_cast<const KV*>(k_pages);
+  const auto* vp = static_cast<const KV*>(v_pages);
   const auto* ksp = static_cast<const float*>(k_scale);
   const auto* vsp = static_cast<const float*>(v_scale);
   const auto* tp = static_cast<const int*>(tables);
-  const auto* sp = static_cast<const int*>(starts);
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (D == 128) {
-    chunk_kernel<128, KV, kPaged><<<grid, 128, 0, st>>>(
-        qp, kc, vc, ksp, vsp, tp, sp, op, Bc, T, Hq, Hk, S, max_pages, layer,
+    paged_chunk_kernel<128, KV><<<grid, 128, 0, st>>>(
+        qp, kp, vp, ksp, vsp, tp, op, P, T, Hq, Hk, page, max_pages, layer,
         start, scale);
   } else if (D == 64) {
-    chunk_kernel<64, KV, kPaged><<<grid, 64, 0, st>>>(
-        qp, kc, vc, ksp, vsp, tp, sp, op, Bc, T, Hq, Hk, S, max_pages, layer,
+    paged_chunk_kernel<64, KV><<<grid, 64, 0, st>>>(
+        qp, kp, vp, ksp, vsp, tp, op, P, T, Hq, Hk, page, max_pages, layer,
         start, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -176,19 +226,35 @@ extern "C" int qie_chunk_attention(const void* q, const void* k_cache,
                                    int Hq, int Hk, int S, int D, int layer,
                                    int start, float scale, void* stream) {
   const bool quant = k_scale != nullptr;
+  // cp.async copies 16-byte chunks of q and of the cache rows
+  const bool aligned = (reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(k_cache) |
+                        reinterpret_cast<uintptr_t>(v_cache)) % 16 == 0;
   if (B <= 0 || B > Bc || T <= 0 || Hk <= 0 || Hq % Hk || layer < 0 ||
       layer >= L || quant != (v_scale != nullptr) ||
-      (starts == nullptr && (start < 0 || start + T > S))) {
+      (starts == nullptr && (start < 0 || start + T > S)) ||
+      (D != 64 && D != 128) || !aligned) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quant) {
-    return launch<int8_t, false>(q, k_cache, v_cache, k_scale, v_scale,
-                                 nullptr, starts, out, Bc, B, T, Hq, Hk, S, 0,
-                                 D, layer, start, scale, stream);
+    return D == 128
+        ? launch_contiguous<128, int8_t>(q, k_cache, v_cache, k_scale,
+                                         v_scale, starts, out, Bc, B, T, Hq,
+                                         Hk, S, layer, start, scale, st)
+        : launch_contiguous<64, int8_t>(q, k_cache, v_cache, k_scale,
+                                        v_scale, starts, out, Bc, B, T, Hq,
+                                        Hk, S, layer, start, scale, st);
   }
-  return launch<__nv_bfloat16, false>(q, k_cache, v_cache, nullptr, nullptr,
-                                      nullptr, starts, out, Bc, B, T, Hq, Hk,
-                                      S, 0, D, layer, start, scale, stream);
+  return D == 128
+      ? launch_contiguous<128, __nv_bfloat16>(q, k_cache, v_cache, nullptr,
+                                              nullptr, starts, out, Bc, B, T,
+                                              Hq, Hk, S, layer, start, scale,
+                                              st)
+      : launch_contiguous<64, __nv_bfloat16>(q, k_cache, v_cache, nullptr,
+                                             nullptr, starts, out, Bc, B, T,
+                                             Hq, Hk, S, layer, start, scale,
+                                             st);
 }
 
 // Page pool [L, P, Hk, page, D], bf16 (k_scale / v_scale null) or int8 with
@@ -211,13 +277,13 @@ extern "C" int qie_paged_chunk_attention(const void* q, const void* k_pages,
       start >= max_pages * page || quant != (v_scale != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quant) {
-    return launch<int8_t, true>(q, k_pages, v_pages, k_scale, v_scale,
-                                tables, nullptr, out, P, B, T, Hq, Hk, page,
-                                max_pages, D, layer, start, scale, stream);
+    return launch_paged<int8_t>(q, k_pages, v_pages, k_scale, v_scale, tables,
+                                out, P, B, T, Hq, Hk, page, max_pages, D,
+                                layer, start, scale, st);
   }
-  return launch<__nv_bfloat16, true>(q, k_pages, v_pages, nullptr, nullptr,
-                                     tables, nullptr, out, P, B, T, Hq, Hk,
-                                     page, max_pages, D, layer, start, scale,
-                                     stream);
+  return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
+                                     tables, out, P, B, T, Hq, Hk, page,
+                                     max_pages, D, layer, start, scale, st);
 }

@@ -20,6 +20,11 @@ The wrappers launch the CUDA kernel ``csrc/chunk_attention.cu``:
   ``_paged_chunk_q8`` / ``_paged_chunk_kernel_q8``): the same over the int8
   pool with its f32 scales ``[L, P, Hk, page]``.
 
+The two contiguous kernels run on the tensor cores (``csrc/attention_mma.cuh``:
+mma.sync with the G query heads of one KV head packed into each block's
+rows, K/V tiles staged by cp.async in two stages); the paged ones on the
+CUDA-core core of ``csrc/attention_common.cuh``.
+
 The contiguous wrappers take ``start`` as a host int shared by every row
 or, as the JAX wrapper does, a ``[B]`` int32 device tensor of per-row
 starts (the fixed-batch speculative verify, each row at its own length),

@@ -163,6 +163,49 @@ def test_chunk_attention_plain_matches_pallas_interpret(T, start, G, quant):
                                atol=tol)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("G", [7, 8])
+@pytest.mark.parametrize("T", [5, 16])
+def test_chunk_attention_plain_matches_pallas_interpret_per_row_starts(
+        T, G, quant):
+    """The contiguous verify's call: per-row starts ``[B]`` at 0, mid-tile
+    (no multiple of the 64-key tile) and S - T (a window ending at the
+    cache's end), in an f32 cache and an int8 cache with scales; G = 7
+    (Qwen2.5-7B) and 8 (Qwen3-30B-A3B)."""
+    L, B, Hk, D, S = 2, 3, 2, 128, 256
+    Hq = G * Hk
+    rng = np.random.default_rng(41 + T + G)
+    starts = np.asarray([0, 100, S - T], np.int32)
+    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
+    layer = 1
+    if quant:
+        kq, ks = _int8_cache(rng, (L, B, Hk, S, D))
+        vq, vs = _int8_cache(rng, (L, B, Hk, S, D))
+        with interpret_pallas(jca):
+            ref = jca.chunk_attention_contiguous_q8(
+                jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+                jnp.asarray(ks), jnp.asarray(vs), layer, jnp.asarray(starts))
+        fn = tca.chunk_attention_contiguous_q8
+        before = fn.launches
+        got = fn(_t(q), _t(kq), _t(vq), _t(ks), _t(vs), layer, _t(starts))
+        tol = 2e-2
+    else:
+        kc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+        vc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+        with interpret_pallas(jca):
+            ref = jca.chunk_attention_contiguous(
+                jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), layer,
+                jnp.asarray(starts))
+        fn = tca.chunk_attention_contiguous
+        before = fn.launches
+        got = fn(_t(q), _t(kc), _t(vc), layer, _t(starts))
+        tol = 4e-3
+    assert fn.launches == before
+    assert got.shape == (B, T, Hq, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=tol,
+                               atol=tol)
+
+
 def test_kv_append_uniform_q8_plain_bit_exact_vs_pallas_interpret():
     """The row, its two scales and every untouched element, bit for bit."""
     L, B, Hk, S, D = 2, 3, 2, 256, 128

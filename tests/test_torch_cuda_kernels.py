@@ -4,8 +4,10 @@ These tests need a GPU and the CUDA toolkit (marker ``cuda``); without a
 card they skip (the decision is made in a fixture, never at import).  They
 cover the edges the smoke run's Qwen2.5-7B shapes do not: ragged M, any T,
 G in 1..8, D=64, B smaller than the cache batch, continuation chunks from
-1 to 512 tokens at the first, a mid-tile and the last start (and per-row
-starts on the device, with NaN past each row's window), the INT8 KV
+1 to 512 tokens at the first, a mid-tile and the last start and per-row
+starts on the device (G 2, 5, 7 and 8, D 64 and 128, packed row tiles that
+T * G does not fill, NaN past each row's window, two calls bit for bit),
+the INT8 KV
 append at the first and last position, the paged kernels over pages of 8,
 16, 48 and 512 tokens (tiles that cross pages, mid-page starts, pieces of
 1, 7, 256 and 512 tokens, lengths of 1 and whole pages, idle rows and
@@ -475,71 +477,101 @@ def _int8_cache(gen, *shape):
     return q, s
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
-@pytest.mark.parametrize("T,where,G", [
-    (1, "first", 7), (1, "mid", 4), (1, "last", 8),
-    (7, "first", 4), (7, "mid", 8), (7, "last", 7),
-    (64, "first", 8), (64, "mid", 7), (64, "last", 4),
-    (512, "first", 7), (512, "mid", 4), (512, "last", 8),
-])
-def test_chunk_attention_matches_plain(gen, T, where, G, quant):
-    """Continuation chunks of 1..512 tokens starting at 0, mid-tile (a start
-    that is no multiple of the 64-key tile) and at S - T."""
-    L, B, Bc, Hk, D, S = 2, 2, 3, 2, 128, 1024
-    start = {"first": 0, "mid": 100, "last": S - T}[where]
+def _nan_past_window(kc, vc, ks, vs, layer, past):
+    """Copies of the cache with NaN at every key past each row's window
+    (``past`` [B, S], True there): in K/V for bf16, in the scales for
+    int8."""
+    nan = float("nan")
+    B = past.shape[0]
+    if ks is None:
+        kn, vn = kc.clone(), vc.clone()
+        for t in (kn, vn):
+            t[layer, :B].masked_fill_(past[:, None, :, None], nan)
+        return kn, vn, None, None
+    ksn, vsn = ks.clone(), vs.clone()
+    for t in (ksn, vsn):
+        t[layer, :B].masked_fill_(past[:, None, :], nan)
+    return kc, vc, ksn, vsn
+
+
+def _chunk_case(gen, quant, L, B, Bc, Hk, G, D, S, T, start):
+    """The kernel (twice, over a cache with NaN past each row's window) and
+    the plain version (over the same cache without the NaN) on one chunk;
+    returns (got, got_again, ref)."""
     q = _bf16(gen, B, T, G * Hk, D)
+    if isinstance(start, torch.Tensor):
+        ends = start.long() + T
+    else:
+        ends = torch.full((B,), start + T, device="cuda")
+    past = torch.arange(S, device="cuda")[None, :] >= ends[:, None]
     if quant:
         kc, ks = _int8_cache(gen, L, Bc, Hk, S, D)
         vc, vs = _int8_cache(gen, L, Bc, Hk, S, D)
+    else:
+        kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+        ks = vs = None
+    kn, vn, ksn, vsn = _nan_past_window(kc, vc, ks, vs, 1, past)
+    if quant:
         fn = ca.chunk_attention_contiguous_q8
         before = fn.launches
-        got = fn(q, kc, vc, ks, vs, 1, start)
+        got = fn(q, kn, vn, ksn, vsn, 1, start)
+        again = fn(q, kn, vn, ksn, vsn, 1, start)
         ref = ca.chunk_attention_contiguous_q8_plain(q, kc, vc, ks, vs, 1,
                                                      start)
     else:
-        kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
         fn = ca.chunk_attention_contiguous
         before = fn.launches
-        got = fn(q, kc, vc, 1, start)
+        got = fn(q, kn, vn, 1, start)
+        again = fn(q, kn, vn, 1, start)
         ref = ca.chunk_attention_contiguous_plain(q, kc, vc, 1, start)
-    assert fn.launches == before + 1
+    assert fn.launches == before + 2
+    return got, again, ref
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("T,where,G,D", [
+    (1, "first", 7, 128), (1, "mid", 4, 128), (1, "last", 8, 128),
+    (7, "first", 4, 128), (7, "mid", 8, 128), (7, "last", 7, 128),
+    (64, "first", 8, 128), (64, "mid", 7, 128), (64, "last", 4, 128),
+    (512, "first", 7, 128), (512, "mid", 4, 128), (512, "last", 8, 128),
+    # the packed row tiles: G of Qwen3-0.6B (2), Qwen3-14B (5), Qwen2.5-7B
+    # (7), Qwen3-30B-A3B (8); T * G no multiple of the 64-row tile
+    (9, "mid", 2, 128), (13, "mid", 5, 128), (100, "mid", 7, 128),
+    (300, "first", 8, 128), (511, "mid", 5, 128), (333, "last", 2, 128),
+    # D = 64 (Qwen2.5-0.5B: G = 7)
+    (1, "mid", 7, 64), (35, "first", 7, 64), (200, "mid", 7, 64),
+    (512, "last", 7, 64), (77, "mid", 5, 64),
+])
+def test_chunk_attention_matches_plain(gen, T, where, G, D, quant):
+    """Continuation chunks of 1..512 tokens starting at 0, mid-tile (a start
+    that is no multiple of the 64-key tile) and at S - T, over a cache with
+    more rows than the batch and NaN past the chunk's window (in the
+    scales for int8); two calls are bit-identical."""
+    L, B, Bc, Hk, S = 2, 2, 3, 2, 1024
+    start = {"first": 0, "mid": 100, "last": S - T}[where]
+    got, again, ref = _chunk_case(gen, quant, L, B, Bc, Hk, G, D, S, T,
+                                  start)
+    assert torch.equal(got, again)
     # bf16 output; the plain version rounds probabilities to bf16
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
-@pytest.mark.parametrize("T", [2, 5, 16])
-def test_chunk_attention_per_row_starts_match_plain(gen, T, quant):
+@pytest.mark.parametrize("G,D", [(7, 128), (2, 128), (5, 128), (8, 128),
+                                 (7, 64)])
+@pytest.mark.parametrize("T", [2, 5, 16, 17])
+def test_chunk_attention_per_row_starts_match_plain(gen, T, G, D, quant):
     """Per-row starts read on the device (the fixed-batch speculative
     verify): rows at 0, mid-tile, mid-cache and S - T.  The kernel reads a
     cache with NaN past each row's window (NaN scales for int8); the plain
-    version reads the same cache without them."""
-    L, B, Bc, Hk, G, D, S = 2, 4, 5, 2, 7, 128, 512
+    version reads the same cache without them; two calls are
+    bit-identical."""
+    L, B, Bc, Hk, S = 2, 4, 5, 2, 512
     starts = torch.tensor([0, 100, 259, S - T], dtype=torch.int32,
                           device="cuda")
-    q = _bf16(gen, B, T, G * Hk, D)
-    past = torch.arange(S, device="cuda")[None, :] >= (starts.long() + T)[:, None]
-    if quant:
-        kc, ks = _int8_cache(gen, L, Bc, Hk, S, D)
-        vc, vs = _int8_cache(gen, L, Bc, Hk, S, D)
-        ksn, vsn = ks.clone(), vs.clone()
-        for t in (ksn, vsn):
-            t[1, :B].masked_fill_(past[:, None, :], float("nan"))
-        fn = ca.chunk_attention_contiguous_q8
-        before = fn.launches
-        got = fn(q, kc, vc, ksn, vsn, 1, starts)
-        ref = ca.chunk_attention_contiguous_q8_plain(q, kc, vc, ks, vs, 1,
-                                                     starts)
-    else:
-        kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
-        kn, vn = kc.clone(), vc.clone()
-        for t in (kn, vn):
-            t[1, :B].masked_fill_(past[:, None, :, None], float("nan"))
-        fn = ca.chunk_attention_contiguous
-        before = fn.launches
-        got = fn(q, kn, vn, 1, starts)
-        ref = ca.chunk_attention_contiguous_plain(q, kc, vc, 1, starts)
-    assert fn.launches == before + 1
+    got, again, ref = _chunk_case(gen, quant, L, B, Bc, Hk, G, D, S, T,
+                                  starts)
+    assert torch.equal(got, again)
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 

@@ -358,6 +358,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
         "chunk_attention.cu", "kv_append.cu", "paged_attention.cu",
         "grouped_matmul.cu", "fused_step.cu"}
     assert [os.path.basename(p) for p in hdr] == ["attention_common.cuh",
+                                                  "attention_mma.cuh",
                                                   "quant_matmul_core.cuh"]
     src = "".join(open(p).read() for p in cu)
     found = {m.group(1): m.group(2) for m in re.finditer(
