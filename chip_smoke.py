@@ -264,6 +264,31 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call with the host's launch cost out of the way:
+    ``reps`` calls captured in a CUDA graph, replayed 5 times between CUDA
+    events."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (5 * reps)
+
+
 # ----------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -390,6 +415,15 @@ def check_new_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
                    plain_ms=plain_ms, library_ms=lib_ms, int_mm_ms=int_mm_ms,
                    bound_ms=b_ms, bound_by=b_by)
         extra = "" if int_mm_ms is None else f" | _int_mm {int_mm_ms:.4f}"
+        if name == "quant_matmul8_a8":  # the kernel's (mt, splits, slice)
+            rec["plan"] = qm.plan_quant_matmul8_a8(M, kp, N, kp // g_rows)
+            extra += f" | plan (mt, splits, slice) {rec['plan']}"
+            if M <= 64:  # decode: a call's device time apart from the host's
+                rec["graph_ms"] = graph_ms(torch, lambda: kern(*args))
+                rec["library_graph_ms"] = graph_ms(
+                    torch, lambda: torch.matmul(x, w))
+                extra += (f" | in a CUDA graph: kernel {rec['graph_ms']:.4f}"
+                          f", torch.matmul {rec['library_graph_ms']:.4f}")
         print(f"  {label} {rec['shape']}: err {err:.3g} (tol {tol:.3g}) | "
               f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | torch.matmul bf16 "
               f"{lib_ms:.4f}{extra} | bound {b_ms:.4f} ({b_by})", flush=True)
@@ -398,6 +432,18 @@ def check_new_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
         records.append(rec)
         del q, s, x, xp, w, got, ref, args
     return records
+
+
+def layer_at(recs, M):
+    """The seven projections of one 7B layer at M rows, summed (v and up,
+    not timed past M = 4, count as k and gate)."""
+    by = {r["proj"]: r for r in recs if r["M"] == M}
+    by.setdefault("v", by["k"])
+    by.setdefault("up", by["gate"])
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
+        ("graph_ms", "library_graph_ms") if "graph_ms" in by["q"] else ())
+    return {k: sum(by[p][k] for p in ("q", "k", "v", "o", "gate", "up",
+                                      "down")) for k in keys}
 
 
 def layer_record(recs, extra_err=()):
@@ -421,34 +467,46 @@ def _sdpa(torch, q, k, v, mask=None, causal=False):
         q, k, v, attn_mask=mask, is_causal=causal, enable_gqa=True)
 
 
-def check_flash(torch, cfg):
+def check_flash(torch, cfg, cfg_moe):
+    """flash_attention at the 7B prefill chunk (B 4, T 512; the first
+    record), the serving piece that starts a sequence (B 1, T 256) and
+    Qwen3-30B-A3B's G = 8 (B 4, T 512)."""
     from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
 
-    B, T, Hq, Hk, D = 4, 512, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = (torch.randn((B, T, h, D), generator=g, device="cuda"
-                           ).to(torch.bfloat16) for h in (Hq, Hk, Hk))
-    got = fa.flash_attention(q, k, v)
-    ref = fa.flash_attention_plain(q, k, v)
-    torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs().max().item()
-    tol = 2e-2
-    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
-    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), iters=3)
-    lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True))
-    n_ops = 4 * D * B * Hq * T * (T + 1) // 2
-    n_bytes = 2 * (2 * B * T * Hq * D) + 2 * (2 * B * T * Hk * D)
-    b_ms, b_by = bound(n_bytes, n_ops, "bf16")
-    rec = dict(shape=f"B={B} T={T} Hq={Hq} Hk={Hk} D={D}", max_abs_err=err,
-               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by)
-    print(f"  flash_attention {rec['shape']}: err {err:.3g} (tol {tol}) | "
-          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa {lib_ms:.4f} | "
-          f"bound {b_ms:.4f} ({b_by})", flush=True)
-    if not err <= tol:
-        fail(f"flash_attention err {err} > {tol}")
-    return [rec]
+    records = []
+    for label, c, B, T in (("7B", cfg, 4, 512), ("7B serving piece", cfg, 1, 256),
+                           ("30B-A3B", cfg_moe, 4, 512)):
+        Hq, Hk, D = c.num_heads, c.num_kv_heads, c.head_dim
+        q, k, v = (torch.randn((B, T, h, D), generator=g, device="cuda"
+                               ).to(torch.bfloat16) for h in (Hq, Hk, Hk))
+        got = fa.flash_attention(q, k, v)
+        ref = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = 2e-2
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v),
+                           iters=3)
+        lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2),
+                                      k.transpose(1, 2), v.transpose(1, 2),
+                                      causal=True))
+        n_ops = 4 * D * B * Hq * T * (T + 1) // 2
+        n_bytes = 2 * (2 * B * T * Hq * D) + 2 * (2 * B * T * Hk * D)
+        b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+        rec = dict(shape=f"{label} B={B} T={T} Hq={Hq} Hk={Hk} D={D}",
+                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   tflops=n_ops / ms / 1e9)
+        print(f"  flash_attention {rec['shape']}: err {err:.3g} (tol {tol}) | "
+              f"kernel {ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s) | plain "
+              f"{plain_ms:.4f} | sdpa {lib_ms:.4f} | bound {b_ms:.4f} "
+              f"({b_by})", flush=True)
+        if not err <= tol:
+            fail(f"flash_attention {rec['shape']} err {err} > {tol}")
+        records.append(rec)
+        del q, k, v, got, ref
+    return records
 
 
 def check_decode(torch, cfg):
@@ -3767,10 +3825,11 @@ def main() -> int:
                                           lm_head=True),
         "quant_matmul8 per column": check_new_matmul(
             torch, cfg, "quant_matmul8", None),
+        # W8A8 also at M = 40, a serving verify of 8 rows x 5 tokens
         "quant_matmul8_a8": check_new_matmul(torch, cfg, "quant_matmul8_a8",
-                                             None),
+                                             None, ms_list=(4, 40, 256, 2048)),
         "quant_matmul8_a8 gs 128": check_new_matmul(
-            torch, cfg, "quant_matmul8_a8", 128),
+            torch, cfg, "quant_matmul8_a8", 128, ms_list=(4, 40, 256, 2048)),
     }
     new_14b = {
         "quant_matmul4": check_new_matmul(torch, cfg14, "quant_matmul4", 128,
@@ -3780,7 +3839,7 @@ def main() -> int:
         "quant_matmul8_a8": check_new_matmul(torch, cfg14, "quant_matmul8_a8",
                                              None, ms_list=(4,)),
     }
-    flash_recs = check_flash(torch, cfg)
+    flash_recs = check_flash(torch, cfg, PRESETS["qwen3-30b-a3b"])
     dec_recs = check_decode(torch, cfg)
     chunk_recs = check_chunk(torch, cfg)
     for name, by_t in check_chunk_rows(torch, cfg).items():
@@ -4192,11 +4251,19 @@ def main() -> int:
                 new_recs["quant_matmul8"],
                 new_recs["quant_matmul8 per column"]
                 + new_14b["quant_matmul8"]),
-            "quant_matmul8_a8": layer_record(
-                new_recs["quant_matmul8_a8"],
-                new_recs["quant_matmul8_a8 gs 128"]
-                + new_14b["quant_matmul8_a8"]),
-            "flash_attention": flash_recs[0], **dec_recs, **chunk_recs,
+            "quant_matmul8_a8": dict(
+                layer_record(new_recs["quant_matmul8_a8"],
+                             new_recs["quant_matmul8_a8 gs 128"]
+                             + new_14b["quant_matmul8_a8"]),
+                at_M4=layer_at(new_recs["quant_matmul8_a8"], 4),
+                at_M40=layer_at(new_recs["quant_matmul8_a8"], 40),
+                at_gate_M2048=next(
+                    r for r in new_recs["quant_matmul8_a8"]
+                    if r["M"] == 2048 and r["proj"] == "gate")),
+            "flash_attention": dict(
+                flash_recs[0], at_serving_piece=flash_recs[1],
+                at_30b_a3b=flash_recs[2]),
+            **dec_recs, **chunk_recs,
             **append_recs, **dec8_recs, **paged_recs,
             **{n: moe_layer_record(r) for n, r in grouped_recs.items()},
             # the fused MLP at decode (M = 4) with the pumped weights; the
@@ -4225,7 +4292,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec.get("shape", rec.get("unit")),
             **{k: v for k, v in rec.items() if k == "gather_ms"
-               or k.startswith(("int8_", "rows_", "start_"))}})
+               or k.startswith(("int8_", "rows_", "start_", "at_"))}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
           f" | loader {json.dumps(loader)} | int8 pool and speculation "

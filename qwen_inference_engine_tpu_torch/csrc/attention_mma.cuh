@@ -113,6 +113,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 32, row-major) * b (32 x 8, column-major); s8 in, s32 out
+// (exact); the W8A8 matmul (quant_matmul.cu) uses it
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two floats -> one register of two bf16 (lo in the low half)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -409,6 +420,54 @@ __device__ void attend_mma(MmaSmem<D, NW, KV>& sm, const Rows& rows,
           mma::pack_bf16(o[t][2] * inv_b, o[t][3] * inv_b);
     }
   }
+}
+
+constexpr int kGqaWarps = 4;               // warps of a packed-row block
+constexpr int kGqaRows = 16 * kGqaWarps;   // packed rows of a block
+
+// One block of causal attention over contiguous keys, the body of the
+// flash and contiguous chunk kernels: the kGqaRows packed rows r = t * G +
+// g of KV head blockIdx.x, batch row blockIdx.y, row tile gridDim.z - 1 -
+// blockIdx.z (later tokens first), of q / out [B, T, Hq, D].  Token t sits
+// at position start + t and sees keys [0, start + t], at most S of them.
+// kbase / vbase point at key 0 of (batch row, KV head), each key `stride`
+// elements after the one before; ks / vs at its f32 scales (int8; else
+// null), one a key.
+template <int D, typename KV>
+__device__ __forceinline__ void attend_gqa_block(
+    MmaSmem<D, kGqaWarps, KV>& sm, const __nv_bfloat16* __restrict__ q,
+    __nv_bfloat16* __restrict__ out, const KV* __restrict__ kbase,
+    const KV* __restrict__ vbase, long long stride,
+    const float* __restrict__ ks, const float* __restrict__ vs, int T,
+    int Hq, int Hk, int S, int start, float scale) {
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tile = gridDim.z - 1 - blockIdx.z;
+  const int G = Hq / Hk;
+  const int r0 = tile * kGqaRows;
+  const int n_rows = min(kGqaRows, T * G - r0);
+  // the block's last row sits at token (r0 + n_rows - 1) / G
+  const int n_keys = min(S, max(0, start + (r0 + n_rows - 1) / G + 1));
+  const long long qbase =
+      (static_cast<long long>(b) * T * Hq + static_cast<long long>(hk) * G) * D;
+  attend_mma<D, kGqaWarps, KV>(sm, GqaRows{r0, G, Hq, D}, n_rows, q + qbase,
+                               out + qbase, kbase, vbase,
+                               ContiguousKeys{stride}, ks, vs, n_keys, start,
+                               r0, G, scale);
+}
+
+// Launch `kern` (a kernel whose blocks run attend_gqa_block) over Hk x B x
+// ceil(T * G / kGqaRows) blocks with its dynamic shared memory.
+template <int D, typename KV, typename... Params, typename... Args>
+int launch_gqa(void (*kern)(Params...), int B, int T, int Hq, int Hk,
+               cudaStream_t st, Args... args) {
+  constexpr int smem = sizeof(MmaSmem<D, kGqaWarps, KV>);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int tiles = (T * (Hq / Hk) + kGqaRows - 1) / kGqaRows;
+  kern<<<dim3(Hk, B, tiles), 32 * kGqaWarps, smem, st>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace qie

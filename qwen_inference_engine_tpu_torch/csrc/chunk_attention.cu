@@ -127,14 +127,11 @@ paged_chunk_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-constexpr int kWarps = 4;                 // contiguous: warps per block
-constexpr int kBlockRows = 16 * kWarps;   // contiguous: packed rows a block
-
-// One block: kBlockRows packed rows r = t * G + g of KV head blockIdx.x,
-// batch row blockIdx.y; starts: per-row starts on the device, or null for
-// the host `start`.
+// One block: kGqaRows packed rows r = t * G + g of KV head blockIdx.x,
+// batch row blockIdx.y (attend_gqa_block); starts: per-row starts on the
+// device, or null for the host `start`.
 template <int D, typename KV>
-__global__ void __launch_bounds__(32 * kWarps, 2)
+__global__ void __launch_bounds__(32 * qie::kGqaWarps, 2)
 chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const KV* __restrict__ k_cache,
                  const KV* __restrict__ v_cache,
@@ -144,25 +141,15 @@ chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ out, int Bc, int T, int Hq,
                  int Hk, int S, int layer, int start_arg, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<qie::MmaSmem<D, kWarps, KV>*>(smem_raw);
-  const int hk = blockIdx.x;
+  auto& sm = *reinterpret_cast<qie::MmaSmem<D, qie::kGqaWarps, KV>*>(smem_raw);
   const int b = blockIdx.y;
-  const int tile = gridDim.z - 1 - blockIdx.z;  // later tokens first
-  const int G = Hq / Hk;
-  const int r0 = tile * kBlockRows;
-  const int n_rows = min(kBlockRows, T * G - r0);
-  const int start = starts == nullptr ? start_arg : starts[b];
-  // the block's last row sits at token (r0 + n_rows - 1) / G
-  const int n_keys = min(S, max(0, start + (r0 + n_rows - 1) / G + 1));
-  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
-  const long long qbase =
-      (static_cast<long long>(b) * T * Hq + static_cast<long long>(hk) * G) * D;
-  const float* ks = k_scale == nullptr ? nullptr : k_scale + row * S;
-  const float* vs = v_scale == nullptr ? nullptr : v_scale + row * S;
-  qie::attend_mma<D, kWarps, KV>(
-      sm, qie::GqaRows{r0, G, Hq, D}, n_rows, q + qbase, out + qbase,
-      k_cache + row * S * D, v_cache + row * S * D, qie::ContiguousKeys{D},
-      ks, vs, n_keys, start, r0, G, scale);
+  const long long row =
+      (static_cast<long long>(layer) * Bc + b) * Hk + blockIdx.x;
+  qie::attend_gqa_block<D, KV>(
+      sm, q, out, k_cache + row * S * D, v_cache + row * S * D, D,
+      k_scale == nullptr ? nullptr : k_scale + row * S,
+      v_scale == nullptr ? nullptr : v_scale + row * S, T, Hq, Hk, S,
+      starts == nullptr ? start_arg : starts[b], scale);
 }
 
 template <int D, typename KV>
@@ -171,19 +158,13 @@ int launch_contiguous(const void* q, const void* k_cache, const void* v_cache,
                       const void* starts, void* out, int Bc, int B, int T,
                       int Hq, int Hk, int S, int layer, int start,
                       float scale, cudaStream_t st) {
-  const auto kern = chunk_mma_kernel<D, KV>;
-  constexpr int smem = sizeof(qie::MmaSmem<D, kWarps, KV>);
-  const cudaError_t rc = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int tiles = (T * (Hq / Hk) + kBlockRows - 1) / kBlockRows;
-  kern<<<dim3(Hk, B, tiles), 32 * kWarps, smem, st>>>(
+  return qie::launch_gqa<D, KV>(
+      chunk_mma_kernel<D, KV>, B, T, Hq, Hk, st,
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k_cache),
       static_cast<const KV*>(v_cache), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(starts),
       static_cast<__nv_bfloat16*>(out), Bc, T, Hq, Hk, S, layer, start,
       scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename KV>

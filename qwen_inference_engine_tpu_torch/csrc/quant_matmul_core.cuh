@@ -17,7 +17,6 @@
 //
 // The tiles (their designs are described in quant_matmul.cu):
 //   tile_4a8<TM>            int8 x INT4, __dp4a, 256 threads, BM = 8 TM x 128
-//   tile_8a8<TM>            int8 x INT8, __dp4a, 256 threads, BM = 8 TM x 128
 //   tile_w16_small<I4, MT>  bf16 x INT4/INT8, f32 FMAs, 256 threads, MT x 64
 //   tile_w16_wmma<I4>       bf16 x INT4/INT8, wmma bf16, 128 threads, 64 x 64
 // A tile's shared memory is static and reused by the next call of the same
@@ -41,8 +40,8 @@
 namespace qie {
 
 constexpr int kThreads = 256;
-constexpr int kBN = 128;   // a8 tiles: output columns (32 threads x 4)
-constexpr int kBKP = 32;   // a8 tiles: weight rows per k-step
+constexpr int kBN = 128;   // W4A8 tile: output columns (32 threads x 4)
+constexpr int kBKP = 32;   // W4A8 tile: weight rows per k-step
 
 // The rounding epilogue: y[m, n] -> bf16 out[m * N + n].
 struct StoreBf16 {
@@ -171,102 +170,6 @@ __device__ __forceinline__ void tile_4a8(
       for (int j = 0; j < 4; ++j)
         accf[i][j] += static_cast<float>(acc_lo[i][j] - 8 * rsum[i]) * sl[j] +
                       static_cast<float>(acc_hi[i][j]) * sh[j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m < M) {
-      const float s = sx[m];
-      __nv_bfloat16* o = out + static_cast<size_t>(m) * N + n0 + 4 * tx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = __float2bfloat16(accf[i][j] * s);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
-// W8A8: int8 activations x INT8 weights
-// ---------------------------------------------------------------------
-
-template <int TM>
-__device__ __forceinline__ void tile_8a8(
-    const int8_t* __restrict__ x, const float* __restrict__ sx,
-    const int8_t* __restrict__ q, const float* __restrict__ scales,
-    __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs,
-    bool per_col, int m0, int n0) {
-  constexpr int BM = 8 * TM;
-  __shared__ __align__(16) int8_t xs[BM][kBKP];
-  __shared__ __align__(16) int8_t ws[kBKP][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 32;
-  const int ty = tid / 32;
-
-  float accf[TM][4];
-  int acc[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      accf[i][j] = 0.f;
-      acc[i][j] = 0;
-    }
-
-  for (int k0 = 0; k0 < K; k0 += kBKP) {
-    {  // 32 rows x 128 columns = 256 threads x 16 bytes
-      const int r = tid / 8, col = (tid % 8) * 16;
-      *reinterpret_cast<int4*>(&ws[r][col]) = __ldg(reinterpret_cast<const int4*>(
-          q + static_cast<size_t>(k0 + r) * N + n0 + col));
-    }
-    for (int i = tid; i < 2 * BM; i += kThreads) {
-      const int r = i / 2, col = (i % 2) * 16;
-      const int m = m0 + r;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < M) {
-        v = __ldg(reinterpret_cast<const int4*>(
-            x + static_cast<size_t>(m) * K + k0 + col));
-      }
-      *reinterpret_cast<int4*>(&xs[r][col]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBKP; kk += 4) {
-      unsigned colw[4];
-      transpose4x4(*reinterpret_cast<const unsigned*>(&ws[kk + 0][4 * tx]),
-                   *reinterpret_cast<const unsigned*>(&ws[kk + 1][4 * tx]),
-                   *reinterpret_cast<const unsigned*>(&ws[kk + 2][4 * tx]),
-                   *reinterpret_cast<const unsigned*>(&ws[kk + 3][4 * tx]),
-                   colw);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int xv = *reinterpret_cast<const int*>(&xs[ty * TM + i][kk]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __dp4a(xv, static_cast<int>(colw[j]), acc[i][j]);
-      }
-    }
-    __syncthreads();
-    if (!per_col && (k0 + kBKP) % gs == 0) {  // a group's exact sum is done
-      const float4 s4 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(k0 / gs) * N + n0 + 4 * tx));
-      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          accf[i][j] += static_cast<float>(acc[i][j]) * s[j];
-          acc[i][j] = 0;
-        }
-    }
-  }
-  if (per_col) {  // one exact int32 sum over K (|sum| <= 127^2 K < 2^31)
-    const float4 s4 = __ldg(reinterpret_cast<const float4*>(scales + n0 + 4 * tx));
-    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) accf[i][j] = static_cast<float>(acc[i][j]) * s[j];
   }
 
 #pragma unroll

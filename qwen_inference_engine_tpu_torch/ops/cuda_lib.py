@@ -37,8 +37,10 @@ SIGNATURES = {
     # x, q, scales, out, M, K, N, G (scale groups; 1 = per column), layer,
     # L, stream
     "qie_quant_matmul8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # xq, sx, q, scales, out, M, K, N, G, layer, L, stream
-    "qie_quant_matmul8_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xq, sx, q, scales, ws (split-K partials or null), out, M, K, N, G,
+    # mt, splits, slice, layer, L, stream
+    "qie_quant_matmul8_a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
     # x, sx, q, scales, group_sizes, out, M, Kp, N, group_size, E, layer,
     # L, stream
     "qie_grouped_matmul4_a8": [_P, _P, _P, _P, _P, _P,

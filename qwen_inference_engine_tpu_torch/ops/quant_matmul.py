@@ -24,6 +24,8 @@ kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from qwen_inference_engine_tpu_torch.ops import cuda_lib
@@ -198,9 +200,41 @@ def quant_matmul8(x, q, scales, layer: int) -> torch.Tensor:
     return out
 
 
+# W8A8 decode: K split so that about 4 blocks run on each of the H100's 132
+# SMs (a block streams 128 columns of its slice), slices of at least 256
+# rows (4 of the kernel's 64-row stages)
+SPLIT_TARGET_BLOCKS = 4 * 132
+SPLIT_MIN_ROWS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def plan_quant_matmul8_a8(M: int, K: int, N: int, G: int):
+    """``(mt, splits, slice)`` of the W8A8 kernel for ``x [M, K] @ W [K, N]``
+    with G scale groups (1: one scale per column).
+
+    M <= 64: the decode stream, ``mt`` m16 tiles a warp (1 or 4), K cut
+    into ``splits`` slices of ``slice`` rows (the last may be shorter),
+    each ending on a group boundary (a multiple of K/G; per column, of a
+    64-row stage), as many as fill ``SPLIT_TARGET_BLOCKS`` blocks of 128
+    columns but none under ``SPLIT_MIN_ROWS`` rows.  M > 64: the prefill
+    tiles, ``(0, 1, K)``."""
+    if M > 64:
+        return 0, 1, K
+    mt = 1 if M <= 16 else 4
+    unit = 64 if G == 1 else K // G
+    units = -(-K // unit)
+    tiles = (N // 128) * -(-M // (16 * mt))
+    want = -(-SPLIT_TARGET_BLOCKS // tiles)
+    per = max(-(-units // want), -(-SPLIT_MIN_ROWS // unit))
+    slice_rows = min(per, units) * unit
+    return mt, -(-K // slice_rows), slice_rows
+
+
 def quant_matmul8_a8(xq, sx, q, scales, layer: int) -> torch.Tensor:
     """``bf16 [M, N] = (xq [M,K] int8 @ W8[layer]) * sx[M]`` on the card
-    (W8A8), with the scale layouts of ``quant_matmul8``."""
+    (W8A8), with the scale layouts of ``quant_matmul8``.  At M <= 64 the
+    split-K partials go to a workspace allocated here
+    (``plan_quant_matmul8_a8``)."""
     if xq.device.type == "cpu":
         return quant_matmul8_a8_plain(xq, sx, q, scales, layer)
     K = xq.shape[1]
@@ -212,9 +246,15 @@ def quant_matmul8_a8(xq, sx, q, scales, layer: int) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
     if M == 0:
         return out
+    mt, splits, slice_rows = plan_quant_matmul8_a8(M, K, N, G)
+    ws = None
+    if splits > 1:
+        ws = torch.empty((splits, M, N), device=xq.device,
+                         dtype=torch.int32 if G == 1 else torch.float32)
     rc = cuda_lib.library().qie_quant_matmul8_a8(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), M, K, N, G, int(layer), q.shape[0],
+        None if ws is None else ws.data_ptr(), out.data_ptr(), M, K, N, G,
+        mt, splits, slice_rows, int(layer), q.shape[0],
         cuda_lib.stream_handle(xq.device))
     cuda_lib.check(rc, "quant_matmul8_a8")
     quant_matmul8_a8.launches += 1

@@ -33,15 +33,20 @@ def _t(a):
 
 
 @pytest.mark.parametrize("T,Hq,Hk,D", [(32, 4, 2, 128), (64, 14, 2, 128),
-                                       (48, 8, 8, 64)])
+                                       (48, 8, 8, 64), (1, 14, 2, 128),
+                                       (130, 14, 2, 128), (130, 4, 4, 64),
+                                       (65, 8, 1, 128)])
 def test_flash_attention_plain_matches_pallas_interpret(T, Hq, Hk, D):
-    """Includes G=7, D=128 (the Qwen2.5-7B group) and a ragged T=48 edge."""
+    """Includes G=7, D=128 (the Qwen2.5-7B group), a ragged T=48 edge, one
+    token, T = 130 (the card kernel's two 64-key tiles and a ragged edge,
+    its packed rows straddling tokens at G = 7), G = 1 and G = 8 at T =
+    65; a T that 16 does not divide is one Pallas block."""
     B = 2
     rng = np.random.default_rng(T + Hq)
     q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
     k = rng.normal(size=(B, T, Hk, D)).astype(np.float32)
     v = rng.normal(size=(B, T, Hk, D)).astype(np.float32)
-    bq = 16 if T % 32 else 32
+    bq = T if T % 16 else 16 if T % 32 else 32
     with interpret_pallas(jfa):
         ref = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                              jnp.asarray(v), block_q=bq,

@@ -24,7 +24,12 @@ starts -1, band edges and past the cache's end in bf16, f32 and int8; the
 fresh-merge decode attention with NaN at and past each old length and
 bit-identical to the appending kernel; the all-layer append at 28 layers;
 the fused attention + matmul at the probe's shapes), the deferred-append
-decode step against ``decode_step`` bit for bit, the ragged
+decode step against ``decode_step`` bit for bit, flash attention on the
+tensor cores (T 1 to 512, G 1, 4, 7 and 8, D 64 and 128, two calls bit for
+bit), the W8A8 split-K weight stream and int8 tensor-core tiles (M 1 to
+300, K split unevenly, gs 32, 64, 128 and per column, the lm_head's
+width; two calls bit for bit, and per column bit for bit against the exact
+product rounded as the kernel rounds it), the ragged
 ``Engine.generate`` and ``generate_speculative`` through
 ``kv_append_ragged_t``, the serving engine (INT8 pools and speculation
 too), and the wrappers' refusals.  On
@@ -168,6 +173,43 @@ def test_quant_matmul8_a8_matches_plain(gen, M, K, N, gs, per_column):
     ref = qm.quant_matmul8_a8_plain(xq, sx, q, s, 0)
     assert qm.quant_matmul8_a8.launches == before + 1
     _check_matmul(got, ref, 2 ** -7)
+
+
+# M: the decode stream (1, 4, 16: one m16 tile a warp; 17, 64: four) and
+# the prefill tiles (300: ragged against 128); K = 1664 splits
+# into 7 slices of 256 rows (the last 128) at N <= 384; N = 152064 is the
+# Qwen2.5-7B lm_head (no split)
+W8A8_SHAPES = [(1, 1664, 128), (4, 1664, 256), (16, 1664, 384),
+               (17, 1664, 128), (64, 1664, 256), (300, 1664, 256),
+               (4, 512, 152064)]
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128, None])
+@pytest.mark.parametrize("M,K,N", W8A8_SHAPES)
+def test_quant_matmul8_a8_split_and_tensor_core_paths(gen, M, K, N, gs):
+    """Within 2^-7 of the largest output of the plain version; two calls
+    bit for bit (the split-K partials are added in a fixed order); with one
+    scale per column, bit for bit the exact product rounded as the kernel
+    rounds it: float(x . q) * scale * sx, then bf16."""
+    L = 2
+    G = 1 if gs is None else K // gs
+    q = torch.randint(-127, 128, (L, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((L, G, N), generator=gen, device="cuda") * 0.01
+    xq, sx = qm.quantize_activations(_bf16(gen, M, K))
+    sx = sx.reshape(-1).contiguous()
+    mt, splits, _ = qm.plan_quant_matmul8_a8(M, K, N, G)
+    assert (mt == 0) == (M > 64) and (splits > 1) == (N <= 384 and M <= 64)
+    before = qm.quant_matmul8_a8.launches
+    got = qm.quant_matmul8_a8(xq, sx, q, s, 1)
+    again = qm.quant_matmul8_a8(xq, sx, q, s, 1)
+    ref = qm.quant_matmul8_a8_plain(xq, sx, q, s, 1)
+    assert qm.quant_matmul8_a8.launches == before + 2
+    _check_matmul(got, ref, 2 ** -7)
+    assert torch.equal(got, again)
+    if gs is None:
+        exact = (xq.double() @ q[1].double()).float() * s[1, 0] * sx[:, None]
+        assert torch.equal(got, exact.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("bits,act_bits,gs", [(4, 0, 128), (8, 0, 128),
@@ -412,6 +454,24 @@ def test_flash_attention_matches_plain(gen, B, T, Hq, Hk, D):
     ref = fa.flash_attention_plain(q, k, v)
     # bf16 output; the plain version rounds probabilities to bf16
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+@pytest.mark.parametrize("T", [1, 63, 65, 130, 512])
+def test_flash_attention_tensor_core_tiles_match_plain(gen, T, G, D):
+    """The packed-row tiles (64 rows r = t * G + g, straddling tokens for G
+    7), one or several 64-key tiles with a ragged edge, B up to 4; two
+    calls bit for bit."""
+    B, Hk = (4, 2) if T <= 130 else (2, 2)
+    Hq = G * Hk
+    q, k, v = _bf16(gen, B, T, Hq, D), _bf16(gen, B, T, Hk, D), _bf16(gen, B, T, Hk, D)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention_plain(q, k, v)
+    assert fa.flash_attention.launches == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.equal(got, fa.flash_attention(q, k, v))
 
 
 @pytest.mark.parametrize("B,Bc,Hk,G,D,S,lens", [

@@ -193,6 +193,67 @@ def test_int8_plain_matches_pallas_interpret(gs, act_bits):
     _close_to_bf16(got, ref)
 
 
+@pytest.mark.parametrize("M,gs", [(1, 32), (17, 32), (1, None), (17, 256)])
+def test_w8a8_plain_matches_pallas_interpret_at_decode_shapes(M, gs):
+    """_quant_matmul8_a8 itself (its dispatcher takes groups of a multiple
+    of 128 rows only), K = 2048 in 64 groups of 32, 8 of 256 or one scale
+    per column, one row and 17 (padded to the kernel's 8-row blocks): the
+    same int8 activations and row scales go to both."""
+    rng = np.random.default_rng(M + (gs or 0))
+    K, N = 2048, 128
+    G = 1 if gs is None else K // gs
+    xq = rng.integers(-127, 128, size=(M, K)).astype(np.int8)
+    sx = (rng.random(M) * 0.02 + 1e-3).astype(np.float32)
+    q = rng.integers(-127, 128, size=(1, K, N)).astype(np.int8)
+    s = (rng.random((1, G, N)) * 0.01).astype(np.float32)
+    m_pad = -(-M // 8) * 8
+    xp = np.zeros((m_pad, K), np.int8)
+    xp[:M] = xq
+    sxb = np.ones((m_pad, 128), np.float32)
+    sxb[:M] = sx[:, None]
+    with interpret_pallas(jqmm):
+        ref = np.asarray(jqmm._quant_matmul8_a8(
+            jnp.asarray(xp), jnp.asarray(sxb), jnp.asarray(q), jnp.asarray(s),
+            jnp.asarray(0, jnp.int32), group_size=gs or K, block_m=8,
+            block_k=gs or K, block_n=128), np.float32)[:M]
+    got = tqmm.quant_matmul8_a8(torch.from_numpy(xq), torch.from_numpy(sx),
+                                torch.from_numpy(q), torch.from_numpy(s), 0)
+    assert got.shape == (M, N)
+    _close_to_bf16(got, ref)
+
+
+# the Qwen2.5-7B projections (K, N) and the lm_head
+_PROJ_7B = {"q/o": (3584, 3584), "k/v": (3584, 512), "gate/up": (3584, 18944),
+            "down": (18944, 3584), "lm_head": (3584, 152064)}
+
+
+@pytest.mark.parametrize("G", ["column", 32, 128])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 40, 64, 65, 2048])
+@pytest.mark.parametrize("proj", sorted(_PROJ_7B))
+def test_w8a8_split_plan_covers_k_once_on_group_boundaries(proj, M, G):
+    """The W8A8 kernel's plan: M <= 64 streams the weight with K split into
+    slices that end on group boundaries (multiples of 32 and of K/G), cover
+    every row of K once (the last slice may be shorter, none empty), and
+    give the grid at least 132 blocks of 128 columns (one on each SM)
+    wherever slices of 256 rows allow it; M > 64 takes the prefill tiles
+    over the whole of K."""
+    K, N = _PROJ_7B[proj]
+    G = 1 if G == "column" else K // G
+    mt, splits, slice_rows = tqmm.plan_quant_matmul8_a8(M, K, N, G)
+    if M > 64:
+        assert (mt, splits, slice_rows) == (0, 1, K)
+        return
+    assert mt == (1 if M <= 16 else 4)
+    assert slice_rows % 32 == 0 and (G == 1 or slice_rows % (K // G) == 0)
+    assert (splits - 1) * slice_rows < K <= splits * slice_rows
+    assert slice_rows >= min(K, tqmm.SPLIT_MIN_ROWS)
+    blocks = N // 128 * -(-M // (16 * mt)) * splits
+    reachable = N // 128 * -(-K // max(tqmm.SPLIT_MIN_ROWS, K // G
+                                       if G > 1 else 64))
+    assert blocks >= min(132, reachable)
+    assert splits == 1 or blocks <= 2 * tqmm.SPLIT_TARGET_BLOCKS
+
+
 @pytest.mark.parametrize("bits,act_bits,gs", [(4, 8, 128), (4, 0, 128),
                                               (8, 0, 128), (8, 8, None)],
                          ids=["w4a8", "w4a16", "w8a16", "w8a8"])
