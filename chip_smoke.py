@@ -13,13 +13,15 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    Qwen2.5-7B gives it, with error, kernel / plain / library time and the
    bound (the larger of bytes at 3.35 TB/s and operations at the peak rate
    of their type: 989 TFLOP/s bf16, 1979 TOP/s int8): the four quantized
-   matmuls at the seven projections (M = 4, 256, 2048; W4A16 and W8A16 also
-   the lm_head at M = 4; INT8 per group of 128 rows and per column) and the
-   14B projections at M = 4; the paged kernels over a 40-page pool of
-   512-token pages with shuffled tables and NaN in every page no table
-   holds (the paged attentions' library yardstick is SDPA over a gathered
-   copy, the gather timed beside it; the appends' an ``index_put_``
-   scatter); the contiguous chunk kernels (tensor cores, GQA-packed rows)
+   matmuls at the seven projections (M = 4, 256, 2048, and M = 40 for the
+   three split-K tensor-core kernels W4A8, W8A16 and W8A8, each printing
+   its (mt, splits, slice) plan and timing M <= 64 also in a CUDA graph
+   beside torch.matmul; W4A16 and W8A16 also the lm_head at M = 4; INT8
+   per group of 128 rows and per column) and the 14B projections at M = 4;
+   the paged kernels over a 40-page pool of 512-token pages with shuffled
+   tables and NaN in every page no table holds (the paged attentions'
+   library yardstick is SDPA over a gathered copy, the gather timed beside
+   it; the appends' an ``index_put_`` scatter); the contiguous chunk kernels (tensor cores, GQA-packed rows)
    at starts 512, 1024 and 1536, each kept in the kernels line as
    ``start_<start>``, and with per-row starts on the device (T = 5 and 16,
    NaN past each row's window, ``rows_T5`` / ``rows_T16``), each with its
@@ -107,11 +109,14 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    request over HTTP with /stats;
 4d. the double-pumped decode ([pumped generate]): the JAX bench's pumped
    weights (W4A16 gs 256 pad-free, so down gs 128, and an INT4 lm_head)
-   through ``Engine.generate`` on an aligned batch of 192 x 256-token
-   prompts (max_seq 512, bf16 KV, 32 new tokens): each decode step must
-   launch ``fused_attn_mlp`` and ``kv_append_uniform`` 2 x 28 times and
-   the W4A16 matmul 8 x 28 + 3 + 1 times, and no decode attention or
-   ``fused_mlp``; then from one prefill of the batch, 8 pumped steps and 8
+   through ``Engine(..., pumped=True).generate`` on an aligned batch of
+   192 x 256-token prompts (max_seq 512, bf16 KV, 32 new tokens): each
+   decode step must launch ``fused_attn_mlp`` and ``kv_append_uniform``
+   2 x 28 times and the W4A16 matmul 8 x 28 + 3 + 1 times, and no decode
+   attention or ``fused_mlp``; the same batch through the default
+   dispatch (no pump: ``fused_mlp`` and the appending attention 28 times a
+   step, the W4A16 matmul 4 x 28 + 1), its tok/s beside the pumped one;
+   then from one prefill of the batch, 8 pumped steps and 8
    plain ``decode_step(uniform_decode=True)`` steps (the yardstick;
    ``fused_mlp`` 28 times a step at M = 192) by the host clock, each with 4
    more under the profiler (device busy share, kernels by device time),
@@ -293,79 +298,37 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
 
-def check_quant_matmul(torch, cfg, gs, ms_list=(4, 2048)):
-    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
-    from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
-    from qwen_inference_engine_tpu_torch.quant.quantize import _padded_k
-
-    D, F, Qd, Kd = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim, cfg.kv_dim
-    shapes = [("q", D, Qd), ("k", D, Kd), ("v", D, Kd), ("o", Qd, D),
-              ("gate", D, F), ("up", D, F), ("down", F, D)]
-    g = torch.Generator(device="cuda").manual_seed(1)
-    records = []
-    for M in ms_list:
-        for name, K, N in shapes:
-            if M == 2048 and name in ("v", "up"):
-                continue  # same shapes as k / gate
-            kp = _padded_k(K, 4, gs)
-            q = torch.randint(-128, 128, (1, kp // 2, N), generator=g,
-                              device="cuda", dtype=torch.int8)
-            s = torch.full((1, kp // gs, N), K ** -0.5 / 7, device="cuda")
-            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            xp = torch.nn.functional.pad(x, (0, kp - K))
-            xq, sx = qm.quantize_activations(xp)
-            sx = sx.reshape(-1).contiguous()
-            got = qm.quant_matmul4_a8(xq, sx, q, s, 0, gs)
-            ref = qm.quant_matmul4_a8_plain(xq, sx, q, s, 0, gs)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            tol = 2 ** -6 * ref.float().abs().max().item()
-            w = dequantize(QuantLinear(q=q[0], scales=s[0], b=None, bits=4,
-                                       group_size=gs))[:K]
-            ms = time_ms(torch, lambda: qm.quant_matmul4_a8(xq, sx, q, s, 0, gs))
-            plain_ms = time_ms(torch, lambda: qm.quant_matmul4_a8_plain(
-                xq, sx, q, s, 0, gs), iters=3, warmup=1)
-            lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
-            n_bytes = M * kp + 4 * M + kp // 2 * N + 4 * (kp // gs) * N + 2 * M * N
-            b_ms, b_by = bound(n_bytes, 2 * M * kp * N, "int8")
-            rec = dict(shape=f"{cfg.name} {name} M={M} K={kp} N={N}", M=M,
-                       model=cfg.name, max_abs_err=err,
-                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by)
-            print(f"  quant_matmul4_a8 {rec['shape']}: err {err:.3g} "
-                  f"(tol {tol:.3g}) | kernel {ms:.4f} ms | plain "
-                  f"{plain_ms:.4f} | torch.matmul bf16 {lib_ms:.4f} | bound "
-                  f"{b_ms:.4f} ({b_by})", flush=True)
-            if not err <= tol:
-                fail(f"quant_matmul4_a8 {rec['shape']} err {err} > {tol}")
-            records.append(rec)
-            del q, s, x, xp, xq, w, got, ref
-    return records
+# the four dense matmuls of the weight formats W4A8, W4A16, W8A16 and
+# W8A8: weight bits, activation bits, tolerance (of the largest |output|),
+# peak type; the (mt, splits, slice) planner of the three split-K kernels
+MATMULS = {"quant_matmul4_a8": (4, 8, 2 ** -6, "int8"),
+           "quant_matmul4": (4, 0, 2 ** -6, "bf16"),
+           "quant_matmul8": (8, 0, 2 ** -6, "bf16"),
+           "quant_matmul8_a8": (8, 8, 2 ** -7, "int8")}
+PLANNERS = {"quant_matmul4_a8": "plan_quant_matmul4_a8",
+            "quant_matmul8": "plan_quant_matmul8",
+            "quant_matmul8_a8": "plan_quant_matmul8_a8"}
 
 
-# the three kernels of the weight formats W4A16, W8A16 and W8A8: weight
-# bits, activation bits, tolerance (of the largest |output|), peak type
-NEW_MATMULS = {"quant_matmul4": (4, 0, 2 ** -6, "bf16"),
-               "quant_matmul8": (8, 0, 2 ** -6, "bf16"),
-               "quant_matmul8_a8": (8, 8, 2 ** -7, "int8")}
-
-
-def check_new_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
+def check_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
                      lm_head=False):
-    """One of NEW_MATMULS against its plain version at the projections of
-    ``cfg`` (and its lm_head at M=4); ``gs=None`` is one INT8 scale per
-    column.  The bf16 tolerance (2^-6 of the largest output, the rule of
-    check_quant_matmul) covers the tensor-core path's bf16 rounding of
-    q * scale.  The a8 kernel's integer sums are exact, but the plain
-    version's f32 sums are not, and both round to bf16: one bf16 ulp of the
-    largest output (2^-7 of it) is the tolerance.  The library
-    yardstick is torch.matmul in bf16 over the dequantized weight, and
-    torch._int_mm for W8A8 where it takes the shape."""
+    """One of MATMULS against its plain version at the projections
+    of ``cfg`` (and its lm_head at M=4); ``gs=None`` is one INT8 scale per
+    column.  W4A8 and the bf16-activation kernels are held to 2^-6 of the
+    largest output: the W4A16 tensor-core path rounds q * scale to bf16,
+    and W4A8's and W8A16's f32 sums differ from the plain version's in
+    order and in the f32 fold of each group.  The W8A8 kernel's integer
+    sums are exact, but the plain version's f32 sums are not, and both
+    round to bf16: one bf16 ulp of the largest output (2^-7 of it) is its
+    tolerance.  The library yardstick is torch.matmul in bf16 over the
+    dequantized weight, and torch._int_mm for W8A8 where it takes the
+    shape.  The split-K kernels print their plan, and at M <= 64 a call's
+    device time in a CUDA graph beside torch.matmul's."""
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
     from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
     from qwen_inference_engine_tpu_torch.quant.quantize import _padded_k
 
-    bits, act_bits, rel, peak = NEW_MATMULS[name]
+    bits, act_bits, rel, peak = MATMULS[name]
     kern = getattr(qm, name)
     plain = getattr(qm, name + "_plain")
     D, F, Qd, Kd = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim, cfg.kv_dim
@@ -393,7 +356,8 @@ def check_new_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
             xq, sx = qm.quantize_activations(xp)
             args = (xq, sx.reshape(-1).contiguous(), q, s, 0)
         else:
-            args = (xp, q, s, 0) + ((g_rows,) if bits == 4 else ())
+            args = (xp, q, s, 0)
+        args += (g_rows,) if bits == 4 else ()
         got = kern(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
@@ -405,7 +369,7 @@ def check_new_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
         plain_ms = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
         lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
         int_mm_ms = None
-        if act_bits and M > 16:
+        if act_bits and bits == 8 and M > 16:
             int_mm_ms = time_ms(torch, lambda: torch._int_mm(xq, q[0]))
         n_bytes = (M * kp * (1 if act_bits else 2) + 4 * M * (act_bits > 0)
                    + rows * N + 4 * (kp // g_rows) * N + 2 * M * N)
@@ -415,8 +379,9 @@ def check_new_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
                    plain_ms=plain_ms, library_ms=lib_ms, int_mm_ms=int_mm_ms,
                    bound_ms=b_ms, bound_by=b_by)
         extra = "" if int_mm_ms is None else f" | _int_mm {int_mm_ms:.4f}"
-        if name == "quant_matmul8_a8":  # the kernel's (mt, splits, slice)
-            rec["plan"] = qm.plan_quant_matmul8_a8(M, kp, N, kp // g_rows)
+        if name in PLANNERS:  # the kernel's (mt, splits, slice)
+            rec["plan"] = getattr(qm, PLANNERS[name])(
+                M, kp, N, g_rows if bits == 4 else kp // g_rows)
             extra += f" | plan (mt, splits, slice) {rec['plan']}"
             if M <= 64:  # decode: a call's device time apart from the host's
                 rec["graph_ms"] = graph_ms(torch, lambda: kern(*args))
@@ -1835,10 +1800,15 @@ def _profile_steps(torch, fn, steps):
 def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     """[pumped generate]: Qwen2.5-7B at full width and depth with the JAX
     bench's pumped weights (W4A16 gs 256 pad-free, INT4 lm_head) through
-    ``Engine.generate`` on an aligned batch of 192 x 256-token prompts
-    (max_seq 512, bf16 KV, 32 new tokens).  Each decode step must launch
-    fused_attn_mlp and kv_append_uniform 2 x 28 times and quant_matmul4
-    8 x 28 + 3 + 1 times, and no decode attention or fused_mlp.  Then, from
+    ``Engine(..., pumped=True).generate`` on an aligned batch of 192 x
+    256-token prompts (max_seq 512, bf16 KV, 32 new tokens).  Each decode
+    step must launch fused_attn_mlp and kv_append_uniform 2 x 28 times and
+    quant_matmul4 8 x 28 + 3 + 1 times, and no decode attention or
+    fused_mlp.  Then the same batch through an engine of the default
+    dispatch (no pump): each decode step must launch fused_mlp and the
+    appending decode attention 28 times and quant_matmul4 4 x 28 + 1 times,
+    and neither pumped kernel; its tok/s stands beside the pumped run's.
+    Then, from
     one prefill of the same batch, 8 pumped steps and 8 plain
     ``decode_step(uniform_decode=True)`` steps (the yardstick: fused_mlp
     28 times a step at M = 192) by the host clock, each followed by 4 more
@@ -1855,7 +1825,7 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     B, L = PUMP_BATCH, cfg.num_layers
     eng = Engine(cfg, params, max_batch=B, max_seq=PUMP_SEQ,
                  kv_dtype=torch.bfloat16, sampling=SamplingParams(greedy=True),
-                 device="cuda")
+                 device="cuda", pumped=True)
     if not qwen.pumped_supported(cfg, params, eng.new_cache(), B):
         fail("[pumped generate]: pumped_supported refuses the pumped weights")
     torch.cuda.empty_cache()
@@ -1887,6 +1857,36 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     if got != want or stray:
         fail(f"[pumped generate]: launches {got}, expected {want} "
              f"({steps} decode steps); stray {stray}")
+
+    # the default dispatch (Engine without pumped=True) on the same batch
+    plain_eng = Engine(cfg, params, max_batch=B, max_seq=PUMP_SEQ,
+                       kv_dtype=torch.bfloat16,
+                       sampling=SamplingParams(greedy=True), device="cuda")
+    plain_eng.generate(prompts([16] * B), max_new_tokens=2)  # warm-up
+    for w in wrappers.values():
+        w.launches = 0
+    res_plain = plain_eng.generate(batch, max_new_tokens=NEW_TOKENS)
+    plain_counts = {n: w.launches for n, w in wrappers.items()}
+    p_steps = res_plain.steps - 1
+    want_plain = {"fused_attn_mlp": 0, "kv_append_uniform": 0,
+                  "quant_matmul4": (7 * L + 1) + p_steps * (4 * L + 1),
+                  "flash_attention": L, "fused_mlp": L * p_steps,
+                  "decode_attention_appending": L * p_steps}
+    got_plain = {n: plain_counts[n] for n in want_plain}
+    stray = sorted(n for n in plain_counts
+                   if n not in want_plain and plain_counts[n])
+    print(f"[pumped generate] the default dispatch (no pump), batch {B} x "
+          f"{PUMP_PROMPT}: ttft {res_plain.ttft_s * 1e3:.1f} ms | decode "
+          f"{res_plain.decode_tokens_per_s:.1f} tok/s (pumped "
+          f"{res.decode_tokens_per_s:.1f}) | steps {res_plain.steps} | "
+          f"launches { {n: c for n, c in plain_counts.items() if c} }",
+          flush=True)
+    if got_plain != want_plain or stray:
+        fail(f"[pumped generate] default dispatch: launches {got_plain}, "
+             f"expected {want_plain} ({p_steps} decode steps); stray {stray}")
+    for n in wrappers:
+        counts[n] += plain_counts[n]
+    del plain_eng
 
     dev = eng.device
     toks = torch.tensor(batch, device=dev)
@@ -1971,6 +1971,9 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     torch.cuda.empty_cache()
     return counts, dict(ttft_ms=res.ttft_s * 1e3,
                         decode_tok_s=res.decode_tokens_per_s, steps=res.steps,
+                        default_dispatch_ttft_ms=res_plain.ttft_s * 1e3,
+                        default_dispatch_decode_tok_s=(
+                            res_plain.decode_tokens_per_s),
                         peak_gib=peak, pumped=out["pumped"],
                         plain=out["plain"])
 
@@ -2143,7 +2146,7 @@ def plain_swaps():
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
 
     return ([(qm, n, getattr(qm, n + "_plain"))
-             for n in ("quant_matmul4_a8", *NEW_MATMULS)]
+             for n in MATMULS]
             + [(gm, n, getattr(gm, n + "_plain")) for n in GROUPED]
             + [(qwen, n, getattr(fs, n + "_plain"))
                for n in ("fused_mlp", "fused_attn_mlp")]
@@ -2578,10 +2581,6 @@ def paged_model_check(torch, cfg4, params4, params4_f32, prompts, swaps_plain,
                 f"verify of {SPEC_T}", lk, lp, lr)
 
 
-MATMULS = ("quant_matmul4_a8", "quant_matmul4", "quant_matmul8",
-           "quant_matmul8_a8")
-
-
 def run_formats(torch, cfg, variants, wrappers, prompts):
     """Phase 4 (a)-(d): one Engine.generate run per weight format, 32 new
     tokens.  Each run must launch only its own matmul kernels (and
@@ -2607,8 +2606,8 @@ def run_formats(torch, cfg, variants, wrappers, prompts):
         print(f"      first ids {[row[:8] for row in res.token_ids]}")
         if not all(0 <= t < vcfg.vocab_size for t in ids) or len(set(ids)) < 2:
             fail(f"{label}: ids out of range or all identical")
-        mm = {n: counts[n] for n in MATMULS + ("fused_mlp",
-                                                "kv_append_ragged_t")}
+        mm = {n: counts[n] for n in (*MATMULS, "fused_mlp",
+                                     "kv_append_ragged_t")}
         per = {n: want.get(n, 0) for n in mm}
         per = {n: v if isinstance(v, tuple) else (v, v)
                for n, v in per.items()}
@@ -3814,29 +3813,33 @@ def main() -> int:
     cfg = PRESETS["qwen2.5-7b"]
     gs = 256
     print("[kernels] each against its plain version on the card", flush=True)
-    qmm_recs = check_quant_matmul(torch, cfg, gs)
-    # the kernel must also take every projection of the 14B preset
-    qmm_14b = check_quant_matmul(torch, PRESETS["qwen2.5-14b"], gs, ms_list=(4,))
+    # the split-K kernels also at M = 40, a serving verify of 8 rows x 5
+    # tokens
+    ms_split = (4, 40, 256, 2048)
+    qmm_recs = check_matmul(torch, cfg, "quant_matmul4_a8", gs,
+                                ms_list=ms_split)
+    # the kernels must also take every projection of the 14B preset
     cfg14 = PRESETS["qwen2.5-14b"]
+    qmm_14b = check_matmul(torch, cfg14, "quant_matmul4_a8", gs,
+                               ms_list=(4,))
     new_recs = {
-        "quant_matmul4": check_new_matmul(torch, cfg, "quant_matmul4", 128,
+        "quant_matmul4": check_matmul(torch, cfg, "quant_matmul4", 128,
                                           lm_head=True),
-        "quant_matmul8": check_new_matmul(torch, cfg, "quant_matmul8", 128,
-                                          lm_head=True),
-        "quant_matmul8 per column": check_new_matmul(
+        "quant_matmul8": check_matmul(torch, cfg, "quant_matmul8", 128,
+                                          ms_list=ms_split, lm_head=True),
+        "quant_matmul8 per column": check_matmul(
             torch, cfg, "quant_matmul8", None),
-        # W8A8 also at M = 40, a serving verify of 8 rows x 5 tokens
-        "quant_matmul8_a8": check_new_matmul(torch, cfg, "quant_matmul8_a8",
-                                             None, ms_list=(4, 40, 256, 2048)),
-        "quant_matmul8_a8 gs 128": check_new_matmul(
-            torch, cfg, "quant_matmul8_a8", 128, ms_list=(4, 40, 256, 2048)),
+        "quant_matmul8_a8": check_matmul(torch, cfg, "quant_matmul8_a8",
+                                             None, ms_list=ms_split),
+        "quant_matmul8_a8 gs 128": check_matmul(
+            torch, cfg, "quant_matmul8_a8", 128, ms_list=ms_split),
     }
     new_14b = {
-        "quant_matmul4": check_new_matmul(torch, cfg14, "quant_matmul4", 128,
+        "quant_matmul4": check_matmul(torch, cfg14, "quant_matmul4", 128,
                                           ms_list=(4,)),
-        "quant_matmul8": check_new_matmul(torch, cfg14, "quant_matmul8", 128,
+        "quant_matmul8": check_matmul(torch, cfg14, "quant_matmul8", 128,
                                           ms_list=(4,)),
-        "quant_matmul8_a8": check_new_matmul(torch, cfg14, "quant_matmul8_a8",
+        "quant_matmul8_a8": check_matmul(torch, cfg14, "quant_matmul8_a8",
                                              None, ms_list=(4,)),
     }
     flash_recs = check_flash(torch, cfg, PRESETS["qwen3-30b-a3b"])
@@ -3954,7 +3957,8 @@ def main() -> int:
             fail(f"{label}: ids out of range or all identical")
         missing = sorted(n for n in must | {"quant_matmul4_a8"}
                          if counts[n] <= 0)
-        stray = sorted(n for n in must_not | paged | set(NEW_MATMULS)
+        stray = sorted(n for n in must_not | paged
+                       | (set(MATMULS) - {"quant_matmul4_a8"})
                        | deferred if counts[n] != 0)
         if missing or stray:
             fail(f"{label}: kernels of its path not launched {missing}, "
@@ -4243,23 +4247,26 @@ def main() -> int:
         "fused_attn_matmul": ("csrc/fused_step.cu",
                               "qwen_inference_engine_tpu/ops/fused_step.py:520"),
     }
+    def split_record(recs, extra_err):
+        """A split-K matmul's entry: the decode layer, plus the layer at
+        M = 4 and 40 (with graph times) and the gate at M = 2048."""
+        return dict(layer_record(recs, extra_err), at_M4=layer_at(recs, 4),
+                    at_M40=layer_at(recs, 40),
+                    at_gate_M2048=next(r for r in recs if r["M"] == 2048
+                                       and r["proj"] == "gate"))
+
     # each matmul is reported per decode layer: its seven projections at M=4
-    recs = {"quant_matmul4_a8": layer_record(qmm_recs, qmm_14b),
+    recs = {"quant_matmul4_a8": split_record(qmm_recs, qmm_14b),
             "quant_matmul4": layer_record(new_recs["quant_matmul4"],
                                           new_14b["quant_matmul4"]),
-            "quant_matmul8": layer_record(
+            "quant_matmul8": split_record(
                 new_recs["quant_matmul8"],
                 new_recs["quant_matmul8 per column"]
                 + new_14b["quant_matmul8"]),
-            "quant_matmul8_a8": dict(
-                layer_record(new_recs["quant_matmul8_a8"],
-                             new_recs["quant_matmul8_a8 gs 128"]
-                             + new_14b["quant_matmul8_a8"]),
-                at_M4=layer_at(new_recs["quant_matmul8_a8"], 4),
-                at_M40=layer_at(new_recs["quant_matmul8_a8"], 40),
-                at_gate_M2048=next(
-                    r for r in new_recs["quant_matmul8_a8"]
-                    if r["M"] == 2048 and r["proj"] == "gate")),
+            "quant_matmul8_a8": split_record(
+                new_recs["quant_matmul8_a8"],
+                new_recs["quant_matmul8_a8 gs 128"]
+                + new_14b["quant_matmul8_a8"]),
             "flash_attention": dict(
                 flash_recs[0], at_serving_piece=flash_recs[1],
                 at_30b_a3b=flash_recs[2]),

@@ -114,7 +114,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // d += a (16 x 32, row-major) * b (32 x 8, column-major); s8 in, s32 out
-// (exact); the W8A8 matmul (quant_matmul.cu) uses it
+// (exact); the W8A8 and W4A8 matmuls (quant_matmul.cu) use it
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm volatile(

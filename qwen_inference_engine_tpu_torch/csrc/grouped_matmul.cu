@@ -37,9 +37,9 @@
 // * one block per (N tile, expert); the block finds its expert's first row
 //   as the sum of group_sizes[0..e) (one warp, a shuffle reduction) and
 //   exits at once for an empty expert;
-// * the block walks its expert's rows in tiles of the dense kernels'
-//   height, calling the dense kernels' tile (quant_matmul_core.cuh) with x
-//   and out offset to the expert's rows, so each expert's weight columns
+// * the block walks its expert's rows in tiles of a tile body's height,
+//   calling that tile (quant_matmul_core.cuh) with x and out offset to the
+//   expert's rows, so each expert's weight columns
 //   are streamed from HBM once per row tile (once at decode) and every
 //   output row is written once, by its own expert: no read-modify-write of
 //   a tile that straddles two experts, and no zeroing of other experts'

@@ -1,9 +1,11 @@
 // Shared core of the port's quantized matmuls: y = x @ Wq, bf16 out, one
-// output tile per call.  The dense kernels (quant_matmul.cu) call each tile
-// once per block, at the block's (row, column) tile; the grouped MoE
-// kernels (grouped_matmul.cu) call it in a loop over the row tiles of the
-// block's expert, with x, out and the row count taken at that expert's
-// rows.
+// output tile per call.  The dense W4A16 kernels (quant_matmul.cu) call
+// each tile once per block, at the block's (row, column) tile; the grouped
+// MoE kernels (grouped_matmul.cu) call it in a loop over the row tiles of
+// the block's expert, with x, out and the row count taken at that
+// expert's rows; the fused MLP (fused_step.cu) calls the w16 tiles.  The
+// dense W4A8, W8A16 and W8A8 matmuls run on quant_matmul.cu's tensor-core
+// kernel instead, which shares only transpose4x4 and high_nibbles.
 //
 // A tile reads rows [m0, m0 + BM) of x [M, K] (rows at or past M are never
 // written and read as zeros or as row M - 1) and columns [n0, n0 + BN) of
@@ -15,7 +17,8 @@
 // (x . q) x scale in f32 (x the row scale sx for int8 activations), then
 // rounded to bf16.
 //
-// The tiles (their designs are described in quant_matmul.cu):
+// The tiles (the w16 designs are described in quant_matmul.cu; tile_4a8
+// in grouped_matmul.cu):
 //   tile_4a8<TM>            int8 x INT4, __dp4a, 256 threads, BM = 8 TM x 128
 //   tile_w16_small<I4, MT>  bf16 x INT4/INT8, f32 FMAs, 256 threads, MT x 64
 //   tile_w16_wmma<I4>       bf16 x INT4/INT8, wmma bf16, 128 threads, 64 x 64
@@ -77,6 +80,16 @@ __device__ __forceinline__ void transpose4x4(unsigned r0, unsigned r1,
 // W4A8: int8 activations x INT4 plane pairs
 // ---------------------------------------------------------------------
 
+// __dp4a (s8 x s8 -> s32): a block computes a BM x 128 output tile with
+// 256 threads; each thread owns TM rows x 4 adjacent columns.  Per k-step
+// the block stages 32 weight rows (4 KB, 16-byte coalesced loads) and the
+// matching activation columns in shared memory.  A thread reads 4 rows of
+// its 4 columns as four 32-bit words and transposes them (transpose4x4),
+// so each word holds 4 consecutive k of one column.  It unpacks the
+// nibbles four at a time (lo+8 = w & 0x0F0F0F0F, hi by high_nibbles),
+// accumulates each plane-pair's two products in int32, corrects the lo
+// plane's excess-8 by 8 * rowsum(x_even), and scales the int32 partials
+// into f32.  The row scale is applied in the epilogue.
 template <int TM>
 __device__ __forceinline__ void tile_4a8(
     const int8_t* __restrict__ x, const float* __restrict__ sx,

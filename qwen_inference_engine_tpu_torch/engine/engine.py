@@ -5,12 +5,12 @@ power-of-two buckets (at least 16), padded batch rows given length 1, the
 uniform (aligned batch) or ragged decode chosen per call, EOS masked on the
 device with the host polling on a growing cadence, the seen mask for the
 penalties, and TTFT / decode tok/s measured around work that ends in a
-device sync.  Each step runs eagerly; no CUDA graph yet.  An aligned batch
-decodes through ``decode_step_pumped`` (the batch as two halves, attention
-beside the MLP in one launch) wherever ``pumped_supported`` holds for the
-engine's batch, as the JAX engine does on a TPU; the JAX gate's device
-check is not copied, so the CPU takes the same branch with the plain
-versions.
+device sync.  Each step runs eagerly; no CUDA graph yet.  Decode steps
+run ``decode_step`` by default, as the JAX engine does off a TPU.  An
+engine built with ``pumped=True`` decodes an aligned batch through
+``decode_step_pumped`` (the batch as two halves, attention beside the MLP
+in one launch) wherever ``pumped_supported`` holds for its batch: the JAX
+engine's TPU branch, which on the H100 is slower than the plain step.
 
 ``Engine.generate_speculative`` is greedy generation with prompt-lookup
 speculation (``engine/speculative.py``): token-identical to ``generate``
@@ -72,12 +72,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Engine:
-    """Fixed-batch generation over a contiguous KV cache."""
+    """Fixed-batch generation over a contiguous KV cache.  ``pumped``
+    opts into the double-pumped decode of aligned batches."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_batch: int = 8,
                  max_seq: int = 2048, kv_dtype=torch.bfloat16,
                  sampling: Optional[SamplingParams] = None, seed: int = 1234,
-                 device=None):
+                 device=None, pumped: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -86,6 +87,7 @@ class Engine:
         self.kv_dtype = kv_dtype
         self.sampling = sampling or SamplingParams()
         self.seed = seed
+        self.pumped = pumped
         self.metrics = Metrics()
 
     def new_cache(self) -> KVCache:
@@ -151,7 +153,8 @@ class Engine:
         # aligned batch (all rows the same length) -> uniform decode: the
         # fresh KV rows go through the append kernels
         uniform = bool(np.all(lens == lens[0]))
-        pumped = uniform and pumped_supported(self.cfg, self.params, cache, B)
+        pumped = (self.pumped and uniform
+                  and pumped_supported(self.cfg, self.params, cache, B))
         eos = torch.tensor(list(self.cfg.eos_token_ids), device=dev)
 
         self._sync()

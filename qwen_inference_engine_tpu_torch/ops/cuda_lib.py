@@ -30,13 +30,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaGetLastError())
 SIGNATURES = {
-    # x, sx, q, scales, out, M, Kp, N, group_size, layer, L, stream
-    "qie_quant_matmul4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, sx, q, scales, ws (split-K partials or null), out, M, Kp, N,
+    # group_size, mt, splits, slice, layer, L, stream
+    "qie_quant_matmul4_a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
     # x, q, scales, out, M, Kp, N, group_size, layer, L, stream
     "qie_quant_matmul4": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, q, scales, out, M, K, N, G (scale groups; 1 = per column), layer,
-    # L, stream
-    "qie_quant_matmul8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scales, ws (split-K partials or null), out, M, K, N, G (scale
+    # groups; 1 = per column), mt, splits, slice, layer, L, stream
+    "qie_quant_matmul8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
     # xq, sx, q, scales, ws (split-K partials or null), out, M, K, N, G,
     # mt, splits, slice, layer, L, stream
     "qie_quant_matmul8_a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

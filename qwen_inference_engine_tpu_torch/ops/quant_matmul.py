@@ -14,10 +14,12 @@ PyTorch version beside it:
 * ``quant_matmul8_a8``: int8 activations x INT8 weights (W8A8,
   ``_quant_matmul8_a8``).
 
-``quant_matmul_stacked`` is the dispatcher the model calls: it pads the
-reduction axis, quantizes the activations per token outside the kernel for
-the a8 variants (as the JAX package does), and routes each ``(bits,
-act_bits)`` pair to its kernel.  A wrapper runs its plain version only for
+W4A8, W8A16 and W8A8 run on one tensor-core kernel; at M <= 64 it splits K
+across blocks as ``plan_split_k`` plans it, with the partial sums in a
+workspace the wrapper allocates.  ``quant_matmul_stacked`` is the
+dispatcher the model calls: it pads the reduction axis, quantizes the
+activations per token outside the kernel for the a8 variants (as the JAX
+package does), and routes each ``(bits, act_bits)`` pair to its kernel.  A wrapper runs its plain version only for
 a CPU tensor; for any other it checks types and shapes, then launches its
 kernel or raises.
 """
@@ -118,12 +120,68 @@ def _check(name: str, x, sx, q, scales, layer: int, *, x_dtype, k_per_row,
             raise ValueError(f"{name} needs contiguous tensors on one device")
 
 
+# The tensor-core matmuls' decode stream (W8A8, W4A8, W8A16): K split so
+# that about 4 blocks run on each of the H100's 132 SMs (a block streams 128
+# columns of its slice), slices of at least 256 weight rows (4 of the
+# kernel's 64-row stages)
+SPLIT_TARGET_BLOCKS = 4 * 132
+SPLIT_MIN_ROWS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def plan_split_k(M: int, rows: int, N: int, unit: int):
+    """``(mt, splits, slice)`` of a tensor-core matmul of ``x [M, .]`` over
+    a weight of ``rows`` rows and N columns, whose sums fold every ``unit``
+    weight rows (a scale group, an INT4 plane pair, or a 64-row stage).
+
+    M <= 64: the decode stream, ``mt`` m16 tiles a warp (1 or 4), the rows
+    cut into ``splits`` slices of ``slice`` rows (the last may be shorter),
+    each a multiple of ``unit``, as many as fill ``SPLIT_TARGET_BLOCKS``
+    blocks of 128 columns but none under ``SPLIT_MIN_ROWS`` rows.  M > 64:
+    the prefill tiles, ``(0, 1, rows)``."""
+    if M > 64:
+        return 0, 1, rows
+    mt = 1 if M <= 16 else 4
+    units = -(-rows // unit)
+    tiles = -(-N // 128) * -(-M // (16 * mt))
+    want = -(-SPLIT_TARGET_BLOCKS // tiles)
+    per = max(-(-units // want), -(-SPLIT_MIN_ROWS // unit))
+    slice_rows = min(per, units) * unit
+    return mt, -(-rows // slice_rows), slice_rows
+
+
+def plan_quant_matmul8_a8(M: int, K: int, N: int, G: int):
+    """The INT8 kernels' plan (W8A8, and W8A16 as ``plan_quant_matmul8``)
+    for ``x [M, K] @ W [K, N]`` with G scale groups (1: one scale per
+    column): slices end on group boundaries (per column, on 64-row
+    stages)."""
+    return plan_split_k(M, K, N, 64 if G == 1 else K // G)
+
+
+plan_quant_matmul8 = plan_quant_matmul8_a8
+
+
+def plan_quant_matmul4_a8(M: int, Kp: int, N: int, gs: int):
+    """The W4A8 kernel's plan for ``x [M, Kp] @ W4 [Kp/2, N]`` (plane
+    pairs of gs packed rows): slices of whole pairs, in packed rows."""
+    return plan_split_k(M, Kp // 2, N, gs)
+
+
+def _workspace(splits: int, M: int, N: int, device, dtype):
+    """The split-K partials ``[splits, M, N]``, or None for one slice."""
+    if splits == 1:
+        return None
+    return torch.empty((splits, M, N), device=device, dtype=dtype)
+
+
 def quant_matmul4_a8(xq, sx, q, scales, layer: int,
                      group_size: int) -> torch.Tensor:
     """``bf16 [M, N] = (xq [M,Kp] int8 @ W4[layer]) * sx[M]`` on the card.
 
     W4 is the stacked plane-pair INT4 weight ``q [L, Kp/2, N]`` with group
     scales ``[L, Kp/gs, N]``; ``layer`` selects the slab without a copy.
+    At M <= 64 the split-K partials go to a workspace allocated here
+    (``plan_quant_matmul4_a8``).
     """
     if xq.device.type == "cpu":
         return quant_matmul4_a8_plain(xq, sx, q, scales, layer, group_size)
@@ -137,9 +195,12 @@ def quant_matmul4_a8(xq, sx, q, scales, layer: int,
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
     if M == 0:
         return out
+    mt, splits, slice_rows = plan_quant_matmul4_a8(M, Kp, N, gs)
+    ws = _workspace(splits, M, N, xq.device, torch.float32)
     rc = cuda_lib.library().qie_quant_matmul4_a8(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), M, Kp, N, gs, int(layer), q.shape[0],
+        None if ws is None else ws.data_ptr(), out.data_ptr(), M, Kp, N, gs,
+        mt, splits, slice_rows, int(layer), q.shape[0],
         cuda_lib.stream_handle(xq.device))
     cuda_lib.check(rc, "quant_matmul4_a8")
     quant_matmul4_a8.launches += 1
@@ -180,7 +241,9 @@ def quant_matmul8(x, q, scales, layer: int) -> torch.Tensor:
     """``bf16 [M, N] = x [M,K] bf16 @ W8[layer]`` on the card (W8A16).
 
     ``q [L, K, N]`` int8, ``scales [L, G, N]``: a scale per group of K/G
-    rows, or one per column (G = 1, applied in the epilogue)."""
+    rows, or one per column (G = 1, applied in the epilogue).  At M <= 64
+    the split-K partials go to a workspace allocated here
+    (``plan_quant_matmul8``)."""
     if x.device.type == "cpu":
         return quant_matmul8_plain(x, q, scales, layer)
     K = x.shape[1]
@@ -192,42 +255,16 @@ def quant_matmul8(x, q, scales, layer: int) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
+    mt, splits, slice_rows = plan_quant_matmul8(M, K, N, G)
+    ws = _workspace(splits, M, N, x.device, torch.float32)
     rc = cuda_lib.library().qie_quant_matmul8(
-        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, K,
-        N, G, int(layer), q.shape[0], cuda_lib.stream_handle(x.device))
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+        None if ws is None else ws.data_ptr(), out.data_ptr(), M, K, N, G,
+        mt, splits, slice_rows, int(layer), q.shape[0],
+        cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, "quant_matmul8")
     quant_matmul8.launches += 1
     return out
-
-
-# W8A8 decode: K split so that about 4 blocks run on each of the H100's 132
-# SMs (a block streams 128 columns of its slice), slices of at least 256
-# rows (4 of the kernel's 64-row stages)
-SPLIT_TARGET_BLOCKS = 4 * 132
-SPLIT_MIN_ROWS = 256
-
-
-@functools.lru_cache(maxsize=None)
-def plan_quant_matmul8_a8(M: int, K: int, N: int, G: int):
-    """``(mt, splits, slice)`` of the W8A8 kernel for ``x [M, K] @ W [K, N]``
-    with G scale groups (1: one scale per column).
-
-    M <= 64: the decode stream, ``mt`` m16 tiles a warp (1 or 4), K cut
-    into ``splits`` slices of ``slice`` rows (the last may be shorter),
-    each ending on a group boundary (a multiple of K/G; per column, of a
-    64-row stage), as many as fill ``SPLIT_TARGET_BLOCKS`` blocks of 128
-    columns but none under ``SPLIT_MIN_ROWS`` rows.  M > 64: the prefill
-    tiles, ``(0, 1, K)``."""
-    if M > 64:
-        return 0, 1, K
-    mt = 1 if M <= 16 else 4
-    unit = 64 if G == 1 else K // G
-    units = -(-K // unit)
-    tiles = (N // 128) * -(-M // (16 * mt))
-    want = -(-SPLIT_TARGET_BLOCKS // tiles)
-    per = max(-(-units // want), -(-SPLIT_MIN_ROWS // unit))
-    slice_rows = min(per, units) * unit
-    return mt, -(-K // slice_rows), slice_rows
 
 
 def quant_matmul8_a8(xq, sx, q, scales, layer: int) -> torch.Tensor:
@@ -247,10 +284,8 @@ def quant_matmul8_a8(xq, sx, q, scales, layer: int) -> torch.Tensor:
     if M == 0:
         return out
     mt, splits, slice_rows = plan_quant_matmul8_a8(M, K, N, G)
-    ws = None
-    if splits > 1:
-        ws = torch.empty((splits, M, N), device=xq.device,
-                         dtype=torch.int32 if G == 1 else torch.float32)
+    ws = _workspace(splits, M, N, xq.device,
+                    torch.int32 if G == 1 else torch.float32)
     rc = cuda_lib.library().qie_quant_matmul8_a8(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), scales.data_ptr(),
         None if ws is None else ws.data_ptr(), out.data_ptr(), M, K, N, G,

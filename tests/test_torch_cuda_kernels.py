@@ -26,10 +26,11 @@ bit-identical to the appending kernel; the all-layer append at 28 layers;
 the fused attention + matmul at the probe's shapes), the deferred-append
 decode step against ``decode_step`` bit for bit, flash attention on the
 tensor cores (T 1 to 512, G 1, 4, 7 and 8, D 64 and 128, two calls bit for
-bit), the W8A8 split-K weight stream and int8 tensor-core tiles (M 1 to
-300, K split unevenly, gs 32, 64, 128 and per column, the lm_head's
-width; two calls bit for bit, and per column bit for bit against the exact
-product rounded as the kernel rounds it), the ragged
+bit), the split-K weight streams and tensor-core tiles of W8A8, W4A8 and
+W8A16 (M 1 to 300, K split unevenly, gs 32, 64, 128, 256 and per column,
+the lm_head's width, the 7B down projection, W8A16 widths of 64 past a
+multiple of 128; two calls bit for bit, and W8A8 per column bit for bit
+against the exact product rounded as the kernel rounds it), the ragged
 ``Engine.generate`` and ``generate_speculative`` through
 ``kv_append_ragged_t``, the serving engine (INT8 pools and speculation
 too), and the wrappers' refusals.  On
@@ -210,6 +211,78 @@ def test_quant_matmul8_a8_split_and_tensor_core_paths(gen, M, K, N, gs):
     if gs is None:
         exact = (xq.double() @ q[1].double()).float() * s[1, 0] * sx[:, None]
         assert torch.equal(got, exact.to(torch.bfloat16))
+
+
+# (M, N, K): the decode stream (1, 4, 16: one m16 tile a warp; 17, 40, 64:
+# four) and the prefill tiles (65, 300: ragged against 128).  K None: 3328
+# (1664 packed rows: 7 slices of 256, the last 128) below gs 256, 3584 (7
+# slices) at gs 256; the Qwen2.5-7B lm_head's width (no split) and its down
+# projection at the quantizer-padded K
+W4A8_SPLIT_SHAPES = [(1, 512, None), (4, 256, None), (16, 384, None),
+                     (17, 128, None), (40, 512, None), (64, 256, None),
+                     (65, 128, None), (300, 256, None), (4, 152064, 512),
+                     (4, 3584, "down"), (40, 3584, "down")]
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128, 256])
+@pytest.mark.parametrize("M,N,K", W4A8_SPLIT_SHAPES)
+def test_quant_matmul4_a8_split_and_tensor_core_paths(gen, M, N, K, gs):
+    """Within 2^-7 of the largest output of the plain version (the int32
+    plane sums are exact, the f32 folds and the plain version's f32 sums
+    differ in order, and both round to bf16); two calls bit for bit (the
+    split-K partials are added in a fixed order)."""
+    from qwen_inference_engine_tpu_torch.quant.quantize import _padded_k
+
+    if K is None:
+        K = 3328 if gs < 256 else 3584
+    elif K == "down":
+        K = _padded_k(18944, 4, gs)
+    L = 2
+    q = torch.randint(-128, 128, (L, K // 2, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((L, K // gs, N), generator=gen, device="cuda") * 0.01
+    xq, sx = qm.quantize_activations(_bf16(gen, M, K))
+    sx = sx.reshape(-1).contiguous()
+    mt, splits, _ = qm.plan_quant_matmul4_a8(M, K, N, gs)
+    assert (mt == 0) == (M > 64)
+    assert (splits > 1) == (M <= 64 and N < 152064)
+    before = qm.quant_matmul4_a8.launches
+    got = qm.quant_matmul4_a8(xq, sx, q, s, 1, gs)
+    again = qm.quant_matmul4_a8(xq, sx, q, s, 1, gs)
+    ref = qm.quant_matmul4_a8_plain(xq, sx, q, s, 1, gs)
+    assert qm.quant_matmul4_a8.launches == before + 2
+    _check_matmul(got, ref, 2 ** -7)
+    assert torch.equal(got, again)
+
+
+# (M, K, N): as W8A8_SHAPES, with widths of 64 past a multiple of 128 (a
+# block's last 64 columns empty) and the Qwen2.5-7B down projection
+W8A16_SPLIT_SHAPES = W8A8_SHAPES + [(1, 1664, 64), (17, 1664, 192),
+                                    (300, 1664, 320), (4, 18944, 3584)]
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128, None])
+@pytest.mark.parametrize("M,K,N", W8A16_SPLIT_SHAPES)
+def test_quant_matmul8_split_and_tensor_core_paths(gen, M, K, N, gs):
+    """Within 2^-6 of the largest output of the plain version, the rule of
+    test_quant_matmul8_matches_plain (the bf16 tensor cores' f32 sums are
+    not IEEE-ordered); two calls bit for bit."""
+    L = 2
+    G = 1 if gs is None else K // gs
+    q = torch.randint(-127, 128, (L, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((L, G, N), generator=gen, device="cuda") * 0.01
+    x = _bf16(gen, M, K)
+    mt, splits, _ = qm.plan_quant_matmul8(M, K, N, G)
+    assert (mt == 0) == (M > 64)
+    assert (splits > 1) == (M <= 64 and N < 152064)
+    before = qm.quant_matmul8.launches
+    got = qm.quant_matmul8(x, q, s, 1)
+    again = qm.quant_matmul8(x, q, s, 1)
+    ref = qm.quant_matmul8_plain(x, q, s, 1)
+    assert qm.quant_matmul8.launches == before + 2
+    _check_matmul(got, ref, 2 ** -6)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("bits,act_bits,gs", [(4, 0, 128), (8, 0, 128),

@@ -20,7 +20,9 @@ forward), the port its plain versions:
 * the W4A16 forward (the fused-MLP branch) against the JAX forward with
   ``attn_impl="pallas"``, a prefill and 2 decode steps;
 * ``Engine.generate(device="cpu")`` at ``max_batch=130``: an aligned batch
-  decodes through ``decode_step_pumped``, a ragged one does not.
+  decodes through ``decode_step_pumped`` only when the engine is built
+  with ``pumped=True``; by default, and a ragged batch, through
+  ``decode_step``.
 """
 
 import contextlib
@@ -423,29 +425,43 @@ def test_w4a16_forward_takes_the_fused_mlp_like_jax(monkeypatch):
     assert calls == [B * T] * 3 + [B] * 6
 
 
-def test_engine_pumps_aligned_batches_of_more_than_128(monkeypatch):
+@pytest.mark.parametrize("case", ["default", "pumped aligned",
+                                  "pumped ragged"])
+def test_engine_pumps_aligned_batches_of_more_than_128(monkeypatch, case):
     """Engine.generate(device="cpu") at max_batch 130 with pad-free INT4
-    weights: an aligned batch decodes through decode_step_pumped (the same
-    ids as prefill + decode_step_pumped by hand), a ragged one through
-    decode_step."""
+    weights decodes through decode_step_pumped only when the engine is
+    built with pumped=True and the batch is aligned; by default (the JAX
+    engine off a TPU) and on a ragged batch it decodes through decode_step.
+    An aligned batch's ids equal prefill + its decode step by hand."""
     _, (tcfg, tparams) = _pump_model()
     B = 130
-    pumped = []
-    orig = tqwen.decode_step_pumped
+    calls = {"pumped": [], "plain": []}
+    orig, orig_plain = tqwen.decode_step_pumped, tqwen.decode_step
     import qwen_inference_engine_tpu_torch.engine.engine as teng
 
-    def spy(*a, **k):
-        pumped.append(a[2].shape[0])
-        return orig(*a, **k)
+    def spy(kind, fn):
+        def wrapped(*a, **k):
+            calls[kind].append(a[2].shape[0])
+            return fn(*a, **k)
+        return wrapped
 
-    monkeypatch.setattr(teng, "decode_step_pumped", spy)
+    monkeypatch.setattr(teng, "decode_step_pumped", spy("pumped", orig))
+    monkeypatch.setattr(teng, "decode_step", spy("plain", orig_plain))
     greedy = SamplingParams(greedy=True)
+    pumped = case != "default"
     eng = Engine(tcfg, tparams, max_batch=B, max_seq=256, sampling=greedy,
-                 device="cpu")
+                 device="cpu", pumped=pumped)
     rng = np.random.default_rng(9)
     prompts = rng.integers(2, 512, size=(B, 6)).tolist()
+    if case == "pumped ragged":
+        ragged = [p[:3 + i % 3] for i, p in enumerate(prompts)]
+        res = eng.generate(ragged, max_new_tokens=3)
+        assert calls == {"pumped": [], "plain": [B] * 2}
+        assert len(res.token_ids) == B
+        return
     res = eng.generate(prompts, max_new_tokens=4)
-    assert pumped == [B] * 3
+    assert calls == ({"pumped": [B] * 3, "plain": []} if pumped
+                     else {"pumped": [], "plain": [B] * 3})
 
     # the same steps by hand
     cache = eng.new_cache()
@@ -459,7 +475,12 @@ def test_engine_pumps_aligned_batches_of_more_than_128(monkeypatch):
         cols = [tok]
         done = torch.isin(tok, torch.tensor(tcfg.eos_token_ids))
         for step in range(1, 4):
-            logits, cache = orig(tparams, tcfg, tok, lens + step - 1, cache)
+            pos = lens + step - 1
+            if pumped:
+                logits, cache = orig(tparams, tcfg, tok, pos, cache)
+            else:
+                logits, cache = orig_plain(tparams, tcfg, tok, pos, cache,
+                                           uniform_decode=True)
             nxt = sample(logits, greedy, None, None)
             is_eos = torch.isin(nxt, torch.tensor(tcfg.eos_token_ids))
             nxt = torch.where(done, torch.zeros_like(nxt), nxt)
@@ -469,8 +490,3 @@ def test_engine_pumps_aligned_batches_of_more_than_128(monkeypatch):
     by_hand = torch.stack(cols, 1).tolist()
     for got, want in zip(res.token_ids, by_hand):
         assert got == want[:len(got)]
-
-    pumped.clear()
-    ragged = [p[:3 + i % 3] for i, p in enumerate(prompts)]
-    res = eng.generate(ragged, max_new_tokens=3)
-    assert pumped == [] and len(res.token_ids) == B

@@ -254,6 +254,126 @@ def test_w8a8_split_plan_covers_k_once_on_group_boundaries(proj, M, G):
     assert splits == 1 or blocks <= 2 * tqmm.SPLIT_TARGET_BLOCKS
 
 
+@pytest.mark.parametrize("gs", [32, 128, 256])
+@pytest.mark.parametrize("M", [1, 17, 40])
+def test_w4a8_plain_matches_pallas_interpret_at_decode_shapes(M, gs):
+    """_quant_matmul4_a8 itself at the shapes the split-K decode stream
+    takes (K = 2048 in 1024 packed rows: 4 slices of 256 at N = 128), one
+    row, 17 and 40 (padded to the kernel's 8-row blocks): the same bf16
+    activations go to both, and both quantize them per token alike."""
+    rng = np.random.default_rng(M + gs)
+    K, N = 2048, 128
+    assert tqmm.plan_quant_matmul4_a8(M, K, N, gs)[1] > 1
+    x = _bf16_values(rng.normal(size=(M, K)).astype(np.float32))
+    q = rng.integers(-128, 128, size=(1, K // 2, N)).astype(np.int8)
+    s = (rng.random((1, K // gs, N)) * 0.01).astype(np.float32)
+    m_pad = -(-M // 8) * 8
+    xp = np.zeros((m_pad, K), np.float32)
+    xp[:M] = x
+    with interpret_pallas(jqmm):
+        ref = np.asarray(jqmm._quant_matmul4_a8(
+            jnp.asarray(xp).astype(jnp.bfloat16), jnp.asarray(q),
+            jnp.asarray(s), jnp.asarray(0, jnp.int32), group_size=gs,
+            block_m=8, block_n=128), np.float32)[:M]
+    xq, sx = tqmm.quantize_activations(torch.from_numpy(x).to(torch.bfloat16))
+    got = tqmm.quant_matmul4_a8(xq, sx.reshape(-1), torch.from_numpy(q),
+                                torch.from_numpy(s), 0, gs)
+    assert got.shape == (M, N)
+    _close_to_bf16(got, ref)
+
+
+@pytest.mark.parametrize("gs", [32, 128, 256, None])
+@pytest.mark.parametrize("M", [1, 17, 40])
+def test_w8a16_plain_matches_pallas_interpret_at_decode_shapes(M, gs):
+    """_quant_matmul8 itself at the shapes the split-K decode stream takes
+    (K = 2048: slices of 256 rows at N = 128), a scale per group of 32,
+    128 or 256 rows (one k-tile each) or one per column, one row, 17 and
+    40 (padded to the kernel's 8-row blocks)."""
+    rng = np.random.default_rng(M + (gs or 0))
+    K, N = 2048, 128
+    G = 1 if gs is None else K // gs
+    assert tqmm.plan_quant_matmul8(M, K, N, G)[1] > 1
+    x = _bf16_values(rng.normal(size=(M, K)).astype(np.float32))
+    q = rng.integers(-127, 128, size=(1, K, N)).astype(np.int8)
+    s = (rng.random((1, G, N)) * 0.01).astype(np.float32)
+    m_pad = -(-M // 8) * 8
+    xp = np.zeros((m_pad, K), np.float32)
+    xp[:M] = x
+    with interpret_pallas(jqmm):
+        ref = np.asarray(jqmm._quant_matmul8(
+            jnp.asarray(xp).astype(jnp.bfloat16), jnp.asarray(q),
+            jnp.asarray(s), jnp.asarray(0, jnp.int32), group_size=gs or K,
+            block_m=8, block_k=gs or K, block_n=128), np.float32)[:M]
+    got = tqmm.quant_matmul8(torch.from_numpy(x).to(torch.bfloat16),
+                             torch.from_numpy(q), torch.from_numpy(s), 0)
+    assert got.shape == (M, N)
+    _close_to_bf16(got, ref)
+
+
+def _dense_projections(preset: str) -> dict:
+    """The dense matmuls (K, N) of a preset: q, k/v, o, the dense MLP's
+    gate/up and down (not for an MoE model), and the lm_head."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+
+    c = PRESETS[preset]
+    shapes = {"q": (c.hidden_size, c.q_dim), "k/v": (c.hidden_size, c.kv_dim),
+              "o": (c.q_dim, c.hidden_size),
+              "lm_head": (c.hidden_size, c.vocab_size)}
+    if not c.is_moe:
+        shapes.update({"gate/up": (c.hidden_size, c.intermediate_size),
+                       "down": (c.intermediate_size, c.hidden_size)})
+    return shapes
+
+
+def _check_split_plan(plan, M, rows, N, unit):
+    """The rules every split-K plan keeps (see the W8A8 plan test)."""
+    mt, splits, slice_rows = plan
+    if M > 64:
+        assert plan == (0, 1, rows)
+        return
+    assert mt == (1 if M <= 16 else 4)
+    assert slice_rows % 32 == 0 and slice_rows % unit == 0
+    assert (splits - 1) * slice_rows < rows <= splits * slice_rows
+    assert slice_rows >= min(rows, tqmm.SPLIT_MIN_ROWS)
+    tiles = -(-N // 128) * -(-M // (16 * mt))
+    reachable = -(-N // 128) * -(-rows // max(tqmm.SPLIT_MIN_ROWS, unit))
+    assert tiles * splits >= min(132, reachable)
+    assert splits == 1 or tiles * splits <= 2 * tqmm.SPLIT_TARGET_BLOCKS
+
+
+_PLAN_PRESETS = ["qwen2.5-7b", "qwen2.5-14b", "qwen3-30b-a3b"]
+
+
+@pytest.mark.parametrize("gs", [32, 128, 256])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 40, 64, 65, 2048])
+@pytest.mark.parametrize("preset", _PLAN_PRESETS)
+def test_w4a8_split_plan_covers_k_once_on_pair_boundaries(preset, M, gs):
+    """The W4A8 kernel's plan for every dense projection and the lm_head,
+    in packed rows of the quantizer-padded K (the 7B down projection pads
+    to a multiple of 2 gs): slices of whole plane pairs (gs packed rows),
+    every packed row once, at least 132 blocks of 128 columns wherever
+    slices of 256 rows allow it; M > 64 takes the prefill tiles over all
+    of K."""
+    for K, N in _dense_projections(preset).values():
+        kp = _padded_k(K, 4, gs)
+        plan = tqmm.plan_quant_matmul4_a8(M, kp, N, gs)
+        _check_split_plan(plan, M, kp // 2, N, gs)
+
+
+@pytest.mark.parametrize("G", ["column", 32, 128])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 40, 64, 65, 2048])
+@pytest.mark.parametrize("preset", _PLAN_PRESETS)
+def test_w8a16_split_plan_covers_k_once_on_group_boundaries(preset, M, G):
+    """The W8A16 kernel's plan for every dense projection and the lm_head,
+    and a width 64 past a multiple of 128 (its last column tile counts):
+    slices end on group boundaries (per column, on 64-row stages) and
+    cover K once."""
+    for K, N in [*_dense_projections(preset).values(), (3584, 576)]:
+        g = 1 if G == "column" else K // G
+        plan = tqmm.plan_quant_matmul8(M, K, N, g)
+        _check_split_plan(plan, M, K, N, 64 if g == 1 else K // g)
+
+
 @pytest.mark.parametrize("bits,act_bits,gs", [(4, 8, 128), (4, 0, 128),
                                               (8, 0, 128), (8, 8, None)],
                          ids=["w4a8", "w4a16", "w8a16", "w8a8"])
