@@ -300,12 +300,13 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
 
 # the four dense matmuls of the weight formats W4A8, W4A16, W8A16 and
 # W8A8: weight bits, activation bits, tolerance (of the largest |output|),
-# peak type; the (mt, splits, slice) planner of the three split-K kernels
+# peak type; the (mt, splits, slice) planner of each split-K kernel
 MATMULS = {"quant_matmul4_a8": (4, 8, 2 ** -6, "int8"),
            "quant_matmul4": (4, 0, 2 ** -6, "bf16"),
            "quant_matmul8": (8, 0, 2 ** -6, "bf16"),
            "quant_matmul8_a8": (8, 8, 2 ** -7, "int8")}
 PLANNERS = {"quant_matmul4_a8": "plan_quant_matmul4_a8",
+            "quant_matmul4": "plan_quant_matmul4",
             "quant_matmul8": "plan_quant_matmul8",
             "quant_matmul8_a8": "plan_quant_matmul8_a8"}
 
@@ -315,9 +316,9 @@ def check_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
     """One of MATMULS against its plain version at the projections
     of ``cfg`` (and its lm_head at M=4); ``gs=None`` is one INT8 scale per
     column.  W4A8 and the bf16-activation kernels are held to 2^-6 of the
-    largest output: the W4A16 tensor-core path rounds q * scale to bf16,
-    and W4A8's and W8A16's f32 sums differ from the plain version's in
-    order and in the f32 fold of each group.  The W8A8 kernel's integer
+    largest output: their f32 sums differ from the plain version's in
+    order (the bf16 tensor cores' sums are not IEEE-ordered) and in the f32
+    fold of each group or plane pair.  The W8A8 kernel's integer
     sums are exact, but the plain version's f32 sums are not, and both
     round to bf16: one bf16 ulp of the largest output (2^-7 of it) is its
     tolerance.  The library yardstick is torch.matmul in bf16 over the
@@ -1245,8 +1246,10 @@ def check_fused_mlp(torch, cfg):
     F 18944): the pumped weights' group sizes (gate / up 256, down 128:
     pad-free gs 256) at M = 4, 8, 40, 192 and 256, and run (a)'s gs 128 /
     128 at M = 4.  Tolerance 2^-6 of the largest output (the matmuls'
-    rule: both round h and y to bf16, the wmma tile at M > 16 rounds
-    q * scale to bf16)."""
+    rule: both round h and y to bf16, and the tensor cores' f32 sums of g
+    and u differ from the plain version's in order).  Each shape prints
+    its two plans; at M <= 64 also a call's device time in a CUDA graph
+    beside the yardstick's."""
     from qwen_inference_engine_tpu_torch.ops import fused_step as fs
 
     K, F = cfg.hidden_size, cfg.intermediate_size
@@ -1274,11 +1277,21 @@ def check_fused_mlp(torch, cfg):
             rec = dict(shape=f"{cfg.name} MLP M={M} K={K} F={F} gs "
                              f"{gs_gate}/{gs_down}", M=M, gs=(gs_gate, gs_down),
                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       plan=fs.plan_fused_mlp(M, K, F, gs_gate, gs_down))
+            extra = ""
+            if M <= 64:  # decode: a call's device time apart from the host's
+                rec["graph_ms"] = graph_ms(
+                    torch, lambda: fs.fused_mlp(x, *w, 1, **kw))
+                rec["library_graph_ms"] = graph_ms(
+                    torch, _mlp_library(torch, x, deq))
+                extra = (f" | in a CUDA graph: kernel {rec['graph_ms']:.4f}, "
+                         f"torch.matmul x3 {rec['library_graph_ms']:.4f}")
             print(f"  fused_mlp {rec['shape']}: err {err:.3g} (tol {tol:.3g}),"
                   f" two calls bit-identical {same} | kernel {ms:.4f} ms | "
                   f"plain {plain_ms:.4f} | torch.matmul bf16 x3 + silu "
-                  f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
+                  f"{lib_ms:.4f}{extra} | plans (gate/up, down) {rec['plan']}"
+                  f" | bound {b_ms:.4f} ({b_by})", flush=True)
             if not err <= tol or not same:
                 fail(f"fused_mlp {rec['shape']} err {err} > {tol} or two "
                      f"calls differ")
@@ -3824,7 +3837,9 @@ def main() -> int:
                                ms_list=(4,))
     new_recs = {
         "quant_matmul4": check_matmul(torch, cfg, "quant_matmul4", 128,
-                                          lm_head=True),
+                                          ms_list=ms_split, lm_head=True),
+        "quant_matmul4 gs 256": check_matmul(
+            torch, cfg, "quant_matmul4", 256, ms_list=ms_split),
         "quant_matmul8": check_matmul(torch, cfg, "quant_matmul8", 128,
                                           ms_list=ms_split, lm_head=True),
         "quant_matmul8 per column": check_matmul(
@@ -4257,8 +4272,9 @@ def main() -> int:
 
     # each matmul is reported per decode layer: its seven projections at M=4
     recs = {"quant_matmul4_a8": split_record(qmm_recs, qmm_14b),
-            "quant_matmul4": layer_record(new_recs["quant_matmul4"],
-                                          new_14b["quant_matmul4"]),
+            "quant_matmul4": split_record(
+                new_recs["quant_matmul4"],
+                new_recs["quant_matmul4 gs 256"] + new_14b["quant_matmul4"]),
             "quant_matmul8": split_record(
                 new_recs["quant_matmul8"],
                 new_recs["quant_matmul8 per column"]
@@ -4273,10 +4289,16 @@ def main() -> int:
             **dec_recs, **chunk_recs,
             **append_recs, **dec8_recs, **paged_recs,
             **{n: moe_layer_record(r) for n, r in grouped_recs.items()},
-            # the fused MLP at decode (M = 4) with the pumped weights; the
-            # fused attention + MLP at the pumped step's second half
-            "fused_mlp": next(r for r in fused_mlp_recs
-                              if r["M"] == 4 and r["gs"] == (256, 128)),
+            # the fused MLP at decode (M = 4) with the pumped weights, and
+            # at the default dispatch's batch of 192 and serving's pieces
+            # of 256; the fused attention + MLP at the pumped step's second
+            # half
+            "fused_mlp": dict(
+                next(r for r in fused_mlp_recs
+                     if r["M"] == 4 and r["gs"] == (256, 128)),
+                **{f"at_M{m}": next(r for r in fused_mlp_recs
+                                    if r["M"] == m and r["gs"] == (256, 128))
+                   for m in (192, 256)}),
             "fused_attn_mlp": attn_mlp_recs[PUMP_BATCH // 2],
             # the deferred decode's kernels at its batch of 192; the fused
             # attention + matmul at the probe's row0 0

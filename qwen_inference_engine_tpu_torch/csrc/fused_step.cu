@@ -31,35 +31,47 @@
 // 117 MB of KV and 34 MB of weights and scales, 0.045 ms at 3.35 TB/s,
 // against 7.6 GFLOP of matmul (0.008 ms at 989 TFLOP/s): bytes.
 //
-// Design (simple and right first).  The TPU kernel walks the F tiles in
-// order and carries the down projection's sum in scratch from one grid
-// step to the next.  Blocks on the card run in no order, and a sum across
-// blocks in floating-point atomics would change greedy tokens from run to
-// run, so both kernels take two passes (two launches):
-//   1. gate / up / h: one block per 64 columns of F (and 64 rows of M at
-//      M > 16) computes the g tile and then the u tile from the same x rows
-//      with the W4A16 tiles of quant_matmul_core.cuh: the f32 CUDA-core
-//      tile at M <= 16, the wmma tile above.  The tiles' epilogue (FusedEp)
-//      writes g in f32 to a workspace [M, F], then reads it back beside u
-//      (the same thread writes and reads each element) and writes
-//      h = bf16(silu(g) * u) to a bf16 workspace [M, F]: 0.3 MB at M = 8,
-//      9.7 MB at M = 256, within the 50 MB L2;
-//   2. down: y = h @ Wd with the same W4A16 tiles, rounded to bf16.
-// Every output element is written by one thread in a fixed order, so two
-// calls give bit-identical results.  fused_attn_mlp's first launch holds
-// both block kinds in one grid: blocks [0, Ba * Hk) are attention, one
-// per (row, KV head), with the decode core of attention_common.cuh (the
-// G real query heads, no padding to 8; keys past lens[b] never loaded),
-// and the rest are pass 1 of the MLP, always on the wmma tile (128
-// threads, the attention block's size; a half batch is > 64 rows).  The
-// two kinds share the static shared memory through a union.  The
-// hardware runs them side by side on the 132 SMs: that is the overlap the
-// TPU kernel builds by hand with its ring of KV copies.
+// Design.  The TPU kernel walks the F tiles in order and carries the down
+// projection's sum in scratch from one grid step to the next.  Blocks on
+// the card run in no order, and a sum across blocks in floating-point
+// atomics would change greedy tokens from run to run, so the MLP takes two
+// passes, each a sum that a reduce kernel adds in a fixed order.
+// fused_mlp runs both on the tensor-core body of quant_matmul_core.cuh
+// (qmm_mma_kernel<kW4A16>: the INT4 nibbles widened exactly to bf16 in
+// registers, bf16 mma.sync, two f32 plane sums folded per pair in the TPU's
+// order), four launches inside one C call:
+//   1. gate / up: one launch over both weights side by side (grid.y: the
+//      gate's F / 128 column tiles, then the up's), K split into slices at
+//      M <= 64 (the decode stream; ops/fused_step.plan_fused_mlp).  Above
+//      64 rows both passes take the decode stream's 64-row tiles (two
+//      blocks an SM): 128-row tiles would leave half of one empty at
+//      M = 192.  Every slice writes its f32 partial g and u to part
+//      [splits, M, 2 F] (g in columns [0, F), u in [F, 2 F));
+//   2. swiglu_reduce adds each column's partials in split order and writes
+//      h = bf16(silu(g) * u) [M, F]: g and u stay in f32 until h;
+//   3. down: y = h @ Wd on the same body, K = F split at every M (N = K
+//      gives few column tiles: 28 for 7B, 84 blocks at M = 192, so slices
+//      fill the 132 SMs), the partials in part (free again);
+//   4. qmm_reduce adds them in split order and rounds y to bf16 once.
+//   The workspace (part, then h) is one allocation of the wrapper's.
+// fused_attn_mlp's first launch holds both block kinds in one grid: blocks
+// [0, Ba * Hk) are attention, one per (row, KV head), with the decode core
+// of attention_common.cuh (the G real query heads, no padding to 8; keys
+// past lens[b] never loaded), and the rest are pass 1 of the MLP on the
+// W4A16 wmma tile (128 threads, the attention block's size; a half batch
+// is > 64 rows) with an f32 epilogue (FusedEp): g to a workspace [M, F],
+// then h = bf16(silu(g) * u) beside u (the same thread writes and reads
+// each element).  The two kinds share the static shared memory through a
+// union.  The hardware runs them side by side on the 132 SMs: that is the
+// overlap the TPU kernel builds by hand with its ring of KV copies.  Its
+// second launch is the down pass on the w16 tiles (launch_down: the f32
+// CUDA-core tile at M <= 16, the wmma tile above).
 // fused_attn_matmul is that first launch with one matmul tile (the W4A16
 // wmma tile with the rounding StoreBf16 epilogue) in place of gate / up: a
 // single matmul carries no sum across blocks (each block walks its own K
-// loop), so it is one launch with no second pass and no atomics.  wgmma /
-// TMA tiles, and splitting the down pass's K loop, are left to later work.
+// loop), so it is one launch with no second pass and no atomics.  Every
+// output element is written by one thread in a fixed order, so two calls
+// give bit-identical results.
 
 #include "attention_common.cuh"
 #include "quant_matmul_core.cuh"
@@ -69,9 +81,14 @@ namespace {
 using qie::kChunk;
 using qie::kSmallCols;
 using qie::kThreads;
+using qie::kW4A16;
 using qie::kWBM;
 using qie::kWBN;
 using qie::kWThreads;
+using qie::launch_mma_mt;
+using qie::mma_call_ok;
+using qie::QmmArgs;
+using qie::run_mma;
 
 constexpr int kD = 128;     // head dimension of fused_attn_mlp's attention
 constexpr int kRows = 8;    // query heads per KV head (G <= 8)
@@ -94,19 +111,7 @@ struct FusedEp {
   }
 };
 
-// The gate and up tiles of one block (tile index t over F / 64 x row tiles).
-template <int MT>
-__device__ __forceinline__ void gate_up_small(
-    const __nv_bfloat16* x, const int8_t* wg, const float* sg,
-    const int8_t* wu, const float* su, float* g_ws, __nv_bfloat16* h_ws,
-    int M, int K, int F, int gs, int m0, int n0) {
-  qie::tile_w16_small_ep<true, MT>(x, wg, sg, FusedEp{g_ws, nullptr, F}, M,
-                                   K, F, gs, false, m0, n0);
-  __syncthreads();
-  qie::tile_w16_small_ep<true, MT>(x, wu, su, FusedEp{g_ws, h_ws, F}, M, K,
-                                   F, gs, false, m0, n0);
-}
-
+// fused_attn_mlp's gate and up tiles of one block.
 __device__ __forceinline__ void gate_up_wmma(
     qie::WmmaSmem<true>& sm, const __nv_bfloat16* x, const int8_t* wg,
     const float* sg, const int8_t* wu, const float* su, float* g_ws,
@@ -118,33 +123,8 @@ __device__ __forceinline__ void gate_up_wmma(
                               F, gs, false, m0, n0);
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-gate_up_small_kernel(const __nv_bfloat16* __restrict__ x,
-                     const int8_t* __restrict__ wg,
-                     const float* __restrict__ sg,
-                     const int8_t* __restrict__ wu,
-                     const float* __restrict__ su, float* __restrict__ g_ws,
-                     __nv_bfloat16* __restrict__ h_ws, int M, int K, int F,
-                     int gs) {
-  gate_up_small<MT>(x, wg, sg, wu, su, g_ws, h_ws, M, K, F, gs,
-                    blockIdx.y * MT, blockIdx.x * kSmallCols);
-}
-
-__global__ void __launch_bounds__(kWThreads)
-gate_up_wmma_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ wg,
-                    const float* __restrict__ sg,
-                    const int8_t* __restrict__ wu,
-                    const float* __restrict__ su, float* __restrict__ g_ws,
-                    __nv_bfloat16* __restrict__ h_ws, int M, int K, int F,
-                    int gs) {
-  __shared__ qie::WmmaSmem<true> sm;
-  gate_up_wmma(sm, x, wg, sg, wu, su, g_ws, h_ws, M, K, F, gs,
-               blockIdx.y * kWBM, blockIdx.x * kWBN);
-}
-
-// Pass 2: y [M, K] = h [M, F] @ Wd (one output tile a block).
+// fused_attn_mlp's pass 2: y [M, K] = h [M, F] @ Wd (one output tile a
+// block).
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
 down_small_kernel(const __nv_bfloat16* __restrict__ h,
@@ -280,6 +260,40 @@ attn_matmul_kernel(const __nv_bfloat16* __restrict__ q,
              row0, scale, blk / Hk, blk % Hk);
 }
 
+// fused_mlp's pass 2: h [M, F] = bf16(silu(g) * u), g and u the sums of
+// the gate / up pass's f32 partials part [splits, M, 2 F] (g in columns
+// [0, F), u in [F, 2 F)) in split order; each thread 8 adjacent columns.
+__global__ void __launch_bounds__(kThreads)
+swiglu_reduce(const float* __restrict__ part, __nv_bfloat16* __restrict__ h,
+              int M, int F, int splits) {
+  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= static_cast<size_t>(M) * F / 8) return;
+  const int m = static_cast<int>(idx / (F / 8));
+  const int col = static_cast<int>(idx % (F / 8)) * 8;
+  const size_t plane = static_cast<size_t>(M) * 2 * F;
+  const float* src = part + static_cast<size_t>(m) * 2 * F + col;
+  float g[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float u[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < splits; ++s) {
+    const float* p = src + s * plane;
+#pragma unroll
+    for (int c = 0; c < 8; c += 4) {
+      const float4 gv = *reinterpret_cast<const float4*>(p + c);
+      const float4 uv = *reinterpret_cast<const float4*>(p + F + c);
+      g[c] += gv.x; g[c + 1] += gv.y; g[c + 2] += gv.z; g[c + 3] += gv.w;
+      u[c] += uv.x; u[c + 1] += uv.y; u[c + 2] += uv.z; u[c + 3] += uv.w;
+    }
+  }
+  float y[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) y[c] = g[c] / (1.f + expf(-g[c])) * u[c];
+  *reinterpret_cast<uint4*>(h + static_cast<size_t>(m) * F + col) =
+      make_uint4(qie::mma::pack_bf16(y[0], y[1]),
+                 qie::mma::pack_bf16(y[2], y[3]),
+                 qie::mma::pack_bf16(y[4], y[5]),
+                 qie::mma::pack_bf16(y[6], y[7]));
+}
+
 // The MLP operands' common checks (the wrappers check first; these keep a
 // direct call from running off its arrays).
 bool bad_mlp(int M, int K, int F, int gs_gate, int gs_down, int layer,
@@ -292,46 +306,60 @@ bool bad_mlp(int M, int K, int F, int gs_gate, int gs_down, int layer,
 
 }  // namespace
 
+// (mt1, splits1, slice1): the gate / up pass's plan over K / 2 packed rows
+// (pairs of gs_gate), (mt2, splits2, slice2) the down pass's over F / 2
+// (pairs of gs_down), as for qie_quant_matmul4 (any mt at any M).  ws:
+// the f32 partials, M x max(splits1 * 2 F, splits2 * K) values (the gate /
+// up pass's [splits1, M, 2 F], then the down pass's [splits2, M, K]), then
+// h bf16 [M, F].
 extern "C" int qie_fused_mlp(const void* x, const void* wg, const void* sg,
                              const void* wu, const void* su, const void* wd,
-                             const void* sd, void* g_ws, void* h_ws, void* y,
-                             int M, int K, int F, int gs_gate, int gs_down,
-                             int layer, int L, void* stream) {
-  if (bad_mlp(M, K, F, gs_gate, gs_down, layer, L)) {
+                             const void* sd, void* ws, void* y, int M, int K,
+                             int F, int gs_gate, int gs_down, int mt1,
+                             int splits1, int slice1, int mt2, int splits2,
+                             int slice2, int layer, int L, void* stream) {
+  if (bad_mlp(M, K, F, gs_gate, gs_down, layer, L) || ws == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t part = static_cast<size_t>(M) *
+                      (splits1 * 2 * F > splits2 * K ? splits1 * 2 * F
+                                                     : splits2 * K);
+  auto* h = reinterpret_cast<__nv_bfloat16*>(static_cast<float*>(ws) + part);
+  if (!mma_call_ok(M, K / 2, gs_gate, mt1, splits1, slice1, ws, x, wg, sg) ||
+      !mma_call_ok(M, K / 2, gs_gate, mt1, splits1, slice1, ws, x, wu, su) ||
+      !mma_call_ok(M, F / 2, gs_down, mt2, splits2, slice2, ws, h, wd, sd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t wl = static_cast<size_t>(layer) * (K / 2) * F;
-  const int8_t* wgl = static_cast<const int8_t*>(wg) + wl;
-  const int8_t* wul = static_cast<const int8_t*>(wu) + wl;
-  const float* sgl = static_cast<const float*>(sg) +
-                     static_cast<size_t>(layer) * (K / gs_gate) * F;
-  const float* sul = static_cast<const float*>(su) +
-                     static_cast<size_t>(layer) * (K / gs_gate) * F;
-  const int8_t* wdl = static_cast<const int8_t*>(wd) +
-                      static_cast<size_t>(layer) * (F / 2) * K;
-  const float* sdl = static_cast<const float*>(sd) +
-                     static_cast<size_t>(layer) * (F / gs_down) * K;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* g = static_cast<float*>(g_ws);
-  auto* h = static_cast<__nv_bfloat16*>(h_ws);
+  const size_t sl = static_cast<size_t>(layer) * (K / gs_gate) * F;
+  const size_t dl = static_cast<size_t>(layer) * (F / 2) * K;
+  const size_t dsl = static_cast<size_t>(layer) * (F / gs_down) * K;
+  auto q8 = [](const void* p) { return static_cast<const int8_t*>(p); };
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 4) {
-    gate_up_small_kernel<4><<<dim3(F / kSmallCols, 1), kThreads, 0, st>>>(
-        xb, wgl, sgl, wul, sul, g, h, M, K, F, gs_gate);
-  } else if (M <= 16) {
-    gate_up_small_kernel<8><<<dim3(F / kSmallCols, (M + 7) / 8), kThreads, 0,
-                              st>>>(xb, wgl, sgl, wul, sul, g, h, M, K, F,
-                                    gs_gate);
-  } else {
-    gate_up_wmma_kernel<<<dim3(F / kWBN, (M + kWBM - 1) / kWBM), kWThreads, 0,
-                          st>>>(xb, wgl, sgl, wul, sul, g, h, M, K, F,
-                                gs_gate);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_down(h, wdl, sdl,
-                                      static_cast<__nv_bfloat16*>(y), M, F, K,
-                                      gs_down, st));
+  const QmmArgs gate_up{x,
+                        nullptr,
+                        {q8(wg) + wl, q8(wu) + wl},
+                        {f32(sg) + sl, f32(su) + sl},
+                        nullptr,
+                        ws,
+                        M, K / 2, F, gs_gate, slice1};
+  cudaError_t rc =
+      launch_mma_mt<kW4A16, false, true>(mt1, gate_up, splits1, st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const size_t threads = static_cast<size_t>(M) * F / 8;
+  swiglu_reduce<<<(threads + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      f32(ws), h, M, F, splits1);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const QmmArgs down{h,
+                     nullptr,
+                     {q8(wd) + dl, nullptr},
+                     {f32(sd) + dsl, nullptr},
+                     static_cast<__nv_bfloat16*>(y),
+                     ws,
+                     M, F / 2, K, gs_down, slice2};
+  return static_cast<int>(run_mma<kW4A16, false>(mt2, down, splits2, st));
 }
 
 extern "C" int qie_fused_attn_mlp(

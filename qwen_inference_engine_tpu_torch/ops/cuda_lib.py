@@ -34,8 +34,10 @@ SIGNATURES = {
     # group_size, mt, splits, slice, layer, L, stream
     "qie_quant_matmul4_a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P],
-    # x, q, scales, out, M, Kp, N, group_size, layer, L, stream
-    "qie_quant_matmul4": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scales, ws (split-K partials or null), out, M, Kp, N,
+    # group_size, mt, splits, slice, layer, L, stream
+    "qie_quant_matmul4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
     # x, q, scales, ws (split-K partials or null), out, M, K, N, G (scale
     # groups; 1 = per column), mt, splits, slice, layer, L, stream
     "qie_quant_matmul8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -86,10 +88,12 @@ SIGNATURES = {
     # starts, L, Bc, B, T, Hk, S, D, elem_bytes, layer, stream
     "qie_kv_append_ragged_t": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, wg, sg, wu, su, wd, sd, g_ws, h_ws, y, M, K, F, gs_gate, gs_down,
-    # layer, L, stream
-    "qie_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, wg, sg, wu, su, wd, sd, ws (partials, then h), y, M, K, F,
+    # gs_gate, gs_down, mt1, splits1, slice1 (gate / up), mt2, splits2,
+    # slice2 (down), layer, L, stream
+    "qie_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
     # q, k_cache, v_cache, lens, attn, x, wg, sg, wu, su, wd, sd, g_ws, h_ws,
     # y, Lc, Bc, Ba, Hq, Hk, S, layer_a, row0, M, K, F, gs_gate, gs_down,
     # layer_m, L, scale, stream

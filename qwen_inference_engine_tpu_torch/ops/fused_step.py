@@ -26,10 +26,12 @@ PyTorch version beside it:
 
 The TPU kernels carry the down projection's sum from one grid step to the
 next; on the card blocks run in no order, so both MLP kernels run in two
-passes: gate / up / h into a workspace, then the down projection (the
-second launch); ``fused_attn_matmul`` carries no sum across blocks and is
-one launch.  The query heads are the G real ones: the JAX package
-pads them to G8 = 8 for the TPU's layout.  A wrapper runs its plain
+passes: gate / up / h into a workspace, then the down projection.
+``fused_mlp`` runs both on the W4A16 matmul's tensor-core kernel, K split
+as ``plan_fused_mlp`` plans it, and a reduce after each pass;
+``fused_attn_matmul`` carries no sum across blocks and is one launch.  The
+query heads are the G real ones: the JAX package pads them to G8 = 8 for
+the TPU's layout.  A wrapper runs its plain
 version only for a CPU tensor; for any other it checks types, shapes and
 the device, then launches its kernel or raises.
 """
@@ -45,7 +47,10 @@ from qwen_inference_engine_tpu_torch.ops.decode_attention import (
 )
 from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, quant_matmul
 from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
+    SPLIT_MIN_ROWS,
+    SPLIT_TARGET_BLOCKS,
     _check as check_matmul,
+    plan_split_k,
     quant_matmul4_plain,
 )
 
@@ -178,6 +183,38 @@ def _check_attn(name, lens, layer, q, k_cache, v_cache, x, row0):
             lens.to(torch.int32).contiguous())
 
 
+def plan_fused_mlp(M: int, K: int, F: int, gs_gate: int, gs_down: int):
+    """``fused_mlp``'s two plans, each ``(mt, splits, slice)`` as
+    ``plan_split_k`` gives it: gate / up over K / 2 packed rows of both
+    weights' 2 F columns (pairs of gs_gate), the down pass over F / 2
+    packed rows of K columns (pairs of gs_down).  M <= 64: both as the
+    matmuls plan them.  M > 64 (up to 256 rows): the decode stream's
+    64-row tiles (mt 4, two blocks an SM) in both passes, which leave no
+    128-row tile half empty at M = 192; gate / up over all of K (2 F / 128
+    column tiles fill the card), the down pass's few tiles (7B: K / 128 x
+    M / 64 = 84 at M = 192) split into about twice the decode stream's
+    blocks, slices of whole pairs."""
+    rows = F // 2
+    if M <= 64:
+        return (plan_split_k(M, K // 2, 2 * F, gs_gate),
+                plan_split_k(M, rows, K, gs_down))
+    tiles = -(-K // 128) * -(-M // 64)
+    want = -(-2 * SPLIT_TARGET_BLOCKS // tiles)
+    units = rows // gs_down
+    per = max(-(-units // want), -(-SPLIT_MIN_ROWS // gs_down))
+    slice_rows = min(per, units) * gs_down
+    return (4, 1, K // 2), (4, -(-rows // slice_rows), slice_rows)
+
+
+def _fused_mlp_workspace(M, K, F, plans, device):
+    """One workspace for both passes: the f32 partials, M x max(splits1 *
+    2 F, splits2 * K) values (the down pass reuses the gate / up partials'
+    room), then h bf16 [M, F]."""
+    (_, s1, _), (_, s2, _) = plans
+    n_bytes = 4 * M * max(s1 * 2 * F, s2 * K) + 2 * M * F
+    return torch.empty(n_bytes, dtype=torch.uint8, device=device)
+
+
 def fused_mlp(x: torch.Tensor, wg: torch.Tensor, sg: torch.Tensor,
               wu: torch.Tensor, su: torch.Tensor, wd: torch.Tensor,
               sd: torch.Tensor, layer: int, *, gs_gate: int,
@@ -185,8 +222,9 @@ def fused_mlp(x: torch.Tensor, wg: torch.Tensor, sg: torch.Tensor,
     """``x [M, K] -> [M, K]``: the SwiGLU MLP of layer ``layer`` over the
     stacked pad-free INT4 weights (gate / up ``[L, K/2, F]`` with scales
     ``[L, K/gs_gate, F]``, down ``[L, F/2, K]`` with ``[L, F/gs_down, K]``).
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernels
+    (gate / up, SwiGLU, down and its reduce, in one C call; the workspace
+    allocated here) or raises."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, wg, sg, wu, su, wd, sd, layer,
                                gs_gate=gs_gate, gs_down=gs_down)
@@ -194,14 +232,14 @@ def fused_mlp(x: torch.Tensor, wg: torch.Tensor, sg: torch.Tensor,
                              gs_gate, gs_down)
     dev = x.device
     xb = x.to(torch.bfloat16).contiguous()
-    g_ws = torch.empty((M, F_), dtype=torch.float32, device=dev)
-    h_ws = torch.empty((M, F_), dtype=torch.bfloat16, device=dev)
+    plans = plan_fused_mlp(M, K, F_, gs_gate, gs_down)
+    ws = _fused_mlp_workspace(M, K, F_, plans, dev)
     y = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
     rc = cuda_lib.library().qie_fused_mlp(
         xb.data_ptr(), wg.data_ptr(), sg.data_ptr(), wu.data_ptr(),
-        su.data_ptr(), wd.data_ptr(), sd.data_ptr(), g_ws.data_ptr(),
-        h_ws.data_ptr(), y.data_ptr(), M, K, F_, gs_gate, gs_down, int(layer),
-        L, cuda_lib.stream_handle(dev))
+        su.data_ptr(), wd.data_ptr(), sd.data_ptr(), ws.data_ptr(),
+        y.data_ptr(), M, K, F_, gs_gate, gs_down, *plans[0], *plans[1],
+        int(layer), L, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "fused_mlp")
     fused_mlp.launches += 1
     return y.to(x.dtype)

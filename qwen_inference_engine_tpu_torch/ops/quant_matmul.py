@@ -14,9 +14,9 @@ PyTorch version beside it:
 * ``quant_matmul8_a8``: int8 activations x INT8 weights (W8A8,
   ``_quant_matmul8_a8``).
 
-W4A8, W8A16 and W8A8 run on one tensor-core kernel; at M <= 64 it splits K
-across blocks as ``plan_split_k`` plans it, with the partial sums in a
-workspace the wrapper allocates.  ``quant_matmul_stacked`` is the
+All four run on one tensor-core kernel; at M <= 64 it splits K across
+blocks as ``plan_split_k`` plans it, with the partial sums in a workspace
+the wrapper allocates.  ``quant_matmul_stacked`` is the
 dispatcher the model calls: it pads the reduction axis, quantizes the
 activations per token outside the kernel for the a8 variants (as the JAX
 package does), and routes each ``(bits, act_bits)`` pair to its kernel.  A wrapper runs its plain version only for
@@ -120,7 +120,7 @@ def _check(name: str, x, sx, q, scales, layer: int, *, x_dtype, k_per_row,
             raise ValueError(f"{name} needs contiguous tensors on one device")
 
 
-# The tensor-core matmuls' decode stream (W8A8, W4A8, W8A16): K split so
+# The tensor-core matmuls' decode stream: K split so
 # that about 4 blocks run on each of the H100's 132 SMs (a block streams 128
 # columns of its slice), slices of at least 256 weight rows (4 of the
 # kernel's 64-row stages)
@@ -162,9 +162,13 @@ plan_quant_matmul8 = plan_quant_matmul8_a8
 
 
 def plan_quant_matmul4_a8(M: int, Kp: int, N: int, gs: int):
-    """The W4A8 kernel's plan for ``x [M, Kp] @ W4 [Kp/2, N]`` (plane
-    pairs of gs packed rows): slices of whole pairs, in packed rows."""
+    """The INT4 kernels' plan (W4A8, and W4A16 as ``plan_quant_matmul4``)
+    for ``x [M, Kp] @ W4 [Kp/2, N]`` (plane pairs of gs packed rows):
+    slices of whole pairs, in packed rows."""
     return plan_split_k(M, Kp // 2, N, gs)
+
+
+plan_quant_matmul4 = plan_quant_matmul4_a8
 
 
 def _workspace(splits: int, M: int, N: int, device, dtype):
@@ -210,7 +214,9 @@ def quant_matmul4_a8(xq, sx, q, scales, layer: int,
 def quant_matmul4(x, q, scales, layer: int, group_size: int) -> torch.Tensor:
     """``bf16 [M, N] = x [M,Kp] bf16 @ W4[layer]`` on the card (W4A16).
 
-    The same stacked plane-pair INT4 layout as ``quant_matmul4_a8``."""
+    The same stacked plane-pair INT4 layout as ``quant_matmul4_a8``; N a
+    multiple of 64.  At M <= 64 the split-K partials go to a workspace
+    allocated here (``plan_quant_matmul4``)."""
     if x.device.type == "cpu":
         return quant_matmul4_plain(x, q, scales, layer, group_size)
     gs = group_size
@@ -223,9 +229,13 @@ def quant_matmul4(x, q, scales, layer: int, group_size: int) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
+    mt, splits, slice_rows = plan_quant_matmul4(M, Kp, N, gs)
+    ws = _workspace(splits, M, N, x.device, torch.float32)
     rc = cuda_lib.library().qie_quant_matmul4(
-        x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(), M, Kp,
-        N, gs, int(layer), q.shape[0], cuda_lib.stream_handle(x.device))
+        x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+        None if ws is None else ws.data_ptr(), out.data_ptr(), M, Kp, N, gs,
+        mt, splits, slice_rows, int(layer), q.shape[0],
+        cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, "quant_matmul4")
     quant_matmul4.launches += 1
     return out

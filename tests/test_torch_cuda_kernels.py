@@ -109,9 +109,9 @@ def test_quant_matmul4_a8_refuses_what_it_cannot_take(gen):
         qm.quant_matmul4_a8(xq, sx, q, s, 1, 128)
 
 
-# M: decode rows (CUDA-core kernel at M <= 16) and prefill rows (tensor
-# cores above), ragged against the 8 / 64-row tiles; N = 152064 is the
-# Qwen2.5-7B lm_head
+# M: decode rows (the split-K stream at M <= 64) and prefill rows (the
+# 128 x 128 tiles above), ragged against the 16 / 64 / 128-row tiles;
+# N = 152064 is the Qwen2.5-7B lm_head
 W16_SHAPES = [(1, 512, 128, 32), (5, 1024, 256, 64), (17, 768, 192, 128),
               (300, 2048, 128, 256), (4, 256, 152064, 128), (64, 512, 64, 64)]
 
@@ -124,8 +124,10 @@ def _check_matmul(got, ref, rel):
 
 @pytest.mark.parametrize("M,K,N,gs", W16_SHAPES)
 def test_quant_matmul4_matches_plain(gen, M, K, N, gs):
-    """bf16 activations: the tensor-core path rounds q * scale to bf16, so
-    2^-6 of the largest output, the rule of the W4A8 kernel's test."""
+    """bf16 activations: the bf16 tensor cores' f32 sums are not
+    IEEE-ordered and the plain version's differ in order, and both round
+    to bf16: 2^-6 of the largest output, the rule of the W4A8 kernel's
+    test."""
     L = 2
     q = torch.randint(-128, 128, (L, K // 2, N), generator=gen, device="cuda",
                       dtype=torch.int8)
@@ -252,6 +254,43 @@ def test_quant_matmul4_a8_split_and_tensor_core_paths(gen, M, N, K, gs):
     ref = qm.quant_matmul4_a8_plain(xq, sx, q, s, 1, gs)
     assert qm.quant_matmul4_a8.launches == before + 2
     _check_matmul(got, ref, 2 ** -7)
+    assert torch.equal(got, again)
+
+
+# as W4A8_SPLIT_SHAPES, with widths of 64 past a multiple of 128 (a
+# block's last 64 columns empty) in the decode stream's two tiles and the
+# prefill tiles
+W4A16_SPLIT_SHAPES = W4A8_SPLIT_SHAPES + [(1, 64, None), (17, 192, None),
+                                          (300, 320, None)]
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128, 256])
+@pytest.mark.parametrize("M,N,K", W4A16_SPLIT_SHAPES)
+def test_quant_matmul4_split_and_tensor_core_paths(gen, M, N, K, gs):
+    """Within 2^-6 of the largest output of the plain version, the rule of
+    test_quant_matmul4_matches_plain (the bf16 tensor cores' f32 plane sums
+    are not IEEE-ordered); two calls bit for bit (the split-K partials are
+    added in a fixed order)."""
+    from qwen_inference_engine_tpu_torch.quant.quantize import _padded_k
+
+    if K is None:
+        K = 3328 if gs < 256 else 3584
+    elif K == "down":
+        K = _padded_k(18944, 4, gs)
+    L = 2
+    q = torch.randint(-128, 128, (L, K // 2, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((L, K // gs, N), generator=gen, device="cuda") * 0.01
+    x = _bf16(gen, M, K)
+    mt, splits, _ = qm.plan_quant_matmul4(M, K, N, gs)
+    assert (mt == 0) == (M > 64)
+    assert (splits > 1) == (M <= 64 and N < 152064)
+    before = qm.quant_matmul4.launches
+    got = qm.quant_matmul4(x, q, s, 1, gs)
+    again = qm.quant_matmul4(x, q, s, 1, gs)
+    ref = qm.quant_matmul4_plain(x, q, s, 1, gs)
+    assert qm.quant_matmul4.launches == before + 2
+    _check_matmul(got, ref, 2 ** -6)
     assert torch.equal(got, again)
 
 
@@ -1340,9 +1379,40 @@ def test_fused_mlp_matches_plain(gen, shape, M, gs_gate, gs_down):
     assert got.dtype == torch.bfloat16 and got.shape == (M, K)
     # no atomics: two calls are bit-identical
     assert torch.equal(got, again)
-    # both round h to bf16 and the output; the wmma tile (M > 16) rounds
-    # q * scale to bf16 (a relative 2^-9 a weight), which can move an h
+    # both round h to bf16 and the output; the tensor cores' f32 sums of g
+    # and u differ from the plain version's in order, which can move an h
     # across a bf16 boundary: 2^-6 of the largest output, the matmuls' rule
+    tol = 2 ** -6 * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("gs_gate,gs_down", [(128, 128), (256, 128)])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 40, 64, 65, 192, 256])
+@pytest.mark.parametrize("shape", sorted(MLP_SHAPES))
+def test_fused_mlp_split_and_tensor_core_paths(gen, shape, M, gs_gate,
+                                               gs_down):
+    """Both passes on the tensor-core body at every tile and split: the
+    decode stream's one and four m16 tiles a warp (M 1..16, 17..64) with K
+    split in both passes, the 64-row tiles over several row tiles above
+    (the down pass split into slices of whole pairs); within 2^-6 of the
+    largest output of the plain version (test_fused_mlp_matches_plain's
+    rule), two calls bit for bit."""
+    K, F = MLP_SHAPES[shape]
+    (mt1, s1, _), (mt2, s2, _) = fs.plan_fused_mlp(M, K, F, gs_gate, gs_down)
+    assert mt1 == mt2 == (1 if M <= 16 else 4)
+    # the tiny MLP's 256 packed rows are one slice
+    assert (s1 > 1) == (M <= 64 and shape == "7b")
+    assert (s2 > 1) == (shape == "7b")
+    w = _mlp_weights(gen, 2, K, F, gs_gate, gs_down)
+    x = _bf16(gen, M, K)
+    kw = dict(gs_gate=gs_gate, gs_down=gs_down)
+    before = fs.fused_mlp.launches
+    got = fs.fused_mlp(x, *w, 1, **kw)
+    again = fs.fused_mlp(x, *w, 1, **kw)
+    ref = fs.fused_mlp_plain(x, *w, 1, **kw)
+    assert fs.fused_mlp.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (M, K)
+    assert torch.equal(got, again)
     tol = 2 ** -6 * ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= tol
 
@@ -1684,10 +1754,10 @@ def test_fused_attn_matmul_matches_plain(gen, shape, second):
     # the W4A16 matmul's rule: 2^-6 of the largest output
     tol = 2 ** -6 * ref_y.float().abs().max().item()
     assert (y.float() - ref_y.float()).abs().max().item() <= tol
-    # above 16 rows the dense W4A16 kernel runs the same wmma tile: the
-    # same bits (at 16 rows or fewer it takes its CUDA-core tile)
-    if Mb > 16:
-        assert torch.equal(y, qm.quant_matmul4(x, wq, ws, layer, gs))
+    # the dense W4A16 kernel runs another body (the tensor cores), so it
+    # agrees with this wmma tile by the same rule
+    dense = qm.quant_matmul4(x, wq, ws, layer, gs)
+    assert (y.float() - dense.float()).abs().max().item() <= tol
 
 
 def test_deferred_decode_step_matches_the_appending_step_on_the_card(gen):

@@ -282,6 +282,33 @@ def test_w4a8_plain_matches_pallas_interpret_at_decode_shapes(M, gs):
     _close_to_bf16(got, ref)
 
 
+@pytest.mark.parametrize("gs", [32, 128, 256])
+@pytest.mark.parametrize("M", [1, 17, 40])
+def test_w4a16_plain_matches_pallas_interpret_at_decode_shapes(M, gs):
+    """_quant_matmul4 itself at the shapes the split-K decode stream takes
+    (K = 2048 in 1024 packed rows: 4 slices of 256 at N = 128), one row,
+    17 and 40 (padded to the kernel's 8-row blocks), a plane pair of 32,
+    128 or 256 packed rows: the same bf16 activations go to both."""
+    rng = np.random.default_rng(7 * M + gs)
+    K, N = 2048, 128
+    assert tqmm.plan_quant_matmul4(M, K, N, gs)[1] >= 4
+    x = _bf16_values(rng.normal(size=(M, K)).astype(np.float32))
+    q = rng.integers(-128, 128, size=(1, K // 2, N)).astype(np.int8)
+    s = (rng.random((1, K // gs, N)) * 0.01).astype(np.float32)
+    m_pad = -(-M // 8) * 8
+    xp = np.zeros((m_pad, K), np.float32)
+    xp[:M] = x
+    with interpret_pallas(jqmm):
+        ref = np.asarray(jqmm._quant_matmul4(
+            jnp.asarray(xp).astype(jnp.bfloat16), jnp.asarray(q),
+            jnp.asarray(s), jnp.asarray(0, jnp.int32), group_size=gs,
+            block_m=8, block_n=128), np.float32)[:M]
+    got = tqmm.quant_matmul4(torch.from_numpy(x).to(torch.bfloat16),
+                             torch.from_numpy(q), torch.from_numpy(s), 0, gs)
+    assert got.shape == (M, N)
+    _close_to_bf16(got, ref)
+
+
 @pytest.mark.parametrize("gs", [32, 128, 256, None])
 @pytest.mark.parametrize("M", [1, 17, 40])
 def test_w8a16_plain_matches_pallas_interpret_at_decode_shapes(M, gs):
@@ -358,6 +385,41 @@ def test_w4a8_split_plan_covers_k_once_on_pair_boundaries(preset, M, gs):
         kp = _padded_k(K, 4, gs)
         plan = tqmm.plan_quant_matmul4_a8(M, kp, N, gs)
         _check_split_plan(plan, M, kp // 2, N, gs)
+
+
+@pytest.mark.parametrize("gs", [32, 128, 256])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 40, 64, 65, 2048])
+@pytest.mark.parametrize("preset", _PLAN_PRESETS)
+def test_w4a16_split_plan_covers_k_once_on_pair_boundaries(preset, M, gs):
+    """The W4A16 kernel's plan for every dense projection and the lm_head,
+    as W4A8's: whole plane pairs, every packed row once, the grid filled
+    where slices of 256 rows allow it, the prefill tiles past M = 64.  The
+    fused MLP's two plans (dense presets, M <= 256): gate / up over both
+    weights' 2 F columns as a matmul of that width and the down pass as a
+    matmul at M <= 64; above it the 64-row tiles in both, gate / up over
+    all of K, the down pass's K = F in slices of whole pairs, every row
+    once, at least 132 blocks."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    for K, N in _dense_projections(preset).values():
+        kp = _padded_k(K, 4, gs)
+        plan = tqmm.plan_quant_matmul4(M, kp, N, gs)
+        _check_split_plan(plan, M, kp // 2, N, gs)
+    c = PRESETS[preset]
+    if c.is_moe or M > 256:
+        return
+    K, F = c.hidden_size, c.intermediate_size
+    gate_up, down = tfs.plan_fused_mlp(M, K, F, gs, 128)
+    if M <= 64:
+        _check_split_plan(gate_up, M, K // 2, 2 * F, gs)
+        _check_split_plan(down, M, F // 2, K, 128)
+        return
+    assert gate_up == (4, 1, K // 2)
+    mt, splits, slice_rows = down
+    assert mt == 4 and slice_rows % 128 == 0 and slice_rows >= 256
+    assert (splits - 1) * slice_rows < F // 2 <= splits * slice_rows
+    assert -(-K // 128) * -(-M // 64) * splits >= 132
 
 
 @pytest.mark.parametrize("G", ["column", 32, 128])

@@ -305,6 +305,21 @@ REFUSALS = {
     "w4a16 N 96": (lambda: tqmm.quant_matmul4(
         _meta(2, 512, dtype=_BF), _meta(1, 256, 96, dtype=_I8),
         _meta(1, 4, 96), 0, 128), ValueError, "N % 64"),
+    "w4a16 uint8 weights": (lambda: tqmm.quant_matmul4(
+        _meta(2, 512, dtype=_BF), _meta(1, 256, 256, dtype=torch.uint8),
+        _meta(1, 4, 256), 0, 128), TypeError, "int8 weights"),
+    "w4a16 K of one group": (lambda: tqmm.quant_matmul4(
+        _meta(2, 384, dtype=_BF), _meta(1, 192, 256, dtype=_I8),
+        _meta(1, 3, 256), 0, 128), ValueError, r"K % \(2\*gs\)"),
+    "w4a16 layer": (lambda: tqmm.quant_matmul4(
+        _meta(2, 512, dtype=_BF), _meta(1, 256, 256, dtype=_I8),
+        _meta(1, 4, 256), 1, 128), IndexError, "layer 1"),
+    "w4a16 decode passes its checks": (lambda: tqmm.quant_matmul4(
+        _meta(2, 512, dtype=_BF), _meta(1, 256, 256, dtype=_I8),
+        _meta(1, 4, 256), 0, 128), AssertionError, "library was asked for"),
+    "w4a16 prefill N 192 passes its checks": (lambda: tqmm.quant_matmul4(
+        _meta(100, 512, dtype=_BF), _meta(1, 256, 192, dtype=_I8),
+        _meta(1, 16, 192), 0, 32), AssertionError, "library was asked for"),
     "w8a16 f16 scales": (lambda: tqmm.quant_matmul8(
         _meta(2, 512, dtype=_BF), _meta(1, 512, 256, dtype=_I8),
         _meta(1, 1, 256, dtype=torch.float16), 0), TypeError, "f32 scales"),
@@ -865,6 +880,12 @@ FUSED_REFUSALS = {
                                ValueError, "one device"),
     "mlp passes its checks": (lambda: _fused_mlp_call(), AssertionError,
                               "library was asked for"),
+    "mlp gs_down 48": (lambda: _fused_mlp_call(gs_down=48), ValueError,
+                       "gs % 32"),
+    "mlp M 1 passes its checks": (lambda: _fused_mlp_call(M=1),
+                                  AssertionError, "library was asked for"),
+    "mlp M 192 passes its checks": (lambda: _fused_mlp_call(M=192),
+                                    AssertionError, "library was asked for"),
     "attn f32 cache": (lambda: _fused_attn_call(kv=torch.float32), TypeError,
                        "bf16 caches"),
     "attn D 64": (lambda: _fused_attn_call(D=64), ValueError, "D == 128"),
