@@ -18,6 +18,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    its (mt, splits, slice) plan and timing M <= 64 also in a CUDA graph
    beside torch.matmul; W4A16 and W8A16 also the lm_head at M = 4; INT8
    per group of 128 rows and per column) and the 14B projections at M = 4;
+   the INT8-KV decode attention (split S on the tensor cores; B = 4 at
+   lengths 69..2000 of S 2304 and at run (c)'s 37..500 of S 1024, each
+   printing its split plan and a CUDA graph's time);
    the paged kernels over a 40-page pool of 512-token pages with shuffled
    tables and NaN in every page no table holds (the paged attentions'
    library yardstick is SDPA over a gathered copy, the gather timed beside
@@ -40,7 +43,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    256, gs 128 / 128 at M = 4; yardstick bf16 ``torch.matmul`` x 3 +
    SiLU over the dequantized weights), ``fused_attn_mlp`` at a half batch
    of 96 rows (row0 0 and 96 of 192, lengths 257, S 512; yardstick SDPA
-   over the half's rows + the bf16 MLP) and ``kv_append_uniform`` (96 rows
+   over the half's rows + the bf16 MLP) beside Mb = 96 MLP rows, and
+   from row 96 beside Mb = 40 (each printing both MLP plans and a CUDA
+   graph's time) and ``kv_append_uniform`` (96 rows
    from row 96, bit-exact; yardstick a slice assignment), each also called
    twice for bit-identical results; the last four sites' kernels:
    ``kv_append_ragged_t`` (Hk 4, D 128, 4 rows of S 1024, T = 1 and 5,
@@ -752,42 +757,65 @@ def check_kv_append(torch, cfg):
 
 
 def check_decode_q8(torch, cfg):
-    """Kernel 8 at B=4, lengths 69 / 700 / 1408 / 2000 of S=2304."""
+    """Kernel 8 (split S on the tensor cores, then a merge) at B=4,
+    lengths 69 / 700 / 1408 / 2000 of S=2304, and at the INT8 main path's
+    own decode (run (c): B = 4, lengths 37 / 120 / 300 / 500 of S 1024).
+    Each shape prints its split plan (span, splits) and a call's device
+    time in a CUDA graph beside SDPA's over a copy dequantized beforehand;
+    two calls must be bit-identical."""
     from qwen_inference_engine_tpu_torch.ops import decode_attention as da
     from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
 
-    L, B, S, layer = 2, 4, 2304, 1
+    L, B, layer = 2, 4, 1
     Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(6)
-    k8, ks = _int8(torch, g, (L, B, Hk, S, D))
-    v8, vs = _int8(torch, g, (L, B, Hk, S, D))
-    q = torch.randn((B, 1, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
-    lens_list = [69, 700, 1408, 2000]
-    lens = torch.tensor(lens_list, device="cuda")
-    args = (q, k8, v8, ks, vs, layer, lens)
     tol = 2e-2
-    got = da.decode_attention_contiguous_q8(*args)
-    ref = da.decode_attention_contiguous_q8_plain(*args)
-    torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs().max().item()
-    ms = time_ms(torch, lambda: da.decode_attention_contiguous_q8(*args))
-    plain_ms = time_ms(torch, lambda: da.decode_attention_contiguous_q8_plain(*args))
-    kl = dequantize_kv(k8[layer], ks[layer])
-    vl = dequantize_kv(v8[layer], vs[layer])
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl, mask=mask))
-    n_keys = sum(lens_list)
-    n_bytes = 2 * n_keys * Hk * (D + 4) + 2 * (2 * B * Hq * D) + 4 * B
-    b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D, "bf16")
-    print(f"  decode_attention_contiguous_q8 lens {lens_list}: err {err:.3g} "
-          f"(tol {tol}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa "
-          f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
-    if not err <= tol:
-        fail(f"decode_attention_contiguous_q8 err {err} > {tol}")
+    recs = {}
+    for S, lens_list in ((2304, [69, 700, 1408, 2000]),
+                         (RAGGED_S, [37, 120, 300, 500])):
+        k8, ks = _int8(torch, g, (L, B, Hk, S, D))
+        v8, vs = _int8(torch, g, (L, B, Hk, S, D))
+        q = torch.randn((B, 1, Hq, D), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        lens = torch.tensor(lens_list, device="cuda")
+        args = (q, k8, v8, ks, vs, layer, lens)
+        got = da.decode_attention_contiguous_q8(*args)
+        again = da.decode_attention_contiguous_q8(*args)
+        ref = da.decode_attention_contiguous_q8_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        same = bool(torch.equal(got, again))
+        ms = time_ms(torch, lambda: da.decode_attention_contiguous_q8(*args))
+        g_ms = graph_ms(torch, lambda: da.decode_attention_contiguous_q8(*args))
+        plain_ms = time_ms(torch, lambda: da.decode_attention_contiguous_q8_plain(
+            *args))
+        kl = dequantize_kv(k8[layer], ks[layer])
+        vl = dequantize_kv(v8[layer], vs[layer])
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        sdpa = _sdpa(torch, q.transpose(1, 2), kl, vl, mask=mask)
+        lib_ms = time_ms(torch, sdpa)
+        lib_g_ms = graph_ms(torch, sdpa)
+        n_keys = sum(lens_list)
+        n_bytes = 2 * n_keys * Hk * (D + 4) + 2 * (2 * B * Hq * D) + 4 * B
+        b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D, "bf16")
+        plan = da.plan_decode_split(B, Hk, S)
+        print(f"  decode_attention_contiguous_q8 lens {lens_list} S {S}: err "
+              f"{err:.3g} (tol {tol}), two calls bit-identical {same} | plan "
+              f"(span, splits) {plan} | kernel {ms:.4f} ms | in a CUDA graph "
+              f"{g_ms:.4f} | plain {plain_ms:.4f} | sdpa {lib_ms:.4f} (graph "
+              f"{lib_g_ms:.4f}) | bound {b_ms:.4f} ({b_by})", flush=True)
+        if not (err <= tol and same):
+            fail(f"decode_attention_contiguous_q8 S {S} err {err} > {tol} or "
+                 f"two calls differ")
+        recs[S] = dict(
+            shape=f"B={B} lens={lens_list} S={S} Hq={Hq} Hk={Hk}",
+            max_abs_err=err, tol=tol, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library_graph_ms=lib_g_ms, bound_ms=b_ms,
+            bound_by=b_by, plan=plan)
+        del k8, v8, ks, vs, kl, vl
     return {"decode_attention_contiguous_q8": dict(
-        shape=f"B={B} lens={lens_list} S={S} Hq={Hq} Hk={Hk}",
-        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by)}
+        recs[2304], at_main_path=recs[RAGGED_S])}
 
 
 PAGE = 512          # the serving page size (scheduler default)
@@ -1303,10 +1331,13 @@ def check_fused_mlp(torch, cfg):
 def check_fused_attn_mlp(torch, cfg):
     """fused_attn_mlp at the pumped decode's shapes: a half batch of 96
     rows of a 192-row cache (S 512, every row at length 257), Hk 4, G 7,
-    D 128, row0 0 and 96, beside the pumped weights' MLP on 96 rows.  The
-    attention within 2e-2 (the decode kernels' rule), the MLP within
-    fused_mlp's; two calls bit-identical.  The yardstick is SDPA over the
-    half's rows plus the bf16 MLP of _mlp_library."""
+    D 128, row0 0 and 96, beside the pumped weights' MLP on Mb = 96 rows
+    (the unsplit 64-row tiles), and from row 96 also beside Mb = 40 (the
+    split decode stream's plan).  The attention within 2e-2 (the decode
+    kernels' rule), the MLP within fused_mlp's; two calls bit-identical.
+    Each case prints both MLP plans and a call's device time in a CUDA
+    graph.  The yardstick is SDPA over the half's rows plus the bf16 MLP
+    of _mlp_library."""
     from qwen_inference_engine_tpu_torch.ops import fused_step as fs
 
     Ba, Bc, S, n = PUMP_BATCH // 2, PUMP_BATCH, PUMP_SEQ, PUMP_PROMPT + 1
@@ -1322,42 +1353,53 @@ def check_fused_attn_mlp(torch, cfg):
     lens = torch.full((Ba,), n, dtype=torch.int32, device="cuda")
     mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
     records = {}
-    for row0 in (0, Ba):
-        q, x = rnd(Ba, 1, Hq, D), rnd(Ba, K)
+    for row0, Mb in ((0, Ba), (Ba, Ba), (Ba, 40)):
+        q, x = rnd(Ba, 1, Hq, D), rnd(Mb, K)
         kw = dict(gs_gate=256, gs_down=128, row0=row0)
-        attn, y = fs.fused_attn_mlp(lens, 1, 1, q, kc, vc, x, *w, **kw)
-        attn2, y2 = fs.fused_attn_mlp(lens, 1, 1, q, kc, vc, x, *w, **kw)
+
+        def call():
+            return fs.fused_attn_mlp(lens, 1, 1, q, kc, vc, x, *w, **kw)
+
+        attn, y = call()
+        attn2, y2 = call()
         ra, ry = fs.fused_attn_mlp_plain(lens, 1, 1, q, kc, vc, x, *w, **kw)
         torch.cuda.synchronize()
         a_err = (attn.float() - ra.float()).abs().max().item()
         y_err = (y.float() - ry.float()).abs().max().item()
         y_tol = 2 ** -6 * ry.float().abs().max().item()
         same = bool(torch.equal(attn, attn2) and torch.equal(y, y2))
-        ms = time_ms(torch, lambda: fs.fused_attn_mlp(lens, 1, 1, q, kc, vc,
-                                                      x, *w, **kw))
+        ms = time_ms(torch, call)
+        g_ms = graph_ms(torch, call)
         plain_ms = time_ms(torch, lambda: fs.fused_attn_mlp_plain(
             lens, 1, 1, q, kc, vc, x, *w, **kw), iters=3, warmup=1)
         sdpa = _sdpa(torch, q.transpose(1, 2), kc[1, row0:row0 + Ba],
                      vc[1, row0:row0 + Ba], mask=mask)
         mlp = _mlp_library(torch, x, deq)
         lib_ms = time_ms(torch, lambda: (sdpa(), mlp()))
-        mb, mo = _mlp_bytes_ops(Ba, K, F, 256, 128)
+        lib_g_ms = graph_ms(torch, lambda: (sdpa(), mlp()))
+        mb, mo = _mlp_bytes_ops(Mb, K, F, 256, 128)
         n_bytes = mb + 2 * (2 * Ba * Hk * n * D) + 2 * (2 * Ba * Hq * D) + 4 * Ba
         b_ms, b_by = bound(n_bytes, mo + 4 * Ba * Hq * n * D, "bf16")
-        rec = dict(shape=f"Ba=Mb={Ba} rows from {row0} of {Bc}, lens {n} S={S}"
-                         f" Hq={Hq} Hk={Hk}, MLP K={K} F={F} gs 256/128",
+        plans = fs.plan_fused_mlp(Mb, K, F, 256, 128)
+        rec = dict(shape=f"Ba={Ba} rows from {row0} of {Bc}, lens {n} S={S}"
+                         f" Hq={Hq} Hk={Hk}, MLP Mb={Mb} K={K} F={F} gs "
+                         f"256/128",
                    max_abs_err=max(a_err, y_err), attn_err=a_err, mlp_err=y_err,
-                   tol=y_tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
-        print(f"  fused_attn_mlp row0 {row0}: attention err {a_err:.3g} (tol "
-              f"0.02), MLP err {y_err:.3g} (tol {y_tol:.3g}), two calls "
-              f"bit-identical {same} | kernel {ms:.4f} ms | plain "
-              f"{plain_ms:.4f} | sdpa + torch.matmul bf16 x3 + silu "
-              f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
+                   tol=y_tol, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_graph_ms=lib_g_ms,
+                   bound_ms=b_ms, bound_by=b_by, plans=plans)
+        print(f"  fused_attn_mlp row0 {row0} Mb {Mb}: attention err "
+              f"{a_err:.3g} (tol 0.02), MLP err {y_err:.3g} (tol "
+              f"{y_tol:.3g}), two calls bit-identical {same} | plans "
+              f"(gate/up, down) {plans} | kernel {ms:.4f} ms | in a CUDA "
+              f"graph {g_ms:.4f} | plain {plain_ms:.4f} | sdpa + "
+              f"torch.matmul bf16 x3 + silu {lib_ms:.4f} (graph "
+              f"{lib_g_ms:.4f}) | bound {b_ms:.4f} ({b_by})", flush=True)
         if not (a_err <= 2e-2 and y_err <= y_tol and same):
-            fail(f"fused_attn_mlp row0 {row0}: attention err {a_err}, MLP "
-                 f"err {y_err} (tol {y_tol}), bit-identical {same}")
-        records[row0] = rec
+            fail(f"fused_attn_mlp row0 {row0} Mb {Mb}: attention err "
+                 f"{a_err}, MLP err {y_err} (tol {y_tol}), bit-identical "
+                 f"{same}")
+        records[(row0, Mb)] = rec
     return records
 
 
@@ -4299,7 +4341,9 @@ def main() -> int:
                 **{f"at_M{m}": next(r for r in fused_mlp_recs
                                     if r["M"] == m and r["gs"] == (256, 128))
                    for m in (192, 256)}),
-            "fused_attn_mlp": attn_mlp_recs[PUMP_BATCH // 2],
+            "fused_attn_mlp": dict(
+                attn_mlp_recs[(PUMP_BATCH // 2, PUMP_BATCH // 2)],
+                at_Mb40=attn_mlp_recs[(PUMP_BATCH // 2, 40)]),
             # the deferred decode's kernels at its batch of 192; the fused
             # attention + matmul at the probe's row0 0
             **deferred_recs, "fused_attn_matmul": attn_mm_recs[0]}
@@ -4320,7 +4364,7 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec.get("shape", rec.get("unit")),
-            **{k: v for k, v in rec.items() if k == "gather_ms"
+            **{k: v for k, v in rec.items() if k in ("gather_ms", "graph_ms")
                or k.startswith(("int8_", "rows_", "start_", "at_"))}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
@@ -4339,7 +4383,8 @@ def main() -> int:
                        "chunk_kernels": chunk_recs,
                        "grouped_kernels": grouped_recs, "moe": moe_runs,
                        "fused_mlp": fused_mlp_recs,
-                       "fused_attn_mlp": attn_mlp_recs,
+                       "fused_attn_mlp": {f"row0 {r} Mb {m}": rec for (
+                           r, m), rec in attn_mlp_recs.items()},
                        "pumped_generate": pump_run,
                        "deferred_kernels": deferred_recs,
                        "fused_attn_matmul": attn_mm_recs,

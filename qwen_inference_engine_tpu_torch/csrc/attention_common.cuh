@@ -1,7 +1,8 @@
-// CUDA-core core of the port's attention kernels (flash prefill, the paged
-// continuation chunks and decode), for a bf16 or an int8 KV cache; the
-// contiguous continuation chunks run on the tensor-core core of
-// attention_mma.cuh.
+// CUDA-core core of the port's attention kernels (the paged decode, verify
+// and continuation chunks, the bf16 contiguous decodes and
+// fused_attn_matmul's attention), for a bf16 or an int8 KV cache; flash,
+// the contiguous chunks, the INT8-KV decode and fused_attn_mlp's attention
+// run on the tensor-core core of attention_mma.cuh.
 //
 // One block of D threads (one per output dimension) runs the online
 // softmax of up to BR query rows over keys [0, n_keys) in tiles of BK keys:

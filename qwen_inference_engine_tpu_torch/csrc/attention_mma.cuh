@@ -39,6 +39,9 @@
 //   * Masks.  A warp skips a tile wholly past its last row's limit, and
 //     masks per element only a tile that crosses its first row's limit or
 //     the end of the keys.
+//   * Splits.  A caller that splits a long key range across blocks (the
+//     INT8-KV decode) takes each row's f32 output and log-sum-exp instead
+//     of its bf16 output, and merges the splits itself.
 
 #pragma once
 
@@ -180,10 +183,14 @@ struct MmaSmem {
 // the group.
 struct GqaRows {
   int r0, G, Hq, D;
-  __device__ __forceinline__ long long offset(int i) const {
+  // (token, head) of row i: t * Hq + g
+  __device__ __forceinline__ long long index(int i) const {
     const int r = r0 + i;
     const int t = r / G;
-    return (static_cast<long long>(t) * Hq + (r - t * G)) * D;
+    return static_cast<long long>(t) * Hq + (r - t * G);
+  }
+  __device__ __forceinline__ long long offset(int i) const {
+    return index(i) * D;
   }
 };
 
@@ -191,8 +198,14 @@ struct GqaRows {
 // `sm`.  Rows >= n_rows are computed on zeros and never written.  kbase /
 // vbase point at the K/V base that `keys` addresses from; for an int8
 // cache ks_base / vs_base are the scale bases `keys.scale` addresses from
-// (null for bf16).  `scale` is D^-1/2.
-template <int D, int NW, typename KV, typename Keys, typename Rows>
+// (null for bf16).  `scale` is D^-1/2.  Row i's output O / l goes to
+// out + rows.offset(i) rounded to bf16; with kSplit (one split of a
+// longer key range, merged by the caller) it goes to part +
+// rows.offset(i) in f32 instead, with its log-sum-exp (log2 units of the
+// scaled scores: max + log2(sum); -inf where no key was seen) at
+// lse + rows.index(i).
+template <int D, int NW, typename KV, typename Keys, typename Rows,
+          bool kSplit = false>
 __device__ void attend_mma(MmaSmem<D, NW, KV>& sm, const Rows& rows,
                            int n_rows, const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ out,
@@ -201,7 +214,8 @@ __device__ void attend_mma(MmaSmem<D, NW, KV>& sm, const Rows& rows,
                            const float* __restrict__ ks_base,
                            const float* __restrict__ vs_base, int n_keys,
                            int lim0, int lim_row0, int lim_group,
-                           float scale) {
+                           float scale, float* __restrict__ part = nullptr,
+                           float* __restrict__ lse = nullptr) {
   static_assert(D == 64 || D == 128, "head dim");
   constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int NT = 32 * NW;
@@ -404,20 +418,41 @@ __device__ void attend_mma(MmaSmem<D, NW, KV>& sm, const Rows& rows,
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
   const int ia = wr0 + grp, ib = ia + 8;
-  if (ia < n_rows) {
-    __nv_bfloat16* dst = out + rows.offset(ia) + 2 * quad;
+  if constexpr (kSplit) {
+    if (ia < n_rows) {
+      float* dst = part + rows.offset(ia) + 2 * quad;
 #pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      *reinterpret_cast<uint32_t*>(dst + 8 * t) =
-          mma::pack_bf16(o[t][0] * inv_a, o[t][1] * inv_a);
+      for (int t = 0; t < DT; ++t) {
+        *reinterpret_cast<float2*>(dst + 8 * t) =
+            make_float2(o[t][0] * inv_a, o[t][1] * inv_a);
+      }
+      if (quad == 0) lse[rows.index(ia)] = m_a + log2f(l_a);
     }
-  }
-  if (ib < n_rows) {
-    __nv_bfloat16* dst = out + rows.offset(ib) + 2 * quad;
+    if (ib < n_rows) {
+      float* dst = part + rows.offset(ib) + 2 * quad;
 #pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      *reinterpret_cast<uint32_t*>(dst + 8 * t) =
-          mma::pack_bf16(o[t][2] * inv_b, o[t][3] * inv_b);
+      for (int t = 0; t < DT; ++t) {
+        *reinterpret_cast<float2*>(dst + 8 * t) =
+            make_float2(o[t][2] * inv_b, o[t][3] * inv_b);
+      }
+      if (quad == 0) lse[rows.index(ib)] = m_b + log2f(l_b);
+    }
+  } else {
+    if (ia < n_rows) {
+      __nv_bfloat16* dst = out + rows.offset(ia) + 2 * quad;
+#pragma unroll
+      for (int t = 0; t < DT; ++t) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * t) =
+            mma::pack_bf16(o[t][0] * inv_a, o[t][1] * inv_a);
+      }
+    }
+    if (ib < n_rows) {
+      __nv_bfloat16* dst = out + rows.offset(ib) + 2 * quad;
+#pragma unroll
+      for (int t = 0; t < DT; ++t) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * t) =
+            mma::pack_bf16(o[t][2] * inv_b, o[t][3] * inv_b);
+      }
     }
   }
 }

@@ -54,20 +54,22 @@
 //      fill the 132 SMs), the partials in part (free again);
 //   4. qmm_reduce adds them in split order and rounds y to bf16 once.
 //   The workspace (part, then h) is one allocation of the wrapper's.
-// fused_attn_mlp's first launch holds both block kinds in one grid: blocks
-// [0, Ba * Hk) are attention, one per (row, KV head), with the decode core
-// of attention_common.cuh (the G real query heads, no padding to 8; keys
-// past lens[b] never loaded), and the rest are pass 1 of the MLP on the
-// W4A16 wmma tile (128 threads, the attention block's size; a half batch
-// is > 64 rows) with an f32 epilogue (FusedEp): g to a workspace [M, F],
-// then h = bf16(silu(g) * u) beside u (the same thread writes and reads
-// each element).  The two kinds share the static shared memory through a
-// union.  The hardware runs them side by side on the 132 SMs: that is the
-// overlap the TPU kernel builds by hand with its ring of KV copies.  Its
-// second launch is the down pass on the w16 tiles (launch_down: the f32
-// CUDA-core tile at M <= 16, the wmma tile above).
-// fused_attn_matmul is that first launch with one matmul tile (the W4A16
-// wmma tile with the rounding StoreBf16 epilogue) in place of gate / up: a
+// fused_attn_mlp is fused_mlp with the attention beside its first launch:
+// one grid of 128-thread blocks, blocks [0, Ba * Hk) attention, one per
+// (row, KV head), on the tensor-core core of attention_mma.cuh (the G real
+// query heads as the rows of one m16 tile, no padding to 8; keys past
+// lens[b] never loaded; 6-12% faster in this grid than the CUDA-core core
+// of attention_common.cuh, PERF.md), and the rest the gate / up pass's
+// blocks, qmm_mma_kernel<kW4A16>'s body at the plan's mt (1 or 4: 4
+// warps, the attention block's size).  Both kinds take the one dynamic
+// shared buffer (the larger of the attention's 87 KB and the body's 49 /
+// 100 KB).  The hardware runs them side by side on the 132 SMs: that is
+// the overlap the TPU kernel builds by hand with its ring of KV copies.
+// Then fused_mlp's last three launches: swiglu_reduce, the down pass,
+// qmm_reduce.
+// fused_attn_matmul's one launch holds the same attention blocks beside
+// the output tiles of the W4A16 wmma tile (the two kinds share static
+// shared memory through a union): a
 // single matmul carries no sum across blocks (each block walks its own K
 // loop), so it is one launch with no second pass and no atomics.  Every
 // output element is written by one thread in a fixed order, so two calls
@@ -90,78 +92,15 @@ using qie::mma_call_ok;
 using qie::QmmArgs;
 using qie::run_mma;
 
-constexpr int kD = 128;     // head dimension of fused_attn_mlp's attention
+constexpr int kD = 128;     // head dimension of the fused attention
 constexpr int kRows = 8;    // query heads per KV head (G <= 8)
 constexpr int kKeys = 64;   // keys per tile
+using AttnSmemD = qie::AttnSmem<kD, kRows, kKeys, __nv_bfloat16>;
 
-// Pass 1's epilogue.  With h == nullptr it stores g (f32); else it reads
-// g back and stores h = bf16(silu(g) * u).
-struct FusedEp {
-  float* g;
-  __nv_bfloat16* h;
-  int F;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    const size_t i = static_cast<size_t>(m) * F + n;
-    if (h == nullptr) {
-      g[i] = v;
-    } else {
-      const float gv = g[i];
-      h[i] = __float2bfloat16(gv / (1.f + expf(-gv)) * v);
-    }
-  }
-};
-
-// fused_attn_mlp's gate and up tiles of one block.
-__device__ __forceinline__ void gate_up_wmma(
-    qie::WmmaSmem<true>& sm, const __nv_bfloat16* x, const int8_t* wg,
-    const float* sg, const int8_t* wu, const float* su, float* g_ws,
-    __nv_bfloat16* h_ws, int M, int K, int F, int gs, int m0, int n0) {
-  qie::tile_w16_wmma_ep<true>(sm, x, wg, sg, FusedEp{g_ws, nullptr, F}, M,
-                              K, F, gs, false, m0, n0);
-  __syncthreads();
-  qie::tile_w16_wmma_ep<true>(sm, x, wu, su, FusedEp{g_ws, h_ws, F}, M, K,
-                              F, gs, false, m0, n0);
-}
-
-// fused_attn_mlp's pass 2: y [M, K] = h [M, F] @ Wd (one output tile a
-// block).
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-down_small_kernel(const __nv_bfloat16* __restrict__ h,
-                  const int8_t* __restrict__ wd, const float* __restrict__ sd,
-                  __nv_bfloat16* __restrict__ y, int M, int F, int K, int gs) {
-  qie::tile_w16_small<true, MT>(h, wd, sd, y, M, F, K, gs, false,
-                                blockIdx.y * MT, blockIdx.x * kSmallCols);
-}
-
-__global__ void __launch_bounds__(kWThreads)
-down_wmma_kernel(const __nv_bfloat16* __restrict__ h,
-                 const int8_t* __restrict__ wd, const float* __restrict__ sd,
-                 __nv_bfloat16* __restrict__ y, int M, int F, int K, int gs) {
-  qie::tile_w16_wmma<true>(h, wd, sd, y, M, F, K, gs, false,
-                           blockIdx.y * kWBM, blockIdx.x * kWBN);
-}
-
-cudaError_t launch_down(const __nv_bfloat16* h, const int8_t* wd,
-                        const float* sd, __nv_bfloat16* y, int M, int F, int K,
-                        int gs, cudaStream_t st) {
-  if (M <= 4) {
-    down_small_kernel<4><<<dim3(K / kSmallCols, 1), kThreads, 0, st>>>(
-        h, wd, sd, y, M, F, K, gs);
-  } else if (M <= 16) {
-    down_small_kernel<8><<<dim3(K / kSmallCols, (M + 7) / 8), kThreads, 0,
-                           st>>>(h, wd, sd, y, M, F, K, gs);
-  } else {
-    down_wmma_kernel<<<dim3(K / kWBN, (M + kWBM - 1) / kWBM), kWThreads, 0,
-                       st>>>(h, wd, sd, y, M, F, K, gs);
-  }
-  return cudaGetLastError();
-}
-
-// One attention block of the fused launches: query heads of KV head hk of
-// row b over the first lens[b] keys of cache row row0 + b at `layer`.
+// fused_attn_matmul's attention block: query heads of KV head hk of row b
+// over the first lens[b] keys of cache row row0 + b at `layer`.
 __device__ __forceinline__ void attn_block(
-    qie::AttnSmem<kD, kRows, kKeys, __nv_bfloat16>& sm,
+    AttnSmemD& sm,
     const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k_cache,
     const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ lens,
@@ -196,13 +135,40 @@ __device__ __forceinline__ void attn_block(
   }
 }
 
-// The two block kinds share the static shared memory (40 and 36 KB).
+// fused_attn_mlp's attention block on the tensor cores: the G query heads
+// of KV head hk of row b as the rows of one m16 tile (attend_mma, GqaRows
+// at T = 1) over the first lens[b] keys of cache row row0 + b at `layer`.
+using MmaSmemD = qie::MmaSmem<kD, 4, __nv_bfloat16>;
+__device__ __forceinline__ void attn_block_mma(
+    MmaSmemD& sm, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_cache,
+    const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ lens,
+    __nv_bfloat16* __restrict__ attn, int Bc, int Hq, int Hk, int S,
+    int layer, int row0, float scale, int b, int hk) {
+  const int G = Hq / Hk;
+  const int len = max(0, min(lens[b], S));
+  const long long row =
+      (static_cast<long long>(layer) * Bc + row0 + b) * Hk + hk;
+  const long long head = static_cast<long long>(b) * Hq + hk * G;
+  qie::attend_mma<kD, 4, __nv_bfloat16>(
+      sm, qie::GqaRows{0, G, Hq, kD}, G, q + head * kD, attn + head * kD,
+      k_cache + row * S * kD, v_cache + row * S * kD,
+      qie::ContiguousKeys{kD}, nullptr, nullptr, len, len - 1, 0, G, scale);
+}
+
+// fused_attn_matmul's two block kinds share the static shared memory (40
+// and 36 KB).
 union AttnMmSmem {
-  qie::AttnSmem<kD, kRows, kKeys, __nv_bfloat16> attn;
+  AttnSmemD attn;
   qie::WmmaSmem<true> mm;
 };
 
-// fused_attn_mlp's first launch: attention blocks, then MLP pass-1 blocks.
+// fused_attn_mlp's first launch: blocks [0, n_attn) are attention (one
+// per (row, KV head)); block n_attn + t is block (t % tx, (t / tx) % ty,
+// t / (tx ty)) of fused_mlp's gate / up pass (qmm_mma_kernel<kW4A16, MT,
+// 1, false, true>'s body, tx row tiles, ty column tiles).  Both kinds take
+// their shared memory from the one dynamic buffer.
+template <int MT>
 __global__ void __launch_bounds__(kWThreads)
 attn_gate_up_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_cache,
@@ -210,26 +176,47 @@ attn_gate_up_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ lens,
                     __nv_bfloat16* __restrict__ attn, int Bc, int Ba, int Hq,
                     int Hk, int S, int layer_a, int row0, float scale,
-                    const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ wg,
-                    const float* __restrict__ sg,
-                    const int8_t* __restrict__ wu,
-                    const float* __restrict__ su, float* __restrict__ g_ws,
-                    __nv_bfloat16* __restrict__ h_ws, int M, int K, int F,
-                    int gs) {
-  static_assert(kWThreads == kD, "one thread per head dimension");
-  __shared__ AttnMmSmem sm;
+                    const QmmArgs gate_up, int tx, int ty) {
+  static_assert(kWThreads == kD && kWThreads == 128,
+                "one thread per head dimension; the body's 4 warps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_attn = Ba * Hk;
   const int blk = blockIdx.x;
   if (blk >= n_attn) {
     const int t = blk - n_attn;
-    const int n_tiles = F / kWBN;
-    gate_up_wmma(sm.mm, x, wg, sg, wu, su, g_ws, h_ws, M, K, F, gs,
-                 (t / n_tiles) * kWBM, (t % n_tiles) * kWBN);
+    qie::qmm_mma_body<kW4A16, MT, 1, false, true>(
+        gate_up, t % tx, (t / tx) % ty, t / (tx * ty), smem_raw);
     return;
   }
-  attn_block(sm.attn, q, k_cache, v_cache, lens, attn, Bc, Hq, Hk, S, layer_a,
-             row0, scale, blk / Hk, blk % Hk);
+  attn_block_mma(*reinterpret_cast<MmaSmemD*>(smem_raw), q, k_cache,
+                 v_cache, lens, attn, Bc, Hq, Hk, S, layer_a, row0, scale,
+                 blk / Hk, blk % Hk);
+}
+
+// The first launch at plan mt (1 or 4): the dynamic shared memory is the
+// larger of the two kinds'.
+template <int MT>
+cudaError_t launch_attn_gate_up(int n_attn, const QmmArgs& gate_up,
+                                int splits, cudaStream_t st,
+                                const __nv_bfloat16* q,
+                                const __nv_bfloat16* k_cache,
+                                const __nv_bfloat16* v_cache, const int* lens,
+                                __nv_bfloat16* attn, int Bc, int Ba, int Hq,
+                                int Hk, int S, int layer_a, int row0,
+                                float scale) {
+  constexpr int mm = qie::qmm_smem<kW4A16, MT, 1>();
+  constexpr int at = static_cast<int>(sizeof(MmaSmemD));
+  constexpr int smem = mm > at ? mm : at;
+  const auto kern = attn_gate_up_kernel<MT>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  const int tx = (gate_up.M + 16 * MT - 1) / (16 * MT);
+  const int ty = 2 * ((gate_up.N + qie::kMmaCols - 1) / qie::kMmaCols);
+  kern<<<n_attn + tx * ty * splits, kWThreads, smem, st>>>(
+      q, k_cache, v_cache, lens, attn, Bc, Ba, Hq, Hk, S, layer_a, row0,
+      scale, gate_up, tx, ty);
+  return cudaGetLastError();
 }
 
 // fused_attn_matmul: attention blocks, then the matmul's output tiles.
@@ -251,9 +238,8 @@ attn_matmul_kernel(const __nv_bfloat16* __restrict__ q,
   if (blk >= n_attn) {
     const int t = blk - n_attn;
     const int n_tiles = N / kWBN;
-    qie::tile_w16_wmma_ep<true>(sm.mm, x, w, ws, qie::StoreBf16{y, N}, M, K,
-                                N, gs, false, (t / n_tiles) * kWBM,
-                                (t % n_tiles) * kWBN);
+    qie::tile_w16_wmma<true>(sm.mm, x, w, ws, y, M, K, N, gs, false,
+                             (t / n_tiles) * kWBM, (t % n_tiles) * kWBN);
     return;
   }
   attn_block(sm.attn, q, k_cache, v_cache, lens, attn, Bc, Hq, Hk, S, layer,
@@ -362,46 +348,76 @@ extern "C" int qie_fused_mlp(const void* x, const void* wg, const void* sg,
   return static_cast<int>(run_mma<kW4A16, false>(mt2, down, splits2, st));
 }
 
+// The attention of rows [row0, row0 + Ba) at layer_a, then fused_mlp of
+// layer_m on x [M, K]: the gate / up pass's plan (mt1 1 or 4: its blocks
+// run the attention block's 128 threads, splits1, slice1) and the down
+// pass's, ws (ws_bytes long) as for qie_fused_mlp.
 extern "C" int qie_fused_attn_mlp(
     const void* q, const void* k_cache, const void* v_cache,
     const void* lens, void* attn, const void* x, const void* wg,
     const void* sg, const void* wu, const void* su, const void* wd,
-    const void* sd, void* g_ws, void* h_ws, void* y, int Lc, int Bc, int Ba,
-    int Hq, int Hk, int S, int layer_a, int row0, int M, int K, int F,
-    int gs_gate, int gs_down, int layer_m, int L, float scale, void* stream) {
+    const void* sd, void* ws, long long ws_bytes, void* y, int Lc, int Bc,
+    int Ba, int Hq, int Hk, int S, int layer_a, int row0, int M, int K,
+    int F, int gs_gate, int gs_down, int mt1, int splits1, int slice1,
+    int mt2, int splits2, int slice2, int layer_m, int L, float scale,
+    void* stream) {
   if (bad_mlp(M, K, F, gs_gate, gs_down, layer_m, L) || Ba <= 0 || Hk <= 0 ||
       Hq % Hk || Hq / Hk > kRows || S <= 0 || row0 < 0 || row0 + Ba > Bc ||
-      layer_a < 0 || layer_a >= Lc) {
+      layer_a < 0 || layer_a >= Lc || (mt1 != 1 && mt1 != 4) ||
+      ws == nullptr || splits1 < 1 || splits2 < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t part = static_cast<size_t>(M) *
+                      (splits1 * 2 * F > splits2 * K ? splits1 * 2 * F
+                                                     : splits2 * K);
+  if (ws_bytes < static_cast<long long>(4 * part + 2ull * M * F)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* h = reinterpret_cast<__nv_bfloat16*>(static_cast<float*>(ws) + part);
+  if (!mma_call_ok(M, K / 2, gs_gate, mt1, splits1, slice1, ws, x, wg, sg) ||
+      !mma_call_ok(M, K / 2, gs_gate, mt1, splits1, slice1, ws, x, wu, su) ||
+      !mma_call_ok(M, F / 2, gs_down, mt2, splits2, slice2, ws, h, wd, sd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t wl = static_cast<size_t>(layer_m) * (K / 2) * F;
-  const int8_t* wgl = static_cast<const int8_t*>(wg) + wl;
-  const int8_t* wul = static_cast<const int8_t*>(wu) + wl;
-  const float* sgl = static_cast<const float*>(sg) +
-                     static_cast<size_t>(layer_m) * (K / gs_gate) * F;
-  const float* sul = static_cast<const float*>(su) +
-                     static_cast<size_t>(layer_m) * (K / gs_gate) * F;
-  const int8_t* wdl = static_cast<const int8_t*>(wd) +
-                      static_cast<size_t>(layer_m) * (F / 2) * K;
-  const float* sdl = static_cast<const float*>(sd) +
-                     static_cast<size_t>(layer_m) * (F / gs_down) * K;
-  auto* h = static_cast<__nv_bfloat16*>(h_ws);
+  const size_t sl = static_cast<size_t>(layer_m) * (K / gs_gate) * F;
+  const size_t dl = static_cast<size_t>(layer_m) * (F / 2) * K;
+  const size_t dsl = static_cast<size_t>(layer_m) * (F / gs_down) * K;
+  auto q8 = [](const void* p) { return static_cast<const int8_t*>(p); };
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const QmmArgs gate_up{x,
+                        nullptr,
+                        {q8(wg) + wl, q8(wu) + wl},
+                        {f32(sg) + sl, f32(su) + sl},
+                        nullptr,
+                        ws,
+                        M, K / 2, F, gs_gate, slice1};
   const int n_attn = Ba * Hk;
-  const int n_mlp = (F / kWBN) * ((M + kWBM - 1) / kWBM);
-  attn_gate_up_kernel<<<n_attn + n_mlp, kWThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache),
-      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(attn), Bc,
-      Ba, Hq, Hk, S, layer_a, row0, scale,
-      static_cast<const __nv_bfloat16*>(x), wgl, sgl, wul, sul,
-      static_cast<float*>(g_ws), h, M, K, F, gs_gate);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_down(h, wdl, sdl,
-                                      static_cast<__nv_bfloat16*>(y), M, F, K,
-                                      gs_down, st));
+  auto* out = static_cast<__nv_bfloat16*>(attn);
+  const int* lp = static_cast<const int*>(lens);
+  cudaError_t rc =
+      mt1 == 1 ? launch_attn_gate_up<1>(n_attn, gate_up, splits1, st, bf(q),
+                                        bf(k_cache), bf(v_cache), lp, out, Bc,
+                                        Ba, Hq, Hk, S, layer_a, row0, scale)
+               : launch_attn_gate_up<4>(n_attn, gate_up, splits1, st, bf(q),
+                                        bf(k_cache), bf(v_cache), lp, out, Bc,
+                                        Ba, Hq, Hk, S, layer_a, row0, scale);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const size_t threads = static_cast<size_t>(M) * F / 8;
+  swiglu_reduce<<<(threads + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      f32(ws), h, M, F, splits1);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const QmmArgs down{h,
+                     nullptr,
+                     {q8(wd) + dl, nullptr},
+                     {f32(sd) + dsl, nullptr},
+                     static_cast<__nv_bfloat16*>(y),
+                     ws,
+                     M, F / 2, K, gs_down, slice2};
+  return static_cast<int>(run_mma<kW4A16, false>(mt2, down, splits2, st));
 }
 
 extern "C" int qie_fused_attn_matmul(

@@ -1,12 +1,13 @@
 // Shared core of the port's quantized matmuls: y = x @ Wq, bf16 out.
 //
-// The tensor-core body (qmm_mma_kernel, at the end of this file) runs the
-// dense W8A8, W4A8, W8A16 and W4A16 matmuls (quant_matmul.cu) and both
-// passes of the fused MLP (fused_step.cu).  The older tiles below, one
-// output tile per call, run the grouped MoE kernels (grouped_matmul.cu:
-// called in a loop over the row tiles of the block's expert, with x, out
-// and the row count taken at that expert's rows) and the fused attention
-// launches of fused_step.cu (the wmma tile).
+// The tensor-core body (qmm_mma_body, run by qmm_mma_kernel, at the end of
+// this file) runs the dense W8A8, W4A8, W8A16 and W4A16 matmuls
+// (quant_matmul.cu) and both passes of the fused MLP and of the fused
+// attention + MLP (fused_step.cu).  The older tiles below, one output tile
+// per call, run the grouped MoE kernels (grouped_matmul.cu: called in a
+// loop over the row tiles of the block's expert, with x, out and the row
+// count taken at that expert's rows) and fused_attn_matmul (fused_step.cu,
+// the wmma tile).
 //
 // A tile reads rows [m0, m0 + BM) of x [M, K] (rows at or past M are never
 // written and read as zeros or as row M - 1) and columns [n0, n0 + BN) of
@@ -34,12 +35,9 @@
 // block: a caller that loops over tiles puts a __syncthreads() between
 // calls.
 //
-// The two bf16-activation tiles also come as *_ep versions that hand each
-// finished f32 output y[m, n] to an epilogue functor instead of rounding
-// it to bf16 (StoreBf16 is the rounding one): fused_attn_mlp
-// (fused_step.cu) keeps gate and up in f32 and combines them there.  The
-// wmma tile's *_ep version takes its shared memory (WmmaSmem) from the
-// caller, so a kernel can overlay it with another block kind's.
+// The wmma tile also comes in a version that takes its shared memory
+// (WmmaSmem) from the caller, so a kernel can overlay it with another
+// block kind's.
 
 #pragma once
 
@@ -58,15 +56,6 @@ namespace qie {
 constexpr int kThreads = 256;
 constexpr int kBN = 128;   // W4A8 tile: output columns (32 threads x 4)
 constexpr int kBKP = 32;   // W4A8 tile: weight rows per k-step
-
-// The rounding epilogue: y[m, n] -> bf16 out[m * N + n].
-struct StoreBf16 {
-  __nv_bfloat16* out;
-  int N;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    out[static_cast<size_t>(m) * N + n] = __float2bfloat16(v);
-  }
-};
 
 // Signed high nibble of each byte of w, as four int8 lanes.
 __device__ __forceinline__ int high_nibbles(unsigned w) {
@@ -228,11 +217,11 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float f[4]) {
 
 // kInt4: K is the logical (padded) K, the weight has K/2 packed rows and
 // gs is the INT4 group size; else K rows and gs = K / G.
-template <bool kInt4, int MT, typename Ep>
-__device__ __forceinline__ void tile_w16_small_ep(
+template <bool kInt4, int MT>
+__device__ __forceinline__ void tile_w16_small(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, const Ep& ep, int M, int K, int N,
-    int gs, bool per_col, int m0, int n0) {
+    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
+    int K, int N, int gs, bool per_col, int m0, int n0) {
   __shared__ float red[kSmallGroups][MT][kSmallCols];
   const int tid = threadIdx.x;
   const int cx = tid % 16;           // columns n0 + 4*cx .. +3
@@ -334,17 +323,10 @@ __device__ __forceinline__ void tile_w16_small_ep(
 #pragma unroll
     for (int g = 0; g < kSmallGroups; ++g) s += red[g][m][col];
     if (per_col) s *= scales[n0 + col];
-    if (m0 + m < M) ep(m0 + m, n0 + col, s);
+    if (m0 + m < M) {
+      out[static_cast<size_t>(m0 + m) * N + n0 + col] = __float2bfloat16(s);
+    }
   }
-}
-
-template <bool kInt4, int MT>
-__device__ __forceinline__ void tile_w16_small(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
-    int K, int N, int gs, bool per_col, int m0, int n0) {
-  tile_w16_small_ep<kInt4, MT>(x, q, scales, StoreBf16{out, N}, M, K, N, gs,
-                               per_col, m0, n0);
 }
 
 // ---------------------------------------------------------------------
@@ -364,11 +346,12 @@ struct WmmaSmem {
   __align__(32) float Cs[kWBM][LDC];
 };
 
-template <bool kInt4, typename Ep>
-__device__ __forceinline__ void tile_w16_wmma_ep(
+template <bool kInt4>
+__device__ __forceinline__ void tile_w16_wmma(
     WmmaSmem<kInt4>& sm, const __nv_bfloat16* __restrict__ x,
     const int8_t* __restrict__ q, const float* __restrict__ scales,
-    const Ep& ep, int M, int K, int N, int gs, bool per_col, int m0, int n0) {
+    __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs,
+    bool per_col, int m0, int n0) {
   using namespace nvcuda;
   using Smem = WmmaSmem<kInt4>;
   constexpr int BK = Smem::BK;
@@ -497,7 +480,7 @@ __device__ __forceinline__ void tile_w16_wmma_ep(
     if (m < M) {
       float v = Cs[i][c];
       if (!kInt4 && per_col) v *= scales[n0 + c];
-      ep(m, n0 + c, v);
+      out[static_cast<size_t>(m) * N + n0 + c] = __float2bfloat16(v);
     }
   }
 }
@@ -508,15 +491,16 @@ __device__ __forceinline__ void tile_w16_wmma(
     const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
     int K, int N, int gs, bool per_col, int m0, int n0) {
   __shared__ WmmaSmem<kInt4> sm;
-  tile_w16_wmma_ep<kInt4>(sm, x, q, scales, StoreBf16{out, N}, M, K, N, gs,
-                          per_col, m0, n0);
+  tile_w16_wmma<kInt4>(sm, x, q, scales, out, M, K, N, gs, per_col, m0,
+                       n0);
 }
 
 
 // ---------------------------------------------------------------------
 // The tensor-core body: W8A8, W4A8, W8A16 and W4A16 (quant_matmul.cu,
-// where the design is described) and the fused MLP's passes
-// (fused_step.cu).  Its kernels have internal linkage, so each source that
+// where the design is described) and the passes of the fused MLP and of
+// the fused attention + MLP (fused_step.cu).  Its kernels have internal
+// linkage, so each source that
 // includes this header launches (and sets the shared-memory limit of) its
 // own copy.
 // ---------------------------------------------------------------------
@@ -643,14 +627,16 @@ struct QmmArgs {
 
 namespace {
 
-// Block (blockIdx.x, blockIdx.y, blockIdx.z): rows [BM x, BM x + BM),
-// column tile y (of the second weight past the first's tiles), weight rows
-// [slice z, min(K, slice (z + 1))); the row tiles of one column tile run
-// side by side, so a prefill wave reads its weight columns from memory
-// once and the rest from L2.
+// The body of one block (bx, by, bz): rows [BM bx, BM bx + BM), column
+// tile by (of the second weight past the first's tiles), weight rows
+// [slice bz, min(K, slice (bz + 1))), with 128 WM threads and the dynamic
+// shared memory smem_raw (qmm_smem bytes).  qmm_mma_kernel runs it at its
+// block's coordinates; fused_step.cu's attn_gate_up_kernel runs it in the
+// blocks its attention blocks leave.
 template <int kKind, int MT, int WM, bool kPerCol, bool kDual>
-__global__ void __launch_bounds__(128 * WM, WM == 2 && kPerCol ? 2 : 1)
-qmm_mma_kernel(const QmmArgs args) {
+__device__ __forceinline__ void qmm_mma_body(const QmmArgs& args, int bx,
+                                             int by, int bz,
+                                             unsigned char* smem_raw) {
   constexpr bool kInt = kKind == kW8A8 || kKind == kW4A8;  // int32 sums
   constexpr int kPlanes = kKind == kW4A8 || kKind == kW4A16 ? 2 : 1;
   constexpr int kStepRows = kInt ? 32 : 16;  // weight rows an mma k-step
@@ -661,7 +647,6 @@ qmm_mma_kernel(const QmmArgs args) {
   constexpr int XS = BM * XR;                // activation bytes a stage
   constexpr int WS = kMmaRows * kMmaCols;    // weight bytes a stage
   using Acc = std::conditional_t<kInt, int, float>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* xs = smem_raw;
   int8_t* wsm = reinterpret_cast<int8_t*>(smem_raw + kStages * XS);
   const unsigned char* x = static_cast<const unsigned char*>(args.x);
@@ -671,16 +656,15 @@ qmm_mma_kernel(const QmmArgs args) {
   const int lane = tid % 32, warp = tid / 32;
   const int wn = warp % 4, wm = warp / 4;
   const int grp = lane / 4, quad = lane % 4;
-  const int m0 = blockIdx.x * BM;
+  const int m0 = bx * BM;
   // kDual (q[1] not null): blocks past the first weight's column tiles
   // take the second weight, whose output columns follow the first's
-  const int ty = blockIdx.y;
-  const int wsel = kDual ? ty / ((N + kMmaCols - 1) / kMmaCols) : 0;
+  const int wsel = kDual ? by / ((N + kMmaCols - 1) / kMmaCols) : 0;
   const int8_t* q = wsel ? args.q[1] : args.q[0];
   const float* scales = wsel ? args.scales[1] : args.scales[0];
-  const int n0 = (ty - wsel * ((N + kMmaCols - 1) / kMmaCols)) * kMmaCols;
+  const int n0 = (by - wsel * ((N + kMmaCols - 1) / kMmaCols)) * kMmaCols;
   const int ldo = kDual ? 2 * N : N;  // the output's row length
-  const int kb = blockIdx.z * args.slice;
+  const int kb = bz * args.slice;
   const int ke = min(K, kb + args.slice);
   const int n_steps = (ke - kb) / kStepRows;  // k-steps of the slice
   const int n_stages = (ke - kb + kMmaRows - 1) / kMmaRows;
@@ -912,7 +896,7 @@ qmm_mma_kernel(const QmmArgs args) {
           }
         }
         uint32_t* dst = static_cast<uint32_t*>(args.ws) +
-                        static_cast<size_t>(blockIdx.z) * M * ldo + at;
+                        static_cast<size_t>(bz) * M * ldo + at;
         *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
         *reinterpret_cast<uint4*>(dst + 4) = make_uint4(v[4], v[5], v[6], v[7]);
       } else {
@@ -940,6 +924,17 @@ qmm_mma_kernel(const QmmArgs args) {
       }
     }
   }
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) of a matmul: the row tiles of
+// one column tile run side by side, so a prefill wave reads its weight
+// columns from memory once and the rest from L2.
+template <int kKind, int MT, int WM, bool kPerCol, bool kDual>
+__global__ void __launch_bounds__(128 * WM, WM == 2 && kPerCol ? 2 : 1)
+qmm_mma_kernel(const QmmArgs args) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  qmm_mma_body<kKind, MT, WM, kPerCol, kDual>(args, blockIdx.x, blockIdx.y,
+                                              blockIdx.z, smem_raw);
 }
 
 // out [M, N] = the sum of ws [splits, M, N] over its splits, in split order

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every function returns cudaGetLastError())
 SIGNATURES = {
@@ -64,10 +65,12 @@ SIGNATURES = {
     # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
     "qie_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, lengths, out,
-    # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
-    "qie_decode_attention_q8": [_P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, lengths, ws (the splits'
+    # partials), out, L, Bc, B, Hq, Hk, S, D, layer, span, splits, scale,
+    # stream
+    "qie_decode_attention_q8": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _P],
     # q, k_cache, v_cache, old_lengths, k_new, v_new, out,
     # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
     "qie_decode_attention_fresh": [_P, _P, _P, _P, _P, _P, _P,
@@ -94,12 +97,14 @@ SIGNATURES = {
     "qie_fused_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P],
-    # q, k_cache, v_cache, lens, attn, x, wg, sg, wu, su, wd, sd, g_ws, h_ws,
-    # y, Lc, Bc, Ba, Hq, Hk, S, layer_a, row0, M, K, F, gs_gate, gs_down,
-    # layer_m, L, scale, stream
+    # q, k_cache, v_cache, lens, attn, x, wg, sg, wu, su, wd, sd, ws
+    # (partials, then h), ws_bytes, y, Lc, Bc, Ba, Hq, Hk, S, layer_a, row0,
+    # M, K, F, gs_gate, gs_down, mt1, splits1, slice1 (gate / up), mt2,
+    # splits2, slice2 (down), layer_m, L, scale, stream
     "qie_fused_attn_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _F, _P],
+                           _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _P],
     # q, k_cache, v_cache, lens, attn, x, w, scales, y, Lc, Bc, Ba, Hq, Hk,
     # S, row0, M, K, N, gs, layer, L, scale, stream
     "qie_fused_attn_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

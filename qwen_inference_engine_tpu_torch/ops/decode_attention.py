@@ -11,6 +11,9 @@ The four wrappers launch the CUDA kernel ``csrc/decode_attention.cu``:
 * ``decode_attention_contiguous_q8`` (the port of
   ``decode_attention_contiguous_q8`` / ``_decode_kernel_q8``): per-row
   lengths over an int8 cache with f32 scales (INT8 KV, every decode step);
+  its kernel splits S across blocks on the tensor cores and merges the
+  splits in a second launch, as ``plan_decode_split`` plans from the
+  shapes alone;
 * ``decode_attention_contiguous_fresh`` (the port of
   ``decode_attention_contiguous_fresh`` / ``_decode_kernel_fresh``): per-row
   old lengths (the current token excluded) over a bf16 cache, with the
@@ -245,6 +248,35 @@ def decode_attention_contiguous_fresh(q: torch.Tensor, k_cache: torch.Tensor,
 decode_attention_contiguous_fresh.launches = 0
 
 
+SPLIT_KEYS = 64                 # the tensor-core core's key tile
+SPLIT_TARGET_BLOCKS = 2 * 132    # two blocks on each of the H100's SMs
+
+
+def plan_decode_split(B: int, Hk: int, S: int):
+    """``decode_attention_contiguous_q8``'s plan ``(span, splits)`` from the
+    shapes alone (never the lengths, so a call reads nothing back from the
+    device and stays capturable in a CUDA graph): block (hk, b, s) attends
+    keys ``[s * span, (s + 1) * span)`` of row b's first ``lengths[b]``.
+    The span is a whole number of 64-key tiles, the fewest that give
+    ``B * Hk * splits >= SPLIT_TARGET_BLOCKS`` (or one tile a split where
+    S has too few); ``splits * span`` covers S once.  A batch that fills
+    the card alone gets one split."""
+    tiles = -(-S // SPLIT_KEYS)
+    want = -(-SPLIT_TARGET_BLOCKS // (B * Hk))
+    span = max(1, tiles // want) * SPLIT_KEYS
+    return span, -(-S // span)
+
+
+def check_split_plan(name, span: int, splits: int, S: int) -> None:
+    """The C guard's rule for a split plan: spans of whole 64-key tiles,
+    splits covering S exactly once."""
+    if (span <= 0 or span % SPLIT_KEYS or splits < 1
+            or (splits - 1) * span >= S or splits * span < S):
+        raise ValueError(f"{name}: split plan span {span} x {splits} must be "
+                         f"a multiple of {SPLIT_KEYS} keys covering S = {S} "
+                         f"once")
+
+
 def decode_attention_contiguous_q8_plain(q, k_cache, v_cache, k_scale,
                                          v_scale, layer: int,
                                          lengths) -> torch.Tensor:
@@ -277,12 +309,18 @@ def decode_attention_contiguous_q8(q: torch.Tensor, k_cache: torch.Tensor,
     L, Bc, Hk, S, _ = k_cache.shape
     check_scales("decode_attention_contiguous_q8", k_cache, k_scale, v_scale)
     lens = _check_lengths(lengths, q)
+    span, splits = plan_decode_split(B, Hk, S)
+    check_split_plan("decode_attention_contiguous_q8", span, splits, S)
     q = q.contiguous()
     out = torch.empty_like(q)
+    # the splits' f32 partials [splits, B, Hq, D] and log-sum-exps
+    ws = torch.empty(splits * B * Hq * (D + 1), dtype=torch.float32,
+                     device=q.device)
     rc = cuda_lib.library().qie_decode_attention_q8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer), D ** -0.5,
+        ws.data_ptr(), out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer),
+        span, splits, D ** -0.5,
         cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, "decode_attention_contiguous_q8")
     decode_attention_contiguous_q8.launches += 1

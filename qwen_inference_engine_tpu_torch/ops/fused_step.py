@@ -29,7 +29,9 @@ next; on the card blocks run in no order, so both MLP kernels run in two
 passes: gate / up / h into a workspace, then the down projection.
 ``fused_mlp`` runs both on the W4A16 matmul's tensor-core kernel, K split
 as ``plan_fused_mlp`` plans it, and a reduce after each pass;
-``fused_attn_matmul`` carries no sum across blocks and is one launch.  The
+``fused_attn_mlp`` is the same MLP with the attention blocks in its first
+launch; ``fused_attn_matmul`` carries no sum across blocks and is one
+launch.  The
 query heads are the G real ones: the JAX package pads them to G8 = 8 for
 the TPU's layout.  A wrapper runs its plain
 version only for a CPU tensor; for any other it checks types, shapes and
@@ -215,6 +217,28 @@ def _fused_mlp_workspace(M, K, F, plans, device):
     return torch.empty(n_bytes, dtype=torch.uint8, device=device)
 
 
+def _check_attn_mlp_plans(name, plans, ws, M, K, F):
+    """The C guard's rules for ``fused_attn_mlp``'s plans and workspace:
+    the gate / up pass at mt 1 or 4 (its blocks run beside the attention
+    blocks at their 128 threads), each pass's slices covering its packed
+    rows once, and ``ws`` as large as ``_fused_mlp_workspace`` makes it."""
+    (mt1, s1, sl1), (mt2, s2, sl2) = plans
+    if mt1 not in (1, 4):
+        raise ValueError(f"{name}: the gate / up pass runs beside the "
+                         f"attention blocks at 128 threads: mt 1 or 4, not "
+                         f"{mt1}")
+    for mt, splits, slice_, rows in ((mt1, s1, sl1, K // 2),
+                                     (mt2, s2, sl2, F // 2)):
+        if (mt not in (0, 1, 4) or splits < 1 or slice_ <= 0 or slice_ % 32
+                or (splits - 1) * slice_ >= rows or splits * slice_ < rows):
+            raise ValueError(f"{name}: plan {(mt, splits, slice_)} does not "
+                             f"cover {rows} packed rows once")
+    need = 4 * M * max(s1 * 2 * F, s2 * K) + 2 * M * F
+    if ws.numel() * ws.element_size() < need:
+        raise ValueError(f"{name}: workspace of {ws.numel()} bytes, the plans "
+                         f"need {need}")
+
+
 def fused_mlp(x: torch.Tensor, wg: torch.Tensor, sg: torch.Tensor,
               wu: torch.Tensor, su: torch.Tensor, wd: torch.Tensor,
               sd: torch.Tensor, layer: int, *, gs_gate: int,
@@ -255,7 +279,9 @@ def fused_attn_mlp(lens: torch.Tensor, layer_a: int, layer_m: int,
     """Decode attention of ``q [Ba, 1, Hq, D]`` over the first ``lens[b]``
     keys of the cache rows ``row0 + b`` of layer ``layer_a`` (caches
     ``[L, Bc, Hk, S, D]``), and ``fused_mlp`` of layer ``layer_m`` on
-    ``x [Mb, K]``, in one launch (and the MLP's down pass).  Returns
+    ``x [Mb, K]``: the attention blocks and the MLP's gate / up pass in one
+    launch, then ``fused_mlp``'s SwiGLU reduce and down pass, planned by
+    ``plan_fused_mlp``, in one C call (the workspace allocated here).  Returns
     ``(attn [Ba, 1, Hq, D] bf16, y [Mb, K] in x's dtype)``.  A CPU tensor
     runs the plain version; a CUDA tensor launches the kernel or raises."""
     if q.device.type == "cpu":
@@ -272,17 +298,19 @@ def fused_attn_mlp(lens: torch.Tensor, layer_a: int, layer_m: int,
     Lc, Bc, Hk, S, _ = k_cache.shape
     dev = q.device
     xb = x.to(torch.bfloat16).contiguous()
+    plans = plan_fused_mlp(M, K, F_, gs_gate, gs_down)
+    ws = _fused_mlp_workspace(M, K, F_, plans, dev)
+    _check_attn_mlp_plans(name, plans, ws, M, K, F_)
     attn = torch.empty_like(qb)
-    g_ws = torch.empty((M, F_), dtype=torch.float32, device=dev)
-    h_ws = torch.empty((M, F_), dtype=torch.bfloat16, device=dev)
     y = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
     rc = cuda_lib.library().qie_fused_attn_mlp(
         qb.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lens32.data_ptr(), attn.data_ptr(), xb.data_ptr(), wg.data_ptr(),
         sg.data_ptr(), wu.data_ptr(), su.data_ptr(), wd.data_ptr(),
-        sd.data_ptr(), g_ws.data_ptr(), h_ws.data_ptr(), y.data_ptr(),
-        Lc, Bc, Ba, Hq, Hk, S, int(layer_a), int(row0), M, K, F_, gs_gate,
-        gs_down, int(layer_m), L, D ** -0.5, cuda_lib.stream_handle(dev))
+        sd.data_ptr(), ws.data_ptr(), ws.numel(), y.data_ptr(), Lc, Bc, Ba,
+        Hq, Hk, S, int(layer_a), int(row0), M, K, F_, gs_gate, gs_down,
+        *plans[0], *plans[1], int(layer_m), L, D ** -0.5,
+        cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     fused_attn_mlp.launches += 1
     return attn, y.to(x.dtype)

@@ -261,3 +261,111 @@ def test_decode_attention_q8_plain_matches_pallas_interpret(lens):
     assert tda.decode_attention_contiguous_q8.launches == before
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-2,
                                atol=2e-2)
+
+
+# the decode shapes of Qwen2.5-7B (Hk 4), Qwen2.5-14B (Hk 8) and
+# Qwen3-30B-A3B (Hk 4): batch rows, cache lengths
+DECODE_SPLIT_PRESETS = ("qwen2.5-7b", "qwen2.5-14b", "qwen3-30b-a3b")
+
+
+@pytest.mark.parametrize("S", [256, 512, 576, 1024, 2304, 4096, 32768])
+@pytest.mark.parametrize("B", [1, 4, 8, 32, 192])
+@pytest.mark.parametrize("preset", DECODE_SPLIT_PRESETS)
+def test_decode_split_plan_covers_each_key_once(preset, B, S):
+    """plan_decode_split: spans of whole 64-key tiles whose splits cover
+    every key of a row exactly once, and at least the target block count
+    (2 x 132) where S has the tiles for it; a batch that fills the card
+    alone gets one split."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+
+    Hk = PRESETS[preset].num_kv_heads
+    span, splits = tda.plan_decode_split(B, Hk, S)
+    assert span > 0 and span % tda.SPLIT_KEYS == 0
+    seen = np.zeros(S, np.int64)
+    for s in range(splits):
+        seen[s * span:min((s + 1) * span, S)] += 1
+    assert (seen == 1).all() and (splits - 1) * span < S
+    tiles = -(-S // tda.SPLIT_KEYS)
+    blocks = B * Hk * splits
+    assert blocks >= min(tda.SPLIT_TARGET_BLOCKS, B * Hk * tiles)
+    if B * Hk >= tda.SPLIT_TARGET_BLOCKS:
+        assert splits == 1
+    tda.check_split_plan("plan", span, splits, S)  # the C guard's rule
+
+
+def _split_merge(q, kd, vd, lengths, span):
+    """The split kernel's math in plain f32: for each split of ``span``
+    keys of a row's first ``lengths[b]``, the normalised output and the
+    log-sum-exp of its scores (an empty split: 0 and -inf), merged in
+    split order with weights exp(lse - max lse); 0 for a row of length 0.
+    q [B, 1, Hq, D]; kd / vd [B, Hk, S, D] dequantized."""
+    B, _, Hq, D = q.shape
+    Hk, S = kd.shape[1], kd.shape[2]
+    G = Hq // Hk
+    scores = torch.einsum("bkgd,bksd->bkgs",
+                          q[:, 0].float().reshape(B, Hk, G, D),
+                          kd.float()) * D ** -0.5
+    out = torch.zeros(B, Hk, G, D)
+    for b in range(B):
+        n = int(lengths[b])
+        parts, lses = [], []
+        for s0 in range(0, S, span):
+            e = min(s0 + span, n)
+            if e <= s0:
+                parts.append(torch.zeros(Hk, G, D))
+                lses.append(torch.full((Hk, G), -float("inf")))
+                continue
+            sc = scores[b, :, :, s0:e]
+            m = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - m)
+            den = p.sum(-1, keepdim=True)
+            parts.append(torch.einsum("kgs,ksd->kgd", p,
+                                      vd[b, :, s0:e].float()) / den)
+            lses.append((m + torch.log(den))[..., 0])
+        mx = torch.stack(lses).amax(0)
+        if not torch.isfinite(mx).all():
+            continue  # every split empty: a row of length 0 gives 0
+        acc, wsum = torch.zeros(Hk, G, D), torch.zeros(Hk, G)
+        for part, lse in zip(parts, lses):  # in split order
+            w = torch.exp(lse - mx)
+            acc += w[..., None] * part
+            wsum += w
+        out[b] = acc / wsum[..., None]
+    return out.reshape(B, 1, Hq, D)
+
+
+@pytest.mark.parametrize("span", [None, 64, 128])
+@pytest.mark.parametrize("lens", [[1, 63, 64, 65], [128, 129, 255, 256],
+                                  [0, 200, 191, 192]])
+def test_decode_q8_split_and_merge_matches_plain_and_pallas(lens, span):
+    """The split-S kernel's arithmetic (partials and log-sum-exp a split,
+    merged in order; written out above) equals
+    decode_attention_contiguous_q8_plain (f32 queries: 1e-5) and the JAX
+    kernel in interpret mode (2e-2, the int8 kernels' rule) at lengths on
+    and around the split edges (plan_decode_split's span, 64 and 128), G
+    7; a row of length 0 is 0 (the Pallas kernel and the plain version
+    give other values there, so it is held to neither)."""
+    L, B, Hk, G, D, S = 2, 4, 2, 7, 128, 256
+    Hq = G * Hk
+    rng = np.random.default_rng(sum(lens) + (span or 0))
+    kq, ks = _int8_cache(rng, (L, B, Hk, S, D))
+    vq, vs = _int8_cache(rng, (L, B, Hk, S, D))
+    q = rng.normal(size=(B, 1, Hq, D)).astype(np.float32)
+    lengths = np.asarray(lens, np.int32)
+    layer = 1
+    span = span or tda.plan_decode_split(B, Hk, S)[0]
+    kd = _t(kq)[layer] * _t(ks)[layer][..., None]
+    vd = _t(vq)[layer] * _t(vs)[layer][..., None]
+    got = _split_merge(_t(q), kd, vd, lengths, span)
+    plain = tda.decode_attention_contiguous_q8_plain(
+        _t(q), _t(kq), _t(vq), _t(ks), _t(vs), layer, _t(lengths))
+    live = lengths > 0
+    np.testing.assert_allclose(got.numpy()[live], plain.numpy()[live],
+                               rtol=1e-5, atol=1e-5)
+    assert (got.numpy()[~live] == 0).all()
+    with interpret_pallas(jda):
+        ref = np.asarray(jda.decode_attention_contiguous_q8(
+            jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(ks),
+            jnp.asarray(vs), layer, jnp.asarray(np.maximum(lengths, 1))))
+    np.testing.assert_allclose(got.numpy()[live], ref[live], rtol=2e-2,
+                               atol=2e-2)

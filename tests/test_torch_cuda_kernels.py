@@ -779,6 +779,84 @@ def test_decode_attention_q8_matches_plain(gen, lens):
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
+def _q8_split_lengths(S, span, B):
+    """Batches of B lengths that together hold 1, 63, 64, 65, each side of
+    the first two split edges, S - 1, S and 0 (each batch's rows cycle
+    through them)."""
+    edges = sorted({n for n in (1, 63, 64, 65, span - 1, span, span + 1,
+                                2 * span - 1, 2 * span, 2 * span + 1, S - 1,
+                                S, 0) if 0 <= n <= S})
+    return [[edges[(i + j) % len(edges)] for j in range(B)]
+            for i in range(0, len(edges), B)]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("S", [256, 2304])
+def test_decode_attention_q8_split_matches_plain(gen, S, B, G, D):
+    """The split-S tensor-core kernel against its plain version (2e-2) at
+    lengths on each side of the 64-key tile and of the split edges, S and
+    0 (a row of length 0 gives 0, as the one-block kernel did), B smaller
+    than the cache batch, NaN in the scales past each length and in the
+    rows past B (never read), two calls bit for bit, one launch counted a
+    call."""
+    L, Bc, Hk, layer = 2, B + 2, 2, 1
+    kc, ks = _int8_cache(gen, L, Bc, Hk, S, D)
+    vc, vs = _int8_cache(gen, L, Bc, Hk, S, D)
+    span, splits = da.plan_decode_split(B, Hk, S)
+    assert span % 64 == 0 and (splits - 1) * span < S <= splits * span
+    for lens in _q8_split_lengths(S, span, B):
+        lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        past = torch.arange(S, device="cuda")[None, :] >= lengths[:, None]
+        ksn, vsn = ks.clone(), vs.clone()
+        for t in (ksn, vsn):
+            t[layer, :B].masked_fill_(past[:, None, :], float("nan"))
+            t[layer, B:] = float("nan")
+        q = _bf16(gen, B, 1, G * Hk, D)
+        before = da.decode_attention_contiguous_q8.launches
+        got = da.decode_attention_contiguous_q8(q, kc, vc, ksn, vsn, layer,
+                                                lengths)
+        again = da.decode_attention_contiguous_q8(q, kc, vc, ksn, vsn, layer,
+                                                  lengths)
+        assert da.decode_attention_contiguous_q8.launches == before + 2
+        assert torch.equal(got, again), lens
+        assert got.shape == q.shape and bool(got.isfinite().all()), lens
+        ref = da.decode_attention_contiguous_q8_plain(q, kc, vc, ks, vs,
+                                                      layer, lengths)
+        live = lengths > 0
+        assert (got[~live] == 0).all(), lens
+        err = (got[live].float() - ref[live].float()).abs().amax().item() \
+            if live.any() else 0.0
+        assert err <= 2e-2, (lens, err)
+
+
+def test_decode_attention_q8_split_replays_in_a_cuda_graph(gen):
+    """One call captured in a CUDA graph (the plan reads nothing from the
+    device) and replayed equals the eager call, bit for bit, at
+    check_decode_q8's shape (B 4 of S 2304, Qwen2.5-7B's heads)."""
+    L, B, Hk, G, D, S, layer = 2, 4, 4, 7, 128, 2304, 1
+    kc, ks = _int8_cache(gen, L, B, Hk, S, D)
+    vc, vs = _int8_cache(gen, L, B, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    lengths = torch.tensor([69, 700, 1408, 2000], device="cuda",
+                           dtype=torch.int32)
+    args = (q, kc, vc, ks, vs, layer, lengths)
+    eager = da.decode_attention_contiguous_q8(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention_contiguous_q8(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = da.decode_attention_contiguous_q8(*args)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
 def test_new_wrappers_refuse_wrong_dtype_or_shape(gen):
     kc = _bf16(gen, 1, 1, 2, 256, 128)
     k8, ks = _int8_cache(gen, 1, 1, 2, 256, 128)
@@ -1466,6 +1544,51 @@ def test_fused_attn_mlp_matches_plain(gen, shape, second_half):
     assert attn.shape == (Ba, 1, Hk * G, D) and bool(attn.isfinite().all())
     # the decode kernels' rule: bf16 output, the plain version rounds the
     # probabilities to bf16
+    assert (attn.float() - ref_attn.float()).abs().max().item() <= 2e-2
+    tol = 2 ** -6 * ref_y.float().abs().max().item()
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("second_half", [False, True], ids=["row0 0",
+                                                             "row0 Ba"])
+@pytest.mark.parametrize("gs_gate,gs_down", [(128, 128), (256, 128)])
+@pytest.mark.parametrize("Mb", [1, 4, 40, 64, 96, 192])
+def test_fused_attn_mlp_plans_match_plain(gen, Mb, gs_gate, gs_down,
+                                          second_half):
+    """The attention blocks (the pumped half batch: 96 rows of a 192-row
+    cache, Hk 4, G 7, S 512, NaN past each length) beside the gate / up
+    pass at every plan fused_mlp takes for Mb rows of the 7B MLP: the split
+    decode stream's one and four m16 tiles a warp (Mb 1, 4, 40, 64) and
+    the unsplit 64-row tiles (96, 192); attention within 2e-2, the MLP
+    within 2^-6 of its largest output, two calls bit for bit."""
+    Ba, Hk, G, S, Bc = ATTN_MLP_SHAPES["7b"]
+    K, F = MLP_SHAPES["7b"]
+    (mt1, s1, _), _ = fs.plan_fused_mlp(Mb, K, F, gs_gate, gs_down)
+    assert mt1 == (1 if Mb <= 16 else 4) and (s1 > 1) == (Mb <= 64)
+    D, L, layer_a, layer_m = 128, 2, 1, 0
+    row0 = Ba if second_half else 0
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    lens_list = torch.randint(1, S + 1, (Ba,), generator=gen,
+                              device="cuda").tolist()
+    lens_list[0], lens_list[-1] = 1, S
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    rows = list(range(row0, row0 + Ba))
+    kbad, vbad = _nan_past(kc, rows, lens_list), _nan_past(vc, rows,
+                                                           lens_list)
+    q = _bf16(gen, Ba, 1, Hk * G, D)
+    x = _bf16(gen, Mb, K)
+    w = _mlp_weights(gen, L, K, F, gs_gate, gs_down)
+    kw = dict(gs_gate=gs_gate, gs_down=gs_down, row0=row0)
+    before = fs.fused_attn_mlp.launches
+    attn, y = fs.fused_attn_mlp(lens, layer_a, layer_m, q, kbad, vbad, x,
+                                *w, **kw)
+    attn2, y2 = fs.fused_attn_mlp(lens, layer_a, layer_m, q, kbad, vbad, x,
+                                  *w, **kw)
+    ref_attn, ref_y = fs.fused_attn_mlp_plain(lens, layer_a, layer_m, q, kc,
+                                              vc, x, *w, **kw)
+    assert fs.fused_attn_mlp.launches == before + 2
+    assert torch.equal(attn, attn2) and torch.equal(y, y2)
+    assert y.shape == (Mb, K) and bool(attn.isfinite().all())
     assert (attn.float() - ref_attn.float()).abs().max().item() <= 2e-2
     tol = 2 ** -6 * ref_y.float().abs().max().item()
     assert (y.float() - ref_y.float()).abs().max().item() <= tol

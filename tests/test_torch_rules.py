@@ -973,3 +973,85 @@ def test_fused_wrappers_refuse_before_any_build(monkeypatch, case):
     fn, exc, match = FUSED_REFUSALS[case]
     with pytest.raises(exc, match=match):
         fn()
+
+
+def _q8_decode_call(B=4, S=256):
+    cache = _meta(2, 8, 2, S, 128, dtype=_I8)
+    scales = _meta(2, 8, 2, S)
+    return tda.decode_attention_contiguous_q8(
+        _meta(B, 1, 14, 128, dtype=_BF), cache, cache, scales, scales, 1,
+        _meta(B, dtype=torch.int32))
+
+
+def _plan(fn):
+    """fn with its K/2 and F/2 row counts of _fused_attn_call's MLP (K 256,
+    F 512): the two plans it returns."""
+    return lambda M, K, F, gs_gate, gs_down: fn(K // 2, F // 2)
+
+
+# (patched name, its stand-in, call, exception, message)
+PLAN_REFUSALS = {
+    "attn mlp mt 0": ("fs.plan_fused_mlp",
+                      _plan(lambda kh, fh: ((0, 1, kh), (4, 1, fh))),
+                      lambda: _fused_attn_call(), ValueError, "mt 1 or 4"),
+    "attn mlp gate / up slices short": (
+        "fs.plan_fused_mlp", _plan(lambda kh, fh: ((4, 1, kh - 32),
+                                                    (4, 1, fh))),
+        lambda: _fused_attn_call(), ValueError, "does not cover"),
+    "attn mlp down slices past the rows": (
+        "fs.plan_fused_mlp", _plan(lambda kh, fh: ((4, 1, kh),
+                                                    (4, 3, fh // 2))),
+        lambda: _fused_attn_call(), ValueError, "does not cover"),
+    "attn mlp slice of 48": (
+        "fs.plan_fused_mlp", _plan(lambda kh, fh: ((1, 3, 48), (4, 1, fh))),
+        lambda: _fused_attn_call(), ValueError, "does not cover"),
+    "attn mlp workspace too small": (
+        "fs._fused_mlp_workspace",
+        lambda M, K, F, plans, device: torch.empty(
+            2 * M * F, dtype=torch.uint8, device=device),
+        lambda: _fused_attn_call(), ValueError, "workspace"),
+    "attn mlp split plan passes its checks": (
+        "fs.plan_fused_mlp", _plan(lambda kh, fh: ((1, 2, kh // 2),
+                                                    (4, 2, fh // 2))),
+        lambda: _fused_attn_call(), AssertionError, "library was asked for"),
+    "q8 span 96": ("tda.plan_decode_split", lambda B, Hk, S: (96, 3),
+                   lambda: _q8_decode_call(), ValueError, "multiple of 64"),
+    "q8 splits short of S": ("tda.plan_decode_split",
+                             lambda B, Hk, S: (64, 3),
+                             lambda: _q8_decode_call(), ValueError,
+                             "covering S"),
+    "q8 a split past S": ("tda.plan_decode_split", lambda B, Hk, S: (64, 5),
+                          lambda: _q8_decode_call(), ValueError,
+                          "covering S"),
+    "q8 one split passes its checks": (
+        "tda.plan_decode_split", lambda B, Hk, S: (256, 1),
+        lambda: _q8_decode_call(), AssertionError, "library was asked for"),
+    "q8 planned split passes its checks": (
+        None, None, lambda: _q8_decode_call(B=1, S=1024), AssertionError,
+        "library was asked for"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_REFUSALS))
+def test_split_plans_and_workspaces_refused_before_any_build(monkeypatch,
+                                                             case):
+    """The C guards' rules for the plans the two split kernels take, held
+    by the wrappers before the library is built (meta tensors stand in for
+    the card): fused_attn_mlp's gate / up pass only at mt 1 or 4 (its
+    blocks run beside the attention blocks), each pass's slices covering
+    its packed rows once, a workspace as large as the plans need;
+    decode_attention_contiguous_q8's spans a multiple of 64 keys, its
+    splits covering S once.  A plan that passes asks for the library."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_lib, "library", no_build)
+    target, stand_in, fn, exc, match = PLAN_REFUSALS[case]
+    if target is not None:
+        mod, name = target.split(".")
+        monkeypatch.setattr({"fs": tfs, "tda": tda}[mod], name, stand_in)
+    with pytest.raises(exc, match=match):
+        fn()
