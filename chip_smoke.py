@@ -18,7 +18,14 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    its (mt, splits, slice) plan and timing M <= 64 also in a CUDA graph
    beside torch.matmul; W4A16 and W8A16 also the lm_head at M = 4; INT8
    per group of 128 rows and per column) and the 14B projections at M = 4;
-   the INT8-KV decode attention (split S on the tensor cores; B = 4 at
+   the contiguous decode attention (B = 4, lengths 69..1000 of S 1024) and
+   the appending one (split S on the tensor cores, the fresh row staged
+   from the inputs; B = 4 at position 999 of S 1024 and the batch-192
+   default dispatch's B = 192 at position 272 of S 512, one split), each
+   printing a CUDA graph's time beside SDPA's, the appending one its split
+   plan, two calls bit-identical, and the fresh decode at B = 4, old
+   lengths 999, bit-equal to it; the INT8-KV decode attention (split S on
+   the tensor cores; B = 4 at
    lengths 69..2000 of S 2304 and at run (c)'s 37..500 of S 1024, each
    printing its split plan and a CUDA graph's time);
    the paged kernels over a 40-page pool of 512-token pages with shuffled
@@ -52,8 +59,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    bf16 and int8 with its scales, starts -1, 7, 8, 31, 32, S - T, 0 and a
    window crossing S; bit-exact, yardstick an ``index_put_`` scatter),
    ``decode_attention_contiguous_fresh`` (B = 4 at S 1024, B = 192 at S
-   512, old lengths 0 .. S - 1, 1e4 at and past each; yardstick SDPA over
-   the cache with the fresh row written first), ``kv_append_all_uniform``
+   512, old lengths 0 .. S - 1, 1e4 at and past each, each with its split
+   plan and a CUDA graph's time; yardstick SDPA over the cache with the
+   fresh row written first), ``kv_append_all_uniform``
    (28 layers, B = 4 and 192; bit-exact) and ``fused_attn_matmul`` at
    ``scripts/probe_fused.py``'s shapes (56 rows of a 112-row cache, S
    1024, lens S - 7, the 7B gate projection K 3584 N 18944 INT4 gs 256,
@@ -504,25 +512,75 @@ def check_decode(torch, cfg):
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     ms = time_ms(torch, lambda: da.decode_attention_contiguous(q, kc, vc, layer, lens))
+    g_ms = graph_ms(torch, lambda: da.decode_attention_contiguous(
+        q, kc, vc, layer, lens))
     plain_ms = time_ms(torch, lambda: da.decode_attention_contiguous_plain(
         q, kc, vc, layer, lens))
     mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kc[layer],
-                                  vc[layer], mask=mask))
+    sdpa = _sdpa(torch, q.transpose(1, 2), kc[layer], vc[layer], mask=mask)
+    lib_ms = time_ms(torch, sdpa)
+    lib_g_ms = graph_ms(torch, sdpa)
     n_keys = sum(lens_list)
     n_bytes = 2 * (2 * n_keys * Hk * D) + 2 * (2 * B * Hq * D) + 4 * B
     b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D, "bf16")
     records["decode_attention_contiguous"] = dict(
         shape=f"B={B} lens={lens_list} S={S} Hq={Hq} Hk={Hk}", max_abs_err=err,
-        tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-        bound_by=b_by)
+        tol=tol, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"  decode_attention_contiguous lens {lens_list}: err {err:.3g} "
-          f"(tol {tol}) | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa "
-          f"{lib_ms:.4f} | bound {b_ms:.4f} ({b_by})", flush=True)
+          f"(tol {tol}) | kernel {ms:.4f} ms | in a CUDA graph {g_ms:.4f} | "
+          f"plain {plain_ms:.4f} | sdpa {lib_ms:.4f} (graph {lib_g_ms:.4f}) "
+          f"| bound {b_ms:.4f} ({b_by})", flush=True)
     if not err <= tol:
         fail(f"decode_attention_contiguous err {err} > {tol}")
 
-    pos = 999
+    rec, out, (k1, v1) = _appending_record(
+        torch, da, cfg, g, B, S, pos=999, L=L, layer=layer,
+        inputs=(kc, vc, q, kn, vn))
+    # the fresh decode at the same shape and position, over the cache the
+    # appending call wrote: the same blocks on the same values, so its
+    # output must equal the appending one bit for bit
+    old = torch.full((B,), 999, dtype=torch.int32, device="cuda")
+    fresh = da.decode_attention_contiguous_fresh(q, k1, v1, kn, vn, layer, old)
+    same = bool(torch.equal(fresh, out))
+    f_ms = time_ms(torch, lambda: da.decode_attention_contiguous_fresh(
+        q, k1, v1, kn, vn, layer, old))
+    f_g_ms = graph_ms(torch, lambda: da.decode_attention_contiguous_fresh(
+        q, k1, v1, kn, vn, layer, old))
+    print(f"  decode_attention_contiguous_fresh old lengths 999 (check_decode's "
+          f"shape): bit-equal to the appending output {same} | kernel "
+          f"{f_ms:.4f} ms | in a CUDA graph {f_g_ms:.4f}", flush=True)
+    if not same:
+        fail("decode_attention_contiguous_fresh differs from the appending "
+             "kernel at one shared position")
+    rec["at_fresh_b4"] = dict(ms=f_ms, graph_ms=f_g_ms, bit_equal=same)
+    del k1, v1, out
+    # the batch-192 default dispatch's shape (W4A16 pad-free, S 512, the
+    # middle of its 32 decode steps): one split, no merge launch
+    rec["at_b192"] = _appending_record(
+        torch, da, cfg, g, PUMP_BATCH, PUMP_SEQ, pos=PUMP_PROMPT + 16, L=L,
+        layer=layer)[0]
+    records["decode_attention_appending"] = rec
+    return records
+
+
+def _appending_record(torch, da, cfg, g, B, S, pos, L, layer, inputs=None):
+    """decode_attention_appending at (B, S, pos) of Qwen2.5-7B's heads over
+    ``inputs`` (kc, vc, q, kn, vn; random from ``g`` when None) against its
+    plain version (2e-2; the written cache rows bit-exact; two calls
+    bit-identical), with its split plan, a call's time and a CUDA graph's
+    beside SDPA's (over the first pos + 1 keys, no write) and the byte
+    bound.  Returns (record, output, the caches it wrote)."""
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    if inputs is None:
+        inputs = (rnd(L, B, Hk, S, D), rnd(L, B, Hk, S, D), rnd(B, 1, Hq, D),
+                  rnd(B, 1, Hk, D), rnd(B, 1, Hk, D))
+    kc, vc, q, kn, vn = inputs
+    tol = 2e-2
     k1, v1 = kc.clone(), vc.clone()
     k2, v2 = kc.clone(), vc.clone()
     got, gk, gv = da.decode_attention_appending(q, k1, v1, kn, vn, layer, pos)
@@ -533,28 +591,39 @@ def check_decode(torch, cfg):
     err = (got.float() - ref.float()).abs().max().item()
     cache_err = max((gk.float() - rk.float()).abs().max().item(),
                     (gv.float() - rv.float()).abs().max().item())
+    del k2, v2, rk, rv
     ms = time_ms(torch, lambda: da.decode_attention_appending(
         q, k1, v1, kn, vn, layer, pos))
+    g_ms = graph_ms(torch, lambda: da.decode_attention_appending(
+        q, k1, v1, kn, vn, layer, pos))
+    k2, v2 = kc.clone(), vc.clone()
     plain_ms = time_ms(torch, lambda: da.decode_attention_appending_plain(
-        q, k2, v2, kn, vn, layer, pos))
-    lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2),
-                                  kc[layer, :, :, :pos + 1],
-                                  vc[layer, :, :, :pos + 1]))
+        q, k2, v2, kn, vn, layer, pos), iters=3, warmup=1)
+    del k2, v2
+    sdpa = _sdpa(torch, q.transpose(1, 2), kc[layer, :, :, :pos + 1],
+                 vc[layer, :, :, :pos + 1])
+    lib_ms = time_ms(torch, sdpa)
+    lib_g_ms = graph_ms(torch, sdpa)
     n_keys = B * (pos + 1)
     n_bytes = 2 * (2 * n_keys * Hk * D) + 2 * (2 * B * Hq * D) + 2 * (2 * B * Hk * D)
     b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D, "bf16")
-    records["decode_attention_appending"] = dict(
-        shape=f"B={B} position={pos} S={S} Hq={Hq} Hk={Hk}", max_abs_err=err,
-        cache_err=cache_err, tol=tol, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"  decode_attention_appending position {pos}: err {err:.3g} "
-          f"(tol {tol}), cache rows err {cache_err} | kernel {ms:.4f} ms | "
-          f"plain {plain_ms:.4f} | sdpa {lib_ms:.4f} | bound {b_ms:.4f} "
-          f"({b_by})", flush=True)
-    if not err <= tol or cache_err != 0:
-        fail(f"decode_attention_appending err {err} (tol {tol}), "
-             f"cache {cache_err}")
-    return records
+    plan = da.plan_decode_split(B, Hk, S)
+    print(f"  decode_attention_appending B={B} position {pos} of S {S}: err "
+          f"{err:.3g} (tol {tol}), cache rows err {cache_err} | plan (span, "
+          f"splits) {plan} | kernel {ms:.4f} ms | in a CUDA graph "
+          f"{g_ms:.4f} | plain {plain_ms:.4f} | sdpa {lib_ms:.4f} (graph "
+          f"{lib_g_ms:.4f}) | bound {b_ms:.4f} ({b_by})", flush=True)
+    again, _, _ = da.decode_attention_appending(q, k1, v1, kn, vn, layer, pos)
+    same = bool(torch.equal(again, got))
+    if not err <= tol or cache_err != 0 or not same:
+        fail(f"decode_attention_appending B={B} err {err} (tol {tol}), "
+             f"cache {cache_err}, two calls bit-identical {same}")
+    rec = dict(shape=f"B={B} position={pos} S={S} Hq={Hq} Hk={Hk}",
+               max_abs_err=err, cache_err=cache_err, tol=tol, ms=ms,
+               graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by,
+               plan=plan)
+    return rec, got, (k1, v1)
 
 
 def _int8(torch, g, shape):
@@ -1612,6 +1681,8 @@ def check_deferred_kernels(torch, cfg):
         err = (got.float() - ref.float()).abs().max().item()
         ms = time_ms(torch, lambda: da.decode_attention_contiguous_fresh(
             q, kc, vc, kn, vn, layer, old32))
+        g_ms = graph_ms(torch, lambda: da.decode_attention_contiguous_fresh(
+            q, kc, vc, kn, vn, layer, old32))
         plain_ms = time_ms(torch, lambda: da.decode_attention_contiguous_fresh_plain(
             q, kc, vc, kn, vn, layer, old32), iters=3, warmup=1)
         rows = torch.arange(B, device="cuda")
@@ -1619,23 +1690,28 @@ def check_deferred_kernels(torch, cfg):
         kw[rows, :, old] = kn[:, 0]
         vw[rows, :, old] = vn[:, 0]
         mask = (torch.arange(S, device="cuda")[None, :] <= old[:, None])
-        lib_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kw, vw,
-                                      mask=mask[:, None, None, :]))
-        del kw, vw
+        sdpa = _sdpa(torch, q.transpose(1, 2), kw, vw,
+                     mask=mask[:, None, None, :])
+        lib_ms = time_ms(torch, sdpa)
+        lib_g_ms = graph_ms(torch, sdpa)
+        del kw, vw, sdpa
         n_keys = int(old.sum())
         n_bytes = (2 * (2 * n_keys * Hk * D) + 2 * (2 * B * Hq * D)
                    + 2 * (2 * B * Hk * D) + 4 * B)
         b_ms, b_by = bound(n_bytes, 4 * (n_keys + B) * Hq * D, "bf16")
         tol = 2e-2
+        plan = da.plan_decode_split(B, Hk, S)
         print(f"  decode_attention_contiguous_fresh B={B} S={S} old lengths "
               f"0..{S - 1} (1e4 at and past each): err {err:.3g} (tol {tol})"
-              f" | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa (row "
-              f"written first) {lib_ms:.4f} | bound {b_ms:.5f} ({b_by})",
-              flush=True)
+              f" | plan (span, splits) {plan} | kernel {ms:.4f} ms | in a "
+              f"CUDA graph {g_ms:.4f} | plain {plain_ms:.4f} | sdpa (row "
+              f"written first) {lib_ms:.4f} (graph {lib_g_ms:.4f}) | bound "
+              f"{b_ms:.5f} ({b_by})", flush=True)
         if not err <= tol or not bool(got.isfinite().all()):
             fail(f"decode_attention_contiguous_fresh B={B}: err {err} > {tol}")
-        r = dict(tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                 bound_ms=b_ms, bound_by=b_by)
+        r = dict(tol=tol, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, library_graph_ms=lib_g_ms, bound_ms=b_ms,
+                 bound_by=b_by)
         if fresh is None:
             fresh = {f"rows_b{B}_{k}": v for k, v in r.items()
                      if k.endswith("ms")}

@@ -1,8 +1,9 @@
 // CUDA-core core of the port's attention kernels (the paged decode, verify
-// and continuation chunks, the bf16 contiguous decodes and
+// and continuation chunks, the ragged bf16 contiguous decode and
 // fused_attn_matmul's attention), for a bf16 or an int8 KV cache; flash,
-// the contiguous chunks, the INT8-KV decode and fused_attn_mlp's attention
-// run on the tensor-core core of attention_mma.cuh.
+// the contiguous chunks, the appending, fresh and INT8-KV decodes and
+// fused_attn_mlp's attention run on the tensor-core core of
+// attention_mma.cuh.
 //
 // One block of D threads (one per output dimension) runs the online
 // softmax of up to BR query rows over keys [0, n_keys) in tiles of BK keys:
@@ -20,10 +21,6 @@
 //      into probabilities;
 //   4. each thread rescales its BR accumulators and adds P @ V for its
 //      dimension (an int8 value times its key's V scale).
-// A key position `fresh_pos` (>= 0) is read from `k_fresh` / `v_fresh`
-// instead of the cache: the appending decode uses it so the token being
-// written enters the softmax from its inputs, never from a cache read.
-//
 // Where key j lives is a policy (`Keys`): `ContiguousKeys` puts it at
 // j * stride elements from key 0 (a contiguous cache slab, fresh K/V);
 // `PagedKeys` follows a block table, page tables[j / page], row j % page,
@@ -146,8 +143,7 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
                        const KV* __restrict__ vbase, const Keys& keys,
                        const float* __restrict__ ks_base,
                        const float* __restrict__ vs_base, int n_keys,
-                       int lim0, int lim_step, const KV* k_fresh,
-                       const KV* v_fresh, int fresh_pos, int lim_row0 = 0,
+                       int lim0, int lim_step, int lim_row0 = 0,
                        int lim_group = 1) {
   static_assert(D % 32 == 0 && BK == 64 && D % BK == 0, "attention tiling");
   constexpr bool kQuant = sizeof(KV) == 1;
@@ -176,10 +172,8 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (j < n_keys) {
         const long long off = keys.offset(j) + col;
-        const KV* ks = j == fresh_pos ? k_fresh + col : kbase + off;
-        const KV* vs = j == fresh_pos ? v_fresh + col : vbase + off;
-        kv = *reinterpret_cast<const uint4*>(ks);
-        vv = *reinterpret_cast<const uint4*>(vs);
+        kv = *reinterpret_cast<const uint4*>(kbase + off);
+        vv = *reinterpret_cast<const uint4*>(vbase + off);
       }
       unsigned* kd = reinterpret_cast<unsigned*>(&sm.k[r][col]);
       kd[0] = kv.x;

@@ -16,9 +16,11 @@
 //     G heads of one KV head into its rows (r = t * G + g).
 //   * Keys.  Where key j lives is the `Keys` policy of attention_common.cuh
 //     (ContiguousKeys, PagedKeys), resolved for each 16-byte chunk as the
-//     tile is staged.  Keys at or past n_keys are never loaded: the copy's
-//     source size is 0, so their rows (and an int8 tile's scales) are zero,
-//     and their scores are -inf; stale cache (even NaN) cannot leak in.
+//     tile is staged; FreshKeys (below) stages one key, the token a decode
+//     step is writing, from its inputs instead of the cache.  Keys at or
+//     past n_keys are never loaded: the copy's source size is 0, so their
+//     rows (and an int8 tile's scales) are zero, and their scores are -inf;
+//     stale cache (even NaN) cannot leak in.
 //   * Layout.  Q, K and V tiles are row-major in shared memory with each
 //     row padded by 16 bytes, so the 8 row addresses of every ldmatrix
 //     phase fall on distinct banks.  K feeds the B operand of Q K^T with
@@ -40,8 +42,8 @@
 //     masks per element only a tile that crosses its first row's limit or
 //     the end of the keys.
 //   * Splits.  A caller that splits a long key range across blocks (the
-//     INT8-KV decode) takes each row's f32 output and log-sum-exp instead
-//     of its bf16 output, and merges the splits itself.
+//     decodes of decode_attention.cu) takes each row's f32 output and
+//     log-sum-exp instead of its bf16 output, and merges the splits itself.
 
 #pragma once
 
@@ -49,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -194,6 +198,20 @@ struct GqaRows {
   }
 };
 
+// Key j at j * stride elements from key 0 (as ContiguousKeys), except key
+// `fresh`, which is staged from k_new / v_new (D bf16 each): the token the
+// appending and fresh decodes attend before (or without) its cache write.
+// A `fresh` outside [0, n_keys) stages nothing from the inputs.
+struct FreshKeys {
+  long long stride;
+  int fresh;
+  const __nv_bfloat16* k_new;
+  const __nv_bfloat16* v_new;
+  __device__ __forceinline__ long long offset(int j) const {
+    return j * stride;
+  }
+};
+
 // The core.  Call with 32 * NW threads and the dynamic shared memory
 // `sm`.  Rows >= n_rows are computed on zeros and never written.  kbase /
 // vbase point at the K/V base that `keys` addresses from; for an int8
@@ -247,12 +265,20 @@ __device__ void attend_mma(MmaSmem<D, NW, KV>& sm, const Rows& rows,
       const int j = j0 + r;
       const bool ok = j < n_keys;
       const long long off = ok ? keys.offset(j) + col : 0;
+      const KV* ksrc = kbase + off;
+      const KV* vsrc = vbase + off;
+      if constexpr (std::is_same<Keys, FreshKeys>::value) {
+        if (j == keys.fresh) {
+          ksrc = keys.k_new + col;
+          vsrc = keys.v_new + col;
+        }
+      }
       if constexpr (kQuant) {
-        mma::cp_async16(&sm.k8[st][r][col], kbase + off, ok ? 16 : 0);
-        mma::cp_async16(&sm.v8[st][r][col], vbase + off, ok ? 16 : 0);
+        mma::cp_async16(&sm.k8[st][r][col], ksrc, ok ? 16 : 0);
+        mma::cp_async16(&sm.v8[st][r][col], vsrc, ok ? 16 : 0);
       } else {
-        mma::cp_async16(&sm.k[st][r][col], kbase + off, ok ? 16 : 0);
-        mma::cp_async16(&sm.v[st][r][col], vbase + off, ok ? 16 : 0);
+        mma::cp_async16(&sm.k[st][r][col], ksrc, ok ? 16 : 0);
+        mma::cp_async16(&sm.v[st][r][col], vsrc, ok ? 16 : 0);
       }
     }
     if constexpr (kQuant) {

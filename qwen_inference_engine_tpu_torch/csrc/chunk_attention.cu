@@ -116,7 +116,7 @@ paged_chunk_kernel(const __nv_bfloat16* __restrict__ q,
   const float* vs = v_scale == nullptr ? nullptr : v_scale + sbase;
   qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_pages + base,
                                    v_pages + base, keys, ks, vs, n_keys,
-                                   start + q0, 1, nullptr, nullptr, -1);
+                                   start + q0, 1);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < n_rows) {

@@ -7,21 +7,20 @@
 //     _decode_append_kernel): bf16 cache, one shared position for every row;
 //     the fresh K/V row is written into the cache in place and attended in
 //     the same kernel;
-//   * decode_attention_contiguous_q8 (_decode_attention_q8, body
-//     _decode_kernel_q8): int8 cache with per-token-per-head f32 scales,
-//     per-row lengths (INT8 KV, aligned and ragged batches alike);
 //   * decode_attention_contiguous_fresh (_decode_attention_fresh, body
 //     _decode_kernel_fresh, merge _merge_fresh): bf16 cache, per-row old
 //     lengths; the current token's K/V, which the deferred-append decode
-//     has not written yet, joins the softmax from the inputs.
-// The three bf16 entry points share one kernel (decode_kernel) and select
-// the variant: a position with k_new / v_new appends, lengths with k_new /
-// v_new merge the fresh token, lengths alone attend the cache.  The int8
-// entry point is a kernel of its own, split S on the tensor cores.
+//     has not written yet, joins the softmax from the inputs;
+//   * decode_attention_contiguous_q8 (_decode_attention_q8, body
+//     _decode_kernel_q8): int8 cache with per-token-per-head f32 scales,
+//     per-row lengths (INT8 KV, aligned and ragged batches alike).
+// The appending, fresh and int8 entry points share one kernel, split S on
+// the tensor cores (decode_split_kernel, over the KV type); the contiguous
+// one is a kernel of its own on the CUDA-core core (decode_kernel).
 //
 // q [B, 1, Hq, D] bf16; cache k / v [L, Bc, Hk, S, D] bf16 or int8
 // (head-major), scales k_scale / v_scale [L, Bc, Hk, S] f32 (int8 only);
-// lengths [B] int32 (contiguous variants; the fresh variant's old lengths,
+// lengths [B] int32 (contiguous and int8; the fresh variant's old lengths,
 // which exclude the current token) or position [1] int32 (appending
 // variant, length = position + 1; read on the device, so the host never
 // waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq, D] bf16.
@@ -32,43 +31,53 @@
 // Qwen2.5-7B in bf16, ~14 in int8, far below the ridge (~295), so bytes
 // bound it; INT8 KV halves them.  The fresh variant reads the cache bytes
 // the appending one reads and writes none.  At a few rows the bytes are
-// few (check_decode_q8's 4177 keys: 4.3 MB, 0.0013 ms), so what bounds a
-// call in practice is how many SMs it keeps busy and its launches.
+// few (check_decode's 4000 keys: 8.2 MB, 0.0025 ms), so what bounds a call
+// there is how many SMs it keeps busy and its launches; at the batch-192
+// default dispatch (768 heads of ~270 keys: ~107 MB, ~0.032 ms) it is the
+// bytes.
 //
-// The int8 entry point (decode_q8_kernel) is flash-decoding on the tensor
-// cores: grid (Hk, B, splits), block (hk, b, s) attends keys
-// [s * span, min((s + 1) * span, lengths[b])) of its row through
-// attend_mma (attention_mma.cuh) with the G query heads of the KV head as
-// the rows of one m16 tile (GqaRows at T = 1), the K/V tiles staged raw by
-// cp.async and widened in shared memory (K exact, its scale on the score
-// columns; V times its scale, rounded once).  span (a multiple of the
-// 64-key tile) and splits come from the host's shapes alone
+// decode_split_kernel is flash-decoding on the tensor cores: grid (Hk, B,
+// splits), block (hk, b, s) attends keys [s * span, min((s + 1) * span,
+// n_b)) of its row through attend_mma (attention_mma.cuh) with the G query
+// heads of the KV head as the rows of one m16 tile (GqaRows at T = 1).
+// bf16 K/V tiles are staged by cp.async straight into shared memory; int8
+// ones raw, then widened (K exact, its scale on the score columns; V times
+// its scale, rounded once).  span (a multiple of the 64-key tile) and
+// splits come from the host's shapes alone
 // (ops/decode_attention.plan_decode_split: B, Hk, S), so a call reads
-// nothing back from the device and is capturable in a CUDA graph; at
-// B = 4 it gives at least ~2 x 132 blocks.  Each split writes its f32
-// output, normalised, and its log-sum-exp to the workspace; a split that
-// starts at or past its row's length reads nothing and writes an empty
-// partial (0, lse -inf).  decode_merge adds the splits in split order,
-// weighted by 2^(lse - max lse), and rounds once to bf16; a row of length
-// 0 (every split empty) gives 0, as the one-block kernel did.
+// nothing back from the device and is capturable in a CUDA graph (a
+// device position may change between replays); at B = 4 it gives at least
+// ~2 x 132 blocks.  Each split writes its f32 output, normalised, and its
+// log-sum-exp to the workspace; a split that starts at or past its row's
+// keys reads nothing and writes an empty partial (0, lse -inf).
+// decode_merge adds the splits in split order, weighted by 2^(lse - max
+// lse), and rounds once to bf16; a row with no key (every split empty)
+// gives 0.  No atomics: two calls are bit-identical.
 //
-// The bf16 entry points: simple and right first.  A block of D threads
-// takes one (row, KV head) pair (grid: Hk x B) and all G query heads of
-// the group as the rows of attention_common.cuh, so each K/V byte is read
-// from device memory once per step; G = 7 needs no padding (rows are
-// masked in the kernel).  Keys past a row's length are never read.  In the
-// appending variant the block of (b, hk) is the only reader and writer of
-// that cache row, so it writes the fresh K/V row to the cache and stages
-// the same row into its tile from k_new / v_new: the fresh token enters
-// the softmax from the inputs, never from a cache read.  The fresh variant
-// is the same call of the core with the cache left alone: keys
-// [0, old_len) from the cache and key old_len from k_new / v_new, so it
-// never reads cache position old_len, and a row with old_len = 0 attends
-// its fresh token alone (the core's running max starts at a finite -1e30,
-// so no exp(-inf + inf) NaN can arise; the TPU kernel merges the fresh
-// token after its S-block loop, the same sum in another order).  Only
-// Hk * B blocks run (16 at B = 4 for Qwen2.5-7B): the split-S path of the
-// int8 kernel is their next step.
+// The fresh row (bf16).  Row b attends n_b = f + 1 keys, where f is the
+// shared position (appending) or old_lengths[b] (fresh).  Key f is staged
+// from k_new / v_new by the split that holds it (attend_mma's FreshKeys
+// policy), never read from the cache; in the appending decode the same
+// block stores the row to cache position f, which no other block of the
+// launch reads, so nothing races.  A fresh key past the splits
+// (old_lengths[b] == S where splits * span == S: the TPU kernel merges it
+// after its S loop) goes to the last split, which then attends up to span
+// + 1 keys.  A position outside the cache attends nothing and writes
+// nothing (output 0).  At one shared position the two bf16 entry points
+// run the same blocks on the same values, so their outputs are
+// bit-identical, and the appending decode's cache row is k_new / v_new's
+// bits.  Where the plan has one split (B * Hk >= 264: the batch-192
+// default dispatch), a bf16 call writes bf16 straight from attend_mma and
+// launches no merge: the merge of one split rounds the same value (weight
+// 1).  The int8 entry point always merges.
+//
+// decode_kernel (the contiguous entry point, simple and right first): a
+// block of D threads takes one (row, KV head) pair (grid: Hk x B) and all G
+// query heads of the group as the rows of attention_common.cuh, so each
+// K/V byte is read from device memory once per step; keys past a row's
+// length are never read.  Only Hk * B blocks run (16 at B = 4 for
+// Qwen2.5-7B): decode_split_kernel with lengths and no fresh row is its
+// next step.
 
 #include <math_constants.h>
 
@@ -79,30 +88,25 @@ namespace {
 
 constexpr int kRows = 8;    // query heads per KV head (G <= 8)
 constexpr int kKeys = 64;   // keys per tile
-constexpr int kQ8Warps = 4;         // decode_q8_kernel: 128 threads
+// decode_split_kernel's warps: one computes the m16 tile of G <= 8 rows,
+// all stage (and widen int8 tiles); for bf16, 1, 2 and 4 warps time alike
+// at B 4 and B 192 (scripts/sweep_decode_warps_torch.py), 4 as fast as any
+constexpr int kWarps = 4;
 constexpr int kMergeThreads = 128;  // decode_merge
 
 template <int D>
 __global__ void __launch_bounds__(D)
 decode_kernel(const __nv_bfloat16* __restrict__ q,
-              __nv_bfloat16* __restrict__ k_cache,
-              __nv_bfloat16* __restrict__ v_cache,
-              const int* __restrict__ lengths,
-              const __nv_bfloat16* __restrict__ k_new,
-              const __nv_bfloat16* __restrict__ v_new,
-              const int* __restrict__ position_ptr,
-              __nv_bfloat16* __restrict__ out, int Bc, int Hq, int Hk, int S,
-              int layer, float scale) {
+              const __nv_bfloat16* __restrict__ k_cache,
+              const __nv_bfloat16* __restrict__ v_cache,
+              const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+              int Bc, int Hq, int Hk, int S, int layer, float scale) {
   __shared__ qie::AttnSmem<D, kRows, kKeys, __nv_bfloat16> sm;
   const int tid = threadIdx.x;
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int G = Hq / Hk;
-  const bool appending = position_ptr != nullptr;  // else lengths are given
-  const int position = appending ? *position_ptr : -1;
-  // a position outside the cache attends nothing and writes nothing
-  int len = appending ? (position < S ? position + 1 : 0) : lengths[b];
-  len = max(0, min(len, S));
+  const int len = max(0, min(lengths[b], S));
 
   for (int c = tid; c < kRows * D; c += D) {
     const int i = c / D, d = c % D;
@@ -115,26 +119,10 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
   const long long base = row * S * D;
-  const __nv_bfloat16* kf = nullptr;
-  const __nv_bfloat16* vf = nullptr;
-  int fresh = -1;
-  int n_keys = len;
-  if (k_new != nullptr && (!appending || len > 0)) {
-    kf = k_new + (static_cast<long long>(b) * Hk + hk) * D;
-    vf = v_new + (static_cast<long long>(b) * Hk + hk) * D;
-    if (appending) {
-      fresh = position;
-      k_cache[base + static_cast<long long>(position) * D + tid] = kf[tid];
-      v_cache[base + static_cast<long long>(position) * D + tid] = vf[tid];
-    } else {  // the fresh merge: the old keys, then the current one
-      fresh = len;
-      n_keys = len + 1;
-    }
-  }
   float acc[kRows];
   qie::attend<D, kRows, kKeys, __nv_bfloat16>(
       sm, acc, G, k_cache + base, v_cache + base, qie::ContiguousKeys{D},
-      nullptr, nullptr, n_keys, n_keys - 1, 0, kf, vf, fresh);
+      nullptr, nullptr, len, len - 1, 0);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < G) {
@@ -145,63 +133,78 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-int launch(const void* q, void* k_cache, void* v_cache, const void* lengths,
-           const void* k_new, const void* v_new, const void* position,
-           void* out, int Bc, int B, int Hq, int Hk, int S, int D, int layer,
-           float scale, void* stream) {
-  dim3 grid(Hk, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  auto* kc = static_cast<__nv_bfloat16*>(k_cache);
-  auto* vc = static_cast<__nv_bfloat16*>(v_cache);
-  const auto* lp = static_cast<const int*>(lengths);
-  const auto* kn = static_cast<const __nv_bfloat16*>(k_new);
-  const auto* vn = static_cast<const __nv_bfloat16*>(v_new);
-  const auto* pp = static_cast<const int*>(position);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (D == 128) {
-    decode_kernel<128><<<grid, 128, 0, st>>>(qp, kc, vc, lp, kn, vn, pp, op,
-                                             Bc, Hq, Hk, S, layer, scale);
-  } else if (D == 64) {
-    decode_kernel<64><<<grid, 64, 0, st>>>(qp, kc, vc, lp, kn, vn, pp, op,
-                                           Bc, Hq, Hk, S, layer, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Block (hk, b, s): the G query heads of KV head hk of row b over keys
-// [span s, min(span (s + 1), lengths[b])) of its int8 cache row; the f32
-// partial to part [splits, B, Hq, D], its log-sum-exp to lse [splits, B,
-// Hq].
-template <int D>
-__global__ void __launch_bounds__(32 * kQ8Warps)
-decode_q8_kernel(const __nv_bfloat16* __restrict__ q,
-                 const int8_t* __restrict__ k_cache,
-                 const int8_t* __restrict__ v_cache,
-                 const float* __restrict__ k_scale,
-                 const float* __restrict__ v_scale,
-                 const int* __restrict__ lengths, float* __restrict__ part,
-                 float* __restrict__ lse, int Bc, int B, int Hq, int Hk,
-                 int S, int layer, int span, float scale) {
+// [span s, min(span (s + 1), n_b)) of its cache row (the last split up to
+// n_b).  int8 (KV int8_t): n_b = lengths[b], the scales beside.  bf16:
+// n_b = f + 1 with key f from k_new / v_new, f the shared position
+// (`position` given: the appending decode, which also writes row f to the
+// cache) or old_lengths[b] (`lengths`).  kSplit: the f32 partial to part
+// [splits, B, Hq, D], its log-sum-exp to lse [splits, B, Hq]; else (one
+// split, bf16) the output to out [B, Hq, D].
+template <int D, typename KV, bool kSplit>
+__global__ void __launch_bounds__(32 * kWarps)
+decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                    KV* __restrict__ k_cache, KV* __restrict__ v_cache,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ lengths,
+                    const int* __restrict__ position,
+                    const __nv_bfloat16* __restrict__ k_new,
+                    const __nv_bfloat16* __restrict__ v_new,
+                    float* __restrict__ part, float* __restrict__ lse,
+                    __nv_bfloat16* __restrict__ out, int Bc, int B, int Hq,
+                    int Hk, int S, int layer, int span, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  auto& sm = *reinterpret_cast<qie::MmaSmem<D, kQ8Warps, int8_t>*>(smem_raw);
+  auto& sm = *reinterpret_cast<qie::MmaSmem<D, kWarps, KV>*>(smem_raw);
   const int hk = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int G = Hq / Hk;
-  const int len = max(0, min(lengths[b], S));
   const int k0 = s * span;
-  const int n_keys = max(0, min(span, len - k0));
   const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
   const long long kv = (row * S + k0) * D;
   const long long head = static_cast<long long>(b) * Hq + hk * G;
   const long long split = static_cast<long long>(s) * B * Hq;
-  qie::attend_mma<D, kQ8Warps, int8_t, qie::ContiguousKeys, qie::GqaRows,
-                  true>(sm, qie::GqaRows{0, G, Hq, D}, G, q + head * D,
-                        nullptr, k_cache + kv, v_cache + kv,
-                        qie::ContiguousKeys{D}, k_scale + row * S + k0,
-                        v_scale + row * S + k0, n_keys, n_keys - 1, 0, G,
-                        scale, part + (split + head) * D, lse + split + head);
+  float* const part_at = kSplit ? part + (split + head) * D : nullptr;
+  float* const lse_at = kSplit ? lse + split + head : nullptr;
+  if constexpr (sizeof(KV) == 1) {
+    const int len = max(0, min(lengths[b], S));
+    const int n_keys = max(0, min(span, len - k0));
+    qie::attend_mma<D, kWarps, KV, qie::ContiguousKeys, qie::GqaRows,
+                    kSplit>(
+        sm, qie::GqaRows{0, G, Hq, D}, G, q + head * D, nullptr,
+        k_cache + kv, v_cache + kv, qie::ContiguousKeys{D},
+        k_scale + row * S + k0, v_scale + row * S + k0, n_keys, n_keys - 1,
+        0, G, scale, part_at, lse_at);
+  } else {
+    // the fresh key f; a position outside the cache has none (and no keys)
+    int f;
+    if (position != nullptr) {
+      const int p = *position;
+      f = p >= 0 && p < S ? p : -1;
+    } else {
+      f = max(0, min(lengths[b], S));
+    }
+    const bool last = s == static_cast<int>(gridDim.z) - 1;
+    const int end = last ? f + 1 : min(k0 + span, f + 1);
+    const int n_keys = max(0, end - k0);
+    const long long fresh = (static_cast<long long>(b) * Hk + hk) * D;
+    if (position != nullptr && f >= k0 && f < end) {
+      // this block holds the fresh key: store it to the cache (16 bytes a
+      // thread); the block stages it from k_new / v_new, not from here
+      const long long at = (row * S + f) * D;
+      for (int c = threadIdx.x; c < D / 8; c += 32 * kWarps) {
+        *reinterpret_cast<uint4*>(k_cache + at + 8 * c) =
+            *reinterpret_cast<const uint4*>(k_new + fresh + 8 * c);
+        *reinterpret_cast<uint4*>(v_cache + at + 8 * c) =
+            *reinterpret_cast<const uint4*>(v_new + fresh + 8 * c);
+      }
+    }
+    qie::attend_mma<D, kWarps, KV, qie::FreshKeys, qie::GqaRows,
+                    kSplit>(
+        sm, qie::GqaRows{0, G, Hq, D}, G, q + head * D, out + head * D,
+        k_cache + kv, v_cache + kv,
+        qie::FreshKeys{D, f - k0, k_new + fresh, v_new + fresh}, nullptr,
+        nullptr, n_keys, n_keys - 1, 0, G, scale, part_at, lse_at);
+  }
 }
 
 // out [rows, D] bf16 (rows = B * Hq): the f32 partials part [splits, rows,
@@ -238,26 +241,36 @@ decode_merge(const float* __restrict__ part, const float* __restrict__ lse,
                  qie::mma::pack_bf16(acc[2], acc[3]));
 }
 
-// The split kernel, then the merge; ws holds part [splits, B, Hq, D] then
-// lse [splits, B, Hq], f32.
-template <int D>
-cudaError_t launch_q8(const __nv_bfloat16* q, const int8_t* kc,
-                      const int8_t* vc, const float* ks, const float* vs,
-                      const int* lens, float* ws, __nv_bfloat16* out, int Bc,
-                      int B, int Hq, int Hk, int S, int layer, int span,
-                      int splits, float scale, cudaStream_t st) {
-  constexpr int smem = sizeof(qie::MmaSmem<D, kQ8Warps, int8_t>);
-  const auto kern = decode_q8_kernel<D>;
+// The split kernel, then (int8, or more than one split) the merge; ws
+// holds part [splits, B, Hq, D] then lse [splits, B, Hq], f32 (null for a
+// bf16 call of one split, which writes out directly).
+template <int D, typename KV>
+cudaError_t launch_split(const __nv_bfloat16* q, KV* kc, KV* vc,
+                         const float* ks, const float* vs, const int* lens,
+                         const int* pos, const __nv_bfloat16* kn,
+                         const __nv_bfloat16* vn, float* ws,
+                         __nv_bfloat16* out, int Bc, int B, int Hq, int Hk,
+                         int S, int layer, int span, int splits, float scale,
+                         cudaStream_t st) {
+  constexpr int smem = sizeof(qie::MmaSmem<D, kWarps, KV>);
+  auto kern = decode_split_kernel<D, KV, true>;
+  bool merge = true;
+  if constexpr (sizeof(KV) == 2) {
+    if (splits == 1) {
+      kern = decode_split_kernel<D, KV, false>;
+      merge = false;
+    }
+  }
   const cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return rc;
   const int rows = B * Hq;
-  float* lse = ws + static_cast<size_t>(splits) * rows * D;
-  kern<<<dim3(Hk, B, splits), 32 * kQ8Warps, smem, st>>>(
-      q, kc, vc, ks, vs, lens, ws, lse, Bc, B, Hq, Hk, S, layer, span,
-      scale);
+  float* lse = merge ? ws + static_cast<size_t>(splits) * rows * D : nullptr;
+  kern<<<dim3(Hk, B, splits), 32 * kWarps, smem, st>>>(
+      q, kc, vc, ks, vs, lens, pos, kn, vn, ws, lse, out, Bc, B, Hq, Hk, S,
+      layer, span, scale);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !merge) return err;
   const int threads = rows * (D / 4);
   decode_merge<D><<<(threads + kMergeThreads - 1) / kMergeThreads,
                     kMergeThreads, 0, st>>>(ws, lse, out, rows, splits);
@@ -269,42 +282,113 @@ bool bad_shape(int L, int Bc, int B, int Hq, int Hk, int layer) {
          layer < 0 || layer >= L;
 }
 
-}  // namespace
-
-extern "C" int qie_decode_attention(const void* q, void* k_cache,
-                                    void* v_cache, const void* lengths,
-                                    const void* k_new, const void* v_new,
-                                    const void* position, void* out, int L,
-                                    int Bc, int B, int Hq, int Hk, int S,
-                                    int D, int layer, float scale,
-                                    void* stream) {
-  const bool appending = k_new != nullptr;
-  if (bad_shape(L, Bc, B, Hq, Hk, layer) ||
-      (appending && (v_new == nullptr || position == nullptr)) ||
-      (!appending && (lengths == nullptr || position != nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch(q, k_cache, v_cache, lengths, k_new, v_new, position, out, Bc,
-                B, Hq, Hk, S, D, layer, scale, stream);
-}
-
-extern "C" int qie_decode_attention_fresh(
-    const void* q, const void* k_cache, const void* v_cache,
-    const void* old_lengths, const void* k_new, const void* v_new, void* out,
-    int L, int Bc, int B, int Hq, int Hk, int S, int D, int layer,
-    float scale, void* stream) {
-  if (bad_shape(L, Bc, B, Hq, Hk, layer) || old_lengths == nullptr ||
-      k_new == nullptr || v_new == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch(q, const_cast<void*>(k_cache), const_cast<void*>(v_cache),
-                old_lengths, k_new, v_new, nullptr, out, Bc, B, Hq, Hk, S, D,
-                layer, scale, stream);
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // The split plan (span, splits) of ops/decode_attention.plan_decode_split:
-// span a multiple of 64 keys, splits covering S exactly once; ws the
-// partials (4 * splits * B * Hq * (D + 1) bytes).
+// span a multiple of 64 keys, splits covering S exactly once.
+bool bad_plan(int S, int span, int splits) {
+  return S <= 0 || span <= 0 || span % kKeys || splits < 1 ||
+         static_cast<long long>(splits - 1) * span >= S ||
+         static_cast<long long>(splits) * span < S;
+}
+
+// The two bf16 split entry points' common guard and launch: cp.async copies
+// 16-byte chunks of q, the cache rows and k_new / v_new, the cache row is
+// stored in 16-byte words and the merge reads the partials in 16-byte
+// words; a workspace (4 * splits * B * Hq * (D + 1) bytes) is needed where
+// the plan has more than one split.
+int launch_bf16(const void* q, void* k_cache, void* v_cache,
+                const void* lengths, const void* position, const void* k_new,
+                const void* v_new, void* ws, void* out, int L, int Bc, int B,
+                int Hq, int Hk, int S, int D, int layer, int span, int splits,
+                float scale, void* stream) {
+  if (bad_shape(L, Bc, B, Hq, Hk, layer) || bad_plan(S, span, splits) ||
+      (D != 64 && D != 128) || k_new == nullptr || v_new == nullptr ||
+      (lengths == nullptr) == (position == nullptr) ||
+      (splits > 1 && ws == nullptr) || !aligned16(q) ||
+      !aligned16(k_cache) || !aligned16(v_cache) || !aligned16(k_new) ||
+      !aligned16(v_new) || !aligned16(ws)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using bf16 = __nv_bfloat16;
+  const auto* qp = static_cast<const bf16*>(q);
+  auto* kc = static_cast<bf16*>(k_cache);
+  auto* vc = static_cast<bf16*>(v_cache);
+  const auto* lp = static_cast<const int*>(lengths);
+  const auto* pp = static_cast<const int*>(position);
+  const auto* kn = static_cast<const bf16*>(k_new);
+  const auto* vn = static_cast<const bf16*>(v_new);
+  auto* wp = static_cast<float*>(ws);
+  auto* op = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      D == 128
+          ? launch_split<128, bf16>(
+                qp, kc, vc, nullptr, nullptr, lp, pp, kn, vn, wp, op, Bc, B,
+                Hq, Hk, S, layer, span, splits, scale, st)
+          : launch_split<64, bf16>(
+                qp, kc, vc, nullptr, nullptr, lp, pp, kn, vn, wp, op, Bc, B,
+                Hq, Hk, S, layer, span, splits, scale, st);
+  return static_cast<int>(rc);
+}
+
+}  // namespace
+
+extern "C" int qie_decode_attention(const void* q, const void* k_cache,
+                                    const void* v_cache, const void* lengths,
+                                    void* out, int L, int Bc, int B, int Hq,
+                                    int Hk, int S, int D, int layer,
+                                    float scale, void* stream) {
+  if (bad_shape(L, Bc, B, Hq, Hk, layer) || lengths == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kc = static_cast<const __nv_bfloat16*>(k_cache);
+  const auto* vc = static_cast<const __nv_bfloat16*>(v_cache);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  const dim3 grid(Hk, B);
+  if (D == 128) {
+    decode_kernel<128><<<grid, 128, 0, st>>>(qp, kc, vc, lp, op, Bc, Hq, Hk,
+                                             S, layer, scale);
+  } else if (D == 64) {
+    decode_kernel<64><<<grid, 64, 0, st>>>(qp, kc, vc, lp, op, Bc, Hq, Hk,
+                                           S, layer, scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every row at the one device position (read by the kernel); writes the
+// fresh row into the cache in place.
+extern "C" int qie_decode_attention_appending(
+    const void* q, void* k_cache, void* v_cache, const void* k_new,
+    const void* v_new, const void* position, void* ws, void* out, int L,
+    int Bc, int B, int Hq, int Hk, int S, int D, int layer, int span,
+    int splits, float scale, void* stream) {
+  if (position == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16(q, k_cache, v_cache, nullptr, position, k_new, v_new,
+                     ws, out, L, Bc, B, Hq, Hk, S, D, layer, span, splits,
+                     scale, stream);
+}
+
+// Per-row old lengths; the cache is only read.
+extern "C" int qie_decode_attention_fresh(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* old_lengths, const void* k_new, const void* v_new, void* ws,
+    void* out, int L, int Bc, int B, int Hq, int Hk, int S, int D, int layer,
+    int span, int splits, float scale, void* stream) {
+  if (old_lengths == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16(q, const_cast<void*>(k_cache), const_cast<void*>(v_cache),
+                     old_lengths, nullptr, k_new, v_new, ws, out, L, Bc, B,
+                     Hq, Hk, S, D, layer, span, splits, scale, stream);
+}
+
+// ws the partials (4 * splits * B * Hq * (D + 1) bytes).
 extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
                                        const void* v_cache,
                                        const void* k_scale,
@@ -323,16 +407,13 @@ extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
       (reinterpret_cast<uintptr_t>(k_scale) |
        reinterpret_cast<uintptr_t>(v_scale)) % 4 == 0;
   if (bad_shape(L, Bc, B, Hq, Hk, layer) || k_scale == nullptr ||
-      v_scale == nullptr || lengths == nullptr || S <= 0 || span <= 0 ||
-      span % kKeys || splits < 1 ||
-      static_cast<long long>(splits - 1) * span >= S ||
-      static_cast<long long>(splits) * span < S ||
+      v_scale == nullptr || lengths == nullptr || bad_plan(S, span, splits) ||
       ws == nullptr || (D != 64 && D != 128) || !aligned) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kc = static_cast<const int8_t*>(k_cache);
-  const auto* vc = static_cast<const int8_t*>(v_cache);
+  auto* kc = static_cast<int8_t*>(const_cast<void*>(k_cache));
+  auto* vc = static_cast<int8_t*>(const_cast<void*>(v_cache));
   const auto* ks = static_cast<const float*>(k_scale);
   const auto* vs = static_cast<const float*>(v_scale);
   const auto* lp = static_cast<const int*>(lengths);
@@ -340,9 +421,11 @@ extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
   auto* op = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
-      D == 128 ? launch_q8<128>(qp, kc, vc, ks, vs, lp, wp, op, Bc, B, Hq, Hk,
-                                S, layer, span, splits, scale, st)
-               : launch_q8<64>(qp, kc, vc, ks, vs, lp, wp, op, Bc, B, Hq, Hk,
-                               S, layer, span, splits, scale, st);
+      D == 128 ? launch_split<128, int8_t>(
+                     qp, kc, vc, ks, vs, lp, nullptr, nullptr, nullptr, wp,
+                     op, Bc, B, Hq, Hk, S, layer, span, splits, scale, st)
+               : launch_split<64, int8_t>(
+                     qp, kc, vc, ks, vs, lp, nullptr, nullptr, nullptr, wp,
+                     op, Bc, B, Hq, Hk, S, layer, span, splits, scale, st);
   return static_cast<int>(rc);
 }

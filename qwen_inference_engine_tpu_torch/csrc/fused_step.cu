@@ -124,7 +124,7 @@ __device__ __forceinline__ void attn_block(
   float acc[kRows];
   qie::attend<kD, kRows, kKeys, __nv_bfloat16>(
       sm, acc, G, k_cache + base, v_cache + base, qie::ContiguousKeys{kD},
-      nullptr, nullptr, len, len - 1, 0, nullptr, nullptr, -1);
+      nullptr, nullptr, len, len - 1, 0);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     if (i < G) {

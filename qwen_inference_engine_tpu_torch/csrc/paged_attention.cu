@@ -98,7 +98,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   float acc[BR];
   qie::attend<D, BR, kKeys, KV>(sm, acc, n_rows, k_pages + base,
                                 v_pages + base, keys, ks, vs, n_keys,
-                                len - T, 1, nullptr, nullptr, -1, r0, G);
+                                len - T, 1, r0, G);
 #pragma unroll
   for (int i = 0; i < BR; ++i) {
     if (i < n_rows) {

@@ -61,20 +61,28 @@ SIGNATURES = {
                             _P],
     # q, k, v, out, B, T, Hq, Hk, D, scale, stream
     "qie_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_cache, v_cache, lengths, k_new, v_new, position, out,
-    # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
-    "qie_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k_cache, v_cache, lengths, out, L, Bc, B, Hq, Hk, S, D, layer,
+    # scale, stream
+    "qie_decode_attention": [_P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, k_new, v_new, position, ws (the splits'
+    # partials, or null for one split), out, L, Bc, B, Hq, Hk, S, D, layer,
+    # span, splits, scale, stream
+    "qie_decode_attention_appending": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _F, _P],
     # q, k_cache, v_cache, k_scale, v_scale, lengths, ws (the splits'
     # partials), out, L, Bc, B, Hq, Hk, S, D, layer, span, splits, scale,
     # stream
     "qie_decode_attention_q8": [_P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                 _P],
-    # q, k_cache, v_cache, old_lengths, k_new, v_new, out,
-    # L, Bc, B, Hq, Hk, S, D, layer, scale, stream
-    "qie_decode_attention_fresh": [_P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, old_lengths, k_new, v_new, ws (as for
+    # appending), out, L, Bc, B, Hq, Hk, S, D, layer, span, splits, scale,
+    # stream
+    "qie_decode_attention_fresh": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _F, _P],
     # q, k_cache, v_cache, k_scale, v_scale, starts, out,
     # L, Bc, B, T, Hq, Hk, S, D, layer, start, scale, stream
     "qie_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,

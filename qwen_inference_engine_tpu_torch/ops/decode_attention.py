@@ -1,25 +1,31 @@
 """T=1 GQA flash decode over the stacked contiguous KV cache.
 
-The four wrappers launch the CUDA kernel ``csrc/decode_attention.cu``:
+The four wrappers launch the CUDA kernels of ``csrc/decode_attention.cu``:
 
 * ``decode_attention_contiguous`` (the port of the JAX package's
   ``decode_attention_contiguous`` / ``_decode_kernel``): per-row lengths,
-  used by the ragged batch after the plain stacked KV write;
+  used by the ragged batch after the plain stacked KV write; one block a
+  (row, KV head) on the CUDA-core core;
 * ``decode_attention_appending`` (the port of ``decode_attention_appending``
   / ``_decode_append_kernel``): every row at one position; the kernel
   writes the fresh K/V row into the cache in place and attends over it;
-* ``decode_attention_contiguous_q8`` (the port of
-  ``decode_attention_contiguous_q8`` / ``_decode_kernel_q8``): per-row
-  lengths over an int8 cache with f32 scales (INT8 KV, every decode step);
-  its kernel splits S across blocks on the tensor cores and merges the
-  splits in a second launch, as ``plan_decode_split`` plans from the
-  shapes alone;
 * ``decode_attention_contiguous_fresh`` (the port of
   ``decode_attention_contiguous_fresh`` / ``_decode_kernel_fresh``): per-row
   old lengths (the current token excluded) over a bf16 cache, with the
   current token's K/V merged into the softmax from the inputs, never read
   from the cache: the deferred-append decode step's attention.  There is no
-  int8 form (the JAX kernel has none).
+  int8 form (the JAX kernel has none);
+* ``decode_attention_contiguous_q8`` (the port of
+  ``decode_attention_contiguous_q8`` / ``_decode_kernel_q8``): per-row
+  lengths over an int8 cache with f32 scales (INT8 KV, every decode step).
+
+The last three share one kernel: S split across blocks on the tensor cores
+as ``plan_decode_split`` plans from the shapes alone (a call reads nothing
+back and is capturable in a CUDA graph), then a merge launch.  In the two
+bf16 ones the fresh key is staged from ``k_new`` / ``v_new`` by the split
+that holds it, so at one shared position their outputs are bit-identical;
+where the plan has one split (a batch that fills the card alone) they write
+the output directly and launch no merge.
 
 ``*_plain`` beside each computes the same function with the plain oracle.
 The cache is ``[L, Bc, Hk, S, D]``; ``row0`` (the pipeline-parallel batch
@@ -95,6 +101,52 @@ def device_position(position: Union[int, torch.Tensor], S: int,
     return torch.full((1,), int(position), dtype=torch.int32, device=device)
 
 
+def check_aligned(name, *tensors) -> None:
+    """The split kernels copy 16-byte chunks: every operand (None skipped)
+    starts on a 16-byte boundary, as the C guards require."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned operands")
+
+
+def decode_workspace(splits: int, B: int, Hq: int, D: int,
+                     device) -> torch.Tensor:
+    """The split kernels' f32 partials ``[splits, B, Hq, D]`` and
+    log-sum-exps ``[splits, B, Hq]``, in one buffer."""
+    return torch.empty(splits * B * Hq * (D + 1), dtype=torch.float32,
+                       device=device)
+
+
+def _split_operands(name, B, Hq, Hk, S, D, device, direct: bool):
+    """``(span, splits, ws)`` of a split decode call: the plan, checked as
+    the C guard checks it, and its workspace (None where ``direct``, a bf16
+    call that writes its one split's output itself)."""
+    span, splits = plan_decode_split(B, Hk, S)
+    check_split_plan(name, span, splits, S)
+    if direct and splits == 1:
+        return span, splits, None
+    ws = decode_workspace(splits, B, Hq, D, device)
+    if ws.dtype != torch.float32 or ws.numel() < splits * B * Hq * (D + 1) \
+            or ws.device != device:
+        raise ValueError(f"{name}: the workspace must hold "
+                         f"{splits * B * Hq * (D + 1)} f32 on the device")
+    return span, splits, ws
+
+
+def _check_new_rows(name, k_new, v_new, q, Hk):
+    B, _, _, D = q.shape
+    for t in (k_new, v_new):
+        if t.shape != (B, 1, Hk, D) or t.device != q.device:
+            raise ValueError(f"{name}: k_new/v_new must be {(B, 1, Hk, D)} "
+                             f"on the device of q")
+    return (k_new.to(torch.bfloat16).contiguous(),
+            v_new.to(torch.bfloat16).contiguous())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _check_lengths(lengths, q):
     if lengths.shape != (q.shape[0],) or lengths.device != q.device:
         raise ValueError("lengths must be [B] on the device of q")
@@ -121,8 +173,8 @@ def decode_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     rc = cuda_lib.library().qie_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        None, None, None, out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer),
-        D ** -0.5, cuda_lib.stream_handle(q.device))
+        out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer), D ** -0.5,
+        cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, "decode_attention_contiguous")
     decode_attention_contiguous.launches += 1
     return out
@@ -158,23 +210,23 @@ def decode_attention_appending(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_appending_plain(q, k_cache, v_cache, k_new,
                                                 v_new, layer, position)
-    _check_decode_args("decode_attention_appending", q, k_cache, v_cache,
-                       layer)
+    name = "decode_attention_appending"
+    _check_decode_args(name, q, k_cache, v_cache, layer)
     B, _, Hq, D = q.shape
     L, Bc, Hk, S, _ = k_cache.shape
-    if k_new.shape != (B, 1, Hk, D) or v_new.shape != k_new.shape:
-        raise ValueError(f"k_new/v_new must be {(B, 1, Hk, D)}")
+    kn, vn = _check_new_rows(name, k_new, v_new, q, Hk)
     pos = device_position(position, S, q.device)
-    kn = k_new.to(torch.bfloat16).contiguous()
-    vn = v_new.to(torch.bfloat16).contiguous()
     q = q.contiguous()
+    span, splits, ws = _split_operands(name, B, Hq, Hk, S, D, q.device,
+                                       direct=True)
+    check_aligned(name, q, k_cache, v_cache, kn, vn, ws)
     out = torch.empty_like(q)
-    rc = cuda_lib.library().qie_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), None,
-        kn.data_ptr(), vn.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        L, Bc, B, Hq, Hk, S, D, int(layer), D ** -0.5,
+    rc = cuda_lib.library().qie_decode_attention_appending(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
+        vn.data_ptr(), pos.data_ptr(), _ptr(ws), out.data_ptr(), L, Bc, B, Hq,
+        Hk, S, D, int(layer), span, splits, D ** -0.5,
         cuda_lib.stream_handle(q.device))
-    cuda_lib.check(rc, "decode_attention_appending")
+    cuda_lib.check(rc, name)
     decode_attention_appending.launches += 1
     return out, k_cache, v_cache
 
@@ -227,19 +279,18 @@ def decode_attention_contiguous_fresh(q: torch.Tensor, k_cache: torch.Tensor,
     _check_decode_args(name, q, k_cache, v_cache, layer)
     B, _, Hq, D = q.shape
     L, Bc, Hk, S, _ = k_cache.shape
-    for t in (k_new, v_new):
-        if t.shape != (B, 1, Hk, D) or t.device != q.device:
-            raise ValueError(f"{name}: k_new/v_new must be {(B, 1, Hk, D)} "
-                             f"on the device of q")
+    kn, vn = _check_new_rows(name, k_new, v_new, q, Hk)
     lens = _check_lengths(old_lengths, q)
-    kn = k_new.to(torch.bfloat16).contiguous()
-    vn = v_new.to(torch.bfloat16).contiguous()
     q = q.contiguous()
+    span, splits, ws = _split_operands(name, B, Hq, Hk, S, D, q.device,
+                                       direct=True)
+    check_aligned(name, q, k_cache, v_cache, kn, vn, ws)
     out = torch.empty_like(q)
     rc = cuda_lib.library().qie_decode_attention_fresh(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        kn.data_ptr(), vn.data_ptr(), out.data_ptr(), L, Bc, B, Hq, Hk, S, D,
-        int(layer), D ** -0.5, cuda_lib.stream_handle(q.device))
+        kn.data_ptr(), vn.data_ptr(), _ptr(ws), out.data_ptr(), L, Bc, B, Hq,
+        Hk, S, D, int(layer), span, splits, D ** -0.5,
+        cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, name)
     decode_attention_contiguous_fresh.launches += 1
     return out
@@ -253,10 +304,12 @@ SPLIT_TARGET_BLOCKS = 2 * 132    # two blocks on each of the H100's SMs
 
 
 def plan_decode_split(B: int, Hk: int, S: int):
-    """``decode_attention_contiguous_q8``'s plan ``(span, splits)`` from the
-    shapes alone (never the lengths, so a call reads nothing back from the
-    device and stays capturable in a CUDA graph): block (hk, b, s) attends
-    keys ``[s * span, (s + 1) * span)`` of row b's first ``lengths[b]``.
+    """The split decodes' plan ``(span, splits)`` from the shapes alone
+    (never the lengths or the position, so a call reads nothing back from
+    the device and stays capturable in a CUDA graph): block (hk, b, s)
+    attends keys ``[s * span, (s + 1) * span)`` of row b's first
+    ``lengths[b]`` (the bf16 decodes: of its ``f + 1``, the last split also
+    taking a fresh key ``f`` at S).
     The span is a whole number of 64-key tiles, the fewest that give
     ``B * Hk * splits >= SPLIT_TARGET_BLOCKS`` (or one tile a split where
     S has too few); ``splits * span`` covers S once.  A batch that fills
@@ -309,13 +362,11 @@ def decode_attention_contiguous_q8(q: torch.Tensor, k_cache: torch.Tensor,
     L, Bc, Hk, S, _ = k_cache.shape
     check_scales("decode_attention_contiguous_q8", k_cache, k_scale, v_scale)
     lens = _check_lengths(lengths, q)
-    span, splits = plan_decode_split(B, Hk, S)
-    check_split_plan("decode_attention_contiguous_q8", span, splits, S)
     q = q.contiguous()
+    span, splits, ws = _split_operands("decode_attention_contiguous_q8", B,
+                                       Hq, Hk, S, D, q.device, direct=False)
+    check_aligned("decode_attention_contiguous_q8", q, k_cache, v_cache, ws)
     out = torch.empty_like(q)
-    # the splits' f32 partials [splits, B, Hq, D] and log-sum-exps
-    ws = torch.empty(splits * B * Hq * (D + 1), dtype=torch.float32,
-                     device=q.device)
     rc = cuda_lib.library().qie_decode_attention_q8(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),

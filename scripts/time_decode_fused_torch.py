@@ -1,5 +1,5 @@
-"""Time the PyTorch port's INT8-KV decode attention and fused attention +
-MLP on the card, and fingerprint the flash and chunk kernels' outputs.
+"""Time the PyTorch port's decode attentions and fused attention + MLP on
+the card, and fingerprint the flash, chunk and decode kernels' outputs.
 
     python3 scripts/time_decode_fused_torch.py ROOT [OUT.json]
 
@@ -11,7 +11,15 @@ one call to the card.  Shapes are Qwen2.5-7B's, inputs seeded random:
 
 * ``decode_attention_contiguous_q8``: B = 4 at lengths 69 / 700 / 1408 /
   2000 of S 2304 (``check_decode_q8``) and 37 / 120 / 300 / 500 of S 1024
-  (run (c)'s decode), a call and in a CUDA graph;
+  (run (c)'s decode), a call and in a CUDA graph, and the SHA-256 of the
+  output;
+* ``decode_attention_appending`` and ``decode_attention_contiguous_fresh``
+  (old lengths = the position): B = 4 at position 999 of S 1024
+  (``check_decode``) and B = 192 at 272 of S 512 (the batch-192 default
+  dispatch), a call and in a CUDA graph, beside SDPA over the first
+  position + 1 keys in a CUDA graph, and whether the two outputs are
+  bit-equal; ``decode_attention_contiguous`` at ``check_decode``'s lengths
+  69..1000 of S 1024, its time and the SHA-256 of its output;
 * ``fused_attn_mlp``: 96 rows from row 96 of a 192-row cache (lens 257,
   S 512) beside the pumped weights' MLP (gs 256 / 128) on Mb = 96 and 40
   rows, a call and in a CUDA graph;
@@ -70,10 +78,38 @@ def main() -> int:
         v8, vs = cs._int8(torch, g, (2, 4, Hk, S, D))
         q = rnd(4, 1, Hq, D)
         lens = torch.tensor(lens_list, device="cuda")
-        out[f"decode_attention_contiguous_q8 S{S}"] = timed(
-            lambda: da.decode_attention_contiguous_q8(q, k8, v8, ks, vs, 1,
-                                                      lens))
+        rec = timed(lambda: da.decode_attention_contiguous_q8(
+            q, k8, v8, ks, vs, 1, lens))
+        rec["sha256"] = digest(da.decode_attention_contiguous_q8(
+            q, k8, v8, ks, vs, 1, lens))
+        out[f"decode_attention_contiguous_q8 S{S}"] = rec
         del k8, v8, ks, vs
+    for B, S, pos in ((4, 1024, 999), (192, 512, 272)):
+        kc, vc = rnd(2, B, Hk, S, D), rnd(2, B, Hk, S, D)
+        q, kn, vn = rnd(B, 1, Hq, D), rnd(B, 1, Hk, D), rnd(B, 1, Hk, D)
+        old = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+        sdpa = cs._sdpa(torch, q.transpose(1, 2), kc[1, :, :, :pos + 1],
+                        vc[1, :, :, :pos + 1])
+        sdpa_graph = cs.graph_ms(torch, sdpa)
+        app = timed(lambda: da.decode_attention_appending(q, kc, vc, kn, vn,
+                                                          1, pos))
+        fresh = timed(lambda: da.decode_attention_contiguous_fresh(
+            q, kc, vc, kn, vn, 1, old))
+        a = da.decode_attention_appending(q, kc, vc, kn, vn, 1, pos)[0]
+        f = da.decode_attention_contiguous_fresh(q, kc, vc, kn, vn, 1, old)
+        out[f"decode_attention_appending B{B}"] = dict(
+            app, sdpa_graph_ms=sdpa_graph, sha256=digest(a))
+        out[f"decode_attention_contiguous_fresh B{B}"] = dict(
+            fresh, sdpa_graph_ms=sdpa_graph, bit_equal_to_appending=bool(
+                torch.equal(a, f)))
+        if B == 4:
+            lens = torch.tensor([69, 152, 332, 1000], device="cuda")
+            out["decode_attention_contiguous"] = {
+                "ms": cs.time_ms(torch, lambda: da.decode_attention_contiguous(
+                    q, kc, vc, 1, lens)),
+                "sha256": digest(da.decode_attention_contiguous(
+                    q, kc, vc, 1, lens))}
+        del kc, vc
     Ba, Bc, S = 96, 192, 512
     kc, vc = rnd(2, Bc, Hk, S, D), rnd(2, Bc, Hk, S, D)
     w, _ = cs._mlp_stack(torch, g, K, F, 256, 128)

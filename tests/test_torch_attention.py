@@ -293,24 +293,39 @@ def test_decode_split_plan_covers_each_key_once(preset, B, S):
     tda.check_split_plan("plan", span, splits, S)  # the C guard's rule
 
 
-def _split_merge(q, kd, vd, lengths, span):
+def _split_merge(q, kd, vd, lengths, span, fresh=None):
     """The split kernel's math in plain f32: for each split of ``span``
-    keys of a row's first ``lengths[b]``, the normalised output and the
+    keys of a row's first ``n_b`` keys, the normalised output and the
     log-sum-exp of its scores (an empty split: 0 and -inf), merged in
-    split order with weights exp(lse - max lse); 0 for a row of length 0.
-    q [B, 1, Hq, D]; kd / vd [B, Hk, S, D] dequantized."""
+    split order with weights exp(lse - max lse); 0 for a row of no key.
+    q [B, 1, Hq, D]; kd / vd [B, Hk, S, D] dequantized.  Without
+    ``fresh``, n_b = lengths[b]; with ``fresh = (k_new, v_new)`` ([B, 1,
+    Hk, D], the bf16 decodes), n_b = lengths[b] + 1 and key lengths[b] is
+    staged from the inputs by the split that holds it (the last split,
+    which then holds span + 1 keys, where it lies at S past every
+    split)."""
     B, _, Hq, D = q.shape
     Hk, S = kd.shape[1], kd.shape[2]
     G = Hq // Hk
+    splits = -(-S // span)
+    n_keys = [int(n) for n in lengths]
+    if fresh is not None:
+        kd = torch.nn.functional.pad(kd.float(), (0, 0, 0, 1))
+        vd = torch.nn.functional.pad(vd.float(), (0, 0, 0, 1))
+        for b in range(B):
+            kd[b, :, n_keys[b]] = fresh[0][b, 0]
+            vd[b, :, n_keys[b]] = fresh[1][b, 0]
+        n_keys = [n + 1 for n in n_keys]
     scores = torch.einsum("bkgd,bksd->bkgs",
                           q[:, 0].float().reshape(B, Hk, G, D),
                           kd.float()) * D ** -0.5
     out = torch.zeros(B, Hk, G, D)
     for b in range(B):
-        n = int(lengths[b])
+        n = n_keys[b]
         parts, lses = [], []
-        for s0 in range(0, S, span):
-            e = min(s0 + span, n)
+        for s in range(splits):
+            s0 = s * span
+            e = n if s == splits - 1 else min(s0 + span, n)
             if e <= s0:
                 parts.append(torch.zeros(Hk, G, D))
                 lses.append(torch.full((Hk, G), -float("inf")))
@@ -369,3 +384,77 @@ def test_decode_q8_split_and_merge_matches_plain_and_pallas(lens, span):
             jnp.asarray(vs), layer, jnp.asarray(np.maximum(lengths, 1))))
     np.testing.assert_allclose(got.numpy()[live], ref[live], rtol=2e-2,
                                atol=2e-2)
+
+
+def _fresh_inputs(seed, L=2, B=4, Hk=2, G=7, D=128, S=256):
+    rng = np.random.default_rng(seed)
+    kc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+    vc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)
+    q = rng.normal(size=(B, 1, G * Hk, D)).astype(np.float32)
+    kn = rng.normal(size=(B, 1, Hk, D)).astype(np.float32)
+    vn = rng.normal(size=(B, 1, Hk, D)).astype(np.float32)
+    return kc, vc, q, kn, vn
+
+
+# the split spans the bf16 decodes' math is checked at: the plan's (64 at
+# B 4, Hk 2, S 256), 128 and one split of all S keys
+BF16_SPANS = (None, 128, 256)
+
+
+@pytest.mark.parametrize("lens", [[0, 63, 64, 65], [127, 128, 129, 255],
+                                  [256, 191, 192, 1]])
+def test_fresh_decode_split_and_merge_matches_plain_and_pallas(lens):
+    """The bf16 fresh decode's split arithmetic (``_split_merge`` with the
+    fresh key staged from the inputs by the split that holds it, the last
+    split taking it at S) equals decode_attention_contiguous_fresh_plain
+    (f32 queries and cache: 1e-5) and the JAX kernel in interpret mode
+    (2e-2, the decode kernels' rule) at old lengths 0, on each side of the
+    64-key tile and of the split edges, S - 1 and S, for the plan's span,
+    128 and one split."""
+    L, B, Hk, G, D, S, layer = 2, 4, 2, 7, 128, 256, 1
+    kc, vc, q, kn, vn = _fresh_inputs(sum(lens))
+    old = np.asarray(lens, np.int32)
+    plain = tda.decode_attention_contiguous_fresh_plain(
+        _t(q), _t(kc), _t(vc), _t(kn), _t(vn), layer, _t(old))
+    with interpret_pallas(jda):
+        ref = np.asarray(jda.decode_attention_contiguous_fresh(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kn),
+            jnp.asarray(vn), layer, jnp.asarray(old)))
+    for span in BF16_SPANS:
+        span = span or tda.plan_decode_split(B, Hk, S)[0]
+        got = _split_merge(_t(q), _t(kc)[layer], _t(vc)[layer], old, span,
+                           fresh=(_t(kn), _t(vn)))
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 65, 128, 255])
+def test_appending_decode_split_and_merge_matches_plain_and_pallas(pos):
+    """The bf16 appending decode's split arithmetic (``_split_merge`` with
+    the fresh key, at the shared position, staged from the inputs by the
+    split that holds it) equals decode_attention_appending_plain (f32: 1e-5)
+    and the JAX kernel in interpret mode (2e-2) at positions 0, on each
+    side of the 64-key tile and of the split edges and S - 1, for the
+    plan's span, 128 and one split; the split math reads no cache row at or
+    past the position (NaN there changes nothing)."""
+    L, B, Hk, G, D, S, layer = 2, 4, 2, 7, 128, 256, 1
+    kc, vc, q, kn, vn = _fresh_inputs(100 + pos)
+    plain, _, _ = tda.decode_attention_appending_plain(
+        _t(q), _t(kc), _t(vc), _t(kn), _t(vn), layer, pos)
+    with interpret_pallas(jda):
+        ref, _, _ = jda.decode_attention_appending(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kn),
+            jnp.asarray(vn), layer, pos)
+    kbad, vbad = _t(kc)[layer].clone(), _t(vc)[layer].clone()
+    kbad[:, :, pos:] = float("nan")
+    vbad[:, :, pos:] = float("nan")
+    old = np.full(B, pos, np.int32)
+    for span in BF16_SPANS:
+        span = span or tda.plan_decode_split(B, Hk, S)[0]
+        got = _split_merge(_t(q), kbad, vbad, old, span,
+                           fresh=(_t(kn), _t(vn)))
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-2,
+                                   atol=2e-2)

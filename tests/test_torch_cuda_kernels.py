@@ -24,8 +24,13 @@ starts -1, band edges and past the cache's end in bf16, f32 and int8; the
 fresh-merge decode attention with NaN at and past each old length and
 bit-identical to the appending kernel; the all-layer append at 28 layers;
 the fused attention + matmul at the probe's shapes), the deferred-append
-decode step against ``decode_step`` bit for bit, flash attention on the
-tensor cores (T 1 to 512, G 1, 4, 7 and 8, D 64 and 128, two calls bit for
+decode step against ``decode_step`` bit for bit, the appending and fresh
+decodes split S on the tensor cores (B 1, 4, 8 and 192, G 1, 4, 7 and 8,
+D 64 and 128, S 256 and 2304, positions and old lengths on each side of
+the 64-key tile and of the split edges, S - 1 and S, NaN past each, the
+written cache row bit for bit and nothing else written, a position past
+the cache, one CUDA graph replayed at a new device position), flash
+attention on the tensor cores (T 1 to 512, G 1, 4, 7 and 8, D 64 and 128, two calls bit for
 bit), the split-K weight streams and tensor-core tiles of W8A8, W4A8 and
 W8A16 (M 1 to 300, K split unevenly, gs 32, 64, 128, 256 and per column,
 the lm_head's width, the 7B down projection, W8A16 widths of 64 past a
@@ -1812,6 +1817,195 @@ def test_fresh_decode_attention_equals_the_appending_kernel(gen, pos):
     appended, _, _ = da.decode_attention_appending(q, kc.clone(), vc.clone(),
                                                    kn, vn, 1, pos)
     assert torch.equal(fresh, appended)
+
+
+def _bf16_split_edges(S, span):
+    """Key positions 0, on each side of the 64-key tile and of the first
+    two split edges, and S - 1."""
+    return sorted({n for n in (0, 63, 64, 65, span - 1, span, span + 1,
+                               2 * span - 1, 2 * span, 2 * span + 1, S - 1)
+                   if 0 <= n < S})
+
+
+def _bits(t):
+    """bf16 as int16, so NaN compares equal to itself."""
+    return t.view(torch.int16)
+
+
+def _appending_case(gen, L, B, Bc, Hk, G, D, S, layer, pos):
+    """One appending call at ``pos`` against its plain version, with NaN at
+    and past the position in every row of the kernel's cache and in the
+    rows past B: within 2e-2, finite, the row at ``pos`` equal to k_new /
+    v_new bit for bit and every other cache byte untouched, two calls bit
+    for bit with one launch counted each, and the fresh kernel over the
+    written cache at old lengths ``pos`` bit-identical.  Returns the
+    output."""
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    lens = [pos] * B + [0] * (Bc - B)
+    kbad, vbad = _nan_from(kc, lens), _nan_from(vc, lens)
+    want_k, want_v = kbad.clone(), vbad.clone()
+    want_k[layer, :B, :, pos] = kn[:, 0]
+    want_v[layer, :B, :, pos] = vn[:, 0]
+    before = da.decode_attention_appending.launches
+    got, gk, gv = da.decode_attention_appending(q, kbad, vbad, kn, vn, layer,
+                                                pos)
+    again, _, _ = da.decode_attention_appending(q, kbad, vbad, kn, vn, layer,
+                                                pos)
+    assert da.decode_attention_appending.launches == before + 2
+    assert gk is kbad and gv is vbad
+    assert torch.equal(_bits(kbad), _bits(want_k)), pos
+    assert torch.equal(_bits(vbad), _bits(want_v)), pos
+    assert torch.equal(got, again), pos
+    assert got.shape == q.shape and bool(got.isfinite().all()), pos
+    ref, _, _ = da.decode_attention_appending_plain(q, kc.clone(), vc.clone(),
+                                                    kn, vn, layer, pos)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, (pos, err)
+    fresh = da.decode_attention_contiguous_fresh(
+        q, kbad, vbad, kn, vn, layer,
+        torch.full((B,), pos, dtype=torch.int32, device="cuda"))
+    assert torch.equal(fresh, got), pos
+    return got
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("S", [256, 2304])
+def test_decode_attention_appending_split_matches_plain(gen, S, B, G, D):
+    """The split-S tensor-core appending decode (plan_decode_split's span)
+    at positions 0, on each side of the 64-key tile and of the split edges,
+    and S - 1, B smaller than the cache batch: as _appending_case holds
+    it."""
+    L, Hk, layer = 2, 2, 1
+    span, splits = da.plan_decode_split(B, Hk, S)
+    assert splits > 1 and (splits - 1) * span < S <= splits * span
+    for pos in _bf16_split_edges(S, span):
+        _appending_case(gen, L, B, B + 2, Hk, G, D, S, layer, pos)
+
+
+def _fresh_split_lengths(S, span, B):
+    """Batches of B old lengths that together hold every
+    _bf16_split_edges position and S (a fresh key past every split where
+    splits * span == S)."""
+    edges = _bf16_split_edges(S, span) + [S]
+    return [[edges[(i + j) % len(edges)] for j in range(B)]
+            for i in range(0, len(edges), B)]
+
+
+def _fresh_case(gen, L, B, Bc, Hk, G, D, S, layer, lens):
+    """One fresh call at old lengths ``lens`` against its plain version,
+    with NaN at and past each old length and in the rows past B: within
+    2e-2, finite, the caches untouched, two calls bit for bit with one
+    launch counted each."""
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    kbad = _nan_from(kc, list(lens) + [0] * (Bc - B))
+    vbad = _nan_from(vc, list(lens) + [0] * (Bc - B))
+    k0, v0 = kbad.clone(), vbad.clone()
+    old = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = da.decode_attention_contiguous_fresh.launches
+    got = da.decode_attention_contiguous_fresh(q, kbad, vbad, kn, vn, layer,
+                                               old)
+    again = da.decode_attention_contiguous_fresh(q, kbad, vbad, kn, vn, layer,
+                                                 old)
+    assert da.decode_attention_contiguous_fresh.launches == before + 2
+    assert torch.equal(got, again), lens
+    assert torch.equal(_bits(kbad), _bits(k0)), lens
+    assert torch.equal(_bits(vbad), _bits(v0)), lens
+    assert got.shape == q.shape and bool(got.isfinite().all()), lens
+    ref = da.decode_attention_contiguous_fresh_plain(q, kc, vc, kn, vn, layer,
+                                                     old)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, (lens, err)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("S", [256, 2304])
+def test_fresh_decode_attention_split_matches_plain(gen, S, B, G, D):
+    """The split-S tensor-core fresh decode at old lengths 0, on each side
+    of the 64-key tile and of the split edges, S - 1 and S (at S 256 and
+    2304 the plan's splits end at S, so the last split takes that fresh
+    key), B smaller than the cache batch: as _fresh_case holds it."""
+    L, Hk, layer = 2, 2, 1
+    span, splits = da.plan_decode_split(B, Hk, S)
+    assert splits > 1
+    for lens in _fresh_split_lengths(S, span, B):
+        _fresh_case(gen, L, B, B + 2, Hk, G, D, S, layer, lens)
+
+
+@pytest.mark.parametrize("kind", ["appending", "fresh"])
+def test_bf16_decodes_at_the_default_dispatch_batch(gen, kind):
+    """B 192 of Qwen2.5-7B's heads (Hk 4, G 7, D 128) at S 512, the
+    batch-192 default dispatch: the plan has one split, so the kernel
+    writes its output directly (no merge launch); positions 0, 63, 64, 65,
+    257 and S - 1, and old lengths cycling through them and S."""
+    L, B, Hk, G, D, S, layer = 2, 192, 4, 7, 128, 512, 1
+    assert da.plan_decode_split(B, Hk, S)[1] == 1
+    edges = [0, 63, 64, 65, 257, S - 1]
+    if kind == "appending":
+        for pos in edges:
+            _appending_case(gen, L, B, B, Hk, G, D, S, layer, pos)
+    else:
+        lens = [(edges + [S])[i % 7] for i in range(B)]
+        _fresh_case(gen, L, B, B, Hk, G, D, S, layer, lens)
+
+
+@pytest.mark.parametrize("S,B", [(256, 4), (512, 192)])
+def test_decode_attention_appending_past_the_cache_writes_nothing(gen, S, B):
+    """A device position at or past S (or below 0) attends nothing and
+    writes nothing: output 0, every cache byte untouched, on the split path
+    (B 4) and the one-split path (B 192)."""
+    L, Hk, G, D, layer = 2, 4, 7, 128, 1
+    kc, vc = _bf16(gen, L, B, Hk, S, D), _bf16(gen, L, B, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    k0, v0 = kc.clone(), vc.clone()
+    for p in (S, S + 100, -1):
+        pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+        got, _, _ = da.decode_attention_appending(q, kc, vc, kn, vn, layer,
+                                                  pos)
+        torch.cuda.synchronize()
+        assert bool((got == 0).all()), p
+        assert torch.equal(kc, k0) and torch.equal(vc, v0), p
+
+
+def test_decode_attention_appending_replays_in_a_cuda_graph(gen):
+    """One appending call captured in a CUDA graph with its position a
+    device tensor (the plan reads nothing from the device), replayed after
+    the position is changed in place, equals the eager call at the new
+    position bit for bit, output and caches, at check_decode's shape (B 4,
+    S 1024, Qwen2.5-7B's heads)."""
+    L, B, Hk, G, D, S, layer = 2, 4, 4, 7, 128, 1024, 1
+    kc, vc = _bf16(gen, L, B, Hk, S, D), _bf16(gen, L, B, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    kg, vg, ke, ve = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    pos = torch.tensor([999], dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention_appending(q, kg, vg, kn, vn, layer, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, _, _ = da.decode_attention_appending(q, kg, vg, kn, vn,
+                                                       layer, pos)
+    da.decode_attention_appending(q, ke, ve, kn, vn, layer, 999)
+    for p in (500, 64):
+        pos.fill_(p)
+        captured.zero_()
+        graph.replay()
+        eager, _, _ = da.decode_attention_appending(q, ke, ve, kn, vn, layer,
+                                                    p)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager), p
+        assert torch.equal(kg, ke) and torch.equal(vg, ve), p
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],

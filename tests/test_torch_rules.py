@@ -983,6 +983,20 @@ def _q8_decode_call(B=4, S=256):
         _meta(B, dtype=torch.int32))
 
 
+def _bf16_decode_call(kind="appending", B=4, S=256, offset=0):
+    """A bf16 split decode call on meta tensors (Hk 2, G 7, D 128); k_new
+    ``offset`` elements into its storage (2 bytes each)."""
+    cache = _meta(2, max(8, B), 2, S, 128, dtype=_BF)
+    n = B * 2 * 128
+    new = _meta(n + offset, dtype=_BF)[offset:].view(B, 1, 2, 128)
+    q = _meta(B, 1, 14, 128, dtype=_BF)
+    if kind == "appending":
+        return tda.decode_attention_appending(q, cache, cache, new, new, 1,
+                                              _meta(1, dtype=torch.int32))
+    return tda.decode_attention_contiguous_fresh(
+        q, cache, cache, new, new, 1, _meta(B, dtype=torch.int32))
+
+
 def _plan(fn):
     """fn with its K/2 and F/2 row counts of _fused_attn_call's MLP (K 256,
     F 512): the two plans it returns."""
@@ -1029,6 +1043,58 @@ PLAN_REFUSALS = {
     "q8 planned split passes its checks": (
         None, None, lambda: _q8_decode_call(B=1, S=1024), AssertionError,
         "library was asked for"),
+    "q8 workspace unaligned": (
+        "tda.decode_workspace",
+        lambda splits, B, Hq, D, device: torch.empty(
+            splits * B * Hq * (D + 1) + 1, device=device)[1:],
+        lambda: _q8_decode_call(), ValueError, "16-byte aligned"),
+    "appending span 96": ("tda.plan_decode_split", lambda B, Hk, S: (96, 3),
+                          lambda: _bf16_decode_call(), ValueError,
+                          "multiple of 64"),
+    "appending splits short of S": (
+        "tda.plan_decode_split", lambda B, Hk, S: (64, 3),
+        lambda: _bf16_decode_call(), ValueError, "covering S"),
+    "fresh a split past S": ("tda.plan_decode_split",
+                             lambda B, Hk, S: (128, 3),
+                             lambda: _bf16_decode_call("fresh"), ValueError,
+                             "covering S"),
+    "fresh span 0": ("tda.plan_decode_split", lambda B, Hk, S: (0, 1),
+                     lambda: _bf16_decode_call("fresh"), ValueError,
+                     "multiple of 64"),
+    "appending workspace unaligned": (
+        "tda.decode_workspace",
+        lambda splits, B, Hq, D, device: torch.empty(
+            splits * B * Hq * (D + 1) + 1, device=device)[1:],
+        lambda: _bf16_decode_call(), ValueError, "16-byte aligned"),
+    "fresh workspace too small": (
+        "tda.decode_workspace",
+        lambda splits, B, Hq, D, device: torch.empty(
+            splits * B * Hq * D, device=device),
+        lambda: _bf16_decode_call("fresh"), ValueError, "workspace"),
+    "fresh workspace in bf16": (
+        "tda.decode_workspace",
+        lambda splits, B, Hq, D, device: torch.empty(
+            2 * splits * B * Hq * (D + 1), dtype=_BF, device=device),
+        lambda: _bf16_decode_call("fresh"), ValueError, "workspace"),
+    "appending k_new unaligned": (
+        None, None, lambda: _bf16_decode_call(offset=1), ValueError,
+        "16-byte aligned"),
+    "fresh k_new unaligned": (
+        None, None, lambda: _bf16_decode_call("fresh", offset=4), ValueError,
+        "16-byte aligned"),
+    "appending k_new aligned at an offset passes its checks": (
+        None, None, lambda: _bf16_decode_call(offset=8), AssertionError,
+        "library was asked for"),
+    "appending planned split passes its checks": (
+        None, None, lambda: _bf16_decode_call(), AssertionError,
+        "library was asked for"),
+    "fresh planned split passes its checks": (
+        None, None, lambda: _bf16_decode_call("fresh", B=1, S=1024),
+        AssertionError, "library was asked for"),
+    "appending one split asks for no workspace": (
+        "tda.decode_workspace", None,
+        lambda: _bf16_decode_call(B=192, S=512), AssertionError,
+        "library was asked for"),
 }
 
 
@@ -1039,9 +1105,12 @@ def test_split_plans_and_workspaces_refused_before_any_build(monkeypatch,
     by the wrappers before the library is built (meta tensors stand in for
     the card): fused_attn_mlp's gate / up pass only at mt 1 or 4 (its
     blocks run beside the attention blocks), each pass's slices covering
-    its packed rows once, a workspace as large as the plans need;
-    decode_attention_contiguous_q8's spans a multiple of 64 keys, its
-    splits covering S once.  A plan that passes asks for the library."""
+    its packed rows once, a workspace as large as the plans need; the
+    three split decodes' (q8, appending, fresh) spans a multiple of 64
+    keys, their splits covering S once, an f32 workspace as large as the
+    plan needs, their operands 16-byte aligned; a bf16 decode of one split
+    (B 192 x Hk 2) takes no workspace.  A plan that passes asks for the
+    library."""
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
     from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
 
