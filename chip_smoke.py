@@ -511,6 +511,8 @@ def check_decode(torch, cfg):
     ref = da.decode_attention_contiguous_plain(q, kc, vc, layer, lens)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
+    twice = bool(torch.equal(
+        got, da.decode_attention_contiguous(q, kc, vc, layer, lens)))
     ms = time_ms(torch, lambda: da.decode_attention_contiguous(q, kc, vc, layer, lens))
     g_ms = graph_ms(torch, lambda: da.decode_attention_contiguous(
         q, kc, vc, layer, lens))
@@ -523,16 +525,19 @@ def check_decode(torch, cfg):
     n_keys = sum(lens_list)
     n_bytes = 2 * (2 * n_keys * Hk * D) + 2 * (2 * B * Hq * D) + 4 * B
     b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D, "bf16")
-    records["decode_attention_contiguous"] = dict(
+    plan = da.plan_decode_split(B, Hk, S)
+    ragged = records["decode_attention_contiguous"] = dict(
         shape=f"B={B} lens={lens_list} S={S} Hq={Hq} Hk={Hk}", max_abs_err=err,
         tol=tol, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by)
+        library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by, plan=plan)
     print(f"  decode_attention_contiguous lens {lens_list}: err {err:.3g} "
-          f"(tol {tol}) | kernel {ms:.4f} ms | in a CUDA graph {g_ms:.4f} | "
-          f"plain {plain_ms:.4f} | sdpa {lib_ms:.4f} (graph {lib_g_ms:.4f}) "
-          f"| bound {b_ms:.4f} ({b_by})", flush=True)
-    if not err <= tol:
-        fail(f"decode_attention_contiguous err {err} > {tol}")
+          f"(tol {tol}), two calls bit-identical {twice} | plan (span, "
+          f"splits) {plan} | kernel {ms:.4f} ms | in a CUDA graph "
+          f"{g_ms:.4f} | plain {plain_ms:.4f} | sdpa {lib_ms:.4f} (graph "
+          f"{lib_g_ms:.4f}) | bound {b_ms:.4f} ({b_by})", flush=True)
+    if not err <= tol or not twice:
+        fail(f"decode_attention_contiguous err {err} > {tol} or two calls "
+             f"differ")
 
     rec, out, (k1, v1) = _appending_record(
         torch, da, cfg, g, B, S, pos=999, L=L, layer=layer,
@@ -554,14 +559,39 @@ def check_decode(torch, cfg):
         fail("decode_attention_contiguous_fresh differs from the appending "
              "kernel at one shared position")
     rec["at_fresh_b4"] = dict(ms=f_ms, graph_ms=f_g_ms, bit_equal=same)
+    ragged["appending_bit_equal_b4"] = _ragged_equals_appending(
+        torch, da, q, k1, v1, layer, 999, out)
     del k1, v1, out
     # the batch-192 default dispatch's shape (W4A16 pad-free, S 512, the
     # middle of its 32 decode steps): one split, no merge launch
-    rec["at_b192"] = _appending_record(
-        torch, da, cfg, g, PUMP_BATCH, PUMP_SEQ, pos=PUMP_PROMPT + 16, L=L,
-        layer=layer)[0]
+    pos, nb = PUMP_PROMPT + 16, PUMP_BATCH
+    inputs = (rnd(L, nb, Hk, PUMP_SEQ, D), rnd(L, nb, Hk, PUMP_SEQ, D),
+              rnd(nb, 1, Hq, D), rnd(nb, 1, Hk, D), rnd(nb, 1, Hk, D))
+    rec["at_b192"], out, (k1, v1) = _appending_record(
+        torch, da, cfg, g, nb, PUMP_SEQ, pos=pos, L=L, layer=layer,
+        inputs=inputs)
+    ragged["appending_bit_equal_b192"] = _ragged_equals_appending(
+        torch, da, inputs[2], k1, v1, layer, pos, out)
+    del k1, v1, out, inputs
     records["decode_attention_appending"] = rec
     return records
+
+
+def _ragged_equals_appending(torch, da, q, kc, vc, layer, pos, appended):
+    """The ragged decode at lengths pos + 1 over the cache the appending
+    decode wrote at ``pos`` (its output ``appended``) runs the same blocks
+    on the same bits: fails unless the outputs are bit-equal."""
+    B = q.shape[0]
+    lens = torch.full((B,), pos + 1, dtype=torch.int32, device="cuda")
+    same = bool(torch.equal(
+        da.decode_attention_contiguous(q, kc, vc, layer, lens), appended))
+    print(f"  decode_attention_contiguous B={B} lengths {pos + 1} (plan "
+          f"{da.plan_decode_split(B, kc.shape[2], kc.shape[3])}): bit-equal "
+          f"to the appending output at position {pos} {same}", flush=True)
+    if not same:
+        fail(f"decode_attention_contiguous B={B} differs from the appending "
+             f"decode at lengths = position + 1")
+    return same
 
 
 def _appending_record(torch, da, cfg, g, B, S, pos, L, layer, inputs=None):
@@ -3268,6 +3298,8 @@ GROUPED = {"grouped_matmul4_a8": (4, 8, "int8"),
 GROUPED_TOL = 2 ** -6
 MOE_DECODE_TOKENS = 32     # batch 32 x top-8 = 256 rows
 MOE_PIECE_TOKENS = 512     # a 512-token prefill piece: 4096 rows
+MOE_TTFT_TOKENS = 32 * 512  # [moe generate]'s prefill, batch 32 x 512:
+                            # 131072 rows a layer
 
 
 def _routing(torch, g, n_tokens, E, k):
@@ -3308,10 +3340,12 @@ def check_grouped_matmul(torch, cfg):
     Qwen3-30B-A3B expert shapes (gate/up K = 2048, N = 768, INT4 gs 256;
     down K = 768, N = 2048, INT4 gs 128; INT8 per group of 128 rows and per
     column), layer 1 of a stacked [2, 128, ...] tensor with random scales:
-    M = 256 (decode, batch 32 x top-8) and M = 4096 (a 512-token piece)
-    routed by random top-8, and the edge sizes of the JAX package's tests
-    at M = 300 (empty experts, one expert taking every row, every tile
-    straddling).  Returns {kernel: [records]}."""
+    M = 256 (decode, batch 32 x top-8; grouped_matmul8 and its yardstick
+    also in a CUDA graph) and M = 4096 (a 512-token piece) routed by random
+    top-8, the edge sizes of the JAX package's tests at M = 300 (empty
+    experts, one expert taking every row, every tile straddling), and
+    grouped_matmul8 (gs 128) at [moe generate]'s prefill of batch 32 x 512,
+    M = 131072.  Returns {kernel: [records]}."""
     from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
     from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
     from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
@@ -3327,13 +3361,17 @@ def check_grouped_matmul(torch, cfg):
         return torch.tensor(sizes + [0] * (E - len(sizes)), dtype=torch.int32,
                             device="cuda")
 
+    # (label, group sizes, "timed" / "edge" (checked only) / "ttft" (W8A16
+    # gs 128 only, timed))
     cases = [(f"M={MOE_DECODE_TOKENS * k} decode",
-              _routing(torch, g, MOE_DECODE_TOKENS, E, k), True),
+              _routing(torch, g, MOE_DECODE_TOKENS, E, k), "timed"),
              (f"M={MOE_PIECE_TOKENS * k} prefill piece",
-              _routing(torch, g, MOE_PIECE_TOKENS, E, k), True),
-             ("M=300 empties", pad([0, 200, 7, 0, 93]), False),
-             ("M=300 one expert", pad([300]), False),
-             ("M=300 every tile straddling", pad([37, 61, 64, 70, 68]), False)]
+              _routing(torch, g, MOE_PIECE_TOKENS, E, k), "timed"),
+             ("M=300 empties", pad([0, 200, 7, 0, 93]), "edge"),
+             ("M=300 one expert", pad([300]), "edge"),
+             ("M=300 every tile straddling", pad([37, 61, 64, 70, 68]), "edge"),
+             (f"M={MOE_TTFT_TOKENS * k} prefill of batch 32 x 512",
+              _routing(torch, g, MOE_TTFT_TOKENS, E, k), "ttft")]
     records = {n: [] for n in GROUPED}
     for proj, K, N, gs4 in (("gate", D, Fm, 256), ("down", Fm, D, 128)):
         weights = {
@@ -3347,16 +3385,19 @@ def check_grouped_matmul(torch, cfg):
                 * (2 * K ** -0.5 / 127), 128)}
         s8_col = torch.rand((L, E, 1, N), generator=g, device="cuda") \
             * (2 * K ** -0.5 / 127)
-        for label, gsz, timed in cases:
+        for label, gsz, mode in cases:
             M = int(gsz.sum())
             x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            xq, sx = quantize_activations(x)
-            sx = sx.reshape(-1).contiguous()
+            if mode != "ttft":
+                xq, sx = quantize_activations(x)
+                sx = sx.reshape(-1).contiguous()
             touched = int((gsz > 0).sum())
             for name, (bits, act_bits, peak) in GROUPED.items():
                 q, s, gs = weights[bits]
                 for scales, tag in ((s, f"gs {gs}"), (s8_col, "per column")):
-                    if tag == "per column" and bits == 4:
+                    if tag == "per column" and (bits == 4 or mode == "ttft"):
+                        continue
+                    if mode == "ttft" and name != "grouped_matmul8":
                         continue
                     fn, plain = getattr(gm, name), getattr(gm, name + "_plain")
                     if act_bits:
@@ -3374,7 +3415,8 @@ def check_grouped_matmul(torch, cfg):
                              f"experts touched {touched}")
                     if not (err <= tol and bool(got.isfinite().all())):
                         fail(f"{name} {shape}: err {err} > {tol} or non-finite")
-                    if not timed:
+                    del ref
+                    if mode == "edge":
                         print(f"  {name} {shape}: err {err:.3g} (tol "
                               f"{tol:.3g})", flush=True)
                         continue
@@ -3386,20 +3428,27 @@ def check_grouped_matmul(torch, cfg):
                                                group_size=gs))
                     lib, lib_label = _grouped_library(torch, x, w, gsz)
                     lib_ms = time_ms(torch, lib)
+                    graphs = {}
+                    if name == "grouped_matmul8" and M == MOE_DECODE_TOKENS * k:
+                        graphs = dict(graph_ms=graph_ms(torch, lambda: fn(*args)),
+                                      library_graph_ms=graph_ms(torch, lib))
                     del w
                     rows = K // 2 if bits == 4 else K
                     n_bytes = (touched * (rows * N + 4 * scales.shape[2] * N)
                                + M * K * (1 if act_bits else 2)
                                + 4 * M * (act_bits > 0) + 2 * M * N + 4 * E)
                     b_ms, b_by = bound(n_bytes, 2 * M * K * N, peak)
+                    in_graph = "".join(
+                        f" | {key} {val:.4f}" for key, val in graphs.items())
                     print(f"  {name} {shape}: err {err:.3g} (tol {tol:.3g}) | "
                           f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | "
-                          f"{lib_label} {lib_ms:.4f} | bound {b_ms:.4f} "
-                          f"({b_by})", flush=True)
+                          f"{lib_label} {lib_ms:.4f}{in_graph} | bound "
+                          f"{b_ms:.4f} ({b_by})", flush=True)
                     records[name].append(dict(
                         shape=shape, proj=proj, M=M, tag=tag, max_abs_err=err,
                         tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        library=lib_label, bound_ms=b_ms, bound_by=b_by))
+                        library=lib_label, bound_ms=b_ms, bound_by=b_by,
+                        **graphs))
         del weights, s8_col
         torch.cuda.empty_cache()
     return records
@@ -3411,8 +3460,13 @@ def moe_layer_record(recs):
     (INT8: the per-group scales; the per-column ones are in the records)."""
     dec = {r["proj"]: r for r in recs if r["M"] == MOE_DECODE_TOKENS * 8
            and r["tag"] != "per column"}
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
-    out = {key: 2 * dec["gate"][key] + dec["down"][key] for key in keys}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "graph_ms",
+            "library_graph_ms")
+    out = {key: 2 * dec["gate"][key] + dec["down"][key] for key in keys
+           if key in dec["gate"]}
+    prefill = {r["proj"]: r for r in recs if r["M"] == MOE_TTFT_TOKENS * 8}
+    if prefill:  # grouped_matmul8 at [moe generate]'s prefill
+        out["at_M131072"] = prefill
     out.update(max_abs_err=max(r["max_abs_err"] for r in recs),
                bound_by=dec["down"]["bound_by"],
                shape=(f"qwen3-30b-a3b decode M=256, a layer's gate + up + "
@@ -4440,7 +4494,8 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec.get("shape", rec.get("unit")),
-            **{k: v for k, v in rec.items() if k in ("gather_ms", "graph_ms")
+            **{k: v for k, v in rec.items()
+               if k in ("gather_ms", "graph_ms", "library_graph_ms")
                or k.startswith(("int8_", "rows_", "start_", "at_"))}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"

@@ -1,9 +1,8 @@
 // CUDA-core core of the port's attention kernels (the paged decode, verify
-// and continuation chunks, the ragged bf16 contiguous decode and
-// fused_attn_matmul's attention), for a bf16 or an int8 KV cache; flash,
-// the contiguous chunks, the appending, fresh and INT8-KV decodes and
-// fused_attn_mlp's attention run on the tensor-core core of
-// attention_mma.cuh.
+// and continuation chunks and fused_attn_matmul's attention), for a bf16 or
+// an int8 KV cache; flash, the contiguous chunks, the four contiguous
+// decodes (ragged bf16, appending, fresh and INT8-KV) and fused_attn_mlp's
+// attention run on the tensor-core core of attention_mma.cuh.
 //
 // One block of D threads (one per output dimension) runs the online
 // softmax of up to BR query rows over keys [0, n_keys) in tiles of BK keys:

@@ -14,16 +14,16 @@
 //   * decode_attention_contiguous_q8 (_decode_attention_q8, body
 //     _decode_kernel_q8): int8 cache with per-token-per-head f32 scales,
 //     per-row lengths (INT8 KV, aligned and ragged batches alike).
-// The appending, fresh and int8 entry points share one kernel, split S on
-// the tensor cores (decode_split_kernel, over the KV type); the contiguous
-// one is a kernel of its own on the CUDA-core core (decode_kernel).
+// All four share one kernel, split S on the tensor cores
+// (decode_split_kernel, over the KV type and whether a fresh row joins).
 //
 // q [B, 1, Hq, D] bf16; cache k / v [L, Bc, Hk, S, D] bf16 or int8
 // (head-major), scales k_scale / v_scale [L, Bc, Hk, S] f32 (int8 only);
 // lengths [B] int32 (contiguous and int8; the fresh variant's old lengths,
-// which exclude the current token) or position [1] int32 (appending
-// variant, length = position + 1; read on the device, so the host never
-// waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq, D] bf16.
+// which exclude the current token; clamped to [0, S]) or position [1]
+// int32 (appending variant, length = position + 1; read on the device, so
+// the host never waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq,
+// D] bf16.
 //
 // What bounds it on the H100: each row reads 2 * len * Hk * D cache
 // elements (2 bytes each in bf16; 1 in int8, plus 8 bytes of scales per key
@@ -31,8 +31,9 @@
 // Qwen2.5-7B in bf16, ~14 in int8, far below the ridge (~295), so bytes
 // bound it; INT8 KV halves them.  The fresh variant reads the cache bytes
 // the appending one reads and writes none.  At a few rows the bytes are
-// few (check_decode's 4000 keys: 8.2 MB, 0.0025 ms), so what bounds a call
-// there is how many SMs it keeps busy and its launches; at the batch-192
+// few (check_decode's 4000 keys: 8.2 MB, 0.0025 ms; its ragged lengths
+// 69..1000, 1553 keys: 3.2 MB), so what bounds a call there is how many
+// SMs it keeps busy and its launches; at the batch-192
 // default dispatch (768 heads of ~270 keys: ~107 MB, ~0.032 ms) it is the
 // bytes.
 //
@@ -71,17 +72,15 @@
 // launches no merge: the merge of one split rounds the same value (weight
 // 1).  The int8 entry point always merges.
 //
-// decode_kernel (the contiguous entry point, simple and right first): a
-// block of D threads takes one (row, KV head) pair (grid: Hk x B) and all G
-// query heads of the group as the rows of attention_common.cuh, so each
-// K/V byte is read from device memory once per step; keys past a row's
-// length are never read.  Only Hk * B blocks run (16 at B = 4 for
-// Qwen2.5-7B): decode_split_kernel with lengths and no fresh row is its
-// next step.
+// The ragged decode (bf16, per-row lengths, no fresh row) runs the int8
+// entry point's blocks over bf16 tiles: n_b = lengths[b], every key from
+// the cache (ContiguousKeys), bf16 out directly at one split as above.
+// After the appending decode has written position f, this decode at
+// lengths f + 1 stages the same bits into the same blocks, so its output
+// equals the appending one bit for bit.
 
 #include <math_constants.h>
 
-#include "attention_common.cuh"
 #include "attention_mma.cuh"
 
 namespace {
@@ -94,54 +93,16 @@ constexpr int kKeys = 64;   // keys per tile
 constexpr int kWarps = 4;
 constexpr int kMergeThreads = 128;  // decode_merge
 
-template <int D>
-__global__ void __launch_bounds__(D)
-decode_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k_cache,
-              const __nv_bfloat16* __restrict__ v_cache,
-              const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
-              int Bc, int Hq, int Hk, int S, int layer, float scale) {
-  __shared__ qie::AttnSmem<D, kRows, kKeys, __nv_bfloat16> sm;
-  const int tid = threadIdx.x;
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = Hq / Hk;
-  const int len = max(0, min(lengths[b], S));
-
-  for (int c = tid; c < kRows * D; c += D) {
-    const int i = c / D, d = c % D;
-    float val = 0.f;
-    if (i < G) {
-      val = __bfloat162float(
-          q[(static_cast<long long>(b) * Hq + hk * G + i) * D + d]) * scale;
-    }
-    sm.q[i][d] = val;
-  }
-  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
-  const long long base = row * S * D;
-  float acc[kRows];
-  qie::attend<D, kRows, kKeys, __nv_bfloat16>(
-      sm, acc, G, k_cache + base, v_cache + base, qie::ContiguousKeys{D},
-      nullptr, nullptr, len, len - 1, 0);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    if (i < G) {
-      const float denom = fmaxf(sm.l[i], 1e-30f);
-      out[(static_cast<long long>(b) * Hq + hk * G + i) * D + tid] =
-          __float2bfloat16(acc[i] / denom);
-    }
-  }
-}
-
 // Block (hk, b, s): the G query heads of KV head hk of row b over keys
 // [span s, min(span (s + 1), n_b)) of its cache row (the last split up to
-// n_b).  int8 (KV int8_t): n_b = lengths[b], the scales beside.  bf16:
-// n_b = f + 1 with key f from k_new / v_new, f the shared position
-// (`position` given: the appending decode, which also writes row f to the
-// cache) or old_lengths[b] (`lengths`).  kSplit: the f32 partial to part
-// [splits, B, Hq, D], its log-sum-exp to lse [splits, B, Hq]; else (one
-// split, bf16) the output to out [B, Hq, D].
-template <int D, typename KV, bool kSplit>
+// n_b).  Without kFresh: n_b = lengths[b], every key from the cache (int8:
+// the scales beside).  kFresh (bf16): n_b = f + 1 with key f from k_new /
+// v_new, f the shared position (`position` given: the appending decode,
+// which also writes row f to the cache) or old_lengths[b] (`lengths`).
+// kSplit: the f32 partial to part [splits, B, Hq, D], its log-sum-exp to
+// lse [splits, B, Hq]; else (one split, bf16) the output to out [B, Hq,
+// D].
+template <int D, typename KV, bool kFresh, bool kSplit>
 __global__ void __launch_bounds__(32 * kWarps)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     KV* __restrict__ k_cache, KV* __restrict__ v_cache,
@@ -165,16 +126,19 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const long long split = static_cast<long long>(s) * B * Hq;
   float* const part_at = kSplit ? part + (split + head) * D : nullptr;
   float* const lse_at = kSplit ? lse + split + head : nullptr;
-  if constexpr (sizeof(KV) == 1) {
+  if constexpr (!kFresh) {
     const int len = max(0, min(lengths[b], S));
     const int n_keys = max(0, min(span, len - k0));
+    const bool quant = sizeof(KV) == 1;
     qie::attend_mma<D, kWarps, KV, qie::ContiguousKeys, qie::GqaRows,
                     kSplit>(
-        sm, qie::GqaRows{0, G, Hq, D}, G, q + head * D, nullptr,
-        k_cache + kv, v_cache + kv, qie::ContiguousKeys{D},
-        k_scale + row * S + k0, v_scale + row * S + k0, n_keys, n_keys - 1,
-        0, G, scale, part_at, lse_at);
+        sm, qie::GqaRows{0, G, Hq, D}, G, q + head * D,
+        kSplit ? nullptr : out + head * D, k_cache + kv, v_cache + kv,
+        qie::ContiguousKeys{D}, quant ? k_scale + row * S + k0 : nullptr,
+        quant ? v_scale + row * S + k0 : nullptr, n_keys, n_keys - 1, 0, G,
+        scale, part_at, lse_at);
   } else {
+    static_assert(sizeof(KV) == 2, "a fresh row joins bf16 caches only");
     // the fresh key f; a position outside the cache has none (and no keys)
     int f;
     if (position != nullptr) {
@@ -244,7 +208,7 @@ decode_merge(const float* __restrict__ part, const float* __restrict__ lse,
 // The split kernel, then (int8, or more than one split) the merge; ws
 // holds part [splits, B, Hq, D] then lse [splits, B, Hq], f32 (null for a
 // bf16 call of one split, which writes out directly).
-template <int D, typename KV>
+template <int D, typename KV, bool kFresh>
 cudaError_t launch_split(const __nv_bfloat16* q, KV* kc, KV* vc,
                          const float* ks, const float* vs, const int* lens,
                          const int* pos, const __nv_bfloat16* kn,
@@ -253,11 +217,11 @@ cudaError_t launch_split(const __nv_bfloat16* q, KV* kc, KV* vc,
                          int S, int layer, int span, int splits, float scale,
                          cudaStream_t st) {
   constexpr int smem = sizeof(qie::MmaSmem<D, kWarps, KV>);
-  auto kern = decode_split_kernel<D, KV, true>;
+  auto kern = decode_split_kernel<D, KV, kFresh, true>;
   bool merge = true;
   if constexpr (sizeof(KV) == 2) {
     if (splits == 1) {
-      kern = decode_split_kernel<D, KV, false>;
+      kern = decode_split_kernel<D, KV, kFresh, false>;
       merge = false;
     }
   }
@@ -294,19 +258,25 @@ bool bad_plan(int S, int span, int splits) {
          static_cast<long long>(splits) * span < S;
 }
 
-// The two bf16 split entry points' common guard and launch: cp.async copies
-// 16-byte chunks of q, the cache rows and k_new / v_new, the cache row is
-// stored in 16-byte words and the merge reads the partials in 16-byte
-// words; a workspace (4 * splits * B * Hq * (D + 1) bytes) is needed where
-// the plan has more than one split.
+// The three bf16 split entry points' common guard and launch: cp.async
+// copies 16-byte chunks of q, the cache rows and k_new / v_new, the cache
+// row is stored in 16-byte words and the merge reads the partials in
+// 16-byte words; a workspace (4 * splits * B * Hq * (D + 1) bytes) is
+// needed where the plan has more than one split.  kFresh: k_new / v_new
+// and either lengths (old lengths) or a position; else lengths alone (the
+// ragged decode).
+template <bool kFresh>
 int launch_bf16(const void* q, void* k_cache, void* v_cache,
                 const void* lengths, const void* position, const void* k_new,
                 const void* v_new, void* ws, void* out, int L, int Bc, int B,
                 int Hq, int Hk, int S, int D, int layer, int span, int splits,
                 float scale, void* stream) {
   if (bad_shape(L, Bc, B, Hq, Hk, layer) || bad_plan(S, span, splits) ||
-      (D != 64 && D != 128) || k_new == nullptr || v_new == nullptr ||
-      (lengths == nullptr) == (position == nullptr) ||
+      (D != 64 && D != 128) ||
+      (kFresh ? k_new == nullptr || v_new == nullptr ||
+                    (lengths == nullptr) == (position == nullptr)
+              : lengths == nullptr || position != nullptr ||
+                    k_new != nullptr || v_new != nullptr) ||
       (splits > 1 && ws == nullptr) || !aligned16(q) ||
       !aligned16(k_cache) || !aligned16(v_cache) || !aligned16(k_new) ||
       !aligned16(v_new) || !aligned16(ws)) {
@@ -325,10 +295,10 @@ int launch_bf16(const void* q, void* k_cache, void* v_cache,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
       D == 128
-          ? launch_split<128, bf16>(
+          ? launch_split<128, bf16, kFresh>(
                 qp, kc, vc, nullptr, nullptr, lp, pp, kn, vn, wp, op, Bc, B,
                 Hq, Hk, S, layer, span, splits, scale, st)
-          : launch_split<64, bf16>(
+          : launch_split<64, bf16, kFresh>(
                 qp, kc, vc, nullptr, nullptr, lp, pp, kn, vn, wp, op, Bc, B,
                 Hq, Hk, S, layer, span, splits, scale, st);
   return static_cast<int>(rc);
@@ -336,31 +306,18 @@ int launch_bf16(const void* q, void* k_cache, void* v_cache,
 
 }  // namespace
 
+// Per-row lengths, no fresh row; the cache is only read.
 extern "C" int qie_decode_attention(const void* q, const void* k_cache,
                                     const void* v_cache, const void* lengths,
-                                    void* out, int L, int Bc, int B, int Hq,
-                                    int Hk, int S, int D, int layer,
-                                    float scale, void* stream) {
-  if (bad_shape(L, Bc, B, Hq, Hk, layer) || lengths == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kc = static_cast<const __nv_bfloat16*>(k_cache);
-  const auto* vc = static_cast<const __nv_bfloat16*>(v_cache);
-  const auto* lp = static_cast<const int*>(lengths);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  const dim3 grid(Hk, B);
-  if (D == 128) {
-    decode_kernel<128><<<grid, 128, 0, st>>>(qp, kc, vc, lp, op, Bc, Hq, Hk,
-                                             S, layer, scale);
-  } else if (D == 64) {
-    decode_kernel<64><<<grid, 64, 0, st>>>(qp, kc, vc, lp, op, Bc, Hq, Hk,
-                                           S, layer, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                    void* ws, void* out, int L, int Bc, int B,
+                                    int Hq, int Hk, int S, int D, int layer,
+                                    int span, int splits, float scale,
+                                    void* stream) {
+  if (lengths == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<false>(
+      q, const_cast<void*>(k_cache), const_cast<void*>(v_cache), lengths,
+      nullptr, nullptr, nullptr, ws, out, L, Bc, B, Hq, Hk, S, D, layer, span,
+      splits, scale, stream);
 }
 
 // Every row at the one device position (read by the kernel); writes the
@@ -371,9 +328,9 @@ extern "C" int qie_decode_attention_appending(
     int Bc, int B, int Hq, int Hk, int S, int D, int layer, int span,
     int splits, float scale, void* stream) {
   if (position == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16(q, k_cache, v_cache, nullptr, position, k_new, v_new,
-                     ws, out, L, Bc, B, Hq, Hk, S, D, layer, span, splits,
-                     scale, stream);
+  return launch_bf16<true>(q, k_cache, v_cache, nullptr, position, k_new,
+                           v_new, ws, out, L, Bc, B, Hq, Hk, S, D, layer,
+                           span, splits, scale, stream);
 }
 
 // Per-row old lengths; the cache is only read.
@@ -383,9 +340,10 @@ extern "C" int qie_decode_attention_fresh(
     void* out, int L, int Bc, int B, int Hq, int Hk, int S, int D, int layer,
     int span, int splits, float scale, void* stream) {
   if (old_lengths == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16(q, const_cast<void*>(k_cache), const_cast<void*>(v_cache),
-                     old_lengths, nullptr, k_new, v_new, ws, out, L, Bc, B,
-                     Hq, Hk, S, D, layer, span, splits, scale, stream);
+  return launch_bf16<true>(
+      q, const_cast<void*>(k_cache), const_cast<void*>(v_cache), old_lengths,
+      nullptr, k_new, v_new, ws, out, L, Bc, B, Hq, Hk, S, D, layer, span,
+      splits, scale, stream);
 }
 
 // ws the partials (4 * splits * B * Hq * (D + 1) bytes).
@@ -421,10 +379,10 @@ extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
   auto* op = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
-      D == 128 ? launch_split<128, int8_t>(
+      D == 128 ? launch_split<128, int8_t, false>(
                      qp, kc, vc, ks, vs, lp, nullptr, nullptr, nullptr, wp,
                      op, Bc, B, Hq, Hk, S, layer, span, splits, scale, st)
-               : launch_split<64, int8_t>(
+               : launch_split<64, int8_t, false>(
                      qp, kc, vc, ks, vs, lp, nullptr, nullptr, nullptr, wp,
                      op, Bc, B, Hq, Hk, S, layer, span, splits, scale, st);
   return static_cast<int>(rc);

@@ -9,7 +9,7 @@
 //                                        int8 activations x INT4 experts
 //   gmm_w16_small / gmm_w16_wmma <I4> <- _grouped_matmul4 (_gmm4_kernel):
 //                                        bf16 activations x INT4 experts
-//   gmm_w16_small / gmm_w16_wmma <I8> <- _grouped_matmul8 (_gmm8_kernel):
+//   gmm8_mma_kernel                   <- _grouped_matmul8 (_gmm8_kernel):
 //                                        bf16 activations x INT8 experts
 //
 // The expert stacks are q [L, E, Kp/2, N] INT4 plane pairs with scales
@@ -39,18 +39,29 @@
 //   exits at once for an empty expert;
 // * the block walks its expert's rows in tiles of a tile body's height,
 //   calling that tile (quant_matmul_core.cuh) with x and out offset to the
-//   expert's rows, so each expert's weight columns
-//   are streamed from HBM once per row tile (once at decode) and every
-//   output row is written once, by its own expert: no read-modify-write of
-//   a tile that straddles two experts, and no zeroing of other experts'
-//   rows;
-// * the tile height is chosen on the host from the mean rows per expert
-//   (M / E): at most 4 (decode) the CUDA-core tiles of 4 rows for bf16
-//   activations and of 16 rows for int8, at most 16 the 8- and 16-row
-//   ones, above that the 64-row tiles (wmma tensor cores for bf16,
-//   __dp4a for int8);
+//   expert's rows and the row count taken as the expert's, so each
+//   expert's weight columns are streamed from HBM once per row tile (once
+//   at decode) and every output row is written once, by its own expert: no
+//   read-modify-write of a tile that straddles two experts, no zeroing of
+//   other experts' rows, and no read of the next expert's rows;
 // * rows of a group_sizes that sum past M are dropped (a block never reads
 //   or writes past row M).
+// The tiles:
+// * W8A16 (gmm8_mma_kernel): the dense matmuls' tensor-core body,
+//   qmm_mma_body<kW8A16> (bf16 mma.sync m16n8k16, the int8 weight widened
+//   exactly in registers, a 4-stage cp.async ring; quant_matmul.cu
+//   describes it), one K slice writing bf16 itself, 128 columns a block, N
+//   a multiple of 64 (a last tile's 64 columns past N never loaded or
+//   stored).  The host picks its rows a tile, 16 mt
+//   (ops/grouped_matmul.plan_grouped_matmul8): 16 where the mean rows per
+//   expert (M / E) is at most 16, which holds at every decode step (the
+//   gate and up then run 6 x 128 = 768 blocks, the down 16 x 128), 64
+//   above.  No split K: the experts' columns alone fill the card.
+// * W4A16 and W4A8: the older tiles, their height chosen on the host from
+//   the mean rows per expert: at most 4 (decode) the CUDA-core tiles of 4
+//   rows for bf16 activations and of 16 rows for int8, at most 16 the 8-
+//   and 16-row ones, above that the 64-row tiles (wmma tensor cores for
+//   bf16, __dp4a for int8).
 // wgmma, TMA and split-K over experts' K are left to later work.
 
 #include "quant_matmul_core.cuh"
@@ -109,7 +120,8 @@ gmm4_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
 }
 
 // kInt4: the weight has K/2 packed rows and gs is the INT4 group size;
-// else K rows, G scale rows (gs = K / G; per_col when G = 1).
+// else K rows, G scale rows (gs = K / G; per_col when G = 1).  Only the
+// INT4 forms run (grouped_matmul4); INT8 experts run gmm8_mma_kernel.
 template <bool kInt4, int MT>
 __global__ void __launch_bounds__(kThreads)
 gmm_w16_small_kernel(const __nv_bfloat16* __restrict__ x,
@@ -154,25 +166,71 @@ gmm_w16_wmma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// The bf16-activation kernels for both weight types, by mean rows per
-// expert.  q / s already at the layer's slab.
-template <bool kInt4>
-cudaError_t launch_w16(const void* x, const int8_t* q, const float* s,
-                       const int* group_sizes, void* out, int M, int K, int N,
-                       int gs, int G, int E, cudaStream_t st) {
+// Block (column tile blockIdx.x, expert blockIdx.y) of the W8A16 kernel:
+// the expert's rows in tiles of 16 MT on the tensor-core body, with x, out
+// and M taken at its rows and q / scales at its slab (layer and expert);
+// one K slice, bf16 out.  The body reuses its shared ring, so row tiles
+// are separated by a barrier.
+template <int MT, bool kPerCol>
+__global__ void __launch_bounds__(128)
+gmm8_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                const int8_t* __restrict__ q,
+                const float* __restrict__ scales,
+                const int* __restrict__ group_sizes,
+                __nv_bfloat16* __restrict__ out, int M, int K, int N, int G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int e = blockIdx.y;
+  const ExpertRows r = expert_rows(group_sizes, e, M);
+  if (r.n == 0) return;
+  const qie::QmmArgs a{x + static_cast<size_t>(r.start) * K,
+                       nullptr,
+                       {q + static_cast<size_t>(e) * K * N, nullptr},
+                       {scales + static_cast<size_t>(e) * G * N, nullptr},
+                       out + static_cast<size_t>(r.start) * N,
+                       nullptr,
+                       r.n, K, N, K / G, K};
+  for (int t = 0; 16 * MT * t < r.n; ++t) {
+    qie::qmm_mma_body<qie::kW8A16, MT, 1, kPerCol, false>(a, t, blockIdx.x,
+                                                          0, smem_raw);
+    __syncthreads();
+  }
+}
+
+template <int MT, bool kPerCol>
+cudaError_t launch_gmm8(const __nv_bfloat16* x, const int8_t* q,
+                        const float* s, const int* group_sizes,
+                        __nv_bfloat16* out, int M, int K, int N, int G, int E,
+                        cudaStream_t st) {
+  const auto kern = gmm8_mma_kernel<MT, kPerCol>;
+  constexpr int smem = qie::qmm_smem<qie::kW8A16, MT, 1>();
+  if (smem > 48 * 1024) {  // past the default limit
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  kern<<<dim3((N + qie::kMmaCols - 1) / qie::kMmaCols, E), 128, smem, st>>>(
+      x, q, s, group_sizes, out, M, K, N, G);
+  return cudaGetLastError();
+}
+
+// The INT4 bf16-activation kernels, by mean rows per expert.  q / s
+// already at the layer's slab.
+cudaError_t launch_w4(const void* x, const int8_t* q, const float* s,
+                      const int* group_sizes, void* out, int M, int Kp, int N,
+                      int gs, int E, cudaStream_t st) {
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  const bool per_col = !kInt4 && G == 1;
+  const int G = Kp / gs;
   const int mean_rows = (M + E - 1) / E;
   if (mean_rows <= 4) {
-    gmm_w16_small_kernel<kInt4, 4><<<dim3(N / kSmallCols, E), kThreads, 0, st>>>(
-        xb, q, s, group_sizes, o, M, K, N, gs, G, per_col);
+    gmm_w16_small_kernel<true, 4><<<dim3(N / kSmallCols, E), kThreads, 0, st>>>(
+        xb, q, s, group_sizes, o, M, Kp, N, gs, G, false);
   } else if (mean_rows <= 16) {
-    gmm_w16_small_kernel<kInt4, 8><<<dim3(N / kSmallCols, E), kThreads, 0, st>>>(
-        xb, q, s, group_sizes, o, M, K, N, gs, G, per_col);
+    gmm_w16_small_kernel<true, 8><<<dim3(N / kSmallCols, E), kThreads, 0, st>>>(
+        xb, q, s, group_sizes, o, M, Kp, N, gs, G, false);
   } else {
-    gmm_w16_wmma_kernel<kInt4><<<dim3(N / kWBN, E), kWThreads, 0, st>>>(
-        xb, q, s, group_sizes, o, M, K, N, gs, G, per_col);
+    gmm_w16_wmma_kernel<true><<<dim3(N / kWBN, E), kWThreads, 0, st>>>(
+        xb, q, s, group_sizes, o, M, Kp, N, gs, G, false);
   }
   return cudaGetLastError();
 }
@@ -221,23 +279,43 @@ extern "C" int qie_grouped_matmul4(const void* x, const void* q,
   const size_t slab = static_cast<size_t>(layer) * E;
   const int8_t* ql = static_cast<const int8_t*>(q) + slab * (Kp / 2) * N;
   const float* sl = static_cast<const float*>(scales) + slab * (Kp / gs) * N;
-  return static_cast<int>(launch_w16<true>(
-      x, ql, sl, static_cast<const int*>(group_sizes), out, M, Kp, N, gs,
-      Kp / gs, E, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_w4(
+      x, ql, sl, static_cast<const int*>(group_sizes), out, M, Kp, N, gs, E,
+      static_cast<cudaStream_t>(stream)));
 }
 
+// mt: the tensor-core body's m16 tiles a warp (1 or 4: 16 or 64 rows a
+// tile), from ops/grouped_matmul.plan_grouped_matmul8.  cp.async copies
+// 16-byte chunks of x and q, the scales and the output move in 16-byte
+// words: the expert and row offsets keep that alignment (K % 32, N % 64)
+// when the bases have it.
 extern "C" int qie_grouped_matmul8(const void* x, const void* q,
                                    const void* scales, const void* group_sizes,
                                    void* out, int M, int K, int N, int G,
-                                   int E, int layer, int L, void* stream) {
-  if (bad_common(M, E, layer, L) || N % kSmallCols || K % qie::kChunk ||
-      G <= 0 || K % G || (G > 1 && (K / G) % qie::kChunk)) {
+                                   int E, int mt, int layer, int L,
+                                   void* stream) {
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q) |
+       reinterpret_cast<uintptr_t>(scales) |
+       reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (bad_common(M, E, layer, L) || N % 64 || K % 32 || G <= 0 || K % G ||
+      (G > 1 && (K / G) % 32) || (mt != 1 && mt != 4) || !aligned) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t slab = static_cast<size_t>(layer) * E;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const int8_t* ql = static_cast<const int8_t*>(q) + slab * K * N;
   const float* sl = static_cast<const float*>(scales) + slab * G * N;
-  return static_cast<int>(launch_w16<false>(
-      x, ql, sl, static_cast<const int*>(group_sizes), out, M, K, N, K / G, G,
-      E, static_cast<cudaStream_t>(stream)));
+  const auto* gsz = static_cast<const int*>(group_sizes);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  if (mt == 1) {
+    rc = G == 1 ? launch_gmm8<1, true>(xb, ql, sl, gsz, o, M, K, N, G, E, st)
+                : launch_gmm8<1, false>(xb, ql, sl, gsz, o, M, K, N, G, E, st);
+  } else {
+    rc = G == 1 ? launch_gmm8<4, true>(xb, ql, sl, gsz, o, M, K, N, G, E, st)
+                : launch_gmm8<4, false>(xb, ql, sl, gsz, o, M, K, N, G, E, st);
+  }
+  return static_cast<int>(rc);
 }

@@ -2,12 +2,14 @@
 //
 // The tensor-core body (qmm_mma_body, run by qmm_mma_kernel, at the end of
 // this file) runs the dense W8A8, W4A8, W8A16 and W4A16 matmuls
-// (quant_matmul.cu) and both passes of the fused MLP and of the fused
-// attention + MLP (fused_step.cu).  The older tiles below, one output tile
-// per call, run the grouped MoE kernels (grouped_matmul.cu: called in a
-// loop over the row tiles of the block's expert, with x, out and the row
-// count taken at that expert's rows) and fused_attn_matmul (fused_step.cu,
-// the wmma tile).
+// (quant_matmul.cu), both passes of the fused MLP and of the fused
+// attention + MLP (fused_step.cu) and the grouped W8A16 matmul
+// (grouped_matmul.cu: called in a loop over the row tiles of the block's
+// expert).  The older tiles below, one output tile per call, run the
+// grouped W4A16 and W4A8 kernels (grouped_matmul.cu: called in the same
+// loop, with x, out and the row count taken at the expert's rows) and
+// fused_attn_matmul (fused_step.cu, the wmma tile); their INT8 forms
+// (kInt4 false) no longer run.
 //
 // A tile reads rows [m0, m0 + BM) of x [M, K] (rows at or past M are never
 // written and read as zeros or as row M - 1) and columns [n0, n0 + BN) of
@@ -200,7 +202,8 @@ __device__ __forceinline__ void tile_4a8(
 }
 
 // ---------------------------------------------------------------------
-// W4A16 / W8A16, few rows: CUDA cores, weights streamed once
+// W4A16 (and W8A16, no longer run), few rows: CUDA cores, weights
+// streamed once
 // ---------------------------------------------------------------------
 
 constexpr int kSmallCols = 64;     // columns per tile: 16 threads x 4
@@ -330,7 +333,8 @@ __device__ __forceinline__ void tile_w16_small(
 }
 
 // ---------------------------------------------------------------------
-// W4A16 / W8A16, many rows: bf16 tensor cores (wmma), dequantized tiles
+// W4A16 (and W8A16, no longer run), many rows: bf16 tensor cores (wmma),
+// dequantized tiles
 // ---------------------------------------------------------------------
 
 constexpr int kWBM = 64, kWBN = 64;  // output tile
@@ -498,8 +502,9 @@ __device__ __forceinline__ void tile_w16_wmma(
 
 // ---------------------------------------------------------------------
 // The tensor-core body: W8A8, W4A8, W8A16 and W4A16 (quant_matmul.cu,
-// where the design is described) and the passes of the fused MLP and of
-// the fused attention + MLP (fused_step.cu).  Its kernels have internal
+// where the design is described), the passes of the fused MLP and of
+// the fused attention + MLP (fused_step.cu) and the grouped W8A16 matmul
+// (grouped_matmul.cu).  Its kernels have internal
 // linkage, so each source that
 // includes this header launches (and sets the shared-memory limit of) its
 // own copy.
@@ -632,7 +637,8 @@ namespace {
 // [slice bz, min(K, slice (bz + 1))), with 128 WM threads and the dynamic
 // shared memory smem_raw (qmm_smem bytes).  qmm_mma_kernel runs it at its
 // block's coordinates; fused_step.cu's attn_gate_up_kernel runs it in the
-// blocks its attention blocks leave.
+// blocks its attention blocks leave; grouped_matmul.cu's gmm8_mma_kernel
+// at each row tile of its expert, with args taken at the expert's rows.
 template <int kKind, int MT, int WM, bool kPerCol, bool kDual>
 __device__ __forceinline__ void qmm_mma_body(const QmmArgs& args, int bx,
                                              int by, int bz,

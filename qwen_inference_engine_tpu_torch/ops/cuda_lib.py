@@ -56,15 +56,17 @@ SIGNATURES = {
     "qie_grouped_matmul4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P],
     # x, q, scales, group_sizes, out, M, K, N, G (scale groups; 1 = per
-    # column), E, layer, L, stream
+    # column), E, mt (the m16 tiles a warp: 1 or 4), layer, L, stream
     "qie_grouped_matmul8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _I, _P],
     # q, k, v, out, B, T, Hq, Hk, D, scale, stream
     "qie_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_cache, v_cache, lengths, out, L, Bc, B, Hq, Hk, S, D, layer,
-    # scale, stream
-    "qie_decode_attention": [_P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, lengths, ws (the splits' partials, or null for
+    # one split), out, L, Bc, B, Hq, Hk, S, D, layer, span, splits, scale,
+    # stream
+    "qie_decode_attention": [_P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _P],
     # q, k_cache, v_cache, k_new, v_new, position, ws (the splits'
     # partials, or null for one split), out, L, Bc, B, Hq, Hk, S, D, layer,
     # span, splits, scale, stream

@@ -4,8 +4,7 @@ The four wrappers launch the CUDA kernels of ``csrc/decode_attention.cu``:
 
 * ``decode_attention_contiguous`` (the port of the JAX package's
   ``decode_attention_contiguous`` / ``_decode_kernel``): per-row lengths,
-  used by the ragged batch after the plain stacked KV write; one block a
-  (row, KV head) on the CUDA-core core;
+  used by the ragged batch after its K/V write;
 * ``decode_attention_appending`` (the port of ``decode_attention_appending``
   / ``_decode_append_kernel``): every row at one position; the kernel
   writes the fresh K/V row into the cache in place and attends over it;
@@ -19,13 +18,15 @@ The four wrappers launch the CUDA kernels of ``csrc/decode_attention.cu``:
   ``decode_attention_contiguous_q8`` / ``_decode_kernel_q8``): per-row
   lengths over an int8 cache with f32 scales (INT8 KV, every decode step).
 
-The last three share one kernel: S split across blocks on the tensor cores
-as ``plan_decode_split`` plans from the shapes alone (a call reads nothing
-back and is capturable in a CUDA graph), then a merge launch.  In the two
-bf16 ones the fresh key is staged from ``k_new`` / ``v_new`` by the split
-that holds it, so at one shared position their outputs are bit-identical;
-where the plan has one split (a batch that fills the card alone) they write
-the output directly and launch no merge.
+All four share one kernel: S split across blocks on the tensor cores as
+``plan_decode_split`` plans from the shapes alone (a call reads nothing
+back and is capturable in a CUDA graph), then a merge launch.  In the
+appending and fresh decodes the fresh key is staged from ``k_new`` /
+``v_new`` by the split that holds it, so at one shared position their
+outputs are bit-identical, and bit-identical to the ragged decode's at
+lengths = position + 1 over the cache the appending decode wrote; where
+the plan has one split (a batch that fills the card alone) the three bf16
+decodes write the output directly and launch no merge.
 
 ``*_plain`` beside each computes the same function with the plain oracle.
 The cache is ``[L, Bc, Hk, S, D]``; ``row0`` (the pipeline-parallel batch
@@ -164,18 +165,21 @@ def decode_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_contiguous_plain(q, k_cache, v_cache, layer,
                                                  lengths)
-    _check_decode_args("decode_attention_contiguous", q, k_cache, v_cache,
-                       layer)
+    name = "decode_attention_contiguous"
+    _check_decode_args(name, q, k_cache, v_cache, layer)
     B, _, Hq, D = q.shape
     L, Bc, Hk, S, _ = k_cache.shape
     lens = _check_lengths(lengths, q)
     q = q.contiguous()
+    span, splits, ws = _split_operands(name, B, Hq, Hk, S, D, q.device,
+                                       direct=True)
+    check_aligned(name, q, k_cache, v_cache, ws)
     out = torch.empty_like(q)
     rc = cuda_lib.library().qie_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer), D ** -0.5,
-        cuda_lib.stream_handle(q.device))
-    cuda_lib.check(rc, "decode_attention_contiguous")
+        _ptr(ws), out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer), span,
+        splits, D ** -0.5, cuda_lib.stream_handle(q.device))
+    cuda_lib.check(rc, name)
     decode_attention_contiguous.launches += 1
     return out
 
@@ -308,8 +312,8 @@ def plan_decode_split(B: int, Hk: int, S: int):
     (never the lengths or the position, so a call reads nothing back from
     the device and stays capturable in a CUDA graph): block (hk, b, s)
     attends keys ``[s * span, (s + 1) * span)`` of row b's first
-    ``lengths[b]`` (the bf16 decodes: of its ``f + 1``, the last split also
-    taking a fresh key ``f`` at S).
+    ``lengths[b]`` (the appending and fresh decodes: of its ``f + 1``, the
+    last split also taking a fresh key ``f`` at S).
     The span is a whole number of 64-key tiles, the fewest that give
     ``B * Hk * splits >= SPLIT_TARGET_BLOCKS`` (or one tile a split where
     S has too few); ``splits * span`` covers S once.  A batch that fills

@@ -13,7 +13,8 @@ PyTorch version beside it:
   (W4A8, ``_grouped_matmul4_a8``);
 * ``grouped_matmul8``: bf16 activations x INT8 experts, a scale per group
   of rows or one per column (``_grouped_matmul8``; INT8 experts never take
-  int8 activations, as in the JAX package).
+  int8 activations, as in the JAX package), on the dense matmuls'
+  tensor-core body with the row tile ``plan_grouped_matmul8`` picks.
 
 The stacks are ``q [L, E, K/pack, N]`` with scales ``[L, E, K/gs, N]``;
 ``layer`` selects the slab without a copy.  ``group_sizes [E]`` int32
@@ -244,6 +245,21 @@ def grouped_matmul4(x, q, scales, group_sizes, layer: int,
     return out
 
 
+# the tensor-core body's row tiles: 16 rows (mt 1) up to this mean of rows
+# per expert, 64 (mt 4) above
+GROUPED8_SMALL_ROWS = 16
+
+
+def plan_grouped_matmul8(M: int, E: int) -> int:
+    """``mt`` of ``grouped_matmul8`` over ``M`` rows and ``E`` experts:
+    the tensor-core body's m16 tiles a warp, as ``plan_split_k`` picks them
+    for the dense matmuls.  1 (16-row tiles) where the mean rows per
+    expert, ``ceil(M / E)``, is at most 16 (every decode step), else 4
+    (64-row tiles).  The host never reads the routing: the mean is all it
+    knows."""
+    return 1 if -(-M // E) <= GROUPED8_SMALL_ROWS else 4
+
+
 def grouped_matmul8(x, q, scales, group_sizes, layer: int) -> torch.Tensor:
     """``bf16 [M, N]``: rows of expert e ``x @ W8[layer, e]`` on the card
     (W8A16); q int8 [L, E, K, N], scales [L, E, G, N]: a scale per group of
@@ -264,8 +280,8 @@ def grouped_matmul8(x, q, scales, group_sizes, layer: int) -> torch.Tensor:
         return out
     rc = cuda_lib.library().qie_grouped_matmul8(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), M, K, N, G, E, int(layer), L,
-        cuda_lib.stream_handle(x.device))
+        out.data_ptr(), M, K, N, G, E, plan_grouped_matmul8(M, E), int(layer),
+        L, cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, name)
     grouped_matmul8.launches += 1
     return out

@@ -18,8 +18,10 @@ one call to the card.  Shapes are Qwen2.5-7B's, inputs seeded random:
   (``check_decode``) and B = 192 at 272 of S 512 (the batch-192 default
   dispatch), a call and in a CUDA graph, beside SDPA over the first
   position + 1 keys in a CUDA graph, and whether the two outputs are
-  bit-equal; ``decode_attention_contiguous`` at ``check_decode``'s lengths
-  69..1000 of S 1024, its time and the SHA-256 of its output;
+  bit-equal; ``decode_attention_contiguous`` (the ragged decode) at
+  ``check_decode``'s lengths 69 / 152 / 332 / 1000 of S 1024, a call and
+  in a CUDA graph, beside SDPA masked to those lengths in a CUDA graph,
+  and the SHA-256 of its output;
 * ``fused_attn_mlp``: 96 rows from row 96 of a 192-row cache (lens 257,
   S 512) beside the pumped weights' MLP (gs 256 / 128) on Mb = 96 and 40
   rows, a call and in a CUDA graph;
@@ -104,11 +106,15 @@ def main() -> int:
                 torch.equal(a, f)))
         if B == 4:
             lens = torch.tensor([69, 152, 332, 1000], device="cuda")
-            out["decode_attention_contiguous"] = {
-                "ms": cs.time_ms(torch, lambda: da.decode_attention_contiguous(
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    < lens[:, None])[:, None, None, :]
+            out["decode_attention_contiguous"] = dict(
+                timed(lambda: da.decode_attention_contiguous(
                     q, kc, vc, 1, lens)),
-                "sha256": digest(da.decode_attention_contiguous(
-                    q, kc, vc, 1, lens))}
+                sdpa_graph_ms=cs.graph_ms(torch, cs._sdpa(
+                    torch, q.transpose(1, 2), kc[1], vc[1], mask=mask)),
+                sha256=digest(da.decode_attention_contiguous(
+                    q, kc, vc, 1, lens)))
         del kc, vc
     Ba, Bc, S = 96, 192, 512
     kc, vc = rnd(2, Bc, Hk, S, D), rnd(2, Bc, Hk, S, D)

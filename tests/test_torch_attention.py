@@ -386,6 +386,41 @@ def test_decode_q8_split_and_merge_matches_plain_and_pallas(lens, span):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("span", [None, 128, 256])
+@pytest.mark.parametrize("lens", [[0, 1, 64, 65], [256, 263, 191, 192],
+                                  [63, 127, 128, 129]])
+def test_ragged_decode_split_and_merge_matches_plain_and_pallas(lens, span):
+    """The ragged bf16 decode's split arithmetic (``_split_merge`` with no
+    fresh key, every key from the cache: the int8 decode's blocks over bf16
+    tiles) equals decode_attention_contiguous_plain (f32: 1e-5) and the JAX
+    kernel in interpret mode (2e-2) at lengths 0, 1, on each side of the
+    64-key tile and of the split edges, S and past S (S + 7 attends all S
+    keys), for the plan's span, 128 and one split; NaN at and past each
+    length is never read; a row of length 0 is 0 (the Pallas kernel and
+    the plain version give other values there, so it is held to
+    neither)."""
+    L, B, Hk, G, D, S, layer = 2, 4, 2, 7, 128, 256, 1
+    kc, vc, q, _, _ = _fresh_inputs(7 + sum(lens))
+    lengths = np.asarray(lens, np.int32)
+    plain = tda.decode_attention_contiguous_plain(
+        _t(q), _t(kc), _t(vc), layer, _t(lengths))
+    with interpret_pallas(jda):
+        ref = np.asarray(jda.decode_attention_contiguous(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), layer,
+            jnp.asarray(lengths)))
+    kbad, vbad = _t(kc)[layer].clone(), _t(vc)[layer].clone()
+    for b, n in enumerate(lens):
+        kbad[b, :, n:] = float("nan")
+        vbad[b, :, n:] = float("nan")
+    live = lengths > 0
+    span = span or tda.plan_decode_split(B, Hk, S)[0]
+    got = _split_merge(_t(q), kbad, vbad, lengths, span).numpy()
+    np.testing.assert_allclose(got[live], plain.numpy()[live], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[live], ref[live], rtol=2e-2, atol=2e-2)
+    assert (got[~live] == 0).all()
+
+
 def _fresh_inputs(seed, L=2, B=4, Hk=2, G=7, D=128, S=256):
     rng = np.random.default_rng(seed)
     kc = rng.normal(size=(L, B, Hk, S, D)).astype(np.float32)

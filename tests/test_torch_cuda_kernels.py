@@ -359,8 +359,9 @@ def test_dispatcher_on_padded_k_matches_plain(gen, bits, act_bits, gs):
 
 # (E, group sizes, N): one row to one expert; one expert taking every row;
 # E = 128 with 127 empty; decode (256 rows over 128 experts, ~2 each: the
-# CUDA-core tiles); prefill-like experts of 7..200 rows (the 64-row tiles)
-# with every tile straddling; N of an odd number of column tiles
+# INT4 kernels' CUDA-core tiles, W8A16's 16-row tensor-core tiles);
+# prefill-like experts of 7..200 rows (the 64-row tiles) with every tile
+# straddling; N of an odd number of column tiles
 GROUPED_SIZES = {
     "M=1": (4, [0, 0, 1, 0], 256),
     "one expert": (5, [300, 0, 0, 0, 0], 256),
@@ -412,6 +413,71 @@ def test_grouped_matmuls_match_plain(gen, case, kind):
     assert fn.launches == before + 1
     assert bool(got.isfinite().all())
     _check_matmul(got, ref, 2 ** -6)
+
+
+# (E, group sizes, M): W8A16's tensor-core tiles, 16 rows (mt 1) where
+# the mean rows per expert is at most 16, else 64 (mt 4): an expert of one
+# row; an expert of 300 rows alone (5 tiles of 64) and among 127 small ones
+# (19 tiles of 16); empty experts among straddling ones; group sizes
+# summing past M (the rows past M dropped) under either tile
+GROUPED8_CASES = {
+    "one row": (8, [0, 0, 0, 1, 0, 0, 0, 0], None, 1),
+    "300 rows": (8, [0, 300, 0, 0, 0, 0, 0, 0], None, 4),
+    "300 rows among 127": (128, [300] + [13] * 127, None, 1),
+    "empties": (5, [37, 0, 61, 0, 132], None, 4),
+    "past M, 64-row tiles": (5, [100, 0, 150, 80, 20], 300, 4),
+    "past M, 16-row tiles": (32, [50, 0, 100, 90] + [3] * 28, 200, 1),
+}
+
+
+@pytest.mark.parametrize("N", [192, 256], ids=["N 192", "N 256"])
+@pytest.mark.parametrize("gs", [32, 128, None], ids=["gs 32", "gs 128",
+                                                      "per column"])
+@pytest.mark.parametrize("case", sorted(GROUPED8_CASES))
+def test_grouped_matmul8_tensor_core_tiles_match_plain(gen, case, gs, N):
+    """grouped_matmul8 on qmm_mma_body<kW8A16>, one block a (128-column
+    tile, expert) walking its expert's row tiles, at layer 1 of a stacked
+    [2, E, K, N] tensor: gs 32, 128 and per column, N 192 (a last column
+    tile of 64) and 256, the plan's tile height as stated, against the
+    plain version (2^-6 of the largest output), finite, two calls bit for
+    bit, and every row past the experts' rows written by none (the group
+    sizes summing past M)."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    E, sizes, M, mt = GROUPED8_CASES[case]
+    gsz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    M = M or sum(sizes)
+    K = 512
+    assert gm.plan_grouped_matmul8(M, E) == mt
+    G = 1 if gs is None else K // gs
+    q = torch.randint(-127, 128, (2, E, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((2, E, G, N), generator=gen, device="cuda") * 0.01
+    x = _bf16(gen, M, K)
+    before = gm.grouped_matmul8.launches
+    got = gm.grouped_matmul8(x, q, s, gsz, 1)
+    again = gm.grouped_matmul8(x, q, s, gsz, 1)
+    assert gm.grouped_matmul8.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(got.isfinite().all())
+    _check_matmul(got, gm.grouped_matmul8_plain(x, q, s, gsz, 1), 2 ** -6)
+
+
+def test_grouped_matmul8_takes_a_layer_past_2_31_weight_bytes(gen):
+    """Layer 11 of a 12-layer stack of Qwen3-30B-A3B's gate experts (128 x
+    2048 x 768 int8: the slab starts 2.2e9 bytes in, past a 32-bit offset)
+    at the decode shape (M 256), against the plain version."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    L, E, K, N, layer = 12, 128, 2048, 768, 11
+    q = torch.randint(-127, 128, (L, E, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    assert layer * E * K * N > 2 ** 31
+    s = torch.rand((L, E, K // 128, N), generator=gen, device="cuda") * 1e-3
+    gsz = _group_sizes(gen, E, None)
+    x = _bf16(gen, int(gsz.sum()), K)
+    got = gm.grouped_matmul8(x, q, s, gsz, layer)
+    _check_matmul(got, gm.grouped_matmul8_plain(x, q, s, gsz, layer), 2 ** -6)
 
 
 @pytest.mark.parametrize("bits,act_bits", [(4, 0), (4, 8), (8, 0)])
@@ -604,6 +670,106 @@ def test_decode_attention_contiguous_matches_plain(gen, B, Bc, Hk, G, D, S, lens
     got = da.decode_attention_contiguous(q, kc, vc, 1, lengths)
     ref = da.decode_attention_contiguous_plain(q, kc, vc, 1, lengths)
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def _ragged_case(gen, B, Hk, G, D, S, lens, layer=1, L=2):
+    """One ragged decode of B rows at ``lens`` over a cache of B + 2 rows
+    with NaN at and past each length and in the rows past B (never read):
+    within 2e-2 of the plain version over the clean cache, a row of length
+    0 gives 0, finite, two calls bit for bit with one launch counted each,
+    the cache untouched."""
+    Bc = B + 2
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    rows = [min(n, S) for n in lens] + [0, 0]
+    kbad, vbad = _nan_from(kc, rows), _nan_from(vc, rows)
+    k0, v0 = kbad.clone(), vbad.clone()
+    lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+    before = da.decode_attention_contiguous.launches
+    got = da.decode_attention_contiguous(q, kbad, vbad, layer, lengths)
+    again = da.decode_attention_contiguous(q, kbad, vbad, layer, lengths)
+    assert da.decode_attention_contiguous.launches == before + 2
+    assert torch.equal(got, again), lens
+    assert torch.equal(_bits(kbad), _bits(k0)), lens
+    assert torch.equal(_bits(vbad), _bits(v0)), lens
+    assert got.shape == q.shape and bool(got.isfinite().all()), lens
+    ref = da.decode_attention_contiguous_plain(q, kc, vc, layer, lengths)
+    live = lengths > 0
+    assert bool((got[~live] == 0).all()), lens
+    err = (got[live].float() - ref[live].float()).abs().amax().item()
+    assert err <= 2e-2, (lens, err)
+
+
+# the ragged decode's plans: B x Hk = 12 blocks a split (16 splits of 64
+# keys at S 1024), or 264 (one split, no merge launch)
+RAGGED_PLANS = {"split": (6, 2, 1024), "one split": (132, 2, 256)}
+
+
+@pytest.mark.parametrize("plan", sorted(RAGGED_PLANS))
+@pytest.mark.parametrize("G", [1, 7, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_ragged_decode_split_matches_plain(gen, D, G, plan):
+    """decode_attention_contiguous on the split-S tensor-core kernel at
+    lengths 0, 1, 64, 65, S and S + 7 (attending all S keys), each row
+    cycling through them, on a plan of several splits (merged) and of one
+    (written directly): as _ragged_case holds it."""
+    B, Hk, S = RAGGED_PLANS[plan]
+    splits = da.plan_decode_split(B, Hk, S)[1]
+    assert (splits == 1) == (plan == "one split")
+    edges = [0, 1, 64, 65, S, S + 7]
+    _ragged_case(gen, B, Hk, G, D, S, [edges[i % 6] for i in range(B)])
+
+
+@pytest.mark.parametrize("B,S,positions", [
+    (4, 1024, [0, 63, 64, 65, 500, 999, 1023]),
+    (192, 512, [0, 64, 272, 511]),
+])
+def test_ragged_decode_equals_the_appending_decode(gen, B, S, positions):
+    """After decode_attention_appending has written position f, the ragged
+    decode at lengths f + 1 over that cache stages the same bits into the
+    same blocks: outputs bit-equal, at check_decode's B 4 of S 1024 (16
+    splits and a merge) and at the batch-192 default dispatch's S 512 (one
+    split), Qwen2.5-7B's heads."""
+    L, Hk, G, D, layer = 2, 4, 7, 128, 1
+    kc, vc = _bf16(gen, L, B, Hk, S, D), _bf16(gen, L, B, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    kn, vn = _bf16(gen, B, 1, Hk, D), _bf16(gen, B, 1, Hk, D)
+    for pos in positions:
+        appended, _, _ = da.decode_attention_appending(q, kc, vc, kn, vn,
+                                                       layer, pos)
+        lengths = torch.full((B,), pos + 1, dtype=torch.int32, device="cuda")
+        ragged = da.decode_attention_contiguous(q, kc, vc, layer, lengths)
+        assert torch.equal(ragged, appended), pos
+
+
+@pytest.mark.parametrize("B,S", [(4, 1024), (192, 512)])
+def test_ragged_decode_replays_in_a_cuda_graph_with_new_lengths(gen, B, S):
+    """One ragged call captured in a CUDA graph with its lengths a device
+    tensor (the plan reads nothing from the device), replayed after the
+    lengths are changed in place, equals the eager call at the new lengths
+    bit for bit, at check_decode's shape (16 splits) and at B 192 (one
+    split)."""
+    L, Hk, G, D, layer = 2, 4, 7, 128, 1
+    kc, vc = _bf16(gen, L, B, Hk, S, D), _bf16(gen, L, B, Hk, S, D)
+    q = _bf16(gen, B, 1, G * Hk, D)
+    lengths = torch.randint(0, S + 1, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.decode_attention_contiguous(q, kc, vc, layer, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = da.decode_attention_contiguous(q, kc, vc, layer, lengths)
+    for new in ([69, 152, 332, 1000], [0, S, 1, S + 7]):
+        lengths.copy_(torch.tensor([new[i % 4] for i in range(B)],
+                                   dtype=torch.int32))
+        captured.zero_()
+        graph.replay()
+        eager = da.decode_attention_contiguous(q, kc, vc, layer, lengths)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager), new
 
 
 @pytest.mark.parametrize("pos,G", [(0, 7), (63, 7), (64, 1), (255, 4)])

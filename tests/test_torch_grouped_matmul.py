@@ -173,3 +173,16 @@ def test_quantize_linear_takes_expert_stacks(bits):
     assert tq.q.shape == tuple(jq.q.shape) and tq.group_size == jq.group_size
     np.testing.assert_array_equal(tq.q.numpy(), np.asarray(jq.q))
     np.testing.assert_array_equal(tq.scales.numpy(), np.asarray(jq.scales))
+
+
+@pytest.mark.parametrize("M,E,mt", [
+    (1, 128, 1), (256, 128, 1), (2048, 128, 1), (2049, 128, 4),
+    (4096, 128, 4), (131072, 128, 4), (16, 1, 1), (17, 1, 4), (300, 5, 4),
+])
+def test_grouped_matmul8_plan_follows_the_mean_rows_per_expert(M, E, mt):
+    """plan_grouped_matmul8: the tensor-core body's 16-row tiles (mt 1)
+    where ceil(M / E) <= 16, as at every 30B-A3B decode step (batch 32 x
+    top-8 = 256 rows over 128 experts), 64-row tiles (mt 4) above, as a
+    512-token piece (4096 rows) and a batch of such prompts take."""
+    assert tgm.plan_grouped_matmul8(M, E) == mt
+    assert mt in (1, 4) and (mt == 1) == (-(-M // E) <= 16)
