@@ -189,6 +189,7 @@ package's 28 ``pallas_call`` sites, each launched), and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -2461,24 +2462,81 @@ def resend_near_max_seq(torch, cb, cfg, rng, chunk):
     twice: the second request hits 3 whole pages and 503 rows of the
     fourth, and its last piece (start 2039, padded to 16) runs past the
     table.  Both must finish by length, the second through one paged chunk
-    per layer."""
+    per layer.  Between the two sends the pool's bytes (and an INT8 pool's
+    scales) at the prompt's rows and the first token's logits are compared
+    (``compare_resend``): every hit row must be byte-equal (the prefix
+    cache's pages and its partial-page copy).  The last row is computed in
+    a 16-row piece on the second send and in a 248-row one on the first,
+    where the dense matmuls' plans differ (K split at M <= 64, one slice
+    above: another f32 order), so it may drift by a rounding, amplified
+    layer by layer and across INT8 KV's rounding boundaries; it is
+    printed, not held equal.  A second prompt is then sent twice with every
+    dense matmul on the one-slice plan (``one_slice_plan``): the two sends
+    must then agree in every pool byte, in the logits and in the tokens."""
+    out = _resend(torch, cb, cfg, rng, chunk, exact=False)
+    with one_slice_plan():
+        exact = _resend(torch, cb, cfg, rng, chunk, exact=True)
+    return {"resend_tokens_equal": out[0], "resend_pool": out[1],
+            "resend_one_slice_tokens_equal": exact[0]}
+
+
+@contextlib.contextmanager
+def one_slice_plan():
+    """Within it, every dense quantized matmul runs one K slice, at any M
+    (``plan_split_k`` returns the prefill plan): a row's sums fold in one
+    order whatever the piece it is computed in."""
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+
+    plan = qm.plan_split_k
+    qm.plan_split_k = lambda M, rows, N, unit: (0, 1, rows)
+    try:
+        yield
+    finally:
+        qm.plan_split_k = plan
+
+
+def _resend(torch, cb, cfg, rng, chunk, exact):
+    """One resend of a fresh 2040-token prompt; returns (tokens equal, the
+    pool comparison).  ``exact``: the last row, the logits and the tokens
+    must agree too."""
+    from qwen_inference_engine_tpu_torch.engine import scheduler as sched
     from qwen_inference_engine_tpu_torch.engine.scheduler import Request
 
     prompt = rng.integers(0, cfg.vocab_size, size=2040).tolist()
     hits0 = cb.metrics.snapshot()["prefix_hit_tokens"]
-    done = []
-    for rid in (300, 301):
-        before = chunk.launches
-        cb.submit(Request(request_id=rid, prompt=prompt, max_new_tokens=8))
-        done += cb.run_to_completion(sync_every=8)
-        cb.check_page_invariants()
+    done, tables, logits, pools = [], [], [], []
+    run_piece, compute_logits = cb._run_piece, sched.compute_logits
+
+    def piece(run, tokens, start, nvalid, table, last):
+        if last:
+            tables.append(table[0].long().clone())
+        return run_piece(run, tokens, start, nvalid, table, last)
+
+    def first_logits(*a, **k):
+        out = compute_logits(*a, **k)
+        logits.append(out.float().clone())
+        return out
+
+    cb._run_piece, sched.compute_logits = piece, first_logits
+    try:
+        for rid in (300, 301):
+            before = chunk.launches
+            cb.submit(Request(request_id=rid, prompt=prompt, max_new_tokens=8))
+            done += cb.run_to_completion(sync_every=8)
+            cb.check_page_invariants()
+            pools.append(prompt_rows(torch, cb.cache, tables[-1], len(prompt)))
+    finally:
+        cb._run_piece, sched.compute_logits = run_piece, compute_logits
     hits = cb.metrics.snapshot()["prefix_hit_tokens"] - hits0
     pieces = (chunk.launches - before) // cfg.num_layers
-    print(f"[serve] 2040-token prompt sent twice: finish "
+    same = done[0].token_ids == done[1].token_ids
+    cmp = compare_resend(torch, pools[0], pools[1], logits[0], logits[1])
+    plan = "one-slice plan" if exact else "default plan"
+    print(f"[serve] 2040-token prompt sent twice ({plan}): finish "
           f"{[(f.finish_reason, len(f.token_ids)) for f in done]}, second "
           f"request's prefix hits {hits}, its continuation pieces {pieces}, "
-          f"tokens equal {done[0].token_ids == done[1].token_ids}",
-          flush=True)
+          f"tokens equal {same} ({done[0].token_ids} / {done[1].token_ids}) "
+          f"| pool between the sends: {json.dumps(cmp)}", flush=True)
     if [f.request_id for f in done] != [300, 301] or any(
             f.finish_reason != "length" or len(f.token_ids) != 8 for f in done):
         fail(f"serving: the resent 2040-token prompt did not finish: "
@@ -2486,7 +2544,60 @@ def resend_near_max_seq(torch, cb, cfg, rng, chunk):
     if hits != 2039 or pieces != 1:
         fail(f"serving: the resent prompt hit {hits} tokens (want 2039) in "
              f"{pieces} pieces (want 1)")
-    return {"resend_tokens_equal": done[0].token_ids == done[1].token_ids}
+    tensors = [v for n, v in cmp.items() if n != "logits"]
+    hit_differ = sum(v["hit_rows_differ"] for v in tensors)
+    last_differ = sum(v["last_row_differ"] for v in tensors)
+    if hit_differ or exact and (last_differ or cmp["logits"]["max_abs"]
+                                or not same):
+        fail(f"serving: the resent prompt ({plan}) differs from the first "
+             f"send: {hit_differ} hit-row elements, {last_differ} last-row "
+             f"elements, logits by {cmp['logits']['max_abs']}, tokens equal "
+             f"{same} (want 0 hit-row elements"
+             + (", and all equal)" if exact else ")"))
+    return same, cmp
+
+
+def prompt_rows(torch, cache, table, n):
+    """The pool's K / V (and an INT8 pool's scales) at positions 0..n-1
+    through one block table, as [L, Hk, n, ...] copies."""
+    out = []
+    for t in (cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale):
+        if t is None:
+            continue
+        pages = t[:, table]                       # [L, NP, Hk, page, ...]
+        L, NP, Hk, PS = pages.shape[:4]
+        out.append(pages.transpose(1, 2).reshape(L, Hk, NP * PS,
+                                                 *pages.shape[4:])[:, :, :n]
+                   .clone())
+    return out
+
+
+def compare_resend(torch, first, second, logits1, logits2):
+    """Where two sends of one prompt differ: each tensor's elements that
+    differ at the hit rows (all but the last prompt row) and at the last
+    row, and the layers where the last row differs; the last row's largest
+    difference (int8: in steps, |q1 - q2|); and the first token's
+    logits."""
+    names = ("k", "v", "k_scale", "v_scale")[:len(first)]
+    out = {}
+    for name, a, b in zip(names, first, second):
+        diff = a != b                                   # [L, Hk, n, ...]
+        hit, last = diff[:, :, :-1], diff[:, :, -1]
+        layers = [int(i) for i in torch.nonzero(
+            last.reshape(last.shape[0], -1).any(dim=1)).flatten()]
+        out[name] = dict(hit_rows_differ=int(hit.sum()),
+                         last_row_differ=int(last.sum()),
+                         last_row_layers=layers)
+        gap = float((a[:, :, -1].float() - b[:, :, -1].float()).abs().max())
+        key = ("last_row_max_q_diff" if a.dtype == torch.int8
+               else "last_row_max_abs")
+        out[name][key] = gap
+    d = (logits1 - logits2).abs()
+    top1, top2 = logits1.topk(2, dim=-1).values[0].tolist()
+    out["logits"] = dict(max_abs=float(d.max()),
+                         argmax=[int(logits1.argmax()), int(logits2.argmax())],
+                         first_send_top2_gap=top1 - top2)
+    return out
 
 
 def profile_decode_window(torch, cb, cfg, rng, ticks=8, label="[serve]"):
@@ -3342,11 +3453,14 @@ def check_grouped_matmul(torch, cfg):
     column), layer 1 of a stacked [2, 128, ...] tensor with random scales:
     M = 256 (decode, batch 32 x top-8; grouped_matmul8 and its yardstick
     also in a CUDA graph) and M = 4096 (a 512-token piece) routed by random
-    top-8, the edge sizes of the JAX package's tests at M = 300 (empty
-    experts, one expert taking every row, every tile straddling), and
-    grouped_matmul8 (gs 128) at [moe generate]'s prefill of batch 32 x 512,
-    M = 131072.  Returns {kernel: [records]}."""
+    top-8 (each kernel and its yardstick also in a CUDA graph at M = 256),
+    the edge sizes of the JAX package's tests at M = 300 (empty experts,
+    one expert taking every row, every tile straddling; the INT4 kernels
+    over the one expert bit-equal to the dense kernel over its slab), and
+    each kernel at [moe generate]'s prefill of batch 32 x 512, M = 131072.
+    Returns {kernel: [records]}."""
     from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
     from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
     from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
         quantize_activations,
@@ -3361,8 +3475,8 @@ def check_grouped_matmul(torch, cfg):
         return torch.tensor(sizes + [0] * (E - len(sizes)), dtype=torch.int32,
                             device="cuda")
 
-    # (label, group sizes, "timed" / "edge" (checked only) / "ttft" (W8A16
-    # gs 128 only, timed))
+    # (label, group sizes, "timed" / "edge" (checked only) / "ttft" (timed,
+    # no per-column INT8 scales))
     cases = [(f"M={MOE_DECODE_TOKENS * k} decode",
               _routing(torch, g, MOE_DECODE_TOKENS, E, k), "timed"),
              (f"M={MOE_PIECE_TOKENS * k} prefill piece",
@@ -3388,16 +3502,13 @@ def check_grouped_matmul(torch, cfg):
         for label, gsz, mode in cases:
             M = int(gsz.sum())
             x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-            if mode != "ttft":
-                xq, sx = quantize_activations(x)
-                sx = sx.reshape(-1).contiguous()
+            xq, sx = quantize_activations(x)
+            sx = sx.reshape(-1).contiguous()
             touched = int((gsz > 0).sum())
             for name, (bits, act_bits, peak) in GROUPED.items():
                 q, s, gs = weights[bits]
                 for scales, tag in ((s, f"gs {gs}"), (s8_col, "per column")):
                     if tag == "per column" and (bits == 4 or mode == "ttft"):
-                        continue
-                    if mode == "ttft" and name != "grouped_matmul8":
                         continue
                     fn, plain = getattr(gm, name), getattr(gm, name + "_plain")
                     if act_bits:
@@ -3417,8 +3528,11 @@ def check_grouped_matmul(torch, cfg):
                         fail(f"{name} {shape}: err {err} > {tol} or non-finite")
                     del ref
                     if mode == "edge":
+                        same = ""
+                        if bits == 4 and int((gsz > 0).sum()) == 1:
+                            same = f" | {dense_equal(torch, qm, got, args)}"
                         print(f"  {name} {shape}: err {err:.3g} (tol "
-                              f"{tol:.3g})", flush=True)
+                              f"{tol:.3g}){same}", flush=True)
                         continue
                     ms = time_ms(torch, lambda: fn(*args))
                     plain_ms = time_ms(torch, lambda: plain(*args), iters=3,
@@ -3429,7 +3543,7 @@ def check_grouped_matmul(torch, cfg):
                     lib, lib_label = _grouped_library(torch, x, w, gsz)
                     lib_ms = time_ms(torch, lib)
                     graphs = {}
-                    if name == "grouped_matmul8" and M == MOE_DECODE_TOKENS * k:
+                    if M == MOE_DECODE_TOKENS * k:
                         graphs = dict(graph_ms=graph_ms(torch, lambda: fn(*args)),
                                       library_graph_ms=graph_ms(torch, lib))
                     del w
@@ -3449,9 +3563,28 @@ def check_grouped_matmul(torch, cfg):
                         tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                         library=lib_label, bound_ms=b_ms, bound_by=b_by,
                         **graphs))
+            del x, xq, sx
         del weights, s8_col
         torch.cuda.empty_cache()
     return records
+
+
+def dense_equal(torch, qm, got, args):
+    """An INT4 grouped call whose rows all belong to one expert against the
+    dense kernel (quant_matmul4_a8 / quant_matmul4) over that expert's
+    slab: both run qmm_mma_body of the same kind in the same K order, with
+    one K slice at M > 64, so they must agree bit for bit."""
+    a8 = len(args) == 7
+    x, q, scales, gsz, layer, gs = (args[0],) + args[-5:]
+    e = int(torch.nonzero(gsz).flatten()[0])
+    slab = (q[layer, e][None], scales[layer, e][None])
+    want = (qm.quant_matmul4_a8(x, args[1], *slab, 0, gs) if a8
+            else qm.quant_matmul4(x, *slab, 0, gs))
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    if x.shape[0] <= 64 or differ:
+        fail(f"grouped INT4 over expert {e} ({x.shape[0]} rows) vs the "
+             f"dense kernel over its slab: {differ} elements differ")
+    return f"bit-equal to the dense kernel over expert {e}'s slab"
 
 
 def moe_layer_record(recs):
@@ -3465,7 +3598,7 @@ def moe_layer_record(recs):
     out = {key: 2 * dec["gate"][key] + dec["down"][key] for key in keys
            if key in dec["gate"]}
     prefill = {r["proj"]: r for r in recs if r["M"] == MOE_TTFT_TOKENS * 8}
-    if prefill:  # grouped_matmul8 at [moe generate]'s prefill
+    if prefill:  # at [moe generate]'s prefill
         out["at_M131072"] = prefill
     out.update(max_abs_err=max(r["max_abs_err"] for r in recs),
                bound_by=dec["down"]["bound_by"],

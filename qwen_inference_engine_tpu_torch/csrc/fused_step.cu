@@ -160,7 +160,7 @@ __device__ __forceinline__ void attn_block_mma(
 // and 36 KB).
 union AttnMmSmem {
   AttnSmemD attn;
-  qie::WmmaSmem<true> mm;
+  qie::WmmaSmem mm;
 };
 
 // fused_attn_mlp's first launch: blocks [0, n_attn) are attention (one
@@ -238,8 +238,8 @@ attn_matmul_kernel(const __nv_bfloat16* __restrict__ q,
   if (blk >= n_attn) {
     const int t = blk - n_attn;
     const int n_tiles = N / kWBN;
-    qie::tile_w16_wmma<true>(sm.mm, x, w, ws, y, M, K, N, gs, false,
-                             (t / n_tiles) * kWBM, (t % n_tiles) * kWBN);
+    qie::tile_w16_wmma(sm.mm, x, w, ws, y, M, K, N, gs, (t / n_tiles) * kWBM,
+                       (t % n_tiles) * kWBN);
     return;
   }
   attn_block(sm.attn, q, k_cache, v_cache, lens, attn, Bc, Hq, Hk, S, layer,

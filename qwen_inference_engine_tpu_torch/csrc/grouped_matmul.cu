@@ -5,12 +5,12 @@
 // Three kernels, each the port of one Pallas kernel of
 // qwen_inference_engine_tpu/ops/grouped_matmul.py:
 //
-//   gmm4_a8_kernel                    <- _grouped_matmul4_a8 (_gmm4_a8_kernel):
-//                                        int8 activations x INT4 experts
-//   gmm_w16_small / gmm_w16_wmma <I4> <- _grouped_matmul4 (_gmm4_kernel):
-//                                        bf16 activations x INT4 experts
-//   gmm8_mma_kernel                   <- _grouped_matmul8 (_gmm8_kernel):
-//                                        bf16 activations x INT8 experts
+//   gmm4_mma_kernel<kW4A8>   <- _grouped_matmul4_a8 (_gmm4_a8_kernel):
+//                               int8 activations x INT4 experts
+//   gmm4_mma_kernel<kW4A16>  <- _grouped_matmul4 (_gmm4_kernel):
+//                               bf16 activations x INT4 experts
+//   gmm8_mma_kernel          <- _grouped_matmul8 (_gmm8_kernel):
+//                               bf16 activations x INT8 experts
 //
 // The expert stacks are q [L, E, Kp/2, N] INT4 plane pairs with scales
 // [L, E, Kp/gs, N], or q [L, E, K, N] INT8 with scales [L, E, G, N] (a
@@ -22,7 +22,8 @@
 // per-token int8 activations with f32 row scales sx [M], quantized outside
 // the kernel as in the JAX package.  Every kernel computes what the TPU
 // kernel does: per expert, the sum over groups of (x . q) x scale in f32
-// (x sx), then rounded to bf16.
+// (INT4: over plane pairs, (x . q_lo) s_lo + (x . q_hi) s_hi; int8
+// activations: int32 dot sums, x sx at the end), then rounded to bf16.
 //
 // What bounds them on the H100: at decode (batch 32 x top-8 = 256 rows
 // over ~112 touched experts of 128, about 2 rows each) every touched
@@ -33,46 +34,47 @@
 // bf16, 1979 TOP/s int8).
 //
 // Design (not the TPU schedule: its static (row tile, expert) work list,
-// _build_worklist, exists because a Pallas grid must be static):
-// * one block per (N tile, expert); the block finds its expert's first row
-//   as the sum of group_sizes[0..e) (one warp, a shuffle reduction) and
-//   exits at once for an empty expert;
-// * the block walks its expert's rows in tiles of a tile body's height,
-//   calling that tile (quant_matmul_core.cuh) with x and out offset to the
-//   expert's rows and the row count taken as the expert's, so each
-//   expert's weight columns are streamed from HBM once per row tile (once
-//   at decode) and every output row is written once, by its own expert: no
-//   read-modify-write of a tile that straddles two experts, no zeroing of
-//   other experts' rows, and no read of the next expert's rows;
+// _build_worklist, and its bf16 re-add of tiles that straddle two experts
+// exist because a Pallas grid must be static):
+// * one block per (128-column tile, expert), 128 threads; the block finds
+//   its expert's first row as the sum of group_sizes[0..e) (one warp, a
+//   shuffle reduction) and exits at once for an empty expert;
+// * the block walks its expert's rows in tiles of 16 mt rows, running the
+//   dense matmuls' tensor-core body (qmm_mma_body of quant_matmul_core.cuh;
+//   quant_matmul.cu describes it: int8 mma.sync m16n8k32 for W4A8, bf16
+//   m16n8k16 for W4A16 and W8A16 with the weight widened exactly in
+//   registers, a 4-stage cp.async ring) with x, sx, out and M taken at the
+//   expert's rows and q / scales at its slab: one K slice writing bf16
+//   itself, so no workspace and no reduce launch.  The body's row guard
+//   (never read or write at or past M) keeps every tile inside the expert,
+//   so each expert's weight columns are streamed from HBM once per row
+//   tile (once at decode) and every output row is written once, by its
+//   own expert: no read-modify-write of a tile that straddles two experts,
+//   no zeroing of other experts' rows, no read of the next expert's rows;
 // * rows of a group_sizes that sum past M are dropped (a block never reads
-//   or writes past row M).
-// The tiles:
-// * W8A16 (gmm8_mma_kernel): the dense matmuls' tensor-core body,
-//   qmm_mma_body<kW8A16> (bf16 mma.sync m16n8k16, the int8 weight widened
-//   exactly in registers, a 4-stage cp.async ring; quant_matmul.cu
-//   describes it), one K slice writing bf16 itself, 128 columns a block, N
-//   a multiple of 64 (a last tile's 64 columns past N never loaded or
-//   stored).  The host picks its rows a tile, 16 mt
-//   (ops/grouped_matmul.plan_grouped_matmul8): 16 where the mean rows per
-//   expert (M / E) is at most 16, which holds at every decode step (the
-//   gate and up then run 6 x 128 = 768 blocks, the down 16 x 128), 64
-//   above.  No split K: the experts' columns alone fill the card.
-// * W4A16 and W4A8: the older tiles, their height chosen on the host from
-//   the mean rows per expert: at most 4 (decode) the CUDA-core tiles of 4
-//   rows for bf16 activations and of 16 rows for int8, at most 16 the 8-
-//   and 16-row ones, above that the 64-row tiles (wmma tensor cores for
-//   bf16, __dp4a for int8).
+//   or writes past row M);
+// * the host picks mt (ops/grouped_matmul.plan_grouped_matmul, one plan for
+//   the three kernels) from the mean rows per expert, M / E: 1 (16-row
+//   tiles) where it is at most 16, which holds at every decode step (the
+//   gate and up then run 6 x 128 = 768 blocks, the down 16 x 128), 4
+//   (64-row tiles) above.  No split K: the experts' columns alone fill the
+//   card.
+// The INT4 kernels run with the dense W4A8 / W4A16 kernels' K order and
+// fold, so a grouped call over one expert holding every row equals the
+// dense kernel's over that expert's slab bit for bit wherever the dense
+// kernel runs one K slice (M > 64).  W4A8 takes N a
+// multiple of 128, the bf16 kinds N a multiple of 64 (a last tile's 64
+// columns past N never loaded or stored).
+// Two templates walk the rows: gmm4_mma_kernel takes the group size from
+// the host (derived on the device as 2 K / G it costs the W4A16 64-row
+// instance a 4-byte spill at its 255 registers); gmm8_mma_kernel derives
+// K / G itself (one template for the three gives its instances other
+// register counts, 107-210 against 80-218).
 // wgmma, TMA and split-K over experts' K are left to later work.
 
 #include "quant_matmul_core.cuh"
 
 namespace {
-
-using qie::kBN;
-using qie::kSmallCols;
-using qie::kThreads;
-using qie::kWBN;
-using qie::kWThreads;
 
 // The rows [start, start + n) of expert e, from the device's group sizes.
 struct ExpertRows {
@@ -98,79 +100,42 @@ __device__ __forceinline__ ExpertRows expert_rows(const int* group_sizes,
   return {start, max(0, min(s_rows[1], M - start))};
 }
 
-template <int TM>
-__global__ void __launch_bounds__(kThreads)
-gmm4_a8_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
-               const int8_t* __restrict__ q, const float* __restrict__ scales,
-               const int* __restrict__ group_sizes,
-               __nv_bfloat16* __restrict__ out, int M, int Kp, int N,
-               int gs) {
+// Block (column tile blockIdx.x, expert blockIdx.y) of an INT4 kernel
+// (kKind kW4A8 or kW4A16): the expert's rows in tiles of 16 MT on the
+// tensor-core body, with x, sx (W4A8; W4A16 null), out and M taken at its
+// rows and q / scales at its slab: K packed rows (Kp / 2), a pair's sums
+// folded every gs packed rows, G = Kp / gs scale rows an expert; one K
+// slice, bf16 out.  The body reuses its shared ring, so row tiles are
+// separated by a barrier.
+template <int kKind, int MT>
+__global__ void __launch_bounds__(128)
+gmm4_mma_kernel(const unsigned char* __restrict__ x,
+                const float* __restrict__ sx, const int8_t* __restrict__ q,
+                const float* __restrict__ scales,
+                const int* __restrict__ group_sizes,
+                __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs,
+                int G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int e = blockIdx.y;
   const ExpertRows r = expert_rows(group_sizes, e, M);
   if (r.n == 0) return;
-  const int8_t* qe = q + static_cast<size_t>(e) * (Kp / 2) * N;
-  const float* se = scales + static_cast<size_t>(e) * (Kp / gs) * N;
-  const int8_t* xe = x + static_cast<size_t>(r.start) * Kp;
-  __nv_bfloat16* oe = out + static_cast<size_t>(r.start) * N;
-  for (int m0 = 0; m0 < r.n; m0 += 8 * TM) {
-    qie::tile_4a8<TM>(xe, sx + r.start, qe, se, oe, r.n, Kp, N, gs, m0,
-                      blockIdx.x * kBN);
+  const qie::QmmArgs a{
+      x + static_cast<size_t>(r.start) * K * qie::x_row_bytes<kKind>(),
+      sx == nullptr ? nullptr : sx + r.start,
+      {q + static_cast<size_t>(e) * K * N, nullptr},
+      {scales + static_cast<size_t>(e) * G * N, nullptr},
+      out + static_cast<size_t>(r.start) * N,
+      nullptr,
+      r.n, K, N, gs, K};
+  for (int t = 0; 16 * MT * t < r.n; ++t) {
+    qie::qmm_mma_body<kKind, MT, 1, false, false>(a, t, blockIdx.x, 0,
+                                                  smem_raw);
     __syncthreads();
   }
 }
 
-// kInt4: the weight has K/2 packed rows and gs is the INT4 group size;
-// else K rows, G scale rows (gs = K / G; per_col when G = 1).  Only the
-// INT4 forms run (grouped_matmul4); INT8 experts run gmm8_mma_kernel.
-template <bool kInt4, int MT>
-__global__ void __launch_bounds__(kThreads)
-gmm_w16_small_kernel(const __nv_bfloat16* __restrict__ x,
-                     const int8_t* __restrict__ q,
-                     const float* __restrict__ scales,
-                     const int* __restrict__ group_sizes,
-                     __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                     int gs, int G, bool per_col) {
-  const int e = blockIdx.y;
-  const ExpertRows r = expert_rows(group_sizes, e, M);
-  if (r.n == 0) return;
-  const int8_t* qe = q + static_cast<size_t>(e) * (kInt4 ? K / 2 : K) * N;
-  const float* se = scales + static_cast<size_t>(e) * G * N;
-  const __nv_bfloat16* xe = x + static_cast<size_t>(r.start) * K;
-  __nv_bfloat16* oe = out + static_cast<size_t>(r.start) * N;
-  for (int m0 = 0; m0 < r.n; m0 += MT) {
-    qie::tile_w16_small<kInt4, MT>(xe, qe, se, oe, r.n, K, N, gs, per_col, m0,
-                                   blockIdx.x * kSmallCols);
-    __syncthreads();
-  }
-}
-
-template <bool kInt4>
-__global__ void __launch_bounds__(kWThreads)
-gmm_w16_wmma_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ q,
-                    const float* __restrict__ scales,
-                    const int* __restrict__ group_sizes,
-                    __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                    int gs, int G, bool per_col) {
-  const int e = blockIdx.y;
-  const ExpertRows r = expert_rows(group_sizes, e, M);
-  if (r.n == 0) return;
-  const int8_t* qe = q + static_cast<size_t>(e) * (kInt4 ? K / 2 : K) * N;
-  const float* se = scales + static_cast<size_t>(e) * G * N;
-  const __nv_bfloat16* xe = x + static_cast<size_t>(r.start) * K;
-  __nv_bfloat16* oe = out + static_cast<size_t>(r.start) * N;
-  for (int m0 = 0; m0 < r.n; m0 += qie::kWBM) {
-    qie::tile_w16_wmma<kInt4>(xe, qe, se, oe, r.n, K, N, gs, per_col, m0,
-                              blockIdx.x * kWBN);
-    __syncthreads();
-  }
-}
-
-// Block (column tile blockIdx.x, expert blockIdx.y) of the W8A16 kernel:
-// the expert's rows in tiles of 16 MT on the tensor-core body, with x, out
-// and M taken at its rows and q / scales at its slab (layer and expert);
-// one K slice, bf16 out.  The body reuses its shared ring, so row tiles
-// are separated by a barrier.
+// The same walk for the W8A16 kernel: K rows of int8 weight, a scale per
+// group of K / G rows or (kPerCol, G = 1) one per column.
 template <int MT, bool kPerCol>
 __global__ void __launch_bounds__(128)
 gmm8_mma_kernel(const __nv_bfloat16* __restrict__ x,
@@ -196,43 +161,46 @@ gmm8_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int MT, bool kPerCol>
-cudaError_t launch_gmm8(const __nv_bfloat16* x, const int8_t* q,
-                        const float* s, const int* group_sizes,
-                        __nv_bfloat16* out, int M, int K, int N, int G, int E,
-                        cudaStream_t st) {
-  const auto kern = gmm8_mma_kernel<MT, kPerCol>;
-  constexpr int smem = qie::qmm_smem<qie::kW8A16, MT, 1>();
-  if (smem > 48 * 1024) {  // past the default limit
+// Launch one instance over the (column tile, expert) grid with its dynamic
+// shared memory (the body's ring: past the default 48 KB for most).
+template <int kKind, int MT, typename Kern, typename... Args>
+cudaError_t launch_gmm(Kern kern, int N, int E, cudaStream_t st,
+                       Args... args) {
+  constexpr int smem = qie::qmm_smem<kKind, MT, 1>();
+  if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != cudaSuccess) return rc;
   }
   kern<<<dim3((N + qie::kMmaCols - 1) / qie::kMmaCols, E), 128, smem, st>>>(
-      x, q, s, group_sizes, out, M, K, N, G);
+      args...);
   return cudaGetLastError();
 }
 
-// The INT4 bf16-activation kernels, by mean rows per expert.  q / s
-// already at the layer's slab.
-cudaError_t launch_w4(const void* x, const int8_t* q, const float* s,
-                      const int* group_sizes, void* out, int M, int Kp, int N,
-                      int gs, int E, cudaStream_t st) {
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  const int G = Kp / gs;
-  const int mean_rows = (M + E - 1) / E;
-  if (mean_rows <= 4) {
-    gmm_w16_small_kernel<true, 4><<<dim3(N / kSmallCols, E), kThreads, 0, st>>>(
-        xb, q, s, group_sizes, o, M, Kp, N, gs, G, false);
-  } else if (mean_rows <= 16) {
-    gmm_w16_small_kernel<true, 8><<<dim3(N / kSmallCols, E), kThreads, 0, st>>>(
-        xb, q, s, group_sizes, o, M, Kp, N, gs, G, false);
-  } else {
-    gmm_w16_wmma_kernel<true><<<dim3(N / kWBN, E), kWThreads, 0, st>>>(
-        xb, q, s, group_sizes, o, M, Kp, N, gs, G, false);
-  }
-  return cudaGetLastError();
+// An INT4 kernel at mt (1 or 4; the caller checked it).  q / s already at
+// the layer's slab.
+template <int kKind>
+cudaError_t launch_gmm4(int mt, const void* x, const float* sx,
+                        const int8_t* q, const float* s, const int* gsz,
+                        __nv_bfloat16* out, int M, int Kp, int N, int gs,
+                        int E, cudaStream_t st) {
+  const auto* xb = static_cast<const unsigned char*>(x);
+  const int K = Kp / 2, G = Kp / gs;
+  return mt == 1
+             ? launch_gmm<kKind, 1>(gmm4_mma_kernel<kKind, 1>, N, E, st, xb,
+                                    sx, q, s, gsz, out, M, K, N, gs, G)
+             : launch_gmm<kKind, 4>(gmm4_mma_kernel<kKind, 4>, N, E, st, xb,
+                                    sx, q, s, gsz, out, M, K, N, gs, G);
+}
+
+// cp.async copies 16-byte chunks of x and q, the scales and the output
+// move in 16-byte words: the expert and row offsets keep that alignment
+// (K % 32, N % 64) when the bases have it.  sx is read a float at a time.
+bool aligned16(const void* x, const void* q, const void* scales,
+               const void* out) {
+  return (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q) |
+          reinterpret_cast<uintptr_t>(scales) |
+          reinterpret_cast<uintptr_t>(out)) % 16 == 0;
 }
 
 bool bad_common(int M, int E, int layer, int L) {
@@ -241,65 +209,58 @@ bool bad_common(int M, int E, int layer, int L) {
 
 }  // namespace
 
+// mt: the tensor-core body's m16 tiles a warp (1 or 4: 16 or 64 rows a
+// tile), from ops/grouped_matmul.plan_grouped_matmul.  The INT4 kernels
+// take Kp (the logical, padded K: Kp / 2 packed rows) and the group size
+// gs, with whole plane pairs (Kp % (2 gs)) of whole 32-row k-steps
+// (gs % 32).
 extern "C" int qie_grouped_matmul4_a8(const void* x, const void* sx,
                                       const void* q, const void* scales,
                                       const void* group_sizes, void* out,
                                       int M, int Kp, int N, int gs, int E,
-                                      int layer, int L, void* stream) {
-  if (bad_common(M, E, layer, L) || N % kBN || gs <= 0 || gs % qie::kBKP ||
-      Kp % (2 * gs)) {
+                                      int mt, int layer, int L, void* stream) {
+  if (bad_common(M, E, layer, L) || N % qie::kMmaCols || gs <= 0 ||
+      gs % 32 || Kp % (2 * gs) || (mt != 1 && mt != 4) ||
+      !aligned16(x, q, scales, out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t slab = static_cast<size_t>(layer) * E;
-  const int8_t* ql = static_cast<const int8_t*>(q) + slab * (Kp / 2) * N;
-  const float* sl = static_cast<const float*>(scales) + slab * (Kp / gs) * N;
-  const auto* xq = static_cast<const int8_t*>(x);
-  const auto* sxf = static_cast<const float*>(sx);
-  const auto* gsz = static_cast<const int*>(group_sizes);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((M + E - 1) / E <= 16) {
-    gmm4_a8_kernel<2><<<dim3(N / kBN, E), kThreads, 0, st>>>(
-        xq, sxf, ql, sl, gsz, o, M, Kp, N, gs);
-  } else {
-    gmm4_a8_kernel<8><<<dim3(N / kBN, E), kThreads, 0, st>>>(
-        xq, sxf, ql, sl, gsz, o, M, Kp, N, gs);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_gmm4<qie::kW4A8>(
+      mt, x, static_cast<const float*>(sx),
+      static_cast<const int8_t*>(q) + slab * (Kp / 2) * N,
+      static_cast<const float*>(scales) + slab * (Kp / gs) * N,
+      static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out),
+      M, Kp, N, gs, E, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int qie_grouped_matmul4(const void* x, const void* q,
                                    const void* scales, const void* group_sizes,
                                    void* out, int M, int Kp, int N, int gs,
-                                   int E, int layer, int L, void* stream) {
-  if (bad_common(M, E, layer, L) || N % kSmallCols || gs <= 0 ||
-      gs % qie::kChunk || Kp % (2 * gs)) {
+                                   int E, int mt, int layer, int L,
+                                   void* stream) {
+  if (bad_common(M, E, layer, L) || N % 64 || gs <= 0 || gs % 32 ||
+      Kp % (2 * gs) || (mt != 1 && mt != 4) ||
+      !aligned16(x, q, scales, out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t slab = static_cast<size_t>(layer) * E;
-  const int8_t* ql = static_cast<const int8_t*>(q) + slab * (Kp / 2) * N;
-  const float* sl = static_cast<const float*>(scales) + slab * (Kp / gs) * N;
-  return static_cast<int>(launch_w4(
-      x, ql, sl, static_cast<const int*>(group_sizes), out, M, Kp, N, gs, E,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_gmm4<qie::kW4A16>(
+      mt, x, nullptr, static_cast<const int8_t*>(q) + slab * (Kp / 2) * N,
+      static_cast<const float*>(scales) + slab * (Kp / gs) * N,
+      static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out),
+      M, Kp, N, gs, E, static_cast<cudaStream_t>(stream)));
 }
 
-// mt: the tensor-core body's m16 tiles a warp (1 or 4: 16 or 64 rows a
-// tile), from ops/grouped_matmul.plan_grouped_matmul8.  cp.async copies
-// 16-byte chunks of x and q, the scales and the output move in 16-byte
-// words: the expert and row offsets keep that alignment (K % 32, N % 64)
-// when the bases have it.
+// K rows of INT8 weight, G scale rows (a group of K / G rows, a multiple
+// of 32; or one per column, G = 1).
 extern "C" int qie_grouped_matmul8(const void* x, const void* q,
                                    const void* scales, const void* group_sizes,
                                    void* out, int M, int K, int N, int G,
                                    int E, int mt, int layer, int L,
                                    void* stream) {
-  const bool aligned =
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(q) |
-       reinterpret_cast<uintptr_t>(scales) |
-       reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   if (bad_common(M, E, layer, L) || N % 64 || K % 32 || G <= 0 || K % G ||
-      (G > 1 && (K / G) % 32) || (mt != 1 && mt != 4) || !aligned) {
+      (G > 1 && (K / G) % 32) || (mt != 1 && mt != 4) ||
+      !aligned16(x, q, scales, out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t slab = static_cast<size_t>(layer) * E;
@@ -311,11 +272,19 @@ extern "C" int qie_grouped_matmul8(const void* x, const void* q,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (mt == 1) {
-    rc = G == 1 ? launch_gmm8<1, true>(xb, ql, sl, gsz, o, M, K, N, G, E, st)
-                : launch_gmm8<1, false>(xb, ql, sl, gsz, o, M, K, N, G, E, st);
+    rc = G == 1 ? launch_gmm<qie::kW8A16, 1>(gmm8_mma_kernel<1, true>, N, E,
+                                             st, xb, ql, sl, gsz, o, M, K, N,
+                                             G)
+                : launch_gmm<qie::kW8A16, 1>(gmm8_mma_kernel<1, false>, N, E,
+                                             st, xb, ql, sl, gsz, o, M, K, N,
+                                             G);
   } else {
-    rc = G == 1 ? launch_gmm8<4, true>(xb, ql, sl, gsz, o, M, K, N, G, E, st)
-                : launch_gmm8<4, false>(xb, ql, sl, gsz, o, M, K, N, G, E, st);
+    rc = G == 1 ? launch_gmm<qie::kW8A16, 4>(gmm8_mma_kernel<4, true>, N, E,
+                                             st, xb, ql, sl, gsz, o, M, K, N,
+                                             G)
+                : launch_gmm<qie::kW8A16, 4>(gmm8_mma_kernel<4, false>, N, E,
+                                             st, xb, ql, sl, gsz, o, M, K, N,
+                                             G);
   }
   return static_cast<int>(rc);
 }

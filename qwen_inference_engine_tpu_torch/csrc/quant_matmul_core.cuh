@@ -1,45 +1,29 @@
 // Shared core of the port's quantized matmuls: y = x @ Wq, bf16 out.
 //
-// The tensor-core body (qmm_mma_body, run by qmm_mma_kernel, at the end of
+// The tensor-core body (qmm_mma_body, run by qmm_mma_kernel, further down
 // this file) runs the dense W8A8, W4A8, W8A16 and W4A16 matmuls
 // (quant_matmul.cu), both passes of the fused MLP and of the fused
-// attention + MLP (fused_step.cu) and the grouped W8A16 matmul
+// attention + MLP (fused_step.cu) and the three grouped matmuls
 // (grouped_matmul.cu: called in a loop over the row tiles of the block's
-// expert).  The older tiles below, one output tile per call, run the
-// grouped W4A16 and W4A8 kernels (grouped_matmul.cu: called in the same
-// loop, with x, out and the row count taken at the expert's rows) and
-// fused_attn_matmul (fused_step.cu, the wmma tile); their INT8 forms
-// (kInt4 false) no longer run.
+// expert).  The older wmma tile, tile_w16_wmma (bf16 activations x INT4
+// plane pairs), runs only fused_attn_matmul's matmul blocks
+// (fused_step.cu).
 //
-// A tile reads rows [m0, m0 + BM) of x [M, K] (rows at or past M are never
-// written and read as zeros or as row M - 1) and columns [n0, n0 + BN) of
-// one weight slab: INT4 plane pairs q [Kp/2, N] int8 (byte = 16*hi + (lo+8);
-// packed rows p*gs..(p+1)*gs hold group 2p in the low nibble, group 2p+1 in
-// the high nibble) with scales [Kp/gs, N] f32, or INT8 q [K, N] with scales
-// [G, N] (a scale per group of gs = K/G rows, or one per column: per_col).
-// Every tile computes what the TPU kernels do: the sum over groups of
-// (x . q) x scale in f32 (x the row scale sx for int8 activations), then
-// rounded to bf16.
+// The weights are one slab: INT4 plane pairs q [Kp/2, N] int8 (byte =
+// 16*hi + (lo+8); packed rows p*gs..(p+1)*gs hold group 2p in the low
+// nibble, group 2p+1 in the high nibble) with scales [Kp/gs, N] f32, or
+// INT8 q [K, N] with scales [G, N] (a scale per group of gs = K/G rows, or
+// one per column: per_col).  Every matmul computes what the TPU kernels
+// do: the sum over groups of (x . q) x scale in f32 (x the row scale sx
+// for int8 activations), then rounded to bf16.
 //
-// The tiles (tile_4a8 is described in grouped_matmul.cu):
-//   tile_4a8<TM>            int8 x INT4, __dp4a, 256 threads, BM = 8 TM x 128
-//   tile_w16_small<I4, MT>  bf16 x INT4/INT8, f32 FMAs, 256 threads, MT x 64
-//   tile_w16_wmma<I4>       bf16 x INT4/INT8, wmma bf16, 128 threads, 64 x 64
-// tile_w16_small streams the weights once with f32 FMAs on the CUDA cores
-// (a few rows: bound by bytes): 16 threads x 4 columns, K split over 16
-// thread groups in chunks of 32 weight rows (one scale group each); a
-// thread issues its chunk's 32 weight loads before it computes, and the
-// 16 partial sums of a column are added in a fixed order through shared
-// memory.  tile_w16_wmma feeds nvcuda::wmma 16x16x16 fragments with an
-// f32 accumulator (4 warps, 2 x 2 fragments a warp); per k-step it
-// dequantizes 64 logical rows into bf16 in shared memory, q * scale.
-// A tile's shared memory is static and reused by the next call of the same
-// block: a caller that loops over tiles puts a __syncthreads() between
-// calls.
-//
-// The wmma tile also comes in a version that takes its shared memory
-// (WmmaSmem) from the caller, so a kernel can overlay it with another
-// block kind's.
+// tile_w16_wmma reads rows [m0, m0 + 64) of x [M, K] (rows at or past M
+// are read as zeros and never written) and columns [n0, n0 + 64); it feeds
+// nvcuda::wmma 16x16x16 fragments with an f32 accumulator (4 warps, 2 x 2
+// fragments a warp); per k-step it dequantizes 64 logical rows into bf16
+// in shared memory, q * scale.  It takes its shared memory (WmmaSmem) from
+// the caller, so a kernel can overlay it with another block kind's; a
+// caller that loops over tiles puts a __syncthreads() between calls.
 
 #pragma once
 
@@ -55,9 +39,7 @@
 
 namespace qie {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 128;   // W4A8 tile: output columns (32 threads x 4)
-constexpr int kBKP = 32;   // W4A8 tile: weight rows per k-step
+constexpr int kThreads = 256;  // the reduce launches' block
 
 // Signed high nibble of each byte of w, as four int8 lanes.
 __device__ __forceinline__ int high_nibbles(unsigned w) {
@@ -80,286 +62,38 @@ __device__ __forceinline__ void transpose4x4(unsigned r0, unsigned r1,
   colw[3] = __byte_perm(t01b, t23b, 0x7632);
 }
 
-// ---------------------------------------------------------------------
-// W4A8: int8 activations x INT4 plane pairs
-// ---------------------------------------------------------------------
-
-// __dp4a (s8 x s8 -> s32): a block computes a BM x 128 output tile with
-// 256 threads; each thread owns TM rows x 4 adjacent columns.  Per k-step
-// the block stages 32 weight rows (4 KB, 16-byte coalesced loads) and the
-// matching activation columns in shared memory.  A thread reads 4 rows of
-// its 4 columns as four 32-bit words and transposes them (transpose4x4),
-// so each word holds 4 consecutive k of one column.  It unpacks the
-// nibbles four at a time (lo+8 = w & 0x0F0F0F0F, hi by high_nibbles),
-// accumulates each plane-pair's two products in int32, corrects the lo
-// plane's excess-8 by 8 * rowsum(x_even), and scales the int32 partials
-// into f32.  The row scale is applied in the epilogue.
-template <int TM>
-__device__ __forceinline__ void tile_4a8(
-    const int8_t* __restrict__ x, const float* __restrict__ sx,
-    const int8_t* __restrict__ q, const float* __restrict__ scales,
-    __nv_bfloat16* __restrict__ out, int M, int Kp, int N, int gs, int m0,
-    int n0) {
-  constexpr int BM = 8 * TM;  // 8 warps along M
-  __shared__ __align__(16) int8_t xs_e[BM][kBKP];
-  __shared__ __align__(16) int8_t xs_o[BM][kBKP];
-  __shared__ __align__(16) int8_t ws[kBKP][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 32;   // columns n0 + 4*tx .. +3
-  const int ty = tid / 32;   // rows m0 + ty*TM .. +TM-1
-  const int pairs = Kp / (2 * gs);
-
-  float accf[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) accf[i][j] = 0.f;
-
-  for (int p = 0; p < pairs; ++p) {
-    int acc_lo[TM][4], acc_hi[TM][4], rsum[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      rsum[i] = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc_lo[i][j] = acc_hi[i][j] = 0;
-    }
-    for (int c = 0; c < gs; c += kBKP) {
-      {  // 32 packed rows x 128 columns = 256 threads x 16 bytes
-        const int r = tid / 8, col = (tid % 8) * 16;
-        const int4* src = reinterpret_cast<const int4*>(
-            q + static_cast<size_t>(p * gs + c + r) * N + n0 + col);
-        *reinterpret_cast<int4*>(&ws[r][col]) = __ldg(src);
-      }
-      // even plane: logical k = p*2gs + c + [0,32); odd plane: + gs
-      for (int i = tid; i < 4 * BM; i += kThreads) {
-        const int plane = i / (2 * BM);
-        const int j = i % (2 * BM);
-        const int r = j / 2, col = (j % 2) * 16;
-        const int m = m0 + r;
-        int4 v = make_int4(0, 0, 0, 0);
-        if (m < M) {
-          v = __ldg(reinterpret_cast<const int4*>(
-              x + static_cast<size_t>(m) * Kp + p * 2 * gs + plane * gs + c +
-              col));
-        }
-        *reinterpret_cast<int4*>(plane ? &xs_o[r][col] : &xs_e[r][col]) = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBKP; kk += 4) {
-        unsigned colw[4];
-        transpose4x4(*reinterpret_cast<const unsigned*>(&ws[kk + 0][4 * tx]),
-                     *reinterpret_cast<const unsigned*>(&ws[kk + 1][4 * tx]),
-                     *reinterpret_cast<const unsigned*>(&ws[kk + 2][4 * tx]),
-                     *reinterpret_cast<const unsigned*>(&ws[kk + 3][4 * tx]),
-                     colw);
-        int lo8[4], hi[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          lo8[j] = static_cast<int>(colw[j] & 0x0F0F0F0Fu);  // lo + 8
-          hi[j] = high_nibbles(colw[j]);
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int xe = *reinterpret_cast<const int*>(&xs_e[ty * TM + i][kk]);
-          const int xo = *reinterpret_cast<const int*>(&xs_o[ty * TM + i][kk]);
-          rsum[i] = __dp4a(xe, 0x01010101, rsum[i]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc_lo[i][j] = __dp4a(xe, lo8[j], acc_lo[i][j]);
-            acc_hi[i][j] = __dp4a(xo, hi[j], acc_hi[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    // group scales of this plane-pair: lo plane = group 2p, hi = group 2p+1
-    const float4 slo = __ldg(reinterpret_cast<const float4*>(
-        scales + static_cast<size_t>(2 * p) * N + n0 + 4 * tx));
-    const float4 shi = __ldg(reinterpret_cast<const float4*>(
-        scales + static_cast<size_t>(2 * p + 1) * N + n0 + 4 * tx));
-    const float sl[4] = {slo.x, slo.y, slo.z, slo.w};
-    const float sh[4] = {shi.x, shi.y, shi.z, shi.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        accf[i][j] += static_cast<float>(acc_lo[i][j] - 8 * rsum[i]) * sl[j] +
-                      static_cast<float>(acc_hi[i][j]) * sh[j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m < M) {
-      const float s = sx[m];
-      __nv_bfloat16* o = out + static_cast<size_t>(m) * N + n0 + 4 * tx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = __float2bfloat16(accf[i][j] * s);
-    }
-  }
-}
+// fused_step.cu's shape rules for the fused MLPs
+constexpr int kSmallCols = 64;     // N a multiple of it
+constexpr int kChunk = 32;         // group sizes a multiple of it
 
 // ---------------------------------------------------------------------
-// W4A16 (and W8A16, no longer run), few rows: CUDA cores, weights
-// streamed once
-// ---------------------------------------------------------------------
-
-constexpr int kSmallCols = 64;     // columns per tile: 16 threads x 4
-constexpr int kSmallGroups = 16;   // thread groups splitting K
-constexpr int kChunk = 32;         // weight rows per chunk
-
-// The 4 bf16 at p (8-byte aligned) as floats.
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float f[4]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-// kInt4: K is the logical (padded) K, the weight has K/2 packed rows and
-// gs is the INT4 group size; else K rows and gs = K / G.
-template <bool kInt4, int MT>
-__device__ __forceinline__ void tile_w16_small(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
-    int K, int N, int gs, bool per_col, int m0, int n0) {
-  __shared__ float red[kSmallGroups][MT][kSmallCols];
-  const int tid = threadIdx.x;
-  const int cx = tid % 16;           // columns n0 + 4*cx .. +3
-  const int kg = tid / 16;           // chunks kg, kg + 16, ...
-  const int n = n0 + 4 * cx;
-  const int chunks = (kInt4 ? K / 2 : K) / kChunk;
-
-  // rows past M read row M-1 (in bounds) and are never written
-  const __nv_bfloat16* xrow[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-    xrow[m] = x + static_cast<size_t>(min(m0 + m, M - 1)) * K;
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int c = kg; c < chunks; c += kSmallGroups) {
-    const int r0 = c * kChunk;
-    int klo, g_lo;
-    if (kInt4) {  // packed row r0 = pair p, row r: k = 2p*gs + r and + gs
-      const int p = r0 / gs;
-      klo = 2 * p * gs + (r0 - p * gs);
-      g_lo = 2 * p;
-    } else {
-      klo = r0;
-      g_lo = r0 / gs;
-    }
-    unsigned w[kChunk];
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i)
-      w[i] = __ldg(reinterpret_cast<const unsigned*>(
-          q + static_cast<size_t>(r0 + i) * N + n));
-    float a_lo[MT][4], a_hi[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a_lo[m][j] = a_hi[m][j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kChunk; i += 4) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float xl[4], xh[4];
-        load4(xrow[m] + klo + i, xl);
-        if (kInt4) load4(xrow[m] + klo + gs + i, xh);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int b = static_cast<int8_t>((w[i + t] >> (8 * j)) & 0xFF);
-            if (kInt4) {
-              a_lo[m][j] = fmaf(xl[t], static_cast<float>((b & 0xF) - 8), a_lo[m][j]);
-              a_hi[m][j] = fmaf(xh[t], static_cast<float>(b >> 4), a_hi[m][j]);
-            } else {
-              a_lo[m][j] = fmaf(xl[t], static_cast<float>(b), a_lo[m][j]);
-            }
-          }
-        }
-      }
-    }
-    if (kInt4) {
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(g_lo) * N + n));
-      const float4 s1 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(g_lo + 1) * N + n));
-      const float sl[4] = {s0.x, s0.y, s0.z, s0.w};
-      const float sh[4] = {s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[m][j] += a_lo[m][j] * sl[j] + a_hi[m][j] * sh[j];
-    } else if (per_col) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] += a_lo[m][j];
-    } else {
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(
-          scales + static_cast<size_t>(g_lo) * N + n));
-      const float s[4] = {s0.x, s0.y, s0.z, s0.w};
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] += a_lo[m][j] * s[j];
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[kg][m][4 * cx + j] = acc[m][j];
-  __syncthreads();
-  for (int o = tid; o < MT * kSmallCols; o += kThreads) {
-    const int m = o / kSmallCols, col = o % kSmallCols;
-    float s = 0.f;
-#pragma unroll
-    for (int g = 0; g < kSmallGroups; ++g) s += red[g][m][col];
-    if (per_col) s *= scales[n0 + col];
-    if (m0 + m < M) {
-      out[static_cast<size_t>(m0 + m) * N + n0 + col] = __float2bfloat16(s);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
-// W4A16 (and W8A16, no longer run), many rows: bf16 tensor cores (wmma),
-// dequantized tiles
+// W4A16, fused_attn_matmul's tiles: bf16 tensor cores (wmma), dequantized
+// weight tiles
 // ---------------------------------------------------------------------
 
 constexpr int kWBM = 64, kWBN = 64;  // output tile
-constexpr int kWKS = 32;             // weight rows per k-step
+constexpr int kWKS = 32;             // packed weight rows per k-step
 constexpr int kWThreads = 128;       // 4 warps, 2 x 2, 32 x 32 each
 
-template <bool kInt4>
 struct WmmaSmem {
-  static constexpr int BK = kInt4 ? 2 * kWKS : kWKS;  // logical rows a k-step
+  static constexpr int BK = 2 * kWKS;  // logical rows a k-step
   static constexpr int LDA = BK + 8, LDB = kWBN + 8, LDC = kWBN + 4;
   __align__(32) __nv_bfloat16 As[kWBM][LDA];
   __align__(32) __nv_bfloat16 Bs[BK][LDB];
   __align__(32) float Cs[kWBM][LDC];
 };
 
-template <bool kInt4>
+// K is the logical (padded) K: the weight has K/2 packed rows, gs is the
+// INT4 group size.
 __device__ __forceinline__ void tile_w16_wmma(
-    WmmaSmem<kInt4>& sm, const __nv_bfloat16* __restrict__ x,
+    WmmaSmem& sm, const __nv_bfloat16* __restrict__ x,
     const int8_t* __restrict__ q, const float* __restrict__ scales,
-    __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs,
-    bool per_col, int m0, int n0) {
+    __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs, int m0,
+    int n0) {
   using namespace nvcuda;
-  using Smem = WmmaSmem<kInt4>;
-  constexpr int BK = Smem::BK;
-  constexpr int LDA = Smem::LDA, LDB = Smem::LDB, LDC = Smem::LDC;
+  constexpr int BK = WmmaSmem::BK;
+  constexpr int LDA = WmmaSmem::LDA, LDB = WmmaSmem::LDB,
+                LDC = WmmaSmem::LDC;
   auto& As = sm.As;
   auto& Bs = sm.Bs;
   auto& Cs = sm.Cs;
@@ -367,7 +101,7 @@ __device__ __forceinline__ void tile_w16_wmma(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int steps = (kInt4 ? K / 2 : K) / kWKS;
+  const int steps = K / 2 / kWKS;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -377,17 +111,12 @@ __device__ __forceinline__ void tile_w16_wmma(
 
   for (int s = 0; s < steps; ++s) {
     const int r0 = s * kWKS;
-    int klo, g_lo;
-    if (kInt4) {
-      const int p = r0 / gs;
-      klo = 2 * p * gs + (r0 - p * gs);
-      g_lo = 2 * p;
-    } else {
-      klo = r0;
-      g_lo = r0 / gs;
-    }
-    // A: x columns klo..klo+31 (INT4: and klo+gs..+31) of rows m0..m0+63
-    for (int idx = tid; idx < kWBM * 4 * (kInt4 ? 2 : 1); idx += kWThreads) {
+    // packed row r0 = pair p, row r: k = 2p*gs + r and + gs
+    const int p = r0 / gs;
+    const int klo = 2 * p * gs + (r0 - p * gs);
+    const int g_lo = 2 * p;
+    // A: x columns klo..klo+31 and klo+gs..+31 of rows m0..m0+63
+    for (int idx = tid; idx < kWBM * 4 * 2; idx += kWThreads) {
       const int seg = idx / (kWBM * 4);
       const int j = idx % (kWBM * 4);
       const int i = j / 4, c = (j % 4) * 8;
@@ -399,7 +128,7 @@ __device__ __forceinline__ void tile_w16_wmma(
       }
       *reinterpret_cast<int4*>(&As[i][seg * kWKS + c]) = v;
     }
-    {  // B: 32 weight rows x 64 columns, one 16-byte load a thread
+    {  // B: 32 packed rows x 64 columns, one 16-byte load a thread
       const int rr = tid / 4, cc = (tid % 4) * 16;
       const int4 raw = __ldg(reinterpret_cast<const int4*>(
           q + static_cast<size_t>(r0 + rr) * N + n0 + cc));
@@ -410,18 +139,12 @@ __device__ __forceinline__ void tile_w16_wmma(
       float s_lo[16], s_hi[16];
 #pragma unroll
       for (int j = 0; j < 16; j += 4) {
-        if (kInt4 || !per_col) {
-          const float4 a = __ldg(reinterpret_cast<const float4*>(
-              scales + static_cast<size_t>(g_lo) * N + n0 + cc + j));
-          s_lo[j] = a.x; s_lo[j + 1] = a.y; s_lo[j + 2] = a.z; s_lo[j + 3] = a.w;
-        } else {
-          s_lo[j] = s_lo[j + 1] = s_lo[j + 2] = s_lo[j + 3] = 1.f;
-        }
-        if (kInt4) {
-          const float4 h = __ldg(reinterpret_cast<const float4*>(
-              scales + static_cast<size_t>(g_lo + 1) * N + n0 + cc + j));
-          s_hi[j] = h.x; s_hi[j + 1] = h.y; s_hi[j + 2] = h.z; s_hi[j + 3] = h.w;
-        }
+        const float4 a = __ldg(reinterpret_cast<const float4*>(
+            scales + static_cast<size_t>(g_lo) * N + n0 + cc + j));
+        s_lo[j] = a.x; s_lo[j + 1] = a.y; s_lo[j + 2] = a.z; s_lo[j + 3] = a.w;
+        const float4 h = __ldg(reinterpret_cast<const float4*>(
+            scales + static_cast<size_t>(g_lo + 1) * N + n0 + cc + j));
+        s_hi[j] = h.x; s_hi[j + 1] = h.y; s_hi[j + 2] = h.z; s_hi[j + 3] = h.w;
       }
       // two bf16 a 32-bit word, the lower column in the low half
       unsigned lo[8], hi[8];
@@ -429,28 +152,21 @@ __device__ __forceinline__ void tile_w16_wmma(
       for (int j = 0; j < 16; j += 2) {
         const int v0 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4))) & 0xFF);
         const int v1 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4) + 8)) & 0xFF);
-        __nv_bfloat162 l, h;
-        if (kInt4) {
-          l = __floats2bfloat162_rn(static_cast<float>((v0 & 0xF) - 8) * s_lo[j],
-                                    static_cast<float>((v1 & 0xF) - 8) * s_lo[j + 1]);
-          h = __floats2bfloat162_rn(static_cast<float>(v0 >> 4) * s_hi[j],
-                                    static_cast<float>(v1 >> 4) * s_hi[j + 1]);
-        } else {
-          l = __floats2bfloat162_rn(static_cast<float>(v0) * s_lo[j],
-                                    static_cast<float>(v1) * s_lo[j + 1]);
-          h = l;
-        }
+        const __nv_bfloat162 l = __floats2bfloat162_rn(
+            static_cast<float>((v0 & 0xF) - 8) * s_lo[j],
+            static_cast<float>((v1 & 0xF) - 8) * s_lo[j + 1]);
+        const __nv_bfloat162 h = __floats2bfloat162_rn(
+            static_cast<float>(v0 >> 4) * s_hi[j],
+            static_cast<float>(v1 >> 4) * s_hi[j + 1]);
         lo[j / 2] = *reinterpret_cast<const unsigned*>(&l);
         hi[j / 2] = *reinterpret_cast<const unsigned*>(&h);
       }
       uint4* dst = reinterpret_cast<uint4*>(&Bs[rr][cc]);
       dst[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
       dst[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      if (kInt4) {
-        uint4* dh = reinterpret_cast<uint4*>(&Bs[kWKS + rr][cc]);
-        dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-      }
+      uint4* dh = reinterpret_cast<uint4*>(&Bs[kWKS + rr][cc]);
+      dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
     }
     __syncthreads();
 #pragma unroll
@@ -482,29 +198,16 @@ __device__ __forceinline__ void tile_w16_wmma(
     const int i = idx / kWBN, c = idx % kWBN;
     const int m = m0 + i;
     if (m < M) {
-      float v = Cs[i][c];
-      if (!kInt4 && per_col) v *= scales[n0 + c];
-      out[static_cast<size_t>(m) * N + n0 + c] = __float2bfloat16(v);
+      out[static_cast<size_t>(m) * N + n0 + c] = __float2bfloat16(Cs[i][c]);
     }
   }
 }
 
-template <bool kInt4>
-__device__ __forceinline__ void tile_w16_wmma(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-    const float* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M,
-    int K, int N, int gs, bool per_col, int m0, int n0) {
-  __shared__ WmmaSmem<kInt4> sm;
-  tile_w16_wmma<kInt4>(sm, x, q, scales, out, M, K, N, gs, per_col, m0,
-                       n0);
-}
-
-
 // ---------------------------------------------------------------------
 // The tensor-core body: W8A8, W4A8, W8A16 and W4A16 (quant_matmul.cu,
 // where the design is described), the passes of the fused MLP and of
-// the fused attention + MLP (fused_step.cu) and the grouped W8A16 matmul
-// (grouped_matmul.cu).  Its kernels have internal
+// the fused attention + MLP (fused_step.cu) and the three grouped
+// matmuls (grouped_matmul.cu).  Its kernels have internal
 // linkage, so each source that
 // includes this header launches (and sets the shared-memory limit of) its
 // own copy.
@@ -637,7 +340,7 @@ namespace {
 // [slice bz, min(K, slice (bz + 1))), with 128 WM threads and the dynamic
 // shared memory smem_raw (qmm_smem bytes).  qmm_mma_kernel runs it at its
 // block's coordinates; fused_step.cu's attn_gate_up_kernel runs it in the
-// blocks its attention blocks leave; grouped_matmul.cu's gmm8_mma_kernel
+// blocks its attention blocks leave; grouped_matmul.cu's gmm_mma_kernel
 // at each row tile of its expert, with args taken at the expert's rows.
 template <int kKind, int MT, int WM, bool kPerCol, bool kDual>
 __device__ __forceinline__ void qmm_mma_body(const QmmArgs& args, int bx,

@@ -47,14 +47,14 @@ SIGNATURES = {
     # mt, splits, slice, layer, L, stream
     "qie_quant_matmul8_a8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P],
-    # x, sx, q, scales, group_sizes, out, M, Kp, N, group_size, E, layer,
-    # L, stream
+    # x, sx, q, scales, group_sizes, out, M, Kp, N, group_size, E, mt (the
+    # m16 tiles a warp: 1 or 4), layer, L, stream
     "qie_grouped_matmul4_a8": [_P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, q, scales, group_sizes, out, M, Kp, N, group_size, E, layer, L,
-    # stream
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, scales, group_sizes, out, M, Kp, N, group_size, E, mt, layer,
+    # L, stream
     "qie_grouped_matmul4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _I, _P],
     # x, q, scales, group_sizes, out, M, K, N, G (scale groups; 1 = per
     # column), E, mt (the m16 tiles a warp: 1 or 4), layer, L, stream
     "qie_grouped_matmul8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

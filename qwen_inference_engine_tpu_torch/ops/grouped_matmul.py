@@ -5,7 +5,8 @@
 belong to expert ``e`` (the layout ``models/qwen.moe_mlp`` builds).  Three
 CUDA kernels of ``csrc/grouped_matmul.cu``, each the port of one Pallas
 kernel of the JAX package's ``ops/grouped_matmul.py``, each with its plain
-PyTorch version beside it:
+PyTorch version beside it, all three on the dense matmuls' tensor-core
+body with the row tile ``plan_grouped_matmul`` picks:
 
 * ``grouped_matmul4``: bf16 activations x INT4 plane-pair experts
   (W4A16, ``_grouped_matmul4``);
@@ -13,8 +14,7 @@ PyTorch version beside it:
   (W4A8, ``_grouped_matmul4_a8``);
 * ``grouped_matmul8``: bf16 activations x INT8 experts, a scale per group
   of rows or one per column (``_grouped_matmul8``; INT8 experts never take
-  int8 activations, as in the JAX package), on the dense matmuls'
-  tensor-core body with the row tile ``plan_grouped_matmul8`` picks.
+  int8 activations, as in the JAX package).
 
 The stacks are ``q [L, E, K/pack, N]`` with scales ``[L, E, K/gs, N]``;
 ``layer`` selects the slab without a copy.  ``group_sizes [E]`` int32
@@ -152,6 +152,24 @@ def grouped_matmul8_plain(x, q, scales, group_sizes,
     return _plain(x, q, scales, group_sizes, layer, 8, _group_size8(q, scales))
 
 
+# the tensor-core body's row tiles: 16 rows (mt 1) up to this mean of rows
+# per expert, 64 (mt 4) above
+GROUPED_SMALL_ROWS = 16
+
+
+def plan_grouped_matmul(M: int, E: int) -> int:
+    """``mt`` of the three grouped kernels over ``M`` rows and ``E``
+    experts: the tensor-core body's m16 tiles a warp, as ``plan_split_k``
+    picks them for the dense matmuls.  1 (16-row tiles) where the mean rows
+    per expert, ``ceil(M / E)``, is at most 16 (every decode step), else 4
+    (64-row tiles).  The host never reads the routing: the mean is all it
+    knows."""
+    return 1 if -(-M // E) <= GROUPED_SMALL_ROWS else 4
+
+
+plan_grouped_matmul8 = plan_grouped_matmul
+
+
 # ----------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------
@@ -213,7 +231,8 @@ def grouped_matmul4_a8(xq, sx, q, scales, group_sizes, layer: int,
     rc = cuda_lib.library().qie_grouped_matmul4_a8(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), scales.data_ptr(),
         group_sizes.data_ptr(), out.data_ptr(), M, Kp, N, group_size, E,
-        int(layer), L, cuda_lib.stream_handle(xq.device))
+        plan_grouped_matmul(M, E), int(layer), L,
+        cuda_lib.stream_handle(xq.device))
     cuda_lib.check(rc, name)
     grouped_matmul4_a8.launches += 1
     return out
@@ -238,26 +257,11 @@ def grouped_matmul4(x, q, scales, group_sizes, layer: int,
         return out
     rc = cuda_lib.library().qie_grouped_matmul4(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), M, Kp, N, group_size, E, int(layer), L,
-        cuda_lib.stream_handle(x.device))
+        out.data_ptr(), M, Kp, N, group_size, E, plan_grouped_matmul(M, E),
+        int(layer), L, cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, name)
     grouped_matmul4.launches += 1
     return out
-
-
-# the tensor-core body's row tiles: 16 rows (mt 1) up to this mean of rows
-# per expert, 64 (mt 4) above
-GROUPED8_SMALL_ROWS = 16
-
-
-def plan_grouped_matmul8(M: int, E: int) -> int:
-    """``mt`` of ``grouped_matmul8`` over ``M`` rows and ``E`` experts:
-    the tensor-core body's m16 tiles a warp, as ``plan_split_k`` picks them
-    for the dense matmuls.  1 (16-row tiles) where the mean rows per
-    expert, ``ceil(M / E)``, is at most 16 (every decode step), else 4
-    (64-row tiles).  The host never reads the routing: the mean is all it
-    knows."""
-    return 1 if -(-M // E) <= GROUPED8_SMALL_ROWS else 4
 
 
 def grouped_matmul8(x, q, scales, group_sizes, layer: int) -> torch.Tensor:
@@ -280,7 +284,7 @@ def grouped_matmul8(x, q, scales, group_sizes, layer: int) -> torch.Tensor:
         return out
     rc = cuda_lib.library().qie_grouped_matmul8(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), M, K, N, G, E, plan_grouped_matmul8(M, E), int(layer),
+        out.data_ptr(), M, K, N, G, E, plan_grouped_matmul(M, E), int(layer),
         L, cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, name)
     grouped_matmul8.launches += 1

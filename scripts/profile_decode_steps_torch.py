@@ -14,11 +14,17 @@ Weights are seeded random, drawn packed on the card:
   ``kv_append_ragged_t`` and attends with ``decode_attention_contiguous``;
 * ``moe w8a16``: Qwen3-30B-A3B W8A16 gs 128 at 12 layers, bf16 KV, batch
   32 after a 512-token prefill (``[moe generate]``'s W8A16 run): uniform
-  decode steps, three ``grouped_matmul8`` calls a layer at M = 256.
+  decode steps, three ``grouped_matmul8`` calls a layer at M = 256;
+* ``moe w4a8``: the same at W4A8 gs 256, 48 layers, INT8 KV (the JAX
+  bench's MoE row, ``[moe generate]``'s W4A8 run): ``grouped_matmul4_a8``;
+* ``moe w4a16``: W4A16 gs 128 at 24 layers, bf16 KV (``[moe generate]``'s
+  W4A16 run): ``grouped_matmul4``.
 
-For each: a prefill, 8 warm-up steps, 8 steps on the host clock, 8 under
-the profiler; per step the host ms, the device busy ms, the device
-kernels, and the device ms of each of the top kernels.  Prints one JSON
+For each: a prefill twice (the second's ms on the host clock, ending in a
+device sync: the MoE rows' prefill is ``[moe generate]``'s, M = 131072
+rows a projection), 8 warm-up steps, 8 steps on the host clock, 8 under the
+profiler; per step the host ms, the device busy ms, the device kernels,
+and the device ms of each of the top kernels.  Prints one JSON
 object (and writes it to OUT.json when given), with the card's name and
 power limit.  Needs a CUDA device.
 """
@@ -53,16 +59,22 @@ def main() -> int:
     out = {"root": root, "card": card}
     g = torch.Generator(device="cuda").manual_seed(15)
 
-    def profile_steps(cfg, params, lengths, max_seq, uniform):
+    def profile_steps(cfg, params, lengths, max_seq, uniform,
+                      kv_dtype=torch.bfloat16):
         B, T = len(lengths), max(lengths)
         toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
                              device="cuda")
         lens = torch.tensor(lengths, device="cuda")
         cache = KVCache.create(cfg.num_layers, B, max_seq, cfg.num_kv_heads,
-                               cfg.head_dim, device="cuda")
+                               cfg.head_dim, dtype=kv_dtype, device="cuda")
         with torch.inference_mode():
-            logits, cache = qwen.prefill_chunked(params, cfg, toks, lens,
-                                                 cache, chunk=512)
+            for _ in range(2):  # the first a warm-up; the second timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = qwen.prefill_chunked(params, cfg, toks, lens,
+                                                     cache, chunk=512)
+                torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
             state = {"tok": logits.argmax(-1), "cache": cache}
 
             def run(first):
@@ -79,7 +91,8 @@ def main() -> int:
             host_ms = (time.perf_counter() - t0) * 1e3 / STEPS
             busy, kernels, top = cs._profile_steps(
                 torch, lambda: run(2 * STEPS), STEPS)
-        return {"step_ms": host_ms, "step_device_busy_ms": busy,
+        return {"prefill_ms": prefill_ms, "step_ms": host_ms,
+                "step_device_busy_ms": busy,
                 "step_kernels": kernels,
                 "top_ms_per_step": {k[:80]: ms / STEPS for k, ms, _ in top}}
 
@@ -94,6 +107,17 @@ def main() -> int:
     params = cs.moe_params(torch, cfg, 8, 128, 12)
     out["moe w8a16"] = profile_steps(cfg, params, [512] * 32, 768,
                                      uniform=True)
+    del params
+    torch.cuda.empty_cache()
+    for name, bits, gs, L, act, kv in (
+            ("moe w4a8", 4, 256, 48, 8, torch.int8),
+            ("moe w4a16", 4, 128, 24, 0, torch.bfloat16)):
+        cfg = PRESETS["qwen3-30b-a3b"].replace(num_layers=L, act_bits=act)
+        params = cs.moe_params(torch, cfg, bits, gs, L)
+        out[name] = profile_steps(cfg, params, [512] * 32, 768, uniform=True,
+                                  kv_dtype=kv)
+        del params
+        torch.cuda.empty_cache()
     text = json.dumps(out)
     print(text)
     if len(sys.argv) > 2:

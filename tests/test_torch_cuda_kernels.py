@@ -15,7 +15,9 @@ scratch-page writes), the INT8 pool's kernels and the speculative verify
 (T = 2, 16 and 17, windows straddling pages and windows wider than their
 page, the int8 scale writes), the grouped MoE matmuls (one row, one
 expert taking every row, 127 empty experts of 128, decode- and
-prefill-like expert sizes, odd column tiles, a padded K), the fused
+prefill-like expert sizes, odd column tiles, a padded K; the three on
+the tensor-core body at 16- and 64-row tiles, a layer past 2^31 weight
+bytes, an INT4 call over one expert bit-equal to the dense kernel), the fused
 single-pass MLP, the fused attention + MLP and the uniform bf16 append of
 the double-pumped decode (tiny and Qwen2.5-7B shapes, NaN past each row's
 length, two calls bit for bit), ``decode_step_pumped`` against
@@ -359,9 +361,9 @@ def test_dispatcher_on_padded_k_matches_plain(gen, bits, act_bits, gs):
 
 # (E, group sizes, N): one row to one expert; one expert taking every row;
 # E = 128 with 127 empty; decode (256 rows over 128 experts, ~2 each: the
-# INT4 kernels' CUDA-core tiles, W8A16's 16-row tensor-core tiles);
-# prefill-like experts of 7..200 rows (the 64-row tiles) with every tile
-# straddling; N of an odd number of column tiles
+# 16-row tensor-core tiles); prefill-like experts of 7..200 rows (the
+# 64-row tiles) with every tile straddling; N of an odd number of column
+# tiles
 GROUPED_SIZES = {
     "M=1": (4, [0, 0, 1, 0], 256),
     "one expert": (5, [300, 0, 0, 0, 0], 256),
@@ -478,6 +480,105 @@ def test_grouped_matmul8_takes_a_layer_past_2_31_weight_bytes(gen):
     x = _bf16(gen, int(gsz.sum()), K)
     got = gm.grouped_matmul8(x, q, s, gsz, layer)
     _check_matmul(got, gm.grouped_matmul8_plain(x, q, s, gsz, layer), 2 ** -6)
+
+
+def _grouped4_call(gm, kind, x, q, s, gsz, layer, gs):
+    """(kernel, plain, args) of an INT4 grouped kernel; W4A8 quantizes x
+    per token first."""
+    if kind == "w4a8":
+        xq, sx = qm.quantize_activations(x)
+        return (gm.grouped_matmul4_a8, gm.grouped_matmul4_a8_plain,
+                (xq, sx.reshape(-1).contiguous(), q, s, gsz, layer, gs))
+    return gm.grouped_matmul4, gm.grouped_matmul4_plain, (x, q, s, gsz, layer,
+                                                          gs)
+
+
+# (kind, N): W4A8 takes N a multiple of 128, W4A16 of 64 (N 192: a last
+# column tile of 64)
+GROUPED4_KINDS = [("w4a8", 256), ("w4", 192), ("w4", 256)]
+
+
+@pytest.mark.parametrize("kind,N", GROUPED4_KINDS,
+                         ids=[f"{k} N {n}" for k, n in GROUPED4_KINDS])
+@pytest.mark.parametrize("gs", [128, 256], ids=["gs 128", "gs 256"])
+@pytest.mark.parametrize("case", sorted(GROUPED8_CASES))
+def test_grouped_matmul4_tensor_core_tiles_match_plain(gen, case, gs, kind,
+                                                       N):
+    """grouped_matmul4_a8 / grouped_matmul4 on qmm_mma_body<kW4A8> /
+    <kW4A16>, one block a (128-column tile, expert) walking its expert's
+    row tiles, at layer 1 of a stacked [2, E, Kp/2, N] tensor (Kp 1024: 4
+    plane pairs at gs 128, 2 at gs 256): GROUPED8_CASES's experts (one row,
+    300 rows alone and among 127, empty experts among straddling ones,
+    group sizes summing past M) under the plan's tile height (16 or 64
+    rows), against the plain version (2^-6 of the largest output), finite,
+    two calls bit for bit, one launch a call."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    E, sizes, M, mt = GROUPED8_CASES[case]
+    gsz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    M = M or sum(sizes)
+    K = 1024
+    assert gm.plan_grouped_matmul(M, E) == mt
+    q = torch.randint(-128, 128, (2, E, K // 2, N), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    s = torch.rand((2, E, K // gs, N), generator=gen, device="cuda") * 0.01
+    fn, plain, args = _grouped4_call(gm, kind, _bf16(gen, M, K), q, s, gsz, 1,
+                                     gs)
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    assert fn.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(got.isfinite().all())
+    _check_matmul(got, plain(*args), 2 ** -6)
+
+
+@pytest.mark.parametrize("kind", ["w4a8", "w4"])
+def test_grouped_matmul4_takes_a_layer_past_2_31_weight_bytes(gen, kind):
+    """Layer 23 of a 24-layer stack of Qwen3-30B-A3B's gate experts (128 x
+    1024 packed rows x 768, INT4 gs 256: the slab starts 2.3e9 bytes in,
+    past a 32-bit offset) at the decode shape (M 256), against the plain
+    version."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    L, E, K, N, layer, gs = 24, 128, 2048, 768, 23, 256
+    q = torch.randint(-128, 128, (L, E, K // 2, N), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    assert layer * E * (K // 2) * N > 2 ** 31
+    s = torch.rand((L, E, K // gs, N), generator=gen, device="cuda") * 1e-2
+    gsz = _group_sizes(gen, E, None)
+    fn, plain, args = _grouped4_call(gm, kind, _bf16(gen, int(gsz.sum()), K),
+                                     q, s, gsz, layer, gs)
+    _check_matmul(fn(*args), plain(*args), 2 ** -6)
+
+
+@pytest.mark.parametrize("E", [8, 128], ids=["64-row tiles", "16-row tiles"])
+@pytest.mark.parametrize("gs", [128, 256], ids=["gs 128", "gs 256"])
+@pytest.mark.parametrize("kind", ["w4a8", "w4"])
+def test_grouped_matmul4_one_expert_equals_the_dense_kernel(gen, kind, gs, E):
+    """A grouped INT4 call whose rows (300 > 64: the dense kernel's one K
+    slice) all go to expert 3 equals the dense quant_matmul4_a8 /
+    quant_matmul4 over that expert's slab bit for bit: both run
+    qmm_mma_body of the same kind, in the same K order and fold, with one
+    slice (E 8: the grouped 64-row tiles, E 128: the 16-row ones)."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    M, K, N, layer = 300, 1024, 256, 1
+    sizes = [0] * E
+    sizes[3] = M
+    gsz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    q = torch.randint(-128, 128, (2, E, K // 2, N), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    s = torch.rand((2, E, K // gs, N), generator=gen, device="cuda") * 0.01
+    fn, _, args = _grouped4_call(gm, kind, _bf16(gen, M, K), q, s, gsz, layer,
+                                 gs)
+    got = fn(*args)
+    slab = (q[layer, 3][None], s[layer, 3][None])
+    if kind == "w4a8":
+        want = qm.quant_matmul4_a8(args[0], args[1], *slab, 0, gs)
+    else:
+        want = qm.quant_matmul4(args[0], *slab, 0, gs)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("bits,act_bits", [(4, 0), (4, 8), (8, 0)])

@@ -175,14 +175,67 @@ def test_quantize_linear_takes_expert_stacks(bits):
     np.testing.assert_array_equal(tq.scales.numpy(), np.asarray(jq.scales))
 
 
+class _FakeLibrary:
+    """Stands in for the kernel library on the CPU: records each grouped
+    entry point's arguments and returns 0 (launched)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] = args
+            return 0
+        return entry
+
+
+def _launch_on_meta(kernel: str, M: int, E: int):
+    """Call a grouped wrapper on meta tensors (the kernel path: not a CPU
+    tensor) at M rows over E experts, K 256 and N 128."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    gsz = meta(E, dtype=torch.int32)
+    if kernel == "grouped_matmul4_a8":
+        return tgm.grouped_matmul4_a8(
+            meta(M, 256, dtype=torch.int8), meta(M),
+            meta(2, E, 128, 128, dtype=torch.int8), meta(2, E, 2, 128), gsz, 1,
+            128)
+    if kernel == "grouped_matmul4":
+        return tgm.grouped_matmul4(
+            meta(M, 256, dtype=torch.bfloat16),
+            meta(2, E, 128, 128, dtype=torch.int8), meta(2, E, 2, 128), gsz, 1,
+            128)
+    return tgm.grouped_matmul8(
+        meta(M, 256, dtype=torch.bfloat16),
+        meta(2, E, 256, 128, dtype=torch.int8), meta(2, E, 2, 128), gsz, 1)
+
+
+@pytest.mark.parametrize("kernel", ["grouped_matmul4_a8", "grouped_matmul4",
+                                    "grouped_matmul8"])
 @pytest.mark.parametrize("M,E,mt", [
     (1, 128, 1), (256, 128, 1), (2048, 128, 1), (2049, 128, 4),
     (4096, 128, 4), (131072, 128, 4), (16, 1, 1), (17, 1, 4), (300, 5, 4),
 ])
-def test_grouped_matmul8_plan_follows_the_mean_rows_per_expert(M, E, mt):
-    """plan_grouped_matmul8: the tensor-core body's 16-row tiles (mt 1)
-    where ceil(M / E) <= 16, as at every 30B-A3B decode step (batch 32 x
-    top-8 = 256 rows over 128 experts), 64-row tiles (mt 4) above, as a
-    512-token piece (4096 rows) and a batch of such prompts take."""
-    assert tgm.plan_grouped_matmul8(M, E) == mt
+def test_grouped_matmul8_plan_follows_the_mean_rows_per_expert(
+        monkeypatch, M, E, mt, kernel):
+    """plan_grouped_matmul (plan_grouped_matmul8 is its other name), the
+    one plan of the three grouped kernels: the tensor-core body's 16-row
+    tiles (mt 1) where ceil(M / E) <= 16, as at every 30B-A3B decode step
+    (batch 32 x top-8 = 256 rows over 128 experts), 64-row tiles (mt 4)
+    above, as a 512-token piece (4096 rows) and a batch of such prompts
+    take; each wrapper hands that mt to its entry point (the library
+    replaced by a recorder, meta tensors for the kernel path)."""
+    assert tgm.plan_grouped_matmul(M, E) == mt
+    assert tgm.plan_grouped_matmul8 is tgm.plan_grouped_matmul
     assert mt in (1, 4) and (mt == 1) == (-(-M // E) <= 16)
+    lib = _FakeLibrary()
+    monkeypatch.setattr(tgm.cuda_lib, "library", lambda: lib)
+    monkeypatch.setattr(tgm.cuda_lib, "stream_handle", lambda device: 0)
+    fn = getattr(tgm, kernel)
+    before = fn.launches
+    out = _launch_on_meta(kernel, M, E)
+    assert out.shape == (M, 128) and fn.launches == before + 1
+    (args,) = lib.calls.values()
+    # the entry points take (..., E, mt, layer, L, stream)
+    assert args[-5:-1] == (E, mt, 1, 2)
