@@ -919,6 +919,7 @@ def check_decode_q8(torch, cfg):
 
 
 PAGE = 512          # the serving page size (scheduler default)
+SERVE_MAX_PAGES = 64  # the scheduler's default max_pages_per_seq
 PAGED_LENS = [1, 37, 300, 511, 512, 513, 1100, 1440]
 
 
@@ -961,51 +962,119 @@ def _paged_pool(torch, cfg, g, L=2, P=40, max_pages=4, rows=8):
 
 def check_paged_decode(torch, cfg):
     """Paged decode at 8 slots, lengths 1..1440 over pages of 512, NaN in
-    the pages no table holds and in each row's pages past its length."""
-    from qwen_inference_engine_tpu_torch.kvcache.cache import paged_read
+    the pages no table holds and in each row's pages past its length: the
+    tables of the live rows (4 pages, as the scheduler trims them), then
+    the same pool through tables of the default serving width (64 pages
+    of 512, zero past each row's pages, as the scheduler holds them), with
+    each plan and how many splits of the 1440-key row hold keys; then
+    check_paged_layouts."""
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 
-    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hq, D = cfg.num_heads, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(7)
     k, v, tables = _paged_pool(torch, cfg, g)
     _stale(torch, k, v, tables, PAGED_LENS)
-    B, layer = len(PAGED_LENS), 1
-    lens = torch.tensor(PAGED_LENS, device="cuda", dtype=torch.int32)
+    B = len(PAGED_LENS)
     q = torch.randn((B, 1, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
-    args = (q, k, v, tables, lens, PAGE, layer)
-    tol = PAGED_TOL
-    got = pa.paged_decode_attention_stacked(*args)
-    ref = pa.paged_decode_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs().max().item()
-    rel = rel_err(got, ref)
-    finite = bool(got.isfinite().all())
-    ms = time_ms(torch, lambda: pa.paged_decode_attention_stacked(*args))
-    plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_plain(*args))
-    gather_ms = time_ms(torch, lambda: (paged_read(k[layer], tables),
-                                        paged_read(v[layer], tables)))
-    kl = pa.masked_pages(k[layer], tables, lens)
-    vl = pa.masked_pages(v[layer], tables, lens)
-    mask = (torch.arange(kl.shape[2], device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    sdpa_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl, mask=mask))
-    n_keys = sum(PAGED_LENS)
-    n_bytes = 2 * (2 * n_keys * Hk * D) + 2 * (2 * B * Hq * D) + 4 * B \
-        + 4 * tables.numel()
-    b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D, "bf16")
-    print(f"  paged_decode_attention_stacked lens {PAGED_LENS} page {PAGE}: "
-          f"err {err:.3g}, relative {rel:.3g} (tol {tol:.3g} of each vector's "
-          f"max) | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa "
-          f"{sdpa_ms:.4f} + gather {gather_ms:.4f} | bound {b_ms:.5f} "
-          f"({b_by})", flush=True)
-    if not rel <= tol or not finite:
-        fail(f"paged_decode_attention_stacked relative err {rel} > {tol} or "
-             f"non-finite ({finite})")
-    return {"paged_decode_attention_stacked": dict(
-        shape=f"B={B} lens={PAGED_LENS} page={PAGE} Hq={Hq} Hk={Hk}",
-        max_abs_err=err, rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
-        library_ms=sdpa_ms, gather_ms=gather_ms, bound_ms=b_ms,
-        bound_by=b_by)}
+    name = "paged_decode_attention_stacked"
+    rec = paged_attention_case(
+        torch, name, pa.paged_decode_attention_stacked,
+        pa.paged_decode_attention_plain, q, (k, v), (), tables, PAGED_LENS)
+    wide = torch.zeros((B, SERVE_MAX_PAGES), dtype=torch.int32, device="cuda")
+    wide[:, :tables.shape[1]] = tables
+    rec["at_default_width"] = paged_attention_case(
+        torch, name + " (default width)", pa.paged_decode_attention_stacked,
+        pa.paged_decode_attention_plain, q, (k, v), (), wide, PAGED_LENS)
+    for r in (rec, rec["at_default_width"]):
+        span, _, _ = r["plan"]
+        r["splits_holding_keys_1440"] = -(-max(PAGED_LENS) // span)
+    print(f"  {name} 8 slots at the default width ({SERVE_MAX_PAGES} pages "
+          f"of {PAGE}): plan (span, splits, row_groups) untrimmed "
+          f"{rec['at_default_width']['plan']}, the 1440-key row in "
+          f"{rec['at_default_width']['splits_holding_keys_1440']} split(s); "
+          f"trimmed to {tables.shape[1]} pages {rec['plan']}, in "
+          f"{rec['splits_holding_keys_1440']}", flush=True)
+    if rec["splits_holding_keys_1440"] < 2:
+        fail(f"{name}: the trimmed tables leave the 1440-key row in one "
+             f"split ({rec['plan']})")
+    rec["layouts"] = check_paged_layouts(torch, cfg)
+    return {name: rec}
+
+
+def check_paged_layouts(torch, cfg):
+    """The bf16 paged decode over one cache stored as pages of 512 and of
+    16, in order (identity tables, max_pages * page = S) and shuffled: one
+    plan (the contiguous decode's: it depends on S alone) and the same
+    arithmetic a row, so the bits of decode_attention_contiguous over the
+    cache itself through every layout, at check_decode's ragged lengths.
+    Then the serving verify's rows (T = 5, one row group) bit-equal to the
+    decode of each token over the same pages, what a drafter equal to the
+    target relies on."""
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
+    from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
+
+    L, B, S, layer = 2, 4, RAGGED_S, 1
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(17)
+    kc, vc = (torch.randn((L, B, Hk, S, D), generator=g, device="cuda"
+                          ).to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, 1, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    lens = torch.tensor([69, 152, 332, 1000], device="cuda", dtype=torch.int32)
+    want = da.decode_attention_contiguous(q, kc, vc, layer, lens)
+    outs = {}
+    for page in (512, 16):
+        n = S // page
+        for shuffle in (False, True):
+            order = (torch.randperm(B * n, generator=g, device="cuda")
+                     if shuffle else torch.arange(B * n, device="cuda"))
+
+            def pool(c):
+                rows = c.reshape(L, B, Hk, n, page, D).permute(
+                    0, 1, 3, 2, 4, 5).reshape(L, B * n, Hk, page, D)
+                out = torch.empty_like(
+                    rows, memory_format=torch.contiguous_format)
+                out[:, order] = rows
+                return out
+
+            tables = order.to(torch.int32).reshape(B, n)
+            outs[(page, shuffle)] = pa.paged_decode_attention_stacked(
+                q, pool(kc), pool(vc), tables, lens, page, layer)
+    first = outs[(512, False)]
+    same = all(torch.equal(o, first) for o in outs.values())
+    equal = torch.equal(first, want)
+    rel = rel_err(first, want)
+    plan = pa.plan_paged_split(B, Hk, 1, S)
+    print(f"  paged_decode_attention_stacked one cache as pages of 512 and "
+          f"16, in order and shuffled, lens {lens.tolist()} of S {S} (plan "
+          f"{plan}, decode_attention_contiguous's "
+          f"{da.plan_decode_split(B, Hk, S)}): the same bits through every "
+          f"layout {same}; bit-equal to decode_attention_contiguous {equal} "
+          f"(relative {rel:.3g})", flush=True)
+    if not (same and equal) or plan != da.plan_decode_split(B, Hk, S):
+        fail(f"paged_decode_attention_stacked: layouts give other bits "
+             f"({same}), or not the bits of decode_attention_contiguous "
+             f"({rel} from it)")
+    # the verify's rows against the decode of each token
+    gp = torch.Generator(device="cuda").manual_seed(18)
+    k, v, ptables = _paged_pool(torch, cfg, gp)
+    vlens = verify_lens(SPEC_T)
+    _stale(torch, k, v, ptables, vlens)
+    qv = torch.randn((len(vlens), SPEC_T, Hq, D), generator=gp,
+                     device="cuda").to(torch.bfloat16)
+    vl = torch.tensor(vlens, device="cuda", dtype=torch.int32)
+    rows = pa.paged_verify_attention_stacked(qv, k, v, ptables, vl, PAGE,
+                                             layer)
+    rows_same = all(torch.equal(pa.paged_decode_attention_stacked(
+        qv[:, t:t + 1].contiguous(), k, v, ptables, vl - SPEC_T + t + 1,
+        PAGE, layer)[:, 0], rows[:, t]) for t in range(SPEC_T))
+    print(f"  paged_verify_attention_stacked T={SPEC_T}: every row bit-equal "
+          f"to the decode of its token {rows_same}", flush=True)
+    if not rows_same:
+        fail("paged_verify_attention_stacked: a row differs from the decode "
+             "of its token")
+    return dict(layouts_bit_equal=same, bit_equal_contiguous=equal,
+                rel_err_vs_contiguous=rel,
+                verify_rows_equal_decode=rows_same)
 
 
 def _q8_pool(torch, k, v):
@@ -1031,9 +1100,11 @@ def _pool_bytes(pools, scales, n_keys, Hk, D) -> int:
 def paged_attention_case(torch, name, kern, plain, q, pools, scales, tables,
                          lens_list, layer=1):
     """One paged decode / verify kernel against its plain version: q [B, T,
-    Hq, D], token t of row b at lens[b] - T + t.  The library yardstick is
-    SDPA over a gathered (and, for int8, dequantized) copy, the gather
-    beside it.  Returns the JSON record."""
+    Hq, D], token t of row b at lens[b] - T + t.  Two calls must be
+    bit-identical.  Timed a call and in a CUDA graph; the library
+    yardstick is SDPA over a gathered (and, for int8, dequantized) copy, a
+    call and in a graph, the gather beside it.  Returns the JSON record,
+    with the plan (span, splits, row_groups)."""
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 
     B, T, Hq, D = q.shape
@@ -1041,12 +1112,15 @@ def paged_attention_case(torch, name, kern, plain, q, pools, scales, tables,
     lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
     args = (q, *pools, *scales, tables, lens, PAGE, layer)
     got = kern(*args)
+    again = kern(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     rel = rel_err(got, ref)
     finite = bool(got.isfinite().all())
+    same = bool(torch.equal(got, again))
     ms = time_ms(torch, lambda: kern(*args))
+    g_ms = graph_ms(torch, lambda: kern(*args))
     plain_ms = time_ms(torch, lambda: plain(*args))
     sc = scales if scales else (None, None)
 
@@ -1059,25 +1133,35 @@ def paged_attention_case(torch, name, kern, plain, q, pools, scales, tables,
     key = torch.arange(kl.shape[2], device="cuda")
     mask = ((key[None, None, :] <= pos[:, :, None])
             & (key[None, None, :] < lens.long()[:, None, None]))[:, None]
-    sdpa_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl,
-                                   mask=mask))
+    sdpa = _sdpa(torch, q.transpose(1, 2), kl, vl, mask=mask)
+    sdpa_ms = time_ms(torch, sdpa)
+    sdpa_g_ms = graph_ms(torch, sdpa)
+    del kl, vl
     n_bytes = _pool_bytes(pools, scales, sum(lens_list), Hk, D) \
         + 2 * (2 * B * T * Hq * D) + 4 * B + 4 * tables.numel()
     n_ops = 4 * Hq * D * sum(n - T + t + 1 for n in lens_list
                              for t in range(T))
     b_ms, b_by = bound(n_bytes, n_ops, "bf16")
+    groups = pa.paged_row_groups(T, Hq // Hk)
+    plan = (*pa.plan_paged_split(B, Hk, groups, tables.shape[1] * PAGE),
+            groups)
     tol = PAGED_TOL
-    print(f"  {name} T={T} lens {lens_list} page {PAGE}: err {err:.3g}, "
-          f"relative {rel:.3g} (tol {tol:.3g} of each vector's max) | kernel "
-          f"{ms:.4f} ms | plain {plain_ms:.4f} | sdpa {sdpa_ms:.4f} + gather "
-          f"{gather_ms:.4f} | bound {b_ms:.5f} ({b_by})", flush=True)
-    if not rel <= tol or not finite:
-        fail(f"{name} T={T} relative err {rel} > {tol} or non-finite "
-             f"({finite})")
-    return dict(shape=f"B={B} T={T} lens={lens_list} page={PAGE} Hq={Hq} "
-                      f"Hk={Hk}", max_abs_err=err, rel_err=rel, tol=tol,
-                ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                gather_ms=gather_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"  {name} T={T} lens {lens_list} page {PAGE} x "
+          f"{tables.shape[1]} pages: err {err:.3g}, relative {rel:.3g} (tol "
+          f"{tol:.3g} of each vector's max), two calls bit-identical {same} "
+          f"| plan (span, splits, row_groups) {plan} | kernel {ms:.4f} ms | "
+          f"in a CUDA graph {g_ms:.4f} | plain {plain_ms:.4f} | sdpa "
+          f"{sdpa_ms:.4f} (graph {sdpa_g_ms:.4f}) + gather {gather_ms:.4f} "
+          f"| bound {b_ms:.5f} ({b_by})", flush=True)
+    if not rel <= tol or not finite or not same:
+        fail(f"{name} T={T} relative err {rel} > {tol}, non-finite "
+             f"({finite}) or two calls differ ({same})")
+    return dict(shape=f"B={B} T={T} lens={lens_list} page={PAGE} "
+                      f"max_pages={tables.shape[1]} Hq={Hq} Hk={Hk}",
+                max_abs_err=err, rel_err=rel, tol=tol, ms=ms, graph_ms=g_ms,
+                plain_ms=plain_ms, library_ms=sdpa_ms,
+                library_graph_ms=sdpa_g_ms, gather_ms=gather_ms,
+                bound_ms=b_ms, bound_by=b_by, plan=plan)
 
 
 def verify_lens(T):
@@ -1088,11 +1172,12 @@ def verify_lens(T):
 
 
 def check_paged_q8_and_verify(torch, cfg):
-    """_paged_bhgd_q8 (decode at PAGED_LENS; verify at T = 5, 16 and 17, a
-    window wider than 16 rows) and the bf16 verify shape of _paged_bhgd (T
-    = 5, 16 and 17), 8 slots, pages of 512,
-    NaN in the pages no table holds and past each row's length (NaN scales
-    for int8).  The JSON line keeps T = 5, the serving verify's shape."""
+    """_paged_bhgd_q8 (decode at PAGED_LENS; verify at T = 5, 16 and 17:
+    one row group of 35 rows, two of 112 and 119) and the bf16 verify shape
+    of _paged_bhgd (T = 5, 16 and 17), 8 slots, pages of 512, NaN in the
+    pages no table holds and past each row's length (NaN scales for int8).
+    The JSON line keeps T = 5, the serving verify's shape, with T = 16 and
+    17 under at_T16 / at_T17."""
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 
     Hq, D = cfg.num_heads, cfg.head_dim
@@ -1109,6 +1194,7 @@ def check_paged_q8_and_verify(torch, cfg):
         pa.paged_decode_attention_stacked_q8,
         pa.paged_decode_attention_q8_plain, q, (k8, v8), (ks, vs), tables,
         PAGED_LENS)
+    by_t = {}
     for T in (17, 16, 5):
         lens = verify_lens(T)
         k, v = k0.clone(), v0.clone()
@@ -1116,15 +1202,20 @@ def check_paged_q8_and_verify(torch, cfg):
         k8, v8, ks, vs = _q8_pool(torch, k, v)
         q = torch.randn((B, T, Hq, D), generator=g,
                         device="cuda").to(torch.bfloat16)
-        recs["paged_verify_attention_stacked"] = paged_attention_case(
-            torch, "paged_verify_attention_stacked",
-            pa.paged_verify_attention_stacked, pa.paged_decode_attention_plain,
-            q, (k, v), (), tables, lens)
-        recs["paged_verify_attention_stacked_q8"] = paged_attention_case(
-            torch, "paged_verify_attention_stacked_q8",
-            pa.paged_verify_attention_stacked_q8,
-            pa.paged_decode_attention_q8_plain, q, (k8, v8), (ks, vs), tables,
-            lens)
+        by_t[T] = {
+            "paged_verify_attention_stacked": paged_attention_case(
+                torch, "paged_verify_attention_stacked",
+                pa.paged_verify_attention_stacked,
+                pa.paged_decode_attention_plain, q, (k, v), (), tables,
+                lens),
+            "paged_verify_attention_stacked_q8": paged_attention_case(
+                torch, "paged_verify_attention_stacked_q8",
+                pa.paged_verify_attention_stacked_q8,
+                pa.paged_decode_attention_q8_plain, q, (k8, v8), (ks, vs),
+                tables, lens)}
+    for name in by_t[5]:
+        recs[name] = dict(by_t[5][name], at_T16=by_t[16][name],
+                          at_T17=by_t[17][name])
     return recs
 
 

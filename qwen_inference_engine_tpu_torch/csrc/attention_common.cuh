@@ -1,8 +1,9 @@
-// CUDA-core core of the port's attention kernels (the paged decode, verify
-// and continuation chunks and fused_attn_matmul's attention), for a bf16 or
-// an int8 KV cache; flash, the contiguous chunks, the four contiguous
-// decodes (ragged bf16, appending, fresh and INT8-KV) and fused_attn_mlp's
-// attention run on the tensor-core core of attention_mma.cuh.
+// CUDA-core core of the port's attention kernels (the paged continuation
+// chunks and fused_attn_matmul's attention), for a bf16 or an int8 KV
+// cache; flash, the contiguous chunks, the four contiguous decodes (ragged
+// bf16, appending, fresh and INT8-KV), the paged decode and verify and
+// fused_attn_mlp's attention run on the tensor-core core of
+// attention_mma.cuh.
 //
 // One block of D threads (one per output dimension) runs the online
 // softmax of up to BR query rows over keys [0, n_keys) in tiles of BK keys:
@@ -13,9 +14,7 @@
 //      products over D (int8 keys dequantized in registers: the dot of the
 //      raw bytes times the key's scale), and masks keys past each row's
 //      causal limit (key j is visible to row i iff
-//      j <= lim0 + ((lim_row0 + i) / lim_group) * lim_step: lim_group rows
-//      share a limit, as the G query heads of one token do in the paged
-//      verify, whose block starts at flattened row lim_row0);
+//      j <= lim0 + i * lim_step);
 //   3. one warp per row updates the running max / sum and turns scores
 //      into probabilities;
 //   4. each thread rescales its BR accumulators and adds P @ V for its
@@ -70,22 +69,27 @@ struct ContiguousKeys {
 };
 
 // Key j of one (layer, KV head) in the stacked page pool [L, P, Hk, page,
-// D]: the base pointers point at page 0 of that layer and head, so key j
-// is at tables[j / page] * page_stride + (j % page) * D elements, and its
-// scale (an int8 pool's [L, P, Hk, page]) at tables[j / page] *
-// scale_stride + j % page.
+// D], counted from the row's key `first` (0 unless a caller splits the
+// keys across blocks): the base pointers point at page 0 of that layer
+// and head, so key j is sequence key t = first + j, at tables[t / page] *
+// page_stride + (t % page) * D elements, and its scale (an int8 pool's
+// [L, P, Hk, page]) at tables[t / page] * scale_stride + t % page.  A
+// split's first key need not start a page.
 struct PagedKeys {
   const int* table;        // this row's block table
   int page;                // tokens per page
   int D;
   long long page_stride;   // elements from one page to the next: Hk*page*D
   long long scale_stride;  // scales from one page to the next: Hk*page
+  int first = 0;           // sequence key of key 0
   __device__ __forceinline__ long long offset(int j) const {
-    return static_cast<long long>(table[j / page]) * page_stride +
-           static_cast<long long>(j % page) * D;
+    const int t = first + j;
+    return static_cast<long long>(table[t / page]) * page_stride +
+           static_cast<long long>(t % page) * D;
   }
   __device__ __forceinline__ long long scale(int j) const {
-    return static_cast<long long>(table[j / page]) * scale_stride + j % page;
+    const int t = first + j;
+    return static_cast<long long>(table[t / page]) * scale_stride + t % page;
   }
 };
 
@@ -142,8 +146,7 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
                        const KV* __restrict__ vbase, const Keys& keys,
                        const float* __restrict__ ks_base,
                        const float* __restrict__ vs_base, int n_keys,
-                       int lim0, int lim_step, int lim_row0 = 0,
-                       int lim_group = 1) {
+                       int lim0, int lim_step) {
   static_assert(D % 32 == 0 && BK == 64 && D % BK == 0, "attention tiling");
   constexpr bool kQuant = sizeof(KV) == 1;
   constexpr int NT = D;            // threads
@@ -157,7 +160,7 @@ __device__ void attend(AttnSmem<D, BR, BK, KV>& sm, float (&acc)[BR],
   for (int i = tid; i < BR; i += NT) {
     sm.m[i] = kNegInf;
     sm.l[i] = 0.f;
-    sm.lim[i] = lim0 + ((lim_row0 + i) / lim_group) * lim_step;
+    sm.lim[i] = lim0 + i * lim_step;
   }
 #pragma unroll
   for (int i = 0; i < BR; ++i) acc[i] = 0.f;

@@ -42,8 +42,9 @@
 //     masks per element only a tile that crosses its first row's limit or
 //     the end of the keys.
 //   * Splits.  A caller that splits a long key range across blocks (the
-//     decodes of decode_attention.cu) takes each row's f32 output and
-//     log-sum-exp instead of its bf16 output, and merges the splits itself.
+//     decodes of decode_attention.cu and paged_attention.cu) takes each
+//     row's f32 output and log-sum-exp instead of its bf16 output, and
+//     merges the splits with decode_merge (below).
 
 #pragma once
 
@@ -530,5 +531,58 @@ int launch_gqa(void (*kern)(Params...), int B, int T, int Hq, int Hk,
   kern<<<dim3(Hk, B, tiles), 32 * kGqaWarps, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
+
+constexpr int kMergeThreads = 128;  // decode_merge
+
+namespace {
+
+// The merge of a split attention (the split decodes of decode_attention.cu
+// and paged_attention.cu): out [rows, D] bf16 from the f32 partials part
+// [splits, rows, D] weighted by 2^(lse - max lse) over lse [splits, rows],
+// added in split order, divided by the weights' sum and rounded once; 0
+// where every split of the row is empty (lse -inf).  Each thread 4
+// adjacent columns.  No atomics: two calls are bit-identical.
+template <int D>
+__global__ void __launch_bounds__(kMergeThreads)
+decode_merge(const float* __restrict__ part, const float* __restrict__ lse,
+             __nv_bfloat16* __restrict__ out, int rows, int splits) {
+  const int idx = blockIdx.x * kMergeThreads + threadIdx.x;
+  if (idx >= rows * (D / 4)) return;
+  const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+  float mx = -CUDART_INF_F;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, lse[s * rows + r]);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (mx != -CUDART_INF_F) {
+    float den = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float w = exp2f(lse[s * rows + r] - mx);  // 0 for an empty split
+      const float4 p = *reinterpret_cast<const float4*>(
+          part + (static_cast<size_t>(s) * rows + r) * D + c);
+      den += w;
+      acc[0] += w * p.x;
+      acc[1] += w * p.y;
+      acc[2] += w * p.z;
+      acc[3] += w * p.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] /= den;
+  }
+  *reinterpret_cast<uint2*>(out + static_cast<size_t>(r) * D + c) =
+      make_uint2(mma::pack_bf16(acc[0], acc[1]),
+                 mma::pack_bf16(acc[2], acc[3]));
+}
+
+// decode_merge of `rows` rows on stream st.
+template <int D>
+cudaError_t launch_merge(const float* part, const float* lse,
+                         __nv_bfloat16* out, int rows, int splits,
+                         cudaStream_t st) {
+  const int threads = rows * (D / 4);
+  decode_merge<D><<<(threads + kMergeThreads - 1) / kMergeThreads,
+                    kMergeThreads, 0, st>>>(part, lse, out, rows, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace qie

@@ -51,8 +51,9 @@
 // ~2 x 132 blocks.  Each split writes its f32 output, normalised, and its
 // log-sum-exp to the workspace; a split that starts at or past its row's
 // keys reads nothing and writes an empty partial (0, lse -inf).
-// decode_merge adds the splits in split order, weighted by 2^(lse - max
-// lse), and rounds once to bf16; a row with no key (every split empty)
+// decode_merge (attention_mma.cuh, shared with the paged decode) adds the
+// splits in split order, weighted by 2^(lse - max lse), and rounds once to
+// bf16; a row with no key (every split empty)
 // gives 0.  No atomics: two calls are bit-identical.
 //
 // The fresh row (bf16).  Row b attends n_b = f + 1 keys, where f is the
@@ -91,7 +92,6 @@ constexpr int kKeys = 64;   // keys per tile
 // all stage (and widen int8 tiles); for bf16, 1, 2 and 4 warps time alike
 // at B 4 and B 192 (scripts/sweep_decode_warps_torch.py), 4 as fast as any
 constexpr int kWarps = 4;
-constexpr int kMergeThreads = 128;  // decode_merge
 
 // Block (hk, b, s): the G query heads of KV head hk of row b over keys
 // [span s, min(span (s + 1), n_b)) of its cache row (the last split up to
@@ -171,40 +171,6 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// out [rows, D] bf16 (rows = B * Hq): the f32 partials part [splits, rows,
-// D] weighted by 2^(lse - max lse) over lse [splits, rows], added in split
-// order, divided by the weights' sum and rounded once; 0 where every split
-// of the row is empty (lse -inf).  Each thread 4 adjacent columns.
-template <int D>
-__global__ void __launch_bounds__(kMergeThreads)
-decode_merge(const float* __restrict__ part, const float* __restrict__ lse,
-             __nv_bfloat16* __restrict__ out, int rows, int splits) {
-  const int idx = blockIdx.x * kMergeThreads + threadIdx.x;
-  if (idx >= rows * (D / 4)) return;
-  const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-  float mx = -CUDART_INF_F;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, lse[s * rows + r]);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (mx != -CUDART_INF_F) {
-    float den = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float w = exp2f(lse[s * rows + r] - mx);  // 0 for an empty split
-      const float4 p = *reinterpret_cast<const float4*>(
-          part + (static_cast<size_t>(s) * rows + r) * D + c);
-      den += w;
-      acc[0] += w * p.x;
-      acc[1] += w * p.y;
-      acc[2] += w * p.z;
-      acc[3] += w * p.w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] /= den;
-  }
-  *reinterpret_cast<uint2*>(out + static_cast<size_t>(r) * D + c) =
-      make_uint2(qie::mma::pack_bf16(acc[0], acc[1]),
-                 qie::mma::pack_bf16(acc[2], acc[3]));
-}
-
 // The split kernel, then (int8, or more than one split) the merge; ws
 // holds part [splits, B, Hq, D] then lse [splits, B, Hq], f32 (null for a
 // bf16 call of one split, which writes out directly).
@@ -235,10 +201,7 @@ cudaError_t launch_split(const __nv_bfloat16* q, KV* kc, KV* vc,
       layer, span, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return err;
-  const int threads = rows * (D / 4);
-  decode_merge<D><<<(threads + kMergeThreads - 1) / kMergeThreads,
-                    kMergeThreads, 0, st>>>(ws, lse, out, rows, splits);
-  return cudaGetLastError();
+  return qie::launch_merge<D>(ws, lse, out, rows, splits, st);
 }
 
 bool bad_shape(int L, int Bc, int B, int Hq, int Hk, int layer) {

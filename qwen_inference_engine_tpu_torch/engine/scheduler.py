@@ -87,6 +87,22 @@ from qwen_inference_engine_tpu_torch.ops.sampling import (
 )
 from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
 
+
+def live_table_width(pages_held: int, max_pages: int) -> int:
+    """The width of the block tables a decode tick or a verify passes: the
+    most pages any of its rows holds (``pages_held``), rounded up to a
+    power of two, so that a captured step would need few shapes, and at
+    most ``max_pages``.  A row reads and writes only the pages it holds
+    (admission allocates them all), so the columns cut off change no
+    result; the paged kernels then split the keys the rows can reach, not
+    the longest sequence the engine admits.  The split's span follows the
+    width, so a row's attention is bit-stable only while the widest row
+    beside it keeps the tick in one width bucket: another bucket moves
+    split boundaries, and the output's last bits (within 2^-7, a card
+    test) may then flip a greedy near-tie."""
+    return min(max_pages, 1 << max(0, pages_held - 1).bit_length())
+
+
 class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
     def __init__(self, cfg: ModelConfig, params: dict, *, mesh=None,
                  max_slots: int = 8, page_size: int = 512,
@@ -443,18 +459,27 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
 
     def _decode_inputs(self, decoding):
         """Device tensors of one decode window: last tokens and next write
-        positions [max_slots], block tables with the rows of slots that are
-        not decoding zeroed (so they only touch the scratch page), the
-        active mask and the sampling rows."""
+        positions [max_slots], the live block tables (``_live_tables``),
+        the active mask and the sampling rows."""
         toks = np.zeros((self.max_slots,), np.int64)
         pos = np.zeros((self.max_slots,), np.int64)
-        tables = np.zeros_like(self._block_tables)
         for s in decoding:
             toks[s.slot] = s.last_token
             pos[s.slot] = s.seq_len   # next write position
-            tables[s.slot] = self._block_tables[s.slot]
-        return (self._tensor(toks), self._tensor(pos), self._tensor(tables),
+        return (self._tensor(toks), self._tensor(pos),
+                self._tensor(self._live_tables(decoding)),
                 self._active_mask(decoding), self._sp_rows())
+
+    def _live_tables(self, runs) -> np.ndarray:
+        """Block tables ``[max_slots, live_table_width(...)]`` of a decode
+        tick or a verify: the rows of ``runs``, every other row zeroed (so
+        it only touches the scratch page)."""
+        width = live_table_width(max((len(s.pages) for s in runs),
+                                     default=1), self.max_pages_per_seq)
+        tables = np.zeros((self.max_slots, width), np.int32)
+        for s in runs:
+            tables[s.slot] = self._block_tables[s.slot, :width]
+        return tables
 
     def _decode_tick(self, tok, pos, tables, active, sp_rows):
         """One decode step of every slot, on the device: returns the sampled

@@ -87,57 +87,50 @@ class SpeculationMixin:
         self._step_count += 1
         return chain, n_new
 
-    def _model_round(self, tok_prev, tok_last, pos0, tables, active,
-                     sp_rows):
+    def _model_round(self, tok_last, pos0, tables, active, sp_rows):
         """One draft-model round: k+1 greedy drafter decode steps, then the
-        target's verify.  Drafter protocol (its cache stays one token
-        behind the target's with no bookkeeping): step 0 re-feeds
-        h[seq_len-1] (the one accepted token the drafter never ingested;
-        its KV write is fresh or idempotent), step 1 feeds the last token
-        -> draft 1, steps 2..k feed draft i-1 -> draft i.  Returns (chain,
-        n_new) and the next round's (tok_prev, tok_last, pos0), computed on
-        the device so rounds chain."""
+        target's verify.  Drafter protocol: step 0 feeds the last token ->
+        draft 1, steps 1..k-1 feed draft i -> draft i+1, and step k feeds
+        draft k (its output unused), so the drafter writes the KV of every
+        position the verify writes, in the same round, through the same
+        tables.  It never rewrites a row it wrote before (a prefill piece
+        rounds otherwise than a decode step, and the two pools would part):
+        whatever the verify accepts, the drafter's pool holds every
+        position before the next round's first.  Returns (chain, n_new)
+        and the next round's (tok_last, pos0), computed on the device so
+        rounds chain."""
         k = self.spec_k
-        cur, ys = tok_last, []
+        cur, drafts = tok_last, []
         for i in range(k + 1):
-            tok_in = tok_prev if i == 0 else (tok_last if i == 1 else cur)
             logits, self.draft_cache = decode_step(
-                self.draft_params, self.draft_cfg, tok_in, pos0 - 1 + i,
+                self.draft_params, self.draft_cfg, cur, pos0 + i,
                 self.draft_cache, tables)
-            cur = torch.argmax(logits, dim=-1)
-            ys.append(cur)
-        drafts = torch.stack(ys[1:], dim=1)                  # [S, k]
+            if i < k:
+                cur = torch.argmax(logits, dim=-1)
+                drafts.append(cur)
+        drafts = torch.stack(drafts, dim=1)                  # [S, k]
         tokens = torch.cat([tok_last[:, None], drafts], dim=1)
         chain, n_new = self._verify(tokens, pos0, tables, drafts, active,
                                     sp_rows)
         rows = torch.arange(chain.shape[0], device=self.device)
-        tok_last_n = chain[rows, n_new - 1]
-        tok_prev_n = torch.where(n_new >= 2,
-                                 chain[rows, (n_new - 2).clamp(min=0)],
-                                 tok_last)
-        return chain, n_new, tok_prev_n, tok_last_n, pos0 + n_new
+        return chain, n_new, chain[rows, n_new - 1], pos0 + n_new
 
     def _model_inputs(self, decoding):
-        """(tok_prev, tok_last, pos0, tables) of a draft-model round."""
-        tok_prev = np.zeros((self.max_slots,), np.int64)
+        """(tok_last, pos0, tables) of a draft-model round."""
         tok_last = np.zeros((self.max_slots,), np.int64)
         pos0 = np.zeros((self.max_slots,), np.int64)
-        tables = np.zeros_like(self._block_tables)
         for s in decoding:
-            h = s.request.prompt + s.generated   # h[s.seq_len] == last_token
-            tok_prev[s.slot] = h[s.seq_len - 1]
-            tok_last[s.slot] = s.last_token
+            tok_last[s.slot] = s.last_token      # at position s.seq_len
             pos0[s.slot] = s.seq_len
-            tables[s.slot] = self._block_tables[s.slot]
-        return (self._tensor(tok_prev), self._tensor(tok_last),
-                self._tensor(pos0), self._tensor(tables))
+        return (self._tensor(tok_last), self._tensor(pos0),
+                self._tensor(self._live_tables(decoding)))
 
     def _step_speculative_model(self, decoding: List[_Running]) -> None:
         """One draft-model speculation round across all decoding slots."""
         t0 = time.perf_counter()
-        tp, tl, p0, tables = self._model_inputs(decoding)
-        chain, n_new, _, _, _ = self._model_round(
-            tp, tl, p0, tables, self._active_mask(decoding), self._sp_rows())
+        tl, p0, tables = self._model_inputs(decoding)
+        chain, n_new, _, _ = self._model_round(
+            tl, p0, tables, self._active_mask(decoding), self._sp_rows())
         self._emit_spec_round(decoding, chain[None].cpu().numpy(),
                               n_new[None].cpu().numpy(), 1,
                               time.perf_counter() - t0)
@@ -150,12 +143,12 @@ class SpeculationMixin:
         KV lands on pages freed with the request."""
         rounds = self._spec_rounds_cap(n, decoding)
         t0 = time.perf_counter()
-        tp, tl, p0, tables = self._model_inputs(decoding)
+        tl, p0, tables = self._model_inputs(decoding)
         active, sp_rows = self._active_mask(decoding), self._sp_rows()
         chains, n_news = [], []
         for _ in range(rounds):
-            chain, n_new, tp, tl, p0 = self._model_round(tp, tl, p0, tables,
-                                                         active, sp_rows)
+            chain, n_new, tl, p0 = self._model_round(tl, p0, tables, active,
+                                                     sp_rows)
             chains.append(chain)
             n_news.append(n_new)
         self._emit_spec_batch(decoding, torch.stack(chains).cpu().numpy(),
@@ -279,10 +272,7 @@ class SpeculationMixin:
         rounds = self._spec_rounds_cap(n, decoding)
         t0 = time.perf_counter()
         lens = self._sync_hist(decoding)
-        tables = np.zeros_like(self._block_tables)
-        for s in decoding:
-            tables[s.slot] = self._block_tables[s.slot]
-        tables = self._tensor(tables)
+        tables = self._tensor(self._live_tables(decoding))
         active, sp_rows = self._active_mask(decoding), self._sp_rows()
         chains, n_news = [], []
         for _ in range(rounds):
@@ -352,7 +342,6 @@ class SpeculationMixin:
         toks = np.zeros((self.max_slots, k + 1), np.int64)
         drafts = np.zeros((self.max_slots, k), np.int64)
         pos0 = np.zeros((self.max_slots,), np.int64)
-        tables = np.zeros_like(self._block_tables)
         for s in decoding:
             toks[s.slot, 0] = s.last_token
             d = host_drafts.get(s.slot)
@@ -362,9 +351,9 @@ class SpeculationMixin:
             else:
                 drafts[s.slot] = -1
             pos0[s.slot] = s.seq_len
-            tables[s.slot] = self._block_tables[s.slot]
         chain, n_new = self._verify(
-            self._tensor(toks), self._tensor(pos0), self._tensor(tables),
+            self._tensor(toks), self._tensor(pos0),
+            self._tensor(self._live_tables(decoding)),
             self._tensor(drafts), self._active_mask(decoding),
             self._sp_rows())
         self._emit_spec_round(decoding, chain[None].cpu().numpy(),

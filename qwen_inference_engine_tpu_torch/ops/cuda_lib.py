@@ -124,10 +124,12 @@ SIGNATURES = {
     # position, L, Bc, B, Hk, S, D, layer, stream
     "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k_pages, v_pages, k_scale, v_scale, tables, lens, out,
-    # L, P, B, T, Hq, Hk, page, max_pages, D, layer, scale, stream
-    "qie_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, k_scale, v_scale, tables, lens, ws (the splits'
+    # partials, or null for a bf16 call of one split), out, L, P, B, T, Hq,
+    # Hk, page, max_pages, D, layer, span, splits, scale, stream
+    "qie_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _P],
     # q, k_pages, v_pages, k_scale, v_scale, tables, out,
     # L, P, B, T, Hq, Hk, page, max_pages, D, layer, start, scale, stream
     "qie_paged_chunk_attention": [_P, _P, _P, _P, _P, _P, _P,

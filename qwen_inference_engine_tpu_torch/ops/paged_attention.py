@@ -19,8 +19,15 @@ scales ``[L, P, Hk, page]``):
 tables stay on the device: the kernel reads them, the host never waits for
 them.  The kernel takes G = Hq / Hk <= 8 (the JAX package's
 ``paged_verify_attention_supported``; anything else raises on the card)
-and any T: its blocks take the T * G query rows 16 at a time, where the
-JAX package sends T > 16 or T > page to XLA.
+and any T, where the JAX package sends T > 16 or T > page to XLA.  It is
+flash-decoding on the tensor cores: each block takes up to 64 of a row's
+T * G query rows of one KV head (``paged_row_groups``) over one split of
+the row's keys, as ``plan_paged_split`` plans from the shapes alone (the
+tables' width gives S = max_pages * page; a call reads nothing back and
+is capturable in a CUDA graph), then a merge launch, none for a bf16 plan
+of one split.  Pass tables no wider than the rows need: the serving
+engine trims them to the pages its rows hold, so the plan splits the live
+keys and not the longest sequence the engine admits.
 
 ``paged_attention_plain`` gathers the pages (``paged_read``; an int8 pool
 is dequantized to q's dtype), puts zeros where keys lie at or past a row's
@@ -37,7 +44,16 @@ import torch
 from qwen_inference_engine_tpu_torch.kvcache.cache import paged_read
 from qwen_inference_engine_tpu_torch.ops import cuda_lib
 from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
+from qwen_inference_engine_tpu_torch.ops.decode_attention import (
+    check_aligned,
+    check_split_plan,
+    decode_workspace,
+    plan_decode_split,
+)
 from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
+
+GROUP_ROWS = 64   # packed query rows of a block (four m16 tiles)
+
 
 def check_paged(name: str, inputs, pools, block_tables: torch.Tensor,
                 page_size: int, layer: int, scales=None,
@@ -151,6 +167,26 @@ def paged_decode_attention_q8_plain(q, k_pages, v_pages, k_scale, v_scale,
                                  page_size, layer, k_scale, v_scale)
 
 
+def paged_row_groups(T: int, G: int) -> int:
+    """Blocks of ``GROUP_ROWS`` packed query rows (r = t * G + h) that a
+    row's T tokens of G heads need: one for the decode and for a verify of
+    T * G <= 64 rows, which then reads each K/V tile once a split."""
+    return -(-T * G // GROUP_ROWS)
+
+
+def plan_paged_split(B: int, Hk: int, row_groups: int, S: int):
+    """The paged kernel's plan ``(span, splits)`` from the shapes alone
+    (never the lengths, so a call reads nothing back from the device and
+    stays capturable in a CUDA graph): block (hk, b, g, s) attends keys
+    ``[s * span, (s + 1) * span)`` of row b's first ``min(lens[b], S)``,
+    ``S = max_pages * page`` from the tables' width.  The contiguous
+    decodes' rule (``plan_decode_split``) over ``B * row_groups`` block
+    rows: whole 64-key tiles, the fewest that give ``B * Hk * row_groups *
+    splits >= SPLIT_TARGET_BLOCKS``, splits covering S once; at one row
+    group it is that plan."""
+    return plan_decode_split(B * row_groups, Hk, S)
+
+
 def _launch(name, q, k_pages, v_pages, scales, block_tables, seq_lens,
             page_size: int, layer: int) -> torch.Tensor:
     B, T, Hq, D = q.shape
@@ -162,15 +198,22 @@ def _launch(name, q, k_pages, v_pages, scales, block_tables, seq_lens,
         raise ValueError(f"{name}: seq_lens must be [{B}] on the device of q")
     lens = seq_lens.to(torch.int32).contiguous()
     q = q.contiguous()
-    out = torch.empty_like(q)
+    max_pages = tables.shape[1]
+    S = max_pages * PS
+    span, splits = plan_paged_split(B, Hk, paged_row_groups(T, Hq // Hk), S)
+    check_split_plan(name, span, splits, S)
+    ws = (None if scales is None and splits == 1
+          else decode_workspace(splits, B * T, Hq, D, q.device))
     ks, vs = scales if scales is not None else (None, None)
+    check_aligned(name, q, k_pages, v_pages, ws)
+    out = torch.empty_like(q)
     rc = cuda_lib.library().qie_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(), tables.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), L, P, B, T, Hq, Hk, PS,
-        tables.shape[1], D, int(layer), D ** -0.5,
-        cuda_lib.stream_handle(q.device))
+        lens.data_ptr(), None if ws is None else ws.data_ptr(),
+        out.data_ptr(), L, P, B, T, Hq, Hk, PS, max_pages, D, int(layer),
+        span, splits, D ** -0.5, cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, name)
     return out
 

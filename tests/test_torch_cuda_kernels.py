@@ -12,8 +12,13 @@ append at the first and last position, the paged kernels over pages of 8,
 16, 48 and 512 tokens (tiles that cross pages, mid-page starts, pieces of
 1, 7, 256 and 512 tokens, lengths of 1 and whole pages, idle rows and
 scratch-page writes), the INT8 pool's kernels and the speculative verify
-(T = 2, 16 and 17, windows straddling pages and windows wider than their
-page, the int8 scale writes), the grouped MoE matmuls (one row, one
+(T = 2, 5, 9, 10, 16 and 17 at G 1, 4, 7 and 8, D 64 and 128: one and two
+64-row groups, windows straddling pages and windows wider than their page,
+the int8 scale writes), the paged decode and verify split S on the tensor
+cores (one split, several, most of them empty, splits starting inside a
+page; two calls bit for bit; the same bits through pages of 512, 256, 16
+and 8, in order and shuffled; a verify row bit-equal to the decode of its
+token; one CUDA graph replayed at new device lengths and tables), the grouped MoE matmuls (one row, one
 expert taking every row, 127 empty experts of 128, decode- and
 prefill-like expert sizes, odd column tiles, a padded K; the three on
 the tensor-core body at 16- and 64-row tiles, a layer past 2^31 weight
@@ -1213,11 +1218,14 @@ def _tables(gen, B, max_pages, P):
 
 
 @pytest.mark.parametrize("page", [8, 16, 48, 512])
-@pytest.mark.parametrize("G,D", [(7, 128), (8, 64), (1, 128)])
+@pytest.mark.parametrize("G,D", [(7, 128), (8, 64), (1, 128), (4, 64)])
 def test_paged_decode_attention_matches_plain(gen, page, G, D):
     """Lengths 1, one page, a page and one, three pages, and an idle row
     (length 0, zeroed table row, as the scheduler's idle slots); 64-key
-    tiles cross pages of 8, 16 and 48; NaN past each row's length."""
+    tiles cross pages of 8, 16 and 48; NaN past each row's length and in
+    every page no table holds.  The plan splits S = 4 pages into one split
+    (pages of 8 and 16), three (48: splits start inside pages) and 32 (512:
+    most splits of the short rows empty, merged); two calls bit for bit."""
     L, Hk, max_pages = 2, 2, 4
     lens_list = [1, page, page + 1, 3 * page, 0]
     B = len(lens_list)
@@ -1227,13 +1235,167 @@ def test_paged_decode_attention_matches_plain(gen, page, G, D):
     k, v = _paged_pool(gen, L, P, Hk, page, D, tables, lens_list)
     q = _bf16(gen, B, 1, G * Hk, D)
     lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    splits = pa.plan_paged_split(B, Hk, 1, max_pages * page)[1]
+    assert splits == {8: 1, 16: 1, 48: 3, 512: 32}[page]
     before = pa.paged_decode_attention_stacked.launches
     got = pa.paged_decode_attention_stacked(q, k, v, tables, lens, page, 1)
+    again = pa.paged_decode_attention_stacked(q, k, v, tables, lens, page, 1)
     ref = pa.paged_decode_attention_plain(q, k, v, tables, lens, page, 1)
-    assert pa.paged_decode_attention_stacked.launches == before + 1
+    assert pa.paged_decode_attention_stacked.launches == before + 2
     assert bool(got.isfinite().all())
+    assert torch.equal(got, again)
     assert torch.equal(got[-1], torch.zeros_like(got[-1]))
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("B,S", [(4, 1024), (1, 2304), (8, 512)])
+@pytest.mark.parametrize("G,D", [(7, 128), (8, 64), (1, 128)])
+def test_paged_decode_is_the_same_bits_through_any_pages(gen, B, S, G, D):
+    """One cache of S keys a row, stored as pages of 512, 256, 16 and 8
+    (as many as divide S), in order (identity tables) and shuffled: the
+    plan is the contiguous decode's (it depends on S alone) and so is the
+    arithmetic a row, so every layout gives the bits of
+    decode_attention_contiguous over the cache itself; lengths 0, 1, 64,
+    65, 69, 1000, S - 1 and S, NaN past each row's length."""
+    L, Hk, layer = 2, 4, 1
+    kc, vc = _bf16(gen, L, B, Hk, S, D), _bf16(gen, L, B, Hk, S, D)
+    edges = [69, 0, 1, 64, 65, min(1000, S), S, S - 1]
+    lens_list = [edges[i % len(edges)] for i in range(B)]
+    for b, m in enumerate(lens_list):
+        kc[:, b, :, m:] = float("nan")
+        vc[:, b, :, m:] = float("nan")
+    q = _bf16(gen, B, 1, G * Hk, D)
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    assert pa.plan_paged_split(B, Hk, 1, S) == da.plan_decode_split(B, Hk, S)
+    outs = []
+    for page in (p for p in (512, 256, 16, 8) if S % p == 0):
+        n = S // page
+        for shuffle in (False, True):
+            order = (torch.randperm(B * n, generator=gen, device="cuda")
+                     if shuffle else torch.arange(B * n, device="cuda"))
+
+            def pool(c):
+                rows = c.reshape(L, B, Hk, n, page, D).permute(
+                    0, 1, 3, 2, 4, 5).reshape(L, B * n, Hk, page, D)
+                out = torch.empty_like(
+                    rows, memory_format=torch.contiguous_format)
+                out[:, order] = rows
+                return out
+
+            tables = order.to(torch.int32).reshape(B, n)
+            outs.append(pa.paged_decode_attention_stacked(
+                q, pool(kc), pool(vc), tables, lens, page, layer))
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert bool(outs[0].isfinite().all())
+    want = da.decode_attention_contiguous(q, kc, vc, layer, lens)
+    assert torch.equal(outs[0], want)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("T,G", [(2, 7), (5, 7), (9, 7), (5, 8), (16, 4)])
+def test_paged_verify_rows_are_the_decode_bits(gen, T, G, quant):
+    """While a verify's T * G rows fit one row group, its row for token t
+    is, bit for bit, the decode of that token at length len - T + t + 1
+    over the same pool: the same plan, blocks and arithmetic a row.  So a
+    drafter equal to the target attends as the target's verify does."""
+    L, Hk, D, page, max_pages = 2, 4, 128, 16, 8
+    lens_list = [T, 37, 70, 100, max_pages * page]
+    B = len(lens_list)
+    P = B * max_pages + 3
+    tables = _tables(gen, B, max_pages, P)
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, lens_list)
+    pools, scales = (k, v), ()
+    if quant:
+        k8, v8, ks, vs = _q8_pool(k, v)
+        pools, scales = (k8, v8), (ks, vs)
+    sfx = "_q8" if quant else ""
+    verify = getattr(pa, "paged_verify_attention_stacked" + sfx)
+    decode = getattr(pa, "paged_decode_attention_stacked" + sfx)
+    q = _bf16(gen, B, T, G * Hk, D)
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    assert pa.paged_row_groups(T, G) == 1
+    rows = verify(q, *pools, *scales, tables, lens, page, 1)
+    for t in range(T):
+        one = decode(q[:, t:t + 1].contiguous(), *pools, *scales, tables,
+                     lens - T + t + 1, page, 1)
+        assert torch.equal(one[:, 0], rows[:, t]), t
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+def test_paged_decode_row_through_wider_tables(gen, quant):
+    """The serving engine trims its tables to the widest live row's pages
+    (``scheduler.live_table_width``), so a row's plan follows the rows
+    beside it.  The same rows (all within one page of 512) through tables
+    1, 2, 4 and 8 pages wide (B 8, Hk 4: spans 64, 64, 192 and 448 keys):
+    the same bits where the span is the same, else within 2^-7 (split
+    boundaries move, and the f32 partials round otherwise); NaN past each
+    row's length and in every page no table holds."""
+    L, Hk, G, D, page, wide = 2, 4, 7, 128, 512, 8
+    lens_list = [400, 37, 300, 511, 512, 1, 0, 200]
+    B = len(lens_list)
+    P = B * wide + 3
+    tables = _tables(gen, B, wide, P)
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, lens_list)
+    pools, scales = (k, v), ()
+    if quant:
+        k8, v8, ks, vs = _q8_pool(k, v)
+        pools, scales = (k8, v8), (ks, vs)
+    attend = getattr(pa, "paged_decode_attention_stacked"
+                     + ("_q8" if quant else ""))
+    q = _bf16(gen, B, 1, G * Hk, D)
+    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+    outs, spans = {}, {}
+    for w in (1, 2, 4, 8):
+        spans[w] = pa.plan_paged_split(B, Hk, 1, w * page)[0]
+        outs[w] = attend(q, *pools, *scales, tables[:, :w].contiguous(), lens,
+                         page, 1)
+        assert bool(outs[w].isfinite().all())
+    assert spans == {1: 64, 2: 64, 4: 192, 8: 448}
+    assert torch.equal(outs[1], outs[2])
+    for w in (4, 8):
+        assert (outs[w].float() - outs[1].float()).abs().max().item() \
+            <= 2 ** -7, w
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_paged_attention_replays_in_a_cuda_graph_with_new_lengths(gen, T,
+                                                                  quant):
+    """One paged decode / verify call captured in a CUDA graph with its
+    lengths and tables on the device (the plan comes from the shapes
+    alone), replayed after the lengths and tables change in place, equals
+    the eager call at the new values bit for bit."""
+    L, Hk, G, D, page, max_pages, B = 2, 4, 7, 128, 16, 8, 4
+    P = 2 * B * max_pages + 1
+    tables = _tables(gen, B, max_pages, P)
+    lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    k, v = _paged_pool(gen, L, P, Hk, page, D, torch.arange(
+        P, device="cuda", dtype=torch.int32)[None], [P * page])
+    pools, scales = (k, v), ()
+    if quant:
+        k8, v8, ks, vs = _q8_pool(k, v)
+        pools, scales = (k8, v8), (ks, vs)
+    name = ("paged_decode_attention_stacked" if T == 1
+            else "paged_verify_attention_stacked") + ("_q8" if quant else "")
+    fn = getattr(pa, name)
+    q = _bf16(gen, B, T, G * Hk, D)
+    args = (q, *pools, *scales, tables, lens, page, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args)
+    for new in ([T, 37, 100, max_pages * page], [128, T + 1, 77, 64]):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        tables.copy_(_tables(gen, B, max_pages, P))
+        captured.zero_()
+        graph.replay()
+        eager = fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager), new
 
 
 @pytest.mark.parametrize("page", [8, 16, 48, 512])
@@ -1347,16 +1509,20 @@ def _q8_pool(k, v):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
-@pytest.mark.parametrize("page", [8, 512])
-@pytest.mark.parametrize("T", [1, 2, 16, 17])
-def test_paged_q8_and_verify_attention_match_plain(gen, T, page, quant):
+@pytest.mark.parametrize("page", [8, 16, 512])
+@pytest.mark.parametrize("T", [1, 2, 5, 9, 10, 16, 17])
+@pytest.mark.parametrize("G,D", [(7, 128), (4, 64), (8, 128), (1, 64)])
+def test_paged_q8_and_verify_attention_match_plain(gen, G, D, T, page,
+                                                   quant):
     """_paged_bhgd_q8 (decode and verify) and the verify shape of
     _paged_bhgd: a window at the sequence start, one straddling pages 0 and
     1, one starting page 2, long rows, and for the decode an idle row
-    (length 0, zeroed table: zeros out); G = 7; NaN (NaN scales) in the
-    pages no table holds and past each row's length.  T = 17 is a window
-    wider than 16 rows (and than a page of 8)."""
-    L, Hk, G, D = 2, 2, 7, 128
+    (length 0, zeroed table: zeros out); NaN (NaN scales) in the pages no
+    table holds and past each row's length; two calls bit for bit.  T * G
+    crosses the 64-row group (T = 10 at G = 7, T = 9 at G = 8, T = 17 at
+    G = 4); T = 17 is a window wider than a page of 8 and 16; pages of
+    512 plan several splits, most of them empty for the short rows."""
+    L, Hk = 2, 2
     lens_list = [T, page + T // 2 + 1, 2 * page + T, 3 * page, 4 * page]
     max_pages = max(4, -(-max(lens_list) // page))
     if T == 1:
@@ -1381,9 +1547,11 @@ def test_paged_q8_and_verify_attention_match_plain(gen, T, page, quant):
     args = (q, *pools, *scales, tables, lens, page, 1)
     before = fn.launches
     got = fn(*args)
+    again = fn(*args)
     ref = plain(*args)
-    assert fn.launches == before + 1
+    assert fn.launches == before + 2
     assert bool(got.isfinite().all())
+    assert torch.equal(got, again)
     if T == 1:
         assert torch.equal(got[-1], torch.zeros_like(got[-1]))
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2

@@ -167,6 +167,58 @@ def test_draft_model_equal_to_target_accepts_every_draft(models, jax_tokens,
     teng.check_page_invariants()
 
 
+def _prompt_rows(cache, table, n):
+    """K / V (and scales) of a row's first n positions in a page pool."""
+    ps = cache.page_size
+    j = torch.arange(n)
+    pages = torch.as_tensor(table, dtype=torch.long)[j // ps]
+    return [t[:, pages, :, j % ps]
+            for t in (cache.k_pages, cache.v_pages, cache.k_scale,
+                      cache.v_scale) if t is not None]
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_drafter_keeps_the_rows_its_prefill_wrote(models, kv):
+    """A drafter equal to the target writes the KV of the positions its
+    round's verify writes, and never rewrites a row it wrote before.  On
+    the card a decode step rounds the last prompt token's KV otherwise
+    than the prefill piece that wrote it, and a rewrite would part the
+    drafter's forward from the target's.  Here both pools' last prompt
+    row is moved the same way after the prefill (a decode step would not
+    reproduce it): after every step of the run each decoding row's prompt
+    rows in the drafter's pool are still the target's, bit for bit."""
+    teng = _engine(models, kv, "draft")
+    run_piece = teng._run_piece
+
+    def piece(run, tokens, start, nvalid, table, last):
+        tok = run_piece(run, tokens, start, nvalid, table, last)
+        if last:
+            n, ps = len(run.request.prompt), teng.page_size
+            pg = int(teng._block_tables[run.slot][(n - 1) // ps])
+            for c in (teng.cache, teng.draft_cache):
+                if c.quantized:
+                    c.k_scale[:, pg, :, (n - 1) % ps] *= 2
+                else:
+                    c.k_pages[:, pg, :, (n - 1) % ps] += 0.25
+        return tok
+
+    teng._run_piece = piece
+    for i, p in enumerate(_prompts(1)[:2]):
+        teng.submit(Request(request_id=i, prompt=p, max_new_tokens=13))
+    held = 0
+    while teng.has_work():
+        teng.step()
+        for s in teng._slots:
+            if s is not None and s.prefill_done and s.generated:
+                n = len(s.request.prompt)
+                table = teng._block_tables[s.slot]
+                got = _prompt_rows(teng.draft_cache, table, n)
+                want = _prompt_rows(teng.cache, table, n)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+                held += 1
+    assert held > 0
+
+
 @pytest.mark.parametrize("spec", ["pld", "draft"])
 def test_stochastic_speculative_serving_repeatable_and_valid(models, spec):
     """Temperature sampling (top-k 20, a repetition penalty) with prompt
