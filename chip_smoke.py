@@ -31,7 +31,10 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    the paged kernels over a 40-page pool of 512-token pages with shuffled
    tables and NaN in every page no table holds (the paged attentions'
    library yardstick is SDPA over a gathered copy, the gather timed beside
-   it; the appends' an ``index_put_`` scatter); the contiguous chunk kernels (tensor cores, GQA-packed rows)
+   it; the appends' an ``index_put_`` scatter), the paged chunks on the
+   tensor cores (the serving piece with the 7B's and 30B-A3B's heads, a
+   call and in a CUDA graph, each in-table start bit-equal to the
+   contiguous chunk kernel through its own and identity tables); the contiguous chunk kernels (tensor cores, GQA-packed rows)
    at starts 512, 1024 and 1536, each kept in the kernels line as
    ``start_<start>``, and with per-row starts on the device (T = 5 and 16,
    NaN past each row's window, ``rows_T5`` / ``rows_T16``), each with its
@@ -1219,15 +1222,42 @@ def check_paged_q8_and_verify(torch, cfg):
     return recs
 
 
-def check_paged_chunk(torch, cfg, quant=False):
-    """The serving continuation piece: B=1, T=256 at starts 256, 1280, the
-    mid-page 700, and (bf16) 2040, whose bucket-padded piece runs past the
-    4-page table (its rows there attend the whole table), over pages of
-    512; NaN past each piece's end in its pages (NaN scales for int8)."""
+def _paged_chunk_identity(torch, kern, contiguous, q, pools, scales, tables,
+                          layer, start):
+    """The paged chunk kernel over row 0's pages against the contiguous
+    chunk kernel over the same rows laid out as a cache [L, 1, Hk, S, D]
+    (and scales [L, 1, Hk, S]): through the row's own (shuffled) table and
+    through identity tables over the pages copied in order, both must give
+    the contiguous kernel's bits (one block a 64-row tile, no key split:
+    the same arithmetic).  Returns whether both did."""
+    rows = [t[:, tables[0].long()].contiguous() for t in pools + scales]
+    L, n, Hk, page = rows[0].shape[:4]
+    cache = [r.transpose(1, 2).reshape(L, 1, Hk, n * page, *r.shape[4:])
+             for r in rows]
+    want = contiguous(q, *cache, layer, start)
+    ident = torch.arange(n, dtype=torch.int32, device="cuda")[None]
+    same = [torch.equal(kern(q, *pools, *scales, tables, layer, start, PAGE),
+                        want),
+            torch.equal(kern(q, *rows, ident, layer, start, PAGE), want)]
+    return all(same)
+
+
+def check_paged_chunk(torch, cfg, cfg_moe, quant=False):
+    """The serving continuation piece (paged_chunk_mma_kernel): B=1, T=256
+    at starts 256, 1280, the mid-page 700, and (bf16) 2040, whose
+    bucket-padded piece runs past the 4-page table (its rows there attend
+    the whole table), over pages of 512, Qwen2.5-7B's heads (Hq 28, Hk 4)
+    and, at 700 and 1280, Qwen3-30B-A3B's (Hq 32, Hk 4: G 8); NaN past
+    each piece's end in its pages (NaN scales for int8).  Each a call and
+    in a CUDA graph, beside SDPA over a gathered copy (a call and in a
+    graph) and the gather; at every in-table start the kernel's bits
+    through the row's table and through identity tables must be
+    chunk_attention_contiguous(_q8)'s over the same rows."""
     from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
 
-    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hk, D = cfg.num_kv_heads, cfg.head_dim
+    assert (cfg_moe.num_kv_heads, cfg_moe.head_dim) == (Hk, D)
     g = torch.Generator(device="cuda").manual_seed(8 + quant)
     k0, v0, tables = _paged_pool(torch, cfg, g, rows=1)
     width = tables.shape[1] * PAGE
@@ -1235,9 +1265,18 @@ def check_paged_chunk(torch, cfg, quant=False):
     name = "paged_chunk_attention_q8" if quant else "paged_chunk_attention"
     kern = getattr(ca, name)
     plain = getattr(ca, name + "_plain")
-    q = torch.randn((1, T, Hq, D), generator=g, device="cuda").to(torch.bfloat16)
+    contiguous = getattr(ca, "chunk_attention_contiguous"
+                         + ("_q8" if quant else ""))
+    qs = {c.name: torch.randn((1, T, c.num_heads, D), generator=g,
+                              device="cuda").to(torch.bfloat16)
+          for c in (cfg, cfg_moe)}
+    starts = [(cfg, s) for s in ((256, 700, 1280) if quant
+                                 else (256, 700, 2040, 1280))]
+    starts += [(cfg_moe, 700), (cfg_moe, 1280)]
     rec = None
-    for start in (256, 700, 1280) if quant else (256, 700, 2040, 1280):
+    for c, start in starts:
+        q = qs[c.name]
+        Hq = c.num_heads
         end = min(start + T, width)
         k, v = k0.clone(), v0.clone()
         _stale(torch, k, v, tables, [end])
@@ -1252,7 +1291,12 @@ def check_paged_chunk(torch, cfg, quant=False):
         err = (got.float() - ref.float()).abs().max().item()
         rel = rel_err(got, ref)
         finite = bool(got.isfinite().all())
+        bits = None
+        if start + T <= width:
+            bits = _paged_chunk_identity(torch, kern, contiguous, q, pools,
+                                         scales, tables, layer, start)
         ms = time_ms(torch, lambda: kern(*args))
+        g_ms = graph_ms(torch, lambda: kern(*args))
         plain_ms = time_ms(torch, lambda: plain(*args), iters=3, warmup=1)
         n = torch.tensor([end], device="cuda")
         sc = scales if quant else (None, None)
@@ -1265,25 +1309,38 @@ def check_paged_chunk(torch, cfg, quant=False):
         kl, vl = kl[:, :, :end], vl[:, :, :end]
         qpos = start + torch.arange(T, device="cuda")
         mask = torch.arange(end, device="cuda")[None, :] <= qpos[:, None]
-        sdpa_ms = time_ms(torch, _sdpa(torch, q.transpose(1, 2), kl, vl,
-                                       mask=mask))
+        sdpa = _sdpa(torch, q.transpose(1, 2), kl, vl, mask=mask)
+        sdpa_ms = time_ms(torch, sdpa)
+        sdpa_g_ms = graph_ms(torch, sdpa)
+        del kl, vl
         n_bytes = _pool_bytes(pools, scales, end, Hk, D) \
             + 2 * 2 * T * Hq * D + 4 * tables.numel()
         n_ops = 4 * Hq * D * sum(min(start + t + 1, width) for t in range(T))
         b_ms, b_by = bound(n_bytes, n_ops, "bf16")
-        print(f"  {name} T={T} start {start} page {PAGE}: err "
+        print(f"  {name} {c.name} T={T} start {start} page {PAGE}: err "
               f"{err:.3g}, relative {rel:.3g} (tol {tol:.3g} of each vector's "
-              f"max) | kernel {ms:.4f} ms | plain {plain_ms:.4f} | sdpa "
-              f"{sdpa_ms:.4f} + gather {gather_ms:.4f} | bound {b_ms:.5f} "
-              f"({b_by})", flush=True)
-        if not rel <= tol or not finite:
-            fail(f"{name} start {start} relative err {rel} > {tol} or "
-                 f"non-finite ({finite})")
-        if start == 1280:   # the JSON line keeps the longest in-table piece
-            rec = dict(shape=f"B=1 T={T} start={start} page={PAGE} Hq={Hq} "
-                             f"Hk={Hk} D={D}", max_abs_err=err, rel_err=rel,
-                       tol=tol, ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                       gather_ms=gather_ms, bound_ms=b_ms, bound_by=b_by)
+              f"max) | bit-equal to {contiguous.__name__} through its table "
+              f"and identity tables {bits} | kernel {ms:.4f} ms | in a CUDA "
+              f"graph {g_ms:.4f} ({n_ops / g_ms / 1e9:.1f} TFLOP/s) | plain "
+              f"{plain_ms:.4f} | sdpa {sdpa_ms:.4f} (graph {sdpa_g_ms:.4f}) "
+              f"+ gather {gather_ms:.4f} | bound {b_ms:.5f} ({b_by})",
+              flush=True)
+        if not rel <= tol or not finite or bits is False:
+            fail(f"{name} {c.name} start {start} relative err {rel} > {tol}, "
+                 f"non-finite ({finite}) or not {contiguous.__name__}'s bits "
+                 f"({bits})")
+        r = dict(shape=f"B=1 T={T} start={start} page={PAGE} Hq={Hq} "
+                       f"Hk={Hk} D={D}", kernel="paged_chunk_mma_kernel",
+                 max_abs_err=err, rel_err=rel, tol=tol, ms=ms, graph_ms=g_ms,
+                 plain_ms=plain_ms, library_ms=sdpa_ms,
+                 library_graph_ms=sdpa_g_ms, gather_ms=gather_ms,
+                 bound_ms=b_ms, bound_by=b_by, identity_bit_equal=bits)
+        if c is cfg_moe:
+            rec[f"at_30b_a3b_start_{start}"] = r
+        elif start == 1280:   # the JSON line's main numbers
+            rec = dict(r, **(rec or {}))
+        else:
+            rec = dict(rec or {}, **{f"at_start_{start}": r})
     return {name: rec}
 
 
@@ -4253,7 +4310,8 @@ def main() -> int:
         "quant_matmul8_a8": check_matmul(torch, cfg14, "quant_matmul8_a8",
                                              None, ms_list=(4,)),
     }
-    flash_recs = check_flash(torch, cfg, PRESETS["qwen3-30b-a3b"])
+    cfg_moe = PRESETS["qwen3-30b-a3b"]
+    flash_recs = check_flash(torch, cfg, cfg_moe)
     dec_recs = check_decode(torch, cfg)
     chunk_recs = check_chunk(torch, cfg)
     for name, by_t in check_chunk_rows(torch, cfg).items():
@@ -4262,8 +4320,8 @@ def main() -> int:
     dec8_recs = check_decode_q8(torch, cfg)
     paged_recs = {**check_paged_decode(torch, cfg),
                   **check_paged_q8_and_verify(torch, cfg),
-                  **check_paged_chunk(torch, cfg),
-                  **check_paged_chunk(torch, cfg, quant=True),
+                  **check_paged_chunk(torch, cfg, cfg_moe),
+                  **check_paged_chunk(torch, cfg, cfg_moe, quant=True),
                   **check_paged_appends(torch, cfg)}
     check_wide_window_append(torch, cfg)
     fused_mlp_recs = check_fused_mlp(torch, cfg)
@@ -4719,7 +4777,8 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec.get("shape", rec.get("unit")),
             **{k: v for k, v in rec.items()
-               if k in ("gather_ms", "graph_ms", "library_graph_ms")
+               if k in ("gather_ms", "graph_ms", "library_graph_ms",
+                        "kernel", "identity_bit_equal")
                or k.startswith(("int8_", "rows_", "start_", "at_"))}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"

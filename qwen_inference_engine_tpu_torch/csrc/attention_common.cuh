@@ -1,9 +1,10 @@
-// CUDA-core core of the port's attention kernels (the paged continuation
-// chunks and fused_attn_matmul's attention), for a bf16 or an int8 KV
-// cache; flash, the contiguous chunks, the four contiguous decodes (ragged
-// bf16, appending, fresh and INT8-KV), the paged decode and verify and
+// CUDA-core core of fused_attn_matmul's attention (fused_step.cu), the one
+// attention kernel of the port not on the tensor cores; flash, the
+// contiguous and paged chunks, the four contiguous decodes (ragged bf16,
+// appending, fresh and INT8-KV), the paged decode and verify and
 // fused_attn_mlp's attention run on the tensor-core core of
-// attention_mma.cuh.
+// attention_mma.cuh, which takes its key policies (ContiguousKeys,
+// PagedKeys) and kNegInf from here.
 //
 // One block of D threads (one per output dimension) runs the online
 // softmax of up to BR query rows over keys [0, n_keys) in tiles of BK keys:

@@ -1,4 +1,10 @@
-// Tensor-core core of the port's attention kernels: the online softmax of
+// Tensor-core core of the port's attention kernels (all but
+// fused_attn_matmul's, which keeps attention_common.cuh's CUDA-core
+// attend): attend_gqa_block for flash (flash_attention.cu) and the
+// contiguous and paged chunks (chunk_attention.cu); attend_mma itself for
+// the four contiguous decodes (decode_attention.cu), the paged decode and
+// verify (paged_attention.cu) and fused_attn_mlp's attention blocks
+// (fused_step.cu).  attend_mma is the online softmax of
 // up to 16 * NW query rows over keys [0, n_keys) in tiles of 64 keys, both
 // products (Q K^T and P V) on Hopper's tensor cores through
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), the K/V tiles staged by
@@ -487,19 +493,21 @@ __device__ void attend_mma(MmaSmem<D, NW, KV>& sm, const Rows& rows,
 constexpr int kGqaWarps = 4;               // warps of a packed-row block
 constexpr int kGqaRows = 16 * kGqaWarps;   // packed rows of a block
 
-// One block of causal attention over contiguous keys, the body of the
-// flash and contiguous chunk kernels: the kGqaRows packed rows r = t * G +
-// g of KV head blockIdx.x, batch row blockIdx.y, row tile gridDim.z - 1 -
+// One block of causal attention, the body of the flash, contiguous chunk
+// and paged chunk kernels: the kGqaRows packed rows r = t * G + g of KV
+// head blockIdx.x, batch row blockIdx.y, row tile gridDim.z - 1 -
 // blockIdx.z (later tokens first), of q / out [B, T, Hq, D].  Token t sits
-// at position start + t and sees keys [0, start + t], at most S of them.
-// kbase / vbase point at key 0 of (batch row, KV head), each key `stride`
-// elements after the one before; ks / vs at its f32 scales (int8; else
-// null), one a key.
-template <int D, typename KV>
+// at position start + t and sees keys [0, start + t], at most S of them
+// (a row past the S-th key sees all S).  kbase / vbase point at the K/V
+// base of (batch row, KV head) that `keys` addresses from: ContiguousKeys
+// (each key `stride` elements after the one before) or PagedKeys (the
+// row's block table); ks / vs at the f32 scales `keys.scale` addresses
+// from (int8; else null).
+template <int D, typename KV, typename Keys>
 __device__ __forceinline__ void attend_gqa_block(
     MmaSmem<D, kGqaWarps, KV>& sm, const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* __restrict__ out, const KV* __restrict__ kbase,
-    const KV* __restrict__ vbase, long long stride,
+    const KV* __restrict__ vbase, const Keys& keys,
     const float* __restrict__ ks, const float* __restrict__ vs, int T,
     int Hq, int Hk, int S, int start, float scale) {
   const int hk = blockIdx.x;
@@ -513,9 +521,8 @@ __device__ __forceinline__ void attend_gqa_block(
   const long long qbase =
       (static_cast<long long>(b) * T * Hq + static_cast<long long>(hk) * G) * D;
   attend_mma<D, kGqaWarps, KV>(sm, GqaRows{r0, G, Hq, D}, n_rows, q + qbase,
-                               out + qbase, kbase, vbase,
-                               ContiguousKeys{stride}, ks, vs, n_keys, start,
-                               r0, G, scale);
+                               out + qbase, kbase, vbase, keys, ks, vs,
+                               n_keys, start, r0, G, scale);
 }
 
 // Launch `kern` (a kernel whose blocks run attend_gqa_block) over Hk x B x

@@ -34,8 +34,10 @@
 // serving piece (B=1, T=256) is bound the same way; the speculative verify
 // (T = k + 1 <= 17) is bound by bytes, as decode is.
 //
-// The contiguous kernels (chunk_mma_kernel) run on the tensor-core core
-// of attention_mma.cuh:
+// Both kernels (chunk_mma_kernel over the contiguous cache,
+// paged_chunk_mma_kernel over the page pool) run on the tensor-core core
+// of attention_mma.cuh, one block body (attend_gqa_block) with the key
+// addressing as its policy:
 //   * GQA-packed rows: a block takes 64 flattened query rows r = t * G + g
 //     of ONE KV head (query head hk * G + g, token t), so each K/V tile is
 //     staged once for all G heads of its group (the TPU kernel's T * G8
@@ -52,80 +54,26 @@
 //   * The verify (T <= 17) runs B * Hk * ceil(T * G / 64) blocks (16 at
 //     B = 4, T = 5 for the 7B; 32 at T = 16), each streaming its row's
 //     keys; no key split.
-//
-// The paged kernels (paged_chunk_kernel) still run on the CUDA-core core
-// of attention_common.cuh (qie::attend: one block of D threads per 16
-// rows of one query head, fp32 FMAs, synchronous tiles).  They lose least
-// of the attention kernels against a library call (SDPA over a gathered
-// copy of the pages), so they move onto attention_mma.cuh (with its
-// PagedKeys policy) as a change of their own, measured on their own.
+//   * Paged (the serving scheduler's pieces after a prompt's first): keys
+//     through PagedKeys, each 16-byte chunk of a tile resolving its own
+//     page tables[b, j / page], so a tile may span pages of any multiple
+//     of 8 tokens and a piece may start mid-page; an int8 pool's scales
+//     [L, P, Hk, page] through PagedKeys::scale.  The TPU kernel's grid
+//     axis over pages, with its running sums carried in VMEM across grid
+//     steps, is the loop over 64-key tiles inside attend_mma.  A bucket-
+//     padded last piece may run past the table (S = max_pages * page
+//     keys): its rows there see all S keys, as in the TPU kernel, and no
+//     key at or past S is loaded.  No key split: a block does the
+//     arithmetic of the contiguous kernel's block at the same start, so
+//     through identity tables over a pool that holds a contiguous cache's
+//     rows the two give the same bits.  The launch reads nothing back from
+//     the device, so it is capturable in a CUDA graph.
 // Any T >= 1 is taken (the ragged edge is masked in the kernels); the
 // wrappers limit T to the engine's chunk of 512.
 
-#include "attention_common.cuh"
 #include "attention_mma.cuh"
 
 namespace {
-
-constexpr int kRows = 16;   // paged: query rows per block
-constexpr int kKeys = 64;   // paged: keys per tile
-
-// k_pages / v_pages: the page pool [L, P, Hk, page, D]; tables [B,
-// max_pages]; every row's piece starts at `start`.
-template <int D, typename KV>
-__global__ void __launch_bounds__(D)
-paged_chunk_kernel(const __nv_bfloat16* __restrict__ q,
-                   const KV* __restrict__ k_pages,
-                   const KV* __restrict__ v_pages,
-                   const float* __restrict__ k_scale,
-                   const float* __restrict__ v_scale,
-                   const int* __restrict__ tables,
-                   __nv_bfloat16* __restrict__ out, int P, int T, int Hq,
-                   int Hk, int page, int max_pages, int layer, int start,
-                   float scale) {
-  __shared__ qie::AttnSmem<D, kRows, kKeys, KV> sm;
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hk);
-  const int n_rows = min(kRows, T - q0);
-
-  for (int c = tid; c < kRows * D; c += D) {
-    const int i = c / D, d = c % D;
-    float val = 0.f;
-    if (i < n_rows) {
-      val = __bfloat162float(
-          q[((static_cast<long long>(b) * T + q0 + i) * Hq + h) * D + d]) * scale;
-    }
-    sm.q[i][d] = val;
-  }
-  // row i sits at position start + q0 + i and sees keys [0, that position];
-  // bucket padding may run past the table's last page: those rows see the
-  // whole table (as the TPU kernel's grid walks only the table)
-  const int n_keys = min(max(0, start + q0 + n_rows), max_pages * page);
-  float acc[kRows];
-  // page 0 of (layer, hk); the row's table picks each key's page
-  const long long sbase =
-      (static_cast<long long>(layer) * P * Hk + hk) * static_cast<long long>(page);
-  const long long base = sbase * D;
-  const qie::PagedKeys keys{tables + static_cast<long long>(b) * max_pages,
-                            page, D, static_cast<long long>(Hk) * page * D,
-                            static_cast<long long>(Hk) * page};
-  const float* ks = k_scale == nullptr ? nullptr : k_scale + sbase;
-  const float* vs = v_scale == nullptr ? nullptr : v_scale + sbase;
-  qie::attend<D, kRows, kKeys, KV>(sm, acc, n_rows, k_pages + base,
-                                   v_pages + base, keys, ks, vs, n_keys,
-                                   start + q0, 1);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    if (i < n_rows) {
-      const float denom = fmaxf(sm.l[i], 1e-30f);
-      out[((static_cast<long long>(b) * T + q0 + i) * Hq + h) * D + tid] =
-          __float2bfloat16(acc[i] / denom);
-    }
-  }
-}
 
 // One block: kGqaRows packed rows r = t * G + g of KV head blockIdx.x,
 // batch row blockIdx.y (attend_gqa_block); starts: per-row starts on the
@@ -146,8 +94,8 @@ chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const long long row =
       (static_cast<long long>(layer) * Bc + b) * Hk + blockIdx.x;
   qie::attend_gqa_block<D, KV>(
-      sm, q, out, k_cache + row * S * D, v_cache + row * S * D, D,
-      k_scale == nullptr ? nullptr : k_scale + row * S,
+      sm, q, out, k_cache + row * S * D, v_cache + row * S * D,
+      qie::ContiguousKeys{D}, k_scale == nullptr ? nullptr : k_scale + row * S,
       v_scale == nullptr ? nullptr : v_scale + row * S, T, Hq, Hk, S,
       starts == nullptr ? start_arg : starts[b], scale);
 }
@@ -167,32 +115,50 @@ int launch_contiguous(const void* q, const void* k_cache, const void* v_cache,
       scale);
 }
 
-template <typename KV>
+// One block: kGqaRows packed rows of KV head blockIdx.x, batch row
+// blockIdx.y (attend_gqa_block) over the page pool [L, P, Hk, page, D]
+// through row b of tables [B, max_pages]; every row's piece starts at
+// `start`.
+template <int D, typename KV>
+__global__ void __launch_bounds__(32 * qie::kGqaWarps, 2)
+paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const KV* __restrict__ k_pages,
+                       const KV* __restrict__ v_pages,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
+                       const int* __restrict__ tables,
+                       __nv_bfloat16* __restrict__ out, int P, int T, int Hq,
+                       int Hk, int page, int max_pages, int layer, int start,
+                       float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto& sm = *reinterpret_cast<qie::MmaSmem<D, qie::kGqaWarps, KV>*>(smem_raw);
+  // page 0 of (layer, hk); the row's table picks each key's page
+  const long long sbase =
+      (static_cast<long long>(layer) * P * Hk + blockIdx.x) * page;
+  const long long base = sbase * D;
+  qie::attend_gqa_block<D, KV>(
+      sm, q, out, k_pages + base, v_pages + base,
+      qie::PagedKeys{tables + static_cast<long long>(blockIdx.y) * max_pages,
+                     page, D, static_cast<long long>(Hk) * page * D,
+                     static_cast<long long>(Hk) * page},
+      k_scale == nullptr ? nullptr : k_scale + sbase,
+      v_scale == nullptr ? nullptr : v_scale + sbase, T, Hq, Hk,
+      max_pages * page, start, scale);
+}
+
+template <int D, typename KV>
 int launch_paged(const void* q, const void* k_pages, const void* v_pages,
                  const void* k_scale, const void* v_scale, const void* tables,
                  void* out, int P, int B, int T, int Hq, int Hk, int page,
-                 int max_pages, int D, int layer, int start, float scale,
+                 int max_pages, int layer, int start, float scale,
                  cudaStream_t st) {
-  dim3 grid((T + kRows - 1) / kRows, Hq, B);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const KV*>(k_pages);
-  const auto* vp = static_cast<const KV*>(v_pages);
-  const auto* ksp = static_cast<const float*>(k_scale);
-  const auto* vsp = static_cast<const float*>(v_scale);
-  const auto* tp = static_cast<const int*>(tables);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (D == 128) {
-    paged_chunk_kernel<128, KV><<<grid, 128, 0, st>>>(
-        qp, kp, vp, ksp, vsp, tp, op, P, T, Hq, Hk, page, max_pages, layer,
-        start, scale);
-  } else if (D == 64) {
-    paged_chunk_kernel<64, KV><<<grid, 64, 0, st>>>(
-        qp, kp, vp, ksp, vsp, tp, op, P, T, Hq, Hk, page, max_pages, layer,
-        start, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return qie::launch_gqa<D, KV>(
+      paged_chunk_mma_kernel<D, KV>, B, T, Hq, Hk, st,
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k_pages),
+      static_cast<const KV*>(v_pages), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
+      static_cast<__nv_bfloat16*>(out), P, T, Hq, Hk, page, max_pages, layer,
+      start, scale);
 }
 
 }  // namespace
@@ -242,7 +208,8 @@ extern "C" int qie_chunk_attention(const void* q, const void* k_cache,
 // its scales [L, P, Hk, page]; every row's piece starts at `start` (a host
 // int) and follows its own row of tables [B, max_pages].  The piece may end
 // past the table (the scheduler pads its last piece to a bucket); it must
-// start inside it.
+// start inside it.  cp.async copies 16-byte chunks of q and the pools and
+// 4-byte scales.
 extern "C" int qie_paged_chunk_attention(const void* q, const void* k_pages,
                                          const void* v_pages,
                                          const void* k_scale,
@@ -253,18 +220,36 @@ extern "C" int qie_paged_chunk_attention(const void* q, const void* k_pages,
                                          int layer, int start, float scale,
                                          void* stream) {
   const bool quant = k_scale != nullptr;
-  if (B <= 0 || T <= 0 || Hk <= 0 || Hq % Hk || layer < 0 || layer >= L ||
-      P <= 0 || page <= 0 || page % 8 || max_pages <= 0 || start < 0 ||
-      start >= max_pages * page || quant != (v_scale != nullptr)) {
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pages) |
+       reinterpret_cast<uintptr_t>(v_pages)) % 16 == 0 &&
+      (reinterpret_cast<uintptr_t>(k_scale) |
+       reinterpret_cast<uintptr_t>(v_scale)) % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  if (B <= 0 || B > 65535 || T <= 0 || Hk <= 0 || Hq % Hk || layer < 0 ||
+      layer >= L || P <= 0 || page <= 0 || page % 8 || max_pages <= 0 ||
+      start < 0 || start >= max_pages * page ||
+      quant != (v_scale != nullptr) || (D != 64 && D != 128) ||
+      tables == nullptr || !aligned) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quant) {
-    return launch_paged<int8_t>(q, k_pages, v_pages, k_scale, v_scale, tables,
-                                out, P, B, T, Hq, Hk, page, max_pages, D,
-                                layer, start, scale, st);
+    return D == 128
+        ? launch_paged<128, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
+                                    tables, out, P, B, T, Hq, Hk, page,
+                                    max_pages, layer, start, scale, st)
+        : launch_paged<64, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
+                                   tables, out, P, B, T, Hq, Hk, page,
+                                   max_pages, layer, start, scale, st);
   }
-  return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, nullptr, nullptr,
-                                     tables, out, P, B, T, Hq, Hk, page,
-                                     max_pages, D, layer, start, scale, st);
+  return D == 128
+      ? launch_paged<128, __nv_bfloat16>(q, k_pages, v_pages, nullptr,
+                                         nullptr, tables, out, P, B, T, Hq,
+                                         Hk, page, max_pages, layer, start,
+                                         scale, st)
+      : launch_paged<64, __nv_bfloat16>(q, k_pages, v_pages, nullptr,
+                                        nullptr, tables, out, P, B, T, Hq,
+                                        Hk, page, max_pages, layer, start,
+                                        scale, st);
 }

@@ -40,8 +40,9 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,
   const long long kv0 =
       (static_cast<long long>(blockIdx.y) * T * Hk + blockIdx.x) * D;
   qie::attend_gqa_block<D, __nv_bfloat16>(
-      sm, q, out, k + kv0, v + kv0, static_cast<long long>(Hk) * D, nullptr,
-      nullptr, T, Hq, Hk, T, 0, scale);
+      sm, q, out, k + kv0, v + kv0,
+      qie::ContiguousKeys{static_cast<long long>(Hk) * D}, nullptr, nullptr,
+      T, Hq, Hk, T, 0, scale);
 }
 
 }  // namespace

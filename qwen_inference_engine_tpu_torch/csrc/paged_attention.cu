@@ -66,9 +66,8 @@
 // verify's rows are one row group, its row for token t is, bit for bit,
 // the decode of that token (the same plan, blocks and arithmetic a row).
 //
-// The CUDA-core core qie::attend (attention_common.cuh), which the
-// previous kernel ran, stays for paged_chunk_kernel (chunk_attention.cu)
-// and fused_attn_matmul (fused_step.cu).
+// The paged chunks (chunk_attention.cu) run the same core with the same
+// PagedKeys, one block a 64-row tile and no key split.
 
 #include <stdint.h>
 

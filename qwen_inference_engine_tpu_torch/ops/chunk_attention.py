@@ -20,10 +20,12 @@ The wrappers launch the CUDA kernel ``csrc/chunk_attention.cu``:
   ``_paged_chunk_q8`` / ``_paged_chunk_kernel_q8``): the same over the int8
   pool with its f32 scales ``[L, P, Hk, page]``.
 
-The two contiguous kernels run on the tensor cores (``csrc/attention_mma.cuh``:
-mma.sync with the G query heads of one KV head packed into each block's
-rows, K/V tiles staged by cp.async in two stages); the paged ones on the
-CUDA-core core of ``csrc/attention_common.cuh``.
+All four run on the tensor cores, one block body (``attend_gqa_block`` of
+``csrc/attention_mma.cuh``: mma.sync with the G query heads of one KV head
+packed into each block's rows, K/V tiles staged by cp.async in two
+stages); the paged ones address their keys through the block table
+(``PagedKeys``), so through identity tables they give the contiguous
+kernels' bits at the same start.
 
 The contiguous wrappers take ``start`` as a host int shared by every row
 or, as the JAX wrapper does, a ``[B]`` int32 device tensor of per-row

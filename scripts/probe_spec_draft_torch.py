@@ -27,7 +27,18 @@ tokens a forward; that verdict is recorded, not raised.  Then, for each
 variant, the seed-0 traffic again through ``step``: after every step,
 each decoding row's positions before its last in the two pools (every
 layer, K and V) are compared, and the first position where they differ
-is recorded, counted from the row's prompt length.  Prints one JSON
+is recorded, counted from the row's prompt length, with the positions
+apart and, at the first, the first layers whose K or V differ and by how
+much (a difference from layer 0 on means the two pools hold another
+token or position there, not another rounding); and, where that step's
+round wrote the position, the drafter's decode step and the verify's
+column for it compared op by op (``rms_norm``, ``apply_linear``,
+``apply_rope`` and the paged attention, each call's output): the first
+ops whose outputs differ, with their layers, and where the first is a
+norm, its input row in both and that row normalized inside either batch
+shape.  Last, how often random rows normalized inside [8, 5, H] and
+inside [8, 1, H] tensors differ, for the port's norm (an f32 mean) and
+for one whose variance is summed in f64.  Prints one JSON
 object (and writes it to OUT.json when given), with the card's name and
 power limit.  Needs a CUDA device.
 """
@@ -85,10 +96,152 @@ def refeed_round(self, tok_last, pos0, tables, active, sp_rows):
 BUILT = {}
 
 
-def first_parting(torch, cs, cfg, params, rng, steps=40):
+def rms_norm_f64(x, weight, eps):
+    """``ops.norms.rms_norm`` with the variance summed in f64, then
+    rounded to f32 (a candidate batch-invariant norm; not the port's)."""
+    import torch
+
+    xf = x.float()
+    var = xf.double().square().mean(dim=-1, keepdim=True).float()
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
+
+
+def norm_sweep(torch, norm, H, B=8, T=5, trials=200, scale=4.0):
+    """How often a row of random bf16 x [B, T, H] (x ``scale``) normalized
+    inside the [B, T, H] tensor differs from the same row normalized
+    inside a [B, 1, H] one: (rows apart, rows compared) for ``norm``."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = (1 + 0.1 * torch.randn((H,), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    apart = 0
+    for _ in range(trials):
+        x = (scale * torch.randn((B, T, H), generator=g, device="cuda")).to(
+            torch.bfloat16)
+        many = norm(x, w, 1e-6)
+        for t in range(T):
+            one = norm(x[:, t:t + 1].contiguous(), w, 1e-6)[:, 0]
+            apart += int((one != many[:, t]).any(-1).sum())
+    return apart, trials * B * T
+
+
+OPS = ("rms_norm", "apply_linear", "apply_rope", "_paged_attention")
+
+
+class OpRecorder:
+    """While a step runs, every call of ``OPS`` in ``models.qwen`` records
+    its output under the forward it belongs to: ("draft", i) for the
+    round's i-th drafter decode step, ("verify",) for the target's verify
+    (other forwards, such as prefill pieces, are not recorded)."""
+
+    def __init__(self, torch, qwen, spec_engine):
+        self.torch, self.qwen, self.spec = torch, qwen, spec_engine
+        self.phase, self.records, self.drafts = None, {}, 0
+        self.saved = {n: getattr(qwen, n) for n in OPS}
+        self.saved_step = spec_engine.decode_step
+        self.saved_verify = spec_engine.SpeculationMixin._verify
+
+    def __enter__(self):
+        rec = self
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                if rec.phase is not None:
+                    # a norm also keeps its input, weight and eps
+                    args_kept = ((args[0].detach().clone(), *args[1:])
+                                 if name == "rms_norm" else None)
+                    rec.records.setdefault(rec.phase, []).append(
+                        (name, out.detach().clone(), args_kept))
+                return out
+            return call
+
+        def draft_step(*args, **kw):
+            rec.phase = ("draft", rec.drafts)
+            rec.drafts += 1
+            try:
+                return self.saved_step(*args, **kw)
+            finally:
+                rec.phase = None
+
+        def verify(engine, *args, **kw):
+            rec.phase = ("verify",)
+            try:
+                return rec.saved_verify(engine, *args, **kw)
+            finally:
+                rec.phase = None
+
+        for n in OPS:
+            setattr(self.qwen, n, wrap(n, self.saved[n]))
+        self.spec.decode_step = draft_step
+        self.spec.SpeculationMixin._verify = verify
+        return self
+
+    def __exit__(self, *exc):
+        for n in OPS:
+            setattr(self.qwen, n, self.saved[n])
+        self.spec.decode_step = self.saved_step
+        self.spec.SpeculationMixin._verify = self.saved_verify
+
+    def clear(self):
+        self.records, self.drafts = {}, 0
+
+    def compare(self, slot, i, T):
+        """The round's drafter step i against column i of the verify, op by
+        op for row ``slot``: the first ops (in call order, with their
+        layer) whose outputs differ, and how many do; where the first is a
+        norm, whether its input row was the same and what the norm gives
+        that row inside each batch shape (``norm_replay``)."""
+        draft = self.records.get(("draft", i), [])
+        verify = self.records.get(("verify",), [])
+        apart, norms, replay = [], 0, None
+        for n, ((name, a, args), (name_v, b, args_v)) in enumerate(
+                zip(draft, verify)):
+            if name != name_v:
+                return dict(error=f"op {n}: {name} against {name_v}")
+            norms += name == "rms_norm"    # two a layer, then the final one
+            layer = max(norms - 1, 0) // 2
+            x = a[slot, 0] if a.dim() > 1 and a.shape[1] == 1 else a[slot]
+            y = b[slot, i] if b.dim() > 1 and b.shape[1] == T \
+                else b[slot * T + i]
+            d = float((x.float() - y.float()).abs().max())
+            if d != 0 or bool(x.isnan().any() != y.isnan().any()):
+                apart.append((n, name, layer, d))
+                if len(apart) == 1 and name == "rms_norm":
+                    replay = self.norm_replay(args, args_v, slot, i)
+        return dict(ops=len(draft), verify_ops=len(verify),
+                    ops_apart=len(apart), first_apart=apart[:8],
+                    norm_replay=replay)
+
+    def norm_replay(self, args, args_v, slot, i):
+        """The first parting norm's input row in both forwards, and that
+        row normalized inside the drafter's [B, 1, H] tensor and inside
+        the verify's [B, T, H] one (the verify's own input with the row
+        put in), by the port's norm (an f32 mean) and with the variance
+        summed in f64."""
+        torch = self.torch
+        x, w, eps = args
+        xv = args_v[0]
+        row_same = bool(torch.equal(x[slot, 0], xv[slot, i]))
+        wide = xv.clone()
+        wide[slot, i] = x[slot, 0]
+        out = {"input_row_equal": row_same}
+        for kind, norm in (("f32 mean", self.saved["rms_norm"]),
+                           ("f64 mean", rms_norm_f64)):
+            one = norm(x, w, eps)[slot, 0]
+            many = norm(wide, w, eps)[slot, i]
+            out[kind] = dict(
+                bit_equal=bool(torch.equal(one, many)),
+                elements_apart=int((one != many).sum()))
+        return out
+
+
+def first_parting(torch, cs, cfg, params, rng, steps=40, recorder=None):
     """The seed traffic through ``step``; after each step the first
     position (from the prompt's end) where a decoding row's drafter pool
-    and target pool differ, per row (its first parting only)."""
+    and target pool differ, per row (its first parting only).  With a
+    ``recorder`` (an entered OpRecorder), each parting also gets the op
+    by op comparison of the drafter step and the verify column that wrote
+    its first position in that step's round."""
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
         Request,
@@ -109,6 +262,12 @@ def first_parting(torch, cs, cfg, params, rng, steps=40):
                           max_new_tokens=cs.NEW_TOKENS))
     parted, compared, step = {}, 0, 0
     while cb.has_work() and step < steps:
+        # each row's round starts at its length before the step, or at its
+        # prompt's end where the step finishes its prefill
+        seq0 = {x.request.request_id: x.seq_len for x in cb._slots
+                if x is not None and x.prefill_done}
+        if recorder is not None:
+            recorder.clear()
         cb.step()
         step += 1
         for s in cb._slots:
@@ -129,10 +288,32 @@ def first_parting(torch, cs, cfg, params, rng, steps=40):
             compared += 1
             if bool(diff.any()):
                 p = int(diff.nonzero()[0])
+                pg, o = int(table[p // cs.PAGE]), p % cs.PAGE
+                layers = {}
+                for kind, a, b in (
+                        ("k", cb.cache.k_pages, cb.draft_cache.k_pages),
+                        ("v", cb.cache.v_pages, cb.draft_cache.v_pages)):
+                    d = (a[:, pg, :, o].float() - b[:, pg, :, o].float()
+                         ).abs().flatten(1).amax(1)
+                    layers[kind] = [(i, float(x)) for i, x in
+                                    enumerate(d.tolist()) if x != 0][:4]
                 parted[s.request.request_id] = dict(
                     step=step, position=p,
                     from_prompt_end=p - len(s.request.prompt),
-                    positions_apart=int(diff.sum()), of=n)
+                    positions_apart=int(diff.sum()), of=n,
+                    apart=diff.nonzero()[:, 0].tolist()[:12],
+                    prompt_len=len(s.request.prompt), slot=s.slot,
+                    generated=len(s.generated),
+                    first_layers_apart=layers)
+                pos0 = seq0.get(s.request.request_id,
+                                len(s.request.prompt))
+                if recorder is not None:
+                    i = p - pos0
+                    parted[s.request.request_id]["round_pos0"] = pos0
+                    parted[s.request.request_id]["ops"] = (
+                        recorder.compare(s.slot, i, cs.SPEC_K + 1)
+                        if 0 <= i <= cs.SPEC_K else
+                        "written before this step's round")
     del cb
     torch.cuda.empty_cache()
     return dict(steps=step, rows_compared=compared, parted=parted)
@@ -208,9 +389,17 @@ def main() -> int:
             out["runs"][f"{variant} seed {seed}"] = dict(
                 tokens_per_forward=float(tpf.group(1)) if tpf else None,
                 verdict=verdict)
-        out["pools"][variant] = first_parting(
-            torch, cs, cfg8, params, np.random.default_rng(0))
+        with OpRecorder(torch, qwen, spec_engine) as rec:
+            out["pools"][variant] = first_parting(
+                torch, cs, cfg8, params, np.random.default_rng(0),
+                recorder=rec)
         print(f"pools {variant}: {out['pools'][variant]}", flush=True)
+    from qwen_inference_engine_tpu_torch.ops.norms import rms_norm
+
+    out["norm_sweep"] = {
+        kind: norm_sweep(torch, fn, cfg.hidden_size)
+        for kind, fn in (("f32 mean", rms_norm), ("f64 mean", rms_norm_f64))}
+    print(f"norm sweep (rows apart, rows): {out['norm_sweep']}", flush=True)
     for n in names:
         setattr(qwen, n, built[n])
     mixin._model_round = BUILT["round"]

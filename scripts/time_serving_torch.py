@@ -12,7 +12,12 @@ INT8 page pool and each width: 8 slots, pages of 512, pieces of 256,
 prefix cache on, greedy, EOS off; 8 prompts (150..1400 tokens, 160 new
 each) fill the slots, then 6 chained windows of 8 decode ticks are timed
 by the host clock (synchronized around each window), and one more under
-``torch.profiler`` for the device's busy time.  Prints one JSON object
+``torch.profiler`` for the device's busy time.  Then, for each pool, one
+1536-token prompt alone (prefix cache off, after a warm-up prompt of the
+same length): its six 256-token pieces (a fresh one, then continuations at
+starts 256..1280) and first token as one scheduler tick, by the host clock
+and under ``torch.profiler``: host ms, device busy ms a piece, and the
+paged chunk kernels' device ms and launches.  Prints one JSON object
 (and writes it to OUT.json when given), with the card's name and power
 limit.  Needs a CUDA device.
 """
@@ -25,6 +30,7 @@ import time
 
 LENS = [150, 300, 450, 600, 750, 900, 1150, 1400]
 TICKS, WINDOWS = 8, 6
+PREFILL = 1536      # six pieces of 256
 
 
 def main() -> int:
@@ -98,6 +104,43 @@ def main() -> int:
                   f"busy {busy:.3f} ms per tick", flush=True)
             del cb
             torch.cuda.empty_cache()
+    for kv in (torch.bfloat16, torch.int8):
+        cb = ContinuousBatchingEngine(
+            cfg, params, max_slots=8, page_size=512, num_pages=40,
+            max_pages_per_seq=4, prefill_chunk=256, prefix_cache=False,
+            sampling=SamplingParams(greedy=True), kv_dtype=kv, device="cuda")
+        rec = {}
+        for rid in range(2):
+            prompt = rng.integers(0, cfg.vocab_size, size=PREFILL).tolist()
+            cb.submit(Request(request_id=rid, prompt=prompt,
+                              max_new_tokens=1))
+            torch.cuda.synchronize()
+            if rid == 0:
+                cb.step()
+                continue
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                done = cb.step()
+                torch.cuda.synchronize()
+                rec["host_ms"] = (time.perf_counter() - t0) * 1e3
+            assert [f.request_id for f in done] == [rid], done
+            events = [e for e in prof.key_averages()
+                      if e.self_device_time_total > 0]
+            pieces = PREFILL // 256
+            rec["device_busy_ms_per_piece"] = sum(
+                e.self_device_time_total for e in events) / 1e3 / pieces
+            chunk = [e for e in events if "paged_chunk" in e.key]
+            rec["paged_chunk_kernels"] = {
+                e.key[:60]: dict(device_ms=e.self_device_time_total / 1e3,
+                                 launches=e.count) for e in chunk}
+            rec["paged_chunk_ms_per_piece"] = sum(
+                e.self_device_time_total for e in chunk) / 1e3 / (pieces - 1)
+        key = f"prefill {'int8' if kv == torch.int8 else 'bf16'}"
+        out["runs"][key] = rec
+        print(f"{key}: {json.dumps(rec)}", flush=True)
+        del cb
+        torch.cuda.empty_cache()
     print(json.dumps(out))
     if len(sys.argv) > 2:
         with open(sys.argv[2], "w") as f:

@@ -18,7 +18,11 @@ the int8 scale writes), the paged decode and verify split S on the tensor
 cores (one split, several, most of them empty, splits starting inside a
 page; two calls bit for bit; the same bits through pages of 512, 256, 16
 and 8, in order and shuffled; a verify row bit-equal to the decode of its
-token; one CUDA graph replayed at new device lengths and tables), the grouped MoE matmuls (one row, one
+token; one CUDA graph replayed at new device lengths and tables), the
+paged chunks on the tensor cores (G 1, 4, 7 and 8, D 64 and 128, pieces
+past the table's end, the bits of the contiguous chunk kernels through
+pages of 8, 16, 48 and 512, in order and shuffled; one CUDA graph
+replayed after the tables and pools change), the grouped MoE matmuls (one row, one
 expert taking every row, 127 empty experts of 128, decode- and
 prefill-like expert sizes, odd column tiles, a padded K; the three on
 the tensor-core body at 16- and 64-row tiles, a layer past 2^31 weight
@@ -1437,6 +1441,150 @@ def test_paged_chunk_attention_past_the_table_end(gen, page, start, T):
     ref = ca.paged_chunk_attention_plain(q, k, v, tables, 1, start, page)
     assert bool(got.isfinite().all())
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def _as_pages(c, page, order):
+    """The cache ``c [L, B, Hk, S, ...]`` stored as a pool of pages of
+    ``page`` tokens, row b's page i at pool page ``order[b * n + i]``."""
+    L, B, Hk, S = c.shape[:4]
+    n = S // page
+    rows = c.reshape(L, B, Hk, n, page, *c.shape[4:]).transpose(2, 3)
+    rows = rows.reshape(L, B * n, Hk, page, *c.shape[4:])
+    out = torch.empty_like(rows, memory_format=torch.contiguous_format)
+    out[:, order] = rows
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("G,D", [(7, 128), (8, 64)])
+@pytest.mark.parametrize("T,start", [(1, 0), (7, 13), (256, 700),
+                                     (256, 1280), (512, 1024)])
+def test_paged_chunk_is_the_contiguous_bits_through_any_pages(gen, T, start,
+                                                              G, D, quant):
+    """One cache of S = 1536 keys a row stored as pages of 8, 16, 48 and
+    512, in order (identity tables) and shuffled: the paged chunk kernel
+    runs the contiguous chunk kernel's blocks (one block a 64-row tile, no
+    key split) with the same arithmetic, so every layout gives the bits of
+    chunk_attention_contiguous(_q8) at the same start; NaN past the
+    piece's end in every row (NaN scales for int8)."""
+    L, B, Hk, S, layer = 2, 2, 2, 1536, 1
+    kc, vc = _bf16(gen, L, B, Hk, S, D), _bf16(gen, L, B, Hk, S, D)
+    kc[:, :, :, start + T:] = float("nan")
+    vc[:, :, :, start + T:] = float("nan")
+    caches, scales = (kc, vc), ()
+    if quant:
+        k8, ks = quantize_kv(kc.nan_to_num())
+        v8, vs = quantize_kv(vc.nan_to_num())
+        ks[:, :, :, start + T:] = float("nan")
+        vs[:, :, :, start + T:] = float("nan")
+        caches, scales = (k8, v8), (ks, vs)
+    sfx = "_q8" if quant else ""
+    q = _bf16(gen, B, T, G * Hk, D)
+    want = getattr(ca, "chunk_attention_contiguous" + sfx)(
+        q, *caches, *scales, layer, start)
+    assert bool(want.isfinite().all())
+    paged = getattr(ca, "paged_chunk_attention" + sfx)
+    for page in (8, 16, 48, 512):
+        n = S // page
+        for shuffle in (False, True):
+            order = (torch.randperm(B * n, generator=gen, device="cuda")
+                     if shuffle else torch.arange(B * n, device="cuda"))
+            tables = order.to(torch.int32).reshape(B, n)
+            pools = [_as_pages(c, page, order) for c in caches + scales]
+            before = paged.launches
+            got = paged(q, *pools, tables, layer, start, page)
+            assert paged.launches == before + 1
+            assert torch.equal(got, want), (page, shuffle)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+@pytest.mark.parametrize("page", [16, 512])
+@pytest.mark.parametrize("G,D", [(8, 128), (8, 64), (1, 64), (4, 128)])
+@pytest.mark.parametrize("T,start", [(5, 13), (256, 700), (100, 1000)])
+def test_paged_chunk_attention_head_layouts_match_plain(gen, T, start, G, D,
+                                                        page, quant):
+    """G 1, 4 and 8 (Qwen3-30B-A3B's layout), D 64 and 128, packed row
+    tiles that T * G does not fill, mid-page starts, three rows with their
+    own tables; NaN in the pages no table holds and past the piece's end
+    (NaN scales for int8); two calls bit for bit."""
+    L, B, Hk = 2, 3, 2
+    max_pages = -(-(start + T) // page) + 1
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, [start + T] * B)
+    pools, scales = (k, v), ()
+    if quant:
+        k8, v8, ks, vs = _q8_pool(k, v)
+        pools, scales = (k8, v8), (ks, vs)
+    name = "paged_chunk_attention" + ("_q8" if quant else "")
+    q = _bf16(gen, B, T, G * Hk, D)
+    args = (q, *pools, *scales, tables, 1, start, page)
+    got = getattr(ca, name)(*args)
+    again = getattr(ca, name)(*args)
+    ref = getattr(ca, name + "_plain")(*args)
+    assert bool(got.isfinite().all())
+    assert torch.equal(got, again)
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("page,start,T", [(8, 27, 16), (48, 150, 256),
+                                          (512, 2039, 16)])
+def test_paged_chunk_attention_q8_past_the_table_end(gen, page, start, T):
+    """The INT8 pool's bucket-padded last piece past the table's end: its
+    rows there attend the whole table, as in the plain version."""
+    L, B, Hk, G, D = 2, 2, 2, 7, 128
+    max_pages = -(-(start + 1) // page)
+    assert start + T > max_pages * page
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, [start + T] * B)
+    k8, v8, ks, vs = _q8_pool(k, v)
+    q = _bf16(gen, B, T, G * Hk, D)
+    args = (q, k8, v8, ks, vs, tables, 1, start, page)
+    got = ca.paged_chunk_attention_q8(*args)
+    ref = ca.paged_chunk_attention_q8_plain(*args)
+    assert bool(got.isfinite().all())
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
+def test_paged_chunk_replays_in_a_cuda_graph(gen, quant):
+    """One paged chunk call captured in a CUDA graph (the launch reads
+    nothing back from the device), replayed after the tables and the pool
+    change in place, equals the eager call at the new values bit for
+    bit."""
+    L, B, Hk, G, D, page, max_pages, T, start = 2, 2, 4, 7, 128, 16, 8, 64, 37
+    P = 2 * B * max_pages + 1
+    tables = _tables(gen, B, max_pages, P)
+    k, v = _bf16(gen, L, P, Hk, page, D), _bf16(gen, L, P, Hk, page, D)
+    pools, scales = [k, v], []
+    if quant:
+        k8, v8, ks, vs = _q8_pool(k, v)
+        pools, scales = [k8, v8], [ks, vs]
+    fn = ca.paged_chunk_attention_q8 if quant else ca.paged_chunk_attention
+    q = _bf16(gen, B, T, G * Hk, D)
+    args = (q, *pools, *scales, tables, 1, start, page)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args)
+    for _ in range(2):
+        tables.copy_(_tables(gen, B, max_pages, P))
+        fresh = [_bf16(gen, L, P, Hk, page, D) for _ in range(2)]
+        if quant:
+            fresh = list(_q8_pool(*fresh))
+        for t, new in zip(pools + scales, fresh):
+            t.copy_(new)
+        captured.zero_()
+        graph.replay()
+        eager = fn(*args)
+        torch.cuda.synchronize()
+        assert bool(eager.isfinite().all())
+        assert torch.equal(captured, eager)
 
 
 @pytest.mark.parametrize("page", [8, 16, 48, 512])

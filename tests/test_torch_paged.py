@@ -261,6 +261,39 @@ def test_paged_chunk_attention_plain_matches_pallas_interpret(T, start, page):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("T,start,G", [(16, 700, 8), (24, 500, 8),
+                                       (8, 1000, 7), (16, 256, 8)])
+def test_paged_chunk_attention_plain_matches_pallas_interpret_page_512(
+        T, start, G):
+    """Pieces over the serving page of 512 tokens: Qwen3-30B-A3B's G = 8
+    (the TPU kernel pads no heads) and G = 7, starts in the middle of a
+    page (700, 1000) and one that crosses into the next page (500 + 24);
+    NaN in the pages past each row's last needed page; f32, the tolerance
+    of the test above."""
+    L, B, Hk, D, page = 2, 2, 2, 128, 512
+    Hq = G * Hk
+    S = start + T
+    pps = -(-S // page) + 1
+    P = B * pps + 2
+    rng = np.random.default_rng(53 + T + start + G)
+    tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
+    jp = _stale(_pool(rng, L, P, Hk, page, D), tables, [S] * B, page)
+    tp = paged_cache_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    q = rng.normal(size=(B, T, Hq, D)).astype(np.float32)
+    layer = 1
+    with interpret_pallas(jca):
+        want = jca.paged_chunk_attention(jnp.asarray(q), jp.k_pages,
+                                         jp.v_pages, jnp.asarray(tables),
+                                         layer, start, page)
+    before = tca.paged_chunk_attention.launches
+    got = tca.paged_chunk_attention(_t(q), tp.k_pages, tp.v_pages, _t(tables),
+                                    layer, start, page)
+    assert tca.paged_chunk_attention.launches == before
+    assert got.shape == (B, T, Hq, D) and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
 @pytest.fixture(scope="module", params=[False, True], ids=["qwen2", "qwen3"])
 def models(request):
     return _build(request.param)

@@ -161,6 +161,37 @@ def test_paged_chunk_attention_q8_plain_matches_pallas_interpret(T, start,
                                atol=Q8_ATOL)
 
 
+@pytest.mark.parametrize("T,start,G", [(16, 700, 8), (24, 500, 8),
+                                       (8, 1000, 7), (16, 256, 8)])
+def test_paged_chunk_attention_q8_plain_matches_pallas_interpret_page_512(
+        T, start, G):
+    """The INT8 pool's pieces over pages of 512: G = 8 and 7, mid-page
+    starts and a piece crossing into the next page; NaN scales in the
+    pages past each row's last needed page; the tolerance of the test
+    above."""
+    L, B, Hk, D, page = 2, 2, 2, 128, 512
+    Hq = G * Hk
+    S = start + T
+    pps = -(-S // page) + 1
+    P = B * pps + 2
+    rng = np.random.default_rng(59 + T + start + G)
+    tables = rng.permutation(P)[: B * pps].reshape(B, pps).astype(np.int32)
+    k, v, ks, vs = _pool(rng, L, P, Hk, page, D, tables, [S] * B, True)
+    q = _bf16_values(rng.normal(size=(B, T, Hq, D)).astype(np.float32))
+    layer = 1
+    with interpret_pallas(jca):
+        want = jca.paged_chunk_attention_q8(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks),
+            jnp.asarray(vs), jnp.asarray(tables), layer, start, page)
+    before = tca.paged_chunk_attention_q8.launches
+    got = tca.paged_chunk_attention_q8(_t(q), _t(k), _t(v), _t(ks), _t(vs),
+                                       _t(tables), layer, start, page)
+    assert tca.paged_chunk_attention_q8.launches == before
+    assert got.shape == (B, T, Hq, D) and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2 ** -7,
+                               atol=Q8_ATOL)
+
+
 def _append_pools(rng, L, P, Hk, page, D, kind):
     """(numpy K, V pools, their torch and jnp forms) of ``kind``."""
     if kind == "int8":

@@ -687,6 +687,66 @@ def test_new_paged_wrappers_refuse_before_any_build(monkeypatch, case):
         fn()
 
 
+def _chunk_call(q8, q_shape, pool_shape=(2, 6, 2, 16, 128), tables=(1, 3),
+                start=0, page=16, pool_dtype=None):
+    """A paged chunk call on meta tensors: bf16 queries over a bf16 pool,
+    or (q8) an int8 pool with its f32 scales."""
+    kv = pool_dtype or (_I8 if q8 else _BF)
+    pools = (_meta(*pool_shape, dtype=kv), _meta(*pool_shape, dtype=kv))
+    q, t = _meta(*q_shape, dtype=_BF), _meta(*tables, dtype=torch.int32)
+    if q8:
+        return lambda: tca.paged_chunk_attention_q8(
+            q, *pools, _meta(*pool_shape[:-1]), _meta(*pool_shape[:-1]), t, 0,
+            start, page)
+    return lambda: tca.paged_chunk_attention(q, *pools, t, 0, start, page)
+
+
+PAGED_CHUNK_REFUSALS = {
+    "bf16 G 9": (_chunk_call(False, (1, 16, 18, 128)), ValueError, "G <= 8"),
+    "q8 G 9": (_chunk_call(True, (1, 16, 18, 128)), ValueError, "G <= 8"),
+    "q8 D 96": (_chunk_call(True, (1, 16, 4, 96), (2, 6, 2, 16, 96)),
+                ValueError, "D in"),
+    "bf16 D 256": (_chunk_call(False, (1, 16, 4, 256), (2, 6, 2, 16, 256)),
+                   ValueError, "D in"),
+    "bf16 page 12": (_chunk_call(False, (1, 16, 4, 128), (2, 6, 2, 12, 128),
+                                 page=12), ValueError, "multiple of 8"),
+    "q8 T 0": (_chunk_call(True, (1, 0, 4, 128)), ValueError, "1..512"),
+    "q8 start past the table": (_chunk_call(True, (1, 8, 4, 128), start=48),
+                                IndexError, "outside the"),
+    "bf16 f32 pool": (_chunk_call(False, (1, 8, 4, 128),
+                                  pool_dtype=torch.float32), TypeError,
+                      "bf16 or int8 pools"),
+    "bf16 G 8 passes its checks": (_chunk_call(False, (1, 256, 16, 128)),
+                                   AssertionError, "library was asked for"),
+    "q8 G 8 D 64 passes its checks": (
+        _chunk_call(True, (1, 256, 16, 64), (2, 6, 2, 16, 64)),
+        AssertionError, "library was asked for"),
+    "bf16 T 512 past the table's end passes": (
+        _chunk_call(False, (1, 512, 4, 128), start=40), AssertionError,
+        "library was asked for"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CHUNK_REFUSALS))
+def test_paged_chunk_wrappers_refuse_what_the_kernel_does_not_take(
+        monkeypatch, case):
+    """The paged chunk wrappers take what the tensor-core kernel takes
+    (G <= 8, D in {64, 128}, pages of a multiple of 8 tokens, pieces of
+    1..512 tokens that start inside the table, bf16 or int8 pools) and
+    refuse the rest before the library is built (meta tensors stand in for
+    the card); a G = 8 piece and a piece that runs past the table's end
+    pass every check and ask for the library."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+
+    def no_build():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(cuda_lib, "library", no_build)
+    fn, exc, match = PAGED_CHUNK_REFUSALS[case]
+    with pytest.raises(exc, match=match):
+        fn()
+
+
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_serving_engine_defaults_to_the_card(device):
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
