@@ -56,7 +56,8 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    over the half's rows + the bf16 MLP) beside Mb = 96 MLP rows, and
    from row 96 beside Mb = 40 (each printing both MLP plans and a CUDA
    graph's time) and ``kv_append_uniform`` (96 rows
-   from row 96, bit-exact; yardstick a slice assignment), each also called
+   from row 96, bit-exact; yardstick a slice assignment; both also in a
+   CUDA graph), each also called
    twice for bit-identical results; the last four sites' kernels:
    ``kv_append_ragged_t`` (Hk 4, D 128, 4 rows of S 1024, T = 1 and 5,
    bf16 and int8 with its scales, starts -1, 7, 8, 31, 32, S - T, 0 and a
@@ -65,10 +66,13 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    512, old lengths 0 .. S - 1, 1e4 at and past each, each with its split
    plan and a CUDA graph's time; yardstick SDPA over the cache with the
    fresh row written first), ``kv_append_all_uniform``
-   (28 layers, B = 4 and 192; bit-exact) and ``fused_attn_matmul`` at
+   (28 layers, B = 4 and 192; bit-exact; it and its yardstick also in a
+   CUDA graph) and ``fused_attn_matmul`` at
    ``scripts/probe_fused.py``'s shapes (56 rows of a 112-row cache, S
    1024, lens S - 7, the 7B gate projection K 3584 N 18944 INT4 gs 256,
-   row0 0 and 56; yardstick SDPA + bf16 ``torch.matmul``);
+   row0 0 and 56; its plan; y bit-equal to ``quant_matmul4``'s, the
+   attention to ``fused_attn_mlp``'s; yardstick SDPA + bf16
+   ``torch.matmul``; both also in a CUDA graph);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -143,7 +147,8 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
 4e. [probe fused], the port of ``scripts/probe_fused.py``: at its shapes,
    the decode attention alone on a 56-row cache (t_attn), the W4A16 gate
    projection alone (t_mm) and one ``fused_attn_matmul`` doing both
-   (t_fused), between full overlap (the max) and none (the sum);
+   (t_fused), between full overlap (the max) and none (the sum), a call
+   and in a CUDA graph;
 loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    biases, an untied lm_head) at the Qwen2.5-7B widths and 2 layers, taken
    from the seeded params and written into a temporary directory (deleted
@@ -1676,9 +1681,13 @@ def check_kv_append_uniform(torch, cfg):
         fail("kv_append_uniform did not return the tensors it wrote")
     diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
     touched = int(((mine[0] != kc).any(-1) | (mine[1] != vc).any(-1)).sum())
-    pos_t = torch.tensor([pos], device="cuda")
-    ms = time_ms(torch, lambda: ka.kv_append_uniform(*mine, kn, vn, pos_t,
-                                                     layer, row0=row0))
+    pos_t = torch.tensor([pos], device="cuda", dtype=torch.int32)
+
+    def kernel():
+        ka.kv_append_uniform(*mine, kn, vn, pos_t, layer, row0=row0)
+
+    ms = time_ms(torch, kernel)
+    g_ms = graph_ms(torch, kernel)
     plain_ms = time_ms(torch, lambda: ka.kv_append_uniform_plain(
         *theirs, kn, vn, pos, layer, row0))
 
@@ -1687,19 +1696,21 @@ def check_kv_append_uniform(torch, cfg):
         theirs[1][layer, row0:row0 + Bn, :, pos] = vn[:, 0]
 
     lib_ms = time_ms(torch, library)
+    lib_g_ms = graph_ms(torch, library)
     b_ms, b_by = bound(2 * (2 * 2 * Bn * Hk * D), 0, "bf16")
     print(f"  kv_append_uniform rows {row0}..{row0 + Bn - 1} position {pos}: "
           f"{diff} elements differ (must be 0), {touched} (row, head) vectors "
-          f"changed (at most {Bn * Hk}) | kernel {ms:.4f} ms | plain "
-          f"{plain_ms:.4f} | slice assignment {lib_ms:.4f} | bound "
-          f"{b_ms:.6f} ({b_by})", flush=True)
+          f"changed (at most {Bn * Hk}) | kernel {ms:.4f} ms | in a CUDA "
+          f"graph {g_ms:.5f} | plain {plain_ms:.4f} | slice assignment "
+          f"{lib_ms:.4f} (graph {lib_g_ms:.5f}) | bound {b_ms:.6f} "
+          f"({b_by})", flush=True)
     if diff != 0 or not 0 < touched <= Bn * Hk:
         fail(f"kv_append_uniform not bit-exact: {diff} elements differ, "
              f"{touched} vectors changed")
     return dict(shape=f"Bn={Bn} rows from {row0} of {Bc}, position {pos} "
                       f"S={S} Hk={Hk} D={D}", max_abs_err=0.0, tol=0.0, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 # ----------------------------------------------------------------------
@@ -1914,8 +1925,11 @@ def check_deferred_kernels(torch, cfg):
         changed = ((mine[0] != kc).any(-1) | (mine[1] != vc).any(-1))
         stray = int(changed.sum() - changed[:, :, :, pos].sum())
         del kc, vc
-        ms = time_ms(torch, lambda: ka.kv_append_all_uniform(*mine, kn, vn,
-                                                             pos_t))
+        def kernel():
+            ka.kv_append_all_uniform(*mine, kn, vn, pos_t)
+
+        ms = time_ms(torch, kernel)
+        g_ms = graph_ms(torch, kernel)
         plain_ms = time_ms(torch, lambda: ka.kv_append_all_uniform_plain(
             *theirs, kn, vn, pos))
 
@@ -1924,17 +1938,20 @@ def check_deferred_kernels(torch, cfg):
             theirs[1][:, :, :, pos] = vn[:, :, 0]
 
         lib_ms = time_ms(torch, library)
+        lib_g_ms = graph_ms(torch, library)
         b_ms, b_by = bound(2 * 2 * (2 * L * B * Hk * D) + 4, 0, "bf16")
         print(f"  kv_append_all_uniform L={L} B={B} position {pos} of {S}: "
               f"{diff} elements differ (must be 0), {stray} vectors changed "
-              f"off the position | kernel {ms:.4f} ms | plain "
-              f"{plain_ms:.4f} | slice assignment {lib_ms:.4f} | bound "
-              f"{b_ms:.6f} ({b_by})", flush=True)
+              f"off the position | kernel {ms:.4f} ms | in a CUDA graph "
+              f"{g_ms:.5f} | plain {plain_ms:.4f} | slice assignment "
+              f"{lib_ms:.4f} (graph {lib_g_ms:.5f}) | bound {b_ms:.6f} "
+              f"({b_by})", flush=True)
         if diff != 0 or stray != 0:
             fail(f"kv_append_all_uniform B={B}: {diff} elements differ, "
                  f"{stray} vectors changed off the position")
-        r = dict(max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        r = dict(max_abs_err=0.0, tol=0.0, ms=ms, graph_ms=g_ms,
+                 plain_ms=plain_ms, library_ms=lib_ms,
+                 library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by)
         if append is None:
             append = {f"rows_b{B}_{k}": v for k, v in r.items()
                       if k.endswith("ms")}
@@ -1978,9 +1995,14 @@ def check_fused_attn_matmul(torch, cfg):
     """fused_attn_matmul at scripts/probe_fused.py's shapes (``PROBE``) at
     layer 1, row0 0 and 56: the attention within 2e-2 of the plain version
     (the decode kernels' rule), y within 2^-6 of its largest value (the
-    W4A16 rule); two calls bit-identical.  Yardstick: SDPA over the rows
-    plus bf16 ``torch.matmul`` over the dequantized weight slab."""
+    W4A16 rule); two calls bit-identical; y bit-equal to quant_matmul4's
+    (the same body, plan and reduce at Mb <= 64) and the attention to
+    fused_attn_mlp's for the same rows (the same attention blocks).  Each
+    case prints the plan and a call's device time, alone and in a CUDA
+    graph.  Yardstick: SDPA over the rows plus bf16 ``torch.matmul`` over
+    the dequantized weight slab."""
     from qwen_inference_engine_tpu_torch.ops import fused_step as fs
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
     from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, dequantize
 
     p = PROBE
@@ -1991,26 +2013,45 @@ def check_fused_attn_matmul(torch, cfg):
     n = S - 7
     deq = dequantize(QuantLinear(q=o["wq"][1], scales=o["ws"][1], b=None,
                                  bits=4, group_size=gs))
+    # a narrow MLP beside the same attention blocks in fused_attn_mlp
+    mlp, _ = _mlp_stack(torch, torch.Generator(device="cuda").manual_seed(34),
+                        K, 512, 256, 128)
     mask = (torch.arange(S, device="cuda") < n)[None, None, None, :]
     args = (o["lens"], 1, o["q"], o["kc"], o["vc"], o["x"], o["wq"], o["ws"])
+    plan = fs.plan_fused_attn_matmul(p["Mb"], K, N, gs)
     records = {}
     for row0 in (0, Ba):
-        attn, y = fs.fused_attn_matmul(*args, group_size=gs, row0=row0)
-        attn2, y2 = fs.fused_attn_matmul(*args, group_size=gs, row0=row0)
+        def call():
+            return fs.fused_attn_matmul(*args, group_size=gs, row0=row0)
+
+        attn, y = call()
+        attn2, y2 = call()
         ra, ry = fs.fused_attn_matmul_plain(*args, group_size=gs, row0=row0)
+        dense = qm.quant_matmul4(o["x"], o["wq"], o["ws"], 1, gs)
+        attn_mlp, _ = fs.fused_attn_mlp(o["lens"], 1, 1, o["q"], o["kc"],
+                                        o["vc"], o["x"], *mlp, gs_gate=256,
+                                        gs_down=128, row0=row0)
         torch.cuda.synchronize()
         a_err = (attn.float() - ra.float()).abs().max().item()
         y_err = (y.float() - ry.float()).abs().max().item()
         y_tol = 2 ** -6 * ry.float().abs().max().item()
         same = bool(torch.equal(attn, attn2) and torch.equal(y, y2))
-        ms = time_ms(torch, lambda: fs.fused_attn_matmul(
-            *args, group_size=gs, row0=row0))
+        y_dense = bool(torch.equal(y, dense))
+        a_mlp = bool(torch.equal(attn, attn_mlp))
+        del dense, attn_mlp
+        ms = time_ms(torch, call)
+        g_ms = graph_ms(torch, call)
         plain_ms = time_ms(torch, lambda: fs.fused_attn_matmul_plain(
             *args, group_size=gs, row0=row0), iters=3, warmup=1)
         sdpa = _sdpa(torch, o["q"].transpose(1, 2),
                      o["kc"][1, row0:row0 + Ba], o["vc"][1, row0:row0 + Ba],
                      mask=mask)
-        lib_ms = time_ms(torch, lambda: (sdpa(), torch.matmul(o["x"], deq)))
+
+        def library():
+            return sdpa(), torch.matmul(o["x"], deq)
+
+        lib_ms = time_ms(torch, library)
+        lib_g_ms = graph_ms(torch, library)
         n_bytes = (2 * (2 * Ba * Hk * n * D) + 2 * (2 * Ba * Hq * D) + 4 * Ba
                    + (K // 2) * N + 4 * (K // gs) * N + 2 * p["Mb"] * (K + N))
         b_ms, b_by = bound(n_bytes, 4 * Ba * Hq * n * D + 2 * p["Mb"] * K * N,
@@ -2018,16 +2059,25 @@ def check_fused_attn_matmul(torch, cfg):
         rec = dict(shape=f"Ba=Mb={Ba} rows from {row0} of {p['B']}, lens {n} "
                          f"S={S} Hq={Hq} Hk={Hk}, INT4 K={K} N={N} gs {gs}",
                    max_abs_err=max(a_err, y_err), attn_err=a_err,
-                   mm_err=y_err, tol=y_tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                   mm_err=y_err, tol=y_tol, ms=ms, graph_ms=g_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by,
+                   plan=plan, y_equals_quant_matmul4=y_dense,
+                   attn_equals_fused_attn_mlp=a_mlp)
         print(f"  fused_attn_matmul row0 {row0}: attention err {a_err:.3g} "
               f"(tol 0.02), matmul err {y_err:.3g} (tol {y_tol:.3g}), two "
-              f"calls bit-identical {same} | kernel {ms:.4f} ms | plain "
-              f"{plain_ms:.4f} | sdpa + torch.matmul bf16 {lib_ms:.4f} | "
+              f"calls bit-identical {same}, y bit-equal to quant_matmul4 "
+              f"{y_dense}, attention bit-equal to fused_attn_mlp's {a_mlp} "
+              f"| plan (mt, splits, slice) {plan} | kernel {ms:.4f} ms | in "
+              f"a CUDA graph {g_ms:.4f} | plain {plain_ms:.4f} | sdpa + "
+              f"torch.matmul bf16 {lib_ms:.4f} (graph {lib_g_ms:.4f}) | "
               f"bound {b_ms:.4f} ({b_by})", flush=True)
-        if not (a_err <= 2e-2 and y_err <= y_tol and same):
+        if not (a_err <= 2e-2 and y_err <= y_tol and same and y_dense
+                and a_mlp):
             fail(f"fused_attn_matmul row0 {row0}: attention err {a_err}, "
-                 f"matmul err {y_err} (tol {y_tol}), bit-identical {same}")
+                 f"matmul err {y_err} (tol {y_tol}), bit-identical {same}, "
+                 f"y = quant_matmul4's {y_dense}, attention = "
+                 f"fused_attn_mlp's {a_mlp}")
         records[row0] = rec
     return records
 
@@ -2037,8 +2087,9 @@ def run_probe_fused(torch, cfg, wrappers):
     (``PROBE``): t_attn, the decode attention alone on a Ba-row cache;
     t_mm, the W4A16 matmul alone (``quant_matmul4``, the gate projection);
     t_fused, one ``fused_attn_matmul`` doing both (row0 0).  Full overlap
-    would give t_fused = max(t_attn, t_mm), none their sum.  Returns the
-    run's launch counts and numbers."""
+    would give t_fused = max(t_attn, t_mm), none their sum.  Each a call
+    and in a CUDA graph (the host's launch cost out of the way).  Returns
+    the run's launch counts and numbers."""
     from qwen_inference_engine_tpu_torch.ops import decode_attention as da
     from qwen_inference_engine_tpu_torch.ops import fused_step as fs
     from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
@@ -2050,24 +2101,34 @@ def run_probe_fused(torch, cfg, wrappers):
     vc_a = o["vc"][:, :Ba].contiguous()
     for w in wrappers.values():
         w.launches = 0
-    t_attn = time_ms(torch, lambda: da.decode_attention_contiguous(
-        o["q"], kc_a, vc_a, 1, o["lens"]))
-    t_mm = time_ms(torch, lambda: qm.quant_matmul4(o["x"], o["wq"], o["ws"],
-                                                   1, gs))
-    t_fused = time_ms(torch, lambda: fs.fused_attn_matmul(
-        o["lens"], 1, o["q"], o["kc"], o["vc"], o["x"], o["wq"], o["ws"],
-        group_size=gs, row0=0))
+    ops = {"attn": lambda: da.decode_attention_contiguous(
+               o["q"], kc_a, vc_a, 1, o["lens"]),
+           "mm": lambda: qm.quant_matmul4(o["x"], o["wq"], o["ws"], 1, gs),
+           "fused": lambda: fs.fused_attn_matmul(
+               o["lens"], 1, o["q"], o["kc"], o["vc"], o["x"], o["wq"],
+               o["ws"], group_size=gs, row0=0)}
+    t = {k: time_ms(torch, fn) for k, fn in ops.items()}
     torch.cuda.synchronize()
+    # read before the graph timings: a capture counts calls that launch
+    # nothing, and a replay launches kernels that no wrapper counts
     counts = {n: w.launches for n, w in wrappers.items()}
-    lo, hi = max(t_attn, t_mm), t_attn + t_mm
-    hidden = (hi - t_fused) / min(t_attn, t_mm)
+    tg = {k: graph_ms(torch, fn) for k, fn in ops.items()}
+
+    def overlap(t):
+        lo, hi = max(t["attn"], t["mm"]), t["attn"] + t["mm"]
+        return lo, hi, (hi - t["fused"]) / min(t["attn"], t["mm"])
+
+    lo, hi, hidden = overlap(t)
+    glo, ghi, ghidden = overlap(tg)
     print(f"[probe fused] Ba={Ba} rows of {p['B']}, S={p['S']}, lens "
           f"{p['S'] - 7}; INT4 {cfg.hidden_size}x{cfg.intermediate_size} gs "
-          f"{gs} at Mb={p['Mb']}: t_attn {t_attn:.4f} ms | t_mm {t_mm:.4f} "
-          f"ms | t_fused {t_fused:.4f} ms | full overlap (max) {lo:.4f}, "
-          f"none (sum) {hi:.4f}: {100 * hidden:.0f}% of the smaller op "
-          f"hidden | launches { {n: c for n, c in counts.items() if c} }",
-          flush=True)
+          f"{gs} at Mb={p['Mb']}: t_attn {t['attn']:.4f} ms | t_mm "
+          f"{t['mm']:.4f} ms | t_fused {t['fused']:.4f} ms | full overlap "
+          f"(max) {lo:.4f}, none (sum) {hi:.4f}: {100 * hidden:.0f}% of the "
+          f"smaller op hidden | in a CUDA graph: t_attn {tg['attn']:.4f} | "
+          f"t_mm {tg['mm']:.4f} | t_fused {tg['fused']:.4f} | max "
+          f"{glo:.4f}, sum {ghi:.4f}: {100 * ghidden:.0f}% hidden | "
+          f"launches { {n: c for n, c in counts.items() if c} }", flush=True)
     want = ("fused_attn_matmul", "decode_attention_contiguous",
             "quant_matmul4")
     stray = sorted(n for n in counts if n not in want and counts[n])
@@ -2075,8 +2136,12 @@ def run_probe_fused(torch, cfg, wrappers):
         fail(f"[probe fused] launches {counts}")
     del o, kc_a, vc_a
     torch.cuda.empty_cache()
-    return counts, dict(t_attn_ms=t_attn, t_mm_ms=t_mm, t_fused_ms=t_fused,
-                        max_ms=lo, sum_ms=hi, hidden_share=hidden)
+    return counts, dict(t_attn_ms=t["attn"], t_mm_ms=t["mm"],
+                        t_fused_ms=t["fused"], max_ms=lo, sum_ms=hi,
+                        hidden_share=hidden, graph_t_attn_ms=tg["attn"],
+                        graph_t_mm_ms=tg["mm"], graph_t_fused_ms=tg["fused"],
+                        graph_max_ms=glo, graph_sum_ms=ghi,
+                        graph_hidden_share=ghidden)
 
 
 def _step_chain(torch, step, steps, first, tok, lens, cache):

@@ -1,9 +1,8 @@
-// Tensor-core core of the port's attention kernels (all but
-// fused_attn_matmul's, which keeps attention_common.cuh's CUDA-core
-// attend): attend_gqa_block for flash (flash_attention.cu) and the
-// contiguous and paged chunks (chunk_attention.cu); attend_mma itself for
-// the four contiguous decodes (decode_attention.cu), the paged decode and
-// verify (paged_attention.cu) and fused_attn_mlp's attention blocks
+// Tensor-core core of every attention kernel of the port: attend_gqa_block
+// for flash (flash_attention.cu) and the contiguous and paged chunks
+// (chunk_attention.cu); attend_mma itself for the four contiguous decodes
+// (decode_attention.cu), the paged decode and verify (paged_attention.cu)
+// and the attention blocks of fused_attn_mlp and fused_attn_matmul
 // (fused_step.cu).  attend_mma is the online softmax of
 // up to 16 * NW query rows over keys [0, n_keys) in tiles of 64 keys, both
 // products (Q K^T and P V) on Hopper's tensor cores through

@@ -58,24 +58,25 @@
 // one grid of 128-thread blocks, blocks [0, Ba * Hk) attention, one per
 // (row, KV head), on the tensor-core core of attention_mma.cuh (the G real
 // query heads as the rows of one m16 tile, no padding to 8; keys past
-// lens[b] never loaded; 6-12% faster in this grid than the CUDA-core core
-// of attention_common.cuh, PERF.md), and the rest the gate / up pass's
-// blocks, qmm_mma_kernel<kW4A16>'s body at the plan's mt (1 or 4: 4
-// warps, the attention block's size).  Both kinds take the one dynamic
-// shared buffer (the larger of the attention's 87 KB and the body's 49 /
-// 100 KB).  The hardware runs them side by side on the 132 SMs: that is
-// the overlap the TPU kernel builds by hand with its ring of KV copies.
-// Then fused_mlp's last three launches: swiglu_reduce, the down pass,
-// qmm_reduce.
-// fused_attn_matmul's one launch holds the same attention blocks beside
-// the output tiles of the W4A16 wmma tile (the two kinds share static
-// shared memory through a union): a
-// single matmul carries no sum across blocks (each block walks its own K
-// loop), so it is one launch with no second pass and no atomics.  Every
-// output element is written by one thread in a fixed order, so two calls
-// give bit-identical results.
+// lens[b] never loaded), and the rest the gate / up pass's blocks,
+// qmm_mma_body<kW4A16> at the plan's mt (1 or 4: 4 warps, the attention
+// block's size).  Both kinds take the one dynamic shared buffer (the
+// larger of the attention's 87 KB and the body's 49 / 100 KB).  The
+// hardware runs them side by side on the 132 SMs: that is the overlap the
+// TPU kernel builds by hand with its ring of KV copies.  Then fused_mlp's
+// last three launches: swiglu_reduce, the down pass, qmm_reduce.
+// fused_attn_matmul is the same first launch over one weight: the same
+// attention blocks (bit for bit fused_attn_mlp's for the same rows, layer
+// and lens) beside the output tiles of quant_matmul4's body, planned as
+// quant_matmul4 plans M <= 64 rows (ops/fused_step.plan_fused_attn_matmul:
+// mt 1 or 4, K split so that about 4 blocks run on each SM; above 64 rows
+// mt 4 over all of K, as the fused MLP's gate / up pass).  One slice
+// writes bf16 y directly; more write f32 partials [splits, M, N] to the
+// wrapper's workspace, which qmm_reduce adds in split order and rounds
+// once, as quant_matmul4 does: y is quant_matmul4's bits at M <= 64.
+// Every output element is written by one thread in a fixed order, so two
+// calls give bit-identical results.
 
-#include "attention_common.cuh"
 #include "quant_matmul_core.cuh"
 
 namespace {
@@ -84,60 +85,20 @@ using qie::kChunk;
 using qie::kSmallCols;
 using qie::kThreads;
 using qie::kW4A16;
-using qie::kWBM;
-using qie::kWBN;
-using qie::kWThreads;
 using qie::launch_mma_mt;
+using qie::launch_qmm_reduce;
 using qie::mma_call_ok;
 using qie::QmmArgs;
 using qie::run_mma;
 
-constexpr int kD = 128;     // head dimension of the fused attention
-constexpr int kRows = 8;    // query heads per KV head (G <= 8)
-constexpr int kKeys = 64;   // keys per tile
-using AttnSmemD = qie::AttnSmem<kD, kRows, kKeys, __nv_bfloat16>;
+constexpr int kD = 128;             // head dimension of the fused attention
+constexpr int kRows = 8;            // query heads per KV head (G <= 8)
+constexpr int kBlockThreads = 128;  // both block kinds: 4 warps
 
-// fused_attn_matmul's attention block: query heads of KV head hk of row b
-// over the first lens[b] keys of cache row row0 + b at `layer`.
-__device__ __forceinline__ void attn_block(
-    AttnSmemD& sm,
-    const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ k_cache,
-    const __nv_bfloat16* __restrict__ v_cache, const int* __restrict__ lens,
-    __nv_bfloat16* __restrict__ attn, int Bc, int Hq, int Hk, int S,
-    int layer, int row0, float scale, int b, int hk) {
-  const int tid = threadIdx.x;
-  const int G = Hq / Hk;
-  const int len = max(0, min(lens[b], S));
-  for (int c = tid; c < kRows * kD; c += kD) {
-    const int i = c / kD, d = c % kD;
-    float val = 0.f;
-    if (i < G) {
-      val = __bfloat162float(
-          q[(static_cast<long long>(b) * Hq + hk * G + i) * kD + d]) * scale;
-    }
-    sm.q[i][d] = val;
-  }
-  const long long row =
-      (static_cast<long long>(layer) * Bc + row0 + b) * Hk + hk;
-  const long long base = row * S * kD;
-  float acc[kRows];
-  qie::attend<kD, kRows, kKeys, __nv_bfloat16>(
-      sm, acc, G, k_cache + base, v_cache + base, qie::ContiguousKeys{kD},
-      nullptr, nullptr, len, len - 1, 0);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    if (i < G) {
-      const float denom = fmaxf(sm.l[i], 1e-30f);
-      attn[(static_cast<long long>(b) * Hq + hk * G + i) * kD + tid] =
-          __float2bfloat16(acc[i] / denom);
-    }
-  }
-}
-
-// fused_attn_mlp's attention block on the tensor cores: the G query heads
-// of KV head hk of row b as the rows of one m16 tile (attend_mma, GqaRows
-// at T = 1) over the first lens[b] keys of cache row row0 + b at `layer`.
+// The fused launches' attention block on the tensor cores: the G query
+// heads of KV head hk of row b as the rows of one m16 tile (attend_mma,
+// GqaRows at T = 1) over the first lens[b] keys of cache row row0 + b at
+// `layer`.
 using MmaSmemD = qie::MmaSmem<kD, 4, __nv_bfloat16>;
 __device__ __forceinline__ void attn_block_mma(
     MmaSmemD& sm, const __nv_bfloat16* __restrict__ q,
@@ -156,94 +117,72 @@ __device__ __forceinline__ void attn_block_mma(
       qie::ContiguousKeys{kD}, nullptr, nullptr, len, len - 1, 0, G, scale);
 }
 
-// fused_attn_matmul's two block kinds share the static shared memory (40
-// and 36 KB).
-union AttnMmSmem {
-  AttnSmemD attn;
-  qie::WmmaSmem mm;
+// The attention operands of a fused launch.
+struct AttnArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k_cache;
+  const __nv_bfloat16* v_cache;
+  const int* lens;
+  __nv_bfloat16* attn;
+  int Bc, Ba, Hq, Hk, S, layer, row0;
+  float scale;
 };
 
-// fused_attn_mlp's first launch: blocks [0, n_attn) are attention (one
-// per (row, KV head)); block n_attn + t is block (t % tx, (t / tx) % ty,
-// t / (tx ty)) of fused_mlp's gate / up pass (qmm_mma_kernel<kW4A16, MT,
-// 1, false, true>'s body, tx row tiles, ty column tiles).  Both kinds take
-// their shared memory from the one dynamic buffer.
-template <int MT>
-__global__ void __launch_bounds__(kWThreads)
-attn_gate_up_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_cache,
-                    const __nv_bfloat16* __restrict__ v_cache,
-                    const int* __restrict__ lens,
-                    __nv_bfloat16* __restrict__ attn, int Bc, int Ba, int Hq,
-                    int Hk, int S, int layer_a, int row0, float scale,
-                    const QmmArgs gate_up, int tx, int ty) {
-  static_assert(kWThreads == kD && kWThreads == 128,
-                "one thread per head dimension; the body's 4 warps");
+// A fused first launch: blocks [0, Ba * Hk) are attention (one per (row,
+// KV head)); block Ba * Hk + t is block (t % tx, (t / tx) % ty, t / (tx
+// ty)) of the matmul (qmm_mma_body<kW4A16, MT, 1, false, kDual>, tx row
+// tiles, ty column tiles): fused_attn_mlp's gate / up pass (kDual: both
+// weights side by side) or fused_attn_matmul's one weight.  Both kinds
+// take their shared memory from the one dynamic buffer.
+template <int MT, bool kDual>
+__global__ void __launch_bounds__(kBlockThreads)
+attn_qmm_kernel(const AttnArgs a, const QmmArgs mm, int tx, int ty) {
+  static_assert(kBlockThreads == kD, "the attention block's 4 warps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_attn = Ba * Hk;
+  const int n_attn = a.Ba * a.Hk;
   const int blk = blockIdx.x;
   if (blk >= n_attn) {
     const int t = blk - n_attn;
-    qie::qmm_mma_body<kW4A16, MT, 1, false, true>(
-        gate_up, t % tx, (t / tx) % ty, t / (tx * ty), smem_raw);
+    qie::qmm_mma_body<kW4A16, MT, 1, false, kDual>(
+        mm, t % tx, (t / tx) % ty, t / (tx * ty), smem_raw);
     return;
   }
-  attn_block_mma(*reinterpret_cast<MmaSmemD*>(smem_raw), q, k_cache,
-                 v_cache, lens, attn, Bc, Hq, Hk, S, layer_a, row0, scale,
-                 blk / Hk, blk % Hk);
+  attn_block_mma(*reinterpret_cast<MmaSmemD*>(smem_raw), a.q, a.k_cache,
+                 a.v_cache, a.lens, a.attn, a.Bc, a.Hq, a.Hk, a.S, a.layer,
+                 a.row0, a.scale, blk / a.Hk, blk % a.Hk);
 }
 
-// The first launch at plan mt (1 or 4): the dynamic shared memory is the
-// larger of the two kinds'.
-template <int MT>
-cudaError_t launch_attn_gate_up(int n_attn, const QmmArgs& gate_up,
-                                int splits, cudaStream_t st,
-                                const __nv_bfloat16* q,
-                                const __nv_bfloat16* k_cache,
-                                const __nv_bfloat16* v_cache, const int* lens,
-                                __nv_bfloat16* attn, int Bc, int Ba, int Hq,
-                                int Hk, int S, int layer_a, int row0,
-                                float scale) {
-  constexpr int mm = qie::qmm_smem<kW4A16, MT, 1>();
+// The first launch at plan mt (1 or 4) over `splits` slices: the dynamic
+// shared memory is the larger of the two kinds'.
+template <int MT, bool kDual>
+cudaError_t launch_attn_qmm(const AttnArgs& a, const QmmArgs& mm,
+                            int splits, cudaStream_t st) {
+  constexpr int body = qie::qmm_smem<kW4A16, MT, 1>();
   constexpr int at = static_cast<int>(sizeof(MmaSmemD));
-  constexpr int smem = mm > at ? mm : at;
-  const auto kern = attn_gate_up_kernel<MT>;
+  constexpr int smem = body > at ? body : at;
+  const auto kern = attn_qmm_kernel<MT, kDual>;
   const cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return rc;
-  const int tx = (gate_up.M + 16 * MT - 1) / (16 * MT);
-  const int ty = 2 * ((gate_up.N + qie::kMmaCols - 1) / qie::kMmaCols);
-  kern<<<n_attn + tx * ty * splits, kWThreads, smem, st>>>(
-      q, k_cache, v_cache, lens, attn, Bc, Ba, Hq, Hk, S, layer_a, row0,
-      scale, gate_up, tx, ty);
+  const int tx = (mm.M + 16 * MT - 1) / (16 * MT);
+  const int ty = (kDual ? 2 : 1) * ((mm.N + qie::kMmaCols - 1) / qie::kMmaCols);
+  kern<<<a.Ba * a.Hk + tx * ty * splits, kBlockThreads, smem, st>>>(a, mm, tx,
+                                                                     ty);
   return cudaGetLastError();
 }
 
-// fused_attn_matmul: attention blocks, then the matmul's output tiles.
-__global__ void __launch_bounds__(kWThreads)
-attn_matmul_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k_cache,
-                   const __nv_bfloat16* __restrict__ v_cache,
-                   const int* __restrict__ lens,
-                   __nv_bfloat16* __restrict__ attn, int Bc, int Ba, int Hq,
-                   int Hk, int S, int layer, int row0, float scale,
-                   const __nv_bfloat16* __restrict__ x,
-                   const int8_t* __restrict__ w, const float* __restrict__ ws,
-                   __nv_bfloat16* __restrict__ y, int M, int K, int N,
-                   int gs) {
-  static_assert(kWThreads == kD, "one thread per head dimension");
-  __shared__ AttnMmSmem sm;
-  const int n_attn = Ba * Hk;
-  const int blk = blockIdx.x;
-  if (blk >= n_attn) {
-    const int t = blk - n_attn;
-    const int n_tiles = N / kWBN;
-    qie::tile_w16_wmma(sm.mm, x, w, ws, y, M, K, N, gs, (t / n_tiles) * kWBM,
-                       (t % n_tiles) * kWBN);
-    return;
-  }
-  attn_block(sm.attn, q, k_cache, v_cache, lens, attn, Bc, Hq, Hk, S, layer,
-             row0, scale, blk / Hk, blk % Hk);
+template <bool kDual>
+cudaError_t launch_attn_qmm_mt(int mt, const AttnArgs& a, const QmmArgs& mm,
+                               int splits, cudaStream_t st) {
+  return mt == 1 ? launch_attn_qmm<1, kDual>(a, mm, splits, st)
+                 : launch_attn_qmm<4, kDual>(a, mm, splits, st);
+}
+
+// The attention operands' checks of both fused launches.
+bool bad_attn(int Lc, int Bc, int Ba, int Hq, int Hk, int S, int layer,
+              int row0) {
+  return Ba <= 0 || Hk <= 0 || Hq % Hk || Hq / Hk > kRows || S <= 0 ||
+         row0 < 0 || row0 + Ba > Bc || layer < 0 || layer >= Lc;
 }
 
 // fused_mlp's pass 2: h [M, F] = bf16(silu(g) * u), g and u the sums of
@@ -361,10 +300,10 @@ extern "C" int qie_fused_attn_mlp(
     int F, int gs_gate, int gs_down, int mt1, int splits1, int slice1,
     int mt2, int splits2, int slice2, int layer_m, int L, float scale,
     void* stream) {
-  if (bad_mlp(M, K, F, gs_gate, gs_down, layer_m, L) || Ba <= 0 || Hk <= 0 ||
-      Hq % Hk || Hq / Hk > kRows || S <= 0 || row0 < 0 || row0 + Ba > Bc ||
-      layer_a < 0 || layer_a >= Lc || (mt1 != 1 && mt1 != 4) ||
-      ws == nullptr || splits1 < 1 || splits2 < 1) {
+  if (bad_mlp(M, K, F, gs_gate, gs_down, layer_m, L) ||
+      bad_attn(Lc, Bc, Ba, Hq, Hk, S, layer_a, row0) ||
+      (mt1 != 1 && mt1 != 4) || ws == nullptr || splits1 < 1 ||
+      splits2 < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t part = static_cast<size_t>(M) *
@@ -394,16 +333,11 @@ extern "C" int qie_fused_attn_mlp(
                         nullptr,
                         ws,
                         M, K / 2, F, gs_gate, slice1};
-  const int n_attn = Ba * Hk;
-  auto* out = static_cast<__nv_bfloat16*>(attn);
-  const int* lp = static_cast<const int*>(lens);
-  cudaError_t rc =
-      mt1 == 1 ? launch_attn_gate_up<1>(n_attn, gate_up, splits1, st, bf(q),
-                                        bf(k_cache), bf(v_cache), lp, out, Bc,
-                                        Ba, Hq, Hk, S, layer_a, row0, scale)
-               : launch_attn_gate_up<4>(n_attn, gate_up, splits1, st, bf(q),
-                                        bf(k_cache), bf(v_cache), lp, out, Bc,
-                                        Ba, Hq, Hk, S, layer_a, row0, scale);
+  const AttnArgs at{bf(q),     bf(k_cache), bf(v_cache),
+                    static_cast<const int*>(lens),
+                    static_cast<__nv_bfloat16*>(attn),
+                    Bc, Ba, Hq, Hk, S, layer_a, row0, scale};
+  cudaError_t rc = launch_attn_qmm_mt<true>(mt1, at, gate_up, splits1, st);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const size_t threads = static_cast<size_t>(M) * F / 8;
   swiglu_reduce<<<(threads + kThreads - 1) / kThreads, kThreads, 0, st>>>(
@@ -420,32 +354,44 @@ extern "C" int qie_fused_attn_mlp(
   return static_cast<int>(run_mma<kW4A16, false>(mt2, down, splits2, st));
 }
 
+// The attention of rows [row0, row0 + Ba) at `layer`, beside y [M, N] =
+// x [M, K] @ W4[layer] (plane pairs of gs packed rows) on the plan (mt 1
+// or 4: its blocks run beside the attention blocks at 128 threads,
+// splits, slice) over K / 2 packed rows, as for qie_quant_matmul4: one
+// slice writes y; more write their f32 partials to ws ([splits, M, N],
+// ws_bytes long), which qmm_reduce adds.
 extern "C" int qie_fused_attn_matmul(
     const void* q, const void* k_cache, const void* v_cache,
     const void* lens, void* attn, const void* x, const void* w,
-    const void* ws, void* y, int Lc, int Bc, int Ba, int Hq, int Hk, int S,
-    int row0, int M, int K, int N, int gs, int layer, int L, float scale,
+    const void* scales, void* ws, long long ws_bytes, void* y, int Lc,
+    int Bc, int Ba, int Hq, int Hk, int S, int row0, int M, int K, int N,
+    int gs, int mt, int splits, int slice, int layer, int L, float scale,
     void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % kWBN || gs <= 0 || gs % kChunk ||
-      K % (2 * gs) || layer < 0 || layer >= L || layer >= Lc || Ba <= 0 ||
-      Hk <= 0 || Hq % Hk || Hq / Hk > kRows || S <= 0 || row0 < 0 ||
-      row0 + Ba > Bc) {
+  if (M <= 0 || K <= 0 || N <= 0 || N % kSmallCols || gs <= 0 ||
+      gs % kChunk || K % (2 * gs) || layer < 0 || layer >= L ||
+      bad_attn(Lc, Bc, Ba, Hq, Hk, S, layer, row0) ||
+      (mt != 1 && mt != 4) ||
+      !mma_call_ok(M, K / 2, gs, mt, splits, slice, ws, x, w, scales) ||
+      (splits > 1 &&
+       ws_bytes < 4ll * splits * static_cast<long long>(M) * N)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int8_t* wl = static_cast<const int8_t*>(w) +
                      static_cast<size_t>(layer) * (K / 2) * N;
-  const float* sl = static_cast<const float*>(ws) +
+  const float* sl = static_cast<const float*>(scales) +
                     static_cast<size_t>(layer) * (K / gs) * N;
-  const int n_attn = Ba * Hk;
-  const int n_mm = (N / kWBN) * ((M + kWBM - 1) / kWBM);
-  attn_matmul_kernel<<<n_attn + n_mm, kWThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache),
-      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(attn), Bc,
-      Ba, Hq, Hk, S, layer, row0, scale,
-      static_cast<const __nv_bfloat16*>(x), wl, sl,
-      static_cast<__nv_bfloat16*>(y), M, K, N, gs);
-  return static_cast<int>(cudaGetLastError());
+  auto* out = static_cast<__nv_bfloat16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const AttnArgs at{static_cast<const __nv_bfloat16*>(q),
+                    static_cast<const __nv_bfloat16*>(k_cache),
+                    static_cast<const __nv_bfloat16*>(v_cache),
+                    static_cast<const int*>(lens),
+                    static_cast<__nv_bfloat16*>(attn),
+                    Bc, Ba, Hq, Hk, S, layer, row0, scale};
+  const QmmArgs mm{x,   nullptr, {wl, nullptr}, {sl, nullptr},
+                   out, splits == 1 ? nullptr : ws,
+                   M,   K / 2,   N, gs, slice};
+  cudaError_t rc = launch_attn_qmm_mt<false>(mt, at, mm, splits, st);
+  if (rc != cudaSuccess || splits == 1) return static_cast<int>(rc);
+  return static_cast<int>(launch_qmm_reduce<kW4A16, false>(mm, splits, st));
 }

@@ -25,12 +25,12 @@
 // runs its kernels on the int8 bytes and scatters the scales with XLA).
 //
 // kv_append_uniform: in place, k_new / v_new [Bn, Hk, D] into
-// cache[layer, row0 + b, hk, position] of the caches [L, Bc, Hk, S, D],
-// copied as 32-bit words (the row's D * elem_bytes bytes; bf16 or f32), at
-// the one position read on the device; a position outside [0, S) writes
-// nothing.  kv_append_all_uniform is the same kernel over a grid of L
-// layers: k_new / v_new [L, B, Hk, D] into cache[l, b, hk, position] for
-// every layer l and rows b < B.
+// cache[layer, row0 + b, hk, position] of the caches [L, Bc, Hk, S, D]
+// (the row's D * elem_bytes bytes; bf16 or f32), at the one position read
+// on the device; a position outside [0, S) writes nothing.
+// kv_append_all_uniform is the same kernel over L layers: k_new / v_new
+// [L, B, Hk, D] into cache[l, b, hk, position] for every layer l and rows
+// b < B.
 //
 // kv_append_q8: in place, int8 k_new / v_new [B, Hk, D] and f32 ks_new /
 // vs_new [B, Hk] into cache[layer, b, hk, position] of the int8 caches
@@ -77,11 +77,20 @@
 // a few nanoseconds to a few microseconds at 3.35 TB/s, so the launch
 // itself (a few microseconds) bounds them in practice.
 //
-// Design: one block per (KV head, row or token), one thread per element of
-// the head vector (the contiguous appends: one thread per 32-bit word of
-// it; kv_append_all_uniform adds the layer as the grid's third axis, so
-// one launch covers every layer, and kv_append_ragged_t the token);
-// thread 0 also writes the row's two scales (int8).  The ragged paged
+// Design of the two uniform appends: one kernel, whose threads walk a flat
+// index over (layer, row, KV head, vector of the head row) with a
+// grid-stride loop, each moving one vector of K and one of V: 16 bytes
+// (uint4) where the row's bytes and the four base pointers are 16-byte
+// aligned, else 4-byte words (the launcher picks the width from the
+// operands; the copy is the same bits either way).  Blocks of 256
+// threads, at most 8 for each SM (a full SM each, read from the device at
+// launch), so on the H100's 132 SMs the all-layer append at 28 x 192 rows
+// (344064 vectors of 16 bytes) runs 1056 blocks whose threads move one
+// or two vectors each; each block reads the position once.
+// The other appends: one block per (KV head, row or token), one thread
+// per element of the head vector (kv_append_ragged_t: one thread per
+// 32-bit word of it, the token the grid's third axis); thread 0 also
+// writes the row's two scales (int8).  The ragged paged
 // append and the verify window share one kernel, a loop over the row's T
 // tokens that resolves each token's page on its own, so a window that
 // straddles two pages needs nothing special.  The TPU kernels read and
@@ -98,24 +107,36 @@
 
 namespace {
 
-// one (KV head, row, layer) per block: blockIdx.z counts layers from layer0
-__global__ void kv_append_uniform_kernel(
-    unsigned* __restrict__ k_cache, unsigned* __restrict__ v_cache,
-    const unsigned* __restrict__ k_new, const unsigned* __restrict__ v_new,
-    const int* __restrict__ position_ptr, int Bc, int Bn, int Hk, int S,
-    int W, int layer0, int row0) {
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int position = *position_ptr;
+constexpr int kAppendThreads = 256;  // the uniform appends' block
+constexpr int kAppendBlocksPerSm = 8;  // 2048 threads on each SM
+
+// The uniform appends: vector i of the flat source [n_layers, Bn, Hk, W]
+// (W vectors V a head row) of k_new / v_new goes to vector i % W of row
+// (layer0 + l, row0 + b, hk) at `position` of the caches [L, Bc, Hk, S, W].
+// With r = i / W = (l Bn + b) Hk + hk, that cache row is
+// (layer0 Bc + row0) Hk + r + l (Bc - Bn) Hk, l = r / (Bn Hk).
+template <typename V>
+__global__ void __launch_bounds__(kAppendThreads)
+kv_append_uniform_kernel(V* __restrict__ k_cache, V* __restrict__ v_cache,
+                         const V* __restrict__ k_new,
+                         const V* __restrict__ v_new,
+                         const int* __restrict__ position_ptr, int Bc, int Bn,
+                         int Hk, int S, unsigned W, int layer0, int row0,
+                         unsigned total) {
+  __shared__ int position;
+  if (threadIdx.x == 0) position = *position_ptr;
+  __syncthreads();
   if (position < 0 || position >= S) return;
-  const long long row =
-      (static_cast<long long>(layer0 + blockIdx.z) * Bc + row0 + b) * Hk + hk;
-  const long long dst = (row * S + position) * W;
-  const long long src =
-      ((static_cast<long long>(blockIdx.z) * Bn + b) * Hk + hk) * W;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    k_cache[dst + w] = k_new[src + w];
-    v_cache[dst + w] = v_new[src + w];
+  const unsigned rows_a_layer = static_cast<unsigned>(Bn) * Hk;
+  const long long base = (static_cast<long long>(layer0) * Bc + row0) * Hk;
+  const long long gap = static_cast<long long>(Bc - Bn) * Hk;
+  for (unsigned i = blockIdx.x * kAppendThreads + threadIdx.x; i < total;
+       i += gridDim.x * kAppendThreads) {
+    const unsigned r = i / W;
+    const long long row = base + r + (r / rows_a_layer) * gap;
+    const long long dst = (row * S + position) * W + (i - r * W);
+    k_cache[dst] = k_new[i];
+    v_cache[dst] = v_new[i];
   }
 }
 
@@ -262,26 +283,62 @@ void launch_prefill(dim3 grid, int D, cudaStream_t st, void* k_pages,
 
 }  // namespace
 
+template <typename V>
+static void launch_uniform_as(int blocks, cudaStream_t st, void* k_cache,
+                              void* v_cache, const void* k_new,
+                              const void* v_new, const void* position, int Bc,
+                              int Bn, int Hk, int S, unsigned W, int layer0,
+                              int row0, unsigned total) {
+  kv_append_uniform_kernel<V><<<blocks, kAppendThreads, 0, st>>>(
+      static_cast<V*>(k_cache), static_cast<V*>(v_cache),
+      static_cast<const V*>(k_new), static_cast<const V*>(v_new),
+      static_cast<const int*>(position), Bc, Bn, Hk, S, W, layer0, row0,
+      total);
+}
+
 // kv_append_uniform (n_layers = 1 from `layer`) and kv_append_all_uniform
-// (n_layers = L from layer 0, row0 = 0) share the kernel.
+// (n_layers = L from layer 0, row0 = 0) share the kernel: 16-byte vectors
+// where the row and all four operands allow them, else 4-byte words.
 static int launch_uniform(void* k_cache, void* v_cache, const void* k_new,
                           const void* v_new, const void* position, int L,
                           int Bc, int Bn, int Hk, int S, int D,
                           int elem_bytes, int layer0, int n_layers, int row0,
                           void* stream) {
-  const int row_bytes = D * elem_bytes;
-  if (Bn <= 0 || Bn > 65535 || row0 < 0 || row0 + Bn > Bc || Hk <= 0 ||
-      D <= 0 || elem_bytes <= 0 || row_bytes % 4 || S <= 0 || layer0 < 0 ||
-      n_layers <= 0 || n_layers > 65535 || layer0 + n_layers > L) {
+  const long long row_bytes = static_cast<long long>(D) * elem_bytes;
+  if (Bn <= 0 || row0 < 0 || row0 + Bn > Bc || Hk <= 0 || D <= 0 ||
+      elem_bytes <= 0 || row_bytes % 4 || S <= 0 || layer0 < 0 ||
+      n_layers <= 0 || layer0 + n_layers > L ||
+      static_cast<long long>(n_layers) * Bn * Hk * (row_bytes / 4) >
+          0x7fffffffll) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int W = row_bytes / 4;
-  dim3 grid(Hk, Bn, n_layers);
-  kv_append_uniform_kernel<<<grid, W < 256 ? W : 256, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(k_cache), static_cast<unsigned*>(v_cache),
-      static_cast<const unsigned*>(k_new), static_cast<const unsigned*>(v_new),
-      static_cast<const int*>(position), Bc, Bn, Hk, S, W, layer0, row0);
+  const bool wide =
+      row_bytes % 16 == 0 &&
+      (reinterpret_cast<uintptr_t>(k_cache) |
+       reinterpret_cast<uintptr_t>(v_cache) |
+       reinterpret_cast<uintptr_t>(k_new) |
+       reinterpret_cast<uintptr_t>(v_new)) % 16 == 0;
+  const unsigned W = static_cast<unsigned>(row_bytes / (wide ? 16 : 4));
+  const unsigned total =
+      static_cast<unsigned>(static_cast<long long>(n_layers) * Bn * Hk * W);
+  int device = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const long long want = (total + kAppendThreads - 1) / kAppendThreads;
+  const long long most = static_cast<long long>(sms) * kAppendBlocksPerSm;
+  const int blocks = static_cast<int>(want < most ? want : most);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    launch_uniform_as<uint4>(blocks, st, k_cache, v_cache, k_new, v_new,
+                             position, Bc, Bn, Hk, S, W, layer0, row0, total);
+  } else {
+    launch_uniform_as<unsigned>(blocks, st, k_cache, v_cache, k_new, v_new,
+                                position, Bc, Bn, Hk, S, W, layer0, row0,
+                                total);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,13 +1,12 @@
 // Shared core of the port's quantized matmuls: y = x @ Wq, bf16 out.
 //
-// The tensor-core body (qmm_mma_body, run by qmm_mma_kernel, further down
-// this file) runs the dense W8A8, W4A8, W8A16 and W4A16 matmuls
-// (quant_matmul.cu), both passes of the fused MLP and of the fused
-// attention + MLP (fused_step.cu) and the three grouped matmuls
-// (grouped_matmul.cu: called in a loop over the row tiles of the block's
-// expert).  The older wmma tile, tile_w16_wmma (bf16 activations x INT4
-// plane pairs), runs only fused_attn_matmul's matmul blocks
-// (fused_step.cu).
+// One tensor-core body (qmm_mma_body, run by qmm_mma_kernel, further down
+// this file) runs every one of them: the dense W8A8, W4A8, W8A16 and
+// W4A16 matmuls (quant_matmul.cu), both passes of the fused MLP and of the
+// fused attention + MLP, and the matmul blocks of the fused attention +
+// matmul (fused_step.cu: beside attention blocks in one grid), and the
+// three grouped matmuls (grouped_matmul.cu: called in a loop over the row
+// tiles of the block's expert).
 //
 // The weights are one slab: INT4 plane pairs q [Kp/2, N] int8 (byte =
 // 16*hi + (lo+8); packed rows p*gs..(p+1)*gs hold group 2p in the low
@@ -16,20 +15,11 @@
 // one per column: per_col).  Every matmul computes what the TPU kernels
 // do: the sum over groups of (x . q) x scale in f32 (x the row scale sx
 // for int8 activations), then rounded to bf16.
-//
-// tile_w16_wmma reads rows [m0, m0 + 64) of x [M, K] (rows at or past M
-// are read as zeros and never written) and columns [n0, n0 + 64); it feeds
-// nvcuda::wmma 16x16x16 fragments with an f32 accumulator (4 warps, 2 x 2
-// fragments a warp); per k-step it dequantizes 64 logical rows into bf16
-// in shared memory, q * scale.  It takes its shared memory (WmmaSmem) from
-// the caller, so a kernel can overlay it with another block kind's; a
-// caller that loops over tiles puts a __syncthreads() between calls.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <cstring>
@@ -62,152 +52,16 @@ __device__ __forceinline__ void transpose4x4(unsigned r0, unsigned r1,
   colw[3] = __byte_perm(t01b, t23b, 0x7632);
 }
 
-// fused_step.cu's shape rules for the fused MLPs
+// fused_step.cu's shape rules for the fused MLPs and the fused attention +
+// matmul
 constexpr int kSmallCols = 64;     // N a multiple of it
 constexpr int kChunk = 32;         // group sizes a multiple of it
 
 // ---------------------------------------------------------------------
-// W4A16, fused_attn_matmul's tiles: bf16 tensor cores (wmma), dequantized
-// weight tiles
-// ---------------------------------------------------------------------
-
-constexpr int kWBM = 64, kWBN = 64;  // output tile
-constexpr int kWKS = 32;             // packed weight rows per k-step
-constexpr int kWThreads = 128;       // 4 warps, 2 x 2, 32 x 32 each
-
-struct WmmaSmem {
-  static constexpr int BK = 2 * kWKS;  // logical rows a k-step
-  static constexpr int LDA = BK + 8, LDB = kWBN + 8, LDC = kWBN + 4;
-  __align__(32) __nv_bfloat16 As[kWBM][LDA];
-  __align__(32) __nv_bfloat16 Bs[BK][LDB];
-  __align__(32) float Cs[kWBM][LDC];
-};
-
-// K is the logical (padded) K: the weight has K/2 packed rows, gs is the
-// INT4 group size.
-__device__ __forceinline__ void tile_w16_wmma(
-    WmmaSmem& sm, const __nv_bfloat16* __restrict__ x,
-    const int8_t* __restrict__ q, const float* __restrict__ scales,
-    __nv_bfloat16* __restrict__ out, int M, int K, int N, int gs, int m0,
-    int n0) {
-  using namespace nvcuda;
-  constexpr int BK = WmmaSmem::BK;
-  constexpr int LDA = WmmaSmem::LDA, LDB = WmmaSmem::LDB,
-                LDC = WmmaSmem::LDC;
-  auto& As = sm.As;
-  auto& Bs = sm.Bs;
-  auto& Cs = sm.Cs;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int steps = K / 2 / kWKS;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int s = 0; s < steps; ++s) {
-    const int r0 = s * kWKS;
-    // packed row r0 = pair p, row r: k = 2p*gs + r and + gs
-    const int p = r0 / gs;
-    const int klo = 2 * p * gs + (r0 - p * gs);
-    const int g_lo = 2 * p;
-    // A: x columns klo..klo+31 and klo+gs..+31 of rows m0..m0+63
-    for (int idx = tid; idx < kWBM * 4 * 2; idx += kWThreads) {
-      const int seg = idx / (kWBM * 4);
-      const int j = idx % (kWBM * 4);
-      const int i = j / 4, c = (j % 4) * 8;
-      const int m = m0 + i;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (m < M) {
-        v = __ldg(reinterpret_cast<const int4*>(
-            x + static_cast<size_t>(m) * K + klo + seg * gs + c));
-      }
-      *reinterpret_cast<int4*>(&As[i][seg * kWKS + c]) = v;
-    }
-    {  // B: 32 packed rows x 64 columns, one 16-byte load a thread
-      const int rr = tid / 4, cc = (tid % 4) * 16;
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(
-          q + static_cast<size_t>(r0 + rr) * N + n0 + cc));
-      const unsigned words[4] = {static_cast<unsigned>(raw.x),
-                                 static_cast<unsigned>(raw.y),
-                                 static_cast<unsigned>(raw.z),
-                                 static_cast<unsigned>(raw.w)};
-      float s_lo[16], s_hi[16];
-#pragma unroll
-      for (int j = 0; j < 16; j += 4) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(
-            scales + static_cast<size_t>(g_lo) * N + n0 + cc + j));
-        s_lo[j] = a.x; s_lo[j + 1] = a.y; s_lo[j + 2] = a.z; s_lo[j + 3] = a.w;
-        const float4 h = __ldg(reinterpret_cast<const float4*>(
-            scales + static_cast<size_t>(g_lo + 1) * N + n0 + cc + j));
-        s_hi[j] = h.x; s_hi[j + 1] = h.y; s_hi[j + 2] = h.z; s_hi[j + 3] = h.w;
-      }
-      // two bf16 a 32-bit word, the lower column in the low half
-      unsigned lo[8], hi[8];
-#pragma unroll
-      for (int j = 0; j < 16; j += 2) {
-        const int v0 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4))) & 0xFF);
-        const int v1 = static_cast<int8_t>((words[j / 4] >> (8 * (j % 4) + 8)) & 0xFF);
-        const __nv_bfloat162 l = __floats2bfloat162_rn(
-            static_cast<float>((v0 & 0xF) - 8) * s_lo[j],
-            static_cast<float>((v1 & 0xF) - 8) * s_lo[j + 1]);
-        const __nv_bfloat162 h = __floats2bfloat162_rn(
-            static_cast<float>(v0 >> 4) * s_hi[j],
-            static_cast<float>(v1 >> 4) * s_hi[j + 1]);
-        lo[j / 2] = *reinterpret_cast<const unsigned*>(&l);
-        hi[j / 2] = *reinterpret_cast<const unsigned*>(&h);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&Bs[rr][cc]);
-      dst[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      dst[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      uint4* dh = reinterpret_cast<uint4*>(&Bs[kWKS + rr][cc]);
-      dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[wm + 16 * i][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk][wn + 16 * j], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < kWBM * kWBN; idx += kWThreads) {
-    const int i = idx / kWBN, c = idx % kWBN;
-    const int m = m0 + i;
-    if (m < M) {
-      out[static_cast<size_t>(m) * N + n0 + c] = __float2bfloat16(Cs[i][c]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
 // The tensor-core body: W8A8, W4A8, W8A16 and W4A16 (quant_matmul.cu,
 // where the design is described), the passes of the fused MLP and of
-// the fused attention + MLP (fused_step.cu) and the three grouped
-// matmuls (grouped_matmul.cu).  Its kernels have internal
+// the fused attention + MLP and the fused attention + matmul's matmul
+// (fused_step.cu) and the three grouped matmuls (grouped_matmul.cu).  Its kernels have internal
 // linkage, so each source that
 // includes this header launches (and sets the shared-memory limit of) its
 // own copy.
@@ -339,7 +193,7 @@ namespace {
 // tile by (of the second weight past the first's tiles), weight rows
 // [slice bz, min(K, slice (bz + 1))), with 128 WM threads and the dynamic
 // shared memory smem_raw (qmm_smem bytes).  qmm_mma_kernel runs it at its
-// block's coordinates; fused_step.cu's attn_gate_up_kernel runs it in the
+// block's coordinates; fused_step.cu's attn_qmm_kernel runs it in the
 // blocks its attention blocks leave; grouped_matmul.cu's gmm_mma_kernel
 // at each row tile of its expert, with args taken at the expert's rows.
 template <int kKind, int MT, int WM, bool kPerCol, bool kDual>
@@ -723,22 +577,29 @@ cudaError_t launch_mma_mt(int mt, const QmmArgs& args, int splits,
   }
 }
 
-// A matmul on the tensor-core body: one slice writes bf16 out directly;
-// more write their partials to args.ws, which qmm_reduce adds in split
-// order, with the column scale (per column) and sx (int8 activations).
+// qmm_reduce over the `splits` partials in args.ws into args.out, with the
+// column scale (per column) and sx (int8 activations).
 template <int kKind, bool kPerCol>
-cudaError_t run_mma(int mt, QmmArgs args, int splits, cudaStream_t st) {
-  void* ws = args.ws;
-  if (splits == 1) args.ws = nullptr;
-  cudaError_t rc = launch_mma_mt<kKind, kPerCol>(mt, args, splits, st);
-  if (rc != cudaSuccess || splits == 1) return rc;
+cudaError_t launch_qmm_reduce(const QmmArgs& args, int splits,
+                              cudaStream_t st) {
   const size_t threads = static_cast<size_t>(args.M) * args.N / 8;
   constexpr bool kInt = kKind == kW8A8 || kKind == kW4A8;
   qmm_reduce<kKind == kW8A8 && kPerCol>
       <<<(threads + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-          ws, kInt ? args.sx : nullptr, kPerCol ? args.scales[0] : nullptr,
-          args.out, args.M, args.N, splits);
+          args.ws, kInt ? args.sx : nullptr,
+          kPerCol ? args.scales[0] : nullptr, args.out, args.M, args.N,
+          splits);
   return cudaGetLastError();
+}
+
+// A matmul on the tensor-core body: one slice writes bf16 out directly;
+// more write their partials to args.ws, which launch_qmm_reduce adds.
+template <int kKind, bool kPerCol>
+cudaError_t run_mma(int mt, QmmArgs args, int splits, cudaStream_t st) {
+  if (splits == 1) args.ws = nullptr;
+  cudaError_t rc = launch_mma_mt<kKind, kPerCol>(mt, args, splits, st);
+  if (rc != cudaSuccess || splits == 1) return rc;
+  return launch_qmm_reduce<kKind, kPerCol>(args, splits, st);
 }
 
 }  // namespace

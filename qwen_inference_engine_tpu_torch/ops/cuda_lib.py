@@ -115,11 +115,12 @@ SIGNATURES = {
                            _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _P],
-    # q, k_cache, v_cache, lens, attn, x, w, scales, y, Lc, Bc, Ba, Hq, Hk,
-    # S, row0, M, K, N, gs, layer, L, scale, stream
-    "qie_fused_attn_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k_cache, v_cache, lens, attn, x, w, scales, ws (the splits' f32
+    # partials, or null for one split), ws_bytes, y, Lc, Bc, Ba, Hq, Hk, S,
+    # row0, M, K, N, gs, mt, splits, slice, layer, L, scale, stream
+    "qie_fused_attn_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _F, _P],
+                              _I, _I, _I, _I, _I, _F, _P],
     # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
     # position, L, Bc, B, Hk, S, D, layer, stream
     "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -30,8 +30,9 @@ passes: gate / up / h into a workspace, then the down projection.
 ``fused_mlp`` runs both on the W4A16 matmul's tensor-core kernel, K split
 as ``plan_fused_mlp`` plans it, and a reduce after each pass;
 ``fused_attn_mlp`` is the same MLP with the attention blocks in its first
-launch; ``fused_attn_matmul`` carries no sum across blocks and is one
-launch.  The
+launch; ``fused_attn_matmul`` is that first launch over one weight (the
+same attention blocks beside ``quant_matmul4``'s tiles, K split as
+``plan_fused_attn_matmul`` plans it), and a reduce where K is split.  The
 query heads are the G real ones: the JAX package pads them to G8 = 8 for
 the TPU's layout.  A wrapper runs its plain
 version only for a CPU tensor; for any other it checks types, shapes and
@@ -52,6 +53,8 @@ from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
     SPLIT_MIN_ROWS,
     SPLIT_TARGET_BLOCKS,
     _check as check_matmul,
+    _workspace,
+    plan_quant_matmul4,
     plan_split_k,
     quant_matmul4_plain,
 )
@@ -208,6 +211,35 @@ def plan_fused_mlp(M: int, K: int, F: int, gs_gate: int, gs_down: int):
     return (4, 1, K // 2), (4, -(-rows // slice_rows), slice_rows)
 
 
+def plan_fused_attn_matmul(M: int, K: int, N: int, gs: int):
+    """``fused_attn_matmul``'s matmul plan ``(mt, splits, slice)`` over K /
+    2 packed rows (pairs of gs) of N columns.  M <= 64: exactly
+    ``plan_quant_matmul4``'s (the decode stream, mt 1 or 4, K split), so y
+    is ``quant_matmul4``'s bits.  M > 64: that plan's 128-row prefill tiles
+    take 256 threads, and its blocks run beside the attention blocks at
+    128, so mt 4 (64-row tiles) over all of K, as ``plan_fused_mlp`` plans
+    its gate / up pass."""
+    if M <= 64:
+        return plan_quant_matmul4(M, K, N, gs)
+    return 4, 1, K // 2
+
+
+def _check_attn_matmul_plan(name, plan, ws, M, K, N):
+    """The C guard's rules for ``fused_attn_matmul``'s plan and workspace:
+    mt 1 or 4 (its blocks run beside the attention blocks at their 128
+    threads), slices covering the K / 2 packed rows once, and at more than
+    one slice an f32 workspace of ``[splits, M, N]`` values at least."""
+    mt, splits, _ = plan
+    _check_beside_attention(name, mt, "the matmul")
+    _check_cover(name, plan, K // 2)
+    if splits > 1:
+        need = 4 * splits * M * N
+        have = 0 if ws is None else ws.numel() * ws.element_size()
+        if have < need or (ws is not None and ws.dtype != torch.float32):
+            raise ValueError(f"{name}: an f32 workspace of {have} bytes, the "
+                             f"plan needs {need}")
+
+
 def _fused_mlp_workspace(M, K, F, plans, device):
     """One workspace for both passes: the f32 partials, M x max(splits1 *
     2 F, splits2 * K) values (the down pass reuses the gate / up partials'
@@ -217,22 +249,34 @@ def _fused_mlp_workspace(M, K, F, plans, device):
     return torch.empty(n_bytes, dtype=torch.uint8, device=device)
 
 
+def _check_cover(name, plan, rows):
+    """The C guard's rule for one pass's plan ``(mt, splits, slice)`` over
+    ``rows`` packed rows: slices of a multiple of 32 rows, covering the
+    rows once (the last may be shorter)."""
+    mt, splits, slice_ = plan
+    if (mt not in (0, 1, 4) or splits < 1 or slice_ <= 0 or slice_ % 32
+            or (splits - 1) * slice_ >= rows or splits * slice_ < rows):
+        raise ValueError(f"{name}: plan {(mt, splits, slice_)} does not "
+                         f"cover {rows} packed rows once")
+
+
+def _check_beside_attention(name, mt, what):
+    """The pass that runs beside the attention blocks takes their 128
+    threads: mt 1 or 4."""
+    if mt not in (1, 4):
+        raise ValueError(f"{name}: {what} runs beside the attention blocks "
+                         f"at 128 threads: mt 1 or 4, not {mt}")
+
+
 def _check_attn_mlp_plans(name, plans, ws, M, K, F):
     """The C guard's rules for ``fused_attn_mlp``'s plans and workspace:
     the gate / up pass at mt 1 or 4 (its blocks run beside the attention
     blocks at their 128 threads), each pass's slices covering its packed
     rows once, and ``ws`` as large as ``_fused_mlp_workspace`` makes it."""
-    (mt1, s1, sl1), (mt2, s2, sl2) = plans
-    if mt1 not in (1, 4):
-        raise ValueError(f"{name}: the gate / up pass runs beside the "
-                         f"attention blocks at 128 threads: mt 1 or 4, not "
-                         f"{mt1}")
-    for mt, splits, slice_, rows in ((mt1, s1, sl1, K // 2),
-                                     (mt2, s2, sl2, F // 2)):
-        if (mt not in (0, 1, 4) or splits < 1 or slice_ <= 0 or slice_ % 32
-                or (splits - 1) * slice_ >= rows or splits * slice_ < rows):
-            raise ValueError(f"{name}: plan {(mt, splits, slice_)} does not "
-                             f"cover {rows} packed rows once")
+    (mt1, s1, _), (_, s2, _) = plans
+    _check_beside_attention(name, mt1, "the gate / up pass")
+    _check_cover(name, plans[0], K // 2)
+    _check_cover(name, plans[1], F // 2)
     need = 4 * M * max(s1 * 2 * F, s2 * K) + 2 * M * F
     if ws.numel() * ws.element_size() < need:
         raise ValueError(f"{name}: workspace of {ws.numel()} bytes, the plans "
@@ -345,9 +389,11 @@ def fused_attn_matmul(lens: torch.Tensor, layer: int, q: torch.Tensor,
     keys of the cache rows ``row0 + b`` of ``layer`` (caches ``[L, Bc, Hk,
     S, D]``), and ``y = x [Mb, K] @ W4[layer]`` over the stacked INT4
     plane-pair weight ``wq [L, K/2, N]`` with scales ``wscales [L, K/gs,
-    N]``, in one launch.  Returns ``(attn [Ba, 1, Hq, D] bf16, y [Mb, N] in
-    x's dtype)``.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    N]``, in one launch, planned by ``plan_fused_attn_matmul``; where K is
+    split, a reduce follows in the same C call (the workspace allocated
+    here).  Returns ``(attn [Ba, 1, Hq, D] bf16, y [Mb, N] in x's
+    dtype)``.  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises."""
     if q.device.type == "cpu":
         return fused_attn_matmul_plain(lens, layer, q, k_cache, v_cache, x,
                                        wq, wscales, group_size=group_size,
@@ -367,14 +413,18 @@ def fused_attn_matmul(lens: torch.Tensor, layer: int, q: torch.Tensor,
     Ba, _, Hq, D = q.shape
     Lc, Bc, Hk, S, _ = k_cache.shape
     M, N = xb.shape[0], wq.shape[2]
+    plan = plan_fused_attn_matmul(M, K, N, gs)
+    ws = _workspace(plan[1], M, N, q.device, torch.float32)
+    _check_attn_matmul_plan(name, plan, ws, M, K, N)
     attn = torch.empty_like(qb)
     y = torch.empty((M, N), dtype=torch.bfloat16, device=q.device)
     rc = cuda_lib.library().qie_fused_attn_matmul(
         qb.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lens32.data_ptr(), attn.data_ptr(), xb.data_ptr(), wq.data_ptr(),
-        wscales.data_ptr(), y.data_ptr(), Lc, Bc, Ba, Hq, Hk, S, int(row0), M,
-        K, N, gs, int(layer), wq.shape[0], D ** -0.5,
-        cuda_lib.stream_handle(q.device))
+        wscales.data_ptr(), None if ws is None else ws.data_ptr(),
+        0 if ws is None else ws.numel() * ws.element_size(), y.data_ptr(),
+        Lc, Bc, Ba, Hq, Hk, S, int(row0), M, K, N, gs, *plan, int(layer),
+        wq.shape[0], D ** -0.5, cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, name)
     fused_attn_matmul.launches += 1
     return attn, y.to(x.dtype)

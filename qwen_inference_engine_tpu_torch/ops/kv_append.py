@@ -146,7 +146,7 @@ def kv_append_all_uniform(k_cache: torch.Tensor, v_cache: torch.Tensor,
     B = k_new.shape[1] if k_new.dim() >= 2 else 0
     if k_new.shape not in ((L, B, Hk, D), (L, B, 1, Hk, D)) \
             or v_new.shape != k_new.shape or v_cache.shape != k_cache.shape \
-            or not 1 <= B <= min(Bc, 65535) or L > 65535:
+            or not 1 <= B <= Bc:
         raise ValueError(f"{name} shapes: cache {tuple(k_cache.shape)}, new "
                          f"{tuple(k_new.shape)} (want [L, B <= Bc, (1,) Hk, "
                          f"D])")

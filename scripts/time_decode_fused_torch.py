@@ -1,5 +1,6 @@
-"""Time the PyTorch port's decode attentions and fused attention + MLP on
-the card, and fingerprint the flash, chunk and decode kernels' outputs.
+"""Time the PyTorch port's decode attentions, fused attention + MLP, fused
+attention + matmul and KV appends on the card, and fingerprint every
+kernel's output.
 
     python3 scripts/time_decode_fused_torch.py ROOT [OUT.json]
 
@@ -25,13 +26,41 @@ one call to the card.  Shapes are Qwen2.5-7B's, inputs seeded random:
 * ``fused_attn_mlp``: 96 rows from row 96 of a 192-row cache (lens 257,
   S 512) beside the pumped weights' MLP (gs 256 / 128) on Mb = 96 and 40
   rows, a call and in a CUDA graph;
+* ``fused_attn_matmul`` at ``chip_smoke.PROBE`` (56 rows of a 112-row
+  cache at lens 1017 of S 1024 beside the 7B gate projection, K 3584,
+  N 18944, INT4 gs 256) from row 0 and row 56, a call and in a CUDA
+  graph, with its plan where the tree has one and the SHA-256 of both
+  outputs; its two parts alone (``decode_attention_contiguous`` on the
+  56-row cache, ``quant_matmul4`` at M 56) and the yardstick (SDPA masked
+  to the lengths + bf16 ``torch.matmul`` over the dequantized slab), each
+  a call and in a CUDA graph;
+* the seven KV appends, a call and in a CUDA graph, each beside its
+  yardstick a call and in a CUDA graph (slice assignment, or
+  ``index_put_`` for the per-row and paged ones), with the bound (bytes at
+  3.35 TB/s) and, for the two uniform appends, the SHA-256 of the caches
+  they wrote (the all-layer append at 192 rows also with L2 cold: each
+  call after a 128 MB write, less the write): ``kv_append_uniform`` (the pumped half batch: 96 rows from
+  row 96 of 192, position 257 of 512), ``kv_append_all_uniform`` (28
+  layers x 192 rows at 257 of 512; 28 x 4 at 1023 of 1024),
+  ``kv_append_uniform_q8`` (B 4 at 1999 of 2304), ``kv_append_ragged_t``
+  (B 4 of S 1024, T 1 and 5, bf16 and int8), ``paged_append_ragged``
+  (8 slots), ``paged_append_ragged_t`` (8 rows, T 5) and
+  ``paged_append_prefill`` (T 256 at 384), the paged ones into bf16 and
+  int8 pools of pages of 512 (``chip_smoke``'s shapes);
 * ``flash_attention`` (B 4, T 512) and ``chunk_attention_contiguous`` /
   ``_q8`` (B 4, T 512 at start 1536 of S 2048): a call's time and the
   SHA-256 of the output's bytes, equal between two commits whose kernels
-  compute the same bits.
+  compute the same bits;
+* ``sha256``: the SHA-256 of the kernels that share the matmul body
+  (``time_grouped_torch.bodies``: the four dense matmuls, ``fused_mlp``,
+  ``fused_attn_mlp`` and ``fused_attn_matmul``) and of the three grouped
+  matmuls at M 256; ``ptxas``: every kernel's registers and spills from
+  the build's log (``time_paged_torch.registers``).
 
-Prints one JSON object (and writes it to OUT.json when given), with the
-card's name and power limit.  Needs a CUDA device.
+Run it for an archive of each of two commits in one call to the card
+(parent, change, change, parent).  Prints one JSON object (and writes it
+to OUT.json when given), with the card's name and power limit.  Needs a
+CUDA device.
 """
 
 import hashlib
@@ -55,6 +84,9 @@ def main() -> int:
     from qwen_inference_engine_tpu_torch.ops import decode_attention as da
     from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
     from qwen_inference_engine_tpu_torch.ops import fused_step as fs
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+    from time_grouped_torch import bodies
+    from time_paged_torch import registers
 
     cuda_lib.library()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -143,12 +175,278 @@ def main() -> int:
             qf, k8, v8, ks, vs, 1, 1536)),
         "sha256": digest(ca.chunk_attention_contiguous_q8(
             qf, k8, v8, ks, vs, 1, 1536))}
+    del qf, kf, vf, kc, vc, k8, v8, ks, vs
+    torch.cuda.empty_cache()
+    fused_attn_matmul(torch, cs, fs, da, qm, out, timed, digest)
+    torch.cuda.empty_cache()
+    appends(torch, cs, out, timed, digest)
+    torch.cuda.empty_cache()
+    out["sha256"] = bodies(torch, cs, fs, qm, qm.quantize_activations,
+                           torch.Generator(device="cuda").manual_seed(9),
+                           digest)
+    out["sha256"].update(grouped(torch, cs, digest))
+    out["ptxas"] = registers(os.path.join(os.path.dirname(cuda_lib.build()),
+                                          "build.log"))
     text = json.dumps(out)
     print(text)
     if len(sys.argv) > 2:
         with open(sys.argv[2], "w") as f:
             f.write(text)
     return 0
+
+
+def fused_attn_matmul(torch, cs, fs, da, qm, out, timed, digest):
+    """fused_attn_matmul at the probe from rows 0 and 56, its two parts
+    alone and the yardstick, each a call and in a CUDA graph."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.ops.linear import (
+        QuantLinear,
+        dequantize,
+    )
+
+    cfg = PRESETS["qwen2.5-7b"]
+    p = cs.PROBE
+    o = cs._probe_operands(torch, cfg)
+    Ba, S, gs = p["Ba"], p["S"], p["gs"]
+    K, N = cfg.hidden_size, cfg.intermediate_size
+    plan = getattr(fs, "plan_fused_attn_matmul", None)
+    for row0 in (0, Ba):
+        def call():
+            return fs.fused_attn_matmul(o["lens"], 1, o["q"], o["kc"],
+                                        o["vc"], o["x"], o["wq"], o["ws"],
+                                        group_size=gs, row0=row0)
+
+        attn, y = call()
+        out[f"fused_attn_matmul row0 {row0}"] = dict(
+            timed(call), sha256=[digest(attn), digest(y)],
+            plan=plan(p["Mb"], K, N, gs) if plan else None)
+    kc_a = o["kc"][:, :Ba].contiguous()
+    vc_a = o["vc"][:, :Ba].contiguous()
+    out["probe decode_attention_contiguous"] = timed(
+        lambda: da.decode_attention_contiguous(o["q"], kc_a, vc_a, 1,
+                                               o["lens"]))
+    out["probe quant_matmul4"] = timed(
+        lambda: qm.quant_matmul4(o["x"], o["wq"], o["ws"], 1, gs))
+    deq = dequantize(QuantLinear(q=o["wq"][1], scales=o["ws"][1], b=None,
+                                 bits=4, group_size=gs))
+    mask = (torch.arange(S, device="cuda") < S - 7)[None, None, None, :]
+    sdpa = cs._sdpa(torch, o["q"].transpose(1, 2), o["kc"][1, :Ba],
+                    o["vc"][1, :Ba], mask=mask)
+    out["probe yardstick sdpa + matmul"] = timed(
+        lambda: (sdpa(), torch.matmul(o["x"], deq)))
+
+
+def appends(torch, cs, out, timed, digest):
+    """The seven KV appends beside their yardsticks, a call and in a CUDA
+    graph, with the byte bound."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
+
+    cfg = PRESETS["qwen2.5-7b"]
+    Hk, D = cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    def record(kernel, library, n_bytes, caches=None):
+        rec = dict(timed(kernel), library=timed(library),
+                   bound_ms=cs.bound(n_bytes, 0, "bf16")[0])
+        if caches is not None:
+            rec["sha256"] = [digest(c) for c in caches]
+        return rec
+
+    # the pumped half batch
+    L, Bc, S, pos, layer, Bn = 2, 192, 512, 257, 1, 96
+    kc, vc = rnd(L, Bc, Hk, S, D), rnd(L, Bc, Hk, S, D)
+    kn, vn = rnd(Bn, 1, Hk, D), rnd(Bn, 1, Hk, D)
+    pos_t = torch.tensor([pos], device="cuda", dtype=torch.int32)
+    ka.kv_append_uniform(kc, vc, kn, vn, pos_t, layer, row0=Bn)
+
+    def library():
+        kc[layer, Bn:, :, pos] = kn[:, 0]
+        vc[layer, Bn:, :, pos] = vn[:, 0]
+
+    out["kv_append_uniform Bn96"] = record(
+        lambda: ka.kv_append_uniform(kc, vc, kn, vn, pos_t, layer, row0=Bn),
+        library, 2 * 2 * 2 * Bn * Hk * D, (kc, vc))
+    del kc, vc
+    # every layer at once: the deferred decode step, and B 4
+    for B, S, pos in ((192, 512, 257), (4, 1024, 1023)):
+        L = cfg.num_layers
+        kc, vc = rnd(L, B, Hk, S, D), rnd(L, B, Hk, S, D)
+        kn, vn = rnd(L, B, 1, Hk, D), rnd(L, B, 1, Hk, D)
+        pos_t = torch.tensor([pos], device="cuda", dtype=torch.int32)
+        ka.kv_append_all_uniform(kc, vc, kn, vn, pos_t)
+        digests = [digest(kc), digest(vc)]
+
+        def library():
+            kc[:, :, :, pos] = kn[:, :, 0]
+            vc[:, :, :, pos] = vn[:, :, 0]
+
+        rec = dict(record(
+            lambda: ka.kv_append_all_uniform(kc, vc, kn, vn, pos_t), library,
+            2 * 2 * 2 * L * B * Hk * D + 4), sha256=digests)
+        if B == 192:
+            # 22 MB stay in the 50 MB L2 from one replay to the next: also
+            # time each call after a 128 MB write that evicts them, less
+            # that write alone
+            rec["cold_graph_ms"] = cold_graph_ms(
+                torch, cs, lambda: ka.kv_append_all_uniform(kc, vc, kn, vn,
+                                                            pos_t))
+            rec["library"]["cold_graph_ms"] = cold_graph_ms(torch, cs,
+                                                            library)
+        out[f"kv_append_all_uniform L{L} B{B}"] = rec
+        del kc, vc
+        torch.cuda.empty_cache()
+    # the INT8-KV uniform append: B 4 at 1999 of 2304
+    L, B, S, pos = 2, 4, 2304, 1999
+    k8, ks = cs._int8(torch, g, (L, B, Hk, S, D))
+    v8, vs = cs._int8(torch, g, (L, B, Hk, S, D))
+    kn, ksn = quantize_kv(torch.randn((B, 1, Hk, D), generator=g,
+                                      device="cuda"))
+    vn, vsn = quantize_kv(torch.randn((B, 1, Hk, D), generator=g,
+                                      device="cuda"))
+    new = (kn, vn, ksn, vsn)
+    pos_t = torch.tensor([pos], device="cuda", dtype=torch.int32)
+
+    def library():
+        for cache, x in zip((k8, v8, ks, vs), new):
+            cache[layer, :, :, pos] = x[:, 0]
+
+    out["kv_append_uniform_q8 B4"] = record(
+        lambda: ka.kv_append_uniform_q8(k8, v8, ks, vs, *new, pos_t, layer),
+        library, 2 * (2 * B * Hk * D + 2 * 4 * B * Hk))
+    del k8, v8, ks, vs
+    # the ragged decode's write (T 1) and the verify's window (T 5)
+    S = 1024
+    for T, quant in ((1, False), (5, False), (1, True)):
+        starts_l = [32, S - T, S - 2 if T > 1 else 500, 0]
+        if quant:
+            (kc, ks), (vc, vs) = (cs._int8(torch, g, (2, 4, Hk, S, D))
+                                  for _ in range(2))
+            (kn, ksn), (vn, vsn) = (quantize_kv(torch.randn(
+                (4, T, Hk, D), generator=g, device="cuda")) for _ in range(2))
+            caches, news = (kc, vc, ks, vs), (kn, vn, ksn, vsn)
+            kw = dict(k_scale=ks, v_scale=vs, ks_new=ksn, vs_new=vsn)
+        else:
+            caches, news = (rnd(2, 4, Hk, S, D), rnd(2, 4, Hk, S, D)), (
+                rnd(4, T, Hk, D), rnd(4, T, Hk, D))
+            kw = {}
+        starts = torch.tensor(starts_l, device="cuda", dtype=torch.int32)
+        src = [(b, t) for b, p in enumerate(starts_l)
+               for t in range(min(T, S - p))]
+        bi = torch.tensor([b for b, _ in src], device="cuda")
+        ti = torch.tensor([t for _, t in src], device="cuda")
+        pi = torch.tensor([starts_l[b] + t for b, t in src], device="cuda")
+
+        def library(caches=caches, news=news, bi=bi, ti=ti, pi=pi):
+            for c, n in zip(caches, news):
+                c[layer, bi, :, pi] = n[bi, ti]
+
+        elem = 1 if quant else 2
+        n_bytes = 2 * 2 * len(src) * Hk * (D * elem + (4 if quant else 0))
+        out[f"kv_append_ragged_t T{T}{' int8' if quant else ''}"] = record(
+            lambda caches=caches, news=news, starts=starts, kw=kw:
+            ka.kv_append_ragged_t(caches[0], caches[1], news[0], news[1],
+                                  starts, layer, **kw), library, n_bytes)
+        del caches, news
+    # the paged appends (bf16 and int8 pools of pages of 512)
+    k, v, tables = cs._paged_pool(torch, cfg, g)
+    k, v = k.nan_to_num(), v.nan_to_num()
+    k8, v8, ks, vs = cs._q8_pool(torch, k, v)
+    B, page = len(cs.PAGED_LENS), cs.PAGE
+    positions = torch.tensor(cs.PAGED_LENS, device="cuda",
+                             dtype=torch.int32) - 1
+    starts = torch.tensor(cs.VERIFY_STARTS, device="cuda", dtype=torch.int32)
+    T, start = 256, 384
+    keep = [b for b, s in enumerate(cs.VERIFY_STARTS) if s >= 0]
+    cases = {
+        "paged_append_ragged": ((B, 1), positions, tables,
+                                [(b, 0, int(cs.PAGED_LENS[b]) - 1)
+                                 for b in range(B)]),
+        "paged_append_ragged_t": ((B, cs.SPEC_T), starts, tables,
+                                  [(b, t, cs.VERIFY_STARTS[b] + t)
+                                   for b in keep for t in range(cs.SPEC_T)]),
+        "paged_append_prefill": ((1, T), start, tables[:1],
+                                 [(0, t, start + t) for t in range(T)])}
+    heads = torch.arange(Hk, device="cuda")[None, :]
+    for name, (shape, at, tab, toks) in cases.items():
+        fn = getattr(ka, name)
+        x = rnd(*shape, Hk, D)
+        xq, xs = quantize_kv(x)
+        b_idx = torch.tensor([b for b, _, _ in toks], device="cuda")
+        t_idx = torch.tensor([t for _, t, _ in toks], device="cuda")
+        p_idx = torch.tensor([q for _, _, q in toks], device="cuda")
+        ids = tab.long()[b_idx, p_idx // page][:, None]
+        rows = (ids, heads, (p_idx % page)[:, None])
+        for quant in (False, True):
+            pools = (k8, v8, ks, vs) if quant else (k, v)
+            nk = xq if quant else x
+            kw = dict(k_scale=ks, v_scale=vs, ks_new=xs,
+                      vs_new=xs) if quant else {}
+
+            def kernel(fn=fn, pools=pools, nk=nk, at=at, tab=tab, kw=kw):
+                fn(pools[0], pools[1], nk, nk, at, tab, layer,
+                   page_size=page, **kw)
+
+            def library(pools=pools, nk=nk, quant=quant):
+                for pool in pools[:2]:
+                    pool[layer].index_put_(rows, nk[b_idx, t_idx])
+                if quant:
+                    for sc in pools[2:]:
+                        sc[layer].index_put_(rows, xs[b_idx, t_idx])
+
+            elem = 1 if quant else 2
+            n_bytes = 2 * 2 * len(toks) * Hk * (D * elem
+                                                + (4 if quant else 0))
+            out[f"{name}{' int8' if quant else ''}"] = record(kernel, library,
+                                                              n_bytes)
+
+
+def cold_graph_ms(torch, cs, fn):
+    """A call's device time in a CUDA graph with L2 cold: each call after a
+    128 MB write (2.5 times the H100's L2), less the write alone."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+
+    def both():
+        flush.zero_()
+        fn()
+
+    return cs.graph_ms(torch, both) - cs.graph_ms(torch, flush.zero_)
+
+
+def grouped(torch, cs, digest):
+    """The SHA-256 of the three grouped matmuls at M 256 (Qwen3-30B-A3B's
+    gate projection, 128 experts, top-8), which share the matmul body."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
+        quantize_activations,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    E, top, L, layer, K, N, M = 128, 8, 2, 1, 2048, 768, 256
+    gsz = cs._routing(torch, g, M // top, E, top)
+    q4 = torch.randint(-128, 128, (L, E, K // 2, N), generator=g,
+                       device="cuda", dtype=torch.int8)
+    s4 = torch.rand((L, E, K // 256, N), generator=g, device="cuda") \
+        * (2 * K ** -0.5 / 7)
+    q8 = torch.randint(-127, 128, (L, E, K, N), generator=g, device="cuda",
+                       dtype=torch.int8)
+    s8 = torch.rand((L, E, K // 128, N), generator=g, device="cuda") \
+        * (2 * K ** -0.5 / 127)
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    xq, sx = quantize_activations(x)
+    sx = sx.reshape(-1).contiguous()
+    return {
+        "grouped_matmul8 M256": digest(gm.grouped_matmul8(x, q8, s8, gsz,
+                                                          layer)),
+        "grouped_matmul4_a8 M256": digest(gm.grouped_matmul4_a8(
+            xq, sx, q4, s4, gsz, layer, 256)),
+        "grouped_matmul4 M256": digest(gm.grouped_matmul4(x, q4, s4, gsz,
+                                                          layer, 256))}
 
 
 if __name__ == "__main__":

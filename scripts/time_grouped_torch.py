@@ -133,8 +133,8 @@ def main() -> int:
 
 
 def bodies(torch, cs, fs, qm, quantize_activations, g, digest):
-    """The SHA-256 of the other kernels on the shared tensor-core body (and
-    of fused_attn_matmul's wmma tile) at Qwen2.5-7B's shapes."""
+    """The SHA-256 of the other kernels on the shared tensor-core body at
+    Qwen2.5-7B's shapes."""
     K, F, Hq, Hk, D = 3584, 18944, 28, 4, 128
 
     def int8(*shape):

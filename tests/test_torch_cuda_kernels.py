@@ -34,7 +34,12 @@ length, two calls bit for bit), ``decode_step_pumped`` against
 starts -1, band edges and past the cache's end in bf16, f32 and int8; the
 fresh-merge decode attention with NaN at and past each old length and
 bit-identical to the appending kernel; the all-layer append at 28 layers;
-the fused attention + matmul at the probe's shapes), the deferred-append
+the fused attention + matmul at the probe's shapes, its y bit-equal to
+``quant_matmul4``'s at Mb <= 64 and its attention to ``fused_attn_mlp``'s,
+replayed in a CUDA graph), both uniform appends at both vector widths (16
+bytes, and 4 where k_new starts 4 bytes past a 16-byte boundary; D 64 and
+128, bf16 and f32, positions 0, S - 1 and S) and replayed in a CUDA graph
+at a new device position, the deferred-append
 decode step against ``decode_step`` bit for bit, the appending and fresh
 decodes split S on the tensor cores (B 1, 4, 8 and 192, G 1, 4, 7 and 8,
 D 64 and 128, S 256 and 2304, positions and old lengths on each side of
@@ -2216,6 +2221,92 @@ def test_kv_append_uniform_bit_exact(gen, shape, second_half, pos, dtype):
     assert torch.equal(k3, rk) and torch.equal(v3, rv)
 
 
+@pytest.mark.parametrize("offset", [0, 4], ids=["aligned", "4 bytes past"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("pos", [0, 255, 256], ids=["0", "S-1", "S"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_kv_append_uniform_vector_widths(gen, D, pos, dtype, offset):
+    """Both widths of the uniform append: 16-byte vectors where the row and
+    every operand are 16-byte aligned, 4-byte words where k_new starts 4
+    bytes past a 16-byte boundary; D 64 and 128, bf16 and f32, positions
+    0, S - 1 and S (nothing written).  The rows bit for bit, nothing else
+    of the cache touched, for kv_append_uniform (7 rows from row 2 of 12)
+    and kv_append_all_uniform (3 layers, 7 of 12 rows)."""
+    L, Bc, Bn, Hk, S, row0, layer = 3, 12, 7, 4, 256, 2, 1
+    kc = _kv_cache(gen, (L, Bc, Hk, S, D), dtype)
+    vc = _kv_cache(gen, (L, Bc, Hk, S, D), dtype)
+    el = offset // torch.empty((), dtype=dtype).element_size()
+
+    def rows(*shape):
+        n = 1
+        for d in shape:
+            n *= d
+        flat = torch.randn(n + el, generator=gen, device="cuda").to(dtype)
+        return flat[el:].view(shape)
+
+    kn, vn = rows(Bn, 1, Hk, D), rows(Bn, 1, Hk, D)
+    assert (kn.data_ptr() % 16 == 4) == (offset == 4) and kn.is_contiguous()
+    mine, theirs = [kc.clone(), vc.clone()], [kc.clone(), vc.clone()]
+    before = ka.kv_append_uniform.launches
+    ka.kv_append_uniform(*mine, kn, vn, torch.tensor([pos], device="cuda"),
+                         layer, row0=row0)
+    assert ka.kv_append_uniform.launches == before + 1
+    if pos < S:
+        ka.kv_append_uniform_plain(*theirs, kn, vn, pos, layer, row0)
+    assert torch.equal(mine[0], theirs[0]) and torch.equal(mine[1], theirs[1])
+    kn, vn = rows(L, Bn, 1, Hk, D), rows(L, Bn, 1, Hk, D)
+    mine, theirs = [kc.clone(), vc.clone()], [kc.clone(), vc.clone()]
+    before = ka.kv_append_all_uniform.launches
+    ka.kv_append_all_uniform(*mine, kn, vn, torch.tensor([pos], device="cuda"))
+    assert ka.kv_append_all_uniform.launches == before + 1
+    if pos < S:
+        ka.kv_append_all_uniform_plain(*theirs, kn, vn, pos)
+    assert torch.equal(mine[0], theirs[0]) and torch.equal(mine[1], theirs[1])
+
+
+@pytest.mark.parametrize("kind", ["uniform", "all layers"])
+def test_kv_append_uniform_replays_in_a_cuda_graph_at_a_new_position(gen,
+                                                                     kind):
+    """A uniform append captured in a CUDA graph writes, when replayed after
+    its position tensor changed, at the new position: the same cache as
+    the eager call there."""
+    L, Bc, Hk, S, D = 3, 8, 4, 256, 128
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    pos = torch.tensor([5], device="cuda", dtype=torch.int32)
+    if kind == "uniform":
+        kn, vn = _bf16(gen, 4, 1, Hk, D), _bf16(gen, 4, 1, Hk, D)
+
+        def append(k, v, p):
+            return ka.kv_append_uniform(k, v, kn, vn, p, 1, row0=4)
+    else:
+        kn, vn = _bf16(gen, L, Bc, 1, Hk, D), _bf16(gen, L, Bc, 1, Hk, D)
+
+        def append(k, v, p):
+            return ka.kv_append_all_uniform(k, v, kn, vn, p)
+
+    kg, vg = kc.clone(), vc.clone()
+    append(kg, vg, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        append(kg, vg, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        append(kg, vg, pos)
+    for p in (200, 0, 255):
+        kg.copy_(kc)
+        vg.copy_(vc)
+        pos.fill_(p)
+        graph.replay()
+        ke, ve = kc.clone(), vc.clone()
+        append(ke, ve, p)
+        torch.cuda.synchronize()
+        assert torch.equal(kg, ke) and torch.equal(vg, ve), p
+        assert not torch.equal(kg, kc), p
+
+
 PUMP = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
             num_layers=3, num_heads=2, num_kv_heads=1, head_dim=128)
 
@@ -2254,8 +2345,7 @@ def test_decode_step_pumped_matches_decode_step_on_the_card(gen):
                                       uniform_decode=True)
         assert bool(got.isfinite().all())
         # bf16 paths that round at different places (the drain's three
-        # matmuls, the wmma tile's bf16 weights at the halves' MLP):
-        # within 2^-4 of the largest logit
+        # matmuls, the halves' MLP): within 2^-4 of the largest logit
         tol = 2 ** -4 * ref.abs().max().item()
         assert (got - ref).abs().max().item() <= tol
         tok = ref.argmax(-1)
@@ -2654,10 +2744,59 @@ def test_fused_attn_matmul_matches_plain(gen, shape, second):
     # the W4A16 matmul's rule: 2^-6 of the largest output
     tol = 2 ** -6 * ref_y.float().abs().max().item()
     assert (y.float() - ref_y.float()).abs().max().item() <= tol
-    # the dense W4A16 kernel runs another body (the tensor cores), so it
-    # agrees with this wmma tile by the same rule
+    # at Mb <= 64 the matmul blocks are quant_matmul4's body on its plan
+    # and its reduce: its bits; above 64 rows the dense kernel takes 128-row
+    # tiles, and the two agree by the W4A16 rule
     dense = qm.quant_matmul4(x, wq, ws, layer, gs)
-    assert (y.float() - dense.float()).abs().max().item() <= tol
+    if Mb <= 64:
+        assert torch.equal(y, dense)
+    else:
+        assert (y.float() - dense.float()).abs().max().item() <= tol
+    # the attention blocks are fused_attn_mlp's, bit for bit, beside any MLP
+    Kf, Ff = MLP_SHAPES["tiny"]
+    w = _mlp_weights(gen, L, Kf, Ff, 128, 128)
+    attn_mlp, _ = fs.fused_attn_mlp(lens, layer, 0, q, kbad, vbad,
+                                    _bf16(gen, 8, Kf), *w, gs_gate=128,
+                                    gs_down=128, row0=row0)
+    assert torch.equal(attn, attn_mlp)
+
+
+def test_fused_attn_matmul_replays_in_a_cuda_graph(gen):
+    """fused_attn_matmul at the probe's shapes (its split plan: the matmul
+    blocks, then the reduce) captured in a CUDA graph and replayed equals
+    the eager call, after q, x and the lengths change in place."""
+    Ba, Bc, Hk, G, S, Mb, K, N, gs = ATTN_MM_SHAPES["probe"]
+    L, D, layer = 2, 128, 1
+    assert fs.plan_fused_attn_matmul(Mb, K, N, gs)[1] > 1
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    lens = torch.full((Ba,), S - 7, device="cuda", dtype=torch.int32)
+    q, x = _bf16(gen, Ba, 1, Hk * G, D), _bf16(gen, Mb, K)
+    wq = torch.randint(-128, 128, (L, K // 2, N), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    ws = torch.rand((L, K // gs, N), generator=gen, device="cuda") * 0.01
+
+    def call():
+        return fs.fused_attn_matmul(lens, layer, q, kc, vc, x, wq, ws,
+                                    group_size=gs, row0=Bc - Ba)
+
+    call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for n in (S, 1, 333):
+        lens.fill_(n)
+        q.copy_(_bf16(gen, Ba, 1, Hk * G, D))
+        x.copy_(_bf16(gen, Mb, K))
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(captured[0], eager[0]), n
+        assert torch.equal(captured[1], eager[1]), n
 
 
 def test_deferred_decode_step_matches_the_appending_step_on_the_card(gen):

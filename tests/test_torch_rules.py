@@ -890,14 +890,14 @@ def _append_call(kv=_BF, Bn=4, row0=4, layer=1, position=9, new_dev="meta"):
 
 
 def _attn_matmul_call(kv=_BF, gs=64, N=512, s_dtype=torch.float32, layer=1,
-                      row0=4):
+                      row0=4, K=256):
     from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
 
     cache = _meta(2, 8, 2, 256, 128, dtype=kv)
     return tfs.fused_attn_matmul(
         _meta(4, dtype=torch.int32), layer, _meta(4, 1, 8, 128, dtype=_BF),
-        cache, cache, _meta(8, 256, dtype=_BF),
-        _meta(2, 128, N, dtype=_I8), _meta(2, 256 // gs, N, dtype=s_dtype),
+        cache, cache, _meta(8, K, dtype=_BF),
+        _meta(2, K // 2, N, dtype=_I8), _meta(2, K // gs, N, dtype=s_dtype),
         group_size=gs, row0=row0)
 
 
@@ -1155,6 +1155,45 @@ PLAN_REFUSALS = {
         "tda.decode_workspace", None,
         lambda: _bf16_decode_call(B=192, S=512), AssertionError,
         "library was asked for"),
+    # fused_attn_matmul (_attn_matmul_call: M 8, K 256, N 512, gs 64, its
+    # own plan one slice of the 128 packed rows; at K 2048, gs 128 four
+    # slices of 256)
+    "attn matmul mt 0": ("fs.plan_fused_attn_matmul",
+                         lambda M, K, N, gs: (0, 1, K // 2),
+                         lambda: _attn_matmul_call(), ValueError,
+                         "mt 1 or 4"),
+    "attn matmul slices short": ("fs.plan_fused_attn_matmul",
+                                 lambda M, K, N, gs: (4, 1, K // 2 - 32),
+                                 lambda: _attn_matmul_call(), ValueError,
+                                 "does not cover"),
+    "attn matmul a slice past the rows": (
+        "fs.plan_fused_attn_matmul", lambda M, K, N, gs: (1, 3, K // 4),
+        lambda: _attn_matmul_call(), ValueError, "does not cover"),
+    "attn matmul slice of 48": ("fs.plan_fused_attn_matmul",
+                                lambda M, K, N, gs: (1, 3, 48),
+                                lambda: _attn_matmul_call(), ValueError,
+                                "does not cover"),
+    "attn matmul split plan without a workspace": (
+        "fs._workspace", lambda splits, M, N, device, dtype: None,
+        lambda: _attn_matmul_call(K=2048, gs=128), ValueError,
+        "workspace"),
+    "attn matmul workspace too small": (
+        "fs._workspace", lambda splits, M, N, device, dtype: torch.empty(
+            (splits, M, N - 4), dtype=dtype, device=device),
+        lambda: _attn_matmul_call(K=2048, gs=128), ValueError,
+        "workspace"),
+    "attn matmul workspace in bf16": (
+        "fs._workspace", lambda splits, M, N, device, dtype: torch.empty(
+            (2 * splits, M, N), dtype=_BF, device=device),
+        lambda: _attn_matmul_call(K=2048, gs=128), ValueError,
+        "workspace"),
+    "attn matmul split plan passes its checks": (
+        "fs.plan_fused_attn_matmul", lambda M, K, N, gs: (1, 2, K // 4),
+        lambda: _attn_matmul_call(), AssertionError,
+        "library was asked for"),
+    "attn matmul planned split passes its checks": (
+        None, None, lambda: _attn_matmul_call(K=2048, gs=128),
+        AssertionError, "library was asked for"),
 }
 
 
@@ -1163,9 +1202,11 @@ def test_split_plans_and_workspaces_refused_before_any_build(monkeypatch,
                                                              case):
     """The C guards' rules for the plans the two split kernels take, held
     by the wrappers before the library is built (meta tensors stand in for
-    the card): fused_attn_mlp's gate / up pass only at mt 1 or 4 (its
-    blocks run beside the attention blocks), each pass's slices covering
-    its packed rows once, a workspace as large as the plans need; the
+    the card): fused_attn_mlp's gate / up pass and fused_attn_matmul's
+    matmul only at mt 1 or 4 (their blocks run beside the attention
+    blocks), each pass's slices covering its packed rows once, a workspace
+    as large as the plans need (fused_attn_matmul: f32, at more than one
+    slice); the
     three split decodes' (q8, appending, fresh) spans a multiple of 64
     keys, their splits covering S once, an f32 workspace as large as the
     plan needs, their operands 16-byte aligned; a bf16 decode of one split
@@ -1184,3 +1225,48 @@ def test_split_plans_and_workspaces_refused_before_any_build(monkeypatch,
         monkeypatch.setattr({"fs": tfs, "tda": tda}[mod], name, stand_in)
     with pytest.raises(exc, match=match):
         fn()
+
+
+# projections fused_attn_matmul may carry beside the attention: (K, N, gs)
+ATTN_MM_PLAN_SHAPES = {"7b gate": (3584, 18944, 128),
+                       "7b down": (18944, 3584, 128),
+                       "14b gate": (5120, 13824, 128),
+                       "14b down": (13824, 5120, 128),
+                       "probe": (3584, 18944, 256)}
+
+
+@pytest.mark.parametrize("shape", sorted(ATTN_MM_PLAN_SHAPES))
+def test_fused_attn_matmul_plans_the_dense_matmul_up_to_64_rows(shape):
+    """At every Mb of 1..64 fused_attn_matmul's plan is quant_matmul4's
+    (the same body, plan and reduce give y quant_matmul4's bits), at mt 1
+    or 4 (the decode stream's tiles run beside the attention blocks at 128
+    threads), and passes the C guard's rules with the workspace the
+    wrapper makes; the probe's 56 rows take 4 slices of 512 packed rows."""
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    K, N, gs = ATTN_MM_PLAN_SHAPES[shape]
+    for M in range(1, 65):
+        plan = tfs.plan_fused_attn_matmul(M, K, N, gs)
+        assert plan == tqmm.plan_quant_matmul4(M, K, N, gs), M
+        assert plan[0] == (1 if M <= 16 else 4), M
+        ws = tqmm._workspace(plan[1], M, N, "meta", torch.float32)
+        tfs._check_attn_matmul_plan("t", plan, ws, M, K, N)
+    if shape == "probe":
+        assert tfs.plan_fused_attn_matmul(56, K, N, gs) == (4, 4, 512)
+
+
+@pytest.mark.parametrize("M", [65, 96, 192, 256])
+@pytest.mark.parametrize("shape", sorted(ATTN_MM_PLAN_SHAPES))
+def test_fused_attn_matmul_plans_64_row_tiles_above_64_rows(shape, M):
+    """Above 64 rows the dense matmul takes 128-row tiles of 256 threads;
+    fused_attn_matmul's matmul blocks stay at the attention blocks' 128
+    (mt 4, 64-row tiles) over all of K, as fused_mlp's gate / up pass:
+    one slice, no workspace, and the C guard's rules hold."""
+    from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
+
+    K, N, gs = ATTN_MM_PLAN_SHAPES[shape]
+    assert tqmm.plan_quant_matmul4(M, K, N, gs)[0] == 0
+    plan = tfs.plan_fused_attn_matmul(M, K, N, gs)
+    assert plan == (4, 1, K // 2)
+    assert plan[:2] == tfs.plan_fused_mlp(M, K, 2 * 256, 128, 128)[0][:2]
+    tfs._check_attn_matmul_plan("t", plan, None, M, K, N)
