@@ -1359,7 +1359,9 @@ def check_paged_appends(torch, cfg):
     PAGED_LENS; a 256-token piece at start 384 (it crosses from page 0 to
     page 1 of its table); the verify window of SPEC_T tokens at
     VERIFY_STARTS (508 straddles pages 0 and 1, 512 starts page 1, -1 is
-    skipped).  The JSON line keeps the bf16 times, the int8 ones beside."""
+    skipped), and a window of 17 there (wider than 16).  Each a call and
+    in a CUDA graph, beside index_put_ in a graph.  The JSON line keeps
+    the bf16 times, the int8 ones beside, the T = 17 window as at_T17."""
     from qwen_inference_engine_tpu_torch.ops import kv_append as ka
 
     Hk, D = cfg.num_kv_heads, cfg.head_dim
@@ -1380,41 +1382,42 @@ def check_paged_appends(torch, cfg):
         x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
         return (x, *quantize_kv(x))
 
-    new = {"paged_append_ragged": (rows((B, 1, Hk, D)), rows((B, 1, Hk, D))),
-           "paged_append_prefill": (rows((1, T, Hk, D)), rows((1, T, Hk, D))),
-           "paged_append_ragged_t": (rows((B, SPEC_T, Hk, D)),
-                                     rows((B, SPEC_T, Hk, D)))}
-    where = {"paged_append_ragged": (pos, tables),
-             "paged_append_prefill": (start, tables[:1]),
-             "paged_append_ragged_t": (starts, tables)}
-    # (page id, row in page) of every token each case writes
-    tok_pos = {"paged_append_ragged": (torch.arange(B, device="cuda"),
-                                       pos.long()),
-               "paged_append_prefill": (torch.zeros(T, dtype=torch.long,
-                                                    device="cuda"),
-                                        start + torch.arange(T, device="cuda"))}
     keep = torch.nonzero(starts >= 0)[:, 0]
-    tok_pos["paged_append_ragged_t"] = (
-        keep.repeat_interleave(SPEC_T),
-        (starts.long()[keep][:, None]
-         + torch.arange(SPEC_T, device="cuda")).reshape(-1))
-    shapes = {"paged_append_ragged": f"B={B} positions="
-                                     f"{[n - 1 for n in PAGED_LENS]}",
-              "paged_append_prefill": f"T={T} start={start}",
-              "paged_append_ragged_t": f"B={B} T={SPEC_T} starts="
-                                       f"{VERIFY_STARTS}"}
+
+    def window(n):
+        """(page-table row, position) of every token of an n-token window
+        at VERIFY_STARTS."""
+        return (keep.repeat_interleave(n),
+                (starts.long()[keep][:, None]
+                 + torch.arange(n, device="cuda")).reshape(-1))
+
+    # case: (wrapper, new rows' shape, where, (table row, position) of
+    # every token it writes, the rows of k_new it writes, shape)
+    cases = {
+        "paged_append_ragged": (
+            "paged_append_ragged", (B, 1), (pos, tables),
+            (torch.arange(B, device="cuda"), pos.long()), slice(None),
+            f"B={B} positions={[n - 1 for n in PAGED_LENS]}"),
+        "paged_append_prefill": (
+            "paged_append_prefill", (1, T), (start, tables[:1]),
+            (torch.zeros(T, dtype=torch.long, device="cuda"),
+             start + torch.arange(T, device="cuda")), slice(None),
+            f"T={T} start={start}"),
+        "paged_append_ragged_t": (
+            "paged_append_ragged_t", (B, SPEC_T), (starts, tables),
+            window(SPEC_T), keep, f"B={B} T={SPEC_T} starts={VERIFY_STARTS}"),
+        "paged_append_ragged_t T17": (
+            "paged_append_ragged_t", (B, 17), (starts, tables), window(17),
+            keep, f"B={B} T=17 starts={VERIFY_STARTS}")}
     heads = torch.arange(Hk, device="cuda")[None, :]
     out = {}
-    for name in ("paged_append_ragged", "paged_append_prefill",
-                 "paged_append_ragged_t"):
+    for case, (name, shape, (at, tab), (b_idx, p_idx), sel,
+               desc) in cases.items():
         kern, plain = getattr(ka, name), getattr(ka, name + "_plain")
-        (kb, kq, ksn), (vb, vq, vsn) = new[name]
-        at, tab = where[name]
-        b_idx, p_idx = tok_pos[name]
+        (kb, kq, ksn), (vb, vq, vsn) = (rows((*shape, Hk, D)),
+                                         rows((*shape, Hk, D)))
         ids = tab.long()[b_idx, p_idx // PAGE][:, None]
         lib_rows = (ids, heads, (p_idx % PAGE)[:, None])
-        # the rows that are written (a skipped row's are not)
-        sel = keep if name == "paged_append_ragged_t" else slice(None)
         rec = None
         for quant in (False, True):
             base = (k8, v8, ks, vs) if quant else (k, v)
@@ -1437,6 +1440,7 @@ def check_paged_appends(torch, cfg):
             written = int((mine[0] != base[0]).any(dim=-1).sum())
             n_tok = int(b_idx.numel())
             ms = time_ms(torch, lambda: call(kern, mine))
+            g_ms = graph_ms(torch, lambda: call(kern, mine))
             plain_ms = time_ms(torch, lambda: call(plain, theirs))
 
             def lib():
@@ -1453,25 +1457,37 @@ def check_paged_appends(torch, cfg):
                                                 vsn[sel].reshape(-1, Hk))
 
             lib_ms = time_ms(torch, lib)
+            lib_g_ms = graph_ms(torch, lib)
             elem = 1 if quant else 2
             n_bytes = 2 * 2 * n_tok * Hk * (D * elem + (4 if quant else 0))
             b_ms, b_by = bound(n_bytes, 0, "bf16")
+            plan = ka.plan_paged_append(shape[0], shape[1], Hk, D, elem,
+                                        True)
             kind = "int8" if quant else "bf16"
-            print(f"  {name} {kind} {shapes[name]}: {diff} elements differ "
+            print(f"  {name} {kind} {desc}: {diff} elements differ "
                   f"(must be 0, scales included; {written} K rows written) "
-                  f"| kernel {ms:.4f} ms | plain {plain_ms:.4f} | index_put_ "
-                  f"{lib_ms:.4f} | bound {b_ms:.6f} ({b_by})", flush=True)
+                  f"| plan (vec, threads, blocks) {plan} | kernel {ms:.4f} "
+                  f"ms (graph {g_ms:.5f}) | plain {plain_ms:.4f} | "
+                  f"index_put_ {lib_ms:.4f} (graph {lib_g_ms:.5f}) | bound "
+                  f"{b_ms:.6f} ({b_by})", flush=True)
             if diff != 0 or written != n_tok * Hk:
                 fail(f"{name} {kind} not bit-exact: {diff} elements differ, "
                      f"{written} rows written (want {n_tok * Hk})")
             if not quant:
-                rec = dict(shape=shapes[name], max_abs_err=0.0, tol=0.0,
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by)
+                rec = dict(shape=desc, max_abs_err=0.0, tol=0.0, ms=ms,
+                           graph_ms=g_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, library_graph_ms=lib_g_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           kernel=f"paged_append_kernel, plan {plan}")
             else:
-                rec.update(int8_ms=ms, int8_plain_ms=plain_ms,
-                           int8_library_ms=lib_ms, int8_bound_ms=b_ms)
-        out[name] = rec
+                rec.update(int8_ms=ms, int8_graph_ms=g_ms,
+                           int8_plain_ms=plain_ms, int8_library_ms=lib_ms,
+                           int8_library_graph_ms=lib_g_ms,
+                           int8_bound_ms=b_ms)
+        if case == name:
+            out[name] = dict(rec, **out.get(name, {}))
+        else:
+            out.setdefault(name, {})["at_T17"] = rec
     return out
 
 

@@ -75,7 +75,9 @@
 // 256 B of scales int8); the verify window T times that (80 KB at T = 5);
 // the prefill append 2 * 2 * T * Hk * D bytes each way (512 KB at T=256):
 // a few nanoseconds to a few microseconds at 3.35 TB/s, so the launch
-// itself (a few microseconds) bounds them in practice.
+// itself (a few microseconds) bounds them in practice, and after it, for
+// the paged appends, the chain of dependent loads a thread waits on
+// before it can store (the row's start, then its page id).
 //
 // Design of the two uniform appends: one kernel, whose threads walk a flat
 // index over (layer, row, KV head, vector of the head row) with a
@@ -87,21 +89,36 @@
 // launch), so on the H100's 132 SMs the all-layer append at 28 x 192 rows
 // (344064 vectors of 16 bytes) runs 1056 blocks whose threads move one
 // or two vectors each; each block reads the position once.
-// The other appends: one block per (KV head, row or token), one thread
-// per element of the head vector (kv_append_ragged_t: one thread per
-// 32-bit word of it, the token the grid's third axis); thread 0 also
-// writes the row's two scales (int8).  The ragged paged
-// append and the verify window share one kernel, a loop over the row's T
-// tokens that resolves each token's page on its own, so a window that
-// straddles two pages needs nothing special.  The TPU kernels read and
-// wrote back whole bands, tiles or pages (an 8-row bf16 band, a 32-row
-// int8 band, a 128-lane scale tile, a [Hk, page, D] page block for the
-// prefill append) because their memory moves in (8/32, 128) tiles, and
-// the all-layer append double-buffers those bands across layers; that is
-// tiling, not semantics: here only the rows being appended are written,
-// bit for bit, and nothing else of the cache is touched.
+// Design of the three paged appends: one kernel, paged_append_kernel<V>,
+// one thread a vector of one (row b, token t, KV head) head row over a
+// flat index of B * T * Hk * W vectors, no loop: 16 bytes (uint4) where
+// the row's bytes and the four data pointers are 16-byte aligned, else
+// 4-byte words, as ops/kv_append.plan_paged_append plans it and the
+// launcher checks (W = 16 vectors for a bf16 head row of D 128, 8 for
+// int8 D 128 or bf16 D 64).  Every token of a verify window runs in
+// parallel and resolves its own page, so a window may span any number of
+// pages; the vector-0 thread of an int8 row also moves its two scales.
+// A thread loads its source vectors first, then the row's start, then the
+// page id, so only two loads (one for the prefill's host start) stand
+// between the launch and the stores, and the data loads are already in
+// flight beside them; its divisions (by Hk W, W, T and the page) are
+// multiply-highs by constants the launcher computes (FastDiv), a few
+// cycles each on that chain, where a runtime division costs dozens.
+// Blocks of 128 threads: a 256-token prefill piece of the 7B (16384
+// vectors in bf16) spreads over 128 of the 132 SMs in one wave, where 256
+// would use 64 (on the H100 the two time the same: the launch and the
+// loads, not the SMs, set the time); the decode's 8 slots take 4 blocks.
+// The other appends: one block per (KV head, row), one thread per element
+// of the head vector (kv_append_ragged_t: one thread per 32-bit word of
+// it, the token the grid's third axis); thread 0 also writes the row's two
+// scales (int8).  The TPU kernels read and wrote back whole bands, tiles
+// or pages (an 8-row bf16 band, a 32-row int8 band, a 128-lane scale tile,
+// a [Hk, page, D] page block for the prefill append) because their memory
+// moves in (8/32, 128) tiles, and the all-layer append double-buffers
+// those bands across layers; that is tiling, not semantics: here only the
+// rows being appended are written, bit for bit, and nothing else of the
+// cache is touched.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,6 +126,7 @@ namespace {
 
 constexpr int kAppendThreads = 256;  // the uniform appends' block
 constexpr int kAppendBlocksPerSm = 8;  // 2048 threads on each SM
+constexpr int kPagedThreads = 128;  // the paged appends' block
 
 // The uniform appends: vector i of the flat source [n_layers, Bn, Hk, W]
 // (W vectors V a head row) of k_new / v_new goes to vector i % W of row
@@ -191,94 +209,82 @@ __global__ void kv_append_q8_kernel(
   }
 }
 
-// one (KV head, row) per block: the row's T tokens go to starts[b] + t
-template <typename E>
-__global__ void paged_append_rows_kernel(
-    E* __restrict__ k_pages, E* __restrict__ v_pages,
-    float* __restrict__ k_scale, float* __restrict__ v_scale,
-    const E* __restrict__ k_new, const E* __restrict__ v_new,
-    const float* __restrict__ ks_new, const float* __restrict__ vs_new,
-    const int* __restrict__ starts, const int* __restrict__ tables, int P,
-    int Hk, int page, int D, int max_pages, int layer, int T) {
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int p0 = starts[b];
-  if (p0 < 0) return;
-  for (int t = 0; t < T; ++t) {
-    const int p = p0 + t;
-    if (p / page >= max_pages) return;
-    const int pg = tables[static_cast<long long>(b) * max_pages + p / page];
-    if (pg < 0 || pg >= P) continue;
-    const long long row =
-        ((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page;
-    const long long src = (static_cast<long long>(b) * T + t) * Hk + hk;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      k_pages[row * D + d] = k_new[src * D + d];
-      v_pages[row * D + d] = v_new[src * D + d];
-    }
-    if (k_scale != nullptr && threadIdx.x == 0) {
-      k_scale[row] = ks_new[src];
-      v_scale[row] = vs_new[src];
-    }
-  }
+// Division of n < 2^31 by a divisor 1 <= d < 2^31 fixed at launch, as a
+// multiply-high and a shift (Granlund and Montgomery: mul = ceil(2^(31 +
+// l) / d), l = ceil(log2 d), exact for every such n), so each step of an
+// index chain costs a few cycles where a division costs dozens.
+struct FastDiv {
+  unsigned d, mul, shr;
+};
+
+FastDiv fast_div(unsigned d) {
+  if (d == 1) return {1, 0, 0};
+  const unsigned l = 32 - __builtin_clz(d - 1);
+  const unsigned long long p = 31ull + l;
+  return {d, static_cast<unsigned>(((1ull << p) + d - 1) / d),
+          static_cast<unsigned>(p - 32)};
 }
 
-// one (KV head, token) per block: token t goes to position start + t
-template <typename E>
-__global__ void paged_append_prefill_kernel(
-    E* __restrict__ k_pages, E* __restrict__ v_pages,
-    float* __restrict__ k_scale, float* __restrict__ v_scale,
-    const E* __restrict__ k_new, const E* __restrict__ v_new,
-    const float* __restrict__ ks_new, const float* __restrict__ vs_new,
-    const int* __restrict__ table, int P, int Hk, int page, int D,
-    int max_pages, int layer, int start) {
-  const int hk = blockIdx.x;
-  const int t = blockIdx.y;
-  const int p = start + t;
-  if (p / page >= max_pages) return;
-  const int pg = table[p / page];
+__device__ __forceinline__ unsigned quot(unsigned n, FastDiv f) {
+  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
+}
+
+// The paged appends: vector i of the flat source [B, T, Hk, W] (W vectors
+// V a head row) of k_new / v_new goes to vector w of row p % page of page
+// tables[b, p / page], KV head hk, of pools[layer] [L, P, Hk, page, W],
+// with p = starts[b] + t (the prefill: starts null, p = start + t, b =
+// 0); i = (b T + t) Hk W + hk W + w.  The source vectors (and an int8
+// row's two scales, loaded by its vector 0) are loaded first, as they do
+// not depend on the position; then the start, then the page id: two
+// dependent loads (one for the prefill) with the data loads already in
+// flight, and two divisions (by Hk W, then T) before the first of them.
+template <typename V>
+__global__ void __launch_bounds__(kPagedThreads)
+paged_append_kernel(V* __restrict__ k_pages, V* __restrict__ v_pages,
+                    float* __restrict__ k_scale, float* __restrict__ v_scale,
+                    const V* __restrict__ k_new, const V* __restrict__ v_new,
+                    const float* __restrict__ ks_new,
+                    const float* __restrict__ vs_new,
+                    const int* __restrict__ starts,
+                    const int* __restrict__ tables, int start, int P, int Hk,
+                    int max_pages, int layer, FastDiv by_vt, FastDiv by_w,
+                    FastDiv by_t, FastDiv by_page, unsigned total) {
+  const unsigned i = blockIdx.x * kPagedThreads + threadIdx.x;
+  if (i >= total) return;
+  const V k = k_new[i];
+  const V v = v_new[i];
+  const unsigned bt = quot(i, by_vt);  // the token b T + t
+  const unsigned b = quot(bt, by_t);
+  const unsigned j = i - bt * by_vt.d;  // its vector hk W + w
+  const unsigned hk = quot(j, by_w);
+  const unsigned w = j - hk * by_w.d;
+  const bool scales = k_scale != nullptr && w == 0;
+  float ks = 0.f, vs = 0.f;
+  if (scales) {
+    ks = ks_new[bt * Hk + hk];
+    vs = vs_new[bt * Hk + hk];
+  }
+  const int p0 = starts != nullptr ? __ldg(starts + b) : start;
+  if (p0 < 0) return;  // a skipped row
+  // p = p0 + t = lp page + slot; s < page + T < 2^31
+  const unsigned q0 = quot(static_cast<unsigned>(p0), by_page);
+  const unsigned s = static_cast<unsigned>(p0) - q0 * by_page.d +
+                     (bt - b * by_t.d);
+  const unsigned sq = quot(s, by_page);
+  const unsigned lp = q0 + sq;
+  if (lp >= static_cast<unsigned>(max_pages)) return;  // past the table
+  const unsigned slot = s - sq * by_page.d;
+  const int pg = __ldg(tables + static_cast<long long>(b) * max_pages + lp);
   if (pg < 0 || pg >= P) return;
   const long long row =
-      ((static_cast<long long>(layer) * P + pg) * Hk + hk) * page + p % page;
-  const long long src = static_cast<long long>(t) * Hk + hk;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    k_pages[row * D + d] = k_new[src * D + d];
-    v_pages[row * D + d] = v_new[src * D + d];
+      ((static_cast<long long>(layer) * P + pg) * Hk + hk) * by_page.d +
+      slot;
+  k_pages[row * by_w.d + w] = k;
+  v_pages[row * by_w.d + w] = v;
+  if (scales) {
+    k_scale[row] = ks;
+    v_scale[row] = vs;
   }
-  if (k_scale != nullptr && threadIdx.x == 0) {
-    k_scale[row] = ks_new[src];
-    v_scale[row] = vs_new[src];
-  }
-}
-
-template <typename E>
-void launch_rows(dim3 grid, int D, cudaStream_t st, void* k_pages,
-                 void* v_pages, void* k_scale, void* v_scale,
-                 const void* k_new, const void* v_new, const void* ks_new,
-                 const void* vs_new, const void* starts, const void* tables,
-                 int P, int Hk, int page, int max_pages, int layer, int T) {
-  paged_append_rows_kernel<E><<<grid, D, 0, st>>>(
-      static_cast<E*>(k_pages), static_cast<E*>(v_pages),
-      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
-      static_cast<const E*>(k_new), static_cast<const E*>(v_new),
-      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
-      static_cast<const int*>(starts), static_cast<const int*>(tables), P, Hk,
-      page, D, max_pages, layer, T);
-}
-
-template <typename E>
-void launch_prefill(dim3 grid, int D, cudaStream_t st, void* k_pages,
-                    void* v_pages, void* k_scale, void* v_scale,
-                    const void* k_new, const void* v_new, const void* ks_new,
-                    const void* vs_new, const void* table, int P, int Hk,
-                    int page, int max_pages, int layer, int start) {
-  paged_append_prefill_kernel<E><<<grid, D, 0, st>>>(
-      static_cast<E*>(k_pages), static_cast<E*>(v_pages),
-      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
-      static_cast<const E*>(k_new), static_cast<const E*>(v_new),
-      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
-      static_cast<const int*>(table), P, Hk, page, D, max_pages, layer,
-      start);
 }
 
 }  // namespace
@@ -381,11 +387,8 @@ extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The paged appends: k_scale / v_scale / ks_new / vs_new all null
-// for a bf16 pool, all given for an int8 pool.  `ragged_t` writes a window
-// of T rows per sequence, each token through its own page (any T: a window
-// may span several pages): T = 1 is the decode append
-// (paged_append_ragged), T = k + 1 the verify window.
+// k_scale / v_scale / ks_new / vs_new: all null for a bf16 pool, all given
+// for an int8 one.
 static bool quant_args(const void* a, const void* b, const void* c,
                        const void* d, bool* quant) {
   *quant = a != nullptr;
@@ -420,55 +423,106 @@ extern "C" int qie_kv_append_ragged_t(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int qie_paged_append_ragged_t(
-    void* k_pages, void* v_pages, void* k_scale, void* v_scale,
-    const void* k_new, const void* v_new, const void* ks_new,
-    const void* vs_new, const void* starts, const void* tables, int L, int P,
-    int B, int T, int Hk, int page, int D, int max_pages, int layer,
-    void* stream) {
-  bool quant;
-  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || B <= 0 ||
-      B > 65535 || T <= 0 || Hk <= 0 || D <= 0 || D > 1024 ||
-      P <= 0 || page <= 0 || max_pages <= 0 || layer < 0 || layer >= L) {
+template <typename V>
+static void launch_paged_as(int blocks, cudaStream_t st, void* k_pages,
+                            void* v_pages, void* k_scale, void* v_scale,
+                            const void* k_new, const void* v_new,
+                            const void* ks_new, const void* vs_new,
+                            const void* starts, const void* tables,
+                            int start, int P, int Hk, int page,
+                            int max_pages, int layer, int T, unsigned W,
+                            unsigned total) {
+  paged_append_kernel<V><<<blocks, kPagedThreads, 0, st>>>(
+      static_cast<V*>(k_pages), static_cast<V*>(v_pages),
+      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
+      static_cast<const V*>(k_new), static_cast<const V*>(v_new),
+      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
+      static_cast<const int*>(starts), static_cast<const int*>(tables),
+      start, P, Hk, max_pages, layer, fast_div(Hk * W), fast_div(W),
+      fast_div(T), fast_div(page), total);
+}
+
+// The paged appends' plan (ops/kv_append.plan_paged_append), checked
+// against the shapes: `vec` bytes a thread, 16 or 4, dividing the head row
+// and every data pointer; blocks of kPagedThreads covering the
+// B * T * Hk head rows' vectors once, fewer than 2^31.  The scale pointers
+// are f32.  Pages of at most 2^30 tokens keep the kernel's index
+// arithmetic in 32 bits.
+static int launch_paged(bool quant, void* k_pages, void* v_pages,
+                        void* k_scale, void* v_scale, const void* k_new,
+                        const void* v_new, const void* ks_new,
+                        const void* vs_new, const void* starts,
+                        const void* tables, int start, int P, int B, int T,
+                        int Hk, int page, int D, int max_pages, int layer,
+                        int vec, int threads, int blocks, void* stream) {
+  const int row_bytes = D * (quant ? 1 : 2);
+  if (vec != 16 && vec != 4) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total =
+      static_cast<long long>(B) * T * Hk * (row_bytes / vec);
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(k_pages) |
+                         reinterpret_cast<uintptr_t>(v_pages) |
+                         reinterpret_cast<uintptr_t>(k_new) |
+                         reinterpret_cast<uintptr_t>(v_new);
+  if (row_bytes % vec || ptrs % vec || threads != kPagedThreads ||
+      total > 0x7fffffffll || blocks <= 0 || page > (1 << 30) ||
+      static_cast<long long>(blocks - 1) * threads >= total ||
+      static_cast<long long>(blocks) * threads < total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid(Hk, B);
+  const unsigned W = static_cast<unsigned>(row_bytes / vec);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (quant) {
-    launch_rows<int8_t>(grid, D, st, k_pages, v_pages, k_scale, v_scale,
-                        k_new, v_new, ks_new, vs_new, starts, tables, P, Hk,
-                        page, max_pages, layer, T);
+  if (vec == 16) {
+    launch_paged_as<uint4>(blocks, st, k_pages, v_pages, k_scale, v_scale,
+                           k_new, v_new, ks_new, vs_new, starts, tables,
+                           start, P, Hk, page, max_pages, layer, T, W,
+                           static_cast<unsigned>(total));
   } else {
-    launch_rows<__nv_bfloat16>(grid, D, st, k_pages, v_pages, nullptr,
-                               nullptr, k_new, v_new, nullptr, nullptr,
-                               starts, tables, P, Hk, page, max_pages, layer,
-                               T);
+    launch_paged_as<unsigned>(blocks, st, k_pages, v_pages, k_scale,
+                              v_scale, k_new, v_new, ks_new, vs_new, starts,
+                              tables, start, P, Hk, page, max_pages, layer,
+                              T, W, static_cast<unsigned>(total));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// paged_append_ragged (T = 1) and paged_append_ragged_t (the verify
+// window, any T: each token finds its own page, so a window may span
+// several) through tables [B, max_pages] at the device's starts [B].
+extern "C" int qie_paged_append_ragged_t(
+    void* k_pages, void* v_pages, void* k_scale, void* v_scale,
+    const void* k_new, const void* v_new, const void* ks_new,
+    const void* vs_new, const void* starts, const void* tables, int L, int P,
+    int B, int T, int Hk, int page, int D, int max_pages, int layer, int vec,
+    int threads, int blocks, void* stream) {
+  bool quant;
+  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || B <= 0 ||
+      B > 65535 || T <= 0 || Hk <= 0 || D <= 0 || D > 1024 || P <= 0 ||
+      page <= 0 || max_pages <= 0 || layer < 0 || layer >= L ||
+      starts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_paged(quant, k_pages, v_pages, k_scale, v_scale, k_new,
+                      v_new, ks_new, vs_new, starts, tables, 0, P, B, T, Hk,
+                      page, D, max_pages, layer, vec, threads, blocks,
+                      stream);
+}
+
+// paged_append_prefill: one sequence's T tokens from the host's `start`
+// through table [max_pages].
 extern "C" int qie_paged_append_prefill(
     void* k_pages, void* v_pages, void* k_scale, void* v_scale,
     const void* k_new, const void* v_new, const void* ks_new,
     const void* vs_new, const void* table, int L, int P, int T, int Hk,
-    int page, int D, int max_pages, int layer, int start, void* stream) {
+    int page, int D, int max_pages, int layer, int start, int vec,
+    int threads, int blocks, void* stream) {
   bool quant;
   if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || T <= 0 ||
       T > 65535 || Hk <= 0 || D <= 0 || D > 1024 || P <= 0 || page <= 0 ||
       max_pages <= 0 || layer < 0 || layer >= L || start < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid(Hk, T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (quant) {
-    launch_prefill<int8_t>(grid, D, st, k_pages, v_pages, k_scale, v_scale,
-                           k_new, v_new, ks_new, vs_new, table, P, Hk, page,
-                           max_pages, layer, start);
-  } else {
-    launch_prefill<__nv_bfloat16>(grid, D, st, k_pages, v_pages, nullptr,
-                                  nullptr, k_new, v_new, nullptr, nullptr,
-                                  table, P, Hk, page, max_pages, layer,
-                                  start);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_paged(quant, k_pages, v_pages, k_scale, v_scale, k_new,
+                      v_new, ks_new, vs_new, nullptr, table, start, P, 1, T,
+                      Hk, page, D, max_pages, layer, vec, threads, blocks,
+                      stream);
 }

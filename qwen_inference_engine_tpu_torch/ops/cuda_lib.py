@@ -137,13 +137,17 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _P],
     # k_pages, v_pages, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-    # starts, tables, L, P, B, T, Hk, page, D, max_pages, layer, stream
+    # starts, tables, L, P, B, T, Hk, page, D, max_pages, layer, vec,
+    # threads, blocks (plan_paged_append), stream
     "qie_paged_append_ragged_t": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _P],
     # k_pages, v_pages, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-    # table, L, P, T, Hk, page, D, max_pages, layer, start, stream
+    # table, L, P, T, Hk, page, D, max_pages, layer, start, vec, threads,
+    # blocks, stream
     "qie_paged_append_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P],
 }
 
 

@@ -38,19 +38,30 @@ Each wrapper launches a kernel of ``csrc/kv_append.cu``:
   ``_paged_prefill_kernel``): a prefill piece's T K/V rows of one sequence
   at ``start .. start+T-1`` through ``tables[0]``.
 
-The paged appends take a bf16 pool with bf16 rows, or an int8 pool with
-the quantized rows and their f32 scales (``quantize_kv``): the kernel
-writes the bytes and the scales ``[L, P, Hk, page]`` in one launch, where
-the JAX package runs its kernels on the bytes and scatters the scales with
-XLA; ``kv_append_ragged_t`` does the same for the contiguous int8 cache.
-``*_plain`` beside each is the plain indexed write.  The paged
-appends follow the table as it is (zero entries lead to scratch page 0, as
-bucket padding does in the JAX package); a position past the table's width
-writes nothing, as the JAX scatter drops it.
+The three paged appends share one kernel, ``paged_append_kernel``: one
+thread a vector of one (row, token, KV head) head row, every token of a
+window in parallel, each resolving its own page; 16-byte vectors where the
+pools' and the new rows' data pointers are 16-byte aligned, else 4-byte
+words, as ``plan_paged_append`` plans it from the shapes and the pointers
+(the C launcher checks the plan, as ``check_paged_append_plan`` does
+first).  A thread loads its source vectors before the row's start and the
+page id, so two dependent loads (one for the prefill's host start) stand
+between the launch and its stores: on the H100 the launch bounds these
+appends, and those loads come next.  They take a bf16 pool with bf16
+rows, or an int8 pool with the quantized rows and their f32 scales
+(``quantize_kv``): the kernel writes the bytes and the scales ``[L, P,
+Hk, page]`` in one launch, where the JAX package runs its kernels on the
+bytes and scatters the scales with XLA; ``kv_append_ragged_t`` does the
+same for the contiguous int8 cache.  ``*_plain`` beside each is the plain
+indexed write.  The paged appends follow the table as it is (zero entries
+lead to scratch page 0, as bucket padding does in the JAX package); a
+position past the table's width writes nothing, as the JAX scatter drops
+it, and so does a page id outside ``[0, P)``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -408,6 +419,64 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+PAGED_APPEND_THREADS = 128   # a block of the paged append kernel
+
+
+@functools.lru_cache(maxsize=None)
+def plan_paged_append(B: int, T: int, Hk: int, D: int, elem_bytes: int,
+                      aligned: bool):
+    """The paged append kernel's plan ``(vec, threads, blocks)`` for ``B``
+    rows of ``T`` tokens of ``Hk`` head rows of ``D`` elements of
+    ``elem_bytes`` bytes: one thread a ``vec``-byte vector of a head row,
+    16 where ``aligned`` (the pools' and the new rows' data pointers all
+    16-byte aligned) and the row's bytes allow it, else 4; blocks of
+    ``threads`` covering the ``B * T * Hk * D * elem_bytes / vec`` vectors
+    once."""
+    row = D * elem_bytes
+    vec = 16 if aligned and row % 16 == 0 else 4
+    total = B * T * Hk * (row // vec)
+    return vec, PAGED_APPEND_THREADS, -(-total // PAGED_APPEND_THREADS)
+
+
+def check_paged_append_plan(name: str, plan, rows: int, row_bytes: int,
+                            ptrs: int) -> None:
+    """The C guard's rule for the paged append's plan, before any launch:
+    ``vec`` 4 or 16 dividing the head row's ``row_bytes`` and every data
+    pointer (``ptrs``, their bitwise or), ``PAGED_APPEND_THREADS``-thread
+    blocks covering the ``rows`` head rows' vectors once, fewer than
+    2^31."""
+    vec, threads, blocks = plan
+    total = rows * (row_bytes // vec) if vec in (4, 16) \
+        and row_bytes % vec == 0 else 0
+    if threads != PAGED_APPEND_THREADS or not 0 < total < 2 ** 31 \
+            or not (blocks - 1) * threads < total <= blocks * threads:
+        raise ValueError(f"{name}: plan (vec {vec}, threads {threads}, "
+                         f"blocks {blocks}) does not cover {rows} head rows "
+                         f"of {row_bytes} bytes once in 4- or 16-byte "
+                         f"vectors, {PAGED_APPEND_THREADS} threads a block")
+    if ptrs % vec:
+        raise ValueError(f"{name}: {vec}-byte vectors need the pools and "
+                         f"the new rows {vec}-byte aligned")
+
+
+def _paged_operands(name, k_pages, v_pages, k_new, v_new):
+    """The pools' and the new rows' data pointers and the kernel's plan,
+    checked.  New rows that are not 4-byte aligned (a view a few bytes into
+    its storage) are copied: the kernel moves 32-bit words at least."""
+    kn, vn = k_new.contiguous(), v_new.contiguous()
+    ptrs = [k_pages.data_ptr(), v_pages.data_ptr(), kn.data_ptr(),
+            vn.data_ptr()]
+    if (ptrs[2] | ptrs[3]) % 4:
+        kn, vn = kn.clone(), vn.clone()
+        ptrs[2:] = kn.data_ptr(), vn.data_ptr()
+    B, T, Hk, D = kn.shape
+    every = ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]
+    elem = k_pages.element_size()
+    plan = plan_paged_append(B, T, Hk, D, elem, every % 16 == 0)
+    check_paged_append_plan(name, plan, B * T * Hk, D * elem, every)
+    return ptrs, plan
+
+
 def _launch_rows(name, k_pages, v_pages, k_new, v_new, positions,
                  block_tables, layer, page_size, k_scale, v_scale, ks_new,
                  vs_new):
@@ -425,12 +494,11 @@ def _launch_rows(name, k_pages, v_pages, k_new, v_new, positions,
         raise ValueError(f"{name}: positions must be [{B}] on the pools' "
                          f"device")
     pos = positions.to(torch.int32).contiguous()
-    kn, vn = k_new.contiguous(), v_new.contiguous()
-    lib = cuda_lib.library()
-    rc = lib.qie_paged_append_ragged_t(
-        k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        kn.data_ptr(), vn.data_ptr(), _ptr(ksn), _ptr(vsn), pos.data_ptr(),
-        tables.data_ptr(), L, P, B, T, Hk, PS, D, tables.shape[1], int(layer),
+    ptrs, plan = _paged_operands(name, k_pages, v_pages, k_new, v_new)
+    rc = cuda_lib.library().qie_paged_append_ragged_t(
+        *ptrs[:2], _ptr(k_scale), _ptr(v_scale), *ptrs[2:], _ptr(ksn),
+        _ptr(vsn), pos.data_ptr(), tables.data_ptr(), L, P, B, T, Hk, PS, D,
+        tables.shape[1], int(layer), *plan,
         cuda_lib.stream_handle(k_pages.device))
     cuda_lib.check(rc, name)
 
@@ -535,12 +603,11 @@ def paged_append_prefill(k_pages: torch.Tensor, v_pages: torch.Tensor,
     start = int(start)
     if start < 0:
         raise IndexError(f"{name}: start {start} < 0")
-    kn, vn = k_new.contiguous(), v_new.contiguous()
+    ptrs, plan = _paged_operands(name, k_pages, v_pages, k_new, v_new)
     rc = cuda_lib.library().qie_paged_append_prefill(
-        k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        kn.data_ptr(), vn.data_ptr(), _ptr(ksn), _ptr(vsn), tables.data_ptr(),
-        L, P, T, Hk, PS, D, tables.shape[1], int(layer), start,
-        cuda_lib.stream_handle(k_pages.device))
+        *ptrs[:2], _ptr(k_scale), _ptr(v_scale), *ptrs[2:], _ptr(ksn),
+        _ptr(vsn), tables.data_ptr(), L, P, T, Hk, PS, D, tables.shape[1],
+        int(layer), start, *plan, cuda_lib.stream_handle(k_pages.device))
     cuda_lib.check(rc, name)
     paged_append_prefill.launches += 1
     return k_pages, v_pages

@@ -44,9 +44,11 @@ one call to the card.  Shapes are Qwen2.5-7B's, inputs seeded random:
   layers x 192 rows at 257 of 512; 28 x 4 at 1023 of 1024),
   ``kv_append_uniform_q8`` (B 4 at 1999 of 2304), ``kv_append_ragged_t``
   (B 4 of S 1024, T 1 and 5, bf16 and int8), ``paged_append_ragged``
-  (8 slots), ``paged_append_ragged_t`` (8 rows, T 5) and
+  (8 slots), ``paged_append_ragged_t`` (8 rows, T 5 and 17) and
   ``paged_append_prefill`` (T 256 at 384), the paged ones into bf16 and
-  int8 pools of pages of 512 (``chip_smoke``'s shapes);
+  int8 pools of pages of 512 (``chip_smoke``'s shapes) with the SHA-256
+  of the pools and scales after each one's calls; and the launch floor,
+  a one-element ``zero_()`` timed the same way;
 * ``flash_attention`` (B 4, T 512) and ``chunk_attention_contiguous`` /
   ``_q8`` (B 4, T 512 at start 1536 of S 2048): a call's time and the
   SHA-256 of the output's bytes, equal between two commits whose kernels
@@ -363,18 +365,23 @@ def appends(torch, cs, out, timed, digest):
     starts = torch.tensor(cs.VERIFY_STARTS, device="cuda", dtype=torch.int32)
     T, start = 256, 384
     keep = [b for b, s in enumerate(cs.VERIFY_STARTS) if s >= 0]
+
+    def window(n):
+        return [(b, t, cs.VERIFY_STARTS[b] + t) for b in keep
+                for t in range(n)]
+
     cases = {
         "paged_append_ragged": ((B, 1), positions, tables,
                                 [(b, 0, int(cs.PAGED_LENS[b]) - 1)
                                  for b in range(B)]),
         "paged_append_ragged_t": ((B, cs.SPEC_T), starts, tables,
-                                  [(b, t, cs.VERIFY_STARTS[b] + t)
-                                   for b in keep for t in range(cs.SPEC_T)]),
+                                  window(cs.SPEC_T)),
+        "paged_append_ragged_t T17": ((B, 17), starts, tables, window(17)),
         "paged_append_prefill": ((1, T), start, tables[:1],
                                  [(0, t, start + t) for t in range(T)])}
     heads = torch.arange(Hk, device="cuda")[None, :]
-    for name, (shape, at, tab, toks) in cases.items():
-        fn = getattr(ka, name)
+    for case, (shape, at, tab, toks) in cases.items():
+        fn = getattr(ka, case.split()[0])
         x = rnd(*shape, Hk, D)
         xq, xs = quantize_kv(x)
         b_idx = torch.tensor([b for b, _, _ in toks], device="cuda")
@@ -402,8 +409,17 @@ def appends(torch, cs, out, timed, digest):
             elem = 1 if quant else 2
             n_bytes = 2 * 2 * len(toks) * Hk * (D * elem
                                                 + (4 if quant else 0))
-            out[f"{name}{' int8' if quant else ''}"] = record(kernel, library,
-                                                              n_bytes)
+            # the pools and scales as the kernel's calls left them (every
+            # case so far written by the kernels, then by index_put_ with
+            # the same bytes), before the yardstick runs
+            rec = timed(kernel)
+            rec["sha256"] = [digest(t) for t in pools]
+            rec.update(library=timed(library),
+                       bound_ms=cs.bound(n_bytes, 0, "bf16")[0])
+            out[f"{case}{' int8' if quant else ''}"] = rec
+    # the launch floor: a one-element zero_() timed the same way
+    one = torch.zeros(1, device="cuda")
+    out["launch floor zero_"] = timed(one.zero_)
 
 
 def cold_graph_ms(torch, cs, fn):

@@ -11,7 +11,12 @@ the INT8 KV
 append at the first and last position, the paged kernels over pages of 8,
 16, 48 and 512 tokens (tiles that cross pages, mid-page starts, pieces of
 1, 7, 256 and 512 tokens, lengths of 1 and whole pages, idle rows and
-scratch-page writes), the INT8 pool's kernels and the speculative verify
+scratch-page writes), the one paged append kernel at both vector widths
+(16 bytes, and 4 where k_new starts 4 bytes past a 16-byte boundary; D 64
+and 128, bf16 and int8, T 1, 5 and 17 and a 40-token piece; page ids
+outside the pool and positions past the table writing nothing; a
+captured decode append replayed at new positions; the C launcher's plan
+checks), the INT8 pool's kernels and the speculative verify
 (T = 2, 5, 9, 10, 16 and 17 at G 1, 4, 7 and 8, D 64 and 128: one and two
 64-row groups, windows straddling pages and windows wider than their page,
 the int8 scale writes), the paged decode and verify split S on the tensor
@@ -1806,6 +1811,210 @@ def test_int8_paged_appends_write_their_scales(gen, page):
         for g, r in zip(mine, theirs):
             assert torch.equal(g.nan_to_num(), r.nan_to_num())
         assert int((mine[2] != base[2]).sum()) > 0
+
+
+def _rows_at(gen, shape, quant, offset):
+    """New K/V rows (and for int8 their scales as keywords) whose k_new
+    starts ``offset`` bytes into its storage: a contiguous view."""
+    kn, vn, extra = _new_rows(gen, shape, quant)
+    el = offset // kn.element_size()
+    flat = torch.empty(kn.numel() + el, dtype=kn.dtype, device="cuda")
+    view = flat[el:].view(kn.shape)
+    view.copy_(kn)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    return view, vn, extra
+
+
+@pytest.mark.parametrize("offset", [0, 4], ids=["16 bytes", "4 bytes"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 5, 17, 40])
+def test_paged_appends_at_both_vector_widths(gen, T, D, quant, offset):
+    """The one paged append kernel at both widths: 16-byte vectors where the
+    pools and the new rows are 16-byte aligned, 4-byte words where k_new
+    starts 4 bytes past a 16-byte boundary (the plan says which); D 64 and
+    128, bf16 and int8 (scales too).  T = 1 is paged_append_ragged, 5 and
+    17 paged_append_ragged_t (17 wider than the page of 16: three pages),
+    40 a prefill piece over four pages from a mid-page start; per-row
+    starts at 0, mid-page, the page's last row, a skipped row (-1) and
+    deep in the table.  Bit-exact, nothing else of the pools written."""
+    L, Hk, page = 2, 4, 16
+    prefill = T == 40
+    starts_list = [5] if prefill else [0, 7, page - 1, -1, 2 * page + 3]
+    B = len(starts_list)
+    max_pages = -(-(max(starts_list) + T) // page)
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    base = _append_state(gen, L, P, Hk, page, D, quant)
+    kn, vn, extra = _rows_at(gen, (B, T, Hk, D), quant, offset)
+    elem = 1 if quant else 2
+    vec, _, _ = ka.plan_paged_append(B, T, Hk, D, elem, offset == 0)
+    assert vec == (16 if offset == 0 else 4)
+    mine, theirs = [t.clone() for t in base], [t.clone() for t in base]
+
+    def kw(st):
+        return dict(extra, k_scale=st[2], v_scale=st[3]) if quant else {}
+
+    if prefill:
+        name, at = "paged_append_prefill", starts_list[0]
+    else:
+        name = "paged_append_ragged" if T == 1 else "paged_append_ragged_t"
+        at = torch.tensor(starts_list, device="cuda", dtype=torch.int32)
+    fn, plain = getattr(ka, name), getattr(ka, name + "_plain")
+    before = fn.launches
+    got = fn(mine[0], mine[1], kn, vn, at, tables, 1, page_size=page,
+             **kw(mine))
+    plain(theirs[0], theirs[1], kn, vn, at, tables, 1, page, **kw(theirs))
+    assert fn.launches == before + 1
+    assert got[0] is mine[0] and got[1] is mine[1]
+    for g, r in zip(mine, theirs):
+        assert torch.equal(g, r)
+    rows = sum(T for s in starts_list if s >= 0)
+    assert int((mine[0] != base[0]).any(dim=-1).sum()) == rows * Hk
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", ["paged_append_ragged",
+                                  "paged_append_ragged_t",
+                                  "paged_append_prefill"])
+def test_paged_appends_write_nothing_outside_the_pool_or_the_table(
+        gen, name, quant):
+    """Page ids outside [0, P) (P + 5 and -2) and positions whose logical
+    page is at or past the table's width write nothing; every other token
+    lands as the plain write puts it.  The plain write runs on a pool of
+    one more page, with the bad ids sent there, and is compared on the
+    first P pages."""
+    L, Hk, D, page, max_pages = 2, 4, 128, 16, 4
+    if name == "paged_append_prefill":
+        # 5..64: pages 1 and 2 bad, 3 good, 64 past the width
+        B, T, at_list = 1, 60, [5]
+    else:
+        # 14: a window into the bad page P + 5; 18 and 40: bad pages (-2);
+        # 62: a window past the width; 64: at the width
+        T = 1 if name == "paged_append_ragged" else 5
+        at_list = [14, 18, 46, 62, 3, 40, 64]
+        B = len(at_list)
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    tables[0, 1] = P + 5
+    tables[0, 2] = -2
+    if B > 1:
+        tables[1, 1] = -2
+        tables[5, 2] = -2
+    base = _append_state(gen, L, P + 1, Hk, page, D, quant)
+    kn, vn, extra = _new_rows(gen, (B, T, Hk, D), quant)
+    mine = [t[:, :P].clone() for t in base]
+    theirs = [t.clone() for t in base]
+    sink = torch.where((tables < 0) | (tables >= P), P, tables)
+
+    def kw(st):
+        return dict(extra, k_scale=st[2], v_scale=st[3]) if quant else {}
+
+    at = at_list[0] if B == 1 else torch.tensor(at_list, device="cuda",
+                                                dtype=torch.int32)
+    getattr(ka, name)(mine[0], mine[1], kn, vn, at, tables, 1,
+                      page_size=page, **kw(mine))
+    getattr(ka, name + "_plain")(theirs[0], theirs[1], kn, vn, at, sink, 1,
+                                 page, **kw(theirs))
+    for g, r in zip(mine, theirs):
+        assert torch.equal(g, r[:, :P])
+    pos = torch.tensor(at_list, device="cuda")[:, None] + torch.arange(
+        T, device="cuda")
+    logical = pos // page
+    inside = logical < max_pages
+    ids = torch.gather(sink.long(), 1, logical.clamp(max=max_pages - 1))
+    good = int((inside & (ids < P)).sum())
+    assert good < B * T
+    assert int((mine[0] != base[0][:, :P]).any(dim=-1).sum()) == good * Hk
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_append_ragged_replays_in_a_cuda_graph_at_new_positions(
+        gen, quant):
+    """paged_append_ragged captured in a CUDA graph (it reads the positions
+    and tables on the device), replayed after the positions tensor and the
+    new rows change in place, writes at the new positions: the same pools
+    as the eager call there."""
+    L, Hk, D, page, max_pages = 2, 4, 128, 16, 4
+    B = 6
+    P = B * max_pages + 2
+    tables = _tables(gen, B, max_pages, P)
+    base = _append_state(gen, L, P, Hk, page, D, quant)
+    kn, vn, extra = _new_rows(gen, (B, 1, Hk, D), quant)
+    pos = torch.tensor([0, 5, 15, 16, -1, 63], device="cuda",
+                       dtype=torch.int32)
+    state = [t.clone() for t in base]
+
+    def append(st, p):
+        kw = dict(extra, k_scale=st[2], v_scale=st[3]) if quant else {}
+        return ka.paged_append_ragged(st[0], st[1], kn, vn, p, tables, 1,
+                                      page_size=page, **kw)
+
+    append(state, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        append(state, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        append(state, pos)
+    for new_pos in ([1, 6, 16, 17, 40, -1], [63, -1, 0, 31, 32, 2]):
+        pos.copy_(torch.tensor(new_pos, device="cuda", dtype=torch.int32))
+        fresh = _new_rows(gen, (B, 1, Hk, D), quant)
+        kn.copy_(fresh[0])
+        vn.copy_(fresh[1])
+        for key, t in fresh[2].items():
+            extra[key].copy_(t)
+        for t, b in zip(state, base):
+            t.copy_(b)
+        graph.replay()
+        eager = [t.clone() for t in base]
+        append(eager, pos)
+        torch.cuda.synchronize()
+        for g, e in zip(state, eager):
+            assert torch.equal(g, e)
+        n = sum(p >= 0 for p in new_pos)
+        assert int((state[0] != base[0]).any(dim=-1).sum()) == n * Hk
+
+
+def test_paged_append_c_guard_refuses_bad_plans(gen):
+    """The C launcher checks the plan it is given against the shapes and
+    returns cudaErrorInvalidValue (1) for a vector of 8 bytes, 16-byte
+    vectors over a k_new 4 bytes off, blocks of 256 threads, too few or too
+    many blocks, and for the old refusals (no starts, an int8 call missing
+    a scale); the planned call returns 0."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.library()
+    L, P, Hk, page, D, B, T, max_pages = 2, 8, 2, 16, 128, 2, 5, 3
+    k, v = _bf16(gen, L, P, Hk, page, D), _bf16(gen, L, P, Hk, page, D)
+    kn, vn, _ = _rows_at(gen, (B, T, Hk, D), False, 0)
+    off, _, _ = _rows_at(gen, (B, T, Hk, D), False, 4)
+    starts = torch.tensor([0, 20], device="cuda", dtype=torch.int32)
+    tables = _tables(gen, B, max_pages, P)
+    sc = torch.ones((L, P, Hk, page), device="cuda")
+    st = cuda_lib.stream_handle(k.device)
+
+    def call(plan, new=kn, starts_ptr=starts.data_ptr(), scales=(None,) * 4):
+        return lib.qie_paged_append_ragged_t(
+            k.data_ptr(), v.data_ptr(), scales[0], scales[1], new.data_ptr(),
+            vn.data_ptr(), scales[2], scales[3], starts_ptr,
+            tables.data_ptr(), L, P, B, T, Hk, page, D, max_pages, 1, *plan,
+            st)
+
+    good = ka.plan_paged_append(B, T, Hk, D, 2, True)
+    assert good == (16, 128, 3)    # 2 x 5 x 2 head rows of 16 vectors
+    for bad in [(8, 128, 5), (16, 256, 2), (16, 128, 2), (16, 128, 4),
+                (4, 128, 9), (4, 128, 11)]:
+        assert call(bad) == 1, bad
+    assert call(good, new=off) == 1
+    assert call(good, starts_ptr=None) == 1
+    assert call(good, scales=(sc.data_ptr(), sc.data_ptr(), None,
+                              sc.data_ptr())) == 1
+    assert call((4, 128, 10), new=off) == 0
+    assert call(good) == 0
+    torch.cuda.synchronize()
 
 
 def test_new_paged_wrappers_refuse_on_the_card(gen):

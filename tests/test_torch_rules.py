@@ -1057,6 +1057,36 @@ def _bf16_decode_call(kind="appending", B=4, S=256, offset=0):
         q, cache, cache, new, new, 1, _meta(B, dtype=torch.int32))
 
 
+def _paged_append_call(kind="ragged", T=1, quant=False, k_offset=0,
+                       pool_offset=0):
+    """A paged append on meta tensors (pools [2, 6, 2, 16, 128], Hk 2, D
+    128, B 2 or the prefill's 1 row): ``k_offset`` / ``pool_offset`` bytes
+    into their storage (meta data pointers count from 0)."""
+    kv = _I8 if quant else _BF
+    el = 1 if quant else 2
+
+    def at(offset, *shape):
+        n = int(np.prod(shape))
+        return _meta(n + offset // el, dtype=kv)[offset // el:].view(shape)
+
+    pools = (at(pool_offset, 2, 6, 2, 16, 128), _meta(2, 6, 2, 16, 128,
+                                                       dtype=kv))
+    B = 1 if kind == "prefill" else 2
+    kn, vn = at(k_offset, B, T, 2, 128), _meta(B, T, 2, 128, dtype=kv)
+    kw = {}
+    if quant:
+        kw = dict(k_scale=_meta(2, 6, 2, 16), v_scale=_meta(2, 6, 2, 16),
+                  ks_new=_meta(B, T, 2), vs_new=_meta(B, T, 2))
+    tables = _meta(B, 3, dtype=torch.int32)
+    if kind == "prefill":
+        return lambda: tka.paged_append_prefill(*pools, kn, vn, 5, tables,
+                                                1, page_size=16, **kw)
+    fn = tka.paged_append_ragged if kind == "ragged" \
+        else tka.paged_append_ragged_t
+    return lambda: fn(*pools, kn, vn, _meta(B, dtype=torch.int32), tables, 1,
+                      page_size=16, **kw)
+
+
 def _plan(fn):
     """fn with its K/2 and F/2 row counts of _fused_attn_call's MLP (K 256,
     F 512): the two plans it returns."""
@@ -1155,6 +1185,40 @@ PLAN_REFUSALS = {
         "tda.decode_workspace", None,
         lambda: _bf16_decode_call(B=192, S=512), AssertionError,
         "library was asked for"),
+    # the paged appends (_paged_append_call: 2 x T head rows of 256 bytes,
+    # or 128 int8; plan_paged_append's (vec, threads, blocks))
+    "paged append vec 8": ("tka.plan_paged_append",
+                           lambda B, T, Hk, D, e, a: (8, 128, 1),
+                           _paged_append_call(), ValueError,
+                           "does not cover"),
+    "paged append blocks of 256": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (16, 256, 1),
+        _paged_append_call(), ValueError, "does not cover"),
+    "paged append blocks short": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (4, 128, 2),
+        _paged_append_call("ragged_t", T=5), ValueError, "does not cover"),
+    "paged append a block past the vectors": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (16, 128, 3),
+        _paged_append_call("prefill", T=8), ValueError, "does not cover"),
+    "paged append 16-byte vectors of rows 4 bytes off": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (16, 128, 1),
+        _paged_append_call(k_offset=4), ValueError, "16-byte aligned"),
+    "paged append pool 2 bytes off": (
+        None, None, _paged_append_call(pool_offset=2), ValueError,
+        "4-byte aligned"),
+    "paged append int8 pool 1 byte off": (
+        None, None, _paged_append_call("ragged_t", T=5, quant=True,
+                                       pool_offset=1), ValueError,
+        "4-byte aligned"),
+    "paged append rows 4 bytes off pass their checks": (
+        None, None, _paged_append_call("ragged_t", T=17, k_offset=4),
+        AssertionError, "library was asked for"),
+    "paged append rows 2 bytes off are copied and pass their checks": (
+        None, None, _paged_append_call(k_offset=2), AssertionError,
+        "library was asked for"),
+    "paged append int8 prefill passes its checks": (
+        None, None, _paged_append_call("prefill", T=40, quant=True),
+        AssertionError, "library was asked for"),
     # fused_attn_matmul (_attn_matmul_call: M 8, K 256, N 512, gs 64, its
     # own plan one slice of the 128 packed rows; at K 2048, gs 128 four
     # slices of 256)
@@ -1210,8 +1274,10 @@ def test_split_plans_and_workspaces_refused_before_any_build(monkeypatch,
     three split decodes' (q8, appending, fresh) spans a multiple of 64
     keys, their splits covering S once, an f32 workspace as large as the
     plan needs, their operands 16-byte aligned; a bf16 decode of one split
-    (B 192 x Hk 2) takes no workspace.  A plan that passes asks for the
-    library."""
+    (B 192 x Hk 2) takes no workspace; the paged appends' vectors of 4 or
+    16 bytes dividing every data pointer (new rows a few bytes off are
+    copied; pools are not), 128-thread blocks covering the vectors once.
+    A plan that passes asks for the library."""
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
     from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
 
@@ -1222,7 +1288,8 @@ def test_split_plans_and_workspaces_refused_before_any_build(monkeypatch,
     target, stand_in, fn, exc, match = PLAN_REFUSALS[case]
     if target is not None:
         mod, name = target.split(".")
-        monkeypatch.setattr({"fs": tfs, "tda": tda}[mod], name, stand_in)
+        monkeypatch.setattr({"fs": tfs, "tda": tda, "tka": tka}[mod], name,
+                            stand_in)
     with pytest.raises(exc, match=match):
         fn()
 
@@ -1270,3 +1337,57 @@ def test_fused_attn_matmul_plans_64_row_tiles_above_64_rows(shape, M):
     assert plan == (4, 1, K // 2)
     assert plan[:2] == tfs.plan_fused_mlp(M, K, 2 * 256, 128, 128)[0][:2]
     tfs._check_attn_matmul_plan("t", plan, None, M, K, N)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "4 off"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("elem", [2, 1], ids=["bf16", "int8"])
+def test_plan_paged_append_vector_widths(elem, D, aligned):
+    """16-byte vectors where every data pointer is 16-byte aligned (the head
+    rows of 64-256 bytes always allow them), else 4-byte words: 16 vectors
+    a bf16 head row of D 128, 8 for int8 D 128 or bf16 D 64, 4 for int8 D
+    64; four times as many words."""
+    vec, threads, blocks = tka.plan_paged_append(8, 5, 4, D, elem, aligned)
+    assert vec == (16 if aligned else 4)
+    assert threads == tka.PAGED_APPEND_THREADS == 128
+    assert D * elem // vec == {(2, 128): 16, (1, 128): 8, (2, 64): 8,
+                               (1, 64): 4}[elem, D] * (16 // vec)
+    tka.check_paged_append_plan("plan", (vec, threads, blocks), 8 * 5 * 4,
+                                D * elem, 4096 if aligned else 4100)
+
+
+@pytest.mark.parametrize("B,T,Hk", [(1, 1, 1), (2, 1, 2), (8, 1, 4),
+                                    (8, 5, 4), (8, 17, 4), (1, 256, 4),
+                                    (1, 512, 8), (64, 9, 8), (3, 7, 5)])
+@pytest.mark.parametrize("elem,D,aligned", [(2, 128, True), (1, 64, True),
+                                            (2, 64, False), (1, 128, False)])
+def test_plan_paged_append_covers_every_vector_once(B, T, Hk, elem, D,
+                                                    aligned):
+    """One thread a vector: the blocks' threads cover the B * T * Hk * W
+    vectors, and the last block holds at least one (the C guard's rule)."""
+    plan = tka.plan_paged_append(B, T, Hk, D, elem, aligned)
+    vec, threads, blocks = plan
+    total = B * T * Hk * (D * elem // vec)
+    assert (blocks - 1) * threads < total <= blocks * threads
+    tka.check_paged_append_plan("plan", plan, B * T * Hk, D * elem,
+                                0 if aligned else 4)
+
+
+# the serving path at Qwen2.5-7B widths (Hk 4, D 128): the decode's 8
+# slots, the verify window of 5 (and 17), a 256-token prefill piece;
+# blocks of 128 threads, bf16 / int8 pools
+SERVING_APPEND_BLOCKS = {"decode": ((8, 1), 4, 2),
+                         "verify T 5": ((8, 5), 20, 10),
+                         "verify T 17": ((8, 17), 68, 34),
+                         "prefill piece": ((1, 256), 128, 64)}
+
+
+@pytest.mark.parametrize("shape", sorted(SERVING_APPEND_BLOCKS))
+def test_plan_paged_append_at_the_serving_shapes(shape):
+    (B, T), bf16_blocks, int8_blocks = SERVING_APPEND_BLOCKS[shape]
+    assert tka.plan_paged_append(B, T, 4, 128, 2, True) == (16, 128,
+                                                            bf16_blocks)
+    assert tka.plan_paged_append(B, T, 4, 128, 1, True) == (16, 128,
+                                                            int8_blocks)
+    assert tka.plan_paged_append(B, T, 4, 128, 2, False) == (
+        4, 128, 4 * bf16_blocks)
