@@ -61,7 +61,9 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    twice for bit-identical results; the last four sites' kernels:
    ``kv_append_ragged_t`` (Hk 4, D 128, 4 rows of S 1024, T = 1 and 5,
    bf16 and int8 with its scales, starts -1, 7, 8, 31, 32, S - T, 0 and a
-   window crossing S; bit-exact, yardstick an ``index_put_`` scatter),
+   window crossing S; bit-exact, yardstick an ``index_put_`` scatter;
+   each shape with its row kernel plan, it and its yardstick also in a
+   CUDA graph),
    ``decode_attention_contiguous_fresh`` (B = 4 at S 1024, B = 192 at S
    512, old lengths 0 .. S - 1, 1e4 at and past each, each with its split
    plan and a CUDA graph's time; yardstick SDPA over the cache with the
@@ -819,7 +821,9 @@ def check_chunk_rows(torch, cfg):
 
 
 def check_kv_append(torch, cfg):
-    """Kernel 7 at B=4, position 1999 of S=2304: bit-exact."""
+    """Kernel 7 at B=4, position 1999 of S=2304: bit-exact, bytes and
+    scales.  A call and in a CUDA graph, beside the slice assignment's
+    graph; the plan the row kernel took."""
     from qwen_inference_engine_tpu_torch.ops import kv_append as ka
     from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 
@@ -840,7 +844,8 @@ def check_kv_append(torch, cfg):
         fail("kv_append_uniform_q8 did not return the tensors it wrote")
     diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
     written = int((mine[0] != k8).sum())
-    pos_t = torch.tensor([pos], device="cuda")
+    # int32, as the kernel reads it: no cast launched beside each call
+    pos_t = torch.tensor([pos], device="cuda", dtype=torch.int32)
     ms = time_ms(torch, lambda: ka.kv_append_uniform_q8(*mine, *new, pos_t, layer))
     plain_ms = time_ms(torch, lambda: ka.kv_append_uniform_q8_plain(
         *theirs, *new, pos, layer))
@@ -849,19 +854,27 @@ def check_kv_append(torch, cfg):
         for cache, x in zip(theirs, new):
             cache[layer, :, :, pos] = x[:, 0]
 
+    g_ms = graph_ms(torch, lambda: ka.kv_append_uniform_q8(*mine, *new, pos_t,
+                                                           layer))
     lib_ms = time_ms(torch, library)
+    lib_g_ms = graph_ms(torch, library)
     n_bytes = 2 * (2 * B * Hk * D + 2 * 4 * B * Hk)
     b_ms, b_by = bound(n_bytes, 0, "int8")
+    plan = ka.plan_paged_append(B, 1, Hk, D, 1, True)
     print(f"  kv_append_uniform_q8 position {pos}: {diff} elements differ "
-          f"(must be 0; {written} K bytes written) | kernel {ms:.4f} ms | "
-          f"plain {plain_ms:.4f} | slice assignment {lib_ms:.4f} | bound "
-          f"{b_ms:.6f} ({b_by})", flush=True)
+          f"(must be 0, scales included; {written} K bytes written) | plan "
+          f"(vec, threads, blocks) {plan} | kernel {ms:.4f} ms (graph "
+          f"{g_ms:.5f}) | plain {plain_ms:.4f} | slice assignment "
+          f"{lib_ms:.4f} (graph {lib_g_ms:.5f}) | bound {b_ms:.6f} ({b_by})",
+          flush=True)
     if diff != 0 or written == 0:
         fail(f"kv_append_uniform_q8 not bit-exact: {diff} elements differ")
     return {"kv_append_uniform_q8": dict(
         shape=f"B={B} position={pos} S={S} Hk={Hk} D={D}", max_abs_err=0.0,
-        tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-        bound_by=b_by)}
+        tol=0.0, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by,
+        kernel=f"append_rows_kernel (contiguous rows, one position), plan "
+               f"{plan}")}
 
 
 def check_decode_q8(torch, cfg):
@@ -1478,7 +1491,8 @@ def check_paged_appends(torch, cfg):
                            graph_ms=g_ms, plain_ms=plain_ms,
                            library_ms=lib_ms, library_graph_ms=lib_g_ms,
                            bound_ms=b_ms, bound_by=b_by,
-                           kernel=f"paged_append_kernel, plan {plan}")
+                           kernel=f"append_rows_kernel (paged rows), plan "
+                                  f"{plan}")
             else:
                 rec.update(int8_ms=ms, int8_graph_ms=g_ms,
                            int8_plain_ms=plain_ms, int8_library_ms=lib_ms,
@@ -1748,7 +1762,9 @@ def check_kv_append_ragged_t(torch, cfg):
     three tokens are dropped; 500 at T = 1).  Bit-exact against the plain
     version, nothing outside the windows touched.  The yardstick is one
     ``index_put_`` scatter of the same rows a tensor (the port's former
-    write); the bound counts the tokens written."""
+    write); the bound counts the tokens written.  Each shape a call and in
+    a CUDA graph, beside the yardstick's graph, with the row kernel's
+    plan; the record keeps T = 1 bf16, the others as rows_t<T>[_int8]_*."""
     from qwen_inference_engine_tpu_torch.ops import kv_append as ka
     from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 
@@ -1823,23 +1839,33 @@ def check_kv_append_ragged_t(torch, cfg):
                 for c, n in zip(theirs, news):
                     c[layer, ri, :, pi] = n[bi, ti]
 
+            g_ms = graph_ms(torch, lambda: call(ka.kv_append_ragged_t, mine))
             lib_ms = time_ms(torch, library)
+            lib_g_ms = graph_ms(torch, library)
             elem = 1 if quant else 2
             n_bytes = 2 * 2 * n_tok * Hk * D * elem + \
                 (2 * 2 * n_tok * Hk * 4 if quant else 0) + 4 * B
             b_ms, b_by = bound(n_bytes, 0, "bf16")
-            print(f"  {label}: bit-exact, nothing else touched | kernel "
-                  f"{ms:.4f} ms | plain {plain_ms:.4f} | index_put_ "
-                  f"{lib_ms:.4f} | bound {b_ms:.6f} ({b_by})", flush=True)
+            plan = ka.plan_paged_append(B, T, Hk, D, elem, True)
+            print(f"  {label}: bit-exact, nothing else touched | plan (vec, "
+                  f"threads, blocks) {plan} | kernel {ms:.4f} ms (graph "
+                  f"{g_ms:.5f}) | plain {plain_ms:.4f} | index_put_ "
+                  f"{lib_ms:.4f} (graph {lib_g_ms:.5f}) | bound {b_ms:.6f} "
+                  f"({b_by})", flush=True)
             if T == 1 and not quant:
                 rec = dict(shape=f"B={B} T=1 S={S} Hk={Hk} D={D} bf16 (the "
                                  f"ragged decode's write)", max_abs_err=0.0,
-                           tol=0.0, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                           tol=0.0, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, library_graph_ms=lib_g_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           kernel=f"append_rows_kernel (contiguous rows), "
+                                  f"plan {plan}")
             else:
                 key = f"rows_t{T}" + ("_int8" if quant else "")
-                rec.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                rec.update({f"{key}_ms": ms, f"{key}_graph_ms": g_ms,
+                            f"{key}_plain_ms": plain_ms,
                             f"{key}_library_ms": lib_ms,
+                            f"{key}_library_graph_ms": lib_g_ms,
                             f"{key}_bound_ms": b_ms})
     return rec
 

@@ -39,12 +39,11 @@
 // so the host never waits for it; a position outside [0, S) writes nothing.
 //
 // kv_append_ragged_t: in place, k_new / v_new [B, T, Hk, D] (bf16, f32 or
-// int8, copied as 32-bit words) into cache[layer, b, hk, starts[b] + t] of
-// the caches [L, Bc, Hk, S, D] for rows b < B, and for an int8 cache ks_new
-// / vs_new [B, T, Hk] into the scales [L, Bc, Hk, S].  starts [B] int32 is
-// read on the device; starts[b] < 0 skips row b, and a token at or past S
-// is dropped (the JAX kernel never selects it: its band is clamped to the
-// cache's end).
+// int8) into cache[layer, b, hk, starts[b] + t] of the caches [L, Bc, Hk,
+// S, D] for rows b < B, and for an int8 cache ks_new / vs_new [B, T, Hk]
+// into the scales [L, Bc, Hk, S].  starts [B] int32 is read on the device;
+// starts[b] < 0 skips row b, and a token at or past S is dropped (the JAX
+// kernel never selects it: its band is clamped to the cache's end).
 //
 // paged_append_ragged / _ragged_t: in place, k_new / v_new [B, T, Hk, D]
 // (T = 1 for the ragged decode append) into the pools [L, P, Hk, page, D]
@@ -74,50 +73,66 @@
 // paged append 2 * 2 * B * Hk * D bytes each way (16 KB at 8 slots, 8 KB +
 // 256 B of scales int8); the verify window T times that (80 KB at T = 5);
 // the prefill append 2 * 2 * T * Hk * D bytes each way (512 KB at T=256):
-// a few nanoseconds to a few microseconds at 3.35 TB/s, so the launch
-// itself (a few microseconds) bounds them in practice, and after it, for
-// the paged appends, the chain of dependent loads a thread waits on
-// before it can store (the row's start, then its page id).
+// a few nanoseconds to a few microseconds at 3.35 TB/s.  So the launch
+// itself (a few microseconds) bounds every one of them but the 28-layer
+// append in practice, and after the launch the chain of dependent loads a
+// thread waits on before it can store: one (the position or the row's
+// start) for the uniform appends and the contiguous row appends, two (the
+// row's start, then its page id) for the paged decode and verify appends,
+// one (the page id) for the prefill append, whose start the host gives.
 //
-// Design of the two uniform appends: one kernel, whose threads walk a flat
-// index over (layer, row, KV head, vector of the head row) with a
-// grid-stride loop, each moving one vector of K and one of V: 16 bytes
-// (uint4) where the row's bytes and the four base pointers are 16-byte
-// aligned, else 4-byte words (the launcher picks the width from the
-// operands; the copy is the same bits either way).  Blocks of 256
-// threads, at most 8 for each SM (a full SM each, read from the device at
-// launch), so on the H100's 132 SMs the all-layer append at 28 x 192 rows
-// (344064 vectors of 16 bytes) runs 1056 blocks whose threads move one
-// or two vectors each; each block reads the position once.
-// Design of the three paged appends: one kernel, paged_append_kernel<V>,
+// The file holds two kernels.
+// kv_append_uniform_kernel, the uniform bf16 / f32 copy (kv_append_uniform
+// and kv_append_all_uniform): threads walk a flat index over (layer, row,
+// KV head, vector of the head row) with a grid-stride loop, each moving
+// one vector of K and one of V: 16 bytes (uint4) where the row's bytes and
+// the four base pointers are 16-byte aligned, else 4-byte words (the
+// launcher picks the width from the operands; the copy is the same bits
+// either way).  Blocks of 256 threads, at most 8 for each SM (a full SM
+// each, read from the device at launch), so on the H100's 132 SMs the
+// all-layer append at 28 x 192 rows (344064 vectors of 16 bytes) runs 1056
+// blocks whose threads move one or two vectors each; each block reads the
+// position once.
+// append_rows_kernel<V, Layout>, the row copy (the other five appends):
 // one thread a vector of one (row b, token t, KV head) head row over a
 // flat index of B * T * Hk * W vectors, no loop: 16 bytes (uint4) where
 // the row's bytes and the four data pointers are 16-byte aligned, else
 // 4-byte words, as ops/kv_append.plan_paged_append plans it and the
 // launcher checks (W = 16 vectors for a bf16 head row of D 128, 8 for
-// int8 D 128 or bf16 D 64).  Every token of a verify window runs in
-// parallel and resolves its own page, so a window may span any number of
-// pages; the vector-0 thread of an int8 row also moves its two scales.
-// A thread loads its source vectors first, then the row's start, then the
-// page id, so only two loads (one for the prefill's host start) stand
-// between the launch and the stores, and the data loads are already in
-// flight beside them; its divisions (by Hk W, W, T and the page) are
-// multiply-highs by constants the launcher computes (FastDiv), a few
-// cycles each on that chain, where a runtime division costs dozens.
-// Blocks of 128 threads: a 256-token prefill piece of the 7B (16384
-// vectors in bf16) spreads over 128 of the 132 SMs in one wave, where 256
-// would use 64 (on the H100 the two time the same: the launch and the
-// loads, not the SMs, set the time); the decode's 8 slots take 4 blocks.
-// The other appends: one block per (KV head, row), one thread per element
-// of the head vector (kv_append_ragged_t: one thread per 32-bit word of
-// it, the token the grid's third axis); thread 0 also writes the row's two
-// scales (int8).  The TPU kernels read and wrote back whole bands, tiles
-// or pages (an 8-row bf16 band, a 32-row int8 band, a 128-lane scale tile,
-// a [Hk, page, D] page block for the prefill append) because their memory
-// moves in (8/32, 128) tiles, and the all-layer append double-buffers
-// those bands across layers; that is tiling, not semantics: here only the
-// rows being appended are written, bit for bit, and nothing else of the
-// cache is touched.
+// int8 D 128 or bf16 D 64, 32 for f32 D 128).  Every token of a window
+// runs in parallel; the layout resolves where token t of row b lands from
+// the row's start p0 (p = p0 + t):
+//   * PagedRows (the three paged appends): row p % page of page
+//     tables[b, p / page] of pools[layer] [P, Hk, page], so a window may
+//     span any number of pages;
+//   * ContiguousRows (kv_append_ragged_t, kv_append_uniform_q8): row
+//     ((layer Bc + b) Hk + hk) S + p of the caches [L, Bc, Hk, S]; a token
+//     at or past S writes nothing.  The start is starts[b * stride]:
+//     stride 1 for kv_append_ragged_t's per-row starts, 0 for
+//     kv_append_uniform_q8's one shared position (T = 1), so every row
+//     reads the same element.
+// The vector-0 thread of an int8 row also moves its two scales, indexed by
+// the same row.  A thread loads its source vectors (and those scales)
+// first, as they do not depend on the position, then the row's start,
+// then (paged) the page id, so one dependent load (two for the paged
+// decode and verify, one for the prefill, whose start the host gives)
+// stands between the launch and the stores, with the data loads already
+// in flight beside it; its divisions (by Hk W, W,
+// T and the page) are multiply-highs by constants the launcher computes
+// (FastDiv), a few cycles each on that chain, where a runtime division
+// costs dozens.  Blocks of 128 threads: a 256-token prefill piece of the
+// 7B (16384 vectors in bf16) spreads over 128 of the 132 SMs in one wave,
+// where 256 would use 64 (on the H100 the two time the same: the launch
+// and the loads, not the SMs, set the time); the serving decode's 8 slots
+// take 4 blocks, the 7B ragged decode's 4 rows 2, its verify window of 5
+// 10, and the INT8 uniform append at B 4 one.
+// The TPU kernels read and wrote back whole bands, tiles or pages (an
+// 8-row bf16 band, a 32-row int8 band, a 128-lane scale tile, a [Hk, page,
+// D] page block for the prefill append) because their memory moves in
+// (8/32, 128) tiles, and the all-layer append double-buffers those bands
+// across layers; that is tiling, not semantics: here only the rows being
+// appended are written, bit for bit, and nothing else of the cache is
+// touched.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,7 +141,7 @@ namespace {
 
 constexpr int kAppendThreads = 256;  // the uniform appends' block
 constexpr int kAppendBlocksPerSm = 8;  // 2048 threads on each SM
-constexpr int kPagedThreads = 128;  // the paged appends' block
+constexpr int kRowThreads = 128;  // the row appends' block
 
 // The uniform appends: vector i of the flat source [n_layers, Bn, Hk, W]
 // (W vectors V a head row) of k_new / v_new goes to vector i % W of row
@@ -158,57 +173,6 @@ kv_append_uniform_kernel(V* __restrict__ k_cache, V* __restrict__ v_cache,
   }
 }
 
-// one (KV head, row, token) per block: token t goes to starts[b] + t
-__global__ void kv_append_ragged_t_kernel(
-    unsigned* __restrict__ k_cache, unsigned* __restrict__ v_cache,
-    float* __restrict__ k_scale, float* __restrict__ v_scale,
-    const unsigned* __restrict__ k_new, const unsigned* __restrict__ v_new,
-    const float* __restrict__ ks_new, const float* __restrict__ vs_new,
-    const int* __restrict__ starts, int Bc, int Hk, int S, int W, int T,
-    int layer) {
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int t = blockIdx.z;
-  const int p0 = starts[b];
-  // a skipped row, or a token at or past the cache's end
-  if (p0 < 0 || p0 >= S || t >= S - p0) return;
-  const int p = p0 + t;
-  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
-  const long long src = (static_cast<long long>(b) * T + t) * Hk + hk;
-  const long long dst = (row * S + p) * W;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) {
-    k_cache[dst + w] = k_new[src * W + w];
-    v_cache[dst + w] = v_new[src * W + w];
-  }
-  if (k_scale != nullptr && threadIdx.x == 0) {
-    k_scale[row * S + p] = ks_new[src];
-    v_scale[row * S + p] = vs_new[src];
-  }
-}
-
-__global__ void kv_append_q8_kernel(
-    int8_t* __restrict__ k_cache, int8_t* __restrict__ v_cache,
-    float* __restrict__ k_scale, float* __restrict__ v_scale,
-    const int8_t* __restrict__ k_new, const int8_t* __restrict__ v_new,
-    const float* __restrict__ ks_new, const float* __restrict__ vs_new,
-    const int* __restrict__ position_ptr, int Bc, int Hk, int S, int D,
-    int layer) {
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int position = *position_ptr;
-  if (position < 0 || position >= S) return;
-  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
-  const long long src = static_cast<long long>(b) * Hk + hk;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    k_cache[(row * S + position) * D + d] = k_new[src * D + d];
-    v_cache[(row * S + position) * D + d] = v_new[src * D + d];
-  }
-  if (threadIdx.x == 0) {
-    k_scale[row * S + position] = ks_new[src];
-    v_scale[row * S + position] = vs_new[src];
-  }
-}
-
 // Division of n < 2^31 by a divisor 1 <= d < 2^31 fixed at launch, as a
 // multiply-high and a shift (Granlund and Montgomery: mul = ceil(2^(31 +
 // l) / d), l = ceil(log2 d), exact for every such n), so each step of an
@@ -229,27 +193,81 @@ __device__ __forceinline__ unsigned quot(unsigned n, FastDiv f) {
   return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
 }
 
-// The paged appends: vector i of the flat source [B, T, Hk, W] (W vectors
-// V a head row) of k_new / v_new goes to vector w of row p % page of page
-// tables[b, p / page], KV head hk, of pools[layer] [L, P, Hk, page, W],
-// with p = starts[b] + t (the prefill: starts null, p = start + t, b =
-// 0); i = (b T + t) Hk W + hk W + w.  The source vectors (and an int8
-// row's two scales, loaded by its vector 0) are loaded first, as they do
-// not depend on the position; then the start, then the page id: two
-// dependent loads (one for the prefill) with the data loads already in
-// flight, and two divisions (by Hk W, then T) before the first of them.
-template <typename V>
-__global__ void __launch_bounds__(kPagedThreads)
-paged_append_kernel(V* __restrict__ k_pages, V* __restrict__ v_pages,
-                    float* __restrict__ k_scale, float* __restrict__ v_scale,
-                    const V* __restrict__ k_new, const V* __restrict__ v_new,
-                    const float* __restrict__ ks_new,
-                    const float* __restrict__ vs_new,
-                    const int* __restrict__ starts,
-                    const int* __restrict__ tables, int start, int P, int Hk,
-                    int max_pages, int layer, FastDiv by_vt, FastDiv by_w,
-                    FastDiv by_t, FastDiv by_page, unsigned total) {
-  const unsigned i = blockIdx.x * kPagedThreads + threadIdx.x;
+// The row appends' two layouts.  start_at(b) is the element of `starts`
+// row b reads; row(b, t, hk, Hk, p0, &out) puts in `out` the head row that
+// token t of row b, KV head hk, lands in from the row's start p0 >= 0 (p =
+// p0 + t), counted in head rows from the destination's base, and returns
+// false where it writes nothing.  (The early returns, and by_page ahead of
+// the table pointer, keep the paged instances at the 24 registers of the
+// kernel they replaced; a -1 sentinel took 22 / 26.)
+
+// The page pools [L, P, Hk, page]: row p % page of page tables[b, p /
+// page] of pools[layer]; nothing past the table's width or for a page id
+// outside [0, P).
+struct PagedRows {
+  FastDiv by_page;
+  const int* tables;
+  int P, max_pages, layer;
+
+  __device__ __forceinline__ unsigned start_at(unsigned b) const { return b; }
+
+  __device__ __forceinline__ bool row(unsigned b, unsigned t, unsigned hk,
+                                      int Hk, unsigned p0,
+                                      long long* out) const {
+    // p = lp page + slot; s < page + T < 2^31
+    const unsigned q0 = quot(p0, by_page);
+    const unsigned s = p0 - q0 * by_page.d + t;
+    const unsigned sq = quot(s, by_page);
+    const unsigned lp = q0 + sq;
+    if (lp >= static_cast<unsigned>(max_pages)) return false;  // past it
+    const unsigned slot = s - sq * by_page.d;
+    const int pg = __ldg(tables + static_cast<long long>(b) * max_pages + lp);
+    if (pg < 0 || pg >= P) return false;
+    *out = ((static_cast<long long>(layer) * P + pg) * Hk + hk) * by_page.d +
+           slot;
+    return true;
+  }
+};
+
+// The contiguous caches [L, Bc, Hk, S]: row ((layer Bc + b) Hk + hk) S + p;
+// nothing at or past S.  The start is starts[b * stride].
+struct ContiguousRows {
+  int Bc, S, layer;
+  unsigned stride;
+
+  __device__ __forceinline__ unsigned start_at(unsigned b) const {
+    return b * stride;
+  }
+
+  __device__ __forceinline__ bool row(unsigned b, unsigned t, unsigned hk,
+                                      int Hk, unsigned p0,
+                                      long long* out) const {
+    const unsigned p = p0 + t;  // p0 < 2^31, t < 2^16: no wrap
+    if (p >= static_cast<unsigned>(S)) return false;
+    *out = ((static_cast<long long>(layer) * Bc + b) * Hk + hk) * S + p;
+    return true;
+  }
+};
+
+// The row appends: vector i of the flat source [B, T, Hk, W] (W vectors V
+// a head row) of k_new / v_new goes to vector w of the head row that
+// layout.row(b, t, hk, ...) gives, from p0 = starts[layout.start_at(b)]
+// (the paged prefill: starts null, p0 = start); i = (b T + t) Hk W + hk W
+// + w.  The source vectors (and an int8 row's two scales, loaded by its
+// vector 0) are loaded first, as they do not depend on the position; then
+// the start, then whatever the layout loads: the data loads are already
+// in flight, and two divisions (by Hk W, then T) come before the start.
+template <typename V, typename Layout>
+__global__ void __launch_bounds__(kRowThreads)
+append_rows_kernel(V* __restrict__ k_dst, V* __restrict__ v_dst,
+                   float* __restrict__ k_scale, float* __restrict__ v_scale,
+                   const V* __restrict__ k_new, const V* __restrict__ v_new,
+                   const float* __restrict__ ks_new,
+                   const float* __restrict__ vs_new,
+                   const int* __restrict__ starts, int start, Layout layout,
+                   int Hk, FastDiv by_vt, FastDiv by_w, FastDiv by_t,
+                   unsigned total) {
+  const unsigned i = blockIdx.x * kRowThreads + threadIdx.x;
   if (i >= total) return;
   const V k = k_new[i];
   const V v = v_new[i];
@@ -264,23 +282,16 @@ paged_append_kernel(V* __restrict__ k_pages, V* __restrict__ v_pages,
     ks = ks_new[bt * Hk + hk];
     vs = vs_new[bt * Hk + hk];
   }
-  const int p0 = starts != nullptr ? __ldg(starts + b) : start;
+  const int p0 = starts != nullptr ? __ldg(starts + layout.start_at(b))
+                                   : start;
   if (p0 < 0) return;  // a skipped row
-  // p = p0 + t = lp page + slot; s < page + T < 2^31
-  const unsigned q0 = quot(static_cast<unsigned>(p0), by_page);
-  const unsigned s = static_cast<unsigned>(p0) - q0 * by_page.d +
-                     (bt - b * by_t.d);
-  const unsigned sq = quot(s, by_page);
-  const unsigned lp = q0 + sq;
-  if (lp >= static_cast<unsigned>(max_pages)) return;  // past the table
-  const unsigned slot = s - sq * by_page.d;
-  const int pg = __ldg(tables + static_cast<long long>(b) * max_pages + lp);
-  if (pg < 0 || pg >= P) return;
-  const long long row =
-      ((static_cast<long long>(layer) * P + pg) * Hk + hk) * by_page.d +
-      slot;
-  k_pages[row * by_w.d + w] = k;
-  v_pages[row * by_w.d + w] = v;
+  long long row;
+  if (!layout.row(b, bt - b * by_t.d, hk, Hk, static_cast<unsigned>(p0),
+                  &row)) {
+    return;
+  }
+  k_dst[row * by_w.d + w] = k;
+  v_dst[row * by_w.d + w] = v;
   if (scales) {
     k_scale[row] = ks;
     v_scale[row] = vs;
@@ -367,28 +378,8 @@ extern "C" int qie_kv_append_all_uniform(void* k_cache, void* v_cache,
                         Hk, S, D, elem_bytes, 0, L, 0, stream);
 }
 
-extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
-                                void* v_scale, const void* k_new,
-                                const void* v_new, const void* ks_new,
-                                const void* vs_new, const void* position,
-                                int L, int Bc, int B, int Hk, int S, int D,
-                                int layer, void* stream) {
-  if (B <= 0 || B > Bc || Hk <= 0 || D <= 0 || D > 1024 || S <= 0 ||
-      layer < 0 || layer >= L) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  dim3 grid(Hk, B);
-  kv_append_q8_kernel<<<grid, D, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(k_cache), static_cast<int8_t*>(v_cache),
-      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
-      static_cast<const int8_t*>(k_new), static_cast<const int8_t*>(v_new),
-      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
-      static_cast<const int*>(position), Bc, Hk, S, D, layer);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// k_scale / v_scale / ks_new / vs_new: all null for a bf16 pool, all given
-// for an int8 one.
+// k_scale / v_scale / ks_new / vs_new: all null for a bf16 (f32) cache or
+// pool, all given for an int8 one.
 static bool quant_args(const void* a, const void* b, const void* c,
                        const void* d, bool* quant) {
   *quant = a != nullptr;
@@ -396,75 +387,43 @@ static bool quant_args(const void* a, const void* b, const void* c,
          (d != nullptr) == *quant;
 }
 
-// kv_append_ragged_t: the scale pointers all null for a bf16 or f32
-// cache, all given for an int8 one (elem_bytes 1).
-extern "C" int qie_kv_append_ragged_t(
-    void* k_cache, void* v_cache, void* k_scale, void* v_scale,
-    const void* k_new, const void* v_new, const void* ks_new,
-    const void* vs_new, const void* starts, int L, int Bc, int B, int T,
-    int Hk, int S, int D, int elem_bytes, int layer, void* stream) {
-  bool quant;
-  const int row_bytes = D * elem_bytes;
-  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) ||
-      (quant && elem_bytes != 1) || B <= 0 || B > 65535 || B > Bc ||
-      T <= 0 || T > 65535 || Hk <= 0 || D <= 0 || elem_bytes <= 0 ||
-      row_bytes % 4 || S <= 0 || layer < 0 || layer >= L) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int W = row_bytes / 4;
-  dim3 grid(Hk, B, T);
-  kv_append_ragged_t_kernel<<<grid, W < 256 ? W : 256, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(k_cache), static_cast<unsigned*>(v_cache),
-      static_cast<float*>(k_scale), static_cast<float*>(v_scale),
-      static_cast<const unsigned*>(k_new), static_cast<const unsigned*>(v_new),
-      static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
-      static_cast<const int*>(starts), Bc, Hk, S, W, T, layer);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename V>
-static void launch_paged_as(int blocks, cudaStream_t st, void* k_pages,
-                            void* v_pages, void* k_scale, void* v_scale,
-                            const void* k_new, const void* v_new,
-                            const void* ks_new, const void* vs_new,
-                            const void* starts, const void* tables,
-                            int start, int P, int Hk, int page,
-                            int max_pages, int layer, int T, unsigned W,
-                            unsigned total) {
-  paged_append_kernel<V><<<blocks, kPagedThreads, 0, st>>>(
-      static_cast<V*>(k_pages), static_cast<V*>(v_pages),
+template <typename V, typename Layout>
+static void launch_rows_as(int blocks, cudaStream_t st, void* k_dst,
+                           void* v_dst, void* k_scale, void* v_scale,
+                           const void* k_new, const void* v_new,
+                           const void* ks_new, const void* vs_new,
+                           const void* starts, int start, Layout layout,
+                           int Hk, int T, unsigned W, unsigned total) {
+  append_rows_kernel<V, Layout><<<blocks, kRowThreads, 0, st>>>(
+      static_cast<V*>(k_dst), static_cast<V*>(v_dst),
       static_cast<float*>(k_scale), static_cast<float*>(v_scale),
       static_cast<const V*>(k_new), static_cast<const V*>(v_new),
       static_cast<const float*>(ks_new), static_cast<const float*>(vs_new),
-      static_cast<const int*>(starts), static_cast<const int*>(tables),
-      start, P, Hk, max_pages, layer, fast_div(Hk * W), fast_div(W),
-      fast_div(T), fast_div(page), total);
+      static_cast<const int*>(starts), start, layout, Hk,
+      fast_div(Hk * W), fast_div(W), fast_div(T), total);
 }
 
-// The paged appends' plan (ops/kv_append.plan_paged_append), checked
-// against the shapes: `vec` bytes a thread, 16 or 4, dividing the head row
-// and every data pointer; blocks of kPagedThreads covering the
+// The row appends' plan (ops/kv_append.plan_paged_append), checked against
+// the shapes: `vec` bytes a thread, 16 or 4, dividing the head row of
+// `row_bytes` and every data pointer; blocks of kRowThreads covering the
 // B * T * Hk head rows' vectors once, fewer than 2^31.  The scale pointers
-// are f32.  Pages of at most 2^30 tokens keep the kernel's index
-// arithmetic in 32 bits.
-static int launch_paged(bool quant, void* k_pages, void* v_pages,
-                        void* k_scale, void* v_scale, const void* k_new,
-                        const void* v_new, const void* ks_new,
-                        const void* vs_new, const void* starts,
-                        const void* tables, int start, int P, int B, int T,
-                        int Hk, int page, int D, int max_pages, int layer,
-                        int vec, int threads, int blocks, void* stream) {
-  const int row_bytes = D * (quant ? 1 : 2);
+// are f32.
+template <typename Layout>
+static int launch_rows(long long row_bytes, void* k_dst, void* v_dst,
+                       void* k_scale, void* v_scale, const void* k_new,
+                       const void* v_new, const void* ks_new,
+                       const void* vs_new, const void* starts, int start,
+                       Layout layout, int B, int T, int Hk, int vec,
+                       int threads, int blocks, void* stream) {
   if (vec != 16 && vec != 4) return static_cast<int>(cudaErrorInvalidValue);
   const long long total =
       static_cast<long long>(B) * T * Hk * (row_bytes / vec);
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(k_pages) |
-                         reinterpret_cast<uintptr_t>(v_pages) |
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(k_dst) |
+                         reinterpret_cast<uintptr_t>(v_dst) |
                          reinterpret_cast<uintptr_t>(k_new) |
                          reinterpret_cast<uintptr_t>(v_new);
-  if (row_bytes % vec || ptrs % vec || threads != kPagedThreads ||
-      total > 0x7fffffffll || blocks <= 0 || page > (1 << 30) ||
+  if (row_bytes % vec || ptrs % vec || threads != kRowThreads ||
+      total > 0x7fffffffll || blocks <= 0 ||
       static_cast<long long>(blocks - 1) * threads >= total ||
       static_cast<long long>(blocks) * threads < total) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -472,17 +431,74 @@ static int launch_paged(bool quant, void* k_pages, void* v_pages,
   const unsigned W = static_cast<unsigned>(row_bytes / vec);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 16) {
-    launch_paged_as<uint4>(blocks, st, k_pages, v_pages, k_scale, v_scale,
-                           k_new, v_new, ks_new, vs_new, starts, tables,
-                           start, P, Hk, page, max_pages, layer, T, W,
-                           static_cast<unsigned>(total));
+    launch_rows_as<uint4>(blocks, st, k_dst, v_dst, k_scale, v_scale, k_new,
+                          v_new, ks_new, vs_new, starts, start, layout, Hk, T,
+                          W, static_cast<unsigned>(total));
   } else {
-    launch_paged_as<unsigned>(blocks, st, k_pages, v_pages, k_scale,
-                              v_scale, k_new, v_new, ks_new, vs_new, starts,
-                              tables, start, P, Hk, page, max_pages, layer,
-                              T, W, static_cast<unsigned>(total));
+    launch_rows_as<unsigned>(blocks, st, k_dst, v_dst, k_scale, v_scale,
+                             k_new, v_new, ks_new, vs_new, starts, start,
+                             layout, Hk, T, W, static_cast<unsigned>(total));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// kv_append_ragged_t: the scale pointers all null for a bf16 or f32
+// cache, all given for an int8 one (elem_bytes 1); row b reads starts[b].
+extern "C" int qie_kv_append_ragged_t(
+    void* k_cache, void* v_cache, void* k_scale, void* v_scale,
+    const void* k_new, const void* v_new, const void* ks_new,
+    const void* vs_new, const void* starts, int L, int Bc, int B, int T,
+    int Hk, int S, int D, int elem_bytes, int layer, int vec, int threads,
+    int blocks, void* stream) {
+  bool quant;
+  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) ||
+      (quant && elem_bytes != 1) || B <= 0 || B > 65535 || B > Bc ||
+      T <= 0 || T > 65535 || Hk <= 0 || D <= 0 || elem_bytes <= 0 ||
+      S <= 0 || layer < 0 || layer >= L || starts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_rows(static_cast<long long>(D) * elem_bytes, k_cache, v_cache,
+                     k_scale, v_scale, k_new, v_new, ks_new, vs_new, starts,
+                     0, ContiguousRows{Bc, S, layer, 1u}, B, T, Hk, vec,
+                     threads, blocks, stream);
+}
+
+// kv_append_uniform_q8: int8 rows and their f32 scales, every row at the
+// one position (starts[0]: stride 0, one token a row).
+extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
+                                void* v_scale, const void* k_new,
+                                const void* v_new, const void* ks_new,
+                                const void* vs_new, const void* position,
+                                int L, int Bc, int B, int Hk, int S, int D,
+                                int layer, int vec, int threads, int blocks,
+                                void* stream) {
+  bool quant;
+  if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || !quant ||
+      B <= 0 || B > Bc || Hk <= 0 || D <= 0 || D > 1024 || S <= 0 ||
+      layer < 0 || layer >= L || position == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_rows(D, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                     ks_new, vs_new, position, 0,
+                     ContiguousRows{Bc, S, layer, 0u}, B, 1, Hk, vec, threads,
+                     blocks, stream);
+}
+
+// The paged appends: int8 pools take their scales; pages of at most 2^30
+// tokens keep the kernel's index arithmetic in 32 bits.
+static int launch_paged(bool quant, void* k_pages, void* v_pages,
+                        void* k_scale, void* v_scale, const void* k_new,
+                        const void* v_new, const void* ks_new,
+                        const void* vs_new, const void* starts,
+                        const void* tables, int start, int P, int B, int T,
+                        int Hk, int page, int D, int max_pages, int layer,
+                        int vec, int threads, int blocks, void* stream) {
+  if (page > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const PagedRows layout{fast_div(page), static_cast<const int*>(tables), P,
+                         max_pages, layer};
+  return launch_rows(D * (quant ? 1 : 2), k_pages, v_pages, k_scale, v_scale,
+                     k_new, v_new, ks_new, vs_new, starts, start, layout, B,
+                     T, Hk, vec, threads, blocks, stream);
 }
 
 // paged_append_ragged (T = 1) and paged_append_ragged_t (the verify

@@ -98,9 +98,11 @@ SIGNATURES = {
     "qie_kv_append_all_uniform": [_P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _P],
     # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-    # starts, L, Bc, B, T, Hk, S, D, elem_bytes, layer, stream
+    # starts, L, Bc, B, T, Hk, S, D, elem_bytes, layer, vec, threads,
+    # blocks (plan_paged_append), stream
     "qie_kv_append_ragged_t": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
     # x, wg, sg, wu, su, wd, sd, ws (partials, then h), y, M, K, F,
     # gs_gate, gs_down, mt1, splits1, slice1 (gate / up), mt2, splits2,
     # slice2 (down), layer, L, stream
@@ -122,9 +124,10 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _F, _P],
     # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-    # position, L, Bc, B, Hk, S, D, layer, stream
+    # position, L, Bc, B, Hk, S, D, layer, vec, threads, blocks
+    # (plan_paged_append), stream
     "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, tables, lens, ws (the splits'
     # partials, or null for a bf16 call of one split), out, L, P, B, T, Hq,
     # Hk, page, max_pages, D, layer, span, splits, scale, stream

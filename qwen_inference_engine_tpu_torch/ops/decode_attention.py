@@ -96,7 +96,9 @@ def device_position(position: Union[int, torch.Tensor], S: int,
         if position.numel() != 1 or position.device != device:
             raise ValueError("position must be one element on the device of "
                              "the cache")
-        return position.reshape(1).to(torch.int32)
+        position = position.reshape(1)
+        return position if position.dtype == torch.int32 \
+            else position.to(torch.int32)
     if not 0 <= int(position) < S:
         raise IndexError(f"position {position} outside the cache ({S})")
     return torch.full((1,), int(position), dtype=torch.int32, device=device)

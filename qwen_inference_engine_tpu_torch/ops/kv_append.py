@@ -38,25 +38,33 @@ Each wrapper launches a kernel of ``csrc/kv_append.cu``:
   ``_paged_prefill_kernel``): a prefill piece's T K/V rows of one sequence
   at ``start .. start+T-1`` through ``tables[0]``.
 
-The three paged appends share one kernel, ``paged_append_kernel``: one
-thread a vector of one (row, token, KV head) head row, every token of a
-window in parallel, each resolving its own page; 16-byte vectors where the
-pools' and the new rows' data pointers are 16-byte aligned, else 4-byte
-words, as ``plan_paged_append`` plans it from the shapes and the pointers
-(the C launcher checks the plan, as ``check_paged_append_plan`` does
-first).  A thread loads its source vectors before the row's start and the
-page id, so two dependent loads (one for the prefill's host start) stand
-between the launch and its stores: on the H100 the launch bounds these
-appends, and those loads come next.  They take a bf16 pool with bf16
-rows, or an int8 pool with the quantized rows and their f32 scales
-(``quantize_kv``): the kernel writes the bytes and the scales ``[L, P,
-Hk, page]`` in one launch, where the JAX package runs its kernels on the
-bytes and scatters the scales with XLA; ``kv_append_ragged_t`` does the
-same for the contiguous int8 cache.  ``*_plain`` beside each is the plain
-indexed write.  The paged appends follow the table as it is (zero entries
-lead to scratch page 0, as bucket padding does in the JAX package); a
-position past the table's width writes nothing, as the JAX scatter drops
-it, and so does a page id outside ``[0, P)``.
+``csrc/kv_append.cu`` holds two kernels.  The two uniform appends share
+a grid-stride copy of 16-byte vectors (4-byte words where an operand is
+not 16-byte aligned).  The other five share the row copy,
+``append_rows_kernel``: one thread a vector of one (row, token, KV head)
+head row, every token of a window in parallel; 16-byte vectors where the
+destination's and the new rows' data pointers are 16-byte aligned, else
+4-byte words, as ``plan_paged_append`` plans it from the shapes and the
+pointers (the C launcher checks the plan, as ``check_paged_append_plan``
+does first).  Its layout says where token t of row b lands from the
+row's start: the three paged appends resolve a page through the row's
+block table; ``kv_append_ragged_t`` and ``kv_append_uniform_q8`` take the
+contiguous cache's row ``((layer * Bc + b) * Hk + hk) * S + start + t``,
+dropping a token at or past S, the start read from ``starts[b]`` (per-row
+starts) or from the one shared position.  A thread loads its source
+vectors before the row's start (and the page id), so one dependent load
+stands between the launch and its stores (two for the paged decode and
+verify, whose page id follows the start; the prefill's start comes from
+the host): on the H100 the launch bounds these appends, and that chain
+comes next.  They take bf16 rows (also f32 for the contiguous cache), or
+int8 rows with their f32 scales (``quantize_kv``): the kernel writes the
+bytes and the scales (``[L, P, Hk, page]`` or ``[L, Bc, Hk, S]``) in one
+launch, where the JAX package runs its paged kernels on the bytes and
+scatters the scales with XLA.  ``*_plain`` beside each is the plain
+indexed write.  The paged appends follow the table as it is (zero
+entries lead to scratch page 0, as bucket padding does in the JAX
+package); a position past the table's width writes nothing, as the JAX
+scatter drops it, and so does a page id outside ``[0, P)``.
 """
 
 from __future__ import annotations
@@ -257,7 +265,7 @@ def kv_append_ragged_t(k_cache: torch.Tensor, v_cache: torch.Tensor,
         check_scales(name, k_cache, k_scale, v_scale)
         ksn, vsn = _check_new_scales(name, k_new, (k_scale, v_scale), ks_new,
                                      vs_new)
-        kn, vn = k_new.contiguous(), v_new.contiguous()
+        kn, vn = k_new, v_new
         if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
             raise ValueError(f"{name} needs contiguous caches")
     else:
@@ -265,17 +273,17 @@ def kv_append_ragged_t(k_cache: torch.Tensor, v_cache: torch.Tensor,
             raise ValueError(f"{name}: scales go with an int8 cache only")
         _check_float_cache(name, k_cache, v_cache, (k_new, v_new),
                            "or int8 with its scales")
-        kn = k_new.to(k_cache.dtype).contiguous()
-        vn = v_new.to(v_cache.dtype).contiguous()
+        kn, vn = _cast(k_new, k_cache.dtype), _cast(v_new, v_cache.dtype)
         ksn = vsn = None
     if starts.shape != (B,) or starts.device != dev:
         raise ValueError(f"{name}: starts must be [{B}] on the cache's "
                          f"device")
-    st = starts.to(torch.int32).contiguous()
+    st = _cast(starts, torch.int32).contiguous()
+    ptrs, plan = _row_operands(name, k_cache, v_cache, kn, vn)
     rc = cuda_lib.library().qie_kv_append_ragged_t(
-        k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-        kn.data_ptr(), vn.data_ptr(), _ptr(ksn), _ptr(vsn), st.data_ptr(), L,
-        Bc, B, T, Hk, S, D, k_cache.element_size(), int(layer),
+        *ptrs[:2], _ptr(k_scale), _ptr(v_scale), *ptrs[2:], _ptr(ksn),
+        _ptr(vsn), st.data_ptr(), L, Bc, B, T, Hk, S, D,
+        k_cache.element_size(), int(layer), *plan,
         cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     kv_append_ragged_t.launches += 1
@@ -338,13 +346,12 @@ def kv_append_uniform_q8(k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"{name} needs contiguous caches")
     check_scales(name, k_cache, k_scale, v_scale)
     pos = device_position(position, S, dev)
-    kn, vn = k_new.contiguous(), v_new.contiguous()
     ksn, vsn = ks_new.contiguous(), vs_new.contiguous()
+    ptrs, plan = _row_operands(name, k_cache, v_cache, k_new, v_new)
     rc = cuda_lib.library().qie_kv_append_q8(
-        k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), kn.data_ptr(), vn.data_ptr(), ksn.data_ptr(),
-        vsn.data_ptr(), pos.data_ptr(), L, Bc, B, Hk, S, D, int(layer),
-        cuda_lib.stream_handle(dev))
+        *ptrs[:2], k_scale.data_ptr(), v_scale.data_ptr(), *ptrs[2:],
+        ksn.data_ptr(), vsn.data_ptr(), pos.data_ptr(), L, Bc, B, Hk, S, D,
+        int(layer), *plan, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     kv_append_uniform_q8.launches += 1
     return k_cache, v_cache, k_scale, v_scale
@@ -419,19 +426,28 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _cast(t, dtype):
+    """``t`` as ``dtype``, without the cost of ``to`` when it already is."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 PAGED_APPEND_THREADS = 128   # a block of the paged append kernel
 
 
 @functools.lru_cache(maxsize=None)
 def plan_paged_append(B: int, T: int, Hk: int, D: int, elem_bytes: int,
                       aligned: bool):
-    """The paged append kernel's plan ``(vec, threads, blocks)`` for ``B``
+    """The row append kernel's plan ``(vec, threads, blocks)`` for ``B``
     rows of ``T`` tokens of ``Hk`` head rows of ``D`` elements of
-    ``elem_bytes`` bytes: one thread a ``vec``-byte vector of a head row,
-    16 where ``aligned`` (the pools' and the new rows' data pointers all
-    16-byte aligned) and the row's bytes allow it, else 4; blocks of
-    ``threads`` covering the ``B * T * Hk * D * elem_bytes / vec`` vectors
-    once."""
+    ``elem_bytes`` bytes (1, 2 or 4): one thread a ``vec``-byte vector of a
+    head row, 16 where ``aligned`` (the destination's and the new rows'
+    data pointers all 16-byte aligned) and the row's bytes allow it, else
+    4; blocks of ``threads`` covering the ``B * T * Hk * D * elem_bytes /
+    vec`` vectors once.  The same plan serves both layouts: the three paged
+    appends (pools ``[L, P, Hk, page, D]``) and the contiguous
+    ``kv_append_ragged_t`` and ``kv_append_uniform_q8`` (caches ``[L, Bc,
+    Hk, S, D]``, T = 1 for the latter): it depends only on the shapes and
+    the alignment."""
     row = D * elem_bytes
     vec = 16 if aligned and row % 16 == 0 else 4
     total = B * T * Hk * (row // vec)
@@ -455,23 +471,24 @@ def check_paged_append_plan(name: str, plan, rows: int, row_bytes: int,
                          f"of {row_bytes} bytes once in 4- or 16-byte "
                          f"vectors, {PAGED_APPEND_THREADS} threads a block")
     if ptrs % vec:
-        raise ValueError(f"{name}: {vec}-byte vectors need the pools and "
-                         f"the new rows {vec}-byte aligned")
+        raise ValueError(f"{name}: {vec}-byte vectors need the destination "
+                         f"and the new rows {vec}-byte aligned")
 
 
-def _paged_operands(name, k_pages, v_pages, k_new, v_new):
-    """The pools' and the new rows' data pointers and the kernel's plan,
-    checked.  New rows that are not 4-byte aligned (a view a few bytes into
-    its storage) are copied: the kernel moves 32-bit words at least."""
+def _row_operands(name, k_dst, v_dst, k_new, v_new):
+    """The destination's (pools or contiguous caches) and the new rows'
+    ``[B, T, Hk, D]`` data pointers and the row kernel's plan, checked.
+    New rows that are not 4-byte aligned (a view a few bytes into its
+    storage) are copied: the kernel moves 32-bit words at least."""
     kn, vn = k_new.contiguous(), v_new.contiguous()
-    ptrs = [k_pages.data_ptr(), v_pages.data_ptr(), kn.data_ptr(),
+    ptrs = [k_dst.data_ptr(), v_dst.data_ptr(), kn.data_ptr(),
             vn.data_ptr()]
     if (ptrs[2] | ptrs[3]) % 4:
         kn, vn = kn.clone(), vn.clone()
         ptrs[2:] = kn.data_ptr(), vn.data_ptr()
     B, T, Hk, D = kn.shape
     every = ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]
-    elem = k_pages.element_size()
+    elem = k_dst.element_size()
     plan = plan_paged_append(B, T, Hk, D, elem, every % 16 == 0)
     check_paged_append_plan(name, plan, B * T * Hk, D * elem, every)
     return ptrs, plan
@@ -494,7 +511,7 @@ def _launch_rows(name, k_pages, v_pages, k_new, v_new, positions,
         raise ValueError(f"{name}: positions must be [{B}] on the pools' "
                          f"device")
     pos = positions.to(torch.int32).contiguous()
-    ptrs, plan = _paged_operands(name, k_pages, v_pages, k_new, v_new)
+    ptrs, plan = _row_operands(name, k_pages, v_pages, k_new, v_new)
     rc = cuda_lib.library().qie_paged_append_ragged_t(
         *ptrs[:2], _ptr(k_scale), _ptr(v_scale), *ptrs[2:], _ptr(ksn),
         _ptr(vsn), pos.data_ptr(), tables.data_ptr(), L, P, B, T, Hk, PS, D,
@@ -603,7 +620,7 @@ def paged_append_prefill(k_pages: torch.Tensor, v_pages: torch.Tensor,
     start = int(start)
     if start < 0:
         raise IndexError(f"{name}: start {start} < 0")
-    ptrs, plan = _paged_operands(name, k_pages, v_pages, k_new, v_new)
+    ptrs, plan = _row_operands(name, k_pages, v_pages, k_new, v_new)
     rc = cuda_lib.library().qie_paged_append_prefill(
         *ptrs[:2], _ptr(k_scale), _ptr(v_scale), *ptrs[2:], _ptr(ksn),
         _ptr(vsn), tables.data_ptr(), L, P, T, Hk, PS, D, tables.shape[1],

@@ -43,7 +43,9 @@ one call to the card.  Shapes are Qwen2.5-7B's, inputs seeded random:
   row 96 of 192, position 257 of 512), ``kv_append_all_uniform`` (28
   layers x 192 rows at 257 of 512; 28 x 4 at 1023 of 1024),
   ``kv_append_uniform_q8`` (B 4 at 1999 of 2304), ``kv_append_ragged_t``
-  (B 4 of S 1024, T 1 and 5, bf16 and int8), ``paged_append_ragged``
+  (B 4 of S 1024, T 1, 5 and 17, bf16 and int8; these two with the
+  SHA-256 of the caches and scales after their calls),
+  ``paged_append_ragged``
   (8 slots), ``paged_append_ragged_t`` (8 rows, T 5 and 17) and
   ``paged_append_prefill`` (T 256 at 384), the paged ones into bf16 and
   int8 pools of pages of 512 (``chip_smoke``'s shapes) with the SHA-256
@@ -318,13 +320,20 @@ def appends(torch, cs, out, timed, digest):
         for cache, x in zip((k8, v8, ks, vs), new):
             cache[layer, :, :, pos] = x[:, 0]
 
-    out["kv_append_uniform_q8 B4"] = record(
-        lambda: ka.kv_append_uniform_q8(k8, v8, ks, vs, *new, pos_t, layer),
-        library, 2 * (2 * B * Hk * D + 2 * 4 * B * Hk))
+    # the caches and scales as the kernel's calls left them, before the
+    # yardstick writes the same bytes
+    rec = timed(lambda: ka.kv_append_uniform_q8(k8, v8, ks, vs, *new, pos_t,
+                                                layer))
+    rec["sha256"] = [digest(t) for t in (k8, v8, ks, vs)]
+    rec.update(library=timed(library), bound_ms=cs.bound(
+        2 * (2 * B * Hk * D + 2 * 4 * B * Hk), 0, "bf16")[0])
+    out["kv_append_uniform_q8 B4"] = rec
     del k8, v8, ks, vs
-    # the ragged decode's write (T 1) and the verify's window (T 5)
+    # the ragged decode's write (T 1), the verify's window (T 5) and a
+    # window wider than 16 (T 17), bf16 and int8
     S = 1024
-    for T, quant in ((1, False), (5, False), (1, True)):
+    for T, quant in ((1, False), (5, False), (1, True), (5, True),
+                     (17, False), (17, True)):
         starts_l = [32, S - T, S - 2 if T > 1 else 500, 0]
         if quant:
             (kc, ks), (vc, vs) = (cs._int8(torch, g, (2, 4, Hk, S, D))
@@ -350,10 +359,13 @@ def appends(torch, cs, out, timed, digest):
 
         elem = 1 if quant else 2
         n_bytes = 2 * 2 * len(src) * Hk * (D * elem + (4 if quant else 0))
-        out[f"kv_append_ragged_t T{T}{' int8' if quant else ''}"] = record(
-            lambda caches=caches, news=news, starts=starts, kw=kw:
-            ka.kv_append_ragged_t(caches[0], caches[1], news[0], news[1],
-                                  starts, layer, **kw), library, n_bytes)
+        rec = timed(lambda caches=caches, news=news, starts=starts, kw=kw:
+                    ka.kv_append_ragged_t(caches[0], caches[1], news[0],
+                                          news[1], starts, layer, **kw))
+        rec["sha256"] = [digest(c) for c in caches]
+        rec.update(library=timed(library),
+                   bound_ms=cs.bound(n_bytes, 0, "bf16")[0])
+        out[f"kv_append_ragged_t T{T}{' int8' if quant else ''}"] = rec
         del caches, news
     # the paged appends (bf16 and int8 pools of pages of 512)
     k, v, tables = cs._paged_pool(torch, cfg, g)

@@ -11,12 +11,17 @@ the INT8 KV
 append at the first and last position, the paged kernels over pages of 8,
 16, 48 and 512 tokens (tiles that cross pages, mid-page starts, pieces of
 1, 7, 256 and 512 tokens, lengths of 1 and whole pages, idle rows and
-scratch-page writes), the one paged append kernel at both vector widths
+scratch-page writes), the one row append kernel at both vector widths
 (16 bytes, and 4 where k_new starts 4 bytes past a 16-byte boundary; D 64
 and 128, bf16 and int8, T 1, 5 and 17 and a 40-token piece; page ids
 outside the pool and positions past the table writing nothing; a
 captured decode append replayed at new positions; the C launcher's plan
-checks), the INT8 pool's kernels and the speculative verify
+checks), its contiguous layout the same way (kv_append_ragged_t in bf16,
+f32 and int8 and kv_append_uniform_q8, an int8 k_new 1 byte off copied
+first, B = Bc and B < Bc, the INT8 append at positions -1 and S writing
+nothing; both replayed in a CUDA graph after their starts or position
+change; the C launchers' plan checks), the INT8 pool's kernels and the
+speculative verify
 (T = 2, 5, 9, 10, 16 and 17 at G 1, 4, 7 and 8, D 64 and 128: one and two
 64-row groups, windows straddling pages and windows wider than their page,
 the int8 scale writes), the paged decode and verify split S on the tensor
@@ -2646,6 +2651,240 @@ def test_kv_append_ragged_t_bit_exact(gen, dtype, T, D):
         if p >= 0:
             written[layer, b, :, p:min(p + T, S)] = True
     assert not bool(((mine[0] != kc).any(-1) & ~written).any())
+
+
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` starting ``offset`` bytes past a 16-byte
+    boundary of its storage."""
+    el = offset // t.element_size()
+    flat = torch.empty(t.numel() + el, dtype=t.dtype, device=t.device)
+    view = flat[el:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    return view
+
+
+# (cache type, bytes k_new starts past a 16-byte boundary): 0 takes
+# 16-byte vectors, 4 the 4-byte words, 1 (int8) is copied by the wrapper
+# and then takes 16-byte vectors
+CONTIGUOUS_ROWS = [(torch.bfloat16, 0), (torch.bfloat16, 4),
+                   (torch.float32, 0), (torch.float32, 4), (torch.int8, 0),
+                   (torch.int8, 4), (torch.int8, 1)]
+
+
+@pytest.mark.parametrize("Bc", [6, 9], ids=["B = Bc", "B < Bc"])
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize(
+    "dtype,offset", CONTIGUOUS_ROWS,
+    ids=[f"{str(d).split('.')[-1]} {o} off" for d, o in CONTIGUOUS_ROWS])
+def test_kv_append_ragged_t_at_both_vector_widths(gen, dtype, offset, D, T,
+                                                  Bc):
+    """The row kernel's contiguous layout at both widths: 16-byte vectors
+    where the caches and the new rows are 16-byte aligned, 4-byte words
+    where k_new starts 4 bytes past a 16-byte boundary, and an int8 k_new
+    1 byte off copied first; bf16, f32 and int8 (scales too), D 64 and
+    128, 6 rows of a cache of 6 or 9.  Starts -1 (skipped), 0, 7, S - T
+    and S - 2 (a window past the cache's end) and 40.  Bit-exact against
+    the plain version, nothing else of the caches written."""
+    L, Hk, S, layer = 2, 4, 64, 1
+    starts_l = [-1, 0, 7, S - T, S - 2, 40]
+    B = len(starts_l)
+    kc = _kv_cache(gen, (L, Bc, Hk, S, D), dtype)
+    vc = _kv_cache(gen, (L, Bc, Hk, S, D), dtype)
+    kw = kw2 = {}
+    if dtype == torch.int8:
+        (kn, ksn), (vn, vsn) = (quantize_kv(torch.randn(
+            (B, T, Hk, D), generator=gen, device="cuda")) for _ in range(2))
+        ks = torch.rand((L, Bc, Hk, S), generator=gen, device="cuda")
+        vs = torch.rand((L, Bc, Hk, S), generator=gen, device="cuda")
+        kw = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                  vs_new=vsn)
+        kw2 = dict(k_scale=ks.clone(), v_scale=vs.clone(), ks_new=ksn,
+                   vs_new=vsn)
+    else:
+        kn = _kv_cache(gen, (B, T, Hk, D), dtype)
+        vn = _kv_cache(gen, (B, T, Hk, D), dtype)
+    kn = _at_offset(kn, offset)
+    elem = kn.element_size()
+    vec = ka.plan_paged_append(B, T, Hk, D, elem, offset != 4)[0]
+    assert vec == (4 if offset == 4 else 16)
+    starts = torch.tensor(starts_l, device="cuda", dtype=torch.int32)
+    mine, theirs = [kc.clone(), vc.clone()], [kc.clone(), vc.clone()]
+    before = ka.kv_append_ragged_t.launches
+    got = ka.kv_append_ragged_t(*mine, kn, vn, starts, layer, **kw)
+    ka.kv_append_ragged_t_plain(*theirs, kn, vn, starts, layer, **kw2)
+    assert ka.kv_append_ragged_t.launches == before + 1
+    assert got[0] is mine[0] and got[1] is mine[1]
+    assert torch.equal(mine[0], theirs[0]) and torch.equal(mine[1], theirs[1])
+    if dtype == torch.int8:
+        assert torch.equal(kw["k_scale"], kw2["k_scale"])
+        assert torch.equal(kw["v_scale"], kw2["v_scale"])
+    rows = sum(min(T, S - p) for p in starts_l if p >= 0)
+    assert int((mine[0] != kc).any(-1).sum()) == rows * Hk
+
+
+@pytest.mark.parametrize("pos", [0, 63, -1, 64], ids=["0", "S-1", "-1", "S"])
+@pytest.mark.parametrize("offset", [0, 4, 1])
+@pytest.mark.parametrize("Bc", [4, 6], ids=["B = Bc", "B < Bc"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_kv_append_uniform_q8_at_both_vector_widths(gen, D, Bc, offset, pos):
+    """kv_append_uniform_q8 through the row kernel at both widths (k_new
+    0 or 4 bytes past a 16-byte boundary; 1 byte off is copied first), D
+    64 and 128, 4 rows of a cache of 4 or 6, at positions 0 and S - 1 and
+    at -1 and S on the device, which write nothing.  Bytes and scales
+    bit-exact against the plain version, nothing else written."""
+    L, B, Hk, S, layer = 2, 4, 4, 64, 1
+    kc, ks = _int8_cache(gen, L, Bc, Hk, S, D)
+    vc, vs = _int8_cache(gen, L, Bc, Hk, S, D)
+    kn, ksn = quantize_kv(torch.randn((B, 1, Hk, D), generator=gen,
+                                      device="cuda"))
+    vn, vsn = quantize_kv(torch.randn((B, 1, Hk, D), generator=gen,
+                                      device="cuda"))
+    kn = _at_offset(kn, offset)
+    base = (kc, vc, ks, vs)
+    mine, theirs = [t.clone() for t in base], [t.clone() for t in base]
+    before = ka.kv_append_uniform_q8.launches
+    got = ka.kv_append_uniform_q8(*mine, kn, vn, ksn, vsn, torch.tensor(
+        [pos], device="cuda", dtype=torch.int32), layer)
+    assert ka.kv_append_uniform_q8.launches == before + 1
+    assert all(g is m for g, m in zip(got, mine))
+    inside = 0 <= pos < S
+    if inside:
+        ka.kv_append_uniform_q8_plain(*theirs, kn, vn, ksn, vsn, pos, layer)
+    for g, r in zip(mine, theirs):
+        assert torch.equal(g, r)
+    assert int((mine[0] != kc).any(-1).sum()) == (B * Hk if inside else 0)
+
+
+@pytest.mark.parametrize("site", ["ragged_t bf16", "ragged_t int8",
+                                  "uniform_q8"])
+def test_contiguous_row_appends_replay_in_a_cuda_graph(gen, site):
+    """kv_append_ragged_t (a window of 5) and kv_append_uniform_q8 captured
+    in a CUDA graph (they read the starts / the position on the device),
+    replayed after the starts or position tensor and the new rows change
+    in place, write at the new places: the same caches as the eager call
+    there."""
+    L, Bc, Hk, S, D, layer = 2, 6, 4, 64, 128, 1
+    quant = site != "ragged_t bf16"
+    ragged = site.startswith("ragged_t")
+    B, T = (6, 5) if ragged else (4, 1)
+    if quant:
+        (kc, ks), (vc, vs) = (_int8_cache(gen, L, Bc, Hk, S, D)
+                              for _ in range(2))
+        base = [kc, vc, ks, vs]
+    else:
+        base = [_bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)]
+
+    def rows():
+        kn, vn = _bf16(gen, B, T, Hk, D), _bf16(gen, B, T, Hk, D)
+        if not quant:
+            return [kn, vn]
+        (kq, ks), (vq, vs) = quantize_kv(kn), quantize_kv(vn)
+        return [kq, vq, ks, vs]
+
+    new = rows()
+    if ragged:
+        plans = ([0, 7, 63, -1, 30, 59], [5, -1, 0, 60, 12, 40])
+        at = torch.tensor([3, 3, 3, 3, 3, 3], device="cuda",
+                          dtype=torch.int32)
+    else:
+        plans = ([17], [63], [0])
+        at = torch.tensor([5], device="cuda", dtype=torch.int32)
+
+    def append(st, where):
+        if not ragged:
+            return ka.kv_append_uniform_q8(*st, *new, where, layer)
+        kw = dict(k_scale=st[2], v_scale=st[3], ks_new=new[2],
+                  vs_new=new[3]) if quant else {}
+        return ka.kv_append_ragged_t(st[0], st[1], new[0], new[1], where,
+                                     layer, **kw)
+
+    state = [t.clone() for t in base]
+    append(state, at)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        append(state, at)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        append(state, at)
+    for where in plans:
+        at.copy_(torch.tensor(where, device="cuda", dtype=torch.int32))
+        for t, f in zip(new, rows()):
+            t.copy_(f)
+        for t, b in zip(state, base):
+            t.copy_(b)
+        graph.replay()
+        eager = [t.clone() for t in base]
+        append(eager, at)
+        torch.cuda.synchronize()
+        for g, e in zip(state, eager):
+            assert torch.equal(g, e), where
+        written = sum(min(T, S - p) for p in where if p >= 0) * (
+            1 if ragged else B)
+        assert int((state[0] != base[0]).any(dim=-1).sum()) == written * Hk
+
+
+def test_contiguous_row_append_c_guard_refuses_bad_plans(gen):
+    """The C launchers of kv_append_ragged_t and kv_append_uniform_q8 check
+    the plan they are given against the shapes and return
+    cudaErrorInvalidValue (1) for a vector of 8 bytes, 16-byte vectors over
+    a k_new 4 bytes off, blocks of 256 threads, too few or too many
+    blocks, no starts or position, a scale missing (and, for the INT8
+    append, all of them); the planned calls return 0."""
+    from qwen_inference_engine_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.library()
+    L, Bc, B, T, Hk, S, D = 2, 4, 2, 5, 2, 64, 128
+    kc, vc = _bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)
+    kn, vn = _bf16(gen, B, T, Hk, D), _bf16(gen, B, T, Hk, D)
+    off = _at_offset(kn, 4)
+    starts = torch.tensor([0, 20], device="cuda", dtype=torch.int32)
+    sc = torch.ones((L, Bc, Hk, S), device="cuda")
+    st = cuda_lib.stream_handle(kc.device)
+
+    def ragged(plan, new=kn, starts_ptr=starts.data_ptr(),
+               scales=(None,) * 4):
+        return lib.qie_kv_append_ragged_t(
+            kc.data_ptr(), vc.data_ptr(), scales[0], scales[1],
+            new.data_ptr(), vn.data_ptr(), scales[2], scales[3], starts_ptr,
+            L, Bc, B, T, Hk, S, D, 2, 1, *plan, st)
+
+    good = ka.plan_paged_append(B, T, Hk, D, 2, True)
+    assert good == (16, 128, 3)    # 2 x 5 x 2 head rows of 16 vectors
+    for bad in [(8, 128, 5), (16, 256, 2), (16, 128, 2), (16, 128, 4),
+                (4, 128, 9), (4, 128, 11)]:
+        assert ragged(bad) == 1, bad
+    assert ragged(good, new=off) == 1
+    assert ragged(good, starts_ptr=None) == 1
+    assert ragged(good, scales=(sc.data_ptr(), sc.data_ptr(), None,
+                                sc.data_ptr())) == 1
+    assert ragged((4, 128, 10), new=off) == 0
+    assert ragged(good) == 0
+    k8, ks = _int8_cache(gen, L, Bc, Hk, S, D)
+    q, qs = quantize_kv(torch.randn((B, 1, Hk, D), generator=gen,
+                                    device="cuda"))
+    pos = torch.tensor([9], device="cuda", dtype=torch.int32)
+    scales = (ks.data_ptr(), ks.data_ptr(), qs.data_ptr(), qs.data_ptr())
+
+    def q8(plan, pos_ptr=pos.data_ptr(), scales=scales):
+        return lib.qie_kv_append_q8(
+            k8.data_ptr(), k8.data_ptr(), scales[0], scales[1], q.data_ptr(),
+            q.data_ptr(), scales[2], scales[3], pos_ptr, L, Bc, B, Hk, S, D,
+            1, *plan, st)
+
+    good = ka.plan_paged_append(B, 1, Hk, D, 1, True)
+    assert good == (16, 128, 1)    # 2 x 2 head rows of 8 vectors
+    for bad in [(8, 128, 1), (16, 256, 1), (16, 128, 2), (4, 128, 2)]:
+        assert q8(bad) == 1, bad
+    assert q8(good, pos_ptr=None) == 1
+    assert q8(good, scales=(None,) * 4) == 1
+    assert q8(good, scales=scales[:3] + (None,)) == 1
+    assert q8((4, 128, 1)) == 0
+    assert q8(good) == 0
+    torch.cuda.synchronize()
 
 
 def _nan_from(cache, lens):

@@ -907,16 +907,43 @@ def _all_append_call(kv=_BF, B=8, position=9):
     return tka.kv_append_all_uniform(cache, cache, new, new, position)
 
 
-def _ragged_t_call(kv=_BF, new=_BF, scales=False, n_starts=4, layer=1):
-    cache = _meta(2, 8, 2, 256, 128, dtype=kv)
-    rows = _meta(4, 5, 2, 128, dtype=new)
+def _meta_at(offset, *shape, dtype):
+    """A contiguous meta tensor ``offset`` bytes into its storage (meta
+    data pointers count from 0)."""
+    el = torch.empty((), dtype=dtype).element_size()
+    n = int(np.prod(shape))
+    return _meta(n + offset // el, dtype=dtype)[offset // el:].view(shape)
+
+
+def _ragged_t_call(kv=_BF, new=_BF, scales=False, n_starts=4, layer=1,
+                   D=128, T=5, k_offset=0, cache_offset=0):
+    """kv_append_ragged_t on meta tensors: caches [2, 8, 2, 256, D], rows
+    [4, T, 2, D]; ``k_offset`` / ``cache_offset`` bytes into their
+    storage."""
+    cache = _meta_at(cache_offset, 2, 8, 2, 256, D, dtype=kv)
+    rows = _meta_at(k_offset, 4, T, 2, D, dtype=new)
     kw = {}
     if scales:
         kw = dict(k_scale=_meta(2, 8, 2, 256), v_scale=_meta(2, 8, 2, 256),
-                  ks_new=_meta(4, 5, 2), vs_new=_meta(4, 5, 2))
-    return tka.kv_append_ragged_t(cache, cache, rows, rows,
+                  ks_new=_meta(4, T, 2), vs_new=_meta(4, T, 2))
+    return tka.kv_append_ragged_t(cache, _meta(2, 8, 2, 256, D, dtype=kv),
+                                  rows, _meta(4, T, 2, D, dtype=new),
                                   _meta(n_starts, dtype=torch.int32), layer,
                                   **kw)
+
+
+def _q8_append_call(B=4, layer=1, position=9, new=_I8, ks_dtype=torch.float32,
+                    row0=0, k_offset=0, cache_offset=0):
+    """kv_append_uniform_q8 on meta tensors: int8 caches [2, 8, 2, 256,
+    128] with their scales, rows [B, 1, 2, 128]; ``k_offset`` /
+    ``cache_offset`` bytes into their storage."""
+    cache = _meta_at(cache_offset, 2, 8, 2, 256, 128, dtype=_I8)
+    scales = _meta(2, 8, 2, 256)
+    rows = _meta_at(k_offset, B, 1, 2, 128, dtype=new)
+    ksn = _meta(B, 1, 2, dtype=ks_dtype)
+    return tka.kv_append_uniform_q8(
+        cache, _meta(2, 8, 2, 256, 128, dtype=_I8), scales, scales, rows,
+        _meta(B, 1, 2, 128, dtype=new), ksn, ksn, position, layer, row0=row0)
 
 
 def _fresh_call(kv=_BF, Hq=8, new_T=1, n_lens=4):
@@ -1006,6 +1033,47 @@ FUSED_REFUSALS = {
     "ragged_t int8 passes its checks": (
         lambda: _ragged_t_call(kv=_I8, new=_I8, scales=True), AssertionError,
         "library was asked for"),
+    "ragged_t f32 passes its checks": (
+        lambda: _ragged_t_call(kv=torch.float32, new=torch.float32),
+        AssertionError, "library was asked for"),
+    "ragged_t int8 rows of 6 bytes": (
+        lambda: _ragged_t_call(kv=_I8, new=_I8, scales=True, D=6),
+        ValueError, "does not cover"),
+    "ragged_t cache 2 bytes off": (lambda: _ragged_t_call(cache_offset=2),
+                                   ValueError, "4-byte aligned"),
+    "ragged_t int8 cache 1 byte off": (
+        lambda: _ragged_t_call(kv=_I8, new=_I8, scales=True, cache_offset=1),
+        ValueError, "4-byte aligned"),
+    "ragged_t rows 4 bytes off pass their checks": (
+        lambda: _ragged_t_call(T=17, k_offset=4), AssertionError,
+        "library was asked for"),
+    "ragged_t int8 rows 1 byte off are copied and pass their checks": (
+        lambda: _ragged_t_call(kv=_I8, new=_I8, scales=True, T=1,
+                               k_offset=1), AssertionError,
+        "library was asked for"),
+    "q8 append bf16 rows": (lambda: _q8_append_call(new=_BF), TypeError,
+                            "int8 K/V"),
+    "q8 append f16 scales": (
+        lambda: _q8_append_call(ks_dtype=torch.float16), TypeError,
+        "f32 new scales"),
+    "q8 append more rows than the cache": (lambda: _q8_append_call(B=9),
+                                           ValueError, "shapes"),
+    "q8 append layer 2": (lambda: _q8_append_call(layer=2), IndexError,
+                          "layer 2"),
+    "q8 append position 256": (lambda: _q8_append_call(position=256),
+                               IndexError, "outside the cache"),
+    "q8 append row0 4": (lambda: _q8_append_call(row0=4),
+                         NotImplementedError, "row0"),
+    "q8 append cache 1 byte off": (lambda: _q8_append_call(cache_offset=1),
+                                   ValueError, "4-byte aligned"),
+    "q8 append passes its checks": (lambda: _q8_append_call(),
+                                    AssertionError, "library was asked for"),
+    "q8 append every row passes its checks": (
+        lambda: _q8_append_call(B=8), AssertionError,
+        "library was asked for"),
+    "q8 append rows 1 byte off are copied and pass their checks": (
+        lambda: _q8_append_call(k_offset=1), AssertionError,
+        "library was asked for"),
     "fresh int8 cache": (lambda: _fresh_call(kv=_I8), TypeError,
                          "no int8 form"),
     "fresh G 9": (lambda: _fresh_call(Hq=18), ValueError, "G <= 8"),
@@ -1018,12 +1086,15 @@ FUSED_REFUSALS = {
 
 @pytest.mark.parametrize("case", sorted(FUSED_REFUSALS))
 def test_fused_wrappers_refuse_before_any_build(monkeypatch, case):
-    """fused_mlp, fused_attn_mlp, kv_append_uniform and the last four
-    sites' wrappers (fused_attn_matmul, kv_append_all_uniform,
-    kv_append_ragged_t, decode_attention_contiguous_fresh) refuse a wrong
-    dtype, shape, group size, layer, row window or device before the
-    library is built or a kernel launched (meta tensors stand in for the
-    card); a call that passes every check asks for the library."""
+    """fused_mlp, fused_attn_mlp, kv_append_uniform, kv_append_uniform_q8
+    and the last four sites' wrappers (fused_attn_matmul,
+    kv_append_all_uniform, kv_append_ragged_t,
+    decode_attention_contiguous_fresh) refuse a wrong dtype, shape, group
+    size, layer, row window, device or a contiguous cache that is not
+    4-byte aligned (or a head row the row kernel's plan cannot cover)
+    before the library is built or a kernel launched (meta tensors stand
+    in for the card); a call that passes every check asks for the library
+    (new rows a few bytes off are copied first)."""
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
 
     def no_build():
@@ -1063,16 +1134,11 @@ def _paged_append_call(kind="ragged", T=1, quant=False, k_offset=0,
     128, B 2 or the prefill's 1 row): ``k_offset`` / ``pool_offset`` bytes
     into their storage (meta data pointers count from 0)."""
     kv = _I8 if quant else _BF
-    el = 1 if quant else 2
-
-    def at(offset, *shape):
-        n = int(np.prod(shape))
-        return _meta(n + offset // el, dtype=kv)[offset // el:].view(shape)
-
-    pools = (at(pool_offset, 2, 6, 2, 16, 128), _meta(2, 6, 2, 16, 128,
-                                                       dtype=kv))
+    pools = (_meta_at(pool_offset, 2, 6, 2, 16, 128, dtype=kv),
+             _meta(2, 6, 2, 16, 128, dtype=kv))
     B = 1 if kind == "prefill" else 2
-    kn, vn = at(k_offset, B, T, 2, 128), _meta(B, T, 2, 128, dtype=kv)
+    kn, vn = (_meta_at(k_offset, B, T, 2, 128, dtype=kv),
+              _meta(B, T, 2, 128, dtype=kv))
     kw = {}
     if quant:
         kw = dict(k_scale=_meta(2, 6, 2, 16), v_scale=_meta(2, 6, 2, 16),
@@ -1219,6 +1285,24 @@ PLAN_REFUSALS = {
     "paged append int8 prefill passes its checks": (
         None, None, _paged_append_call("prefill", T=40, quant=True),
         AssertionError, "library was asked for"),
+    # the contiguous row appends (_ragged_t_call: 4 x 5 x 2 head rows of
+    # 256 bytes; _q8_append_call: 4 x 2 of 128 bytes), the same plan
+    "ragged_t vec 8": ("tka.plan_paged_append",
+                       lambda B, T, Hk, D, e, a: (8, 128, 7),
+                       lambda: _ragged_t_call(), ValueError,
+                       "does not cover"),
+    "ragged_t blocks short": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (16, 128, 4),
+        lambda: _ragged_t_call(), ValueError, "does not cover"),
+    "ragged_t 16-byte vectors of rows 4 bytes off": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (16, 128, 5),
+        lambda: _ragged_t_call(k_offset=4), ValueError, "16-byte aligned"),
+    "q8 append blocks of 256": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (16, 256, 1),
+        lambda: _q8_append_call(), ValueError, "does not cover"),
+    "q8 append a block past the vectors": (
+        "tka.plan_paged_append", lambda B, T, Hk, D, e, a: (16, 128, 2),
+        lambda: _q8_append_call(), ValueError, "does not cover"),
     # fused_attn_matmul (_attn_matmul_call: M 8, K 256, N 512, gs 64, its
     # own plan one slice of the 128 packed rows; at K 2048, gs 128 four
     # slices of 256)
@@ -1274,10 +1358,11 @@ def test_split_plans_and_workspaces_refused_before_any_build(monkeypatch,
     three split decodes' (q8, appending, fresh) spans a multiple of 64
     keys, their splits covering S once, an f32 workspace as large as the
     plan needs, their operands 16-byte aligned; a bf16 decode of one split
-    (B 192 x Hk 2) takes no workspace; the paged appends' vectors of 4 or
-    16 bytes dividing every data pointer (new rows a few bytes off are
-    copied; pools are not), 128-thread blocks covering the vectors once.
-    A plan that passes asks for the library."""
+    (B 192 x Hk 2) takes no workspace; the row appends' (paged, and the
+    contiguous kv_append_ragged_t and kv_append_uniform_q8) vectors of 4
+    or 16 bytes dividing every data pointer (new rows a few bytes off are
+    copied; pools and caches are not), 128-thread blocks covering the
+    vectors once.  A plan that passes asks for the library."""
     from qwen_inference_engine_tpu_torch.ops import cuda_lib
     from qwen_inference_engine_tpu_torch.ops import fused_step as tfs
 
@@ -1341,26 +1426,30 @@ def test_fused_attn_matmul_plans_64_row_tiles_above_64_rows(shape, M):
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "4 off"])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("elem", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("elem", [2, 1, 4], ids=["bf16", "int8", "f32"])
 def test_plan_paged_append_vector_widths(elem, D, aligned):
     """16-byte vectors where every data pointer is 16-byte aligned (the head
-    rows of 64-256 bytes always allow them), else 4-byte words: 16 vectors
+    rows of 64-512 bytes always allow them), else 4-byte words: 16 vectors
     a bf16 head row of D 128, 8 for int8 D 128 or bf16 D 64, 4 for int8 D
-    64; four times as many words."""
+    64, 32 and 16 for the contiguous cache's f32 rows of D 128 and 64;
+    four times as many words."""
     vec, threads, blocks = tka.plan_paged_append(8, 5, 4, D, elem, aligned)
     assert vec == (16 if aligned else 4)
     assert threads == tka.PAGED_APPEND_THREADS == 128
     assert D * elem // vec == {(2, 128): 16, (1, 128): 8, (2, 64): 8,
-                               (1, 64): 4}[elem, D] * (16 // vec)
+                               (1, 64): 4, (4, 128): 32,
+                               (4, 64): 16}[elem, D] * (16 // vec)
     tka.check_paged_append_plan("plan", (vec, threads, blocks), 8 * 5 * 4,
                                 D * elem, 4096 if aligned else 4100)
 
 
 @pytest.mark.parametrize("B,T,Hk", [(1, 1, 1), (2, 1, 2), (8, 1, 4),
                                     (8, 5, 4), (8, 17, 4), (1, 256, 4),
-                                    (1, 512, 8), (64, 9, 8), (3, 7, 5)])
+                                    (1, 512, 8), (64, 9, 8), (3, 7, 5),
+                                    (4, 1, 4), (4, 5, 4), (4, 17, 4)])
 @pytest.mark.parametrize("elem,D,aligned", [(2, 128, True), (1, 64, True),
-                                            (2, 64, False), (1, 128, False)])
+                                            (2, 64, False), (1, 128, False),
+                                            (4, 128, True), (4, 64, False)])
 def test_plan_paged_append_covers_every_vector_once(B, T, Hk, elem, D,
                                                     aligned):
     """One thread a vector: the blocks' threads cover the B * T * Hk * W
@@ -1373,13 +1462,18 @@ def test_plan_paged_append_covers_every_vector_once(B, T, Hk, elem, D,
                                 0 if aligned else 4)
 
 
-# the serving path at Qwen2.5-7B widths (Hk 4, D 128): the decode's 8
-# slots, the verify window of 5 (and 17), a 256-token prefill piece;
-# blocks of 128 threads, bf16 / int8 pools
+# the main paths at Qwen2.5-7B widths (Hk 4, D 128): serving's decode of
+# 8 slots, its verify window of 5 (and 17), a 256-token prefill piece;
+# Engine.generate's ragged decode and contiguous verify at B 4 (T 1, 5,
+# 17; T 1 int8 is also the INT8 uniform append's one block); blocks of
+# 128 threads, bf16 / int8 rows
 SERVING_APPEND_BLOCKS = {"decode": ((8, 1), 4, 2),
                          "verify T 5": ((8, 5), 20, 10),
                          "verify T 17": ((8, 17), 68, 34),
-                         "prefill piece": ((1, 256), 128, 64)}
+                         "prefill piece": ((1, 256), 128, 64),
+                         "contiguous decode B 4": ((4, 1), 2, 1),
+                         "contiguous verify B 4 T 5": ((4, 5), 10, 5),
+                         "contiguous verify B 4 T 17": ((4, 17), 34, 17)}
 
 
 @pytest.mark.parametrize("shape", sorted(SERVING_APPEND_BLOCKS))
@@ -1391,3 +1485,6 @@ def test_plan_paged_append_at_the_serving_shapes(shape):
                                                             int8_blocks)
     assert tka.plan_paged_append(B, T, 4, 128, 2, False) == (
         4, 128, 4 * bf16_blocks)
+    # the contiguous cache's f32 rows: twice the bf16 vectors
+    assert tka.plan_paged_append(B, T, 4, 128, 4, True) == (
+        16, 128, 2 * bf16_blocks)
