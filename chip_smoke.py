@@ -192,6 +192,38 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    ``generate --ckpt`` / ``--qckpt``.  The dense runs above must launch no
    grouped kernel.
 
+Captured steps: every ``Engine.generate`` decode step and every serving
+decode tick above replays a CUDA graph (``engine/step_graph.py``; each
+engine's warm-up call runs a key's first step eagerly and captures its
+second), and each wrapper's launch count takes a replay's launches, so
+the launch checks hold as they did for eager steps.  Where a check
+intercepts Python calls (phase 5's plain-swapped generate, [generate
+spec]'s recorded logits) the run takes the eager steps
+(``step_graph.eager_steps()``).  Two phases hold the captured steps to
+the eager ones:
+
+* [graph generate] (after phase 4's formats, after [pumped generate] and
+  in phase 6): one prefill (``Engine.start``), then the same 8 decode
+  steps captured and eager from one copy of the decode buffers and the
+  generator's state: logits, tokens and each step's launches bit for bit;
+  then 8 of each by the host clock and 8 under the profiler (host ms,
+  device busy ms, tok/s a step).  Cases: 7B W4A8 ragged batch 4 (bf16 and
+  INT8 KV), aligned batch 4, (a) W4A16 (``fused_mlp``, 28 a step), a 2-layer
+  sampled case (temperature 0.8, top-k 50, top-p 0.9, repetition penalty
+  1.1, a seed), the pumped batch of 192 (56 ``fused_attn_mlp`` a step) and
+  30B-A3B W4A8 at 48 layers, batch 32, INT8 KV;
+* [graph serve] (after [serve int8]): two serving engines, 8 requests of
+  300-token prompts on 8 slots, then windows of 8 ticks, one engine's
+  captured and the other's eager (warm-up, host clock, profiler): every
+  token equal, one graph for the captured engine; bf16 and INT8 pools at
+  ``max_pages_per_seq`` 4, then the captured engine alone at 64 over the
+  bf16 pool (every tick passes tables of the engine's full width, so a
+  row's bits do not follow its neighbours: this prices that width).
+
+Device busy time under the profiler counts the device's own rows
+(kernels, copies, sets; ``device_rows``), not PyTorch ops' rows, which
+repeat the time of the kernels they launched.
+
 Then one JSON line of per-kernel numbers (30 wrappers over the JAX
 package's 28 ``pallas_call`` sites, each launched), and as the last line
 ``{"ok": true, "device": {...}}``.  Every number is measured in this run.
@@ -984,9 +1016,9 @@ def _paged_pool(torch, cfg, g, L=2, P=40, max_pages=4, rows=8):
 def check_paged_decode(torch, cfg):
     """Paged decode at 8 slots, lengths 1..1440 over pages of 512, NaN in
     the pages no table holds and in each row's pages past its length: the
-    tables of the live rows (4 pages, as the scheduler trims them), then
-    the same pool through tables of the default serving width (64 pages
-    of 512, zero past each row's pages, as the scheduler holds them), with
+    tables of the pages the rows hold (4 pages), then the same pool
+    through tables of the default serving width (64 pages of 512, zero
+    past each row's pages, as the scheduler passes them), with
     each plan and how many splits of the 1440-key row hold keys; then
     check_paged_layouts."""
     from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
@@ -1010,13 +1042,13 @@ def check_paged_decode(torch, cfg):
         span, _, _ = r["plan"]
         r["splits_holding_keys_1440"] = -(-max(PAGED_LENS) // span)
     print(f"  {name} 8 slots at the default width ({SERVE_MAX_PAGES} pages "
-          f"of {PAGE}): plan (span, splits, row_groups) untrimmed "
+          f"of {PAGE}): plan (span, splits, row_groups) "
           f"{rec['at_default_width']['plan']}, the 1440-key row in "
           f"{rec['at_default_width']['splits_holding_keys_1440']} split(s); "
-          f"trimmed to {tables.shape[1]} pages {rec['plan']}, in "
+          f"at {tables.shape[1]} pages {rec['plan']}, in "
           f"{rec['splits_holding_keys_1440']}", flush=True)
     if rec["splits_holding_keys_1440"] < 2:
-        fail(f"{name}: the trimmed tables leave the 1440-key row in one "
+        fail(f"{name}: the {tables.shape[1]}-page tables leave the 1440-key row in one "
              f"split ({rec['plan']})")
     rec["layouts"] = check_paged_layouts(torch, cfg)
     return {name: rec}
@@ -2186,6 +2218,18 @@ def run_probe_fused(torch, cfg, wrappers):
                         graph_hidden_share=ghidden)
 
 
+def device_rows(torch, prof):
+    """(name, device ms, count) of what a profile saw run on the device:
+    kernels, copies, sets.  A PyTorch op's own row carries the device time
+    of the kernels it launched, which have rows of their own, so a sum over
+    every row with device time counts PyTorch's kernels twice (the port's
+    ctypes launches, which no op encloses, once)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+
+
 def _step_chain(torch, step, steps, first, tok, lens, cache):
     """``steps`` greedy decode steps from position ``lens + first``;
     returns (tok, cache) after a device sync."""
@@ -2197,21 +2241,28 @@ def _step_chain(torch, step, steps, first, tok, lens, cache):
 
 
 def _profile_steps(torch, fn, steps):
-    """Device busy ms, kernel count and the top kernels of ``steps`` decode
-    steps under torch.profiler, per step."""
+    """Device busy ms and kernel count of ``fn()`` (``steps`` decode steps
+    or ticks) under torch.profiler, per step, and its top 8 kernels by
+    device time (name, ms, count over the run); kernels replayed from a
+    CUDA graph count as the eager ones do."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+        torch.cuda.synchronize()
+    rows = device_rows(torch, prof)
     busy = sum(ms for _, ms, _ in rows) / steps
     n_kernels = sum(n for _, _, n in rows) / steps
     top = sorted(rows, key=lambda r: -r[1])[:8]
     if busy <= 0:
-        fail("pumped profile: the profiler saw no device time")
+        fail("profile: the profiler saw no device time")
     return busy, n_kernels, top
+
+
+def _top_per_step(top, steps, n=4):
+    """The first ``n`` of ``_profile_steps``' top kernels, ms a step."""
+    return [(k[:40], round(ms / steps, 4)) for k, ms, _ in top[:n]]
 
 
 def run_pumped_generate(torch, cfg, params, wrappers, prompts):
@@ -2246,7 +2297,7 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     if not qwen.pumped_supported(cfg, params, eng.new_cache(), B):
         fail("[pumped generate]: pumped_supported refuses the pumped weights")
     torch.cuda.empty_cache()
-    eng.generate(prompts([16] * B), max_new_tokens=2)  # warm-up
+    eng.generate(prompts([16] * B), max_new_tokens=3)  # warm-up, capture
     batch = prompts([PUMP_PROMPT] * B)
     for w in wrappers.values():
         w.launches = 0
@@ -2279,7 +2330,7 @@ def run_pumped_generate(torch, cfg, params, wrappers, prompts):
     plain_eng = Engine(cfg, params, max_batch=B, max_seq=PUMP_SEQ,
                        kv_dtype=torch.bfloat16,
                        sampling=SamplingParams(greedy=True), device="cuda")
-    plain_eng.generate(prompts([16] * B), max_new_tokens=2)  # warm-up
+    plain_eng.generate(prompts([16] * B), max_new_tokens=3)  # warm-up
     for w in wrappers.values():
         w.launches = 0
     res_plain = plain_eng.generate(batch, max_new_tokens=NEW_TOKENS)
@@ -2883,8 +2934,7 @@ def profile_decode_window(torch, cb, cfg, rng, ticks=8, label="[serve]"):
         cb.step_batch(ticks)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(torch, prof)
     busy_ms = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:8]
     cb.run_to_completion()
@@ -2906,6 +2956,181 @@ def profile_decode_window(torch, cb, cfg, rng, ticks=8, label="[serve]"):
                 profiled_window_ms=prof_wall_ms, device_busy_ms=busy_ms,
                 idle_share_profiled=idle,
                 busy_share_unprofiled=busy_ms / wall_ms)
+
+
+GRAPH_STEPS = 8     # [graph generate]'s decode steps, eager and captured
+GRAPH_TICKS = 8     # [graph serve]'s window of decode ticks
+GRAPH_SEED = 5
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9, repetition_penalty=1.1)
+
+
+def graph_generate_case(torch, eng, prompts, label, wrappers, sp=None,
+                        steps=GRAPH_STEPS):
+    """[graph generate]: one prefill (``Engine.start``), then the same
+    ``steps`` decode steps captured and under ``step_graph.eager_steps()``,
+    each from the same copy of the decode buffers (cache, tokens,
+    positions, masks, the generator's state).  Logits, tokens and each
+    step's launches must be equal bit for bit.  Then, from the same copy
+    again, ``steps`` steps of each by the host clock and ``steps`` under
+    the profiler.  Returns the case's numbers."""
+    from qwen_inference_engine_tpu_torch.engine import step_graph
+
+    sp = sp or eng.sampling
+    eng.start(prompts, steps + 1, sp, seed=GRAPH_SEED)
+    b = eng.buffers()
+    snap = b.state()
+    runs = {}
+    for mode in ("captured", "eager"):
+        ctx = (step_graph.eager_steps() if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            b.load_state(snap)
+            logits, per_step = [], []
+            for _ in range(steps):
+                before = {n: w.launches for n, w in wrappers.items()}
+                logits.append(eng.decode().clone())
+                per_step.append({n: w.launches - before[n]
+                                 for n, w in wrappers.items()
+                                 if w.launches != before[n]})
+            tokens = b.out[:, :steps + 1].clone()
+            b.load_state(snap)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.decode()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+            b.load_state(snap)
+            busy, kernels, top = _profile_steps(
+                torch, lambda: [eng.decode() for _ in range(steps)], steps)
+        runs[mode] = dict(logits=logits, tokens=tokens, per_step=per_step,
+                          step_ms=ms, device_busy_ms=busy, kernels=kernels,
+                          top=_top_per_step(top, steps),
+                          tok_s=len(prompts) * 1e3 / ms)
+    cap, ref = runs["captured"], runs["eager"]
+    logits_equal = all(torch.equal(x, y)
+                       for x, y in zip(cap["logits"], ref["logits"]))
+    tokens_equal = bool(torch.equal(cap["tokens"], ref["tokens"]))
+    launches_equal = cap["per_step"] == ref["per_step"] and all(
+        cap["per_step"])
+    print(f"[graph generate] {label}, batch {eng.max_batch}, {steps} steps: "
+          f"logits equal {logits_equal}, tokens equal {tokens_equal}, "
+          f"launches a step equal {launches_equal} "
+          f"({sum(cap['per_step'][-1].values())} a step) | captured "
+          f"{cap['step_ms']:.2f} ms a step on the host clock, device busy "
+          f"{cap['device_busy_ms']:.2f} ms, {cap['tok_s']:.1f} tok/s | eager "
+          f"{ref['step_ms']:.2f} ms, device busy {ref['device_busy_ms']:.2f} "
+          f"ms, {ref['tok_s']:.1f} tok/s | graphs {eng.graphs.captured}, "
+          f"capture {eng.graphs.capture_s * 1e3:.0f} ms | captured top "
+          f"{cap['top']}", flush=True)
+    if not (logits_equal and tokens_equal and launches_equal):
+        fail(f"[graph generate] {label}: captured and eager steps differ "
+             f"(logits {logits_equal}, tokens {tokens_equal}, launches "
+             f"{cap['per_step']} / {ref['per_step']})")
+    return {m: {k: v for k, v in r.items()
+                if k not in ("logits", "tokens", "per_step")}
+            for m, r in runs.items()} | dict(
+                launches_per_step=cap["per_step"][-1], batch=eng.max_batch,
+                rows=len(prompts), graphs=eng.graphs.captured,
+                capture_ms=eng.graphs.capture_s * 1e3)
+
+
+def run_graph_generate(torch, cfg, cases, wrappers):
+    """[graph generate] over several engines of one model: each case is
+    (label, params, engine keywords, prompts, sampling or None).  Returns
+    (the launches of the cases' runs, their numbers)."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    before = {n: w.launches for n, w in wrappers.items()}
+    out = {}
+    for label, params, kw, prompts, sp in cases:
+        ccfg = kw.pop("cfg", cfg)
+        eng = Engine(ccfg, params, sampling=SamplingParams(greedy=True),
+                     device="cuda", **kw)
+        out[label] = graph_generate_case(torch, eng, prompts, label, wrappers,
+                                         sp=sp)
+        del eng
+        torch.cuda.empty_cache()
+    return {n: w.launches - before[n] for n, w in wrappers.items()}, out
+
+
+def graph_serve_case(torch, cfg, params, wrappers, rng, kv_dtype, max_pages,
+                     eager=True, ticks=GRAPH_TICKS):
+    """[graph serve]: two serving engines (8 slots, pages of 512, pool
+    ``kv_dtype``, ``max_pages`` pages a sequence), the same 8 requests of
+    300-token prompts filling the slots; then windows of ``ticks`` decode
+    ticks, one engine's captured, the other's under eager_steps(): one
+    window to warm up (the key's first tick, the capture), one by the host
+    clock, one under the profiler.  Every request's tokens must be equal
+    between the two; the captured engine holds one graph.  ``eager``
+    False: the captured engine alone (its tick's numbers)."""
+    from qwen_inference_engine_tpu_torch.engine import step_graph
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    prompts = [rng.integers(0, cfg.vocab_size, size=300).tolist()
+               for _ in range(8)]
+    before = {n: w.launches for n, w in wrappers.items()}
+    runs, engines = {}, {}
+    for mode in ("captured", "eager") if eager else ("captured",):
+        ctx = (step_graph.eager_steps() if mode == "eager"
+               else contextlib.nullcontext())
+        cb = ContinuousBatchingEngine(
+            cfg, params, max_slots=8, page_size=PAGE, num_pages=40,
+            max_pages_per_seq=max_pages, prefill_chunk=256,
+            prefix_cache=False, sampling=SamplingParams(greedy=True),
+            kv_dtype=kv_dtype, device="cuda")
+        cb._eos = set()
+        for i, p in enumerate(prompts):
+            cb.submit(Request(request_id=i, prompt=p, max_new_tokens=64))
+        with ctx:
+            while cb.num_pending or any(s is None or not s.prefill_done
+                                        for s in cb._slots):
+                cb.step()
+            cb.step_batch(ticks)                       # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cb.step_batch(ticks)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / ticks
+            busy, kernels, top = _profile_steps(
+                torch, lambda: cb.step_batch(ticks), ticks)
+        runs[mode] = dict(tick_ms=ms, device_busy_ms=busy,
+                          busy_share=busy / ms, kernels=kernels,
+                          top=_top_per_step(top, ticks),
+                          graphs=cb.graphs.captured,
+                          capture_ms=cb.graphs.capture_s * 1e3)
+        engines[mode] = cb
+    toks = {m: [list(s.generated) for s in cb._slots]
+            for m, cb in engines.items()}
+    equal = toks["captured"] == toks.get("eager", toks["captured"])
+    cap = runs["captured"]
+    ref = runs.get("eager", dict(graphs=0))
+    label = f"{'INT8' if kv_dtype == torch.int8 else 'bf16'} pool"
+    print(f"[graph serve] {cfg.name} {cfg.num_layers} layers, {label}, "
+          f"max_pages_per_seq {max_pages}: windows of {ticks} ticks at 8 "
+          f"busy slots, tokens equal {equal if eager else '(no eager run)'}"
+          f" ({len(toks['captured'][0])} a slot) | captured "
+          f"{cap['tick_ms']:.2f} ms a tick, device busy "
+          f"{cap['device_busy_ms']:.2f} ms (busy share "
+          f"{cap['busy_share']:.3f}), graphs {cap['graphs']} (capture "
+          f"{cap['capture_ms']:.0f} ms)"
+          + (f" | eager {ref['tick_ms']:.2f} ms, device busy "
+             f"{ref['device_busy_ms']:.2f} ms (busy share "
+             f"{ref['busy_share']:.3f})" if eager else "")
+          + f" | captured top {cap['top']}", flush=True)
+    if not equal or cap["graphs"] != 1 or ref["graphs"] != 0:
+        fail(f"[graph serve] {label}, {max_pages} pages: captured and eager "
+             f"ticks part (tokens equal {equal}) or graphs {cap['graphs']} "
+             f"/ {ref['graphs']} (want 1 / 0)")
+    del engines, cb
+    torch.cuda.empty_cache()
+    counts = {n: w.launches - before[n] for n, w in wrappers.items()}
+    return counts, dict(runs, tokens_equal=equal, max_pages=max_pages)
 
 
 def run_http_spec_int8(torch, cfg, params):
@@ -3108,6 +3333,15 @@ def paged_model_check(torch, cfg4, params4, params4_f32, prompts, swaps_plain,
                 f"verify of {SPEC_T}", lk, lp, lr)
 
 
+def warm_up(eng, prompts):
+    """A short call of each batch kind (aligned, then ragged) of 16-token
+    prompts: each decode key's first step runs eagerly and its second is
+    captured, so the timed calls after it replay."""
+    B = eng.max_batch
+    eng.generate(prompts([16] * B), max_new_tokens=3)
+    eng.generate(prompts([16] * (B - 1) + [17]), max_new_tokens=3)
+
+
 def run_formats(torch, cfg, variants, wrappers, prompts):
     """Phase 4 (a)-(d): one Engine.generate run per weight format, 32 new
     tokens.  Each run must launch only its own matmul kernels (and
@@ -3121,7 +3355,7 @@ def run_formats(torch, cfg, variants, wrappers, prompts):
     for label, (vcfg, params, kv, lengths, want, must) in variants.items():
         eng = Engine(vcfg, params, max_batch=4, max_seq=1024, kv_dtype=kv,
                      sampling=SamplingParams(greedy=True), device="cuda")
-        eng.generate(prompts([16] * 4), max_new_tokens=2)  # warm-up
+        warm_up(eng, prompts)
         for w in wrappers.values():
             w.launches = 0
         res = eng.generate(prompts(lengths), max_new_tokens=32)
@@ -3337,6 +3571,7 @@ def run_generate_spec(torch, cfg, params, wrappers, rng):
     plain run's top-two gap there must be below ``2 x tol`` (a near-tie:
     two logit vectors ``tol`` apart can pick different tokens only then)."""
     from qwen_inference_engine_tpu_torch.engine import speculative as spec_mod
+    from qwen_inference_engine_tpu_torch.engine import step_graph
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.models import qwen
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
@@ -3356,11 +3591,15 @@ def run_generate_spec(torch, cfg, params, wrappers, rng):
             return out
         return record
 
+    # every step's logits are recorded where Python computes them, so
+    # both generate runs take the eager steps ([graph generate] holds the
+    # captured steps to them bit for bit)
     steps, steps_ref, rounds = [], [], []
-    with Swapped([(qwen, "compute_logits", recorder(qwen, steps))]):
+    with Swapped([(qwen, "compute_logits", recorder(qwen, steps))]), \
+            step_graph.eager_steps():
         plain = eng.generate(prompts, max_new_tokens=NEW_TOKENS).token_ids
     with Swapped([(qwen, "compute_logits", recorder(qwen, steps_ref)),
-                  *attention_swaps()]):
+                  *attention_swaps()]), step_graph.eager_steps():
         ref = eng.generate(prompts, max_new_tokens=NEW_TOKENS).token_ids
     d_ref = max(float((steps[i][b] - steps_ref[i][b]).abs().max())
                 for b in range(B)
@@ -3948,7 +4187,8 @@ def run_moe_generate(torch, cfg, params, wrappers, prompts, kv_dtype, kern,
     """``Engine.generate`` of a batch of 32 512-token prompts; the run must
     launch ``kern`` 3 times a layer a forward and no other grouped kernel,
     and its dense projections' kernel 4 times (q, k, v, o).  ``profile``:
-    then 4 decode steps under ``torch.profiler``."""
+    then 4 eager ``decode_step`` calls under ``torch.profiler``, and the
+    batch's [graph generate] case."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
 
@@ -3956,7 +4196,7 @@ def run_moe_generate(torch, cfg, params, wrappers, prompts, kv_dtype, kern,
     eng = Engine(cfg, params, max_batch=32, max_seq=512 + 64,
                  kv_dtype=kv_dtype, sampling=SamplingParams(greedy=True),
                  device="cuda")
-    eng.generate(prompts(32, 16), max_new_tokens=2)   # warm-up
+    eng.generate(prompts(32, 16), max_new_tokens=3)   # warm-up, capture
     batch = prompts(32, 512)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3977,6 +4217,9 @@ def run_moe_generate(torch, cfg, params, wrappers, prompts, kv_dtype, kern,
     if not all(0 <= t < cfg.vocab_size for t in ids) or len(set(ids)) < 2:
         fail(f"[moe generate] {label}: ids out of range or all identical")
     numbers = profile_moe_decode(torch, eng, batch, label) if profile else {}
+    if profile:
+        numbers["graph"] = graph_generate_case(
+            torch, eng, batch, f"{cfg.name} {L} layers, {label}", wrappers)
     stray = sorted(n for n in GROUPED if n != kern and counts[n])
     if counts[kern] != 3 * L * res.steps or stray \
             or counts[dense] != 4 * L * res.steps:
@@ -4024,8 +4267,7 @@ def profile_moe_decode(torch, eng, batch, label, steps=4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             decode(2 * steps)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(torch, prof)
     busy_ms = sum(ms for _, ms, _ in rows) / steps
     n_kernels = sum(n for _, _, n in rows) / steps
     top = sorted(rows, key=lambda r: -r[1])[:6]
@@ -4344,6 +4586,7 @@ def main() -> int:
     import numpy as np
 
     from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.engine import step_graph
     from qwen_inference_engine_tpu_torch.engine.engine import Engine, _bucket
     from qwen_inference_engine_tpu_torch.models import qwen
     from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
@@ -4359,6 +4602,11 @@ def main() -> int:
     from qwen_inference_engine_tpu_torch.utils.metrics import kernel_wrappers
 
     t_start = time.perf_counter()
+
+    def mark(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4439,6 +4687,7 @@ def main() -> int:
     attn_mm_recs = check_fused_attn_matmul(torch, cfg)
     grouped_recs = check_grouped_matmul(torch, PRESETS["qwen3-30b-a3b"])
     torch.cuda.empty_cache()
+    mark("3 kernels")
 
     # ---- 4. end to end: Qwen2.5-7B, full depth, W4A8 gs 256, bf16 KV
     t0 = time.perf_counter()
@@ -4469,7 +4718,7 @@ def main() -> int:
     def prompts(lengths):
         return [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in lengths]
 
-    eng.generate(prompts([16, 16, 16, 16]), max_new_tokens=2)  # warm-up
+    warm_up(eng, prompts)
     wrappers = kernel_wrappers()
     paged = {n for n in wrappers if n.startswith("paged_")}
     engines = {
@@ -4515,6 +4764,8 @@ def main() -> int:
           "decode_attention_contiguous_q8"} | rag,
          {"chunk_attention_contiguous", "kv_append_uniform_q8"} | bf16_dec),
     ]
+    for which in ("bf16 long", "int8 long"):
+        warm_up(engines[which], prompts)
     launches = {n: 0 for n in wrappers}
     runs = {}
     for label, which, lengths, must, must_not in plan:
@@ -4556,6 +4807,7 @@ def main() -> int:
                            steps=res.steps, launches=counts)
     del engines, eng
     torch.cuda.empty_cache()
+    mark("4 e2e")
 
     # ---- 4 (a)-(d): the other weight formats through Engine.generate
     L = cfg.num_layers
@@ -4590,6 +4842,34 @@ def main() -> int:
     del p_w8a16, variants
     torch.cuda.empty_cache()
 
+    # ---- 4 [graph generate]: captured decode steps against eager ones
+    ragged = [37, 120, 300, 500]
+    p_two = dict(params, layers=qwen.map_params(params["layers"],
+                                                lambda t: t[:2]))
+    graph_counts, graph_runs = run_graph_generate(torch, cfg8, [
+        ("7B W4A8 ragged, bf16 KV", params, dict(max_batch=4, max_seq=1024),
+         prompts(ragged), None),
+        ("7B W4A8 ragged, INT8 KV", params,
+         dict(max_batch=4, max_seq=1024, kv_dtype=torch.int8),
+         prompts(ragged), None),
+        ("7B W4A8 aligned, bf16 KV", params, dict(max_batch=4, max_seq=1024),
+         prompts([256] * 4), None),
+        ("(a) W4A16 gs 128 + INT4 lm_head, fused_mlp, ragged", p_w4a16,
+         dict(cfg=cfg, max_batch=4, max_seq=1024), prompts(ragged), None),
+        ("7B W4A8 at 2 layers, sampled (temperature 0.8, top-k 50, top-p "
+         "0.9, repetition penalty 1.1)", p_two,
+         dict(cfg=cfg8.replace(num_layers=2), max_batch=4, max_seq=1024),
+         prompts(ragged), SamplingParams(**SAMPLED))], wrappers)
+    del p_two
+    for n, c in graph_counts.items():
+        launches[n] += c
+    fused = graph_runs["(a) W4A16 gs 128 + INT4 lm_head, fused_mlp, ragged"]
+    if fused["launches_per_step"].get("fused_mlp") != L:
+        fail(f"[graph generate] (a): a step launched "
+             f"{fused['launches_per_step']}, want fused_mlp {L} times")
+    runs["graph generate"] = graph_runs
+    mark("4 formats and [graph generate]")
+
     # ---- 4b. serving: ContinuousBatchingEngine at full depth, then HTTP
     serve_counts, serve_stats = run_serving(torch, np, cfg8, params, wrappers,
                                             rng)
@@ -4597,12 +4877,24 @@ def main() -> int:
         launches[n] += c
     run_http(torch, cfg8, params)
     torch.cuda.empty_cache()
+    mark("4b serving, http")
     # ---- 4c. the INT8 page pool and speculative decoding
     q8_counts, q8_serve = run_serving(torch, np, cfg8, params, wrappers, rng,
                                       kv_dtype=torch.int8)
     spec_runs = {"int8 pool": q8_serve}
     for n, c in q8_counts.items():
         launches[n] += c
+    # ---- 4c [graph serve]: captured ticks against eager ones, both pools,
+    # at 4 pages a sequence; the bf16 pool's captured tick again at 64
+    graph_serve = {}
+    for kv, pages in ((torch.bfloat16, 4), (torch.int8, 4),
+                      (torch.bfloat16, SERVE_MAX_PAGES)):
+        counts, graph_serve[f"{kv} {pages} pages"] = graph_serve_case(
+            torch, cfg8, params, wrappers, rng, kv, pages, eager=pages == 4)
+        for n, c in counts.items():
+            launches[n] += c
+    runs["graph serve"] = graph_serve
+    mark("4c serve int8, [graph serve]")
     # the same echo traffic by plain chained decode first: the yardstick
     for kv, mode, draft, spec in (
             (torch.bfloat16, "step_batch", False, False),
@@ -4624,6 +4916,7 @@ def main() -> int:
         launches[n] += c
     run_http_spec_int8(torch, cfg8, params)
     torch.cuda.empty_cache()
+    mark("4c speculation")
     w4_counts, w4_serve = run_serving_w4a16(torch, cfg, p_w4a16, wrappers, rng)
     for n, c in w4_counts.items():
         launches[n] += c
@@ -4637,6 +4930,18 @@ def main() -> int:
                                                 prompts)
     for n, c in pump_counts.items():
         launches[n] += c
+    counts, pumped_graph = run_graph_generate(torch, cfg, [
+        ("pumped W4A16 gs 256 pad-free + INT4 lm_head, aligned", p_pump,
+         dict(max_batch=PUMP_BATCH, max_seq=PUMP_SEQ, pumped=True),
+         prompts([PUMP_PROMPT] * PUMP_BATCH), None)], wrappers)
+    for n, c in counts.items():
+        launches[n] += c
+    per = next(iter(pumped_graph.values()))["launches_per_step"]
+    if per.get("fused_attn_mlp") != 2 * L or \
+            per.get("kv_append_uniform") != 2 * L:
+        fail(f"[graph generate] pumped: a step launched {per}")
+    runs["graph generate"].update(pumped_graph)
+    mark("4d pumped")
     # [probe fused]: the overlap probe's fused attention + matmul
     probe_counts, probe_run = run_probe_fused(torch, cfg, wrappers)
     for n, c in probe_counts.items():
@@ -4647,6 +4952,7 @@ def main() -> int:
     del bf16, p_bench
     torch.cuda.empty_cache()
     dense_grouped = {n: launches[n] for n in GROUPED if launches[n]}
+    mark("4e probe, loader")
     if dense_grouped:
         fail(f"the dense runs launched grouped kernels: {dense_grouped}")
 
@@ -4674,7 +4980,8 @@ def main() -> int:
                 sampling=SamplingParams(greedy=True), device="cuda")
     lk = run_prefill(params4, torch.bfloat16)
     tk = e4.generate(p_ids, max_new_tokens=8).token_ids
-    with Swapped(plain_swaps()):
+    # the swaps act on Python calls, so the swapped run's steps run eagerly
+    with Swapped(plain_swaps()), step_graph.eager_steps():
         lp = run_prefill(params4, torch.bfloat16)
         tp = e4.generate(p_ids, max_new_tokens=8).token_ids
     params4_f32 = qwen.map_params(
@@ -4736,6 +5043,7 @@ def main() -> int:
 
     del params, params4, e4
     torch.cuda.empty_cache()
+    mark("5 model checks")
 
     # ---- 6. Qwen3-30B-A3B at full width: generate, serve, logits, loader
     moe_counts, moe_runs = run_moe_phases(torch, np, rng, wrappers)
@@ -4743,6 +5051,7 @@ def main() -> int:
         launches[n] += c
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was never launched: {launches}")
+    mark("6 moe")
 
     # ---- 7. results
     sources = {

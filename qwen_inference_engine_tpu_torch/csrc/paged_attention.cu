@@ -54,8 +54,9 @@
 // once.  span (a multiple of the 64-key tile) and splits come from the
 // host's shapes alone (ops/paged_attention.plan_paged_split: B, Hk, the
 // row groups and S), so a call reads nothing back from the device and is
-// capturable in a CUDA graph; the serving callers pass tables trimmed to
-// the pages their rows hold, so S follows the live rows.  Each split
+// capturable in a CUDA graph; the serving callers pass tables of their
+// full max_pages_per_seq width, so a row's splits, and so its bits, do not
+// follow the rows beside it (splits past a row's keys are empty).  Each split
 // writes its f32 output, normalised, and its log-sum-exp to the workspace
 // [splits, B * T * Hq, D] + [splits, B * T * Hq]; decode_merge
 // (attention_mma.cuh) adds the splits in split order, no atomics, so two

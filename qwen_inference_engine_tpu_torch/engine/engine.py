@@ -5,12 +5,25 @@ power-of-two buckets (at least 16), padded batch rows given length 1, the
 uniform (aligned batch) or ragged decode chosen per call, EOS masked on the
 device with the host polling on a growing cadence, the seen mask for the
 penalties, and TTFT / decode tok/s measured around work that ends in a
-device sync.  Each step runs eagerly; no CUDA graph yet.  Decode steps
-run ``decode_step`` by default, as the JAX engine does off a TPU.  An
-engine built with ``pumped=True`` decodes an aligned batch through
-``decode_step_pumped`` (the batch as two halves, attention beside the MLP
-in one launch) wherever ``pumped_supported`` holds for its batch: the JAX
-engine's TPU branch, which on the H100 is slower than the plain step.
+device sync.  Decode steps run ``decode_step`` by default, as the JAX
+engine does off a TPU.  An engine built with ``pumped=True`` decodes an
+aligned batch through ``decode_step_pumped`` (the batch as two halves,
+attention beside the MLP in one launch) wherever ``pumped_supported``
+holds for its batch: the JAX engine's TPU branch, which on the H100 is
+slower than the plain step.
+
+The decode step is the counterpart of the JAX engine's ``_decode_step``:
+one body (the forward, sampling, the EOS mask, the token written into
+``out [B, max_seq]`` at a column kept on the device, the positions
+advanced) over static buffers that the engine keeps across calls
+(``_DecodeBuffers``: the KV cache, cleared each call as the JAX engine
+reuses its donated cache, the generator, the sampling tensors).  On the
+card it is captured as a CUDA graph once per key (``engine/
+step_graph.py``; the key is the JAX engine's ``(top_k, greedy,
+track_repetition, uniform)`` with ``pumped``, the batch, S, the KV dtype
+and whether top-p cuts the whole vocabulary) and replayed; under
+``step_graph.eager_steps()`` and on the CPU the same body runs eagerly.
+The prefill stays eager.
 
 ``Engine.generate_speculative`` is greedy generation with prompt-lookup
 speculation (``engine/speculative.py``): token-identical to ``generate``
@@ -30,6 +43,7 @@ import numpy as np
 import torch
 
 from qwen_inference_engine_tpu_torch.config import ModelConfig
+from qwen_inference_engine_tpu_torch.engine.step_graph import StepGraphs
 from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
 from qwen_inference_engine_tpu_torch.models.qwen import (
     decode_step,
@@ -40,6 +54,7 @@ from qwen_inference_engine_tpu_torch.models.qwen import (
 )
 from qwen_inference_engine_tpu_torch.ops.sampling import (
     SamplingParams,
+    SamplingTensors,
     sample,
     seen_mask_from_prompts,
     update_seen_mask,
@@ -53,6 +68,58 @@ class GenerationResult:
     ttft_s: float                   # time to first token (this call)
     decode_tokens_per_s: float      # aggregate decode throughput
     steps: int
+
+
+@dataclasses.dataclass
+class _DecodeBuffers:
+    """The static buffers of one engine's decode steps (a captured step
+    binds their addresses): the KV cache; the last tokens ``tok [B]``; the
+    next write positions ``pos [B]``, advanced inside the step; the EOS
+    mask ``done [B]``; the tokens so far ``out [B, max_seq]`` and the next
+    column ``col [1]``; the seen mask ``[B, V]`` (made at the first call
+    that tracks repetition); the EOS ids; the sampling tensors and the
+    generator."""
+
+    cache: KVCache
+    tok: torch.Tensor
+    pos: torch.Tensor
+    done: torch.Tensor
+    out: torch.Tensor
+    col: torch.Tensor
+    eos: torch.Tensor
+    sp: SamplingTensors
+    gen: torch.Generator
+    seen: Optional[torch.Tensor] = None
+
+    @torch.inference_mode()
+    def state(self) -> dict:
+        """A copy of everything a decode step reads or writes, the
+        generator's state included."""
+        snap = {f.name: getattr(self, f.name).clone()
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)}
+        snap["cache"] = [t.clone() for t in self._cache_tensors()]
+        snap["sp"] = self.sp.buf.clone()
+        snap["gen"] = self.gen.get_state()
+        return snap
+
+    @torch.inference_mode()
+    def load_state(self, snap: dict) -> None:
+        """Copy a ``state()`` back into the same buffers, in place."""
+        for name, t in snap.items():
+            if name == "cache":
+                for dst, src in zip(self._cache_tensors(), t):
+                    dst.copy_(src)
+            elif name == "sp":
+                self.sp.buf.copy_(t)
+            elif name == "gen":
+                self.gen.set_state(t)
+            else:
+                getattr(self, name).copy_(t)
+
+    def _cache_tensors(self):
+        c = self.cache
+        return [t for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None]
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -89,12 +156,34 @@ class Engine:
         self.seed = seed
         self.pumped = pumped
         self.metrics = Metrics()
+        # the captured decode steps by key, and the buffers they bind
+        self.graphs = StepGraphs(self.device)
+        self._bufs: Optional[_DecodeBuffers] = None
+        self._step = None     # (key, body) of the current call's steps
 
     def new_cache(self) -> KVCache:
         return KVCache.create(self.cfg.num_layers, self.max_batch,
                               self.max_seq, self.cfg.num_kv_heads,
                               self.cfg.head_dim, dtype=self.kv_dtype,
                               device=self.device)
+
+    def buffers(self) -> _DecodeBuffers:
+        """The decode steps' static buffers, made at the first call."""
+        if self._bufs is None:
+            B, dev = self.max_batch, self.device
+            cache = self.new_cache()
+
+            def zeros(*shape, dtype=torch.int64):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            self._bufs = _DecodeBuffers(
+                cache=cache, tok=zeros(B), pos=zeros(B),
+                done=zeros(B, dtype=torch.bool),
+                out=zeros(B, cache.k.shape[3]), col=zeros(1),
+                eos=torch.tensor(list(self.cfg.eos_token_ids), device=dev),
+                sp=SamplingTensors.create(dev),
+                gen=torch.Generator(device=dev))
+        return self._bufs
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -125,53 +214,11 @@ class Engine:
                  sampling: Optional[SamplingParams] = None,
                  seed: Optional[int] = None) -> GenerationResult:
         sp = sampling or self.sampling
-        if not 0 < len(prompts) <= self.max_batch:
-            raise ValueError(f"{len(prompts)} prompts for max_batch "
-                             f"{self.max_batch}")
-        B = self.max_batch
-        lens_list = [len(p) for p in prompts]
-        T = _bucket(max(lens_list))
-        if T + max_new_tokens > self.max_seq:
-            raise ValueError(f"prompt bucket {T} + {max_new_tokens} new "
-                             f"tokens exceeds max_seq {self.max_seq}")
-
-        tokens = np.zeros((B, T), np.int64)
-        lens = np.ones((B,), np.int64)  # padded rows get length 1 (harmless)
-        for i, p in enumerate(prompts):
-            tokens[i, : len(p)] = p
-            lens[i] = len(p)
-        dev = self.device
-        tokens_d = torch.from_numpy(tokens).to(dev)
-        lens_d = torch.from_numpy(lens).to(dev)
-
-        seen = None
-        if sp.repetition_penalty != 1.0 or sp.presence_penalty != 0.0:
-            seen = seen_mask_from_prompts(tokens_d, lens_d, self.cfg.vocab_size)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(self.seed if seed is None else seed)
-        cache = self.new_cache()
-        # aligned batch (all rows the same length) -> uniform decode: the
-        # fresh KV rows go through the append kernels
-        uniform = bool(np.all(lens == lens[0]))
-        pumped = (self.pumped and uniform
-                  and pumped_supported(self.cfg, self.params, cache, B))
-        eos = torch.tensor(list(self.cfg.eos_token_ids), device=dev)
-
-        self._sync()
-        t0 = time.perf_counter()
-        logits, cache = prefill_chunked(self.params, self.cfg, tokens_d,
-                                        lens_d, cache, chunk=512)
-        tok = sample(logits, sp, seen, gen)
-        if seen is not None:
-            update_seen_mask(seen, tok)
-        first = tok.cpu().numpy()  # value fetch = device sync
-        ttft = time.perf_counter() - t0
+        _, ttft = self.start(prompts, max_new_tokens, sp, seed)
+        lens = [len(p) for p in prompts]
         self.metrics.observe_ttft(ttft)
-        self.metrics.observe_prefill(int(lens[: len(prompts)].sum()))
-
-        out_cols = [tok]
-        done = torch.from_numpy(np.isin(first, list(self.cfg.eos_token_ids))
-                                ).to(dev)
+        self.metrics.observe_prefill(sum(lens))
+        b = self.buffers()
         t1 = time.perf_counter()
         steps = 0
         # EOS is polled on a growing cadence so the host rarely waits on
@@ -179,28 +226,14 @@ class Engine:
         eos_every = 4
         next_poll = eos_every
         for step in range(1, max_new_tokens):
-            pos = lens_d + (step - 1)
-            if pumped:
-                logits, cache = decode_step_pumped(self.params, self.cfg, tok,
-                                                   pos, cache)
-            else:
-                logits, cache = decode_step(self.params, self.cfg, tok, pos,
-                                            cache, uniform_decode=uniform)
-            nxt = sample(logits, sp, seen, gen)
-            if seen is not None:
-                update_seen_mask(seen, nxt)
-            is_eos = (nxt[:, None] == eos[None, :]).any(dim=-1)
-            nxt = torch.where(done, torch.zeros_like(nxt), nxt)
-            done = done | (is_eos & ~done)
-            tok = nxt
-            out_cols.append(tok)
+            self.decode()
             steps += 1
             if step >= next_poll:
-                if bool(done.all()):
+                if bool(b.done.all()):
                     break
                 eos_every = min(eos_every * 2, 64)
                 next_poll = step + eos_every
-        mat = torch.stack(out_cols, dim=1).cpu().numpy()  # one sync
+        mat = b.out[:, :steps + 1].cpu().numpy()  # one sync
         dt = max(time.perf_counter() - t1, 1e-9)
         n_real = len(prompts)
         self.metrics.observe_decode(steps * n_real, dt)
@@ -219,3 +252,111 @@ class Engine:
             decode_tokens_per_s=steps * n_real / dt if steps else 0.0,
             steps=steps + 1,
         )
+
+    @torch.inference_mode()
+    def start(self, prompts: Sequence[Sequence[int]], max_new_tokens: int,
+              sp: SamplingParams, seed: Optional[int] = None):
+        """A call's prefill (eager) and first token, into the decode
+        buffers: the cache cleared and filled, the sampling tensors and
+        the generator loaded, the seen mask (when the call tracks
+        repetition), the first tokens in ``out[:, 0]``.  Sets the key of
+        the call's decode steps.  Returns the first tokens ``[B]`` and the
+        TTFT: from the prefill's launch to the value fetch of the first
+        tokens, a device sync."""
+        if not 0 < len(prompts) <= self.max_batch:
+            raise ValueError(f"{len(prompts)} prompts for max_batch "
+                             f"{self.max_batch}")
+        B = self.max_batch
+        lens_list = [len(p) for p in prompts]
+        T = _bucket(max(lens_list))
+        if T + max_new_tokens > self.max_seq:
+            raise ValueError(f"prompt bucket {T} + {max_new_tokens} new "
+                             f"tokens exceeds max_seq {self.max_seq}")
+
+        tokens = np.zeros((B, T), np.int64)
+        lens = np.ones((B,), np.int64)  # padded rows get length 1 (harmless)
+        for i, p in enumerate(prompts):
+            tokens[i, : len(p)] = p
+            lens[i] = len(p)
+        dev = self.device
+        b = self.buffers()
+        tokens_d = torch.from_numpy(tokens).to(dev)
+        lens_d = torch.from_numpy(lens).to(dev)
+        track = sp.repetition_penalty != 1.0 or sp.presence_penalty != 0.0
+        seen = None
+        if track:
+            seen = seen_mask_from_prompts(tokens_d, lens_d,
+                                          self.cfg.vocab_size)
+            if b.seen is None:
+                b.seen = seen
+            else:
+                b.seen.copy_(seen)
+            seen = b.seen
+        b.sp.load(sp)
+        b.gen.manual_seed(self.seed if seed is None else seed)
+        cache = b.cache
+        cache.clear()
+        # aligned batch (all rows the same length) -> uniform decode: the
+        # fresh KV rows go through the append kernels
+        uniform = bool(np.all(lens == lens[0]))
+        pumped = (self.pumped and uniform
+                  and pumped_supported(self.cfg, self.params, cache, B))
+        self._step = ((sp.top_k, sp.greedy, track, uniform, pumped, B,
+                       cache.k.shape[3], self.kv_dtype,
+                       not sp.greedy and sp.top_k <= 0 and sp.top_p < 1.0),
+                      self._decode_body(sp, track, uniform, pumped))
+
+        self._sync()
+        t0 = time.perf_counter()
+        logits, _ = prefill_chunked(self.params, self.cfg, tokens_d, lens_d,
+                                    cache, chunk=512)
+        tok = sample(logits, sp, seen, b.gen, b.sp)
+        if seen is not None:
+            update_seen_mask(seen, tok)
+        first = tok.cpu().numpy()  # value fetch = device sync
+        ttft = time.perf_counter() - t0
+        b.tok.copy_(tok)
+        b.pos.copy_(lens_d)
+        b.out[:, 0] = tok
+        b.col.fill_(1)
+        b.done.copy_(torch.from_numpy(np.isin(first,
+                                              self.cfg.eos_token_ids)))
+        return first, ttft
+
+    @torch.inference_mode()
+    def decode(self) -> torch.Tensor:
+        """One decode step of the call ``start`` began, captured or eager
+        (``engine/step_graph.py``).  Returns its logits ``[B, V]``, valid
+        until the next step."""
+        key, body = self._step
+        return self.graphs.run(key, body, (self.buffers().gen,))
+
+    def _decode_body(self, sp: SamplingParams, track: bool, uniform: bool,
+                     pumped: bool):
+        """The decode step over the static buffers: forward, sampling with
+        the call's tensors, the seen mask, the EOS mask (finished rows
+        emit 0), the token into ``out`` at ``col``, ``col`` and the
+        positions advanced.  Returns the logits."""
+        b, params, cfg = self.buffers(), self.params, self.cfg
+        seen = b.seen if track else None
+
+        def body():
+            if pumped:
+                logits, _ = decode_step_pumped(params, cfg, b.tok, b.pos,
+                                               b.cache)
+            else:
+                logits, _ = decode_step(params, cfg, b.tok, b.pos, b.cache,
+                                        uniform_decode=uniform)
+            nxt = sample(logits, sp, seen, b.gen, b.sp)
+            if seen is not None:
+                update_seen_mask(seen, nxt)
+            is_eos = (nxt[:, None] == b.eos[None, :]).any(dim=-1)
+            nxt = torch.where(b.done, torch.zeros_like(nxt), nxt)
+            b.done |= is_eos & ~b.done
+            b.tok.copy_(nxt)
+            b.out.index_copy_(1, b.col, nxt[:, None])
+            b.col += 1
+            b.pos += 1
+            return logits
+
+        return body

@@ -30,13 +30,27 @@ the requests at equal memory):
   request, so a verify's rejected-draft writes stay on the request's own
   pages.
 
-Each step runs eagerly (no CUDA graph yet).  Sampling draws from
-``stream_generator`` (``ops/sampling.py``): seeded per (seed, request id)
-for a prefill piece, per (seed, step count) for a decode tick or a
-speculation round, and per chain position j within a round; so a chained
-window samples exactly as the same ticks run one by one.  The streams are
-not the JAX package's ``fold_in`` streams, so only greedy rows match it
-token for token.
+The plain decode tick is the counterpart of the JAX engine's
+``_jit_decode``: one body (the forward over the page pool, per-row
+sampling, the seen mask) over static buffers (``_TickBuffers``: the last
+tokens, the positions, advanced inside the tick, the block tables, the
+active mask, the sampling rows and one generator), captured on the card
+as one CUDA graph per engine (``engine/step_graph.py``) and replayed by
+``step``, ``step_batch`` and ``_mixed_chain_batch``; under
+``step_graph.eager_steps()`` and on the CPU it runs eagerly.  One graph
+serves every tick because every tick, and every verify, passes block
+tables of the engine's full ``max_pages_per_seq`` width
+(``_run_tables``): the paged attention plans its key splits over the
+tables' width, so a row's output bits do not depend on the rows beside
+it.  Prefill pieces and speculation rounds run eagerly.
+
+Sampling draws from ``stream_generator`` (``ops/sampling.py``): seeded
+per (seed, request id) for a prefill piece, per (seed, step count) for a
+decode tick (the tick's generator reseeded in place with that stream's
+seed) or a speculation round, and per chain position j within a round;
+so a chained window samples exactly as the same ticks run one by one.
+The streams are not the JAX package's ``fold_in`` streams, so only greedy
+rows match it token for token.
 
 Dense and Qwen3-MoE models serve alike, as target or drafter (an MoE
 layer routes every row of a step, a verify's B x (k+1) rows included, as
@@ -49,6 +63,7 @@ tests do): it never drops to the CPU by itself.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional
@@ -62,6 +77,7 @@ from qwen_inference_engine_tpu_torch.engine.prefix_cache import PagePoolMixin
 from qwen_inference_engine_tpu_torch.engine.spec_engine import (
     SpeculationMixin,
 )
+from qwen_inference_engine_tpu_torch.engine.step_graph import StepGraphs
 from qwen_inference_engine_tpu_torch.engine.types import (  # noqa: F401
     DECODE_STREAM,
     FinishedRequest,
@@ -84,23 +100,28 @@ from qwen_inference_engine_tpu_torch.ops.sampling import (
     SamplingParams,
     sample_rows,
     stream_generator,
+    stream_seed,
 )
 from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
 
 
-def live_table_width(pages_held: int, max_pages: int) -> int:
-    """The width of the block tables a decode tick or a verify passes: the
-    most pages any of its rows holds (``pages_held``), rounded up to a
-    power of two, so that a captured step would need few shapes, and at
-    most ``max_pages``.  A row reads and writes only the pages it holds
-    (admission allocates them all), so the columns cut off change no
-    result; the paged kernels then split the keys the rows can reach, not
-    the longest sequence the engine admits.  The split's span follows the
-    width, so a row's attention is bit-stable only while the widest row
-    beside it keeps the tick in one width bucket: another bucket moves
-    split boundaries, and the output's last bits (within 2^-7, a card
-    test) may then flip a greedy near-tie."""
-    return min(max_pages, 1 << max(0, pages_held - 1).bit_length())
+@dataclasses.dataclass
+class _TickBuffers:
+    """The static buffers of the decode tick (a captured tick binds their
+    addresses): the last tokens ``tok [slots]``, the next write positions
+    ``pos [slots]`` (advanced inside the tick, so a chained window's tick
+    i writes at ``pos0 + i``), the block tables ``[slots,
+    max_pages_per_seq]``, the active mask, the sampling rows (``[slots]``
+    each, refilled when the slot table changes), the row ids and the
+    generator, reseeded before each tick."""
+
+    tok: torch.Tensor
+    pos: torch.Tensor
+    tables: torch.Tensor
+    active: torch.Tensor
+    sp: Dict[str, torch.Tensor]
+    rows: torch.Tensor
+    gen: torch.Generator
 
 
 class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
@@ -156,7 +177,8 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         self.draft_cache = (PagedKVCache.create(
             draft_cfg.num_layers, num_pages, page_size,
             draft_cfg.num_kv_heads, draft_cfg.head_dim, dtype=kv_dtype,
-            device=self.device) if self._model_draft else None)
+            device=self.device)
+            if self._model_draft else None)
         # chained prompt lookup: the device history buffer [slots, cap]
         # (allocated at first use), its per-slot watermarks, and the
         # acceptance EMA that chooses between chained rounds and plain
@@ -166,7 +188,7 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         self._spec_tpf_ema: Optional[float] = None
         self._spec_probe_countdown = 0
         # per-slot sampling-param rows change only when the slot table does
-        self._sp_rows_cache = None
+        self._sp_rows_stale = True
         # page 0 is the scratch page for idle slots / unallocated entries
         self._free_pages: List[int] = list(range(num_pages - 1, 0, -1))
         self.prefix_cache = prefix_cache
@@ -198,6 +220,27 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         # the device: the repetition penalty's input in serving
         self._seen = torch.zeros((max_slots, cfg.vocab_size), dtype=torch.bool,
                                  device=self.device)
+        # the captured decode tick and the buffers it binds
+        self.graphs = StepGraphs(self.device)
+        self._tick = self._tick_buffers()
+
+    def _tick_buffers(self) -> _TickBuffers:
+        S, dev = self.max_slots, self.device
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return _TickBuffers(
+            tok=zeros(S), pos=zeros(S),
+            tables=zeros(S, self.max_pages_per_seq, dtype=torch.int32),
+            active=zeros(S, dtype=torch.bool),
+            sp={"temperature": zeros(S, dtype=torch.float32),
+                "top_p": zeros(S, dtype=torch.float32),
+                "repetition_penalty": zeros(S, dtype=torch.float32),
+                "presence_penalty": zeros(S, dtype=torch.float32),
+                "top_k": zeros(S), "greedy": zeros(S, dtype=torch.bool)},
+            rows=torch.arange(S, device=dev),
+            gen=torch.Generator(device=dev))
 
     # ------------------------------------------------------------------
     @property
@@ -267,14 +310,17 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
 
     def _sp_rows(self) -> dict:
         """Each slot decodes with its own request's parameters; idle slots
-        take the engine defaults.  Cached until the slot table changes."""
-        if self._sp_rows_cache is None:
+        take the engine defaults.  The tick's static rows, refilled when
+        the slot table changes."""
+        if self._sp_rows_stale:
             rows = [self.sampling] * self.max_slots
             for s in self._slots:
                 if s is not None and s.request.sampling is not None:
                     rows[s.slot] = s.request.sampling
-            self._sp_rows_cache = self._sp_tensors(rows)
-        return self._sp_rows_cache
+            for name, t in self._sp_tensors(rows).items():
+                self._tick.sp[name].copy_(t)
+            self._sp_rows_stale = False
+        return self._tick.sp
 
     def _active_mask(self, decoding) -> torch.Tensor:
         """[max_slots] bool: slots decoding this tick (seen-mask updates are
@@ -359,7 +405,7 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
                        prefilled=cached_len, admit_seq=self._admit_count)
         self._admit_count += 1
         self._slots[free_slot] = run
-        self._sp_rows_cache = None
+        self._sp_rows_stale = True
         # prompt-token presence row for the repetition penalty
         self._seen[free_slot] = False
         self._seen[free_slot, self._tensor(np.asarray(req.prompt, np.int64))] \
@@ -447,7 +493,7 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         self._seq_lens[run.slot] = 0
         self._slots[run.slot] = None
         self._hist_synced.pop(run.slot, None)   # the next tenant rewrites
-        self._sp_rows_cache = None
+        self._sp_rows_stale = True
 
     # ------------------------------------------------------------------
     def _drain_finished(self) -> List[FinishedRequest]:
@@ -457,41 +503,61 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         out, self._finished = self._finished, []
         return out
 
-    def _decode_inputs(self, decoding):
-        """Device tensors of one decode window: last tokens and next write
-        positions [max_slots], the live block tables (``_live_tables``),
-        the active mask and the sampling rows."""
+    def _load_tick(self, decoding) -> None:
+        """Load one decode window's inputs into the tick's buffers: last
+        tokens and next write positions [max_slots], the block tables
+        (``_run_tables``), the active mask and the sampling rows."""
         toks = np.zeros((self.max_slots,), np.int64)
         pos = np.zeros((self.max_slots,), np.int64)
         for s in decoding:
             toks[s.slot] = s.last_token
             pos[s.slot] = s.seq_len   # next write position
-        return (self._tensor(toks), self._tensor(pos),
-                self._tensor(self._live_tables(decoding)),
-                self._active_mask(decoding), self._sp_rows())
+        tables = self._run_tables(decoding)
+        t = self._tick
+        for dst, src in ((t.tok, toks), (t.pos, pos), (t.tables, tables)):
+            dst.copy_(torch.from_numpy(src))
+        t.active.copy_(self._active_mask(decoding))
+        self._sp_rows()
 
-    def _live_tables(self, runs) -> np.ndarray:
-        """Block tables ``[max_slots, live_table_width(...)]`` of a decode
-        tick or a verify: the rows of ``runs``, every other row zeroed (so
-        it only touches the scratch page)."""
-        width = live_table_width(max((len(s.pages) for s in runs),
-                                     default=1), self.max_pages_per_seq)
-        tables = np.zeros((self.max_slots, width), np.int32)
+    def _run_tables(self, runs) -> np.ndarray:
+        """Block tables ``[max_slots, max_pages_per_seq]`` of a decode tick
+        or a verify: the rows of ``runs``, every other row zeroed (so it
+        only touches the scratch page).  Always the full width: the paged
+        attention plans its key splits over the tables' width, so one
+        width per engine keeps a row's bits off its neighbours' lengths."""
+        tables = np.zeros_like(self._block_tables)
         for s in runs:
-            tables[s.slot] = self._block_tables[s.slot, :width]
+            tables[s.slot] = self._block_tables[s.slot]
         return tables
 
-    def _decode_tick(self, tok, pos, tables, active, sp_rows):
-        """One decode step of every slot, on the device: returns the sampled
-        tokens [max_slots]; only active slots mark them seen."""
-        logits, self.cache = decode_step(self.params, self.cfg, tok, pos,
-                                         self.cache, tables)
-        nxt = sample_rows(logits,
-                          self._generator(DECODE_STREAM + self._step_count),
-                          k_cap=self.k_cap, seen_mask=self._seen, **sp_rows)
-        rows = torch.arange(self.max_slots, device=self.device)
-        self._seen[rows, nxt] = self._seen[rows, nxt] | active
+    def _decode_tick(self) -> torch.Tensor:
+        """One decode step of every slot from the tick's buffers (loaded by
+        ``_load_tick``, or left by the tick before it): captured or eager
+        (``engine/step_graph.py``).  Returns the sampled tokens
+        [max_slots], a tensor of its own; only active slots mark them
+        seen."""
+        t = self._tick
+        t.gen.manual_seed(stream_seed(self.seed,
+                                      DECODE_STREAM + self._step_count))
+        nxt = self.graphs.run(
+            ("decode", self.max_slots, self.max_pages_per_seq,
+             self.cache.k_pages.dtype, self.k_cap), self._tick_body,
+            (t.gen,))
         self._step_count += 1
+        return nxt.clone()
+
+    def _tick_body(self) -> torch.Tensor:
+        """The decode tick over the static buffers: the forward, per-row
+        sampling, the seen mask; the tokens and positions advanced for the
+        next tick of a window.  Returns the sampled tokens."""
+        t = self._tick
+        logits, _ = decode_step(self.params, self.cfg, t.tok, t.pos,
+                                self.cache, t.tables)
+        nxt = sample_rows(logits, t.gen, k_cap=self.k_cap,
+                          seen_mask=self._seen, **t.sp)
+        self._seen[t.rows, nxt] = self._seen[t.rows, nxt] | t.active
+        t.tok.copy_(nxt)
+        t.pos += 1
         return nxt
 
     def _deliver(self, decoding, mat: np.ndarray, t0: float) -> None:
@@ -550,7 +616,8 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             # forward for one token per row; take the plain tick
         if decoding:
             t0 = time.perf_counter()
-            nxt = self._decode_tick(*self._decode_inputs(decoding))
+            self._load_tick(decoding)
+            nxt = self._decode_tick()
             self._deliver(decoding, nxt.cpu().numpy()[None], t0)
         return self._drain_finished()
 
@@ -599,11 +666,8 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         n = max(1, min([n] + [s.request.max_new_tokens - len(s.generated)
                               for s in decoding]))
         t0 = time.perf_counter()
-        tok, pos0, tables, active, sp_rows = self._decode_inputs(decoding)
-        cols = []
-        for i in range(n):
-            tok = self._decode_tick(tok, pos0 + i, tables, active, sp_rows)
-            cols.append(tok)
+        self._load_tick(decoding)
+        cols = [self._decode_tick() for _ in range(n)]
         self._deliver(decoding, torch.stack(cols, 0).cpu().numpy(), t0)
         return self._drain_finished()
 
@@ -618,7 +682,7 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         n = max(1, min([n] + [s.request.max_new_tokens - len(s.generated)
                               for s in decoding]))
         t0 = time.perf_counter()
-        tok, pos0, tables, active, sp_rows = self._decode_inputs(decoding)
+        self._load_tick(decoding)
         start0 = target.prefilled
         # the window's prompt tokens and the target's table, uploaded once
         prompt = self._tensor(np.asarray(
@@ -632,8 +696,7 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             target.prefilled = start0 + (i + 1) * chunk
             self.metrics.observe_prefill(chunk)
             self._step_count += 1
-            tok = self._decode_tick(tok, pos0 + i, tables, active, sp_rows)
-            cols.append(tok)
+            cols.append(self._decode_tick())
         self._deliver(decoding, torch.stack(cols, 0).cpu().numpy(), t0)
         return self._drain_finished()
 

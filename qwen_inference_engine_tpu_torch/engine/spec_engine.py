@@ -123,7 +123,7 @@ class SpeculationMixin:
             tok_last[s.slot] = s.last_token      # at position s.seq_len
             pos0[s.slot] = s.seq_len
         return (self._tensor(tok_last), self._tensor(pos0),
-                self._tensor(self._live_tables(decoding)))
+                self._tensor(self._run_tables(decoding)))
 
     def _step_speculative_model(self, decoding: List[_Running]) -> None:
         """One draft-model speculation round across all decoding slots."""
@@ -272,7 +272,7 @@ class SpeculationMixin:
         rounds = self._spec_rounds_cap(n, decoding)
         t0 = time.perf_counter()
         lens = self._sync_hist(decoding)
-        tables = self._tensor(self._live_tables(decoding))
+        tables = self._tensor(self._run_tables(decoding))
         active, sp_rows = self._active_mask(decoding), self._sp_rows()
         chains, n_news = [], []
         for _ in range(rounds):
@@ -353,7 +353,7 @@ class SpeculationMixin:
             pos0[s.slot] = s.seq_len
         chain, n_new = self._verify(
             self._tensor(toks), self._tensor(pos0),
-            self._tensor(self._live_tables(decoding)),
+            self._tensor(self._run_tables(decoding)),
             self._tensor(drafts), self._active_mask(decoding),
             self._sp_rows())
         self._emit_spec_round(decoding, chain[None].cpu().numpy(),

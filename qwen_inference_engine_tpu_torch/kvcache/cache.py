@@ -60,6 +60,12 @@ class KVCache:
                        k_scale=scales() if quant else None,
                        v_scale=scales() if quant else None)
 
+    def clear(self) -> None:
+        """Zero the cache in place, as ``create`` made it."""
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is not None:
+                t.zero_()
+
     def write(self, layer: int, k: torch.Tensor, v: torch.Tensor,
               writer: Callable[[torch.Tensor, int, torch.Tensor], None]
               ) -> None:

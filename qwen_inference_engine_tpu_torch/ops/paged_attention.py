@@ -25,9 +25,10 @@ T * G query rows of one KV head (``paged_row_groups``) over one split of
 the row's keys, as ``plan_paged_split`` plans from the shapes alone (the
 tables' width gives S = max_pages * page; a call reads nothing back and
 is capturable in a CUDA graph), then a merge launch, none for a bf16 plan
-of one split.  Pass tables no wider than the rows need: the serving
-engine trims them to the pages its rows hold, so the plan splits the live
-keys and not the longest sequence the engine admits.
+of one split.  Since the plan follows the tables' width, a row's bits
+follow it too: the serving engine passes every decode tick and verify
+tables of its full ``max_pages_per_seq`` width, so a row's output does
+not depend on the rows beside it (splits past a row's keys are empty).
 
 ``paged_attention_plain`` gathers the pages (``paged_read``; an int8 pool
 is dequantized to q's dtype), puts zeros where keys lie at or past a row's

@@ -11,11 +11,20 @@ has no counterpart.
 so one decode step serves requests with different temperature / top-p /
 top-k / greedy / penalties; ``k_cap`` is the top-k selection width.
 
+``sample`` takes the call's temperature, top-p and penalties as
+``SamplingTensors`` on the device (the JAX engine's ``sp_dyn``), made once
+per call; top-k, greedy and whether top-p cuts the whole vocabulary stay
+host values, fixed per captured step.  Nothing in ``sample`` or
+``sample_rows`` copies host data to the device or reads back from it, so
+both run inside a CUDA graph: the draw is ``torch.multinomial``'s own
+exponential race without its host-side check of the probabilities.
+
 ``stream_generator`` is the serving engines' stream rule: one sampling
 call draws from a generator seeded by (seed, stream) and, for position
 j >= 1 of a speculation chain, j; a speculation round's positions are
 thus independent streams, and a chained window draws exactly as the same
-rounds run one by one.
+rounds run one by one.  ``stream_seed`` is that seed, for a generator
+reseeded in place (a captured decode tick's).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -39,26 +49,66 @@ class SamplingParams:
     greedy: bool = False
 
 
+@dataclasses.dataclass
+class SamplingTensors:
+    """The data fields of one call's ``SamplingParams`` as f32 scalars on
+    the device, views of one buffer that ``load`` fills with a single copy:
+    the temperature (at least 1e-6) and its f32 reciprocal, top-p and both
+    penalties.  A captured step binds the buffer; each call loads its
+    values before the step runs."""
+
+    buf: torch.Tensor
+
+    FIELDS = ("temperature", "inv_temperature", "top_p",
+              "repetition_penalty", "presence_penalty")
+
+    @staticmethod
+    def create(device) -> "SamplingTensors":
+        return SamplingTensors(torch.zeros(len(SamplingTensors.FIELDS),
+                                           dtype=torch.float32, device=device))
+
+    @staticmethod
+    def of(params: SamplingParams, device) -> "SamplingTensors":
+        return SamplingTensors.create(device).load(params)
+
+    def load(self, params: SamplingParams) -> "SamplingTensors":
+        temp = np.float32(max(float(params.temperature), 1e-6))
+        host = np.asarray([temp, np.float32(1) / temp, params.top_p,
+                           params.repetition_penalty,
+                           params.presence_penalty], np.float32)
+        self.buf.copy_(torch.from_numpy(host))
+        return self
+
+    def __getattr__(self, name):
+        if name in SamplingTensors.FIELDS:
+            return self.buf[SamplingTensors.FIELDS.index(name)]
+        raise AttributeError(name)
+
+
+def stream_seed(seed: int, stream: int, position: int = 0) -> int:
+    """The seed of one sampling call's stream (``stream_generator``)."""
+    return (seed * 1_000_003 + stream + position * 2 ** 40) % (2 ** 63)
+
+
 def stream_generator(device, seed: int, stream: int,
                      position: int = 0) -> torch.Generator:
     """The generator of one sampling call: seeded by ``(seed, stream)`` and
     the chain ``position`` (0 for a plain decode tick or a prefill piece;
     position j of a speculation round's chain is stream j of that round)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((seed * 1_000_003 + stream + position * 2 ** 40)
-                    % (2 ** 63))
+    gen.manual_seed(stream_seed(seed, stream, position))
     return gen
 
 
 def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor,
-                             penalty) -> torch.Tensor:
+                             penalty: torch.Tensor) -> torch.Tensor:
     """HF-style repetition penalty: seen tokens' logits are divided by
     ``penalty`` when positive, multiplied when negative.
 
-    logits: [B, V] fp32; seen_mask: [B, V] bool; penalty: scalar or [B].
+    logits: [B, V] fp32; seen_mask: [B, V] bool; penalty: an f32 tensor on
+    the logits' device, a scalar or [B].
     """
-    penalty = torch.as_tensor(penalty, dtype=logits.dtype, device=logits.device)
-    penalty = penalty.expand(logits.shape[:1])[:, None]
+    penalty = penalty.to(logits.dtype).expand(logits.shape[:1])[:, None]
     penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
     return torch.where(seen_mask, penalized, logits)
 
@@ -67,7 +117,7 @@ def _mask_top_p(sorted_logits: torch.Tensor, top_p) -> torch.Tensor:
     """Mask (to -inf) the tail of descending-sorted logits beyond cumulative
     probability ``top_p`` (a float or per-row ``[B]``); the top-1 is always
     kept."""
-    if isinstance(top_p, torch.Tensor):
+    if isinstance(top_p, torch.Tensor) and top_p.dim():
         top_p = top_p.to(sorted_logits.dtype)[:, None]
     probs = torch.softmax(sorted_logits, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
@@ -78,34 +128,53 @@ def _mask_top_p(sorted_logits: torch.Tensor, top_p) -> torch.Tensor:
 
 
 def _categorical(logits: torch.Tensor, generator: Optional[torch.Generator]):
+    """One draw a row from the softmax of ``logits``: the exponential race
+    ``argmax(p / q)``, q ~ Exp(1), that ``torch.multinomial(p, 1)`` runs
+    (the same generator draws, the same bits), without its host-side check
+    that the probabilities are finite, which reads back from the device."""
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
+def _divide_by_temperature(logits: torch.Tensor,
+                           sp: SamplingTensors) -> torch.Tensor:
+    """``logits / temperature``, bit-equal to dividing by the Python float:
+    CUDA divides by a host scalar as a product with its f32 reciprocal
+    (ATen's true-division kernel), the CPU divides."""
+    if logits.is_cuda:
+        return logits * sp.inv_temperature
+    return logits / sp.temperature
 
 
 def sample(logits: torch.Tensor, params: SamplingParams,
            seen_mask: Optional[torch.Tensor] = None,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Draw one token per row. logits: [B, V] -> [B] int64."""
+           generator: Optional[torch.Generator] = None,
+           tensors: Optional[SamplingTensors] = None) -> torch.Tensor:
+    """Draw one token per row. logits: [B, V] -> [B] int64.  ``params``
+    gives the host values (greedy, top-k, whether top-p cuts the whole
+    vocabulary); ``tensors`` the rest (default: made from ``params``, one
+    copy to the device)."""
+    sp = tensors if tensors is not None else SamplingTensors.of(
+        params, logits.device)
     logits = logits.float()
     if seen_mask is not None:
         logits = apply_repetition_penalty(logits, seen_mask,
-                                          params.repetition_penalty)
-        logits = logits - torch.where(
-            seen_mask, torch.tensor(float(params.presence_penalty),
-                                    device=logits.device), 0.0)
+                                          sp.repetition_penalty)
+        logits = logits - torch.where(seen_mask, sp.presence_penalty, 0.0)
     if params.greedy:
         return torch.argmax(logits, dim=-1)
 
-    logits = logits / max(float(params.temperature), 1e-6)
+    logits = _divide_by_temperature(logits, sp)
     if params.top_k and params.top_k > 0:
         k = min(params.top_k, logits.shape[-1])
         top_vals, top_idx = torch.topk(logits, k, dim=-1)  # descending
-        top_vals = _mask_top_p(top_vals, params.top_p)
+        top_vals = _mask_top_p(top_vals, sp.top_p)
         choice = _categorical(top_vals, generator)
         return torch.gather(top_idx, 1, choice[:, None])[:, 0]
     if params.top_p < 1.0:
         top_vals, top_idx = torch.sort(logits, dim=-1, descending=True)
-        top_vals = _mask_top_p(top_vals, params.top_p)
+        top_vals = _mask_top_p(top_vals, sp.top_p)
         choice = _categorical(top_vals, generator)
         return torch.gather(top_idx, 1, choice[:, None])[:, 0]
     return _categorical(logits, generator)
@@ -146,9 +215,12 @@ def sample_rows(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 
 def update_seen_mask(seen_mask: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Mark ``tokens`` [B] as seen in the [B, V] presence mask (in place)."""
-    seen_mask[torch.arange(seen_mask.shape[0], device=seen_mask.device),
-              tokens.long()] = True
+    """Mark ``tokens`` [B] as seen in the [B, V] presence mask (in place).
+    The True is made on the mask's device: a Python ``True`` assigned
+    through an index is copied from the host, which a CUDA graph's capture
+    refuses."""
+    rows = torch.arange(seen_mask.shape[0], device=seen_mask.device)
+    seen_mask.index_put_((rows, tokens.long()), seen_mask.new_ones(()))
     return seen_mask
 
 

@@ -9,7 +9,11 @@ tokens a row emitted per verify forward (1..k+1).
 ``kernel_wrappers()`` names every kernel wrapper of the port; each counts
 the launches of its kernel in its ``launches`` attribute (a CPU tensor's
 plain version counts none), so a run that sets them to 0 before and reads
-them after shows which kernels its path went through.
+them after shows which kernels its path went through.  A wrapper counts
+where Python calls it, so a CUDA graph's replay would count nothing and
+its capture would count launches that never ran: ``launch_counts`` and
+``add_launches`` let the captured steps (``engine/step_graph.py``) take
+the capture's calls back out and add them again at each replay.
 """
 
 from __future__ import annotations
@@ -46,6 +50,19 @@ def kernel_wrappers() -> Dict[str, Callable]:
         da.decode_attention_contiguous_fresh, ka.kv_append_all_uniform,
         fs.fused_attn_matmul]
     return {w.__name__: w for w in wrappers}
+
+
+def launch_counts(wrappers: Dict[str, Callable]) -> Dict[str, int]:
+    """Each wrapper's launch count, by name."""
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def add_launches(wrappers: Dict[str, Callable],
+                 delta: Dict[str, int]) -> None:
+    """Add ``delta[name]`` launches to each named wrapper's count (a
+    negative delta takes them back out)."""
+    for name, n in delta.items():
+        wrappers[name].launches += n
 
 
 class Metrics:

@@ -12,7 +12,8 @@ INT8 page pool and each width: 8 slots, pages of 512, pieces of 256,
 prefix cache on, greedy, EOS off; 8 prompts (150..1400 tokens, 160 new
 each) fill the slots, then 6 chained windows of 8 decode ticks are timed
 by the host clock (synchronized around each window), and one more under
-``torch.profiler`` for the device's busy time.  Then, for each pool, one
+``torch.profiler`` for the device's busy time (its kernels, copies and
+sets; not the ops' rows, which repeat their kernels' time).  Then, for each pool, one
 1536-token prompt alone (prefix cache off, after a warm-up prompt of the
 same length): its six 256-token pieces (a fresh one, then continuations at
 starts 256..1280) and first token as one scheduler tick, by the host clock
@@ -31,6 +32,16 @@ import time
 LENS = [150, 300, 450, 600, 750, 900, 1150, 1400]
 TICKS, WINDOWS = 8, 6
 PREFILL = 1536      # six pieces of 256
+
+
+def device_events(prof):
+    """The profile's device-side rows (kernels, copies, sets): a PyTorch
+    op's own row repeats the device time of the kernels it launched."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
 
 
 def main() -> int:
@@ -95,8 +106,8 @@ def main() -> int:
                                      ProfilerActivity.CUDA]) as prof:
                 cb.step_batch(TICKS)
                 torch.cuda.synchronize()
-            busy = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.self_device_time_total > 0) / 1e3 / TICKS
+            busy = sum(e.self_device_time_total
+                       for e in device_events(prof)) / 1e3 / TICKS
             cb.run_to_completion()
             key = f"{'int8' if kv == torch.int8 else 'bf16'} width {width}"
             out["runs"][key] = dict(ms_per_tick=ms, device_busy_ms_per_tick=busy)
@@ -125,8 +136,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 rec["host_ms"] = (time.perf_counter() - t0) * 1e3
             assert [f.request_id for f in done] == [rid], done
-            events = [e for e in prof.key_averages()
-                      if e.self_device_time_total > 0]
+            events = device_events(prof)
             pieces = PREFILL // 256
             rec["device_busy_ms_per_piece"] = sum(
                 e.self_device_time_total for e in events) / 1e3 / pieces

@@ -1341,20 +1341,22 @@ def test_paged_verify_rows_are_the_decode_bits(gen, T, G, quant):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])
-def test_paged_decode_row_through_wider_tables(gen, quant):
-    """The serving engine trims its tables to the widest live row's pages
-    (``scheduler.live_table_width``), so a row's plan follows the rows
-    beside it.  The same rows (all within one page of 512) through tables
-    1, 2, 4 and 8 pages wide (B 8, Hk 4: spans 64, 64, 192 and 448 keys):
-    the same bits where the span is the same, else within 2^-7 (split
-    boundaries move, and the f32 partials round otherwise); NaN past each
-    row's length and in every page no table holds."""
+def test_paged_decode_row_bits_across_table_widths(gen, quant):
+    """A row's decode output does not depend on the rows beside it: the
+    serving engine hands the paged attention tables of its full
+    max_pages_per_seq width, zero past each row's pages, and the plan
+    follows that width alone.  Four rows (all within one page of 512)
+    beside four neighbours that hold 1, 2, 4 and then 8 pages (the widths
+    a trimmed table would have taken): the four rows give the same bits
+    each time; NaN past each row's length and in every page no table
+    holds."""
     L, Hk, G, D, page, wide = 2, 4, 7, 128, 512, 8
-    lens_list = [400, 37, 300, 511, 512, 1, 0, 200]
-    B = len(lens_list)
+    rows = [400, 37, 300, 1]
+    B = len(rows) + 4
     P = B * wide + 3
     tables = _tables(gen, B, wide, P)
-    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, lens_list)
+    full = rows + [wide * page - 5] * 4
+    k, v = _paged_pool(gen, L, P, Hk, page, D, tables, full)
     pools, scales = (k, v), ()
     if quant:
         k8, v8, ks, vs = _q8_pool(k, v)
@@ -1362,18 +1364,19 @@ def test_paged_decode_row_through_wider_tables(gen, quant):
     attend = getattr(pa, "paged_decode_attention_stacked"
                      + ("_q8" if quant else ""))
     q = _bf16(gen, B, 1, G * Hk, D)
-    lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
-    outs, spans = {}, {}
+    outs = []
     for w in (1, 2, 4, 8):
-        spans[w] = pa.plan_paged_split(B, Hk, 1, w * page)[0]
-        outs[w] = attend(q, *pools, *scales, tables[:, :w].contiguous(), lens,
-                         page, 1)
-        assert bool(outs[w].isfinite().all())
-    assert spans == {1: 64, 2: 64, 4: 192, 8: 448}
-    assert torch.equal(outs[1], outs[2])
-    for w in (4, 8):
-        assert (outs[w].float() - outs[1].float()).abs().max().item() \
-            <= 2 ** -7, w
+        lens_list = rows + [w * page - 5] * 4
+        held = torch.zeros_like(tables)
+        for b, n in enumerate(lens_list):
+            n_pages = -(-n // page)
+            held[b, :n_pages] = tables[b, :n_pages]
+        lens = torch.tensor(lens_list, device="cuda", dtype=torch.int32)
+        out = attend(q, *pools, *scales, held, lens, page, 1)
+        assert bool(out.isfinite().all()), w
+        outs.append(out[:len(rows)])
+    for w, got in zip((2, 4, 8), outs[1:]):
+        assert torch.equal(got, outs[0]), w
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "q8"])

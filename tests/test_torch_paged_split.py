@@ -1,5 +1,5 @@
-"""The paged decode / verify kernel's plan and the serving engine's trimmed
-block tables, on the CPU.
+"""The paged decode / verify kernel's plan and the serving engine's block
+tables, on the CPU.
 
 ``plan_paged_split`` plans the split-S kernel of
 ``csrc/paged_attention.cu`` from the shapes alone; these tests hold it to
@@ -7,10 +7,9 @@ the rule the kernel's C guard enforces (spans of whole 64-key tiles,
 splits covering S exactly once) and to the contiguous decode's plan at one
 row group, which is what makes the paged bf16 decode bit-equal to
 ``decode_attention_contiguous`` through identity tables on the card.  The
-serving engine hands its decode ticks and verifies block tables trimmed to
-the pages its rows hold (``live_table_width``): a power of two at least
-the largest row's page count, at most ``max_pages_per_seq``; trimming
-changes no token.
+serving engine hands its decode ticks and verifies block tables of its
+full ``max_pages_per_seq`` width (``_run_tables``), so the plan, and a
+row's output, never follows the pages its neighbours hold.
 """
 
 import numpy as np
@@ -21,7 +20,6 @@ from qwen_inference_engine_tpu_torch.config import tiny_config
 from qwen_inference_engine_tpu_torch.engine.scheduler import (
     ContinuousBatchingEngine,
     Request,
-    live_table_width,
 )
 from qwen_inference_engine_tpu_torch.models.qwen import init_params
 from qwen_inference_engine_tpu_torch.ops import decode_attention as da
@@ -68,22 +66,11 @@ def test_plan_paged_split_follows_the_kernel_guard(S, T, G):
 def test_plan_paged_split_at_serving_width():
     """Serving's 8 slots of the 7B (Hk 4): tables of the default width (64
     pages of 512) put the 1440-key row into one split of 3584 keys; tables
-    trimmed to its 4 pages split it into 8 of 192."""
+    of its 4 pages would split it into 8 of 192."""
     span, splits = pa.plan_paged_split(8, 4, 1, 64 * 512)
     assert (span, splits) == (3584, 10) and -(-1440 // span) == 1
     span, splits = pa.plan_paged_split(8, 4, 1, 4 * 512)
     assert (span, splits) == (192, 11) and -(-1440 // span) == 8
-
-
-@pytest.mark.parametrize("max_pages", [1, 4, 7, 64])
-def test_live_table_width_is_a_capped_power_of_two(max_pages):
-    for held in range(0, max_pages + 1):
-        width = live_table_width(held, max_pages)
-        assert width <= max_pages
-        assert width >= held
-        if width < max_pages:
-            assert width & (width - 1) == 0
-            assert width < 2 * max(held, 1)
 
 
 def _engine(**kw):
@@ -103,65 +90,54 @@ def _serve(cb, prompts, new_tokens):
 
 
 def _record_tables(cb):
-    """Wrap the engine's ``_live_tables``: every table it hands out, with
+    """Wrap the engine's ``_run_tables``: every table it hands out, with
     the page count each row held, is recorded."""
     seen = []
-    live = cb._live_tables
+    run_tables = cb._run_tables
 
     def record(runs):
-        tables = live(runs)
+        tables = run_tables(runs)
         seen.append((tables.copy(), {s.slot: len(s.pages) for s in runs}))
         return tables
 
-    cb._live_tables = record
+    cb._run_tables = record
     return seen
-
-
-def _full_width(cb):
-    """The untrimmed tables: every slot's whole row of the engine's block
-    tables (the rows of slots that are not running zeroed)."""
-
-    def full(runs):
-        tables = np.zeros_like(cb._block_tables)
-        for s in runs:
-            tables[s.slot] = cb._block_tables[s.slot]
-        return tables
-
-    cb._live_tables = full
 
 
 PROMPTS = [list(range(2, 2 + n)) for n in (5, 30, 61, 12)]
 SPEC = dict(speculative=True, spec_k=3, spec_ngram=2)
+KV = [torch.float32, torch.int8]
 
 
+@pytest.mark.parametrize("kv", KV, ids=["f32", "int8"])
 @pytest.mark.parametrize("spec", [{}, SPEC], ids=["decode", "verify"])
-def test_serving_passes_trimmed_tables(spec):
-    """Each decode tick (and verify) gets tables as wide as
-    live_table_width of the largest page count its rows hold, each running
-    row's pages in order, every other row zero."""
-    cb = _engine(**spec)
+def test_serving_passes_full_width_tables(spec, kv):
+    """Each decode tick (and verify) gets tables of the engine's full
+    max_pages_per_seq width, however few pages its rows hold: each
+    running row's pages in order, every other row zero."""
+    cb = _engine(kv_dtype=kv, **spec)
     seen = _record_tables(cb)
     _serve(cb, PROMPTS, 6)
     assert seen
-    widths = set()
     for tables, held in seen:
-        width = live_table_width(max(held.values()), cb.max_pages_per_seq)
-        assert tables.shape == (cb.max_slots, width)
-        widths.add(width)
+        assert tables.shape == (cb.max_slots, cb.max_pages_per_seq)
         for slot in range(cb.max_slots):
             if slot not in held:
                 assert not tables[slot].any()
             else:
                 n = held[slot]
                 assert tables[slot, :n].all() and not tables[slot, n:].any()
-    assert max(widths) < cb.max_pages_per_seq
+    most = max(max(held.values()) for _, held in seen)
+    assert len({max(held.values()) for _, held in seen}) > 1
+    assert most < cb.max_pages_per_seq
 
 
+@pytest.mark.parametrize("kv", KV, ids=["f32", "int8"])
 @pytest.mark.parametrize("spec", [{}, SPEC], ids=["decode", "verify"])
-def test_trimmed_tables_change_no_token(spec):
-    """The same requests served with trimmed and with full-width tables
-    give the same tokens and finish reasons."""
-    trimmed = _serve(_engine(**spec), PROMPTS, 6)
-    cb = _engine(**spec)
-    _full_width(cb)
-    assert _serve(cb, PROMPTS, 6) == trimmed
+def test_row_tokens_do_not_follow_neighbours(spec, kv):
+    """One request served alone, beside short neighbours and beside long
+    ones gives the same tokens and finish reason."""
+    probe = PROMPTS[0]
+    runs = [_serve(_engine(kv_dtype=kv, **spec), [probe] + others, 6)[0]
+            for others in ([], PROMPTS[1:], [list(range(3, 64))] * 2)]
+    assert runs[0] == runs[1] == runs[2]

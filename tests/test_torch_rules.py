@@ -1488,3 +1488,62 @@ def test_plan_paged_append_at_the_serving_shapes(shape):
     # the contiguous cache's f32 rows: twice the bf16 vectors
     assert tka.plan_paged_append(B, T, 4, 128, 4, True) == (
         16, 128, 2 * bf16_blocks)
+
+
+# the bodies a captured decode step runs (engine/step_graph.py): nothing in
+# them may read back from the device or copy host data to it
+STEP_BODIES = [
+    ("engine/engine.py", "Engine._decode_body"),
+    ("engine/scheduler.py", "ContinuousBatchingEngine._tick_body"),
+    ("engine/scheduler.py", "ContinuousBatchingEngine._decode_tick"),
+    ("models/qwen.py", "decode_step"),
+    ("models/qwen.py", "decode_step_pumped"),
+    ("models/qwen.py", "forward_hidden"),
+    ("models/qwen.py", "moe_mlp"),
+    ("models/qwen.py", "_expert_matmul"),
+    ("models/qwen.py", "_paged_attention"),
+    ("models/qwen.py", "_append_rows"),
+    ("models/qwen.py", "compute_logits"),
+    ("ops/sampling.py", "sample"),
+    ("ops/sampling.py", "sample_rows"),
+    ("ops/sampling.py", "apply_repetition_penalty"),
+    ("ops/sampling.py", "_mask_top_p"),
+    ("ops/sampling.py", "_categorical"),
+    ("ops/sampling.py", "_divide_by_temperature"),
+    ("ops/sampling.py", "update_seen_mask"),
+]
+
+
+def _function(path: str, qualname: str):
+    import ast
+
+    with open(os.path.join(ROOT, "qwen_inference_engine_tpu_torch",
+                           path)) as f:
+        tree = ast.parse(f.read())
+    *outer, name = qualname.split(".")
+    scope = tree.body
+    for cls in outer:
+        scope = next(n for n in scope
+                     if isinstance(n, ast.ClassDef) and n.name == cls).body
+    return next(n for n in scope
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+@pytest.mark.parametrize("path,qualname", STEP_BODIES,
+                         ids=[q for _, q in STEP_BODIES])
+def test_step_bodies_hold_no_host_round_trip(path, qualname):
+    """No ``.item()``, ``.cpu()``, ``.tolist()``, ``torch.tensor(`` or
+    ``torch.as_tensor(`` in a step body (nested functions included)."""
+    import ast
+
+    bad = []
+    for node in ast.walk(_function(path, qualname)):
+        if not isinstance(node, ast.Call) or \
+                not isinstance(node.func, ast.Attribute):
+            continue
+        attr, owner = node.func.attr, node.func.value
+        if attr in ("item", "cpu", "tolist") or (
+                attr in ("tensor", "as_tensor")
+                and isinstance(owner, ast.Name) and owner.id == "torch"):
+            bad.append(f"{attr} at line {node.lineno}")
+    assert not bad, (qualname, bad)
