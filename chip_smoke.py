@@ -13,7 +13,10 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    Qwen2.5-7B gives it, with error, kernel / plain / library time and the
    bound (the larger of bytes at 3.35 TB/s and operations at the peak rate
    of their type: 989 TFLOP/s bf16, 1979 TOP/s int8): the four quantized
-   matmuls at the seven projections (M = 4, 256, 2048, and M = 40 for the
+   matmuls at the seven projections and the offline-fused qkv (N = Qd +
+   2 Kd) and gateup (N = 2 F) of ``fuse_projections``, each printing at
+   M <= 64 whether its split-K plan equals the split projections' (M = 4,
+   256, 2048, and M = 40 for the
    three split-K tensor-core kernels W4A8, W8A16 and W8A8, each printing
    its (mt, splits, slice) plan and timing M <= 64 also in a CUDA graph
    beside torch.matmul; W4A16 and W8A16 also the lm_head at M = 4; INT8
@@ -95,6 +98,21 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    Every launch count is set to 0 just before
    each run and read just after, and each run must have launched the
    kernels of its path and none of the others';
+   [fused generate]: ``fuse_projections`` of the W4A8 params and of (a),
+   the ragged batch through ``Engine.generate`` beside the split params:
+   4 matmuls a layer a forward (+ the INT4 lm_head), no ``fused_mlp``,
+   prefill logits bit-equal to the split params' (one K slice at M =
+   2048), where the greedy tokens part, and the captured decode step
+   against its eager steps with host / device ms beside the split case;
+   [fused serve]: the fused W4A8 params through ``ContinuousBatchingEngine``
+   (8 slots, pages of 512, pieces of 256) on 8 requests of 37..1408
+   tokens beside the split run: 4 matmuls a layer for every tick and
+   piece, [serve]'s rule, where the tokens part; [ppl]: the perplexity of
+   tests/test_ppl.py's stream formula at 2048 tokens (windows of 512,
+   batch 4) for bf16, W8A16 gs 128, W4A16 gs 128, W4A8 gs 256, W4A8 fused
+   and W4A8 at batch 1, with its gates (W8A16 within 0.02 of bf16, INT4
+   within 0.10, fused and batch 1 within 1e-3 of W4A8), ms and launches
+   a batch of windows;
 4b. serving: ``ContinuousBatchingEngine`` on the same full-depth model at
    the JAX defaults (8 slots, pages of 512, pieces of 256, prefix cache on,
    8 decode ticks per sync), EOS off: 12 greedy requests (prompts of 37 to
@@ -160,7 +178,11 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    for bit; ``generate --qckpt`` and ``generate --ckpt --bits 4`` must give
    the same greedy ids, and ``generate --ckpt`` runs at every weight format
    and with ``--speculative``; ``serve --ckpt --bits 4 --kv-bits 8
-   --speculative`` answers a request through HTTP and stops;
+   --speculative`` answers a request through HTTP and stops; [cli utils]:
+   ``generate --chat --stats --profile DIR`` (the stats JSON, the chat
+   template's prompt tokens, a trace in DIR with ``qmm_mma_kernel`` and
+   ``flash_kernel``), and a debug hook in a captured step body (printing
+   eagerly, raising under capture);
 5. the kernel path against the plain path on the card, the same weights at
    a depth of 4 layers: in bf16 KV, prefill logits (one chunk) and 8 greedy
    tokens, for W4A8, W4A16 (INT4 lm_head) and W8A8; in INT8 KV, the logits
@@ -176,7 +198,9 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    M = 192) and 2 deferred-append steps, each held to 1.5x its plain bf16
    path's distance from an fp32 run of the plain ``decode_step``; the
    deferred step's cache after one step equals ``decode_step``'s bit for
-   bit.
+   bit; the fused parameters of W4A8, W4A16 and W8A8 (4 matmuls a layer)
+   on the same rule against the split parameters' plain and fp32 runs,
+   and ``score_logits`` (all [4, 512, V] scores, W4A8) on it too.
 
 6. Qwen3-MoE: ``qwen3-30b-a3b`` at full width (128 experts, top-8, Fm
    768), random packed weights drawn on the card: W4A8 gs 256 at the full
@@ -389,8 +413,11 @@ def check_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
     kern = getattr(qm, name)
     plain = getattr(qm, name + "_plain")
     D, F, Qd, Kd = cfg.hidden_size, cfg.intermediate_size, cfg.q_dim, cfg.kv_dim
+    # the seven projections, and the offline-fused qkv and gateup
+    # (quant/quantize.fuse_projections)
     shapes = [("q", D, Qd), ("k", D, Kd), ("v", D, Kd), ("o", Qd, D),
-              ("gate", D, F), ("up", D, F), ("down", F, D)]
+              ("gate", D, F), ("up", D, F), ("down", F, D),
+              ("qkv", D, Qd + 2 * Kd), ("gateup", D, 2 * F)]
     cases = [(M, n, K, N) for M in ms_list for n, K, N in shapes
              if not (M > 4 and n in ("v", "up"))]  # same shapes as k / gate
     if lm_head:
@@ -456,22 +483,43 @@ def check_matmul(torch, cfg, name, gs, ms_list=(4, 256, 2048),
     return records
 
 
-def layer_at(recs, M):
-    """The seven projections of one 7B layer at M rows, summed (v and up,
-    not timed past M = 4, count as k and gate)."""
+SPLIT_PROJS = ("q", "k", "v", "o", "gate", "up", "down")
+FUSED_PROJS = ("qkv", "o", "gateup", "down")
+
+
+def layer_at(recs, M, projs=SPLIT_PROJS):
+    """The projections of one 7B layer at M rows, summed: the seven split
+    ones (v and up, not timed past M = 4, count as k and gate), or with
+    ``FUSED_PROJS`` the four of offline-fused parameters."""
     by = {r["proj"]: r for r in recs if r["M"] == M}
     by.setdefault("v", by["k"])
     by.setdefault("up", by["gate"])
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
         ("graph_ms", "library_graph_ms") if "graph_ms" in by["q"] else ())
-    return {k: sum(by[p][k] for p in ("q", "k", "v", "o", "gate", "up",
-                                      "down")) for k in keys}
+    return {k: sum(by[p][k] for p in projs) for k in keys}
+
+
+def fused_plans(label, recs):
+    """Print, at each M <= 64, the split-K plan of qkv beside q / k and of
+    gateup beside gate: where they differ, the fused and split logits
+    round apart in a decode step.  Returns {M: {proj: plan}}."""
+    out = {}
+    for M in sorted({r["M"] for r in recs if "plan" in r and r["M"] <= 64}):
+        by = {r["proj"]: tuple(r["plan"]) for r in recs if r["M"] == M}
+        out[M] = by
+        same_qkv = by["qkv"] == by["q"] == by["k"]
+        same_gu = by["gateup"] == by["gate"]
+        print(f"[fused plans] {label} M={M}: qkv {by['qkv']} vs q {by['q']} "
+              f"/ k {by['k']} ({'same' if same_qkv else 'differ'}); gateup "
+              f"{by['gateup']} vs gate {by['gate']} "
+              f"({'same' if same_gu else 'differ'})", flush=True)
+    return out
 
 
 def layer_record(recs, extra_err=()):
     """A matmul kernel's JSON entry: the seven projections of one 7B layer
     at M=4 (the decode step), summed."""
-    dec = [r for r in recs if r["M"] == 4 and r.get("proj") != "lm_head"]
+    dec = [r for r in recs if r["M"] == 4 and r.get("proj") in SPLIT_PROJS]
     b_bytes = sum(r["bound_ms"] for r in dec if r["bound_by"] == "bytes")
     total_bound = sum(r["bound_ms"] for r in dec)
     return dict(
@@ -3885,6 +3933,7 @@ def run_loader_phase(torch, cfg, bf16_params):
             fail("loader: generate --qckpt and --ckpt --bits 4 differ, or a "
                  "format generated nothing")
         out.update(cli_serve_spec_int8(torch, d))
+        out["cli_utils"] = run_cli_utils(torch, d)
     out["bytes"] = n_bytes
     out["load_gb_s"] = n_bytes / out["load_s"] / 1e9
     return out
@@ -4576,6 +4625,370 @@ def run_moe_loader_phase(torch, cfg):
     return out
 
 
+# ----------------------------------------------------------------------
+# offline-fused projections ([fused generate], [fused serve]), perplexity
+# ([ppl]) and the CLI's hooks ([cli utils])
+# ----------------------------------------------------------------------
+
+FUSED_LENS = [37, 120, 300, 500]
+FUSED_SERVE_LENS = [37, 120, 300, 511, 700, 900, 1100, 1408]
+PPL_TOKENS, PPL_SEQ, PPL_BATCH = 2048, 512, 4
+
+
+def _matmuls(counts):
+    """The dense matmuls' and fused_mlp's launch counts of a run."""
+    return {n: counts[n] for n in (*MATMULS, "fused_mlp")}
+
+
+def run_fused_generate(torch, cases, wrappers, prompts, graph_runs):
+    """[fused generate]: each case is (label, cfg, split params, fused
+    params, its matmul kernel, lm_head launches a forward, the split
+    engine's [graph generate] case).  Greedy ``Engine.generate`` of 4
+    prompts of 37..500 tokens, 32 new, on the split and on the fused
+    parameters: the fused run must launch its matmul 4 times a layer a
+    forward (+ the lm_head) and no other matmul or fused_mlp; where the
+    greedy tokens part is reported.  The prefill logits of the same
+    prompts (M = 4 x 512 rows: one K slice at every width) must be
+    bit-equal, fused against split (phase 5 holds the fused path to the
+    fp32 rule).  Then [graph generate] on the fused engine: captured steps
+    bit-equal to eager ones, host and device ms a step, beside the split
+    case's.  Returns (launches, numbers)."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    total = {n: 0 for n in wrappers}
+    out = {}
+    for label, cfg, split, fused, kern, head, split_graph in cases:
+        t0 = time.perf_counter()
+        L = cfg.num_layers
+        ids = prompts(FUSED_LENS)
+        res, counts = {}, {}
+        for kind, p in (("split", split), ("fused", fused)):
+            eng = Engine(cfg, p, max_batch=4, max_seq=1024,
+                         sampling=SamplingParams(greedy=True), device="cuda")
+            warm_up(eng, prompts)
+            # and the batch's own bucket once (its first prefill at these
+            # widths allocates the activations' blocks)
+            eng.generate(ids, max_new_tokens=2)
+            for w in wrappers.values():
+                w.launches = 0
+            res[kind] = eng.generate(ids, max_new_tokens=NEW_TOKENS)
+            counts[kind] = {n: w.launches for n, w in wrappers.items()}
+            for n, c in counts[kind].items():
+                total[n] += c
+            if kind == "fused":
+                before = {n: w.launches for n, w in wrappers.items()}
+                graph = graph_generate_case(torch, eng, ids, f"{label} fused",
+                                            wrappers)
+                for n, w in wrappers.items():
+                    total[n] += w.launches - before[n]
+            del eng
+            torch.cuda.empty_cache()
+        r = res["fused"]
+        toks = [t for row in r.token_ids for t in row]
+        if not all(0 <= t < cfg.vocab_size for t in toks) \
+                or len(set(toks)) < 2:
+            fail(f"[fused generate] {label}: ids out of range or all "
+                 f"identical")
+        got = _matmuls(counts["fused"])
+        want = {n: r.steps * (4 * L + head) if n == kern else 0 for n in got}
+        per_step = graph["launches_per_step"]
+        if got != want or per_step.get(kern) != 4 * L + head \
+                or "fused_mlp" in per_step:
+            fail(f"[fused generate] {label}: matmul launches {got}, want "
+                 f"{want} ({r.steps} forwards); a captured step {per_step}")
+        parts = [_first_part(a, b) for a, b in
+                 zip(res["split"].token_ids, r.token_ids)]
+        toks_t = torch.zeros((4, 512), dtype=torch.long, device="cuda")
+        for i, p in enumerate(ids):
+            toks_t[i, :len(p)] = torch.tensor(p, device="cuda")
+        lens = torch.tensor(FUSED_LENS, device="cuda")
+        logits = {}
+        for kind, p in (("split", split), ("fused", fused)):
+            cache = KVCache.create(L, 4, 1024, cfg.num_kv_heads, cfg.head_dim,
+                                   device="cuda")
+            with torch.inference_mode():
+                logits[kind] = qwen.prefill_chunked(p, cfg, toks_t, lens,
+                                                    cache, chunk=512)[0]
+        equal = bool(torch.equal(logits["split"], logits["fused"]))
+        dmax = (logits["split"] - logits["fused"]).abs().max().item()
+        sg, fg = graph_runs[split_graph], graph
+        secs = time.perf_counter() - t0
+        print(f"[fused generate] {label}, {cfg.name} {L} layers, batch 4 "
+              f"{FUSED_LENS}, {NEW_TOKENS} new: {kern} {4 * L + head} a "
+              f"forward ({got[kern]} over {r.steps} forwards; split "
+              f"{_matmuls(counts['split'])[kern]}), fused_mlp "
+              f"{got['fused_mlp']} (split {counts['split']['fused_mlp']}) | "
+              f"decode fused {r.decode_tokens_per_s:.1f} tok/s, split "
+              f"{res['split'].decode_tokens_per_s:.1f} | ttft fused "
+              f"{r.ttft_s * 1e3:.1f} ms, split "
+              f"{res['split'].ttft_s * 1e3:.1f} | greedy tokens part at "
+              f"steps {parts} of {NEW_TOKENS} | prefill logits bit-equal "
+              f"{equal} (max |d| {dmax:.3g}) | captured step fused "
+              f"{fg['captured']['step_ms']:.2f} ms host / "
+              f"{fg['captured']['device_busy_ms']:.2f} device, split "
+              f"{sg['captured']['step_ms']:.2f} / "
+              f"{sg['captured']['device_busy_ms']:.2f}; eager fused "
+              f"{fg['eager']['step_ms']:.2f} / "
+              f"{fg['eager']['device_busy_ms']:.2f}, split "
+              f"{sg['eager']['step_ms']:.2f} / "
+              f"{sg['eager']['device_busy_ms']:.2f} | {secs:.1f} s",
+              flush=True)
+        if not equal:
+            fail(f"[fused generate] {label}: prefill logits fused and split "
+                 f"differ (max |d| {dmax}); one K slice at M = 2048 should "
+                 f"give every column the same bits")
+        out[label] = dict(
+            launches_per_forward=4 * L + head, steps=r.steps,
+            decode_tok_s=r.decode_tokens_per_s,
+            split_decode_tok_s=res["split"].decode_tokens_per_s,
+            ttft_ms=r.ttft_s * 1e3, split_ttft_ms=res["split"].ttft_s * 1e3,
+            tokens_part_at=parts, prefill_logits_equal=equal,
+            graph=fg, split_graph=split_graph, seconds=secs)
+        del logits
+        torch.cuda.empty_cache()
+    return total, out
+
+
+def run_fused_serve(torch, cfg, split, fused, wrappers, rng):
+    """[fused serve]: ``ContinuousBatchingEngine`` at the JAX defaults (8
+    slots, pages of 512, pieces of 256, prefix cache on, 8 ticks a sync),
+    EOS off, 8 greedy requests of 37..1408 tokens, 32 new, on the split
+    and then the fused W4A8 parameters.  Both runs must pass [serve]'s
+    rule (every request finishes by length with ids in the vocabulary, not
+    all identical); the fused run must launch the W4A8 matmul 4 times a
+    layer for each decode tick and each prefill piece, and no other
+    matmul.  Where each request's tokens part from the split run's is
+    reported.  Returns (launches, numbers)."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    t_start = time.perf_counter()
+    L = cfg.num_layers
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in FUSED_SERVE_LENS]
+    total = {n: 0 for n in wrappers}
+    runs = {}
+    for kind, p in (("split", split), ("fused", fused)):
+        cb = ContinuousBatchingEngine(
+            cfg, p, max_slots=8, page_size=PAGE, num_pages=40,
+            max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
+            sampling=SamplingParams(greedy=True), device="cuda")
+        cb._eos = set()
+        calls = {}
+        for name in ("_decode_tick", "_run_piece"):
+            count_calls(cb, name, calls)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, pr in enumerate(prompts):
+            cb.submit(Request(request_id=i, prompt=pr,
+                              max_new_tokens=NEW_TOKENS))
+        done = cb.run_to_completion(sync_every=8)
+        cb.check_page_invariants()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n, c in counts.items():
+            total[n] += c
+        ids = [t for f in done for t in f.token_ids]
+        if len(done) != len(prompts) or any(
+                f.finish_reason != "length" or len(f.token_ids) != NEW_TOKENS
+                for f in done) or not all(0 <= t < cfg.vocab_size
+                                          for t in ids) or len(set(ids)) < 2:
+            fail(f"[fused serve] {kind}: a request did not finish by length, "
+                 f"or ids out of range or all identical")
+        forwards = calls.get("_decode_tick", 0) + calls.get("_run_piece", 0)
+        runs[kind] = dict(tokens={f.request_id: f.token_ids for f in done},
+                          wall_s=wall, ticks=calls.get("_decode_tick", 0),
+                          pieces=calls.get("_run_piece", 0),
+                          matmuls=_matmuls(counts), **cb.metrics.snapshot())
+        if kind == "fused":
+            want = {n: 4 * L * forwards if n == "quant_matmul4_a8" else 0
+                    for n in runs[kind]["matmuls"]}
+            if runs[kind]["matmuls"] != want:
+                fail(f"[fused serve] matmul launches {runs[kind]['matmuls']},"
+                     f" want {want} ({forwards} forwards)")
+        del cb
+        torch.cuda.empty_cache()
+    parts = {i: _first_part(runs["split"]["tokens"][i],
+                            runs["fused"]["tokens"][i])
+             for i in range(len(prompts))}
+    f, sp = runs["fused"], runs["split"]
+    secs = time.perf_counter() - t_start
+    print(f"[fused serve] {cfg.name} {L} layers W4A8, 8 slots, page {PAGE}, "
+          f"pieces of 256: {len(prompts)} requests {FUSED_SERVE_LENS}, "
+          f"{NEW_TOKENS} new | fused: quant_matmul4_a8 "
+          f"{f['matmuls']['quant_matmul4_a8']} = 4 x {L} x ({f['ticks']} "
+          f"ticks + {f['pieces']} pieces); split "
+          f"{sp['matmuls']['quant_matmul4_a8']} ({sp['ticks']} + "
+          f"{sp['pieces']}) | decode fused {f['decode_tokens_per_s']:.1f} "
+          f"tok/s, split {sp['decode_tokens_per_s']:.1f} | TTFT p50 fused "
+          f"{f['ttft_p50_s'] * 1e3:.1f} ms, split "
+          f"{sp['ttft_p50_s'] * 1e3:.1f} | wall fused {f['wall_s']:.2f} s, "
+          f"split {sp['wall_s']:.2f} | tokens part from the split run's at "
+          f"{parts} (of {NEW_TOKENS}; equal requests "
+          f"{sum(v == NEW_TOKENS for v in parts.values())}) | {secs:.1f} s",
+          flush=True)
+    for r in runs.values():
+        del r["tokens"]
+    return total, dict(runs, tokens_part_at=parts, seconds=secs)
+
+
+def run_ppl(torch, np, arms, wrappers):
+    """[ppl]: ``utils/ppl.nll_of_windows`` over tests/test_ppl.py's stream
+    formula at 2048 tokens (4 windows of 512) for each arm (label, cfg,
+    params, batch_size, its matmul kernel, launches of it a batch): ppl,
+    its delta to the bf16 arm, host ms a batch of windows (after one
+    warm-up batch: the first calls at these shapes set up cuBLAS and the
+    allocator's blocks) and launches a batch (flash_attention once a
+    layer a batch).  Gates: every ppl finite;
+    W8A16 within 0.02 relative of bf16, the INT4 arms within 0.10 (the
+    limits of tests/test_ppl.py); fused within 1e-3 of split; batch_size 1
+    within 1e-3 of batch_size 4.  Returns (launches, numbers)."""
+    import math
+
+    from qwen_inference_engine_tpu_torch.utils.ppl import nll_of_windows
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(0)
+    vocab = arms[0][1].vocab_size
+    stream = ((np.arange(PPL_TOKENS) * 7 + rng.integers(0, 5, PPL_TOKENS))
+              % vocab).astype(np.int64)
+    windows = stream.reshape(-1, PPL_SEQ)
+    total = {n: 0 for n in wrappers}
+    out = {}
+    for label, cfg, params, bs, kern, per_batch in arms:
+        batches = -(-windows.shape[0] // bs)
+        nll_of_windows(params, cfg, windows[:bs], batch_size=bs)  # warm-up
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nll, ntok = nll_of_windows(params, cfg, windows, batch_size=bs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / batches
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n, c in counts.items():
+            total[n] += c
+        ppl = math.exp(nll / ntok)
+        per = {n: c / batches for n, c in counts.items() if c}
+        out[label] = dict(ppl=ppl, batch_size=bs, ms_per_batch=ms,
+                          launches_per_batch=per)
+        want = {n: per_batch if n == kern else 0 for n in MATMULS}
+        got = {n: per.get(n, 0) for n in MATMULS}
+        if not math.isfinite(ppl) or got != want or \
+                per.get("flash_attention") != cfg.num_layers:
+            fail(f"[ppl] {label}: ppl {ppl}, launches a batch {per} (want "
+                 f"{want} and flash_attention {cfg.num_layers})")
+    base = out["bf16"]["ppl"]
+    for label, r in out.items():
+        r["rel_to_bf16"] = abs(r["ppl"] - base) / base
+        print(f"[ppl] {label}: ppl {r['ppl']:.6g}, delta to bf16 "
+              f"{r['rel_to_bf16']:.4g} relative | batch_size {r['batch_size']}"
+              f", {r['ms_per_batch']:.1f} ms a batch of windows | launches a "
+              f"batch {r['launches_per_batch']}", flush=True)
+    split, fused = out["W4A8 gs 256"], out["W4A8 gs 256 fused"]
+    bs1 = out["W4A8 gs 256, batch_size 1"]
+    gaps = {"fused vs split": abs(fused["ppl"] - split["ppl"]) / split["ppl"],
+            "batch_size 1 vs 4": abs(bs1["ppl"] - split["ppl"]) / split["ppl"]}
+    secs = time.perf_counter() - t_start
+    print(f"[ppl] {arms[0][1].name} {arms[0][1].num_layers} layers, "
+          f"{PPL_TOKENS} tokens in windows of {PPL_SEQ}: {gaps} | "
+          f"{secs:.1f} s", flush=True)
+    limits = {"W8A16 gs 128": 0.02, "W4A16 gs 128": 0.10, "W4A8 gs 256": 0.10,
+              "W4A8 gs 256 fused": 0.10}
+    bad = {k: out[k]["rel_to_bf16"] for k, lim in limits.items()
+           if not out[k]["rel_to_bf16"] < lim}
+    bad.update({k: v for k, v in gaps.items() if not v < 1e-3})
+    if bad:
+        fail(f"[ppl] over the limits: {bad}")
+    return total, dict(out, gaps=gaps, seconds=secs)
+
+
+def run_cli_utils(torch, ckpt):
+    """[cli utils]: ``generate --chat --stats --profile DIR`` on the 2-layer
+    checkpoint (W4A8): the stats line on stderr parses and has
+    ``ttft_p50_s`` and the templated prompt's tokens; DIR holds a Chrome
+    trace whose kernels include ``qmm_mma_kernel`` and ``flash_kernel``.
+    Then a debug hook in a step body of ``engine/step_graph.StepGraphs``:
+    enabled, it prints in the eager first step and raises in the capture
+    of the second (a host print cannot replay), naming eager_steps()."""
+    import contextlib
+    import io
+    import tempfile
+
+    from qwen_inference_engine_tpu_torch.engine.step_graph import StepGraphs
+    from qwen_inference_engine_tpu_torch.server import cli
+    from qwen_inference_engine_tpu_torch.tokenizer import load_tokenizer
+    from qwen_inference_engine_tpu_torch.utils import debug
+
+    t0 = time.perf_counter()
+    prompt = "Hello, H100."
+    tok = load_tokenizer(ckpt)
+    n_prompt = len(tok.encode(tok.apply_chat_template(
+        [{"role": "user", "content": prompt}])))
+    with tempfile.TemporaryDirectory(prefix="qie_prof_") as prof:
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["generate", "--ckpt", ckpt, "--bits", "4",
+                           "--act-bits", "8", "--chat", "--stats",
+                           "--profile", prof, "--prompt", prompt,
+                           "--max-new-tokens", "8", "--greedy",
+                           "--max-seq", "256"])
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"[cli utils] generate returned {rc}")
+        stats = json.loads(err.getvalue().strip().splitlines()[-1])
+        files = os.listdir(prof)
+        with open(os.path.join(prof, files[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    qmm = sorted(n for n in names if "qmm_mma_kernel" in n)
+    flash = sorted(n for n in names if "flash_kernel" in n)
+    graphs = StepGraphs("cuda")
+    x = torch.randn(4, 8, device="cuda")
+
+    def body():
+        return debug.dump_activation("[cli utils] a step's activation", x * 2)
+
+    buf = io.StringIO()
+    raised = ""
+    debug.enable(True)
+    try:
+        with contextlib.redirect_stdout(buf):
+            graphs.run("hook", body)                 # the eager first step
+            try:
+                graphs.run("hook", body)             # captured: raises
+            except RuntimeError as e:
+                raised = str(e)
+    finally:
+        debug.enable(False)
+    torch.cuda.synchronize()
+    printed = buf.getvalue()
+    secs = time.perf_counter() - t0
+    print(f"[cli utils] generate --chat --stats --profile (2-layer "
+          f"checkpoint, W4A8): stats {stats} | prompt tokens with the chat "
+          f"template {n_prompt} | trace {files}: {len(names)} event names, "
+          f"qmm kernels {len(qmm)} ({qmm[:1]}), flash {flash[:1]} | debug "
+          f"hook eager print {printed.strip()[:120]!r} | under capture "
+          f"raised {raised[:100]!r} | {secs:.1f} s", flush=True)
+    if "ttft_p50_s" not in stats or stats["prefill_tokens"] != n_prompt \
+            or len(files) != 1 or not qmm or not flash:
+        fail(f"[cli utils] stats {stats}, trace files {files}, qmm "
+             f"{len(qmm)}, flash {len(flash)}")
+    if "[cli utils] a step's activation: head=" not in printed \
+            or "eager_steps()" not in raised:
+        fail(f"[cli utils] debug hook: printed {printed!r}, raised {raised!r}")
+    return dict(stats=stats, trace_events=len(names), qmm_kernels=len(qmm),
+                flash_kernels=len(flash), seconds=secs)
+
+
 def main() -> int:
     import torch
 
@@ -4596,6 +5009,7 @@ def main() -> int:
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
     from qwen_inference_engine_tpu_torch.quant.quantize import (
         QuantConfig,
+        fuse_projections,
         quantize_linear,
         quantize_params,
     )
@@ -4665,6 +5079,11 @@ def main() -> int:
         "quant_matmul8_a8": check_matmul(torch, cfg14, "quant_matmul8_a8",
                                              None, ms_list=(4,)),
     }
+    plans = {label: fused_plans(label, r) for label, r in (
+        ("quant_matmul4_a8 gs 256", qmm_recs),
+        ("quant_matmul4 gs 128", new_recs["quant_matmul4"]),
+        ("quant_matmul8 gs 128", new_recs["quant_matmul8"]),
+        ("quant_matmul8_a8 per column", new_recs["quant_matmul8_a8"]))}
     cfg_moe = PRESETS["qwen3-30b-a3b"]
     flash_recs = check_flash(torch, cfg, cfg_moe)
     dec_recs = check_decode(torch, cfg)
@@ -4839,7 +5258,7 @@ def main() -> int:
         for n, c in r["launches"].items():
             launches[n] += c
     runs.update(format_runs)
-    del p_w8a16, variants
+    del variants
     torch.cuda.empty_cache()
 
     # ---- 4 [graph generate]: captured decode steps against eager ones
@@ -4869,6 +5288,50 @@ def main() -> int:
              f"{fused['launches_per_step']}, want fused_mlp {L} times")
     runs["graph generate"] = graph_runs
     mark("4 formats and [graph generate]")
+
+    # ---- 4 [fused generate], [fused serve], [ppl]: offline-fused
+    # projections through Engine.generate and the serving engine, and the
+    # perplexity of each weight format (own prompts: main's rng untouched)
+    frng = np.random.default_rng(23)
+
+    def fprompts(lengths):
+        return [frng.integers(0, cfg.vocab_size, size=n).tolist()
+                for n in lengths]
+
+    f_w4a8 = fuse_projections(params)
+    f_w4a16 = fuse_projections(p_w4a16)
+    counts, runs["fused generate"] = run_fused_generate(torch, [
+        ("7B W4A8 gs 256", cfg8, params, f_w4a8, "quant_matmul4_a8", 0,
+         "7B W4A8 ragged, bf16 KV"),
+        ("(a) W4A16 gs 128 + INT4 lm_head", cfg, p_w4a16, f_w4a16,
+         "quant_matmul4", 1,
+         "(a) W4A16 gs 128 + INT4 lm_head, fused_mlp, ragged")],
+        wrappers, fprompts, graph_runs)
+    for n, c in counts.items():
+        launches[n] += c
+    del f_w4a16
+    torch.cuda.empty_cache()
+    counts, runs["fused serve"] = run_fused_serve(torch, cfg8, params, f_w4a8,
+                                                  wrappers, frng)
+    for n, c in counts.items():
+        launches[n] += c
+    # W4A16 arm: the (a) blocks with the bf16 lm_head
+    p_w4a16_bf16_head = dict(p_w4a16, lm_head=bf16["lm_head"])
+    counts, runs["ppl"] = run_ppl(torch, np, [
+        ("bf16", cfg, bf16, PPL_BATCH, None, 0),
+        ("W8A16 gs 128", cfg, p_w8a16, PPL_BATCH, "quant_matmul8", 7 * L),
+        ("W4A16 gs 128", cfg, p_w4a16_bf16_head, PPL_BATCH, "quant_matmul4",
+         7 * L),
+        ("W4A8 gs 256", cfg8, params, PPL_BATCH, "quant_matmul4_a8", 7 * L),
+        ("W4A8 gs 256 fused", cfg8, f_w4a8, PPL_BATCH, "quant_matmul4_a8",
+         4 * L),
+        ("W4A8 gs 256, batch_size 1", cfg8, params, 1, "quant_matmul4_a8",
+         7 * L)], wrappers)
+    for n, c in counts.items():
+        launches[n] += c
+    del f_w4a8, p_w8a16, p_w4a16_bf16_head
+    torch.cuda.empty_cache()
+    mark("4 [fused generate], [fused serve], [ppl]")
 
     # ---- 4b. serving: ContinuousBatchingEngine at full depth, then HTTP
     serve_counts, serve_stats = run_serving(torch, np, cfg8, params, wrappers,
@@ -4993,6 +5456,21 @@ def main() -> int:
     model_check("bf16 KV, one chunk", lk, lp, lr,
                 f" | greedy tokens agree {agree}/{total}")
 
+    def fused_check(label, p4, c4, lp_, lr_, split_logits, kern, head=0):
+        """Offline-fused parameters (4 matmuls a layer) on phase 5's rule,
+        against the split parameters' plain and fp32 runs."""
+        before = kern.launches
+        lf = run_prefill(fuse_projections(p4), torch.bfloat16, c4=c4)
+        if kern.launches - before != 4 * L4 + head:
+            fail(f"{label} fused: {kern.launches - before} matmul launches, "
+                 f"want {4 * L4 + head}")
+        model_check(f"{label}, fused projections (qkv, gateup)", lf, lp_,
+                    lr_, f" | bit-equal to the split kernel path: "
+                    f"{bool(torch.equal(lf, split_logits))}")
+
+    fused_check("W4A8, bf16 KV, one chunk", params4, cfg4, lp, lr, lk,
+                qm.quant_matmul4_a8)
+
     # the new weight formats, bf16 KV, one chunk
     for label, pq, pcfg, kern in (
             ("W4A16 gs 128 + int4 lm_head", p_w4a16, cfg, qm.quant_matmul4),
@@ -5011,6 +5489,8 @@ def main() -> int:
                 pq4, lambda t: t.float() if t.is_floating_point() else t),
                 torch.float32, c4=c4)
         model_check(f"{label}, bf16 KV, one chunk", lkf, lpf, lrf)
+        fused_check(f"{label}, bf16 KV, one chunk", pq4, c4, lpf, lrf, lkf,
+                    kern, head)
     # the loop's names still hold the last format's 28-layer stacks
     del p_w4a16, p_w8a8, pq, pq4
     torch.cuda.empty_cache()
@@ -5034,7 +5514,25 @@ def main() -> int:
     for kv in (torch.bfloat16, torch.int8):
         paged_model_check(torch, cfg4, params4, params4_f32, prompts,
                           plain_swaps(), f32_swaps(), kv)
-    del params4_f32
+
+    # score_logits (the perplexity harness's forward): all [4, 512, V]
+    # scores of a fresh prefill
+    def run_score(p, dtype):
+        cache = KVCache.create(L4, 4, 512, cfg.num_kv_heads, cfg.head_dim,
+                               dtype=dtype, device="cuda")
+        with torch.inference_mode():
+            return qwen.score_logits(p, cfg4, toks, cache)
+
+    before = wrappers["flash_attention"].launches
+    sk = run_score(params4, torch.bfloat16)
+    if wrappers["flash_attention"].launches - before != L4:
+        fail("score_logits did not run flash_attention once a layer")
+    with Swapped(plain_swaps()):
+        sp_ = run_score(params4, torch.bfloat16)
+    with Swapped(f32_swaps()):
+        sr = run_score(params4_f32, torch.float32)
+    model_check("W4A8, score_logits", sk, sp_, sr, what="[4, 512, V] scores")
+    del sk, sp_, sr, params4_f32
     torch.cuda.empty_cache()
     pumped_model_check(torch, cfg.replace(num_layers=L4), dict(
         p_pump, layers=qwen.map_params(p_pump["layers"], lambda t: t[:L4])),
@@ -5134,11 +5632,15 @@ def main() -> int:
     }
     def split_record(recs, extra_err):
         """A split-K matmul's entry: the decode layer, plus the layer at
-        M = 4 and 40 (with graph times) and the gate at M = 2048."""
+        M = 4 and 40 (with graph times), the fused parameters' layer at
+        M = 4 (qkv, o, gateup, down) and the gate at M = 2048."""
         return dict(layer_record(recs, extra_err), at_M4=layer_at(recs, 4),
                     at_M40=layer_at(recs, 40),
+                    at_M4_fused=layer_at(recs, 4, FUSED_PROJS),
                     at_gate_M2048=next(r for r in recs if r["M"] == 2048
-                                       and r["proj"] == "gate"))
+                                       and r["proj"] == "gate"),
+                    at_gateup_M2048=next(r for r in recs if r["M"] == 2048
+                                         and r["proj"] == "gateup"))
 
     # each matmul is reported per decode layer: its seven projections at M=4
     recs = {"quant_matmul4_a8": split_record(qmm_recs, qmm_14b),
@@ -5218,7 +5720,7 @@ def main() -> int:
                        "pumped_generate": pump_run,
                        "deferred_kernels": deferred_recs,
                        "fused_attn_matmul": attn_mm_recs,
-                       "probe_fused": probe_run},
+                       "probe_fused": probe_run, "fused_plans": plans},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

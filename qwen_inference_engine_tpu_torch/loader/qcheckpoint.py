@@ -60,7 +60,17 @@ def _flat(params: dict):
 
 
 def save_quantized(ckpt_dir: str, cfg: ModelConfig, params: dict) -> None:
-    """Write a (possibly quantized) param dict as a reloadable checkpoint."""
+    """Write a (possibly quantized) param dict as a reloadable checkpoint.
+
+    Offline-fused parameters (``qkv`` / ``gateup``) are refused: the reader
+    of either package loads only the split projections, so such a
+    checkpoint would load without them."""
+    fused = sorted(n for n in ("qkv", "gateup") if n in params["layers"])
+    if fused:
+        raise ValueError(
+            f"save_quantized writes the split layout (q, k, v, gate, up); "
+            f"these params hold fused {fused}: save them before "
+            f"fuse_projections")
     os.makedirs(ckpt_dir, exist_ok=True)
     quant_meta = {}
     for name, leaf in params["layers"].items():

@@ -65,7 +65,12 @@ The MLP of a dense layer is ``fused_mlp`` (one kernel: gate, up, SiLU and
 down, the [M, F] intermediates kept in f32 / bf16 workspaces) wherever the
 JAX package's TPU dispatch takes it: pad-free INT4 weights, no int8
 activations, M = B * T <= 256 (``fused_mlp_supported``); else the three
-matmuls.  ``decode_step_pumped`` is the JAX package's double-pumped decode
+matmuls.  Offline-fused parameters (``quant/quantize.fuse_projections``)
+run ``qkv`` as one matmul split at ``Hq * Dh`` and ``Hq * Dh + Hk * Dh``,
+and ``gateup`` as one matmul split in halves, then ``down``: 4 matmuls a
+layer where the split parameters run 7.  They never take ``fused_mlp`` or
+the pumped decode (both ask for ``gate``), as in the JAX package.
+``decode_step_pumped`` is the JAX package's double-pumped decode
 for aligned batches of more than 128 rows (``pumped_supported``): the
 batch runs as two halves staggered by half a layer, each layer's
 attention of one half in the same launch as the other half's MLP
@@ -497,6 +502,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """
     B, T = tokens.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Qd, Kd = Hq * Dh, Hk * Dh
     eps = cfg.rms_norm_eps
     act = cfg.act_bits
     if deferred_append:
@@ -535,9 +541,17 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                               lyr["down"], B * T))
     for l in range(cfg.num_layers):
         h = rms_norm(x, lyr["input_norm"][l], eps)
-        q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
-        k = apply_linear(h, lyr["k"], l, act).reshape(B, T, Hk, Dh)
-        v = apply_linear(h, lyr["v"], l, act).reshape(B, T, Hk, Dh)
+        if "qkv" in lyr:
+            # offline-fused projection (quant/quantize.fuse_projections):
+            # one matmul in place of three
+            qkv = apply_linear(h, lyr["qkv"], l, act)
+            q = qkv[..., :Qd].reshape(B, T, Hq, Dh)
+            k = qkv[..., Qd:Qd + Kd].reshape(B, T, Hk, Dh)
+            v = qkv[..., Qd + Kd:].reshape(B, T, Hk, Dh)
+        else:
+            q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
+            k = apply_linear(h, lyr["k"], l, act).reshape(B, T, Hk, Dh)
+            v = apply_linear(h, lyr["v"], l, act).reshape(B, T, Hk, Dh)
         if cfg.qk_norm:
             q = qk_norm(q, lyr["q_norm"][l], eps)
             k = qk_norm(k, lyr["k_norm"][l], eps)
@@ -605,6 +619,11 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                           ua.scales, da_.q, da_.scales, l,
                           gs_gate=ga.group_size,
                           gs_down=da_.group_size).reshape(B, T, -1)
+        elif "gateup" in lyr:
+            gu = apply_linear(h, lyr["gateup"], l, act)
+            F2 = gu.shape[-1] // 2
+            d = apply_linear(F.silu(gu[..., :F2]) * gu[..., F2:], lyr["down"],
+                             l, act)
         else:
             gate = apply_linear(h, lyr["gate"], l, act)
             up = apply_linear(h, lyr["up"], l, act)
@@ -693,6 +712,20 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                    uniform_decode=uniform_decode,
                                    deferred_append=deferred_append)
     return compute_logits(params, hidden[:, 0], cfg.act_bits_lm_head), cache
+
+
+def score_logits(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache: KVCache) -> torch.Tensor:
+    """Full ``[B, T, V]`` fp32 logits of one fresh prefill over positions
+    ``0..T-1`` into ``cache`` (the perplexity harness, ``utils/ppl.py``).
+    As in the JAX package the logits take no int8 activations:
+    ``cfg.act_bits_lm_head`` is not read, so a W4A8 lm_head is scored with
+    bf16 inputs."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    hidden, _ = forward_hidden(params, cfg, tokens, positions, cache,
+                               fresh_prefill=True)
+    return compute_logits(params, hidden)
 
 
 def pumped_supported(cfg: ModelConfig, params: dict, cache,

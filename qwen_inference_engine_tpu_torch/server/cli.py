@@ -22,13 +22,17 @@ cache (bf16, or INT8 with ``--kv-bits 8``) behind HTTP
 ``--greedy``) and ``serve --speculative`` (prompt lookup with
 ``--spec-ngram``-token suffixes, or a draft model from ``--draft-model``
 (a preset, random weights) or ``--draft-ckpt`` (HF safetensors), quantized
-like the target).  Everything runs on the card (``--device cuda``, the
-default) unless ``--device cpu`` is given.
+like the target).  ``generate --chat`` wraps each prompt in the tokenizer's
+chat template, ``--stats`` prints the engine's metrics as JSON on stderr,
+and ``--profile DIR`` writes a ``torch.profiler`` trace of generation into
+DIR (``utils/profiling.trace``).  Everything runs on the card
+(``--device cuda``, the default) unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -144,32 +148,41 @@ def cmd_generate(args) -> int:
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.kvcache.cache import kv_dtype_from_bits
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+    from qwen_inference_engine_tpu_torch.utils.profiling import trace
 
     cfg, params, tok, device = build_model(args)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p,
                         repetition_penalty=args.repetition_penalty,
                         greedy=args.greedy)
-    prompt_ids = [tok.encode(t) for t in (args.prompt or ["Hello"])]
+    prompts_text = args.prompt or ["Hello"]
+    if args.chat:
+        prompts_text = [
+            tok.apply_chat_template([{"role": "user", "content": t}])
+            for t in prompts_text]
+    prompt_ids = [tok.encode(t) for t in prompts_text]
     eng = Engine(cfg, params, max_batch=len(prompt_ids), max_seq=args.max_seq,
                  kv_dtype=kv_dtype_from_bits(args.kv_bits), sampling=sp,
                  seed=args.seed, device=device)
     t0 = time.perf_counter()
-    if args.speculative:
-        ids_out = eng.generate_speculative(
-            prompt_ids, max_new_tokens=args.max_new_tokens, k=args.spec_k)
-        note = f"speculative k={args.spec_k}"
-    else:
-        res = eng.generate(prompt_ids, max_new_tokens=args.max_new_tokens)
-        ids_out = res.token_ids
-        note = (f"ttft {res.ttft_s * 1e3:.1f} ms | "
-                f"{res.decode_tokens_per_s:.1f} tok/s")
+    with trace(args.profile):
+        if args.speculative:
+            ids_out = eng.generate_speculative(
+                prompt_ids, max_new_tokens=args.max_new_tokens, k=args.spec_k)
+            note = f"speculative k={args.spec_k}"
+        else:
+            res = eng.generate(prompt_ids, max_new_tokens=args.max_new_tokens)
+            ids_out = res.token_ids
+            note = (f"ttft {res.ttft_s * 1e3:.1f} ms | "
+                    f"{res.decode_tokens_per_s:.1f} tok/s")
     dt = time.perf_counter() - t0
     for i, ids in enumerate(ids_out):
         print(f"--- sequence {i} ({len(ids)} tokens) ---")
         print(ids)
         print(tok.decode(ids))
     print(f"[device {device} | {note} | total {dt:.2f}s]", file=sys.stderr)
+    if args.stats:
+        print(json.dumps(eng.metrics.snapshot()), file=sys.stderr)
     return 0
 
 
@@ -215,6 +228,9 @@ def _add_model_args(g) -> None:
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    g.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of generation "
+                        "(host ops and, on the card, its kernels) into DIR")
 
 
 def _add_sampling_args(g) -> None:
@@ -235,6 +251,10 @@ def main(argv=None) -> int:
     g.add_argument("--prompt", action="append", default=None,
                    help="prompt text (repeatable for a batch)")
     g.add_argument("--max-new-tokens", type=int, default=128)
+    g.add_argument("--chat", action="store_true",
+                   help="wrap each prompt in the tokenizer's chat template")
+    g.add_argument("--stats", action="store_true",
+                   help="print the engine's metrics as JSON on stderr")
     g.add_argument("--speculative", action="store_true",
                    help="greedy prompt-lookup speculative decoding "
                         "(token-identical to --greedy, fewer forwards)")

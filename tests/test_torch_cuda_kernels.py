@@ -36,7 +36,11 @@ replayed after the tables and pools change), the grouped MoE matmuls (one row, o
 expert taking every row, 127 empty experts of 128, decode- and
 prefill-like expert sizes, odd column tiles, a padded K; the three on
 the tensor-core body at 16- and 64-row tiles, a layer past 2^31 weight
-bytes, an INT4 call over one expert bit-equal to the dense kernel), the fused
+bytes, an INT4 call over one expert bit-equal to the dense kernel), the
+four dense matmuls at the 7B's offline-fused widths (qkv N 4608, gateup N
+37888; M 4, 40 and 300; fused columns bit-equal to the split calls past
+64 rows), ``fuse_projections`` through Engine.generate (4 matmuls a layer,
+no ``fused_mlp``), a debug hook raising under graph capture, the fused
 single-pass MLP, the fused attention + MLP and the uniform bf16 append of
 the double-pumped decode (tiny and Qwen2.5-7B shapes, NaN past each row's
 length, two calls bit for bit), ``decode_step_pumped`` against
@@ -752,6 +756,127 @@ def test_engine_runs_each_weight_format_on_the_card(gen, bits, act_bits, gs,
         else forwards * cfg.num_layers if k == "fused_mlp" and fused
         else 0 for k in kern}
     assert all(0 <= t < cfg.vocab_size for row in res.token_ids for t in row)
+
+
+# Qwen2.5-7B's offline-fused widths at K 3584: qkv 3584 + 2 x 512, gateup
+# 2 x 18944; the split projections' widths beside them
+FUSED_N = {"qkv": (4608, (3584, 512, 512)), "gateup": (37888, (18944, 18944))}
+FUSED_KERNELS = {"w4a8": (4, 8, 256), "w4a16": (4, 0, 128),
+                 "w8a16": (8, 0, 128), "w8a8": (8, 8, None)}
+
+
+def _fused_operands(gen, kind, M, N):
+    """(kernel, plain, args without the weight, the weight q / scales)."""
+    bits, act_bits, gs = FUSED_KERNELS[kind]
+    K = 3584
+    rows = K // 2 if bits == 4 else K
+    lo = -128 if bits == 4 else -127
+    q = torch.randint(lo, 128, (1, rows, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((1, 1 if gs is None else K // gs, N), generator=gen,
+                   device="cuda") * (K ** -0.5 / 7)
+    x = _bf16(gen, M, K)
+    name = {(4, 8): "quant_matmul4_a8", (4, 0): "quant_matmul4",
+            (8, 0): "quant_matmul8", (8, 8): "quant_matmul8_a8"}[
+                (bits, act_bits)]
+    if act_bits:
+        xq, sx = qm.quantize_activations(x)
+        head = (xq, sx.reshape(-1).contiguous())
+    else:
+        head = (x,)
+    tail = (gs,) if bits == 4 else ()
+    return getattr(qm, name), getattr(qm, name + "_plain"), head, tail, q, s
+
+
+@pytest.mark.parametrize("M", [4, 40, 300])
+@pytest.mark.parametrize("proj", sorted(FUSED_N))
+@pytest.mark.parametrize("kind", sorted(FUSED_KERNELS))
+def test_quant_matmuls_at_the_fused_widths(gen, kind, proj, M):
+    """The four dense kernels at the 7B's fused widths against their plain
+    versions (2^-6 of the largest output, 2^-7 for W8A8: the rules of
+    chip_smoke.check_matmul), two calls bit for bit.  Past 64 rows (the
+    prefill tiles, one K slice whatever N is) the fused output's columns
+    are bit-equal to each split projection's own call; at M <= 64 the K
+    split follows N, so they may round apart (within the same rule)."""
+    N, parts = FUSED_N[proj]
+    kern, plain, head, tail, q, s = _fused_operands(gen, kind, M, N)
+    got = kern(*head, q, s, 0, *tail)
+    again = kern(*head, q, s, 0, *tail)
+    ref = plain(*head, q, s, 0, *tail)
+    _check_matmul(got, ref, 2 ** -7 if kind == "w8a8" else 2 ** -6)
+    assert torch.equal(got, again)
+    lo = 0
+    for n in parts:
+        one = kern(*head, q[..., lo:lo + n].contiguous(),
+                   s[..., lo:lo + n].contiguous(), 0, *tail)
+        if M > 64:
+            assert torch.equal(got[:, lo:lo + n], one)
+        else:
+            _check_matmul(got[:, lo:lo + n], ref[:, lo:lo + n],
+                          2 ** -7 if kind == "w8a8" else 2 ** -6)
+        lo += n
+
+
+@pytest.mark.parametrize("act_bits", [0, 8], ids=["w4a16", "w4a8"])
+def test_fused_params_run_four_matmuls_a_layer(gen, act_bits):
+    """``fuse_projections`` on the card: Engine.generate (its decode steps
+    captured) launches 4 matmuls a layer a forward, never ``fused_mlp``
+    (pad-free W4A16 at M <= 256 takes it when split), and a prefill of
+    2 x 160 rows (M > 256: the split W4A16 MLP is three matmuls, not
+    fused_mlp; M > 64: one K slice at every width) gives the split
+    parameters' logits bit for bit."""
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        fuse_projections,
+    )
+
+    cfg = tiny_config(hidden_size=256, intermediate_size=512, num_heads=4,
+                      num_kv_heads=2, head_dim=64, act_bits=act_bits)
+    params = quantize_params(
+        qwen.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda"),
+        QuantConfig(bits=4, group_size=128))
+    fused = fuse_projections(params)
+    kern = qm.quant_matmul4_a8 if act_bits else qm.quant_matmul4
+    for k in (kern, fs.fused_mlp):
+        k.launches = 0
+    eng = Engine(cfg, fused, max_batch=2, max_seq=128,
+                 sampling=SamplingParams(greedy=True))
+    res = eng.generate([[5, 9, 17], [100, 200, 300, 400, 500]],
+                       max_new_tokens=6)
+    assert kern.launches == res.steps * 4 * cfg.num_layers
+    assert fs.fused_mlp.launches == 0
+    toks = torch.randint(0, cfg.vocab_size, (2, 160), generator=gen,
+                         device="cuda")
+    lens = torch.tensor([160, 141], device="cuda")
+    out = []
+    for p in (params, fused):
+        cache = KVCache.create(cfg.num_layers, 2, 256, cfg.num_kv_heads,
+                               cfg.head_dim, device="cuda")
+        out.append(qwen.prefill(p, cfg, toks, lens, cache)[0])
+    assert torch.equal(out[0], out[1])
+
+
+def test_debug_hook_raises_under_a_cuda_graph_capture(gen):
+    """An enabled dump hook inside ``torch.cuda.graph`` raises (a host print
+    cannot replay) and names eager_steps(); in an eager step it prints; a
+    disabled hook captures as an identity."""
+    from qwen_inference_engine_tpu_torch.utils import debug
+
+    x = _bf16(gen, 4, 8)
+    debug.enable(True)
+    try:
+        assert debug.dump_activation("eager", x) is x
+        g = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match=r"eager_steps\(\)"):
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                y = x * 2
+                debug.dump_activation("captured", y)
+    finally:
+        debug.enable(False)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = debug.dump_activation("off", x * 2)
+    g.replay()
+    assert torch.equal(y, x * 2)
 
 
 @pytest.mark.parametrize("B,T,Hq,Hk,D", [(1, 1, 2, 1, 128), (2, 17, 4, 2, 64),
