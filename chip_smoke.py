@@ -77,7 +77,13 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    1024, lens S - 7, the 7B gate projection K 3584 N 18944 INT4 gs 256,
    row0 0 and 56; its plan; y bit-equal to ``quant_matmul4``'s, the
    attention to ``fused_attn_mlp``'s; yardstick SDPA + bf16
-   ``torch.matmul``; both also in a CUDA graph);
+   ``torch.matmul``; both also in a CUDA graph); and, not timed, every
+   kernel of the TP paths at the shapes Qwen2.5-7B's shards give a rank
+   at tp = 2 and 4 (``check_tp_shards``: the four dense matmuls with groups
+   of 64 over the unpadded shard K, the lm_head's vocabulary shard, flash
+   attention, the ragged decode and window append, the paged decode,
+   chunk and appends at 2 and 1 KV heads), each held to its tolerance
+   here;
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -215,6 +221,25 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    through ``load_checkpoint``, ``quantize``, ``load_quantized`` and
    ``generate --ckpt`` / ``--qckpt``.  The dense runs above must launch no
    grouped kernel.
+
+7. tensor and data parallelism (``parallel/``): Qwen2.5-7B W4A8 at the
+   full 28 layers with INT4 groups of 64 (the tp = 4 shards' aligned
+   size), the same seeded params in every process.  [tp graph]:
+   ``make_tp_decode_fn`` over an NCCL group of one, its decode step
+   captured (56 all-reduces inside the graph) and bit-equal to the eager
+   step.  Then gloo worlds of 2 and 4 ranks sharing the card (NCCL refuses
+   two ranks on one device; the gloo collectives are staged through the
+   host, so these ranks take eager steps): [tp generate] at tp = 2 and 4
+   (greedy ``Engine.generate``, batch 4, 16 tokens: every rank's tokens
+   equal, the first decode step's logits, the ranks' vocabulary shards
+   joined, within twice the single-rank W4A8 vs W4A16 distance of the
+   single-rank run; each rank's launches at its shard shapes, the
+   all-reduces 2 a layer and 1 (the embedding's) a forward), [dp generate] at dp = 2 (each data
+   rank's rows on the same rule) and [tp serve] at tp = 2 (6 requests on
+   4 slots over a bf16 pool, 2 sharing a 2-page prefix: every rank's
+   tokens equal and by length, the paged kernels launched, every greedy
+   token equal to the single-rank scheduler's).  The ranks time-share the
+   card's SMs: nothing here measures TP speed.
 
 Captured steps: every ``Engine.generate`` decode step and every serving
 decode tick above replays a CUDA graph (``engine/step_graph.py``; each
@@ -2853,13 +2878,15 @@ def _resend(torch, cb, cfg, rng, chunk, exact):
     """One resend of a fresh 2040-token prompt; returns (tokens equal, the
     pool comparison).  ``exact``: the last row, the logits and the tokens
     must agree too."""
-    from qwen_inference_engine_tpu_torch.engine import scheduler as sched
     from qwen_inference_engine_tpu_torch.engine.scheduler import Request
+    # the serving engine's pieces are tp_step's makers: a last piece's
+    # logits are the makers' compute_logits
+    from qwen_inference_engine_tpu_torch.parallel import tp_step
 
     prompt = rng.integers(0, cfg.vocab_size, size=2040).tolist()
     hits0 = cb.metrics.snapshot()["prefix_hit_tokens"]
     done, tables, logits, pools = [], [], [], []
-    run_piece, compute_logits = cb._run_piece, sched.compute_logits
+    run_piece, compute_logits = cb._run_piece, tp_step.compute_logits
 
     def piece(run, tokens, start, nvalid, table, last):
         if last:
@@ -2871,7 +2898,7 @@ def _resend(torch, cb, cfg, rng, chunk, exact):
         logits.append(out.float().clone())
         return out
 
-    cb._run_piece, sched.compute_logits = piece, first_logits
+    cb._run_piece, tp_step.compute_logits = piece, first_logits
     try:
         for rid in (300, 301):
             before = chunk.launches
@@ -2880,7 +2907,7 @@ def _resend(torch, cb, cfg, rng, chunk, exact):
             cb.check_page_invariants()
             pools.append(prompt_rows(torch, cb.cache, tables[-1], len(prompt)))
     finally:
-        cb._run_piece, sched.compute_logits = run_piece, compute_logits
+        cb._run_piece, tp_step.compute_logits = run_piece, compute_logits
     hits = cb.metrics.snapshot()["prefix_hit_tokens"] - hits0
     pieces = (chunk.launches - before) // cfg.num_layers
     same = done[0].token_ids == done[1].token_ids
@@ -4989,6 +5016,503 @@ def run_cli_utils(torch, ckpt):
                 flash_kernels=len(flash), seconds=secs)
 
 
+# ----------------------------------------------------------------------
+# 7. tensor and data parallelism: gloo ranks sharing the card, and the
+#    TP step over an NCCL group of one, captured
+# ----------------------------------------------------------------------
+
+TP_LENS = [37, 120, 300, 500]    # ragged: the append + contiguous decode
+TP_NEW = 16
+TP_SERVE_LENS = [37, 300, 700, 1100]
+TP_SERVE_SHARED = 1024           # the second wave's prefix (two pages)
+TP_SERVE_NEW = 16
+
+
+def check_tp_shards(torch, cfg):
+    """Every kernel of the TP paths at the shard shapes Qwen2.5-7B gives a
+    rank at tp = 2 and 4 (``local_config``: 14 / 7 query heads over 2 / 1
+    KV heads; q N 1792 / 896, k and v N 256 / 128, gate and up N 9472 /
+    4736, o K 1792 / 896, down K 9472 / 4736, the lm_head's vocabulary
+    shard N 76032 / 38016), against its plain version with the tolerance
+    its single-card check applies: the four dense matmuls with groups of
+    64 (the aligned size of the tp = 4 shards, ``tp_aligned_group_size``)
+    over the unpadded shard K at M = 4 (a decode step), 256 (a serving
+    piece) and 2048 (the prefill chunk of batch 4), the lm_head shard at
+    M = 4; flash attention at the prefill chunk (B 4 x T 512) and the
+    serving piece (B 1 x T 256); the ragged decode and its window append
+    over the contiguous cache; the paged decode, the paged chunk and the
+    two paged appends over a pool of the rank's heads.  Not timed.
+    Returns {kernel: its largest absolute error}, which the kernels line
+    folds in."""
+    from qwen_inference_engine_tpu_torch.ops import chunk_attention as ca
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
+    from qwen_inference_engine_tpu_torch.ops import flash_attention as fa
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+    from qwen_inference_engine_tpu_torch.ops import paged_attention as pa
+    from qwen_inference_engine_tpu_torch.ops import quant_matmul as qm
+    from qwen_inference_engine_tpu_torch.parallel.tp_step import local_config
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    errs = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def held(name, tp, what, err, tol, ok=True, abs_err=None):
+        errs[name] = max(errs.get(name, 0.0),
+                         err if abs_err is None else abs_err)
+        print(f"  [tp shards] {name} tp={tp} {what}: err {err:.3g} (tol "
+              f"{tol:.3g})", flush=True)
+        if not (err <= tol and ok):
+            fail(f"[tp shards] {name} tp={tp} {what}: err {err} > {tol} or "
+                 f"not finite / not bit-exact")
+
+    gs, D, F = 64, cfg.hidden_size, cfg.intermediate_size
+    for tp in (2, 4):
+        c = local_config(cfg, tp)
+        Hq, Hk, Dh = c.num_heads, c.num_kv_heads, c.head_dim
+        projs = [("q", D, c.q_dim), ("k", D, c.kv_dim), ("v", D, c.kv_dim),
+                 ("o", c.q_dim, D), ("gate", D, F // tp), ("up", D, F // tp),
+                 ("down", F // tp, D)]
+        cases = [(M, n, K, N) for M in (4, 256, 2048) for n, K, N in projs
+                 if not (M > 4 and n in ("v", "up"))]
+        cases.append((4, "lm_head", D, cfg.vocab_size // tp))
+        for name, (bits, act_bits, rel, _) in MATMULS.items():
+            kern = getattr(qm, name)
+            plain = getattr(qm, name + "_plain")
+            qmax = 7 if bits == 4 else 127
+            for M, pname, K, N in cases:
+                rows = K // 2 if bits == 4 else K
+                q = torch.randint(-128 if bits == 4 else -127, 128,
+                                  (1, rows, N), generator=g, device="cuda",
+                                  dtype=torch.int8)
+                s = torch.full((1, K // gs, N), K ** -0.5 / qmax,
+                               device="cuda")
+                x = rnd(M, K)
+                if act_bits:
+                    xq, sx = qm.quantize_activations(x)
+                    args = (xq, sx.reshape(-1).contiguous(), q, s, 0)
+                else:
+                    args = (x, q, s, 0)
+                args += (gs,) if bits == 4 else ()
+                got, ref = kern(*args).float(), plain(*args).float()
+                held(name, tp, f"{pname} M={M} K={K} N={N} gs {gs}",
+                     (got - ref).abs().max().item(),
+                     rel * ref.abs().max().item())
+        # attention and the appends at the rank's heads
+        for B, T in ((4, 512), (1, 256)):
+            q, k, v = rnd(B, T, Hq, Dh), rnd(B, T, Hk, Dh), rnd(B, T, Hk, Dh)
+            got = fa.flash_attention(q, k, v).float()
+            ref = fa.flash_attention_plain(q, k, v).float()
+            held("flash_attention", tp, f"B={B} T={T} Hq={Hq} Hk={Hk}",
+                 (got - ref).abs().max().item(), 2e-2)
+        L, B, S, layer = 2, 4, 1024, 1
+        kc, vc = rnd(L, B, Hk, S, Dh), rnd(L, B, Hk, S, Dh)
+        lens = torch.tensor([69, 152, 332, 1000], device="cuda")
+        qd = rnd(B, 1, Hq, Dh)
+        got = da.decode_attention_contiguous(qd, kc, vc, layer, lens).float()
+        ref = da.decode_attention_contiguous_plain(qd, kc, vc, layer,
+                                                   lens).float()
+        held("decode_attention_contiguous", tp,
+             f"B={B} lens {lens.tolist()} S={S} Hq={Hq} Hk={Hk}",
+             (got - ref).abs().max().item(), 2e-2)
+        kn, vn = rnd(B, 1, Hk, Dh), rnd(B, 1, Hk, Dh)
+        mine, theirs = (kc.clone(), vc.clone()), (kc.clone(), vc.clone())
+        ka.kv_append_ragged_t(*mine, kn, vn, lens.to(torch.int32), layer)
+        ka.kv_append_ragged_t_plain(*theirs, kn, vn, lens.to(torch.int32),
+                                    layer)
+        diff = sum(int((a != b).sum()) for a, b in zip(mine, theirs))
+        held("kv_append_ragged_t", tp, f"B={B} T=1 at {lens.tolist()} "
+             f"Hk={Hk} (elements differing)", float(diff), 0.0)
+        del kc, vc, mine, theirs
+        # the paged kernels over a pool of the rank's heads, NaN in every
+        # row no table holds and past each row's length
+        k, v, tables = _paged_pool(torch, c, g)
+        _stale(torch, k, v, tables, PAGED_LENS)
+        lens_p = torch.tensor(PAGED_LENS, device="cuda", dtype=torch.int32)
+        qp = rnd(len(PAGED_LENS), 1, Hq, Dh)
+        args = (qp, k, v, tables, lens_p, PAGE, layer)
+        got = pa.paged_decode_attention_stacked(*args)
+        ref = pa.paged_decode_attention_plain(*args)
+        held("paged_decode_attention_stacked", tp,
+             f"8 slots lens {PAGED_LENS} Hq={Hq} Hk={Hk} (relative)",
+             rel_err(got, ref), PAGED_TOL, bool(got.isfinite().all()),
+             (got.float() - ref.float()).abs().max().item())
+        k1, v1, t1 = _paged_pool(torch, c, g, rows=1)
+        start, T = 700, 256
+        _stale(torch, k1, v1, t1, [start + T])
+        qc = rnd(1, T, Hq, Dh)
+        args = (qc, k1, v1, t1, layer, start, PAGE)
+        got = ca.paged_chunk_attention(*args)
+        ref = ca.paged_chunk_attention_plain(*args)
+        held("paged_chunk_attention", tp,
+             f"B=1 T={T} start {start} Hq={Hq} Hk={Hk} (relative)",
+             rel_err(got, ref), PAGED_TOL, bool(got.isfinite().all()),
+             (got.float() - ref.float()).abs().max().item())
+        k, v = k.nan_to_num(), v.nan_to_num()
+        pos = lens_p - 1
+        for name, new, at, tab in (
+                ("paged_append_ragged", (len(PAGED_LENS), 1), pos, tables),
+                ("paged_append_prefill", (1, T), 384, tables[:1])):
+            nk, nv = rnd(*new, Hk, Dh), rnd(*new, Hk, Dh)
+            mine, theirs = (k.clone(), v.clone()), (k.clone(), v.clone())
+            getattr(ka, name)(*mine, nk, nv, at, tab, layer, page_size=PAGE)
+            getattr(ka, name + "_plain")(*theirs, nk, nv, at, tab, layer,
+                                         PAGE)
+            diff = sum(int((a != b).sum()) for a, b in zip(mine, theirs))
+            written = int((mine[0] != k).any(dim=-1).sum())
+            held(name, tp, f"{new[0]} x {new[1]} tokens Hk={Hk} (elements "
+                 f"differing; {written} K rows written)", float(diff), 0.0,
+                 written == new[0] * new[1] * Hk)
+        del k, v, k1, v1
+        torch.cuda.empty_cache()
+    return errs
+
+
+def tp_model(torch, layers, seed=7):
+    """Qwen2.5-7B W4A8 at ``layers`` layers with INT4 groups of 64 (the
+    aligned size of the tp = 4 shards: o's local K 896, down's 4736),
+    drawn packed on the current card from a seeded generator: the same
+    params in every process."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.models.qwen import (
+        init_quantized_params,
+    )
+
+    cfg = PRESETS["qwen2.5-7b"].replace(num_layers=layers)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return cfg.replace(act_bits=8), init_quantized_params(
+        cfg, gen, bits=4, group_size=64, device=dev)
+
+
+def tp_serve_requests(prompts):
+    """The [tp serve] traffic: the first wave, then two requests that share
+    the 1100-token prompt's first two pages."""
+    first = prompts[:len(TP_SERVE_LENS)]
+    second = [first[-1][:TP_SERVE_SHARED] + p
+              for p in prompts[len(TP_SERVE_LENS):]]
+    return first, second
+
+
+def tp_serve_run(torch, cfg, params, mesh, prompts):
+    """The serving engine at 4 slots over a bf16 pool of 512-token pages,
+    prefix cache on: the two waves, each drained.  Returns (tokens by
+    request, snapshot)."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    cb = ContinuousBatchingEngine(
+        cfg, params, mesh=mesh, max_slots=4, page_size=PAGE, num_pages=24,
+        max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
+        sampling=SamplingParams(greedy=True), device=params["embed"].device)
+    cb._eos = set()     # random weights can argmax onto EOS
+    done = []
+    for wave, reqs in enumerate(tp_serve_requests(prompts)):
+        for i, p in enumerate(reqs):
+            cb.submit(Request(request_id=10 * wave + i, prompt=p,
+                              max_new_tokens=TP_SERVE_NEW))
+        done += cb.run_to_completion(sync_every=8)
+    return ({f.request_id: (f.finish_reason, f.token_ids) for f in done},
+            cb.metrics.snapshot())
+
+
+def tp_rank(rank, world_size, layers, jobs, prompts, serve_prompts):
+    """One rank of a gloo world on the card: for each (label, (dp, tp))
+    job, the port under that mesh from the same seeded 7B W4A8 params, its
+    launches counted from 0 just before the run and read just after.
+    Returns {label: numbers}."""
+    import torch
+
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+    from qwen_inference_engine_tpu_torch.parallel.mesh import make_mesh
+    from qwen_inference_engine_tpu_torch.utils.metrics import (
+        counted_wrappers,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = tp_model(torch, layers)
+    wrappers = counted_wrappers()
+    greedy = SamplingParams(greedy=True)
+    out = {}
+    for label, shape in jobs:
+        mesh = make_mesh(shape)
+        if label.startswith("tp serve"):
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            toks, snap = tp_serve_run(torch, cfg, params, mesh,
+                                      serve_prompts)
+            torch.cuda.synchronize()
+            out[label] = dict(tokens=toks, snapshot=snap,
+                              wall_s=time.perf_counter() - t0,
+                              launches={n: w.launches
+                                        for n, w in wrappers.items()})
+            continue
+        eng = Engine(cfg, params, mesh=mesh, max_batch=4, max_seq=1024,
+                     sampling=greedy)
+        with torch.inference_mode():
+            eng.start(prompts, TP_NEW, greedy)
+            logits = eng.decode().float().cpu()
+        for w in wrappers.values():
+            w.launches = 0
+        res = eng.generate(prompts, max_new_tokens=TP_NEW)
+        out[label] = dict(
+            logits=logits, tokens=res.token_ids, ttft_ms=res.ttft_s * 1e3,
+            decode_tok_s=res.decode_tokens_per_s, steps=res.steps,
+            capture=eng.graphs.capture, graphs=eng.graphs.captured,
+            launches={n: w.launches for n, w in wrappers.items()})
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_graph_case(torch, cfg, params, prompts):
+    """[tp graph]: ``make_tp_decode_fn`` over an NCCL group of one (a real
+    all-reduce after o and down, inside the graph), captured, against its
+    eager step from the same state: logits and cache bit-equal; each
+    step's launches; host ms a step captured and eager."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from qwen_inference_engine_tpu_torch.engine import step_graph
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+    )
+    from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+        make_tp_decode_fn,
+        make_tp_prefill_fn,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="qie_rdv_")
+    init_distributed("nccl", "file://" + os.path.join(tmp, "rdv"), 0, 1,
+                     torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1))
+        L = cfg.num_layers
+        cache = KVCache.create(L, 4, 1024, cfg.num_kv_heads, cfg.head_dim,
+                               device="cuda")
+        toks = torch.zeros((4, 512), dtype=torch.long, device="cuda")
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = torch.tensor(p, device="cuda")
+        lens = torch.tensor([len(p) for p in prompts], device="cuda")
+        step = make_tp_decode_fn(cfg, mesh)
+        graphs = step_graph.StepGraphs("cuda", capture=mesh.capturable)
+        with torch.inference_mode():
+            logits, _ = make_tp_prefill_fn(cfg, mesh)(params, toks, lens,
+                                                      cache)
+            tok, pos = logits.argmax(-1), lens.clone()
+            state = [cache.k, cache.v, tok, pos]
+            snap = [t.clone() for t in state]
+
+            def body():
+                out, _ = step(params, tok, pos, cache)
+                return out
+
+            def reset():
+                for dst, src in zip(state, snap):
+                    dst.copy_(src)
+
+            with step_graph.eager_steps():
+                want = body().clone()
+            want_k = cache.k.clone()
+            reset()
+            graphs.run("tp", body)             # the key's first step: eager
+            reset()
+            got = graphs.run("tp", body).clone()   # captured, then replayed
+            delta = dict(graphs._steps["tp"].delta)
+            equal = bool(torch.equal(got, want)) and \
+                bool(torch.equal(cache.k, want_k))
+
+            def host_ms(eager, n=8):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    if eager:
+                        with step_graph.eager_steps():
+                            graphs.run("tp", body)
+                    else:
+                        graphs.run("tp", body)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / n
+
+            ms_graph, ms_eager = host_ms(False), host_ms(True)
+    finally:
+        dist.destroy_process_group()
+    print(f"[tp graph] 7B W4A8 gs 64, {L} layers, batch 4 ragged, NCCL group "
+          f"of one ({mesh.model_group.backend}): captured step bit-equal to "
+          f"the eager one {equal} | a step's launches {delta} | host ms a "
+          f"step captured {ms_graph:.2f}, eager {ms_eager:.2f}", flush=True)
+    if not equal:
+        fail("[tp graph]: the captured TP step differs from its eager step")
+    if delta.get("all_reduce") != 2 * L or \
+            delta.get("quant_matmul4_a8") != 7 * L:
+        fail(f"[tp graph]: a step's launches {delta}, want all_reduce "
+             f"{2 * L} and quant_matmul4_a8 {7 * L}")
+    return delta, dict(bit_equal=equal, launches_per_step=delta,
+                       host_ms_graph=ms_graph, host_ms_eager=ms_eager)
+
+
+def run_tp_phases(torch, np, wrappers, layers=28):
+    """[tp generate] (tp 2 and 4), [dp generate] (dp 2), [tp serve] (tp 2,
+    bf16 pool) as gloo ranks sharing the card, each against the
+    single-rank port run of the same seeded params, and [tp graph].  The
+    ranks time-share the card's SMs: no number here is a TP speed.
+    Returns (every rank's kernel launches summed, the numbers)."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+    from qwen_inference_engine_tpu_torch.parallel.mesh import spawn
+
+    rng = np.random.default_rng(24)
+    cfg, params = tp_model(torch, layers)
+    L = cfg.num_layers
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in TP_LENS]
+    serve_prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+                     for n in TP_SERVE_LENS + [40, 100]]
+    greedy = SamplingParams(greedy=True)
+
+    def first_step(c):
+        eng = Engine(c, params, max_batch=4, max_seq=1024, sampling=greedy)
+        with torch.inference_mode():
+            eng.start(prompts, TP_NEW, greedy)
+            logits = eng.decode().float().cpu()
+        toks = eng.generate(prompts, max_new_tokens=TP_NEW).token_ids
+        del eng
+        return logits, toks
+
+    ref, ref_toks = first_step(cfg)
+    ref16, _ = first_step(cfg.replace(act_bits=0))
+    # the bound: twice the activation quantization's own effect
+    a8_vs_a16 = (ref - ref16).abs().max().item()
+    bound = 2 * a8_vs_a16
+    ref_serve, _ = tp_serve_run(torch, cfg, params, None, serve_prompts)
+    delta, graph_run = tp_graph_case(torch, cfg, params, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    numbers = {"tp graph": graph_run, "bound": bound,
+               "a8_vs_a16": a8_vs_a16}
+    launches = {n: 0 for n in wrappers}
+    for world, jobs in ((2, [("tp generate tp=2", (1, 2)),
+                             ("dp generate dp=2", (2, 1)),
+                             ("tp serve tp=2", (1, 2))]),
+                        (4, [("tp generate tp=4", (1, 4))])):
+        t0 = time.perf_counter()
+        ranks = spawn(tp_rank, world, device_type="cuda",
+                      args=(layers, jobs, prompts, serve_prompts))
+        print(f"[tp] a gloo world of {world} ranks on the card: "
+              f"{time.perf_counter() - t0:.1f} s (spawn, params, runs)",
+              flush=True)
+        for label, shape in jobs:
+            per = [r[label] for r in ranks]
+            for r, p in enumerate(per):
+                print(f"[{label.split(' ')[0]} {label.split(' ')[1]}] "
+                      f"{label.split(' ')[-1]} rank {r} launches "
+                      f"{ {n: c for n, c in p['launches'].items() if c} }",
+                      flush=True)
+                for n in wrappers:
+                    launches[n] += p["launches"][n]
+            numbers[label] = tp_check(torch, label, shape, per, ref,
+                                      ref_toks, ref_serve, bound, L)
+    return launches, numbers
+
+
+def tp_check(torch, label, shape, per, ref, ref_toks, ref_serve, bound, L):
+    """One TP / DP run's rule: every rank's tokens equal; generate's first
+    decode-step logits (the ranks' vocabulary shards joined, or the data
+    ranks' rows) within ``bound`` of the single-rank run; the kernels of
+    the path launched on every rank, the collectives as many times as the
+    path needs."""
+    dp, tp = shape
+    if label.startswith("tp serve"):
+        toks = [p["tokens"] for p in per]
+        if any(t != toks[0] for t in toks):
+            fail(f"[{label}]: the ranks' tokens differ")
+        bad = [k for k, (why, ids) in toks[0].items()
+               if why != "length" or len(ids) != TP_SERVE_NEW]
+        if len(toks[0]) != 6 or bad:
+            fail(f"[{label}]: {len(toks[0])} of 6 requests, not by length: "
+                 f"{bad}")
+        same = sum(a == b for k in toks[0]
+                   for a, b in zip(toks[0][k][1], ref_serve[k][1]))
+        if same != 6 * TP_SERVE_NEW:
+            fail(f"[{label}]: greedy tokens equal to the single-rank "
+                 f"scheduler's {same} of {6 * TP_SERVE_NEW}")
+        snap = per[0]["snapshot"]
+        must = {"quant_matmul4_a8", "flash_attention", "paged_append_prefill",
+                "paged_chunk_attention", "paged_append_ragged",
+                "paged_decode_attention_stacked", "all_reduce", "all_gather"}
+        for r, p in enumerate(per):
+            missing = sorted(n for n in must if p["launches"][n] <= 0)
+            if missing:
+                fail(f"[{label}] rank {r}: not launched {missing}")
+        if snap["prefix_hit_tokens"] < 2 * TP_SERVE_SHARED:
+            fail(f"[{label}]: prefix hits {snap['prefix_hit_tokens']}")
+        print(f"[tp serve] tp={tp}, 7B W4A8 gs 64, bf16 pool, 4 slots, pages "
+              f"of {PAGE}: 6 requests (prompts {TP_SERVE_LENS}, then 2 "
+              f"sharing {TP_SERVE_SHARED} tokens) by length on every rank, "
+              f"tokens equal across ranks | greedy tokens equal to the "
+              f"single-rank scheduler {same}/{6 * TP_SERVE_NEW} | prefix "
+              f"hits {snap['prefix_hit_tokens']} tokens | wall "
+              f"{per[0]['wall_s']:.2f} s (ranks share the card)", flush=True)
+        return dict(tokens_equal_single=same, snapshot=snap,
+                    wall_s=per[0]["wall_s"])
+    toks = [p["tokens"] for p in per]
+    if any(t != toks[0] for t in toks):
+        fail(f"[{label}]: the ranks' tokens differ")
+    if dp == 1:
+        got = torch.cat([p["logits"] for p in per], dim=-1)
+    else:
+        got = torch.cat([p["logits"] for p in per], dim=0)
+    if got.shape != ref.shape or not bool(got.isfinite().all()):
+        fail(f"[{label}]: logits {tuple(got.shape)} not finite or not "
+             f"{tuple(ref.shape)}")
+    err = (got - ref).abs().max().item()
+    same = sum(a == b for x, y in zip(toks[0], ref_toks) for a, b in zip(x, y))
+    forwards = per[0]["steps"]
+    must = {"quant_matmul4_a8": 7 * L * forwards, "flash_attention": L,
+            "decode_attention_contiguous": L * (forwards - 1),
+            "kv_append_ragged_t": L * (forwards - 1)}
+    if tp > 1:
+        # o and down a layer and the vocab-sharded embedding's sum a
+        # forward; two gathers a greedy sample
+        must.update(all_reduce=(2 * L + 1) * forwards,
+                    all_gather=2 * forwards)
+    for r, p in enumerate(per):
+        wrong = {n: p["launches"][n] for n, c in must.items()
+                 if p["launches"][n] != c}
+        # gloo TP ranks take eager steps; a pure-DP rank captures its
+        # single-card step
+        if wrong or (tp > 1) == (p["capture"] or p["graphs"] > 0):
+            fail(f"[{label}] rank {r}: launches {wrong} (want {must}), "
+                 f"graphs {p['graphs']}, capture {p['capture']}")
+    what = "vocabulary shards joined" if dp == 1 else "data ranks' rows"
+    print(f"[{label.split(' ')[0]} {label.split(' ')[1]}] "
+          f"{label.split(' ')[-1]}: 7B W4A8 gs 64, {L} layers, batch 4 "
+          f"{TP_LENS}, {TP_NEW} tokens, gloo ranks sharing the card (eager "
+          f"steps) | first decode step's logits ({what}) vs the single-rank "
+          f"run max |d| {err:.4g} (bound: 2 x the single-rank W4A8 vs W4A16 "
+          f"distance = {bound:.4g}) | tokens equal on every rank, equal to "
+          f"the single-rank run {same}/{4 * TP_NEW} | ttft "
+          f"{per[0]['ttft_ms']:.1f} ms, {per[0]['decode_tok_s']:.1f} tok/s "
+          f"(not a TP speed: the ranks time-share the SMs)", flush=True)
+    if not err <= bound:
+        fail(f"[{label}]: logits {err} from the single-rank run, > {bound}")
+    return dict(max_abs_diff=err, tokens_equal_single=same,
+                ttft_ms=per[0]["ttft_ms"],
+                decode_tok_s=per[0]["decode_tok_s"],
+                launches=per[0]["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -5102,6 +5626,8 @@ def main() -> int:
     attn_mlp_recs = check_fused_attn_mlp(torch, cfg)
     append_recs["kv_append_uniform"] = check_kv_append_uniform(torch, cfg)
     append_recs["kv_append_ragged_t"] = check_kv_append_ragged_t(torch, cfg)
+    # the TP paths' kernels at the shapes a rank's shards give them
+    tp_shard_errs = check_tp_shards(torch, cfg)
     deferred_recs = check_deferred_kernels(torch, cfg)
     attn_mm_recs = check_fused_attn_matmul(torch, cfg)
     grouped_recs = check_grouped_matmul(torch, PRESETS["qwen3-30b-a3b"])
@@ -5547,11 +6073,17 @@ def main() -> int:
     moe_counts, moe_runs = run_moe_phases(torch, np, rng, wrappers)
     for n, c in moe_counts.items():
         launches[n] += c
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
     mark("6 moe")
 
-    # ---- 7. results
+    # ---- 7. tensor and data parallelism
+    tp_counts, runs["tensor parallel"] = run_tp_phases(torch, np, wrappers)
+    for n, c in tp_counts.items():
+        launches[n] += c
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path was never launched: {launches}")
+    mark("7 tp / dp")
+
+    # ---- 8. results
     sources = {
         "quant_matmul4_a8": ("csrc/quant_matmul.cu",
                              "qwen_inference_engine_tpu/ops/quant_matmul.py:219"),
@@ -5677,6 +6209,9 @@ def main() -> int:
             # the deferred decode's kernels at its batch of 192; the fused
             # attention + matmul at the probe's row0 0
             **deferred_recs, "fused_attn_matmul": attn_mm_recs[0]}
+    for name, err in tp_shard_errs.items():
+        recs[name] = dict(recs[name], max_abs_err=max(
+            recs[name]["max_abs_err"], err), tp_shards_max_abs_err=err)
     sites = {replaces for _, replaces in sources.values()}
     if set(recs) != set(wrappers) or set(sources) != set(wrappers) \
             or len(sites) != 28:
@@ -5697,7 +6232,7 @@ def main() -> int:
             **{k: v for k, v in rec.items()
                if k in ("gather_ms", "graph_ms", "library_graph_ms",
                         "kernel", "identity_bit_equal")
-               or k.startswith(("int8_", "rows_", "start_", "at_"))}})
+               or k.startswith(("int8_", "rows_", "start_", "at_", "tp_"))}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s | serving "
           f"{json.dumps(serve_stats)} | serving w4a16 {json.dumps(w4_serve)}"
           f" | loader {json.dumps(loader)} | int8 pool and speculation "

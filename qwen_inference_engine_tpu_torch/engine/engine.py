@@ -29,6 +29,28 @@ The prefill stays eager.
 speculation (``engine/speculative.py``): token-identical to ``generate``
 with greedy sampling, 1..k+1 tokens per forward.
 
+Under a ``(dp, tp)`` mesh (``parallel/mesh.py``) every rank builds the
+same engine from the same global params and prompts, and runs its share:
+
+* data rank ``d`` takes rows ``[d * B / dp, (d + 1) * B / dp)`` of the
+  ``max_batch`` rows (the prompt bucket and the uniform decision stay the
+  whole batch's, as on one device);
+* with tp > 1 the model ranks run the TP step (``parallel/tp_step.py``) on
+  their shards of the params and the cache's KV heads, and sample on
+  their vocabulary shards (every model rank draws the same token from a
+  generator seeded alike);
+* with tp == 1 (pure DP) each rank runs the single-card forward on its
+  rows, kernels and all;
+* ``generate`` gathers the rows over the data group, so every rank
+  returns the whole batch's tokens in prompt order.
+
+A model that does not split over the model axis (``tp_refusal``) raises:
+the JAX engine then drops to GSPMD's partitioned XLA ops, which the port
+does not run.  So does ``generate_speculative`` under a mesh.  The decode
+step is captured where the model group is NCCL; a gloo group's
+collectives run on the host, and the engine takes the eager step
+(``graphs.capture`` is false from construction).
+
 The engine runs on the card unless the caller passes ``device="cpu"``
 (the tests do): it never drops to the CPU by itself.
 """
@@ -46,10 +68,8 @@ from qwen_inference_engine_tpu_torch.config import ModelConfig
 from qwen_inference_engine_tpu_torch.engine.step_graph import StepGraphs
 from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
 from qwen_inference_engine_tpu_torch.models.qwen import (
-    decode_step,
     decode_step_pumped,
     params_to,
-    prefill_chunked,
     pumped_supported,
 )
 from qwen_inference_engine_tpu_torch.ops.sampling import (
@@ -58,6 +78,18 @@ from qwen_inference_engine_tpu_torch.ops.sampling import (
     sample,
     seen_mask_from_prompts,
     update_seen_mask,
+)
+from qwen_inference_engine_tpu_torch.parallel.mesh import all_gather
+from qwen_inference_engine_tpu_torch.parallel.sharding import (
+    batch_shard,
+    shard_params,
+)
+from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+    local_config,
+    make_tp_decode_fn,
+    make_tp_prefill_fn,
+    sampling_vocab,
+    tp_refusal,
 )
 from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
 
@@ -129,6 +161,21 @@ def _bucket(n: int, minimum: int = 16) -> int:
     return b
 
 
+def tp_mesh(mesh, cfg: ModelConfig, params: dict):
+    """The mesh whose model axis a TP step splits over, or None (no mesh,
+    or tp == 1).  A model that does not split raises, naming why: the JAX
+    engines then run GSPMD's partitioned XLA ops, which the port does
+    not."""
+    if mesh is None or mesh.tp == 1:
+        return None
+    why = tp_refusal(cfg, params, mesh.tp)
+    if why is not None:
+        raise ValueError(f"this model does not split over the mesh's model "
+                         f"axis ({why}); the JAX engine then runs GSPMD's "
+                         f"partitioned XLA ops, which the port does not")
+    return mesh
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card; a CUDA device without a card raises."""
     dev = torch.device("cuda" if device is None else device)
@@ -140,15 +187,34 @@ def resolve_device(device=None) -> torch.device:
 
 class Engine:
     """Fixed-batch generation over a contiguous KV cache.  ``pumped``
-    opts into the double-pumped decode of aligned batches."""
+    opts into the double-pumped decode of aligned batches; ``mesh`` (this
+    rank's ``parallel/mesh.Mesh``) runs this rank's share of a (dp, tp)
+    mesh from the global ``params``."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, *, max_batch: int = 8,
-                 max_seq: int = 2048, kv_dtype=torch.bfloat16,
+    def __init__(self, cfg: ModelConfig, params: dict, *, mesh=None,
+                 max_batch: int = 8, max_seq: int = 2048,
+                 kv_dtype=torch.bfloat16,
                  sampling: Optional[SamplingParams] = None, seed: int = 1234,
                  device=None, pumped: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params_to(params, self.device)
+        self.mesh = mesh
+        self._tp = tp_mesh(mesh, cfg, params)
+        dp = 1 if mesh is None else mesh.dp
+        if max_batch % dp:
+            raise ValueError(f"max_batch {max_batch} does not split over "
+                             f"dp={dp}")
+        # this rank's rows of the batch, and its shard of the model
+        self.local_batch = max_batch // dp
+        self.params = params_to(params if self._tp is None
+                                else shard_params(params, self._tp),
+                                self.device)
+        # the forward's config (heads divided by tp), its prefill (the TP
+        # step's on this rank's shards) and the samplers' view of the logits
+        self._fcfg = (cfg if self._tp is None
+                      else local_config(cfg, self._tp.tp))
+        self._prefill = make_tp_prefill_fn(cfg, self._tp, chunk=512)
+        self._vocab = sampling_vocab(self._tp, cfg)
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.kv_dtype = kv_dtype
@@ -156,21 +222,24 @@ class Engine:
         self.seed = seed
         self.pumped = pumped
         self.metrics = Metrics()
-        # the captured decode steps by key, and the buffers they bind
-        self.graphs = StepGraphs(self.device)
+        # the captured decode steps by key, and the buffers they bind; a
+        # gloo model group's collectives run on the host: eager steps
+        self.graphs = StepGraphs(
+            self.device, capture=self._tp is None or self._tp.capturable)
         self._bufs: Optional[_DecodeBuffers] = None
         self._step = None     # (key, body) of the current call's steps
 
     def new_cache(self) -> KVCache:
-        return KVCache.create(self.cfg.num_layers, self.max_batch,
-                              self.max_seq, self.cfg.num_kv_heads,
+        """This rank's cache: its rows and (under TP) its KV heads."""
+        return KVCache.create(self.cfg.num_layers, self.local_batch,
+                              self.max_seq, self._fcfg.num_kv_heads,
                               self.cfg.head_dim, dtype=self.kv_dtype,
                               device=self.device)
 
     def buffers(self) -> _DecodeBuffers:
         """The decode steps' static buffers, made at the first call."""
         if self._bufs is None:
-            B, dev = self.max_batch, self.device
+            B, dev = self.local_batch, self.device
             cache = self.new_cache()
 
             def zeros(*shape, dtype=torch.int64):
@@ -203,6 +272,11 @@ class Engine:
         if not 0 < len(prompts) <= self.max_batch:
             raise ValueError(f"{len(prompts)} prompts for max_batch "
                              f"{self.max_batch}")
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                "generate_speculative under a mesh: the JAX engine runs it "
+                "through GSPMD's partitioned XLA ops (no TP step), which "
+                "the port does not; use the serving engine's speculation")
         return generate_speculative(self.params, self.cfg, list(prompts),
                                     self.new_cache(),
                                     max_new_tokens=max_new_tokens, k=k,
@@ -233,7 +307,8 @@ class Engine:
                     break
                 eos_every = min(eos_every * 2, 64)
                 next_poll = step + eos_every
-        mat = b.out[:, :steps + 1].cpu().numpy()  # one sync
+        mat = self._gather_rows(b.out[:, :steps + 1], max_new_tokens,
+                                steps)   # one sync
         dt = max(time.perf_counter() - t1, 1e-9)
         n_real = len(prompts)
         self.metrics.observe_decode(steps * n_real, dt)
@@ -253,6 +328,22 @@ class Engine:
             steps=steps + 1,
         )
 
+    def _gather_rows(self, out: torch.Tensor, width: int,
+                     steps: int) -> np.ndarray:
+        """The whole batch's tokens ``[max_batch, n]`` on every rank: this
+        rank's rows, and under DP every data rank's, gathered in row order
+        (a data rank that stopped early pads with zeros past its EOS)."""
+        if self.mesh is None or self.mesh.dp == 1:
+            return out.cpu().numpy()
+        group = self.mesh.data_group
+        padded = torch.zeros((out.shape[0], width), dtype=out.dtype,
+                             device=out.device)
+        padded[:, :out.shape[1]] = out
+        rows = all_gather(padded, group).reshape(-1, width)
+        n = int(all_gather(torch.tensor([steps], device=out.device),
+                           group).max()) + 1
+        return rows[:, :n].cpu().numpy()
+
     @torch.inference_mode()
     def start(self, prompts: Sequence[Sequence[int]], max_new_tokens: int,
               sp: SamplingParams, seed: Optional[int] = None):
@@ -266,22 +357,26 @@ class Engine:
         if not 0 < len(prompts) <= self.max_batch:
             raise ValueError(f"{len(prompts)} prompts for max_batch "
                              f"{self.max_batch}")
-        B = self.max_batch
+        B = self.local_batch
         lens_list = [len(p) for p in prompts]
         T = _bucket(max(lens_list))
         if T + max_new_tokens > self.max_seq:
             raise ValueError(f"prompt bucket {T} + {max_new_tokens} new "
                              f"tokens exceeds max_seq {self.max_seq}")
 
-        tokens = np.zeros((B, T), np.int64)
-        lens = np.ones((B,), np.int64)  # padded rows get length 1 (harmless)
+        tokens = np.zeros((self.max_batch, T), np.int64)
+        # padded rows get length 1 (harmless)
+        lens = np.ones((self.max_batch,), np.int64)
         for i, p in enumerate(prompts):
             tokens[i, : len(p)] = p
             lens[i] = len(p)
         dev = self.device
         b = self.buffers()
-        tokens_d = torch.from_numpy(tokens).to(dev)
-        lens_d = torch.from_numpy(lens).to(dev)
+        # this data rank's rows (the whole batch decides T and uniform)
+        tokens_d = batch_shard(torch.from_numpy(tokens), self.mesh,
+                               ("data", None)).to(dev)
+        lens_d = batch_shard(torch.from_numpy(lens), self.mesh,
+                             ("data",)).to(dev)
         track = sp.repetition_penalty != 1.0 or sp.presence_penalty != 0.0
         seen = None
         if track:
@@ -299,7 +394,7 @@ class Engine:
         # aligned batch (all rows the same length) -> uniform decode: the
         # fresh KV rows go through the append kernels
         uniform = bool(np.all(lens == lens[0]))
-        pumped = (self.pumped and uniform
+        pumped = (self.pumped and uniform and self._tp is None
                   and pumped_supported(self.cfg, self.params, cache, B))
         self._step = ((sp.top_k, sp.greedy, track, uniform, pumped, B,
                        cache.k.shape[3], self.kv_dtype,
@@ -308,9 +403,8 @@ class Engine:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, _ = prefill_chunked(self.params, self.cfg, tokens_d, lens_d,
-                                    cache, chunk=512)
-        tok = sample(logits, sp, seen, b.gen, b.sp)
+        logits, _ = self._prefill(self.params, tokens_d, lens_d, cache)
+        tok = sample(logits, sp, seen, b.gen, b.sp, vocab=self._vocab)
         if seen is not None:
             update_seen_mask(seen, tok)
         first = tok.cpu().numpy()  # value fetch = device sync
@@ -337,17 +431,17 @@ class Engine:
         the call's tensors, the seen mask, the EOS mask (finished rows
         emit 0), the token into ``out`` at ``col``, ``col`` and the
         positions advanced.  Returns the logits."""
-        b, params, cfg = self.buffers(), self.params, self.cfg
+        b, params, vocab = self.buffers(), self.params, self._vocab
         seen = b.seen if track else None
+        step = make_tp_decode_fn(self.cfg, self._tp, uniform_decode=uniform)
 
         def body():
             if pumped:
-                logits, _ = decode_step_pumped(params, cfg, b.tok, b.pos,
+                logits, _ = decode_step_pumped(params, self.cfg, b.tok, b.pos,
                                                b.cache)
             else:
-                logits, _ = decode_step(params, cfg, b.tok, b.pos, b.cache,
-                                        uniform_decode=uniform)
-            nxt = sample(logits, sp, seen, b.gen, b.sp)
+                logits, _ = step(params, b.tok, b.pos, b.cache)
+            nxt = sample(logits, sp, seen, b.gen, b.sp, vocab=vocab)
             if seen is not None:
                 update_seen_mask(seen, nxt)
             is_eos = (nxt[:, None] == b.eos[None, :]).any(dim=-1)

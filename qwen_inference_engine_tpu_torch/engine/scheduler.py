@@ -54,8 +54,23 @@ rows match it token for token.
 
 Dense and Qwen3-MoE models serve alike, as target or drafter (an MoE
 layer routes every row of a step, a verify's B x (k+1) rows included, as
-one batch).  Not ported yet: a device mesh (TP / EP / PP, slice 6),
-raising ``NotImplementedError``.
+one batch).
+
+Under a pure-TP mesh (``parallel/mesh.py``, data axis 1: the page pool is
+shared by every slot) every rank builds the same engine from the same
+global params, takes the same requests in the same order and steps in
+lockstep, so every rank holds the same host state (tokens, positions,
+slots, block tables, prefix index).  Each runs the TP step
+(``parallel/tp_step.py``) on its shards: its KV heads of the pool (the
+prefix cache copies its own heads), its params, its vocabulary shard of
+the logits (``ShardedVocab`` sampling; every rank draws the same token).
+A drafter must split over the same model axis.  Deadlines are the clock's
+and clocks differ between ranks: under a mesh the world's rank 0 decides
+them and broadcasts them in the step.  Not ported yet, raising
+``NotImplementedError`` that names the next multi-GPU slice: the
+expert-parallel mesh and the pipeline.  A data axis above 1, or a model
+that does not split over the model axis, raises too (the JAX scheduler
+then runs GSPMD's XLA ops).
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do): it never drops to the CPU by itself.
@@ -72,7 +87,10 @@ import numpy as np
 import torch
 
 from qwen_inference_engine_tpu_torch.config import ModelConfig
-from qwen_inference_engine_tpu_torch.engine.engine import resolve_device
+from qwen_inference_engine_tpu_torch.engine.engine import (
+    resolve_device,
+    tp_mesh,
+)
 from qwen_inference_engine_tpu_torch.engine.prefix_cache import PagePoolMixin
 from qwen_inference_engine_tpu_torch.engine.spec_engine import (
     SpeculationMixin,
@@ -90,19 +108,49 @@ from qwen_inference_engine_tpu_torch.kvcache.cache import (
     PagedKVCache,
     pages_required,
 )
-from qwen_inference_engine_tpu_torch.models.qwen import (
-    compute_logits,
-    decode_step,
-    forward_hidden,
-    params_to,
-)
+from qwen_inference_engine_tpu_torch.models.qwen import params_to
 from qwen_inference_engine_tpu_torch.ops.sampling import (
     SamplingParams,
     sample_rows,
     stream_generator,
     stream_seed,
 )
+from qwen_inference_engine_tpu_torch.parallel.mesh import broadcast_object
+from qwen_inference_engine_tpu_torch.parallel.sharding import shard_params
+from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+    local_config,
+    make_tp_decode_fn,
+    make_tp_prefill_piece_fn,
+    sampling_vocab,
+    tp_refusal,
+)
 from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
+
+
+def check_serving_mesh(mesh) -> None:
+    """Refuse the meshes the serving engine does not take, naming why."""
+    if mesh is None:
+        return
+    axes = dict(getattr(mesh, "shape", None) or {})
+    if axes.get("expert", 1) > 1:
+        raise NotImplementedError(
+            "the expert-parallel serving mesh (parallel/ep_layout.py, "
+            "ep_moe.py, ep_step.py; --ep) is not ported yet: it comes with "
+            "the next multi-GPU slice")
+    if axes.get("stage", 1) > 1:
+        raise NotImplementedError(
+            "the pipeline-parallel mesh (parallel/pp_step.py, "
+            "engine/pp_scheduler.py PPFifoScheduler; --pp) is not ported "
+            "yet: it comes with the next multi-GPU slice, after the "
+            "expert-parallel mesh")
+    if set(axes) != {"data", "model"}:
+        raise TypeError(f"not a (data, model) mesh: {axes}")
+    if axes["data"] != 1:
+        raise ValueError(
+            f"serving takes a pure-TP mesh (data axis 1, not "
+            f"{axes['data']}): the page pool is shared by every slot; the "
+            f"JAX scheduler then runs GSPMD's XLA ops, which the port does "
+            f"not")
 
 
 @dataclasses.dataclass
@@ -136,10 +184,7 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
                  draft_params: Optional[dict] = None,
                  draft_cfg: Optional[ModelConfig] = None,
                  top_k_cap: Optional[int] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving on a device mesh (the TP / EP / PP steps) is not "
-                "ported yet: it comes with the multi-GPU slice (6)")
+        check_serving_mesh(mesh)
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("draft_params requires draft_cfg (the drafter's "
                              "ModelConfig): pass both or neither")
@@ -148,7 +193,15 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
                              "target's")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params_to(params, self.device)
+        self.mesh = mesh
+        self._tp = tp_mesh(mesh, cfg, params)
+        self._model_draft = speculative and draft_params is not None
+        if self._model_draft and self._tp is not None:
+            why = tp_refusal(draft_cfg, draft_params, self._tp.tp)
+            if why is not None:
+                raise ValueError(f"the draft model does not split over the "
+                                 f"mesh's model axis ({why})")
+        self.params = params_to(self._shard(params), self.device)
         self.max_slots = max_slots
         self.page_size = page_size
         self.num_pages = num_pages
@@ -160,9 +213,11 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         # hook the HTTP server's streaming rides on
         self.on_token = on_token
         self.metrics = Metrics()
+        # this rank's KV heads of the pool (all of them without TP)
         self.cache = PagedKVCache.create(
-            cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-            cfg.head_dim, dtype=kv_dtype, device=self.device)
+            cfg.num_layers, num_pages, page_size,
+            self._local(cfg).num_kv_heads, cfg.head_dim, dtype=kv_dtype,
+            device=self.device)
         # speculation: spec_k drafts per round from prompt lookup
         # (spec_ngram-token suffixes) or from a draft model whose page
         # pool mirrors the target's page ids (written in lockstep, so the
@@ -170,14 +225,13 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         self.speculative = speculative
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
-        self._model_draft = speculative and draft_params is not None
         self.draft_cfg = draft_cfg
-        self.draft_params = (params_to(draft_params, self.device)
+        self.draft_params = (params_to(self._shard(draft_params), self.device)
                              if self._model_draft else None)
         self.draft_cache = (PagedKVCache.create(
             draft_cfg.num_layers, num_pages, page_size,
-            draft_cfg.num_kv_heads, draft_cfg.head_dim, dtype=kv_dtype,
-            device=self.device)
+            self._local(draft_cfg).num_kv_heads, draft_cfg.head_dim,
+            dtype=kv_dtype, device=self.device)
             if self._model_draft else None)
         # chained prompt lookup: the device history buffer [slots, cap]
         # (allocated at first use), its per-slot watermarks, and the
@@ -220,9 +274,26 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         # the device: the repetition penalty's input in serving
         self._seen = torch.zeros((max_slots, cfg.vocab_size), dtype=torch.bool,
                                  device=self.device)
-        # the captured decode tick and the buffers it binds
-        self.graphs = StepGraphs(self.device)
+        # the forwards (tp_step's makers: this rank's shards under TP, the
+        # whole model without), and the samplers' view of the logits
+        self._pieces = {last: make_tp_prefill_piece_fn(cfg, self._tp,
+                                                       last=last)
+                        for last in (False, True)}
+        self._decode_fn = make_tp_decode_fn(cfg, self._tp, paged=True)
+        self._vocab = sampling_vocab(self._tp, cfg)
+        # the captured decode tick and the buffers it binds; a gloo model
+        # group's collectives run on the host: eager ticks
+        self.graphs = StepGraphs(
+            self.device, capture=self._tp is None or self._tp.capturable)
         self._tick = self._tick_buffers()
+
+    def _shard(self, params: dict) -> dict:
+        """This rank's shard of a global param tree (the tree itself
+        without TP)."""
+        return params if self._tp is None else shard_params(params, self._tp)
+
+    def _local(self, cfg: ModelConfig) -> ModelConfig:
+        return cfg if self._tp is None else local_config(cfg, self._tp.tp)
 
     def _tick_buffers(self) -> _TickBuffers:
         S, dev = self.max_slots, self.device
@@ -274,17 +345,26 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         return False
 
     def _expire_deadlines(self) -> None:
+        """Finish the requests past their deadlines with "timeout" (pending
+        ones first, then running ones).  Under a mesh of several ranks the
+        clocks differ: the world's rank 0 decides and broadcasts its ids,
+        in a step where some request carries a deadline (every rank holds
+        the same requests, so every rank takes the broadcast or none)."""
         now = time.perf_counter()
-
-        def expired(req: Request) -> bool:
-            return (req.timeout_s is not None and
-                    now - getattr(req, "_t_submit", now) > req.timeout_s)
-
-        for r in [r for r in self._pending if expired(r)]:
+        reqs = [*self._pending,
+                *(run.request for run in self._slots if run is not None)]
+        ids = [r.request_id for r in reqs if r.timeout_s is not None
+               and now - getattr(r, "_t_submit", now) > r.timeout_s]
+        if self.mesh is not None and self.mesh.size > 1:
+            if all(r.timeout_s is None for r in reqs):
+                return
+            ids = broadcast_object(ids, self.mesh.world_group)
+        ids = set(ids)
+        for r in [r for r in self._pending if r.request_id in ids]:
             self._pending.remove(r)
             self._finished.append(FinishedRequest(r.request_id, [], "timeout"))
         for run in list(self._slots):
-            if run is not None and expired(run.request):
+            if run is not None and run.request.request_id in ids:
                 self._finish(run, "timeout")
 
     # ------------------------------------------------------------------
@@ -423,23 +503,17 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         fresh-prefill branch when it is 0).  The last piece samples the
         request's first token with its own parameters and marks it seen;
         returns it as a device tensor [1] (None for an interior piece)."""
-        T = tokens.shape[1]
-        positions = start + torch.arange(T, device=self.device)[None, :]
-        hidden, self.cache = forward_hidden(
-            self.params, self.cfg, tokens, positions, self.cache,
-            block_tables=table, fresh_prefill=start == 0,
-            start=None if start == 0 else start)
+        logits = self._pieces[last](self.params, tokens, start, nvalid,
+                                    self.cache, table)
         if self._model_draft:
             self._drafter_piece(tokens, start, table)
         if not last:
             return None
-        h = hidden[:, min(max(nvalid - 1, 0), T - 1)]
-        logits = compute_logits(self.params, h, self.cfg.act_bits_lm_head)
         sp = run.request.sampling or self.sampling
         seen = self._seen[run.slot:run.slot + 1]
         tok = sample_rows(logits, self._generator(run.request.request_id),
                           k_cap=self.k_cap, seen_mask=seen,
-                          **self._sp_tensors([sp]))
+                          vocab=self._vocab, **self._sp_tensors([sp]))
         self._seen[run.slot, tok] = True
         return tok
 
@@ -551,10 +625,10 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         sampling, the seen mask; the tokens and positions advanced for the
         next tick of a window.  Returns the sampled tokens."""
         t = self._tick
-        logits, _ = decode_step(self.params, self.cfg, t.tok, t.pos,
-                                self.cache, t.tables)
+        logits, _ = self._decode_fn(self.params, t.tok, t.pos, self.cache,
+                                    t.tables)
         nxt = sample_rows(logits, t.gen, k_cap=self.k_cap,
-                          seen_mask=self._seen, **t.sp)
+                          seen_mask=self._seen, vocab=self._vocab, **t.sp)
         self._seen[t.rows, nxt] = self._seen[t.rows, nxt] | t.active
         t.tok.copy_(nxt)
         t.pos += 1

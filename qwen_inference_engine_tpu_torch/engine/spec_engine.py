@@ -1,8 +1,11 @@
 """Speculative decoding in the serving scheduler (a mixin of
 ``ContinuousBatchingEngine``).
 
-The port of the JAX package's ``engine/spec_engine.py`` without its
-device-mesh branches (slice 6).  Three modes over the paged pool (bf16 or
+The port of the JAX package's ``engine/spec_engine.py``.  Under a pure-TP
+mesh every forward here is the TP step on this rank's shards (the
+makers of ``parallel/tp_step.py``: the verify, the draft-model round),
+the drafter's greedy pick is the sharded argmax, and acceptance samples
+on the vocab-sharded logits.  Three modes over the paged pool (bf16 or
 INT8), each scoring the row's last token and k drafts in one T = k+1
 verify forward (``forward_hidden(..., ragged_multi=True)``:
 ``paged_append_ragged_t`` and ``paged_verify_attention_stacked[_q8]``)
@@ -50,40 +53,43 @@ from qwen_inference_engine_tpu_torch.engine.types import (
     _accept_chain,
     _is_stop,
 )
-from qwen_inference_engine_tpu_torch.models.qwen import (
-    compute_logits,
-    decode_step,
-    forward_hidden,
-)
 from qwen_inference_engine_tpu_torch.ops.sampling import stream_generator
+from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+    make_tp_prefill_piece_fn,
+    make_tp_spec_model_fn,
+    make_tp_verify_fn,
+)
+
 
 class SpeculationMixin:
     def _drafter_piece(self, tokens: torch.Tensor, start: int,
                        table: torch.Tensor) -> None:
         """The drafter's prefill piece in lockstep with the target's (no
         sampling: the drafter only needs its pages filled)."""
-        T = tokens.shape[1]
-        positions = start + torch.arange(T, device=self.device)[None, :]
-        _, self.draft_cache = forward_hidden(
-            self.draft_params, self.draft_cfg, tokens, positions,
-            self.draft_cache, block_tables=table, fresh_prefill=start == 0,
-            start=None if start == 0 else start)
+        piece = make_tp_prefill_piece_fn(self.draft_cfg, self._tp,
+                                         last=False)
+        piece(self.draft_params, tokens, start, tokens.shape[1],
+              self.draft_cache, table)
 
     def _verify(self, tokens, pos0, tables, drafts, active, sp_rows):
         """The T = k+1 verify forward of every slot and the acceptance:
         returns (chain [S, k+1], n_new [S]); the seen mask takes the
         emitted tokens of active rows."""
+        verify = make_tp_verify_fn(self.cfg, self._tp, T=self.spec_k + 1)
+        logits, _ = verify(self.params, tokens, pos0, self.cache, tables)
+        return self._accept(logits, drafts, active, sp_rows)
+
+    def _accept(self, logits, drafts, active, sp_rows):
+        """The acceptance of a verify's logits ``[S, k+1, V]``: returns
+        (chain [S, k+1], n_new [S]); the seen mask takes the emitted tokens
+        of active rows."""
         k = self.spec_k
-        positions = pos0[:, None] + torch.arange(k + 1, device=self.device)
-        hidden, self.cache = forward_hidden(
-            self.params, self.cfg, tokens, positions, self.cache,
-            block_tables=tables, ragged_multi=True)
-        logits = compute_logits(self.params, hidden, self.cfg.act_bits_lm_head)
         stream = DECODE_STREAM + self._step_count
         chain, n_new = _accept_chain(
             logits, drafts,
             lambda j: stream_generator(self.device, self.seed, stream, j),
-            sp_rows, self._seen, active, k=k, k_cap=self.k_cap)
+            sp_rows, self._seen, active, k=k, k_cap=self.k_cap,
+            vocab=self._vocab)
         self._step_count += 1
         return chain, n_new
 
@@ -99,19 +105,11 @@ class SpeculationMixin:
         position before the next round's first.  Returns (chain, n_new)
         and the next round's (tok_last, pos0), computed on the device so
         rounds chain."""
-        k = self.spec_k
-        cur, drafts = tok_last, []
-        for i in range(k + 1):
-            logits, self.draft_cache = decode_step(
-                self.draft_params, self.draft_cfg, cur, pos0 + i,
-                self.draft_cache, tables)
-            if i < k:
-                cur = torch.argmax(logits, dim=-1)
-                drafts.append(cur)
-        drafts = torch.stack(drafts, dim=1)                  # [S, k]
-        tokens = torch.cat([tok_last[:, None], drafts], dim=1)
-        chain, n_new = self._verify(tokens, pos0, tables, drafts, active,
-                                    sp_rows)
+        round_fn = make_tp_spec_model_fn(self.cfg, self.draft_cfg, self._tp,
+                                         k=self.spec_k)
+        logits, drafts = round_fn(self.params, self.draft_params, tok_last,
+                                  pos0, self.cache, self.draft_cache, tables)
+        chain, n_new = self._accept(logits, drafts, active, sp_rows)
         rows = torch.arange(chain.shape[0], device=self.device)
         return chain, n_new, chain[rows, n_new - 1], pos0 + n_new
 

@@ -22,6 +22,12 @@ takes its own calls back out of the counts and keeps them as the graph's
 delta; each replay adds the delta, so a run's counts are the same whether
 its steps ran eagerly or replayed.
 
+The collectives of a TP step (``parallel/mesh.all_reduce`` /
+``all_gather``) count the same way: an NCCL collective is captured with
+the kernels, and each replay adds it.  An engine whose step calls gloo
+collectives (they run on the host) is built with ``capture=False`` and
+runs every step eagerly.
+
 ``eager_steps()`` runs the same bodies eagerly on the card, the
 counterpart of ``jax.disable_jit()``: the yardstick of ``chip_smoke.py``
 and the card tests.  On the CPU every step runs eagerly (the CPU has no
@@ -39,7 +45,7 @@ import torch
 
 from qwen_inference_engine_tpu_torch.utils.metrics import (
     add_launches,
-    kernel_wrappers,
+    counted_wrappers,
     launch_counts,
 )
 
@@ -72,12 +78,15 @@ class _Captured:
 class StepGraphs:
     """One engine's step bodies by key, each captured once and replayed.
     ``cuda`` is the module that makes the graphs (``torch.cuda``; a test
-    passes a stand-in) and ``wrappers`` the launch counters
-    (``kernel_wrappers()``)."""
+    passes a stand-in), ``wrappers`` the launch counters
+    (``counted_wrappers()``: the kernels' and the collectives'), and
+    ``capture`` False runs every step eagerly (steps with host-side
+    collectives)."""
 
     def __init__(self, device, *, wrappers: Optional[Dict] = None,
-                 cuda=None):
+                 cuda=None, capture: bool = True):
         self.device = torch.device(device)
+        self.capture = capture
         self._cuda = cuda if cuda is not None else torch.cuda
         self._wrappers = wrappers
         self._steps: Dict[Hashable, Optional[_Captured]] = {}
@@ -94,7 +103,7 @@ class StepGraphs:
         """One step of ``key``: ``body()`` eagerly on the CPU, under
         ``eager_steps()`` and for a key's first step; its capture at the
         key's second step; then a replay.  Returns the step's outputs."""
-        if self.device.type != "cuda" or eager():
+        if self.device.type != "cuda" or eager() or not self.capture:
             return body()
         if key not in self._steps:
             out = body()
@@ -109,7 +118,7 @@ class StepGraphs:
 
     def _counters(self) -> Dict[str, Callable]:
         if self._wrappers is None:
-            self._wrappers = kernel_wrappers()
+            self._wrappers = counted_wrappers()
         return self._wrappers
 
     def _capture(self, body, generators) -> _Captured:

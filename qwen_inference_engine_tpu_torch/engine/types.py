@@ -69,7 +69,8 @@ class FinishedRequest:
 def _accept_chain(logits: torch.Tensor, drafts: torch.Tensor,
                   generator_at: Callable[[int], torch.Generator],
                   sp_rows: dict, seen: torch.Tensor, active: torch.Tensor, *,
-                  k: int, k_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  k: int, k_cap: int,
+                  vocab=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample the model's own k+1-token chain from the verify logits
     ``[B, k+1, V]`` and accept the longest prefix of ``drafts [B, k]`` equal
     to it.  Position j draws with ``generator_at(j)`` through
@@ -77,14 +78,15 @@ def _accept_chain(logits: torch.Tensor, drafts: torch.Tensor,
     each token's penalty context is the sequential decode's.  Returns
     (chain [B, k+1], n_new [B] in 1..k+1).  ``seen [B, V]`` is updated in
     place with only the emitted tokens of active rows: rejected positions
-    and mid-prefill slots leave no trace."""
+    and mid-prefill slots leave no trace.  ``vocab``: the logits are this
+    model rank's vocabulary shard (``ops/sampling.py``)."""
     B = logits.shape[0]
     rows = torch.arange(B, device=logits.device)
     tentative = seen.clone()
     chain = []
     for j in range(k + 1):
         tok = sample_rows(logits[:, j], generator_at(j), k_cap=k_cap,
-                          seen_mask=tentative, **sp_rows)
+                          seen_mask=tentative, vocab=vocab, **sp_rows)
         tentative[rows, tok] = True
         chain.append(tok)
     chain = torch.stack(chain, dim=1)

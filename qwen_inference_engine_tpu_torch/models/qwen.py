@@ -139,6 +139,7 @@ from qwen_inference_engine_tpu_torch.ops.paged_attention import (
     paged_verify_attention_stacked_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.rope import apply_rope, precompute_rope
+from qwen_inference_engine_tpu_torch.parallel.mesh import all_reduce
 from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 
 
@@ -365,7 +366,7 @@ def _expert_matmul(xs: torch.Tensor, w, group_sizes: torch.Tensor,
 
 def moe_mlp(h: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
             top_k: int, norm_topk: bool, layer: int = 0,
-            act_bits: int = 0) -> torch.Tensor:
+            act_bits: int = 0, reduce_group=None) -> torch.Tensor:
     """Qwen3-MoE sparse MLP of one layer: h [N, D] -> [N, D].
 
     router [D, E]; w_gate / w_up ``[L, E, D, Fm]`` and w_down
@@ -379,6 +380,13 @@ def moe_mlp(h: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
     ``bincount`` reads its input's max on the host) and stay on the device,
     where the kernels read them; the combine un-sorts the rows with
     ``index_copy_`` and sums each token's k rows in f32 (no atomics).
+
+    reduce_group: the TP step's expert-sharded form (``parallel/
+    tp_step.py``): the stacks hold this model rank's ``e_loc`` experts
+    ``[rank * e_loc, (rank + 1) * e_loc)``, ``h`` is the whole batch on
+    every rank and the router whole.  Each rank runs the pairs routed to
+    its experts (the others sort to a tail no expert covers and are zeroed
+    before the combine), and the combine is summed over the group.
     """
     N, D = h.shape
     E = router.shape[-1]
@@ -388,10 +396,20 @@ def moe_mlp(h: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
     if norm_topk:
         topw = topw / topw.sum(dim=-1, keepdim=True)
     flat_e = topi.reshape(-1)                            # [N*k]
+    is_local = None
+    if reduce_group is not None:
+        e_loc = (w_gate.q.shape[1] if isinstance(w_gate, QuantLinear)
+                 else w_gate.shape[1])
+        local = flat_e - reduce_group.rank * e_loc
+        is_local = (local >= 0) & (local < e_loc)
+        flat_e = torch.where(is_local, local, torch.full_like(local, e_loc))
+        E = e_loc + 1                                    # the tail group
     order = torch.argsort(flat_e, stable=True)
     group_sizes = torch.zeros(E, dtype=torch.int32, device=h.device)
     group_sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e,
                                                          dtype=torch.int32))
+    if is_local is not None:
+        group_sizes = group_sizes[:-1]
     xs = h.index_select(0, order // top_k)               # [N*k, D]
     g = _expert_matmul(xs, w_gate, group_sizes, layer, act_bits)
     u = _expert_matmul(xs, w_up, group_sizes, layer, act_bits)
@@ -399,8 +417,27 @@ def moe_mlp(h: torch.Tensor, router: torch.Tensor, w_gate, w_up, w_down,
     y = _expert_matmul(mid.to(xs.dtype), w_down, group_sizes, layer,
                        act_bits)                         # [N*k, D]
     contrib = y * topw.reshape(-1)[order].to(y.dtype)[:, None]
+    if is_local is not None:
+        contrib = torch.where(is_local[order][:, None], contrib,
+                              torch.zeros_like(contrib))
     rows = torch.empty_like(contrib).index_copy_(0, order, contrib)
-    return rows.view(N, top_k, -1).float().sum(dim=1).to(y.dtype)
+    out = rows.view(N, top_k, -1).float().sum(dim=1).to(y.dtype)
+    if reduce_group is not None:
+        out = all_reduce(out, reduce_group)
+    return out
+
+
+def _embed_lookup_sharded(embed_local: torch.Tensor, tokens: torch.Tensor,
+                          group) -> torch.Tensor:
+    """The vocab-sharded embedding under the TP step: model rank ``r``
+    holds rows ``[r * Vl, (r + 1) * Vl)``; ids outside them give zeros and
+    the sum over the group assembles the full rows (Megatron)."""
+    vl = embed_local.shape[0]
+    local = tokens - group.rank * vl
+    ok = (local >= 0) & (local < vl)
+    x = embed_local[local.clamp(0, vl - 1)]
+    x = torch.where(ok[..., None], x, torch.zeros_like(x))
+    return all_reduce(x, group)
 
 
 def _paged_attention(cache: PagedKVCache, layer: int, q, k, v,
@@ -483,7 +520,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    uniform_decode: bool = False,
                    ragged_multi: bool = False,
                    start: Optional[int] = None,
-                   deferred_append: bool = False):
+                   deferred_append: bool = False,
+                   reduce_group=None):
     """Run the transformer stack; returns (hidden [B, T, D], cache).
 
     tokens / positions: [B, T].  The cache (a ``KVCache``, or a
@@ -499,6 +537,13 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     uniform decode step, T = 1, over a contiguous bf16 cache, or f32 on the
     CPU): each layer attends with the current token merged from its own
     K/V, and one launch writes every layer's K/V after the loop.
+
+    reduce_group: the TP step (``parallel/tp_step.py``): ``params`` and
+    ``cache`` are this model rank's shards, ``cfg`` the local config
+    (heads divided by tp), and the Megatron sums run over the group (a
+    ``parallel/mesh.Group``): after ``o``, after ``down`` (an MoE layer
+    sums inside ``moe_mlp``) and, for a vocab-sharded table, the
+    embedding's.  Every kernel runs at the local shapes.
     """
     B, T = tokens.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -525,7 +570,11 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         block_tables = block_tables.to(torch.int32).contiguous()
         if fresh_prefill:
             start = 0
-    x = params["embed"][tokens]
+    if reduce_group is not None and \
+            params["embed"].shape[0] < cfg.vocab_size:
+        x = _embed_lookup_sharded(params["embed"], tokens, reduce_group)
+    else:
+        x = params["embed"][tokens]
     cos, sin = params["rope_cos"], params["rope_sin"]
     lyr = params["layers"]
     if not fresh_prefill:
@@ -605,6 +654,9 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             attn = decode_attention_contiguous(q, cache.k, cache.v, l, lengths)
 
         o = apply_linear(attn.reshape(B, T, Hq * Dh), lyr["o"], l, act)
+        if reduce_group is not None:
+            # row-parallel o: partial sums over the sharded heads
+            o = all_reduce(o, reduce_group)
         x = x + o
         h = rms_norm(x, lyr["post_norm"][l], eps)
         if cfg.is_moe:
@@ -612,7 +664,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             d = moe_mlp(h.reshape(B * T, -1), lyr["router"].w[l],
                         lyr["moe_gate"], lyr["moe_up"], lyr["moe_down"],
                         cfg.num_experts_per_tok, cfg.norm_topk_prob, layer=l,
-                        act_bits=act).reshape(B, T, -1).to(x.dtype)
+                        act_bits=act, reduce_group=reduce_group,
+                        ).reshape(B, T, -1).to(x.dtype)
         elif use_mlp_kernel:
             ga, ua, da_ = lyr["gate"], lyr["up"], lyr["down"]
             d = fused_mlp(h.reshape(B * T, -1), ga.q, ga.scales, ua.q,
@@ -628,6 +681,9 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             gate = apply_linear(h, lyr["gate"], l, act)
             up = apply_linear(h, lyr["up"], l, act)
             d = apply_linear(F.silu(gate) * up, lyr["down"], l, act)
+        if reduce_group is not None and not cfg.is_moe:
+            # row-parallel down: partial sums over the sharded FFN columns
+            d = all_reduce(d, reduce_group)
         x = x + d
     if deferred_append:
         kv_append_all_uniform(cache.k, cache.v, torch.stack(fresh_k),
@@ -646,20 +702,25 @@ def compute_logits(params: dict, hidden: torch.Tensor,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            lengths: torch.Tensor, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+            lengths: torch.Tensor, cache: KVCache,
+            reduce_group=None) -> Tuple[torch.Tensor, KVCache]:
     """Fresh prefill from position 0 of right-padded prompts ``[B, T]``.
-    Returns (last-valid-token logits [B, V], cache)."""
+    Returns (last-valid-token logits [B, V], cache); under
+    ``reduce_group`` (``forward_hidden``) the logits are this rank's
+    vocabulary shard."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     hidden, cache = forward_hidden(params, cfg, tokens, positions, cache,
-                                   fresh_prefill=True)
+                                   fresh_prefill=True,
+                                   reduce_group=reduce_group)
     last = hidden[torch.arange(B, device=tokens.device), lengths.long() - 1]
     return compute_logits(params, last, cfg.act_bits_lm_head), cache
 
 
 def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     lengths: torch.Tensor, cache: KVCache, *,
-                    chunk: int = 512) -> Tuple[torch.Tensor, KVCache]:
+                    chunk: int = 512,
+                    reduce_group=None) -> Tuple[torch.Tensor, KVCache]:
     """Prefill right-padded prompts ``[B, T]`` in ``chunk``-token pieces to
     bound activation memory.  Returns (last-valid-token logits [B, V], cache).
 
@@ -671,7 +732,7 @@ def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """
     B, T = tokens.shape
     if T <= chunk:
-        return prefill(params, cfg, tokens, lengths, cache)
+        return prefill(params, cfg, tokens, lengths, cache, reduce_group)
     n_chunks = -(-T // chunk)
     capacity = cache.k.shape[3]
     if n_chunks * chunk > capacity:
@@ -689,7 +750,8 @@ def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = (lo + arange_c)[None, :].expand(B, chunk)
         hidden, cache = forward_hidden(
             params, cfg, tokens[:, lo:lo + chunk], positions, cache,
-            fresh_prefill=i == 0, start=None if i == 0 else lo)
+            fresh_prefill=i == 0, start=None if i == 0 else lo,
+            reduce_group=reduce_group)
         # each row keeps the hidden state of the chunk that holds its last
         # valid token
         sel = hidden[rows, (last - lo).clamp(0, chunk - 1)]
@@ -701,16 +763,19 @@ def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, cache, block_tables=None, *,
-                uniform_decode: bool = False, deferred_append: bool = False):
+                uniform_decode: bool = False, deferred_append: bool = False,
+                reduce_group=None):
     """One decode step for every sequence: tokens [B] at positions [B]
     (a paged cache takes ``block_tables [B, max_pages]``).  Returns
     (logits [B, V], cache).  deferred_append: ``forward_hidden``'s
-    deferred-append decode (with ``uniform_decode``)."""
+    deferred-append decode (with ``uniform_decode``); reduce_group: its
+    TP step (the logits are this rank's vocabulary shard)."""
     hidden, cache = forward_hidden(params, cfg, tokens[:, None],
                                    positions[:, None], cache,
                                    block_tables=block_tables,
                                    uniform_decode=uniform_decode,
-                                   deferred_append=deferred_append)
+                                   deferred_append=deferred_append,
+                                   reduce_group=reduce_group)
     return compute_logits(params, hidden[:, 0], cfg.act_bits_lm_head), cache
 
 

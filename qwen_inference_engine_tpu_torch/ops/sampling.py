@@ -19,6 +19,17 @@ host values, fixed per captured step.  Nothing in ``sample`` or
 both run inside a CUDA graph: the draw is ``torch.multinomial``'s own
 exponential race without its host-side check of the probabilities.
 
+Under the TP step the logits are vocab-sharded: each model rank holds
+its ``[B, V / tp]`` columns.  Both samplers then take ``vocab`` (a
+``parallel/tp_step.ShardedVocab``) and run on the same candidates as on one
+device: greedy rows take the sharded argmax (ties to the lowest global
+id); top-k gathers each rank's top-k candidates with their global ids over
+the model group and keeps the global top-k of them; top-p over the whole
+vocabulary and plain temperature sampling gather the full row.  The
+penalties apply to each rank's own columns of the (whole) seen mask first.
+Every model rank draws from a generator seeded alike, on identical
+gathered candidates, so every rank samples the same token.
+
 ``stream_generator`` is the serving engines' stream rule: one sampling
 call draws from a generator seeded by (seed, stream) and, for position
 j >= 1 of a speculation chain, j; a speculation round's positions are
@@ -137,6 +148,33 @@ def _categorical(logits: torch.Tensor, generator: Optional[torch.Generator]):
     return torch.argmax(probs / q, dim=-1)
 
 
+def _penalized(logits, seen_mask, vocab):
+    """The seen mask's columns for these logits (this rank's shard under
+    ``vocab``)."""
+    return seen_mask if vocab is None else vocab.local(seen_mask)
+
+
+def _argmax(logits: torch.Tensor, vocab) -> torch.Tensor:
+    return (torch.argmax(logits, dim=-1) if vocab is None
+            else vocab.argmax(logits))
+
+
+def _topk(logits: torch.Tensor, k: int, vocab):
+    """(values, global ids) of each row's top ``k``, descending."""
+    if vocab is None:
+        return torch.topk(logits, k, dim=-1)
+    return vocab.topk(logits, k)
+
+
+def _full(logits: torch.Tensor, vocab) -> torch.Tensor:
+    """The whole vocabulary's row (gathered under ``vocab``)."""
+    return logits if vocab is None else vocab.full(logits)
+
+
+def _vocab_size(logits: torch.Tensor, vocab) -> int:
+    return logits.shape[-1] if vocab is None else vocab.size
+
+
 def _divide_by_temperature(logits: torch.Tensor,
                            sp: SamplingTensors) -> torch.Tensor:
     """``logits / temperature``, bit-equal to dividing by the Python float:
@@ -150,28 +188,32 @@ def _divide_by_temperature(logits: torch.Tensor,
 def sample(logits: torch.Tensor, params: SamplingParams,
            seen_mask: Optional[torch.Tensor] = None,
            generator: Optional[torch.Generator] = None,
-           tensors: Optional[SamplingTensors] = None) -> torch.Tensor:
+           tensors: Optional[SamplingTensors] = None,
+           vocab=None) -> torch.Tensor:
     """Draw one token per row. logits: [B, V] -> [B] int64.  ``params``
     gives the host values (greedy, top-k, whether top-p cuts the whole
     vocabulary); ``tensors`` the rest (default: made from ``params``, one
-    copy to the device)."""
+    copy to the device).  ``vocab``: the logits are this model rank's
+    vocabulary shard (module docstring); the seen mask stays whole."""
     sp = tensors if tensors is not None else SamplingTensors.of(
         params, logits.device)
     logits = logits.float()
     if seen_mask is not None:
-        logits = apply_repetition_penalty(logits, seen_mask,
+        seen = _penalized(logits, seen_mask, vocab)
+        logits = apply_repetition_penalty(logits, seen,
                                           sp.repetition_penalty)
-        logits = logits - torch.where(seen_mask, sp.presence_penalty, 0.0)
+        logits = logits - torch.where(seen, sp.presence_penalty, 0.0)
     if params.greedy:
-        return torch.argmax(logits, dim=-1)
+        return _argmax(logits, vocab)
 
     logits = _divide_by_temperature(logits, sp)
     if params.top_k and params.top_k > 0:
-        k = min(params.top_k, logits.shape[-1])
-        top_vals, top_idx = torch.topk(logits, k, dim=-1)  # descending
+        k = min(params.top_k, _vocab_size(logits, vocab))
+        top_vals, top_idx = _topk(logits, k, vocab)  # descending
         top_vals = _mask_top_p(top_vals, sp.top_p)
         choice = _categorical(top_vals, generator)
         return torch.gather(top_idx, 1, choice[:, None])[:, 0]
+    logits = _full(logits, vocab)
     if params.top_p < 1.0:
         top_vals, top_idx = torch.sort(logits, dim=-1, descending=True)
         top_vals = _mask_top_p(top_vals, sp.top_p)
@@ -185,24 +227,25 @@ def sample_rows(logits: torch.Tensor, generator: Optional[torch.Generator],
                 top_p: torch.Tensor, top_k: torch.Tensor,
                 greedy: torch.Tensor, repetition_penalty: torch.Tensor,
                 presence_penalty: Optional[torch.Tensor] = None,
-                seen_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seen_mask: Optional[torch.Tensor] = None,
+                vocab=None) -> torch.Tensor:
     """Per-row sampling, every parameter a ``[B]`` tensor on the logits'
     device: greedy rows take the exact argmax of the penalized logits; the
     others draw from their own top-k (``top_k`` 0 or above ``k_cap`` means
     ``k_cap``) and top-p after their temperature.  logits [B, V] -> [B]
-    int64."""
+    int64; under ``vocab`` this rank's vocabulary shard (``sample``)."""
     logits = logits.float()
     if seen_mask is not None:
-        logits = apply_repetition_penalty(logits, seen_mask,
-                                          repetition_penalty)
+        seen = _penalized(logits, seen_mask, vocab)
+        logits = apply_repetition_penalty(logits, seen, repetition_penalty)
         if presence_penalty is not None:
-            logits = logits - torch.where(seen_mask,
+            logits = logits - torch.where(seen,
                                           presence_penalty[:, None].float(),
                                           0.0)
-    arg = torch.argmax(logits, dim=-1)
+    arg = _argmax(logits, vocab)
     scaled = logits / temperature.float().clamp(min=1e-6)[:, None]
-    k_cap = min(k_cap, logits.shape[-1])
-    top_vals, top_idx = torch.topk(scaled, k_cap, dim=-1)
+    k_cap = min(k_cap, _vocab_size(logits, vocab))
+    top_vals, top_idx = _topk(scaled, k_cap, vocab)
     k_row = torch.where((top_k <= 0) | (top_k > k_cap),
                         torch.full_like(top_k, k_cap), top_k)
     lane = torch.arange(k_cap, device=logits.device)[None, :]

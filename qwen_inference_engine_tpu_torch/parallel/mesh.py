@@ -1,0 +1,243 @@
+"""The device mesh over ``torch.distributed``: ranks, groups, collectives.
+
+The port's counterpart of the JAX package's ``parallel/mesh.py``.  The JAX
+package has one controller that sees every device and runs the per-shard
+body under ``shard_map``; the port is SPMD, one process a rank.  Every
+rank runs the same engine code on its own shard and calls the collectives
+explicitly on the mesh's groups:
+
+* ``data`` (DP): independent batch rows, no collective in a step;
+* ``model`` (TP): weights and KV heads sharded, one all-reduce after each
+  row-parallel projection (``o``, ``down``), the vocab-sharded embedding's
+  sum and the sampler's gathers.
+
+``make_mesh((dp, tp))`` keeps ``model`` the inner axis, as the JAX mesh
+does: rank ``r`` sits at ``(r // tp, r % tp)``, so a model group is ``tp``
+consecutive ranks.  ``init_distributed`` takes the place of the JAX
+package's ``initialize_multihost``, and ``spawn`` starts a world of local
+processes over a ``file://`` rendezvous in a fresh temporary directory (no
+fixed TCP port, so worlds started side by side never collide).
+
+The backend follows the devices: NCCL where every rank has a card of its
+own, gloo where ranks share a card or run on the CPU (``backend_for``).
+The three collectives used here (all-reduce, all-gather, broadcast) take
+CUDA tensors under gloo in the card machine's PyTorch 2.11
+(``scripts/probe_gloo_cuda_torch.py``), so no call stages through the
+host itself; gloo runs them on the host all the same, and they cannot be
+captured in a CUDA graph: ``Mesh.capturable`` is false, and the engines
+take the eager step.
+
+``all_reduce`` and ``all_gather`` count their calls in ``launches``, as
+the kernel wrappers do (``utils/metrics.collective_wrappers``), so a
+captured step's replays count the collectives inside its graph.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import pickle
+import shutil
+import tempfile
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+# how long a collective or the rendezvous waits for the other ranks
+TIMEOUT = datetime.timedelta(seconds=1800)
+
+
+@dataclasses.dataclass
+class Group:
+    """One axis of the mesh as this rank sees it: the process group, its
+    size, this rank's index in it, its backend and the global ranks it
+    holds (in index order)."""
+
+    pg: Any
+    size: int
+    rank: int
+    backend: str
+    ranks: Tuple[int, ...]
+
+
+def all_reduce(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place; returns ``t``."""
+    all_reduce.launches += 1
+    dist.all_reduce(t, group=group.pg)
+    return t
+
+
+def all_gather(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """``[group.size, *t.shape]``: every rank's ``t`` in index order."""
+    all_gather.launches += 1
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(group.size)]
+    dist.all_gather(parts, t, group=group.pg)
+    return torch.stack(parts)
+
+
+all_reduce.launches = 0
+all_gather.launches = 0
+
+
+def broadcast_object(obj, group: Group):
+    """``obj`` of the group's first rank, on every rank of ``group`` (a
+    pickled host message: the serving loop's control messages)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=group.ranks[0], group=group.pg)
+    return box[0]
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A ``(data, model)`` mesh seen from one rank.  ``shape`` is the JAX
+    mesh's ``{"data": dp, "model": tp}`` (the engines read ``dict(mesh.
+    shape)``); ``coords`` this rank's ``(data, model)`` indices."""
+
+    shape: Dict[str, int]
+    rank: int
+    coords: Tuple[int, int]
+    model_group: Group
+    data_group: Group
+    world_group: Group
+
+    @property
+    def size(self) -> int:
+        return self.shape[DATA_AXIS] * self.shape[MODEL_AXIS]
+
+    @property
+    def tp(self) -> int:
+        return self.shape[MODEL_AXIS]
+
+    @property
+    def dp(self) -> int:
+        return self.shape[DATA_AXIS]
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a step with this mesh's collectives can be captured in a
+        CUDA graph: NCCL collectives can, gloo's run on the host."""
+        return self.model_group.backend == "nccl" and \
+            self.data_group.backend == "nccl"
+
+
+def make_mesh(shape: Tuple[int, int]) -> Mesh:
+    """This rank's view of a ``(dp, tp)`` mesh over the initialized world,
+    its groups on the world's backend.  Every rank of the world must call
+    it, in the same order as its other group calls."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed initialized "
+                           "(init_distributed, or spawn)")
+    world, me = dist.get_world_size(), dist.get_rank()
+    dp, tp = shape
+    if dp * tp != world:
+        raise ValueError(f"mesh {shape} needs {dp * tp} ranks, the world "
+                         f"has {world}")
+    mine: Dict[str, Group] = {}
+    # every rank creates every group (torch.distributed requires it), and
+    # keeps the two it belongs to
+    axes = [(MODEL_AXIS, [d * tp + m for m in range(tp)]) for d in range(dp)]
+    axes += [(DATA_AXIS, [d * tp + m for d in range(dp)]) for m in range(tp)]
+    for axis, ranks in axes:
+        pg = dist.new_group(ranks)
+        if me in ranks:
+            mine[axis] = Group(pg=pg, size=len(ranks), rank=ranks.index(me),
+                               backend=dist.get_backend(pg),
+                               ranks=tuple(ranks))
+    world_group = Group(pg=dist.group.WORLD, size=world, rank=me,
+                        backend=dist.get_backend(), ranks=tuple(range(world)))
+    return Mesh(shape={DATA_AXIS: dp, MODEL_AXIS: tp}, rank=me,
+                coords=(me // tp, me % tp), model_group=mine[MODEL_AXIS],
+                data_group=mine[DATA_AXIS], world_group=world_group)
+
+
+def backend_for(world_size: int, device_type: str) -> str:
+    """NCCL where every rank has a card of its own; gloo where ranks share
+    a card (NCCL refuses two ranks on one device) or run on the CPU."""
+    if device_type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(rank: int, device_type: str) -> torch.device:
+    """The device of ``rank``: ``cuda:{rank % device_count}`` on the card,
+    else the CPU."""
+    if device_type == "cuda":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
+def init_distributed(backend: str, init_method: str, rank: int,
+                     world_size: int,
+                     device: Optional[torch.device] = None) -> None:
+    """Join this process to a world (the JAX package's
+    ``initialize_multihost``): the backend, the rendezvous address
+    (``tcp://host:port`` or ``file://path``), this rank and the world
+    size are given explicitly.  ``device`` (a card) becomes the current
+    CUDA device first, as NCCL needs."""
+    if device is not None and device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size, timeout=TIMEOUT)
+
+
+def _entry(rank: int, fn: Callable, world_size: int, backend: str,
+           init_method: str, device_type: str, args: tuple,
+           results) -> None:
+    init_distributed(backend, init_method, rank, world_size,
+                     rank_device(rank, device_type))
+    try:
+        out = fn(rank, world_size, *args)
+        if results is not None:
+            # by value: a tensor shared by handle dies with this process
+            results.put((rank, pickle.dumps(out)))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world_size: int, *, device_type: str = "cpu",
+          args: tuple = (), join: bool = True):
+    """Run ``fn(rank, world_size, *args)`` in ``world_size`` new processes
+    joined into one world (``file://`` rendezvous in a fresh temporary
+    directory; the backend from ``backend_for``).  ``fn`` must
+    be importable by name (the processes are spawned, not forked).
+
+    join=True waits for every rank and returns their return values in rank
+    order; join=False returns the ``torch.multiprocessing`` context at
+    once (the caller joins it and removes its ``rendezvous_dir``), with no
+    results."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    backend = backend_for(world_size, device_type)
+    tmp = tempfile.mkdtemp(prefix="qie_rdv_")
+    init_method = "file://" + os.path.join(tmp, "rendezvous")
+    results = mp.get_context("spawn").Queue() if join else None
+    ctx = mp.spawn(_entry, args=(fn, world_size, backend, init_method,
+                                 device_type, args, results),
+                   nprocs=world_size, join=False)
+    if not join:
+        ctx.rendezvous_dir = tmp   # the caller removes it after joining
+        return ctx
+    got: List[Any] = [None] * world_size
+    try:
+        done = False
+        while not done:
+            # drain while waiting: a rank's result must not fill the pipe
+            # its exit waits on
+            done = ctx.join(timeout=0.05)
+            while True:
+                try:
+                    rank, out = results.get_nowait()
+                except queue.Empty:
+                    break
+                got[rank] = pickle.loads(out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return got

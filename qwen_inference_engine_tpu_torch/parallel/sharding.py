@@ -1,0 +1,203 @@
+"""Tensor-parallel split rules for params and KV caches, and this rank's
+local pieces.
+
+The port's counterpart of the JAX package's ``parallel/sharding.py``.  The
+JAX package states PartitionSpecs and lets ``device_put`` place the
+shards; the port is SPMD, so each rank cuts its own local tree out of the
+global one with plain slices (copies, so the global tensors can be freed):
+
+* ``q / k / v / gate / up`` (and the fused ``qkv / gateup``): column
+  parallel, split on the output axis with their biases and scales;
+* ``o / down``: row parallel, split on the input axis, both the packed
+  rows of a ``QuantLinear`` and its scale rows (the bias, added after the
+  all-reduce, stays whole);
+* ``embed`` and ``lm_head``: split on the vocabulary;
+* the expert stacks ``moe_gate / moe_up / moe_down``: split on the expert
+  axis (dim 1);
+* everything else (norms, RoPE tables, the router) is replicated.
+
+A slice of a stacked ``QuantLinear`` is itself a valid ``QuantLinear`` as
+long as no shard boundary cuts a scale group (or, for INT4, a plane pair
+of groups): ``parallel/tp_step.supports_tp`` asks for that before any
+engine shards.  ``split_dims`` is ``param_pspecs`` as one split dimension a
+leaf (None = replicated).
+
+Caches: the contiguous cache splits its KV heads on ``model`` and its batch
+rows on ``data``; the page pool splits its KV heads only (the paged TP step
+takes a pure-TP mesh).  The JAX package falls back to a head_dim split
+where the model axis does not divide the KV heads; that layout only works
+under GSPMD's partitioned XLA attention, and the port refuses it.  So does
+``batch_shard`` a token axis on ``model`` (the JAX package's
+sequence-sharded prefill, a GSPMD-only path too).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache, PagedKVCache
+from qwen_inference_engine_tpu_torch.ops.linear import Linear, QuantLinear
+from qwen_inference_engine_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+)
+
+COLUMN = ("q", "k", "v", "gate", "up", "qkv", "gateup")
+ROW = ("o", "down")
+EXPERTS = ("moe_gate", "moe_up", "moe_down")
+REPLICATED = ("input_norm", "post_norm", "q_norm", "k_norm", "router")
+
+
+def _linear_dims(lin, shard: str, stacked: bool):
+    """Split dims of a Linear / QuantLinear: 'out' (column) or 'in' (row);
+    ``stacked`` leaves carry a leading layer axis."""
+    nd = 3 if stacked else 2
+    if shard == "out":
+        w, b, s = nd - 1, nd - 2, nd - 1
+    else:
+        w, b, s = nd - 2, None, nd - 2
+    if isinstance(lin, Linear):
+        return Linear(w=w, b=None if lin.b is None else b)
+    if isinstance(lin, QuantLinear):
+        return QuantLinear(q=w, scales=s, b=None if lin.b is None else b,
+                           bits=lin.bits, group_size=lin.group_size)
+    raise TypeError(type(lin))
+
+
+def split_dims(params: dict) -> dict:
+    """The tree of split dimensions mirroring ``params`` (the JAX
+    ``param_pspecs`` with the ``model`` axis's position for each leaf; None
+    where a leaf is replicated)."""
+    lspecs = {}
+    for name, leaf in params["layers"].items():
+        if name in COLUMN:
+            lspecs[name] = _linear_dims(leaf, "out", stacked=True)
+        elif name in ROW:
+            lspecs[name] = _linear_dims(leaf, "in", stacked=True)
+        elif name in EXPERTS:
+            lspecs[name] = (dataclasses.replace(leaf, q=1, scales=1, b=None)
+                            if isinstance(leaf, QuantLinear) else 1)
+        elif name == "router":
+            lspecs[name] = Linear(w=None, b=None)
+        elif name in REPLICATED:
+            lspecs[name] = None
+        else:
+            raise KeyError(name)
+    specs = {"embed": 0, "layers": lspecs, "final_norm": None,
+             "rope_cos": None, "rope_sin": None}
+    if "lm_head" in params:
+        specs["lm_head"] = _linear_dims(params["lm_head"], "out",
+                                        stacked=False)
+    return specs
+
+
+def _slice(t: torch.Tensor, dim: Optional[int], index: int, parts: int,
+           what: str) -> torch.Tensor:
+    if dim is None or parts == 1:
+        return t
+    n = t.shape[dim]
+    if n % parts:
+        raise ValueError(f"{what}: dim {dim} of {tuple(t.shape)} does not "
+                         f"split into {parts} shards")
+    w = n // parts
+    return t.narrow(dim, index * w, w).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _map(tree, dims, fn, path=""):
+    if isinstance(tree, dict):
+        return {k: _map(v, dims[k], fn, f"{path}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (Linear, QuantLinear)):
+        return dataclasses.replace(tree, **{
+            f.name: fn(getattr(tree, f.name), getattr(dims, f.name),
+                       f"{path}.{f.name}")
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    if tree is None:
+        return None
+    return fn(tree, dims, path)
+
+
+def shard_params(params: dict, mesh: Mesh) -> dict:
+    """This rank's local tree: every split leaf cut to its model index's
+    slice (copies), replicated leaves shared with ``params``."""
+    tp, index = mesh.tp, mesh.coords[1]
+    return _map(params, split_dims(params),
+                lambda t, d, what: _slice(t, d, index, tp, what))
+
+
+def _check_heads(hk: int, tp: int) -> None:
+    if hk % tp:
+        raise ValueError(
+            f"{hk} KV heads do not split over a model axis of {tp}: the JAX "
+            f"package then shards head_dim, which only GSPMD's partitioned "
+            f"XLA attention runs; the port refuses it")
+
+
+def cache_split_dims(cache, mesh: Mesh):
+    """Split dims of a cache's leaves, as ``(model dim, data dim)`` per
+    leaf (the JAX ``cache_pspecs``; None where unsplit)."""
+    _check_heads(cache.k_pages.shape[2] if isinstance(cache, PagedKVCache)
+                 else cache.k.shape[2], mesh.tp)
+    if isinstance(cache, PagedKVCache):
+        return PagedKVCache(
+            k_pages=(2, None), v_pages=(2, None),
+            k_scale=None if cache.k_scale is None else (2, None),
+            v_scale=None if cache.v_scale is None else (2, None),
+            page_size=cache.page_size)
+    return KVCache(k=(2, 1), v=(2, 1),
+                   k_scale=None if cache.k_scale is None else (2, 1),
+                   v_scale=None if cache.v_scale is None else (2, 1))
+
+
+def make_sharded_cache(cache, mesh: Optional[Mesh]):
+    """This rank's local piece of a global cache (KV heads on ``model``,
+    contiguous-cache rows on ``data``); ``cache`` itself without a mesh."""
+    if mesh is None:
+        return cache
+    dims = cache_split_dims(cache, mesh)
+    d_idx, m_idx = mesh.coords
+
+    def cut(t, dd, what):
+        t = _slice(t, dd[0], m_idx, mesh.tp, what)
+        return _slice(t, dd[1], d_idx, mesh.dp, what)
+
+    if isinstance(cache, PagedKVCache):
+        return PagedKVCache(
+            k_pages=cut(cache.k_pages, dims.k_pages, "k_pages"),
+            v_pages=cut(cache.v_pages, dims.v_pages, "v_pages"),
+            k_scale=None if cache.k_scale is None else
+            cut(cache.k_scale, dims.k_scale, "k_scale"),
+            v_scale=None if cache.v_scale is None else
+            cut(cache.v_scale, dims.v_scale, "v_scale"),
+            page_size=cache.page_size)
+    return KVCache(*[None if t is None else cut(t, dd, n) for t, dd, n in (
+        (cache.k, dims.k, "k"), (cache.v, dims.v, "v"),
+        (cache.k_scale, dims.k_scale, "k_scale"),
+        (cache.v_scale, dims.v_scale, "v_scale"))])
+
+
+def batch_shard(x: torch.Tensor, mesh: Optional[Mesh],
+                spec: Sequence[Optional[str]]) -> torch.Tensor:
+    """This rank's piece of a batch input under ``spec`` (an axis name or
+    None a dim, as a JAX PartitionSpec): ``data`` splits dim 0's rows.  A
+    token axis on ``model`` (the JAX package's sequence-sharded prefill)
+    is refused: only GSPMD partitions attention over a sequence."""
+    if mesh is None:
+        return x
+    for dim, axis in enumerate(spec):
+        if axis == MODEL_AXIS:
+            raise NotImplementedError(
+                "a sequence-sharded input (a token axis on 'model') is a "
+                "GSPMD-only path of the JAX package; the port's TP step "
+                "takes whole sequences on every model rank")
+        if axis == DATA_AXIS and dim != 0:
+            raise ValueError("'data' splits the batch rows (dim 0) only")
+    if spec and spec[0] == DATA_AXIS:
+        return _slice(x, 0, mesh.coords[0], mesh.dp, "batch rows")
+    return x

@@ -27,6 +27,16 @@ chat template, ``--stats`` prints the engine's metrics as JSON on stderr,
 and ``--profile DIR`` writes a ``torch.profiler`` trace of generation into
 DIR (``utils/profiling.trace``).  Everything runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given.
+
+``--tp N --dp M`` (the JAX CLI's flags and defaults: ``--tp 0`` is every
+card over ``--dp``) spawn ``N * M`` ranks over a ``(dp, tp)`` mesh
+(``parallel/mesh.py``).  Rank ``r`` runs on ``cuda:{r % device_count}``
+(or the CPU with ``--device cpu``); the backend is NCCL where every rank
+has a card of its own, gloo where ranks share one or run on the CPU.  Each
+rank builds the same seeded model and runs its share; rank 0 prints
+(``generate``) or serves HTTP (``serve``, pure TP).  ``--ep`` and ``--pp``
+raise: the expert-parallel mesh and the pipeline come with the next
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ TINY = {"tiny": {},
 
 def build_model(args):
     """(cfg, params, tokenizer, device) for the generate, serve and quantize
-    commands."""
+    commands: the global model (every rank of a mesh builds the same one;
+    the engines take their shards)."""
     import torch
 
     from qwen_inference_engine_tpu_torch.config import ModelConfig, tiny_config
@@ -144,7 +155,60 @@ def build_draft_model(args, device):
     return dcfg, dparams
 
 
+def mesh_shape(args):
+    """``(dp, tp)`` from ``--dp`` / ``--tp`` (``--tp 0``: every card over
+    ``--dp``, as the JAX CLI); ``--ep`` and ``--pp`` raise."""
+    import torch
+
+    for flag, what in (("ep", "the expert-parallel mesh (parallel/ep_*.py)"),
+                       ("pp", "the pipeline (parallel/pp_step.py, "
+                              "engine/pp_scheduler.py)")):
+        if getattr(args, flag, 0) > 1:
+            raise NotImplementedError(
+                f"--{flag}: {what} is not ported yet; it comes with the "
+                f"next multi-GPU slice")
+    n_dev = (torch.cuda.device_count() if str(args.device).startswith("cuda")
+             else 1)
+    dp = max(1, args.dp)
+    return dp, args.tp or max(1, n_dev // dp)
+
+
+def _rank_main(rank: int, world: int, args, shape, fn) -> int:
+    from qwen_inference_engine_tpu_torch.parallel.mesh import (
+        make_mesh,
+        rank_device,
+    )
+
+    args.device = str(rank_device(rank, "cuda" if str(args.device)
+                                  .startswith("cuda") else "cpu"))
+    return fn(args, make_mesh(shape))
+
+
+def run_ranks(args, fn) -> int:
+    """``fn(args, mesh)`` on every rank of the ``--dp x --tp`` mesh (spawned
+    here), or ``fn(args, None)`` in this process for one rank."""
+    from qwen_inference_engine_tpu_torch.parallel.mesh import spawn
+
+    dp, tp = mesh_shape(args)
+    if dp * tp == 1:
+        return fn(args, None)
+    device_type = "cuda" if str(args.device).startswith("cuda") else "cpu"
+    if device_type == "cuda":
+        from qwen_inference_engine_tpu_torch.engine.engine import (
+            resolve_device,
+        )
+
+        resolve_device(args.device)   # raises without a card
+    return max(spawn(_rank_main, dp * tp, device_type=device_type,
+                     args=(args, (dp, tp), fn)))
+
+
 def cmd_generate(args) -> int:
+    return run_ranks(args, _generate_rank)
+
+
+def _generate_rank(args, mesh) -> int:
+    """``generate`` on one rank; rank 0 prints."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.kvcache.cache import kv_dtype_from_bits
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
@@ -161,9 +225,13 @@ def cmd_generate(args) -> int:
             tok.apply_chat_template([{"role": "user", "content": t}])
             for t in prompts_text]
     prompt_ids = [tok.encode(t) for t in prompts_text]
-    eng = Engine(cfg, params, max_batch=len(prompt_ids), max_seq=args.max_seq,
+    dp = 1 if mesh is None else mesh.dp
+    eng = Engine(cfg, params, mesh=mesh,
+                 max_batch=-(-len(prompt_ids) // dp) * dp,
+                 max_seq=args.max_seq,
                  kv_dtype=kv_dtype_from_bits(args.kv_bits), sampling=sp,
                  seed=args.seed, device=device)
+    del params   # the engine holds its shard
     t0 = time.perf_counter()
     with trace(args.profile):
         if args.speculative:
@@ -176,6 +244,8 @@ def cmd_generate(args) -> int:
             note = (f"ttft {res.ttft_s * 1e3:.1f} ms | "
                     f"{res.decode_tokens_per_s:.1f} tok/s")
     dt = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return 0
     for i, ids in enumerate(ids_out):
         print(f"--- sequence {i} ({len(ids)} tokens) ---")
         print(ids)
@@ -228,6 +298,15 @@ def _add_model_args(g) -> None:
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    g.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel ranks (0 = every card over --dp)")
+    g.add_argument("--dp", type=int, default=1,
+                   help="data-parallel ranks (generate only: serving takes "
+                        "a pure-TP mesh)")
+    g.add_argument("--ep", type=int, default=0,
+                   help="expert-parallel size (not ported yet: raises)")
+    g.add_argument("--pp", type=int, default=0,
+                   help="pipeline stages (not ported yet: raises)")
     g.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of generation "
                         "(host ops and, on the card, its kernels) into DIR")

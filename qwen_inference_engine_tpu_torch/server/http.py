@@ -25,8 +25,17 @@ Endpoints:
 draft model from ``--draft-model`` / ``--draft-ckpt``; ``/stats`` reports
 ``spec_rounds`` and ``spec_tokens_per_forward``), ``--kv-bits 8`` over an
 INT8 page pool.  The engine runs on the card unless ``--device cpu`` is
-given.  A pipeline-parallel mesh (the JAX package's FIFO wave scheduler) is not
-ported: it raises ``NotImplementedError``.
+given.
+
+Under a pure-TP mesh (``serve --tp N``) every rank builds a ``Server``;
+rank 0 alone runs the HTTP front end.  Before each tick rank 0 broadcasts
+that tick's admissions, cancellations and expired deadlines (by its own
+clock) to every rank (``broadcast_object`` on the world group, at least
+twenty times a second while idle), and every rank then applies them and
+runs the same tick, so every rank's engine holds the same state.  The
+other ranks run ``follow()`` until rank 0 shuts down.  A pipeline-parallel
+mesh (the JAX package's FIFO wave scheduler, ``PPFifoScheduler``) and the
+expert-parallel mesh are not ported: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,11 +90,16 @@ class Server:
         self.default_sp = SamplingParams(
             temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
             repetition_penalty=args.repetition_penalty, greedy=args.greedy)
-        if mesh is not None:
+        if dict(getattr(mesh, "shape", None) or {}).get("stage", 1) > 1:
             raise NotImplementedError(
                 "serving on a pipeline-parallel mesh (engine/pp_scheduler.py,"
                 " PPFifoScheduler) is not ported yet: it comes with the "
-                "multi-GPU slice (6)")
+                "next multi-GPU slice, after the expert-parallel mesh")
+        # rank 0 takes the requests and broadcasts each tick's control
+        # message; None without a mesh of several ranks
+        self._world = (mesh.world_group if mesh is not None and mesh.size > 1
+                       else None)
+        self._outbox = {"submit": [], "cancel": []}
         pages_per_seq = max(4, -(-args.max_seq // args.page_size))
         num_pages = (args.num_pages or
                      args.max_slots * pages_per_seq
@@ -103,15 +117,44 @@ class Server:
             draft_params=getattr(args, "_draft_params", None),
             draft_cfg=getattr(args, "_draft_cfg", None),
             top_k_cap=getattr(args, "top_k_cap", None),
-            device=getattr(args, "device", None))
+            device=getattr(args, "device", None), mesh=mesh)
         self._step_ticks = max(1, getattr(args, "step_ticks", 8))
         self._lock = threading.Lock()
         self._waiters: Dict[int, _Waiter] = {}
         self._next_id = 0
         self._wake = threading.Event()
         self._stop = False
-        self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        self._thread = None
+        if self._world is None or self._world.rank == 0:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
+
+    def follow(self) -> None:
+        """A rank other than 0: run the ticks rank 0 broadcasts until it
+        shuts down."""
+        self._loop()
+
+    def _control(self) -> bool:
+        """Rank 0 sends this tick's control message (the requests admitted
+        since the last, the cancellations, whether to stop); every rank
+        applies it.  Returns False to stop.  The engine's step decides the
+        deadlines."""
+        from qwen_inference_engine_tpu_torch.parallel.mesh import (
+            broadcast_object,
+        )
+
+        msg = None
+        if self._world.rank == 0:
+            with self._lock:
+                msg = dict(self._outbox, stop=self._stop)
+                self._outbox = {"submit": [], "cancel": []}
+        msg = broadcast_object(msg, self._world)
+        with self._lock:
+            for req in msg["submit"]:
+                self.engine.submit(req)
+            for rid in msg["cancel"]:
+                self.engine.cancel(rid)
+        return not msg["stop"]
 
     # ------------------------------------------------------------------
     def _on_token(self, request_id: int, token_id: int) -> None:
@@ -120,7 +163,12 @@ class Server:
             w.tokens.put(token_id)
 
     def _loop(self):
-        while not self._stop:
+        while True:
+            if self._world is not None:
+                if not self._control():
+                    break
+            elif self._stop:
+                break
             with self._lock:
                 has_work = self.engine.has_work()
             if not has_work:
@@ -165,23 +213,29 @@ class Server:
             rid = self._next_id
             self._next_id += 1
             self._waiters[rid] = w
-            self.engine.submit(Request(request_id=rid, prompt=list(prompt_ids),
-                                       max_new_tokens=max_new_tokens,
-                                       sampling=sampling,
-                                       timeout_s=timeout_s,
-                                       stop_token_ids=stop_token_ids))
+            req = Request(request_id=rid, prompt=list(prompt_ids),
+                          max_new_tokens=max_new_tokens, sampling=sampling,
+                          timeout_s=timeout_s, stop_token_ids=stop_token_ids)
+            if self._world is None:
+                self.engine.submit(req)
+            else:   # every rank admits it at the next tick
+                self._outbox["submit"].append(req)
         self._wake.set()
         return w, rid
 
     def cancel(self, request_id: int) -> None:
         with self._lock:
-            self.engine.cancel(request_id)
+            if self._world is None:
+                self.engine.cancel(request_id)
+            else:
+                self._outbox["cancel"].append(request_id)
             self._waiters.pop(request_id, None)
 
     def shutdown(self):
         self._stop = True
         self._wake.set()
-        self._thread.join(timeout=2)
+        if self._thread is not None:
+            self._thread.join(timeout=2 if self._world is None else 60)
 
 
 def _make_handler(server: Server):
@@ -529,10 +583,26 @@ def serve(args) -> int:
         build_model,
     )
 
+    from qwen_inference_engine_tpu_torch.server.cli import run_ranks
+
+    return run_ranks(args, _serve_rank)
+
+
+def _serve_rank(args, mesh) -> int:
+    """``serve`` on one rank (every rank without a mesh is rank 0): rank 0
+    serves HTTP, the others follow its ticks."""
+    from qwen_inference_engine_tpu_torch.server.cli import (
+        build_draft_model,
+        build_model,
+    )
+
     cfg, params, tok, device = build_model(args)
     args.device = device
     args._draft_cfg, args._draft_params = build_draft_model(args, device)
-    server = Server(cfg, params, tok, None, args)
+    server = Server(cfg, params, tok, mesh, args)
+    if mesh is not None and mesh.rank != 0:
+        server.follow()
+        return 0
     httpd = ThreadingHTTPServer((args.host, args.port), _make_handler(server))
     eng = server.engine
     spec = (f", speculative k={eng.spec_k} "

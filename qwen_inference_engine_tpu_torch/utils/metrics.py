@@ -14,6 +14,8 @@ where Python calls it, so a CUDA graph's replay would count nothing and
 its capture would count launches that never ran: ``launch_counts`` and
 ``add_launches`` let the captured steps (``engine/step_graph.py``) take
 the capture's calls back out and add them again at each replay.
+``collective_wrappers()`` names the TP step's collectives, which count
+their calls the same way, and ``counted_wrappers()`` both sets.
 """
 
 from __future__ import annotations
@@ -50,6 +52,18 @@ def kernel_wrappers() -> Dict[str, Callable]:
         da.decode_attention_contiguous_fresh, ka.kv_append_all_uniform,
         fs.fused_attn_matmul]
     return {w.__name__: w for w in wrappers}
+
+
+def collective_wrappers() -> Dict[str, Callable]:
+    """The collectives of the TP step (``parallel/mesh.py``), by name."""
+    from qwen_inference_engine_tpu_torch.parallel import mesh
+
+    return {w.__name__: w for w in (mesh.all_reduce, mesh.all_gather)}
+
+
+def counted_wrappers() -> Dict[str, Callable]:
+    """Every counted launch: the kernels' and the collectives'."""
+    return {**kernel_wrappers(), **collective_wrappers()}
 
 
 def launch_counts(wrappers: Dict[str, Callable]) -> Dict[str, int]:

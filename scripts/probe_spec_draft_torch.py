@@ -64,21 +64,29 @@ def refeed_inputs(self, decoding):
     return BUILT["inputs"](self, decoding)
 
 
+def step_module():
+    """The module whose ``decode_step`` the tree's draft-model round calls
+    for the drafter: ``parallel/tp_step`` (its makers) where the tree has
+    it, else ``engine/spec_engine``."""
+    try:
+        from qwen_inference_engine_tpu_torch.parallel import tp_step
+        return tp_step
+    except ImportError:
+        from qwen_inference_engine_tpu_torch.engine import spec_engine
+        return spec_engine
+
+
 def refeed_round(self, tok_last, pos0, tables, active, sp_rows):
     """A draft-model round as the drafter ran before: step 0 feeds the
     token before the last at pos0 - 1 (rewriting its KV), steps 1..k the
     last token and drafts 1..k-1; draft k is never fed."""
     import torch
 
-    from qwen_inference_engine_tpu_torch.engine.spec_engine import (
-        decode_step,
-    )
-
     k, tok_prev = self.spec_k, self._refeed_prev
     cur, ys = tok_last, []
     for i in range(k + 1):
         tok_in = tok_prev if i == 0 else (tok_last if i == 1 else cur)
-        logits, self.draft_cache = decode_step(
+        logits, self.draft_cache = step_module().decode_step(
             self.draft_params, self.draft_cfg, tok_in, pos0 - 1 + i,
             self.draft_cache, tables)
         cur = torch.argmax(logits, dim=-1)
@@ -131,14 +139,22 @@ class OpRecorder:
     """While a step runs, every call of ``OPS`` in ``models.qwen`` records
     its output under the forward it belongs to: ("draft", i) for the
     round's i-th drafter decode step, ("verify",) for the target's verify
-    (other forwards, such as prefill pieces, are not recorded)."""
+    with its logits (other forwards, such as prefill pieces, are not
+    recorded).  The drafter's steps are ``step_module().decode_step``; the
+    verify is ``parallel/tp_step``'s verify maker's ``forward_hidden(...,
+    ragged_multi=True)`` and the ``compute_logits`` after it, or
+    ``SpeculationMixin._verify`` in a tree without the makers."""
 
     def __init__(self, torch, qwen, spec_engine):
         self.torch, self.qwen, self.spec = torch, qwen, spec_engine
         self.phase, self.records, self.drafts = None, {}, 0
         self.saved = {n: getattr(qwen, n) for n in OPS}
-        self.saved_step = spec_engine.decode_step
-        self.saved_verify = spec_engine.SpeculationMixin._verify
+        self.mod = step_module()
+        self.makers = self.mod is not spec_engine
+        self.saved_step = self.mod.decode_step
+        self.saved_verify = (self.mod.forward_hidden if self.makers
+                             else spec_engine.SpeculationMixin._verify)
+        self.saved_logits = getattr(self.mod, "compute_logits", None)
 
     def __enter__(self):
         rec = self
@@ -163,24 +179,41 @@ class OpRecorder:
             finally:
                 rec.phase = None
 
-        def verify(engine, *args, **kw):
+        def verify(*args, **kw):
+            if self.makers and not kw.get("ragged_multi"):
+                return rec.saved_verify(*args, **kw)   # a prefill piece
             rec.phase = ("verify",)
             try:
-                return rec.saved_verify(engine, *args, **kw)
+                return rec.saved_verify(*args, **kw)
+            finally:
+                if not self.makers:
+                    rec.phase = None
+
+        def logits(*args, **kw):
+            # the maker's verify ends with its logits
+            try:
+                return rec.saved_logits(*args, **kw)
             finally:
                 rec.phase = None
 
         for n in OPS:
             setattr(self.qwen, n, wrap(n, self.saved[n]))
-        self.spec.decode_step = draft_step
-        self.spec.SpeculationMixin._verify = verify
+        self.mod.decode_step = draft_step
+        self._set_verify(verify, logits)
         return self
+
+    def _set_verify(self, fn, logits=None):
+        if self.makers:
+            self.mod.forward_hidden = fn
+            self.mod.compute_logits = logits
+        else:
+            self.spec.SpeculationMixin._verify = fn
 
     def __exit__(self, *exc):
         for n in OPS:
             setattr(self.qwen, n, self.saved[n])
-        self.spec.decode_step = self.saved_step
-        self.spec.SpeculationMixin._verify = self.saved_verify
+        self.mod.decode_step = self.saved_step
+        self._set_verify(self.saved_verify, self.saved_logits)
 
     def clear(self):
         self.records, self.drafts = {}, 0

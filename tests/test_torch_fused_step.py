@@ -438,6 +438,7 @@ def test_engine_pumps_aligned_batches_of_more_than_128(monkeypatch, case):
     calls = {"pumped": [], "plain": []}
     orig, orig_plain = tqwen.decode_step_pumped, tqwen.decode_step
     import qwen_inference_engine_tpu_torch.engine.engine as teng
+    import qwen_inference_engine_tpu_torch.parallel.tp_step as ttp
 
     def spy(kind, fn):
         def wrapped(*a, **k):
@@ -446,7 +447,8 @@ def test_engine_pumps_aligned_batches_of_more_than_128(monkeypatch, case):
         return wrapped
 
     monkeypatch.setattr(teng, "decode_step_pumped", spy("pumped", orig))
-    monkeypatch.setattr(teng, "decode_step", spy("plain", orig_plain))
+    # the engine's plain step is tp_step.make_tp_decode_fn's
+    monkeypatch.setattr(ttp, "decode_step", spy("plain", orig_plain))
     greedy = SamplingParams(greedy=True)
     pumped = case != "default"
     eng = Engine(tcfg, tparams, max_batch=B, max_seq=256, sampling=greedy,

@@ -302,7 +302,9 @@ def test_generate_token_identical_to_the_jax_server(models, http_server):
 def test_server_refuses_a_mesh_and_defaults_to_the_card(models):
     _, _, tcfg, tparams = models
     with pytest.raises(NotImplementedError, match="PPFifoScheduler"):
-        Server(tcfg, tparams, ByteTokenizer(), object(), _args(device="cpu"))
+        Server(tcfg, tparams, ByteTokenizer(),
+               types.SimpleNamespace(shape={"stage": 2}, size=2),
+               _args(device="cpu"))
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default would run on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):

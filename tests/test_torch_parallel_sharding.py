@@ -1,0 +1,394 @@
+"""The port's split rules (``parallel/sharding.py``) and TP gates
+(``parallel/tp_step.py``) against the JAX package's, and every mesh the
+port refuses on purpose.
+
+Each model rank's local leaves equal the JAX ``param_pspecs`` shards on
+the virtual mesh (``addressable_shards``), for bf16, INT8 and INT4 params
+with biases and for the MoE expert stacks; ``local_config``,
+``tp_aligned_group_size`` and ``supports_tp`` equal the JAX functions on a
+table of cases that includes the full Qwen2.5-7B, Qwen3-14B and
+Qwen3-30B-A3B shapes (abstract trees from ``jax.eval_shape``, carried to
+the port as meta tensors).  No process group is needed here.
+"""
+
+import dataclasses
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen_inference_engine_tpu.config import ModelConfig as JModelConfig
+from qwen_inference_engine_tpu.kvcache.cache import (
+    KVCache as JKVCache,
+    PagedKVCache as JPagedKVCache,
+)
+from qwen_inference_engine_tpu.models import qwen as jqwen
+from qwen_inference_engine_tpu.parallel import tp_step as jtp
+from qwen_inference_engine_tpu.parallel.sharding import (
+    cache_pspecs as j_cache_pspecs,
+    shard_params as j_shard_params,
+)
+from qwen_inference_engine_tpu_torch.config import ModelConfig, tiny_config
+from qwen_inference_engine_tpu_torch.kvcache.cache import (
+    KVCache,
+    PagedKVCache,
+)
+from qwen_inference_engine_tpu_torch.ops.linear import Linear, QuantLinear
+from qwen_inference_engine_tpu_torch.parallel import sharding, tp_step
+from qwen_inference_engine_tpu_torch.parallel.tp_kernels import (
+    quant_matmul_tp_row,
+)
+from tests.torch_parallel_ref import CFG_KW, MOE_KW, jmesh, models
+
+
+def fake_mesh(dp, tp, d=0, m=0):
+    """A mesh's shape and coordinates without process groups (what the
+    split rules and the refusals read)."""
+    return types.SimpleNamespace(shape={"data": dp, "model": tp}, dp=dp,
+                                 tp=tp, size=dp * tp, coords=(d, m))
+
+
+def _leaves(tree, path=""):
+    """{path: leaf} of a params tree of either package (Linear-like
+    containers matched by their fields)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{path}/{k}"))
+        return out
+    if hasattr(tree, "scales"):
+        return {f"{path}.{f}": getattr(tree, f) for f in ("q", "scales", "b")
+                if getattr(tree, f) is not None}
+    if hasattr(tree, "w"):
+        return {f"{path}.{f}": getattr(tree, f) for f in ("w", "b")
+                if getattr(tree, f) is not None}
+    return {path: tree}
+
+
+def _np(t):
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy()
+    return t.numpy()
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)], ids=str)
+@pytest.mark.parametrize("case", ["bf16", "int8", "int4", "moe"])
+def test_local_leaves_equal_the_jax_shards(case, shape):
+    """Every leaf of model rank m's local tree equals the JAX shard on the
+    device at mesh position (d, m), for every d (the data axis never
+    splits params)."""
+    bits = {"int8": 8, "int4": 4}.get(case, 16)
+    jcfg, jparams, tcfg, tparams = models(MOE_KW if case == "moe" else CFG_KW,
+                                          bits=bits)
+    if case == "bf16":
+        jparams = jax.tree_util.tree_map(
+            lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a,
+            jparams)
+        tparams = jqwen_to_port(jparams)
+    mesh = jmesh(shape)
+    sharded = j_shard_params(jparams, mesh)
+    jl = _leaves(sharded)
+    for d in range(shape[0]):
+        for m in range(shape[1]):
+            local = _leaves(sharding.shard_params(
+                tparams, fake_mesh(*shape, d, m)))
+            assert set(local) == set(jl)
+            dev = mesh.devices[d, m]
+            for path, leaf in jl.items():
+                shard = next(s for s in leaf.addressable_shards
+                             if s.device == dev)
+                want = np.asarray(shard.data).astype(np.float32)
+                np.testing.assert_array_equal(
+                    _np(local[path]).astype(np.float32), want,
+                    err_msg=f"{path} at {(d, m)}")
+
+
+def jqwen_to_port(jparams):
+    from qwen_inference_engine_tpu_torch.loader.from_jax import (
+        params_from_numpy,
+    )
+
+    return params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+
+
+def test_split_dims_cover_the_tree_as_param_pspecs():
+    """One split dim for each leaf ``param_pspecs`` shards on the model
+    axis, None for each it replicates."""
+    from qwen_inference_engine_tpu.parallel.sharding import param_pspecs
+
+    _, jparams, _, tparams = models(MOE_KW, bits=4)
+    specs = _leaves(param_pspecs(jparams))
+    dims = _leaves(sharding.split_dims(tparams))
+    leaves = _leaves(tparams)
+    for path, leaf in leaves.items():
+        spec = specs[path]
+        want = next((i for i, a in enumerate(spec) if a == "model"), None)
+        assert dims.get(path) == want, (path, spec, dims.get(path))
+
+
+# ------------------------------------------------------------- TP gates
+def _abstract(cfg_name, bits, gs, pad_free, layers=None):
+    """(jax cfg, abstract jax params, port cfg, port params of meta
+    tensors) of a preset at full width."""
+    jcfg = JModelConfig.from_pretrained(cfg_name)
+    tcfg = ModelConfig.from_pretrained(cfg_name)
+    if layers is not None:
+        jcfg, tcfg = jcfg.replace(num_layers=layers), tcfg.replace(
+            num_layers=layers)
+    key = jax.random.PRNGKey(0)
+    if bits == 16:
+        shapes = jax.eval_shape(lambda: jqwen.init_params(jcfg, key))
+    else:
+        shapes = jax.eval_shape(lambda: jqwen.init_quantized_params(
+            jcfg, key, bits=bits, group_size=gs, pad_free=pad_free))
+
+    def meta(a):
+        dt = {jnp.int8: torch.int8, jnp.float32: torch.float32}.get(
+            a.dtype.type, torch.bfloat16)
+        return torch.empty(a.shape, dtype=dt, device="meta")
+
+    def port(v):
+        if isinstance(v, dict):
+            return {k: port(x) for k, x in v.items()}
+        if hasattr(v, "scales"):
+            return QuantLinear(q=meta(v.q), scales=meta(v.scales),
+                               b=None if v.b is None else meta(v.b),
+                               bits=int(v.bits), group_size=int(v.group_size))
+        if hasattr(v, "w"):
+            return Linear(w=meta(v.w), b=None if v.b is None else meta(v.b))
+        return meta(v)
+
+    return jcfg, shapes, tcfg, port(shapes)
+
+
+GATE_CASES = [
+    ("qwen2.5-7b", 4, 128, False, 2), ("qwen2.5-7b", 4, 128, False, 4),
+    ("qwen2.5-7b", 4, 64, False, 4), ("qwen2.5-7b", 4, 64, True, 4),
+    ("qwen2.5-7b", 4, 128, True, 8), ("qwen2.5-7b", 8, 128, False, 4),
+    ("qwen2.5-7b", 16, 0, False, 4), ("qwen2.5-7b", 16, 0, False, 8),
+    ("qwen3-14b", 4, 128, False, 2), ("qwen3-14b", 4, 64, False, 4),
+    ("qwen3-14b", 8, 128, False, 8), ("qwen3-14b", 16, 0, False, 4),
+    ("qwen2.5-0.5b", 4, 64, False, 2), ("qwen2.5-0.5b", 16, 0, False, 4),
+    ("qwen3-30b-a3b", 4, 128, False, 4), ("qwen3-30b-a3b", 8, 128, False, 8),
+]
+
+
+@pytest.mark.parametrize("name,bits,gs,pad_free,tp", GATE_CASES,
+                         ids=["-".join(map(str, c)) for c in GATE_CASES])
+def test_tp_gates_equal_jax_at_full_width(name, bits, gs, pad_free, tp):
+    """``supports_tp``, ``local_config`` and, for each row-parallel
+    projection, ``tp_aligned_group_size`` equal the JAX functions at the
+    presets' full shapes (two layers: the gates read widths only)."""
+    jcfg, jshapes, tcfg, tparams = _abstract(name, bits, gs, pad_free,
+                                             layers=2)
+    want = jtp.supports_tp(jcfg, jshapes, tp)
+    assert tp_step.supports_tp(tcfg, tparams, tp) == want
+    assert (tp_step.tp_refusal(tcfg, tparams, tp) is None) == want
+    if jcfg.num_heads % tp == 0 and jcfg.num_kv_heads % tp == 0:
+        jl, tl = jtp.local_config(jcfg, tp), tp_step.local_config(tcfg, tp)
+        for f in ("num_heads", "num_kv_heads", "intermediate_size",
+                  "hidden_size", "vocab_size", "head_dim"):
+            assert getattr(tl, f) == getattr(jl, f), f
+    for k in (tcfg.q_dim, tcfg.intermediate_size):
+        for b in (4, 8):
+            if k % tp == 0 and gs:
+                assert tp_step.tp_aligned_group_size(k, tp, gs, b) == \
+                    jtp.tp_aligned_group_size(k, tp, gs, b)
+
+
+def test_tp_aligned_group_sizes_of_the_7b_shards():
+    """Qwen2.5-7B at tp = 4: o's local K 896 and down's 4736 take INT4
+    groups of 64, which the W4A8 / W4A16 kernels take (gs % 32 == 0,
+    K % (2 gs) == 0); at tp = 2 groups of 128."""
+    assert tp_step.tp_aligned_group_size(3584, 4, 128, 4) == 64
+    assert tp_step.tp_aligned_group_size(18944, 4, 128, 4) == 64
+    assert tp_step.tp_aligned_group_size(3584, 2, 128, 4) == 128
+    assert tp_step.tp_aligned_group_size(18944, 2, 128, 4) == 128
+    for k_local, gs in ((896, 64), (4736, 64)):
+        assert gs % 32 == 0 and k_local % (2 * gs) == 0
+
+
+def test_local_config_refuses_heads_that_do_not_split():
+    with pytest.raises(ValueError, match="do not split over tp=3"):
+        tp_step.local_config(tiny_config(), 3)
+    with pytest.raises(ValueError, match="K=100"):
+        tp_step.tp_aligned_group_size(100, 3, 64, 4)
+
+
+# ----------------------------------------------------------------- caches
+CACHE_CASES = [((1, 2), False), ((2, 2), False), ((1, 4), False),
+               ((1, 2), True), ((1, 4), True)]
+
+
+@pytest.mark.parametrize("shape,paged", CACHE_CASES,
+                         ids=[f"{s}-{'paged' if p else 'contiguous'}"
+                              for s, p in CACHE_CASES])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_local_caches_equal_the_jax_cache_shards(shape, paged, int8):
+    """KV heads on ``model`` (and contiguous rows on ``data``; the page
+    pool is pure-TP only): each rank's local cache equals the JAX shard of
+    the same global cache under ``cache_pspecs``."""
+    rng = np.random.default_rng(3)
+    L, B, Hk, S, D = 2, 4, 4, 256, 8
+    dt = np.int8 if int8 else np.float32
+    if paged:
+        k, v = (rng.integers(-9, 9, (L, 6, Hk, 8, D)).astype(dt)
+                for _ in range(2))
+    else:
+        k, v = (rng.integers(-9, 9, (L, B, Hk, S, D)).astype(dt)
+                for _ in range(2))
+    sc = [rng.random(k.shape[:-1]).astype(np.float32) if int8 else None
+          for _ in range(2)]
+    if paged:
+        jc = JPagedKVCache(jnp.asarray(k), jnp.asarray(v),
+                           None if sc[0] is None else jnp.asarray(sc[0]),
+                           None if sc[1] is None else jnp.asarray(sc[1]), 8)
+        tc = PagedKVCache(*(None if a is None else torch.from_numpy(a)
+                            for a in (k, v, sc[0], sc[1])), page_size=8)
+    else:
+        jc = JKVCache(*(None if a is None else jnp.asarray(a)
+                        for a in (k, v, sc[0], sc[1])))
+        tc = KVCache(*(None if a is None else torch.from_numpy(a)
+                       for a in (k, v, sc[0], sc[1])))
+    mesh = jmesh(shape)
+    specs = j_cache_pspecs(jc, mesh)
+    names = (("k_pages", "v_pages", "k_scale", "v_scale") if paged
+             else ("k", "v", "k_scale", "v_scale"))
+    from jax.sharding import NamedSharding
+
+    for d in range(shape[0]):
+        for m in range(shape[1]):
+            local = sharding.make_sharded_cache(tc, fake_mesh(*shape, d, m))
+            for n in names:
+                leaf = getattr(jc, n)
+                if leaf is None:
+                    assert getattr(local, n) is None
+                    continue
+                put = jax.device_put(leaf, NamedSharding(mesh,
+                                                         getattr(specs, n)))
+                shard = next(s for s in put.addressable_shards
+                             if s.device == mesh.devices[d, m])
+                np.testing.assert_array_equal(getattr(local, n).numpy(),
+                                              np.asarray(shard.data), n)
+
+
+# --------------------------------------------------------------- refusals
+def test_head_dim_split_of_the_cache_is_refused():
+    """KV heads that do not split over the model axis: the JAX package
+    shards head_dim (a GSPMD-only layout); the port refuses."""
+    cache = KVCache.create(2, 2, 64, 2, 16, dtype=torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        sharding.make_sharded_cache(cache, fake_mesh(1, 4))
+
+
+def test_sequence_sharded_input_is_refused():
+    tokens = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="sequence-sharded"):
+        sharding.batch_shard(tokens, fake_mesh(1, 2), (None, "model"))
+    assert sharding.batch_shard(tokens, fake_mesh(2, 1, 1, 0),
+                                ("data", None)).shape == (1, 8)
+
+
+def _tiny(**kw):
+    from qwen_inference_engine_tpu_torch.models.qwen import init_params
+
+    cfg = tiny_config(**kw)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.float32)
+
+
+def test_engines_refuse_a_model_that_does_not_split():
+    """KV heads 2 over tp = 4 (the JAX engines then drop to GSPMD's XLA
+    ops): ``Engine`` and the serving engine raise, naming why."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+    )
+
+    cfg, params = _tiny()
+    with pytest.raises(ValueError, match="KV heads 2 do not split.*GSPMD"):
+        Engine(cfg, params, mesh=fake_mesh(1, 4), max_batch=4, max_seq=64,
+               device="cpu")
+    with pytest.raises(ValueError, match="KV heads 2 do not split"):
+        ContinuousBatchingEngine(cfg, params, mesh=fake_mesh(1, 4),
+                                 max_slots=2, page_size=8, num_pages=8,
+                                 max_pages_per_seq=4, device="cpu")
+
+
+def test_fused_projections_and_row_biases_do_not_split():
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        fuse_projections,
+    )
+
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        QuantConfig,
+        quantize_params,
+    )
+
+    cfg, params = _tiny(**CFG_KW)
+    assert tp_step.supports_tp(cfg, params, 2)
+    qp = quantize_params(params, QuantConfig(bits=8, group_size=16))
+    assert tp_step.supports_tp(cfg, qp, 2)
+    assert "split layout" in tp_step.tp_refusal(cfg, fuse_projections(qp), 2)
+    lyr = dict(params["layers"])
+    lyr["o"] = dataclasses.replace(lyr["o"], b=torch.zeros(2, 128))
+    assert "bias" in tp_step.tp_refusal(cfg, dict(params, layers=lyr), 2)
+
+
+def test_generate_speculative_under_a_mesh_is_refused():
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+
+    cfg, params = _tiny(**CFG_KW)
+    eng = Engine(cfg, params, mesh=fake_mesh(2, 1), max_batch=2,
+                 max_seq=64, kv_dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="GSPMD"):
+        eng.generate_speculative([[1, 2, 3]], max_new_tokens=4)
+
+
+@pytest.mark.parametrize("mesh,err,match", [
+    (types.SimpleNamespace(shape={"expert": 2}, size=2), NotImplementedError,
+     "expert-parallel.*next multi-GPU slice"),
+    (types.SimpleNamespace(shape={"stage": 2}, size=2), NotImplementedError,
+     "pipeline.*next multi-GPU slice"),
+    (fake_mesh(2, 2), ValueError, "pure-TP mesh"),
+], ids=["ep", "pp", "dp2"])
+def test_serving_refuses_ep_pp_and_data_parallel_meshes(mesh, err, match):
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+    )
+
+    cfg, params = _tiny(**CFG_KW)
+    with pytest.raises(err, match=match):
+        ContinuousBatchingEngine(cfg, params, mesh=mesh, max_slots=2,
+                                 page_size=8, num_pages=8,
+                                 max_pages_per_seq=4, device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["--ep", "--pp"])
+def test_cli_ep_and_pp_name_the_next_slice(flag):
+    from qwen_inference_engine_tpu_torch.server.cli import main
+
+    with pytest.raises(NotImplementedError, match="next multi-GPU slice"):
+        main(["generate", "--model", "tiny", "--device", "cpu", flag, "2"])
+
+
+def test_tp_row_refuses_padded_and_straddling_k():
+    """The row-parallel matmul's two guards (JAX ``tp_kernels.py:78-83``):
+    a quantizer-padded K, and row shards that cut a group."""
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        quantize_linear,
+    )
+
+    w = torch.randn(1376, 256)
+    padded = quantize_linear(Linear(w), bits=4, group_size=32)
+    assert padded.in_features != 1376
+    with pytest.raises(ValueError, match="pad_free"):
+        quant_matmul_tp_row(torch.ones(8, 1376 // 4), padded,
+                            fake_mesh(2, 4))
+    lin = quantize_linear(Linear(torch.randn(1024, 256)), bits=4,
+                          group_size=128, pad_free=True)
+    with pytest.raises(ValueError, match="tp_aligned_group_size"):
+        quant_matmul_tp_row(torch.ones(8, 1024 // 8), lin, fake_mesh(1, 8))

@@ -439,8 +439,11 @@ def test_paged_wrappers_refuse_before_any_launch():
 
 def test_unported_paged_and_serving_variants_name_what_is_missing():
     """What stays unported raises NotImplementedError naming its slice, on
-    the CPU as on the card: a device mesh (slice 6) in the serving
-    engine."""
+    the CPU as on the card: the expert-parallel mesh (the next multi-GPU
+    slice; a TP mesh serves, tests/test_torch_parallel_tp.py) in the
+    serving engine."""
+    import types
+
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
     )
@@ -451,7 +454,8 @@ def test_unported_paged_and_serving_variants_name_what_is_missing():
     kw = dict(max_slots=1, page_size=8, num_pages=8, max_pages_per_seq=4,
               device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        ContinuousBatchingEngine(cfg, params, **kw, mesh=object())
+        ContinuousBatchingEngine(cfg, params, **kw, mesh=types.SimpleNamespace(
+            shape={"expert": 2}, size=2))
     with pytest.raises(ValueError, match="draft_cfg"):
         ContinuousBatchingEngine(cfg, params, **kw, speculative=True,
                                  draft_params=params)
