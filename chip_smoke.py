@@ -83,7 +83,12 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    of 64 over the unpadded shard K, the lm_head's vocabulary shard, flash
    attention, the ragged decode and window append, the paged decode,
    chunk and appends at 2 and 1 KV heads), each held to its tolerance
-   here;
+   here; and the three grouped kernels at the shard shapes the EP layer
+   gives a rank (``check_ep_grouped``, ``[ep shards]``: e_loc = 64 / 32
+   experts at ep 2 / 4 over the P x M-row receive buffer of 16 and 2048
+   tokens a rank, gate / up and down; the output prefilled with NaN,
+   which must stay in every row past the last group; timed beside the
+   plain version and ``torch._grouped_mm`` over the covered rows);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -240,6 +245,24 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    tokens equal and by length, the paged kernels launched, every greedy
    token equal to the single-rank scheduler's).  The ranks time-share the
    card's SMs: nothing here measures TP speed.
+8. expert parallelism (``parallel/ep_*.py``), gloo ranks sharing the card
+   (spawned), Qwen3-30B-A3B at full width, W4A8 gs 256, the same seeded
+   params in every process.  [ep moe] at ep = 2 and 4: ``ep_moe_layer``
+   of one layer on 16 and 2048 tokens a rank: the ragged and dense forms
+   bit for bit, within 2^-6 of the largest output of ``moe_mlp`` on one
+   rank over the whole batch, finite and bit-equal with every grouped
+   output prefilled with NaN (the uncovered rows still NaN after each
+   call), 3 grouped launches, 2 all-to-alls and 1 all-gather a layer.
+   [ep serve] at ep = 2 (``ContinuousBatchingEngine``, 8 slots, pages of
+   512, pieces of 256; depth cut to ``EP_LAYERS`` for time, printed): 8
+   requests (two longer than two pieces, on both ranks' slots: the
+   batched interior pieces run) over a bf16 pool, 8 echo requests by
+   prompt lookup, the 8 again over an INT8 pool: every rank's tokens
+   equal, each request's greedy tokens equal to the single-rank
+   scheduler's or parting at a near-tie (the single-rank logit gap
+   between the two candidates below the bound), a first decode tick's
+   logits (the ranks' rows gathered) within twice the single-rank W4A8 vs
+   W4A16 distance; per-rank launches.  Nothing here measures EP speed.
 
 Captured steps: every ``Engine.generate`` decode step and every serving
 decode tick above replays a CUDA graph (``engine/step_graph.py``; each
@@ -5513,6 +5536,551 @@ def tp_check(torch, label, shape, per, ref, ref_toks, ref_serve, bound, L):
                 launches=per[0]["launches"])
 
 
+# ----------------------------------------------------------------------
+# 8. expert parallelism: gloo ranks sharing the card, Qwen3-30B-A3B width
+# ----------------------------------------------------------------------
+
+EP_DECODE_TOKENS = 16      # a rank's tokens at decode (x top-8 = 128 rows)
+EP_PIECE_TOKENS = 2048     # a rank's tokens at a piece (16384 rows)
+EP_SERVE_LENS = [300, 700, 100, 200, 900, 150, 250, 600]  # slots 1 and 4:
+                           # interior pieces on both ranks at once
+EP_SERVE_ECHO = [100, 200, 300, 400, 500, 600, 700, 900]
+# [ep serve]'s depth: the ranks' gloo all-to-alls and gathers stage through
+# the host three times a layer, so a run's time grows with the depth (a
+# world of 2 ranks took 62.9 s at 12 layers in an H100 run whose phases
+# 1-7 took 810 s); the whole smoke must stay within its 900 s
+EP_LAYERS = 4
+EP_CUT = (f"depth cut to {EP_LAYERS} of 48 layers for time (gloo's host "
+          f"round trips, three a layer a step)")
+# [ep serve]'s runs: (label, traffic, pool dtype name, prompt lookup)
+EP_SERVE_RUNS = (("bf16", "plain", "bfloat16", False),
+                 ("pld", "echo", "bfloat16", True),
+                 ("int8", "plain", "int8", False))
+
+
+def check_ep_grouped(torch, cfg):
+    """The three grouped kernels at the shard shapes the EP layer gives
+    them (``parallel/ep_moe.py``): a rank's ``e_loc`` = 64 / 32 experts
+    (ep 2 / 4) over its receive buffer of P * M rows, M = tokens x top-8 of
+    one rank (16 tokens at decode, 2048 at a piece), of which only the
+    pairs routed to its experts are real; the rows past the last group
+    are uncovered.  Gate / up (K 2048, N 768, INT4 gs 256) and down (K 768,
+    N 2048, INT4 gs 128; INT8 per group of 128 rows), layer 1 of a stacked
+    [2, e_loc, ...] tensor; the output prefilled with NaN (``out``), which
+    the kernel must leave in every uncovered row; the covered rows against
+    the plain version (the grouped rule, 2^-6 of the largest output),
+    timed beside the plain version and ``torch._grouped_mm`` over the
+    covered rows, with the bound of the covered rows.  Returns {kernel:
+    [records]}."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.ops.linear import (
+        QuantLinear,
+        dequantize,
+    )
+    from qwen_inference_engine_tpu_torch.ops.quant_matmul import (
+        quantize_activations,
+    )
+
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    D, Fm = cfg.hidden_size, cfg.moe_intermediate_size
+    g = torch.Generator(device="cuda").manual_seed(25)
+    L, layer = 2, 1
+    records = {n: [] for n in GROUPED}
+    for ep in (2, 4):
+        e_loc = E // ep
+        for what, tokens in (("decode", EP_DECODE_TOKENS),
+                             ("piece", EP_PIECE_TOKENS)):
+            rows = ep * tokens * k
+            # every rank's tokens routed by random top-8; this rank (0)
+            # receives the pairs of its experts
+            gsz = _routing(torch, g, ep * tokens, E, k)[:e_loc].contiguous()
+            real = int(gsz.sum())
+            for proj, K, N, gs4 in (("gate", D, Fm, 256),
+                                    ("down", Fm, D, 128)):
+                x = torch.randn((rows, K), generator=g,
+                                device="cuda").to(torch.bfloat16)
+                xq, sx = quantize_activations(x)
+                sx = sx.reshape(-1).contiguous()
+                weights = {
+                    4: (torch.randint(-128, 128, (L, e_loc, K // 2, N),
+                                      generator=g, device="cuda",
+                                      dtype=torch.int8),
+                        torch.rand((L, e_loc, K // gs4, N), generator=g,
+                                   device="cuda") * (2 * K ** -0.5 / 7), gs4),
+                    8: (torch.randint(-127, 128, (L, e_loc, K, N), generator=g,
+                                      device="cuda", dtype=torch.int8),
+                        torch.rand((L, e_loc, K // 128, N), generator=g,
+                                   device="cuda") * (2 * K ** -0.5 / 127),
+                        128)}
+                for name, (bits, act_bits, peak) in GROUPED.items():
+                    q, s, gs = weights[bits]
+                    fn, plain = getattr(gm, name), getattr(gm, name + "_plain")
+                    if act_bits:
+                        args = (xq, sx, q, s, gsz, layer, gs)
+                    elif bits == 4:
+                        args = (x, q, s, gsz, layer, gs)
+                    else:
+                        args = (x, q, s, gsz, layer)
+                    out = torch.full((rows, N), float("nan"),
+                                     dtype=torch.bfloat16, device="cuda")
+                    got = fn(*args, out=out)
+                    ref = plain(*args)
+                    torch.cuda.synchronize()
+                    err = (got[:real].float() - ref[:real].float()).abs() \
+                        .max().item()
+                    tol = GROUPED_TOL * ref[:real].float().abs().max().item()
+                    tail = bool(got[real:].isnan().all())
+                    shape = (f"ep={ep} e_loc={e_loc} {what} {proj} rows "
+                             f"{rows} (covered {real}) K={K} N={N} gs {gs}")
+                    if not (err <= tol and tail
+                            and bool(got[:real].isfinite().all())):
+                        fail(f"{name} {shape}: err {err} > {tol}, or a "
+                             f"covered row not finite, or the uncovered "
+                             f"tail written ({not tail})")
+                    ms = time_ms(torch, lambda: fn(*args))
+                    plain_ms = time_ms(torch, lambda: plain(*args), iters=3,
+                                       warmup=1)
+                    w = dequantize(QuantLinear(q=q[layer], scales=s[layer],
+                                               b=None, bits=bits,
+                                               group_size=gs))
+                    lib, lib_label = _grouped_library(torch, x[:real], w, gsz)
+                    lib_ms = time_ms(torch, lib)
+                    del w
+                    touched = int((gsz > 0).sum())
+                    wrows = K // 2 if bits == 4 else K
+                    n_bytes = (touched * (wrows * N + 4 * s.shape[2] * N)
+                               + real * K * (1 if act_bits else 2)
+                               + 4 * real * (act_bits > 0) + 2 * real * N
+                               + 4 * e_loc)
+                    b_ms, b_by = bound(n_bytes, 2 * real * K * N, peak)
+                    print(f"  [ep shards] {name} {shape}: err {err:.3g} (tol "
+                          f"{tol:.3g}) | uncovered rows still NaN {tail} | "
+                          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} | "
+                          f"{lib_label} {lib_ms:.4f} | bound {b_ms:.4f} "
+                          f"({b_by})", flush=True)
+                    records[name].append(dict(
+                        shape=shape, ep=ep, e_loc=e_loc, what=what, proj=proj,
+                        rows=rows, covered=real, max_abs_err=err, tol=tol,
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        library=lib_label, bound_ms=b_ms, bound_by=b_by))
+                del x, xq, sx, weights
+                torch.cuda.empty_cache()
+    return records
+
+
+def ep_layer_record(recs):
+    """A grouped kernel's EP entry: a layer's gate + up + down at each
+    (ep, decode / piece) shard shape, summed as ``moe_layer_record``."""
+    out = {}
+    for ep in (2, 4):
+        for what in ("decode", "piece"):
+            by = {r["proj"]: r for r in recs
+                  if r["ep"] == ep and r["what"] == what}
+            out[f"ep{ep}_{what}"] = dict(
+                rows=by["gate"]["rows"], e_loc=by["gate"]["e_loc"],
+                **{key: 2 * by["gate"][key] + by["down"][key]
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    return out
+
+
+def ep_moe_params(torch, cfg, layers):
+    """Qwen3-30B-A3B W4A8 gs 256 at full width and ``layers`` depth, the
+    same seeded draw in every process (``moe_params`` on the current
+    card)."""
+    return (cfg.replace(num_layers=layers, act_bits=8),
+            moe_params(torch, cfg, 4, 256, layers))
+
+
+def ep_moe_case(torch, cfg, params, mesh, tokens, wrappers):
+    """[ep moe] on this rank: ``ep_moe_layer`` of its ``tokens`` rows of a
+    seeded batch (the same on every rank) over its experts of layer 0, in
+    the ragged and the dense form and once more with every grouped
+    kernel's output prefilled with NaN (``out``); the single-rank
+    ``moe_mlp`` over the whole batch.  Returns numbers (the main process
+    checks them)."""
+    from qwen_inference_engine_tpu_torch.models.qwen import moe_mlp
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.parallel import mesh as pmesh
+    from qwen_inference_engine_tpu_torch.parallel.ep_moe import ep_moe_layer
+    from qwen_inference_engine_tpu_torch.parallel.ep_step import (
+        ep_param_shards,
+    )
+
+    P, r = mesh.ep, mesh.rank
+    lyr = params["layers"]
+    local = ep_param_shards(params, mesh)["layers"]
+    g = torch.Generator(device="cuda").manual_seed(80 + tokens)
+    h = torch.randn((P * tokens, cfg.hidden_size), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    h_l = h[r * tokens:(r + 1) * tokens]
+    args = (h_l, lyr["router"].w[0], local["moe_gate"], local["moe_up"],
+            local["moe_down"], cfg.num_experts_per_tok, cfg.norm_topk_prob,
+            mesh.ep_group)
+    kw = dict(layer=0, act_bits=8)
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.inference_mode():
+        ragged = ep_moe_layer(*args, ragged=True, **kw)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in wrappers.items() if c.launches}
+        dense = ep_moe_layer(*args, ragged=False, **kw)
+        orig, tails = gm.grouped_matmul4_a8, []
+
+        def poisoned(xq, sx, q, s, gsz, layer, gs):
+            out = torch.full((xq.shape[0], q.shape[-1]), float("nan"),
+                             dtype=torch.bfloat16, device=xq.device)
+            y = orig(xq, sx, q, s, gsz, layer, gs, out=out)
+            tails.append(bool(y[int(gsz.sum()):].isnan().all()))
+            return y
+
+        # the wrapper counts its launches on the module's name
+        poisoned.launches = orig.launches
+        with Swapped([(gm, "grouped_matmul4_a8", poisoned)]):
+            nan_tail = ep_moe_layer(*args, ragged=True, **kw)
+        ref = moe_mlp(h, lyr["router"].w[0], lyr["moe_gate"], lyr["moe_up"],
+                      lyr["moe_down"], cfg.num_experts_per_tok,
+                      cfg.norm_topk_prob, **kw)[r * tokens:(r + 1) * tokens]
+
+        def host_ms(ragged_form, n=3):
+            pmesh.all_reduce(torch.zeros(1, device="cuda"), mesh.ep_group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ep_moe_layer(*args, ragged=ragged_form, **kw)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        ms_ragged, ms_dense = host_ms(True), host_ms(False)
+    return dict(
+        ragged_eq_dense=bool(torch.equal(ragged, dense)),
+        nan_tail_eq=bool(torch.equal(nan_tail, ragged)),
+        nan_tail_finite=bool(nan_tail.isfinite().all()),
+        tails=tails, counts=counts,
+        err=(ragged.float() - ref.float()).abs().max().item(),
+        ref_max=ref.float().abs().max().item(),
+        bit_equal_single=bool(torch.equal(ragged, ref)),
+        ms_ragged=ms_ragged, ms_dense=ms_dense)
+
+
+def ep_serve_requests(rng, vocab):
+    """[ep serve]'s traffic: 8 random prompts (two longer than two pieces,
+    on slots of different ranks) and 8 echo prompts for prompt lookup."""
+    return ([rng.integers(0, vocab, size=n).tolist() for n in EP_SERVE_LENS],
+            echo_prompts(rng, vocab, EP_SERVE_ECHO))
+
+
+def ep_serve_run(torch, cfg, params, mesh, prompts, kv_dtype, spec,
+                 wrappers, recorder=None):
+    """The serving engine on 8 slots over pages of 512 (pieces of 256,
+    prefix cache off: EP switches it off), EOS off, greedy: ``prompts``
+    drained with 32 new tokens each.  Its launches counted from 0 just
+    before the run and read just after.  Returns (tokens by request,
+    numbers)."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    cb = ContinuousBatchingEngine(
+        cfg, params, mesh=mesh, max_slots=8, page_size=PAGE, num_pages=24,
+        max_pages_per_seq=4, prefill_chunk=256, prefix_cache=False,
+        sampling=SamplingParams(greedy=True), kv_dtype=kv_dtype,
+        speculative=spec, spec_k=SPEC_K, spec_ngram=3, device="cuda")
+    cb._eos = set()
+    batched = [0]
+    if mesh is not None:
+        tick = cb._ep_prefill_batch_tick
+
+        def counted(prefilling):
+            did = tick(prefilling)
+            batched[0] += did
+            return did
+        cb._ep_prefill_batch_tick = counted
+    if recorder is not None:
+        recorder.attach(cb)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        cb.submit(Request(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    done = cb.run_to_completion(sync_every=8)
+    cb.check_page_invariants()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = cb.metrics.snapshot()
+    toks = {f.request_id: f.token_ids for f in done}
+    if len(done) != len(prompts) or any(
+            f.finish_reason != "length" or len(f.token_ids) != NEW_TOKENS
+            for f in done):
+        fail(f"[ep serve]: a request did not finish by length")
+    del cb
+    torch.cuda.empty_cache()
+    return toks, dict(wall_s=wall, batched_piece_ticks=batched[0],
+                      launches={n: w.launches for n, w in wrappers.items()},
+                      **snap)
+
+
+def ep_first_tick(torch, cfg, params, mesh, prompts):
+    """The logits of one decode tick of 8 slots after every prompt's
+    prefill (each piece on every rank under EP), bf16 pool: ``[8, V]``,
+    the ranks' rows gathered."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    cb = ContinuousBatchingEngine(
+        cfg, params, mesh=mesh, max_slots=8, page_size=PAGE, num_pages=24,
+        max_pages_per_seq=4, prefill_chunk=256, prefix_cache=False,
+        sampling=SamplingParams(greedy=True), device="cuda")
+    cb._eos = set()
+    for i, p in enumerate(prompts):
+        cb.submit(Request(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    with torch.inference_mode():
+        while cb._try_admit():
+            pass
+        for run in list(cb._slots):
+            while not run.prefill_done:
+                cb._prefill_tick(run)
+        cb._load_tick([s for s in cb._slots if s is not None])
+        t = cb._tick
+        logits, _ = cb._decode_fn(cb.params, t.tok, t.pos, cb.cache, t.tables)
+        logits = logits.float().cpu()
+    del cb
+    torch.cuda.empty_cache()
+    return logits
+
+
+def ep_rank(rank, world_size, layers, serve, moe_tokens):
+    """One rank of a gloo world on the card: [ep moe] at ep = the world's
+    size (each of ``moe_tokens`` a rank), then, with ``serve`` (its
+    prompts), [ep serve]: the bf16 pool, prompt lookup on echo traffic,
+    the INT8 pool and the logits of a first decode tick.  Returns
+    {label: numbers}."""
+    import torch
+
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.parallel.mesh import make_ep_mesh
+    from qwen_inference_engine_tpu_torch.utils.metrics import (
+        counted_wrappers,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_ep_mesh()
+    wrappers = counted_wrappers()
+    base = PRESETS["qwen3-30b-a3b"]
+    out = {}
+    cfg, params = ep_moe_params(torch, base, 1)
+    for tokens in moe_tokens:
+        out[f"moe {tokens}"] = ep_moe_case(torch, cfg, params, mesh, tokens,
+                                           wrappers)
+    del params
+    torch.cuda.empty_cache()
+    if serve is None:
+        return out
+    plain, echo = serve
+    cfg, params = ep_moe_params(torch, base, layers)
+    t0 = time.perf_counter()
+    for label, prompts, kv, spec in EP_SERVE_RUNS:
+        toks, nums = ep_serve_run(torch, cfg, params, mesh,
+                                  plain if prompts == "plain" else echo,
+                                  getattr(torch, kv), spec, wrappers)
+        out[f"serve {label}"] = dict(tokens=toks, **nums)
+    out["first tick"] = ep_first_tick(torch, cfg, params, mesh, plain)
+    out["serve_s"] = time.perf_counter() - t0
+    return out
+
+
+def tie_gap(torch, cfg, params, prompt, a, b):
+    """The single-rank logit gap between tokens ``a`` and ``b`` after
+    ``prompt`` (one prefill of it on the kernel path, bf16 KV): logit[a] -
+    logit[b], and the argmax."""
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.models import qwen
+
+    T = len(prompt)
+    cache = KVCache.create(cfg.num_layers, 1, -(-T // 512) * 512,
+                           cfg.num_kv_heads, cfg.head_dim, device="cuda")
+    with torch.inference_mode():
+        logits, _ = qwen.prefill_chunked(
+            params, cfg, torch.tensor([prompt], device="cuda"),
+            torch.tensor([T], device="cuda"), cache, chunk=512)
+    row = logits[0].float()
+    return (row[a] - row[b]).item(), int(row.argmax())
+
+
+def ep_serve_check(torch, label, per, ref, prompts, cfg, params, bound):
+    """One [ep serve] run's rule: every rank's tokens equal; each request's
+    greedy tokens equal to the single-rank scheduler's, or, from its first
+    differing position, a near-tie: the single-rank logit gap between the
+    two candidates there below ``bound``.  Returns the numbers."""
+    toks = [p["tokens"] for p in per]
+    if any(t != toks[0] for t in toks):
+        fail(f"[ep serve {label}]: the ranks' tokens differ")
+    same, ties = 0, []
+    for rid, want in ref.items():
+        got = toks[0][rid]
+        i = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        if i is None:
+            same += len(want)
+            continue
+        same += i
+        gap, top = tie_gap(torch, cfg, params, prompts[rid] + want[:i],
+                           want[i], got[i])
+        ties.append(dict(request=rid, position=i, single=want[i], ep=got[i],
+                         gap=gap, single_argmax=top))
+        print(f"[ep serve {label}] request {rid} parts from the single-rank "
+              f"run at token {i}: single {want[i]}, ep {got[i]}, single-rank "
+              f"logit gap {gap:.4g} (bound {bound:.4g})", flush=True)
+        if not abs(gap) < bound:
+            fail(f"[ep serve {label}]: request {rid} token {i} differs with "
+                 f"a logit gap {gap} >= {bound}: not a near-tie")
+    return same, ties
+
+
+def run_ep_phases(torch, np, wrappers, layers=EP_LAYERS):
+    """[ep moe] at ep 2 and 4 and [ep serve] at ep 2 in gloo worlds of
+    ranks sharing the card, each against the single-rank port on the same
+    seeded params.  The ranks time-share the card's SMs and exchange
+    through the host: no number here is an EP speed.  Returns (every
+    rank's launches summed, the numbers)."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.parallel.mesh import spawn
+
+    base = PRESETS["qwen3-30b-a3b"]
+    rng = np.random.default_rng(25)
+    plain, echo = ep_serve_requests(rng, base.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {n: 0 for n in wrappers}
+    numbers = {}
+    ranks = {}
+    for world, serve in ((2, (plain, echo)), (4, None)):
+        t0 = time.perf_counter()
+        ranks[world] = spawn(ep_rank, world, device_type="cuda",
+                             args=(layers, serve, (EP_DECODE_TOKENS,
+                                                   EP_PIECE_TOKENS)))
+        print(f"[ep] a gloo world of {world} ranks on the card: "
+              f"{time.perf_counter() - t0:.1f} s (spawn, params, runs)",
+              flush=True)
+    # [ep moe]: the layer's rules at both sizes
+    for world, per in ranks.items():
+        for tokens in (EP_DECODE_TOKENS, EP_PIECE_TOKENS):
+            res = [p[f"moe {tokens}"] for p in per]
+            want = {"grouped_matmul4_a8": 3, "all_to_all": 2,
+                    "all_gather": 1}
+            for r, x in enumerate(res):
+                tol = GROUPED_TOL * x["ref_max"]
+                print(f"[ep moe] ep={world} rank {r}, {tokens} tokens a rank "
+                      f"({tokens * 8} pairs), 30B-A3B layer W4A8 gs 256: "
+                      f"ragged = dense bit for bit {x['ragged_eq_dense']} | "
+                      f"grouped outputs' uncovered rows NaN before the call "
+                      f"and after {all(x['tails'])}, combine finite "
+                      f"{x['nan_tail_finite']} and bit-equal "
+                      f"{x['nan_tail_eq']} | vs moe_mlp on one rank over the "
+                      f"whole batch max |d| {x['err']:.4g} (tol {tol:.4g}; "
+                      f"bit-equal {x['bit_equal_single']}) | launches a "
+                      f"layer {x['counts']} | host ms a layer ragged "
+                      f"{x['ms_ragged']:.2f}, dense {x['ms_dense']:.2f} "
+                      f"(ranks share the card)", flush=True)
+                bad = {n: x["counts"].get(n, 0) for n, c in want.items()
+                       if x["counts"].get(n, 0) != c}
+                if not (x["ragged_eq_dense"] and x["nan_tail_eq"]
+                        and x["nan_tail_finite"] and all(x["tails"])
+                        and len(x["tails"]) == 3 and x["err"] <= tol
+                        and not bad):
+                    fail(f"[ep moe] ep={world} rank {r} {tokens} tokens: "
+                         f"{x} (launches off {bad})")
+                for n in launches:      # the kernels' (main's wrappers)
+                    launches[n] += x["counts"].get(n, 0)
+            numbers[f"moe ep{world} {tokens}"] = res
+    # [ep serve]: the single-rank scheduler on the same params and traffic
+    per = ranks[2]
+    cfg, params = ep_moe_params(torch, base, layers)
+    ref = {label: ep_serve_run(torch, cfg, params, None,
+                               plain if traffic == "plain" else echo,
+                               getattr(torch, kv), spec, wrappers)[0]
+           for label, traffic, kv, spec in EP_SERVE_RUNS}
+    tick8 = ep_first_tick(torch, cfg, params, None, plain)
+    tick16 = ep_first_tick(torch, cfg.replace(act_bits=0), params, None,
+                           plain)
+    a8_vs_a16 = (tick8 - tick16).abs().max().item()
+    bound = 2 * a8_vs_a16
+    for r, p in enumerate(per):
+        got = p["first tick"]
+        if got.shape != tick8.shape or not bool(got.isfinite().all()):
+            fail(f"[ep serve] rank {r}: first tick's logits "
+                 f"{tuple(got.shape)} not finite or not {tuple(tick8.shape)}")
+    err = max((p["first tick"] - tick8).abs().max().item() for p in per)
+    print(f"[ep serve] ep=2, 30B-A3B W4A8 gs 256, {layers} layers "
+          f"({EP_CUT}), bf16 pool, "
+          f"8 slots: a first decode tick's logits (the ranks' rows gathered) "
+          f"vs the single-rank scheduler's max |d| {err:.4g} (bound: 2 x the "
+          f"single-rank W4A8 vs W4A16 distance = {bound:.4g})", flush=True)
+    if not err <= bound:
+        fail(f"[ep serve]: first tick's logits {err} from the single-rank "
+             f"run, > {bound}")
+    numbers["serve"] = dict(first_tick_max_abs_diff=err, bound=bound,
+                            a8_vs_a16=a8_vs_a16, layers=layers,
+                            serve_s=per[0]["serve_s"])
+    sfx = {"bf16": "", "pld": "", "int8": "_q8"}
+    for label, traffic, kv, spec in EP_SERVE_RUNS:
+        runs = [p[f"serve {label}"] for p in per]
+        prompts = plain if traffic == "plain" else echo
+        same, ties = ep_serve_check(torch, label, runs, ref[label], prompts,
+                                    cfg, params, bound)
+        must = {"grouped_matmul4_a8", "quant_matmul4_a8", "flash_attention",
+                "paged_append_prefill", "all_to_all", "all_gather",
+                "all_reduce"}
+        must |= ({"paged_verify_attention_stacked", "paged_append_ragged_t"}
+                 if spec else {"paged_decode_attention_stacked" + sfx[label],
+                               "paged_append_ragged",
+                               "paged_chunk_attention" + sfx[label]})
+        for r, run in enumerate(runs):
+            cnt = run["launches"]
+            print(f"[ep serve {label}] rank {r} launches "
+                  f"{ {n: c for n, c in cnt.items() if c} }", flush=True)
+            missing = sorted(n for n in must if cnt[n] <= 0)
+            if missing:
+                fail(f"[ep serve {label}] rank {r}: not launched {missing}")
+            for n in launches:
+                launches[n] += cnt[n]
+        run = runs[0]
+        n_tok = NEW_TOKENS * len(prompts)
+        print(f"[ep serve {label}] ep=2, {layers} layers, 8 slots, "
+              f"{'echo ' if traffic == 'echo' else ''}prompts "
+              f"{[len(x) for x in prompts]}, {NEW_TOKENS} new: tokens equal "
+              f"on every rank | greedy tokens equal to the single-rank "
+              f"scheduler {same}/{n_tok} ({len(ties)} near-ties) | batched "
+              f"interior-piece ticks {run['batched_piece_ticks']} | spec "
+              f"rounds {run['spec_rounds']}, tokens per forward "
+              f"{run['spec_tokens_per_forward']:.3f} | TTFT p50 "
+              f"{run['ttft_p50_s'] * 1e3:.1f} ms, decode "
+              f"{run['decode_tokens_per_s']:.1f} tok/s, wall "
+              f"{run['wall_s']:.2f} s (not an EP speed: the ranks share the "
+              f"card)", flush=True)
+        if label == "bf16" and run["batched_piece_ticks"] <= 0:
+            fail("[ep serve bf16]: the batched interior pieces did not run")
+        if spec and run["spec_rounds"] <= 0:
+            fail("[ep serve pld]: no speculation round ran")
+        numbers[f"serve {label}"] = dict(
+            tokens_equal_single=same, tokens=n_tok, near_ties=ties,
+            batched_piece_ticks=run["batched_piece_ticks"],
+            spec_rounds=run["spec_rounds"],
+            spec_tokens_per_forward=run["spec_tokens_per_forward"],
+            ttft_p50_s=run["ttft_p50_s"],
+            decode_tokens_per_s=run["decode_tokens_per_s"],
+            wall_s=run["wall_s"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -5631,6 +6199,8 @@ def main() -> int:
     deferred_recs = check_deferred_kernels(torch, cfg)
     attn_mm_recs = check_fused_attn_matmul(torch, cfg)
     grouped_recs = check_grouped_matmul(torch, PRESETS["qwen3-30b-a3b"])
+    # the grouped kernels at the shard shapes the EP layer gives them
+    ep_grouped_recs = check_ep_grouped(torch, PRESETS["qwen3-30b-a3b"])
     torch.cuda.empty_cache()
     mark("3 kernels")
 
@@ -6079,11 +6649,17 @@ def main() -> int:
     tp_counts, runs["tensor parallel"] = run_tp_phases(torch, np, wrappers)
     for n, c in tp_counts.items():
         launches[n] += c
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
     mark("7 tp / dp")
 
-    # ---- 8. results
+    # ---- 8. expert parallelism
+    ep_counts, runs["expert parallel"] = run_ep_phases(torch, np, wrappers)
+    for n, c in ep_counts.items():
+        launches[n] += c
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path was never launched: {launches}")
+    mark("8 ep")
+
+    # ---- 9. results
     sources = {
         "quant_matmul4_a8": ("csrc/quant_matmul.cu",
                              "qwen_inference_engine_tpu/ops/quant_matmul.py:219"),
@@ -6212,6 +6788,11 @@ def main() -> int:
     for name, err in tp_shard_errs.items():
         recs[name] = dict(recs[name], max_abs_err=max(
             recs[name]["max_abs_err"], err), tp_shards_max_abs_err=err)
+    for name, ep_recs in ep_grouped_recs.items():
+        err = max(r["max_abs_err"] for r in ep_recs)
+        recs[name] = dict(recs[name], max_abs_err=max(
+            recs[name]["max_abs_err"], err), at_ep_shards=ep_layer_record(
+                ep_recs))
     sites = {replaces for _, replaces in sources.values()}
     if set(recs) != set(wrappers) or set(sources) != set(wrappers) \
             or len(sites) != 28:
@@ -6249,6 +6830,7 @@ def main() -> int:
                        "paged_kernels": paged_recs,
                        "chunk_kernels": chunk_recs,
                        "grouped_kernels": grouped_recs, "moe": moe_runs,
+                       "grouped_kernels_ep_shards": ep_grouped_recs,
                        "fused_mlp": fused_mlp_recs,
                        "fused_attn_mlp": {f"row0 {r} Mb {m}": rec for (
                            r, m), rec in attn_mlp_recs.items()},

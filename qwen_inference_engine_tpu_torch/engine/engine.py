@@ -46,7 +46,9 @@ same engine from the same global params and prompts, and runs its share:
 
 A model that does not split over the model axis (``tp_refusal``) raises:
 the JAX engine then drops to GSPMD's partitioned XLA ops, which the port
-does not run.  So does ``generate_speculative`` under a mesh.  The decode
+does not run.  So do ``generate_speculative`` under a mesh and any
+``Engine`` under an expert-parallel mesh (the JAX engine runs it as
+GSPMD; EP serves through ``ContinuousBatchingEngine``).  The decode
 step is captured where the model group is NCCL; a gloo group's
 collectives run on the host, and the engine takes the eager step
 (``graphs.capture`` is false from construction).
@@ -79,7 +81,10 @@ from qwen_inference_engine_tpu_torch.ops.sampling import (
     seen_mask_from_prompts,
     update_seen_mask,
 )
-from qwen_inference_engine_tpu_torch.parallel.mesh import all_gather
+from qwen_inference_engine_tpu_torch.parallel.mesh import (
+    EP_AXIS,
+    all_gather,
+)
 from qwen_inference_engine_tpu_torch.parallel.sharding import (
     batch_shard,
     shard_params,
@@ -165,7 +170,13 @@ def tp_mesh(mesh, cfg: ModelConfig, params: dict):
     """The mesh whose model axis a TP step splits over, or None (no mesh,
     or tp == 1).  A model that does not split raises, naming why: the JAX
     engines then run GSPMD's partitioned XLA ops, which the port does
-    not."""
+    not; so does an expert-parallel mesh (``Engine``'s; the serving engine
+    takes it apart)."""
+    if mesh is not None and EP_AXIS in dict(mesh.shape):
+        raise NotImplementedError(
+            "Engine under an expert-parallel mesh: the JAX engine runs it as "
+            "GSPMD's partitioned XLA ops, which the port does not; serve it "
+            "with ContinuousBatchingEngine (serve --ep)")
     if mesh is None or mesh.tp == 1:
         return None
     why = tp_refusal(cfg, params, mesh.tp)

@@ -66,11 +66,28 @@ prefix cache copies its own heads), its params, its vocabulary shard of
 the logits (``ShardedVocab`` sampling; every rank draws the same token).
 A drafter must split over the same model axis.  Deadlines are the clock's
 and clocks differ between ranks: under a mesh the world's rank 0 decides
-them and broadcasts them in the step.  Not ported yet, raising
-``NotImplementedError`` that names the next multi-GPU slice: the
-expert-parallel mesh and the pipeline.  A data axis above 1, or a model
-that does not split over the model axis, raises too (the JAX scheduler
-then runs GSPMD's XLA ops).
+them and broadcasts them in the step.
+
+Under an expert-parallel ``("ep",)`` mesh (``parallel/mesh.make_ep_mesh``)
+every rank again holds the same host state, and runs the EP step
+(``parallel/ep_step.py``) on its own slots ``[p * S / P, (p + 1) * S /
+P)`` and experts: a page pool of full size on every rank, each writing
+only its own slots' pages (so the prefix cache is switched off, with a
+warning, as in the JAX scheduler); the decode tick and a verify over this
+rank's slots, their logits gathered so every rank runs the one-rank
+sampler on the whole batch's (``S x V x 4`` bytes a tick); a single-slot
+prefill piece on every rank (all must join the all-to-alls; the owner
+writes its pool, the others a scratch pool), and interior pieces batched
+one per owner rank where two owners have one (``_ep_prefill_batch_tick``);
+a dense drafter local to each rank's slots.  EP steps run eager.  The
+JAX scheduler's GSPMD fallbacks raise here, naming the condition:
+``supports_ep`` false (not a MoE model, ``E % ep`` or ``max_slots % ep``
+non-zero) and an MoE drafter (JAX drops to prompt lookup).
+
+Not ported yet, raising ``NotImplementedError`` that names the next
+multi-GPU slice: the pipeline.  A data axis above 1, or a model that does
+not split over the model axis, raises too (the JAX scheduler then runs
+GSPMD's XLA ops).
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do): it never drops to the CPU by itself.
@@ -80,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional
 
@@ -115,7 +133,19 @@ from qwen_inference_engine_tpu_torch.ops.sampling import (
     stream_generator,
     stream_seed,
 )
-from qwen_inference_engine_tpu_torch.parallel.mesh import broadcast_object
+from qwen_inference_engine_tpu_torch.parallel.ep_step import (
+    ep_param_shards,
+    ep_refusal,
+    ep_scratch,
+    make_ep_decode_fn,
+    make_ep_prefill_batch_fn,
+    make_ep_prefill_piece_fn,
+)
+from qwen_inference_engine_tpu_torch.parallel.mesh import (
+    EP_AXIS,
+    broadcast_object,
+    is_ep_mesh,
+)
 from qwen_inference_engine_tpu_torch.parallel.sharding import shard_params
 from qwen_inference_engine_tpu_torch.parallel.tp_step import (
     local_config,
@@ -132,19 +162,15 @@ def check_serving_mesh(mesh) -> None:
     if mesh is None:
         return
     axes = dict(getattr(mesh, "shape", None) or {})
-    if axes.get("expert", 1) > 1:
-        raise NotImplementedError(
-            "the expert-parallel serving mesh (parallel/ep_layout.py, "
-            "ep_moe.py, ep_step.py; --ep) is not ported yet: it comes with "
-            "the next multi-GPU slice")
     if axes.get("stage", 1) > 1:
         raise NotImplementedError(
             "the pipeline-parallel mesh (parallel/pp_step.py, "
             "engine/pp_scheduler.py PPFifoScheduler; --pp) is not ported "
-            "yet: it comes with the next multi-GPU slice, after the "
-            "expert-parallel mesh")
+            "yet: it comes with the next multi-GPU slice")
+    if set(axes) == {EP_AXIS}:
+        return
     if set(axes) != {"data", "model"}:
-        raise TypeError(f"not a (data, model) mesh: {axes}")
+        raise TypeError(f"not a (data, model) or (ep,) mesh: {axes}")
     if axes["data"] != 1:
         raise ValueError(
             f"serving takes a pure-TP mesh (data axis 1, not "
@@ -194,7 +220,27 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
-        self._tp = tp_mesh(mesh, cfg, params)
+        self._ep = mesh if is_ep_mesh(mesh) else None
+        if self._ep is not None:
+            why = ep_refusal(cfg, mesh, max_slots)
+            if why is not None:
+                raise ValueError(
+                    f"the EP serving step does not take this model ({why}); "
+                    f"the JAX scheduler then runs GSPMD's XLA ops "
+                    f"(use_pallas=False), which the port does not")
+            if speculative and draft_cfg is not None and draft_cfg.is_moe:
+                raise ValueError(
+                    "an MoE draft model under the EP mesh (it would need its "
+                    "own all-to-alls; the JAX scheduler drops to prompt "
+                    "lookup): pass a dense drafter, or none")
+            if prefix_cache:
+                warnings.warn("prefix cache disabled under the EP mesh: a "
+                              "rank only holds KV for its own slots, so "
+                              "pages cannot be shared across ranks")
+                prefix_cache = False
+        # an ("ep",) mesh of one rank serves as no mesh
+        self._tp = (None if mesh is None or EP_AXIS in dict(mesh.shape)
+                    else tp_mesh(mesh, cfg, params))
         self._model_draft = speculative and draft_params is not None
         if self._model_draft and self._tp is not None:
             why = tp_refusal(draft_cfg, draft_params, self._tp.tp)
@@ -276,21 +322,42 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
                                  device=self.device)
         # the forwards (tp_step's makers: this rank's shards under TP, the
         # whole model without), and the samplers' view of the logits
-        self._pieces = {last: make_tp_prefill_piece_fn(cfg, self._tp,
-                                                       last=last)
-                        for last in (False, True)}
-        self._decode_fn = make_tp_decode_fn(cfg, self._tp, paged=True)
+        if self._ep is not None:
+            # a rank runs the pieces of the slots it does not own over a
+            # scratch pool of one sequence
+            sps = max_slots // self._ep.ep
+            self._ep_scratch = ep_scratch(self.cache, max_pages_per_seq)
+            self._pieces = {last: make_ep_prefill_piece_fn(
+                cfg, self._ep, last=last, slots_per_shard=sps,
+                scratch=self._ep_scratch) for last in (False, True)}
+            self._piece_batch = make_ep_prefill_batch_fn(
+                cfg, self._ep, scratch=self._ep_scratch)
+            self._decode_fn = make_ep_decode_fn(cfg, self._ep)
+        else:
+            self._pieces = {last: make_tp_prefill_piece_fn(cfg, self._tp,
+                                                           last=last)
+                            for last in (False, True)}
+            self._decode_fn = make_tp_decode_fn(cfg, self._tp, paged=True)
         self._vocab = sampling_vocab(self._tp, cfg)
         # the captured decode tick and the buffers it binds; a gloo model
-        # group's collectives run on the host: eager ticks
+        # group's collectives run on the host, and EP steps are eager
+        step_mesh = self._ep or self._tp
         self.graphs = StepGraphs(
-            self.device, capture=self._tp is None or self._tp.capturable)
+            self.device, capture=step_mesh is None or step_mesh.capturable)
         self._tick = self._tick_buffers()
 
     def _shard(self, params: dict) -> dict:
-        """This rank's shard of a global param tree (the tree itself
-        without TP)."""
+        """This rank's shard of a global param tree (its experts under EP;
+        the tree itself without a mesh)."""
+        if self._ep is not None:
+            return ep_param_shards(params, self._ep)
         return params if self._tp is None else shard_params(params, self._tp)
+
+    def _owns(self, slot: int) -> bool:
+        """Whether this rank runs ``slot``'s rows (under EP its own slots;
+        every slot otherwise)."""
+        return (self._ep is None
+                or slot // (self.max_slots // self._ep.ep) == self._ep.rank)
 
     def _local(self, cfg: ModelConfig) -> ModelConfig:
         return cfg if self._tp is None else local_config(cfg, self._tp.tp)
@@ -503,9 +570,10 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         fresh-prefill branch when it is 0).  The last piece samples the
         request's first token with its own parameters and marks it seen;
         returns it as a device tensor [1] (None for an interior piece)."""
-        logits = self._pieces[last](self.params, tokens, start, nvalid,
-                                    self.cache, table)
-        if self._model_draft:
+        args = (self.params, tokens, start, nvalid, self.cache, table)
+        logits = (self._pieces[last](*args, run.slot) if self._ep is not None
+                  else self._pieces[last](*args))
+        if self._model_draft and self._owns(run.slot):
             self._drafter_piece(tokens, start, table)
         if not last:
             return None
@@ -667,7 +735,20 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         prefilling = [s for s in self._slots
                       if s is not None and not s.prefill_done]
         decoding = [s for s in self._slots if s is not None and s.prefill_done]
-        if prefilling:
+        did_batch = False
+        if prefilling and self._ep is not None:
+            # EP: interior pieces one per owner rank in one forward (a
+            # single-slot piece runs on every rank)
+            if decoding:
+                did_batch = self._ep_prefill_batch_tick(prefilling)
+            else:
+                while self._ep_prefill_batch_tick(
+                        [s for s in self._slots
+                         if s is not None and not s.prefill_done]):
+                    pass
+            prefilling = [s for s in self._slots
+                          if s is not None and not s.prefill_done]
+        if prefilling and not did_batch:
             # oldest admitted first (slot index is reuse order, not age)
             target = min(prefilling, key=lambda s: s.admit_seq)
             if decoding:
@@ -711,8 +792,8 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         decoding = [s for s in self._slots if s is not None and s.prefill_done]
         if not decoding:
             return self.step()   # prefill-only / idle: host-paced path
-        if prefilling and self.speculative:
-            return self.step()   # speculative mixed ticks stay host-paced
+        if prefilling and (self.speculative or self._ep is not None):
+            return self.step()   # speculative / EP mixed ticks: host-paced
         if prefilling:
             # interior pieces need no host decision (their sizes are fixed,
             # they sample nothing): they chain with the decode ticks; the
@@ -744,6 +825,43 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         cols = [self._decode_tick() for _ in range(n)]
         self._deliver(decoding, torch.stack(cols, 0).cpu().numpy(), t0)
         return self._drain_finished()
+
+    def _ep_prefill_batch_tick(self, prefilling) -> bool:
+        """Advance up to one interior prefill piece per owner rank in one EP
+        forward (``make_ep_prefill_batch_fn``).  Returns True if two or more
+        pieces advanced; a single candidate stays on the single-slot
+        piece, which runs on every rank."""
+        ep = self._ep.ep
+        sps = self.max_slots // ep
+        chunk = self.prefill_chunk
+        cand: Dict[int, _Running] = {}
+        for s in sorted(prefilling, key=lambda r: r.admit_seq):
+            # interior pieces only: exactly `chunk` tokens, no sampling
+            if len(s.request.prompt) - s.prefilled > chunk:
+                cand.setdefault(s.slot // sps, s)
+        if len(cand) < 2:
+            return False
+        tokens = np.zeros((ep, chunk), np.int64)
+        tables = np.zeros((ep, self.max_pages_per_seq), np.int32)
+        starts, active = [0] * ep, [False] * ep
+        for owner, s in cand.items():
+            tokens[owner] = s.request.prompt[s.prefilled:s.prefilled + chunk]
+            tables[owner] = self._block_tables[s.slot]
+            starts[owner], active[owner] = s.prefilled, True
+        tokens_d, tables_d = self._tensor(tokens), self._tensor(tables)
+        self._piece_batch(self.params, tokens_d, starts, self.cache, tables_d,
+                          active)
+        mine = cand.get(self._ep.rank)
+        if self._model_draft and mine is not None:
+            # the drafter is dense: this rank's piece alone, locally
+            r = self._ep.rank
+            self._drafter_piece(tokens_d[r:r + 1], mine.prefilled,
+                                tables_d[r:r + 1])
+        for s in cand.values():
+            s.prefilled += chunk
+            self.metrics.observe_prefill(chunk)
+        self._step_count += 1
+        return True
 
     def _mixed_chain_batch(self, n: int, decoding: List[_Running],
                            target: _Running) -> List[FinishedRequest]:

@@ -5,7 +5,11 @@ The port of the JAX package's ``engine/spec_engine.py``.  Under a pure-TP
 mesh every forward here is the TP step on this rank's shards (the
 makers of ``parallel/tp_step.py``: the verify, the draft-model round),
 the drafter's greedy pick is the sharded argmax, and acceptance samples
-on the vocab-sharded logits.  Three modes over the paged pool (bf16 or
+on the vocab-sharded logits.  Under an EP mesh the verify and the round
+are the EP step's (``parallel/ep_step.py``): this rank's slots, a dense
+drafter local to them, the logits and drafts gathered so every rank
+accepts on the whole batch's; a drafter's prefill piece runs on the
+slot's owner alone.  Three modes over the paged pool (bf16 or
 INT8), each scoring the row's last token and k drafts in one T = k+1
 verify forward (``forward_hidden(..., ragged_multi=True)``:
 ``paged_append_ragged_t`` and ``paged_verify_attention_stacked[_q8]``)
@@ -54,6 +58,10 @@ from qwen_inference_engine_tpu_torch.engine.types import (
     _is_stop,
 )
 from qwen_inference_engine_tpu_torch.ops.sampling import stream_generator
+from qwen_inference_engine_tpu_torch.parallel.ep_step import (
+    make_ep_spec_model_fn,
+    make_ep_verify_fn,
+)
 from qwen_inference_engine_tpu_torch.parallel.tp_step import (
     make_tp_prefill_piece_fn,
     make_tp_spec_model_fn,
@@ -75,7 +83,10 @@ class SpeculationMixin:
         """The T = k+1 verify forward of every slot and the acceptance:
         returns (chain [S, k+1], n_new [S]); the seen mask takes the
         emitted tokens of active rows."""
-        verify = make_tp_verify_fn(self.cfg, self._tp, T=self.spec_k + 1)
+        T = self.spec_k + 1
+        verify = (make_ep_verify_fn(self.cfg, self._ep, T=T)
+                  if self._ep is not None
+                  else make_tp_verify_fn(self.cfg, self._tp, T=T))
         logits, _ = verify(self.params, tokens, pos0, self.cache, tables)
         return self._accept(logits, drafts, active, sp_rows)
 
@@ -105,8 +116,11 @@ class SpeculationMixin:
         position before the next round's first.  Returns (chain, n_new)
         and the next round's (tok_last, pos0), computed on the device so
         rounds chain."""
-        round_fn = make_tp_spec_model_fn(self.cfg, self.draft_cfg, self._tp,
-                                         k=self.spec_k)
+        round_fn = (make_ep_spec_model_fn(self.cfg, self.draft_cfg, self._ep,
+                                          k=self.spec_k)
+                    if self._ep is not None
+                    else make_tp_spec_model_fn(self.cfg, self.draft_cfg,
+                                               self._tp, k=self.spec_k))
         logits, drafts = round_fn(self.params, self.draft_params, tok_last,
                                   pos0, self.cache, self.draft_cache, tables)
         chain, n_new = self._accept(logits, drafts, active, sp_rows)

@@ -139,6 +139,7 @@ from qwen_inference_engine_tpu_torch.ops.paged_attention import (
     paged_verify_attention_stacked_q8,
 )
 from qwen_inference_engine_tpu_torch.ops.rope import apply_rope, precompute_rope
+from qwen_inference_engine_tpu_torch.parallel.ep_moe import ep_moe_layer
 from qwen_inference_engine_tpu_torch.parallel.mesh import all_reduce
 from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 
@@ -521,7 +522,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    ragged_multi: bool = False,
                    start: Optional[int] = None,
                    deferred_append: bool = False,
-                   reduce_group=None):
+                   reduce_group=None, ep_group=None,
+                   ep_ragged: Optional[bool] = None):
     """Run the transformer stack; returns (hidden [B, T, D], cache).
 
     tokens / positions: [B, T].  The cache (a ``KVCache``, or a
@@ -544,7 +546,17 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``parallel/mesh.Group``): after ``o``, after ``down`` (an MoE layer
     sums inside ``moe_mlp``) and, for a vocab-sharded table, the
     embedding's.  Every kernel runs at the local shapes.
+
+    ep_group: the expert-parallel step (``parallel/ep_step.py``; the JAX
+    ``ep_axis``): ``tokens`` are this rank's rows and the expert stacks its
+    experts; each MoE layer routes its rows through the group's
+    all-to-alls (``parallel/ep_moe.ep_moe_layer``, in the ``ep_ragged``
+    form), and attention and the dense projections stay local.  Not with
+    ``reduce_group``.
     """
+    if reduce_group is not None and ep_group is not None:
+        raise ValueError("reduce_group (TP) and ep_group (EP) are mutually "
+                         "exclusive")
     B, T = tokens.shape
     Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     Qd, Kd = Hq * Dh, Hk * Dh
@@ -659,7 +671,14 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             o = all_reduce(o, reduce_group)
         x = x + o
         h = rms_norm(x, lyr["post_norm"][l], eps)
-        if cfg.is_moe:
+        if cfg.is_moe and ep_group is not None:
+            # this rank's rows through the dispatch / combine all-to-alls
+            d = ep_moe_layer(
+                h.reshape(B * T, -1), lyr["router"].w[l], lyr["moe_gate"],
+                lyr["moe_up"], lyr["moe_down"], cfg.num_experts_per_tok,
+                cfg.norm_topk_prob, ep_group, ragged=ep_ragged, layer=l,
+                act_bits=act).reshape(B, T, -1).to(x.dtype)
+        elif cfg.is_moe:
             # the batch flattened: a verify of B x (k+1) rows routes as one
             d = moe_mlp(h.reshape(B * T, -1), lyr["router"].w[l],
                         lyr["moe_gate"], lyr["moe_up"], lyr["moe_down"],

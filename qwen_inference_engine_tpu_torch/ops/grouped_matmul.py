@@ -208,14 +208,27 @@ def _check(name: str, x, sx, q, scales, group_sizes, layer: int, *, x_dtype,
             raise ValueError(f"{name} needs contiguous tensors on one device")
 
 
+def _out_buffer(name: str, out, M: int, N: int, device) -> torch.Tensor:
+    """A wrapper's output: ``out`` checked, or a new bf16 [M, N]."""
+    if out is None:
+        return torch.empty((M, N), dtype=torch.bfloat16, device=device)
+    if (out.shape != (M, N) or out.dtype != torch.bfloat16
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous bf16 [{M}, {N}] "
+                         f"on {device}, not {out.dtype} {tuple(out.shape)}")
+    return out
+
+
 def _int4_gs_ok(K: int, gs: int, G: int) -> bool:
     return gs > 0 and gs % 32 == 0 and K % (2 * gs) == 0 and G == K // gs
 
 
 def grouped_matmul4_a8(xq, sx, q, scales, group_sizes, layer: int,
-                       group_size: int) -> torch.Tensor:
+                       group_size: int, out=None) -> torch.Tensor:
     """``bf16 [M, N]``: rows of expert e ``(xq @ W4[layer, e]) * sx`` on the
-    card (W4A8); xq int8 [M, Kp] sorted by expert, sx f32 [M]."""
+    card (W4A8); xq int8 [M, Kp] sorted by expert, sx f32 [M].  ``out``
+    (a launch on the card): a bf16 [M, N] buffer to write, whose rows past
+    the last group the kernel leaves as they were."""
     if xq.device.type == "cpu":
         return grouped_matmul4_a8_plain(xq, sx, q, scales, group_sizes, layer,
                                         group_size)
@@ -225,7 +238,7 @@ def grouped_matmul4_a8(xq, sx, q, scales, group_sizes, layer: int,
            gs_ok=_int4_gs_ok(xq.shape[-1], group_size, scales.shape[2]))
     M, Kp = xq.shape
     L, E, _, N = q.shape
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
+    out = _out_buffer(name, out, M, N, xq.device)
     if M == 0:
         return out
     rc = cuda_lib.library().qie_grouped_matmul4_a8(
@@ -239,9 +252,10 @@ def grouped_matmul4_a8(xq, sx, q, scales, group_sizes, layer: int,
 
 
 def grouped_matmul4(x, q, scales, group_sizes, layer: int,
-                    group_size: int) -> torch.Tensor:
+                    group_size: int, out=None) -> torch.Tensor:
     """``bf16 [M, N]``: rows of expert e ``x @ W4[layer, e]`` on the card
-    (W4A16); x bf16 [M, Kp] sorted by expert."""
+    (W4A16); x bf16 [M, Kp] sorted by expert; ``out`` as
+    ``grouped_matmul4_a8``'s."""
     if x.device.type == "cpu":
         return grouped_matmul4_plain(x, q, scales, group_sizes, layer,
                                      group_size)
@@ -252,7 +266,7 @@ def grouped_matmul4(x, q, scales, group_sizes, layer: int,
            gs_ok=_int4_gs_ok(x.shape[-1], group_size, scales.shape[2]))
     M, Kp = x.shape
     L, E, _, N = q.shape
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    out = _out_buffer(name, out, M, N, x.device)
     if M == 0:
         return out
     rc = cuda_lib.library().qie_grouped_matmul4(
@@ -264,10 +278,12 @@ def grouped_matmul4(x, q, scales, group_sizes, layer: int,
     return out
 
 
-def grouped_matmul8(x, q, scales, group_sizes, layer: int) -> torch.Tensor:
+def grouped_matmul8(x, q, scales, group_sizes, layer: int,
+                    out=None) -> torch.Tensor:
     """``bf16 [M, N]``: rows of expert e ``x @ W8[layer, e]`` on the card
     (W8A16); q int8 [L, E, K, N], scales [L, E, G, N]: a scale per group of
-    K/G rows, or one per column (G = 1, applied in the epilogue)."""
+    K/G rows, or one per column (G = 1, applied in the epilogue); ``out``
+    as ``grouped_matmul4_a8``'s."""
     if x.device.type == "cpu":
         return grouped_matmul8_plain(x, q, scales, group_sizes, layer)
     name = "grouped_matmul8"
@@ -279,7 +295,7 @@ def grouped_matmul8(x, q, scales, group_sizes, layer: int) -> torch.Tensor:
            gs_ok=G == 1 or (G > 0 and K % G == 0 and (K // G) % 32 == 0))
     M = x.shape[0]
     L, E, _, N = q.shape
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    out = _out_buffer(name, out, M, N, x.device)
     if M == 0:
         return out
     rc = cuda_lib.library().qie_grouped_matmul8(

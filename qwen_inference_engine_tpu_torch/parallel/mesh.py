@@ -9,7 +9,10 @@ explicitly on the mesh's groups:
 * ``data`` (DP): independent batch rows, no collective in a step;
 * ``model`` (TP): weights and KV heads sharded, one all-reduce after each
   row-parallel projection (``o``, ``down``), the vocab-sharded embedding's
-  sum and the sampler's gathers.
+  sum and the sampler's gathers;
+* ``ep`` (EP, its own mesh, ``make_ep_mesh``): serving slots and experts
+  sharded over every rank of the world, tokens routed to the experts'
+  ranks by two all-to-alls an MoE layer (``parallel/ep_moe.py``).
 
 ``make_mesh((dp, tp))`` keeps ``model`` the inner axis, as the JAX mesh
 does: rank ``r`` sits at ``(r // tp, r % tp)``, so a model group is ``tp``
@@ -20,16 +23,19 @@ fixed TCP port, so worlds started side by side never collide).
 
 The backend follows the devices: NCCL where every rank has a card of its
 own, gloo where ranks share a card or run on the CPU (``backend_for``).
-The three collectives used here (all-reduce, all-gather, broadcast) take
-CUDA tensors under gloo in the card machine's PyTorch 2.11
+The collectives used here (all-reduce, all-gather, broadcast and
+``all_to_all_single`` with equal and with uneven splits) take CUDA tensors
+under gloo in the card machine's PyTorch 2.11
 (``scripts/probe_gloo_cuda_torch.py``), so no call stages through the
 host itself; gloo runs them on the host all the same, and they cannot be
 captured in a CUDA graph: ``Mesh.capturable`` is false, and the engines
 take the eager step.
 
-``all_reduce`` and ``all_gather`` count their calls in ``launches``, as
-the kernel wrappers do (``utils/metrics.collective_wrappers``), so a
-captured step's replays count the collectives inside its graph.
+``all_reduce``, ``all_gather`` and ``all_to_all`` count their calls in
+``launches``, as the kernel wrappers do (``utils/metrics.
+collective_wrappers``), so a captured step's replays count the
+collectives inside its graph; ``all_gather`` and ``all_to_all`` also count
+the bytes this rank sends in ``sent_bytes``.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+EP_AXIS = "ep"
 
 # how long a collective or the rendezvous waits for the other ranks
 TIMEOUT = datetime.timedelta(seconds=1800)
@@ -76,13 +83,40 @@ def all_gather(t: torch.Tensor, group: Group) -> torch.Tensor:
     """``[group.size, *t.shape]``: every rank's ``t`` in index order."""
     all_gather.launches += 1
     t = t.contiguous()
+    all_gather.sent_bytes += t.numel() * t.element_size()
     parts = [torch.empty_like(t) for _ in range(group.size)]
     dist.all_gather(parts, t, group=group.pg)
     return torch.stack(parts)
 
 
+def all_to_all(t: torch.Tensor, group: Group,
+               send_sizes: Optional[List[int]] = None,
+               recv_sizes: Optional[List[int]] = None) -> torch.Tensor:
+    """Exchange row segments of ``t`` over ``group``: segment ``p`` goes to
+    index ``p``, and the received segments come back to back in source
+    order.  Without sizes every segment is ``t.shape[0] / group.size``
+    rows (the equal-split form); with them (host ints, ``[group.size]``
+    each) segment ``p`` of ``t`` has ``send_sizes[p]`` rows and the one
+    from ``s`` ``recv_sizes[s]`` (the ragged form)."""
+    all_to_all.launches += 1
+    t = t.contiguous()
+    all_to_all.sent_bytes += t.numel() * t.element_size()
+    if send_sizes is None:
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=group.pg)
+        return out
+    out = t.new_empty((sum(recv_sizes),) + tuple(t.shape[1:]))
+    dist.all_to_all_single(out, t, output_split_sizes=list(recv_sizes),
+                           input_split_sizes=list(send_sizes),
+                           group=group.pg)
+    return out
+
+
 all_reduce.launches = 0
 all_gather.launches = 0
+all_gather.sent_bytes = 0
+all_to_all.launches = 0
+all_to_all.sent_bytes = 0
 
 
 def broadcast_object(obj, group: Group):
@@ -124,6 +158,58 @@ class Mesh:
         CUDA graph: NCCL collectives can, gloo's run on the host."""
         return self.model_group.backend == "nccl" and \
             self.data_group.backend == "nccl"
+
+
+@dataclasses.dataclass
+class EpMesh:
+    """An expert-parallel ``("ep",)`` mesh seen from one rank: every rank
+    of the world on one axis.  ``shape`` reads ``{"ep": P}``, as the JAX
+    mesh's ``dict(mesh.shape)``; ``ep_group`` is the world as a ``Group``;
+    ``ragged`` the all-to-all's form (``parallel/ep_moe.py``; None: ragged
+    on the card, dense on the CPU)."""
+
+    shape: Dict[str, int]
+    rank: int
+    ep_group: Group
+    world_group: Group
+    ragged: Optional[bool] = None
+
+    @property
+    def size(self) -> int:
+        return self.shape[EP_AXIS]
+
+    @property
+    def ep(self) -> int:
+        return self.shape[EP_AXIS]
+
+    @property
+    def capturable(self) -> bool:
+        """False: an EP step cannot be captured in a CUDA graph.  Its
+        ragged all-to-alls wait on the host once a layer for the split
+        sizes, and ranks that share a card run gloo, whose collectives run
+        on the host; the engines take eager steps."""
+        return False
+
+
+def make_ep_mesh(ragged: Optional[bool] = None) -> EpMesh:
+    """This rank's view of an ``("ep",)`` mesh over the whole initialized
+    world (the JAX package's ``make_ep_mesh``)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_ep_mesh needs torch.distributed initialized "
+                           "(init_distributed, or spawn)")
+    world, me = dist.get_world_size(), dist.get_rank()
+    group = Group(pg=dist.group.WORLD, size=world, rank=me,
+                  backend=dist.get_backend(), ranks=tuple(range(world)))
+    return EpMesh(shape={EP_AXIS: world}, rank=me, ep_group=group,
+                  world_group=group, ragged=ragged)
+
+
+def is_ep_mesh(mesh) -> bool:
+    """Whether ``mesh`` has an ``ep`` axis above 1 (the JAX package's
+    ``is_ep_mesh``)."""
+    shape = getattr(mesh, "shape", None)
+    return mesh is not None and shape is not None and \
+        dict(shape).get(EP_AXIS, 1) > 1
 
 
 def make_mesh(shape: Tuple[int, int]) -> Mesh:

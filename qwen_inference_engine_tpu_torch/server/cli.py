@@ -34,8 +34,13 @@ card over ``--dp``) spawn ``N * M`` ranks over a ``(dp, tp)`` mesh
 (or the CPU with ``--device cpu``); the backend is NCCL where every rank
 has a card of its own, gloo where ranks share one or run on the CPU.  Each
 rank builds the same seeded model and runs its share; rank 0 prints
-(``generate``) or serves HTTP (``serve``, pure TP).  ``--ep`` and ``--pp``
-raise: the expert-parallel mesh and the pipeline come with the next
+(``generate``) or serves HTTP (``serve``, pure TP).  ``serve --ep N``
+(overriding ``--tp`` / ``--dp``, as the JAX CLI) spawns ``N`` ranks over
+an expert-parallel ``("ep",)`` mesh for a Qwen3-MoE model: slots and
+experts sharded, tokens routed by all-to-alls (``parallel/ep_step.py``).
+``generate --ep`` raises (the JAX engine runs it as GSPMD), and so does
+a model the EP step does not take (the JAX CLI ignores ``--ep`` for a
+dense model).  ``--pp`` raises: the pipeline comes with the next
 multi-GPU slice.
 """
 
@@ -156,41 +161,47 @@ def build_draft_model(args, device):
 
 
 def mesh_shape(args):
-    """``(dp, tp)`` from ``--dp`` / ``--tp`` (``--tp 0``: every card over
-    ``--dp``, as the JAX CLI); ``--ep`` and ``--pp`` raise."""
+    """The mesh's axes: ``{"ep": N}`` from ``--ep N`` (N > 1), else
+    ``{"data": dp, "model": tp}`` from ``--dp`` / ``--tp`` (``--tp 0``:
+    every card over ``--dp``, as the JAX CLI); ``--pp`` raises."""
     import torch
 
-    for flag, what in (("ep", "the expert-parallel mesh (parallel/ep_*.py)"),
-                       ("pp", "the pipeline (parallel/pp_step.py, "
-                              "engine/pp_scheduler.py)")):
-        if getattr(args, flag, 0) > 1:
-            raise NotImplementedError(
-                f"--{flag}: {what} is not ported yet; it comes with the "
-                f"next multi-GPU slice")
+    if getattr(args, "pp", 0) > 1:
+        raise NotImplementedError(
+            "--pp: the pipeline (parallel/pp_step.py, engine/pp_scheduler.py)"
+            " is not ported yet; it comes with the next multi-GPU slice")
+    if getattr(args, "ep", 0) > 1:
+        return {"ep": args.ep}
     n_dev = (torch.cuda.device_count() if str(args.device).startswith("cuda")
              else 1)
     dp = max(1, args.dp)
-    return dp, args.tp or max(1, n_dev // dp)
+    return {"data": dp, "model": args.tp or max(1, n_dev // dp)}
 
 
 def _rank_main(rank: int, world: int, args, shape, fn) -> int:
     from qwen_inference_engine_tpu_torch.parallel.mesh import (
+        make_ep_mesh,
         make_mesh,
         rank_device,
     )
 
     args.device = str(rank_device(rank, "cuda" if str(args.device)
                                   .startswith("cuda") else "cpu"))
-    return fn(args, make_mesh(shape))
+    mesh = (make_ep_mesh() if "ep" in shape
+            else make_mesh((shape["data"], shape["model"])))
+    return fn(args, mesh)
 
 
 def run_ranks(args, fn) -> int:
-    """``fn(args, mesh)`` on every rank of the ``--dp x --tp`` mesh (spawned
-    here), or ``fn(args, None)`` in this process for one rank."""
+    """``fn(args, mesh)`` on every rank of the mesh ``mesh_shape`` reads
+    (spawned here), or ``fn(args, None)`` in this process for one rank."""
+    import math
+
     from qwen_inference_engine_tpu_torch.parallel.mesh import spawn
 
-    dp, tp = mesh_shape(args)
-    if dp * tp == 1:
+    shape = mesh_shape(args)
+    world = math.prod(shape.values())
+    if world == 1:
         return fn(args, None)
     device_type = "cuda" if str(args.device).startswith("cuda") else "cpu"
     if device_type == "cuda":
@@ -199,11 +210,16 @@ def run_ranks(args, fn) -> int:
         )
 
         resolve_device(args.device)   # raises without a card
-    return max(spawn(_rank_main, dp * tp, device_type=device_type,
-                     args=(args, (dp, tp), fn)))
+    return max(spawn(_rank_main, world, device_type=device_type,
+                     args=(args, shape, fn)))
 
 
 def cmd_generate(args) -> int:
+    if getattr(args, "ep", 0) > 1:
+        raise NotImplementedError(
+            "generate --ep: Engine.generate under an expert-parallel mesh is "
+            "GSPMD's partitioned XLA ops in the JAX package, which the port "
+            "does not run; serve --ep serves a MoE model over EP ranks")
     return run_ranks(args, _generate_rank)
 
 
@@ -304,7 +320,9 @@ def _add_model_args(g) -> None:
                    help="data-parallel ranks (generate only: serving takes "
                         "a pure-TP mesh)")
     g.add_argument("--ep", type=int, default=0,
-                   help="expert-parallel size (not ported yet: raises)")
+                   help="expert-parallel ranks for a MoE model (serve only: "
+                        "slots and experts sharded over an ('ep',) mesh; "
+                        "overrides --tp / --dp)")
     g.add_argument("--pp", type=int, default=0,
                    help="pipeline stages (not ported yet: raises)")
     g.add_argument("--profile", default=None, metavar="DIR",

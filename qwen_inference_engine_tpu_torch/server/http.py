@@ -33,9 +33,11 @@ that tick's admissions, cancellations and expired deadlines (by its own
 clock) to every rank (``broadcast_object`` on the world group, at least
 twenty times a second while idle), and every rank then applies them and
 runs the same tick, so every rank's engine holds the same state.  The
-other ranks run ``follow()`` until rank 0 shuts down.  A pipeline-parallel
-mesh (the JAX package's FIFO wave scheduler, ``PPFifoScheduler``) and the
-expert-parallel mesh are not ported: they raise ``NotImplementedError``.
+other ranks run ``follow()`` until rank 0 shuts down.  An expert-parallel
+mesh (``serve --ep N``) is served the same way: every rank runs the EP
+step on its own slots and experts (``engine/scheduler.py``).  A
+pipeline-parallel mesh (the JAX package's FIFO wave scheduler,
+``PPFifoScheduler``) is not ported: it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ class Server:
             raise NotImplementedError(
                 "serving on a pipeline-parallel mesh (engine/pp_scheduler.py,"
                 " PPFifoScheduler) is not ported yet: it comes with the "
-                "next multi-GPU slice, after the expert-parallel mesh")
+                "next multi-GPU slice")
         # rank 0 takes the requests and broadcasts each tick's control
         # message; None without a mesh of several ranks
         self._world = (mesh.world_group if mesh is not None and mesh.size > 1

@@ -13,7 +13,17 @@ decided in a fixture, never at import).  This file imports no JAX:
   local K, as the JAX TP step does);
 * the shard shapes no single-card path launched: Qwen2.5-7B at tp = 4
   (one KV head a rank, INT4 groups of 64 on o's K 896 and down's K 4736,
-  k / v N 128) through the kernels against their plain versions.
+  k / v N 128) through the kernels against their plain versions;
+* the expert-parallel layer (``chip_smoke.py``'s [ep moe]): gloo ranks
+  sharing the card at ep 2 and 4 run ``ep_moe_layer`` of one Qwen3-30B-A3B
+  layer (W4A8 gs 256) on 16 tokens each: the ragged and dense forms bit
+  for bit, within 2^-6 of the largest output of ``moe_mlp`` over the whole
+  batch on one rank, finite and bit-equal with every grouped output
+  prefilled with NaN (the uncovered rows still NaN after each call), one
+  all-gather, two all-to-alls and three grouped launches a layer; and the
+  three grouped kernels at the shard shapes (e_loc 64 and 32 over the
+  P * M-row receive buffer, the uncovered rows left as they were) against
+  their plain versions.
 """
 
 import os
@@ -203,3 +213,116 @@ def test_tp4_attention_shards_match_plain(gen):
                                                     999)
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def card_ep_moe(rank, world_size, tokens):
+    """A rank of an EP world on the card: ``ep_moe_layer`` of its
+    ``tokens`` rows of a seeded batch over its experts of one 30B-A3B
+    layer, ragged, dense and with NaN-prefilled grouped outputs; and the
+    single-rank ``moe_mlp`` over the whole batch."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.models.qwen import (
+        init_quantized_params,
+        moe_mlp,
+    )
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+    from qwen_inference_engine_tpu_torch.parallel.ep_moe import ep_moe_layer
+    from qwen_inference_engine_tpu_torch.parallel.ep_step import (
+        ep_param_shards,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = PRESETS["qwen3-30b-a3b"].replace(num_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = init_quantized_params(cfg, gen, bits=4, group_size=256,
+                                   device=dev)
+    mesh = pmesh.make_ep_mesh()
+    lyr = params["layers"]
+    local = ep_param_shards(params, mesh)["layers"]
+    h = torch.randn((world_size * tokens, cfg.hidden_size), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    mine = slice(rank * tokens, (rank + 1) * tokens)
+    args = (h[mine], lyr["router"].w[0], local["moe_gate"], local["moe_up"],
+            local["moe_down"], cfg.num_experts_per_tok, cfg.norm_topk_prob,
+            mesh.ep_group)
+    wrappers = counted_wrappers()
+    before = {n: w.launches for n, w in wrappers.items()}
+    ragged = ep_moe_layer(*args, ragged=True, act_bits=8)
+    counts = {n: w.launches - before[n] for n, w in wrappers.items()
+              if w.launches != before[n]}
+    dense = ep_moe_layer(*args, ragged=False, act_bits=8)
+    orig, tails = gm.grouped_matmul4_a8, []
+
+    def poisoned(xq, sx, q, s, gsz, layer, gs):
+        out = torch.full((xq.shape[0], q.shape[-1]), float("nan"),
+                         dtype=torch.bfloat16, device=dev)
+        y = orig(xq, sx, q, s, gsz, layer, gs, out=out)
+        tails.append(bool(y[int(gsz.sum()):].isnan().all()))
+        return y
+
+    # the wrapper counts its launches on the module's name
+    poisoned.launches = orig.launches
+    gm.grouped_matmul4_a8 = poisoned
+    try:
+        nan_tail = ep_moe_layer(*args, ragged=True, act_bits=8)
+    finally:
+        gm.grouped_matmul4_a8 = orig
+    ref = moe_mlp(h, lyr["router"].w[0], lyr["moe_gate"], lyr["moe_up"],
+                  lyr["moe_down"], cfg.num_experts_per_tok,
+                  cfg.norm_topk_prob, act_bits=8)[mine]
+    return dict(ragged_eq_dense=bool(torch.equal(ragged, dense)),
+                nan_tail_eq=bool(torch.equal(nan_tail, ragged)),
+                finite=bool(nan_tail.isfinite().all()), tails=tails,
+                counts=counts,
+                err=(ragged.float() - ref.float()).abs().max().item(),
+                ref_max=ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("ep", [2, 4])
+def test_ep_moe_layer_on_gloo_ranks_matches_one_rank(gen, ep):
+    for r, x in enumerate(pmesh.spawn(card_ep_moe, ep, device_type="cuda",
+                                      args=(16,))):
+        assert x["ragged_eq_dense"] and x["nan_tail_eq"] and x["finite"], r
+        assert x["tails"] == [True] * 3, x["tails"]
+        assert x["err"] <= 2 ** -6 * x["ref_max"], x
+        assert x["counts"] == {"grouped_matmul4_a8": 3, "all_to_all": 2,
+                               "all_gather": 1}, x["counts"]
+
+
+@pytest.mark.parametrize("ep", [2, 4])
+@pytest.mark.parametrize("proj", ["gate", "down"])
+def test_ep_grouped_shard_shapes_match_plain(gen, ep, proj):
+    """A rank's receive buffer at decode: P * 16 tokens x top-8 rows, the
+    pairs routed to its e_loc = 128 / P experts covered, the rest left as
+    the NaN ``out`` held them."""
+    from qwen_inference_engine_tpu_torch.ops import grouped_matmul as gm
+
+    e_loc, rows = 128 // ep, ep * 16 * 8
+    K, N, gs = (2048, 768, 256) if proj == "gate" else (768, 2048, 128)
+    ids = torch.rand((ep * 16, 128), generator=gen, device="cuda").topk(
+        8, dim=-1).indices
+    gsz = torch.bincount(ids.reshape(-1), minlength=128)[:e_loc].to(
+        torch.int32)
+    real = int(gsz.sum())
+    x = torch.randn((rows, K), generator=gen, device="cuda").to(torch.bfloat16)
+    xq, sx = qm.quantize_activations(x)
+    sx = sx.reshape(-1).contiguous()
+    q4 = torch.randint(-128, 128, (2, e_loc, K // 2, N), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    s4 = torch.rand((2, e_loc, K // gs, N), generator=gen, device="cuda") \
+        * (2 * K ** -0.5 / 7)
+    q8 = torch.randint(-127, 128, (2, e_loc, K, N), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    s8 = torch.rand((2, e_loc, K // 128, N), generator=gen, device="cuda") \
+        * (2 * K ** -0.5 / 127)
+    for name, args in (("grouped_matmul4_a8", (xq, sx, q4, s4, gsz, 1, gs)),
+                       ("grouped_matmul4", (x, q4, s4, gsz, 1, gs)),
+                       ("grouped_matmul8", (x, q8, s8, gsz, 1))):
+        out = torch.full((rows, N), float("nan"), dtype=torch.bfloat16,
+                         device="cuda")
+        got = getattr(gm, name)(*args, out=out)
+        ref = getattr(gm, name + "_plain")(*args)
+        assert got is out and bool(got[real:].isnan().all()), name
+        tol = 2 ** -6 * ref[:real].float().abs().max().item()
+        err = (got[:real].float() - ref[:real].float()).abs().max().item()
+        assert err <= tol and bool(got[:real].isfinite().all()), (name, err)

@@ -349,8 +349,8 @@ def test_generate_speculative_under_a_mesh_is_refused():
 
 
 @pytest.mark.parametrize("mesh,err,match", [
-    (types.SimpleNamespace(shape={"expert": 2}, size=2), NotImplementedError,
-     "expert-parallel.*next multi-GPU slice"),
+    (types.SimpleNamespace(shape={"ep": 2}, size=2), ValueError,
+     "EP serving step does not take this model.*not a MoE model"),
     (types.SimpleNamespace(shape={"stage": 2}, size=2), NotImplementedError,
      "pipeline.*next multi-GPU slice"),
     (fake_mesh(2, 2), ValueError, "pure-TP mesh"),
@@ -367,11 +367,15 @@ def test_serving_refuses_ep_pp_and_data_parallel_meshes(mesh, err, match):
                                  max_pages_per_seq=4, device="cpu")
 
 
-@pytest.mark.parametrize("flag", ["--ep", "--pp"])
-def test_cli_ep_and_pp_name_the_next_slice(flag):
+@pytest.mark.parametrize("flag,match", [
+    ("--ep", "generate --ep: Engine.generate under an expert-parallel mesh"),
+    ("--pp", "next multi-GPU slice")], ids=["--ep", "--pp"])
+def test_cli_ep_and_pp_name_the_next_slice(flag, match):
+    """``generate --ep`` names why it is refused (the JAX engine runs it as
+    GSPMD; ``serve --ep`` serves); ``--pp`` names the next slice."""
     from qwen_inference_engine_tpu_torch.server.cli import main
 
-    with pytest.raises(NotImplementedError, match="next multi-GPU slice"):
+    with pytest.raises(NotImplementedError, match=match):
         main(["generate", "--model", "tiny", "--device", "cpu", flag, "2"])
 
 

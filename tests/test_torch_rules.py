@@ -439,9 +439,9 @@ def test_paged_wrappers_refuse_before_any_launch():
 
 def test_unported_paged_and_serving_variants_name_what_is_missing():
     """What stays unported raises NotImplementedError naming its slice, on
-    the CPU as on the card: the expert-parallel mesh (the next multi-GPU
-    slice; a TP mesh serves, tests/test_torch_parallel_tp.py) in the
-    serving engine."""
+    the CPU as on the card: the pipeline-parallel mesh (the next multi-GPU
+    slice; TP and EP meshes serve, tests/test_torch_parallel_tp.py and
+    tests/test_torch_ep_serving.py) in the serving engine."""
     import types
 
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
@@ -455,7 +455,7 @@ def test_unported_paged_and_serving_variants_name_what_is_missing():
               device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         ContinuousBatchingEngine(cfg, params, **kw, mesh=types.SimpleNamespace(
-            shape={"expert": 2}, size=2))
+            shape={"stage": 2}, size=2))
     with pytest.raises(ValueError, match="draft_cfg"):
         ContinuousBatchingEngine(cfg, params, **kw, speculative=True,
                                  draft_params=params)

@@ -230,7 +230,7 @@ def draw(logits, seen, kind, seed, vocab=None):
 
 
 
-def http_serve(mesh_of, rank, shape, cfg, params, bodies):
+def http_serve(mesh_of, rank, shape, cfg, params, bodies, max_slots=2):
     """``Server`` under the mesh: rank 0 serves HTTP and answers
     ``bodies`` (POST /generate, one after another, then two at once),
     the other ranks follow its ticks until it shuts down.  Rank 0 returns
@@ -250,8 +250,8 @@ def http_serve(mesh_of, rank, shape, cfg, params, bodies):
 
     args = types.SimpleNamespace(
         temperature=0.0, top_k=0, top_p=1.0, repetition_penalty=1.0,
-        greedy=True, max_slots=2, page_size=8, num_pages=64, max_seq=64,
-        kv_bits=32, seed=0, device="cpu")
+        greedy=True, max_slots=max_slots, page_size=8, num_pages=64,
+        max_seq=64, kv_bits=32, seed=0, device="cpu")
     server = Server(cfg, params, ByteTokenizer(),
                     None if shape is None else mesh_of(shape), args)
     if shape is not None and rank != 0:
