@@ -88,7 +88,17 @@ there as JSON.  Phases, in order; any failure exits non-zero and prints no resul
    experts at ep 2 / 4 over the P x M-row receive buffer of 16 and 2048
    tokens a rank, gate / up and down; the output prefilled with NaN,
    which must stay in every row past the last group; timed beside the
-   plain version and ``torch._grouped_mm`` over the covered rows);
+   plain version and ``torch._grouped_mm`` over the covered rows); and
+   the four row0 variants at the pipeline's 1F1B row windows
+   (``check_row0_kernels``: ``decode_attention_appending``, ``_contiguous``,
+   ``_contiguous_q8`` and ``kv_append_uniform_q8`` at Qwen2.5-7B's heads, b
+   = 8 / S rows of a cache of 8 at pp = S = 2 and 4, S 256, position 136,
+   every row0 = m b bit-equal to the same call at row0 0 on a copy of the
+   window's rows, the other rows untouched, within 2e-2 of the plain
+   version (the append bit for bit); a call and a CUDA graph's time beside
+   the plain version and SDPA / a slice assignment, the rows' bytes as the
+   bound; kept in the kernels line as ``at_row0`` with the zero-copy
+   [pp 1f1b] launches of each rank);
 4. end to end: Qwen2.5-7B at full width and depth (28 layers), random
    weights from a seeded generator, W4A8 gs 256, through
    ``Engine.generate``, 32 new tokens each: in bf16 KV a ragged batch
@@ -263,6 +273,36 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    between the two candidates below the bound), a first decode tick's
    logits (the ranks' rows gathered) within twice the single-rank W4A8 vs
    W4A16 distance; per-rank launches.  Nothing here measures EP speed.
+9. pipeline parallelism (``parallel/pp_step.py``,
+   ``engine/pp_scheduler.py``), gloo ranks sharing the card (spawned), in
+   worlds of 2 and 4 ranks at once (``spawn_worlds``, as phases 7-8 now
+   run theirs): Qwen2.5-7B W4A8 with INT4 groups of 64, the same seeded
+   params in every process, each stage keeping its layers.  [pp forward]
+   at pp = 2 and 4, 28 layers: a prefill of 4 ragged prompts (37, 100,
+   200, 256 tokens), then 4 per-tick decode steps, the tokens fed from the
+   single-rank run: every rank's last-token logits bit-equal to the
+   single-rank ``prefill`` / ``decode_step``; each rank's launches (L / S
+   flash a prefill, L / S ``kv_append_ragged_t`` and decode attentions a
+   step, S ring exchanges and one broadcast a forward).  [pp 1f1b], 28
+   layers: an aligned wave of 8 rows (128-token prompts), 16 steps, bf16
+   and INT8 caches: zero-copy (``cache_row0``) and sliced give the same
+   tokens and caches bit for bit; the zero-copy run launches the row0
+   kernels L / S times a tick a rank (``decode_attention_appending``; INT8:
+   ``kv_append_uniform_q8`` and ``decode_attention_contiguous_q8``), on
+   every tick but the stage's skipped warm-up; the greedy tokens equal the
+   single-rank ``Engine.generate``'s or part at a near-tie (the phase-7
+   bound).  [pp serve] (``PPFifoScheduler``, 8 rows a wave, depth cut to
+   ``PP_SERVE_LAYERS`` = 8 of 28 for time, printed): an aligned greedy
+   wave (1F1B), a wave of greedy and sampled rows (sampled 1F1B), a
+   penalized wave (the seen mask through the ticks) and a ragged wave (per
+   tick), over a bf16 and an INT8 cache: every rank's tokens equal, every
+   request by length, each wave on its decode path, greedy and penalized
+   rows equal to the single-rank ``ContinuousBatchingEngine``'s or parting
+   at a near-tie, or, for the ragged wave, bit-equal to one rank running
+   the stages' own kernels (a one-stage ``PPFifoScheduler``): the part is
+   then that rank's rounding between the paged and the contiguous kernels,
+   which W4A8's per-token activation quantization can amplify.  Nothing
+   here measures pipeline speed.
 
 Captured steps: every ``Engine.generate`` decode step and every serving
 decode tick above replays a CUDA graph (``engine/step_graph.py``; each
@@ -297,7 +337,8 @@ Device busy time under the profiler counts the device's own rows
 repeat the time of the kernels they launched.
 
 Then one JSON line of per-kernel numbers (30 wrappers over the JAX
-package's 28 ``pallas_call`` sites, each launched), and as the last line
+package's 28 ``pallas_call`` sites, each launched; the four row0 variants
+with their ``at_row0`` numbers), and as the last line
 ``{"ok": true, "device": {...}}``.  Every number is measured in this run.
 """
 
@@ -1065,6 +1106,179 @@ def check_decode_q8(torch, cfg):
         del k8, v8, ks, vs, kl, vl
     return {"decode_attention_contiguous_q8": dict(
         recs[2304], at_main_path=recs[RAGGED_S])}
+
+
+# the pipeline's 1F1B decode ([pp 1f1b], phase 9): 8 rows, one microbatch
+# of 8 / S rows a stage at pp = S, over a cache of PP_1F1B_SEQ positions
+PP_WAVE = 8
+PP_STAGES = (2, 4)
+PP_PROMPT = 128
+PP_STEPS = 16
+PP_1F1B_SEQ = 256
+# the four wrappers that take the 1F1B row window (row0)
+ROW0_KERNELS = ("decode_attention_appending", "decode_attention_contiguous",
+                "decode_attention_contiguous_q8", "kv_append_uniform_q8")
+
+
+def _row0_call(da, ka, name, q, caches, new, layer, pos, lens, row0):
+    """One call of a row0 wrapper (``caches`` written in place where it
+    writes); returns its output (None for the append)."""
+    if name == "decode_attention_appending":
+        return da.decode_attention_appending(q, *caches, *new[:2], layer, pos,
+                                             row0=row0)[0]
+    if name == "decode_attention_contiguous":
+        return da.decode_attention_contiguous(q, *caches, layer, lens,
+                                              row0=row0)
+    if name == "decode_attention_contiguous_q8":
+        return da.decode_attention_contiguous_q8(q, *caches, layer, lens,
+                                                 row0=row0)
+    ka.kv_append_uniform_q8(*caches, *new, pos, layer, row0=row0)
+    return None
+
+
+def _row0_plain(da, ka, name, q, caches, new, layer, pos, lens, row0):
+    if name == "decode_attention_appending":
+        return da.decode_attention_appending_plain(q, *caches, *new[:2],
+                                                   layer, pos, row0)[0]
+    if name == "decode_attention_contiguous":
+        return da.decode_attention_contiguous_plain(q, *caches, layer, lens,
+                                                    row0)
+    if name == "decode_attention_contiguous_q8":
+        return da.decode_attention_contiguous_q8_plain(q, *caches, layer,
+                                                       lens, row0)
+    ka.kv_append_uniform_q8_plain(*caches, *new, pos, layer, row0)
+    return None
+
+
+def check_row0_kernels(torch, cfg):
+    """The four row0 variants at the 1F1B shapes ([pp 1f1b]: Qwen2.5-7B's
+    heads, b = 8 / S rows of a cache of Bc = 8 at pp = S = 2 and 4, S
+    PP_1F1B_SEQ, position 136), at row0 = m b for every microbatch m: each
+    output and written cache bit-equal to the same call at row0 = 0 on a
+    Bc = b copy of the window's rows, every other row untouched, the
+    output within its phase-3 rule of the plain version (2e-2; the INT8
+    append bit for bit).  At row0 = b each is timed a call and in a CUDA
+    graph beside its plain version and its library yardstick (SDPA over the
+    window's keys; a slice assignment for the append) with the rows' bytes
+    over 3.35 TB/s as the bound.  Returns {wrapper: {"pp<S>": record}}."""
+    from qwen_inference_engine_tpu_torch.ops import decode_attention as da
+    from qwen_inference_engine_tpu_torch.ops import kv_append as ka
+    from qwen_inference_engine_tpu_torch.quant.kv_quant import (
+        dequantize_kv,
+        quantize_kv,
+    )
+
+    L, Bc, S, pos, layer = 2, PP_WAVE, PP_1F1B_SEQ, PP_PROMPT + 8, 1
+    Hq, Hk, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(26)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    bf = [rnd(L, Bc, Hk, S, D), rnd(L, Bc, Hk, S, D)]
+    k8, ks = _int8(torch, g, (L, Bc, Hk, S, D))
+    v8, vs = _int8(torch, g, (L, Bc, Hk, S, D))
+    i8 = [k8, v8, ks, vs]
+    records = {n: {} for n in ROW0_KERNELS}
+    for stages in PP_STAGES:
+        b = Bc // stages
+        for name in ROW0_KERNELS:
+            quant = name.endswith("q8")
+            worst, timed = 0.0, None
+            for m in range(stages):
+                row0 = m * b
+                q = rnd(b, 1, Hq, D)
+                kn, vn = rnd(b, 1, Hk, D), rnd(b, 1, Hk, D)
+                if name == "kv_append_uniform_q8":
+                    (qk, sk), (qv, sv) = quantize_kv(kn), quantize_kv(vn)
+                    new = (qk, qv, sk, sv)
+                else:
+                    new = (kn, vn)
+                lens = torch.tensor([pos + 1 - 7 * i for i in range(b)],
+                                    device="cuda", dtype=torch.int32)
+                before = [t.clone() for t in (i8 if quant else bf)]
+                full = [t.clone() for t in before]
+                win = [t[:, row0:row0 + b].contiguous() for t in before]
+                got = _row0_call(da, ka, name, q, full, new, layer, pos, lens,
+                                 row0)
+                want = _row0_call(da, ka, name, q, win, new, layer, pos, lens,
+                                  0)
+                plain_caches = [t.clone() for t in before]
+                ref = _row0_plain(da, ka, name, q, plain_caches, new, layer,
+                                  pos, lens, row0)
+                torch.cuda.synchronize()
+                rest = torch.ones(Bc, dtype=torch.bool, device="cuda")
+                rest[row0:row0 + b] = False
+                same = (got is None or torch.equal(got, want)) and all(
+                    torch.equal(f[:, row0:row0 + b], w)
+                    for f, w in zip(full, win)) and all(
+                    torch.equal(f[:, rest], o[:, rest])
+                    for f, o in zip(full, before))
+                if got is None:
+                    err = float(sum(int((f != p).sum())
+                                    for f, p in zip(full, plain_caches)))
+                    tol = 0.0
+                else:
+                    err = (got.float() - ref.float()).abs().max().item()
+                    tol = 2e-2
+                worst = max(worst, err)
+                if not (same and err <= tol):
+                    fail(f"{name} pp={stages} row0 {row0}: bit-equal to its "
+                         f"row slice at row0 0 {same}, vs plain {err} (tol "
+                         f"{tol})")
+                if m == 1:
+                    timed = (q, new, lens, full, row0)
+                del before, full, win, plain_caches
+            q, new, lens, full, row0 = timed
+            args = (da, ka, name, q, full, new, layer, pos, lens, row0)
+            ms = time_ms(torch, lambda: _row0_call(*args))
+            g_ms = graph_ms(torch, lambda: _row0_call(*args))
+            pc = [t.clone() for t in full]
+            plain_ms = time_ms(torch, lambda: _row0_plain(
+                da, ka, name, q, pc, new, layer, pos, lens, row0), iters=3,
+                warmup=1)
+            rows = slice(row0, row0 + b)
+            if name == "kv_append_uniform_q8":
+                def lib():
+                    for c, x in zip(pc, new):
+                        c[layer, rows, :, pos] = x[:, 0]
+                n_keys = 0
+                n_bytes = 2 * (2 * b * Hk * D + 2 * 4 * b * Hk)
+            else:
+                if quant:
+                    kl = dequantize_kv(full[0][layer, rows], full[2][layer, rows])
+                    vl = dequantize_kv(full[1][layer, rows], full[3][layer, rows])
+                else:
+                    kl, vl = full[0][layer, rows], full[1][layer, rows]
+                n = pos + 1
+                lib = _sdpa(torch, q.transpose(1, 2), kl[:, :, :n],
+                            vl[:, :, :n])
+                n_keys = (b * (pos + 1) if name == "decode_attention_appending"
+                          else int(lens.sum()))
+                kv_bytes = (D + 4) if quant else 2 * D
+                n_bytes = 2 * n_keys * Hk * kv_bytes + 2 * (2 * b * Hq * D)
+                if name == "decode_attention_appending":
+                    n_bytes += 2 * (2 * b * Hk * D)
+            lib_ms = time_ms(torch, lib)
+            lib_g_ms = graph_ms(torch, lib)
+            b_ms, b_by = bound(n_bytes, 4 * n_keys * Hq * D,
+                               "int8" if name == "kv_append_uniform_q8"
+                               else "bf16")
+            print(f"  {name} row0 (pp={stages}: {b} rows of {Bc}, S {S}, "
+                  f"position {pos}) at row0 = m x {b}, m < {stages}: "
+                  f"bit-equal to its row slice at row0 0, other rows "
+                  f"untouched, vs plain {worst:.3g} | at row0 {row0}: kernel "
+                  f"{ms:.4f} ms | in a CUDA graph {g_ms:.5f} | plain "
+                  f"{plain_ms:.4f} | {'sdpa' if n_keys else 'slice assignment'}"
+                  f" {lib_ms:.4f} (graph {lib_g_ms:.5f}) | bound "
+                  f"{b_ms:.6f} ({b_by})", flush=True)
+            records[name][f"pp{stages}"] = dict(
+                shape=f"b={b} of Bc={Bc} row0={row0} position={pos} S={S} "
+                      f"Hq={Hq} Hk={Hk}", max_abs_err=worst, bit_equal=True,
+                ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_graph_ms=lib_g_ms, bound_ms=b_ms, bound_by=b_by)
+            del timed, full, pc
+    return records
 
 
 PAGE = 512          # the serving page size (scheduler default)
@@ -5039,6 +5253,35 @@ def run_cli_utils(torch, ckpt):
                 flash_kernels=len(flash), seconds=secs)
 
 
+def spawn_worlds(worlds):
+    """``parallel.mesh.spawn`` of each ``(fn, world size, args)`` at once,
+    one thread each (their ranks share the card; their spawn and set-up
+    overlap): {world size: (the ranks' results, wall s)}.  A world that
+    fails raises after all have ended."""
+    import threading
+
+    from qwen_inference_engine_tpu_torch.parallel.mesh import spawn
+
+    out, errors = {}, []
+
+    def run(fn, world, args):
+        t0 = time.perf_counter()
+        try:
+            out[world] = (spawn(fn, world, device_type="cuda", args=args),
+                          time.perf_counter() - t0)
+        except BaseException as e:   # reported below, with the others'
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=w) for w in worlds]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
 # ----------------------------------------------------------------------
 # 7. tensor and data parallelism: gloo ranks sharing the card, and the
 #    TP step over an NCCL group of one, captured
@@ -5391,7 +5634,6 @@ def run_tp_phases(torch, np, wrappers, layers=28):
     Returns (every rank's kernel launches summed, the numbers)."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
-    from qwen_inference_engine_tpu_torch.parallel.mesh import spawn
 
     rng = np.random.default_rng(24)
     cfg, params = tp_model(torch, layers)
@@ -5425,16 +5667,17 @@ def run_tp_phases(torch, np, wrappers, layers=28):
     numbers = {"tp graph": graph_run, "bound": bound,
                "a8_vs_a16": a8_vs_a16}
     launches = {n: 0 for n in wrappers}
-    for world, jobs in ((2, [("tp generate tp=2", (1, 2)),
-                             ("dp generate dp=2", (2, 1)),
-                             ("tp serve tp=2", (1, 2))]),
-                        (4, [("tp generate tp=4", (1, 4))])):
-        t0 = time.perf_counter()
-        ranks = spawn(tp_rank, world, device_type="cuda",
-                      args=(layers, jobs, prompts, serve_prompts))
-        print(f"[tp] a gloo world of {world} ranks on the card: "
-              f"{time.perf_counter() - t0:.1f} s (spawn, params, runs)",
-              flush=True)
+    plan = ((2, [("tp generate tp=2", (1, 2)), ("dp generate dp=2", (2, 1)),
+                 ("tp serve tp=2", (1, 2))]),
+            (4, [("tp generate tp=4", (1, 4))]))
+    # both worlds at once: their ranks time-share the card
+    done = spawn_worlds([(tp_rank, world, (layers, jobs, prompts,
+                                           serve_prompts))
+                         for world, jobs in plan])
+    for world, jobs in plan:
+        ranks, wall = done[world]
+        print(f"[tp] a gloo world of {world} ranks on the card: {wall:.1f} s "
+              f"(spawn, params, runs; beside the other world)", flush=True)
         for label, shape in jobs:
             per = [r[label] for r in ranks]
             for r, p in enumerate(per):
@@ -5949,7 +6192,6 @@ def run_ep_phases(torch, np, wrappers, layers=EP_LAYERS):
     through the host: no number here is an EP speed.  Returns (every
     rank's launches summed, the numbers)."""
     from qwen_inference_engine_tpu_torch.config import PRESETS
-    from qwen_inference_engine_tpu_torch.parallel.mesh import spawn
 
     base = PRESETS["qwen3-30b-a3b"]
     rng = np.random.default_rng(25)
@@ -5959,14 +6201,14 @@ def run_ep_phases(torch, np, wrappers, layers=EP_LAYERS):
     launches = {n: 0 for n in wrappers}
     numbers = {}
     ranks = {}
-    for world, serve in ((2, (plain, echo)), (4, None)):
-        t0 = time.perf_counter()
-        ranks[world] = spawn(ep_rank, world, device_type="cuda",
-                             args=(layers, serve, (EP_DECODE_TOKENS,
-                                                   EP_PIECE_TOKENS)))
-        print(f"[ep] a gloo world of {world} ranks on the card: "
-              f"{time.perf_counter() - t0:.1f} s (spawn, params, runs)",
-              flush=True)
+    # both worlds at once: their ranks time-share the card
+    done = spawn_worlds([(ep_rank, world, (layers, serve, (
+        EP_DECODE_TOKENS, EP_PIECE_TOKENS)))
+        for world, serve in ((2, (plain, echo)), (4, None))])
+    for world in (2, 4):
+        ranks[world], wall = done[world]
+        print(f"[ep] a gloo world of {world} ranks on the card: {wall:.1f} s "
+              f"(spawn, params, runs; beside the other world)", flush=True)
     # [ep moe]: the layer's rules at both sizes
     for world, per in ranks.items():
         for tokens in (EP_DECODE_TOKENS, EP_PIECE_TOKENS):
@@ -6079,6 +6321,501 @@ def run_ep_phases(torch, np, wrappers, layers=EP_LAYERS):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, numbers
+
+
+# ----------------------------------------------------------------------
+# 9. pipeline parallelism: gloo ranks sharing the card, Qwen2.5-7B W4A8
+# ----------------------------------------------------------------------
+
+PP_LAYERS = 28
+PP_FORWARD_LENS = [37, 100, 200, 256]   # [pp forward]: ragged prefill
+PP_FORWARD_STEPS = 4                    # then per-tick decode steps
+PP_SEQ = 512                            # [pp forward] / [pp serve] caches
+# [pp serve]'s depth, a multiple of 4 layers: the ranks' eager ticks and
+# gloo exchanges grow with it, and the whole smoke must stay in its limit
+PP_SERVE_LAYERS = 8
+PP_SERVE_CUT = (f"depth cut to {PP_SERVE_LAYERS} of 28 layers for time "
+                f"(eager stage ticks and gloo round trips)")
+PP_SERVE_NEW = 16
+PP_SERVE_RAGGED = [37, 64, 100, 128, 150, 180, 200, 240]
+# greedy rows with a repetition penalty that rules out every seen token
+PP_PEN = dict(greedy=True, repetition_penalty=1e6, presence_penalty=0.5)
+PP_STOCH = dict(temperature=0.8, top_k=50, top_p=0.9)
+# [pp serve]'s waves: (label, prompts kind, per-row sampling)
+PP_WAVES = (("greedy", "aligned", None), ("sampled", "aligned", "mixed"),
+            ("penalized", "aligned", "pen"), ("ragged", "ragged", None))
+
+
+def pp_wave_sampling(kind, i):
+    """Request i's sampling in a wave of ``kind``: None (the scheduler's
+    greedy default), every other row sampled, or the penalty rows."""
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    if kind == "mixed":
+        return SamplingParams(**(PP_STOCH if i % 2 else dict(greedy=True)))
+    if kind == "pen":
+        return SamplingParams(**PP_PEN)
+    return None
+
+
+def pp_rank(rank, world_size, layers, fwd, f1b, serve):
+    """One stage of a gloo world on the card: the same seeded 7B W4A8 gs 64
+    params in every process, this stage's layers kept.  [pp forward]: a
+    prefill of ``fwd``'s ragged prompts, then its decode steps (the tokens
+    given); [pp 1f1b]: an aligned prefill of ``f1b``'s prompts, then the
+    1F1B decode, zero-copy and sliced, over a bf16 and an INT8 cache;
+    [pp serve]: ``PPFifoScheduler`` at ``serve``'s depth over both caches,
+    its waves in turn.  Launches counted from 0 just before each run and
+    read just after.  Returns {label: numbers}."""
+    import torch
+
+    from qwen_inference_engine_tpu_torch.engine.pp_scheduler import (
+        PPFifoScheduler,
+    )
+    from qwen_inference_engine_tpu_torch.engine.types import Request
+    from qwen_inference_engine_tpu_torch.models.qwen import map_params
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+    from qwen_inference_engine_tpu_torch.parallel import pp_step
+    from qwen_inference_engine_tpu_torch.parallel.mesh import make_pp_mesh
+    from qwen_inference_engine_tpu_torch.utils.metrics import (
+        counted_wrappers,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params = tp_model(torch, layers)
+    dev = params["embed"].device
+    mesh = make_pp_mesh(world_size)
+    S, me = mesh.stages, mesh.stage
+    wrappers = counted_wrappers()
+
+    def reset():
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {n: w.launches for n, w in wrappers.items()}
+
+    serve_params = dict(params, layers=map_params(
+        params["layers"], lambda t: t[:serve["layers"]].clone()))
+    params_l, _ = pp_step.shard_for_pp(params, None, mesh)
+    del params
+    out = {}
+    # [pp forward]
+    prompts, lens, toks = (torch.tensor(x, device=dev) for x in fwd)
+    B, T = prompts.shape
+    cache = pp_step.pp_cache(cfg, mesh, B, PP_SEQ, device=dev)
+    pre = pp_step.make_pp_forward_fn(cfg, mesh)
+    reset()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache = pre(params_l, prompts,
+                            torch.arange(T, device=dev)[None].expand(B, T),
+                            lens, cache)
+        got = [logits.float().cpu()]
+        for s, tok in enumerate(toks):
+            logits, cache = pre(params_l, tok[:, None], (lens + s)[:, None],
+                                lens, cache)
+            got.append(logits.float().cpu())
+    out["forward"] = dict(logits=got, launches=counts(),
+                          wall_s=time.perf_counter() - t0)
+    del cache
+    # [pp 1f1b]
+    prompts = torch.tensor(f1b, device=dev)
+    B, T = prompts.shape
+    b = B // S
+    for kv in ("bfloat16", "int8"):
+        cache = pp_step.pp_cache(cfg, mesh, B, PP_1F1B_SEQ,
+                                 dtype=getattr(torch, kv), device=dev)
+        with torch.inference_mode():
+            logits, cache = pre(params_l, prompts,
+                                torch.arange(T, device=dev)[None].expand(B, T),
+                                torch.full((B,), T, device=dev), cache)
+        first = torch.argmax(logits, dim=-1)
+        runs = {}
+        for zero_copy in (True, False):
+            c = type(cache)(*(None if t is None else t.clone() for t in (
+                cache.k, cache.v, cache.k_scale, cache.v_scale)))
+            fn = pp_step.make_pp_decode_1f1b(cfg, mesh, microbatch_rows=b,
+                                             steps=PP_STEPS,
+                                             zero_copy_cache=zero_copy)
+            reset()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                ys, c = fn(params_l, first.reshape(S, b), [T] * S, c)
+            runs[zero_copy] = (ys, c, counts(), time.perf_counter() - t0)
+        (yz, cz, nz, wz), (ysl, csl, _, wsl) = runs[True], runs[False]
+        caches_equal = all(
+            (a is None and c is None) or bool(torch.equal(a, c)) for a, c in
+            zip((cz.k, cz.v, cz.k_scale, cz.v_scale),
+                (csl.k, csl.v, csl.k_scale, csl.v_scale)))
+        tokens = torch.cat([first[None], yz.reshape(PP_STEPS, B)]).T
+        out[f"1f1b {kv}"] = dict(
+            tokens=tokens.cpu().tolist(),
+            tokens_equal=bool(torch.equal(yz, ysl)),
+            caches_equal=caches_equal, launches=nz, wall_zero_copy_s=wz,
+            wall_sliced_s=wsl, ticks=S + PP_STEPS * S)
+        del cache, runs, cz, csl
+        torch.cuda.empty_cache()
+    del params_l, pre
+    # [pp serve]
+    cfg_s = cfg.replace(num_layers=serve["layers"])
+    for kv in ("bfloat16", "int8"):
+        pp = PPFifoScheduler(cfg_s, serve_params, mesh=mesh,
+                             max_batch=PP_WAVE, max_seq=PP_SEQ,
+                             kv_dtype=getattr(torch, kv),
+                             sampling=SamplingParams(greedy=True), seed=26,
+                             device=dev)
+        pp._eos = set()    # random weights can argmax onto EOS
+        for label, kind, sp in PP_WAVES:
+            reset()
+            t0 = time.perf_counter()
+            for i, p in enumerate(serve[kind]):
+                pp.submit(Request(request_id=i, prompt=p,
+                                  max_new_tokens=PP_SERVE_NEW,
+                                  sampling=pp_wave_sampling(sp, i)))
+            with torch.inference_mode():
+                done = pp.run_to_completion(sync_every=8)
+            out[f"serve {kv} {label}"] = dict(
+                tokens={f.request_id: f.token_ids for f in done},
+                reasons={f.request_id: f.finish_reason for f in done},
+                fns=sorted(pp._fns), launches=counts(),
+                wall_s=time.perf_counter() - t0)
+        del pp
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_tokens_check(torch, label, got, want, prompts, cfg, params, bound,
+                    same_path=None):
+    """Each request's greedy tokens equal to the single-rank run's, or,
+    from its first differing position, a near-tie: the single-rank logit
+    gap between the two candidates there below ``bound``; or, given
+    ``same_path`` (one rank's tokens through the kernels the stages run, on
+    the same rows and shapes), bit-equal to those: the part is then one
+    rank's own rounding between two kernel paths.  Returns (tokens equal,
+    the parts)."""
+    same, ties = 0, []
+    for rid, w in want.items():
+        g = got[rid]
+        i = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if i is None:
+            same += len(w)
+            continue
+        same += i
+        gap, top = tie_gap(torch, cfg, params, prompts[rid] + w[:i], w[i],
+                           g[i])
+        one_rank = same_path is not None and same_path[rid] == g
+        ties.append(dict(request=rid, position=i, single=w[i], pp=g[i],
+                         gap=gap, single_argmax=top,
+                         equal_to_one_rank_same_path=one_rank))
+        print(f"[{label}] request {rid} parts from the single-rank run at "
+              f"token {i}: single {w[i]}, pp {g[i]}, single-rank logit gap "
+              f"{gap:.4g} (bound {bound:.4g}); one rank through the "
+              f"stages' kernels gives the pp tokens bit for bit: "
+              f"{one_rank if same_path is not None else 'not run'}",
+              flush=True)
+        if not (abs(gap) < bound or one_rank):
+            fail(f"[{label}]: request {rid} token {i} differs with a logit "
+                 f"gap {gap} >= {bound}: not a near-tie, and not one "
+                 f"rank's own path")
+    return same, ties
+
+
+def pp_one_stage(torch, cfg, params, prompts, kv):
+    """A ``PPFifoScheduler`` of one stage (no process group) on one wave of
+    ``prompts``, greedy, EOS off: the kernels a stage runs for a ragged
+    wave's per-tick forward, on all rows at once.  Tokens by request."""
+    from qwen_inference_engine_tpu_torch.engine.pp_scheduler import (
+        PPFifoScheduler,
+    )
+    from qwen_inference_engine_tpu_torch.engine.types import Request
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+    from qwen_inference_engine_tpu_torch.parallel.mesh import make_pp_mesh
+
+    pp = PPFifoScheduler(cfg, params, mesh=make_pp_mesh(1),
+                         max_batch=PP_WAVE, max_seq=PP_SEQ,
+                         kv_dtype=getattr(torch, kv),
+                         sampling=SamplingParams(greedy=True), seed=26,
+                         device="cuda")
+    pp._eos = set()
+    for i, p in enumerate(prompts):
+        pp.submit(Request(request_id=i, prompt=p,
+                          max_new_tokens=PP_SERVE_NEW))
+    out = {f.request_id: f.token_ids for f in pp.run_to_completion(8)}
+    del pp
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_single_serve(torch, cfg, params, prompts, kv, sampling):
+    """The single-rank ``ContinuousBatchingEngine`` on ``prompts`` (8 slots,
+    pages of 512, EOS off, greedy or ``sampling``): tokens by request."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    cb = ContinuousBatchingEngine(
+        cfg, params, max_slots=PP_WAVE, page_size=PAGE, num_pages=12,
+        max_pages_per_seq=PP_SEQ // PAGE, prefill_chunk=256,
+        prefix_cache=False, kv_dtype=getattr(torch, kv),
+        sampling=sampling or SamplingParams(greedy=True), device="cuda")
+    cb._eos = set()
+    for i, p in enumerate(prompts):
+        cb.submit(Request(request_id=i, prompt=p,
+                          max_new_tokens=PP_SERVE_NEW))
+    done = cb.run_to_completion(sync_every=8)
+    out = {f.request_id: f.token_ids for f in done}
+    del cb
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_pp_phases(torch, np, wrappers, layers=PP_LAYERS):
+    """[pp forward], [pp 1f1b] and [pp serve] at pp = 2 and 4 in gloo
+    worlds of ranks sharing the card, each against the single-rank port on
+    the same seeded params.  The ranks time-share the card and exchange
+    through the host: nothing here measures pipeline speed.  Returns
+    (every rank's kernel launches summed, the row0 kernels' zero-copy
+    launches by stage count, the numbers)."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.models import qwen
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    rng = np.random.default_rng(26)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = tp_model(torch, layers)
+    L, V = cfg.num_layers, cfg.vocab_size
+    # [pp forward]: the single-rank prefill and per-tick decode steps on
+    # the same padded prompts, the reference's argmax fed to both
+    T = max(PP_FORWARD_LENS)
+    fwd_prompts = rng.integers(0, V, size=(4, T))
+    fwd_lens = np.asarray(PP_FORWARD_LENS)
+    dev = params["embed"].device
+
+    def single_forward(c):
+        cache = KVCache.create(L, 4, PP_SEQ, cfg.num_kv_heads, cfg.head_dim,
+                               device=dev)
+        with torch.inference_mode():
+            logits, cache = qwen.prefill(params, c, torch.tensor(
+                fwd_prompts, device=dev), torch.tensor(fwd_lens, device=dev),
+                cache)
+            outs, toks = [logits.float().cpu()], []
+            for s in range(PP_FORWARD_STEPS):
+                tok = torch.argmax(logits, dim=-1)
+                toks.append(tok.cpu().numpy())
+                logits, cache = qwen.decode_step(
+                    params, c, tok, torch.tensor(fwd_lens + s, device=dev),
+                    cache)
+                outs.append(logits.float().cpu())
+        return outs, np.stack(toks)
+
+    ref_fwd, fwd_toks = single_forward(cfg)
+    ref16, _ = single_forward(cfg.replace(act_bits=0))
+    a8_vs_a16 = (ref_fwd[0] - ref16[0]).abs().max().item()
+    bound = 2 * a8_vs_a16
+    del ref16
+    # [pp 1f1b]: the single-rank Engine.generate on the aligned wave
+    f1b_prompts = rng.integers(0, V, size=(PP_WAVE, PP_PROMPT))
+    ref_1f1b = {}
+    for kv in ("bfloat16", "int8"):
+        eng = Engine(cfg, params, max_batch=PP_WAVE, max_seq=PP_1F1B_SEQ,
+                     kv_dtype=getattr(torch, kv),
+                     sampling=SamplingParams(greedy=True), device="cuda")
+        ref_1f1b[kv] = eng.generate(f1b_prompts.tolist(),
+                                    max_new_tokens=PP_STEPS + 1).token_ids
+        del eng
+    # [pp serve]: the single-rank slot scheduler at the serve depth
+    SL = PP_SERVE_LAYERS
+    cfg_s = cfg.replace(num_layers=SL)
+    params_s = dict(params, layers=qwen.map_params(params["layers"],
+                                                   lambda t: t[:SL]))
+    aligned = rng.integers(0, V, size=(PP_WAVE, PP_PROMPT)).tolist()
+    ragged = [rng.integers(0, V, size=n).tolist() for n in PP_SERVE_RAGGED]
+    serve_in = {"aligned": aligned, "ragged": ragged, "layers": SL}
+    ref_serve = {}
+    for kv in ("bfloat16", "int8"):
+        ref_serve[kv, "greedy"] = pp_single_serve(torch, cfg_s, params_s,
+                                                  aligned, kv, None)
+        ref_serve[kv, "penalized"] = pp_single_serve(
+            torch, cfg_s, params_s, aligned, kv, SamplingParams(**PP_PEN))
+        ref_serve[kv, "ragged"] = pp_single_serve(torch, cfg_s, params_s,
+                                                  ragged, kv, None)
+        ref_serve[kv, "ragged one stage"] = pp_one_stage(
+            torch, cfg_s, params_s, ragged, kv)
+    serve_bound = 2 * tp_prefill_gap(torch, qwen, cfg_s, params_s, aligned)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {n: 0 for n in wrappers}
+    row0_launches = {}
+    numbers = {"bound": bound, "a8_vs_a16": a8_vs_a16,
+               "serve_bound": serve_bound, "serve_layers": SL}
+    # both worlds at once: their ranks time-share the card
+    done = spawn_worlds([(pp_rank, world, (
+        layers, (fwd_prompts, fwd_lens, fwd_toks), f1b_prompts.tolist(),
+        serve_in)) for world in PP_STAGES])
+    for world in PP_STAGES:
+        per, wall = done[world]
+        print(f"[pp] a gloo world of {world} ranks on the card: {wall:.1f} s "
+              f"(spawn, params, runs; beside the other world)", flush=True)
+        numbers[f"pp{world}"] = res = {"wall_s": wall}
+        # [pp forward]: bit for bit against one rank
+        equal = [all(bool(torch.equal(g, w)) for g, w in zip(
+            p["forward"]["logits"], ref_fwd)) for p in per]
+        err = max((g - w).abs().max().item() for p in per
+                  for g, w in zip(p["forward"]["logits"], ref_fwd))
+        for r, p in enumerate(per):
+            cnt = {n: c for n, c in p["forward"]["launches"].items() if c}
+            print(f"[pp forward] pp={world} rank {r} launches {cnt}",
+                  flush=True)
+            for n in wrappers:
+                launches[n] += p["forward"]["launches"][n]
+            want = {"flash_attention": L // world,
+                    "kv_append_ragged_t": L // world * PP_FORWARD_STEPS,
+                    "decode_attention_contiguous":
+                        L // world * PP_FORWARD_STEPS,
+                    "ring_exchange": world * (1 + PP_FORWARD_STEPS),
+                    "broadcast": 1 + PP_FORWARD_STEPS}
+            wrong = {n: cnt.get(n, 0) for n, c in want.items()
+                     if cnt.get(n, 0) != c}
+            if wrong:
+                fail(f"[pp forward] pp={world} rank {r}: launches {wrong}, "
+                     f"want {want}")
+        print(f"[pp forward] pp={world}, 7B W4A8 gs 64, {L} layers "
+              f"({L // world} a stage), prefill of {PP_FORWARD_LENS} then "
+              f"{PP_FORWARD_STEPS} per-tick decode steps: last-token logits "
+              f"bit-equal to the single-rank prefill / decode_step on every "
+              f"rank {equal} (max |d| {err:.4g}) | wall "
+              f"{per[0]['forward']['wall_s']:.2f} s (ranks share the card)",
+              flush=True)
+        if not all(equal):
+            fail(f"[pp forward] pp={world}: logits not bit-equal to one "
+                 f"rank's (max |d| {err})")
+        res["forward"] = dict(bit_equal=True, max_abs_diff=err)
+        # [pp 1f1b]
+        ticks = world + PP_STEPS * world
+        for kv in ("bfloat16", "int8"):
+            runs = [p[f"1f1b {kv}"] for p in per]
+            toks = [x["tokens"] for x in runs]
+            if any(t != toks[0] for t in toks):
+                fail(f"[pp 1f1b {kv}] pp={world}: the ranks' tokens differ")
+            kern = (["decode_attention_appending"] if kv == "bfloat16" else
+                    ["kv_append_uniform_q8", "decode_attention_contiguous_q8"])
+            for r, x in enumerate(runs):
+                want = L // world * (ticks - r)
+                got = {n: x["launches"][n] for n in kern}
+                if not (x["tokens_equal"] and x["caches_equal"]) or any(
+                        c != want for c in got.values()):
+                    fail(f"[pp 1f1b {kv}] pp={world} rank {r}: zero-copy = "
+                         f"sliced tokens {x['tokens_equal']}, caches "
+                         f"{x['caches_equal']}; row0 launches {got}, want "
+                         f"{want} ({L // world} a tick, {ticks - r} ticks)")
+                for n in wrappers:
+                    launches[n] += x["launches"][n]
+                for n in kern:
+                    row0_launches.setdefault(n, {}).setdefault(
+                        f"pp{world}", []).append(x["launches"][n])
+            ref = dict(enumerate(ref_1f1b[kv]))
+            got = dict(enumerate(toks[0]))
+            same, ties = pp_tokens_check(
+                torch, f"pp 1f1b {kv}", got, ref,
+                dict(enumerate(f1b_prompts.tolist())), cfg, params, bound)
+            n_tok = PP_WAVE * (PP_STEPS + 1)
+            print(f"[pp 1f1b {kv}] pp={world}, {L} layers, {PP_WAVE} rows "
+                  f"(microbatches of {PP_WAVE // world}) x {PP_STEPS} steps "
+                  f"after a {PP_PROMPT}-token prefill, {ticks} ticks: "
+                  f"zero-copy = sliced, tokens and caches bit for bit, on "
+                  f"every rank | row0 kernels {kern} launched "
+                  f"{L // world} a tick a rank "
+                  f"({[x['launches'][kern[0]] for x in runs]}) "
+                  f"| tokens equal on every rank, equal to the single-rank "
+                  f"Engine.generate {same}/{n_tok} ({len(ties)} near-ties) | "
+                  f"wall zero-copy {runs[0]['wall_zero_copy_s']:.2f} s, "
+                  f"sliced {runs[0]['wall_sliced_s']:.2f} s (ranks share the "
+                  f"card)", flush=True)
+            res[f"1f1b {kv}"] = dict(tokens_equal_single=same, tokens=n_tok,
+                                     near_ties=ties, ticks=ticks)
+        # [pp serve]
+        for kv in ("bfloat16", "int8"):
+            for label, kind, sp in PP_WAVES:
+                runs = [p[f"serve {kv} {label}"] for p in per]
+                toks = [x["tokens"] for x in runs]
+                if any(t != toks[0] for t in toks):
+                    fail(f"[pp serve {kv} {label}] pp={world}: the ranks' "
+                         f"tokens differ")
+                reasons = runs[0]["reasons"]
+                if len(reasons) != PP_WAVE or any(
+                        why != "length" for why in reasons.values()) or any(
+                        len(t) != PP_SERVE_NEW for t in toks[0].values()):
+                    fail(f"[pp serve {kv} {label}] pp={world}: not every "
+                         f"request finished by length: {reasons}")
+                fns = runs[0]["fns"]
+                path = ("pp_decode" if kind == "ragged" else "pp_1f1b")
+                flags = {"greedy": (False, False), "sampled": (True, False),
+                         "penalized": (True, True)}.get(label)
+                if not any(k[0] == path and (flags is None
+                                             or k[2:] == flags)
+                           for k in fns):
+                    fail(f"[pp serve {kv} {label}] pp={world}: the wave did "
+                         f"not ride {path} {flags}: {fns}")
+                prompts = serve_in[kind]
+                if label == "sampled":
+                    want = {i: t for i, t in ref_serve[kv, "greedy"].items()
+                            if i % 2 == 0}
+                else:
+                    want = ref_serve[kv, label]
+                same, ties = pp_tokens_check(
+                    torch, f"pp serve {kv} {label}",
+                    {i: toks[0][i] for i in want}, want,
+                    dict(enumerate(prompts)), cfg_s, params_s, serve_bound,
+                    ref_serve.get((kv, f"{label} one stage")))
+                for r, x in enumerate(runs):
+                    for n in wrappers:
+                        launches[n] += x["launches"][n]
+                    print(f"[pp serve {kv} {label}] pp={world} rank {r} "
+                          f"launches "
+                          f"{ {n: c for n, c in x['launches'].items() if c} }",
+                          flush=True)
+                n_tok = PP_SERVE_NEW * len(want)
+                print(f"[pp serve {kv} {label}] pp={world}, {SL} layers "
+                      f"({PP_SERVE_CUT}), {PP_WAVE} requests, "
+                      f"{PP_SERVE_NEW} new, by length: tokens equal on every "
+                      f"rank | {'greedy rows ' if label == 'sampled' else ''}"
+                      f"equal to the single-rank scheduler {same}/{n_tok} "
+                      f"({len(ties)} parted: near-ties, or one rank's own "
+                      f"kernel path) | {path} | wall "
+                      f"{runs[0]['wall_s']:.2f} s (ranks share the card)",
+                      flush=True)
+                res[f"serve {kv} {label}"] = dict(
+                    tokens_equal_single=same, tokens=n_tok, near_ties=ties,
+                    wall_s=runs[0]["wall_s"])
+    del params, params_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, row0_launches, numbers
+
+
+def tp_prefill_gap(torch, qwen, cfg, params, prompts):
+    """The single-rank W4A8 vs W4A16 distance of a prefill's last-token
+    logits over ``prompts`` (bf16 KV): the near-tie rule's yardstick."""
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+
+    B, T = len(prompts), len(prompts[0])
+    toks = torch.tensor(prompts, device="cuda")
+    lens = torch.full((B,), T, device="cuda")
+    out = []
+    for c in (cfg, cfg.replace(act_bits=0)):
+        cache = KVCache.create(c.num_layers, B, PP_SEQ, c.num_kv_heads,
+                               c.head_dim, device="cuda")
+        with torch.inference_mode():
+            out.append(qwen.prefill(params, c, toks, lens, cache)[0].float())
+    return (out[0] - out[1]).abs().max().item()
 
 
 def main() -> int:
@@ -6194,6 +6931,8 @@ def main() -> int:
     attn_mlp_recs = check_fused_attn_mlp(torch, cfg)
     append_recs["kv_append_uniform"] = check_kv_append_uniform(torch, cfg)
     append_recs["kv_append_ragged_t"] = check_kv_append_ragged_t(torch, cfg)
+    # the pipeline's row windows: the four row0 variants at the 1F1B shapes
+    row0_recs = check_row0_kernels(torch, cfg)
     # the TP paths' kernels at the shapes a rank's shards give them
     tp_shard_errs = check_tp_shards(torch, cfg)
     deferred_recs = check_deferred_kernels(torch, cfg)
@@ -6655,11 +7394,18 @@ def main() -> int:
     ep_counts, runs["expert parallel"] = run_ep_phases(torch, np, wrappers)
     for n, c in ep_counts.items():
         launches[n] += c
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
     mark("8 ep")
 
-    # ---- 9. results
+    # ---- 9. pipeline parallelism
+    pp_counts, row0_launches, runs["pipeline parallel"] = run_pp_phases(
+        torch, np, wrappers)
+    for n, c in pp_counts.items():
+        launches[n] += c
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path was never launched: {launches}")
+    mark("9 pp")
+
+    # ---- results
     sources = {
         "quant_matmul4_a8": ("csrc/quant_matmul.cu",
                              "qwen_inference_engine_tpu/ops/quant_matmul.py:219"),
@@ -6793,6 +7539,14 @@ def main() -> int:
         recs[name] = dict(recs[name], max_abs_err=max(
             recs[name]["max_abs_err"], err), at_ep_shards=ep_layer_record(
                 ep_recs))
+    # the row0 variants at the 1F1B shapes, with the zero-copy [pp 1f1b]
+    # runs' launches of each rank (none for decode_attention_contiguous: a
+    # bf16 uniform decode takes the appending kernel)
+    for name, by_pp in row0_recs.items():
+        err = max(r["max_abs_err"] for r in by_pp.values())
+        recs[name] = dict(recs[name], max_abs_err=max(
+            recs[name]["max_abs_err"], err), at_row0=dict(
+                by_pp, launches_1f1b=row0_launches.get(name, {})))
     sites = {replaces for _, replaces in sources.values()}
     if set(recs) != set(wrappers) or set(sources) != set(wrappers) \
             or len(sites) != 28:
@@ -6837,7 +7591,8 @@ def main() -> int:
                        "pumped_generate": pump_run,
                        "deferred_kernels": deferred_recs,
                        "fused_attn_matmul": attn_mm_recs,
-                       "probe_fused": probe_run, "fused_plans": plans},
+                       "probe_fused": probe_run, "fused_plans": plans,
+                       "row0_kernels": row0_recs},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

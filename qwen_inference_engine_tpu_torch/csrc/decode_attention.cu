@@ -23,7 +23,10 @@
 // which exclude the current token; clamped to [0, S]) or position [1]
 // int32 (appending variant, length = position + 1; read on the device, so
 // the host never waits for it); k_new / v_new [B, Hk, D] bf16; out [B, Hq,
-// D] bf16.
+// D] bf16.  Row b of q, lengths, k_new / v_new and out is cache row row0 +
+// b (the TPU kernels' row0: the pipeline's 1F1B decode attends, and the
+// appending decode writes, one microbatch's window [row0, row0 + B) of the
+// whole cache in place; 0 elsewhere, and always for the fresh variant).
 //
 // What bounds it on the H100: each row reads 2 * len * Hk * D cache
 // elements (2 bytes each in bf16; 1 in int8, plus 8 bytes of scales per key
@@ -94,11 +97,12 @@ constexpr int kKeys = 64;   // keys per tile
 constexpr int kWarps = 4;
 
 // Block (hk, b, s): the G query heads of KV head hk of row b over keys
-// [span s, min(span (s + 1), n_b)) of its cache row (the last split up to
-// n_b).  Without kFresh: n_b = lengths[b], every key from the cache (int8:
-// the scales beside).  kFresh (bf16): n_b = f + 1 with key f from k_new /
-// v_new, f the shared position (`position` given: the appending decode,
-// which also writes row f to the cache) or old_lengths[b] (`lengths`).
+// [span s, min(span (s + 1), n_b)) of its cache row row0 + b (the last
+// split up to n_b).  Without kFresh: n_b = lengths[b], every key from the
+// cache (int8: the scales beside).  kFresh (bf16): n_b = f + 1 with key f
+// from k_new / v_new, f the shared position (`position` given: the
+// appending decode, which also writes row f to the cache) or
+// old_lengths[b] (`lengths`).
 // kSplit: the f32 partial to part [splits, B, Hq, D], its log-sum-exp to
 // lse [splits, B, Hq]; else (one split, bf16) the output to out [B, Hq,
 // D].
@@ -114,13 +118,15 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ v_new,
                     float* __restrict__ part, float* __restrict__ lse,
                     __nv_bfloat16* __restrict__ out, int Bc, int B, int Hq,
-                    int Hk, int S, int layer, int span, float scale) {
+                    int Hk, int S, int layer, int row0, int span,
+                    float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<qie::MmaSmem<D, kWarps, KV>*>(smem_raw);
   const int hk = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int G = Hq / Hk;
   const int k0 = s * span;
-  const long long row = (static_cast<long long>(layer) * Bc + b) * Hk + hk;
+  const long long row =
+      (static_cast<long long>(layer) * Bc + row0 + b) * Hk + hk;
   const long long kv = (row * S + k0) * D;
   const long long head = static_cast<long long>(b) * Hq + hk * G;
   const long long split = static_cast<long long>(s) * B * Hq;
@@ -180,8 +186,8 @@ cudaError_t launch_split(const __nv_bfloat16* q, KV* kc, KV* vc,
                          const int* pos, const __nv_bfloat16* kn,
                          const __nv_bfloat16* vn, float* ws,
                          __nv_bfloat16* out, int Bc, int B, int Hq, int Hk,
-                         int S, int layer, int span, int splits, float scale,
-                         cudaStream_t st) {
+                         int S, int layer, int row0, int span, int splits,
+                         float scale, cudaStream_t st) {
   constexpr int smem = sizeof(qie::MmaSmem<D, kWarps, KV>);
   auto kern = decode_split_kernel<D, KV, kFresh, true>;
   bool merge = true;
@@ -198,15 +204,16 @@ cudaError_t launch_split(const __nv_bfloat16* q, KV* kc, KV* vc,
   float* lse = merge ? ws + static_cast<size_t>(splits) * rows * D : nullptr;
   kern<<<dim3(Hk, B, splits), 32 * kWarps, smem, st>>>(
       q, kc, vc, ks, vs, lens, pos, kn, vn, ws, lse, out, Bc, B, Hq, Hk, S,
-      layer, span, scale);
+      layer, row0, span, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return err;
   return qie::launch_merge<D>(ws, lse, out, rows, splits, st);
 }
 
-bool bad_shape(int L, int Bc, int B, int Hq, int Hk, int layer) {
-  return B <= 0 || B > Bc || Hk <= 0 || Hq % Hk || Hq / Hk > kRows ||
-         layer < 0 || layer >= L;
+// The rows [row0, row0 + B) inside the cache's Bc.
+bool bad_shape(int L, int Bc, int B, int row0, int Hq, int Hk, int layer) {
+  return B <= 0 || row0 < 0 || row0 > Bc - B || Hk <= 0 || Hq % Hk ||
+         Hq / Hk > kRows || layer < 0 || layer >= L;
 }
 
 bool aligned16(const void* p) {
@@ -232,9 +239,10 @@ template <bool kFresh>
 int launch_bf16(const void* q, void* k_cache, void* v_cache,
                 const void* lengths, const void* position, const void* k_new,
                 const void* v_new, void* ws, void* out, int L, int Bc, int B,
-                int Hq, int Hk, int S, int D, int layer, int span, int splits,
-                float scale, void* stream) {
-  if (bad_shape(L, Bc, B, Hq, Hk, layer) || bad_plan(S, span, splits) ||
+                int Hq, int Hk, int S, int D, int layer, int row0, int span,
+                int splits, float scale, void* stream) {
+  if (bad_shape(L, Bc, B, row0, Hq, Hk, layer) ||
+      bad_plan(S, span, splits) ||
       (D != 64 && D != 128) ||
       (kFresh ? k_new == nullptr || v_new == nullptr ||
                     (lengths == nullptr) == (position == nullptr)
@@ -260,40 +268,41 @@ int launch_bf16(const void* q, void* k_cache, void* v_cache,
       D == 128
           ? launch_split<128, bf16, kFresh>(
                 qp, kc, vc, nullptr, nullptr, lp, pp, kn, vn, wp, op, Bc, B,
-                Hq, Hk, S, layer, span, splits, scale, st)
+                Hq, Hk, S, layer, row0, span, splits, scale, st)
           : launch_split<64, bf16, kFresh>(
                 qp, kc, vc, nullptr, nullptr, lp, pp, kn, vn, wp, op, Bc, B,
-                Hq, Hk, S, layer, span, splits, scale, st);
+                Hq, Hk, S, layer, row0, span, splits, scale, st);
   return static_cast<int>(rc);
 }
 
 }  // namespace
 
-// Per-row lengths, no fresh row; the cache is only read.
+// Per-row lengths, no fresh row, cache rows [row0, row0 + B); the cache is
+// only read.
 extern "C" int qie_decode_attention(const void* q, const void* k_cache,
                                     const void* v_cache, const void* lengths,
                                     void* ws, void* out, int L, int Bc, int B,
                                     int Hq, int Hk, int S, int D, int layer,
-                                    int span, int splits, float scale,
-                                    void* stream) {
+                                    int row0, int span, int splits,
+                                    float scale, void* stream) {
   if (lengths == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bf16<false>(
       q, const_cast<void*>(k_cache), const_cast<void*>(v_cache), lengths,
-      nullptr, nullptr, nullptr, ws, out, L, Bc, B, Hq, Hk, S, D, layer, span,
-      splits, scale, stream);
+      nullptr, nullptr, nullptr, ws, out, L, Bc, B, Hq, Hk, S, D, layer, row0,
+      span, splits, scale, stream);
 }
 
-// Every row at the one device position (read by the kernel); writes the
-// fresh row into the cache in place.
+// Every row at the one device position (read by the kernel), cache rows
+// [row0, row0 + B); writes the fresh row into the cache in place.
 extern "C" int qie_decode_attention_appending(
     const void* q, void* k_cache, void* v_cache, const void* k_new,
     const void* v_new, const void* position, void* ws, void* out, int L,
-    int Bc, int B, int Hq, int Hk, int S, int D, int layer, int span,
-    int splits, float scale, void* stream) {
+    int Bc, int B, int Hq, int Hk, int S, int D, int layer, int row0,
+    int span, int splits, float scale, void* stream) {
   if (position == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bf16<true>(q, k_cache, v_cache, nullptr, position, k_new,
                            v_new, ws, out, L, Bc, B, Hq, Hk, S, D, layer,
-                           span, splits, scale, stream);
+                           row0, span, splits, scale, stream);
 }
 
 // Per-row old lengths; the cache is only read.
@@ -305,11 +314,12 @@ extern "C" int qie_decode_attention_fresh(
   if (old_lengths == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bf16<true>(
       q, const_cast<void*>(k_cache), const_cast<void*>(v_cache), old_lengths,
-      nullptr, k_new, v_new, ws, out, L, Bc, B, Hq, Hk, S, D, layer, span,
+      nullptr, k_new, v_new, ws, out, L, Bc, B, Hq, Hk, S, D, layer, 0, span,
       splits, scale, stream);
 }
 
-// ws the partials (4 * splits * B * Hq * (D + 1) bytes).
+// ws the partials (4 * splits * B * Hq * (D + 1) bytes); cache rows
+// [row0, row0 + B).
 extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
                                        const void* v_cache,
                                        const void* k_scale,
@@ -317,8 +327,9 @@ extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
                                        const void* lengths, void* ws,
                                        void* out, int L, int Bc, int B,
                                        int Hq, int Hk, int S, int D,
-                                       int layer, int span, int splits,
-                                       float scale, void* stream) {
+                                       int layer, int row0, int span,
+                                       int splits, float scale,
+                                       void* stream) {
   // cp.async copies 16-byte chunks of q and the cache rows, 4-byte scales;
   // the merge reads the partials in 16-byte words
   const bool aligned =
@@ -327,7 +338,7 @@ extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
               16 == 0 &&
       (reinterpret_cast<uintptr_t>(k_scale) |
        reinterpret_cast<uintptr_t>(v_scale)) % 4 == 0;
-  if (bad_shape(L, Bc, B, Hq, Hk, layer) || k_scale == nullptr ||
+  if (bad_shape(L, Bc, B, row0, Hq, Hk, layer) || k_scale == nullptr ||
       v_scale == nullptr || lengths == nullptr || bad_plan(S, span, splits) ||
       ws == nullptr || (D != 64 && D != 128) || !aligned) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -344,9 +355,11 @@ extern "C" int qie_decode_attention_q8(const void* q, const void* k_cache,
   const cudaError_t rc =
       D == 128 ? launch_split<128, int8_t, false>(
                      qp, kc, vc, ks, vs, lp, nullptr, nullptr, nullptr, wp,
-                     op, Bc, B, Hq, Hk, S, layer, span, splits, scale, st)
+                     op, Bc, B, Hq, Hk, S, layer, row0, span, splits, scale,
+                     st)
                : launch_split<64, int8_t, false>(
                      qp, kc, vc, ks, vs, lp, nullptr, nullptr, nullptr, wp,
-                     op, Bc, B, Hq, Hk, S, layer, span, splits, scale, st);
+                     op, Bc, B, Hq, Hk, S, layer, row0, span, splits, scale,
+                     st);
   return static_cast<int>(rc);
 }

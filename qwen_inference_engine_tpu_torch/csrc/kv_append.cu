@@ -8,7 +8,8 @@
 //     K/V row at one shared position in one launch (the deferred-append
 //     decode step writes its L layers' rows after the layer loop);
 //   * kv_append_uniform_q8 (body _uniform_append_q8_kernel): INT8-KV decode
-//     append into the contiguous cache;
+//     append into the contiguous cache, rows [row0, row0 + B) at one
+//     shared position (row0: the pipeline's 1F1B microbatch window);
 //   * kv_append_ragged_t (body _ragged_t_kernel): T consecutive K/V rows
 //     per batch row at a per-row start into the contiguous cache (the
 //     ragged decode's write at T = 1, the contiguous verify's window at
@@ -106,8 +107,8 @@
 //     tables[b, p / page] of pools[layer] [P, Hk, page], so a window may
 //     span any number of pages;
 //   * ContiguousRows (kv_append_ragged_t, kv_append_uniform_q8): row
-//     ((layer Bc + b) Hk + hk) S + p of the caches [L, Bc, Hk, S]; a token
-//     at or past S writes nothing.  The start is starts[b * stride]:
+//     ((layer Bc + row0 + b) Hk + hk) S + p of the caches [L, Bc, Hk, S]
+//     (row0 0 for kv_append_ragged_t); a token at or past S writes nothing.  The start is starts[b * stride]:
 //     stride 1 for kv_append_ragged_t's per-row starts, 0 for
 //     kv_append_uniform_q8's one shared position (T = 1), so every row
 //     reads the same element.
@@ -229,10 +230,13 @@ struct PagedRows {
   }
 };
 
-// The contiguous caches [L, Bc, Hk, S]: row ((layer Bc + b) Hk + hk) S + p;
-// nothing at or past S.  The start is starts[b * stride].
+// The contiguous caches [L, Bc, Hk, S]: row ((layer Bc + row0 + b) Hk + hk)
+// S + p, batch row b landing in cache row row0 + b (the TPU kernels' row0:
+// the pipeline's 1F1B decode writes one microbatch's window [row0, row0 +
+// B) of the whole cache in place); nothing at or past S.  The start is
+// starts[b * stride].
 struct ContiguousRows {
-  int Bc, S, layer;
+  int Bc, S, layer, row0;
   unsigned stride;
 
   __device__ __forceinline__ unsigned start_at(unsigned b) const {
@@ -244,7 +248,8 @@ struct ContiguousRows {
                                       long long* out) const {
     const unsigned p = p0 + t;  // p0 < 2^31, t < 2^16: no wrap
     if (p >= static_cast<unsigned>(S)) return false;
-    *out = ((static_cast<long long>(layer) * Bc + b) * Hk + hk) * S + p;
+    *out = ((static_cast<long long>(layer) * Bc + row0 + b) * Hk + hk) * S +
+           p;
     return true;
   }
 };
@@ -459,29 +464,30 @@ extern "C" int qie_kv_append_ragged_t(
   }
   return launch_rows(static_cast<long long>(D) * elem_bytes, k_cache, v_cache,
                      k_scale, v_scale, k_new, v_new, ks_new, vs_new, starts,
-                     0, ContiguousRows{Bc, S, layer, 1u}, B, T, Hk, vec,
+                     0, ContiguousRows{Bc, S, layer, 0, 1u}, B, T, Hk, vec,
                      threads, blocks, stream);
 }
 
 // kv_append_uniform_q8: int8 rows and their f32 scales, every row at the
-// one position (starts[0]: stride 0, one token a row).
+// one position (starts[0]: stride 0, one token a row), into cache rows
+// [row0, row0 + B).
 extern "C" int qie_kv_append_q8(void* k_cache, void* v_cache, void* k_scale,
                                 void* v_scale, const void* k_new,
                                 const void* v_new, const void* ks_new,
                                 const void* vs_new, const void* position,
                                 int L, int Bc, int B, int Hk, int S, int D,
-                                int layer, int vec, int threads, int blocks,
-                                void* stream) {
+                                int layer, int row0, int vec, int threads,
+                                int blocks, void* stream) {
   bool quant;
   if (!quant_args(k_scale, v_scale, ks_new, vs_new, &quant) || !quant ||
-      B <= 0 || B > Bc || Hk <= 0 || D <= 0 || D > 1024 || S <= 0 ||
-      layer < 0 || layer >= L || position == nullptr) {
+      B <= 0 || row0 < 0 || row0 > Bc - B || Hk <= 0 || D <= 0 ||
+      D > 1024 || S <= 0 || layer < 0 || layer >= L || position == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_rows(D, k_cache, v_cache, k_scale, v_scale, k_new, v_new,
                      ks_new, vs_new, position, 0,
-                     ContiguousRows{Bc, S, layer, 0u}, B, 1, Hk, vec, threads,
-                     blocks, stream);
+                     ContiguousRows{Bc, S, layer, row0, 0u}, B, 1, Hk, vec,
+                     threads, blocks, stream);
 }
 
 // The paged appends: int8 pools take their scales; pages of at most 2^30

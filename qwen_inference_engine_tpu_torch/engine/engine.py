@@ -83,6 +83,7 @@ from qwen_inference_engine_tpu_torch.ops.sampling import (
 )
 from qwen_inference_engine_tpu_torch.parallel.mesh import (
     EP_AXIS,
+    STAGE_AXIS,
     all_gather,
 )
 from qwen_inference_engine_tpu_torch.parallel.sharding import (
@@ -177,6 +178,12 @@ def tp_mesh(mesh, cfg: ModelConfig, params: dict):
             "Engine under an expert-parallel mesh: the JAX engine runs it as "
             "GSPMD's partitioned XLA ops, which the port does not; serve it "
             "with ContinuousBatchingEngine (serve --ep)")
+    if mesh is not None and STAGE_AXIS in dict(mesh.shape):
+        raise NotImplementedError(
+            "Engine under a pipeline-parallel mesh: the JAX engine has no "
+            "pipeline branch (it runs the stage mesh as GSPMD's partitioned "
+            "XLA ops), which the port does not; serve it with "
+            "PPFifoScheduler (serve --pp)")
     if mesh is None or mesh.tp == 1:
         return None
     why = tp_refusal(cfg, params, mesh.tp)

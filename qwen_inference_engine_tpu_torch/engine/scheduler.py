@@ -64,9 +64,10 @@ slots, block tables, prefix index).  Each runs the TP step
 (``parallel/tp_step.py``) on its shards: its KV heads of the pool (the
 prefix cache copies its own heads), its params, its vocabulary shard of
 the logits (``ShardedVocab`` sampling; every rank draws the same token).
-A drafter must split over the same model axis.  Deadlines are the clock's
-and clocks differ between ranks: under a mesh the world's rank 0 decides
-them and broadcasts them in the step.
+A drafter must split over the same model axis; one that does not drafts
+by prompt lookup, with a warning, as in the JAX scheduler.  Deadlines are
+the clock's and clocks differ between ranks: under a mesh the world's
+rank 0 decides them and broadcasts them in the step.
 
 Under an expert-parallel ``("ep",)`` mesh (``parallel/mesh.make_ep_mesh``)
 every rank again holds the same host state, and runs the EP step
@@ -79,15 +80,16 @@ sampler on the whole batch's (``S x V x 4`` bytes a tick); a single-slot
 prefill piece on every rank (all must join the all-to-alls; the owner
 writes its pool, the others a scratch pool), and interior pieces batched
 one per owner rank where two owners have one (``_ep_prefill_batch_tick``);
-a dense drafter local to each rank's slots.  EP steps run eager.  The
-JAX scheduler's GSPMD fallbacks raise here, naming the condition:
-``supports_ep`` false (not a MoE model, ``E % ep`` or ``max_slots % ep``
-non-zero) and an MoE drafter (JAX drops to prompt lookup).
+a dense drafter local to each rank's slots (an MoE drafter drafts by
+prompt lookup, with a warning, as in the JAX scheduler).  EP steps run
+eager.  The JAX scheduler's GSPMD fallbacks raise here, naming the
+condition: ``supports_ep`` false (not a MoE model, ``E % ep`` or
+``max_slots % ep`` non-zero).
 
-Not ported yet, raising ``NotImplementedError`` that names the next
-multi-GPU slice: the pipeline.  A data axis above 1, or a model that does
-not split over the model axis, raises too (the JAX scheduler then runs
-GSPMD's XLA ops).
+A data axis above 1, or a model that does not split over the model axis,
+raises too (the JAX scheduler then runs GSPMD's XLA ops).  A
+pipeline-parallel mesh raises, naming ``PPFifoScheduler``
+(``engine/pp_scheduler.py``), the engine that serves it.
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do): it never drops to the CPU by itself.
@@ -164,9 +166,10 @@ def check_serving_mesh(mesh) -> None:
     axes = dict(getattr(mesh, "shape", None) or {})
     if axes.get("stage", 1) > 1:
         raise NotImplementedError(
-            "the pipeline-parallel mesh (parallel/pp_step.py, "
-            "engine/pp_scheduler.py PPFifoScheduler; --pp) is not ported "
-            "yet: it comes with the next multi-GPU slice")
+            "a pipeline-parallel mesh is served by engine/pp_scheduler."
+            "PPFifoScheduler (FIFO waves; serve --pp), as the JAX HTTP "
+            "server routes it: the slot scheduler's page pool assumes every "
+            "rank holds every layer")
     if set(axes) == {EP_AXIS}:
         return
     if set(axes) != {"data", "model"}:
@@ -228,11 +231,14 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
                     f"the EP serving step does not take this model ({why}); "
                     f"the JAX scheduler then runs GSPMD's XLA ops "
                     f"(use_pallas=False), which the port does not")
-            if speculative and draft_cfg is not None and draft_cfg.is_moe:
-                raise ValueError(
-                    "an MoE draft model under the EP mesh (it would need its "
-                    "own all-to-alls; the JAX scheduler drops to prompt "
-                    "lookup): pass a dense drafter, or none")
+            if (speculative and draft_params is not None
+                    and draft_cfg is not None and draft_cfg.is_moe):
+                # a dense drafter runs on each rank's own slots; an MoE one
+                # would need its own all-to-alls: as the JAX scheduler,
+                # draft by prompt lookup instead
+                warnings.warn("MoE draft models are not supported under the "
+                              "EP mesh; using prompt-lookup drafts")
+                draft_params = draft_cfg = None
             if prefix_cache:
                 warnings.warn("prefix cache disabled under the EP mesh: a "
                               "rank only holds KV for its own slots, so "
@@ -242,11 +248,16 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         self._tp = (None if mesh is None or EP_AXIS in dict(mesh.shape)
                     else tp_mesh(mesh, cfg, params))
         self._model_draft = speculative and draft_params is not None
-        if self._model_draft and self._tp is not None:
-            why = tp_refusal(draft_cfg, draft_params, self._tp.tp)
-            if why is not None:
-                raise ValueError(f"the draft model does not split over the "
-                                 f"mesh's model axis ({why})")
+        if self._model_draft and self._tp is not None and tp_refusal(
+                draft_cfg, draft_params, self._tp.tp) is not None:
+            # the drafter runs in the target's TP round, so it must split
+            # as the target does; as the JAX scheduler, an unsplittable one
+            # drafts by prompt lookup instead
+            warnings.warn("draft model does not shard over this TP mesh "
+                          "(head/group alignment); falling back to "
+                          "prompt-lookup speculation")
+            self._model_draft = False
+            draft_params = draft_cfg = None
         self.params = params_to(self._shard(params), self.device)
         self.max_slots = max_slots
         self.page_size = page_size

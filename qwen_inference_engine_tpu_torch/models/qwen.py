@@ -24,7 +24,9 @@ Attention branches (each a kernel of the port):
 * uniform decode (all rows at one position): ``decode_attention_appending``
   writes the fresh row and attends in one kernel (bf16 KV); INT8 KV runs
   ``quantize_kv``, ``kv_append_uniform_q8``, then
-  ``decode_attention_contiguous_q8``;
+  ``decode_attention_contiguous_q8``; under ``cache_row0`` (the
+  pipeline's 1F1B decode) the same kernels work on the row window
+  ``[cache_row0, cache_row0 + B)`` of a larger cache in place;
 * ragged decode: ``kv_append_ragged_t`` writes each row's K/V at its own
   position (``quantize_kv``'s bytes and scales for INT8 KV, in the same
   launch), then ``decode_attention_contiguous[_q8]`` with per-row lengths;
@@ -523,7 +525,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    start: Optional[int] = None,
                    deferred_append: bool = False,
                    reduce_group=None, ep_group=None,
-                   ep_ragged: Optional[bool] = None):
+                   ep_ragged: Optional[bool] = None,
+                   inputs_embeds: Optional[torch.Tensor] = None,
+                   apply_final_norm: bool = True,
+                   cache_row0: Optional[int] = None):
     """Run the transformer stack; returns (hidden [B, T, D], cache).
 
     tokens / positions: [B, T].  The cache (a ``KVCache``, or a
@@ -553,6 +558,16 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     all-to-alls (``parallel/ep_moe.ep_moe_layer``, in the ``ep_ragged``
     form), and attention and the dense projections stay local.  Not with
     ``reduce_group``.
+
+    The pipeline's stages (``parallel/pp_step.py``) run their layers with
+    ``inputs_embeds`` (the ``[B, T, D]`` residual stream of the stage
+    before, in place of the embedding lookup) and ``apply_final_norm=False``
+    (the stream is returned as it leaves the last layer).  cache_row0: the
+    contiguous cache holds more rows than ``tokens`` and this step touches
+    rows ``[cache_row0, cache_row0 + B)`` in place (the 1F1B decode's
+    microbatch window): a uniform decode (T = 1) only, through the row0
+    kernels (bf16: ``decode_attention_appending``; INT8:
+    ``kv_append_uniform_q8`` then ``decode_attention_contiguous_q8``).
     """
     if reduce_group is not None and ep_group is not None:
         raise ValueError("reduce_group (TP) and ep_group (EP) are mutually "
@@ -568,6 +583,15 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if ragged_multi and (fresh_prefill or T < 2):
         raise ValueError("ragged_multi is the verify of T > 1 tokens over a "
                          "filled cache")
+    row0 = 0
+    if cache_row0 is not None:
+        if (isinstance(cache, PagedKVCache) or T != 1 or fresh_prefill
+                or not uniform_decode or ragged_multi or deferred_append):
+            raise ValueError(
+                "cache_row0 (pipeline row-window decode) requires the "
+                "contiguous uniform-decode kernel path (T==1, "
+                "uniform_decode=True, a contiguous cache, not deferred)")
+        row0 = int(cache_row0)
     continuation = not fresh_prefill and T > 1 and not ragged_multi
     if continuation and start is None:
         raise ValueError("a prefill continuation chunk (T > 1 over a filled "
@@ -582,7 +606,9 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         block_tables = block_tables.to(torch.int32).contiguous()
         if fresh_prefill:
             start = 0
-    if reduce_group is not None and \
+    if inputs_embeds is not None:
+        x = inputs_embeds
+    elif reduce_group is not None and \
             params["embed"].shape[0] < cfg.vocab_size:
         x = _embed_lookup_sharded(params["embed"], tokens, reduce_group)
     else:
@@ -648,11 +674,12 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 qv, sv = quantize_kv(v)
                 kv_append_uniform_q8(cache.k, cache.v, cache.k_scale,
                                      cache.v_scale, qk, qv, sk, sv, position,
-                                     l)
+                                     l, row0=row0)
             else:
                 _append_rows(cache, l, k, v, row_pos)
             attn = decode_attention_contiguous_q8(
-                q, cache.k, cache.v, cache.k_scale, cache.v_scale, l, lengths)
+                q, cache.k, cache.v, cache.k_scale, cache.v_scale, l, lengths,
+                row0=row0)
         elif deferred_append:
             attn = decode_attention_contiguous_fresh(q, cache.k, cache.v, k, v,
                                                      l, row_pos)
@@ -660,7 +687,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             fresh_v.append(v)
         elif uniform_decode:
             attn, _, _ = decode_attention_appending(q, cache.k, cache.v, k, v,
-                                                    l, position)
+                                                    l, position, row0=row0)
         else:
             _append_rows(cache, l, k, v, row_pos)
             attn = decode_attention_contiguous(q, cache.k, cache.v, l, lengths)
@@ -707,6 +734,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if deferred_append:
         kv_append_all_uniform(cache.k, cache.v, torch.stack(fresh_k),
                               torch.stack(fresh_v), position)
+    if not apply_final_norm:
+        return x, cache
     return rms_norm(x, params["final_norm"], eps), cache
 
 

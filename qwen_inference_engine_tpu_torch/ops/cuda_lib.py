@@ -62,23 +62,23 @@ SIGNATURES = {
     # q, k, v, out, B, T, Hq, Hk, D, scale, stream
     "qie_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k_cache, v_cache, lengths, ws (the splits' partials, or null for
-    # one split), out, L, Bc, B, Hq, Hk, S, D, layer, span, splits, scale,
-    # stream
+    # one split), out, L, Bc, B, Hq, Hk, S, D, layer, row0, span, splits,
+    # scale, stream
     "qie_decode_attention": [_P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                              _P],
     # q, k_cache, v_cache, k_new, v_new, position, ws (the splits'
     # partials, or null for one split), out, L, Bc, B, Hq, Hk, S, D, layer,
-    # span, splits, scale, stream
+    # row0, span, splits, scale, stream
     "qie_decode_attention_appending": [_P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                       _I, _F, _P],
+                                       _I, _I, _F, _P],
     # q, k_cache, v_cache, k_scale, v_scale, lengths, ws (the splits'
-    # partials), out, L, Bc, B, Hq, Hk, S, D, layer, span, splits, scale,
-    # stream
+    # partials), out, L, Bc, B, Hq, Hk, S, D, layer, row0, span, splits,
+    # scale, stream
     "qie_decode_attention_q8": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _P],
     # q, k_cache, v_cache, old_lengths, k_new, v_new, ws (as for
     # appending), out, L, Bc, B, Hq, Hk, S, D, layer, span, splits, scale,
     # stream
@@ -124,10 +124,10 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _F, _P],
     # k_cache, v_cache, k_scale, v_scale, k_new, v_new, ks_new, vs_new,
-    # position, L, Bc, B, Hk, S, D, layer, vec, threads, blocks
+    # position, L, Bc, B, Hk, S, D, layer, row0, vec, threads, blocks
     # (plan_paged_append), stream
     "qie_kv_append_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, k_scale, v_scale, tables, lens, ws (the splits'
     # partials, or null for a bf16 call of one split), out, L, P, B, T, Hq,
     # Hk, page, max_pages, D, layer, span, splits, scale, stream

@@ -29,8 +29,12 @@ the plan has one split (a batch that fills the card alone) the three bf16
 decodes write the output directly and launch no merge.
 
 ``*_plain`` beside each computes the same function with the plain oracle.
-The cache is ``[L, Bc, Hk, S, D]``; ``row0`` (the pipeline-parallel batch
-window of the JAX package) is accepted only as 0.
+The cache is ``[L, Bc, Hk, S, D]``.  The contiguous, appending and INT8-KV
+decodes take ``row0``: the B rows of q are cache rows ``[row0, row0 + B)``
+(the pipeline's 1F1B decode works on one microbatch's row window of the
+whole cache, ``parallel/pp_step.py``), which the kernel reads (and the
+appending one writes) in place; ``row0 < 0`` or ``row0 + B > Bc`` raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -44,18 +48,24 @@ from qwen_inference_engine_tpu_torch.ops.attention import gqa_attention_kmajor
 from qwen_inference_engine_tpu_torch.quant.kv_quant import dequantize_kv
 
 
-def check_row0(row0) -> None:
-    if row0 != 0:
-        raise NotImplementedError("row0 != 0 (pipeline-parallel decode) is "
-                                  "not ported")
+def row_window(name, row0, B: int, Bc: int) -> int:
+    """The row window ``[row0, row0 + B)`` inside the cache's ``Bc`` rows;
+    returns row0 as an int."""
+    row0 = int(row0)
+    if row0 < 0 or row0 + B > Bc:
+        raise ValueError(f"{name} shapes: rows [{row0}, {row0 + B}) "
+                         f"outside the cache's {Bc}")
+    return row0
 
 
 def decode_attention_contiguous_plain(q, k_cache, v_cache, layer: int,
-                                      lengths) -> torch.Tensor:
-    """q [B, 1, Hq, D] over ``cache[layer, :B]`` with ``lengths [B]``."""
+                                      lengths, row0: int = 0) -> torch.Tensor:
+    """q [B, 1, Hq, D] over ``cache[layer, row0:row0 + B]`` with ``lengths
+    [B]``."""
     B = q.shape[0]
     lengths = lengths.to(q.device).long()
-    return gqa_attention_kmajor(q, k_cache[layer, :B], v_cache[layer, :B],
+    rows = slice(row0, row0 + B)
+    return gqa_attention_kmajor(q, k_cache[layer, rows], v_cache[layer, rows],
                                 (lengths - 1)[:, None], kv_valid_len=lengths)
 
 
@@ -161,13 +171,13 @@ def decode_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
                                 lengths: torch.Tensor,
                                 row0=0) -> torch.Tensor:
     """Attention of ``q [B, 1, Hq, D]`` over the first ``lengths[b]`` keys of
-    ``cache[layer, b]``; returns [B, 1, Hq, D].  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises."""
-    check_row0(row0)
+    ``cache[layer, row0 + b]``; returns [B, 1, Hq, D].  A CPU tensor runs
+    the plain version; a CUDA tensor launches the kernel or raises."""
+    name = "decode_attention_contiguous"
+    row0 = row_window(name, row0, q.shape[0], k_cache.shape[1])
     if q.device.type == "cpu":
         return decode_attention_contiguous_plain(q, k_cache, v_cache, layer,
-                                                 lengths)
-    name = "decode_attention_contiguous"
+                                                 lengths, row0)
     _check_decode_args(name, q, k_cache, v_cache, layer)
     B, _, Hq, D = q.shape
     L, Bc, Hk, S, _ = k_cache.shape
@@ -179,8 +189,8 @@ def decode_attention_contiguous(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     rc = cuda_lib.library().qie_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        _ptr(ws), out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer), span,
-        splits, D ** -0.5, cuda_lib.stream_handle(q.device))
+        _ptr(ws), out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer), row0,
+        span, splits, D ** -0.5, cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, name)
     decode_attention_contiguous.launches += 1
     return out
@@ -190,16 +200,19 @@ decode_attention_contiguous.launches = 0
 
 
 def decode_attention_appending_plain(q, k_cache, v_cache, k_new, v_new,
-                                     layer: int, position: int):
+                                     layer: int, position: int,
+                                     row0: int = 0):
     """Write ``k_new/v_new [B, 1, Hk, D]`` at ``position`` of
-    ``cache[layer, :B]`` (in place), then attend over ``position + 1`` keys."""
+    ``cache[layer, row0:row0 + B]`` (in place), then attend over
+    ``position + 1`` keys."""
     B = q.shape[0]
     position = int(position)
-    k_cache[layer, :B, :, position] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[layer, :B, :, position] = v_new[:, 0].to(v_cache.dtype)
+    rows = slice(row0, row0 + B)
+    k_cache[layer, rows, :, position] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[layer, rows, :, position] = v_new[:, 0].to(v_cache.dtype)
     lengths = torch.full((B,), position + 1, dtype=torch.long, device=q.device)
     attn = decode_attention_contiguous_plain(q, k_cache, v_cache, layer,
-                                             lengths)
+                                             lengths, row0)
     return attn, k_cache, v_cache
 
 
@@ -208,15 +221,16 @@ def decode_attention_appending(q: torch.Tensor, k_cache: torch.Tensor,
                                v_new: torch.Tensor, layer: int,
                                position: Union[int, torch.Tensor], row0=0):
     """Append-fused decode: every row's fresh K/V at the one ``position``
-    (an int, or a 1-element tensor read on the device).  Returns
-    ``(attn [B, 1, Hq, D], k_cache, v_cache)``; the caches are the same
-    tensors, written in place.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel or raises."""
-    check_row0(row0)
+    (an int, or a 1-element tensor read on the device) of cache rows
+    ``[row0, row0 + B)``.  Returns ``(attn [B, 1, Hq, D], k_cache,
+    v_cache)``; the caches are the same tensors, written in place.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    name = "decode_attention_appending"
+    row0 = row_window(name, row0, q.shape[0], k_cache.shape[1])
     if q.device.type == "cpu":
         return decode_attention_appending_plain(q, k_cache, v_cache, k_new,
-                                                v_new, layer, position)
-    name = "decode_attention_appending"
+                                                v_new, layer, position, row0)
     _check_decode_args(name, q, k_cache, v_cache, layer)
     B, _, Hq, D = q.shape
     L, Bc, Hk, S, _ = k_cache.shape
@@ -230,7 +244,7 @@ def decode_attention_appending(q: torch.Tensor, k_cache: torch.Tensor,
     rc = cuda_lib.library().qie_decode_attention_appending(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
         vn.data_ptr(), pos.data_ptr(), _ptr(ws), out.data_ptr(), L, Bc, B, Hq,
-        Hk, S, D, int(layer), span, splits, D ** -0.5,
+        Hk, S, D, int(layer), row0, span, splits, D ** -0.5,
         cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, name)
     decode_attention_appending.launches += 1
@@ -337,13 +351,13 @@ def check_split_plan(name, span: int, splits: int, S: int) -> None:
 
 
 def decode_attention_contiguous_q8_plain(q, k_cache, v_cache, k_scale,
-                                         v_scale, layer: int,
-                                         lengths) -> torch.Tensor:
-    """q [B, 1, Hq, D] over the dequantized ``cache[layer, :B]`` (in q's
-    dtype) with ``lengths [B]``."""
-    B = q.shape[0]
-    k = dequantize_kv(k_cache[layer, :B], k_scale[layer, :B], q.dtype)
-    v = dequantize_kv(v_cache[layer, :B], v_scale[layer, :B], q.dtype)
+                                         v_scale, layer: int, lengths,
+                                         row0: int = 0) -> torch.Tensor:
+    """q [B, 1, Hq, D] over the dequantized ``cache[layer, row0:row0 + B]``
+    (in q's dtype) with ``lengths [B]``."""
+    rows = slice(row0, row0 + q.shape[0])
+    k = dequantize_kv(k_cache[layer, rows], k_scale[layer, rows], q.dtype)
+    v = dequantize_kv(v_cache[layer, rows], v_scale[layer, rows], q.dtype)
     return decode_attention_contiguous_plain(q, k[None], v[None], 0, lengths)
 
 
@@ -354,14 +368,15 @@ def decode_attention_contiguous_q8(q: torch.Tensor, k_cache: torch.Tensor,
                                    lengths: torch.Tensor,
                                    row0=0) -> torch.Tensor:
     """Attention of ``q [B, 1, Hq, D]`` over the first ``lengths[b]`` keys of
-    the int8 ``cache[layer, b]`` with its f32 scales ``[L, Bc, Hk, S]``;
-    returns [B, 1, Hq, D].  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel or raises."""
-    check_row0(row0)
+    the int8 ``cache[layer, row0 + b]`` with its f32 scales ``[L, Bc, Hk,
+    S]``; returns [B, 1, Hq, D].  A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    row0 = row_window("decode_attention_contiguous_q8", row0, q.shape[0],
+                      k_cache.shape[1])
     if q.device.type == "cpu":
         return decode_attention_contiguous_q8_plain(q, k_cache, v_cache,
                                                     k_scale, v_scale, layer,
-                                                    lengths)
+                                                    lengths, row0)
     _check_decode_args("decode_attention_contiguous_q8", q, k_cache, v_cache,
                        layer, kv_dtype=torch.int8)
     B, _, Hq, D = q.shape
@@ -377,7 +392,7 @@ def decode_attention_contiguous_q8(q: torch.Tensor, k_cache: torch.Tensor,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), lens.data_ptr(),
         ws.data_ptr(), out.data_ptr(), L, Bc, B, Hq, Hk, S, D, int(layer),
-        span, splits, D ** -0.5,
+        row0, span, splits, D ** -0.5,
         cuda_lib.stream_handle(q.device))
     cuda_lib.check(rc, "decode_attention_contiguous_q8")
     decode_attention_contiguous_q8.launches += 1

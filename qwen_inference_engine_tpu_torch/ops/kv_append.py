@@ -24,7 +24,8 @@ Each wrapper launches a kernel of ``csrc/kv_append.cu``:
 * ``kv_append_uniform_q8`` (the port of the JAX package's
   ``kv_append_uniform_q8`` / ``_uniform_append_q8_kernel``): every row of
   an aligned batch writes its quantized K/V row and the two scales at one
-  shared position.  The quantization itself (``quant/kv_quant.py``) stays
+  shared position, into cache rows ``[row0, row0 + B)`` (the pipeline's
+  1F1B microbatch window, ``parallel/pp_step.py``).  The quantization itself (``quant/kv_quant.py``) stays
   outside the kernel, as in the JAX package;
 * ``paged_append_ragged`` (the port of ``paged_append_ragged`` /
   ``_paged_ragged_kernel``): the decode step's one K/V row per batch row,
@@ -77,7 +78,7 @@ import torch
 from qwen_inference_engine_tpu_torch.kvcache.cache import paged_write_stacked
 from qwen_inference_engine_tpu_torch.ops import cuda_lib
 from qwen_inference_engine_tpu_torch.ops.decode_attention import (
-    check_row0,
+    row_window,
     check_scales,
     device_position,
 )
@@ -294,15 +295,17 @@ kv_append_ragged_t.launches = 0
 
 
 def kv_append_uniform_q8_plain(k_cache, v_cache, k_scale, v_scale, k_new,
-                               v_new, ks_new, vs_new, position, layer: int):
+                               v_new, ks_new, vs_new, position, layer: int,
+                               row0: int = 0):
     """Write ``k/v_new [B, 1, Hk, D]`` and ``ks/vs_new [B, 1, Hk]`` at
-    ``position`` of ``cache[layer, :B]`` (in place); returns the caches."""
-    B = k_new.shape[0]
+    ``position`` of ``cache[layer, row0:row0 + B]`` (in place); returns the
+    caches."""
+    rows = slice(row0, row0 + k_new.shape[0])
     p = int(position)
-    k_cache[layer, :B, :, p] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[layer, :B, :, p] = v_new[:, 0].to(v_cache.dtype)
-    k_scale[layer, :B, :, p] = ks_new[:, 0].float()
-    v_scale[layer, :B, :, p] = vs_new[:, 0].float()
+    k_cache[layer, rows, :, p] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[layer, rows, :, p] = v_new[:, 0].to(v_cache.dtype)
+    k_scale[layer, rows, :, p] = ks_new[:, 0].float()
+    v_scale[layer, rows, :, p] = vs_new[:, 0].float()
     return k_cache, v_cache, k_scale, v_scale
 
 
@@ -314,20 +317,20 @@ def kv_append_uniform_q8(k_cache: torch.Tensor, v_cache: torch.Tensor,
                          row0=0):
     """INT8-KV uniform append: int8 ``k/v_new [B, 1, Hk, D]`` and f32
     ``ks/vs_new [B, 1, Hk]`` at the one ``position`` (an int, or a 1-element
-    tensor read on the device) of the int8 caches ``[L, Bc, Hk, S, D]`` and
-    scales ``[L, Bc, Hk, S]``, in place.  Returns the same four tensors.  A
-    CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-    raises."""
-    check_row0(row0)
+    tensor read on the device) of rows ``[row0, row0 + B)`` of the int8
+    caches ``[L, Bc, Hk, S, D]`` and scales ``[L, Bc, Hk, S]``, in place.
+    Returns the same four tensors.  A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    name = "kv_append_uniform_q8"
+    row0 = row_window(name, row0, k_new.shape[0], k_cache.shape[1])
     if k_cache.device.type == "cpu":
         return kv_append_uniform_q8_plain(k_cache, v_cache, k_scale, v_scale,
                                           k_new, v_new, ks_new, vs_new,
-                                          position, layer)
-    name = "kv_append_uniform_q8"
+                                          position, layer, row0)
     L, Bc, Hk, S, D = k_cache.shape
     B = k_new.shape[0]
     dev = k_cache.device
-    if B > Bc or k_new.shape != (B, 1, Hk, D) or v_new.shape != k_new.shape \
+    if k_new.shape != (B, 1, Hk, D) or v_new.shape != k_new.shape \
             or ks_new.shape != (B, 1, Hk) or vs_new.shape != ks_new.shape \
             or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name} shapes: cache {tuple(k_cache.shape)}, new "
@@ -351,7 +354,7 @@ def kv_append_uniform_q8(k_cache: torch.Tensor, v_cache: torch.Tensor,
     rc = cuda_lib.library().qie_kv_append_q8(
         *ptrs[:2], k_scale.data_ptr(), v_scale.data_ptr(), *ptrs[2:],
         ksn.data_ptr(), vsn.data_ptr(), pos.data_ptr(), L, Bc, B, Hk, S, D,
-        int(layer), *plan, cuda_lib.stream_handle(dev))
+        int(layer), row0, *plan, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, name)
     kv_append_uniform_q8.launches += 1
     return k_cache, v_cache, k_scale, v_scale

@@ -12,7 +12,11 @@ explicitly on the mesh's groups:
   sum and the sampler's gathers;
 * ``ep`` (EP, its own mesh, ``make_ep_mesh``): serving slots and experts
   sharded over every rank of the world, tokens routed to the experts'
-  ranks by two all-to-alls an MoE layer (``parallel/ep_moe.py``).
+  ranks by two all-to-alls an MoE layer (``parallel/ep_moe.py``);
+* ``stage`` (PP, its own mesh, ``make_pp_mesh``): the layers cut into
+  consecutive stages, one a rank; the residual stream passes from stage
+  to stage by ``ring_exchange`` (the JAX ``ppermute``) and the result
+  leaves stage 0 by ``broadcast`` (``parallel/pp_step.py``).
 
 ``make_mesh((dp, tp))`` keeps ``model`` the inner axis, as the JAX mesh
 does: rank ``r`` sits at ``(r // tp, r % tp)``, so a model group is ``tp``
@@ -29,12 +33,16 @@ under gloo in the card machine's PyTorch 2.11
 (``scripts/probe_gloo_cuda_torch.py``), so no call stages through the
 host itself; gloo runs them on the host all the same, and they cannot be
 captured in a CUDA graph: ``Mesh.capturable`` is false, and the engines
-take the eager step.
+take the eager step.  Gloo's point-to-point calls do not take CUDA
+tensors there (``batch_isend_irecv`` aborts the rank: "writev ... Bad
+address", the same probe), so ``ring_exchange`` runs as
+``all_to_all_single`` with every split but the next stage's empty under
+gloo, and as ``batch_isend_irecv`` under NCCL.
 
-``all_reduce``, ``all_gather`` and ``all_to_all`` count their calls in
-``launches``, as the kernel wrappers do (``utils/metrics.
-collective_wrappers``), so a captured step's replays count the
-collectives inside its graph; ``all_gather`` and ``all_to_all`` also count
+``all_reduce``, ``all_gather``, ``all_to_all``, ``ring_exchange`` and
+``broadcast`` count their calls in ``launches``, as the kernel wrappers do
+(``utils/metrics.collective_wrappers``), so a captured step's replays
+count the collectives inside its graph; all but ``all_reduce`` also count
 the bytes this rank sends in ``sent_bytes``.
 """
 
@@ -54,6 +62,7 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 EP_AXIS = "ep"
+STAGE_AXIS = "stage"
 
 # how long a collective or the rendezvous waits for the other ranks
 TIMEOUT = datetime.timedelta(seconds=1800)
@@ -112,11 +121,70 @@ def all_to_all(t: torch.Tensor, group: Group,
     return out
 
 
+def ring_exchange(t: torch.Tensor, group: Group,
+                  src: Optional[int] = None) -> Optional[torch.Tensor]:
+    """The pipeline's ``ppermute`` over ``group``'s ring: every index ``s``
+    sends ``t`` to index ``s + 1`` (mod the size) and returns the tensor
+    index ``s - 1`` sent, shaped as ``t``.  With ``src``, only index
+    ``src`` sends (one hop): index ``src + 1`` returns what it sent, every
+    other index None, and their ``t`` only gives the shape and type.
+    Every rank of the group calls it, with tensors of one shape and type.
+    Under NCCL a ``batch_isend_irecv``; under gloo (whose point-to-point
+    calls take no CUDA tensor) one ``all_to_all_single`` with every split
+    but the next index's empty."""
+    ring_exchange.launches += 1
+    n, me = group.size, group.rank
+    nxt, prv = (me + 1) % n, (me - 1) % n
+    send = src is None or src == me
+    recv = src is None or (src + 1) % n == me
+    t = t.contiguous()
+    if n == 1:
+        return t.clone() if recv else None
+    if send:
+        ring_exchange.sent_bytes += t.numel() * t.element_size()
+    if group.backend == "nccl":
+        out = torch.empty_like(t) if recv else None
+        ops = ([dist.P2POp(dist.isend, t, group.ranks[nxt], group.pg)]
+               if send else [])
+        if recv:
+            ops.append(dist.P2POp(dist.irecv, out, group.ranks[prv],
+                                  group.pg))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+    flat = t.reshape(-1)
+    k = flat.numel()
+    out = flat.new_empty(k if recv else 0)
+    dist.all_to_all_single(
+        out, flat if send else flat[:0],
+        output_split_sizes=[k if recv and s == prv else 0 for s in range(n)],
+        input_split_sizes=[k if send and p == nxt else 0 for p in range(n)],
+        group=group.pg)
+    return out.view(t.shape) if recv else None
+
+
+def broadcast(t: torch.Tensor, group: Group, src: int = 0) -> torch.Tensor:
+    """``t`` of index ``src`` of ``group`` on every rank, in place (every
+    other rank's ``t`` only gives the shape and type); returns ``t``."""
+    broadcast.launches += 1
+    t = t.contiguous()
+    if group.size > 1:
+        if group.rank == src:
+            broadcast.sent_bytes += t.numel() * t.element_size()
+        dist.broadcast(t, src=group.ranks[src], group=group.pg)
+    return t
+
+
 all_reduce.launches = 0
 all_gather.launches = 0
 all_gather.sent_bytes = 0
 all_to_all.launches = 0
 all_to_all.sent_bytes = 0
+ring_exchange.launches = 0
+ring_exchange.sent_bytes = 0
+broadcast.launches = 0
+broadcast.sent_bytes = 0
 
 
 def broadcast_object(obj, group: Group):
@@ -189,6 +257,75 @@ class EpMesh:
         sizes, and ranks that share a card run gloo, whose collectives run
         on the host; the engines take eager steps."""
         return False
+
+
+@dataclasses.dataclass
+class PpMesh:
+    """A pipeline-parallel ``("stage",)`` mesh seen from one rank: every
+    rank of the world a stage, in rank order.  ``shape`` reads ``{"stage":
+    S}``, as the JAX mesh's ``dict(mesh.shape)``; ``stage_group`` is the
+    world as a ``Group``, its index this rank's stage."""
+
+    shape: Dict[str, int]
+    rank: int
+    stage_group: Group
+    world_group: Group
+
+    @property
+    def size(self) -> int:
+        return self.shape[STAGE_AXIS]
+
+    @property
+    def stages(self) -> int:
+        return self.shape[STAGE_AXIS]
+
+    @property
+    def stage(self) -> int:
+        return self.stage_group.rank
+
+    @property
+    def backend(self) -> str:
+        return self.stage_group.backend
+
+    @property
+    def capturable(self) -> bool:
+        """False: a pipeline step is not captured in a CUDA graph.  Ranks
+        that share a card run gloo, whose exchanges run on the host, and
+        the schedulers take eager steps."""
+        return False
+
+
+def make_pp_mesh(n: Optional[int] = None) -> PpMesh:
+    """This rank's view of a ``("stage",)`` mesh over the whole initialized
+    world (the JAX package's ``make_pp_mesh``); ``n``, where given, must be
+    the world's size.  Without a world, ``n = 1`` gives the mesh of one
+    stage (nothing to exchange)."""
+    if not dist.is_initialized():
+        if n == 1:
+            one = Group(pg=None, size=1, rank=0, backend="none", ranks=(0,))
+            return PpMesh(shape={STAGE_AXIS: 1}, rank=0, stage_group=one,
+                          world_group=one)
+        raise RuntimeError("make_pp_mesh needs torch.distributed initialized "
+                           "(init_distributed, or spawn)")
+    world, me = dist.get_world_size(), dist.get_rank()
+    if n is not None and n != world:
+        raise ValueError(f"a mesh of {n} stages needs {n} ranks, the world "
+                         f"has {world}")
+    group = Group(pg=dist.group.WORLD, size=world, rank=me,
+                  backend=dist.get_backend(), ranks=tuple(range(world)))
+    if group.backend == "nccl":
+        # NCCL takes a batch of point-to-point calls from a subset of the
+        # group (a one-hop exchange) only after a first collective of all
+        dist.barrier()
+    return PpMesh(shape={STAGE_AXIS: world}, rank=me, stage_group=group,
+                  world_group=group)
+
+
+def is_pp_mesh(mesh) -> bool:
+    """Whether ``mesh`` has a ``stage`` axis above 1."""
+    shape = getattr(mesh, "shape", None)
+    return mesh is not None and shape is not None and \
+        dict(shape).get(STAGE_AXIS, 1) > 1
 
 
 def make_ep_mesh(ragged: Optional[bool] = None) -> EpMesh:

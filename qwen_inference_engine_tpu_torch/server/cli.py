@@ -40,8 +40,12 @@ an expert-parallel ``("ep",)`` mesh for a Qwen3-MoE model: slots and
 experts sharded, tokens routed by all-to-alls (``parallel/ep_step.py``).
 ``generate --ep`` raises (the JAX engine runs it as GSPMD), and so does
 a model the EP step does not take (the JAX CLI ignores ``--ep`` for a
-dense model).  ``--pp`` raises: the pipeline comes with the next
-multi-GPU slice.
+dense model).  ``serve --pp N`` (overriding ``--tp`` / ``--dp`` /
+``--ep``, as the JAX CLI) spawns ``N`` ranks over a pipeline-parallel
+``("stage",)`` mesh for a dense model and serves FIFO waves through
+``engine/pp_scheduler.PPFifoScheduler`` (each rank its ``L / N`` layers;
+``--max-slots`` a multiple of ``N``).  ``generate --pp`` raises: the JAX
+CLI hands the stage mesh to ``Engine``, which has no pipeline branch.
 """
 
 from __future__ import annotations
@@ -161,15 +165,14 @@ def build_draft_model(args, device):
 
 
 def mesh_shape(args):
-    """The mesh's axes: ``{"ep": N}`` from ``--ep N`` (N > 1), else
-    ``{"data": dp, "model": tp}`` from ``--dp`` / ``--tp`` (``--tp 0``:
-    every card over ``--dp``, as the JAX CLI); ``--pp`` raises."""
+    """The mesh's axes: ``{"stage": N}`` from ``--pp N`` (N > 1), else
+    ``{"ep": N}`` from ``--ep N`` (N > 1), else ``{"data": dp, "model":
+    tp}`` from ``--dp`` / ``--tp`` (``--tp 0``: every card over ``--dp``,
+    as the JAX CLI)."""
     import torch
 
     if getattr(args, "pp", 0) > 1:
-        raise NotImplementedError(
-            "--pp: the pipeline (parallel/pp_step.py, engine/pp_scheduler.py)"
-            " is not ported yet; it comes with the next multi-GPU slice")
+        return {"stage": args.pp}
     if getattr(args, "ep", 0) > 1:
         return {"ep": args.ep}
     n_dev = (torch.cuda.device_count() if str(args.device).startswith("cuda")
@@ -182,13 +185,18 @@ def _rank_main(rank: int, world: int, args, shape, fn) -> int:
     from qwen_inference_engine_tpu_torch.parallel.mesh import (
         make_ep_mesh,
         make_mesh,
+        make_pp_mesh,
         rank_device,
     )
 
     args.device = str(rank_device(rank, "cuda" if str(args.device)
                                   .startswith("cuda") else "cpu"))
-    mesh = (make_ep_mesh() if "ep" in shape
-            else make_mesh((shape["data"], shape["model"])))
+    if "stage" in shape:
+        mesh = make_pp_mesh(shape["stage"])
+    elif "ep" in shape:
+        mesh = make_ep_mesh()
+    else:
+        mesh = make_mesh((shape["data"], shape["model"]))
     return fn(args, mesh)
 
 
@@ -215,6 +223,12 @@ def run_ranks(args, fn) -> int:
 
 
 def cmd_generate(args) -> int:
+    if getattr(args, "pp", 0) > 1:
+        raise NotImplementedError(
+            "generate --pp: the JAX CLI hands the stage mesh to Engine, "
+            "which has no pipeline branch (it runs the mesh as GSPMD's "
+            "partitioned XLA ops, which the port does not); serve --pp "
+            "serves a pipeline (PPFifoScheduler)")
     if getattr(args, "ep", 0) > 1:
         raise NotImplementedError(
             "generate --ep: Engine.generate under an expert-parallel mesh is "
@@ -324,7 +338,9 @@ def _add_model_args(g) -> None:
                         "slots and experts sharded over an ('ep',) mesh; "
                         "overrides --tp / --dp)")
     g.add_argument("--pp", type=int, default=0,
-                   help="pipeline stages (not ported yet: raises)")
+                   help="pipeline-parallel stages (serve only: layer-cut "
+                        "weights and KV, FIFO wave serving with a 1F1B "
+                        "decode; overrides --tp / --dp / --ep)")
     g.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of generation "
                         "(host ops and, on the card, its kernels) into DIR")

@@ -36,8 +36,11 @@ runs the same tick, so every rank's engine holds the same state.  The
 other ranks run ``follow()`` until rank 0 shuts down.  An expert-parallel
 mesh (``serve --ep N``) is served the same way: every rank runs the EP
 step on its own slots and experts (``engine/scheduler.py``).  A
-pipeline-parallel mesh (the JAX package's FIFO wave scheduler,
-``PPFifoScheduler``) is not ported: it raises ``NotImplementedError``.
+pipeline-parallel mesh (``serve --pp N``) is served by the FIFO wave
+scheduler (``engine/pp_scheduler.PPFifoScheduler``, as the JAX server
+routes it) with ``--max-slots`` rows a wave over a contiguous cache of
+``--max-seq``, the same way: rank 0 broadcasts each tick's control
+message, and every rank runs its stage of the same waves.
 """
 
 from __future__ import annotations
@@ -79,34 +82,62 @@ class _Waiter:
 
 class Server:
     def __init__(self, cfg, params, tok, mesh, args):
-        from qwen_inference_engine_tpu_torch.engine.scheduler import (
-            ContinuousBatchingEngine,
+        from qwen_inference_engine_tpu_torch.engine.pp_scheduler import (
+            PPFifoScheduler,
         )
         from qwen_inference_engine_tpu_torch.kvcache.cache import (
             kv_dtype_from_bits,
         )
         from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+        from qwen_inference_engine_tpu_torch.parallel.mesh import is_pp_mesh
 
         self.tok = tok
         self.cfg = cfg
         self.default_sp = SamplingParams(
             temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
             repetition_penalty=args.repetition_penalty, greedy=args.greedy)
-        if dict(getattr(mesh, "shape", None) or {}).get("stage", 1) > 1:
-            raise NotImplementedError(
-                "serving on a pipeline-parallel mesh (engine/pp_scheduler.py,"
-                " PPFifoScheduler) is not ported yet: it comes with the "
-                "next multi-GPU slice")
         # rank 0 takes the requests and broadcasts each tick's control
         # message; None without a mesh of several ranks
         self._world = (mesh.world_group if mesh is not None and mesh.size > 1
                        else None)
         self._outbox = {"submit": [], "cancel": []}
+        if is_pp_mesh(mesh):
+            # the pipeline's layer-cut weights and KV: the FIFO wave
+            # scheduler (the slot scheduler assumes every rank holds every
+            # layer), the same engine contract
+            self.engine = PPFifoScheduler(
+                cfg, params, mesh=mesh, on_token=self._on_token,
+                max_batch=args.max_slots, max_seq=args.max_seq,
+                kv_dtype=kv_dtype_from_bits(args.kv_bits),
+                sampling=self.default_sp, seed=args.seed,
+                device=getattr(args, "device", None))
+        else:
+            self.engine = self._slot_engine(cfg, params, mesh, args)
+        self._step_ticks = max(1, getattr(args, "step_ticks", 8))
+        self._lock = threading.Lock()
+        self._waiters: Dict[int, _Waiter] = {}
+        self._next_id = 0
+        self._wake = threading.Event()
+        self._stop = False
+        self._thread = None
+        if self._world is None or self._world.rank == 0:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
+
+    def _slot_engine(self, cfg, params, mesh, args):
+        """The continuous-batching engine over the page pool."""
+        from qwen_inference_engine_tpu_torch.engine.scheduler import (
+            ContinuousBatchingEngine,
+        )
+        from qwen_inference_engine_tpu_torch.kvcache.cache import (
+            kv_dtype_from_bits,
+        )
+
         pages_per_seq = max(4, -(-args.max_seq // args.page_size))
         num_pages = (args.num_pages or
                      args.max_slots * pages_per_seq
                      + max(8, args.max_slots * pages_per_seq // 4))
-        self.engine = ContinuousBatchingEngine(
+        return ContinuousBatchingEngine(
             cfg, params, on_token=self._on_token,
             max_slots=args.max_slots, page_size=args.page_size,
             num_pages=num_pages, max_pages_per_seq=pages_per_seq,
@@ -120,16 +151,6 @@ class Server:
             draft_cfg=getattr(args, "_draft_cfg", None),
             top_k_cap=getattr(args, "top_k_cap", None),
             device=getattr(args, "device", None), mesh=mesh)
-        self._step_ticks = max(1, getattr(args, "step_ticks", 8))
-        self._lock = threading.Lock()
-        self._waiters: Dict[int, _Waiter] = {}
-        self._next_id = 0
-        self._wake = threading.Event()
-        self._stop = False
-        self._thread = None
-        if self._world is None or self._world.rank == 0:
-            self._thread = threading.Thread(target=self._loop, daemon=True)
-            self._thread.start()
 
     def follow(self) -> None:
         """A rank other than 0: run the ticks rank 0 broadcasts until it
@@ -607,14 +628,18 @@ def _serve_rank(args, mesh) -> int:
         return 0
     httpd = ThreadingHTTPServer((args.host, args.port), _make_handler(server))
     eng = server.engine
-    spec = (f", speculative k={eng.spec_k} "
-            + (f"draft {args._draft_cfg.name}" if eng._model_draft
-               else f"prompt lookup ngram={eng.spec_ngram}")
-            if eng.speculative else "")
+    if getattr(eng, "stages", 1) > 1:
+        kv = (f"pipeline stages={eng.stages}, FIFO waves, contiguous "
+              f"cache {str(eng.cache.k.dtype).split('.')[-1]}")
+    else:
+        spec = (f", speculative k={eng.spec_k} "
+                + (f"draft {args._draft_cfg.name}" if eng._model_draft
+                   else f"prompt lookup ngram={eng.spec_ngram}")
+                if eng.speculative else "")
+        kv = (f"pages={eng.num_pages}x{args.page_size} "
+              f"{str(eng.cache.k_pages.dtype).split('.')[-1]}{spec}")
     print(f"qie serving {cfg.name} on http://{args.host}:{args.port} "
-          f"(device {device}, slots={args.max_slots}, "
-          f"pages={eng.num_pages}x{args.page_size} "
-          f"{str(eng.cache.k_pages.dtype).split('.')[-1]}{spec})", flush=True)
+          f"(device {device}, slots={args.max_slots}, {kv})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

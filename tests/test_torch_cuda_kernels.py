@@ -2997,11 +2997,11 @@ def test_contiguous_row_append_c_guard_refuses_bad_plans(gen):
     pos = torch.tensor([9], device="cuda", dtype=torch.int32)
     scales = (ks.data_ptr(), ks.data_ptr(), qs.data_ptr(), qs.data_ptr())
 
-    def q8(plan, pos_ptr=pos.data_ptr(), scales=scales):
+    def q8(plan, pos_ptr=pos.data_ptr(), scales=scales, row0=0):
         return lib.qie_kv_append_q8(
             k8.data_ptr(), k8.data_ptr(), scales[0], scales[1], q.data_ptr(),
             q.data_ptr(), scales[2], scales[3], pos_ptr, L, Bc, B, Hk, S, D,
-            1, *plan, st)
+            1, row0, *plan, st)
 
     good = ka.plan_paged_append(B, 1, Hk, D, 1, True)
     assert good == (16, 128, 1)    # 2 x 2 head rows of 8 vectors
@@ -3010,6 +3010,7 @@ def test_contiguous_row_append_c_guard_refuses_bad_plans(gen):
     assert q8(good, pos_ptr=None) == 1
     assert q8(good, scales=(None,) * 4) == 1
     assert q8(good, scales=scales[:3] + (None,)) == 1
+    assert q8(good, row0=-1) == 1 and q8(good, row0=Bc - B + 1) == 1
     assert q8((4, 128, 1)) == 0
     assert q8(good) == 0
     torch.cuda.synchronize()
@@ -3469,3 +3470,81 @@ def test_last_kernels_refuse_on_the_card(gen):
         fs.fused_attn_matmul(lens, 0, q, kb, kb, _bf16(gen, 4, 256), wq,
                              torch.zeros((2, 4, 96), device="cuda"),
                              group_size=64)
+
+
+# the pipeline's 1F1B decode (parallel/pp_step.py): microbatches of b rows
+# of an M x b row cache, each window [m b, (m + 1) b) read (and written) in
+# place through the kernels' row0
+ROW0_KERNELS = ["appending", "contiguous", "q8", "append q8"]
+
+
+def _row0_call(kind, q, caches, kn, vn, layer, pos, lens, row0):
+    """One call of a row0 kernel; returns (its output, the caches)."""
+    if kind == "appending":
+        out = da.decode_attention_appending(q, *caches, kn, vn, layer, pos,
+                                            row0=row0)[0]
+    elif kind == "contiguous":
+        out = da.decode_attention_contiguous(q, *caches, layer, lens,
+                                             row0=row0)
+    elif kind == "q8":
+        out = da.decode_attention_contiguous_q8(q, *caches, layer, lens,
+                                                row0=row0)
+    else:
+        (qk, sk), (qv, sv) = quantize_kv(kn), quantize_kv(vn)
+        ka.kv_append_uniform_q8(*caches, qk, qv, sk, sv, pos, layer,
+                                row0=row0)
+        out = None
+    return out, caches
+
+
+@pytest.mark.parametrize("D,Hk,G", [(128, 4, 7), (64, 2, 8)])
+@pytest.mark.parametrize("kind", ROW0_KERNELS)
+def test_row0_kernels_equal_their_row_slice(gen, kind, D, Hk, G):
+    """Each row0 kernel at row0 = m b for every microbatch m is bit-equal to
+    the same call at row0 = 0 on a cache of the window's rows alone (the
+    outputs and the written rows), leaves every other row untouched, and
+    its output is within 2e-2 of its plain version; a window past the
+    cache raises."""
+    L, M, b, S, layer, pos = 2, 4, 2, 256, 1, 130
+    Bc = M * b
+    quant = kind in ("q8", "append q8")
+    if quant:
+        kq, ks = _int8_cache(gen, L, Bc, Hk, S, D)
+        vq, vs = _int8_cache(gen, L, Bc, Hk, S, D)
+        full = [kq, vq, ks, vs]
+    else:
+        full = [_bf16(gen, L, Bc, Hk, S, D), _bf16(gen, L, Bc, Hk, S, D)]
+    for m in range(M):
+        row0 = m * b
+        q = _bf16(gen, b, 1, G * Hk, D)
+        kn, vn = _bf16(gen, b, 1, Hk, D), _bf16(gen, b, 1, Hk, D)
+        lens = torch.tensor([pos + 1, pos - 60][:b], device="cuda",
+                            dtype=torch.int32)
+        window = [c[:, row0:row0 + b].contiguous() for c in full]
+        before = [c.clone() for c in full]
+        got, _ = _row0_call(kind, q, full, kn, vn, layer, pos, lens, row0)
+        want, _ = _row0_call(kind, q, window, kn, vn, layer, pos, lens, 0)
+        if got is not None:
+            assert torch.equal(got, want), (kind, m)
+            if kind == "appending":
+                plain = da.decode_attention_appending_plain(
+                    q, *[c.clone() for c in before], kn, vn, layer, pos,
+                    row0)[0]
+            elif kind == "contiguous":
+                plain = da.decode_attention_contiguous_plain(
+                    q, *before, layer, lens, row0)
+            else:
+                plain = da.decode_attention_contiguous_q8_plain(
+                    q, *before, layer, lens, row0)
+            err = (got.float() - plain.float()).abs().max().item()
+            assert err <= 2e-2, (kind, m, err)
+        for c, w, old in zip(full, window, before):
+            assert torch.equal(c[:, row0:row0 + b], w), (kind, m)
+            keep = torch.ones(Bc, dtype=torch.bool, device="cuda")
+            keep[row0:row0 + b] = False
+            assert torch.equal(c[:, keep], old[:, keep]), (kind, m)
+    with pytest.raises(ValueError, match="outside the cache"):
+        _row0_call(kind, _bf16(gen, b, 1, G * Hk, D), full,
+                   _bf16(gen, b, 1, Hk, D), _bf16(gen, b, 1, Hk, D), layer,
+                   pos, torch.full((b,), pos, device="cuda",
+                                   dtype=torch.int32), Bc - b + 1)

@@ -145,11 +145,11 @@ def _params(cfg):
     ("dense model", "is not a MoE model"),
     ("experts", "6 experts do not split over ep=4"),
     ("slots", "max_slots=6 does not split over ep=4"),
-    ("moe drafter", "MoE draft model under the EP mesh"),
 ])
 def test_serving_refuses_what_the_jax_scheduler_runs_as_gspmd(case, match):
-    """supports_ep false (the JAX scheduler then runs GSPMD's XLA ops) and
-    an MoE drafter (JAX drops to prompt lookup) raise, naming why."""
+    """supports_ep false (the JAX scheduler then runs GSPMD's XLA ops)
+    raises, naming why (an MoE drafter drafts by prompt lookup:
+    tests/test_torch_ep_serving.py)."""
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
     )
@@ -160,8 +160,6 @@ def test_serving_refuses_what_the_jax_scheduler_runs_as_gspmd(case, match):
     kw = dict(max_slots=6 if case == "slots" else 4, page_size=8,
               num_pages=16, max_pages_per_seq=4, device="cpu",
               prefix_cache=False)
-    if case == "moe drafter":
-        kw.update(speculative=True, draft_cfg=cfg, draft_params=_params(cfg))
     with pytest.raises(ValueError, match=match):
         ContinuousBatchingEngine(cfg, _params(cfg), mesh=fake_ep_mesh(4),
                                  **kw)

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from tests import torch_ep_jobs as jobs
-from tests.torch_parallel_jobs import http_serve
+from tests.torch_parallel_jobs import http_serve, warned
 from tests.torch_parallel_ref import (  # noqa: F401  (worlds: a fixture)
     CFG_KW,
     MOE_KW,
@@ -107,6 +107,45 @@ def test_scheduler_tokens_match_jax(worlds, case, ep):
             assert rounds > 0
         if case == "batched pieces":
             assert batched > 0, "the batched interior pieces did not run"
+
+
+def test_moe_drafter_under_ep_drafts_by_prompt_lookup(worlds):
+    """JAX engine/scheduler.py:151-161: an MoE draft model under the EP
+    mesh warns and serves with prompt-lookup drafts: every rank warns, and
+    its tokens equal the JAX EP scheduler's downgraded run (which warns
+    alike), speculation rounds run and no drafter is kept."""
+    from qwen_inference_engine_tpu.engine.scheduler import (
+        ContinuousBatchingEngine as JCB,
+        Request as JRequest,
+    )
+    from qwen_inference_engine_tpu.ops.sampling import (
+        SamplingParams as JSamplingParams,
+    )
+    from qwen_inference_engine_tpu.parallel.ep_step import (
+        make_ep_mesh,
+        shard_for_ep,
+    )
+
+    jcfg, jparams, tcfg, tparams = _moe()
+    prompts = PROMPTS["prompt lookup"]
+    mesh = make_ep_mesh(2)
+    with pytest.warns(UserWarning, match="MoE draft models are not "
+                                         "supported under the EP mesh"):
+        cb = JCB(jcfg, shard_for_ep(jparams, mesh), mesh=mesh, max_slots=4,
+                 page_size=8, num_pages=96, max_pages_per_seq=8,
+                 sampling=JSamplingParams(greedy=True), kv_dtype=jnp.float32,
+                 prefix_cache=False, speculative=True, spec_k=3,
+                 draft_params=jparams, draft_cfg=jcfg)
+    assert cb._ep_step and not cb._model_draft
+    for i, pr in enumerate(prompts):
+        cb.submit(JRequest(request_id=i, prompt=pr, max_new_tokens=6))
+    want = {f.request_id: f.token_ids for f in cb.run_to_completion()}
+    got = worlds(2).run(warned, jobs.serve, tcfg, tparams, prompts, 6,
+                        KW["prompt lookup"], (tcfg, tparams), timeout=240)
+    for r, ((toks, rounds, _, _), msgs) in enumerate(got):
+        assert toks == want and rounds > 0, (r, toks, want)
+        assert any("MoE draft models are not supported under the EP mesh; "
+                   "using prompt-lookup drafts" in m for m in msgs), msgs
 
 
 def test_a_piece_leaves_a_non_owners_pool_alone(worlds):

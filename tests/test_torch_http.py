@@ -299,12 +299,32 @@ def test_generate_token_identical_to_the_jax_server(models, http_server):
         jserver.shutdown()
 
 
-def test_server_refuses_a_mesh_and_defaults_to_the_card(models):
+def test_server_routes_a_stage_mesh_to_pp_fifo_and_defaults_to_the_card(
+        models, monkeypatch):
+    """A pipeline-parallel mesh gets ``PPFifoScheduler`` with the JAX
+    server's arguments (JAX server/http.py:74-87: max_batch from
+    --max-slots, max_seq, the KV type of --kv-bits, the default sampling,
+    the seed); tests/test_torch_pp_scheduler.py serves over one.  Without
+    a card the default device raises."""
+    from qwen_inference_engine_tpu_torch.engine import pp_scheduler
+
+    class Routed(Exception):
+        pass
+
+    def route(cfg, params, **kw):
+        raise Routed(kw)
+
+    monkeypatch.setattr(pp_scheduler, "PPFifoScheduler", route)
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError, match="PPFifoScheduler"):
+    args = _args(device="cpu", max_slots=4, kv_bits=8)
+    with pytest.raises(Routed) as got:
         Server(tcfg, tparams, ByteTokenizer(),
-               types.SimpleNamespace(shape={"stage": 2}, size=2),
-               _args(device="cpu"))
+               types.SimpleNamespace(shape={"stage": 2}, size=1), args)
+    kw = got.value.args[0]
+    assert (kw["max_batch"], kw["max_seq"], kw["kv_dtype"], kw["seed"],
+            kw["device"]) == (4, args.max_seq, torch.int8, args.seed, "cpu")
+    assert kw["sampling"].greedy == args.greedy and kw["mesh"].shape == \
+        {"stage": 2}
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default would run on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):

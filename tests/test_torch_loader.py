@@ -18,9 +18,12 @@
   ``safetensors`` package and by the port's reader.
 """
 
+import functools
 import json
 import os
+import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -172,6 +175,28 @@ def _port_logits(cfg, params, tokens: np.ndarray) -> np.ndarray:
         return tqwen.compute_logits(params, hidden).numpy()
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_rope(max_position: int, head_dim: int, theta: float):
+    """The JAX package's rope tables (what its loader stores,
+    ``loader/convert.py:116``) from a fresh interpreter with no persistent
+    compilation cache: neither an earlier test's state nor a cached
+    executable compiled elsewhere reaches them (ROADMAP C.7)."""
+    code = ("import sys, numpy as np, jax; "
+            "jax.config.update('jax_platforms', 'cpu'); "
+            "from qwen_inference_engine_tpu.ops.rope import precompute_rope; "
+            f"c, s = precompute_rope({max_position}, {head_dim}, {theta!r}); "
+            "np.savez(sys.argv[1], cos=np.asarray(c), sin=np.asarray(s))")
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = ROOT
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "rope.npz")
+        subprocess.run([sys.executable, "-c", code, path], cwd=ROOT, env=env,
+                       check=True, timeout=300)
+        with np.load(path) as z:
+            return z["cos"], z["sin"]
+
+
 CKPT_CASES = [(False, False), (True, False), (False, True)]
 CKPT_IDS = ["qwen2-bias", "qwen3-qknorm", "qwen2-tied"]
 
@@ -197,11 +222,14 @@ def test_load_checkpoint_matches_hf_and_the_jax_loader(tmp_path, qk_norm, tied):
     np.testing.assert_allclose(_port_logits(tcfg, tparams, tokens), hf_logits,
                                rtol=2e-3, atol=2e-3)
 
-    _, jparams = j_load_checkpoint(str(tmp_path), dtype=jnp.float32)
+    jcfg, jparams = j_load_checkpoint(str(tmp_path), dtype=jnp.float32)
     assert_same_leaves(tparams, jparams, skip=("rope_cos", "rope_sin"))
-    for name in ("rope_cos", "rope_sin"):
-        np.testing.assert_allclose(_np_port(tparams[name]),
-                                   _np_jax(jparams[name]), rtol=0, atol=1e-6)
+    rope = (tcfg.max_position_embeddings, tcfg.head_dim, tcfg.rope_theta)
+    assert rope == (jcfg.max_position_embeddings, jcfg.head_dim,
+                    jcfg.rope_theta)
+    for name, want in zip(("rope_cos", "rope_sin"), _jax_rope(*rope)):
+        np.testing.assert_allclose(_np_port(tparams[name]), want, rtol=0,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("qk_norm", [False, True], ids=["qwen2", "qwen3"])

@@ -162,6 +162,45 @@ def test_scheduler_drafter_under_tp_matches_jax(worlds, shape, case):
 
 
 @pytest.mark.parametrize("shape", TP_SHAPES, ids=str)
+def test_drafter_that_does_not_split_drafts_by_prompt_lookup(worlds, shape):
+    """JAX engine/scheduler.py:201-220: a drafter whose one KV head does
+    not split over the model axis warns and serves with prompt-lookup
+    drafts: every rank warns, and its tokens equal the JAX TP scheduler's
+    downgraded run (which warns alike), speculation rounds run."""
+    from qwen_inference_engine_tpu.engine.scheduler import (
+        ContinuousBatchingEngine as JCB,
+        Request as JRequest,
+    )
+    from qwen_inference_engine_tpu.ops.sampling import (
+        SamplingParams as JSamplingParams,
+    )
+
+    jcfg, jparams, tcfg, tparams = models(seed=7)
+    dkw = dict(CFG_KW, num_heads=4, num_kv_heads=1)
+    djcfg, djparams, dtcfg, dtparams = models(dkw, seed=8)
+    mesh = jmesh(shape)
+    with pytest.warns(UserWarning, match="draft model does not shard over "
+                                         "this TP mesh"):
+        cb = JCB(jcfg, j_shard_params(jparams, mesh), mesh=mesh, max_slots=2,
+                 page_size=8, num_pages=64, max_pages_per_seq=16,
+                 sampling=JSamplingParams(greedy=True), kv_dtype=jnp.float32,
+                 speculative=True, spec_k=3, draft_params=djparams,
+                 draft_cfg=djcfg)
+    assert not cb._model_draft
+    for i, pr in enumerate(SERVE_PROMPTS):
+        cb.submit(JRequest(request_id=i, prompt=pr, max_new_tokens=8))
+    want = {f.request_id: f.token_ids for f in cb.run_to_completion()}
+    got = worlds(shape[0] * shape[1]).run(
+        jobs.warned, jobs.serve, shape, tcfg, tparams, SERVE_PROMPTS, 8,
+        {"speculative": True, "spec_k": 3}, None, (dtcfg, dtparams))
+    for r, ((toks, rounds, _), msgs) in enumerate(got):
+        assert toks == want and rounds > 0, (r, toks, want)
+        assert any("draft model does not shard over this TP mesh (head/"
+                   "group alignment); falling back to prompt-lookup "
+                   "speculation" in m for m in msgs), msgs
+
+
+@pytest.mark.parametrize("shape", TP_SHAPES, ids=str)
 def test_http_server_over_tp_ranks_answers_as_one_rank(worlds, shape):
     """``qie serve --tp N``'s ``Server``: rank 0 serves HTTP and sends each
     tick's admissions to the other ranks, which follow its ticks; its

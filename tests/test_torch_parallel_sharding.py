@@ -352,7 +352,7 @@ def test_generate_speculative_under_a_mesh_is_refused():
     (types.SimpleNamespace(shape={"ep": 2}, size=2), ValueError,
      "EP serving step does not take this model.*not a MoE model"),
     (types.SimpleNamespace(shape={"stage": 2}, size=2), NotImplementedError,
-     "pipeline.*next multi-GPU slice"),
+     "pipeline-parallel mesh is served by .*PPFifoScheduler"),
     (fake_mesh(2, 2), ValueError, "pure-TP mesh"),
 ], ids=["ep", "pp", "dp2"])
 def test_serving_refuses_ep_pp_and_data_parallel_meshes(mesh, err, match):
@@ -369,10 +369,12 @@ def test_serving_refuses_ep_pp_and_data_parallel_meshes(mesh, err, match):
 
 @pytest.mark.parametrize("flag,match", [
     ("--ep", "generate --ep: Engine.generate under an expert-parallel mesh"),
-    ("--pp", "next multi-GPU slice")], ids=["--ep", "--pp"])
-def test_cli_ep_and_pp_name_the_next_slice(flag, match):
-    """``generate --ep`` names why it is refused (the JAX engine runs it as
-    GSPMD; ``serve --ep`` serves); ``--pp`` names the next slice."""
+    ("--pp", "generate --pp: the JAX CLI hands the stage mesh to Engine, "
+             "which has no pipeline branch")], ids=["--ep", "--pp"])
+def test_cli_generate_ep_and_pp_name_why(flag, match):
+    """``generate --ep`` and ``generate --pp`` name why they are refused
+    (the JAX engine runs both as GSPMD; ``serve --ep`` / ``serve --pp``
+    serve)."""
     from qwen_inference_engine_tpu_torch.server.cli import main
 
     with pytest.raises(NotImplementedError, match=match):

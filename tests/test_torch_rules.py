@@ -178,26 +178,42 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     assert [f.launches for f in counters] == before
 
 
-def test_unported_variants_raise_on_cuda_before_any_plain_path(monkeypatch):
-    """The dispatch decisions that do not need a card to be made: row0 != 0
-    (pipeline-parallel decode) raises in every decode-side wrapper; INT8
-    weights with bf16 activations, unported until this slice, now reach
-    their kernel's wrapper and never the plain path (a meta tensor stands in
-    for the card; test_cuda_dispatcher_names_the_missing_kernel has every
-    (bits, act_bits) pair)."""
-    with pytest.raises(NotImplementedError, match="row0"):
-        tda.decode_attention_contiguous(torch.zeros(1, 1, 2, 32),
-                                        torch.zeros(1, 1, 1, 256, 32),
-                                        torch.zeros(1, 1, 1, 256, 32), 0,
-                                        torch.ones(1), row0=2)
-    k8 = torch.zeros(1, 1, 1, 256, 32, dtype=torch.int8)
-    s8 = torch.zeros(1, 1, 1, 256)
-    with pytest.raises(NotImplementedError, match="row0"):
-        tda.decode_attention_contiguous_q8(torch.zeros(1, 1, 2, 32), k8, k8,
-                                           s8, s8, 0, torch.ones(1), row0=2)
-    with pytest.raises(NotImplementedError, match="row0"):
-        tka.kv_append_uniform_q8(k8, k8, s8, s8, k8[0, :, :, :1], k8[0, :, :, :1],
-                                 s8[0, :, :, :1], s8[0, :, :, :1], 0, 0, row0=2)
+def test_row0_windows_and_int8_weights_dispatch_before_any_plain_path(
+        monkeypatch):
+    """The dispatch decisions that do not need a card to be made: the four
+    row0 wrappers (the pipeline's 1F1B microbatch window) take any window
+    inside the cache and refuse one past it with ValueError before any
+    plain path or launch, on the CPU as on the card (a meta tensor stands
+    in for it); INT8 weights with bf16 activations reach their kernel's
+    wrapper and never the plain path
+    (test_cuda_dispatcher_names_the_missing_kernel has every (bits,
+    act_bits) pair)."""
+    q, kc = torch.zeros(1, 1, 2, 32), torch.zeros(1, 3, 1, 256, 32)
+    k8 = torch.zeros(1, 3, 1, 256, 32, dtype=torch.int8)
+    s8 = torch.zeros(1, 3, 1, 256)
+    new8 = (k8[0, :1, :, :1], k8[0, :1, :, :1], s8[0, :1, :, :1],
+            s8[0, :1, :, :1])
+    for dev in ("cpu", "meta"):
+        for row0 in (-1, 3):
+            with pytest.raises(ValueError, match="outside the cache"):
+                tda.decode_attention_contiguous(
+                    q.to(dev), kc.to(dev), kc.to(dev), 0,
+                    torch.ones(1, device=dev), row0=row0)
+            with pytest.raises(ValueError, match="outside the cache"):
+                tda.decode_attention_appending(
+                    q.to(dev), kc.to(dev), kc.to(dev), kc[0, :1, :, :1].to(dev),
+                    kc[0, :1, :, :1].to(dev), 0, 0, row0=row0)
+            with pytest.raises(ValueError, match="outside the cache"):
+                tda.decode_attention_contiguous_q8(
+                    q.to(dev), k8.to(dev), k8.to(dev), s8.to(dev), s8.to(dev),
+                    0, torch.ones(1, device=dev), row0=row0)
+            with pytest.raises(ValueError, match="outside the cache"):
+                tka.kv_append_uniform_q8(
+                    k8.to(dev), k8.to(dev), s8.to(dev), s8.to(dev),
+                    *(t.to(dev) for t in new8), 0, 0, row0=row0)
+    out = tda.decode_attention_contiguous(q, kc, kc, 0, torch.ones(1),
+                                          row0=2)
+    assert out.shape == q.shape
     x = torch.empty(2, 128, device="meta")
     lin8 = QuantLinear(q=torch.empty(1, 128, 128, dtype=torch.int8),
                        scales=torch.empty(1, 1, 128), b=None, bits=8,
@@ -437,11 +453,12 @@ def test_paged_wrappers_refuse_before_any_launch():
                                  page_size=16)
 
 
-def test_unported_paged_and_serving_variants_name_what_is_missing():
-    """What stays unported raises NotImplementedError naming its slice, on
-    the CPU as on the card: the pipeline-parallel mesh (the next multi-GPU
-    slice; TP and EP meshes serve, tests/test_torch_parallel_tp.py and
-    tests/test_torch_ep_serving.py) in the serving engine."""
+def test_slot_scheduler_names_the_pp_scheduler_and_needs_a_draft_cfg():
+    """The slot scheduler refuses a pipeline-parallel mesh, naming the
+    engine that serves it (``PPFifoScheduler``, tests/test_torch_pp_*.py;
+    TP and EP meshes serve, tests/test_torch_parallel_tp.py and
+    tests/test_torch_ep_serving.py), on the CPU as on the card; a drafter's
+    params need its config."""
     import types
 
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
@@ -453,7 +470,7 @@ def test_unported_paged_and_serving_variants_name_what_is_missing():
                          dtype=torch.float32)
     kw = dict(max_slots=1, page_size=8, num_pages=8, max_pages_per_seq=4,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(NotImplementedError, match="PPFifoScheduler"):
         ContinuousBatchingEngine(cfg, params, **kw, mesh=types.SimpleNamespace(
             shape={"stage": 2}, size=2))
     with pytest.raises(ValueError, match="draft_cfg"):
@@ -1066,8 +1083,10 @@ FUSED_REFUSALS = {
                           "layer 2"),
     "q8 append position 256": (lambda: _q8_append_call(position=256),
                                IndexError, "outside the cache"),
-    "q8 append row0 4": (lambda: _q8_append_call(row0=4),
-                         NotImplementedError, "row0"),
+    "q8 append row0 4": (lambda: _q8_append_call(row0=4), AssertionError,
+                         "library was asked for"),
+    "q8 append row0 5": (lambda: _q8_append_call(row0=5), ValueError,
+                         "outside the cache"),
     "q8 append cache 1 byte off": (lambda: _q8_append_call(cache_offset=1),
                                    ValueError, "4-byte aligned"),
     "q8 append passes its checks": (lambda: _q8_append_call(),

@@ -33,6 +33,17 @@ def _t(a, dtype=torch.int64):
     return torch.as_tensor(np.asarray(a), dtype=dtype)
 
 
+def warned(mesh_of, rank, job, *args):
+    """``job(mesh_of, rank, *args)`` with its warnings recorded: (its
+    result, the warnings' messages)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = job(mesh_of, rank, *args)
+    return out, [str(w.message) for w in caught]
+
+
 def tp_matmuls(mesh_of, rank, shape, lin, x, layer):
     """(this rank's column-parallel columns, the row-parallel sum) of
     ``x @ lin`` (the row product takes this rank's K shard of x)."""
