@@ -255,6 +255,32 @@ loader: a checkpoint in HF layout (config, index, two BF16 shards, q/k/v
    tokens equal and by length, the paged kernels launched, every greedy
    token equal to the single-rank scheduler's).  The ranks time-share the
    card's SMs: nothing here measures TP speed.
+7b. serving over a data axis and speculation under a mesh, in phase 7's
+   two gloo worlds after their own runs, on the first ``DP_LAYERS`` = 4
+   of the ranks' 28 layers (views; depth cut for time, printed).  [dp
+   serve] at (dp, tp) = (2, 1) and (2, 2): ``ContinuousBatchingEngine``
+   on 8 slots (4 a data group) over a bf16 pool of 512-token pages,
+   prefix cache on: 8 requests of 37..1100 tokens, then two on data group
+   0's slots sharing 1024 and 1040 tokens of slot 7's prompt, whose pages
+   group 1 wrote (the cross-group page copy, ``broadcast_data``, runs:
+   its launches and bytes printed), 16 new tokens each: every rank's
+   tokens equal and by length, each request's greedy tokens equal to the
+   single-rank scheduler's or parting at a near-tie (the single-rank
+   run's own top-two logit margin at the first step that differs, which
+   the reference records, below twice the single-rank W4A8 vs W4A16
+   distance of a first decode step's logits: phase 7's rule at this
+   depth; the parts printed; at (2, 2) o's and down's int8 activations
+   take each token's scale over the whole row, as under the JAX
+   scheduler's GSPMD); the prefix hits equal to the single rank's, the
+   paged decode, chunk and appends, the logits gather and the page
+   broadcast launched on every rank.  [mesh spec] at (2, 1) and
+   (1, 2): ``Engine.generate_speculative`` (k 4, 4 echo prompts, 32 new,
+   EOS off): every rank's ids equal, each row equal to the single-rank
+   ``generate_speculative``'s and greedy ``Engine.generate``'s or parting
+   at a near-tie (their own margins); flash,
+   ``chunk_attention_contiguous`` and ``kv_append_ragged_t`` launched on
+   every rank.  Nothing here measures DP speed
+   (``scripts/time_dp_torch.py`` does, on four cards).
 8. expert parallelism (``parallel/ep_*.py``), gloo ranks sharing the card
    (spawned), Qwen3-30B-A3B at full width, W4A8 gs 256, the same seeded
    params in every process.  [ep moe] at ep = 2 and 4: ``ep_moe_layer``
@@ -2945,8 +2971,9 @@ def f32_swaps():
         quant_matmul,
     )
 
-    def stacked(x, lin, layer, act_bits=0):
-        return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits)
+    def stacked(x, lin, layer, act_bits=0, amax_group=None):
+        return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits,
+                            amax_group=amax_group)
 
     def mlp(x, wg, sg, wu, su, wd, sd, layer, *, gs_gate, gs_down):
         def mm(a, q, sc, gs):
@@ -5486,11 +5513,13 @@ def tp_serve_run(torch, cfg, params, mesh, prompts):
             cb.metrics.snapshot())
 
 
-def tp_rank(rank, world_size, layers, jobs, prompts, serve_prompts):
+def tp_rank(rank, world_size, layers, jobs, prompts, serve_prompts,
+            dp_prompts):
     """One rank of a gloo world on the card: for each (label, (dp, tp))
-    job, the port under that mesh from the same seeded 7B W4A8 params, its
-    launches counted from 0 just before the run and read just after.
-    Returns {label: numbers}."""
+    job, the port under that mesh from the same seeded 7B W4A8 params (the
+    [dp serve] / [mesh spec] jobs on their first ``DP_LAYERS`` layers,
+    ``dp_job``), its launches counted from 0 just before the run and read
+    just after.  Returns {label: numbers}."""
     import torch
 
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
@@ -5507,6 +5536,11 @@ def tp_rank(rank, world_size, layers, jobs, prompts, serve_prompts):
     out = {}
     for label, shape in jobs:
         mesh = make_mesh(shape)
+        if label.startswith(("dp serve", "mesh spec")):
+            out[label] = dp_job(torch, label, *dp_cut(torch, cfg, params),
+                                mesh, wrappers, dp_prompts)
+            torch.cuda.empty_cache()
+            continue
         if label.startswith("tp serve"):
             for w in wrappers.values():
                 w.launches = 0
@@ -5629,8 +5663,10 @@ def tp_graph_case(torch, cfg, params, prompts):
 def run_tp_phases(torch, np, wrappers, layers=28):
     """[tp generate] (tp 2 and 4), [dp generate] (dp 2), [tp serve] (tp 2,
     bf16 pool) as gloo ranks sharing the card, each against the
-    single-rank port run of the same seeded params, and [tp graph].  The
-    ranks time-share the card's SMs: no number here is a TP speed.
+    single-rank port run of the same seeded params, and [tp graph]; then,
+    in the same worlds, [dp serve] at (2, 1) and (2, 2) and [mesh spec] at
+    (2, 1) and (1, 2) on the params' first ``DP_LAYERS`` layers.  The
+    ranks time-share the card's SMs: no number here is a TP or DP speed.
     Returns (every rank's kernel launches summed, the numbers)."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
@@ -5660,19 +5696,22 @@ def run_tp_phases(torch, np, wrappers, layers=28):
     bound = 2 * a8_vs_a16
     ref_serve, _ = tp_serve_run(torch, cfg, params, None, serve_prompts)
     delta, graph_run = tp_graph_case(torch, cfg, params, prompts)
+    dp_ref = dp_references(torch, np, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
     numbers = {"tp graph": graph_run, "bound": bound,
-               "a8_vs_a16": a8_vs_a16}
+               "a8_vs_a16": a8_vs_a16,
+               "dp": dict(layers=DP_LAYERS, bound=dp_ref["bound"],
+                          a8_vs_a16=dp_ref["a8_vs_a16"])}
     launches = {n: 0 for n in wrappers}
     plan = ((2, [("tp generate tp=2", (1, 2)), ("dp generate dp=2", (2, 1)),
-                 ("tp serve tp=2", (1, 2))]),
-            (4, [("tp generate tp=4", (1, 4))]))
+                 ("tp serve tp=2", (1, 2))] + DP_JOBS[2]),
+            (4, [("tp generate tp=4", (1, 4))] + DP_JOBS[4]))
     # both worlds at once: their ranks time-share the card
     done = spawn_worlds([(tp_rank, world, (layers, jobs, prompts,
-                                           serve_prompts))
+                                           serve_prompts, dp_ref["prompts"]))
                          for world, jobs in plan])
     for world, jobs in plan:
         ranks, wall = done[world]
@@ -5680,15 +5719,25 @@ def run_tp_phases(torch, np, wrappers, layers=28):
               f"(spawn, params, runs; beside the other world)", flush=True)
         for label, shape in jobs:
             per = [r[label] for r in ranks]
+            dp_run = (label, shape) in DP_JOBS[world]
             for r, p in enumerate(per):
-                print(f"[{label.split(' ')[0]} {label.split(' ')[1]}] "
-                      f"{label.split(' ')[-1]} rank {r} launches "
+                w = label.split(" ")
+                head = (f"[{label}]" if dp_run
+                        else f"[{w[0]} {w[1]}] {w[-1]}")
+                print(f"{head} rank {r} launches "
                       f"{ {n: c for n, c in p['launches'].items() if c} }",
                       flush=True)
                 for n in wrappers:
                     launches[n] += p["launches"][n]
-            numbers[label] = tp_check(torch, label, shape, per, ref,
-                                      ref_toks, ref_serve, bound, L)
+            if dp_run and label.startswith("dp serve"):
+                numbers[label] = dp_serve_check(torch, label, shape, per,
+                                                dp_ref)
+            elif dp_run:
+                numbers[label] = mesh_spec_check(torch, label, shape, per,
+                                                 dp_ref)
+            else:
+                numbers[label] = tp_check(torch, label, shape, per, ref,
+                                          ref_toks, ref_serve, bound, L)
     return launches, numbers
 
 
@@ -5777,6 +5826,397 @@ def tp_check(torch, label, shape, per, ref, ref_toks, ref_serve, bound, L):
                 ttft_ms=per[0]["ttft_ms"],
                 decode_tok_s=per[0]["decode_tok_s"],
                 launches=per[0]["launches"])
+
+
+# ----------------------------------------------------------------------
+# 7b. serving over a data axis and speculation under a mesh, in phase 7's
+#     gloo worlds, on the first layers of their 7B W4A8 params
+# ----------------------------------------------------------------------
+
+# the depth of [dp serve] and [mesh spec]: the logits gathers, the page
+# copies and the (2, 2) world's all-reduces stage through the host, and
+# the whole smoke must stay within its time
+DP_LAYERS = 4
+DP_CUT = (f"depth cut to {DP_LAYERS} of 28 layers for time (gloo's host "
+          f"round trips: a gather a tick, two all-reduces a layer at tp 2)")
+DP_SERVE_LENS = [37, 300, 700, 1100, 120, 500, 900, 1050]
+DP_SERVE_SHARED = 1024   # the second wave's prefix: slot 7's two pages
+DP_SERVE_NEW = 16
+DP_SPEC_LENS = [180, 300, 450, 600]   # echo prompts, as [generate spec]
+DP_SPEC_NEW = 32
+DP_SPEC_SEQ = 1280                    # the 900-token prompt's bucket + 32
+# the jobs phase 7's worlds of 2 and 4 ranks run after their own
+DP_JOBS = {2: [("dp serve dp=2", (2, 1)), ("mesh spec dp=2", (2, 1)),
+               ("mesh spec tp=2", (1, 2))],
+           4: [("dp serve dp=2 tp=2", (2, 2))]}
+
+
+def dp_cut(torch, cfg, params):
+    """The first ``DP_LAYERS`` layers of the 7B W4A8 params (views: no
+    copy), and their config."""
+    from qwen_inference_engine_tpu_torch.models.qwen import map_params
+
+    return cfg.replace(num_layers=DP_LAYERS), dict(
+        params, layers=map_params(params["layers"],
+                                  lambda t: t[:DP_LAYERS]))
+
+
+def dp_serve_requests(prompts):
+    """[dp serve]'s traffic: 8 prompts on slots 0-7 (data group 1 at dp 2
+    owns 4-7), then two on slots 0 and 1 (group 0): slot 7's prompt's first
+    1024 tokens (its two pages, written by group 1) and its first 1040 (a
+    partial tail copied from its third page too), each with a tail of its
+    own.  Request ids 0-7, then 10 and 11."""
+    first, src = prompts[:8], prompts[7]
+    second = [src[:DP_SERVE_SHARED] + prompts[8],
+              src[:DP_SERVE_SHARED + 16] + prompts[9]]
+    return first, second
+
+
+def top2_margin(logits):
+    """The gap between the two largest logits of each row ``[..., V]``."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu()
+
+
+def dp_serve_run(torch, cfg, params, mesh, prompts, margins=None):
+    """The serving engine on 8 slots over a bf16 pool of 512-token pages
+    (pieces of 256, prefix cache on), greedy, EOS off: the two waves, each
+    drained and the page invariants checked.  Returns (tokens by request,
+    the snapshot with the pages copied between data groups).  With
+    ``margins`` (a dict; one rank only) the waves run step by step and
+    eager, each token's top-two logit margin recorded there by request id
+    and token index (a chained window samples as its ticks one by one, and
+    a replay as its eager step, so the tokens are the same)."""
+    from qwen_inference_engine_tpu_torch.engine import step_graph
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    cb = ContinuousBatchingEngine(
+        cfg, params, mesh=mesh, max_slots=8, page_size=PAGE, num_pages=40,
+        max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
+        sampling=SamplingParams(greedy=True), device=params["embed"].device)
+    cb._eos = set()     # random weights can argmax onto EOS
+    if margins is not None:
+        run_piece, last_piece, decode = (cb._run_piece, cb._pieces[True],
+                                         cb._decode_fn)
+        piece_of = {}
+
+        def on_piece(run, *a, **k):
+            piece_of["rid"] = run.request.request_id
+            return run_piece(run, *a, **k)
+
+        def on_last_piece(*a):
+            logits = last_piece(*a)
+            margins.setdefault(piece_of["rid"], {})[0] = float(
+                top2_margin(logits[0]))
+            return logits
+
+        def on_tick(*a):
+            logits, cache = decode(*a)
+            m = top2_margin(logits)
+            for run in cb._slots:
+                if run is not None and run.prefill_done:
+                    margins.setdefault(run.request.request_id, {})[
+                        len(run.generated)] = float(m[run.slot])
+            return logits, cache
+
+        cb._run_piece, cb._decode_fn = on_piece, on_tick
+        cb._pieces[True] = on_last_piece
+    done = []
+    with step_graph.eager_steps() if margins is not None \
+            else contextlib.nullcontext():
+        for wave, reqs in enumerate(dp_serve_requests(prompts)):
+            for i, p in enumerate(reqs):
+                cb.submit(Request(request_id=10 * wave + i, prompt=p,
+                                  max_new_tokens=DP_SERVE_NEW))
+            if margins is None:
+                done += cb.run_to_completion(sync_every=8)
+            else:
+                while cb.has_work():
+                    done += cb.step()
+            cb.check_page_invariants()
+    return ({f.request_id: (f.finish_reason, f.token_ids) for f in done},
+            dict(cb.metrics.snapshot(), pages_shared=cb.pages_shared))
+
+
+def spec_margins(torch, eng, prompts):
+    """``eng.generate_speculative`` of ``prompts`` (greedy, k = SPEC_K) on
+    one rank, with the top-two logit margin each emitted token was picked
+    from (the prefill's for token 0; after, the verify column whose inputs
+    were the emitted tokens): (ids, {row: {token index: margin}})."""
+    from qwen_inference_engine_tpu_torch.engine import speculative as spec
+
+    forward, logits_of, prefill = (spec.forward_hidden, spec.compute_logits,
+                                   spec.prefill)
+    verifies, first = [], []
+
+    def on_forward(params_, cfg_, tokens, positions, *a, **k):
+        verifies.append([tokens.tolist(), positions.tolist()])
+        return forward(params_, cfg_, tokens, positions, *a, **k)
+
+    def on_logits(*a, **k):
+        out = logits_of(*a, **k)
+        verifies[-1].append(top2_margin(out))
+        return out
+
+    def on_prefill(*a, **k):
+        out = prefill(*a, **k)
+        first.append(top2_margin(out[0]))
+        return out
+
+    with Swapped([(spec, "forward_hidden", on_forward),
+                  (spec, "compute_logits", on_logits),
+                  (spec, "prefill", on_prefill)]):
+        ids = eng.generate_speculative(prompts, max_new_tokens=DP_SPEC_NEW,
+                                       k=SPEC_K)
+    margins = {b: {0: float(first[0][b])} for b in range(len(prompts))}
+    for tokens, positions, m in verifies:
+        for b, p in enumerate(prompts):
+            for j in range(SPEC_K + 1):
+                i = positions[b][j] + 1 - len(p)
+                if 0 < i < len(ids[b]) and i not in margins[b] \
+                        and tokens[b][1:j + 1] == ids[b][i - j:i]:
+                    margins[b][i] = float(m[b, j])
+    return ids, margins
+
+
+def generate_margins(torch, eng, prompts):
+    """Greedy ``eng.generate`` of ``prompts`` on one rank, eager steps (a
+    replay is its eager step), with each token's top-two logit margin:
+    (ids, {row: {token index: margin}})."""
+    from qwen_inference_engine_tpu_torch.engine import step_graph
+    from qwen_inference_engine_tpu_torch.models import qwen
+
+    compute, steps = qwen.compute_logits, []
+
+    def on_logits(*a, **k):
+        out = compute(*a, **k)
+        steps.append(top2_margin(out))
+        return out
+
+    with Swapped([(qwen, "compute_logits", on_logits)]), \
+            step_graph.eager_steps():
+        ids = eng.generate(prompts, max_new_tokens=DP_SPEC_NEW).token_ids
+    return ids, {b: {i: float(steps[i][b]) for i in range(len(ids[b]))}
+                 for b in range(len(prompts))}
+
+
+def margin_parts(tag, side, got, want, margins, bound):
+    """Where each request's greedy tokens ``got[rid]`` part from the
+    single-rank run's ``want[rid]``: the first such position ``i``, and
+    whether it is a near-tie (the single-rank run's own top-two logit
+    margin there, ``margins[rid][i]``, below ``bound``).  Returns (tokens
+    equal before the parts, the parts)."""
+    same, parts = 0, []
+    for rid, w in want.items():
+        have = got[rid]
+        i = next((j for j, (x, y) in enumerate(zip(have, w)) if x != y),
+                 None)
+        if i is None:
+            same += len(w)
+            continue
+        same += i
+        m = margins[rid][i]
+        parts.append({"request": rid, "position": i, "single": w[i],
+                      side: have[i], "single_margin": m,
+                      "near_tie": m < bound})
+        print(f"[{tag}] request {rid} parts from the single-rank run at "
+              f"token {i}: single {w[i]}, {side} {have[i]}, the single-rank "
+              f"top-two margin there {m:.4g} (bound {bound:.4g})",
+              flush=True)
+    return same, parts
+
+
+def dp_job(torch, label, cfg, params, mesh, wrappers, prompts):
+    """One [dp serve] / [mesh spec] job on this rank (``prompts``: the
+    serving and the speculative traffic): the serving engine's two waves,
+    or ``Engine.generate_speculative``, its launches and collective bytes
+    counted from 0 just before the run and read just after."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+
+    serve_prompts, spec_prompts = prompts
+    sending = {n: w for n, w in wrappers.items() if hasattr(w, "sent_bytes")}
+    for w in wrappers.values():
+        w.launches = 0
+    sent = {n: w.sent_bytes for n, w in sending.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if label.startswith("dp serve"):
+        toks, snap = dp_serve_run(torch, cfg, params, mesh, serve_prompts)
+        rec = dict(tokens=toks, snapshot=snap)
+    else:
+        eng = Engine(cfg.replace(eos_token_ids=()), params, mesh=mesh,
+                     max_batch=4, max_seq=DP_SPEC_SEQ)
+        rec = dict(tokens=eng.generate_speculative(
+            spec_prompts, max_new_tokens=DP_SPEC_NEW, k=SPEC_K))
+        del eng
+    torch.cuda.synchronize()
+    rec.update(wall_s=time.perf_counter() - t0,
+               launches={n: w.launches for n, w in wrappers.items()},
+               sent_bytes={n: w.sent_bytes - sent[n]
+                           for n, w in sending.items()})
+    return rec
+
+
+def dp_references(torch, np, cfg, params):
+    """The single-rank runs [dp serve] and [mesh spec] are held to, on
+    ``dp_cut`` of phase 7's params: the serving engine's two waves,
+    ``generate_speculative`` and greedy ``Engine.generate`` (EOS off), each
+    token with its top-two logit margin, and the near-tie bound: twice the
+    single-rank W4A8 vs W4A16 distance of a first decode step's logits
+    (phase 7's rule at this depth)."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    rng = np.random.default_rng(27)
+    cfg, params = dp_cut(torch, cfg, params)
+    serve_prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+                     for n in DP_SERVE_LENS + [40, 60]]
+    spec_prompts = echo_prompts(rng, cfg.vocab_size, DP_SPEC_LENS)
+    serve, snap = dp_serve_run(torch, cfg, params, None, serve_prompts)
+    serve_margins = {}
+    stepped, _ = dp_serve_run(torch, cfg, params, None, serve_prompts,
+                              serve_margins)
+    if stepped != serve:
+        fail("[dp serve]: one rank's step-by-step eager tokens differ from "
+             "its chained captured ones")
+    greedy = SamplingParams(greedy=True)
+    logits = {}
+    for bits in (8, 0):
+        eng = Engine(cfg.replace(eos_token_ids=(), act_bits=bits), params,
+                     max_batch=4, max_seq=DP_SPEC_SEQ, sampling=greedy)
+        with torch.inference_mode():
+            eng.start(spec_prompts, DP_SPEC_NEW, greedy)
+            logits[bits] = eng.decode().float().cpu()
+            if bits == 8:
+                gen = generate_margins(torch, eng, spec_prompts)
+                spec = spec_margins(torch, eng, spec_prompts)
+        del eng
+    a8_vs_a16 = (logits[8] - logits[0]).abs().max().item()
+    torch.cuda.empty_cache()
+    for what, toks, margins in (
+            ("serve", {k: t for k, (_, t) in serve.items()}, serve_margins),
+            ("spec", dict(enumerate(spec[0])), spec[1]),
+            ("generate", dict(enumerate(gen[0])), gen[1])):
+        lost = [(k, i) for k, t in toks.items() for i in range(len(t))
+                if i not in margins.get(k, {})]
+        if lost:
+            fail(f"[dp references]: no {what} margin for (request, token) "
+                 f"{lost[:8]}")
+    return dict(serve=serve, serve_margins=serve_margins, snapshot=snap,
+                prompts=(serve_prompts, spec_prompts), spec=spec,
+                generate=gen, a8_vs_a16=a8_vs_a16, bound=2 * a8_vs_a16)
+
+
+def dp_serve_check(torch, label, shape, per, ref):
+    """One [dp serve] run's rule: every rank's tokens equal, every request
+    by length; each request's greedy tokens equal to the single-rank
+    scheduler's or parting at a near-tie; the prefix hits equal to the
+    single rank's; a page copied between data groups on every rank; the
+    paged kernels, the logits gather and the page broadcast launched on
+    every rank (the all-reduces too at tp 2: the sums, and the per-token
+    maxima of o's and down's whole-row activation scales).  Returns the
+    numbers."""
+    dp, tp = shape
+    toks = [p["tokens"] for p in per]
+    if any(t != toks[0] for t in toks):
+        fail(f"[{label}]: the ranks' tokens differ")
+    bad = [k for k, (why, ids) in toks[0].items()
+           if why != "length" or len(ids) != DP_SERVE_NEW]
+    if len(toks[0]) != 10 or bad:
+        fail(f"[{label}]: {len(toks[0])} of 10 requests, not by length: "
+             f"{bad}")
+    same, ties = margin_parts(
+        label, "dp", {k: t for k, (_, t) in toks[0].items()},
+        {k: t for k, (_, t) in ref["serve"].items()}, ref["serve_margins"],
+        ref["bound"])
+    if not all(t["near_tie"] for t in ties):
+        fail(f"[{label}]: a part from the single-rank run is not a near-tie "
+             f"{ties}")
+    hits = [p["snapshot"]["prefix_hit_tokens"] for p in per]
+    want_hits = ref["snapshot"]["prefix_hit_tokens"]
+    if any(h != want_hits for h in hits) or want_hits < 2 * DP_SERVE_SHARED:
+        fail(f"[{label}]: prefix hits {hits}, the single rank's {want_hits}")
+    must = {"quant_matmul4_a8", "flash_attention", "paged_append_prefill",
+            "paged_chunk_attention", "paged_append_ragged",
+            "paged_decode_attention_stacked"}
+    must |= {"gather_data", "broadcast_data"}
+    must |= {"all_reduce"} if tp > 1 else set()
+    for r, p in enumerate(per):
+        missing = sorted(n for n in must if p["launches"][n] <= 0)
+        if missing or p["snapshot"]["pages_shared"] <= 0:
+            fail(f"[{label}] rank {r}: not launched {missing}, pages "
+                 f"copied between groups {p['snapshot']['pages_shared']}")
+    n_tok = 10 * DP_SERVE_NEW
+    copies = [(p["launches"]["broadcast_data"],
+               p["sent_bytes"]["broadcast_data"]) for p in per]
+    print(f"[dp serve] dp={dp} tp={tp}, 7B W4A8 gs 64, {DP_LAYERS} layers "
+          f"({DP_CUT}), bf16 pool, 8 slots, pages of {PAGE}: 10 requests "
+          f"(prompts {DP_SERVE_LENS}, then 2 sharing {DP_SERVE_SHARED} and "
+          f"{DP_SERVE_SHARED + 16} tokens of slot 7's) by length, tokens "
+          f"equal on every rank | greedy tokens equal to the single-rank "
+          f"scheduler {same}/{n_tok} ({len(ties)} parts, "
+          f"{sum(t['near_tie'] for t in ties)} of them near-ties below "
+          f"{ref['bound']:.4g}) | prefix hits {hits[0]} tokens = the "
+          f"single rank's | pages copied between data groups "
+          f"{per[0]['snapshot']['pages_shared']}; the page broadcasts "
+          f"(launches, bytes sent) by rank {copies} | logits gathered "
+          f"{per[0]['launches']['gather_data']} times, "
+          f"{per[0]['sent_bytes']['gather_data']} bytes sent a rank | TTFT "
+          f"p50 {per[0]['snapshot']['ttft_p50_s'] * 1e3:.1f} ms, wall "
+          f"{per[0]['wall_s']:.2f} s (the ranks share the card: no DP speed)",
+          flush=True)
+    return dict(tokens_equal_single=same, tokens=n_tok, parts=ties,
+                prefix_hit_tokens=hits[0],
+                pages_shared=per[0]["snapshot"]["pages_shared"],
+                page_broadcasts=copies, wall_s=per[0]["wall_s"],
+                gather_bytes=per[0]["sent_bytes"]["gather_data"])
+
+
+def mesh_spec_check(torch, label, shape, per, ref):
+    """One [mesh spec] run's rule: every rank's ids equal; each row equal
+    to the single-rank ``generate_speculative``'s and to the single-rank
+    greedy ``generate``'s, or parting at a near-tie; flash, the
+    contiguous chunk kernel and ``kv_append_ragged_t`` launched on every
+    rank (the stop test's gather at dp 2, the all-reduces at tp 2).
+    Returns the numbers."""
+    dp, tp = shape
+    ids = [p["tokens"] for p in per]
+    if any(t != ids[0] for t in ids):
+        fail(f"[{label}]: the ranks' ids differ")
+    got = dict(enumerate(ids[0]))
+    parts = {}
+    for what in ("spec", "generate"):
+        want, margins = ref[what]
+        parts[what] = margin_parts(f"{label} vs {what}", "mesh", got,
+                                   dict(enumerate(want)), margins,
+                                   ref["bound"])
+        if not all(t["near_tie"] for t in parts[what][1]):
+            fail(f"[{label}]: a part from the single-rank {what} is not a "
+                 f"near-tie: {parts[what][1]}")
+    must = {"quant_matmul4_a8", "flash_attention",
+            "chunk_attention_contiguous", "kv_append_ragged_t"}
+    must |= {"gather_data"} if dp > 1 else {"all_reduce", "all_gather"}
+    for r, p in enumerate(per):
+        missing = sorted(n for n in must if p["launches"][n] <= 0)
+        if missing:
+            fail(f"[{label}] rank {r}: not launched {missing}")
+    n_tok = len(DP_SPEC_LENS) * DP_SPEC_NEW
+    print(f"[mesh spec] dp={dp} tp={tp}, 7B W4A8 gs 64, {DP_LAYERS} layers "
+          f"({DP_CUT}): generate_speculative k {SPEC_K}, batch 4 of echo "
+          f"prompts {DP_SPEC_LENS}, {DP_SPEC_NEW} new, EOS off: ids equal on "
+          f"every rank | equal to the single-rank generate_speculative "
+          f"{parts['spec'][0]}/{n_tok} ({len(parts['spec'][1])} near-ties), "
+          f"to the single-rank greedy generate {parts['generate'][0]}/"
+          f"{n_tok} ({len(parts['generate'][1])} near-ties) | wall "
+          f"{per[0]['wall_s']:.2f} s (the ranks share the card)", flush=True)
+    return dict(tokens=n_tok, wall_s=per[0]["wall_s"],
+                **{f"tokens_equal_single_{w}": v[0] for w, v in parts.items()},
+                **{f"near_ties_{w}": v[1] for w, v in parts.items()})
 
 
 # ----------------------------------------------------------------------

@@ -41,14 +41,18 @@ same engine from the same global params and prompts, and runs its share:
   generator seeded alike);
 * with tp == 1 (pure DP) each rank runs the single-card forward on its
   rows, kernels and all;
-* ``generate`` gathers the rows over the data group, so every rank
-  returns the whole batch's tokens in prompt order.
+* ``generate`` and ``generate_speculative`` gather the rows over the
+  data group, so every rank returns the whole batch's tokens in prompt
+  order (``generate_speculative``: ``engine/speculative.py``, its stop
+  test reduced over the data axis).
 
 A model that does not split over the model axis (``tp_refusal``) raises:
 the JAX engine then drops to GSPMD's partitioned XLA ops, which the port
-does not run.  So do ``generate_speculative`` under a mesh and any
-``Engine`` under an expert-parallel mesh (the JAX engine runs it as
-GSPMD; EP serves through ``ContinuousBatchingEngine``).  The decode
+does not run.  An expert-parallel or a pipeline-parallel mesh raises too,
+as the JAX ``Engine`` does: it builds ``NamedSharding(mesh, P("data"))``
+(JAX ``engine/engine.py:120``) on a mesh that has no data axis.  Those
+meshes are served by ``ContinuousBatchingEngine`` (``serve --ep``) and
+``PPFifoScheduler`` (``serve --pp``).  The decode
 step is captured where the model group is NCCL; a gloo group's
 collectives run on the host, and the engine takes the eager step
 (``graphs.capture`` is false from construction).
@@ -171,19 +175,21 @@ def tp_mesh(mesh, cfg: ModelConfig, params: dict):
     """The mesh whose model axis a TP step splits over, or None (no mesh,
     or tp == 1).  A model that does not split raises, naming why: the JAX
     engines then run GSPMD's partitioned XLA ops, which the port does
-    not; so does an expert-parallel mesh (``Engine``'s; the serving engine
-    takes it apart)."""
+    not; so do an expert-parallel and a pipeline-parallel mesh, on which
+    the JAX ``Engine`` raises (``Engine``'s; the serving engines take
+    them)."""
+    why = ("it builds NamedSharding(mesh, P(\"data\")) (JAX engine/"
+           "engine.py:120) on a mesh that has no data axis")
     if mesh is not None and EP_AXIS in dict(mesh.shape):
         raise NotImplementedError(
-            "Engine under an expert-parallel mesh: the JAX engine runs it as "
-            "GSPMD's partitioned XLA ops, which the port does not; serve it "
-            "with ContinuousBatchingEngine (serve --ep)")
+            f"Engine under an expert-parallel mesh: the JAX Engine raises on "
+            f"it too ({why}); serve it with ContinuousBatchingEngine (serve "
+            f"--ep)")
     if mesh is not None and STAGE_AXIS in dict(mesh.shape):
         raise NotImplementedError(
-            "Engine under a pipeline-parallel mesh: the JAX engine has no "
-            "pipeline branch (it runs the stage mesh as GSPMD's partitioned "
-            "XLA ops), which the port does not; serve it with "
-            "PPFifoScheduler (serve --pp)")
+            f"Engine under a pipeline-parallel mesh: the JAX Engine has no "
+            f"pipeline branch and raises on it too ({why}); serve it with "
+            f"PPFifoScheduler (serve --pp)")
     if mesh is None or mesh.tp == 1:
         return None
     why = tp_refusal(cfg, params, mesh.tp)
@@ -282,7 +288,8 @@ class Engine:
                              ngram: int = 3) -> List[List[int]]:
         """Greedy generation with prompt-lookup speculation (token-exact
         against ``generate`` with greedy sampling; 1..k+1 tokens per
-        forward).  Returns the generated ids of each prompt."""
+        forward).  Returns the generated ids of each prompt; under a mesh
+        every rank returns them all."""
         from qwen_inference_engine_tpu_torch.engine.speculative import (
             generate_speculative,
         )
@@ -290,15 +297,12 @@ class Engine:
         if not 0 < len(prompts) <= self.max_batch:
             raise ValueError(f"{len(prompts)} prompts for max_batch "
                              f"{self.max_batch}")
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(
-                "generate_speculative under a mesh: the JAX engine runs it "
-                "through GSPMD's partitioned XLA ops (no TP step), which "
-                "the port does not; use the serving engine's speculation")
+        mesh = (self.mesh if self.mesh is not None and self.mesh.size > 1
+                else None)
         return generate_speculative(self.params, self.cfg, list(prompts),
                                     self.new_cache(),
                                     max_new_tokens=max_new_tokens, k=k,
-                                    ngram=ngram)
+                                    ngram=ngram, mesh=mesh)
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],

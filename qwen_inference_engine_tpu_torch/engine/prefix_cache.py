@@ -6,6 +6,18 @@ and the page-granular, hash-chained prefix index with sub-page tail
 sharing through a partial-page copy.  The copy is plain torch
 (``PagedKVCache.copy_page``), as it was XLA in the JAX package.
 
+Under a data axis each data group writes only its own slots' pages into
+its pool, while the prefix index is every rank's host state.  ``_held``
+records, for each page in use or parked, the groups that hold its content
+(the writer's group from allocation on); a page leaves it when it returns
+to the free list.  Before a slot of group ``g`` reads a hit page, or a
+partial-tail source, that ``g`` does not hold, ``_share_pages`` broadcasts
+the page over the data axis (``parallel/mesh.broadcast_data``) from the
+lowest group that holds it into the same page id on every group, all
+layers, with the INT8 scales and the drafter's pool: a collective that
+the host state decides, never a host round trip of KV.  Page ids and hit
+counts stay the one-rank scheduler's.
+
 State lives on the engine (``self._free_pages``, ``self._prefix_index``,
 ...); this class only groups the page and prefix logic.
 """
@@ -14,7 +26,10 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+import torch
+
 from qwen_inference_engine_tpu_torch.engine.types import _Running
+from qwen_inference_engine_tpu_torch.parallel.mesh import broadcast_data
 
 
 class PagePoolMixin:
@@ -34,6 +49,8 @@ class PagePoolMixin:
                 del self._prefix_children[parent]
         del self._prefix_index[h]
         del self._page_hash[page]
+        if self._held is not None:
+            self._held.pop(page, None)
         return page
 
     def _page_budget(self) -> int:
@@ -49,6 +66,41 @@ class PagePoolMixin:
             self._cached_free[page] = h     # parked, evictable LRU
         else:
             self._free_pages.append(page)
+            if self._held is not None:
+                self._held.pop(page, None)
+
+    def _share_pages(self, pages: List[int], group: int) -> None:
+        """Make data group ``group`` hold ``pages``: those it does not hold
+        are broadcast over the data axis from the lowest group that holds
+        each (one packed broadcast a source group: k, v, the INT8 scales,
+        the drafter's pool), into the same page ids on every group, which
+        then all hold them."""
+        by_src: Dict[int, List[int]] = {}
+        for p in pages:
+            held = self._held[p]
+            if not held >> group & 1:
+                by_src.setdefault((held & -held).bit_length() - 1,
+                                  []).append(p)
+        every = (1 << self._dpm.dp) - 1
+        for src, ps in sorted(by_src.items()):
+            ids = torch.tensor(ps, device=self.device)
+            leaves = [t for pool in (self.cache, self.draft_cache)
+                      if pool is not None
+                      for t in (pool.k_pages, pool.v_pages, pool.k_scale,
+                                pool.v_scale) if t is not None]
+            parts = [t.index_select(1, ids) for t in leaves]
+            buf = broadcast_data(torch.cat(
+                [x.reshape(-1).view(torch.uint8) for x in parts]),
+                self._dpm, src)
+            off = 0
+            for t, x in zip(leaves, parts):
+                n = x.numel() * x.element_size()
+                t.index_copy_(1, ids, buf[off:off + n].view(x.dtype)
+                              .view(x.shape))
+                off += n
+            for p in ps:
+                self._held[p] = every
+            self.pages_shared += len(ps)
 
     def _prefix_lookup(self, prompt: List[int]):
         """Longest chain of registered pages matching the prompt's leading
@@ -162,3 +214,13 @@ class PagePoolMixin:
         for p, n in refs.items():
             if n > 1:
                 assert p in self._page_hash, f"unregistered page {p} shared"
+        if self._held is not None:
+            # only pages with content are held, and every live run's group
+            # holds each of its pages
+            assert set(self._held) <= cached | live, "a free page is held"
+            assert all(self._held[p] for p in cached)
+            for s in self._slots:
+                if s is not None:
+                    g = self._owner(s.slot)
+                    assert all(self._held[p] >> g & 1 for p in s.pages), \
+                        f"slot {s.slot} reads pages its group {g} lacks"

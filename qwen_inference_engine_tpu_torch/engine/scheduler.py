@@ -56,18 +56,38 @@ Dense and Qwen3-MoE models serve alike, as target or drafter (an MoE
 layer routes every row of a step, a verify's B x (k+1) rows included, as
 one batch).
 
-Under a pure-TP mesh (``parallel/mesh.py``, data axis 1: the page pool is
-shared by every slot) every rank builds the same engine from the same
-global params, takes the same requests in the same order and steps in
-lockstep, so every rank holds the same host state (tokens, positions,
-slots, block tables, prefix index).  Each runs the TP step
-(``parallel/tp_step.py``) on its shards: its KV heads of the pool (the
-prefix cache copies its own heads), its params, its vocabulary shard of
-the logits (``ShardedVocab`` sampling; every rank draws the same token).
-A drafter must split over the same model axis; one that does not drafts
-by prompt lookup, with a warning, as in the JAX scheduler.  Deadlines are
-the clock's and clocks differ between ranks: under a mesh the world's
-rank 0 decides them and broadcasts them in the step.
+Under a ``(data, model)`` mesh (``parallel/mesh.py``) every rank builds
+the same engine from the same global params, takes the same requests in
+the same order and steps in lockstep, so every rank holds the same host
+state (tokens, positions, slots, block tables, prefix index, step counts
+and seeds: the one-rank scheduler's).  Each runs the TP step
+(``parallel/tp_step.py``; the single-card step at tp 1) on its shards:
+its KV heads of the pool, its params, its vocabulary shard of the logits
+(``ShardedVocab`` sampling; every rank draws the same token).  A drafter
+must split over the same model axis; one that does not drafts by prompt
+lookup, with a warning, as in the JAX scheduler.  Deadlines are the
+clock's and clocks differ between ranks: under a mesh the world's rank 0
+decides them and broadcasts them in the step.
+
+Under a data axis of ``dp`` > 1 (the JAX scheduler's GSPMD run, whose
+tokens equal the run without a mesh) data group ``g`` owns slots ``[g * S
+/ dp, (g + 1) * S / dp)`` and every group holds a page pool of all
+``num_pages`` pages (the JAX pool has no data axis).  The decode tick, a
+verify and a draft-model round run the group's own rows, and their
+logits (a round's drafts too) are gathered over the data axis
+(``tp_step.gather_data_rows``: ``S x V / tp x 4`` bytes a tick), so every
+rank runs the one-rank sampler on the whole batch.  A prefill piece runs
+on its owner group only, and a last piece's token reaches the other
+groups by a broadcast over the data axis from the owner; pieces and ticks
+keep the one-rank order.  A group writes only its own slots' pages, so
+the prefix cache stays on across groups: the host state records which
+groups hold each page's content (``_held``), and a hit by a slot of group
+``g`` on pages ``g`` does not hold, or a partial-tail copy from such a
+page, first broadcasts those pages, every layer and (INT8) their scales,
+from a group that holds them (``PagePoolMixin._share_pages``).  As under
+GSPMD, each token's int8 activations of a row-parallel projection (o,
+down; W4A8 / W8A8) take their scale over the whole row, not over the
+rank's K shard as in the pure-TP step (``tp_step.model_group``).
 
 Under an expert-parallel ``("ep",)`` mesh (``parallel/mesh.make_ep_mesh``)
 every rank again holds the same host state, and runs the EP step
@@ -86,10 +106,11 @@ eager.  The JAX scheduler's GSPMD fallbacks raise here, naming the
 condition: ``supports_ep`` false (not a MoE model, ``E % ep`` or
 ``max_slots % ep`` non-zero).
 
-A data axis above 1, or a model that does not split over the model axis,
-raises too (the JAX scheduler then runs GSPMD's XLA ops).  A
-pipeline-parallel mesh raises, naming ``PPFifoScheduler``
-(``engine/pp_scheduler.py``), the engine that serves it.
+A model that does not split over the model axis raises too (the JAX
+scheduler then runs GSPMD's XLA ops), and so does ``max_slots`` that the
+data axis does not divide.  A pipeline-parallel mesh raises, naming
+``PPFifoScheduler`` (``engine/pp_scheduler.py``), the engine that serves
+it.
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do): it never drops to the CPU by itself.
@@ -144,12 +165,16 @@ from qwen_inference_engine_tpu_torch.parallel.ep_step import (
     make_ep_prefill_piece_fn,
 )
 from qwen_inference_engine_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     EP_AXIS,
+    broadcast,
     broadcast_object,
     is_ep_mesh,
 )
 from qwen_inference_engine_tpu_torch.parallel.sharding import shard_params
 from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+    data_rows,
+    gather_data_rows,
     local_config,
     make_tp_decode_fn,
     make_tp_prefill_piece_fn,
@@ -174,12 +199,6 @@ def check_serving_mesh(mesh) -> None:
         return
     if set(axes) != {"data", "model"}:
         raise TypeError(f"not a (data, model) or (ep,) mesh: {axes}")
-    if axes["data"] != 1:
-        raise ValueError(
-            f"serving takes a pure-TP mesh (data axis 1, not "
-            f"{axes['data']}): the page pool is shared by every slot; the "
-            f"JAX scheduler then runs GSPMD's XLA ops, which the port does "
-            f"not")
 
 
 @dataclasses.dataclass
@@ -247,6 +266,15 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         # an ("ep",) mesh of one rank serves as no mesh
         self._tp = (None if mesh is None or EP_AXIS in dict(mesh.shape)
                     else tp_mesh(mesh, cfg, params))
+        # a data axis above 1: this rank's group runs its own slots' rows
+        self._dpm = (mesh if mesh is not None
+                     and dict(mesh.shape).get(DATA_AXIS, 1) > 1 else None)
+        if self._dpm is not None and max_slots % self._dpm.dp:
+            raise ValueError(f"max_slots {max_slots} does not split over "
+                             f"the data axis of {self._dpm.dp}")
+        self._rows = data_rows(self._dpm, max_slots)
+        # the JAX scheduler's GSPMD run: whole-row activation scales
+        self._gspmd = self._dpm is not None
         self._model_draft = speculative and draft_params is not None
         if self._model_draft and self._tp is not None and tp_refusal(
                 draft_cfg, draft_params, self._tp.tp) is not None:
@@ -310,6 +338,11 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         # prefix, searched for partial tail-page reuse
         self._prefix_children: Dict[Optional[int], Dict[int, tuple]] = {}
         self._cached_free: "OrderedDict[int, int]" = OrderedDict()  # page->hash
+        # under a data axis: page -> bit mask of the data groups that hold
+        # its content (the writer's group; a group a hit was copied to)
+        self._held: Optional[Dict[int, int]] = (
+            {} if self._dpm is not None and prefix_cache else None)
+        self.pages_shared = 0    # pages copied between data groups
         self._block_tables = np.zeros((max_slots, max_pages_per_seq), np.int32)
         self._seq_lens = np.zeros((max_slots,), np.int32)
         self._slots: List[Optional[_Running]] = [None] * max_slots
@@ -345,14 +378,15 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
                 cfg, self._ep, scratch=self._ep_scratch)
             self._decode_fn = make_ep_decode_fn(cfg, self._ep)
         else:
-            self._pieces = {last: make_tp_prefill_piece_fn(cfg, self._tp,
-                                                           last=last)
-                            for last in (False, True)}
-            self._decode_fn = make_tp_decode_fn(cfg, self._tp, paged=True)
+            self._pieces = {last: make_tp_prefill_piece_fn(
+                cfg, self._tp, last=last, whole_row_scales=self._gspmd)
+                for last in (False, True)}
+            self._decode_fn = make_tp_decode_fn(
+                cfg, self._tp, paged=True, whole_row_scales=self._gspmd)
         self._vocab = sampling_vocab(self._tp, cfg)
-        # the captured decode tick and the buffers it binds; a gloo model
+        # the captured decode tick and the buffers it binds; a gloo
         # group's collectives run on the host, and EP steps are eager
-        step_mesh = self._ep or self._tp
+        step_mesh = self._ep or self._dpm or self._tp
         self.graphs = StepGraphs(
             self.device, capture=step_mesh is None or step_mesh.capturable)
         self._tick = self._tick_buffers()
@@ -364,11 +398,21 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             return ep_param_shards(params, self._ep)
         return params if self._tp is None else shard_params(params, self._tp)
 
+    def _owner(self, slot: int) -> int:
+        """The index that runs ``slot``'s rows: its EP rank, its data
+        group, or 0 (no such axis)."""
+        n = self._ep.ep if self._ep is not None else (
+            self._dpm.dp if self._dpm is not None else 1)
+        return slot // (self.max_slots // n)
+
     def _owns(self, slot: int) -> bool:
-        """Whether this rank runs ``slot``'s rows (under EP its own slots;
-        every slot otherwise)."""
-        return (self._ep is None
-                or slot // (self.max_slots // self._ep.ep) == self._ep.rank)
+        """Whether this rank runs ``slot``'s rows (under EP its own slots,
+        under a data axis its group's; every slot otherwise)."""
+        if self._ep is not None:
+            return self._owner(slot) == self._ep.rank
+        if self._dpm is not None:
+            return self._owner(slot) == self._dpm.coords[0]
+        return True
 
     def _local(self, cfg: ModelConfig) -> ModelConfig:
         return cfg if self._tp is None else local_config(cfg, self._tp.tp)
@@ -547,6 +591,14 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         fresh = [self._alloc_page() for _ in range(need - len(hits))]
         for p in fresh:
             self._page_refs[p] = 1
+        if self._held is not None:
+            # the slot's group writes its fresh pages and must hold its
+            # hits and the partial source before it reads them
+            g = self._owner(free_slot)
+            for p in fresh:
+                self._held[p] = 1 << g
+            self._share_pages(hits + ([] if part_src is None
+                                      else [part_src]), g)
         pages = hits + fresh
         cached_len = len(hits) * self.page_size
         if part_src is not None:
@@ -582,17 +634,27 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         request's first token with its own parameters and marks it seen;
         returns it as a device tensor [1] (None for an interior piece)."""
         args = (self.params, tokens, start, nvalid, self.cache, table)
-        logits = (self._pieces[last](*args, run.slot) if self._ep is not None
-                  else self._pieces[last](*args))
-        if self._model_draft and self._owns(run.slot):
+        own = self._owns(run.slot)
+        if self._ep is not None:
+            logits = self._pieces[last](*args, run.slot)
+        elif own:   # under a data axis the owner group alone
+            logits = self._pieces[last](*args)
+        if self._model_draft and own:
             self._drafter_piece(tokens, start, table)
         if not last:
             return None
-        sp = run.request.sampling or self.sampling
-        seen = self._seen[run.slot:run.slot + 1]
-        tok = sample_rows(logits, self._generator(run.request.request_id),
-                          k_cap=self.k_cap, seen_mask=seen,
-                          vocab=self._vocab, **self._sp_tensors([sp]))
+        if self._ep is not None or own:
+            sp = run.request.sampling or self.sampling
+            seen = self._seen[run.slot:run.slot + 1]
+            tok = sample_rows(logits, self._generator(run.request.request_id),
+                              k_cap=self.k_cap, seen_mask=seen,
+                              vocab=self._vocab, **self._sp_tensors([sp]))
+        else:
+            tok = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        if self._dpm is not None:
+            # the owner's token on every group
+            tok = broadcast(tok.to(torch.int64), self._dpm.data_group,
+                            self._owner(run.slot))
         self._seen[run.slot, tok] = True
         return tok
 
@@ -703,9 +765,10 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         """The decode tick over the static buffers: the forward, per-row
         sampling, the seen mask; the tokens and positions advanced for the
         next tick of a window.  Returns the sampled tokens."""
-        t = self._tick
-        logits, _ = self._decode_fn(self.params, t.tok, t.pos, self.cache,
-                                    t.tables)
+        t, r = self._tick, self._rows
+        logits, _ = self._decode_fn(self.params, t.tok[r], t.pos[r],
+                                    self.cache, t.tables[r])
+        logits = gather_data_rows(logits, self._dpm)
         nxt = sample_rows(logits, t.gen, k_cap=self.k_cap,
                           seen_mask=self._seen, vocab=self._vocab, **t.sp)
         self._seen[t.rows, nxt] = self._seen[t.rows, nxt] | t.active

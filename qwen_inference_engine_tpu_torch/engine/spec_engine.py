@@ -1,11 +1,14 @@
 """Speculative decoding in the serving scheduler (a mixin of
 ``ContinuousBatchingEngine``).
 
-The port of the JAX package's ``engine/spec_engine.py``.  Under a pure-TP
-mesh every forward here is the TP step on this rank's shards (the
-makers of ``parallel/tp_step.py``: the verify, the draft-model round),
-the drafter's greedy pick is the sharded argmax, and acceptance samples
-on the vocab-sharded logits.  Under an EP mesh the verify and the round
+The port of the JAX package's ``engine/spec_engine.py``.  Under a
+``(data, model)`` mesh every forward here is the TP step on this rank's
+shards (the makers of ``parallel/tp_step.py``: the verify, the
+draft-model round), the drafter's greedy pick is the sharded argmax, and
+acceptance samples on the vocab-sharded logits; with a data axis above 1
+the verify and the round run the rows of this rank's data group, and
+their logits and drafts are gathered over the data axis, so acceptance
+runs on the whole batch as on one rank.  Under an EP mesh the verify and the round
 are the EP step's (``parallel/ep_step.py``): this rank's slots, a dense
 drafter local to them, the logits and drafts gathered so every rank
 accepts on the whole batch's; a drafter's prefill piece runs on the
@@ -63,6 +66,7 @@ from qwen_inference_engine_tpu_torch.parallel.ep_step import (
     make_ep_verify_fn,
 )
 from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+    gather_data_rows,
     make_tp_prefill_piece_fn,
     make_tp_spec_model_fn,
     make_tp_verify_fn,
@@ -75,7 +79,8 @@ class SpeculationMixin:
         """The drafter's prefill piece in lockstep with the target's (no
         sampling: the drafter only needs its pages filled)."""
         piece = make_tp_prefill_piece_fn(self.draft_cfg, self._tp,
-                                         last=False)
+                                         last=False,
+                                         whole_row_scales=self._gspmd)
         piece(self.draft_params, tokens, start, tokens.shape[1],
               self.draft_cache, table)
 
@@ -83,11 +88,14 @@ class SpeculationMixin:
         """The T = k+1 verify forward of every slot and the acceptance:
         returns (chain [S, k+1], n_new [S]); the seen mask takes the
         emitted tokens of active rows."""
-        T = self.spec_k + 1
+        T, r = self.spec_k + 1, self._rows
         verify = (make_ep_verify_fn(self.cfg, self._ep, T=T)
                   if self._ep is not None
-                  else make_tp_verify_fn(self.cfg, self._tp, T=T))
-        logits, _ = verify(self.params, tokens, pos0, self.cache, tables)
+                  else make_tp_verify_fn(self.cfg, self._tp, T=T,
+                                         whole_row_scales=self._gspmd))
+        logits, _ = verify(self.params, tokens[r], pos0[r], self.cache,
+                           tables[r])
+        logits = gather_data_rows(logits, self._dpm)
         return self._accept(logits, drafts, active, sp_rows)
 
     def _accept(self, logits, drafts, active, sp_rows):
@@ -119,10 +127,15 @@ class SpeculationMixin:
         round_fn = (make_ep_spec_model_fn(self.cfg, self.draft_cfg, self._ep,
                                           k=self.spec_k)
                     if self._ep is not None
-                    else make_tp_spec_model_fn(self.cfg, self.draft_cfg,
-                                               self._tp, k=self.spec_k))
-        logits, drafts = round_fn(self.params, self.draft_params, tok_last,
-                                  pos0, self.cache, self.draft_cache, tables)
+                    else make_tp_spec_model_fn(
+                        self.cfg, self.draft_cfg, self._tp, k=self.spec_k,
+                        whole_row_scales=self._gspmd))
+        r = self._rows
+        logits, drafts = round_fn(self.params, self.draft_params,
+                                  tok_last[r], pos0[r], self.cache,
+                                  self.draft_cache, tables[r])
+        logits = gather_data_rows(logits, self._dpm)
+        drafts = gather_data_rows(drafts, self._dpm)
         chain, n_new = self._accept(logits, drafts, active, sp_rows)
         rows = torch.arange(chain.shape[0], device=self.device)
         return chain, n_new, chain[rows, n_new - 1], pos0 + n_new

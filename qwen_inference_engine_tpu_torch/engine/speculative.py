@@ -15,6 +15,21 @@ before it can be attended (writes precede reads at every position).
 
 The rounds run eagerly; the host looks at the rows' state every 4 rounds,
 as the JAX loop does.
+
+Under a ``(data, model)`` mesh (``Engine.generate_speculative`` with
+``mesh``; the JAX engine runs it as GSPMD's XLA ops, whose ids equal the
+run without a mesh) each rank takes its data group's rows of the batch
+(padded to the engine's ``max_batch``; a padding row is done from the
+start) and its TP shards: the prefill is the TP prefill
+(``tp_step.make_tp_prefill_fn``'s one-chunk form, ``prefill`` with the
+model group as ``reduce_group``), each verify ``forward_hidden(...,
+ragged_multi=True, reduce_group=...)`` on the local contiguous cache (o's
+and down's int8 activations scaled over the whole row, as under GSPMD:
+``tp_step.model_group``), and greedy acceptance reads the sharded argmax of the vocabulary-sharded
+logits.  The stop test is reduced over the data axis, so every group runs
+the same rounds (the JAX loop stops on the whole batch; a finished row
+keeps stepping, masked), and every rank returns the whole batch's ids in
+prompt order.
 """
 
 from __future__ import annotations
@@ -29,6 +44,14 @@ from qwen_inference_engine_tpu_torch.models.qwen import (
     compute_logits,
     forward_hidden,
     prefill,
+)
+from qwen_inference_engine_tpu_torch.parallel.mesh import gather_data
+from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+    data_rows,
+    gather_data_rows,
+    local_config,
+    model_group,
+    sharded_argmax,
 )
 
 
@@ -67,13 +90,15 @@ def speculative_step(params: dict, cfg: ModelConfig, history: torch.Tensor,
                      lens: torch.Tensor, cache, done: torch.Tensor,
                      generator: Optional[torch.Generator] = None, *, k: int,
                      ngram: int, greedy: bool = True,
-                     temperature: float = 0.7):
+                     temperature: float = 0.7, reduce_group=None):
     """One speculation round over the contiguous cache.  history [B, S]
     holds prompt + generated so far (updated in place), lens [B] the
     valid length (= next position + 1: the last token is not yet in the
     cache).  Returns (history, lens', cache, done', n_new [B]): n_new tokens
     were appended to each row (0 once it is done).  A stochastic round
-    draws position j of every row as the j-th draw of ``generator``."""
+    draws position j of every row as the j-th draw of ``generator``.
+    reduce_group: the TP step (``params`` / ``cache`` this model rank's
+    shards, ``cfg`` the local config; greedy rounds only)."""
     B, S = history.shape
     dev = history.device
     eos = torch.tensor(list(cfg.eos_token_ids), device=dev)
@@ -84,10 +109,16 @@ def speculative_step(params: dict, cfg: ModelConfig, history: torch.Tensor,
     ar = torch.arange(k + 1, device=dev)
     positions = lens[:, None] - 1 + ar[None, :]
     hidden, cache = forward_hidden(params, cfg, tokens, positions, cache,
-                                   ragged_multi=True)
+                                   ragged_multi=True,
+                                   reduce_group=reduce_group)
     logits = compute_logits(params, hidden, cfg.act_bits_lm_head)
-    if greedy:
+    if greedy and reduce_group is not None:
+        chain = sharded_argmax(logits.reshape(B * (k + 1), -1),
+                               reduce_group).reshape(B, k + 1)
+    elif greedy:
         chain = torch.argmax(logits, dim=-1)
+    elif reduce_group is not None:
+        raise ValueError("a stochastic round takes the whole vocabulary")
     else:
         t = max(float(temperature), 1e-6)
         chain = torch.stack(
@@ -117,49 +148,70 @@ def speculative_step(params: dict, cfg: ModelConfig, history: torch.Tensor,
 def generate_speculative(params: dict, cfg: ModelConfig,
                          prompts: Sequence[Sequence[int]], cache,
                          max_new_tokens: int = 128, *, k: int = 8,
-                         ngram: int = 3) -> List[List[int]]:
+                         ngram: int = 3, mesh=None) -> List[List[int]]:
     """Greedy generation with prompt-lookup speculation over the
     contiguous cache (``cache`` holds at least ``len(prompts)`` rows).
     Token-identical to plain greedy decoding; 1..k+1 tokens per forward.
-    Returns the generated ids of each prompt (cut after an EOS)."""
-    B = len(prompts)
+    Returns the generated ids of each prompt (cut after an EOS).
+
+    mesh: this rank's ``(data, model)`` mesh; ``params`` and ``cache`` are
+    its shards (``cache`` its data group's rows of the batch) and ``cfg``
+    the global config.  Every rank returns every prompt's ids."""
+    n = len(prompts)
+    # the JAX engine runs it as GSPMD's ops: whole-row activation scales
+    group = None if mesh is None or mesh.tp == 1 else model_group(
+        mesh, whole_row_scales=True)
+    cfg_l = cfg if group is None else local_config(cfg, mesh.tp)
+    dpm = mesh if mesh is not None and mesh.dp > 1 else None
+    if dpm is not None:
+        # the whole batch, padded to every group's rows
+        prompts = list(prompts) + [[0]] * (cache.k.shape[1] * dpm.dp - n)
+    mine = data_rows(dpm, len(prompts))
     dev = cache.k.device
     max_len = max(len(p) for p in prompts)
     S = cache.k.shape[3]
     if max_len + max_new_tokens + k + 1 > S:
         raise ValueError(f"cache of {S} positions too small for prompts of "
                          f"{max_len} + {max_new_tokens} new + {k + 1}")
-    hist = np.zeros((B, S), np.int64)
-    lens0 = np.zeros((B,), np.int64)
+    hist = np.zeros((len(prompts), S), np.int64)
+    lens0 = np.zeros((len(prompts),), np.int64)
     for i, p in enumerate(prompts):
         hist[i, :len(p)] = p
         lens0[i] = len(p)
-    history = torch.from_numpy(hist).to(dev)
-    lens = torch.from_numpy(lens0).to(dev)
-    logits, cache = prefill(params, cfg, history[:, :max_len], lens, cache)
-    first = torch.argmax(logits, dim=-1)
+    history = torch.from_numpy(hist[mine]).to(dev)
+    lens = torch.from_numpy(lens0[mine]).to(dev)
+    B = history.shape[0]
+    logits, cache = prefill(params, cfg_l, history[:, :max_len], lens, cache,
+                            reduce_group=group)
+    first = (torch.argmax(logits, dim=-1) if group is None
+             else sharded_argmax(logits, group))
     rows = torch.arange(B, device=dev)
     history[rows, lens] = first
-    prompt_lens = lens0
     lens = lens + 1
     eos = torch.tensor(list(cfg.eos_token_ids), device=dev)
-    done = (first[:, None] == eos[None, :]).any(dim=-1)
+    padding = torch.from_numpy(np.arange(len(prompts))[mine] >= n).to(dev)
+    done = (first[:, None] == eos[None, :]).any(dim=-1) | padding
     budget = lens + (max_new_tokens - 1)
     it = 0
     while True:
         history, lens, cache, done, _ = speculative_step(
-            params, cfg, history, lens, cache, done, k=k, ngram=ngram)
+            params, cfg_l, history, lens, cache, done, k=k, ngram=ngram,
+            reduce_group=group)
         lens = torch.minimum(lens, budget)
         it += 1
         if it % 4 == 0 or it >= max_new_tokens:
-            if bool((done | (lens >= budget)).all()) or it >= max_new_tokens:
+            fin = (done | (lens >= budget)).all()
+            if dpm is not None:   # every group runs the same rounds
+                fin = gather_data(fin.to(torch.int32).reshape(1),
+                                  dpm).bool().all()
+            if bool(fin) or it >= max_new_tokens:
                 break
-    hist_np = history.cpu().numpy()
-    lens_np = lens.cpu().numpy()
+    hist_np = gather_data_rows(history, dpm).cpu().numpy()
+    lens_np = gather_data_rows(lens, dpm).cpu().numpy()
     outs = []
-    for i in range(B):
+    for i in range(n):
         clipped = []
-        for t in hist_np[i, int(prompt_lens[i]):int(lens_np[i])].tolist():
+        for t in hist_np[i, int(lens0[i]):int(lens_np[i])].tolist():
             clipped.append(int(t))
             if t in cfg.eos_token_ids:
                 break

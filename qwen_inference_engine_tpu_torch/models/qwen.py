@@ -550,7 +550,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     (heads divided by tp), and the Megatron sums run over the group (a
     ``parallel/mesh.Group``): after ``o``, after ``down`` (an MoE layer
     sums inside ``moe_mlp``) and, for a vocab-sharded table, the
-    embedding's.  Every kernel runs at the local shapes.
+    embedding's.  Every kernel runs at the local shapes.  Where the group
+    has ``whole_row_scales`` (the JAX package's GSPMD runs), ``o``'s and
+    ``down``'s int8 activations take each token's scale over the whole
+    row (one more all-reduce, of the per-token max, before each).
 
     ep_group: the expert-parallel step (``parallel/ep_step.py``; the JAX
     ``ep_axis``): ``tokens`` are this rank's rows and the expert stacks its
@@ -577,6 +580,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     Qd, Kd = Hq * Dh, Hk * Dh
     eps = cfg.rms_norm_eps
     act = cfg.act_bits
+    whole_rows = (reduce_group if reduce_group is not None
+                  and reduce_group.whole_row_scales else None)
     if deferred_append:
         _check_deferred(cache, T, fresh_prefill, uniform_decode)
         fresh_k, fresh_v = [], []
@@ -692,7 +697,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             _append_rows(cache, l, k, v, row_pos)
             attn = decode_attention_contiguous(q, cache.k, cache.v, l, lengths)
 
-        o = apply_linear(attn.reshape(B, T, Hq * Dh), lyr["o"], l, act)
+        o = apply_linear(attn.reshape(B, T, Hq * Dh), lyr["o"], l, act,
+                         amax_group=whole_rows)
         if reduce_group is not None:
             # row-parallel o: partial sums over the sharded heads
             o = all_reduce(o, reduce_group)
@@ -726,7 +732,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             gate = apply_linear(h, lyr["gate"], l, act)
             up = apply_linear(h, lyr["up"], l, act)
-            d = apply_linear(F.silu(gate) * up, lyr["down"], l, act)
+            d = apply_linear(F.silu(gate) * up, lyr["down"], l, act,
+                             amax_group=whole_rows)
         if reduce_group is not None and not cfg.is_moe:
             # row-parallel down: partial sums over the sharded FFN columns
             d = all_reduce(d, reduce_group)

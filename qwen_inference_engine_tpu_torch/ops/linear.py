@@ -102,14 +102,15 @@ def dequantize(lin: QuantLinear) -> torch.Tensor:
 
 
 def quant_matmul(x: torch.Tensor, lin: QuantLinear,
-                 act_bits: int = 0) -> torch.Tensor:
+                 act_bits: int = 0, amax_group=None) -> torch.Tensor:
     """Plain dequant matmul of one layer's ``lin`` (the counterpart of the
     JAX package's ``_quant_matmul_xla``).
 
     ``y = sum_g (x_g @ q_g) * s_g`` in fp32; ``act_bits=8`` first applies
     the per-token int8 activation quantization of the W4A8/W8A8 kernels
     (``ops/quant_matmul.quantize_activations``) and multiplies the row
-    scale back at the end.
+    scale back at the end (each token's scale over ``amax_group``'s whole
+    row where one is given).
     """
     q = lin.q if lin.bits == 8 else unpack_int4(lin.q, lin.group_size)
     k, n = q.shape
@@ -125,7 +126,7 @@ def quant_matmul(x: torch.Tensor, lin: QuantLinear,
             quantize_activations,
         )
 
-        x, sx = quantize_activations(x)
+        x, sx = quantize_activations(x, amax_group)
     xg = x.reshape(-1, groups, gs).float()
     wg = q.reshape(groups, gs, n).float() * lin.scales[:, None, :]
     y = torch.einsum("mgk,gkn->mn", xg, wg)
@@ -135,13 +136,15 @@ def quant_matmul(x: torch.Tensor, lin: QuantLinear,
 
 
 def apply_linear(x: torch.Tensor, lin, layer: Optional[int] = None,
-                 act_bits: int = 0) -> torch.Tensor:
+                 act_bits: int = 0, amax_group=None) -> torch.Tensor:
     """``x [..., in] @ lin -> [..., out]`` for Linear or QuantLinear.
 
     For a layer-stacked weight pass ``layer``: a QuantLinear is handed to
     ``ops/quant_matmul.quant_matmul_stacked``, which indexes the stacked
     weights without copying them (the CUDA kernel takes the layer index).
-    ``act_bits=8`` (QuantLinear only) quantizes activations per token.
+    ``act_bits=8`` (QuantLinear only) quantizes activations per token;
+    ``amax_group``: ``x`` is this rank's K shard of a row-parallel
+    projection and each token's scale is taken over the whole row.
     """
     stacked = layer is not None
     if isinstance(lin, Linear):
@@ -153,12 +156,13 @@ def apply_linear(x: torch.Tensor, lin, layer: Optional[int] = None,
         )
 
         if stacked:
-            y = quant_matmul_stacked(x, lin, layer, act_bits=act_bits)
+            y = quant_matmul_stacked(x, lin, layer, act_bits=act_bits,
+                                     amax_group=amax_group)
         else:
             y = quant_matmul_stacked(
                 x, dataclasses.replace(lin, q=lin.q[None],
                                        scales=lin.scales[None]),
-                0, act_bits=act_bits)
+                0, act_bits=act_bits, amax_group=amax_group)
     else:
         raise TypeError(f"not a linear: {type(lin)}")
     if lin.b is not None:

@@ -34,13 +34,21 @@ from qwen_inference_engine_tpu_torch.ops import cuda_lib
 from qwen_inference_engine_tpu_torch.ops.linear import QuantLinear, quant_matmul
 
 
-def quantize_activations(x: torch.Tensor):
+def quantize_activations(x: torch.Tensor, amax_group=None):
     """Per-row (= per-token) symmetric int8 quantization of ``x [..., K]``.
 
     Returns ``(q int8 [..., K], scale f32 [..., 1])`` with ``x ~= q * scale``.
+    amax_group: ``x`` is this rank's K shard of rows split over that group
+    (a row-parallel projection); each row's scale is then taken over the
+    whole row, its max reduced over the group (``parallel/mesh.Group.
+    whole_row_scales``).
     """
     xf = x.float()
     ax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_group is not None:
+        from qwen_inference_engine_tpu_torch.parallel.mesh import all_reduce
+
+        all_reduce(ax, amax_group, op="max")
     sx = torch.clamp(ax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return q, sx
@@ -312,15 +320,17 @@ del _w
 
 
 def quant_matmul_stacked(x: torch.Tensor, lin: QuantLinear, layer: int,
-                         act_bits: int = 0) -> torch.Tensor:
+                         act_bits: int = 0, amax_group=None) -> torch.Tensor:
     """``x [..., K] @ lin[layer] -> [..., N]`` for a layer-stacked QuantLinear.
 
     CPU: the plain dequant matmul (``ops/linear.quant_matmul``).  Otherwise
     each ``(bits, act_bits)`` pair goes to its kernel: (4, 8) W4A8, (4, 0)
     W4A16, (8, 0) W8A16, (8, 8) W8A8; activations in bf16, quantized per
-    token for the a8 kernels."""
+    token for the a8 kernels (each token's scale over ``amax_group``'s
+    whole row where one is given: ``quantize_activations``)."""
     if x.device.type == "cpu":
-        return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits)
+        return quant_matmul(x, lin.layer_slice(layer), act_bits=act_bits,
+                            amax_group=amax_group)
     if lin.bits not in (4, 8) or act_bits not in (0, 8):
         raise ValueError(f"no kernel for bits={lin.bits}, "
                          f"act_bits={act_bits}")
@@ -334,7 +344,7 @@ def quant_matmul_stacked(x: torch.Tensor, lin: QuantLinear, layer: int,
         x2 = torch.nn.functional.pad(x2, (0, kp - k_x))
     x2 = x2.contiguous()
     if act_bits == 8:
-        xq, sx = quantize_activations(x2)
+        xq, sx = quantize_activations(x2, amax_group)
         sx = sx.reshape(-1).contiguous()
         if lin.bits == 4:
             y = quant_matmul4_a8(xq, sx, lin.q, lin.scales, layer,

@@ -6,7 +6,9 @@ body under ``shard_map``; the port is SPMD, one process a rank.  Every
 rank runs the same engine code on its own shard and calls the collectives
 explicitly on the mesh's groups:
 
-* ``data`` (DP): independent batch rows, no collective in a step;
+* ``data`` (DP): independent batch rows, no collective inside a layer.
+  The serving engine gathers a tick's logits over it and copies prefix
+  pages between its groups (``gather_data`` / ``broadcast_data``);
 * ``model`` (TP): weights and KV heads sharded, one all-reduce after each
   row-parallel projection (``o``, ``down``), the vocab-sharded embedding's
   sum and the sampler's gathers;
@@ -39,8 +41,9 @@ address", the same probe), so ``ring_exchange`` runs as
 ``all_to_all_single`` with every split but the next stage's empty under
 gloo, and as ``batch_isend_irecv`` under NCCL.
 
-``all_reduce``, ``all_gather``, ``all_to_all``, ``ring_exchange`` and
-``broadcast`` count their calls in ``launches``, as the kernel wrappers do
+``all_reduce``, ``all_gather``, ``all_to_all``, ``ring_exchange``,
+``broadcast`` and the data axis's ``gather_data`` and ``broadcast_data``
+count their calls in ``launches``, as the kernel wrappers do
 (``utils/metrics.collective_wrappers``), so a captured step's replays
 count the collectives inside its graph; all but ``all_reduce`` also count
 the bytes this rank sends in ``sent_bytes``.
@@ -79,23 +82,36 @@ class Group:
     rank: int
     backend: str
     ranks: Tuple[int, ...]
+    # a model group only: whether the TP step's row-parallel projections
+    # (o, down) quantize their int8 activations with each token's scale
+    # over the whole row (the per-token max all-reduced over the group), as
+    # the JAX package's GSPMD runs do, or over this rank's own K, as its
+    # ``shard_map`` TP step does (``parallel/tp_step.model_group``)
+    whole_row_scales: bool = False
 
 
-def all_reduce(t: torch.Tensor, group: Group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; returns ``t``."""
+def all_reduce(t: torch.Tensor, group: Group, op: str = "sum"
+               ) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place by ``op`` ("sum" or "max");
+    returns ``t``."""
     all_reduce.launches += 1
-    dist.all_reduce(t, group=group.pg)
+    dist.all_reduce(t, op=(dist.ReduceOp.MAX if op == "max"
+                           else dist.ReduceOp.SUM), group=group.pg)
     return t
+
+
+def _all_gather(counter, t: torch.Tensor, group: Group) -> torch.Tensor:
+    counter.launches += 1
+    t = t.contiguous()
+    counter.sent_bytes += t.numel() * t.element_size()
+    parts = [torch.empty_like(t) for _ in range(group.size)]
+    dist.all_gather(parts, t, group=group.pg)
+    return torch.stack(parts)
 
 
 def all_gather(t: torch.Tensor, group: Group) -> torch.Tensor:
     """``[group.size, *t.shape]``: every rank's ``t`` in index order."""
-    all_gather.launches += 1
-    t = t.contiguous()
-    all_gather.sent_bytes += t.numel() * t.element_size()
-    parts = [torch.empty_like(t) for _ in range(group.size)]
-    dist.all_gather(parts, t, group=group.pg)
-    return torch.stack(parts)
+    return _all_gather(all_gather, t, group)
 
 
 def all_to_all(t: torch.Tensor, group: Group,
@@ -164,16 +180,35 @@ def ring_exchange(t: torch.Tensor, group: Group,
     return out.view(t.shape) if recv else None
 
 
-def broadcast(t: torch.Tensor, group: Group, src: int = 0) -> torch.Tensor:
-    """``t`` of index ``src`` of ``group`` on every rank, in place (every
-    other rank's ``t`` only gives the shape and type); returns ``t``."""
-    broadcast.launches += 1
+def _broadcast(counter, t: torch.Tensor, group: Group,
+               src: int) -> torch.Tensor:
+    counter.launches += 1
     t = t.contiguous()
     if group.size > 1:
         if group.rank == src:
-            broadcast.sent_bytes += t.numel() * t.element_size()
+            counter.sent_bytes += t.numel() * t.element_size()
         dist.broadcast(t, src=group.ranks[src], group=group.pg)
     return t
+
+
+def broadcast(t: torch.Tensor, group: Group, src: int = 0) -> torch.Tensor:
+    """``t`` of index ``src`` of ``group`` on every rank, in place (every
+    other rank's ``t`` only gives the shape and type); returns ``t``."""
+    return _broadcast(broadcast, t, group, src)
+
+
+def gather_data(t: torch.Tensor, mesh: "Mesh") -> torch.Tensor:
+    """``all_gather`` over the data axis, counted apart: ``[dp,
+    *t.shape]``, the ``t`` of every rank of this rank's data group (the
+    ranks of its model index), in data-index order."""
+    return _all_gather(gather_data, t, mesh.data_group)
+
+
+def broadcast_data(t: torch.Tensor, mesh: "Mesh", src: int) -> torch.Tensor:
+    """``broadcast`` over the data axis, counted apart: ``t`` of data index
+    ``src`` (at this rank's model index) on every rank of the data group,
+    in place; returns ``t``."""
+    return _broadcast(broadcast_data, t, mesh.data_group, src)
 
 
 all_reduce.launches = 0
@@ -185,6 +220,10 @@ ring_exchange.launches = 0
 ring_exchange.sent_bytes = 0
 broadcast.launches = 0
 broadcast.sent_bytes = 0
+gather_data.launches = 0
+gather_data.sent_bytes = 0
+broadcast_data.launches = 0
+broadcast_data.sent_bytes = 0
 
 
 def broadcast_object(obj, group: Group):

@@ -23,10 +23,13 @@ engine shards.  ``split_dims`` is ``param_pspecs`` as one split dimension a
 leaf (None = replicated).
 
 Caches: the contiguous cache splits its KV heads on ``model`` and its batch
-rows on ``data``; the page pool splits its KV heads only (the paged TP step
-takes a pure-TP mesh).  The JAX package falls back to a head_dim split
-where the model axis does not divide the KV heads; that layout only works
-under GSPMD's partitioned XLA attention, and the port refuses it.  So does
+rows on ``data``; the page pool splits its KV heads only, so every data
+group holds all ``num_pages`` pages, as the JAX ``cache_pspecs`` puts no
+data axis on the pool (each group writes its own slots' pages; the serving
+engine copies prefix pages between groups, ``engine/prefix_cache.py``).
+The JAX package falls back to a head_dim split where the model axis does
+not divide the KV heads; that layout only works under GSPMD's
+partitioned XLA attention, and the port refuses it.  So does
 ``batch_shard`` a token axis on ``model`` (the JAX package's
 sequence-sharded prefill, a GSPMD-only path too).
 """

@@ -17,13 +17,23 @@ the Megatron all-reduces explicitly:
   sum; the logits leave the step vocab-sharded and ``ShardedVocab``
   samples on them).
 
+Row-parallel W4A8 / W8A8 projections quantize their activations per
+token over this rank's K, as the JAX ``shard_map`` body does; where the
+JAX package runs GSPMD's ops instead (its scheduler under a data axis,
+``generate_speculative`` under any mesh) the makers take
+``whole_row_scales`` and each token's scale is the whole row's
+(``model_group``).
+
 Every gate that picks a kernel (``fused_mlp_supported``, the split-K
 plans, the paged split plans) sees the local shapes, as the JAX package's
 ``shard_map`` body does.  The makers are the forwards the engines run
 (``Engine``'s prefill and decode step; the serving engine's pieces, tick,
 verify and draft-model round), with or without a mesh: ``mesh=None``
 gives the same functions without collectives, the single-card (or
-pure-DP) step.
+pure-DP) step.  Each runs the rows it is given: under a data axis the
+serving engine hands its tick, verify and round the rows of its own data
+group (``data_rows``) and gathers their outputs over the data axis
+(``gather_data_rows``), so every rank samples the whole batch.
 
 The shards are plain slices (``parallel/sharding.shard_params``), so a
 shard of a stacked ``QuantLinear`` is itself a valid ``QuantLinear`` where
@@ -33,6 +43,7 @@ split is clean, and ``tp_refusal`` names the first condition that fails.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -46,10 +57,10 @@ from qwen_inference_engine_tpu_torch.models.qwen import (
 )
 from qwen_inference_engine_tpu_torch.ops.linear import Linear, QuantLinear
 from qwen_inference_engine_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
     Group,
     Mesh,
     all_gather,
+    gather_data,
 )
 
 
@@ -144,8 +155,19 @@ def supports_tp(cfg: ModelConfig, params: dict, tp: int) -> bool:
     return tp_refusal(cfg, params, tp) is None
 
 
-def model_group(mesh: Optional[Mesh]) -> Optional[Group]:
-    return None if mesh is None else mesh.model_group
+def model_group(mesh: Optional[Mesh],
+                whole_row_scales: bool = False) -> Optional[Group]:
+    """The TP step's ``reduce_group`` (None without a mesh).
+    whole_row_scales: the step keeps the JAX package's GSPMD semantics,
+    where a row-parallel projection's int8 activations take each token's
+    scale over the whole row (the JAX scheduler under a data axis above 1,
+    and ``Engine.generate_speculative`` under any mesh); without it, over
+    this rank's K, as the JAX ``shard_map`` step does."""
+    if mesh is None:
+        return None
+    if whole_row_scales and mesh.tp > 1:
+        return dataclasses.replace(mesh.model_group, whole_row_scales=True)
+    return mesh.model_group
 
 
 def sharded_argmax(logits_l: torch.Tensor, group: Group) -> torch.Tensor:
@@ -208,21 +230,35 @@ def _local(cfg: ModelConfig, mesh: Optional[Mesh]) -> ModelConfig:
     return cfg if mesh is None else local_config(cfg, mesh.tp)
 
 
-def _pure_tp(mesh: Optional[Mesh]) -> None:
-    if mesh is not None and mesh.shape.get(DATA_AXIS, 1) != 1:
-        raise ValueError("paged TP needs a pure-TP mesh (data axis 1): the "
-                         "page pool is shared by every row")
+def data_rows(mesh: Optional[Mesh], n: int) -> slice:
+    """This rank's data group's rows of a batch of ``n``: ``[d * n / dp,
+    (d + 1) * n / dp)`` (every row without a data axis)."""
+    if mesh is None or mesh.dp == 1:
+        return slice(None)
+    if n % mesh.dp:
+        raise ValueError(f"{n} rows do not split over dp={mesh.dp}")
+    k = n // mesh.dp
+    return slice(mesh.coords[0] * k, (mesh.coords[0] + 1) * k)
+
+
+def gather_data_rows(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Every data group's rows of ``t`` in data-index order, ``[dp * rows,
+    ...]`` (``gather_data``); ``t`` itself without a data axis."""
+    if mesh is None or mesh.dp == 1:
+        return t
+    return gather_data(t, mesh).reshape(-1, *t.shape[1:])
 
 
 def make_tp_decode_fn(cfg: ModelConfig, mesh: Optional[Mesh], *,
-                      uniform_decode: bool = False, paged: bool = False):
+                      uniform_decode: bool = False, paged: bool = False,
+                      whole_row_scales: bool = False):
     """``fn(params_l, tok, pos, cache_l[, tables]) -> (logits_l, cache_l)``:
-    one decode step on this rank's shards; the logits are this rank's
-    vocabulary columns.  paged: the cache is the page pool and the fn
-    takes the block tables (pure-TP meshes only)."""
-    cfg_l, group = _local(cfg, mesh), model_group(mesh)
-    if paged:
-        _pure_tp(mesh)
+    one decode step of the rows given on this rank's shards; the logits
+    are this rank's vocabulary columns.  paged: the cache is the page pool
+    and the fn takes the block tables.  whole_row_scales (every maker
+    here): ``model_group``'s."""
+    cfg_l = _local(cfg, mesh)
+    group = model_group(mesh, whole_row_scales)
 
     def fn(params_l, tok, pos, cache_l, tables=None):
         return decode_step(params_l, cfg_l, tok, pos, cache_l, tables,
@@ -232,13 +268,15 @@ def make_tp_decode_fn(cfg: ModelConfig, mesh: Optional[Mesh], *,
     return fn
 
 
-def make_tp_verify_fn(cfg: ModelConfig, mesh: Optional[Mesh], *, T: int):
+def make_tp_verify_fn(cfg: ModelConfig, mesh: Optional[Mesh], *, T: int,
+                      whole_row_scales: bool = False):
     """``fn(params_l, tokens [B, T], pos0 [B], cache_l, tables) -> (logits_l
-    [B, T, V/tp], cache_l)``: the speculative verify over the page pool
-    (T consecutive tokens a row from its start); acceptance runs on the
+    [B, T, V/tp], cache_l)``: the speculative verify of the rows given (T
+    consecutive tokens a row from its start) over the page pool, or over
+    the contiguous cache with ``tables`` None; acceptance runs on the
     sharded logits outside."""
-    cfg_l, group = _local(cfg, mesh), model_group(mesh)
-    _pure_tp(mesh)
+    cfg_l = _local(cfg, mesh)
+    group = model_group(mesh, whole_row_scales)
 
     def fn(params_l, tokens, pos0, cache_l, tables):
         positions = pos0[:, None] + torch.arange(T, device=tokens.device)
@@ -252,7 +290,8 @@ def make_tp_verify_fn(cfg: ModelConfig, mesh: Optional[Mesh], *, T: int):
 
 
 def make_tp_spec_model_fn(cfg: ModelConfig, dcfg: ModelConfig,
-                          mesh: Optional[Mesh], *, k: int):
+                          mesh: Optional[Mesh], *, k: int,
+                          whole_row_scales: bool = False):
     """One draft-model round on this rank's shards: the drafter's k+1
     greedy decode steps (the sharded argmax on its vocab-sharded logits)
     feed the target's T = k+1 verify.  ``fn(params_l, dparams_l, tok_last,
@@ -260,8 +299,10 @@ def make_tp_spec_model_fn(cfg: ModelConfig, dcfg: ModelConfig,
     [B, k])``.  Drafter protocol: step 0 feeds the last token, steps 1..k-1
     feed draft i, step k feeds draft k (its output unused), so the drafter
     writes the KV of every position the verify writes."""
-    dcfg_l, group = _local(dcfg, mesh), model_group(mesh)
-    verify = make_tp_verify_fn(cfg, mesh, T=k + 1)
+    dcfg_l = _local(dcfg, mesh)
+    group = model_group(mesh, whole_row_scales)
+    verify = make_tp_verify_fn(cfg, mesh, T=k + 1,
+                               whole_row_scales=whole_row_scales)
 
     def fn(params_l, dparams_l, tok_last, pos0, cache_l, dcache_l, tables):
         cur, drafts = tok_last, []
@@ -294,14 +335,15 @@ def make_tp_prefill_fn(cfg: ModelConfig, mesh: Optional[Mesh], *,
 
 
 def make_tp_prefill_piece_fn(cfg: ModelConfig, mesh: Optional[Mesh], *,
-                             last: bool):
+                             last: bool, whole_row_scales: bool = False):
     """One prefill piece of one sequence over the page pool (a scheduler
     tick) on this rank's shards: ``fn(params_l, tokens [1, T], start,
     nvalid, cache_l, tables [1, W]) -> logits_l [1, V/tp]`` of the piece's
     last valid token when ``last``, else None.  ``start`` is a host int (0:
-    the fresh-prefill branch)."""
-    cfg_l, group = _local(cfg, mesh), model_group(mesh)
-    _pure_tp(mesh)
+    the fresh-prefill branch).  Under a data axis only the slot's own data
+    group runs it."""
+    cfg_l = _local(cfg, mesh)
+    group = model_group(mesh, whole_row_scales)
 
     def fn(params_l, tokens, start, nvalid, cache_l, tables):
         T = tokens.shape[1]

@@ -34,18 +34,22 @@ card over ``--dp``) spawn ``N * M`` ranks over a ``(dp, tp)`` mesh
 (or the CPU with ``--device cpu``); the backend is NCCL where every rank
 has a card of its own, gloo where ranks share one or run on the CPU.  Each
 rank builds the same seeded model and runs its share; rank 0 prints
-(``generate``) or serves HTTP (``serve``, pure TP).  ``serve --ep N``
+(``generate``, ``generate --speculative`` included) or serves HTTP
+(``serve``: data group ``g`` of ``M`` runs slots ``[g * S / M, (g + 1) *
+S / M)`` of ``--max-slots`` ``S``, each group over ``N`` model ranks,
+the prefix cache shared across groups).  ``serve --ep N``
 (overriding ``--tp`` / ``--dp``, as the JAX CLI) spawns ``N`` ranks over
 an expert-parallel ``("ep",)`` mesh for a Qwen3-MoE model: slots and
 experts sharded, tokens routed by all-to-alls (``parallel/ep_step.py``).
-``generate --ep`` raises (the JAX engine runs it as GSPMD), and so does
-a model the EP step does not take (the JAX CLI ignores ``--ep`` for a
-dense model).  ``serve --pp N`` (overriding ``--tp`` / ``--dp`` /
+``generate --ep`` raises, as the JAX ``Engine`` does on that mesh, and so
+does a model the EP step does not take (the JAX CLI ignores ``--ep`` for
+a dense model).  ``serve --pp N`` (overriding ``--tp`` / ``--dp`` /
 ``--ep``, as the JAX CLI) spawns ``N`` ranks over a pipeline-parallel
 ``("stage",)`` mesh for a dense model and serves FIFO waves through
 ``engine/pp_scheduler.PPFifoScheduler`` (each rank its ``L / N`` layers;
 ``--max-slots`` a multiple of ``N``).  ``generate --pp`` raises: the JAX
-CLI hands the stage mesh to ``Engine``, which has no pipeline branch.
+CLI hands the stage mesh to ``Engine``, which has no pipeline branch and
+raises on it.
 """
 
 from __future__ import annotations
@@ -223,17 +227,17 @@ def run_ranks(args, fn) -> int:
 
 
 def cmd_generate(args) -> int:
+    why = ("it builds NamedSharding(mesh, P(\"data\")) (JAX engine/"
+           "engine.py:120) on a mesh that has no data axis")
     if getattr(args, "pp", 0) > 1:
         raise NotImplementedError(
-            "generate --pp: the JAX CLI hands the stage mesh to Engine, "
-            "which has no pipeline branch (it runs the mesh as GSPMD's "
-            "partitioned XLA ops, which the port does not); serve --pp "
-            "serves a pipeline (PPFifoScheduler)")
+            f"generate --pp: the JAX CLI hands the stage mesh to Engine, "
+            f"which has no pipeline branch and raises on it ({why}); serve "
+            f"--pp serves a pipeline (PPFifoScheduler)")
     if getattr(args, "ep", 0) > 1:
         raise NotImplementedError(
-            "generate --ep: Engine.generate under an expert-parallel mesh is "
-            "GSPMD's partitioned XLA ops in the JAX package, which the port "
-            "does not run; serve --ep serves a MoE model over EP ranks")
+            f"generate --ep: the JAX Engine raises under an expert-parallel "
+            f"mesh ({why}); serve --ep serves a MoE model over EP ranks")
     return run_ranks(args, _generate_rank)
 
 
@@ -331,8 +335,8 @@ def _add_model_args(g) -> None:
     g.add_argument("--tp", type=int, default=0,
                    help="tensor-parallel ranks (0 = every card over --dp)")
     g.add_argument("--dp", type=int, default=1,
-                   help="data-parallel ranks (generate only: serving takes "
-                        "a pure-TP mesh)")
+                   help="data-parallel ranks (serve: each data group runs "
+                        "its own share of --max-slots)")
     g.add_argument("--ep", type=int, default=0,
                    help="expert-parallel ranks for a MoE model (serve only: "
                         "slots and experts sharded over an ('ep',) mesh; "

@@ -27,9 +27,9 @@ draft model from ``--draft-model`` / ``--draft-ckpt``; ``/stats`` reports
 INT8 page pool.  The engine runs on the card unless ``--device cpu`` is
 given.
 
-Under a pure-TP mesh (``serve --tp N``) every rank builds a ``Server``;
-rank 0 alone runs the HTTP front end.  Before each tick rank 0 broadcasts
-that tick's admissions, cancellations and expired deadlines (by its own
+Under a ``(data, model)`` mesh (``serve --tp N --dp M``) every rank
+builds a ``Server``; rank 0 alone runs the HTTP front end.  Before each
+tick rank 0 broadcasts that tick's admissions, cancellations and expired deadlines (by its own
 clock) to every rank (``broadcast_object`` on the world group, at least
 twenty times a second while idle), and every rank then applies them and
 runs the same tick, so every rank's engine holds the same state.  The

@@ -14,7 +14,7 @@ where Python calls it, so a CUDA graph's replay would count nothing and
 its capture would count launches that never ran: ``launch_counts`` and
 ``add_launches`` let the captured steps (``engine/step_graph.py``) take
 the capture's calls back out and add them again at each replay.
-``collective_wrappers()`` names the TP, EP and PP steps' collectives,
+``collective_wrappers()`` names the TP, DP, EP and PP steps' collectives,
 which count their calls the same way, and ``counted_wrappers()`` both
 sets.
 """
@@ -56,13 +56,14 @@ def kernel_wrappers() -> Dict[str, Callable]:
 
 
 def collective_wrappers() -> Dict[str, Callable]:
-    """The collectives of the TP, EP and PP steps (``parallel/mesh.py``), by
-    name."""
+    """The collectives of the TP, DP, EP and PP steps
+    (``parallel/mesh.py``), by name."""
     from qwen_inference_engine_tpu_torch.parallel import mesh
 
     return {w.__name__: w for w in (mesh.all_reduce, mesh.all_gather,
                                     mesh.all_to_all, mesh.ring_exchange,
-                                    mesh.broadcast)}
+                                    mesh.broadcast, mesh.gather_data,
+                                    mesh.broadcast_data)}
 
 
 def counted_wrappers() -> Dict[str, Callable]:

@@ -166,12 +166,15 @@ def test_serving_refuses_what_the_jax_scheduler_runs_as_gspmd(case, match):
 
 
 def test_engine_under_an_ep_mesh_is_refused():
-    """``Engine`` (generate) under an EP mesh: the JAX engine runs it as
-    GSPMD."""
+    """``Engine`` (generate) under an EP mesh: the JAX engine raises there
+    too (``NamedSharding(mesh, P("data"))`` on a mesh with no data axis:
+    ``tests/test_torch_parallel_sharding.py``); EP is served."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
 
     cfg = tiny_config(**MOE)
-    with pytest.raises(NotImplementedError, match="expert-parallel.*GSPMD"):
+    with pytest.raises(NotImplementedError, match="expert-parallel mesh: "
+                                                  "the JAX Engine raises.*"
+                                                  "no data axis.*serve --ep"):
         Engine(cfg, _params(cfg), mesh=fake_ep_mesh(2), max_batch=2,
                max_seq=64, kv_dtype=torch.float32, device="cpu")
 

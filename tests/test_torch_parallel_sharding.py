@@ -8,7 +8,9 @@ with biases and for the MoE expert stacks; ``local_config``,
 ``tp_aligned_group_size`` and ``supports_tp`` equal the JAX functions on a
 table of cases that includes the full Qwen2.5-7B, Qwen3-14B and
 Qwen3-30B-A3B shapes (abstract trees from ``jax.eval_shape``, carried to
-the port as meta tensors).  No process group is needed here.
+the port as meta tensors).  No process group is needed here, but for one
+world of two ranks (``generate_speculative`` under a data axis, which the
+port once refused).
 """
 
 import dataclasses
@@ -41,7 +43,13 @@ from qwen_inference_engine_tpu_torch.parallel import sharding, tp_step
 from qwen_inference_engine_tpu_torch.parallel.tp_kernels import (
     quant_matmul_tp_row,
 )
-from tests.torch_parallel_ref import CFG_KW, MOE_KW, jmesh, models
+from tests.torch_parallel_ref import (  # noqa: F401  (worlds: a fixture)
+    CFG_KW,
+    MOE_KW,
+    jmesh,
+    models,
+    worlds,
+)
 
 
 def fake_mesh(dp, tp, d=0, m=0):
@@ -338,14 +346,25 @@ def test_fused_projections_and_row_biases_do_not_split():
     assert "bias" in tp_step.tp_refusal(cfg, dict(params, layers=lyr), 2)
 
 
-def test_generate_speculative_under_a_mesh_is_refused():
-    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+def test_generate_speculative_under_a_mesh_is_refused(worlds):
+    """No longer refused: ``generate_speculative`` under a (2, 1) mesh
+    (once refused as GSPMD-only) returns on every rank the ids of the
+    JAX engine on the same mesh and of the port's one-rank run
+    (``tests/test_torch_mesh_spec.py`` covers the other meshes)."""
+    from qwen_inference_engine_tpu.engine.engine import Engine as JEngine
+    from tests import torch_parallel_jobs as jobs
 
-    cfg, params = _tiny(**CFG_KW)
-    eng = Engine(cfg, params, mesh=fake_mesh(2, 1), max_batch=2,
-                 max_seq=64, kv_dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        eng.generate_speculative([[1, 2, 3]], max_new_tokens=4)
+    jcfg, jparams, cfg, params = models(dict(CFG_KW, num_layers=2), seed=3)
+    prompts = [[1, 2, 3], [5, 9, 17, 5, 9, 17, 5]]
+    mesh = jmesh((2, 1))
+    want = JEngine(jcfg, j_shard_params(jparams, mesh), mesh=mesh,
+                   max_batch=2, max_seq=64, kv_dtype=jnp.float32
+                   ).generate_speculative(prompts, max_new_tokens=6, k=3)
+    assert jobs.spec_generate(None, 0, None, cfg, params, prompts, 6, 2,
+                              3) == want
+    got = worlds(2).run(jobs.spec_generate, (2, 1), cfg, params, prompts, 6,
+                        2, 3, timeout=240)
+    assert got == [want, want]
 
 
 @pytest.mark.parametrize("mesh,err,match", [
@@ -353,32 +372,64 @@ def test_generate_speculative_under_a_mesh_is_refused():
      "EP serving step does not take this model.*not a MoE model"),
     (types.SimpleNamespace(shape={"stage": 2}, size=2), NotImplementedError,
      "pipeline-parallel mesh is served by .*PPFifoScheduler"),
-    (fake_mesh(2, 2), ValueError, "pure-TP mesh"),
+    (fake_mesh(2, 2), ValueError,
+     "max_slots 3 does not split over the data axis of 2"),
 ], ids=["ep", "pp", "dp2"])
 def test_serving_refuses_ep_pp_and_data_parallel_meshes(mesh, err, match):
+    """The meshes the slot scheduler refuses: an EP mesh for a dense model,
+    a stage mesh (``PPFifoScheduler`` serves it), and a data axis that
+    does not divide ``max_slots`` (a data axis itself is served)."""
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
     )
 
     cfg, params = _tiny(**CFG_KW)
     with pytest.raises(err, match=match):
-        ContinuousBatchingEngine(cfg, params, mesh=mesh, max_slots=2,
+        ContinuousBatchingEngine(cfg, params, mesh=mesh,
+                                 max_slots=3 if "data" in mesh.shape else 2,
                                  page_size=8, num_pages=8,
                                  max_pages_per_seq=4, device="cpu")
 
 
 @pytest.mark.parametrize("flag,match", [
-    ("--ep", "generate --ep: Engine.generate under an expert-parallel mesh"),
-    ("--pp", "generate --pp: the JAX CLI hands the stage mesh to Engine, "
-             "which has no pipeline branch")], ids=["--ep", "--pp"])
+    ("--ep", r"generate --ep: the JAX Engine raises under an "
+             r'expert-parallel mesh \(it builds NamedSharding\(mesh, '
+             r'P\("data"\)\) .* no data axis\); serve --ep'),
+    ("--pp", r"generate --pp: the JAX CLI hands the stage mesh to Engine, "
+             r"which has no pipeline branch and raises on it \(it builds "
+             r'NamedSharding\(mesh, P\("data"\)\) .* no data axis\); '
+             r"serve --pp")], ids=["--ep", "--pp"])
 def test_cli_generate_ep_and_pp_name_why(flag, match):
-    """``generate --ep`` and ``generate --pp`` name why they are refused
-    (the JAX engine runs both as GSPMD; ``serve --ep`` / ``serve --pp``
-    serve)."""
+    """``generate --ep`` and ``generate --pp`` name why they are refused:
+    the JAX ``Engine`` raises on both meshes
+    (``test_jax_engine_raises_under_ep_and_pp_meshes``); ``serve --ep`` /
+    ``serve --pp`` serve them."""
     from qwen_inference_engine_tpu_torch.server.cli import main
 
     with pytest.raises(NotImplementedError, match=match):
         main(["generate", "--model", "tiny", "--device", "cpu", flag, "2"])
+
+
+@pytest.mark.parametrize("kind", ["ep", "pp"])
+def test_jax_engine_raises_under_ep_and_pp_meshes(kind):
+    """What the port's refusals say: the JAX ``Engine`` under
+    ``make_ep_mesh(2)`` or ``make_pp_mesh(2)`` on the virtual CPU devices
+    raises, because it builds ``NamedSharding(mesh, P("data"))`` on a mesh
+    that has no data axis."""
+    from qwen_inference_engine_tpu.engine.engine import Engine as JEngine
+    from qwen_inference_engine_tpu.parallel.ep_step import make_ep_mesh
+    from qwen_inference_engine_tpu.parallel.pp_step import make_pp_mesh
+
+    jcfg, jparams, _, _ = models(dict(MOE_KW if kind == "ep" else CFG_KW,
+                                      num_layers=2), seed=3)
+    mesh = (make_ep_mesh if kind == "ep" else make_pp_mesh)(2)
+    axis = "ep" if kind == "ep" else "stage"
+    with pytest.raises(ValueError, match=f"Resource axis: data of "
+                                         f"PartitionSpec\\('data',\\) is "
+                                         f"not found in mesh: \\('{axis}',\\)"):
+        JEngine(jcfg, jparams, mesh=mesh, max_batch=2, max_seq=64,
+                kv_dtype=jnp.float32).generate([[1, 2, 3], [4, 5]],
+                                               max_new_tokens=2)
 
 
 def test_tp_row_refuses_padded_and_straddling_k():

@@ -169,7 +169,8 @@ def test_pp_scheduler_refuses_what_the_pipeline_does_not_take():
 
 def test_engine_under_a_stage_mesh_names_why():
     """``Engine`` (generate) under a stage mesh raises: the JAX engine has
-    no pipeline branch (it runs the mesh as GSPMD); serving takes it."""
+    no pipeline branch and raises there too (no data axis for its
+    ``NamedSharding``); serving takes it."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
 
     _, _, tcfg, tparams = _model()

@@ -83,18 +83,20 @@ def contiguous_steps(mesh_of, rank, shape, cfg, params, prompts, steps,
 
 
 def paged_steps(mesh_of, rank, shape, cfg, params, prompts, page_size,
-                tables, verify):
+                tables, verify, whole_row_scales=False):
     """Over a page pool of this rank's heads: each prompt's first piece
     (fresh) and second piece (a continuation), a T-token verify of every
-    row and a decode step; the local logits of each."""
-    mesh = mesh_of(shape)
-    cfg_l = local_config(cfg, mesh.tp)
-    params_l = shard_params(params, mesh)
+    row and a decode step; the local logits of each (``shape`` None: one
+    process)."""
+    mesh = None if shape is None else mesh_of(shape)
+    cfg_l = local_config(cfg, 1 if mesh is None else mesh.tp)
+    params_l = params if mesh is None else shard_params(params, mesh)
+    whole = dict(whole_row_scales=whole_row_scales)
     pool = PagedKVCache.create(cfg.num_layers, 32, page_size,
                                cfg_l.num_kv_heads, cfg.head_dim,
                                dtype=torch.float32)
     tables = _t(tables, torch.int32)
-    piece = make_tp_prefill_piece_fn(cfg, mesh, last=True)
+    piece = make_tp_prefill_piece_fn(cfg, mesh, last=True, **whole)
     outs = []
     half = prompts.shape[1] // 2
     for r in range(prompts.shape[0]):
@@ -103,10 +105,10 @@ def paged_steps(mesh_of, rank, shape, cfg, params, prompts, page_size,
             outs.append(piece(params_l, toks, start, n, pool,
                               tables[r:r + 1]).numpy())
     pos0 = torch.full((prompts.shape[0],), prompts.shape[1])
-    vfn = make_tp_verify_fn(cfg, mesh, T=verify.shape[1])
+    vfn = make_tp_verify_fn(cfg, mesh, T=verify.shape[1], **whole)
     logits, _ = vfn(params_l, _t(verify), pos0, pool, tables)
     outs.append(logits.numpy())
-    dec = make_tp_decode_fn(cfg, mesh, paged=True)
+    dec = make_tp_decode_fn(cfg, mesh, paged=True, **whole)
     logits, _ = dec(params_l, _t(verify[:, -1]), pos0 + verify.shape[1],
                     pool, tables)
     outs.append(logits.numpy())
@@ -320,3 +322,50 @@ def spec_model_round(mesh_of, rank, shape, cfg, params, prompts, page_size,
                         torch.full((prompts.shape[0],), n - 1), pools[0],
                         pools[1], tables)
     return logits.numpy(), drafts.numpy()
+
+
+def serve_waves(mesh_of, rank, shape, cfg, params, waves, max_new, kw,
+                draft=None):
+    """Greedy ``ContinuousBatchingEngine`` on 4 slots under the mesh
+    (``shape`` None: one process), prefix cache on: each wave of prompts
+    submitted and drained in turn, request ids numbered across waves.
+    ``check_page_invariants`` must hold after every wave.  Returns
+    ({request id: (finish reason, tokens)}, the prefix hit tokens after
+    each wave, spec rounds, pages copied between data groups)."""
+    from qwen_inference_engine_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        Request,
+    )
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    if draft is not None:
+        kw = dict(kw, draft_cfg=draft[0], draft_params=draft[1])
+    kw = dict(dict(kv_dtype=torch.float32), **kw)
+    cb = ContinuousBatchingEngine(
+        cfg, params, mesh=None if shape is None else mesh_of(shape),
+        max_slots=4, page_size=8, num_pages=64, max_pages_per_seq=16,
+        sampling=SamplingParams(greedy=True), device="cpu", **kw)
+    out, hits, rid = {}, [], 0
+    for wave in waves:
+        for pr in wave:
+            cb.submit(Request(request_id=rid, prompt=list(pr),
+                              max_new_tokens=max_new))
+            rid += 1
+        for f in cb.run_to_completion():
+            out[f.request_id] = (f.finish_reason, f.token_ids)
+        cb.check_page_invariants()
+        hits.append(cb.metrics.snapshot()["prefix_hit_tokens"])
+    return (out, hits, cb.metrics.snapshot()["spec_rounds"],
+            cb.pages_shared)
+
+
+def spec_generate(mesh_of, rank, shape, cfg, params, prompts, max_new,
+                  max_batch, k=4, kv_dtype=torch.float32):
+    """``Engine.generate_speculative`` under the mesh (``shape`` None: one
+    process): every rank's ids."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+
+    eng = Engine(cfg, params, mesh=None if shape is None else mesh_of(shape),
+                 max_batch=max_batch, max_seq=64, kv_dtype=kv_dtype,
+                 device="cpu")
+    return eng.generate_speculative(prompts, max_new_tokens=max_new, k=k)
