@@ -5488,10 +5488,13 @@ def tp_serve_requests(prompts):
     return first, second
 
 
-def tp_serve_run(torch, cfg, params, mesh, prompts):
+def tp_serve_run(torch, cfg, params, mesh, prompts, margins=None):
     """The serving engine at 4 slots over a bf16 pool of 512-token pages,
     prefix cache on: the two waves, each drained.  Returns (tokens by
-    request, snapshot)."""
+    request, snapshot).  With ``margins`` (one rank) the waves run step
+    by step and eager, each token's top-two logit margin recorded there
+    (``record_margins``)."""
+    from qwen_inference_engine_tpu_torch.engine import step_graph
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
         Request,
@@ -5503,23 +5506,33 @@ def tp_serve_run(torch, cfg, params, mesh, prompts):
         max_pages_per_seq=4, prefill_chunk=256, prefix_cache=True,
         sampling=SamplingParams(greedy=True), device=params["embed"].device)
     cb._eos = set()     # random weights can argmax onto EOS
+    if margins is not None:
+        record_margins(cb, margins)
     done = []
-    for wave, reqs in enumerate(tp_serve_requests(prompts)):
-        for i, p in enumerate(reqs):
-            cb.submit(Request(request_id=10 * wave + i, prompt=p,
-                              max_new_tokens=TP_SERVE_NEW))
-        done += cb.run_to_completion(sync_every=8)
+    with step_graph.eager_steps() if margins is not None \
+            else contextlib.nullcontext():
+        for wave, reqs in enumerate(tp_serve_requests(prompts)):
+            for i, p in enumerate(reqs):
+                cb.submit(Request(request_id=10 * wave + i, prompt=p,
+                                  max_new_tokens=TP_SERVE_NEW))
+            if margins is None:
+                done += cb.run_to_completion(sync_every=8)
+            else:
+                while cb.has_work():
+                    done += cb.step()
     return ({f.request_id: (f.finish_reason, f.token_ids) for f in done},
             cb.metrics.snapshot())
 
 
 def tp_rank(rank, world_size, layers, jobs, prompts, serve_prompts,
-            dp_prompts):
+            dp_prompts, uneven):
     """One rank of a gloo world on the card: for each (label, (dp, tp))
     job, the port under that mesh from the same seeded 7B W4A8 params (the
     [dp serve] / [mesh spec] jobs on their first ``DP_LAYERS`` layers,
-    ``dp_job``), its launches counted from 0 just before the run and read
-    just after.  Returns {label: numbers}."""
+    ``dp_job``; [tp fused] on them fused), its launches counted from 0
+    just before the run and read just after; then 7c's models, each built
+    here from its seed once phase 7's params are freed (``uneven_job``;
+    ``uneven``: their inputs).  Returns {label: numbers}."""
     import torch
 
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
@@ -5534,8 +5547,38 @@ def tp_rank(rank, world_size, layers, jobs, prompts, serve_prompts,
     wrappers = counted_wrappers()
     greedy = SamplingParams(greedy=True)
     out = {}
+    built = {}
     for label, shape in jobs:
         mesh = make_mesh(shape)
+        if label.startswith("tp fused"):
+            from qwen_inference_engine_tpu_torch.quant.quantize import (
+                fuse_projections,
+            )
+
+            cfg_c, params_c = dp_cut(torch, cfg, params)
+            out[label] = uneven_job(torch, label, cfg_c,
+                                    fuse_projections(params_c), mesh,
+                                    wrappers, uneven)
+            del params_c
+            continue
+        if label.startswith(("tp uneven", "sp prefill")):
+            if params is not None:
+                # phase 7's params go before 7c's models come
+                params = None
+                gc.collect()
+                torch.cuda.empty_cache()
+            key = "3b bf16" if label.startswith("sp prefill") \
+                else label[len("tp uneven "):]
+            if key not in built:
+                built.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                _, name, fmt, n_layers, _ = next(u for u in UNEVEN
+                                                 if u[0] == key)
+                built[key] = uneven_model(torch, name, fmt, n_layers)
+            out[label] = uneven_job(torch, label, *built[key], mesh,
+                                    wrappers, uneven)
+            continue
         if label.startswith(("dp serve", "mesh spec")):
             out[label] = dp_job(torch, label, *dp_cut(torch, cfg, params),
                                 mesh, wrappers, dp_prompts)
@@ -5697,7 +5740,20 @@ def run_tp_phases(torch, np, wrappers, layers=28):
     ref_serve, _ = tp_serve_run(torch, cfg, params, None, serve_prompts)
     delta, graph_run = tp_graph_case(torch, cfg, params, prompts)
     dp_ref = dp_references(torch, np, cfg, params)
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        fuse_projections,
+    )
+
+    cfg_c, params_c = dp_cut(torch, cfg, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t7c = time.perf_counter()
+    uneven_ref = uneven_references(torch, np, (cfg_c, fuse_projections(
+        params_c)))
+    del params_c
+    print(f"[tp uneven] single-rank references: "
+          f"{time.perf_counter() - t7c:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5707,11 +5763,13 @@ def run_tp_phases(torch, np, wrappers, layers=28):
                           a8_vs_a16=dp_ref["a8_vs_a16"])}
     launches = {n: 0 for n in wrappers}
     plan = ((2, [("tp generate tp=2", (1, 2)), ("dp generate dp=2", (2, 1)),
-                 ("tp serve tp=2", (1, 2))] + DP_JOBS[2]),
-            (4, [("tp generate tp=4", (1, 4))] + DP_JOBS[4]))
+                 ("tp serve tp=2", (1, 2))] + DP_JOBS[2] + FUSED_JOBS[2]),
+            (4, [("tp generate tp=4", (1, 4))] + DP_JOBS[4] + FUSED_JOBS[4]
+             + UNEVEN_JOBS))
     # both worlds at once: their ranks time-share the card
     done = spawn_worlds([(tp_rank, world, (layers, jobs, prompts,
-                                           serve_prompts, dp_ref["prompts"]))
+                                           serve_prompts, dp_ref["prompts"],
+                                           uneven_inputs(np)))
                          for world, jobs in plan])
     for world, jobs in plan:
         ranks, wall = done[world]
@@ -5720,16 +5778,23 @@ def run_tp_phases(torch, np, wrappers, layers=28):
         for label, shape in jobs:
             per = [r[label] for r in ranks]
             dp_run = (label, shape) in DP_JOBS[world]
+            new = label.startswith(("tp fused", "tp uneven", "sp prefill"))
             for r, p in enumerate(per):
                 w = label.split(" ")
-                head = (f"[{label}]" if dp_run
+                head = (f"[{label}]" if dp_run or new
                         else f"[{w[0]} {w[1]}] {w[-1]}")
                 print(f"{head} rank {r} launches "
                       f"{ {n: c for n, c in p['launches'].items() if c} }",
                       flush=True)
                 for n in wrappers:
                     launches[n] += p["launches"][n]
-            if dp_run and label.startswith("dp serve"):
+            if new:
+                numbers[label] = uneven_check(
+                    torch, label, shape, per, uneven_ref[
+                        " ".join(label.split(" ")[:2])
+                        if label.startswith(("tp fused", "sp prefill"))
+                        else label])
+            elif dp_run and label.startswith("dp serve"):
                 numbers[label] = dp_serve_check(torch, label, shape, per,
                                                 dp_ref)
             elif dp_run:
@@ -5879,6 +5944,37 @@ def top2_margin(logits):
     return (top[..., 0] - top[..., 1]).cpu()
 
 
+def record_margins(cb, margins):
+    """Record in ``margins`` each token's top-two logit margin of the
+    serving engine ``cb`` (one rank), by request id and token index: its
+    last prefill piece's and its ticks' logits."""
+    run_piece, last_piece, decode = (cb._run_piece, cb._pieces[True],
+                                     cb._decode_fn)
+    piece_of = {}
+
+    def on_piece(run, *a, **k):
+        piece_of["rid"] = run.request.request_id
+        return run_piece(run, *a, **k)
+
+    def on_last_piece(*a):
+        logits = last_piece(*a)
+        margins.setdefault(piece_of["rid"], {})[0] = float(
+            top2_margin(logits[0]))
+        return logits
+
+    def on_tick(*a):
+        logits, cache = decode(*a)
+        m = top2_margin(logits)
+        for run in cb._slots:
+            if run is not None and run.prefill_done:
+                margins.setdefault(run.request.request_id, {})[
+                    len(run.generated)] = float(m[run.slot])
+        return logits, cache
+
+    cb._run_piece, cb._decode_fn = on_piece, on_tick
+    cb._pieces[True] = on_last_piece
+
+
 def dp_serve_run(torch, cfg, params, mesh, prompts, margins=None):
     """The serving engine on 8 slots over a bf16 pool of 512-token pages
     (pieces of 256, prefix cache on), greedy, EOS off: the two waves, each
@@ -5901,31 +5997,7 @@ def dp_serve_run(torch, cfg, params, mesh, prompts, margins=None):
         sampling=SamplingParams(greedy=True), device=params["embed"].device)
     cb._eos = set()     # random weights can argmax onto EOS
     if margins is not None:
-        run_piece, last_piece, decode = (cb._run_piece, cb._pieces[True],
-                                         cb._decode_fn)
-        piece_of = {}
-
-        def on_piece(run, *a, **k):
-            piece_of["rid"] = run.request.request_id
-            return run_piece(run, *a, **k)
-
-        def on_last_piece(*a):
-            logits = last_piece(*a)
-            margins.setdefault(piece_of["rid"], {})[0] = float(
-                top2_margin(logits[0]))
-            return logits
-
-        def on_tick(*a):
-            logits, cache = decode(*a)
-            m = top2_margin(logits)
-            for run in cb._slots:
-                if run is not None and run.prefill_done:
-                    margins.setdefault(run.request.request_id, {})[
-                        len(run.generated)] = float(m[run.slot])
-            return logits, cache
-
-        cb._run_piece, cb._decode_fn = on_piece, on_tick
-        cb._pieces[True] = on_last_piece
+        record_margins(cb, margins)
     done = []
     with step_graph.eager_steps() if margins is not None \
             else contextlib.nullcontext():
@@ -5984,7 +6056,7 @@ def spec_margins(torch, eng, prompts):
     return ids, margins
 
 
-def generate_margins(torch, eng, prompts):
+def generate_margins(torch, eng, prompts, max_new=DP_SPEC_NEW):
     """Greedy ``eng.generate`` of ``prompts`` on one rank, eager steps (a
     replay is its eager step), with each token's top-two logit margin:
     (ids, {row: {token index: margin}})."""
@@ -6000,7 +6072,7 @@ def generate_margins(torch, eng, prompts):
 
     with Swapped([(qwen, "compute_logits", on_logits)]), \
             step_graph.eager_steps():
-        ids = eng.generate(prompts, max_new_tokens=DP_SPEC_NEW).token_ids
+        ids = eng.generate(prompts, max_new_tokens=max_new).token_ids
     return ids, {b: {i: float(steps[i][b]) for i in range(len(ids[b]))}
                  for b in range(len(prompts))}
 
@@ -6217,6 +6289,344 @@ def mesh_spec_check(torch, label, shape, per, ref):
     return dict(tokens=n_tok, wall_s=per[0]["wall_s"],
                 **{f"tokens_equal_single_{w}": v[0] for w, v in parts.items()},
                 **{f"near_ties_{w}": v[1] for w, v in parts.items()})
+
+
+# ----------------------------------------------------------------------
+# 7c. models that do not split evenly over the model axis (the JAX
+#     package's GSPMD cases: parallel/tp_step.TpLayout), fused projections
+#     under TP and the sequence-parallel prefill, in phase 7's gloo worlds
+# ----------------------------------------------------------------------
+
+# [tp uneven]'s models: (label, preset, format, layers, serve too)
+UNEVEN_CUT = 8     # the bf16 runs' depth, cut for time
+UNEVEN = [("7b w4a8 gs256", "qwen2.5-7b", "w4a8", 28, True),
+          ("3b w4a8 gs256", "qwen2.5-3b", "w4a8", 36, True),
+          ("0.5b bf16", "qwen2.5-0.5b", "bf16", 24, False),
+          ("3b bf16", "qwen2.5-3b", "bf16", UNEVEN_CUT, False)]
+SP_T = 1024        # [sp prefill]: 2 x SP_T tokens on the 3b bf16 model
+UNEVEN_VOCAB = 151936   # the prompts' ids, below every model's vocabulary
+# the jobs of phase 7's worlds after 7b: [tp fused] on phase 7's params
+# (before they are freed), then the new models at tp 4
+FUSED_JOBS = {2: [("tp fused tp=2", (1, 2))],
+              4: [("tp fused dp=2 tp=2", (2, 2))]}
+UNEVEN_JOBS = [(f"tp uneven {u[0]}", (1, 4)) for u in UNEVEN] + \
+    [("sp prefill tp=4", (1, 4))]
+
+
+def uneven_model(torch, name, fmt, layers, seed=28):
+    """A preset at ``layers`` layers from a seeded generator on the current
+    card (the same in every process): W4A8 with INT4 groups of 256 (the
+    JAX bench's format, which no even split takes at tp 4) or bf16."""
+    from qwen_inference_engine_tpu_torch.config import PRESETS
+    from qwen_inference_engine_tpu_torch.models.qwen import (
+        init_params,
+        init_quantized_params,
+    )
+
+    cfg = PRESETS[name].replace(num_layers=layers)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if fmt == "w4a8":
+        return cfg.replace(act_bits=8), init_quantized_params(
+            cfg, gen, bits=4, group_size=256, device=dev)
+    return cfg, init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+
+
+def uneven_inputs(np):
+    """[tp uneven]'s batch (TP_LENS), serving traffic (as [tp serve]'s) and
+    [sp prefill]'s 2 x SP_T tokens."""
+    rng = np.random.default_rng(28)
+    prompts = [rng.integers(0, UNEVEN_VOCAB, size=n).tolist()
+               for n in TP_LENS]
+    serve = [rng.integers(0, UNEVEN_VOCAB, size=n).tolist()
+             for n in TP_SERVE_LENS + [40, 100]]
+    return prompts, serve, rng.integers(0, UNEVEN_VOCAB, size=(2, SP_T))
+
+
+def first_step_and_margins(torch, cfg, params, prompts):
+    """One rank: the first decode step's logits of greedy
+    ``Engine.generate`` of ``prompts`` (TP_NEW tokens) and the run's ids
+    with each token's top-two logit margin."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+
+    greedy = SamplingParams(greedy=True)
+    eng = Engine(cfg, params, max_batch=4, max_seq=1024, sampling=greedy,
+                 device=params["embed"].device)
+    with torch.inference_mode():
+        eng.start(prompts, TP_NEW, greedy)
+        logits = eng.decode().float().cpu()
+    gen = generate_margins(torch, eng, prompts, TP_NEW)
+    del eng
+    return logits, gen
+
+
+def bound_of(torch, cfg, params, prompts, logits):
+    """Phase 7's bound for a model: twice its single-rank distance from
+    the same weights one quantization step away (W4A8 vs W4A16
+    activations; bf16 vs INT8 weights, groups of 128)."""
+    from qwen_inference_engine_tpu_torch.quant.quantize import (
+        QuantConfig,
+        quantize_params,
+    )
+
+    if cfg.act_bits == 8:
+        other, _ = first_step_and_margins(torch, cfg.replace(act_bits=0),
+                                          params, prompts)
+    else:
+        other, _ = first_step_and_margins(
+            torch, cfg, quantize_params(params, QuantConfig(
+                bits=8, group_size=128)), prompts)
+    return 2 * (logits - other).abs().max().item()
+
+
+def uneven_references(torch, np, fused_of):
+    """The single-rank runs 7c is held to: ``fused_of`` (phase 7's params
+    cut to DP_LAYERS and fused) and each of UNEVEN, the first decode
+    step's logits, greedy ids with margins, the bound, the serving
+    engine's ids with margins, and [sp prefill]'s logits."""
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.models.qwen import prefill
+
+    prompts, serve_prompts, sp_tokens = uneven_inputs(np)
+    refs = {}
+    cfg, params = fused_of
+    logits, gen = first_step_and_margins(torch, cfg, params, prompts)
+    refs["tp fused"] = dict(logits=logits, generate=gen,
+                            bound=bound_of(torch, cfg, params, prompts,
+                                           logits))
+    for label, name, fmt, layers, serve in UNEVEN:
+        t0 = time.perf_counter()
+        cfg, params = uneven_model(torch, name, fmt, layers)
+        logits, gen = first_step_and_margins(torch, cfg, params, prompts)
+        ref = dict(logits=logits, generate=gen,
+                   bound=bound_of(torch, cfg, params, prompts, logits))
+        if serve:
+            margins = {}
+            ref["serve"] = tp_serve_run(torch, cfg, params, None,
+                                        serve_prompts, margins)[0]
+            ref["serve_margins"] = margins
+        if label == "3b bf16":
+            dev = params["embed"].device
+            tokens = torch.as_tensor(sp_tokens, device=dev)
+            cache = KVCache.create(cfg.num_layers, 2, SP_T,
+                                   cfg.num_kv_heads, cfg.head_dim,
+                                   dtype=params["embed"].dtype, device=dev)
+            with torch.inference_mode():
+                sp, _ = prefill(params, cfg, tokens,
+                                torch.full((2,), SP_T, device=dev), cache)
+            refs["sp prefill"] = dict(logits=sp.float().cpu(),
+                                      bound=ref["bound"])
+            del cache
+        refs[f"tp uneven {label}"] = ref
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[tp uneven] single-rank reference of {label} ({layers} "
+              f"layers): {time.perf_counter() - t0:.1f} s", flush=True)
+    return refs
+
+
+def uneven_job(torch, label, cfg, params, mesh, wrappers, inputs):
+    """One 7c job on this rank: greedy ``Engine.generate`` of the batch
+    (and, for the W4A8 models, the serving engine's two waves), or the
+    sequence-parallel prefill; launches counted from 0 just before each
+    run and read just after, the layout, the peak memory and the wall
+    time."""
+    from qwen_inference_engine_tpu_torch.engine.engine import Engine
+    from qwen_inference_engine_tpu_torch.kvcache.cache import KVCache
+    from qwen_inference_engine_tpu_torch.ops.sampling import SamplingParams
+    from qwen_inference_engine_tpu_torch.parallel.sharding import (
+        batch_shard,
+        shard_params,
+    )
+    from qwen_inference_engine_tpu_torch.parallel.tp_step import (
+        make_tp_sp_prefill_fn,
+        tp_layout,
+    )
+
+    prompts, serve_prompts, sp_tokens = inputs
+    greedy = SamplingParams(greedy=True)
+    dev = params["embed"].device
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = {}
+    if label.startswith("sp prefill"):
+        layout = tp_layout(cfg, params, mesh.tp)
+        params_l = shard_params(params, mesh, layout)
+        cfg_l = layout.local_config(cfg)
+        cache = KVCache.create(cfg.num_layers, 2, SP_T, cfg_l.num_kv_heads,
+                               cfg.head_dim, dtype=params["embed"].dtype,
+                               device=dev)
+        tokens = batch_shard(torch.as_tensor(sp_tokens, device=dev),
+                             mesh, (None, "model"))
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.inference_mode():
+            logits, _ = make_tp_sp_prefill_fn(cfg, mesh, layout=layout)(
+                params_l, tokens, torch.full((2,), SP_T, device=dev),
+                cache)
+        rec.update(logits=logits.float().cpu(), tokens_shape=tuple(
+            tokens.shape), launches={n: w.launches
+                                     for n, w in wrappers.items()})
+        del params_l, cache
+    else:
+        eng = Engine(cfg, params, mesh=mesh, max_batch=4, max_seq=1024,
+                     sampling=greedy, device=dev)
+        layout = eng.layout
+        with torch.inference_mode():
+            eng.start(prompts, TP_NEW, greedy)
+            logits = eng.decode().float().cpu()
+        for w in wrappers.values():
+            w.launches = 0
+        res = eng.generate(prompts, max_new_tokens=TP_NEW)
+        rec.update(logits=logits, tokens=res.token_ids, steps=res.steps,
+                   ttft_ms=res.ttft_s * 1e3,
+                   decode_tok_s=res.decode_tokens_per_s,
+                   launches={n: w.launches for n, w in wrappers.items()})
+        del eng
+        if cfg.act_bits == 8 and label.startswith("tp uneven"):
+            for w in wrappers.values():
+                w.launches = 0
+            toks, snap = tp_serve_run(torch, cfg, params, mesh,
+                                      serve_prompts)
+            rec.update(serve=toks, snapshot=snap, serve_launches={
+                n: w.launches for n, w in wrappers.items()})
+    if card:
+        torch.cuda.synchronize()
+    rec.update(wall_s=time.perf_counter() - t0, layout=layout.summary(),
+               vocab_split=layout.vocab == "split",
+               collectives=layout.collectives(cfg.num_layers, cfg.act_bits),
+               reduce_o=layout.reduce_o, reduce_mlp=layout.reduce_mlp,
+               gather_o=layout.o == "gather",
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card
+               else 0.0)
+    if card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def join_logits(torch, per, shape, vocab_split):
+    """The global logits of every rank's piece: a data group's model ranks
+    joined on the vocabulary (where it splits), the groups on the rows."""
+    dp, tp = shape
+    rows = []
+    for d in range(dp):
+        mine = [p["logits"] for p in per[d * tp:(d + 1) * tp]]
+        rows.append(torch.cat(mine, dim=-1) if vocab_split else mine[0])
+    return torch.cat(rows, dim=0)
+
+
+def uneven_check(torch, label, shape, per, ref):
+    """One 7c job's rule (phase 7's): every rank's tokens equal; the
+    joined first decode step's (or [sp prefill]'s) logits within the
+    bound of the single-rank run; each greedy token equal to the
+    single-rank run's or parting at a near-tie (its margin below the
+    bound); the collectives as the layout's formula gives them; the
+    serving engine's requests by length with prefix hits.  Prints each
+    rank's launches, peak memory and the job's seconds."""
+    dp, tp = shape
+    p0 = per[0]
+    print(f"[{label}] layout: {p0['layout']} | wall {p0['wall_s']:.1f} s | "
+          f"peak memory a rank "
+          f"{[round(p['peak_gb'], 2) for p in per]} GB", flush=True)
+    got = join_logits(torch, per, shape, p0["vocab_split"])
+    want = ref["logits"]
+    if got.shape != want.shape or not bool(got.isfinite().all()):
+        fail(f"[{label}]: logits {tuple(got.shape)} not finite or not "
+             f"{tuple(want.shape)}")
+    err = (got - want).abs().max().item()
+    if not err <= ref["bound"]:
+        fail(f"[{label}]: logits {err} from the single-rank run, > "
+             f"{ref['bound']}")
+    out = dict(max_abs_diff=err, bound=ref["bound"], wall_s=p0["wall_s"],
+               peak_gb=[p["peak_gb"] for p in per], layout=p0["layout"])
+    if label.startswith("sp prefill"):
+        L = UNEVEN_CUT
+        want_calls = {
+            "all_gather": 2 * L + L * p0["gather_o"] + p0["vocab_split"],
+            "reduce_scatter": L * (p0["reduce_o"] + p0["reduce_mlp"])
+            + p0["vocab_split"], "all_reduce": 1}
+        for r, p in enumerate(per):
+            calls = {n: p["launches"][n] for n in want_calls}
+            if calls != want_calls or p["tokens_shape"] != (2, SP_T // tp):
+                fail(f"[{label}] rank {r}: collectives {calls} (want "
+                     f"{want_calls}), tokens {p['tokens_shape']}")
+        print(f"[sp prefill] tp={tp}: Qwen2.5-3B bf16, {L} layers (of 36, "
+              f"cut for time), 2 x {SP_T} tokens, {SP_T // tp} a "
+              f"rank | last tokens' logits vs the unsharded prefill max |d| "
+              f"{err:.4g} (bound {ref['bound']:.4g}) | a rank's collectives "
+              f"{want_calls}", flush=True)
+        return dict(out, collectives=want_calls)
+    toks = [p["tokens"] for p in per]
+    if any(t != toks[0] for t in toks):
+        fail(f"[{label}]: the ranks' tokens differ")
+    same, ties = margin_parts(label, "tp", dict(enumerate(toks[0])),
+                              dict(enumerate(ref["generate"][0])),
+                              ref["generate"][1], ref["bound"])
+    if not all(t["near_tie"] for t in ties):
+        fail(f"[{label}]: a part from the single-rank run is not a near-tie "
+             f"{ties}")
+    forwards = p0["steps"]
+    ar, ag = p0["collectives"]["all_reduce"], p0["collectives"]["all_gather"]
+    # the sampler's two gathers a forward on a split vocabulary; under a
+    # data axis the rows' and the step counts' gathers at the end
+    must = {"all_reduce": ar * forwards,
+            "all_gather": (ag + 2 * p0["vocab_split"]) * forwards
+            + 2 * (dp > 1)}
+    for r, p in enumerate(per):
+        wrong = {n: p["launches"][n] for n, c in must.items()
+                 if p["launches"][n] != c}
+        if wrong or p["launches"]["flash_attention"] <= 0:
+            fail(f"[{label}] rank {r}: collectives {wrong} (want {must})")
+    n_tok = 4 * TP_NEW
+    out.update(tokens_equal_single=same, tokens=n_tok, parts=ties,
+               collectives=must, ttft_ms=p0["ttft_ms"],
+               decode_tok_s=p0["decode_tok_s"])
+    line = (f"[{label}] dp={dp} tp={tp}: batch 4 {TP_LENS}, {TP_NEW} tokens,"
+            f" gloo ranks sharing the card (eager steps) | first decode "
+            f"step's logits vs the single-rank run max |d| {err:.4g} (bound "
+            f"{ref['bound']:.4g}) | tokens equal on every rank, equal to "
+            f"the single-rank run {same}/{n_tok} ({len(ties)} near-ties) | "
+            f"a forward's collectives {p0['collectives']} + the sampler's "
+            f"gathers | ttft {p0['ttft_ms']:.1f} ms, "
+            f"{p0['decode_tok_s']:.1f} tok/s (not a TP speed)")
+    if "serve" in p0:
+        served = [p["serve"] for p in per]
+        if any(t != served[0] for t in served):
+            fail(f"[{label}]: the ranks' served tokens differ")
+        bad = [k for k, (why, ids) in served[0].items()
+               if why != "length" or len(ids) != TP_SERVE_NEW]
+        if len(served[0]) != 6 or bad:
+            fail(f"[{label}]: {len(served[0])} of 6 requests, not by length:"
+                 f" {bad}")
+        s_same, s_ties = margin_parts(
+            label + " serve", "tp",
+            {k: t for k, (_, t) in served[0].items()},
+            {k: t for k, (_, t) in ref["serve"].items()},
+            ref["serve_margins"], ref["bound"])
+        if not all(t["near_tie"] for t in s_ties):
+            fail(f"[{label}] serve: a part from the single-rank scheduler is "
+                 f"not a near-tie {s_ties}")
+        hits = p0["snapshot"]["prefix_hit_tokens"]
+        if hits < 2 * TP_SERVE_SHARED:
+            fail(f"[{label}] serve: prefix hits {hits}")
+        for r, p in enumerate(per):
+            print(f"[{label}] serve rank {r} launches "
+                  f"{ {n: c for n, c in p['serve_launches'].items() if c} }",
+                  flush=True)
+        line += (f" | serving 6 requests on 4 slots (2 sharing "
+                 f"{TP_SERVE_SHARED} tokens), bf16 pool: equal on every "
+                 f"rank, to the single-rank scheduler {s_same}/"
+                 f"{6 * TP_SERVE_NEW} ({len(s_ties)} near-ties), prefix hits "
+                 f"{hits}")
+        out.update(serve_equal_single=s_same, serve_parts=s_ties,
+                   prefix_hit_tokens=hits)
+    print(line, flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -7287,8 +7697,11 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def mark(phase):
-        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s",
-              flush=True)
+        free, total = torch.cuda.mem_get_info()
+        print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s "
+              f"(this process holds {torch.cuda.memory_reserved() / 2**30:.2f}"
+              f" GiB; the card has {free / 2**30:.1f} of "
+              f"{total / 2**30:.1f} GiB free)", flush=True)
 
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

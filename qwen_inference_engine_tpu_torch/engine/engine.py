@@ -38,7 +38,7 @@ same engine from the same global params and prompts, and runs its share:
 * with tp > 1 the model ranks run the TP step (``parallel/tp_step.py``) on
   their shards of the params and the cache's KV heads, and sample on
   their vocabulary shards (every model rank draws the same token from a
-  generator seeded alike);
+  generator seeded alike), in the model's ``TpLayout``;
 * with tp == 1 (pure DP) each rank runs the single-card forward on its
   rows, kernels and all;
 * ``generate`` and ``generate_speculative`` gather the rows over the
@@ -46,9 +46,13 @@ same engine from the same global params and prompts, and runs its share:
   order (``generate_speculative``: ``engine/speculative.py``, its stop
   test reduced over the data axis).
 
-A model that does not split over the model axis (``tp_refusal``) raises:
-the JAX engine then drops to GSPMD's partitioned XLA ops, which the port
-does not run.  An expert-parallel or a pipeline-parallel mesh raises too,
+A model that does not split evenly over the model axis (``tp_refusal``;
+the JAX engine then drops to GSPMD's partitioned XLA ops) runs in the
+GSPMD layout that ``tp_step.tp_layout`` chooses block by block: its KV
+heads replicated or its attention whole, its MLP split unevenly on whole
+groups or whole, its vocabulary whole where tp does not divide it, every
+step with whole-row activation scales and without ``fused_mlp``, on the
+same kernels.  An expert-parallel or a pipeline-parallel mesh raises,
 as the JAX ``Engine`` does: it builds ``NamedSharding(mesh, P("data"))``
 (JAX ``engine/engine.py:120``) on a mesh that has no data axis.  Those
 meshes are served by ``ContinuousBatchingEngine`` (``serve --ep``) and
@@ -95,11 +99,10 @@ from qwen_inference_engine_tpu_torch.parallel.sharding import (
     shard_params,
 )
 from qwen_inference_engine_tpu_torch.parallel.tp_step import (
-    local_config,
     make_tp_decode_fn,
     make_tp_prefill_fn,
     sampling_vocab,
-    tp_refusal,
+    tp_layout,
 )
 from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
 
@@ -172,12 +175,11 @@ def _bucket(n: int, minimum: int = 16) -> int:
 
 
 def tp_mesh(mesh, cfg: ModelConfig, params: dict):
-    """The mesh whose model axis a TP step splits over, or None (no mesh,
-    or tp == 1).  A model that does not split raises, naming why: the JAX
-    engines then run GSPMD's partitioned XLA ops, which the port does
-    not; so do an expert-parallel and a pipeline-parallel mesh, on which
-    the JAX ``Engine`` raises (``Engine``'s; the serving engines take
-    them)."""
+    """``(mesh, layout)``: the mesh whose model axis a TP step splits over
+    and the model's ``TpLayout`` on it, or ``(None, None)`` (no mesh, or
+    tp == 1).  An expert-parallel and a pipeline-parallel mesh raise, as
+    the JAX ``Engine`` does on them (``Engine``'s; the serving engines
+    take them)."""
     why = ("it builds NamedSharding(mesh, P(\"data\")) (JAX engine/"
            "engine.py:120) on a mesh that has no data axis")
     if mesh is not None and EP_AXIS in dict(mesh.shape):
@@ -191,13 +193,8 @@ def tp_mesh(mesh, cfg: ModelConfig, params: dict):
             f"pipeline branch and raises on it too ({why}); serve it with "
             f"PPFifoScheduler (serve --pp)")
     if mesh is None or mesh.tp == 1:
-        return None
-    why = tp_refusal(cfg, params, mesh.tp)
-    if why is not None:
-        raise ValueError(f"this model does not split over the mesh's model "
-                         f"axis ({why}); the JAX engine then runs GSPMD's "
-                         f"partitioned XLA ops, which the port does not")
-    return mesh
+        return None, None
+    return mesh, tp_layout(cfg, params, mesh.tp)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -223,7 +220,7 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = mesh
-        self._tp = tp_mesh(mesh, cfg, params)
+        self._tp, self.layout = tp_mesh(mesh, cfg, params)
         dp = 1 if mesh is None else mesh.dp
         if max_batch % dp:
             raise ValueError(f"max_batch {max_batch} does not split over "
@@ -231,14 +228,16 @@ class Engine:
         # this rank's rows of the batch, and its shard of the model
         self.local_batch = max_batch // dp
         self.params = params_to(params if self._tp is None
-                                else shard_params(params, self._tp),
+                                else shard_params(params, self._tp,
+                                                  self.layout),
                                 self.device)
-        # the forward's config (heads divided by tp), its prefill (the TP
+        # the forward's config (this rank's heads), its prefill (the TP
         # step's on this rank's shards) and the samplers' view of the logits
         self._fcfg = (cfg if self._tp is None
-                      else local_config(cfg, self._tp.tp))
-        self._prefill = make_tp_prefill_fn(cfg, self._tp, chunk=512)
-        self._vocab = sampling_vocab(self._tp, cfg)
+                      else self.layout.local_config(cfg))
+        self._prefill = make_tp_prefill_fn(cfg, self._tp, chunk=512,
+                                           layout=self.layout)
+        self._vocab = sampling_vocab(self._tp, cfg, self.layout)
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.kv_dtype = kv_dtype
@@ -302,7 +301,8 @@ class Engine:
         return generate_speculative(self.params, self.cfg, list(prompts),
                                     self.new_cache(),
                                     max_new_tokens=max_new_tokens, k=k,
-                                    ngram=ngram, mesh=mesh)
+                                    ngram=ngram, mesh=mesh,
+                                    layout=self.layout)
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -455,7 +455,8 @@ class Engine:
         positions advanced.  Returns the logits."""
         b, params, vocab = self.buffers(), self.params, self._vocab
         seen = b.seen if track else None
-        step = make_tp_decode_fn(self.cfg, self._tp, uniform_decode=uniform)
+        step = make_tp_decode_fn(self.cfg, self._tp, uniform_decode=uniform,
+                                 layout=self.layout)
 
         def body():
             if pumped:

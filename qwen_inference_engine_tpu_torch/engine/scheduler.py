@@ -61,11 +61,17 @@ the same engine from the same global params, takes the same requests in
 the same order and steps in lockstep, so every rank holds the same host
 state (tokens, positions, slots, block tables, prefix index, step counts
 and seeds: the one-rank scheduler's).  Each runs the TP step
-(``parallel/tp_step.py``; the single-card step at tp 1) on its shards:
-its KV heads of the pool, its params, its vocabulary shard of the logits
-(``ShardedVocab`` sampling; every rank draws the same token).  A drafter
-must split over the same model axis; one that does not drafts by prompt
-lookup, with a warning, as in the JAX scheduler.  Deadlines are the
+(``parallel/tp_step.py``; the single-card step at tp 1) on its shards in
+the model's ``TpLayout``: its KV heads of the pool (one KV head where
+they are replicated, all where the attention runs whole), its params,
+its vocabulary shard of the logits (``ShardedVocab`` sampling; every rank
+draws the same token; the whole logits where the vocabulary runs whole).
+A model that does not split evenly (the JAX scheduler's GSPMD run) takes
+the GSPMD layout with whole-row activation scales.  Where the target runs
+the JAX ``shard_map`` step (pure TP, ``supports_tp``) a drafter must
+split as it does; one that does not drafts by prompt lookup, with a
+warning, as in the JAX scheduler.  Where the target runs GSPMD the
+drafter runs beside it in its own layout.  Deadlines are the
 clock's and clocks differ between ranks: under a mesh the world's rank 0
 decides them and broadcasts them in the step.
 
@@ -102,15 +108,15 @@ writes its pool, the others a scratch pool), and interior pieces batched
 one per owner rank where two owners have one (``_ep_prefill_batch_tick``);
 a dense drafter local to each rank's slots (an MoE drafter drafts by
 prompt lookup, with a warning, as in the JAX scheduler).  EP steps run
-eager.  The JAX scheduler's GSPMD fallbacks raise here, naming the
-condition: ``supports_ep`` false (not a MoE model, ``E % ep`` or
-``max_slots % ep`` non-zero).
+eager.  Where ``supports_ep`` is false (not a MoE model, ``E % ep`` or
+``max_slots % ep`` non-zero) the engine raises, naming the condition, as
+the JAX scheduler does: it drops to ``make_sharded_cache``, whose
+``cache_pspecs`` reads the mesh's ``model`` axis, and an ``("ep",)``
+mesh has none (``KeyError: 'model'``, JAX ``parallel/sharding.py:110``).
 
-A model that does not split over the model axis raises too (the JAX
-scheduler then runs GSPMD's XLA ops), and so does ``max_slots`` that the
-data axis does not divide.  A pipeline-parallel mesh raises, naming
-``PPFifoScheduler`` (``engine/pp_scheduler.py``), the engine that serves
-it.
+``max_slots`` that the data axis does not divide raises.  A
+pipeline-parallel mesh raises, naming ``PPFifoScheduler``
+(``engine/pp_scheduler.py``), the engine that serves it.
 
 The engine runs on the card unless the caller passes ``device="cpu"`` (the
 tests do): it never drops to the CPU by itself.
@@ -175,10 +181,10 @@ from qwen_inference_engine_tpu_torch.parallel.sharding import shard_params
 from qwen_inference_engine_tpu_torch.parallel.tp_step import (
     data_rows,
     gather_data_rows,
-    local_config,
     make_tp_decode_fn,
     make_tp_prefill_piece_fn,
     sampling_vocab,
+    tp_layout,
     tp_refusal,
 )
 from qwen_inference_engine_tpu_torch.utils.metrics import Metrics
@@ -248,8 +254,10 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             if why is not None:
                 raise ValueError(
                     f"the EP serving step does not take this model ({why}); "
-                    f"the JAX scheduler then runs GSPMD's XLA ops "
-                    f"(use_pallas=False), which the port does not")
+                    f"the JAX scheduler raises here too: it drops to "
+                    f"make_sharded_cache, whose cache_pspecs reads the "
+                    f"mesh's 'model' axis, which an ('ep',) mesh lacks "
+                    f"(KeyError: 'model', JAX parallel/sharding.py:110)")
             if (speculative and draft_params is not None
                     and draft_cfg is not None and draft_cfg.is_moe):
                 # a dense drafter runs on each rank's own slots; an MoE one
@@ -264,8 +272,9 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
                               "pages cannot be shared across ranks")
                 prefix_cache = False
         # an ("ep",) mesh of one rank serves as no mesh
-        self._tp = (None if mesh is None or EP_AXIS in dict(mesh.shape)
-                    else tp_mesh(mesh, cfg, params))
+        self._tp, self.layout = ((None, None) if mesh is None
+                                 or EP_AXIS in dict(mesh.shape)
+                                 else tp_mesh(mesh, cfg, params))
         # a data axis above 1: this rank's group runs its own slots' rows
         self._dpm = (mesh if mesh is not None
                      and dict(mesh.shape).get(DATA_AXIS, 1) > 1 else None)
@@ -273,20 +282,28 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             raise ValueError(f"max_slots {max_slots} does not split over "
                              f"the data axis of {self._dpm.dp}")
         self._rows = data_rows(self._dpm, max_slots)
-        # the JAX scheduler's GSPMD run: whole-row activation scales
-        self._gspmd = self._dpm is not None
+        # the JAX scheduler's GSPMD run (a data axis, or a model that
+        # does not split evenly): whole-row activation scales
+        self._gspmd = self._dpm is not None or (
+            self.layout is not None and self.layout.gspmd)
         self._model_draft = speculative and draft_params is not None
-        if self._model_draft and self._tp is not None and tp_refusal(
-                draft_cfg, draft_params, self._tp.tp) is not None:
-            # the drafter runs in the target's TP round, so it must split
-            # as the target does; as the JAX scheduler, an unsplittable one
-            # drafts by prompt lookup instead
-            warnings.warn("draft model does not shard over this TP mesh "
-                          "(head/group alignment); falling back to "
-                          "prompt-lookup speculation")
-            self._model_draft = False
-            draft_params = draft_cfg = None
-        self.params = params_to(self._shard(params), self.device)
+        self.draft_layout = None
+        if self._model_draft and self._tp is not None:
+            self.draft_layout = tp_layout(draft_cfg, draft_params,
+                                          self._tp.tp)
+            if not self._gspmd and tp_refusal(draft_cfg, draft_params,
+                                              self._tp.tp) is not None:
+                # under the JAX shard_map step the drafter runs in the
+                # target's round, so it must split as the target does; as
+                # the JAX scheduler, an unsplittable one drafts by prompt
+                # lookup instead (under GSPMD it runs in its own layout)
+                warnings.warn("draft model does not shard over this TP "
+                              "mesh (head/group alignment); falling back "
+                              "to prompt-lookup speculation")
+                self._model_draft = False
+                draft_params = draft_cfg = self.draft_layout = None
+        self.params = params_to(self._shard(params, self.layout),
+                                self.device)
         self.max_slots = max_slots
         self.page_size = page_size
         self.num_pages = num_pages
@@ -301,7 +318,8 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         # this rank's KV heads of the pool (all of them without TP)
         self.cache = PagedKVCache.create(
             cfg.num_layers, num_pages, page_size,
-            self._local(cfg).num_kv_heads, cfg.head_dim, dtype=kv_dtype,
+            self._local(cfg, self.layout).num_kv_heads, cfg.head_dim,
+            dtype=kv_dtype,
             device=self.device)
         # speculation: spec_k drafts per round from prompt lookup
         # (spec_ngram-token suffixes) or from a draft model whose page
@@ -311,11 +329,14 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
         self.draft_cfg = draft_cfg
-        self.draft_params = (params_to(self._shard(draft_params), self.device)
+        self.draft_params = (params_to(self._shard(draft_params,
+                                                   self.draft_layout),
+                                       self.device)
                              if self._model_draft else None)
         self.draft_cache = (PagedKVCache.create(
             draft_cfg.num_layers, num_pages, page_size,
-            self._local(draft_cfg).num_kv_heads, draft_cfg.head_dim,
+            self._local(draft_cfg, self.draft_layout).num_kv_heads,
+            draft_cfg.head_dim,
             dtype=kv_dtype, device=self.device)
             if self._model_draft else None)
         # chained prompt lookup: the device history buffer [slots, cap]
@@ -379,11 +400,12 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             self._decode_fn = make_ep_decode_fn(cfg, self._ep)
         else:
             self._pieces = {last: make_tp_prefill_piece_fn(
-                cfg, self._tp, last=last, whole_row_scales=self._gspmd)
-                for last in (False, True)}
+                cfg, self._tp, last=last, whole_row_scales=self._gspmd,
+                layout=self.layout) for last in (False, True)}
             self._decode_fn = make_tp_decode_fn(
-                cfg, self._tp, paged=True, whole_row_scales=self._gspmd)
-        self._vocab = sampling_vocab(self._tp, cfg)
+                cfg, self._tp, paged=True, whole_row_scales=self._gspmd,
+                layout=self.layout)
+        self._vocab = sampling_vocab(self._tp, cfg, self.layout)
         # the captured decode tick and the buffers it binds; a gloo
         # group's collectives run on the host, and EP steps are eager
         step_mesh = self._ep or self._dpm or self._tp
@@ -391,12 +413,13 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             self.device, capture=step_mesh is None or step_mesh.capturable)
         self._tick = self._tick_buffers()
 
-    def _shard(self, params: dict) -> dict:
-        """This rank's shard of a global param tree (its experts under EP;
-        the tree itself without a mesh)."""
+    def _shard(self, params: dict, layout) -> dict:
+        """This rank's shard of a global param tree in its ``layout`` (its
+        experts under EP; the tree itself without a mesh)."""
         if self._ep is not None:
             return ep_param_shards(params, self._ep)
-        return params if self._tp is None else shard_params(params, self._tp)
+        return params if self._tp is None else shard_params(params, self._tp,
+                                                            layout)
 
     def _owner(self, slot: int) -> int:
         """The index that runs ``slot``'s rows: its EP rank, its data
@@ -414,8 +437,8 @@ class ContinuousBatchingEngine(PagePoolMixin, SpeculationMixin):
             return self._owner(slot) == self._dpm.coords[0]
         return True
 
-    def _local(self, cfg: ModelConfig) -> ModelConfig:
-        return cfg if self._tp is None else local_config(cfg, self._tp.tp)
+    def _local(self, cfg: ModelConfig, layout) -> ModelConfig:
+        return cfg if self._tp is None else layout.local_config(cfg)
 
     def _tick_buffers(self) -> _TickBuffers:
         S, dev = self.max_slots, self.device

@@ -80,7 +80,8 @@ class SpeculationMixin:
         sampling: the drafter only needs its pages filled)."""
         piece = make_tp_prefill_piece_fn(self.draft_cfg, self._tp,
                                          last=False,
-                                         whole_row_scales=self._gspmd)
+                                         whole_row_scales=self._gspmd,
+                                         layout=self.draft_layout)
         piece(self.draft_params, tokens, start, tokens.shape[1],
               self.draft_cache, table)
 
@@ -92,7 +93,8 @@ class SpeculationMixin:
         verify = (make_ep_verify_fn(self.cfg, self._ep, T=T)
                   if self._ep is not None
                   else make_tp_verify_fn(self.cfg, self._tp, T=T,
-                                         whole_row_scales=self._gspmd))
+                                         whole_row_scales=self._gspmd,
+                                         layout=self.layout))
         logits, _ = verify(self.params, tokens[r], pos0[r], self.cache,
                            tables[r])
         logits = gather_data_rows(logits, self._dpm)
@@ -129,7 +131,8 @@ class SpeculationMixin:
                     if self._ep is not None
                     else make_tp_spec_model_fn(
                         self.cfg, self.draft_cfg, self._tp, k=self.spec_k,
-                        whole_row_scales=self._gspmd))
+                        whole_row_scales=self._gspmd, layout=self.layout,
+                        dlayout=self.draft_layout))
         r = self._rows
         logits, drafts = round_fn(self.params, self.draft_params,
                                   tok_last[r], pos0[r], self.cache,

@@ -49,9 +49,9 @@ from qwen_inference_engine_tpu_torch.parallel.mesh import gather_data
 from qwen_inference_engine_tpu_torch.parallel.tp_step import (
     data_rows,
     gather_data_rows,
+    greedy_tokens,
     local_config,
     model_group,
-    sharded_argmax,
 )
 
 
@@ -112,11 +112,9 @@ def speculative_step(params: dict, cfg: ModelConfig, history: torch.Tensor,
                                    ragged_multi=True,
                                    reduce_group=reduce_group)
     logits = compute_logits(params, hidden, cfg.act_bits_lm_head)
-    if greedy and reduce_group is not None:
-        chain = sharded_argmax(logits.reshape(B * (k + 1), -1),
-                               reduce_group).reshape(B, k + 1)
-    elif greedy:
-        chain = torch.argmax(logits, dim=-1)
+    if greedy:
+        chain = greedy_tokens(logits.reshape(B * (k + 1), -1), reduce_group,
+                              cfg.vocab_size).reshape(B, k + 1)
     elif reduce_group is not None:
         raise ValueError("a stochastic round takes the whole vocabulary")
     else:
@@ -148,7 +146,8 @@ def speculative_step(params: dict, cfg: ModelConfig, history: torch.Tensor,
 def generate_speculative(params: dict, cfg: ModelConfig,
                          prompts: Sequence[Sequence[int]], cache,
                          max_new_tokens: int = 128, *, k: int = 8,
-                         ngram: int = 3, mesh=None) -> List[List[int]]:
+                         ngram: int = 3, mesh=None,
+                         layout=None) -> List[List[int]]:
     """Greedy generation with prompt-lookup speculation over the
     contiguous cache (``cache`` holds at least ``len(prompts)`` rows).
     Token-identical to plain greedy decoding; 1..k+1 tokens per forward.
@@ -156,12 +155,15 @@ def generate_speculative(params: dict, cfg: ModelConfig,
 
     mesh: this rank's ``(data, model)`` mesh; ``params`` and ``cache`` are
     its shards (``cache`` its data group's rows of the batch) and ``cfg``
-    the global config.  Every rank returns every prompt's ids."""
+    the global config.  Every rank returns every prompt's ids.  layout:
+    the model's ``TpLayout`` (None: the even split)."""
     n = len(prompts)
     # the JAX engine runs it as GSPMD's ops: whole-row activation scales
     group = None if mesh is None or mesh.tp == 1 else model_group(
-        mesh, whole_row_scales=True)
-    cfg_l = cfg if group is None else local_config(cfg, mesh.tp)
+        mesh, whole_row_scales=True, layout=layout)
+    cfg_l = cfg if group is None else (
+        local_config(cfg, mesh.tp) if layout is None
+        else layout.local_config(cfg))
     dpm = mesh if mesh is not None and mesh.dp > 1 else None
     if dpm is not None:
         # the whole batch, padded to every group's rows
@@ -183,8 +185,7 @@ def generate_speculative(params: dict, cfg: ModelConfig,
     B = history.shape[0]
     logits, cache = prefill(params, cfg_l, history[:, :max_len], lens, cache,
                             reduce_group=group)
-    first = (torch.argmax(logits, dim=-1) if group is None
-             else sharded_argmax(logits, group))
+    first = greedy_tokens(logits, group, cfg.vocab_size)
     rows = torch.arange(B, device=dev)
     history[rows, lens] = first
     lens = lens + 1

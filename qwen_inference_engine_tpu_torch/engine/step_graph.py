@@ -8,7 +8,10 @@ shared-memory attributes.  The second step of the key is captured into a
 CUDA graph, then replayed; every later step replays.  The capture records
 and runs nothing, so it appends no KV row and advances no generator: the
 replay that follows it is the second step.  A capture or a replay that
-fails raises; nothing falls back to running eagerly.
+fails raises; nothing falls back to running eagerly.  Python's cyclic
+collector is held off while a step is captured: a dead engine it frees
+there would destroy that engine's graphs mid-capture, which invalidates
+the capture (torch's graph context no longer collects before it starts).
 
 A step body takes no arguments: it reads and updates the engine's static
 buffers in place, since a graph binds addresses.  What it returns is the
@@ -26,7 +29,11 @@ The collectives of a TP step (``parallel/mesh.all_reduce`` /
 ``all_gather``) count the same way: an NCCL collective is captured with
 the kernels, and each replay adds it.  An engine whose step calls gloo
 collectives (they run on the host) is built with ``capture=False`` and
-runs every step eagerly.
+runs every step eagerly.  The GSPMD layouts of ``parallel/tp_step``
+(the whole-row maxima, the gather before a whole ``o``) take the same
+path, but their capture over NCCL is untested on cards:
+``scripts/time_tp_torch.py`` on four cards checks it, captured against
+eager bit for bit.
 
 ``eager_steps()`` runs the same bodies eagerly on the card, the
 counterpart of ``jax.disable_jit()``: the yardstick of ``chip_smoke.py``
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, Hashable, Iterable, Optional
 
@@ -131,12 +139,16 @@ class StepGraphs:
             graph.register_generator_state(gen)
         wrappers = self._counters()
         before = launch_counts(wrappers)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # other threads (the HTTP server's) may touch CUDA meanwhile
             with cuda.graph(graph, pool=self._pool,
                             capture_error_mode="thread_local"):
                 outputs = body()
         finally:
+            if collecting:
+                gc.enable()
             # the capture's calls launched nothing: take them back out
             after = launch_counts(wrappers)
             delta = {n: after[n] - c for n, c in before.items()

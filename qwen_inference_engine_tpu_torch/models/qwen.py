@@ -61,7 +61,9 @@ appends take ``quantize_kv``'s bytes and scales):
 
 A prefill piece is one sequence (the scheduler's pieces are; the JAX
 package's batched piece goes through XLA and no caller of the port needs
-it).
+it).  ``prefill_sequence_parallel`` is the fresh prefill with the token
+axis split over the TP group (all-gathers before the projections,
+reduce-scatters after them, flash attention on whole sequences).
 
 The MLP of a dense layer is ``fused_mlp`` (one kernel: gate, up, SiLU and
 down, the [M, F] intermediates kept in f32 / bf16 workspaces) wherever the
@@ -142,7 +144,11 @@ from qwen_inference_engine_tpu_torch.ops.paged_attention import (
 )
 from qwen_inference_engine_tpu_torch.ops.rope import apply_rope, precompute_rope
 from qwen_inference_engine_tpu_torch.parallel.ep_moe import ep_moe_layer
-from qwen_inference_engine_tpu_torch.parallel.mesh import all_reduce
+from qwen_inference_engine_tpu_torch.parallel.mesh import (
+    all_gather,
+    all_reduce,
+    reduce_scatter,
+)
 from qwen_inference_engine_tpu_torch.quant.kv_quant import quantize_kv
 
 
@@ -495,6 +501,85 @@ def _append_rows(cache: KVCache, layer: int, k, v, starts) -> None:
                        ks_new=sk, vs_new=sv)
 
 
+def _tp_blocks(reduce_group):
+    """(o's group, o's gather group, the MLP's group) of a TP step: a
+    block's group is None where it runs whole (``reduce_group.layout``,
+    ``parallel/tp_step.TpLayout``; no layout: every block splits)."""
+    if reduce_group is None:
+        return None, None, None
+    lay = reduce_group.layout
+    if lay is None:
+        return reduce_group, None, reduce_group
+    return (reduce_group if lay.reduce_o else None,
+            reduce_group if lay.o == "gather" else None,
+            reduce_group if lay.reduce_mlp else None)
+
+
+def _row_parallel(x: torch.Tensor, lin, layer: int, act: int, group,
+                  combine=None) -> torch.Tensor:
+    """``x @ lin`` of a row-parallel projection (``o``, ``down``): this
+    rank's partial sum combined over ``group`` (``combine``: the
+    all-reduce by default, or the sequence-parallel reduce-scatter), the
+    bias added once after it; int8 activations take each token's scale
+    over the whole row where the group has ``whole_row_scales``.  A plain
+    projection where ``group`` is None (the block runs whole)."""
+    if group is None:
+        return apply_linear(x, lin, layer, act)
+    b = lin.b
+    y = apply_linear(x, lin if b is None else dataclasses.replace(lin, b=None),
+                     layer, act,
+                     amax_group=group if group.whole_row_scales else None)
+    y = all_reduce(y, group) if combine is None else combine(y)
+    return y if b is None else y + b[layer].to(y.dtype)
+
+
+def _qkv(h: torch.Tensor, lyr: dict, l: int, cfg: ModelConfig):
+    """This layer's q ``[B, T, Hq, Dh]``, k and v ``[B, T, Hk, Dh]`` (the
+    heads of ``cfg``), qk-normed (Qwen3), before RoPE."""
+    B, T = h.shape[:2]
+    Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Qd, Kd = Hq * Dh, Hk * Dh
+    act = cfg.act_bits
+    if "qkv" in lyr:
+        # offline-fused projection (quant/quantize.fuse_projections): one
+        # matmul in place of three
+        qkv = apply_linear(h, lyr["qkv"], l, act)
+        q = qkv[..., :Qd].reshape(B, T, Hq, Dh)
+        k = qkv[..., Qd:Qd + Kd].reshape(B, T, Hk, Dh)
+        v = qkv[..., Qd + Kd:].reshape(B, T, Hk, Dh)
+    else:
+        q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
+        k = apply_linear(h, lyr["k"], l, act).reshape(B, T, Hk, Dh)
+        v = apply_linear(h, lyr["v"], l, act).reshape(B, T, Hk, Dh)
+    if cfg.qk_norm:
+        q = qk_norm(q, lyr["q_norm"][l], cfg.rms_norm_eps)
+        k = qk_norm(k, lyr["k_norm"][l], cfg.rms_norm_eps)
+    return q, k, v
+
+
+def _gather_heads(attn: torch.Tensor, group) -> torch.Tensor:
+    """``[B, T, Hq_l * Dh]`` of every rank of ``group``, heads in rank
+    order: the whole row that ``o`` takes where it runs whole after split
+    attention."""
+    parts = all_gather(attn, group)                    # [tp, B, T, Hq_l*Dh]
+    return parts.permute(1, 2, 0, 3).reshape(*attn.shape[:2], -1)
+
+
+def _dense_mlp(h: torch.Tensor, lyr: dict, l: int, act: int, group,
+               combine=None) -> torch.Tensor:
+    """The three matmuls of a dense MLP (``gateup`` split in halves where
+    the projections are fused), ``down`` row-parallel over ``group``
+    (``_row_parallel``)."""
+    if "gateup" in lyr:
+        gu = apply_linear(h, lyr["gateup"], l, act)
+        F2 = gu.shape[-1] // 2
+        mid = F.silu(gu[..., :F2]) * gu[..., F2:]
+    else:
+        mid = F.silu(apply_linear(h, lyr["gate"], l, act)) * \
+            apply_linear(h, lyr["up"], l, act)
+    return _row_parallel(mid, lyr["down"], l, act, group, combine)
+
+
 def _check_deferred(cache, T: int, fresh_prefill: bool,
                     uniform_decode: bool) -> None:
     """The deferred-append decode's requirements, each named when it is
@@ -553,7 +638,12 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     embedding's.  Every kernel runs at the local shapes.  Where the group
     has ``whole_row_scales`` (the JAX package's GSPMD runs), ``o``'s and
     ``down``'s int8 activations take each token's scale over the whole
-    row (one more all-reduce, of the per-token max, before each).
+    row (one more all-reduce, of the per-token max, before each), and the
+    MLP never takes ``fused_mlp`` (as the JAX forward without its
+    kernels).  The group's ``layout`` (``parallel/tp_step.TpLayout``) says
+    which blocks split: a block that runs whole takes no collective after
+    it, an ``o`` that runs whole after split attention takes the attention
+    output all-gathered, and a row-parallel bias is added after the sum.
 
     ep_group: the expert-parallel step (``parallel/ep_step.py``; the JAX
     ``ep_axis``): ``tokens`` are this rank's rows and the expert stacks its
@@ -576,12 +666,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError("reduce_group (TP) and ep_group (EP) are mutually "
                          "exclusive")
     B, T = tokens.shape
-    Hq, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    Qd, Kd = Hq * Dh, Hk * Dh
+    Hq, Dh = cfg.num_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     act = cfg.act_bits
-    whole_rows = (reduce_group if reduce_group is not None
-                  and reduce_group.whole_row_scales else None)
+    o_group, o_gather, mlp_group = _tp_blocks(reduce_group)
     if deferred_append:
         _check_deferred(cache, T, fresh_prefill, uniform_decode)
         fresh_k, fresh_v = [], []
@@ -627,26 +715,16 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         lengths = (positions[:, 0] + T).int()  # ragged decode / verify
     else:
         row_pos = lengths = None
-    # the single-pass SwiGLU kernel (fused_mlp has no int8-activation path)
+    # the single-pass SwiGLU kernel (fused_mlp has no int8-activation path;
+    # GSPMD semantics never take it, so every rank of a step runs one path)
     use_mlp_kernel = (not cfg.is_moe and "gate" in lyr and act != 8
+                      and not (reduce_group is not None
+                               and reduce_group.whole_row_scales)
                       and fused_mlp_supported(lyr["gate"], lyr["up"],
                                               lyr["down"], B * T))
     for l in range(cfg.num_layers):
         h = rms_norm(x, lyr["input_norm"][l], eps)
-        if "qkv" in lyr:
-            # offline-fused projection (quant/quantize.fuse_projections):
-            # one matmul in place of three
-            qkv = apply_linear(h, lyr["qkv"], l, act)
-            q = qkv[..., :Qd].reshape(B, T, Hq, Dh)
-            k = qkv[..., Qd:Qd + Kd].reshape(B, T, Hk, Dh)
-            v = qkv[..., Qd + Kd:].reshape(B, T, Hk, Dh)
-        else:
-            q = apply_linear(h, lyr["q"], l, act).reshape(B, T, Hq, Dh)
-            k = apply_linear(h, lyr["k"], l, act).reshape(B, T, Hk, Dh)
-            v = apply_linear(h, lyr["v"], l, act).reshape(B, T, Hk, Dh)
-        if cfg.qk_norm:
-            q = qk_norm(q, lyr["q_norm"][l], eps)
-            k = qk_norm(k, lyr["k_norm"][l], eps)
+        q, k, v = _qkv(h, lyr, l, cfg)
         q = apply_rope(q, positions, cos, sin)
         k = apply_rope(k, positions, cos, sin)
 
@@ -697,12 +775,11 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             _append_rows(cache, l, k, v, row_pos)
             attn = decode_attention_contiguous(q, cache.k, cache.v, l, lengths)
 
-        o = apply_linear(attn.reshape(B, T, Hq * Dh), lyr["o"], l, act,
-                         amax_group=whole_rows)
-        if reduce_group is not None:
-            # row-parallel o: partial sums over the sharded heads
-            o = all_reduce(o, reduce_group)
-        x = x + o
+        attn = attn.reshape(B, T, Hq * Dh)
+        if o_gather is not None:
+            attn = _gather_heads(attn, o_gather)
+        # row-parallel o: partial sums over the sharded heads
+        x = x + _row_parallel(attn, lyr["o"], l, act, o_group)
         h = rms_norm(x, lyr["post_norm"][l], eps)
         if cfg.is_moe and ep_group is not None:
             # this rank's rows through the dispatch / combine all-to-alls
@@ -716,7 +793,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             d = moe_mlp(h.reshape(B * T, -1), lyr["router"].w[l],
                         lyr["moe_gate"], lyr["moe_up"], lyr["moe_down"],
                         cfg.num_experts_per_tok, cfg.norm_topk_prob, layer=l,
-                        act_bits=act, reduce_group=reduce_group,
+                        act_bits=act, reduce_group=mlp_group,
                         ).reshape(B, T, -1).to(x.dtype)
         elif use_mlp_kernel:
             ga, ua, da_ = lyr["gate"], lyr["up"], lyr["down"]
@@ -724,19 +801,11 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                           ua.scales, da_.q, da_.scales, l,
                           gs_gate=ga.group_size,
                           gs_down=da_.group_size).reshape(B, T, -1)
-        elif "gateup" in lyr:
-            gu = apply_linear(h, lyr["gateup"], l, act)
-            F2 = gu.shape[-1] // 2
-            d = apply_linear(F.silu(gu[..., :F2]) * gu[..., F2:], lyr["down"],
-                             l, act)
+            if mlp_group is not None:
+                d = all_reduce(d, mlp_group)
         else:
-            gate = apply_linear(h, lyr["gate"], l, act)
-            up = apply_linear(h, lyr["up"], l, act)
-            d = apply_linear(F.silu(gate) * up, lyr["down"], l, act,
-                             amax_group=whole_rows)
-        if reduce_group is not None and not cfg.is_moe:
             # row-parallel down: partial sums over the sharded FFN columns
-            d = all_reduce(d, reduce_group)
+            d = _dense_mlp(h, lyr, l, act, mlp_group)
         x = x + d
     if deferred_append:
         kv_append_all_uniform(cache.k, cache.v, torch.stack(fresh_k),
@@ -814,6 +883,83 @@ def prefill_chunked(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         hidden_last = sel if i == 0 else torch.where(in_chunk[:, None], sel,
                                                      hidden_last)
     return compute_logits(params, hidden_last, cfg.act_bits_lm_head), cache
+
+
+def prefill_sequence_parallel(params: dict, cfg: ModelConfig,
+                              tokens: torch.Tensor, lengths: torch.Tensor,
+                              cache: KVCache, group
+                              ) -> Tuple[torch.Tensor, KVCache]:
+    """The fresh prefill of right-padded prompts with the token axis split
+    over the TP step's ``group`` (Megatron-style sequence parallelism;
+    the JAX package's GSPMD prefill of a prompt sharded ``(None,
+    "model")``).  tokens: this rank's ``[B, T / tp]`` slice of ``[B, T]``;
+    lengths ``[B]`` the whole rows'.  Returns (last-valid-token logits ``[B,
+    V / tp]`` (``[B, V]`` where the layout keeps the vocabulary whole),
+    cache).
+
+    The embedding, the norms and the residual stream cover this rank's
+    tokens; before q / k / v and before gate / up an all-gather over
+    tokens gives every rank the whole sequence, and attention runs on
+    whole sequences of this rank's heads (``flash_attention``, the cache
+    written for all T); after ``o`` and after ``down`` a reduce-scatter
+    over tokens takes the place of the all-reduce (a block that runs whole
+    keeps its own tokens' rows).  A vocab-split embedding looks up every
+    token and reduce-scatters too.  Each row's last valid token is taken
+    from the rank that holds it (a sum over the group of the one row).
+    Dense models only."""
+    if cfg.is_moe:
+        raise ValueError("the sequence-parallel prefill runs dense models "
+                         "(moe_mlp sums its experts with an all-reduce)")
+    B, Tl = tokens.shape
+    tp, r = group.size, group.rank
+    T = Tl * tp
+    Hq, Dh, eps, act = cfg.num_heads, cfg.head_dim, cfg.rms_norm_eps, \
+        cfg.act_bits
+    o_group, o_gather, mlp_group = _tp_blocks(group)
+    lyr = params["layers"]
+
+    def gather(t):              # [B, Tl, ...] -> [B, T, ...], rank order
+        return all_gather(t, group).movedim(0, 1).reshape(B, T, *t.shape[2:])
+
+    def scatter(t):             # the sum over ranks, this rank's tokens
+        return reduce_scatter(t, group, dim=1)
+
+    def own(t):                 # a whole block's output: this rank's tokens
+        return t[:, r * Tl:(r + 1) * Tl]
+
+    if params["embed"].shape[0] < cfg.vocab_size:
+        every = gather(tokens)
+        vl = params["embed"].shape[0]
+        local = every - r * vl
+        ok = (local >= 0) & (local < vl)
+        e = params["embed"][local.clamp(0, vl - 1)]
+        x = scatter(torch.where(ok[..., None], e, torch.zeros_like(e)))
+    else:
+        x = params["embed"][tokens]
+    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    cos, sin = params["rope_cos"], params["rope_sin"]
+    for l in range(cfg.num_layers):
+        h = gather(rms_norm(x, lyr["input_norm"][l], eps))
+        q, k, v = _qkv(h, lyr, l, cfg)
+        q = apply_rope(q, positions, cos, sin)
+        k = apply_rope(k, positions, cos, sin)
+        cache.write(l, k, v, write_prefill_stacked)
+        attn = flash_attention(q, k, v).reshape(B, T, Hq * Dh)
+        if o_gather is not None:
+            attn = _gather_heads(attn, o_gather)
+        o = _row_parallel(attn, lyr["o"], l, act, o_group, scatter)
+        x = x + (o if o_group is not None else own(o))
+        h = gather(rms_norm(x, lyr["post_norm"][l], eps))
+        d = _dense_mlp(h, lyr, l, act, mlp_group, scatter)
+        x = x + (d if mlp_group is not None else own(d))
+    hidden = rms_norm(x, params["final_norm"], eps)
+    last = lengths.long() - 1
+    mine = (last // Tl) == r
+    rows = torch.arange(B, device=tokens.device)
+    h_last = hidden[rows, (last - r * Tl).clamp(0, Tl - 1)]
+    h_last = all_reduce(torch.where(mine[:, None], h_last,
+                                    torch.zeros_like(h_last)), group)
+    return compute_logits(params, h_last, cfg.act_bits_lm_head), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

@@ -11,7 +11,9 @@ explicitly on the mesh's groups:
   pages between its groups (``gather_data`` / ``broadcast_data``);
 * ``model`` (TP): weights and KV heads sharded, one all-reduce after each
   row-parallel projection (``o``, ``down``), the vocab-sharded embedding's
-  sum and the sampler's gathers;
+  sum and the sampler's gathers (``parallel/tp_step.TpLayout`` says which
+  blocks split); the sequence-parallel prefill all-gathers tokens before
+  the projections and reduce-scatters them after;
 * ``ep`` (EP, its own mesh, ``make_ep_mesh``): serving slots and experts
   sharded over every rank of the world, tokens routed to the experts'
   ranks by two all-to-alls an MoE layer (``parallel/ep_moe.py``);
@@ -41,7 +43,8 @@ address", the same probe), so ``ring_exchange`` runs as
 ``all_to_all_single`` with every split but the next stage's empty under
 gloo, and as ``batch_isend_irecv`` under NCCL.
 
-``all_reduce``, ``all_gather``, ``all_to_all``, ``ring_exchange``,
+``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``,
+``ring_exchange``,
 ``broadcast`` and the data axis's ``gather_data`` and ``broadcast_data``
 count their calls in ``launches``, as the kernel wrappers do
 (``utils/metrics.collective_wrappers``), so a captured step's replays
@@ -88,6 +91,9 @@ class Group:
     # the JAX package's GSPMD runs do, or over this rank's own K, as its
     # ``shard_map`` TP step does (``parallel/tp_step.model_group``)
     whole_row_scales: bool = False
+    # a model group only: the model's ``parallel/tp_step.TpLayout``, which
+    # says which blocks split over the group (None: every block, evenly)
+    layout: Any = None
 
 
 def all_reduce(t: torch.Tensor, group: Group, op: str = "sum"
@@ -98,6 +104,20 @@ def all_reduce(t: torch.Tensor, group: Group, op: str = "sum"
     dist.all_reduce(t, op=(dist.ReduceOp.MAX if op == "max"
                            else dist.ReduceOp.SUM), group=group.pg)
     return t
+
+
+def reduce_scatter(t: torch.Tensor, group: Group, dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, of which this rank keeps slice
+    ``group.rank`` of ``group.size`` equal slices along ``dim`` (the
+    sequence-parallel prefill's sum over tokens): one
+    ``reduce_scatter_tensor``."""
+    reduce_scatter.launches += 1
+    x = t.movedim(dim, 0).contiguous()
+    reduce_scatter.sent_bytes += x.numel() * x.element_size()
+    out = x.new_empty((x.shape[0] // group.size,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group.pg)
+    return out.movedim(0, dim)
 
 
 def _all_gather(counter, t: torch.Tensor, group: Group) -> torch.Tensor:
@@ -212,6 +232,8 @@ def broadcast_data(t: torch.Tensor, mesh: "Mesh", src: int) -> torch.Tensor:
 
 
 all_reduce.launches = 0
+reduce_scatter.launches = 0
+reduce_scatter.sent_bytes = 0
 all_gather.launches = 0
 all_gather.sent_bytes = 0
 all_to_all.launches = 0

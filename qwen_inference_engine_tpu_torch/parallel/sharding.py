@@ -27,11 +27,20 @@ rows on ``data``; the page pool splits its KV heads only, so every data
 group holds all ``num_pages`` pages, as the JAX ``cache_pspecs`` puts no
 data axis on the pool (each group writes its own slots' pages; the serving
 engine copies prefix pages between groups, ``engine/prefix_cache.py``).
-The JAX package falls back to a head_dim split where the model axis does
-not divide the KV heads; that layout only works under GSPMD's
-partitioned XLA attention, and the port refuses it.  So does
-``batch_shard`` a token axis on ``model`` (the JAX package's
-sequence-sharded prefill, a GSPMD-only path too).
+
+A model that does not split evenly (``parallel/tp_step.TpLayout``, the
+JAX package's GSPMD cases) is cut by its layout instead, block by block:
+each rank takes its query heads' columns and, where the KV heads are
+replicated, the columns of its one KV head ``r // (tp / Hk)`` at full
+head_dim (the fused ``qkv`` the same three column ranges), its MLP
+columns and down rows (the fused ``gateup`` its gate columns then its up
+columns), and the whole leaves of a block that runs whole.  The cache
+follows the attention block: its KV heads, the one KV head it replicates,
+or all of them.  The JAX package splits head_dim where the model axis
+does not divide the KV heads; no attention kernel takes a split head_dim
+(GSPMD itself replicates there), so the port replicates the KV head
+instead.  ``batch_shard`` puts a token axis on ``model`` for the
+sequence-parallel prefill.
 """
 
 from __future__ import annotations
@@ -126,27 +135,108 @@ def _map(tree, dims, fn, path=""):
     return fn(tree, dims, path)
 
 
-def shard_params(params: dict, mesh: Mesh) -> dict:
+def _take(t: torch.Tensor, dim: int, ranges, scale: int = 1
+          ) -> torch.Tensor:
+    """The ``ranges`` of ``t`` along ``dim`` (each ``(lo, hi)`` divided by
+    ``scale``), concatenated, as a copy."""
+    parts = [t.narrow(dim, lo // scale, (hi - lo) // scale)
+             for lo, hi in ranges]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def _cut_linear(lin, *, cols=None, rows=None):
+    """A stacked Linear / QuantLinear cut to its output ``cols`` or its
+    logical input ``rows`` (the bias of a row cut stays whole)."""
+    if cols is not None:
+        if isinstance(lin, Linear):
+            return Linear(w=_take(lin.w, -1, cols),
+                          b=None if lin.b is None else _take(lin.b, -1, cols))
+        return dataclasses.replace(
+            lin, q=_take(lin.q, -1, cols), scales=_take(lin.scales, -1, cols),
+            b=None if lin.b is None else _take(lin.b, -1, cols))
+    if isinstance(lin, Linear):
+        return Linear(w=_take(lin.w, -2, rows), b=lin.b)
+    pack = 2 if lin.bits == 4 else 1
+    return dataclasses.replace(lin, q=_take(lin.q, -2, rows, pack),
+                               scales=_take(lin.scales, -2, rows,
+                                            lin.group_size))
+
+
+def _layout_leaves(params: dict, layout, m: int) -> dict:
+    """Model rank ``m``'s tree under a ``TpLayout``."""
+    lyr, out = params["layers"], {}
+    mlp_cols = layout.mlp_cols[m] if layout.mlp == "split" else None
+    for name, leaf in lyr.items():
+        if name in REPLICATED or name == "router":
+            out[name] = leaf
+        elif name == "q":
+            out[name] = _cut_linear(leaf, cols=layout.q_cols(m))
+        elif name in ("k", "v"):
+            out[name] = _cut_linear(leaf, cols=layout.kv_cols(m))
+        elif name == "qkv":
+            out[name] = _cut_linear(leaf, cols=layout.qkv_cols(m))
+        elif name == "o":
+            k = leaf.w.shape[-2] if isinstance(leaf, Linear) \
+                else leaf.in_features
+            out[name] = (leaf if layout.o != "split"
+                         else _cut_linear(leaf, rows=layout.o_rows(m, k)))
+        elif name in ("gate", "up", "gateup", "down"):
+            if mlp_cols is None:
+                out[name] = leaf
+            elif name == "down":
+                out[name] = _cut_linear(leaf, rows=(layout.mlp_rows[m],))
+            elif name == "gateup":
+                f = (leaf.w.shape[-1] if isinstance(leaf, Linear)
+                     else leaf.out_features) // 2
+                lo, hi = mlp_cols
+                out[name] = _cut_linear(leaf, cols=((lo, hi),
+                                                    (f + lo, f + hi)))
+            else:
+                out[name] = _cut_linear(leaf, cols=(mlp_cols,))
+        elif name in EXPERTS:
+            out[name] = leaf if layout.mlp == "whole" else _map(
+                leaf, split_dims(params)["layers"][name],
+                lambda t, d, what: _slice(t, d, m, layout.tp, what))
+        else:
+            raise KeyError(name)
+    tree = {k: v for k, v in params.items() if k != "layers"}
+    tree["layers"] = out
+    if layout.vocab == "split":
+        tree["embed"] = _slice(params["embed"], 0, m, layout.tp, "embed")
+        if "lm_head" in params:
+            head = params["lm_head"]
+            w = (head.w.shape[-1] if isinstance(head, Linear)
+                 else head.out_features) // layout.tp
+            tree["lm_head"] = _cut_linear(head, cols=((m * w, (m + 1) * w),))
+    return tree
+
+
+def shard_params(params: dict, mesh: Mesh, layout=None) -> dict:
     """This rank's local tree: every split leaf cut to its model index's
-    slice (copies), replicated leaves shared with ``params``."""
+    slice (copies), replicated leaves shared with ``params``.  layout: the
+    model's ``TpLayout`` (None: the even split, ``split_dims``); a
+    shard_map layout is the even split."""
     tp, index = mesh.tp, mesh.coords[1]
+    if layout is not None and layout.gspmd and tp > 1:
+        return _layout_leaves(params, layout, index)
     return _map(params, split_dims(params),
                 lambda t, d, what: _slice(t, d, index, tp, what))
 
 
-def _check_heads(hk: int, tp: int) -> None:
-    if hk % tp:
-        raise ValueError(
-            f"{hk} KV heads do not split over a model axis of {tp}: the JAX "
-            f"package then shards head_dim, which only GSPMD's partitioned "
-            f"XLA attention runs; the port refuses it")
-
-
-def cache_split_dims(cache, mesh: Mesh):
+def cache_split_dims(cache, mesh: Mesh, layout=None):
     """Split dims of a cache's leaves, as ``(model dim, data dim)`` per
-    leaf (the JAX ``cache_pspecs``; None where unsplit)."""
-    _check_heads(cache.k_pages.shape[2] if isinstance(cache, PagedKVCache)
-                 else cache.k.shape[2], mesh.tp)
+    leaf (the JAX ``cache_pspecs``; None where unsplit).  Under a layout
+    whose attention does not split its KV heads the model dim is cut by
+    ``make_sharded_cache`` from ``layout.kv_heads``; without a layout the
+    KV heads must split evenly."""
+    hk = (cache.k_pages.shape[2] if isinstance(cache, PagedKVCache)
+          else cache.k.shape[2])
+    if layout is None and hk % mesh.tp:
+        raise ValueError(
+            f"{hk} KV heads do not split over a model axis of {mesh.tp}: "
+            f"pass the model's TpLayout (parallel/tp_step.tp_layout), which "
+            f"replicates a KV head or keeps the attention whole")
     if isinstance(cache, PagedKVCache):
         return PagedKVCache(
             k_pages=(2, None), v_pages=(2, None),
@@ -158,16 +248,23 @@ def cache_split_dims(cache, mesh: Mesh):
                    v_scale=None if cache.v_scale is None else (2, 1))
 
 
-def make_sharded_cache(cache, mesh: Optional[Mesh]):
+def make_sharded_cache(cache, mesh: Optional[Mesh], layout=None):
     """This rank's local piece of a global cache (KV heads on ``model``,
-    contiguous-cache rows on ``data``); ``cache`` itself without a mesh."""
+    contiguous-cache rows on ``data``); ``cache`` itself without a mesh.
+    layout: the model's ``TpLayout``: its KV heads ``kv_heads(rank)`` (one
+    KV head where they are replicated, all of them where the attention
+    runs whole)."""
     if mesh is None:
         return cache
-    dims = cache_split_dims(cache, mesh)
+    dims = cache_split_dims(cache, mesh, layout)
     d_idx, m_idx = mesh.coords
 
     def cut(t, dd, what):
-        t = _slice(t, dd[0], m_idx, mesh.tp, what)
+        if layout is None:
+            t = _slice(t, dd[0], m_idx, mesh.tp, what)
+        else:
+            h0, n = layout.kv_heads(m_idx)
+            t = _take(t, dd[0], ((h0, h0 + n),))
         return _slice(t, dd[1], d_idx, mesh.dp, what)
 
     if isinstance(cache, PagedKVCache):
@@ -188,19 +285,21 @@ def make_sharded_cache(cache, mesh: Optional[Mesh]):
 def batch_shard(x: torch.Tensor, mesh: Optional[Mesh],
                 spec: Sequence[Optional[str]]) -> torch.Tensor:
     """This rank's piece of a batch input under ``spec`` (an axis name or
-    None a dim, as a JAX PartitionSpec): ``data`` splits dim 0's rows.  A
-    token axis on ``model`` (the JAX package's sequence-sharded prefill)
-    is refused: only GSPMD partitions attention over a sequence."""
+    None a dim, as a JAX PartitionSpec): ``data`` splits dim 0's rows;
+    ``model`` on a later dim (a token axis) splits the tokens into ``tp``
+    equal slices, the input of the sequence-parallel prefill
+    (``parallel/tp_step.make_tp_sp_prefill_fn``)."""
     if mesh is None:
         return x
     for dim, axis in enumerate(spec):
-        if axis == MODEL_AXIS:
-            raise NotImplementedError(
-                "a sequence-sharded input (a token axis on 'model') is a "
-                "GSPMD-only path of the JAX package; the port's TP step "
-                "takes whole sequences on every model rank")
+        if axis == MODEL_AXIS and dim == 0:
+            raise ValueError("'model' splits a token axis (a dim after the "
+                             "rows), not the batch rows")
         if axis == DATA_AXIS and dim != 0:
             raise ValueError("'data' splits the batch rows (dim 0) only")
+    for dim, axis in enumerate(spec):
+        if axis == MODEL_AXIS:
+            x = _slice(x, dim, mesh.coords[1], mesh.tp, "tokens")
     if spec and spec[0] == DATA_AXIS:
         return _slice(x, 0, mesh.coords[0], mesh.dp, "batch rows")
     return x

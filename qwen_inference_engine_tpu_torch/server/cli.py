@@ -37,10 +37,15 @@ rank builds the same seeded model and runs its share; rank 0 prints
 (``generate``, ``generate --speculative`` included) or serves HTTP
 (``serve``: data group ``g`` of ``M`` runs slots ``[g * S / M, (g + 1) *
 S / M)`` of ``--max-slots`` ``S``, each group over ``N`` model ranks,
-the prefix cache shared across groups).  ``serve --ep N``
-(overriding ``--tp`` / ``--dp``, as the JAX CLI) spawns ``N`` ranks over
-an expert-parallel ``("ep",)`` mesh for a Qwen3-MoE model: slots and
-experts sharded, tokens routed by all-to-alls (``parallel/ep_step.py``).
+the prefix cache shared across groups).  Every model takes ``--tp``: one
+that does not split evenly (KV or query heads that N does not divide,
+INT4 groups that an even shard would cut, a row-parallel bias, fused
+projections) runs in the layout ``parallel/tp_step.tp_layout`` chooses,
+and rank 0 prints it (``[tp layout] ...``, on stderr for ``generate``).
+``serve --ep N`` (overriding ``--tp`` / ``--dp``, as the JAX CLI) spawns
+``N`` ranks over an expert-parallel ``("ep",)`` mesh for a Qwen3-MoE
+model: slots and experts sharded, tokens routed by all-to-alls
+(``parallel/ep_step.py``).
 ``generate --ep`` raises, as the JAX ``Engine`` does on that mesh, and so
 does a model the EP step does not take (the JAX CLI ignores ``--ep`` for
 a dense model).  ``serve --pp N`` (overriding ``--tp`` / ``--dp`` /
@@ -280,6 +285,8 @@ def _generate_rank(args, mesh) -> int:
     dt = time.perf_counter() - t0
     if mesh is not None and mesh.rank != 0:
         return 0
+    if eng.layout is not None:
+        print(f"[tp layout] {eng.layout.summary()}", file=sys.stderr)
     for i, ids in enumerate(ids_out):
         print(f"--- sequence {i} ({len(ids)} tokens) ---")
         print(ids)

@@ -640,6 +640,8 @@ def _serve_rank(args, mesh) -> int:
               f"{str(eng.cache.k_pages.dtype).split('.')[-1]}{spec}")
     print(f"qie serving {cfg.name} on http://{args.host}:{args.port} "
           f"(device {device}, slots={args.max_slots}, {kv})", flush=True)
+    if getattr(eng, "layout", None) is not None:
+        print(f"[tp layout] {eng.layout.summary()}", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

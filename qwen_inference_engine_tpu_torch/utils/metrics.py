@@ -60,7 +60,8 @@ def collective_wrappers() -> Dict[str, Callable]:
     (``parallel/mesh.py``), by name."""
     from qwen_inference_engine_tpu_torch.parallel import mesh
 
-    return {w.__name__: w for w in (mesh.all_reduce, mesh.all_gather,
+    return {w.__name__: w for w in (mesh.all_reduce, mesh.reduce_scatter,
+                                    mesh.all_gather,
                                     mesh.all_to_all, mesh.ring_exchange,
                                     mesh.broadcast, mesh.gather_data,
                                     mesh.broadcast_data)}

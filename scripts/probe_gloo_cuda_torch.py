@@ -8,7 +8,9 @@ has fewer cards than ranks, ``parallel/mesh.backend_for``) and try the
 collectives the port calls on CUDA tensors: all-reduce, all-gather and
 broadcast (f32, bf16, int64), and ``all_to_all_single`` with equal splits
 and with uneven split sizes (bf16, int32; the expert-parallel mesh's
-dense and ragged forms).  Then, in a second world of two ranks (a rank
+dense and ragged forms), and ``reduce_scatter_tensor`` (f32, bf16: the
+sequence-parallel prefill's sum over tokens, each rank keeping its own
+slice).  Then, in a second world of two ranks (a rank
 that dies there costs only these lines), the point-to-point forms the
 pipeline's ring exchange can take (``parallel/mesh.ring_exchange``):
 ``send`` / ``recv``, ``batch_isend_irecv`` over the whole ring and from
@@ -63,6 +65,15 @@ def _a2a_uneven(rank, world, dt):
     want = torch.cat([torch.full((n, 2), 10 * s + rank, device="cuda")
                       for s, n in enumerate(got)]).to(dt)
     return bool(torch.equal(recv, want))
+
+
+def _reduce_scatter(rank, world, dt):
+    # rank r holds value r + 1 in every row; a rank keeps its 4 rows summed
+    t = torch.full((4 * world, 3), rank + 1, device="cuda").to(dt)
+    out = torch.empty((4, 3), device="cuda").to(dt)
+    dist.reduce_scatter_tensor(out, t)
+    return bool(torch.equal(out, torch.full_like(
+        out, world * (world + 1) // 2)))
 
 
 def _p2p_ring(rank, world, batched):
@@ -175,6 +186,9 @@ def run(rank: int, world: int, path: str) -> None:
             lambda: _a2a_equal(rank, world, dt))
         out[f"all_to_all_single uneven {dt}"] = _try(
             lambda: _a2a_uneven(rank, world, dt))
+    for dt in (torch.float32, torch.bfloat16):
+        out[f"reduce_scatter_tensor {dt}"] = _try(
+            lambda: _reduce_scatter(rank, world, dt))
     if rank == 0:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -12,7 +12,8 @@ tick over bf16 and INT8 pools, one graph an engine.  Each path's eager
 step runs under ``torch.cuda.set_sync_debug_mode("error")`` (nothing in
 it may read back from the device or copy host data to it); the
 device-tensor sampling is bit-equal to dividing by the Python floats; a
-capture that fails raises.  This file imports no JAX:
+capture that fails raises, and a dead engine's graphs are not freed
+inside another engine's capture.  This file imports no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_step_graph.py -q
 """
@@ -270,6 +271,50 @@ def test_a_failed_capture_raises(gen):
         graphs.run("k", body)
     torch.cuda.synchronize()
     assert float(x.sum()) == 4.0
+
+
+def test_a_dead_engine_is_not_collected_inside_a_capture(gen):
+    """An engine that captured its tick and then died in a reference cycle
+    waits for the cyclic collector.  Run inside another engine's capture,
+    the collector would destroy the dead engine's graph there, which
+    invalidates the capture.  Here the dead engine becomes such garbage
+    at the start of the second engine's capture, with the collector set
+    to run at every allocation: the capture still holds, and the second
+    engine serves the first one's tokens."""
+    import gc
+
+    cfg, params = _dense_7b(gen)
+    prompts = _prompts(cfg, [5, 40, 100])
+
+    def engine():
+        return ContinuousBatchingEngine(
+            cfg, params, max_slots=4, page_size=64, num_pages=40,
+            max_pages_per_seq=8, sampling=GREEDY, prefill_chunk=64,
+            device="cuda")
+
+    first = engine()
+    want = _serve(first, prompts, 12)
+    assert first.graphs.captured == 1
+    held = [first]
+    del first
+    cb = engine()
+    body = cb._tick_body
+
+    def tick_body():
+        if held and torch.cuda.is_current_stream_capturing():
+            loop = {"engine": held.pop()}
+            loop["loop"] = loop
+            del loop      # the dead engine is now cyclic garbage
+        return body()
+
+    cb._tick_body = tick_body
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        got = _serve(cb, prompts, 12)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not held and got == want and cb.graphs.captured == 1
 
 
 def _sample_float(logits, params, seen_mask=None, generator=None):

@@ -284,20 +284,57 @@ def test_local_caches_equal_the_jax_cache_shards(shape, paged, int8):
 
 
 # --------------------------------------------------------------- refusals
-def test_head_dim_split_of_the_cache_is_refused():
-    """KV heads that do not split over the model axis: the JAX package
-    shards head_dim (a GSPMD-only layout); the port refuses."""
-    cache = KVCache.create(2, 2, 64, 2, 16, dtype=torch.float32)
-    with pytest.raises(ValueError, match="head_dim"):
+@pytest.mark.parametrize("paged", [False, True],
+                         ids=["contiguous", "paged"])
+def test_head_dim_split_of_the_cache_is_refused(paged):
+    """No longer refused: KV heads that do not split over the model axis
+    (2 over tp 4), where the JAX package shards head_dim, give each rank
+    the whole KV head ``r // 2`` of the same global cache (the model's
+    ``TpLayout`` replicates it); attention that runs whole keeps every
+    head.  Without a layout the split still needs whole heads."""
+    rng = np.random.default_rng(4)
+    shape = (2, 6, 2, 8, 16) if paged else (2, 2, 2, 64, 16)
+    k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    cache = (PagedKVCache(torch.from_numpy(k), torch.from_numpy(v), None,
+                          None, page_size=8) if paged
+             else KVCache(torch.from_numpy(k), torch.from_numpy(v)))
+    cfg, params = _tiny(**dict(CFG_KW, num_kv_heads=2))
+    lay = tp_step.tp_layout(cfg, params, 4)
+    assert lay.attn == "kv_replicated"
+    for m in range(4):
+        local = sharding.make_sharded_cache(cache, fake_mesh(1, 4, 0, m),
+                                            lay)
+        lk = local.k_pages if paged else local.k
+        lv = local.v_pages if paged else local.v
+        np.testing.assert_array_equal(lk.numpy(), k[:, :, m // 2:m // 2 + 1])
+        np.testing.assert_array_equal(lv.numpy(), v[:, :, m // 2:m // 2 + 1])
+    whole = tp_step.tp_layout(*_tiny(**dict(CFG_KW, num_heads=6,
+                                            num_kv_heads=2)), 4)
+    assert whole.attn == "whole"
+    local = sharding.make_sharded_cache(cache, fake_mesh(1, 4, 0, 3), whole)
+    np.testing.assert_array_equal((local.k_pages if paged else local.k)
+                                  .numpy(), k)
+    with pytest.raises(ValueError, match="TpLayout"):
         sharding.make_sharded_cache(cache, fake_mesh(1, 4))
 
 
 def test_sequence_sharded_input_is_refused():
-    tokens = torch.zeros((2, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="sequence-sharded"):
-        sharding.batch_shard(tokens, fake_mesh(1, 2), (None, "model"))
+    """No longer refused: a token axis on ``model`` gives model rank m its
+    m-th slice of the tokens (the sequence-parallel prefill's input, held
+    to the JAX GSPMD prefill in ``tests/test_torch_tp_layout_rules.py``);
+    ``data`` still splits the rows, ``model`` never does."""
+    tokens = torch.arange(16, dtype=torch.int64).reshape(2, 8)
+    for m in range(2):
+        got = sharding.batch_shard(tokens, fake_mesh(1, 2, 0, m),
+                                   (None, "model"))
+        assert torch.equal(got, tokens[:, 4 * m:4 * m + 4])
+    got = sharding.batch_shard(tokens, fake_mesh(2, 2, 1, 1),
+                               ("data", "model"))
+    assert torch.equal(got, tokens[1:, 4:])
     assert sharding.batch_shard(tokens, fake_mesh(2, 1, 1, 0),
                                 ("data", None)).shape == (1, 8)
+    with pytest.raises(ValueError, match="token axis"):
+        sharding.batch_shard(tokens, fake_mesh(1, 2), ("model", None))
 
 
 def _tiny(**kw):
@@ -309,21 +346,39 @@ def _tiny(**kw):
 
 
 def test_engines_refuse_a_model_that_does_not_split():
-    """KV heads 2 over tp = 4 (the JAX engines then drop to GSPMD's XLA
-    ops): ``Engine`` and the serving engine raise, naming why."""
+    """No longer refused: KV heads 2 over tp = 4 (the JAX engines then
+    drop to GSPMD's XLA ops).  ``Engine`` and the serving engine take the
+    GSPMD layout: each rank holds one KV head of the cache and of the
+    pool, its 1 of 4 query heads' columns and its KV head's k / v
+    columns, and samples on its vocabulary shard
+    (``tests/test_torch_tp_layouts.py`` holds their tokens to the JAX
+    GSPMD run)."""
     from qwen_inference_engine_tpu_torch.engine.engine import Engine
     from qwen_inference_engine_tpu_torch.engine.scheduler import (
         ContinuousBatchingEngine,
     )
+    from qwen_inference_engine_tpu_torch.parallel.mesh import Group
 
     cfg, params = _tiny()
-    with pytest.raises(ValueError, match="KV heads 2 do not split.*GSPMD"):
-        Engine(cfg, params, mesh=fake_mesh(1, 4), max_batch=4, max_seq=64,
-               device="cpu")
-    with pytest.raises(ValueError, match="KV heads 2 do not split"):
-        ContinuousBatchingEngine(cfg, params, mesh=fake_mesh(1, 4),
-                                 max_slots=2, page_size=8, num_pages=8,
-                                 max_pages_per_seq=4, device="cpu")
+    for m in range(4):
+        mesh = fake_mesh(1, 4, 0, m)
+        mesh.capturable = False
+        mesh.model_group = Group(pg=None, size=4, rank=m, backend="gloo",
+                                 ranks=(0, 1, 2, 3))
+        eng = Engine(cfg, params, mesh=mesh, max_batch=4, max_seq=64,
+                     device="cpu")
+        assert eng.layout.gspmd and eng.layout.attn == "kv_replicated"
+        assert eng.new_cache().k.shape[2] == 1
+        lyr = eng.params["layers"]
+        h = m // 2 * cfg.head_dim
+        assert torch.equal(lyr["k"].w, params["layers"]["k"].w[
+            ..., h:h + cfg.head_dim])
+        assert lyr["q"].w.shape[-1] == cfg.q_dim // 4
+        cb = ContinuousBatchingEngine(cfg, params, mesh=mesh, max_slots=2,
+                                      page_size=8, num_pages=8,
+                                      max_pages_per_seq=4, device="cpu")
+        assert cb._gspmd and cb.cache.k_pages.shape[2] == 1
+        assert cb._vocab.v_local == cfg.vocab_size // 4
 
 
 def test_fused_projections_and_row_biases_do_not_split():
@@ -340,10 +395,37 @@ def test_fused_projections_and_row_biases_do_not_split():
     assert tp_step.supports_tp(cfg, params, 2)
     qp = quantize_params(params, QuantConfig(bits=8, group_size=16))
     assert tp_step.supports_tp(cfg, qp, 2)
-    assert "split layout" in tp_step.tp_refusal(cfg, fuse_projections(qp), 2)
+    fused = fuse_projections(qp)
+    assert "split layout" in tp_step.tp_refusal(cfg, fused, 2)
     lyr = dict(params["layers"])
-    lyr["o"] = dataclasses.replace(lyr["o"], b=torch.zeros(2, 128))
-    assert "bias" in tp_step.tp_refusal(cfg, dict(params, layers=lyr), 2)
+    lyr["o"] = dataclasses.replace(lyr["o"], b=torch.ones(2, 128))
+    biased = dict(params, layers=lyr)
+    assert "bias" in tp_step.tp_refusal(cfg, biased, 2)
+    # no longer refused: both run in the GSPMD layout (their tokens:
+    # tests/test_torch_tp_fused.py, tests/test_torch_tp_layouts.py).  A
+    # rank's qkv is its q heads' columns, then its KV heads' k and v; its
+    # gateup its gate columns, then its up columns
+    lay = tp_step.tp_layout(cfg, fused, 2)
+    assert lay.gspmd and (lay.attn, lay.o, lay.mlp) == ("heads", "split",
+                                                       "split")
+    split = sharding.shard_params(qp, fake_mesh(1, 2, 0, 1))
+    local = sharding.shard_params(fused, fake_mesh(1, 2, 0, 1), lay)
+    for fname, names in (("qkv", ("q", "k", "v")), ("gateup", ("gate",
+                                                               "up"))):
+        for f in ("q", "scales", "b"):
+            want = [getattr(split["layers"][n], f) for n in names]
+            got = getattr(local["layers"][fname], f)
+            if want[0] is None:
+                assert got is None
+                continue
+            assert torch.equal(got, torch.cat(want, dim=-1)), (fname, f)
+    # the row-parallel bias stays whole on every rank (added once, after
+    # the all-reduce)
+    lay = tp_step.tp_layout(cfg, biased, 2)
+    assert lay.gspmd and lay.o == "split"
+    local = sharding.shard_params(biased, fake_mesh(1, 2, 0, 1), lay)
+    assert torch.equal(local["layers"]["o"].b, lyr["o"].b)
+    assert local["layers"]["o"].w.shape[-2] == cfg.q_dim // 2
 
 
 def test_generate_speculative_under_a_mesh_is_refused(worlds):

@@ -18,7 +18,8 @@ step body each over static buffers (``engine/engine.py``,
 * the step keys: the same key reuses its step, another key builds its
   own; the scheduler's tick has one key whatever its tables' width;
 * the launch accounting of a capture and its replays, on stand-in
-  counters and a stand-in graph module;
+  counters and a stand-in graph module, and the cyclic collector held
+  off while a step is captured;
 * a second call from restored buffers gives the same steps.
 
 The card's own tests (captured against eager, bit for bit) are in
@@ -341,6 +342,45 @@ def test_a_key_reuses_its_step_and_another_key_builds_its_own():
     assert len(cuda.graphs) == 2 and cuda.graphs[0].replays == 3
     assert cuda.pools == 1   # one memory pool for the engine's graphs
     assert wrappers["a"].launches == 4 and wrappers["b"].launches == 3
+
+
+def test_the_cyclic_collector_is_held_off_while_a_step_is_captured():
+    """A dead engine freed by the collector inside a capture would destroy
+    its graphs there and invalidate the capture: the collector is off
+    while the body is captured only, and back on after, also where the
+    capture raises."""
+    import gc
+
+    wrappers, cuda, graphs = _stand_in()
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        return "out"
+
+    assert gc.isenabled()
+    for _ in range(3):
+        graphs.run("k", body)
+    # the eager step and the capture ran the body; the replay did not
+    assert seen == [True, False] and gc.isenabled()
+
+    def failing():
+        seen.append(gc.isenabled())
+        if not seen[-1]:
+            raise RuntimeError("capture invalidated")
+
+    graphs.run("bad", failing)
+    with pytest.raises(RuntimeError, match="invalidated"):
+        graphs.run("bad", failing)
+    assert seen[2:] == [True, False] and gc.isenabled()
+    # a caller that turned the collector off keeps it off
+    gc.disable()
+    try:
+        graphs.run("k2", body)
+        graphs.run("k2", body)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 def test_eager_steps_and_the_cpu_run_every_step_eagerly():
